@@ -7,7 +7,7 @@ Phases, each of which raises on a failed check:
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA source of the port (one nvcc per source, in parallel);
-3. the FourierUnit kernel against its plain PyTorch version at the
+3. the FourierUnit forward kernel against its plain PyTorch version at the
    shapes the 32px generator gives it at batch 64, in f32 (TF32 off) and
    bf16, with kernel and plain times; the torch.fft-vs-factor-form gap is
    printed as information (cuFFT's C2R makes no promise for the
@@ -19,15 +19,29 @@ Phases, each of which raises on a failed check:
    then batch-64 requests back to back for a few seconds for the served
    img/s; one request is held against the same weights run through the
    plain op;
-5. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
+5. the training kernels (batch statistics, backward statistics, backward
+   apply, and the batch reduction behind them) against their plain
+   versions at the same shapes, in f32 and bf16, every output, with
+   kernel, profiler-device and plain times and the bound;
+6. train the full-width 32px generator against the SN discriminator in
+   bf16 at batch 64 (seeded weights and data): warm-up steps, each with
+   exact kernel launches per FourierUnit map, then steps back to back for
+   a few seconds for the step time, with every count set to 0 before the
+   steps and read after them; losses finite at every step;
+7. one f32 step (TF32 off, deterministic algorithms) with the kernels
+   against the same step with the plain ops patched in: every generator
+   gradient, then the losses of 3 steps;
+8. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, where CUDA is absent.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -36,9 +50,18 @@ from unittest import mock
 SEED = 0
 BATCH = 64
 N_REQUESTS = 8
-# (B, C, H, W) of the generator's two FourierUnits at serving batch 64:
-# block1's g2g on 16x16 maps, block2's on 32x32.
+# (B, C, H, W) of the generator's two FourierUnits at batch 64, serving and
+# training: block1's g2g on 16x16 maps, block2's on 32x32.
 FU_SHAPES = [(BATCH, 16, 16, 16), (BATCH, 8, 32, 32)]
+# rel-max = max|kernel - reference| / max|reference|. The forward kernel's
+# reference is its plain version in the same dtype. The training kernels'
+# is their plain version evaluated in f64 on the same inputs: they compute
+# in f32, and a plain version run in the working dtype is no sharper a
+# yardstick. In bf16 it rounds every stage; in f32 as in bf16, one ReLU
+# mask element whose pre-activation lies within rounding of 0 can flip,
+# and one flip moved gbias by 1.2e-2 and gx by 4.9e-2 of their maxima
+# (H100 80GB HBM3, 700 W, at these shapes). That gap is printed as
+# information.
 FU_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # Whole-request uint8 agreement, kernel vs plain op on the same weights.
 # f32: both sides agree to ~1e-6, so only a truncation boundary can flip a
@@ -50,9 +73,36 @@ U8_MEAN_LEVELS = {"float32": 0.01, "bfloat16": 1.0}
 # operands' type (bf16 on the tensor cores, f32 outside them).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
-# Served requests timed back to back for the throughput reading.
+# Served requests and training steps timed back to back for the
+# throughput readings.
 TIMED_SECONDS = 3.0
-TPU_KERNEL = "fastfourierconvolution_tpu/ops/pallas/fourier_unit.py:657,1124,1405"
+WARMUP_STEPS = 3
+# f32 training step, kernels vs plain ops, under deterministic algorithms
+# so that the FourierUnit ops are the only difference: every generator
+# gradient (rel-max per tensor) and the losses of PLAIN_STEPS steps
+# (absolute). This model's f32 gradients amplify rounding about 1e4-fold:
+# two runs of the same code under cuDNN's default algorithms differed by
+# up to 4.9e-3 rel-max, and the kernels sat 1.2e-3 from the plain ops
+# under deterministic ones (H100 80GB HBM3, 700 W, at these shapes; the
+# phase prints both each time), so the gradient bar sits above that floor
+# and far below what a wrong kernel gives (order 1).
+STEP_GRAD_TOL = 1e-2
+STEP_LOSS_TOL = 1e-3
+PLAIN_STEPS = 3
+SOURCE = "fastfourierconvolution_tpu_torch/csrc/"
+TPU_FU = "fastfourierconvolution_tpu/ops/pallas/fourier_unit.py:"
+# kernel -> (source, the pallas_call lines it replaces)
+KERNELS = {
+    "fourier_unit_fwd": ("fourier_unit_fwd.cu", "657,1124,1405"),
+    "fu_train_stats": ("fourier_unit_train.cu", "622,1088,1363"),
+    "fu_bwd_stats": ("fourier_unit_train.cu", "753,1222,1500"),
+    "fu_bwd_apply": ("fourier_unit_train.cu", "806,1275,1562"),
+    # the VMEM-scratch accumulation across the TPU kernels' sequential grid
+    "fu_reduce": ("fourier_unit_train.cu", "609-620,740-747,789-797"),
+}
+# Launches per training step and FourierUnit map.
+STEP_LAUNCHES = {"fu_train_stats": 2, "fourier_unit_fwd": 2, "fu_bwd_stats": 1,
+                 "fu_bwd_apply": 1}
 
 
 def log(*parts):
@@ -84,21 +134,53 @@ def fu_inputs(shape, dtype, device, seed):
             *(t.to(device) for t in (scale, bias, mean, var)))
 
 
-def fu_work(shape, itemsize):
-    """(bytes, FLOPs) the FourierUnit forward needs: x and y once, the
-    operands once; FFT-sized transforms (5 N log2 N per complex length-N
-    transform, half that for a real one), the mix and the BN tail."""
+def fu_work(kernel, shape, itemsize):
+    """(bytes, FLOPs) a FourierUnit kernel's function needs at ``shape``:
+    each input read once and each output written once (maps in the model
+    dtype, the (2C,) vectors and gK in f32, K in the model dtype);
+    FFT-sized transforms (5 N log2 N per complex length-N transform, half
+    that for a real one), each (2C, 2C) product over the spectrum, and the
+    elementwise BN work. For ``fu_reduce`` ``shape`` is the (rows, cols)
+    of its f32 partial sums."""
+    if kernel == "fu_reduce":
+        rows, cols = shape
+        return (rows + 1) * cols * 4, rows * cols
     b, c, h, w = shape
-    wf = w // 2 + 1
-    nbytes = 2 * b * c * h * w * itemsize + 4 * c * c * itemsize + 4 * 2 * c * 4
-    rfft_w = 2.5 * w * math.log2(w) * c * h     # over W, one per (c, h) row
-    fft_h = 5 * h * math.log2(h) * c * wf       # over H, one per (c, v) column
-    per_item = (
-        2 * (rfft_w + fft_h)                    # forward and inverse
-        + 2 * (2 * c) ** 2 * h * wf             # (2C, 2C) mix
-        + 6 * 2 * c * h * wf                    # BN, ReLU, c weights
-    )
-    return nbytes, int(b * per_item)
+    c2, s = 2 * c, h * (w // 2 + 1)
+    n_map = b * c * h * w * itemsize
+    k_bytes, vec = c2 * c2 * itemsize, c2 * 4
+    dft = 2.5 * w * math.log2(w) * c * h + 5 * h * math.log2(h) * c * (w // 2 + 1)
+    mix = 2 * c2 * c2 * s
+    nbytes, per_item = {
+        "fourier_unit_fwd": (2 * n_map + k_bytes + 4 * vec, 2 * dft + mix + 6 * c2 * s),
+        "fu_train_stats": (n_map + k_bytes + 2 * vec, dft + mix + 3 * c2 * s),
+        "fu_bwd_stats": (2 * n_map + k_bytes + 6 * vec, 2 * dft + mix + 8 * c2 * s),
+        "fu_bwd_apply": (3 * n_map + k_bytes + 6 * vec + c2 * c2 * 4,
+                         3 * dft + 3 * mix + 12 * c2 * s),
+    }[kernel]
+    return int(nbytes), int(b * per_item)
+
+
+def bound(kernel, shape, itemsize, dtype_name):
+    """(bound ms, "bytes" or "operations", bytes, FLOPs)."""
+    nbytes, flops = fu_work(kernel, shape, itemsize)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOP_PER_S[dtype_name] * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), by, nbytes, flops
+
+
+def kernel_row(name, shape, dtype_name, **numbers):
+    source, lines = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": SOURCE + source,
+            "replaces": TPU_FU + lines, "shape": list(shape), "dtype": dtype_name,
+            **numbers}
+
+
+def rel_max(out, ref):
+    """(rel-max, max-abs) of ``out`` against ``ref``, in f32."""
+    err = (out.float() - ref.float()).abs().max().item()
+    return err / ref.float().abs().max().item(), err
 
 
 def time_ms(fn, iters, warmup=5):
@@ -131,7 +213,9 @@ def device_breakdown(fn, iters=10, top=8):
         torch.cuda.synchronize()
     rows = []
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
+        # a GPU user annotation (the optimizer's step range) spans kernels
+        # that are counted on their own
+        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
             continue
         t = getattr(evt, "self_device_time_total", None)
         if t is None:
@@ -162,20 +246,19 @@ def check_fourier_unit(device):
             ref = fourier_unit_forward_plain(*args).float()
             if not torch.isfinite(y.float()).all():
                 raise AssertionError(f"kernel {shape} {name}: non-finite output")
-            abs_err = (y.float() - ref).abs().max().item()
-            rel = abs_err / ref.abs().max().item()
+            rel, abs_err = rel_max(y, ref)
             ms = time_ms(lambda: fourier_unit_forward(*args), iters=200)
             plain_ms = time_ms(lambda: fourier_unit_forward_plain(*args), iters=50)
             _, _, kernels = device_breakdown(lambda: fourier_unit_forward(*args))
             dev_ms = sum(t for key, t, _ in kernels if "fourier_unit_fwd_kernel" in key)
-            nbytes, flops = fu_work(shape, y.element_size())
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = flops / PEAK_FLOP_PER_S[name] * 1e3
+            bound_ms, bound_by, nbytes, flops = bound(
+                "fourier_unit_fwd", shape, y.element_size(), name
+            )
             log(
                 f"fourier_unit_fwd {shape} {name}: rel-max {rel:.3e} "
                 f"(tol {FU_REL_TOL[name]:g}), max-abs {abs_err:.3e}, kernel "
                 f"{ms:.4f} ms/call (profiler device {dev_ms:.4f} ms), plain "
-                f"{plain_ms:.4f} ms/call, bound {max(bytes_ms, ops_ms):.5f} ms "
+                f"{plain_ms:.4f} ms/call, bound {bound_ms:.5f} ms "
                 f"({nbytes} B, {flops} FLOP)"
             )
             if not rel <= FU_REL_TOL[name]:
@@ -195,21 +278,109 @@ def check_fourier_unit(device):
                 log(f"  info: torch.fft (cuFFT) vs factor form, max-abs {gap:.3e}"
                     f" (rel {gap / ref.abs().max().item():.3e})")
             else:
-                rows.append({
-                    "name": "fourier_unit_fwd",
-                    "route": "cuda",
-                    "source": "fastfourierconvolution_tpu_torch/csrc/fourier_unit_fwd.cu",
-                    "replaces": TPU_KERNEL,
-                    "shape": list(shape),
-                    "dtype": name,
-                    "max_abs_err": abs_err,
-                    "ms": ms,
-                    "device_ms": dev_ms,
-                    "plain_ms": plain_ms,
-                    "bound_ms": max(bytes_ms, ops_ms),
-                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                    "library_ms": None,
-                })
+                rows.append(kernel_row(
+                    "fourier_unit_fwd", shape, name, phase="serving",
+                    max_abs_err=abs_err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                ))
+    return rows
+
+
+def train_cases(shape, dtype, device, seed):
+    """[(name, wrapper, plain version, arguments, output names)] for the
+    training kernels at ``shape``; the backward's statistics come from
+    the plain versions in f64, rounded to f32."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    x, kernel, scale, bias, _, _ = fu_inputs(shape, dtype, device, seed)
+    gy = torch.randn(shape, generator=torch.Generator().manual_seed(seed + 1)).to(device, dtype)
+    f64 = lambda args: [a.double() for a in args]
+    mean, var = (t.float() for t in fu.fu_train_stats_plain(*f64((x, kernel))))
+    bwd = (x, kernel, scale, bias, mean, var, gy)
+    gscale, gbias = (t.float() for t in fu.fu_bwd_stats_plain(*f64(bwd)))
+    return [
+        ("fu_train_stats", fu.fu_train_stats, fu.fu_train_stats_plain, (x, kernel),
+         ("bmean", "bvar")),
+        ("fu_bwd_stats", fu.fu_bwd_stats, fu.fu_bwd_stats_plain, bwd, ("gscale", "gbias")),
+        ("fu_bwd_apply", fu.fu_bwd_apply, fu.fu_bwd_apply_plain, bwd + (gscale, gbias),
+         ("gx", "gK")),
+    ]
+
+
+def check_train_kernels(device):
+    """Phase 5; returns the bf16 rows (and the reduction's f32 rows) for
+    the kernels line."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    rows = []
+    for shape in FU_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            for name, kern, plain, args, out_names in train_cases(shape, dtype, device, SEED):
+                outs = kern(*args)
+                torch.cuda.synchronize()
+                refs = plain(*(a.double() for a in args))
+                errs = {o: rel_max(out, ref) for o, out, ref in zip(out_names, outs, refs)}
+                if not all(torch.isfinite(out.float()).all() for out in outs):
+                    raise AssertionError(f"{name} {shape} {dname}: non-finite output")
+                ms = time_ms(lambda: kern(*args), iters=200)
+                plain_ms = time_ms(lambda: plain(*args), iters=20)
+                _, _, top = device_breakdown(lambda: kern(*args), top=20)
+                dev_ms = sum(t for key, t, _ in top if f"{name}_kernel" in key)
+                bound_ms, bound_by, nbytes, flops = bound(name, shape, args[0].element_size(), dname)
+                log(f"{name} {shape} {dname}: " + ", ".join(
+                    f"{o} rel-max {r:.3e} (max-abs {a:.3e})" for o, (r, a) in errs.items())
+                    + f" (tol {FU_REL_TOL[dname]:g}, against the plain version in f64); "
+                    f"kernel {ms:.4f} ms/call with its reduction (profiler device "
+                    f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms/call, bound "
+                    f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {flops} FLOP)")
+                gaps = {o: rel_max(p, r)[0] for o, p, r in zip(out_names, plain(*args), refs)}
+                log(f"  info: plain version in {dname} vs f64, rel-max " + ", ".join(
+                    f"{o} {g:.3e}" for o, g in gaps.items()))
+                if dtype == torch.bfloat16:
+                    rows.append(kernel_row(
+                        name, shape, dname, phase="training",
+                        max_abs_err=max(a for _, a in errs.values()),
+                        rel_max={o: r for o, (r, _) in errs.items()},
+                        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=None,
+                    ))
+                bad = {o: r for o, (r, _) in errs.items() if not r <= FU_REL_TOL[dname]}
+                if bad:
+                    raise AssertionError(f"{name} {shape} {dname}: rel-max {bad}")
+        # The batch reduction at the two partial-sum shapes of this map:
+        # (B, 4C) for the statistics (mean/variance epilogue) and the
+        # backward sums, (B, 4C^2) for gK.
+        b, c = shape[0], shape[1]
+        g = torch.Generator().manual_seed(SEED)
+        for cols, count in ((4 * c, b * shape[2] * (shape[3] // 2 + 1)), (4 * c * c, 0)):
+            partial = torch.randn(b, cols, generator=g).to(device)
+            out = fu.fu_reduce(partial, count)
+            torch.cuda.synchronize()
+            ref = fu.fu_reduce_plain(partial.double(), count)
+            rel, err = rel_max(out, ref)
+            ms = time_ms(lambda: fu.fu_reduce(partial, count), iters=200)
+            plain_ms = time_ms(lambda: fu.fu_reduce_plain(partial, count), iters=200)
+            library_ms = time_ms(lambda: torch.sum(partial, 0), iters=200) if count == 0 else None
+            _, _, top = device_breakdown(lambda: fu.fu_reduce(partial, count))
+            dev_ms = sum(t for key, t, _ in top if "fu_reduce_kernel" in key)
+            bound_ms, bound_by, nbytes, flops = bound("fu_reduce", (b, cols), 4, "float32")
+            log(f"fu_reduce ({b}, {cols}) count {count}: rel-max {rel:.3e} (max-abs "
+                f"{err:.3e}, against an f64 sum; tol {FU_REL_TOL['float32']:g}); kernel "
+                f"{ms:.4f} ms/call (profiler device {dev_ms:.4f} ms), plain {plain_ms:.4f}"
+                f" ms/call, torch.sum {library_ms} ms/call, bound {bound_ms:.6f} ms "
+                f"({bound_by})")
+            if not rel <= FU_REL_TOL["float32"]:
+                raise AssertionError(f"fu_reduce ({b}, {cols}): rel-max {rel}")
+            rows.append(kernel_row(
+                "fu_reduce", (b, cols), "float32", phase="training", max_abs_err=err,
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+            ))
     return rows
 
 
@@ -337,6 +508,163 @@ def serve(device, card):
     return by_map
 
 
+def launch_wrappers():
+    """{kernel name: its wrapper}; each wrapper counts its launches."""
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    return {"fu_train_stats": fu.fu_train_stats, "fourier_unit_fwd": fu.fourier_unit_forward,
+            "fu_bwd_stats": fu.fu_bwd_stats, "fu_bwd_apply": fu.fu_bwd_apply,
+            "fu_reduce": fu.fu_reduce}
+
+
+def expected_launches(n_steps):
+    """{kernel: {map or partial shape: launches}} for ``n_steps`` steps."""
+    maps = [tuple(s[1:]) for s in FU_SHAPES]
+    want = {k: {m: per * n_steps for m in maps} for k, per in STEP_LAUNCHES.items()}
+    # two statistics reductions and one backward-sums reduction on (B, 4C),
+    # one gK reduction on (B, 4C^2)
+    want["fu_reduce"] = {}
+    for b, c, _, _ in FU_SHAPES:
+        want["fu_reduce"][(b, 4 * c)] = 3 * n_steps
+        want["fu_reduce"][(b, 4 * c * c)] = n_steps
+    return want
+
+
+def counts_by_map():
+    return {k: dict(w.launches_by_map) for k, w in launch_wrappers().items()}
+
+
+def make_trainer(device, dtype):
+    import torch
+
+    from fastfourierconvolution_tpu_torch import FFCGenerator, GANTrainer, SNConvDiscriminator
+
+    g = FFCGenerator.for_resolution(32, generator=torch.Generator().manual_seed(SEED))
+    d = SNConvDiscriminator.for_resolution(32, generator=torch.Generator().manual_seed(SEED + 1))
+    return GANTrainer(g, d, seed=SEED, device=device, dtype=dtype)
+
+
+def real_batch(device, seed):
+    """A seeded (B, 32, 32, 3) batch in [-1, 1], NHWC."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(BATCH, 32, 32, 3, generator=g) * 2 - 1).to(device)
+
+
+def train(device, card):
+    """Phase 6; returns the launches by map and kernel over the steps."""
+    import torch
+
+    trainer = make_trainer(device, "bf16")
+    real = real_batch(device, SEED + 2)
+    for w in launch_wrappers().values():
+        w.launches = 0
+        w.launches_by_map.clear()
+    losses = []
+    for i in range(WARMUP_STEPS):
+        before = counts_by_map()
+        losses.append(trainer.update_step(real))
+        torch.cuda.synchronize()
+        step = {k: {m: n - before[k].get(m, 0) for m, n in v.items()}
+                for k, v in counts_by_map().items()}
+        if step != expected_launches(1):
+            raise AssertionError(f"kernel launches in step {i}: {step}")
+    n_timed = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < TIMED_SECONDS:
+        for _ in range(10):
+            losses.append(trainer.update_step(real))
+        n_timed += 10
+        torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    counts = counts_by_map()
+    n_steps = WARMUP_STEPS + n_timed
+    if counts != expected_launches(n_steps):
+        raise AssertionError(f"kernel launches over {n_steps} steps: {counts}")
+    launches = {k: w.launches for k, w in launch_wrappers().items()}
+    values = torch.stack([torch.stack([l["loss_g"], l["loss_d"]]) for l in losses])
+    if not torch.isfinite(values).all():
+        raise AssertionError("non-finite training loss")
+    step_ms = timed_s / n_timed * 1e3
+    busy_ms, n_launch, top = device_breakdown(lambda: trainer.update_step(real), iters=5, top=10)
+    log(f"training step, batch {BATCH}, bf16: {step_ms:.3f} ms wall (unprofiled, "
+        f"{n_timed} steps in {timed_s:.3f} s, host clock), {BATCH / step_ms * 1e3:.1f} "
+        f"img/s; device busy {busy_ms:.3f} ms in {n_launch} device launches "
+        f"(profiler), idle share {1 - busy_ms / step_ms:.3f}; {card}")
+    for name, ms, count in top:
+        log(f"  device {ms:.4f} ms in {count} launches: {name[:90]}")
+    log(f"trained {n_steps} steps ({WARMUP_STEPS} warm-up, each checked): losses "
+        f"finite, last loss_g {values[-1, 0].item():.4f} loss_d {values[-1, 1].item():.4f}")
+    log(f"trained: kernel launches {launches}; by map {counts}")
+    return counts
+
+
+def grad_gap(grads_a, grads_b, names):
+    """(worst rel-max, its tensor, worst rel-norm) over the tensors."""
+    worst, where, worst_norm = 0.0, "", 0.0
+    for name, a, b in zip(names, grads_a, grads_b):
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        worst_norm = max(worst_norm, (a - b).norm().item() / max(b.norm().item(), 1e-30))
+        if rel > worst:
+            worst, where = rel, name
+    return worst, where, worst_norm
+
+
+def train_vs_plain(device):
+    """Phase 7: f32 steps with the kernels against the plain ops."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    plain_ops = lambda: mock.patch.multiple(
+        fu, fu_train_stats=fu.fu_train_stats_plain,
+        fourier_unit_forward=fu.fourier_unit_forward_plain,
+        fu_bwd_stats=fu.fu_bwd_stats_plain, fu_bwd_apply=fu.fu_bwd_apply_plain,
+    )
+    g = torch.Generator().manual_seed(SEED + 3)
+    zs = torch.randn(PLAIN_STEPS, 2, BATCH, 128, generator=g).to(device)
+    real = real_batch(device, SEED + 4)
+
+    def g_grads(plain):
+        trainer = make_trainer(device, "f32")
+        names = [n for n, _ in trainer.g.named_parameters()]
+        with plain_ops() if plain else contextlib.nullcontext():
+            return names, trainer.g_loss_and_grads(zs[0, 0])[1]
+
+    names, floor_a = g_grads(plain=False)
+    floor = grad_gap(floor_a, g_grads(plain=False)[1], names)
+    torch.use_deterministic_algorithms(True)
+    try:
+        _, grads_k = g_grads(plain=False)
+        before = {k: w.launches for k, w in launch_wrappers().items()}
+        _, grads_p = g_grads(plain=True)
+        if {k: w.launches for k, w in launch_wrappers().items()} != before:
+            raise AssertionError("the plain-op step launched a kernel")
+        worst, where, worst_norm = grad_gap(grads_k, grads_p, names)
+        log(f"f32 step, kernels vs plain ops (deterministic algorithms): {len(names)} "
+            f"generator gradients, worst rel-max {worst:.3e} ({where}), worst rel-norm "
+            f"{worst_norm:.3e} (tol {STEP_GRAD_TOL:g} rel-max); floor: the kernel path "
+            f"against itself under cuDNN's default algorithms, worst rel-max "
+            f"{floor[0]:.3e} ({floor[1]}), rel-norm {floor[2]:.3e}")
+        if not worst <= STEP_GRAD_TOL:
+            raise AssertionError(f"f32 gradient of {where}: rel-max {worst} vs the plain ops")
+
+        kern, plain = make_trainer(device, "f32"), make_trainer(device, "f32")
+        for i in range(PLAIN_STEPS):
+            lk = kern.update_step(real, zs=zs[i])
+            with plain_ops():
+                lp = plain.update_step(real, zs=zs[i])
+            diffs = {k: abs(lk[k].item() - lp[k].item()) for k in lk}
+            log(f"  f32 step {i}: kernels {({k: round(v.item(), 6) for k, v in lk.items()})}, "
+                f"plain ops {({k: round(v.item(), 6) for k, v in lp.items()})}, |diff| "
+                f"{({k: f'{d:.2e}' for k, d in diffs.items()})} (tol {STEP_LOSS_TOL:g})")
+            if not all(d <= STEP_LOSS_TOL for d in diffs.values()):
+                raise AssertionError(f"f32 losses at step {i} differ from the plain ops: {diffs}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+
 def main() -> int:
     import torch
 
@@ -346,6 +674,9 @@ def main() -> int:
     from fastfourierconvolution_tpu_torch.ops import _build
 
     device = torch.device("cuda")
+    # cuBLAS reads this when it first starts; phase 7's deterministic
+    # algorithms need it.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -367,7 +698,13 @@ def main() -> int:
     by_map = serve(device, card)
     for row in rows:
         row["launches"] = by_map[tuple(row["shape"][1:])]
-    log(json.dumps({"kernels": rows}))
+    train_rows = check_train_kernels(device)
+    counts = train(device, card)
+    for row in train_rows:
+        key = tuple(row["shape"]) if row["name"] == "fu_reduce" else tuple(row["shape"][1:])
+        row["launches"] = counts[row["name"]][key]
+    train_vs_plain(device)
+    log(json.dumps({"kernels": rows + train_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

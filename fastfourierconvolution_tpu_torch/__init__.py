@@ -1,13 +1,17 @@
 """PyTorch and CUDA port of fastfourierconvolution_tpu for NVIDIA Hopper.
 
-This slice serves the FFC generator in eval mode: ``serving.Generator``
-turns latents into uint8 NHWC images. The FourierUnit runs as a
-hand-written CUDA kernel on the card (``csrc/fourier_unit_fwd.cu``) and as
-its plain PyTorch version on the CPU. ``bridge.jax_to_state_dict`` loads
-the JAX package's variables. The package imports torch and numpy only.
+``serving.Generator`` turns latents into uint8 NHWC images with the FFC
+generator in eval mode; ``train.gan.GANTrainer`` trains the generator
+against the spectral-normed conv discriminator. The FourierUnit runs as
+hand-written CUDA kernels on the card (``csrc/fourier_unit_fwd.cu`` for
+the forward, ``csrc/fourier_unit_train.cu`` for the batch statistics and
+the backward) and as their plain PyTorch versions on the CPU.
+``bridge.jax_to_state_dict`` loads the JAX package's variables. The
+package imports torch and numpy only.
 """
 
-from .models.ffc_gan import FFCGenerator, to_uint8
+from .models.ffc_gan import FFCGenerator, SNConvDiscriminator, to_uint8
 from .serving import Generator
+from .train.gan import GANTrainer
 
-__all__ = ["FFCGenerator", "Generator", "to_uint8"]
+__all__ = ["FFCGenerator", "GANTrainer", "Generator", "SNConvDiscriminator", "to_uint8"]

@@ -1,16 +1,20 @@
 """Turn the JAX package's variables into the port's state dict.
 
-Input: the JAX model's ``params`` and ``batch_stats`` collections as
-nested dicts of numpy arrays (``jax.device_get`` of the flax variables).
-Output: a state dict for the port's module, in torch layouts:
+Input: the JAX model's ``params``, ``batch_stats`` and ``spectral``
+collections as nested dicts of numpy arrays (``jax.device_get`` of the
+flax variables). Output: a state dict for the port's module, in torch
+layouts:
 
-- convolution HWIO -> OIHW;
+- convolution HWIO -> OIHW (spectral-normed ones too);
 - transposed convolution: the JAX kernel is HWIO and spatially flipped,
   torch's is IOHW, so ``w_t[i, o, a, b] = w_j[k-1-a, k-1-b, i, o]``;
-- Dense (in, out) -> (out, in);
+- Dense (in, out) -> (out, in), SN dense too: the port's discriminator
+  flattens its features in the JAX package's (H, W, C) order, so the
+  head's columns need no permutation;
 - FourierUnit ``mix_kernel`` (2C, 2C) as it is: both packages order the
   spectral channels [re; im];
-- BatchNorm scale/bias/mean/var as they are.
+- BatchNorm scale/bias/mean/var, biases and spectral-norm ``u`` as they
+  are (``u`` runs over output features in both packages).
 
 Every JAX leaf must be consumed exactly once and every port parameter and
 buffer filled; anything else raises.
@@ -18,24 +22,35 @@ buffer filled; anything else raises.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from .nn.ffc import FourierUnit
-from .nn.layers import BatchNorm, Conv2d, ConvTranspose2d, Dense, NoiseInjection
+from .nn.ffc import FourierUnit, SpectralTransform
+from .nn.layers import (
+    BatchNorm,
+    Conv2d,
+    ConvTranspose2d,
+    Dense,
+    NoiseInjection,
+    SELayer,
+    SNConv2d,
+    SNDense,
+)
 
-# Port child name -> the name flax gives the same submodule.
+# Port child name -> the name flax gives the same submodule, for the port
+# modules whose flax twins name their children automatically.
 _JAX_CHILD_NAMES = {
-    "se": "SELayer_0",
-    "conv1": "Conv2d_0",
-    "bn": "BatchNorm_0",
-    "fu": "FourierUnit_0",
-    "conv2": "Conv2d_1",
-    "fc1": "Dense_0",
-    "fc2": "Dense_1",
+    SpectralTransform: {
+        "se": "SELayer_0",
+        "conv1": "Conv2d_0",
+        "bn": "BatchNorm_0",
+        "fu": "FourierUnit_0",
+        "conv2": "Conv2d_1",
+    },
+    SELayer: {"fc1": "Dense_0", "fc2": "Dense_1"},
 }
 
 
@@ -50,23 +65,39 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
     return out
 
 
-def _jax_path(module_name: str) -> Tuple[str, ...]:
-    if not module_name:
-        return ()
-    return tuple(_JAX_CHILD_NAMES.get(p, p) for p in module_name.split("."))
+def _jax_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """{port module name: the flax module path of its twin}."""
+    paths = {"": ()}
+
+    def walk(module: nn.Module, name: str, path: Tuple[str, ...]) -> None:
+        table = _JAX_CHILD_NAMES.get(type(module), {})
+        for child_name, child in module.named_children():
+            full = f"{name}.{child_name}" if name else child_name
+            paths[full] = path + (table.get(child_name, child_name),)
+            walk(child, full, paths[full])
+
+    walk(model, "", ())
+    return paths
 
 
 def _leaf_rules(module: nn.Module):
     """(port attribute, collection, JAX leaf path suffix, converter)."""
     conv = lambda w: w.transpose(3, 2, 0, 1)
     convt = lambda w: w[::-1, ::-1].transpose(2, 3, 0, 1)
+    dense = lambda w: w.T
     same = lambda w: w
+    if isinstance(module, (SNConv2d, SNDense)):
+        return [
+            ("weight", "params", ("kernel",), conv if isinstance(module, SNConv2d) else dense),
+            ("bias", "params", ("bias",), same),
+            ("u", "spectral", ("u",), same),
+        ]
     if isinstance(module, Conv2d):
         return [("weight", "params", ("kernel",), conv)]
     if isinstance(module, ConvTranspose2d):
         return [("weight", "params", ("kernel",), convt)]
     if isinstance(module, Dense):
-        rules = [("weight", "params", ("kernel",), lambda w: w.T)]
+        rules = [("weight", "params", ("kernel",), dense)]
         if module.bias is not None:
             rules.append(("bias", "params", ("bias",), same))
         return rules
@@ -91,20 +122,23 @@ def _leaf_rules(module: nn.Module):
 
 
 def jax_to_state_dict(
-    model: nn.Module, params: Mapping, batch_stats: Mapping
+    model: nn.Module, params: Mapping, batch_stats: Optional[Mapping] = None,
+    spectral: Optional[Mapping] = None,
 ) -> Dict[str, torch.Tensor]:
     """State dict for ``model`` from the JAX variables of the same model."""
     leaves = {
         "params": _flatten(params),
-        "batch_stats": _flatten(batch_stats),
+        "batch_stats": _flatten(batch_stats or {}),
+        "spectral": _flatten(spectral or {}),
     }
-    consumed = {"params": set(), "batch_stats": set()}
+    consumed = {name: set() for name in leaves}
     state: Dict[str, torch.Tensor] = {}
     expected = model.state_dict()
+    jax_paths = _jax_paths(model)
     for name, module in model.named_modules():
         for attr, collection, suffix, convert in _leaf_rules(module):
             key = f"{name}.{attr}" if name else attr
-            path = _jax_path(name) + suffix
+            path = jax_paths[name] + suffix
             if path not in leaves[collection]:
                 raise KeyError(f"{key}: no JAX leaf {collection}/{'/'.join(path)}")
             if path in consumed[collection]:

@@ -1,0 +1,397 @@
+// FourierUnit training kernels for Hopper (sm_90a): the batch statistics of
+// the forward and the two passes of the backward. Each per-item kernel runs
+// one thread block per batch item and writes its partial sums to an f32
+// scratch row that the wrapper allocates; fu_reduce_kernel then sums the rows
+// over the batch in a fixed order, so every launch gives the same bits (no
+// float atomics).
+//
+// With z = DFT(x) (2C channels [re | im]), m = z @ K, n = (m - mean) * inv,
+// inv = rsqrt(var + 1e-5), pre = n * scale + bias, and gr = c * DFT(gy) the
+// cotangent of the ReLU output (DFT(gy) is the adjoint of the inverse
+// transform; c the half-spectrum weights):
+//
+//   fu_train_stats : per item, sum_s m and sum_s m^2 for each of the 2C
+//                    channels (s over H x Wf). Reduced with count = B*H*Wf
+//                    to the batch mean and the biased variance E[m^2]-E[m]^2.
+//                    Replaces _pallas_forward_{sep,sep2,kron} -> stats_kernel
+//                    (fastfourierconvolution_tpu/ops/pallas/fourier_unit.py,
+//                    pallas_call at lines 622, 1088, 1363).
+//   fu_bwd_stats   : per item, sum_s gpre * n and sum_s gpre, gpre = gr*[pre>0].
+//                    Reduced, they are gscale and gbias; sum(gn) = scale*gbias
+//                    and sum(gn * n) = scale*gscale follow. Replaces
+//                    _pallas_backward_* -> stats_kernel (lines 753, 1222, 1500).
+//   fu_bwd_apply   : gm = inv * (gn - mean(gn) - n * mean(gn n)), the batch-
+//                    statistics BN cotangent, with gn = scale * gpre; the
+//                    item's zT @ gm into the (2C, 2C) gK scratch, and
+//                    gx = DFT^T(gm @ K^T). Replaces _pallas_backward_* ->
+//                    apply_kernel (lines 806, 1275, 1562) in train mode.
+//   fu_reduce      : the fixed-order sum over the batch rows (the TPU kernels
+//                    carried these sums in VMEM scratch across their
+//                    sequential grid, e.g. lines 609-620, 740-747, 789-797).
+//
+// Layout: x, gy and gx are NCHW, contiguous, float32 or bfloat16; K is
+// (2C, 2C) in x's dtype; scale, bias, mean, var, gscale and gbias are (2C,)
+// float32; the scratch rows and gK are float32.
+//
+// Design. As in fourier_unit_fwd.cu a block holds its item in shared memory
+// and computes in f32 FMAs on the CUDA cores, recomputing the spectrum from x
+// instead of reading any saved intermediate (the backward's residuals are x,
+// the parameters and the batch statistics). Three spectrum-pair buffers:
+// A (transform scratch), B (a map, then DFT(gy), then gm in place) and
+// Z (z), plus the tables, K and the per-channel vectors. A channel sum is
+// owned by one warp: its lanes stride over the spectral positions, then a
+// shuffle tree adds them, so the order is fixed. Shared memory per block:
+// 63 KB at (C, H, W) = (16, 16, 16), 118 KB at (8, 32, 32).
+//
+// What bounds them on an H100: bytes. Each must read x (and gy) once and
+// write a few (2C,) vectors (fu_bwd_apply also gx and gK): 0.5-1.6 MB per
+// launch at the 32px generator's shapes in bf16, 0.16-0.47 us at 3.35 TB/s,
+// against under 0.1 GFLOP of FFT-sized work, well under 0.1 us at 989
+// TFLOP/s. Like the forward kernel these are simple and latency-class: 64
+// blocks on 132 SMs, dense DFT stages, time set by shared-memory loads.
+
+#include "fourier_unit_common.cuh"
+
+namespace {
+
+using namespace ffc;
+
+// Shared-memory plan in floats, one for the three per-item kernels; the host
+// sizes the launch with the same plan.
+struct Plan {
+  int a_off, b_off, z_off, tab_off, k_off, vec_off, cvec_off, total;
+  __host__ __device__ Plan(int c, int h, int w) {
+    const Dims d(c, h, w);
+    a_off = 0;
+    b_off = a_off + 2 * d.n_spec;
+    z_off = b_off + d.pair_or_map();
+    tab_off = z_off + 2 * d.n_spec;
+    k_off = tab_off + d.tables();
+    vec_off = k_off + 4 * c * c;
+    cvec_off = vec_off + 6 * 2 * c;  // mean, inv, scale, bias, mean_gn, mean_gnn
+    total = cvec_off + d.wf;
+  }
+};
+
+struct Smem {
+  float *a, *b, *z, *kmix, *mean, *inv, *scale, *bias, *mgn, *mgnn, *cvec;
+  Tables tab;
+  __device__ Smem(float* base, const Plan& pl, const Dims& d)
+      : a(base + pl.a_off), b(base + pl.b_off), z(base + pl.z_off),
+        kmix(base + pl.k_off), mean(base + pl.vec_off), inv(mean + 2 * d.C),
+        scale(inv + 2 * d.C), bias(scale + 2 * d.C), mgn(bias + 2 * d.C),
+        mgnn(mgn + 2 * d.C), cvec(base + pl.cvec_off),
+        tab(base + pl.tab_off, d) {}
+};
+
+// Loads K, the tables and the half-spectrum weights (no sync).
+template <typename T>
+__device__ void load_constants(const Smem& sm, const T* kmix_g, const Dims& d) {
+  const int c2 = 2 * d.C;
+  for (int i = threadIdx.x; i < c2 * c2; i += kThreads) sm.kmix[i] = load_f32(kmix_g + i);
+  fill_tables(sm.tab, d);
+  for (int v = threadIdx.x; v < d.wf; v += kThreads) sm.cvec[v] = half_weight(v, d);
+}
+
+// Loads the BN vectors (no sync).
+__device__ void load_bn(const Smem& sm, const float* scale, const float* bias,
+                        const float* mean, const float* var, int c2) {
+  for (int i = threadIdx.x; i < c2; i += kThreads) {
+    sm.mean[i] = mean[i];
+    sm.inv[i] = rsqrtf(var[i] + kEps);
+    sm.scale[i] = scale[i];
+    sm.bias[i] = bias[i];
+  }
+}
+
+// out = DFT(map), with `map` loaded from device memory into B; A is scratch.
+// Starts and ends on a block-wide barrier.
+template <typename T>
+__device__ void spectrum(const Smem& sm, const T* map, float* out, const Dims& d) {
+  load_map(sm.b, map, d.n_map);
+  __syncthreads();
+  dft_w(sm.b, sm.a, sm.tab, d);
+  __syncthreads();
+  dft_h(sm.a, out, sm.tab, d);
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fu_train_stats_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
+                      float* __restrict__ partial, int C, int H, int W) {
+  extern __shared__ float smem[];
+  const Dims d(C, H, W);
+  const Smem sm(smem, Plan(C, H, W), d);
+  const int c2 = 2 * C, lane = threadIdx.x % 32;
+  const size_t item = blockIdx.x;
+
+  load_constants(sm, kmix_g, d);
+  spectrum(sm, x + item * d.n_map, sm.z, d);
+
+  // Row layout: [sum m (2C) | sum m^2 (2C)].
+  float* row = partial + item * 2 * c2;
+  for (int ch = threadIdx.x / 32; ch < c2; ch += kWarps) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int s = lane; s < d.hwf; s += 32) {
+      const float m = mix_at(sm.z, sm.kmix, ch, s, c2, d.hwf);
+      s1 += m;
+      s2 = fmaf(m, m, s2);
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      row[ch] = s1;
+      row[c2 + ch] = s2;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fu_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ gy,
+                    const T* __restrict__ kmix_g, const float* __restrict__ scale,
+                    const float* __restrict__ bias, const float* __restrict__ mean,
+                    const float* __restrict__ var, float* __restrict__ partial,
+                    int C, int H, int W) {
+  extern __shared__ float smem[];
+  const Dims d(C, H, W);
+  const Smem sm(smem, Plan(C, H, W), d);
+  const int c2 = 2 * C, lane = threadIdx.x % 32;
+  const size_t item = blockIdx.x;
+
+  load_constants(sm, kmix_g, d);
+  load_bn(sm, scale, bias, mean, var, c2);
+  spectrum(sm, x + item * d.n_map, sm.z, d);
+  spectrum(sm, gy + item * d.n_map, sm.b, d);  // B = DFT(gy); B holds the map first
+
+  // Row layout: [sum gpre * n (2C) | sum gpre (2C)].
+  float* row = partial + item * 2 * c2;
+  for (int ch = threadIdx.x / 32; ch < c2; ch += kWarps) {
+    float s_gn = 0.f, s_g = 0.f;
+    for (int s = lane; s < d.hwf; s += 32) {
+      const float m = mix_at(sm.z, sm.kmix, ch, s, c2, d.hwf);
+      const float n_hat = (m - sm.mean[ch]) * sm.inv[ch];
+      const float pre = n_hat * sm.scale[ch] + sm.bias[ch];
+      const float gpre = pre > 0.f ? sm.cvec[s % d.wf] * sm.b[ch * d.hwf + s] : 0.f;
+      s_gn = fmaf(gpre, n_hat, s_gn);
+      s_g += gpre;
+    }
+    s_gn = warp_sum(s_gn);
+    s_g = warp_sum(s_g);
+    if (lane == 0) {
+      row[ch] = s_gn;
+      row[c2 + ch] = s_g;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fu_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
+                    const T* __restrict__ kmix_g, const float* __restrict__ scale,
+                    const float* __restrict__ bias, const float* __restrict__ mean,
+                    const float* __restrict__ var, const float* __restrict__ gscale,
+                    const float* __restrict__ gbias, T* __restrict__ gx,
+                    float* __restrict__ partial_gk,
+                    int C, int H, int W) {
+  extern __shared__ float smem[];
+  const Dims d(C, H, W);
+  const Smem sm(smem, Plan(C, H, W), d);
+  const int c2 = 2 * C, hwf = d.hwf, lane = threadIdx.x % 32;
+  const size_t item = blockIdx.x;
+  const float count = static_cast<float>(gridDim.x) * hwf;
+
+  load_constants(sm, kmix_g, d);
+  load_bn(sm, scale, bias, mean, var, c2);
+  for (int i = threadIdx.x; i < c2; i += kThreads) {
+    sm.mgn[i] = scale[i] * gbias[i] / count;
+    sm.mgnn[i] = scale[i] * gscale[i] / count;
+  }
+  spectrum(sm, x + item * d.n_map, sm.z, d);
+  spectrum(sm, gy + item * d.n_map, sm.b, d);
+
+  // gm, in place of DFT(gy) in B.
+  for (int o = threadIdx.x; o < 2 * d.n_spec; o += kThreads) {
+    const int s = o % hwf, ch = o / hwf;
+    const float m = mix_at(sm.z, sm.kmix, ch, s, c2, hwf);
+    const float n_hat = (m - sm.mean[ch]) * sm.inv[ch];
+    const float pre = n_hat * sm.scale[ch] + sm.bias[ch];
+    const float gpre = pre > 0.f ? sm.cvec[s % d.wf] * sm.b[o] : 0.f;
+    const float gn = gpre * sm.scale[ch];
+    sm.b[o] = sm.inv[ch] * (gn - sm.mgn[ch] - n_hat * sm.mgnn[ch]);
+  }
+  __syncthreads();
+
+  // This item's gK[j][e] = sum_s z[j][s] gm[e][s], one warp per entry.
+  float* gk_row = partial_gk + item * c2 * c2;
+  for (int p = threadIdx.x / 32; p < c2 * c2; p += kWarps) {
+    const float* zj = sm.z + (p / c2) * hwf;
+    const float* ge = sm.b + (p % c2) * hwf;
+    float acc = 0.f;
+    for (int s = lane; s < hwf; s += 32) acc = fmaf(zj[s], ge[s], acc);
+    acc = warp_sum(acc);
+    if (lane == 0) gk_row[p] = acc;
+  }
+
+  // gz[j][s] = sum_e gm[e][s] K[j][e], into A.
+  for (int o = threadIdx.x; o < 2 * d.n_spec; o += kThreads) {
+    const int s = o % hwf, j = o / hwf;
+    const float* kj = sm.kmix + j * c2;
+    float acc = 0.f;
+    for (int e = 0; e < c2; ++e) acc = fmaf(sm.b[e * hwf + s], kj[e], acc);
+    sm.a[o] = acc;
+  }
+  __syncthreads();
+
+  // gx = adjoint of the forward DFT: inverse H-stage into Z, inverse W-stage out.
+  idft_h(sm.a, sm.z, sm.tab, d);
+  __syncthreads();
+  idft_w(sm.z, gx + item * d.n_map, sm.tab, d);
+}
+
+// out[c] = sum over rows of partial[row][c] (count == 0); or, with count > 0
+// and rows of [sums (n) | sums of squares (n)], out = [mean (n) | E[m^2] -
+// mean^2 (n)]. One thread per output column, rows in order.
+__global__ void fu_reduce_kernel(const float* __restrict__ partial, int rows,
+                                 int cols, long long count, float* __restrict__ out) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (count == 0) {
+    if (c >= cols) return;
+    float s = 0.f;
+    for (int r = 0; r < rows; ++r) s += partial[static_cast<size_t>(r) * cols + c];
+    out[c] = s;
+    return;
+  }
+  const int n = cols / 2;
+  if (c >= n) return;
+  float s1 = 0.f, s2 = 0.f;
+  for (int r = 0; r < rows; ++r) {
+    s1 += partial[static_cast<size_t>(r) * cols + c];
+    s2 += partial[static_cast<size_t>(r) * cols + n + c];
+  }
+  const float n_f = static_cast<float>(count);
+  const float mean = s1 / n_f;
+  out[c] = mean;
+  out[n + c] = s2 / n_f - mean * mean;
+}
+
+size_t smem_bytes(int C, int H, int W) {
+  return static_cast<size_t>(Plan(C, H, W).total) * sizeof(float);
+}
+
+template <typename T>
+int allow_smem(int bytes) {
+  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  int err = cudaFuncSetAttribute(fu_train_stats_kernel<T>, attr, bytes);
+  if (err == 0) err = cudaFuncSetAttribute(fu_bwd_stats_kernel<T>, attr, bytes);
+  if (err == 0) err = cudaFuncSetAttribute(fu_bwd_apply_kernel<T>, attr, bytes);
+  return err;
+}
+
+bool bad_dims(int B, int C, int H, int W) {
+  return B <= 0 || C <= 0 || H <= 0 || W <= 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of dynamic shared memory one block of any of the three per-item
+// kernels needs for a (C, H, W) item.
+long long ffc_smem_bytes(int C, int H, int W) {
+  return static_cast<long long>(smem_bytes(C, H, W));
+}
+
+// Lets the dtype's three per-item kernels take up to `bytes` of dynamic shared
+// memory on the current device. Returns a cudaError_t (0 on success).
+int ffc_allow_smem(int dtype, int bytes) {
+  if (dtype == 0) return allow_smem<float>(bytes);
+  if (dtype == 1) return allow_smem<__nv_bfloat16>(bytes);
+  return cudaErrorInvalidValue;
+}
+
+// dtype: 0 = float32, 1 = bfloat16. partial: (B, 4C) float32. The caller has
+// checked the shared memory against the limit set by ffc_allow_smem.
+// Each entry point returns a cudaError_t (0 on success).
+int ffc_fu_train_stats(int dtype, const void* x, const void* k, float* partial,
+                       int B, int C, int H, int W, void* stream) {
+  if (bad_dims(B, C, H, W)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = smem_bytes(C, H, W);
+  if (dtype == 0)
+    fu_train_stats_kernel<float><<<B, kThreads, smem, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(k), partial, C, H, W);
+  else if (dtype == 1)
+    fu_train_stats_kernel<__nv_bfloat16><<<B, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(k),
+        partial, C, H, W);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// partial: (B, 4C) float32.
+int ffc_fu_bwd_stats(int dtype, const void* x, const void* gy, const void* k,
+                     const float* scale, const float* bias, const float* mean,
+                     const float* var, float* partial, int B, int C, int H, int W,
+                     void* stream) {
+  if (bad_dims(B, C, H, W)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = smem_bytes(C, H, W);
+  if (dtype == 0)
+    fu_bwd_stats_kernel<float><<<B, kThreads, smem, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(gy),
+        static_cast<const float*>(k), scale, bias, mean, var, partial, C, H, W);
+  else if (dtype == 1)
+    fu_bwd_stats_kernel<__nv_bfloat16><<<B, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(gy),
+        static_cast<const __nv_bfloat16*>(k), scale, bias, mean, var, partial, C, H, W);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// gx: like x; partial_gk: (B, 2C, 2C) float32; gscale and gbias are the
+// reduced output of ffc_fu_bwd_stats.
+int ffc_fu_bwd_apply(int dtype, const void* x, const void* gy, const void* k,
+                     const float* scale, const float* bias, const float* mean,
+                     const float* var, const float* gscale, const float* gbias,
+                     void* gx, float* partial_gk, int B, int C, int H, int W,
+                     void* stream) {
+  if (bad_dims(B, C, H, W)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = smem_bytes(C, H, W);
+  if (dtype == 0)
+    fu_bwd_apply_kernel<float><<<B, kThreads, smem, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(gy),
+        static_cast<const float*>(k), scale, bias, mean, var, gscale, gbias,
+        static_cast<float*>(gx), partial_gk, C, H, W);
+  else if (dtype == 1)
+    fu_bwd_apply_kernel<__nv_bfloat16><<<B, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(gy),
+        static_cast<const __nv_bfloat16*>(k), scale, bias, mean, var, gscale, gbias,
+        static_cast<__nv_bfloat16*>(gx), partial_gk, C, H, W);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// partial: (rows, cols) float32; out: (cols,) float32. count > 0 selects the
+// mean/variance epilogue (cols even), count == 0 plain sums.
+int ffc_fu_reduce(const float* partial, int rows, int cols, long long count,
+                  float* out, void* stream) {
+  if (rows <= 0 || cols <= 0 || count < 0 || (count > 0 && cols % 2 != 0))
+    return cudaErrorInvalidValue;
+  const int threads = 128;
+  fu_reduce_kernel<<<(cols + threads - 1) / threads, threads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(partial, rows, cols,
+                                                          count, out);
+  return cudaGetLastError();
+}
+
+const char* ffc_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

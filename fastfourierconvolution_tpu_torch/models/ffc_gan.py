@@ -1,19 +1,32 @@
-"""FFC-GAN generator (unconditional, tuple path) and the uint8 contract.
+"""FFC-GAN generator (unconditional, tuple path), the spectral-normed
+conv discriminator, and the uint8 contract.
 
-z -> Dense(mg*mg*ngf*8) -> (B, mg, mg, ngf*8) -> NCHW ->
-[FFC_BN_ACT(k4 s2 p1, BN, GELU, upsampling)] x N ->
-FFC_BN_ACT(ngf -> out_ch, k3 s1 p1, tanh, no norm) -> concat branches.
+Generator: z -> Dense(mg*mg*ngf*8) -> (B, mg, mg, ngf*8) -> NCHW ->
+[FFC_BN_ACT(k4 s2 p1, BN, GELU, upsampling) -> NoiseInjection on both
+branches (training only)] x N -> FFC_BN_ACT(ngf -> out_ch, k3 s1 p1, tanh,
+no norm) -> concat branches.
+
+Discriminator: [SNConv2d(k, s, p1) -> LeakyReLU(0.1)] per ladder entry ->
+flatten in (H, W, C) order, as the JAX package flattens NHWC -> SNDense(1).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..nn.ffc import FFC_BN_ACT, resize_output, split_channels
-from ..nn.layers import Dense, NoiseInjection, _require_eval, reset_parameters
+from ..nn.layers import (
+    Dense,
+    NoiseInjection,
+    SNConv2d,
+    SNDense,
+    draw_noise,
+    reset_parameters,
+)
 from ..utils.policy import resolve_dtype
 
 PRESETS = {
@@ -77,9 +90,18 @@ class FFCGenerator(nn.Module):
             )
         return FFCGenerator(z_size=z_size, **{**PRESETS[resolution], **kw})
 
-    def forward(self, z: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
-        """(B, z_size) -> (B, out_channels, R, R) in ``compute_dtype``."""
-        _require_eval(self)
+    def forward(
+        self, z: torch.Tensor, compute_dtype=torch.float32,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """(B, z_size) -> (B, out_channels, R, R) in ``compute_dtype``.
+
+        In training mode BatchNorm and the FourierUnits use batch
+        statistics and update their running ones, and each block's output
+        gets noise drawn from ``generator`` (a generator on z's device,
+        required in training); eval ignores it."""
+        if self.training and generator is None:
+            raise ValueError("a training forward needs a noise generator")
         dt = resolve_dtype(compute_dtype)
         b = z.shape[0]
         stem = self.noise_to_feature(z.to(dt))
@@ -88,4 +110,60 @@ class FFCGenerator(nn.Module):
         feat = (x, None)
         for i in range(len(self.channel_mults)):
             feat = getattr(self, f"block{i}")(feat)
+            if self.training:
+                feat = tuple(
+                    None if v is None
+                    else getattr(self, f"{kind}_noise{i}")(v, draw_noise(v, generator))
+                    for kind, v in zip(("lcl", "glb"), feat)
+                )
         return resize_output(self.to_rgb(feat))
+
+
+# SN-conv discriminator ladders: (features, kernel, stride), padding 1.
+D_LADDERS = {
+    32: ((64, 3, 1), (64, 4, 2), (128, 3, 1), (128, 4, 2), (256, 3, 1),
+         (256, 4, 2), (512, 3, 1)),
+    64: ((64, 3, 1), (64, 4, 2), (128, 3, 1), (128, 4, 2), (256, 3, 1),
+         (256, 4, 2), (512, 3, 1), (512, 4, 2)),
+    128: ((64, 3, 1), (64, 4, 2), (128, 3, 1), (128, 4, 2), (256, 3, 1),
+          (256, 4, 2), (512, 3, 1), (512, 4, 2), (512, 4, 2)),
+    256: ((64, 3, 1), (64, 4, 2), (128, 3, 1), (128, 4, 2), (256, 3, 1),
+          (256, 4, 2), (512, 3, 1), (512, 4, 2), (512, 4, 2), (512, 4, 2)),
+}
+
+
+class SNConvDiscriminator(nn.Module):
+    """Spectral-normed conv ladder over RGB images with LeakyReLU(0.1)
+    between layers and an SN dense head on the flattened (H, W, C)
+    features; ``head_size`` is the side of the last map. Returns (B, 1)
+    logits."""
+
+    def __init__(
+        self, ladder: Sequence[Tuple[int, int, int]] = D_LADDERS[32],
+        head_size: int = 4, generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.ladder = tuple(ladder)
+        cin = 3  # RGB
+        for i, (feat, k, s) in enumerate(self.ladder):
+            self.add_module(f"conv{i}", SNConv2d(cin, feat, k, stride=s, padding=1))
+            cin = feat
+        self.fc = SNDense(head_size * head_size * cin, 1)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        reset_parameters(self, generator)
+
+    @staticmethod
+    def for_resolution(resolution: int, **kw) -> "SNConvDiscriminator":
+        if resolution not in D_LADDERS:
+            raise ValueError(
+                f"no discriminator ladder for {resolution}px; have {sorted(D_LADDERS)}"
+            )
+        return SNConvDiscriminator(ladder=D_LADDERS[resolution], **kw)
+
+    def forward(self, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+        """(B, C, R, R) images -> (B, 1) logits in ``compute_dtype``."""
+        x = x.to(resolve_dtype(compute_dtype))
+        for i in range(len(self.ladder)):
+            x = F.leaky_relu(getattr(self, f"conv{i}")(x), negative_slope=0.1)
+        return self.fc(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))

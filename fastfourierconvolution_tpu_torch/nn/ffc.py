@@ -5,8 +5,8 @@ an absent branch is ``None``. Channel splits follow the reference
 arithmetic ``c_g = int(c * ratio)``. The spectral re/im channels are
 concatenated [re | im], as in the JAX package.
 
-Left out of this slice: the packed-branch mode, the local Fourier unit,
-class-conditional BN and spectral norm.
+Left out so far: the packed-branch mode, the local Fourier unit,
+class-conditional BN and spectral norm inside the FFC layers.
 """
 
 from __future__ import annotations
@@ -17,16 +17,16 @@ import torch
 import torch.nn as nn
 
 from ..ops import conv as conv_ops
-from ..ops.fourier_unit import fourier_unit_forward
+from ..ops.fourier_unit import fourier_unit_forward, fourier_unit_train
 from .layers import (
     ACTIVATIONS,
     BatchNorm,
     Conv2d,
     ConvTranspose2d,
     SELayer,
-    _require_eval,
     bn_scale_init_,
     conv_init_,
+    update_running_,
 )
 
 Branch = Optional[torch.Tensor]
@@ -40,8 +40,11 @@ def split_channels(channels: int, ratio: float) -> Tuple[int, int]:
 
 
 class FourierUnit(nn.Module):
-    """rfft2 -> (2C, 2C) mix -> BN (running stats) -> ReLU -> irfft2, as
-    one op: the hand-written kernel on CUDA, the plain version on the CPU."""
+    """rfft2 -> (2C, 2C) mix -> BN -> ReLU -> irfft2, as one op: the
+    hand-written kernels on CUDA, the plain versions on the CPU. Eval
+    normalises with the running statistics; training with the f32 batch
+    statistics, which then update the running ones (momentum 0.9, biased
+    variance)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -61,11 +64,16 @@ class FourierUnit(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _require_eval(self)
-        return fourier_unit_forward(
-            x.contiguous(), self.mix_kernel.to(x.dtype), self.bn_scale,
-            self.bn_bias, self.running_mean, self.running_var,
-        )
+        x, kernel = x.contiguous(), self.mix_kernel.to(x.dtype)
+        if not self.training:
+            return fourier_unit_forward(
+                x, kernel, self.bn_scale, self.bn_bias, self.running_mean,
+                self.running_var,
+            )
+        y, bmean, bvar = fourier_unit_train(x, kernel, self.bn_scale, self.bn_bias)
+        update_running_(self.running_mean, bmean)
+        update_running_(self.running_var, bvar)
+        return y
 
 
 class SpectralTransform(nn.Module):

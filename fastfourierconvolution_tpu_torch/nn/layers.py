@@ -1,12 +1,18 @@
-"""Building-block modules: inits, BatchNorm, convolutions, SE gate, GELU.
+"""Building-block modules: inits, BatchNorm, convolutions, spectral-normed
+layers, noise injection, SE gate, GELU.
 
-Parameters and BatchNorm state are f32; every layer casts its parameters
-to the dtype of the activation it receives. Random initial values come
-only from the ``torch.Generator`` passed to ``reset_parameters``.
+Parameters, BatchNorm state and spectral-norm ``u`` vectors are f32;
+every layer casts its parameters to the dtype of the activation it
+receives. Random values come only from ``torch.Generator``s the caller
+passes: initial values from the one given to ``reset_parameters``, noise
+from the one given to the model's forward.
 
-The port serves in eval mode: a module called in training mode raises,
-since batch statistics, noise injection and the FourierUnit's stats
-kernel belong to the training slice.
+Training mode follows the JAX package (flax semantics): BatchNorm
+normalises with f32 batch statistics and the biased variance, and
+updates its running statistics as ``0.9 * running + 0.1 * batch``, also
+with the biased variance (torch's ``F.batch_norm`` would store the
+unbiased one); a spectral-normed layer runs one power iteration per
+forward.
 """
 
 from __future__ import annotations
@@ -19,8 +25,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import conv as conv_ops
+from ..ops.spectral_norm import l2_normalize, spectral_normalize
 
 BN_EPS = 1e-5
+# Weight of the old running statistic: flax momentum 0.9 (torch 0.1).
+BN_MOMENTUM = 0.9
 
 
 # Reference init scheme: convs N(0, 0.02), BatchNorm scale N(1, 0.02) and
@@ -38,16 +47,17 @@ def bn_scale_init_(w: torch.Tensor, generator: torch.Generator) -> None:
     w.normal_(1.0, 0.02, generator=generator)
 
 
-def _require_eval(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__} runs in eval mode only; call .eval()"
-        )
+def update_running_(running: torch.Tensor, batch: torch.Tensor) -> None:
+    """running <- 0.9 * running + 0.1 * batch, in place, outside the graph."""
+    with torch.no_grad():
+        running.mul_(BN_MOMENTUM).add_(batch, alpha=1.0 - BN_MOMENTUM)
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over dim 1 with running statistics (eps 1e-5), computed in
-    f32 and returned in the input's dtype."""
+    """BatchNorm over dim 1 (eps 1e-5), computed in f32 and returned in the
+    input's dtype: batch statistics in training (mean and biased variance
+    E[x²] − E[x]² over (B, H, W), clipped at 0), running statistics in
+    eval."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -64,11 +74,19 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _require_eval(self)
-        out = F.batch_norm(
-            x.float(), self.running_mean, self.running_var, self.weight,
-            self.bias, training=False, eps=BN_EPS,
-        )
+        xf = x.float()
+        if not self.training:
+            out = F.batch_norm(
+                xf, self.running_mean, self.running_var, self.weight,
+                self.bias, training=False, eps=BN_EPS,
+            )
+            return out.to(x.dtype)
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        update_running_(self.running_mean, mean)
+        update_running_(self.running_var, var)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        out = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return out.to(x.dtype)
 
 
@@ -132,12 +150,17 @@ class ConvTranspose2d(nn.Module):
         )
 
 
-class NoiseInjection(nn.Module):
-    """StyleGAN-style noise weights, one per channel (zero init).
+def draw_noise(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """N(0, 1) single-channel noise (B, 1, H, W) for ``x`` (B, C, H, W), in
+    x's dtype, on x's device, from ``generator``."""
+    b, _, h, w = x.shape
+    return torch.randn((b, 1, h, w), generator=generator, device=x.device, dtype=x.dtype)
 
-    Only the parameters exist here: the noise is added in training mode,
-    which the serving slice does not run.
-    """
+
+class NoiseInjection(nn.Module):
+    """StyleGAN-style noise: ``x + weight[c] * noise`` with one weight per
+    channel (zero init) and ``noise`` (B, 1, H, W) in x's dtype. The model
+    applies it in training only."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -146,6 +169,68 @@ class NoiseInjection(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             self.weight.zero_()
+
+    def forward(self, x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        return x + self.weight.to(x.dtype)[None, :, None, None] * noise
+
+
+class _SpectralNormed(nn.Module):
+    """Holds ``weight`` (output features first), ``bias`` and the power
+    iteration's ``u`` buffer (unit norm at init)."""
+
+    def __init__(self, weight_shape):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(weight_shape))
+        self.bias = nn.Parameter(torch.empty(weight_shape[0]))
+        self.register_buffer("u", torch.empty(weight_shape[0]))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.bias.zero_()
+            self.u.copy_(l2_normalize(torch.randn(self.u.shape, generator=generator)))
+
+    def normalized_weight(self) -> torch.Tensor:
+        """weight / sigma; in training the new u is copied into the buffer
+        (the graph keeps its own tensor)."""
+        w, u_new = spectral_normalize(self.weight, self.u, update=self.training)
+        if self.training:
+            with torch.no_grad():
+                self.u.copy_(u_new)
+        return w
+
+
+class SNConv2d(_SpectralNormed):
+    """Spectral-normalised 2-D convolution with bias; weight OIHW."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0):
+        k = kernel_size
+        super().__init__((out_channels, in_channels, k, k))
+        self.stride, self.padding = stride, padding
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            conv_init_(self.weight, generator)
+        super().reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv_ops.conv2d(x, self.normalized_weight(), stride=self.stride,
+                            padding=self.padding)
+        return y + self.bias.to(y.dtype)[:, None, None]
+
+
+class SNDense(_SpectralNormed):
+    """Spectral-normalised linear layer with bias; weight (out, in)."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__((out_features, in_features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            dense_init_(self.weight, generator)
+        super().reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.normalized_weight().to(x.dtype), self.bias.to(x.dtype))
 
 
 class SELayer(nn.Module):

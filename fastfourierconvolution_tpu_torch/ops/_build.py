@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file is compiled on its own, by one ``nvcc`` process,
 into a shared library with a plain C interface; all the processes are
 started together. Only sources inside the package go into a build. A
-library's file name carries a hash of its source and flags, so a changed
-source builds anew and an unchanged one is reused. Building happens at
+library's file name carries a hash of its source, of every ``csrc/*.cuh``
+header and of the flags, so a changed source or header builds anew and an
+unchanged one is reused. Building happens at
 the first use of a kernel, never at import, so the CPU-only tests can
 import every module.
 """
@@ -48,7 +49,10 @@ def sources() -> Dict[str, Path]:
 
 
 def _library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

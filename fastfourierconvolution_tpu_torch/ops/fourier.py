@@ -112,6 +112,30 @@ def irfft2_ortho(
     return p_r @ fw_r.T - p_i @ fw_i.T
 
 
+def irfft2_ortho_adjoint(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Adjoint of :func:`irfft2_ortho` as a real-linear map, in g's dtype:
+    (B, C, H, W) -> (real, imag), each (B, C, H, Wf)."""
+    h, w = g.shape[-2], g.shape[-1]
+    eh_r, eh_i, fw_r, fw_i = factors(h, w, g.dtype, g.device)[4:]
+    gp_r = g @ fw_r
+    gp_i = -(g @ fw_i)
+    gf_r = eh_r.T @ gp_r + eh_i.T @ gp_i
+    gf_i = -(eh_i.T @ gp_r) + eh_r.T @ gp_i
+    return gf_r, gf_i
+
+
+def rfft2_ortho_adjoint(
+    g_r: torch.Tensor, g_i: torch.Tensor, s: Tuple[int, int]
+) -> torch.Tensor:
+    """Adjoint of :func:`rfft2_ortho`, in the operands' dtype: two
+    (B, C, H, Wf) -> (B, C, H, W)."""
+    h, w = s
+    ah, bh, cw, dw = factors(h, w, g_r.dtype, g_r.device)[:4]
+    gt_r = ah.T @ g_r + bh.T @ g_i
+    gt_i = -(bh.T @ g_r) + ah.T @ g_i
+    return gt_r @ cw.T + gt_i @ dw.T
+
+
 def rfft2_ortho_fft(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``torch.fft`` form of :func:`rfft2_ortho`, in f32."""
     f = torch.fft.rfft2(x.float(), norm="ortho")

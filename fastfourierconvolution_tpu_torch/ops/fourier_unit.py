@@ -1,19 +1,37 @@
-"""FourierUnit eval forward: rfft2 -> (2C, 2C) mix -> BN -> ReLU -> irfft2.
+"""FourierUnit: rfft2 -> (2C, 2C) mix -> BN -> ReLU -> irfft2, eval and train.
 
-``fourier_unit_forward_plain`` is the plain PyTorch version: the eval
-math of the JAX package's ``_spec_forward`` with its cast points (the
-transforms and the mix run in x's dtype, BN in f32, the post-ReLU
-spectrum is cast back to x's dtype before the inverse).
+Plain PyTorch versions, the math of the JAX package's ``_spec_forward`` and
+``_jnp_backward`` with their cast points (the transforms and the mix run in
+x's dtype, BN and its statistics in f32, the post-ReLU spectrum and the
+BN cotangent gm are cast back to x's dtype). Given float64 operands they
+compute in float64 throughout, which is how the kernels' reference is
+taken on the card:
 
-``fourier_unit_forward`` is the op the model calls. For a CPU tensor it
-runs the plain version; for a CUDA tensor it launches the hand-written
-kernel ``csrc/fourier_unit_fwd.cu`` or raises. Its ``launches`` attribute
-counts kernel launches, and ``launches_by_map`` counts them by (C, H, W).
+- ``fourier_unit_forward_plain``: forward with the statistics it is given;
+- ``fu_train_stats_plain``: batch mean and biased variance of m over
+  (B, H, Wf), f32;
+- ``fourier_unit_train_plain``: train forward, ``(y, bmean, bvar)``;
+- ``fu_bwd_stats_plain``, ``fu_bwd_apply_plain`` and their composition
+  ``fourier_unit_backward_plain``: the rematerialising backward.
 
-Layout: x is (B, C, H, W); kernel (2C, 2C) in x's dtype, [re; im] on
-both axes; scale, bias, mean and var are (2C,) f32 (BN running stats in
-eval). Training adds batch statistics computed by a stats kernel and
-passes them in the mean/var slots.
+Kernel wrappers. For a CPU tensor each runs its plain version; for a CUDA
+tensor it launches its hand-written kernel or raises. Each counts its
+kernel launches in ``launches`` and, by FourierUnit map (C, H, W), in
+``launches_by_map`` (``fu_reduce`` by partial-sum shape (rows, cols)):
+
+- ``fourier_unit_forward``: ``csrc/fourier_unit_fwd.cu``;
+- ``fu_train_stats``, ``fu_bwd_stats``, ``fu_bwd_apply`` and ``fu_reduce``
+  (the fixed-order batch sum behind the first three):
+  ``csrc/fourier_unit_train.cu``.
+
+``fourier_unit_train`` is the training op the model calls: an autograd
+Function whose forward runs the stats kernel and then the forward kernel
+with the batch statistics in the mean/var slots, and whose backward runs
+the two backward kernels. It saves only (x, kernel, scale, bias, bmean,
+bvar) and returns bmean/bvar as non-differentiable outputs.
+
+Layout: x, y, gy and gx are (B, C, H, W); kernel (2C, 2C) in x's dtype,
+[re; im] on both axes; scale, bias and the statistics are (2C,) f32.
 """
 
 from __future__ import annotations
@@ -25,29 +43,122 @@ import functools
 import torch
 
 from . import _build
-from .fourier import irfft2_ortho, rfft2_ortho
+from .fourier import irfft2_ortho, irfft2_ortho_adjoint, rfft2_ortho, rfft2_ortho_adjoint
 
 EPS = 1e-5
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# --- plain PyTorch versions ---------------------------------------------------
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """t in float32, or in float64 when it is float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _col(t: torch.Tensor) -> torch.Tensor:
+    return _f32(t)[:, None, None]
+
+
+def _spectrum_plain(x, kernel):
+    """z = [re; im] rfft2(x), (B, 2C, H, Wf), and m = z mixed by kernel,
+    both in x's dtype."""
+    f_r, f_i = rfft2_ortho(x)
+    z = torch.cat([f_r, f_i], dim=1)
+    return z, torch.einsum("bjuv,jd->bduv", z, kernel)
+
+
 def fourier_unit_forward_plain(x, kernel, scale, bias, mean, var):
-    """Plain PyTorch FourierUnit eval forward; returns y like x."""
+    """Plain PyTorch FourierUnit forward with the given statistics; returns
+    y like x."""
     c = x.shape[1]
     h, w = x.shape[2], x.shape[3]
-    dt = x.dtype
-    f_r, f_i = rfft2_ortho(x)
-    z = torch.cat([f_r, f_i], dim=1)  # (B, 2C, H, Wf)
-    m = torch.einsum("bjuv,jd->bduv", z, kernel)
-    mf = m.float()
-    col = lambda t: t.float()[:, None, None]
-    pre = (mf - col(mean)) * torch.rsqrt(col(var) + EPS) * col(scale) + col(bias)
-    r = torch.relu(pre).to(dt)
+    _, m = _spectrum_plain(x, kernel)
+    pre = (_f32(m) - _col(mean)) * torch.rsqrt(_col(var) + EPS) * _col(scale) + _col(bias)
+    r = torch.relu(pre).to(x.dtype)
     return irfft2_ortho(r[:, :c], r[:, c:], (h, w))
 
 
-def _check_args(x, kernel, scale, bias, mean, var):
+def fu_train_stats_plain(x, kernel):
+    """(bmean, bvar): f32 mean and biased variance E[m²] − E[m]² of each
+    of the 2C channels of m over (B, H, Wf)."""
+    _, m = _spectrum_plain(x, kernel)
+    mf = _f32(m)
+    bmean = mf.mean(dim=(0, 2, 3))
+    return bmean, (mf * mf).mean(dim=(0, 2, 3)) - bmean * bmean
+
+
+def fourier_unit_train_plain(x, kernel, scale, bias):
+    """Plain train forward: ``(y, bmean, bvar)``, y normalised with the
+    batch statistics."""
+    bmean, bvar = fu_train_stats_plain(x, kernel)
+    return fourier_unit_forward_plain(x, kernel, scale, bias, bmean, bvar), bmean, bvar
+
+
+def _bwd_recompute_plain(x, kernel, scale, bias, bmean, bvar, gy):
+    """Recompute z (x's dtype), n̂, inv and gpre (f32) from x and gy."""
+    z, m = _spectrum_plain(x, kernel)
+    inv = torch.rsqrt(bvar + EPS)
+    n_hat = (_f32(m) - _col(bmean)) * _col(inv)
+    pre = n_hat * _col(scale) + _col(bias)
+    gr_r, gr_i = irfft2_ortho_adjoint(gy)
+    gpre = _f32(torch.cat([gr_r, gr_i], dim=1)) * (pre > 0)
+    return z, n_hat, inv, gpre
+
+
+def fu_bwd_stats_plain(x, kernel, scale, bias, bmean, bvar, gy):
+    """(gscale, gbias) = (Σ gpre·n̂, Σ gpre) over (B, H, Wf), f32."""
+    _, n_hat, _, gpre = _bwd_recompute_plain(x, kernel, scale, bias, bmean, bvar, gy)
+    return (gpre * n_hat).sum(dim=(0, 2, 3)), gpre.sum(dim=(0, 2, 3))
+
+
+def fu_bwd_apply_plain(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias, train=True):
+    """(gx like x, gK (2C, 2C) f32). In train mode gm is the coupled-BN
+    cotangent inv·(gn − mean(gn) − n̂·mean(gn·n̂)), with
+    Σgn = scale·gbias and Σgn·n̂ = scale·gscale; in eval gm = gn·inv."""
+    b, c, h, w = x.shape
+    z, n_hat, inv, gpre = _bwd_recompute_plain(x, kernel, scale, bias, bmean, bvar, gy)
+    gn = gpre * _col(scale)
+    if train:
+        n = b * h * (w // 2 + 1)
+        gm = _col(inv) * (gn - _col(scale * gbias / n) - n_hat * _col(scale * gscale / n))
+    else:
+        gm = gn * _col(inv)
+    gm = gm.to(x.dtype)
+    gk = torch.einsum("bjuv,bduv->jd", _f32(z), _f32(gm))
+    gz = torch.einsum("bduv,jd->bjuv", gm, kernel)
+    return rfft2_ortho_adjoint(gz[:, :c], gz[:, c:], (h, w)), gk
+
+
+def fourier_unit_backward_plain(x, kernel, scale, bias, bmean, bvar, gy, train=True):
+    """The backward of the JAX package's ``_jnp_backward``: (gx, gK in
+    kernel's dtype, gscale, gbias, zeros, zeros); the statistics get zero
+    gradients."""
+    gscale, gbias = fu_bwd_stats_plain(x, kernel, scale, bias, bmean, bvar, gy)
+    gx, gk = fu_bwd_apply_plain(
+        x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias, train
+    )
+    zeros = torch.zeros_like(bmean)
+    return gx, gk.to(kernel.dtype), gscale, gbias, zeros, zeros
+
+
+def fu_reduce_plain(partial, count=0):
+    """Sum of the rows of ``partial`` (rows, cols) f32; with ``count`` > 0
+    and rows of [sums | sums of squares], [mean | E[m²] − mean²]."""
+    sums = partial.sum(dim=0)
+    if count == 0:
+        return sums
+    s1, s2 = sums.chunk(2)
+    mean = s1 / count
+    return torch.cat([mean, s2 / count - mean * mean])
+
+
+# --- argument checks ------------------------------------------------------------
+
+
+def _check_args(x, kernel, **vectors):
     if x.dim() != 4:
         raise ValueError(f"x must be (B, C, H, W), got shape {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES:
@@ -58,94 +169,234 @@ def _check_args(x, kernel, scale, bias, mean, var):
             f"kernel must be ({c2}, {c2}) {x.dtype}, got "
             f"{tuple(kernel.shape)} {kernel.dtype}"
         )
-    for name, t in (("scale", scale), ("bias", bias), ("mean", mean), ("var", var)):
-        if t.shape != (c2,) or t.dtype != torch.float32:
+    for name, t in vectors.items():
+        if name == "gy":
+            if t.shape != x.shape or t.dtype != x.dtype:
+                raise ValueError(
+                    f"gy must be {tuple(x.shape)} {x.dtype}, got {tuple(t.shape)} {t.dtype}"
+                )
+        elif t.shape != (c2,) or t.dtype != torch.float32:
             raise ValueError(
                 f"{name} must be ({c2},) float32, got {tuple(t.shape)} {t.dtype}"
             )
-    if any(t.device != x.device for t in (kernel, scale, bias, mean, var)):
+    if any(t.device != x.device for t in (kernel, *vectors.values())):
         raise ValueError("all FourierUnit operands must be on one device")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
+# --- the CUDA libraries ---------------------------------------------------------
+#
+# Each library exports ffc_smem_bytes(C, H, W), ffc_allow_smem(dtype, bytes)
+# and ffc_error_string(code) beside its entry points, which return a
+# cudaError_t.
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FWD, _TRAIN = "fourier_unit_fwd", "fourier_unit_train"
+_ENTRY_POINTS = {
+    _FWD: {"ffc_fourier_unit_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    _TRAIN: {
+        "ffc_fu_train_stats": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ffc_fu_bwd_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ffc_fu_bwd_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _P],
+        "ffc_fu_reduce": [_P, _I, _I, _LL, _P, _P],
+    },
+}
 
 
 @functools.cache
-def _kernel_library() -> ctypes.CDLL:
-    lib = _build.library("fourier_unit_fwd")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ffc_fourier_unit_fwd.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, p]
-    lib.ffc_fourier_unit_fwd.restype = i
-    lib.ffc_fourier_unit_fwd_smem_bytes.argtypes = [i, i, i]
-    lib.ffc_fourier_unit_fwd_smem_bytes.restype = ctypes.c_longlong
-    lib.ffc_fourier_unit_fwd_allow_smem.argtypes = [i, i]
-    lib.ffc_fourier_unit_fwd_allow_smem.restype = i
-    lib.ffc_cuda_error_string.argtypes = [i]
-    lib.ffc_cuda_error_string.restype = ctypes.c_char_p
+def _library(stem: str) -> ctypes.CDLL:
+    lib = _build.library(stem)
+    lib.ffc_smem_bytes.argtypes = [_I, _I, _I]
+    lib.ffc_smem_bytes.restype = _LL
+    lib.ffc_allow_smem.argtypes = [_I, _I]
+    lib.ffc_allow_smem.restype = _I
+    lib.ffc_error_string.argtypes = [_I]
+    lib.ffc_error_string.restype = ctypes.c_char_p
+    for name, argtypes in _ENTRY_POINTS[stem].items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = _I
     return lib
 
 
-def _raise_on(err: int, what: str) -> None:
+def _raise_on(stem: str, err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(
-            f"FourierUnit kernel {what} failed: "
-            + _kernel_library().ffc_cuda_error_string(err).decode()
-        )
+        message = _library(stem).ffc_error_string(err).decode()
+        raise RuntimeError(f"FourierUnit kernel {what} failed: {message}")
 
 
 @functools.cache
-def _smem_limit(device_index: int, dtype_code: int) -> int:
-    """The card's shared memory per block, which the dtype's kernel is
-    allowed to take on this device (set once per device and dtype)."""
+def _smem_limit(stem: str, device_index: int, dtype_code: int) -> int:
+    """The card's shared memory per block, which the library's kernels of
+    the dtype are allowed to take on this device (set once per library,
+    device and dtype)."""
     limit = torch.cuda.get_device_properties(device_index).shared_memory_per_block_optin
     with torch.cuda.device(device_index):
-        _raise_on(
-            _kernel_library().ffc_fourier_unit_fwd_allow_smem(dtype_code, limit),
-            "set-up",
-        )
+        _raise_on(stem, _library(stem).ffc_allow_smem(dtype_code, limit), "set-up")
     return limit
 
 
 @functools.cache
-def _smem_bytes(c: int, h: int, w: int) -> int:
-    return _kernel_library().ffc_fourier_unit_fwd_smem_bytes(c, h, w)
+def _smem_bytes(stem: str, c: int, h: int, w: int) -> int:
+    return _library(stem).ffc_smem_bytes(c, h, w)
 
 
-def _launch_kernel(x, kernel, scale, bias, mean, var):
-    if not all(t.is_contiguous() for t in (x, kernel, scale, bias, mean, var)):
-        raise ValueError("the FourierUnit kernel takes contiguous tensors")
-    b, c, h, w = x.shape
-    code = _DTYPE_CODES[x.dtype]
-    smem = _smem_bytes(c, h, w)
-    limit = _smem_limit(x.device.index, code)
+def _prepare_launch(stem: str, *tensors) -> None:
+    """Checks contiguity and that a block's shared memory fits the card."""
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the FourierUnit kernels take contiguous tensors")
+    x = tensors[0]
+    _, c, h, w = x.shape
+    smem = _smem_bytes(stem, c, h, w)
+    limit = _smem_limit(stem, x.device.index, _DTYPE_CODES[x.dtype])
     if smem > limit:
         raise ValueError(
             f"a ({c}, {h}, {w}) item needs {smem} bytes of shared memory; "
             f"the card gives a block at most {limit}"
         )
+
+
+def _launch(stem: str, entry: str, on: torch.Tensor, *args) -> None:
+    """Calls the entry point on the current stream of ``on``'s device."""
+    with torch.cuda.device(on.device):
+        stream = torch.cuda.current_stream(on.device).cuda_stream
+        err = getattr(_library(stem), entry)(*args, stream)
+    _raise_on(stem, err, "launch")
+
+
+def _counted(fn):
+    fn.launches = 0
+    fn.launches_by_map = collections.Counter()
+    return fn
+
+
+def _count(fn, key) -> None:
+    fn.launches += 1
+    fn.launches_by_map[key] += 1
+
+
+# --- kernel wrappers --------------------------------------------------------------
+
+
+@_counted
+def fourier_unit_forward(x, kernel, scale, bias, mean, var):
+    """FourierUnit forward with the given statistics; the kernel on CUDA,
+    the plain version on the CPU. Returns y with x's shape and dtype."""
+    _check_args(x, kernel, scale=scale, bias=bias, mean=mean, var=var)
+    if x.device.type == "cpu":
+        return fourier_unit_forward_plain(x, kernel, scale, bias, mean, var)
+    _prepare_launch(_FWD, x, kernel, scale, bias, mean, var)
+    b, c, h, w = x.shape
     y = torch.empty_like(x)
     if b == 0:
         return y
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel_library().ffc_fourier_unit_fwd(
-            code, x.data_ptr(), kernel.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), mean.data_ptr(), var.data_ptr(),
-            y.data_ptr(), b, c, h, w, stream,
-        )
-    _raise_on(err, "launch")
-    fourier_unit_forward.launches += 1
-    fourier_unit_forward.launches_by_map[(c, h, w)] += 1
+    _launch(_FWD, "ffc_fourier_unit_fwd", x, _DTYPE_CODES[x.dtype], x.data_ptr(),
+            kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
+            var.data_ptr(), y.data_ptr(), b, c, h, w)
+    _count(fourier_unit_forward, (c, h, w))
     return y
 
 
-def fourier_unit_forward(x, kernel, scale, bias, mean, var):
-    """FourierUnit eval forward; the kernel on CUDA, the plain version on
-    the CPU. Returns y with x's shape and dtype."""
-    _check_args(x, kernel, scale, bias, mean, var)
+@_counted
+def fu_reduce(partial, count=0):
+    """Fixed-order sum over the rows of ``partial`` (rows, cols) f32, with
+    the mean/variance epilogue when ``count`` > 0 (see
+    :func:`fu_reduce_plain`); the kernel on CUDA."""
+    if partial.dim() != 2 or partial.dtype != torch.float32:
+        raise ValueError(f"partial must be 2-D float32, got {tuple(partial.shape)} {partial.dtype}")
+    if count and partial.shape[1] % 2:
+        raise ValueError("the mean/variance epilogue needs an even column count")
+    if partial.device.type == "cpu":
+        return fu_reduce_plain(partial, count)
+    if not partial.is_contiguous():
+        raise ValueError("the FourierUnit kernels take contiguous tensors")
+    rows, cols = partial.shape
+    out = torch.empty(cols, device=partial.device)
+    _launch(_TRAIN, "ffc_fu_reduce", partial, partial.data_ptr(), rows, cols, count,
+            out.data_ptr())
+    _count(fu_reduce, (rows, cols))
+    return out
+
+
+@_counted
+def fu_train_stats(x, kernel):
+    """(bmean, bvar) of m over (B, H, Wf), f32; the stats kernel and
+    ``fu_reduce`` on CUDA, the plain version on the CPU."""
+    _check_args(x, kernel)
     if x.device.type == "cpu":
-        return fourier_unit_forward_plain(x, kernel, scale, bias, mean, var)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    return _launch_kernel(x, kernel, scale, bias, mean, var)
+        return fu_train_stats_plain(x, kernel)
+    _prepare_launch(_TRAIN, x, kernel)
+    b, c, h, w = x.shape
+    partial = torch.empty(b, 4 * c, device=x.device)
+    _launch(_TRAIN, "ffc_fu_train_stats", x, _DTYPE_CODES[x.dtype], x.data_ptr(),
+            kernel.data_ptr(), partial.data_ptr(), b, c, h, w)
+    _count(fu_train_stats, (c, h, w))
+    return fu_reduce(partial, b * h * (w // 2 + 1)).split(2 * c)
 
 
-fourier_unit_forward.launches = 0
-fourier_unit_forward.launches_by_map = collections.Counter()  # by (C, H, W)
+@_counted
+def fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy):
+    """(gscale, gbias) = (Σ gpre·n̂, Σ gpre), f32; the backward stats kernel
+    and ``fu_reduce`` on CUDA, the plain version on the CPU."""
+    _check_args(x, kernel, scale=scale, bias=bias, bmean=bmean, bvar=bvar, gy=gy)
+    if x.device.type == "cpu":
+        return fu_bwd_stats_plain(x, kernel, scale, bias, bmean, bvar, gy)
+    _prepare_launch(_TRAIN, x, kernel, scale, bias, bmean, bvar, gy)
+    b, c, h, w = x.shape
+    partial = torch.empty(b, 4 * c, device=x.device)
+    _launch(_TRAIN, "ffc_fu_bwd_stats", x, _DTYPE_CODES[x.dtype], x.data_ptr(),
+            gy.data_ptr(), kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            bmean.data_ptr(), bvar.data_ptr(), partial.data_ptr(), b, c, h, w)
+    _count(fu_bwd_stats, (c, h, w))
+    return fu_reduce(partial).split(2 * c)
+
+
+@_counted
+def fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias):
+    """(gx like x, gK (2C, 2C) f32) of the train-mode backward; the
+    backward apply kernel and ``fu_reduce`` on CUDA, the plain version on
+    the CPU."""
+    _check_args(x, kernel, scale=scale, bias=bias, bmean=bmean, bvar=bvar, gy=gy,
+                gscale=gscale, gbias=gbias)
+    if x.device.type == "cpu":
+        return fu_bwd_apply_plain(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias)
+    _prepare_launch(_TRAIN, x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias)
+    b, c, h, w = x.shape
+    gx = torch.empty_like(x)
+    partial = torch.empty(b, 4 * c * c, device=x.device)
+    _launch(_TRAIN, "ffc_fu_bwd_apply", x, _DTYPE_CODES[x.dtype], x.data_ptr(),
+            gy.data_ptr(), kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            bmean.data_ptr(), bvar.data_ptr(), gscale.data_ptr(), gbias.data_ptr(),
+            gx.data_ptr(), partial.data_ptr(), b, c, h, w)
+    _count(fu_bwd_apply, (c, h, w))
+    return gx, fu_reduce(partial).view(2 * c, 2 * c)
+
+
+# --- the training op ----------------------------------------------------------------
+
+
+class _FourierUnitTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, kernel, scale, bias):
+        bmean, bvar = fu_train_stats(x, kernel)
+        y = fourier_unit_forward(x, kernel, scale, bias, bmean, bvar)
+        ctx.save_for_backward(x, kernel, scale, bias, bmean, bvar)
+        ctx.mark_non_differentiable(bmean, bvar)
+        return y, bmean, bvar
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):  # the statistics' cotangents are dropped
+        x, kernel, scale, bias, bmean, bvar = ctx.saved_tensors
+        gy = gy.contiguous()
+        gscale, gbias = fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy)
+        gx, gk = fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias)
+        return gx, gk.to(kernel.dtype), gscale, gbias
+
+
+def fourier_unit_train(x, kernel, scale, bias):
+    """FourierUnit train forward, differentiable in x, kernel, scale and
+    bias: ``(y, bmean, bvar)`` with y normalised by the f32 batch
+    statistics of m. Kernels on CUDA, plain versions on the CPU."""
+    _check_args(x, kernel, scale=scale, bias=bias)
+    return _FourierUnitTrain.apply(x, kernel, scale, bias)

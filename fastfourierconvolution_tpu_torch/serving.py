@@ -13,7 +13,7 @@ from typing import Mapping, Optional
 import torch
 
 from .models.ffc_gan import FFCGenerator, to_uint8
-from .utils.policy import resolve_device, resolve_dtype, serving_dtype
+from .utils.policy import resolve_device, resolve_dtype, default_dtype
 
 
 class Generator:
@@ -28,7 +28,7 @@ class Generator:
         device="cuda", dtype=None,
     ):
         self.device = resolve_device(device)
-        self.dtype = serving_dtype(self.device) if dtype is None else resolve_dtype(dtype)
+        self.dtype = default_dtype(self.device) if dtype is None else resolve_dtype(dtype)
         if state_dict is not None:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()

@@ -1,7 +1,7 @@
 """Mixed-precision and device policy.
 
 Activations and matmul/conv operands run in one compute dtype: float32
-by default, bfloat16 for serving on the card. Parameters and BatchNorm
+by default, bfloat16 for serving and training on the card. Parameters and BatchNorm
 state stay float32; each layer casts its parameters to the dtype of the
 activation it receives, so the dtype is chosen once, where the model
 input enters (``FFCGenerator.forward``).
@@ -38,8 +38,9 @@ def resolve_dtype(dtype) -> torch.dtype:
     return dtype
 
 
-def serving_dtype(device: torch.device) -> torch.dtype:
-    """bf16 on the card, f32 on the CPU."""
+def default_dtype(device: torch.device) -> torch.dtype:
+    """The compute dtype an entry point takes unless told otherwise: bf16
+    on the card, f32 on the CPU."""
     return torch.bfloat16 if device.type == "cuda" else torch.float32
 
 

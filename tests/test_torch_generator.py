@@ -95,8 +95,3 @@ def test_to_uint8_truncates_like_jax():
     ours = to_uint8(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(ours, np.asarray(jto_uint8(jnp.asarray(x))))
 
-
-def test_generator_refuses_training_mode():
-    model = FFCGenerator(**NARROW)
-    with pytest.raises(NotImplementedError, match="eval"):
-        model(torch.zeros(1, 32))

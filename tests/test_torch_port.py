@@ -8,7 +8,13 @@ import sys
 import pytest
 import torch
 
-from fastfourierconvolution_tpu_torch import Generator
+from fastfourierconvolution_tpu_torch import (
+    FFCGenerator,
+    GANTrainer,
+    Generator,
+    SNConvDiscriminator,
+)
+from fastfourierconvolution_tpu_torch.ops import _build
 from fastfourierconvolution_tpu_torch.utils.policy import resolve_device
 
 
@@ -35,3 +41,27 @@ def test_default_device_entry_points_raise_without_cuda():
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Generator.from_preset(32)
+    g = FFCGenerator(z_size=8, ngf=4, mg=2, channel_mults=(2, 1))
+    d = SNConvDiscriminator(ladder=((4, 4, 2),), head_size=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GANTrainer(g, d, z_size=8)
+
+
+def test_library_key_covers_every_header(tmp_path, monkeypatch):
+    """A library's file name changes when its source or any csrc header
+    changes, so an edited header never reuses a stale build; it stays the
+    same when nothing changed."""
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    src = tmp_path / "k.cu"
+    src.write_text('#include "common.cuh"\n')
+    header = tmp_path / "common.cuh"
+    header.write_text("// v1\n")
+    first = _build._library_path(src)
+    assert _build._library_path(src) == first
+    header.write_text("// v2\n")
+    second = _build._library_path(src)
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new\n")
+    assert _build._library_path(src) != second
+    src.write_text('#include "common.cuh"\n// edited\n')
+    assert len({first, second, _build._library_path(src)}) == 3
