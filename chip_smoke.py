@@ -31,13 +31,29 @@ Phases, each of which raises on a failed check:
 7. one f32 step (TF32 off, deterministic algorithms) with the kernels
    against the same step with the plain ops patched in: every generator
    gradient, then the losses of 3 steps;
-8. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
+8. the fused packed BN + tanh-GELU (+ noise) kernels against their plain
+   versions at the five packed maps of the 128px generator at batch 64,
+   with and without the noise fold, in f32 and bf16, every output, with
+   kernel, profiler-device, plain and library times and the bound;
+9. the four FourierUnit kernels at the 128px generator's four maps, whose
+   buffers exceed a block's shared memory (the workspace layout), checked
+   as in phases 3 and 5;
+10. train the full-width 128px generator, in packed-branch mode, against
+    its SN discriminator in bf16 at batch 64: warm-up steps with exact
+    launches per step by FourierUnit map and by packed BN map, then steps
+    back to back for a few seconds, with every count set to 0 before the
+    steps and read after them; losses finite at every step;
+11. one f32 step of the 128px pair at batch 8 with the tanh-form GELU
+    forced (so the fused BN op runs), kernels against plain ops, as in
+    phase 7;
+12. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, where CUDA is absent.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -50,9 +66,17 @@ from unittest import mock
 SEED = 0
 BATCH = 64
 N_REQUESTS = 8
-# (B, C, H, W) of the generator's two FourierUnits at batch 64, serving and
-# training: block1's g2g on 16x16 maps, block2's on 32x32.
+# (B, C, H, W) of the 32px generator's two FourierUnits at batch 64, serving
+# and training: block1's g2g on 16x16 maps, block2's on 32x32.
 FU_SHAPES = [(BATCH, 16, 16, 16), (BATCH, 8, 32, 32)]
+# The 128px generator at batch 64 (ngf 128, ratio 0.5, mults 4, 2, 1, 1, 1):
+# the packed map of each of its five blocks, which the fused BN + GELU op
+# normalises, and the maps of its four FourierUnits (blocks 1-4), all larger
+# than a block's shared memory takes.
+PACKED_SHAPES = [(BATCH, 512, 8, 8), (BATCH, 256, 16, 16), (BATCH, 128, 32, 32),
+                 (BATCH, 128, 64, 64), (BATCH, 128, 128, 128)]
+FU128_SHAPES = [(BATCH, 64, 16, 16), (BATCH, 32, 32, 32), (BATCH, 32, 64, 64),
+                (BATCH, 32, 128, 128)]
 # rel-max = max|kernel - reference| / max|reference|. The forward kernel's
 # reference is its plain version in the same dtype. The training kernels'
 # is their plain version evaluated in f64 on the same inputs: they compute
@@ -61,8 +85,21 @@ FU_SHAPES = [(BATCH, 16, 16, 16), (BATCH, 8, 32, 32)]
 # mask element whose pre-activation lies within rounding of 0 can flip,
 # and one flip moved gbias by 1.2e-2 and gx by 4.9e-2 of their maxima
 # (H100 80GB HBM3, 700 W, at these shapes). That gap is printed as
-# information.
+# information. The larger maps hold so many elements that some always sit
+# that close to 0, so the backward kernels' biases are moved per channel
+# to leave a margin around 0 (``relu_margin_bias``), which keeps these bars.
 FU_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# Fused BN + GELU kernels. f32: every output rel-max against the plain
+# version in f64. bf16: out, dx, dn_l and dn_g within BN_BF16_ULPS bf16 ulps
+# at the output's magnitude of the plain version on the same bf16 inputs
+# (both compute in f32 and round once; an f32 difference of one ulp can
+# move a rounding by one bf16 ulp); the sums (statistics, S1-S3) rel-max
+# against f64, the backward's from the op's own u (rounded to bf16 from
+# f32: rounded from f64 instead, it lands in the other bf16 neighbour now
+# and then, which moved S1 by 1.5e-5 at (64,512,8,8); H100 80GB HBM3,
+# 700 W).
+BN_REL_TOL = 1e-5
+BN_BF16_ULPS = 2
 # Whole-request uint8 agreement, kernel vs plain op on the same weights.
 # f32: both sides agree to ~1e-6, so only a truncation boundary can flip a
 # level. bf16: the plain op rounds to bf16 after every stage where the
@@ -76,33 +113,46 @@ PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 # Served requests and training steps timed back to back for the
 # throughput readings.
 TIMED_SECONDS = 3.0
-WARMUP_STEPS = 3
+WARMUP_STEPS = {32: 3, 128: 2}
 # f32 training step, kernels vs plain ops, under deterministic algorithms
-# so that the FourierUnit ops are the only difference: every generator
-# gradient (rel-max per tensor) and the losses of PLAIN_STEPS steps
-# (absolute). This model's f32 gradients amplify rounding about 1e4-fold:
-# two runs of the same code under cuDNN's default algorithms differed by
-# up to 4.9e-3 rel-max, and the kernels sat 1.2e-3 from the plain ops
-# under deterministic ones (H100 80GB HBM3, 700 W, at these shapes; the
-# phase prints both each time), so the gradient bar sits above that floor
-# and far below what a wrong kernel gives (order 1).
-STEP_GRAD_TOL = 1e-2
+# so that the kernels are the only difference: every generator gradient
+# (rel-max per tensor) and the losses of the steps (absolute). This
+# model's f32 gradients amplify rounding about 1e4-fold: two runs of the
+# same code under cuDNN's default algorithms differed by up to 4.9e-3
+# rel-max, and the kernels sat 1.2e-3 from the plain ops under
+# deterministic ones (32px, H100 80GB HBM3, 700 W; the phase prints both
+# each time), so the gradient bar sits above that floor and far below what
+# a wrong kernel gives (order 1). The 128px pair's floor is higher: 6.9e-3
+# and 1.3e-2 in two runs, with the kernels 1.0e-2 from the plain ops (batch
+# 8, same card): five blocks, and FourierUnit maps where many
+# pre-activations sit within rounding of the ReLU's kink, whose side moves
+# a backward sum discretely.
+STEP_GRAD_TOL = {32: 1e-2, 128: 5e-2}
 STEP_LOSS_TOL = 1e-3
-PLAIN_STEPS = 3
+# (batch, steps) of the f32 comparison by resolution.
+PLAIN_RUNS = {32: (BATCH, 3), 128: (8, 1)}
 SOURCE = "fastfourierconvolution_tpu_torch/csrc/"
 TPU_FU = "fastfourierconvolution_tpu/ops/pallas/fourier_unit.py:"
+TPU_BN = "fastfourierconvolution_tpu/ops/pallas/bn_act.py:"
 # kernel -> (source, the pallas_call lines it replaces)
 KERNELS = {
-    "fourier_unit_fwd": ("fourier_unit_fwd.cu", "657,1124,1405"),
-    "fu_train_stats": ("fourier_unit_train.cu", "622,1088,1363"),
-    "fu_bwd_stats": ("fourier_unit_train.cu", "753,1222,1500"),
-    "fu_bwd_apply": ("fourier_unit_train.cu", "806,1275,1562"),
+    "fourier_unit_fwd": ("fourier_unit_fwd.cu", TPU_FU + "657,1124,1405"),
+    "fu_train_stats": ("fourier_unit_train.cu", TPU_FU + "622,1088,1363"),
+    "fu_bwd_stats": ("fourier_unit_train.cu", TPU_FU + "753,1222,1500"),
+    "fu_bwd_apply": ("fourier_unit_train.cu", TPU_FU + "806,1275,1562"),
     # the VMEM-scratch accumulation across the TPU kernels' sequential grid
-    "fu_reduce": ("fourier_unit_train.cu", "609-620,740-747,789-797"),
+    "fu_reduce": ("fourier_unit_train.cu", TPU_FU + "609-620,740-747,789-797"),
+    "bn_stats": ("bn_act.cu", TPU_BN + "164"),
+    "bn_gelu_apply": ("bn_act.cu", TPU_BN + "197,406"),
+    "bn_bwd_reduce": ("bn_act.cu", TPU_BN + "241,457"),
+    "bn_bwd_dx": ("bn_act.cu", TPU_BN + "274,506"),
 }
-# Launches per training step and FourierUnit map.
+# Launches per training step and map: FourierUnit maps (the stats and
+# forward in the G phase and in the D phase's generator forward, the
+# backward once) and packed BN maps (the same for the fused op).
 STEP_LAUNCHES = {"fu_train_stats": 2, "fourier_unit_fwd": 2, "fu_bwd_stats": 1,
                  "fu_bwd_apply": 1}
+BN_STEP_LAUNCHES = {"bn_stats": 2, "bn_gelu_apply": 2, "bn_bwd_reduce": 1, "bn_bwd_dx": 1}
 
 
 def log(*parts):
@@ -161,9 +211,33 @@ def fu_work(kernel, shape, itemsize):
     return int(nbytes), int(b * per_item)
 
 
-def bound(kernel, shape, itemsize, dtype_name):
-    """(bound ms, "bytes" or "operations", bytes, FLOPs)."""
-    nbytes, flops = fu_work(kernel, shape, itemsize)
+def bn_work(kernel, shape, itemsize, noise):
+    """(bytes, FLOPs) a fused BN + GELU kernel's function needs at the
+    packed map ``shape``: each map read once and written once (x, g, out,
+    dx in the model dtype, the (B, 1, H, W) noise maps and their cotangents
+    with ``noise``), the (C,) f32 vectors; f32 operations per element,
+    tanh counted as one: stats 3, apply 14, reduce 22, dx 24, and 2 more
+    each with the noise fold."""
+    b, c, h, w = shape
+    n, rows, vec = b * c * h * w, b * h * w, c * 4
+    maps = 2 * rows * itemsize if noise else 0
+    nbytes, ops = {
+        "bn_stats": (n * itemsize + 2 * vec, 3),
+        "bn_gelu_apply": (2 * n * itemsize + 4 * vec + (maps + vec if noise else 0), 14),
+        "bn_bwd_reduce": (2 * n * itemsize + 4 * vec + maps + (3 if noise else 2) * vec, 22),
+        "bn_bwd_dx": (3 * n * itemsize + 8 * vec + (maps + vec if noise else 0), 24),
+    }[kernel]
+    return int(nbytes), (ops + (2 if noise and kernel != "bn_stats" else 0)) * n
+
+
+def bound(kernel, shape, itemsize, dtype_name, noise=False):
+    """(bound ms, "bytes" or "operations", bytes, FLOPs). The BN kernels
+    compute in f32 whatever the map's dtype."""
+    if kernel.startswith("bn_"):
+        nbytes, flops = bn_work(kernel, shape, itemsize, noise)
+        dtype_name = "float32"
+    else:
+        nbytes, flops = fu_work(kernel, shape, itemsize)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOP_PER_S[dtype_name] * 1e3
     by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -171,10 +245,9 @@ def bound(kernel, shape, itemsize, dtype_name):
 
 
 def kernel_row(name, shape, dtype_name, **numbers):
-    source, lines = KERNELS[name]
+    source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": SOURCE + source,
-            "replaces": TPU_FU + lines, "shape": list(shape), "dtype": dtype_name,
-            **numbers}
+            "replaces": replaces, "shape": list(shape), "dtype": dtype_name, **numbers}
 
 
 def rel_max(out, ref):
@@ -183,14 +256,28 @@ def rel_max(out, ref):
     return err / ref.float().abs().max().item(), err
 
 
-def time_ms(fn, iters, warmup=5):
-    """Mean ms per call over ``iters`` back-to-back calls (CUDA events)."""
+def bf16_ulps(out, ref):
+    """max|out - ref| in bf16 ulps at ref's magnitude, 2^(floor(log2
+    max|ref|) - 7)."""
+    ulp = 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
+    return (out.float() - ref.float()).abs().max().item() / ulp
+
+
+def time_ms(fn):
+    """Mean ms per call over back-to-back calls (CUDA events), after two
+    warm-up calls: as many calls as fit 300 ms by one timed call, at least
+    3 and at most 200."""
     import torch
 
-    for _ in range(warmup):
+    for _ in range(2):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    iters = int(min(200, max(3, 300.0 / max(start.elapsed_time(end), 1e-3))))
     start.record()
     for _ in range(iters):
         fn()
@@ -199,10 +286,9 @@ def time_ms(fn, iters, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def device_breakdown(fn, iters=10, top=8):
-    """Device time per call of ``fn`` from torch.profiler, counting only
-    device-side events (kernels, copies): (total ms, launches, the ``top``
-    of them by device time as (name, ms, launches))."""
+def device_events(fn, iters):
+    """torch.profiler's device-side events (kernels, copies) over ``iters``
+    calls of ``fn``: [(name, total ms, launches)]."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -211,7 +297,7 @@ def device_breakdown(fn, iters=10, top=8):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    rows = []
+    events = []
     for evt in prof.key_averages():
         # a GPU user annotation (the optimizer's step range) spans kernels
         # that are counted on their own
@@ -220,13 +306,31 @@ def device_breakdown(fn, iters=10, top=8):
         t = getattr(evt, "self_device_time_total", None)
         if t is None:
             t = getattr(evt, "self_cuda_time_total", 0)
-        rows.append((evt.key, t / iters / 1000.0, evt.count // iters))
+        events.append((evt.key, t / 1000.0, evt.count))
+    return events
+
+
+def device_breakdown(fn, iters=10, top=8):
+    """Device time per call of ``fn`` from torch.profiler, counting only
+    device-side events: (total ms, launches, the ``top`` of them by device
+    time as (name, ms, launches))."""
+    rows = [(key, t / iters, n // iters) for key, t, n in device_events(fn, iters)]
     rows.sort(key=lambda r: -r[1])
     return sum(r[1] for r in rows), sum(r[2] for r in rows), rows[:top]
 
 
-def check_fourier_unit(device):
-    """Phase 3; returns the bf16 rows for the kernels line."""
+def kernel_device_ms(fn, kernel_symbol, iters):
+    """Profiler device ms per launch of the kernels of ``fn`` whose name
+    holds ``kernel_symbol`` (per launch the profiler recorded: it can miss
+    the first launches of a window)."""
+    hits = [(t, n) for key, t, n in device_events(fn, iters) if kernel_symbol in key]
+    launches = sum(n for _, n in hits)
+    return sum(t for t, _ in hits) / launches if launches else 0.0
+
+
+def check_fourier_unit(device, shapes, phase):
+    """Phases 3 and 9 (forward); returns the bf16 rows for the kernels
+    line."""
     import torch
 
     from fastfourierconvolution_tpu_torch.ops import fourier as F
@@ -237,7 +341,7 @@ def check_fourier_unit(device):
     )
 
     rows = []
-    for shape in FU_SHAPES:
+    for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
             args = fu_inputs(shape, dtype, device, SEED)
@@ -247,10 +351,10 @@ def check_fourier_unit(device):
             if not torch.isfinite(y.float()).all():
                 raise AssertionError(f"kernel {shape} {name}: non-finite output")
             rel, abs_err = rel_max(y, ref)
-            ms = time_ms(lambda: fourier_unit_forward(*args), iters=200)
-            plain_ms = time_ms(lambda: fourier_unit_forward_plain(*args), iters=50)
-            _, _, kernels = device_breakdown(lambda: fourier_unit_forward(*args))
-            dev_ms = sum(t for key, t, _ in kernels if "fourier_unit_fwd_kernel" in key)
+            ms = time_ms(lambda: fourier_unit_forward(*args))
+            plain_ms = time_ms(lambda: fourier_unit_forward_plain(*args))
+            dev_ms = kernel_device_ms(lambda: fourier_unit_forward(*args),
+                                      "fourier_unit_fwd_kernel", iters=10 if ms < 1 else 3)
             bound_ms, bound_by, nbytes, flops = bound(
                 "fourier_unit_fwd", shape, y.element_size(), name
             )
@@ -279,7 +383,7 @@ def check_fourier_unit(device):
                     f" (rel {gap / ref.abs().max().item():.3e})")
             else:
                 rows.append(kernel_row(
-                    "fourier_unit_fwd", shape, name, phase="serving",
+                    "fourier_unit_fwd", shape, name, phase=phase,
                     max_abs_err=abs_err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 ))
@@ -289,7 +393,8 @@ def check_fourier_unit(device):
 def train_cases(shape, dtype, device, seed):
     """[(name, wrapper, plain version, arguments, output names)] for the
     training kernels at ``shape``; the backward's statistics come from
-    the plain versions in f64, rounded to f32."""
+    the plain versions in f64, rounded to f32, and its biases keep every
+    pre-activation clear of the ReLU's kink (``relu_margin_bias``)."""
     import torch
 
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
@@ -298,6 +403,8 @@ def train_cases(shape, dtype, device, seed):
     gy = torch.randn(shape, generator=torch.Generator().manual_seed(seed + 1)).to(device, dtype)
     f64 = lambda args: [a.double() for a in args]
     mean, var = (t.float() for t in fu.fu_train_stats_plain(*f64((x, kernel))))
+    bias, margin = fu.relu_margin_bias(x, kernel, scale, bias, mean, var)
+    log(f"  {shape} {str(dtype)[6:]}: every pre-activation at least {margin:.2e} from 0")
     bwd = (x, kernel, scale, bias, mean, var, gy)
     gscale, gbias = (t.float() for t in fu.fu_bwd_stats_plain(*f64(bwd)))
     return [
@@ -309,15 +416,15 @@ def train_cases(shape, dtype, device, seed):
     ]
 
 
-def check_train_kernels(device):
-    """Phase 5; returns the bf16 rows (and the reduction's f32 rows) for
-    the kernels line."""
+def check_train_kernels(device, shapes, phase):
+    """Phases 5 and 9 (training kernels); returns the bf16 rows (and the
+    reduction's f32 rows) for the kernels line."""
     import torch
 
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
-    rows = []
-    for shape in FU_SHAPES:
+    rows, reduced = [], set()
+    for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
             for name, kern, plain, args, out_names in train_cases(shape, dtype, device, SEED):
@@ -327,10 +434,10 @@ def check_train_kernels(device):
                 errs = {o: rel_max(out, ref) for o, out, ref in zip(out_names, outs, refs)}
                 if not all(torch.isfinite(out.float()).all() for out in outs):
                     raise AssertionError(f"{name} {shape} {dname}: non-finite output")
-                ms = time_ms(lambda: kern(*args), iters=200)
-                plain_ms = time_ms(lambda: plain(*args), iters=20)
-                _, _, top = device_breakdown(lambda: kern(*args), top=20)
-                dev_ms = sum(t for key, t, _ in top if f"{name}_kernel" in key)
+                ms = time_ms(lambda: kern(*args))
+                plain_ms = time_ms(lambda: plain(*args))
+                dev_ms = kernel_device_ms(lambda: kern(*args), f"{name}_kernel",
+                                          iters=10 if ms < 1 else 3)
                 bound_ms, bound_by, nbytes, flops = bound(name, shape, args[0].element_size(), dname)
                 log(f"{name} {shape} {dname}: " + ", ".join(
                     f"{o} rel-max {r:.3e} (max-abs {a:.3e})" for o, (r, a) in errs.items())
@@ -343,7 +450,7 @@ def check_train_kernels(device):
                     f"{o} {g:.3e}" for o, g in gaps.items()))
                 if dtype == torch.bfloat16:
                     rows.append(kernel_row(
-                        name, shape, dname, phase="training",
+                        name, shape, dname, phase=phase,
                         max_abs_err=max(a for _, a in errs.values()),
                         rel_max={o: r for o, (r, _) in errs.items()},
                         ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -354,20 +461,23 @@ def check_train_kernels(device):
                     raise AssertionError(f"{name} {shape} {dname}: rel-max {bad}")
         # The batch reduction at the two partial-sum shapes of this map:
         # (B, 4C) for the statistics (mean/variance epilogue) and the
-        # backward sums, (B, 4C^2) for gK.
+        # backward sums, (B, 4C^2) for gK; once per shape.
         b, c = shape[0], shape[1]
         g = torch.Generator().manual_seed(SEED)
         for cols, count in ((4 * c, b * shape[2] * (shape[3] // 2 + 1)), (4 * c * c, 0)):
+            if (b, cols) in reduced:
+                continue
+            reduced.add((b, cols))
             partial = torch.randn(b, cols, generator=g).to(device)
             out = fu.fu_reduce(partial, count)
             torch.cuda.synchronize()
             ref = fu.fu_reduce_plain(partial.double(), count)
             rel, err = rel_max(out, ref)
-            ms = time_ms(lambda: fu.fu_reduce(partial, count), iters=200)
-            plain_ms = time_ms(lambda: fu.fu_reduce_plain(partial, count), iters=200)
-            library_ms = time_ms(lambda: torch.sum(partial, 0), iters=200) if count == 0 else None
-            _, _, top = device_breakdown(lambda: fu.fu_reduce(partial, count))
-            dev_ms = sum(t for key, t, _ in top if "fu_reduce_kernel" in key)
+            ms = time_ms(lambda: fu.fu_reduce(partial, count))
+            plain_ms = time_ms(lambda: fu.fu_reduce_plain(partial, count))
+            library_ms = time_ms(lambda: torch.sum(partial, 0)) if count == 0 else None
+            dev_ms = kernel_device_ms(lambda: fu.fu_reduce(partial, count), "fu_reduce_kernel",
+                                      iters=10)
             bound_ms, bound_by, nbytes, flops = bound("fu_reduce", (b, cols), 4, "float32")
             log(f"fu_reduce ({b}, {cols}) count {count}: rel-max {rel:.3e} (max-abs "
                 f"{err:.3e}, against an f64 sum; tol {FU_REL_TOL['float32']:g}); kernel "
@@ -377,10 +487,116 @@ def check_train_kernels(device):
             if not rel <= FU_REL_TOL["float32"]:
                 raise AssertionError(f"fu_reduce ({b}, {cols}): rel-max {rel}")
             rows.append(kernel_row(
-                "fu_reduce", (b, cols), "float32", phase="training", max_abs_err=err,
+                "fu_reduce", (b, cols), "float32", phase=phase, max_abs_err=err,
                 ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms,
             ))
+    return rows
+
+
+def bn_inputs(shape, dtype, device, seed):
+    """Seeded maps (x, n_l, n_g, g) in ``dtype`` and f32 vectors (scale,
+    bias, w, g_mean, g_var) for a packed map, drawn on the card."""
+    import torch
+
+    b, c, h, w = shape
+    g = torch.Generator(device).manual_seed(seed)
+    randn = lambda *size: torch.randn(size, generator=g, device=device)
+    maps = (randn(*shape) * 1.5 + 0.3, randn(b, 1, h, w), randn(b, 1, h, w), randn(*shape))
+    vecs = (torch.rand(c, generator=g, device=device) + 0.5, randn(c) * 0.2, randn(c) * 0.3,
+            randn(c), randn(c))
+    return [t.to(dtype) for t in maps], list(vecs)
+
+
+def bn_cases(shape, dtype, device):
+    """{case: (kernel, noise, wrapper call, its reference in f64, the plain
+    version's call on the same inputs, whether its outputs are sums)} for
+    the fused BN + GELU kernels at ``shape``, with and without the noise
+    fold (cl = C/2). The later passes take the f64 statistics and sums,
+    rounded to f32; the backward sums' f64 reference keeps the op's own
+    (f32, then rounded to the dtype) u, whose bf16 rounding an f64 u would
+    move across a boundary now and then."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import bn_act as ba
+
+    (x, n_l, n_g, gy), (scale, bias, w, g_mean, g_var) = bn_inputs(shape, dtype, device, SEED)
+    cl = shape[1] // 2
+    d64 = lambda args: [a.double() if isinstance(a, torch.Tensor) else a for a in args]
+    stats64 = ba.bn_stats_plain(x.double())
+    mean, var = (t.float() for t in stats64)
+    cases = {"bn_stats": ("bn_stats", False, lambda: ba.bn_stats(x), lambda: stats64,
+                          lambda: ba.bn_stats_plain(x), True)}
+    for noise in (False, True):
+        suffix = "+noise" if noise else ""
+        apply_args = (x, mean, var, scale, bias) + ((w, n_l, n_g, cl) if noise else ())
+        reduce_args = (x, gy, mean, var, scale, bias) + ((n_l, n_g, cl) if noise else ())
+        sums64 = ba.bn_bwd_reduce_plain(*reduce_args, sum_dtype=torch.float64)
+        s1, s2 = (t.float() for t in sums64[:2])
+        dx_args = (x, gy, mean, var, scale, bias, s1, s2, g_mean, g_var) + (
+            (w, cl) if noise else ())
+        for name, wrapper, plain, args, sums in (
+            ("bn_gelu_apply", ba.bn_gelu_apply, ba.bn_gelu_apply_plain, apply_args, False),
+            ("bn_bwd_reduce", ba.bn_bwd_reduce, ba.bn_bwd_reduce_plain, reduce_args, True),
+            ("bn_bwd_dx", ba.bn_bwd_dx, ba.bn_bwd_dx_plain, dx_args, False),
+        ):
+            ref = (lambda s=sums64: s) if sums else (lambda p=plain, a=args: p(*d64(a)))
+            cases[name + suffix] = (name, noise, lambda f=wrapper, a=args: f(*a), ref,
+                                    lambda p=plain, a=args: p(*a), sums)
+    return x, cases
+
+
+def as_tuple(t):
+    return t if isinstance(t, tuple) else (t,)
+
+
+def check_bn_act(device):
+    """Phase 8; returns the bf16 rows for the kernels line."""
+    import torch
+
+    rows = []
+    for shape in PACKED_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            x, cases = bn_cases(shape, dtype, device)
+            for case, (name, noise, kern, ref64, plain, sums) in cases.items():
+                outs = as_tuple(kern())
+                torch.cuda.synchronize()
+                refs = as_tuple(ref64())
+                if not all(torch.isfinite(o.float()).all() for o in outs):
+                    raise AssertionError(f"{case} {shape} {dname}: non-finite output")
+                if sums or dtype == torch.float32:
+                    errs = [rel_max(o, r)[0] for o, r in zip(outs, refs)]
+                    what, tol = "rel-max against f64", BN_REL_TOL
+                else:
+                    errs = [bf16_ulps(o, r) for o, r in zip(outs, as_tuple(plain()))]
+                    what, tol = "bf16 ulps against the plain version", BN_BF16_ULPS
+                max_abs = max((o.float() - r.float()).abs().max().item()
+                              for o, r in zip(outs, refs))
+                line = f"{case} {shape} {dname}: {what} " + ", ".join(
+                    f"{e:.3e}" for e in errs) + f" (tol {tol:g}), max-abs vs f64 {max_abs:.3e}"
+                if dtype == torch.bfloat16:
+                    ms = time_ms(kern)
+                    plain_ms = time_ms(plain)
+                    dev_ms = kernel_device_ms(kern, f"{name}_kernel", iters=10)
+                    library_ms = None
+                    if name == "bn_stats":
+                        library_ms = time_ms(
+                            lambda: torch.var_mean(x.float(), dim=(0, 2, 3), correction=0))
+                    bound_ms, bound_by, nbytes, flops = bound(name, shape, x.element_size(),
+                                                              dname, noise)
+                    line += (f"; kernel {ms:.4f} ms/call (profiler device {dev_ms:.4f} ms), "
+                             f"plain {plain_ms:.4f} ms/call, torch.var_mean {library_ms} "
+                             f"ms/call, bound {bound_ms:.5f} ms ({bound_by}; {nbytes} B, "
+                             f"{flops} FLOP)")
+                    rows.append(kernel_row(
+                        name, shape, dname, phase="training-128px", noise=noise,
+                        max_abs_err=max_abs, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                    ))
+                log(line)
+                if not all(e <= tol for e in errs):
+                    raise AssertionError(f"{case} {shape} {dname}: {what} {errs} > {tol}")
     return rows
 
 
@@ -510,92 +726,119 @@ def serve(device, card):
 
 def launch_wrappers():
     """{kernel name: its wrapper}; each wrapper counts its launches."""
+    from fastfourierconvolution_tpu_torch.ops import bn_act as ba
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
     return {"fu_train_stats": fu.fu_train_stats, "fourier_unit_fwd": fu.fourier_unit_forward,
             "fu_bwd_stats": fu.fu_bwd_stats, "fu_bwd_apply": fu.fu_bwd_apply,
-            "fu_reduce": fu.fu_reduce}
+            "fu_reduce": fu.fu_reduce, "bn_stats": ba.bn_stats,
+            "bn_gelu_apply": ba.bn_gelu_apply, "bn_bwd_reduce": ba.bn_bwd_reduce,
+            "bn_bwd_dx": ba.bn_bwd_dx}
 
 
-def expected_launches(n_steps):
-    """{kernel: {map or partial shape: launches}} for ``n_steps`` steps."""
-    maps = [tuple(s[1:]) for s in FU_SHAPES]
-    want = {k: {m: per * n_steps for m in maps} for k, per in STEP_LAUNCHES.items()}
-    # two statistics reductions and one backward-sums reduction on (B, 4C),
-    # one gK reduction on (B, 4C^2)
-    want["fu_reduce"] = {}
-    for b, c, _, _ in FU_SHAPES:
-        want["fu_reduce"][(b, 4 * c)] = 3 * n_steps
-        want["fu_reduce"][(b, 4 * c * c)] = n_steps
-    return want
+# resolution -> (FourierUnit maps, packed BN maps) of its training step
+STEP_SHAPES = {32: (FU_SHAPES, []), 128: (FU128_SHAPES, PACKED_SHAPES)}
+
+
+def expected_launches(resolution, n_steps):
+    """{kernel: {map or partial shape: launches}} for ``n_steps`` training
+    steps at ``resolution``."""
+    from fastfourierconvolution_tpu_torch.ops import bn_act as ba
+
+    fu_shapes, bn_shapes = STEP_SHAPES[resolution]
+    want = {k: collections.Counter() for k in launch_wrappers()}
+    for b, c, h, w in fu_shapes:
+        for k, per in STEP_LAUNCHES.items():
+            want[k][(c, h, w)] += per * n_steps
+        # two statistics reductions and one backward-sums reduction on
+        # (B, 4C), one gK reduction on (B, 4C^2)
+        want["fu_reduce"][(b, 4 * c)] += 3 * n_steps
+        want["fu_reduce"][(b, 4 * c * c)] += n_steps
+    for b, c, h, w in bn_shapes:
+        for k, per in BN_STEP_LAUNCHES.items():
+            want[k][(c, h, w)] += per * n_steps
+        # two statistics reductions on (chunks, 2C), the backward's S1-S3
+        # on (chunks, 3C)
+        chunks = ba._library().ffc_bn_chunks(b * h * w)
+        want["fu_reduce"][(chunks, 2 * c)] += 2 * n_steps
+        want["fu_reduce"][(chunks, 3 * c)] += n_steps
+    return {k: dict(v) for k, v in want.items()}
 
 
 def counts_by_map():
     return {k: dict(w.launches_by_map) for k, w in launch_wrappers().items()}
 
 
-def make_trainer(device, dtype):
+def make_trainer(device, dtype, resolution):
     import torch
 
     from fastfourierconvolution_tpu_torch import FFCGenerator, GANTrainer, SNConvDiscriminator
 
-    g = FFCGenerator.for_resolution(32, generator=torch.Generator().manual_seed(SEED))
-    d = SNConvDiscriminator.for_resolution(32, generator=torch.Generator().manual_seed(SEED + 1))
+    g = FFCGenerator.for_resolution(resolution, generator=torch.Generator().manual_seed(SEED))
+    d = SNConvDiscriminator.for_resolution(
+        resolution, generator=torch.Generator().manual_seed(SEED + 1))
     return GANTrainer(g, d, seed=SEED, device=device, dtype=dtype)
 
 
-def real_batch(device, seed):
-    """A seeded (B, 32, 32, 3) batch in [-1, 1], NHWC."""
+def real_batch(device, seed, resolution, batch=BATCH):
+    """A seeded (B, R, R, 3) batch in [-1, 1], NHWC."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    return (torch.rand(BATCH, 32, 32, 3, generator=g) * 2 - 1).to(device)
+    return (torch.rand(batch, resolution, resolution, 3, generator=g) * 2 - 1).to(device)
 
 
-def train(device, card):
-    """Phase 6; returns the launches by map and kernel over the steps."""
+def train(device, card, resolution):
+    """Phases 6 and 10; returns the launches by map and kernel over the
+    steps."""
     import torch
 
-    trainer = make_trainer(device, "bf16")
-    real = real_batch(device, SEED + 2)
+    trainer = make_trainer(device, "bf16", resolution)
+    real = real_batch(device, SEED + 2, resolution)
+    warmup = WARMUP_STEPS[resolution]
+    sync_every = 10 if resolution == 32 else 2
+    torch.cuda.reset_peak_memory_stats()
     for w in launch_wrappers().values():
         w.launches = 0
         w.launches_by_map.clear()
     losses = []
-    for i in range(WARMUP_STEPS):
+    for i in range(warmup):
         before = counts_by_map()
         losses.append(trainer.update_step(real))
         torch.cuda.synchronize()
         step = {k: {m: n - before[k].get(m, 0) for m, n in v.items()}
                 for k, v in counts_by_map().items()}
-        if step != expected_launches(1):
+        if step != expected_launches(resolution, 1):
             raise AssertionError(f"kernel launches in step {i}: {step}")
     n_timed = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < TIMED_SECONDS:
-        for _ in range(10):
+        for _ in range(sync_every):
             losses.append(trainer.update_step(real))
-        n_timed += 10
+        n_timed += sync_every
         torch.cuda.synchronize()
     timed_s = time.perf_counter() - t0
     counts = counts_by_map()
-    n_steps = WARMUP_STEPS + n_timed
-    if counts != expected_launches(n_steps):
+    n_steps = warmup + n_timed
+    if counts != expected_launches(resolution, n_steps):
         raise AssertionError(f"kernel launches over {n_steps} steps: {counts}")
     launches = {k: w.launches for k, w in launch_wrappers().items()}
     values = torch.stack([torch.stack([l["loss_g"], l["loss_d"]]) for l in losses])
     if not torch.isfinite(values).all():
         raise AssertionError("non-finite training loss")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = timed_s / n_timed * 1e3
-    busy_ms, n_launch, top = device_breakdown(lambda: trainer.update_step(real), iters=5, top=10)
-    log(f"training step, batch {BATCH}, bf16: {step_ms:.3f} ms wall (unprofiled, "
-        f"{n_timed} steps in {timed_s:.3f} s, host clock), {BATCH / step_ms * 1e3:.1f} "
-        f"img/s; device busy {busy_ms:.3f} ms in {n_launch} device launches "
-        f"(profiler), idle share {1 - busy_ms / step_ms:.3f}; {card}")
+    busy_ms, n_launch, top = device_breakdown(lambda: trainer.update_step(real),
+                                              iters=5 if resolution == 32 else 2, top=12)
+    log(f"{resolution}px training step, batch {BATCH}, bf16: {step_ms:.3f} ms wall "
+        f"(unprofiled, {n_timed} steps in {timed_s:.3f} s, host clock), "
+        f"{BATCH / step_ms * 1e3:.1f} img/s; device busy {busy_ms:.3f} ms in {n_launch} "
+        f"device launches (profiler), idle share {1 - busy_ms / step_ms:.3f}; peak "
+        f"memory {peak_gb:.2f} GB; {card}")
     for name, ms, count in top:
         log(f"  device {ms:.4f} ms in {count} launches: {name[:90]}")
-    log(f"trained {n_steps} steps ({WARMUP_STEPS} warm-up, each checked): losses "
+    log(f"trained {n_steps} steps ({warmup} warm-up, each checked): losses "
         f"finite, last loss_g {values[-1, 0].item():.4f} loss_d {values[-1, 1].item():.4f}")
     log(f"trained: kernel launches {launches}; by map {counts}")
     return counts
@@ -612,47 +855,61 @@ def grad_gap(grads_a, grads_b, names):
     return worst, where, worst_norm
 
 
-def train_vs_plain(device):
-    """Phase 7: f32 steps with the kernels against the plain ops."""
+def train_vs_plain(device, resolution):
+    """Phases 7 and 11: f32 steps with the kernels against the plain ops.
+    At 128px the tanh-form GELU is forced, so the generator's packed
+    blocks take the fused BN + GELU op (and its kernels) in f32 too."""
     import torch
 
+    from fastfourierconvolution_tpu_torch.nn import layers
+    from fastfourierconvolution_tpu_torch.ops import bn_act as ba
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
-    plain_ops = lambda: mock.patch.multiple(
-        fu, fu_train_stats=fu.fu_train_stats_plain,
-        fourier_unit_forward=fu.fourier_unit_forward_plain,
-        fu_bwd_stats=fu.fu_bwd_stats_plain, fu_bwd_apply=fu.fu_bwd_apply_plain,
-    )
+    def plain_ops():
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.multiple(
+            fu, fu_train_stats=fu.fu_train_stats_plain,
+            fourier_unit_forward=fu.fourier_unit_forward_plain,
+            fu_bwd_stats=fu.fu_bwd_stats_plain, fu_bwd_apply=fu.fu_bwd_apply_plain))
+        stack.enter_context(mock.patch.multiple(
+            ba, bn_stats=ba.bn_stats_plain, bn_gelu_apply=ba.bn_gelu_apply_plain,
+            bn_bwd_reduce=ba.bn_bwd_reduce_plain, bn_bwd_dx=ba.bn_bwd_dx_plain))
+        return stack
+
+    batch, steps = PLAIN_RUNS[resolution]
     g = torch.Generator().manual_seed(SEED + 3)
-    zs = torch.randn(PLAIN_STEPS, 2, BATCH, 128, generator=g).to(device)
-    real = real_batch(device, SEED + 4)
+    zs = torch.randn(steps, 2, batch, 128, generator=g).to(device)
+    real = real_batch(device, SEED + 4, resolution, batch)
 
     def g_grads(plain):
-        trainer = make_trainer(device, "f32")
+        trainer = make_trainer(device, "f32", resolution)
         names = [n for n, _ in trainer.g.named_parameters()]
         with plain_ops() if plain else contextlib.nullcontext():
             return names, trainer.g_loss_and_grads(zs[0, 0])[1]
 
-    names, floor_a = g_grads(plain=False)
-    floor = grad_gap(floor_a, g_grads(plain=False)[1], names)
-    torch.use_deterministic_algorithms(True)
+    layers.set_fast_gelu(True if resolution >= 128 else "policy")
     try:
+        names, floor_a = g_grads(plain=False)
+        floor = grad_gap(floor_a, g_grads(plain=False)[1], names)
+        torch.use_deterministic_algorithms(True)
         _, grads_k = g_grads(plain=False)
         before = {k: w.launches for k, w in launch_wrappers().items()}
         _, grads_p = g_grads(plain=True)
         if {k: w.launches for k, w in launch_wrappers().items()} != before:
             raise AssertionError("the plain-op step launched a kernel")
         worst, where, worst_norm = grad_gap(grads_k, grads_p, names)
-        log(f"f32 step, kernels vs plain ops (deterministic algorithms): {len(names)} "
-            f"generator gradients, worst rel-max {worst:.3e} ({where}), worst rel-norm "
-            f"{worst_norm:.3e} (tol {STEP_GRAD_TOL:g} rel-max); floor: the kernel path "
-            f"against itself under cuDNN's default algorithms, worst rel-max "
-            f"{floor[0]:.3e} ({floor[1]}), rel-norm {floor[2]:.3e}")
-        if not worst <= STEP_GRAD_TOL:
+        log(f"{resolution}px f32 step at batch {batch}, kernels vs plain ops (deterministic "
+            f"algorithms): {len(names)} generator gradients, worst rel-max {worst:.3e} "
+            f"({where}), worst rel-norm {worst_norm:.3e} (tol {STEP_GRAD_TOL[resolution]:g} "
+            f"rel-max); "
+            f"floor: the kernel path against itself under cuDNN's default algorithms, worst "
+            f"rel-max {floor[0]:.3e} ({floor[1]}), rel-norm {floor[2]:.3e}")
+        if not worst <= STEP_GRAD_TOL[resolution]:
             raise AssertionError(f"f32 gradient of {where}: rel-max {worst} vs the plain ops")
 
-        kern, plain = make_trainer(device, "f32"), make_trainer(device, "f32")
-        for i in range(PLAIN_STEPS):
+        kern = make_trainer(device, "f32", resolution)
+        plain = make_trainer(device, "f32", resolution)
+        for i in range(steps):
             lk = kern.update_step(real, zs=zs[i])
             with plain_ops():
                 lp = plain.update_step(real, zs=zs[i])
@@ -664,6 +921,17 @@ def train_vs_plain(device):
                 raise AssertionError(f"f32 losses at step {i} differ from the plain ops: {diffs}")
     finally:
         torch.use_deterministic_algorithms(False)
+        layers.set_fast_gelu("policy")
+
+
+def with_launches(rows, counts):
+    """The rows with their kernel's launches by map (by partial shape for
+    the reduction) from a training run's counts."""
+    for row in rows:
+        key = tuple(row["shape"]) if row["name"] == "fu_reduce" else tuple(row["shape"][1:])
+        row["launches"] = counts[row["name"]].get(key, 0)
+    return rows
+
 
 def main() -> int:
     import torch
@@ -674,8 +942,8 @@ def main() -> int:
     from fastfourierconvolution_tpu_torch.ops import _build
 
     device = torch.device("cuda")
-    # cuBLAS reads this when it first starts; phase 7's deterministic
-    # algorithms need it.
+    # cuBLAS reads this when it first starts; the deterministic algorithms
+    # of phases 7 and 11 need it.
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -694,17 +962,33 @@ def main() -> int:
                 if "registers" in line or "spill" in line or "smem" in line:
                     log("  ptxas:", line.strip())
 
-    rows = check_fourier_unit(device)
+    def phase(name):
+        log(f"--- {name} ({time.perf_counter() - t0:.1f} s)")
+
+    phase("3: FourierUnit forward kernel, 32px maps")
+    rows = check_fourier_unit(device, FU_SHAPES, "serving")
+    phase("4: serving, 32px")
     by_map = serve(device, card)
     for row in rows:
         row["launches"] = by_map[tuple(row["shape"][1:])]
-    train_rows = check_train_kernels(device)
-    counts = train(device, card)
-    for row in train_rows:
-        key = tuple(row["shape"]) if row["name"] == "fu_reduce" else tuple(row["shape"][1:])
-        row["launches"] = counts[row["name"]][key]
-    train_vs_plain(device)
-    log(json.dumps({"kernels": rows + train_rows}))
+    phase("5: FourierUnit training kernels, 32px maps")
+    train_rows = check_train_kernels(device, FU_SHAPES, "training")
+    phase("6: training, 32px")
+    rows += with_launches(train_rows, train(device, card, 32))
+    phase("7: f32 step, 32px")
+    train_vs_plain(device, 32)
+    phase("8: fused BN + GELU kernels, 128px packed maps")
+    # the kernels line lists the noise-fold variants, which the 128px step runs
+    rows_128 = [r for r in check_bn_act(device) if r["noise"] or r["name"] == "bn_stats"]
+    phase("9: FourierUnit kernels, 128px maps (workspace layout)")
+    rows_128 += check_fourier_unit(device, FU128_SHAPES, "training-128px")
+    rows_128 += check_train_kernels(device, FU128_SHAPES, "training-128px")
+    phase("10: packed training, 128px")
+    rows += with_launches(rows_128, train(device, card, 128))
+    phase("11: f32 step, 128px")
+    train_vs_plain(device, 128)
+    phase("12: result")
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,12 @@
 
 ``serving.Generator`` turns latents into uint8 NHWC images with the FFC
 generator in eval mode; ``train.gan.GANTrainer`` trains the generator
-against the spectral-normed conv discriminator. The FourierUnit runs as
-hand-written CUDA kernels on the card (``csrc/fourier_unit_fwd.cu`` for
-the forward, ``csrc/fourier_unit_train.cu`` for the batch statistics and
-the backward) and as their plain PyTorch versions on the CPU.
+(packed-branch mode from 128px) against the spectral-normed conv
+discriminator. The FourierUnit and the packed blocks' fused BN + GELU run
+as hand-written CUDA kernels on the card (``csrc/fourier_unit_fwd.cu``
+for the forward, ``csrc/fourier_unit_train.cu`` for the batch statistics
+and the backward, ``csrc/bn_act.cu`` for the fused BN family) and as
+their plain PyTorch versions on the CPU.
 ``bridge.jax_to_state_dict`` loads the JAX package's variables. The
 package imports torch and numpy only.
 """

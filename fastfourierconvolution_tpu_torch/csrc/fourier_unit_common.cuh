@@ -1,6 +1,6 @@
 // Device code shared by the FourierUnit kernels (fourier_unit_fwd.cu,
-// fourier_unit_train.cu): dtype conversion, the DFT factor tables and the four
-// transform stages of one (C, H, W) item held in shared memory.
+// fourier_unit_train.cu): the buffer layouts, the DFT factor tables and the
+// four transform stages of one (C, H, W) item.
 //
 // Spectra are stored as a pair of plane sets, [re | im], each [c][h][v] with
 // v < Wf = W/2 + 1, so channel d of the 2C-channel spectrum starts at
@@ -14,27 +14,36 @@
 // so the backward pass reuses the forward stages: the cotangent of the
 // inverse's input is dft_h(dft_w(gy)) and the cotangent of x is
 // idft_w(idft_h(gz)).
+//
+// Layouts. A block works on one item, and every buffer of the item lives in
+// one region: the block's dynamic shared memory where the item's plan fits it
+// (kShared), else the item's slice of an f32 device workspace that the wrapper
+// allocates (kWorkspace), whose loads the L1 and L2 caches serve. The stages
+// take plain pointers, so one code path serves both; the layout is a template
+// argument, and each instantiation derives all its pointers from the one base
+// that item_base picks at compile time, so the compiler knows the memory space
+// of every access.
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "common.cuh"
 
 namespace ffc {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr float kEps = 1e-5f;
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
+enum Layout : int { kShared = 0, kWorkspace = 1 };
+constexpr int kLayouts = 2;
+
+// The base of block blockIdx.x's buffers in layout L: the dynamic shared
+// memory, or the item's slice of `item_floats` floats of the workspace.
+template <int L>
+__device__ __forceinline__ float* item_base(float* smem, float* ws, int item_floats) {
+  if constexpr (L == kShared) {
+    return smem;
+  } else {
+    return ws + static_cast<size_t>(blockIdx.x) * item_floats;
+  }
 }
 
 // Geometry of one item.
@@ -168,12 +177,6 @@ __device__ __forceinline__ float mix_at(const float* z, const float* kmix,
   float m = 0.f;
   for (int j = 0; j < c2; ++j) m = fmaf(z[j * hwf + s], kmix[j * c2 + d], m);
   return m;
-}
-
-// Sum over the 32 lanes of a warp, in a fixed order; lane 0 gets the total.
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
 }
 
 }  // namespace ffc

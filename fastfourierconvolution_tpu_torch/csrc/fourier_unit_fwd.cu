@@ -22,15 +22,19 @@
 // Layout: x and y are NCHW, contiguous, float32 or bfloat16; K is (2C, 2C) in
 // x's dtype, [re; im] on both axes; scale/bias/mean/var are (2C,) float32.
 //
-// Design. A block loads its item's map into shared memory (converted to f32)
-// and keeps every intermediate there: the W-stage rDFT, the H-stage DFT, the
+// Design. A block loads its item's map (converted to f32) and keeps every
+// intermediate on chip where it fits: the W-stage rDFT, the H-stage DFT, the
 // channel mix with BN, ReLU and the c weights, the inverse H-stage and the
 // inverse W-stage, which writes y. All arithmetic is f32 FMA on the CUDA
 // cores. The DFT factor tables are computed in the block (double precision,
 // rounded to f32, as the host factor matrices are); the transform stages are
 // shared with the training kernels (fourier_unit_common.cuh). Two
-// spectrum-sized buffers ping-pong; x shares the second one. At the 32px generator's shapes
-// a block needs 44 KB (16x16x16) or 81 KB (32x32x8) of shared memory.
+// spectrum-sized buffers ping-pong; x shares the second one. At the 32px
+// generator's shapes a block needs 44 KB (16x16x16) or 81 KB (32x32x8) of
+// shared memory, and 213 KB at the 128px generator's block1 (64x16x16, with
+// its 64 KB K). The larger 128px maps (32x32x32, 32x64x64, 32x128x128) keep
+// every buffer in the item's workspace slice instead (0.31, 1.15 and 4.48 MB
+// per item; see fourier_unit_common.cuh).
 //
 // What bounds it on an H100: per launch it must move x and y once
 // (B*C*H*W elements each; 1.05 MB at (64,16,16,16) and 2.10 MB at
@@ -42,6 +46,9 @@
 // SMs at serving batch 64, its dense DFT stages do several times the
 // function's operations as f32 FMAs on the CUDA cores, and each block's time
 // is set by its shared-memory loads (about one per FMA), not by device memory.
+// In the workspace layout the stages load from the L1/L2-cached workspace
+// instead: a simple, slower variant (at 128x128 a block does about 0.45 G
+// FMAs for its item), kept as the first correct version.
 
 #include "fourier_unit_common.cuh"
 
@@ -49,7 +56,8 @@ namespace {
 
 using namespace ffc;
 
-// Shared-memory plan in floats; the host sizes the launch with the same plan.
+// Buffer plan in floats; the host sizes the launch (shared memory or
+// workspace) with the same plan.
 struct Plan {
   int spec_a_off, buf_b_off, tab_off, k_off, bn_off, cvec_off, total;
   __host__ __device__ Plan(int c, int h, int w) {
@@ -64,30 +72,31 @@ struct Plan {
   }
 };
 
-template <typename T>
+template <typename T, int kLayout>
 __global__ void __launch_bounds__(kThreads)
 fourier_unit_fwd_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
                         const float* __restrict__ scale,
                         const float* __restrict__ bias,
                         const float* __restrict__ mean,
                         const float* __restrict__ var, T* __restrict__ y,
-                        int C, int H, int W) {
+                        float* __restrict__ ws, int C, int H, int W) {
   extern __shared__ float smem[];
   const Plan pl(C, H, W);
   const Dims dm(C, H, W);
   const int c2 = 2 * C, hwf = dm.hwf;
-  float* spec_a = smem + pl.spec_a_off;  // [re|im][c][h][v]
-  float* buf_b = smem + pl.buf_b_off;    // x [c][h][q], then a spectrum
-  const Tables tab(smem + pl.tab_off, dm);
-  float* kmix = smem + pl.k_off;         // K [j][d]
-  float* bn_mean = smem + pl.bn_off;
+  const size_t item = blockIdx.x;
+  float* base = item_base<kLayout>(smem, ws, pl.total);
+  float* spec_a = base + pl.spec_a_off;  // [re|im][c][h][v]
+  float* buf_b = base + pl.buf_b_off;    // x [c][h][q], then a spectrum
+  const Tables tab(base + pl.tab_off, dm);
+  float* kmix = base + pl.k_off;         // K [j][d]
+  float* bn_mean = base + pl.bn_off;
   float* bn_inv = bn_mean + c2;
   float* bn_scale = bn_inv + c2;
   float* bn_bias = bn_scale + c2;
-  float* cvec = smem + pl.cvec_off;
+  float* cvec = base + pl.cvec_off;
 
   const int tid = threadIdx.x;
-  const size_t item = blockIdx.x;
 
   // 1. Load the item and the constants.
   load_map(buf_b, x + item * static_cast<size_t>(dm.n_map), dm.n_map);
@@ -124,50 +133,46 @@ fourier_unit_fwd_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
   idft_w(buf_b, y + item * static_cast<size_t>(dm.n_map), tab, dm);
 }
 
-template <typename T>
-int launch(const void* x, const void* k, const float* scale, const float* bias,
-           const float* mean, const float* var, void* y, int B, int C, int H,
-           int W, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(Plan(C, H, W).total) * sizeof(float);
-  fourier_unit_fwd_kernel<T><<<B, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(k), scale, bias, mean, var,
-      static_cast<T*>(y), C, H, W);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs for a (C, H, W) item.
-long long ffc_smem_bytes(int C, int H, int W) {
-  return static_cast<long long>(Plan(C, H, W).total) * sizeof(float);
-}
+// Floats of the buffers of one (C, H, W) item: the bytes of dynamic shared
+// memory a block needs in kShared (times 4), the workspace floats per item in
+// kWorkspace.
+long long ffc_item_floats(int C, int H, int W) { return Plan(C, H, W).total; }
 
-// Lets the dtype's kernel take up to `bytes` of dynamic shared memory on the
-// current device; called once per device and dtype before the first launch.
-// Returns a cudaError_t (0 on success).
+// Lets the dtype's kShared kernel take up to `bytes` of dynamic shared memory
+// on the current device; called once per device and dtype before the first
+// launch. Returns a cudaError_t (0 on success).
 int ffc_allow_smem(int dtype, int bytes) {
-  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  if (dtype == 0) return cudaFuncSetAttribute(fourier_unit_fwd_kernel<float>, attr, bytes);
-  if (dtype == 1)
-    return cudaFuncSetAttribute(fourier_unit_fwd_kernel<__nv_bfloat16>, attr, bytes);
-  return cudaErrorInvalidValue;
+  return dispatch<1>(dtype, kShared, [&](auto tag, auto) {
+    using T = typename decltype(tag)::type;
+    return static_cast<int>(cudaFuncSetAttribute(
+        fourier_unit_fwd_kernel<T, kShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes));
+  });
 }
 
-// dtype: 0 = float32, 1 = bfloat16. The caller has checked that a block's
-// shared memory fits the limit set by ffc_allow_smem.
-// Returns a cudaError_t (0 on success).
-int ffc_fourier_unit_fwd(int dtype, const void* x, const void* k,
+// dtype: 0 = float32, 1 = bfloat16; layout: kShared (ws null; the caller has
+// checked the plan against the limit set by ffc_allow_smem) or kWorkspace (ws:
+// B * ffc_item_floats(...) floats). Returns a cudaError_t (0 on success).
+int ffc_fourier_unit_fwd(int dtype, int layout, const void* x, const void* k,
                          const float* scale, const float* bias, const float* mean,
-                         const float* var, void* y, int B, int C, int H, int W,
-                         void* stream) {
+                         const float* var, void* y, float* ws, int B, int C, int H,
+                         int W, void* stream) {
   if (B <= 0 || C <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
+  if (layout == kWorkspace && ws == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, k, scale, bias, mean, var, y, B, C, H, W, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, k, scale, bias, mean, var, y, B, C, H, W, s);
-  return cudaErrorInvalidValue;
+  const size_t smem =
+      layout == kShared ? static_cast<size_t>(Plan(C, H, W).total) * sizeof(float) : 0;
+  return dispatch<kLayouts>(dtype, layout, [&](auto tag, auto lay) {
+    using T = typename decltype(tag)::type;
+    fourier_unit_fwd_kernel<T, decltype(lay)::value><<<B, kThreads, smem, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(k), scale, bias, mean, var,
+        static_cast<T*>(y), ws, C, H, W);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 const char* ffc_error_string(int code) {

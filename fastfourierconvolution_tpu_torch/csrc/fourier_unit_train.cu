@@ -33,15 +33,19 @@
 // (2C, 2C) in x's dtype; scale, bias, mean, var, gscale and gbias are (2C,)
 // float32; the scratch rows and gK are float32.
 //
-// Design. As in fourier_unit_fwd.cu a block holds its item in shared memory
-// and computes in f32 FMAs on the CUDA cores, recomputing the spectrum from x
+// Design. As in fourier_unit_fwd.cu a block holds its item on chip and
+// computes in f32 FMAs on the CUDA cores, recomputing the spectrum from x
 // instead of reading any saved intermediate (the backward's residuals are x,
 // the parameters and the batch statistics). Three spectrum-pair buffers:
 // A (transform scratch), B (a map, then DFT(gy), then gm in place) and
 // Z (z), plus the tables, K and the per-channel vectors. A channel sum is
 // owned by one warp: its lanes stride over the spectral positions, then a
 // shuffle tree adds them, so the order is fixed. Shared memory per block:
-// 63 KB at (C, H, W) = (16, 16, 16), 118 KB at (8, 32, 32).
+// 63 KB at (C, H, W) = (16, 16, 16), 118 KB at (8, 32, 32). Every map of the
+// 128px generator needs more than a block's 227 KB: there all the buffers go
+// to the item's slice of a device workspace (fourier_unit_common.cuh; 0.29,
+// 0.45, 1.69 and 6.61 MB per item at (64,16,16), (32,32,32), (32,64,64) and
+// (32,128,128)), a simple, slower variant whose stages load from L1/L2.
 //
 // What bounds them on an H100: bytes. Each must read x (and gy) once and
 // write a few (2C,) vectors (fu_bwd_apply also gx and gK): 0.5-1.6 MB per
@@ -56,8 +60,8 @@ namespace {
 
 using namespace ffc;
 
-// Shared-memory plan in floats, one for the three per-item kernels; the host
-// sizes the launch with the same plan.
+// Buffer plan in floats, one for the three per-item kernels; the host sizes
+// the launch (shared memory or workspace) with the same plan.
 struct Plan {
   int a_off, b_off, z_off, tab_off, k_off, vec_off, cvec_off, total;
   __host__ __device__ Plan(int c, int h, int w) {
@@ -73,10 +77,11 @@ struct Plan {
   }
 };
 
-struct Smem {
+// The item's buffers, from the base that item_base gives for the layout.
+struct Buffers {
   float *a, *b, *z, *kmix, *mean, *inv, *scale, *bias, *mgn, *mgnn, *cvec;
   Tables tab;
-  __device__ Smem(float* base, const Plan& pl, const Dims& d)
+  __device__ Buffers(float* base, const Plan& pl, const Dims& d)
       : a(base + pl.a_off), b(base + pl.b_off), z(base + pl.z_off),
         kmix(base + pl.k_off), mean(base + pl.vec_off), inv(mean + 2 * d.C),
         scale(inv + 2 * d.C), bias(scale + 2 * d.C), mgn(bias + 2 * d.C),
@@ -86,7 +91,7 @@ struct Smem {
 
 // Loads K, the tables and the half-spectrum weights (no sync).
 template <typename T>
-__device__ void load_constants(const Smem& sm, const T* kmix_g, const Dims& d) {
+__device__ void load_constants(const Buffers& sm, const T* kmix_g, const Dims& d) {
   const int c2 = 2 * d.C;
   for (int i = threadIdx.x; i < c2 * c2; i += kThreads) sm.kmix[i] = load_f32(kmix_g + i);
   fill_tables(sm.tab, d);
@@ -94,7 +99,7 @@ __device__ void load_constants(const Smem& sm, const T* kmix_g, const Dims& d) {
 }
 
 // Loads the BN vectors (no sync).
-__device__ void load_bn(const Smem& sm, const float* scale, const float* bias,
+__device__ void load_bn(const Buffers& sm, const float* scale, const float* bias,
                         const float* mean, const float* var, int c2) {
   for (int i = threadIdx.x; i < c2; i += kThreads) {
     sm.mean[i] = mean[i];
@@ -107,7 +112,7 @@ __device__ void load_bn(const Smem& sm, const float* scale, const float* bias,
 // out = DFT(map), with `map` loaded from device memory into B; A is scratch.
 // Starts and ends on a block-wide barrier.
 template <typename T>
-__device__ void spectrum(const Smem& sm, const T* map, float* out, const Dims& d) {
+__device__ void spectrum(const Buffers& sm, const T* map, float* out, const Dims& d) {
   load_map(sm.b, map, d.n_map);
   __syncthreads();
   dft_w(sm.b, sm.a, sm.tab, d);
@@ -116,13 +121,15 @@ __device__ void spectrum(const Smem& sm, const T* map, float* out, const Dims& d
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, int L>
 __global__ void __launch_bounds__(kThreads)
 fu_train_stats_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
-                      float* __restrict__ partial, int C, int H, int W) {
+                      float* __restrict__ partial, float* __restrict__ ws,
+                      int C, int H, int W) {
   extern __shared__ float smem[];
   const Dims d(C, H, W);
-  const Smem sm(smem, Plan(C, H, W), d);
+  const Plan pl(C, H, W);
+  const Buffers sm(item_base<L>(smem, ws, pl.total), pl, d);
   const int c2 = 2 * C, lane = threadIdx.x % 32;
   const size_t item = blockIdx.x;
 
@@ -147,16 +154,17 @@ fu_train_stats_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
   }
 }
 
-template <typename T>
+template <typename T, int L>
 __global__ void __launch_bounds__(kThreads)
 fu_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                     const T* __restrict__ kmix_g, const float* __restrict__ scale,
                     const float* __restrict__ bias, const float* __restrict__ mean,
                     const float* __restrict__ var, float* __restrict__ partial,
-                    int C, int H, int W) {
+                    float* __restrict__ ws, int C, int H, int W) {
   extern __shared__ float smem[];
   const Dims d(C, H, W);
-  const Smem sm(smem, Plan(C, H, W), d);
+  const Plan pl(C, H, W);
+  const Buffers sm(item_base<L>(smem, ws, pl.total), pl, d);
   const int c2 = 2 * C, lane = threadIdx.x % 32;
   const size_t item = blockIdx.x;
 
@@ -186,18 +194,19 @@ fu_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   }
 }
 
-template <typename T>
+template <typename T, int L>
 __global__ void __launch_bounds__(kThreads)
 fu_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                     const T* __restrict__ kmix_g, const float* __restrict__ scale,
                     const float* __restrict__ bias, const float* __restrict__ mean,
                     const float* __restrict__ var, const float* __restrict__ gscale,
                     const float* __restrict__ gbias, T* __restrict__ gx,
-                    float* __restrict__ partial_gk,
+                    float* __restrict__ partial_gk, float* __restrict__ ws,
                     int C, int H, int W) {
   extern __shared__ float smem[];
   const Dims d(C, H, W);
-  const Smem sm(smem, Plan(C, H, W), d);
+  const Plan pl(C, H, W);
+  const Buffers sm(item_base<L>(smem, ws, pl.total), pl, d);
   const int c2 = 2 * C, hwf = d.hwf, lane = threadIdx.x % 32;
   const size_t item = blockIdx.x;
   const float count = static_cast<float>(gridDim.x) * hwf;
@@ -276,105 +285,89 @@ __global__ void fu_reduce_kernel(const float* __restrict__ partial, int rows,
   out[n + c] = s2 / n_f - mean * mean;
 }
 
-size_t smem_bytes(int C, int H, int W) {
-  return static_cast<size_t>(Plan(C, H, W).total) * sizeof(float);
+size_t smem_bytes(int C, int H, int W, int layout) {
+  return layout == kShared ? static_cast<size_t>(Plan(C, H, W).total) * sizeof(float) : 0;
 }
 
-template <typename T>
-int allow_smem(int bytes) {
-  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  int err = cudaFuncSetAttribute(fu_train_stats_kernel<T>, attr, bytes);
-  if (err == 0) err = cudaFuncSetAttribute(fu_bwd_stats_kernel<T>, attr, bytes);
-  if (err == 0) err = cudaFuncSetAttribute(fu_bwd_apply_kernel<T>, attr, bytes);
-  return err;
-}
-
-bool bad_dims(int B, int C, int H, int W) {
-  return B <= 0 || C <= 0 || H <= 0 || W <= 0;
+bool bad_args(int B, int C, int H, int W, int layout, const float* ws) {
+  return B <= 0 || C <= 0 || H <= 0 || W <= 0 || (layout == kWorkspace && ws == nullptr);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block of any of the three per-item
-// kernels needs for a (C, H, W) item.
-long long ffc_smem_bytes(int C, int H, int W) {
-  return static_cast<long long>(smem_bytes(C, H, W));
-}
+// Floats of the buffers of one (C, H, W) item, for any of the three per-item
+// kernels: the bytes of dynamic shared memory a block needs in kShared (times
+// 4), the workspace floats per item in kWorkspace.
+long long ffc_item_floats(int C, int H, int W) { return Plan(C, H, W).total; }
 
-// Lets the dtype's three per-item kernels take up to `bytes` of dynamic shared
-// memory on the current device. Returns a cudaError_t (0 on success).
+// Lets the dtype's kShared per-item kernels take up to `bytes` of dynamic
+// shared memory on the current device. Returns a cudaError_t (0 on success).
 int ffc_allow_smem(int dtype, int bytes) {
-  if (dtype == 0) return allow_smem<float>(bytes);
-  if (dtype == 1) return allow_smem<__nv_bfloat16>(bytes);
-  return cudaErrorInvalidValue;
+  return dispatch<1>(dtype, kShared, [&](auto tag, auto) {
+    using T = typename decltype(tag)::type;
+    const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+    int e = cudaFuncSetAttribute(fu_train_stats_kernel<T, kShared>, attr, bytes);
+    if (e == 0) e = cudaFuncSetAttribute(fu_bwd_stats_kernel<T, kShared>, attr, bytes);
+    if (e == 0) e = cudaFuncSetAttribute(fu_bwd_apply_kernel<T, kShared>, attr, bytes);
+    return e;
+  });
 }
 
-// dtype: 0 = float32, 1 = bfloat16. partial: (B, 4C) float32. The caller has
-// checked the shared memory against the limit set by ffc_allow_smem.
-// Each entry point returns a cudaError_t (0 on success).
-int ffc_fu_train_stats(int dtype, const void* x, const void* k, float* partial,
-                       int B, int C, int H, int W, void* stream) {
-  if (bad_dims(B, C, H, W)) return cudaErrorInvalidValue;
+// dtype: 0 = float32, 1 = bfloat16; layout: kShared (ws null; the caller has
+// checked the plan against the limit set by ffc_allow_smem) or kWorkspace (ws:
+// B * ffc_item_floats(...) floats). partial: (B, 4C) float32. Each entry point
+// returns a cudaError_t (0 on success).
+int ffc_fu_train_stats(int dtype, int layout, const void* x, const void* k,
+                       float* partial, float* ws, int B, int C, int H, int W,
+                       void* stream) {
+  if (bad_args(B, C, H, W, layout, ws)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(C, H, W);
-  if (dtype == 0)
-    fu_train_stats_kernel<float><<<B, kThreads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(k), partial, C, H, W);
-  else if (dtype == 1)
-    fu_train_stats_kernel<__nv_bfloat16><<<B, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(k),
-        partial, C, H, W);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  const size_t smem = smem_bytes(C, H, W, layout);
+  return dispatch<kLayouts>(dtype, layout, [&](auto tag, auto lay) {
+    using T = typename decltype(tag)::type;
+    fu_train_stats_kernel<T, decltype(lay)::value><<<B, kThreads, smem, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(k), partial, ws, C, H, W);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // partial: (B, 4C) float32.
-int ffc_fu_bwd_stats(int dtype, const void* x, const void* gy, const void* k,
-                     const float* scale, const float* bias, const float* mean,
-                     const float* var, float* partial, int B, int C, int H, int W,
-                     void* stream) {
-  if (bad_dims(B, C, H, W)) return cudaErrorInvalidValue;
+int ffc_fu_bwd_stats(int dtype, int layout, const void* x, const void* gy,
+                     const void* k, const float* scale, const float* bias,
+                     const float* mean, const float* var, float* partial, float* ws,
+                     int B, int C, int H, int W, void* stream) {
+  if (bad_args(B, C, H, W, layout, ws)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(C, H, W);
-  if (dtype == 0)
-    fu_bwd_stats_kernel<float><<<B, kThreads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(gy),
-        static_cast<const float*>(k), scale, bias, mean, var, partial, C, H, W);
-  else if (dtype == 1)
-    fu_bwd_stats_kernel<__nv_bfloat16><<<B, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(gy),
-        static_cast<const __nv_bfloat16*>(k), scale, bias, mean, var, partial, C, H, W);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  const size_t smem = smem_bytes(C, H, W, layout);
+  return dispatch<kLayouts>(dtype, layout, [&](auto tag, auto lay) {
+    using T = typename decltype(tag)::type;
+    fu_bwd_stats_kernel<T, decltype(lay)::value><<<B, kThreads, smem, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(gy), static_cast<const T*>(k),
+        scale, bias, mean, var, partial, ws, C, H, W);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // gx: like x; partial_gk: (B, 2C, 2C) float32; gscale and gbias are the
 // reduced output of ffc_fu_bwd_stats.
-int ffc_fu_bwd_apply(int dtype, const void* x, const void* gy, const void* k,
-                     const float* scale, const float* bias, const float* mean,
-                     const float* var, const float* gscale, const float* gbias,
-                     void* gx, float* partial_gk, int B, int C, int H, int W,
-                     void* stream) {
-  if (bad_dims(B, C, H, W)) return cudaErrorInvalidValue;
+int ffc_fu_bwd_apply(int dtype, int layout, const void* x, const void* gy,
+                     const void* k, const float* scale, const float* bias,
+                     const float* mean, const float* var, const float* gscale,
+                     const float* gbias, void* gx, float* partial_gk, float* ws,
+                     int B, int C, int H, int W, void* stream) {
+  if (bad_args(B, C, H, W, layout, ws)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(C, H, W);
-  if (dtype == 0)
-    fu_bwd_apply_kernel<float><<<B, kThreads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(gy),
-        static_cast<const float*>(k), scale, bias, mean, var, gscale, gbias,
-        static_cast<float*>(gx), partial_gk, C, H, W);
-  else if (dtype == 1)
-    fu_bwd_apply_kernel<__nv_bfloat16><<<B, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(gy),
-        static_cast<const __nv_bfloat16*>(k), scale, bias, mean, var, gscale, gbias,
-        static_cast<__nv_bfloat16*>(gx), partial_gk, C, H, W);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  const size_t smem = smem_bytes(C, H, W, layout);
+  return dispatch<kLayouts>(dtype, layout, [&](auto tag, auto lay) {
+    using T = typename decltype(tag)::type;
+    fu_bwd_apply_kernel<T, decltype(lay)::value><<<B, kThreads, smem, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(gy), static_cast<const T*>(k),
+        scale, bias, mean, var, gscale, gbias, static_cast<T*>(gx), partial_gk, ws,
+        C, H, W);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // partial: (rows, cols) float32; out: (cols,) float32. count > 0 selects the

@@ -1,10 +1,18 @@
-"""FFC-GAN generator (unconditional, tuple path), the spectral-normed
-conv discriminator, and the uint8 contract.
+"""FFC-GAN generator (unconditional), the spectral-normed conv
+discriminator, and the uint8 contract.
 
 Generator: z -> Dense(mg*mg*ngf*8) -> (B, mg, mg, ngf*8) -> NCHW ->
 [FFC_BN_ACT(k4 s2 p1, BN, GELU, upsampling) -> NoiseInjection on both
 branches (training only)] x N -> FFC_BN_ACT(ngf -> out_ch, k3 s1 p1, tanh,
 no norm) -> concat branches.
+
+At 128px and above the generator runs in packed-branch mode by default
+(``nn/ffc.py``; the JAX package's ``_PACKED_MIN_RES``). There each
+block's noise injection is folded into its norm-act pass: the block gets
+``(w, n_l, n_g)``, the two branches' weights concatenated local first and
+their noise maps, drawn in the tuple path's order (per block n_l, then
+n_g, each (B, 1, H, W)), so a packed and a tuple generator given the same
+noise generator compute the same function.
 
 Discriminator: [SNConv2d(k, s, p1) -> LeakyReLU(0.1)] per ladder entry ->
 flatten in (H, W, C) order, as the JAX package flattens NHWC -> SNDense(1).
@@ -18,7 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..nn.ffc import FFC_BN_ACT, resize_output, split_channels
+from ..nn.ffc import FFC_BN_ACT, Packed, resize_output, split_channels
 from ..nn.layers import (
     Dense,
     NoiseInjection,
@@ -37,11 +45,27 @@ PRESETS = {
     128: dict(ngf=128, ratio_g=0.5, mg=4, channel_mults=(4, 2, 1, 1, 1)),
     256: dict(ngf=128, ratio_g=0.5, mg=4, channel_mults=(4, 2, 1, 1, 1, 1)),
 }
+# Packed-branch mode is the default from this resolution on.
+PACKED_MIN_RES = 128
 
 
 def to_uint8(x: torch.Tensor) -> torch.Tensor:
     """[-1, 1] float -> [0, 255] uint8, truncating like a cast."""
     return (255.0 * (x.clamp(-1.0, 1.0) * 0.5 + 0.5)).to(torch.uint8)
+
+
+def draw_noise_fold(model: nn.Module, i: int, probe: torch.Tensor,
+                    generator: torch.Generator):
+    """Block ``i``'s noise-fold triple ``(w, n_l, n_g)``: the
+    ``lcl_noise{i}``/``glb_noise{i}`` weights concatenated local first, and
+    their noise maps drawn like the tuple path's (n_l, then n_g). ``probe``
+    (B, ·, H, W) gives the block output's shape, dtype and device."""
+    w = getattr(model, f"lcl_noise{i}").weight
+    n_l = draw_noise(probe, generator)
+    glb = getattr(model, f"glb_noise{i}", None)
+    if glb is None:
+        return w, n_l, n_l
+    return torch.cat([w, glb.weight]), n_l, draw_noise(probe, generator)
 
 
 class FFCGenerator(nn.Module):
@@ -53,17 +77,21 @@ class FFCGenerator(nn.Module):
         self, z_size: int = 128, ngf: int = 64, ratio_g: float = 0.25,
         mg: int = 4, channel_mults: Sequence[int] = (4, 2, 1),
         out_channels: int = 3, generator: Optional[torch.Generator] = None,
+        packed: Optional[bool] = None,
     ):
+        """``packed``: packed-branch mode; None takes it from
+        ``PACKED_MIN_RES`` px on."""
         super().__init__()
         self.z_size, self.ngf, self.mg = z_size, ngf, mg
         self.channel_mults = tuple(channel_mults)
+        self.packed = self.resolution >= PACKED_MIN_RES if packed is None else packed
         self.noise_to_feature = Dense(z_size, mg * mg * ngf * 8)
         in_ch, in_ratio = ngf * 8, 0.0  # the stem output is all-local
         for i, mult in enumerate(self.channel_mults):
             out_ch = ngf * mult
             self.add_module(f"block{i}", FFC_BN_ACT(
                 in_ch, out_ch, 4, in_ratio, ratio_g, stride=2, padding=1,
-                norm="batch", activation="gelu", upsampling=True,
+                norm="batch", activation="gelu", upsampling=True, packed=self.packed,
             ))
             out_cl, out_cg = split_channels(out_ch, ratio_g)
             self.add_module(f"lcl_noise{i}", NoiseInjection(out_cl))
@@ -72,7 +100,7 @@ class FFCGenerator(nn.Module):
             in_ch, in_ratio = out_ch, ratio_g
         self.to_rgb = FFC_BN_ACT(
             in_ch, out_channels, 3, ratio_g, 0.0, stride=1, padding=1,
-            norm="identity", activation="tanh",
+            norm="identity", activation="tanh", packed=self.packed,
         )
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -107,6 +135,15 @@ class FFCGenerator(nn.Module):
         stem = self.noise_to_feature(z.to(dt))
         # the Dense output is laid out NHWC, as in the JAX package
         x = stem.view(b, self.mg, self.mg, -1).permute(0, 3, 1, 2).contiguous()
+        if self.packed:
+            feat = Packed(x, x.shape[1])
+            for i in range(len(self.channel_mults)):
+                fold = None
+                if self.training:
+                    hw = self.mg * 2 ** (i + 1)
+                    fold = draw_noise_fold(self, i, x.new_empty((b, 1, hw, hw)), generator)
+                feat = getattr(self, f"block{i}")(feat, noise_fold=fold)
+            return resize_output(self.to_rgb(feat))
         feat = (x, None)
         for i in range(len(self.channel_mults)):
             feat = getattr(self, f"block{i}")(feat)

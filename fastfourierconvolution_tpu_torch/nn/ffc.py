@@ -1,36 +1,65 @@
-"""Fast Fourier Convolution layers, tuple path (Chi et al., NeurIPS 2020).
+"""Fast Fourier Convolution layers (Chi et al., NeurIPS 2020).
 
-The local/global signal is an ``(x_l, x_g)`` tuple of NCHW tensors where
-an absent branch is ``None``. Channel splits follow the reference
-arithmetic ``c_g = int(c * ratio)``. The spectral re/im channels are
-concatenated [re | im], as in the JAX package.
+Two execution modes with the same modules and parameter names:
 
-Left out so far: the packed-branch mode, the local Fourier unit,
-class-conditional BN and spectral norm inside the FFC layers.
+- tuple path: the local/global signal is an ``(x_l, x_g)`` tuple of NCHW
+  tensors where an absent branch is ``None``;
+- packed-branch mode (``packed=True``): one ``Packed(x, cl)`` map with the
+  local channels first. The three conv branches run as one convolution
+  with a block-structured kernel (zero g→g block; the SpectralTransform
+  adds that part), and BN + activation run once over the whole map with
+  per-channel statistics, which equal the per-branch ones. In training with
+  the tanh-form GELU that pass is the fused op of ``ops/bn_act.py``, with
+  the generator's noise injection folded in.
+
+Channel splits follow the reference arithmetic ``c_g = int(c * ratio)``.
+The spectral re/im channels are concatenated [re | im], as in the JAX
+package.
+
+Left out so far: the local Fourier unit, class-conditional BN and spectral
+norm inside the FFC layers.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from ..ops import conv as conv_ops
+from ..ops.bn_act import packed_bn_gelu, packed_bn_gelu_noise
 from ..ops.fourier_unit import fourier_unit_forward, fourier_unit_train
 from .layers import (
     ACTIVATIONS,
+    BN_EPS,
     BatchNorm,
     Conv2d,
     ConvTranspose2d,
     SELayer,
     bn_scale_init_,
     conv_init_,
+    gelu_is_fast,
     update_running_,
 )
 
 Branch = Optional[torch.Tensor]
 BranchPair = Tuple[Branch, Branch]
+
+
+class Packed(NamedTuple):
+    """Packed-branch signal: ``x`` (B, cl + cg, H, W), local channels
+    first; ``cl`` the local channel count."""
+
+    x: torch.Tensor
+    cl: int
+
+
+def noise_add(x: torch.Tensor, cl: int, w, n_l, n_g) -> torch.Tensor:
+    """x + T(w)·n in x's dtype, n = n_l (B, 1, H, W) on the channels below
+    ``cl`` and n_g from ``cl`` on; ``w`` (C,) f32."""
+    wt = w.to(x.dtype)[:, None, None]
+    return torch.cat([x[:, :cl] + wt[:cl] * n_l, x[:, cl:] + wt[cl:] * n_g], dim=1)
 
 
 def split_channels(channels: int, ratio: float) -> Tuple[int, int]:
@@ -122,7 +151,7 @@ class FFC(nn.Module):
 
     def __init__(
         self, in_channels, out_channels, kernel_size, ratio_gin, ratio_gout,
-        stride=1, padding=0, output_padding=0, transpose=False,
+        stride=1, padding=0, output_padding=0, transpose=False, packed=False,
     ):
         super().__init__()
         if stride not in (1, 2):
@@ -130,6 +159,11 @@ class FFC(nn.Module):
         in_cl, in_cg = split_channels(in_channels, ratio_gin)
         out_cl, out_cg = split_channels(out_channels, ratio_gout)
         self.ratio_gout = ratio_gout
+        self.in_split, self.out_split = (in_cl, in_cg), (out_cl, out_cg)
+        self.kernel_size, self.transpose, self.packed = kernel_size, transpose, packed
+        self.conv_args = dict(stride=stride, padding=padding)
+        if transpose:
+            self.conv_args["output_padding"] = output_padding
 
         def make_conv(cin, cout):
             if cin == 0 or cout == 0:
@@ -155,7 +189,45 @@ class FFC(nn.Module):
             return None
         return branch(x)
 
-    def forward(self, x) -> BranchPair:
+    def block_kernel(self) -> torch.Tensor:
+        """The three conv branches as one kernel over the packed channels:
+        OIHW (IOHW when transposed), input rows / output columns ordered
+        [local | global], the g→g block zero."""
+        (in_cl, in_cg), (out_cl, out_cg) = self.in_split, self.out_split
+        k = self.kernel_size
+        zero = self.convg2g.conv1.weight.new_zeros(
+            (in_cg, out_cg, k, k) if self.transpose else (out_cg, in_cg, k, k)
+        ) if self.convg2g is not None else None
+        # convs[i][o]: the branch from input side i to output side o
+        convs = [[self.convl2l, self.convl2g], [self.convg2l, None]]
+        blocks = [
+            [convs[i][o].weight if convs[i][o] is not None else zero
+             for o, n_out in enumerate((out_cl, out_cg)) if n_out > 0]
+            for i, n_in in enumerate((in_cl, in_cg)) if n_in > 0
+        ]
+        in_dim, out_dim = (0, 1) if self.transpose else (1, 0)
+        return torch.cat([torch.cat(row, dim=out_dim) for row in blocks], dim=in_dim)
+
+    def _packed_forward(self, p: Packed) -> Packed:
+        (in_cl, in_cg), (out_cl, out_cg) = self.in_split, self.out_split
+        x = p.x
+        if p.cl != in_cl or x.shape[1] != in_cl + in_cg:
+            raise ValueError(
+                f"packed input has cl={p.cl}, C={x.shape[1]}; expected "
+                f"({in_cl}, {in_cl + in_cg})"
+            )
+        conv = conv_ops.conv_transpose2d if self.transpose else conv_ops.conv2d
+        out = conv(x, self.block_kernel(), **self.conv_args)
+        if self.convg2g is not None:
+            s = self.convg2g(x[:, in_cl:])
+            out = torch.cat([out[:, :out_cl], out[:, out_cl:] + s], dim=1) if out_cl else out + s
+        return Packed(out, out_cl)
+
+    def forward(self, x):
+        if self.packed:
+            if not isinstance(x, Packed):
+                raise TypeError("a packed FFC takes a Packed signal")
+            return self._packed_forward(x)
         x_l, x_g = x if isinstance(x, tuple) else (x, None)
         out_l, out_g = None, None
         if self.ratio_gout != 1:
@@ -166,12 +238,13 @@ class FFC(nn.Module):
 
 
 class FFC_BN_ACT(nn.Module):
-    """FFC (transposed when ``upsampling``) -> per-branch BN -> activation."""
+    """FFC (transposed when ``upsampling``) -> per-branch BN -> activation;
+    with ``packed``, on a ``Packed`` signal (see the module docstring)."""
 
     def __init__(
         self, in_channels, out_channels, kernel_size, ratio_gin, ratio_gout,
         stride=1, padding=0, output_padding=0, norm="identity",
-        activation="identity", upsampling=False,
+        activation="identity", upsampling=False, packed=False,
     ):
         super().__init__()
         if norm not in ("batch", "identity"):
@@ -179,15 +252,23 @@ class FFC_BN_ACT(nn.Module):
         self.ffc = FFC(
             in_channels, out_channels, kernel_size, ratio_gin, ratio_gout,
             stride=stride, padding=padding, output_padding=output_padding,
-            transpose=upsampling,
+            transpose=upsampling, packed=packed,
         )
         out_cl, out_cg = split_channels(out_channels, ratio_gout)
         batch = norm == "batch"
         self.bn_l = BatchNorm(out_cl) if batch and out_cl > 0 else None
         self.bn_g = BatchNorm(out_cg) if batch and out_cg > 0 else None
+        self.activation, self.packed = activation, packed
         self.act = ACTIVATIONS[activation]
 
-    def forward(self, x) -> BranchPair:
+    def forward(self, x, noise_fold=None):
+        """``noise_fold``: optional ``(w, n_l, n_g)`` of a packed block, the
+        generator's noise injection applied in the norm-act pass (w (C,)
+        f32, n_l and n_g (B, 1, H, W) in x's dtype)."""
+        if self.packed:
+            return self._packed_norm_act(self.ffc(x), noise_fold)
+        if noise_fold is not None:
+            raise ValueError("noise_fold needs packed mode")
         x_l, x_g = self.ffc(x)
 
         def norm_act(v, bn):
@@ -197,10 +278,54 @@ class FFC_BN_ACT(nn.Module):
 
         return norm_act(x_l, self.bn_l), norm_act(x_g, self.bn_g)
 
+    def _packed_norm_act(self, p: Packed, noise_fold) -> Packed:
+        """BN and the activation over the whole packed map: the fused op in
+        training with the tanh-form GELU; otherwise batch statistics (f32,
+        E[x²] − E[x]², no clamp) or the running ones, normalised in f32 and
+        cast to x's dtype before the activation."""
+        arr, cl = p
+
+        def add_noise(out):
+            return out if noise_fold is None else noise_add(out, cl, *noise_fold)
+
+        bns = [bn for bn in (self.bn_l, self.bn_g) if bn is not None]
+        if not bns:
+            return Packed(add_noise(self.act(arr)), cl)
+        scale = torch.cat([bn.weight for bn in bns])
+        bias = torch.cat([bn.bias for bn in bns])
+        if self.training and self.activation == "gelu" and gelu_is_fast(arr.dtype):
+            if noise_fold is not None and cl > 0:
+                out, mean, var = packed_bn_gelu_noise(arr, scale, bias, *noise_fold, cl)
+            else:
+                out, mean, var = packed_bn_gelu(arr, scale, bias)
+                out = add_noise(out)
+            self._update_running(bns, mean, var)
+            return Packed(out, cl)
+        if self.training:
+            xf = arr.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+            self._update_running(bns, mean, var)
+        else:
+            mean = torch.cat([bn.running_mean for bn in bns])
+            var = torch.cat([bn.running_var for bn in bns])
+        isc = torch.rsqrt(var + BN_EPS) * scale
+        out = ((arr.float() - mean[:, None, None]) * isc[:, None, None]
+               + bias[:, None, None]).to(arr.dtype)
+        return Packed(add_noise(self.act(out)), cl)
+
+    @staticmethod
+    def _update_running(bns, mean, var):
+        for bn, m, v in zip(bns, mean.split([bn.weight.numel() for bn in bns]),
+                            var.split([bn.weight.numel() for bn in bns])):
+            bn.update_running_stats_(m.detach(), v.detach())
+
 
 def resize_output(x) -> torch.Tensor:
-    """Collapse an FFC tuple to one tensor by concatenating local and
-    global channels."""
+    """Collapse an FFC signal to one tensor: a ``Packed`` map as it is, a
+    tuple by concatenating local and global channels."""
+    if isinstance(x, Packed):
+        return x.x
     if isinstance(x, tuple):
         x_l, x_g = x
         if x_g is None:

@@ -73,6 +73,12 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
+    def update_running_stats_(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Fold batch statistics computed by the caller into the running
+        ones (the packed-branch path computes them over the packed map)."""
+        update_running_(self.running_mean, mean)
+        update_running_(self.running_var, var)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if not self.training:
@@ -83,8 +89,7 @@ class BatchNorm(nn.Module):
             return out.to(x.dtype)
         mean = xf.mean(dim=(0, 2, 3))
         var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
-        update_running_(self.running_mean, mean)
-        update_running_(self.running_var, var)
+        self.update_running_stats_(mean, var)
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         out = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return out.to(x.dtype)
@@ -249,9 +254,31 @@ class SELayer(nn.Module):
         return x * y[:, :, None, None]
 
 
+# GELU form: "policy" takes the tanh form for bf16 activations and exact erf
+# otherwise, as the JAX package does; True / False force the tanh / erf
+# form for every dtype (the f32 checks of the fused packed BN+GELU op, which
+# runs only where the tanh form applies, force it).
+_FAST_GELU = "policy"
+
+
+def set_fast_gelu(mode) -> None:
+    """mode: "policy", True (tanh form) or False (exact erf)."""
+    global _FAST_GELU
+    if mode not in ("policy", True, False):
+        raise ValueError(f"fast-GELU mode must be 'policy', True or False, got {mode!r}")
+    _FAST_GELU = mode
+
+
+def gelu_is_fast(dtype: torch.dtype) -> bool:
+    """Whether :func:`gelu` takes the tanh form for ``dtype``."""
+    if _FAST_GELU == "policy":
+        return dtype == torch.bfloat16
+    return _FAST_GELU
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
-    """GELU: the tanh form for bf16 activations, exact erf otherwise."""
-    return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
+    """GELU in the form :func:`gelu_is_fast` picks for x's dtype."""
+    return F.gelu(x, approximate="tanh" if gelu_is_fast(x.dtype) else "none")
 
 
 ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {

@@ -21,8 +21,12 @@ kernel launches in ``launches`` and, by FourierUnit map (C, H, W), in
 
 - ``fourier_unit_forward``: ``csrc/fourier_unit_fwd.cu``;
 - ``fu_train_stats``, ``fu_bwd_stats``, ``fu_bwd_apply`` and ``fu_reduce``
-  (the fixed-order batch sum behind the first three):
-  ``csrc/fourier_unit_train.cu``.
+  (the fixed-order batch sum behind the first three and behind
+  ``ops/bn_act.py``): ``csrc/fourier_unit_train.cu``.
+
+Maps of any size: where an item's buffers exceed the card's shared memory
+per block, the wrapper allocates a per-item f32 workspace and launches the
+kernel's workspace layout; it raises only where that cannot be had.
 
 ``fourier_unit_train`` is the training op the model calls: an autograd
 Function whose forward runs the stats kernel and then the forward kernel
@@ -155,6 +159,26 @@ def fu_reduce_plain(partial, count=0):
     return torch.cat([mean, s2 / count - mean * mean])
 
 
+def relu_margin_bias(x, kernel, scale, bias, mean, var):
+    """``bias`` moved so that no pre-activation of the ReLU lies near 0 on
+    these inputs: per channel, the values of pre within 0.05 of 0 are
+    sorted (in f64) and 0 goes to the middle of the widest gap between
+    neighbours. The backward's outputs jump where an element crosses 0, so
+    a kernel that computes pre in f32 and its plain version in f64 take the
+    same ReLU mask only away from 0; with these biases the two can be held
+    to each other at the kernel's own rounding. Returns (bias (2C,) f32,
+    the least distance from 0 of any pre-activation)."""
+    _, m = _spectrum_plain(x.double(), kernel.double())
+    isc = torch.rsqrt(var.double() + EPS) * scale.double()
+    pre = (m - _col(mean.double())) * _col(isc) + _col(bias.double())
+    pre = pre.transpose(0, 1).reshape(2 * x.shape[1], -1).sort(dim=1).values
+    mids = (pre[:, 1:] + pre[:, :-1]) / 2
+    gaps = torch.where(mids.abs() < 0.05, pre[:, 1:] - pre[:, :-1], 0.0)
+    best = gaps.argmax(dim=1, keepdim=True)
+    shift = mids.gather(1, best)[:, 0]
+    return (bias.double() - shift).float(), gaps.gather(1, best).min().item() / 2
+
+
 # --- argument checks ------------------------------------------------------------
 
 
@@ -187,18 +211,23 @@ def _check_args(x, kernel, **vectors):
 
 # --- the CUDA libraries ---------------------------------------------------------
 #
-# Each library exports ffc_smem_bytes(C, H, W), ffc_allow_smem(dtype, bytes)
+# Each library exports ffc_item_floats(C, H, W), ffc_allow_smem(dtype, bytes)
 # and ffc_error_string(code) beside its entry points, which return a
-# cudaError_t.
+# cudaError_t. A per-item kernel keeps its item's buffers in shared memory
+# (layout 0) where they fit; larger maps keep them in the item's slice of an
+# f32 device workspace (layout 1, csrc/fourier_unit_common.cuh).
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD, _TRAIN = "fourier_unit_fwd", "fourier_unit_train"
+_SHARED, _WORKSPACE = 0, 1
 _ENTRY_POINTS = {
-    _FWD: {"ffc_fourier_unit_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    _FWD: {"ffc_fourier_unit_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _P]},
     _TRAIN: {
-        "ffc_fu_train_stats": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
-        "ffc_fu_bwd_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "ffc_fu_bwd_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        "ffc_fu_train_stats": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ffc_fu_bwd_stats": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _P],
+        "ffc_fu_bwd_apply": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _P],
         "ffc_fu_reduce": [_P, _I, _I, _LL, _P, _P],
     },
@@ -208,8 +237,8 @@ _ENTRY_POINTS = {
 @functools.cache
 def _library(stem: str) -> ctypes.CDLL:
     lib = _build.library(stem)
-    lib.ffc_smem_bytes.argtypes = [_I, _I, _I]
-    lib.ffc_smem_bytes.restype = _LL
+    lib.ffc_item_floats.argtypes = [_I, _I, _I]
+    lib.ffc_item_floats.restype = _LL
     lib.ffc_allow_smem.argtypes = [_I, _I]
     lib.ffc_allow_smem.restype = _I
     lib.ffc_error_string.argtypes = [_I]
@@ -237,24 +266,19 @@ def _smem_limit(stem: str, device_index: int, dtype_code: int) -> int:
     return limit
 
 
-@functools.cache
-def _smem_bytes(stem: str, c: int, h: int, w: int) -> int:
-    return _library(stem).ffc_smem_bytes(c, h, w)
-
-
-def _prepare_launch(stem: str, *tensors) -> None:
-    """Checks contiguity and that a block's shared memory fits the card."""
+def _prepare_launch(stem: str, *tensors):
+    """Checks contiguity and picks the buffer layout for x's map: returns
+    (layout, workspace or None). The workspace, B items of the plan's
+    floats, comes from PyTorch's allocator, which raises if it cannot be
+    had."""
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the FourierUnit kernels take contiguous tensors")
     x = tensors[0]
-    _, c, h, w = x.shape
-    smem = _smem_bytes(stem, c, h, w)
-    limit = _smem_limit(stem, x.device.index, _DTYPE_CODES[x.dtype])
-    if smem > limit:
-        raise ValueError(
-            f"a ({c}, {h}, {w}) item needs {smem} bytes of shared memory; "
-            f"the card gives a block at most {limit}"
-        )
+    b, c, h, w = x.shape
+    item_floats = _library(stem).ffc_item_floats(c, h, w)
+    if item_floats * 4 <= _smem_limit(stem, x.device.index, _DTYPE_CODES[x.dtype]):
+        return _SHARED, None
+    return _WORKSPACE, torch.empty(b * item_floats, device=x.device)
 
 
 def _launch(stem: str, entry: str, on: torch.Tensor, *args) -> None:
@@ -263,6 +287,10 @@ def _launch(stem: str, entry: str, on: torch.Tensor, *args) -> None:
         stream = torch.cuda.current_stream(on.device).cuda_stream
         err = getattr(_library(stem), entry)(*args, stream)
     _raise_on(stem, err, "launch")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _counted(fn):
@@ -286,14 +314,14 @@ def fourier_unit_forward(x, kernel, scale, bias, mean, var):
     _check_args(x, kernel, scale=scale, bias=bias, mean=mean, var=var)
     if x.device.type == "cpu":
         return fourier_unit_forward_plain(x, kernel, scale, bias, mean, var)
-    _prepare_launch(_FWD, x, kernel, scale, bias, mean, var)
+    layout, ws = _prepare_launch(_FWD, x, kernel, scale, bias, mean, var)
     b, c, h, w = x.shape
     y = torch.empty_like(x)
     if b == 0:
         return y
-    _launch(_FWD, "ffc_fourier_unit_fwd", x, _DTYPE_CODES[x.dtype], x.data_ptr(),
+    _launch(_FWD, "ffc_fourier_unit_fwd", x, _DTYPE_CODES[x.dtype], layout, x.data_ptr(),
             kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
-            var.data_ptr(), y.data_ptr(), b, c, h, w)
+            var.data_ptr(), y.data_ptr(), _ptr(ws), b, c, h, w)
     _count(fourier_unit_forward, (c, h, w))
     return y
 
@@ -326,11 +354,11 @@ def fu_train_stats(x, kernel):
     _check_args(x, kernel)
     if x.device.type == "cpu":
         return fu_train_stats_plain(x, kernel)
-    _prepare_launch(_TRAIN, x, kernel)
+    layout, ws = _prepare_launch(_TRAIN, x, kernel)
     b, c, h, w = x.shape
     partial = torch.empty(b, 4 * c, device=x.device)
-    _launch(_TRAIN, "ffc_fu_train_stats", x, _DTYPE_CODES[x.dtype], x.data_ptr(),
-            kernel.data_ptr(), partial.data_ptr(), b, c, h, w)
+    _launch(_TRAIN, "ffc_fu_train_stats", x, _DTYPE_CODES[x.dtype], layout, x.data_ptr(),
+            kernel.data_ptr(), partial.data_ptr(), _ptr(ws), b, c, h, w)
     _count(fu_train_stats, (c, h, w))
     return fu_reduce(partial, b * h * (w // 2 + 1)).split(2 * c)
 
@@ -342,12 +370,12 @@ def fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy):
     _check_args(x, kernel, scale=scale, bias=bias, bmean=bmean, bvar=bvar, gy=gy)
     if x.device.type == "cpu":
         return fu_bwd_stats_plain(x, kernel, scale, bias, bmean, bvar, gy)
-    _prepare_launch(_TRAIN, x, kernel, scale, bias, bmean, bvar, gy)
+    layout, ws = _prepare_launch(_TRAIN, x, kernel, scale, bias, bmean, bvar, gy)
     b, c, h, w = x.shape
     partial = torch.empty(b, 4 * c, device=x.device)
-    _launch(_TRAIN, "ffc_fu_bwd_stats", x, _DTYPE_CODES[x.dtype], x.data_ptr(),
+    _launch(_TRAIN, "ffc_fu_bwd_stats", x, _DTYPE_CODES[x.dtype], layout, x.data_ptr(),
             gy.data_ptr(), kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            bmean.data_ptr(), bvar.data_ptr(), partial.data_ptr(), b, c, h, w)
+            bmean.data_ptr(), bvar.data_ptr(), partial.data_ptr(), _ptr(ws), b, c, h, w)
     _count(fu_bwd_stats, (c, h, w))
     return fu_reduce(partial).split(2 * c)
 
@@ -361,14 +389,15 @@ def fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias):
                 gscale=gscale, gbias=gbias)
     if x.device.type == "cpu":
         return fu_bwd_apply_plain(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias)
-    _prepare_launch(_TRAIN, x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias)
+    layout, ws = _prepare_launch(_TRAIN, x, kernel, scale, bias, bmean, bvar, gy,
+                                 gscale, gbias)
     b, c, h, w = x.shape
     gx = torch.empty_like(x)
     partial = torch.empty(b, 4 * c * c, device=x.device)
-    _launch(_TRAIN, "ffc_fu_bwd_apply", x, _DTYPE_CODES[x.dtype], x.data_ptr(),
+    _launch(_TRAIN, "ffc_fu_bwd_apply", x, _DTYPE_CODES[x.dtype], layout, x.data_ptr(),
             gy.data_ptr(), kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             bmean.data_ptr(), bvar.data_ptr(), gscale.data_ptr(), gbias.data_ptr(),
-            gx.data_ptr(), partial.data_ptr(), b, c, h, w)
+            gx.data_ptr(), partial.data_ptr(), _ptr(ws), b, c, h, w)
     _count(fu_bwd_apply, (c, h, w))
     return gx, fu_reduce(partial).view(2 * c, 2 * c)
 

@@ -17,6 +17,7 @@ from fastfourierconvolution_tpu_torch import (
     Generator,
     SNConvDiscriminator,
 )
+from fastfourierconvolution_tpu_torch.ops import bn_act as ba
 from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 from fastfourierconvolution_tpu_torch.ops.fourier_unit import (
     fourier_unit_forward,
@@ -75,9 +76,6 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fourier_unit_forward(x.transpose(2, 3), kernel, scale, bias, mean, var)
     with pytest.raises(ValueError, match="one device"):
         fourier_unit_forward(x, kernel.cpu(), scale, bias, mean, var)
-    big = _inputs((1, 64, 128, 128), torch.float32, cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        fourier_unit_forward(*big)
 
 
 def test_served_request_launches_the_kernel_twice(cuda):
@@ -97,6 +95,9 @@ def _train_case(name, shape, dtype, device):
     x, kernel, scale, bias, _, _ = _inputs(shape, dtype, device)
     gy = torch.randn(shape, generator=torch.Generator().manual_seed(1)).to(device, dtype)
     mean, var = (t.float() for t in fu.fu_train_stats_plain(x.double(), kernel.double()))
+    # no pre-activation within rounding of the ReLU's kink, where the
+    # backward jumps (see relu_margin_bias)
+    bias, _ = fu.relu_margin_bias(x, kernel, scale, bias, mean, var)
     if name == "fu_train_stats":
         return fu.fu_train_stats, fu.fu_train_stats_plain, (x, kernel)
     args = (x, kernel, scale, bias, mean, var, gy)
@@ -152,3 +153,103 @@ def test_training_step_launches_each_kernel_a_fixed_number_of_times(cuda):
         for f, was, want in zip(wrappers, before, (2, 2, 1, 1)):
             assert {m: f.launches_by_map[m] - was.get(m, 0) for m in maps} == dict.fromkeys(maps, want)
         assert fu.fu_reduce.launches - before[-1] == 4 * len(maps)
+
+
+# A FourierUnit map of the 128px generator (block3's), whose buffers exceed
+# a block's shared memory: the kernels keep them in a per-item workspace.
+LARGE_SHAPE = (4, 32, 64, 64)
+
+
+@pytest.mark.parametrize("name", ["fourier_unit_fwd", "fu_train_stats", "fu_bwd_stats",
+                                  "fu_bwd_apply"])
+def test_large_map_kernels_match_plain(cuda, name):
+    """f32 (TF32 off), every output within 1e-4 rel-max of the plain
+    version in f64, in the workspace layout."""
+    assert fu._prepare_launch(fu._TRAIN, torch.empty(LARGE_SHAPE, device=cuda))[0] == fu._WORKSPACE
+    if name == "fourier_unit_fwd":
+        args = _inputs(LARGE_SHAPE, torch.float32, cuda)
+        kernel, plain = fourier_unit_forward, fourier_unit_forward_plain
+    else:
+        kernel, plain, args = _train_case(name, LARGE_SHAPE, torch.float32, cuda)
+    before = kernel.launches_by_map[LARGE_SHAPE[1:]]
+    outs = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches_by_map[LARGE_SHAPE[1:]] == before + 1
+    refs = plain(*(a.double() for a in args))
+    for out, ref in zip(*((outs, refs) if isinstance(outs, tuple) else ((outs,), (refs,)))):
+        rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= 1e-4, rel
+
+
+# A packed map of the 128px generator's shape class (block1's widths, batch 8).
+PACKED_SHAPE = (8, 256, 16, 16)
+
+
+def _bn_args(dtype, device, noise):
+    b, c, h, w = PACKED_SHAPE
+    g = torch.Generator().manual_seed(3)
+    x = (torch.randn(PACKED_SHAPE, generator=g) * 1.5 + 0.3).to(device, dtype)
+    gy = torch.randn(PACKED_SHAPE, generator=g).to(device, dtype)
+    n_l, n_g = (torch.randn(b, 1, h, w, generator=g).to(device, dtype) for _ in range(2))
+    scale, bias, wn, g_mean, g_var = (torch.randn(c, generator=g).to(device) for _ in range(5))
+    mean, var = (t.float() for t in ba.bn_stats_plain(x.double()))
+    cl = c // 2
+    s1, s2 = (t.float() for t in ba.bn_bwd_reduce_plain(x, gy, mean, var, scale, bias,
+                                                         sum_dtype=torch.float64)[:2])
+    return {
+        "bn_stats": (x,),
+        "bn_gelu_apply": (x, mean, var, scale, bias) + ((wn, n_l, n_g, cl) if noise else ()),
+        "bn_bwd_reduce": (x, gy, mean, var, scale, bias) + ((n_l, n_g, cl) if noise else ()),
+        "bn_bwd_dx": (x, gy, mean, var, scale, bias, s1, s2, g_mean, g_var)
+        + ((wn, cl) if noise else ()),
+    }
+
+
+@pytest.mark.parametrize("noise", [False, True], ids=["plain", "noise"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["bn_stats", "bn_gelu_apply", "bn_bwd_reduce", "bn_bwd_dx"])
+def test_bn_act_kernels_match_plain(cuda, name, dtype, noise):
+    """Every output against the plain version on the same inputs: rel-max
+    1e-5 (f32 maps and every sum; the sums take du in f32 either way);
+    bf16 maps within 2 bf16 ulps at their magnitude (both round once from
+    f32). Two launches give the same bits."""
+    args = _bn_args(dtype, cuda, noise)[name]
+    wrapper, plain = getattr(ba, name), getattr(ba, name + "_plain")
+    before = wrapper.launches
+    outs = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    refs = plain(*args)
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    assert len(outs) == len(refs)
+    for out, ref in zip(outs, refs):
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        err = (out.float() - ref.float()).abs().max().item()
+        if out.dtype == torch.bfloat16:
+            ulp = 2.0 ** (torch.floor(torch.log2(ref.float().abs().max())).item() - 7)
+            assert err <= 2 * ulp, err / ulp
+        else:
+            assert err <= 1e-5 * ref.abs().max().item(), err
+    again = wrapper(*args)
+    again = again if isinstance(again, tuple) else (again,)
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))
+
+
+def test_packed_128px_training_step_runs_the_fused_and_large_map_kernels(cuda):
+    """A 128px packed step at batch 2: every packed block through the fused
+    BN + GELU kernels with the noise fold, every FourierUnit map through
+    the workspace layout; losses finite."""
+    trainer = GANTrainer(FFCGenerator.for_resolution(128), SNConvDiscriminator.for_resolution(128),
+                         device=cuda)
+    real = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(4)) * 2 - 1
+    wrappers = (ba.bn_stats, ba.bn_gelu_apply, ba.bn_bwd_reduce, ba.bn_bwd_dx,
+                fu.fu_train_stats, fu.fourier_unit_forward, fu.fu_bwd_stats, fu.fu_bwd_apply)
+    before = [w.launches for w in wrappers]
+    losses = trainer.update_step(real)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v) for v in losses.values())
+    # five packed blocks, four FourierUnit maps; (G phase + D phase) forwards,
+    # one backward
+    want = (10, 10, 5, 5, 8, 8, 4, 4)
+    assert tuple(w.launches - b for w, b in zip(wrappers, before)) == want
