@@ -35,9 +35,12 @@ Phases, each of which raises on a failed check:
    versions at the five packed maps of the 128px generator at batch 64,
    with and without the noise fold, in f32 and bf16, every output, with
    kernel, profiler-device, plain and library times and the bound;
-9. the four FourierUnit kernels at the 128px generator's four maps, whose
-   buffers exceed a block's shared memory (the workspace layout), checked
-   as in phases 3 and 5;
+9. the FourierUnit kernels at the 128px generator's four maps, whose
+   items exceed a block's shared memory, checked as in phases 3 and 5:
+   the forward and the backward apply run there as the staged kernels
+   (``fourier_unit.kernel_design``), each stage of which is also held
+   against its plain version and timed, and both give the same bits on
+   two launches; the statistics kernels run in the workspace layout;
 10. train the full-width 128px generator, in packed-branch mode, against
     its SN discriminator in bf16 at batch 64: warm-up steps with exact
     launches per step by FourierUnit map and by packed BN map, then steps
@@ -46,7 +49,9 @@ Phases, each of which raises on a failed check:
 11. one f32 step of the 128px pair at batch 8 with the tanh-form GELU
     forced (so the fused BN op runs), kernels against plain ops, as in
     phase 7;
-12. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
+12. a ``{"wrapper_calls": [...]}`` JSON line (the staged forward and
+    backward apply per wrapper call), a ``{"kernels": [...]}`` JSON line,
+    then the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, where CUDA is absent.
 """
@@ -77,13 +82,12 @@ PACKED_SHAPES = [(BATCH, 512, 8, 8), (BATCH, 256, 16, 16), (BATCH, 128, 32, 32),
                  (BATCH, 128, 64, 64), (BATCH, 128, 128, 128)]
 FU128_SHAPES = [(BATCH, 64, 16, 16), (BATCH, 32, 32, 32), (BATCH, 32, 64, 64),
                 (BATCH, 32, 128, 128)]
-# rel-max = max|kernel - reference| / max|reference|. The forward kernel's
-# reference is its plain version in the same dtype. The training kernels'
-# is their plain version evaluated in f64 on the same inputs: they compute
-# in f32, and a plain version run in the working dtype is no sharper a
-# yardstick. In bf16 it rounds every stage; in f32 as in bf16, one ReLU
-# mask element whose pre-activation lies within rounding of 0 can flip,
-# and one flip moved gbias by 1.2e-2 and gx by 4.9e-2 of their maxima
+# rel-max = max|kernel - reference| / max|reference|. Every FourierUnit
+# kernel's reference is its plain version evaluated in f64 on the same
+# inputs: they compute in f32, and a plain version run in the working dtype
+# is no sharper a yardstick. In bf16 it rounds every stage; in f32 as in
+# bf16, one ReLU mask element whose pre-activation lies within rounding of
+# 0 can flip, and one flip moved gbias by 1.2e-2 and gx by 4.9e-2 of their maxima
 # (H100 80GB HBM3, 700 W, at these shapes). That gap is printed as
 # information. The larger maps hold so many elements that some always sit
 # that close to 0, so the backward kernels' biases are moved per channel
@@ -140,6 +144,11 @@ KERNELS = {
     "fu_train_stats": ("fourier_unit_train.cu", TPU_FU + "622,1088,1363"),
     "fu_bwd_stats": ("fourier_unit_train.cu", TPU_FU + "753,1222,1500"),
     "fu_bwd_apply": ("fourier_unit_train.cu", TPU_FU + "806,1275,1562"),
+    # the staged design of the forward and the backward apply
+    "fu_spectrum": ("fourier_unit_staged.cu", TPU_FU + "657,1124,1405,806,1275,1562"),
+    "fu_mix_apply": ("fourier_unit_staged.cu", TPU_FU + "657,1124,1405"),
+    "fu_inverse": ("fourier_unit_staged.cu", TPU_FU + "657,1124,1405,806,1275,1562"),
+    "fu_bwd_mix": ("fourier_unit_staged.cu", TPU_FU + "806,1275,1562"),
     # the VMEM-scratch accumulation across the TPU kernels' sequential grid
     "fu_reduce": ("fourier_unit_train.cu", TPU_FU + "609-620,740-747,789-797"),
     "bn_stats": ("bn_act.cu", TPU_BN + "164"),
@@ -147,11 +156,19 @@ KERNELS = {
     "bn_bwd_reduce": ("bn_act.cu", TPU_BN + "241,457"),
     "bn_bwd_dx": ("bn_act.cu", TPU_BN + "274,506"),
 }
-# Launches per training step and map: FourierUnit maps (the stats and
-# forward in the G phase and in the D phase's generator forward, the
-# backward once) and packed BN maps (the same for the fused op).
-STEP_LAUNCHES = {"fu_train_stats": 2, "fourier_unit_fwd": 2, "fu_bwd_stats": 1,
-                 "fu_bwd_apply": 1}
+# Launches per training step and FourierUnit map, by the design that
+# ``fourier_unit.kernel_design`` picks for the forward (run in the G phase
+# and in the D phase's generator forward) and for the backward apply (run
+# once), beside the statistics kernels; and per packed BN map (the same for
+# the fused op).
+STAT_STEP_LAUNCHES = {"fu_train_stats": 2, "fu_bwd_stats": 1}
+FWD_STEP_LAUNCHES = {"fused": {"fourier_unit_fwd": 2},
+                     "staged": {"fu_spectrum": 2, "fu_mix_apply": 2, "fu_inverse": 2}}
+BWD_STEP_LAUNCHES = {"fused": {"fu_bwd_apply": 1},
+                     "staged": {"fu_spectrum": 1, "fu_bwd_mix": 1, "fu_inverse": 1}}
+# The stage kernels one wrapper call launches in the staged design.
+STAGED_CALL = {"fourier_unit_fwd": ("fu_spectrum", "fu_mix_apply", "fu_inverse"),
+               "fu_bwd_apply": ("fu_spectrum", "fu_bwd_mix", "fu_inverse", "fu_reduce")}
 BN_STEP_LAUNCHES = {"bn_stats": 2, "bn_gelu_apply": 2, "bn_bwd_reduce": 1, "bn_bwd_dx": 1}
 
 
@@ -184,14 +201,15 @@ def fu_inputs(shape, dtype, device, seed):
             *(t.to(device) for t in (scale, bias, mean, var)))
 
 
-def fu_work(kernel, shape, itemsize):
+def fu_work(kernel, shape, itemsize, maps=1):
     """(bytes, FLOPs) a FourierUnit kernel's function needs at ``shape``:
     each input read once and each output written once (maps in the model
-    dtype, the (2C,) vectors and gK in f32, K in the model dtype);
-    FFT-sized transforms (5 N log2 N per complex length-N transform, half
-    that for a real one), each (2C, 2C) product over the spectrum, and the
-    elementwise BN work. For ``fu_reduce`` ``shape`` is the (rows, cols)
-    of its f32 partial sums."""
+    dtype, the (2C,) vectors and gK in f32, K in the model dtype, the
+    staged kernels' spectra in f32); FFT-sized transforms (5 N log2 N per
+    complex length-N transform, half that for a real one), each (2C, 2C)
+    product over the spectrum, and the elementwise BN work. ``maps``: the
+    maps one ``fu_spectrum`` launch transforms. For ``fu_reduce``
+    ``shape`` is the (rows, cols) of its f32 partial sums."""
     if kernel == "fu_reduce":
         rows, cols = shape
         return (rows + 1) * cols * 4, rows * cols
@@ -201,7 +219,12 @@ def fu_work(kernel, shape, itemsize):
     k_bytes, vec = c2 * c2 * itemsize, c2 * 4
     dft = 2.5 * w * math.log2(w) * c * h + 5 * h * math.log2(h) * c * (w // 2 + 1)
     mix = 2 * c2 * c2 * s
+    spec = b * c2 * s * 4
     nbytes, per_item = {
+        "fu_spectrum": (maps * (n_map + spec), maps * dft),
+        "fu_mix_apply": (2 * spec + k_bytes + 4 * vec, mix + 6 * c2 * s),
+        "fu_inverse": (spec + n_map, dft),
+        "fu_bwd_mix": (3 * spec + k_bytes + 6 * vec + c2 * c2 * 4, 3 * mix + 12 * c2 * s),
         "fourier_unit_fwd": (2 * n_map + k_bytes + 4 * vec, 2 * dft + mix + 6 * c2 * s),
         "fu_train_stats": (n_map + k_bytes + 2 * vec, dft + mix + 3 * c2 * s),
         "fu_bwd_stats": (2 * n_map + k_bytes + 6 * vec, 2 * dft + mix + 8 * c2 * s),
@@ -230,14 +253,17 @@ def bn_work(kernel, shape, itemsize, noise):
     return int(nbytes), (ops + (2 if noise and kernel != "bn_stats" else 0)) * n
 
 
-def bound(kernel, shape, itemsize, dtype_name, noise=False):
+def bound(kernel, shape, itemsize, dtype_name, noise=False, maps=1):
     """(bound ms, "bytes" or "operations", bytes, FLOPs). The BN kernels
     compute in f32 whatever the map's dtype."""
     if kernel.startswith("bn_"):
         nbytes, flops = bn_work(kernel, shape, itemsize, noise)
         dtype_name = "float32"
-    else:
+    elif kernel in ("fu_mix_apply", "fu_inverse", "fu_bwd_mix"):  # f32 spectra in
         nbytes, flops = fu_work(kernel, shape, itemsize)
+        dtype_name = "float32"
+    else:
+        nbytes, flops = fu_work(kernel, shape, itemsize, maps)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOP_PER_S[dtype_name] * 1e3
     by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -319,18 +345,49 @@ def device_breakdown(fn, iters=10, top=8):
     return sum(r[1] for r in rows), sum(r[2] for r in rows), rows[:top]
 
 
-def kernel_device_ms(fn, kernel_symbol, iters):
-    """Profiler device ms per launch of the kernels of ``fn`` whose name
-    holds ``kernel_symbol`` (per launch the profiler recorded: it can miss
-    the first launches of a window)."""
-    hits = [(t, n) for key, t, n in device_events(fn, iters) if kernel_symbol in key]
-    launches = sum(n for _, n in hits)
-    return sum(t for t, _ in hits) / launches if launches else 0.0
+def kernel_device_ms(fn, symbols, iters):
+    """Profiler device ms per call of ``fn`` that launches each kernel whose
+    name holds one of ``symbols`` once: the sum over the symbols of the
+    device ms per launch the profiler recorded (it can miss the first
+    launches of a window)."""
+    events = device_events(fn, iters)
+    total = 0.0
+    for symbol in (symbols,) if isinstance(symbols, str) else symbols:
+        hits = [(t, n) for key, t, n in events if symbol in key]
+        launches = sum(n for _, n in hits)
+        total += sum(t for t, _ in hits) / launches if launches else 0.0
+    return total
+
+
+def call_device_ms(fn, iters):
+    """Profiler device ms per call of ``fn``, every device event counted."""
+    return sum(t for _, t, _ in device_events(fn, iters)) / iters
+
+
+def staged(wrapper, shape):
+    """Whether ``wrapper`` ("forward" or "bwd_apply") runs ``shape``'s map
+    as the staged kernels on this card."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    return fu.kernel_design(wrapper, *shape[1:], limit) == fu.STAGED
+
+
+def same_bits(fn):
+    """Whether two calls of ``fn`` give the same bits in every output."""
+    import torch
+
+    first, again = as_tuple(fn()), as_tuple(fn())
+    return all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def check_fourier_unit(device, shapes, phase):
-    """Phases 3 and 9 (forward); returns the bf16 rows for the kernels
-    line."""
+    """Phases 3 and 9 (forward): the wrapper against its plain version in
+    f64, two launches giving the same bits, and its times. Returns the bf16
+    rows of the per-item kernel for the kernels line and the bf16 rows of
+    the wrapper calls that ran as the staged kernels."""
     import torch
 
     from fastfourierconvolution_tpu_torch.ops import fourier as F
@@ -340,35 +397,41 @@ def check_fourier_unit(device, shapes, phase):
         fourier_unit_forward_plain,
     )
 
-    rows = []
+    rows, calls = [], []
     for shape in shapes:
+        is_staged = staged("forward", shape)
+        symbols = ([f"{k}_kernel" for k in STAGED_CALL["fourier_unit_fwd"]] if is_staged
+                   else "fourier_unit_fwd_kernel")
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
             args = fu_inputs(shape, dtype, device, SEED)
             y = fourier_unit_forward(*args)
             torch.cuda.synchronize()
-            ref = fourier_unit_forward_plain(*args).float()
+            ref = fourier_unit_forward_plain(*(a.double() for a in args))
             if not torch.isfinite(y.float()).all():
                 raise AssertionError(f"kernel {shape} {name}: non-finite output")
             rel, abs_err = rel_max(y, ref)
+            bits = same_bits(lambda: fourier_unit_forward(*args))
             ms = time_ms(lambda: fourier_unit_forward(*args))
             plain_ms = time_ms(lambda: fourier_unit_forward_plain(*args))
-            dev_ms = kernel_device_ms(lambda: fourier_unit_forward(*args),
-                                      "fourier_unit_fwd_kernel", iters=10 if ms < 1 else 3)
+            dev_ms = kernel_device_ms(lambda: fourier_unit_forward(*args), symbols,
+                                      iters=10 if ms < 1 else 3)
             bound_ms, bound_by, nbytes, flops = bound(
                 "fourier_unit_fwd", shape, y.element_size(), name
             )
             log(
-                f"fourier_unit_fwd {shape} {name}: rel-max {rel:.3e} "
-                f"(tol {FU_REL_TOL[name]:g}), max-abs {abs_err:.3e}, kernel "
-                f"{ms:.4f} ms/call (profiler device {dev_ms:.4f} ms), plain "
-                f"{plain_ms:.4f} ms/call, bound {bound_ms:.5f} ms "
-                f"({nbytes} B, {flops} FLOP)"
+                f"fourier_unit_fwd {shape} {name} ({'staged' if is_staged else 'per-item'}):"
+                f" rel-max {rel:.3e} against the plain version in f64 (tol "
+                f"{FU_REL_TOL[name]:g}), max-abs {abs_err:.3e}, same bits on two launches "
+                f"{bits}; {ms:.4f} ms/call (profiler device {dev_ms:.4f} ms per call), plain "
+                f"{plain_ms:.4f} ms/call, bound {bound_ms:.5f} ms ({nbytes} B, {flops} FLOP)"
             )
             if not rel <= FU_REL_TOL[name]:
                 raise AssertionError(
                     f"kernel {shape} {name}: rel-max {rel} > {FU_REL_TOL[name]}"
                 )
+            if not bits:
+                raise AssertionError(f"kernel {shape} {name}: two launches differ")
             if dtype == torch.float32:
                 x, kernel, scale, bias, mean, var = args
                 c = shape[1]
@@ -378,22 +441,22 @@ def check_fourier_unit(device, shapes, phase):
                 r = torch.relu((m - col(mean)) * torch.rsqrt(col(var) + EPS)
                                * col(scale) + col(bias))
                 y_fft = F.irfft2_ortho_fft(r[:, :c], r[:, c:], shape[2:])
-                gap = (y_fft - ref).abs().max().item()
+                gap = (y_fft - ref.float()).abs().max().item()
                 log(f"  info: torch.fft (cuFFT) vs factor form, max-abs {gap:.3e}"
                     f" (rel {gap / ref.abs().max().item():.3e})")
             else:
-                rows.append(kernel_row(
+                (calls if is_staged else rows).append(kernel_row(
                     "fourier_unit_fwd", shape, name, phase=phase,
                     max_abs_err=abs_err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 ))
-    return rows
+    return rows, calls
 
 
-def train_cases(shape, dtype, device, seed):
-    """[(name, wrapper, plain version, arguments, output names)] for the
-    training kernels at ``shape``; the backward's statistics come from
-    the plain versions in f64, rounded to f32, and its biases keep every
+def bwd_inputs(shape, dtype, device, seed):
+    """(x, kernel, scale, bias, mean, var, gy, gscale, gbias) for the
+    backward at ``shape``: the statistics and backward sums from the plain
+    versions in f64, rounded to f32, and biases that keep every
     pre-activation clear of the ReLU's kink (``relu_margin_bias``)."""
     import torch
 
@@ -407,24 +470,136 @@ def train_cases(shape, dtype, device, seed):
     log(f"  {shape} {str(dtype)[6:]}: every pre-activation at least {margin:.2e} from 0")
     bwd = (x, kernel, scale, bias, mean, var, gy)
     gscale, gbias = (t.float() for t in fu.fu_bwd_stats_plain(*f64(bwd)))
+    return bwd + (gscale, gbias)
+
+
+def train_cases(shape, dtype, device, seed):
+    """[(name, wrapper, plain version, arguments, output names)] for the
+    training kernels at ``shape`` (inputs from ``bwd_inputs``)."""
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    args = bwd_inputs(shape, dtype, device, seed)
     return [
-        ("fu_train_stats", fu.fu_train_stats, fu.fu_train_stats_plain, (x, kernel),
+        ("fu_train_stats", fu.fu_train_stats, fu.fu_train_stats_plain, args[:2],
          ("bmean", "bvar")),
-        ("fu_bwd_stats", fu.fu_bwd_stats, fu.fu_bwd_stats_plain, bwd, ("gscale", "gbias")),
-        ("fu_bwd_apply", fu.fu_bwd_apply, fu.fu_bwd_apply_plain, bwd + (gscale, gbias),
-         ("gx", "gK")),
+        ("fu_bwd_stats", fu.fu_bwd_stats, fu.fu_bwd_stats_plain, args[:7], ("gscale", "gbias")),
+        ("fu_bwd_apply", fu.fu_bwd_apply, fu.fu_bwd_apply_plain, args, ("gx", "gK")),
     ]
 
 
-def check_train_kernels(device, shapes, phase):
-    """Phases 5 and 9 (training kernels); returns the bf16 rows (and the
-    reduction's f32 rows) for the kernels line."""
+def stage_cases(shape, dtype, device):
+    """[(name, maps, call, timed call, plain call, f64 reference, output
+    names, library call or None)] for the staged kernels that the forward
+    and the backward apply run at ``shape``'s map; each stage's input
+    spectrum comes from the kernel before it. ``fu_bwd_mix`` writes gz over
+    its G: its checked call takes a fresh copy, its timed call a scratch
+    one."""
     import torch
 
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
-    rows, reduced = [], set()
+    w = shape[3]
+    f64 = lambda args: [a.double() if isinstance(a, torch.Tensor) else a for a in args]
+    cases, inverse_of = [], None
+    if staged("forward", shape):
+        x, kernel, scale, bias, mean, var = fu_inputs(shape, dtype, device, SEED)
+        mix = (fu.fu_spectrum(x)[0], kernel, scale, bias, mean, var)
+        spectrum = lambda: fu.fu_spectrum(x)
+        cases += [
+            ("fu_spectrum", 1, spectrum, spectrum, lambda: fu.fu_spectrum_plain(x),
+             lambda: fu.fu_spectrum_plain(x.double()), ("z",),
+             lambda: torch.fft.rfft2(x.float(), norm="ortho")),
+            ("fu_mix_apply", 1, lambda: fu.fu_mix_apply(*mix), lambda: fu.fu_mix_apply(*mix),
+             lambda: fu.fu_mix_apply_plain(*mix), lambda: fu.fu_mix_apply_plain(*f64(mix)),
+             ("r",), None),
+        ]
+        inverse_of = fu.fu_mix_apply(*mix)
+    if staged("bwd_apply", shape):
+        xb, kb, sb, bb, mb, vb, gy, gsc, gbi = bwd_inputs(shape, dtype, device, SEED)
+        z, g = fu.fu_spectrum(xb, gy)
+        rest = (kb, sb, bb, mb, vb, gsc, gbi)
+        scratch = g.clone()
+        spectra = lambda: fu.fu_spectrum(xb, gy)
+        cases += [
+            ("fu_spectrum", 2, spectra, spectra, lambda: fu.fu_spectrum_plain(xb, gy),
+             lambda: fu.fu_spectrum_plain(xb.double(), gy.double()), ("z|G",), None),
+            ("fu_bwd_mix", 1, lambda: fu.fu_bwd_mix(z, g.clone(), *rest),
+             lambda: fu.fu_bwd_mix(z, scratch, *rest),
+             lambda: fu.fu_bwd_mix_plain(z, g, *rest),
+             lambda: fu.fu_bwd_mix_plain(*f64((z, g) + rest)), ("gz", "gK"), None),
+        ]
+        if inverse_of is None:
+            inverse_of = fu.fu_bwd_mix(z, g.clone(), *rest)[0]
+    if inverse_of is not None:
+        inverse = lambda: fu.fu_inverse(inverse_of, dtype, w)
+        cases.append(
+            ("fu_inverse", 1, inverse, inverse, lambda: fu.fu_inverse_plain(inverse_of, dtype, w),
+             lambda: fu.fu_inverse_plain(inverse_of.double(), torch.float64, w), ("y",), None))
+    return cases
+
+
+def check_stages(device, shapes, phase):
+    """Phase 9: each staged kernel against its plain version in f64 on the
+    same inputs, two launches giving the same bits, its times and its
+    bound; returns the bf16 rows for the kernels line."""
+    import torch
+
+    rows = []
     for shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            for name, maps, call, timed, plain, ref64, out_names, library in stage_cases(
+                    shape, dtype, device):
+                outs = as_tuple(call())
+                torch.cuda.synchronize()
+                refs = as_tuple(ref64())
+                if not all(torch.isfinite(o.float()).all() for o in outs):
+                    raise AssertionError(f"{name} {shape} {dname}: non-finite output")
+                errs = {o: rel_max(out, ref) for o, out, ref in zip(out_names, outs, refs)}
+                bits = same_bits(call)
+                ms = time_ms(timed)
+                plain_ms = time_ms(plain)
+                dev_ms = kernel_device_ms(timed, f"{name}_kernel", iters=10 if ms < 1 else 3)
+                library_ms = library_dev_ms = None
+                if library is not None:
+                    library_ms = time_ms(library)
+                    library_dev_ms = call_device_ms(library, iters=10)
+                bound_ms, bound_by, nbytes, flops = bound(name, shape, itemsize, dname, maps=maps)
+                log(f"{name} {shape} {dname}, {maps} map(s): " + ", ".join(
+                    f"{o} rel-max {r:.3e} (max-abs {a:.3e})" for o, (r, a) in errs.items())
+                    + f" (tol {FU_REL_TOL[dname]:g}, against the plain version in f64), same "
+                    f"bits on two launches {bits}; kernel {ms:.4f} ms/call (profiler device "
+                    f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms/call, library {library_ms} "
+                    f"ms/call (profiler device {library_dev_ms}), bound {bound_ms:.5f} ms "
+                    f"({bound_by}; {nbytes} B, {flops} FLOP)")
+                bad = {o: r for o, (r, _) in errs.items() if not r <= FU_REL_TOL[dname]}
+                if bad or not bits:
+                    raise AssertionError(f"{name} {shape} {dname}: rel-max {bad}, same bits {bits}")
+                if dtype == torch.bfloat16:
+                    rows.append(kernel_row(
+                        name, shape, dname, phase=phase, maps=maps,
+                        max_abs_err=max(a for _, a in errs.values()),
+                        rel_max={o: r for o, (r, _) in errs.items()}, ms=ms, device_ms=dev_ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=library_ms, library_device_ms=library_dev_ms,
+                    ))
+    return rows
+
+
+def check_train_kernels(device, shapes, phase):
+    """Phases 5 and 9 (training kernels): each wrapper against its plain
+    version in f64, two launches giving the same bits, and its times.
+    Returns the bf16 rows (and the reduction's f32 rows) for the kernels
+    line, and the bf16 rows of the backward apply's calls that ran as the
+    staged kernels."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    rows, calls, reduced = [], [], set()
+    for shape in shapes:
+        is_staged = staged("bwd_apply", shape)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
             for name, kern, plain, args, out_names in train_cases(shape, dtype, device, SEED):
@@ -434,22 +609,27 @@ def check_train_kernels(device, shapes, phase):
                 errs = {o: rel_max(out, ref) for o, out, ref in zip(out_names, outs, refs)}
                 if not all(torch.isfinite(out.float()).all() for out in outs):
                     raise AssertionError(f"{name} {shape} {dname}: non-finite output")
+                call_staged = name == "fu_bwd_apply" and is_staged
+                symbols = ([f"{k}_kernel" for k in STAGED_CALL[name]] if call_staged
+                           else f"{name}_kernel")
+                bits = same_bits(lambda: kern(*args))
                 ms = time_ms(lambda: kern(*args))
                 plain_ms = time_ms(lambda: plain(*args))
-                dev_ms = kernel_device_ms(lambda: kern(*args), f"{name}_kernel",
+                dev_ms = kernel_device_ms(lambda: kern(*args), symbols,
                                           iters=10 if ms < 1 else 3)
                 bound_ms, bound_by, nbytes, flops = bound(name, shape, args[0].element_size(), dname)
-                log(f"{name} {shape} {dname}: " + ", ".join(
+                log(f"{name} {shape} {dname}{' (staged)' if call_staged else ''}: " + ", ".join(
                     f"{o} rel-max {r:.3e} (max-abs {a:.3e})" for o, (r, a) in errs.items())
-                    + f" (tol {FU_REL_TOL[dname]:g}, against the plain version in f64); "
-                    f"kernel {ms:.4f} ms/call with its reduction (profiler device "
-                    f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms/call, bound "
+                    + f" (tol {FU_REL_TOL[dname]:g}, against the plain version in f64), same "
+                    f"bits on two launches {bits}; kernel {ms:.4f} ms/call with its reduction "
+                    f"(profiler device {dev_ms:.4f} ms{' per call, all stages' if call_staged else ''}"
+                    f"), plain {plain_ms:.4f} ms/call, bound "
                     f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {flops} FLOP)")
                 gaps = {o: rel_max(p, r)[0] for o, p, r in zip(out_names, plain(*args), refs)}
                 log(f"  info: plain version in {dname} vs f64, rel-max " + ", ".join(
                     f"{o} {g:.3e}" for o, g in gaps.items()))
                 if dtype == torch.bfloat16:
-                    rows.append(kernel_row(
+                    (calls if call_staged else rows).append(kernel_row(
                         name, shape, dname, phase=phase,
                         max_abs_err=max(a for _, a in errs.values()),
                         rel_max={o: r for o, (r, _) in errs.items()},
@@ -457,41 +637,46 @@ def check_train_kernels(device, shapes, phase):
                         bound_by=bound_by, library_ms=None,
                     ))
                 bad = {o: r for o, (r, _) in errs.items() if not r <= FU_REL_TOL[dname]}
-                if bad:
-                    raise AssertionError(f"{name} {shape} {dname}: rel-max {bad}")
-        # The batch reduction at the two partial-sum shapes of this map:
-        # (B, 4C) for the statistics (mean/variance epilogue) and the
-        # backward sums, (B, 4C^2) for gK; once per shape.
-        b, c = shape[0], shape[1]
+                if bad or not bits:
+                    raise AssertionError(f"{name} {shape} {dname}: rel-max {bad}, same bits {bits}")
+        # The batch reduction at the partial-sum shapes of this map: (B, 4C)
+        # for the statistics (mean/variance epilogue) and the backward sums,
+        # (B, 4C^2) for gK, or (B * chunks, 4C^2) after the staged backward's
+        # mix stage; once per shape.
+        b, c, h, w = shape
         g = torch.Generator().manual_seed(SEED)
-        for cols, count in ((4 * c, b * shape[2] * (shape[3] // 2 + 1)), (4 * c * c, 0)):
-            if (b, cols) in reduced:
+        gk_rows = b * fu.staged_chunks(b, h, w) if is_staged else b
+        for n_rows, cols, count in ((b, 4 * c, b * h * (w // 2 + 1)), (gk_rows, 4 * c * c, 0)):
+            if (n_rows, cols) in reduced:
                 continue
-            reduced.add((b, cols))
-            partial = torch.randn(b, cols, generator=g).to(device)
+            reduced.add((n_rows, cols))
+            partial = torch.randn(n_rows, cols, generator=g).to(device)
             out = fu.fu_reduce(partial, count)
             torch.cuda.synchronize()
             ref = fu.fu_reduce_plain(partial.double(), count)
             rel, err = rel_max(out, ref)
             ms = time_ms(lambda: fu.fu_reduce(partial, count))
             plain_ms = time_ms(lambda: fu.fu_reduce_plain(partial, count))
-            library_ms = time_ms(lambda: torch.sum(partial, 0)) if count == 0 else None
+            library_ms = library_dev_ms = None
+            if count == 0:
+                library_ms = time_ms(lambda: torch.sum(partial, 0))
+                library_dev_ms = call_device_ms(lambda: torch.sum(partial, 0), iters=10)
             dev_ms = kernel_device_ms(lambda: fu.fu_reduce(partial, count), "fu_reduce_kernel",
                                       iters=10)
-            bound_ms, bound_by, nbytes, flops = bound("fu_reduce", (b, cols), 4, "float32")
-            log(f"fu_reduce ({b}, {cols}) count {count}: rel-max {rel:.3e} (max-abs "
+            bound_ms, bound_by, nbytes, flops = bound("fu_reduce", (n_rows, cols), 4, "float32")
+            log(f"fu_reduce ({n_rows}, {cols}) count {count}: rel-max {rel:.3e} (max-abs "
                 f"{err:.3e}, against an f64 sum; tol {FU_REL_TOL['float32']:g}); kernel "
                 f"{ms:.4f} ms/call (profiler device {dev_ms:.4f} ms), plain {plain_ms:.4f}"
-                f" ms/call, torch.sum {library_ms} ms/call, bound {bound_ms:.6f} ms "
-                f"({bound_by})")
+                f" ms/call, torch.sum {library_ms} ms/call (profiler device {library_dev_ms} "
+                f"ms), bound {bound_ms:.6f} ms ({bound_by})")
             if not rel <= FU_REL_TOL["float32"]:
-                raise AssertionError(f"fu_reduce ({b}, {cols}): rel-max {rel}")
+                raise AssertionError(f"fu_reduce ({n_rows}, {cols}): rel-max {rel}")
             rows.append(kernel_row(
-                "fu_reduce", (b, cols), "float32", phase=phase, max_abs_err=err,
+                "fu_reduce", (n_rows, cols), "float32", phase=phase, max_abs_err=err,
                 ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms,
+                bound_by=bound_by, library_ms=library_ms, library_device_ms=library_dev_ms,
             ))
-    return rows
+    return rows, calls
 
 
 def bn_inputs(shape, dtype, device, seed):
@@ -579,20 +764,22 @@ def check_bn_act(device):
                     ms = time_ms(kern)
                     plain_ms = time_ms(plain)
                     dev_ms = kernel_device_ms(kern, f"{name}_kernel", iters=10)
-                    library_ms = None
+                    library_ms = library_dev_ms = None
                     if name == "bn_stats":
-                        library_ms = time_ms(
-                            lambda: torch.var_mean(x.float(), dim=(0, 2, 3), correction=0))
+                        library = lambda: torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+                        library_ms = time_ms(library)
+                        library_dev_ms = call_device_ms(library, iters=10)
                     bound_ms, bound_by, nbytes, flops = bound(name, shape, x.element_size(),
                                                               dname, noise)
                     line += (f"; kernel {ms:.4f} ms/call (profiler device {dev_ms:.4f} ms), "
                              f"plain {plain_ms:.4f} ms/call, torch.var_mean {library_ms} "
-                             f"ms/call, bound {bound_ms:.5f} ms ({bound_by}; {nbytes} B, "
-                             f"{flops} FLOP)")
+                             f"ms/call (profiler device {library_dev_ms} ms), bound "
+                             f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {flops} FLOP)")
                     rows.append(kernel_row(
                         name, shape, dname, phase="training-128px", noise=noise,
                         max_abs_err=max_abs, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                        library_device_ms=library_dev_ms,
                     ))
                 log(line)
                 if not all(e <= tol for e in errs):
@@ -731,6 +918,8 @@ def launch_wrappers():
 
     return {"fu_train_stats": fu.fu_train_stats, "fourier_unit_fwd": fu.fourier_unit_forward,
             "fu_bwd_stats": fu.fu_bwd_stats, "fu_bwd_apply": fu.fu_bwd_apply,
+            "fu_spectrum": fu.fu_spectrum, "fu_mix_apply": fu.fu_mix_apply,
+            "fu_inverse": fu.fu_inverse, "fu_bwd_mix": fu.fu_bwd_mix,
             "fu_reduce": fu.fu_reduce, "bn_stats": ba.bn_stats,
             "bn_gelu_apply": ba.bn_gelu_apply, "bn_bwd_reduce": ba.bn_bwd_reduce,
             "bn_bwd_dx": ba.bn_bwd_dx}
@@ -744,16 +933,24 @@ def expected_launches(resolution, n_steps):
     """{kernel: {map or partial shape: launches}} for ``n_steps`` training
     steps at ``resolution``."""
     from fastfourierconvolution_tpu_torch.ops import bn_act as ba
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
     fu_shapes, bn_shapes = STEP_SHAPES[resolution]
     want = {k: collections.Counter() for k in launch_wrappers()}
-    for b, c, h, w in fu_shapes:
-        for k, per in STEP_LAUNCHES.items():
-            want[k][(c, h, w)] += per * n_steps
+    for shape in fu_shapes:
+        b, c, h, w = shape
+        bwd_staged = staged("bwd_apply", shape)
+        for per_step in (STAT_STEP_LAUNCHES,
+                         FWD_STEP_LAUNCHES["staged" if staged("forward", shape) else "fused"],
+                         BWD_STEP_LAUNCHES["staged" if bwd_staged else "fused"]):
+            for k, per in per_step.items():
+                want[k][(c, h, w)] += per * n_steps
         # two statistics reductions and one backward-sums reduction on
-        # (B, 4C), one gK reduction on (B, 4C^2)
+        # (B, 4C), one gK reduction on (B, 4C^2), or on (B * chunks, 4C^2)
+        # after the staged backward's mix stage
         want["fu_reduce"][(b, 4 * c)] += 3 * n_steps
-        want["fu_reduce"][(b, 4 * c * c)] += n_steps
+        gk_rows = b * fu.staged_chunks(b, h, w) if bwd_staged else b
+        want["fu_reduce"][(gk_rows, 4 * c * c)] += n_steps
     for b, c, h, w in bn_shapes:
         for k, per in BN_STEP_LAUNCHES.items():
             want[k][(c, h, w)] += per * n_steps
@@ -926,11 +1123,26 @@ def train_vs_plain(device, resolution):
 
 def with_launches(rows, counts):
     """The rows with their kernel's launches by map (by partial shape for
-    the reduction) from a training run's counts."""
+    the reduction) from a training run's counts. ``fu_spectrum``'s count
+    covers both of its forms: the backward's two-map launches are one per
+    ``fu_bwd_mix`` launch, the rest are the forward's."""
     for row in rows:
         key = tuple(row["shape"]) if row["name"] == "fu_reduce" else tuple(row["shape"][1:])
         row["launches"] = counts[row["name"]].get(key, 0)
+        if row["name"] == "fu_spectrum":
+            two_map = counts["fu_bwd_mix"].get(key, 0)
+            row["launches"] = two_map if row["maps"] == 2 else row["launches"] - two_map
     return rows
+
+
+def with_calls(calls, counts):
+    """The staged wrapper calls' rows with their calls per map in a
+    training run: one ``fu_mix_apply`` launch per forward call, one
+    ``fu_bwd_mix`` launch per backward apply call."""
+    for row in calls:
+        stage = "fu_mix_apply" if row["name"] == "fourier_unit_fwd" else "fu_bwd_mix"
+        row["calls"] = counts[stage].get(tuple(row["shape"][1:]), 0)
+    return calls
 
 
 def main() -> int:
@@ -966,13 +1178,14 @@ def main() -> int:
         log(f"--- {name} ({time.perf_counter() - t0:.1f} s)")
 
     phase("3: FourierUnit forward kernel, 32px maps")
-    rows = check_fourier_unit(device, FU_SHAPES, "serving")
+    rows, calls = check_fourier_unit(device, FU_SHAPES, "serving")
     phase("4: serving, 32px")
     by_map = serve(device, card)
     for row in rows:
         row["launches"] = by_map[tuple(row["shape"][1:])]
     phase("5: FourierUnit training kernels, 32px maps")
-    train_rows = check_train_kernels(device, FU_SHAPES, "training")
+    train_rows, train_calls = check_train_kernels(device, FU_SHAPES, "training")
+    calls += train_calls
     phase("6: training, 32px")
     rows += with_launches(train_rows, train(device, card, 32))
     phase("7: f32 step, 32px")
@@ -980,14 +1193,20 @@ def main() -> int:
     phase("8: fused BN + GELU kernels, 128px packed maps")
     # the kernels line lists the noise-fold variants, which the 128px step runs
     rows_128 = [r for r in check_bn_act(device) if r["noise"] or r["name"] == "bn_stats"]
-    phase("9: FourierUnit kernels, 128px maps (workspace layout)")
-    rows_128 += check_fourier_unit(device, FU128_SHAPES, "training-128px")
-    rows_128 += check_train_kernels(device, FU128_SHAPES, "training-128px")
+    phase("9: FourierUnit kernels, 128px maps (staged forward and backward apply)")
+    fwd_rows, calls_128 = check_fourier_unit(device, FU128_SHAPES, "training-128px")
+    rows_128 += fwd_rows + check_stages(device, FU128_SHAPES, "training-128px")
+    train_rows, train_calls = check_train_kernels(device, FU128_SHAPES, "training-128px")
+    rows_128 += train_rows
+    calls_128 += train_calls
     phase("10: packed training, 128px")
-    rows += with_launches(rows_128, train(device, card, 128))
+    counts = train(device, card, 128)
+    rows += with_launches(rows_128, counts)
+    calls += with_calls(calls_128, counts)
     phase("11: f32 step, 128px")
     train_vs_plain(device, 128)
     phase("12: result")
+    log(json.dumps({"wrapper_calls": calls}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -32,9 +32,10 @@
 // spectrum-sized buffers ping-pong; x shares the second one. At the 32px
 // generator's shapes a block needs 44 KB (16x16x16) or 81 KB (32x32x8) of
 // shared memory, and 213 KB at the 128px generator's block1 (64x16x16, with
-// its 64 KB K). The larger 128px maps (32x32x32, 32x64x64, 32x128x128) keep
-// every buffer in the item's workspace slice instead (0.31, 1.15 and 4.48 MB
-// per item; see fourier_unit_common.cuh).
+// its 64 KB K). The larger 128px maps (32x32x32, 32x64x64, 32x128x128) run
+// as the staged kernels of fourier_unit_staged.cu (ops/fourier_unit.py,
+// kernel_design); the workspace layout (fourier_unit_common.cuh) serves the
+// maps that those do not take.
 //
 // What bounds it on an H100: per launch it must move x and y once
 // (B*C*H*W elements each; 1.05 MB at (64,16,16,16) and 2.10 MB at
@@ -47,8 +48,7 @@
 // function's operations as f32 FMAs on the CUDA cores, and each block's time
 // is set by its shared-memory loads (about one per FMA), not by device memory.
 // In the workspace layout the stages load from the L1/L2-cached workspace
-// instead: a simple, slower variant (at 128x128 a block does about 0.45 G
-// FMAs for its item), kept as the first correct version.
+// instead: a simple, slower variant for maps of any size.
 
 #include "fourier_unit_common.cuh"
 

@@ -7,7 +7,8 @@ library's file name carries a hash of its source, of every ``csrc/*.cuh``
 header and of the flags, so a changed source or header builds anew and an
 unchanged one is reused. Building happens at
 the first use of a kernel, never at import, so the CPU-only tests can
-import every module.
+import every module. ``launch`` calls an entry point on PyTorch's current
+stream; every kernel wrapper of the port goes through it.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -100,3 +103,16 @@ def library(stem: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<stem>.cu`` (building all
     sources at the first call)."""
     return _libraries()[stem]
+
+
+def launch(entry, device: torch.device, *args) -> int:
+    """Calls the C entry point ``entry`` with ``args`` and, last, the raw
+    current stream of ``device``; returns its cudaError_t. Enters
+    ``torch.cuda.device`` only when ``device`` is not the current device,
+    since the kernel launches on the current one."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        return entry(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(index))

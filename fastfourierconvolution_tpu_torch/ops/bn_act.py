@@ -216,9 +216,7 @@ def _library() -> ctypes.CDLL:
 
 def _launch(entry: str, on: torch.Tensor, *args) -> None:
     """Calls the entry point on the current stream of ``on``'s device."""
-    with torch.cuda.device(on.device):
-        stream = torch.cuda.current_stream(on.device).cuda_stream
-        err = getattr(_library(), entry)(*args, stream)
+    err = _build.launch(getattr(_library(), entry), on.device, *args)
     if err != 0:
         message = _library().ffc_error_string(err).decode()
         raise RuntimeError(f"BN+GELU kernel launch failed: {message}")
@@ -230,7 +228,12 @@ def _geometry(x):
     rows = b * h * w
     if rows == 0:
         raise ValueError("the BN+GELU kernels need at least one row")
-    return rows, c, h * w, _library().ffc_bn_chunks(rows)
+    return rows, c, h * w, _chunks(rows)
+
+
+@functools.cache
+def _chunks(rows: int) -> int:
+    return _library().ffc_bn_chunks(rows)
 
 
 # --- kernel wrappers --------------------------------------------------------------

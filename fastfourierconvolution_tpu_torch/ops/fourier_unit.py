@@ -12,21 +12,32 @@ taken on the card:
   (B, H, Wf), f32;
 - ``fourier_unit_train_plain``: train forward, ``(y, bmean, bvar)``;
 - ``fu_bwd_stats_plain``, ``fu_bwd_apply_plain`` and their composition
-  ``fourier_unit_backward_plain``: the rematerialising backward.
+  ``fourier_unit_backward_plain``: the rematerialising backward;
+- ``fu_spectrum_plain``, ``fu_mix_apply_plain``, ``fu_inverse_plain`` and
+  ``fu_bwd_mix_plain``: the stages of the staged design below, in f32
+  (f64 for f64 operands) whatever x's dtype, as the kernels compute.
 
 Kernel wrappers. For a CPU tensor each runs its plain version; for a CUDA
-tensor it launches its hand-written kernel or raises. Each counts its
-kernel launches in ``launches`` and, by FourierUnit map (C, H, W), in
-``launches_by_map`` (``fu_reduce`` by partial-sum shape (rows, cols)):
+tensor it launches its hand-written kernel or raises. Each counts the
+launches of its own kernel in ``launches`` and, by FourierUnit map
+(C, H, W), in ``launches_by_map`` (``fu_reduce`` by partial-sum shape
+(rows, cols)):
 
-- ``fourier_unit_forward``: ``csrc/fourier_unit_fwd.cu``;
+- ``fourier_unit_forward``: the per-item kernel of
+  ``csrc/fourier_unit_fwd.cu``;
 - ``fu_train_stats``, ``fu_bwd_stats``, ``fu_bwd_apply`` and ``fu_reduce``
-  (the fixed-order batch sum behind the first three and behind
-  ``ops/bn_act.py``): ``csrc/fourier_unit_train.cu``.
+  (the fixed-order batch sum behind the first three, behind ``fu_bwd_mix``
+  and behind ``ops/bn_act.py``): ``csrc/fourier_unit_train.cu``;
+- ``fu_spectrum``, ``fu_mix_apply``, ``fu_inverse`` and ``fu_bwd_mix``:
+  ``csrc/fourier_unit_staged.cu``.
 
-Maps of any size: where an item's buffers exceed the card's shared memory
-per block, the wrapper allocates a per-item f32 workspace and launches the
-kernel's workspace layout; it raises only where that cannot be had.
+Maps of any size. :func:`kernel_design` picks, by a fixed rule on the map
+and the card's shared memory per block, how ``fourier_unit_forward`` and
+``fu_bwd_apply`` run a map: their per-item kernel with the item in shared
+memory; else the staged kernels, which work per (item, channel) plane and
+per tile of spectral positions (the wrapper then launches those and not its
+own kernel); else their per-item kernel with the item in an f32 device
+workspace. The statistics kernels take the first or the last.
 
 ``fourier_unit_train`` is the training op the model calls: an autograd
 Function whose forward runs the stats kernel and then the forward kernel
@@ -118,16 +129,21 @@ def fu_bwd_stats_plain(x, kernel, scale, bias, bmean, bvar, gy):
     return (gpre * n_hat).sum(dim=(0, 2, 3)), gpre.sum(dim=(0, 2, 3))
 
 
+def _coupled_bn_cotangent(gn, n_hat, inv, scale, gscale, gbias):
+    """gm = inv·(gn − mean(gn) − n̂·mean(gn·n̂)) over (B, H, Wf), with
+    Σgn = scale·gbias and Σgn·n̂ = scale·gscale."""
+    n = gn.shape[0] * gn.shape[2] * gn.shape[3]
+    return _col(inv) * (gn - _col(scale * gbias / n) - n_hat * _col(scale * gscale / n))
+
+
 def fu_bwd_apply_plain(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias, train=True):
     """(gx like x, gK (2C, 2C) f32). In train mode gm is the coupled-BN
-    cotangent inv·(gn − mean(gn) − n̂·mean(gn·n̂)), with
-    Σgn = scale·gbias and Σgn·n̂ = scale·gscale; in eval gm = gn·inv."""
-    b, c, h, w = x.shape
+    cotangent (``_coupled_bn_cotangent``); in eval gm = gn·inv."""
+    c, h, w = x.shape[1:]
     z, n_hat, inv, gpre = _bwd_recompute_plain(x, kernel, scale, bias, bmean, bvar, gy)
     gn = gpre * _col(scale)
     if train:
-        n = b * h * (w // 2 + 1)
-        gm = _col(inv) * (gn - _col(scale * gbias / n) - n_hat * _col(scale * gscale / n))
+        gm = _coupled_bn_cotangent(gn, n_hat, inv, scale, gscale, gbias)
     else:
         gm = gn * _col(inv)
     gm = gm.to(x.dtype)
@@ -146,6 +162,51 @@ def fourier_unit_backward_plain(x, kernel, scale, bias, bmean, bvar, gy, train=T
     )
     zeros = torch.zeros_like(bmean)
     return gx, gk.to(kernel.dtype), gscale, gbias, zeros, zeros
+
+
+# The stages of the staged design. Spectra are (B, 2C, H, Wf) [re; im] with
+# Wf = W/2 + 1 of an even W; every stage computes in f32, or in f64 for f64
+# operands.
+
+
+def _half_weights(spec):
+    """c (Wf,) in spec's dtype: 1 at DC and Nyquist, 2 elsewhere (W even)."""
+    c = torch.full((spec.shape[3],), 2.0, dtype=spec.dtype, device=spec.device)
+    c[0] = c[-1] = 1.0
+    return c
+
+
+def fu_spectrum_plain(*maps):
+    """[re; im] rfft2 of each (B, C, H, W) map, stacked:
+    (len(maps), B, 2C, H, Wf)."""
+    return torch.stack([torch.cat(rfft2_ortho(_f32(m)), dim=1) for m in maps])
+
+
+def fu_mix_apply_plain(z, kernel, scale, bias, mean, var):
+    """r = c·ReLU(BN(z mixed by kernel)) with the given statistics, like z."""
+    m = torch.einsum("bjuv,jd->bduv", z, kernel.to(z.dtype))
+    pre = (m - _col(mean)) * torch.rsqrt(_col(var) + EPS) * _col(scale) + _col(bias)
+    return torch.relu(pre) * _half_weights(z)
+
+
+def fu_inverse_plain(spec, dtype, w):
+    """Re(eh · R · fwᵀ) without half-spectrum weights, the adjoint of the
+    forward rDFT: (B, C, H, W) in ``dtype``."""
+    c = spec.shape[1] // 2
+    return rfft2_ortho_adjoint(spec[:, :c], spec[:, c:], (spec.shape[2], w)).to(dtype)
+
+
+def fu_bwd_mix_plain(z, g, kernel, scale, bias, bmean, bvar, gscale, gbias):
+    """The backward apply's mix stage from z and G = DFT(gy): (gz, gK)
+    with gm the coupled-BN cotangent of gpre = c·G·[pre > 0]."""
+    k = kernel.to(z.dtype)
+    m = torch.einsum("bjuv,jd->bduv", z, k)
+    inv = torch.rsqrt(bvar + EPS)
+    n_hat = (m - _col(bmean)) * _col(inv)
+    pre = n_hat * _col(scale) + _col(bias)
+    gn = g * _half_weights(z) * (pre > 0) * _col(scale)
+    gm = _coupled_bn_cotangent(gn, n_hat, inv, scale, gscale, gbias)
+    return torch.einsum("bduv,jd->bjuv", gm, k), torch.einsum("bjuv,bduv->jd", z, gm)
 
 
 def fu_reduce_plain(partial, count=0):
@@ -211,14 +272,15 @@ def _check_args(x, kernel, **vectors):
 
 # --- the CUDA libraries ---------------------------------------------------------
 #
-# Each library exports ffc_item_floats(C, H, W), ffc_allow_smem(dtype, bytes)
-# and ffc_error_string(code) beside its entry points, which return a
-# cudaError_t. A per-item kernel keeps its item's buffers in shared memory
-# (layout 0) where they fit; larger maps keep them in the item's slice of an
-# f32 device workspace (layout 1, csrc/fourier_unit_common.cuh).
+# Each library exports ffc_allow_smem(dtype, bytes) and ffc_error_string(code)
+# beside its entry points, which return a cudaError_t; the per-item
+# libraries also ffc_item_floats(C, H, W), the plan that _item_floats
+# mirrors. A per-item kernel keeps its item's buffers in shared memory
+# (layout 0) or in the item's slice of an f32 device workspace (layout 1,
+# csrc/fourier_unit_common.cuh).
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_FWD, _TRAIN = "fourier_unit_fwd", "fourier_unit_train"
+_FWD, _TRAIN, _STAGED = "fourier_unit_fwd", "fourier_unit_train", "fourier_unit_staged"
 _SHARED, _WORKSPACE = 0, 1
 _ENTRY_POINTS = {
     _FWD: {"ffc_fourier_unit_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -231,14 +293,19 @@ _ENTRY_POINTS = {
                              _I, _I, _I, _I, _P],
         "ffc_fu_reduce": [_P, _I, _I, _LL, _P, _P],
     },
+    _STAGED: {
+        "ffc_fu_spectrum": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "ffc_fu_inverse": [_I, _P, _P, _I, _I, _I, _I, _P],
+        "ffc_fu_mix_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "ffc_fu_bwd_mix": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _P],
+    },
 }
 
 
 @functools.cache
 def _library(stem: str) -> ctypes.CDLL:
     lib = _build.library(stem)
-    lib.ffc_item_floats.argtypes = [_I, _I, _I]
-    lib.ffc_item_floats.restype = _LL
     lib.ffc_allow_smem.argtypes = [_I, _I]
     lib.ffc_allow_smem.restype = _I
     lib.ffc_error_string.argtypes = [_I]
@@ -266,27 +333,98 @@ def _smem_limit(stem: str, device_index: int, dtype_code: int) -> int:
     return limit
 
 
+def _launch(stem: str, entry: str, on: torch.Tensor, *args) -> None:
+    """Calls the entry point on the current stream of ``on``'s device."""
+    _raise_on(stem, _build.launch(getattr(_library(stem), entry), on.device, *args),
+              "launch")
+
+
+# --- which design runs a map ------------------------------------------------------
+
+SHARED, STAGED, WORKSPACE = "shared", "staged", "workspace"
+# The per-item library of each wrapper that kernel_design serves.
+_DESIGN_STEMS = {"forward": _FWD, "bwd_apply": _TRAIN}
+# Spectral positions per tile of a staged mix stage, and the blocks that
+# its grid aims at (about four per SM of an H100).
+_TILE, _MIX_BLOCKS = 64, 512
+
+
+def _item_floats(stem: str, c: int, h: int, w: int) -> int:
+    """Floats of one item's buffers in a per-item kernel of ``stem``: the
+    ``Plan`` of csrc/fourier_unit_fwd.cu or csrc/fourier_unit_train.cu."""
+    wf = w // 2 + 1
+    n_spec, n_map, c2 = c * h * wf, c * h * w, 2 * c
+    pair_or_map = max(n_map, 2 * n_spec)
+    tables = 2 * w * wf + 2 * h * h
+    if stem == _FWD:  # two buffers, tables, K, mean/inv/scale/bias, c
+        return 2 * n_spec + pair_or_map + tables + c2 * c2 + 4 * c2 + wf
+    # three buffers, tables, K, six (2C,) vectors, c
+    return 4 * n_spec + pair_or_map + tables + c2 * c2 + 6 * c2 + wf
+
+
+def _staged_smem(c: int, h: int, w: int) -> int:
+    """Bytes of shared memory the largest staged kernel of the map takes:
+    one plane's H x Wf complex values with its twiddles, or the backward
+    mix stage's K, two tiles and six (2C,) vectors
+    (csrc/fourier_unit_staged.cu)."""
+    c2 = 2 * c
+    plane = (h * (w // 2 + 1) + w // 2 + h // 2) * 8
+    mix = (c2 * (c2 + 1) + 2 * c2 * (_TILE + 1) + 6 * c2) * 4
+    return max(plane, mix)
+
+
+@functools.cache
+def kernel_design(wrapper: str, c: int, h: int, w: int, smem_limit: int) -> str:
+    """How ``wrapper`` ("forward" for :func:`fourier_unit_forward`,
+    "bwd_apply" for :func:`fu_bwd_apply`) runs the map (C, H, W) on a card
+    whose blocks may take ``smem_limit`` bytes of shared memory; a fixed
+    rule, not a knob:
+
+    - ``SHARED``: the wrapper's per-item kernel with the item's buffers in
+      shared memory, wherever its plan (``_item_floats``) fits the limit;
+    - ``STAGED``: else the staged kernels, wherever they take the map: H and
+      W powers of two (at least 4), 2C one of 16, 32, 64, 128, and their
+      shared memory (``_staged_smem``) within the limit;
+    - ``WORKSPACE``: else the per-item kernel with the item's buffers in a
+      device workspace, which takes any map.
+
+    At 227 KB (an H100) the 32px generator's maps stay ``SHARED``, and so
+    does the forward at (64, 16, 16); the 128px generator's maps at 32x32 to
+    128x128, and the backward apply at (64, 16, 16), are ``STAGED``."""
+    if _item_floats(_DESIGN_STEMS[wrapper], c, h, w) * 4 <= smem_limit:
+        return SHARED
+    pow2 = lambda v: v >= 4 and v & (v - 1) == 0
+    if pow2(h) and pow2(w) and 2 * c in (16, 32, 64, 128) and _staged_smem(c, h, w) <= smem_limit:
+        return STAGED
+    return WORKSPACE
+
+
+def staged_chunks(b: int, h: int, w: int) -> int:
+    """Runs of tiles per item in a staged mix stage: enough blocks to fill
+    the card (``_MIX_BLOCKS`` over the batch), at most one tile each. The
+    backward's gK partial sums have B times this many rows."""
+    tiles = -(-h * (w // 2 + 1) // _TILE)
+    return min(tiles, max(1, -(-_MIX_BLOCKS // b)))
+
+
+def _design(wrapper: str, x: torch.Tensor) -> str:
+    limit = _smem_limit(_DESIGN_STEMS[wrapper], x.device.index, _DTYPE_CODES[x.dtype])
+    return kernel_design(wrapper, *x.shape[1:], limit)
+
+
 def _prepare_launch(stem: str, *tensors):
-    """Checks contiguity and picks the buffer layout for x's map: returns
-    (layout, workspace or None). The workspace, B items of the plan's
-    floats, comes from PyTorch's allocator, which raises if it cannot be
-    had."""
+    """Checks contiguity and picks a per-item kernel's buffer layout for x's
+    map: returns (layout, workspace or None). The workspace, B items of the
+    plan's floats, comes from PyTorch's allocator, which raises if it
+    cannot be had."""
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the FourierUnit kernels take contiguous tensors")
     x = tensors[0]
     b, c, h, w = x.shape
-    item_floats = _library(stem).ffc_item_floats(c, h, w)
+    item_floats = _item_floats(stem, c, h, w)
     if item_floats * 4 <= _smem_limit(stem, x.device.index, _DTYPE_CODES[x.dtype]):
         return _SHARED, None
     return _WORKSPACE, torch.empty(b * item_floats, device=x.device)
-
-
-def _launch(stem: str, entry: str, on: torch.Tensor, *args) -> None:
-    """Calls the entry point on the current stream of ``on``'s device."""
-    with torch.cuda.device(on.device):
-        stream = torch.cuda.current_stream(on.device).cuda_stream
-        err = getattr(_library(stem), entry)(*args, stream)
-    _raise_on(stem, err, "launch")
 
 
 def _ptr(t):
@@ -309,16 +447,20 @@ def _count(fn, key) -> None:
 
 @_counted
 def fourier_unit_forward(x, kernel, scale, bias, mean, var):
-    """FourierUnit forward with the given statistics; the kernel on CUDA,
-    the plain version on the CPU. Returns y with x's shape and dtype."""
+    """FourierUnit forward with the given statistics; on CUDA the per-item
+    kernel or the staged kernels, as :func:`kernel_design` picks, on the
+    CPU the plain version. Returns y with x's shape and dtype."""
     _check_args(x, kernel, scale=scale, bias=bias, mean=mean, var=var)
     if x.device.type == "cpu":
         return fourier_unit_forward_plain(x, kernel, scale, bias, mean, var)
-    layout, ws = _prepare_launch(_FWD, x, kernel, scale, bias, mean, var)
     b, c, h, w = x.shape
-    y = torch.empty_like(x)
     if b == 0:
-        return y
+        return torch.empty_like(x)
+    if _design("forward", x) == STAGED:
+        z = fu_spectrum(x)[0]
+        return fu_inverse(fu_mix_apply(z, kernel, scale, bias, mean, var), x.dtype, w)
+    layout, ws = _prepare_launch(_FWD, x, kernel, scale, bias, mean, var)
+    y = torch.empty_like(x)
     _launch(_FWD, "ffc_fourier_unit_fwd", x, _DTYPE_CODES[x.dtype], layout, x.data_ptr(),
             kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
             var.data_ptr(), y.data_ptr(), _ptr(ws), b, c, h, w)
@@ -382,13 +524,18 @@ def fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy):
 
 @_counted
 def fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias):
-    """(gx like x, gK (2C, 2C) f32) of the train-mode backward; the
-    backward apply kernel and ``fu_reduce`` on CUDA, the plain version on
-    the CPU."""
+    """(gx like x, gK (2C, 2C) f32) of the train-mode backward; on CUDA the
+    per-item backward apply kernel or the staged kernels, as
+    :func:`kernel_design` picks, with ``fu_reduce``; on the CPU the plain
+    version."""
     _check_args(x, kernel, scale=scale, bias=bias, bmean=bmean, bvar=bvar, gy=gy,
                 gscale=gscale, gbias=gbias)
     if x.device.type == "cpu":
         return fu_bwd_apply_plain(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias)
+    if _design("bwd_apply", x) == STAGED:
+        z, g = fu_spectrum(x, gy)
+        gz, gk = fu_bwd_mix(z, g, kernel, scale, bias, bmean, bvar, gscale, gbias)
+        return fu_inverse(gz, x.dtype, x.shape[3]), gk
     layout, ws = _prepare_launch(_TRAIN, x, kernel, scale, bias, bmean, bvar, gy,
                                  gscale, gbias)
     b, c, h, w = x.shape
@@ -400,6 +547,123 @@ def fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias):
             gx.data_ptr(), partial.data_ptr(), _ptr(ws), b, c, h, w)
     _count(fu_bwd_apply, (c, h, w))
     return gx, fu_reduce(partial).view(2 * c, 2 * c)
+
+
+# --- the staged kernels' wrappers -----------------------------------------------------
+
+
+def _check_stage(specs, kernel=None, **vectors):
+    """Checks a staged kernel's operands: (B, 2C, H, Wf) f32 spectra of one
+    shape, K (2C, 2C) f32 or bf16, (2C,) f32 vectors, all on one device and,
+    on CUDA, contiguous."""
+    z = specs[0]
+    if z.dim() != 4 or z.shape[1] % 2 or z.dtype != torch.float32:
+        raise ValueError(f"a spectrum must be (B, 2C, H, Wf) float32, got "
+                         f"{tuple(z.shape)} {z.dtype}")
+    if any(s.shape != z.shape or s.dtype != z.dtype for s in specs):
+        raise ValueError("the spectra must share one shape and dtype")
+    c2 = z.shape[1]
+    if kernel is not None and (kernel.shape != (c2, c2) or kernel.dtype not in _DTYPE_CODES):
+        raise ValueError(f"kernel must be ({c2}, {c2}) float32 or bfloat16, got "
+                         f"{tuple(kernel.shape)} {kernel.dtype}")
+    for name, t in vectors.items():
+        if t.shape != (c2,) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be ({c2},) float32, got {tuple(t.shape)} {t.dtype}")
+    tensors = [*specs, *([] if kernel is None else [kernel]), *vectors.values()]
+    if any(t.device != z.device for t in tensors):
+        raise ValueError("all FourierUnit operands must be on one device")
+    if z.device.type == "cuda" and not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the FourierUnit kernels take contiguous tensors")
+
+
+def _spectrum_map(spec):
+    """(C, H, W) of a (B, 2C, H, Wf) spectrum of an even W."""
+    return spec.shape[1] // 2, spec.shape[2], 2 * (spec.shape[3] - 1)
+
+
+def _staged_launch(entry: str, on: torch.Tensor, dtype: torch.dtype, *args) -> None:
+    code = _DTYPE_CODES[dtype]
+    _smem_limit(_STAGED, on.device.index, code)
+    _launch(_STAGED, entry, on, code, *args)
+
+
+@_counted
+def fu_spectrum(*maps):
+    """[re; im] rfft2 of each (B, C, H, W) map (one or two, of one shape and
+    dtype), stacked: (len(maps), B, 2C, H, Wf) f32; one launch of the
+    staged spectrum kernel on CUDA, the plain version on the CPU."""
+    x = maps[0]
+    if not 1 <= len(maps) <= 2 or any(m.shape != x.shape or m.dtype != x.dtype for m in maps):
+        raise ValueError("fu_spectrum takes one or two maps of one shape and dtype")
+    if x.dim() != 4 or x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"a map must be (B, C, H, W) float32 or bfloat16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if any(m.device != x.device for m in maps):
+        raise ValueError("all FourierUnit operands must be on one device")
+    if x.device.type == "cpu":
+        return fu_spectrum_plain(*maps)
+    if not all(m.is_contiguous() for m in maps):
+        raise ValueError("the FourierUnit kernels take contiguous tensors")
+    b, c, h, w = x.shape
+    out = torch.empty(len(maps), b, 2 * c, h, w // 2 + 1, device=x.device)
+    _staged_launch("ffc_fu_spectrum", x, x.dtype, x.data_ptr(), maps[-1].data_ptr(),
+                   out.data_ptr(), len(maps), b, c, h, w)
+    _count(fu_spectrum, (c, h, w))
+    return out
+
+
+@_counted
+def fu_mix_apply(z, kernel, scale, bias, mean, var):
+    """r = c·ReLU(BN(z mixed by kernel)) with the given statistics, f32 like
+    z; the staged mix kernel on CUDA, the plain version on the CPU."""
+    _check_stage([z], kernel, scale=scale, bias=bias, mean=mean, var=var)
+    if z.device.type == "cpu":
+        return fu_mix_apply_plain(z, kernel, scale, bias, mean, var)
+    (c, h, w), b = _spectrum_map(z), z.shape[0]
+    r = torch.empty_like(z)
+    _staged_launch("ffc_fu_mix_apply", z, kernel.dtype, z.data_ptr(), kernel.data_ptr(),
+                   scale.data_ptr(), bias.data_ptr(), mean.data_ptr(), var.data_ptr(),
+                   r.data_ptr(), b, c, h, w, staged_chunks(b, h, w))
+    _count(fu_mix_apply, (c, h, w))
+    return r
+
+
+@_counted
+def fu_inverse(spec, dtype, w):
+    """Re(eh · R · fwᵀ) of each plane of the (B, 2C, H, Wf) f32 spectrum,
+    without half-spectrum weights: (B, C, H, W) in ``dtype``; the staged
+    inverse kernel on CUDA, the plain version on the CPU."""
+    _check_stage([spec])
+    if w // 2 + 1 != spec.shape[3] or dtype not in _DTYPE_CODES:
+        raise ValueError(f"no float32 or bfloat16 map of width {w} has this spectrum")
+    if spec.device.type == "cpu":
+        return fu_inverse_plain(spec, dtype, w)
+    b, c2, h, _ = spec.shape
+    y = torch.empty(b, c2 // 2, h, w, dtype=dtype, device=spec.device)
+    _staged_launch("ffc_fu_inverse", spec, dtype, spec.data_ptr(), y.data_ptr(), b, c2 // 2,
+                   h, w)
+    _count(fu_inverse, (c2 // 2, h, w))
+    return y
+
+
+@_counted
+def fu_bwd_mix(z, g, kernel, scale, bias, bmean, bvar, gscale, gbias):
+    """(gz f32, gK (2C, 2C) f32) of the backward apply from z and G =
+    DFT(gy): the staged mix kernel, which writes gz over g, and
+    ``fu_reduce`` on CUDA; the plain version on the CPU."""
+    _check_stage([z, g], kernel, scale=scale, bias=bias, bmean=bmean, bvar=bvar,
+                 gscale=gscale, gbias=gbias)
+    if z.device.type == "cpu":
+        return fu_bwd_mix_plain(z, g, kernel, scale, bias, bmean, bvar, gscale, gbias)
+    (c, h, w), b = _spectrum_map(z), z.shape[0]
+    chunks = staged_chunks(b, h, w)
+    partial = torch.empty(b * chunks, 4 * c * c, device=z.device)
+    _staged_launch("ffc_fu_bwd_mix", z, kernel.dtype, z.data_ptr(), g.data_ptr(),
+                   kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(), bmean.data_ptr(),
+                   bvar.data_ptr(), gscale.data_ptr(), gbias.data_ptr(), partial.data_ptr(),
+                   b, c, h, w, chunks)
+    _count(fu_bwd_mix, (c, h, w))
+    return g, fu_reduce(partial).view(2 * c, 2 * c)
 
 
 # --- the training op ----------------------------------------------------------------

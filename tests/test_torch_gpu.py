@@ -160,21 +160,30 @@ def test_training_step_launches_each_kernel_a_fixed_number_of_times(cuda):
 LARGE_SHAPE = (4, 32, 64, 64)
 
 
+# The kernel whose launch each wrapper's call makes at LARGE_SHAPE: the
+# statistics kernels in the workspace layout, the forward and the backward
+# apply as the staged kernels (counted by their mix stage).
+LARGE_SHAPE_LAUNCHES = {"fourier_unit_fwd": "fu_mix_apply", "fu_train_stats": "fu_train_stats",
+                        "fu_bwd_stats": "fu_bwd_stats", "fu_bwd_apply": "fu_bwd_mix"}
+
+
 @pytest.mark.parametrize("name", ["fourier_unit_fwd", "fu_train_stats", "fu_bwd_stats",
                                   "fu_bwd_apply"])
 def test_large_map_kernels_match_plain(cuda, name):
     """f32 (TF32 off), every output within 1e-4 rel-max of the plain
-    version in f64, in the workspace layout."""
+    version in f64; the statistics kernels in the workspace layout, the
+    forward and the backward apply as the staged kernels."""
     assert fu._prepare_launch(fu._TRAIN, torch.empty(LARGE_SHAPE, device=cuda))[0] == fu._WORKSPACE
     if name == "fourier_unit_fwd":
         args = _inputs(LARGE_SHAPE, torch.float32, cuda)
         kernel, plain = fourier_unit_forward, fourier_unit_forward_plain
     else:
         kernel, plain, args = _train_case(name, LARGE_SHAPE, torch.float32, cuda)
-    before = kernel.launches_by_map[LARGE_SHAPE[1:]]
+    counted = getattr(fu, LARGE_SHAPE_LAUNCHES[name])
+    before = counted.launches_by_map[LARGE_SHAPE[1:]]
     outs = kernel(*args)
     torch.cuda.synchronize()
-    assert kernel.launches_by_map[LARGE_SHAPE[1:]] == before + 1
+    assert counted.launches_by_map[LARGE_SHAPE[1:]] == before + 1
     refs = plain(*(a.double() for a in args))
     for out, ref in zip(*((outs, refs) if isinstance(outs, tuple) else ((outs,), (refs,)))):
         rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
@@ -239,17 +248,95 @@ def test_bn_act_kernels_match_plain(cuda, name, dtype, noise):
 def test_packed_128px_training_step_runs_the_fused_and_large_map_kernels(cuda):
     """A 128px packed step at batch 2: every packed block through the fused
     BN + GELU kernels with the noise fold, every FourierUnit map through
-    the workspace layout; losses finite."""
+    the large-map kernels (staged or workspace layout); losses finite."""
     trainer = GANTrainer(FFCGenerator.for_resolution(128), SNConvDiscriminator.for_resolution(128),
                          device=cuda)
     real = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(4)) * 2 - 1
     wrappers = (ba.bn_stats, ba.bn_gelu_apply, ba.bn_bwd_reduce, ba.bn_bwd_dx,
-                fu.fu_train_stats, fu.fourier_unit_forward, fu.fu_bwd_stats, fu.fu_bwd_apply)
+                fu.fu_train_stats, fu.fourier_unit_forward, fu.fu_bwd_stats, fu.fu_bwd_apply,
+                fu.fu_spectrum, fu.fu_mix_apply, fu.fu_inverse, fu.fu_bwd_mix)
     before = [w.launches for w in wrappers]
     losses = trainer.update_step(real)
     torch.cuda.synchronize()
     assert all(torch.isfinite(v) for v in losses.values())
     # five packed blocks, four FourierUnit maps; (G phase + D phase) forwards,
-    # one backward
-    want = (10, 10, 5, 5, 8, 8, 4, 4)
+    # one backward. The forward runs per item only at (64, 16, 16), staged at
+    # the three larger maps; the backward apply is staged at all four.
+    want = (10, 10, 5, 5, 8, 2, 4, 0, 3 * 2 + 4, 3 * 2, 3 * 2 + 4, 4)
     assert tuple(w.launches - b for w, b in zip(wrappers, before)) == want
+
+
+# Maps that the staged kernels take, at batch 2: the 128px generator's
+# two largest and the 64px generator's largest (2C = 16).
+STAGED_SHAPES = [(2, 32, 128, 128), (2, 32, 64, 64), (2, 8, 64, 64)]
+# Each stage at every width it is built for: 2C = 64, 16, 32 and 128.
+STAGE_SHAPES = STAGED_SHAPES[1:] + [(2, 16, 32, 32), (2, 64, 16, 16)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", STAGED_SHAPES)
+@pytest.mark.parametrize("name", ["fourier_unit_fwd", "fu_bwd_apply"])
+def test_staged_kernels_match_plain(cuda, name, shape, dtype, tol):
+    """The staged forward and backward apply against their plain versions
+    in f64 (the backward with ``relu_margin_bias``), every output within
+    rel-max 1e-4 in f32 and 2e-2 in bf16; each stage launches once; two
+    launches give the same bits."""
+    if name == "fourier_unit_fwd":
+        args = _inputs(shape, dtype, cuda)
+        wrapper, plain = fourier_unit_forward, fourier_unit_forward_plain
+        stages = {fu.fu_spectrum: 1, fu.fu_mix_apply: 1, fu.fu_inverse: 1}
+    else:
+        wrapper, plain, args = _train_case(name, shape, dtype, cuda)
+        stages = {fu.fu_spectrum: 1, fu.fu_bwd_mix: 1, fu.fu_inverse: 1, fu.fu_reduce: 1}
+    before = {f: f.launches for f in stages}
+    own = wrapper.launches
+    outs = wrapper(*args)
+    torch.cuda.synchronize()
+    assert {f: f.launches - before[f] for f in stages} == stages
+    assert wrapper.launches == own
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    refs = plain(*(a.double() for a in args))
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    for out, ref in zip(outs, refs):
+        assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+        rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= tol, rel
+    again = wrapper(*args)
+    again = again if isinstance(again, tuple) else (again,)
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))
+
+
+@pytest.mark.parametrize("shape", STAGE_SHAPES)
+@pytest.mark.parametrize("name", ["fu_spectrum", "fu_mix_apply", "fu_inverse", "fu_bwd_mix"])
+def test_staged_stages_match_plain(cuda, name, shape):
+    """Each stage kernel against its plain version in f64 on the same f32
+    inputs, 1e-4 rel-max on every output."""
+    x, kernel, scale, bias, mean, var, gy = _train_case("fu_bwd_stats", shape, torch.float32,
+                                                        cuda)[2]
+    gscale, gbias = (t.float() for t in fu.fu_bwd_stats_plain(
+        *(a.double() for a in (x, kernel, scale, bias, mean, var, gy))))
+    z, g = fu.fu_spectrum(x, gy)
+    w = shape[3]
+    cases = {
+        "fu_spectrum": (fu.fu_spectrum, fu.fu_spectrum_plain, (x, gy)),
+        "fu_mix_apply": (fu.fu_mix_apply, fu.fu_mix_apply_plain, (z, kernel, scale, bias, mean, var)),
+        "fu_inverse": (lambda s: fu.fu_inverse(s, torch.float32, w),
+                       lambda s: fu.fu_inverse_plain(s, torch.float64, w), (g,)),
+        "fu_bwd_mix": (fu.fu_bwd_mix, fu.fu_bwd_mix_plain,
+                       (z, g.clone(), kernel, scale, bias, mean, var, gscale, gbias)),
+    }
+    wrapper, plain, args = cases[name]
+    refs = plain(*(a.double() for a in args))
+    outs = wrapper(*args)
+    torch.cuda.synchronize()
+    for out, ref in zip(*((outs, refs) if isinstance(outs, tuple) else ((outs,), (refs,)))):
+        rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= 1e-4, rel
+
+
+@pytest.mark.parametrize("cmap", [(16, 16, 16), (8, 32, 32), (64, 16, 16), (32, 128, 128)])
+def test_item_plans_match_the_libraries(cuda, cmap):
+    """The per-item plans that ``kernel_design`` reads are the kernels'."""
+    for stem in (fu._FWD, fu._TRAIN):
+        assert fu._library(stem).ffc_item_floats(*cmap) == fu._item_floats(stem, *cmap)
