@@ -37,10 +37,13 @@ Phases, each of which raises on a failed check:
    kernel, profiler-device, plain and library times and the bound;
 9. the FourierUnit kernels at the 128px generator's four maps, whose
    items exceed a block's shared memory, checked as in phases 3 and 5:
-   the forward and the backward apply run there as the staged kernels
-   (``fourier_unit.kernel_design``), each stage of which is also held
-   against its plain version and timed, and both give the same bits on
-   two launches; the statistics kernels run in the workspace layout;
+   the forward, the statistics, the backward sums and the backward apply
+   run there as the staged kernels (``fourier_unit.kernel_design``; the
+   eval forward at (64,64,16,16) per item), each stage of which is also
+   held against its plain version and timed, and so are the training
+   op's staged forward and backward, which share one spectrum between
+   their statistics stage and their apply stage; every wrapper, stage and
+   composition gives the same bits on two launches;
 10. train the full-width 128px generator, in packed-branch mode, against
     its SN discriminator in bf16 at batch 64: warm-up steps with exact
     launches per step by FourierUnit map and by packed BN map, then steps
@@ -49,9 +52,10 @@ Phases, each of which raises on a failed check:
 11. one f32 step of the 128px pair at batch 8 with the tanh-form GELU
     forced (so the fused BN op runs), kernels against plain ops, as in
     phase 7;
-12. a ``{"wrapper_calls": [...]}`` JSON line (the staged forward and
-    backward apply per wrapper call), a ``{"kernels": [...]}`` JSON line,
-    then the ``{"ok": true, ...}`` line.
+12. a check that every kernel was launched on the main path (phases 4, 6
+    and 10), a ``{"wrapper_calls": [...]}`` JSON line (the staged wrapper
+    and training-op calls, all their stages together), a
+    ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, where CUDA is absent.
 """
@@ -144,9 +148,13 @@ KERNELS = {
     "fu_train_stats": ("fourier_unit_train.cu", TPU_FU + "622,1088,1363"),
     "fu_bwd_stats": ("fourier_unit_train.cu", TPU_FU + "753,1222,1500"),
     "fu_bwd_apply": ("fourier_unit_train.cu", TPU_FU + "806,1275,1562"),
-    # the staged design of the forward and the backward apply
-    "fu_spectrum": ("fourier_unit_staged.cu", TPU_FU + "657,1124,1405,806,1275,1562"),
+    # the staged design of the forward, the statistics, the backward sums
+    # and the backward apply
+    "fu_spectrum": ("fourier_unit_staged.cu",
+                    TPU_FU + "657,1124,1405,622,1088,1363,753,1222,1500,806,1275,1562"),
     "fu_mix_apply": ("fourier_unit_staged.cu", TPU_FU + "657,1124,1405"),
+    "fu_mix_stats": ("fourier_unit_staged.cu", TPU_FU + "622,1088,1363"),
+    "fu_bwd_stats_mix": ("fourier_unit_staged.cu", TPU_FU + "753,1222,1500"),
     "fu_inverse": ("fourier_unit_staged.cu", TPU_FU + "657,1124,1405,806,1275,1562"),
     "fu_bwd_mix": ("fourier_unit_staged.cu", TPU_FU + "806,1275,1562"),
     # the VMEM-scratch accumulation across the TPU kernels' sequential grid
@@ -157,18 +165,33 @@ KERNELS = {
     "bn_bwd_dx": ("bn_act.cu", TPU_BN + "274,506"),
 }
 # Launches per training step and FourierUnit map, by the design that
-# ``fourier_unit.kernel_design`` picks for the forward (run in the G phase
-# and in the D phase's generator forward) and for the backward apply (run
-# once), beside the statistics kernels; and per packed BN map (the same for
-# the fused op).
-STAT_STEP_LAUNCHES = {"fu_train_stats": 2, "fu_bwd_stats": 1}
-FWD_STEP_LAUNCHES = {"fused": {"fourier_unit_fwd": 2},
-                     "staged": {"fu_spectrum": 2, "fu_mix_apply": 2, "fu_inverse": 2}}
-BWD_STEP_LAUNCHES = {"fused": {"fu_bwd_apply": 1},
-                     "staged": {"fu_spectrum": 1, "fu_bwd_mix": 1, "fu_inverse": 1}}
-# The stage kernels one wrapper call launches in the staged design.
+# ``fourier_unit.kernel_design`` picks for the statistics ("stats"; the
+# backward apply always takes the same, and the forward is staged only where
+# they are). The training op's forward runs twice (the G phase and the D
+# phase's generator forward), its backward once. Per item: the statistics
+# kernel and the forward kernel in each forward, the backward statistics and
+# apply kernels in the backward. Staged: each forward one spectrum, the
+# statistics stage, the apply stage and the inverse; the backward one
+# two-map spectrum, the backward-sums stage, the backward mix and the
+# inverse. Per packed BN map the same for the fused op.
+STEP_LAUNCHES = {
+    "per_item": {"fu_train_stats": 2, "fourier_unit_fwd": 2, "fu_bwd_stats": 1,
+                 "fu_bwd_apply": 1},
+    "staged": {"fu_spectrum": 3, "fu_mix_stats": 2, "fu_mix_apply": 2, "fu_inverse": 3,
+               "fu_bwd_stats_mix": 1, "fu_bwd_mix": 1},
+}
+# The stage kernels one call launches in the staged design: the wrappers,
+# and the training op's staged forward and backward (``train_forward``,
+# ``train_backward``: ``fourier_unit._train_forward_staged`` and
+# ``_train_backward_staged``).
 STAGED_CALL = {"fourier_unit_fwd": ("fu_spectrum", "fu_mix_apply", "fu_inverse"),
-               "fu_bwd_apply": ("fu_spectrum", "fu_bwd_mix", "fu_inverse", "fu_reduce")}
+               "fu_train_stats": ("fu_spectrum", "fu_mix_stats", "fu_reduce"),
+               "fu_bwd_stats": ("fu_spectrum", "fu_bwd_stats_mix", "fu_reduce"),
+               "fu_bwd_apply": ("fu_spectrum", "fu_bwd_mix", "fu_inverse", "fu_reduce"),
+               "train_forward": ("fu_spectrum", "fu_mix_stats", "fu_reduce", "fu_mix_apply",
+                                 "fu_inverse"),
+               "train_backward": ("fu_spectrum", "fu_bwd_stats_mix", "fu_reduce", "fu_bwd_mix",
+                                  "fu_reduce", "fu_inverse")}
 BN_STEP_LAUNCHES = {"bn_stats": 2, "bn_gelu_apply": 2, "bn_bwd_reduce": 1, "bn_bwd_dx": 1}
 
 
@@ -223,6 +246,8 @@ def fu_work(kernel, shape, itemsize, maps=1):
     nbytes, per_item = {
         "fu_spectrum": (maps * (n_map + spec), maps * dft),
         "fu_mix_apply": (2 * spec + k_bytes + 4 * vec, mix + 6 * c2 * s),
+        "fu_mix_stats": (spec + k_bytes + 2 * vec, mix + 3 * c2 * s),
+        "fu_bwd_stats_mix": (2 * spec + k_bytes + 6 * vec, mix + 8 * c2 * s),
         "fu_inverse": (spec + n_map, dft),
         "fu_bwd_mix": (3 * spec + k_bytes + 6 * vec + c2 * c2 * 4, 3 * mix + 12 * c2 * s),
         "fourier_unit_fwd": (2 * n_map + k_bytes + 4 * vec, 2 * dft + mix + 6 * c2 * s),
@@ -230,6 +255,11 @@ def fu_work(kernel, shape, itemsize, maps=1):
         "fu_bwd_stats": (2 * n_map + k_bytes + 6 * vec, 2 * dft + mix + 8 * c2 * s),
         "fu_bwd_apply": (3 * n_map + k_bytes + 6 * vec + c2 * c2 * 4,
                          3 * dft + 3 * mix + 12 * c2 * s),
+        # the training op: forward x -> (y, bmean, bvar), m computed once;
+        # backward (x, gy) -> (gx, gK, gscale, gbias)
+        "train_forward": (2 * n_map + k_bytes + 4 * vec, 2 * dft + mix + 9 * c2 * s),
+        "train_backward": (3 * n_map + k_bytes + 6 * vec + c2 * c2 * 4,
+                           3 * dft + 3 * mix + 20 * c2 * s),
     }[kernel]
     return int(nbytes), int(b * per_item)
 
@@ -259,7 +289,8 @@ def bound(kernel, shape, itemsize, dtype_name, noise=False, maps=1):
     if kernel.startswith("bn_"):
         nbytes, flops = bn_work(kernel, shape, itemsize, noise)
         dtype_name = "float32"
-    elif kernel in ("fu_mix_apply", "fu_inverse", "fu_bwd_mix"):  # f32 spectra in
+    elif kernel in ("fu_mix_apply", "fu_mix_stats", "fu_bwd_stats_mix", "fu_inverse",
+                    "fu_bwd_mix"):  # f32 spectra in
         nbytes, flops = fu_work(kernel, shape, itemsize)
         dtype_name = "float32"
     else:
@@ -312,28 +343,34 @@ def time_ms(fn):
     return start.elapsed_time(end) / iters
 
 
-def device_events(fn, iters):
+def device_events(fn, iters, attempts=3):
     """torch.profiler's device-side events (kernels, copies) over ``iters``
-    calls of ``fn``: [(name, total ms, launches)]."""
+    calls of ``fn``: [(name, total ms, launches)]. A window in which the
+    profiler recorded no device event at all is profiled again, up to
+    ``attempts`` windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = []
-    for evt in prof.key_averages():
-        # a GPU user annotation (the optimizer's step range) spans kernels
-        # that are counted on their own
-        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
-            continue
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = getattr(evt, "self_cuda_time_total", 0)
-        events.append((evt.key, t / 1000.0, evt.count))
-    return events
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = []
+        for evt in prof.key_averages():
+            # a GPU user annotation (the optimizer's step range) spans kernels
+            # that are counted on their own
+            if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
+                continue
+            t = getattr(evt, "self_device_time_total", None)
+            if t is None:
+                t = getattr(evt, "self_cuda_time_total", 0)
+            events.append((evt.key, t / 1000.0, evt.count))
+        if events:
+            return events
+        log(f"  info: the profiler recorded no device event in a window of {iters} calls")
+    return []
 
 
 def device_breakdown(fn, iters=10, top=8):
@@ -345,18 +382,34 @@ def device_breakdown(fn, iters=10, top=8):
     return sum(r[1] for r in rows), sum(r[2] for r in rows), rows[:top]
 
 
-def kernel_device_ms(fn, symbols, iters):
+def kernel_device_ms(fn, symbols, iters, attempts=3):
     """Profiler device ms per call of ``fn`` that launches each kernel whose
-    name holds one of ``symbols`` once: the sum over the symbols of the
-    device ms per launch the profiler recorded (it can miss the first
-    launches of a window)."""
-    events = device_events(fn, iters)
-    total = 0.0
-    for symbol in (symbols,) if isinstance(symbols, str) else symbols:
-        hits = [(t, n) for key, t, n in events if symbol in key]
-        launches = sum(n for _, n in hits)
-        total += sum(t for t, _ in hits) / launches if launches else 0.0
-    return total
+    name holds one of ``symbols`` once (a symbol listed twice counts
+    twice): the sum over the symbols of the device ms per launch the
+    profiler recorded. The profiler can miss the first launches of a
+    window, and now and then a whole window (three windows in a row on an
+    H100 80GB HBM3, 700 W): then a window twice as long is profiled, up to
+    ``attempts`` windows, and None (not measured) is returned if a symbol
+    is never recorded."""
+    symbols = (symbols,) if isinstance(symbols, str) else symbols
+    for attempt in range(attempts):
+        events = device_events(fn, iters << attempt)
+        per_launch = {}
+        for symbol in set(symbols):
+            hits = [(t, n) for key, t, n in events if symbol in key]
+            launches = sum(n for _, n in hits)
+            if launches:
+                per_launch[symbol] = sum(t for t, _ in hits) / launches
+        if len(per_launch) == len(set(symbols)):
+            return sum(per_launch[s] for s in symbols)
+        log(f"  info: the profiler recorded no launch of {sorted(set(symbols) - set(per_launch))}"
+            f" in a window of {iters << attempt} calls")
+    return None
+
+
+def fmt_ms(ms):
+    """A profiler reading for the log: ms to 4 places, or "not measured"."""
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def call_device_ms(fn, iters):
@@ -365,8 +418,8 @@ def call_device_ms(fn, iters):
 
 
 def staged(wrapper, shape):
-    """Whether ``wrapper`` ("forward" or "bwd_apply") runs ``shape``'s map
-    as the staged kernels on this card."""
+    """Whether ``wrapper`` ("forward", "bwd_apply" or "stats") runs
+    ``shape``'s map as the staged kernels on this card."""
     import torch
 
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
@@ -423,7 +476,7 @@ def check_fourier_unit(device, shapes, phase):
                 f"fourier_unit_fwd {shape} {name} ({'staged' if is_staged else 'per-item'}):"
                 f" rel-max {rel:.3e} against the plain version in f64 (tol "
                 f"{FU_REL_TOL[name]:g}), max-abs {abs_err:.3e}, same bits on two launches "
-                f"{bits}; {ms:.4f} ms/call (profiler device {dev_ms:.4f} ms per call), plain "
+                f"{bits}; {ms:.4f} ms/call (profiler device {fmt_ms(dev_ms)} ms per call), plain "
                 f"{plain_ms:.4f} ms/call, bound {bound_ms:.5f} ms ({nbytes} B, {flops} FLOP)"
             )
             if not rel <= FU_REL_TOL[name]:
@@ -445,11 +498,13 @@ def check_fourier_unit(device, shapes, phase):
                 log(f"  info: torch.fft (cuFFT) vs factor form, max-abs {gap:.3e}"
                     f" (rel {gap / ref.abs().max().item():.3e})")
             else:
-                (calls if is_staged else rows).append(kernel_row(
-                    "fourier_unit_fwd", shape, name, phase=phase,
-                    max_abs_err=abs_err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                ))
+                numbers = dict(phase=phase, max_abs_err=abs_err, ms=ms, device_ms=dev_ms,
+                               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                if is_staged:
+                    calls.append(call_row("fourier_unit_fwd", shape, name, **numbers))
+                else:
+                    rows.append(kernel_row("fourier_unit_fwd", shape, name, library_ms=None,
+                                           **numbers))
     return rows, calls
 
 
@@ -475,25 +530,36 @@ def bwd_inputs(shape, dtype, device, seed):
 
 def train_cases(shape, dtype, device, seed):
     """[(name, wrapper, plain version, arguments, output names)] for the
-    training kernels at ``shape`` (inputs from ``bwd_inputs``)."""
+    training kernels at ``shape`` (inputs from ``bwd_inputs``) and, where
+    the statistics are staged, for the training op's staged forward and
+    backward against the plain train forward and backward."""
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
     args = bwd_inputs(shape, dtype, device, seed)
-    return [
+    cases = [
         ("fu_train_stats", fu.fu_train_stats, fu.fu_train_stats_plain, args[:2],
          ("bmean", "bvar")),
         ("fu_bwd_stats", fu.fu_bwd_stats, fu.fu_bwd_stats_plain, args[:7], ("gscale", "gbias")),
         ("fu_bwd_apply", fu.fu_bwd_apply, fu.fu_bwd_apply_plain, args, ("gx", "gK")),
     ]
+    if staged("stats", shape):
+        cases += [
+            ("train_forward", fu._train_forward_staged, fu.fourier_unit_train_plain, args[:4],
+             ("y", "bmean", "bvar")),
+            ("train_backward", fu._train_backward_staged,
+             lambda *a: fu.fourier_unit_backward_plain(*a)[:4], args[:7],
+             ("gx", "gK", "gscale", "gbias")),
+        ]
+    return cases
 
 
 def stage_cases(shape, dtype, device):
     """[(name, maps, call, timed call, plain call, f64 reference, output
-    names, library call or None)] for the staged kernels that the forward
-    and the backward apply run at ``shape``'s map; each stage's input
-    spectrum comes from the kernel before it. ``fu_bwd_mix`` writes gz over
-    its G: its checked call takes a fresh copy, its timed call a scratch
-    one."""
+    names, library call or None)] for the staged kernels that the training
+    op (and, where it is staged, the eval forward) runs at ``shape``'s map;
+    each stage's input spectrum comes from the kernel before it.
+    ``fu_bwd_mix`` writes gz over its G: its checked call takes a fresh
+    copy, its timed call a scratch one."""
     import torch
 
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
@@ -501,7 +567,7 @@ def stage_cases(shape, dtype, device):
     w = shape[3]
     f64 = lambda args: [a.double() if isinstance(a, torch.Tensor) else a for a in args]
     cases, inverse_of = [], None
-    if staged("forward", shape):
+    if staged("stats", shape):
         x, kernel, scale, bias, mean, var = fu_inputs(shape, dtype, device, SEED)
         mix = (fu.fu_spectrum(x)[0], kernel, scale, bias, mean, var)
         spectrum = lambda: fu.fu_spectrum(x)
@@ -509,6 +575,9 @@ def stage_cases(shape, dtype, device):
             ("fu_spectrum", 1, spectrum, spectrum, lambda: fu.fu_spectrum_plain(x),
              lambda: fu.fu_spectrum_plain(x.double()), ("z",),
              lambda: torch.fft.rfft2(x.float(), norm="ortho")),
+            ("fu_mix_stats", 1, lambda: fu.fu_mix_stats(*mix[:2]),
+             lambda: fu.fu_mix_stats(*mix[:2]), lambda: fu.fu_mix_stats_plain(*mix[:2]),
+             lambda: fu.fu_mix_stats_plain(*f64(mix[:2])), ("bmean", "bvar"), None),
             ("fu_mix_apply", 1, lambda: fu.fu_mix_apply(*mix), lambda: fu.fu_mix_apply(*mix),
              lambda: fu.fu_mix_apply_plain(*mix), lambda: fu.fu_mix_apply_plain(*f64(mix)),
              ("r",), None),
@@ -520,9 +589,13 @@ def stage_cases(shape, dtype, device):
         rest = (kb, sb, bb, mb, vb, gsc, gbi)
         scratch = g.clone()
         spectra = lambda: fu.fu_spectrum(xb, gy)
+        sums = lambda: fu.fu_bwd_stats_mix(z, g, *rest[:5])
         cases += [
             ("fu_spectrum", 2, spectra, spectra, lambda: fu.fu_spectrum_plain(xb, gy),
              lambda: fu.fu_spectrum_plain(xb.double(), gy.double()), ("z|G",), None),
+            ("fu_bwd_stats_mix", 1, sums, sums, lambda: fu.fu_bwd_stats_mix_plain(z, g, *rest[:5]),
+             lambda: fu.fu_bwd_stats_mix_plain(*f64((z, g) + rest[:5])), ("gscale", "gbias"),
+             None),
             ("fu_bwd_mix", 1, lambda: fu.fu_bwd_mix(z, g.clone(), *rest),
              lambda: fu.fu_bwd_mix(z, scratch, *rest),
              lambda: fu.fu_bwd_mix_plain(z, g, *rest),
@@ -570,7 +643,7 @@ def check_stages(device, shapes, phase):
                     f"{o} rel-max {r:.3e} (max-abs {a:.3e})" for o, (r, a) in errs.items())
                     + f" (tol {FU_REL_TOL[dname]:g}, against the plain version in f64), same "
                     f"bits on two launches {bits}; kernel {ms:.4f} ms/call (profiler device "
-                    f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms/call, library {library_ms} "
+                    f"{fmt_ms(dev_ms)} ms), plain {plain_ms:.4f} ms/call, library {library_ms} "
                     f"ms/call (profiler device {library_dev_ms}), bound {bound_ms:.5f} ms "
                     f"({bound_by}; {nbytes} B, {flops} FLOP)")
                 bad = {o: r for o, (r, _) in errs.items() if not r <= FU_REL_TOL[dname]}
@@ -587,19 +660,26 @@ def check_stages(device, shapes, phase):
     return rows
 
 
+def call_row(name, shape, dtype_name, **numbers):
+    """A row of the wrapper_calls line: a call that launches the stage
+    kernels of ``STAGED_CALL[name]``, all its stages together."""
+    return {"name": name, "stages": list(STAGED_CALL[name]), "shape": list(shape),
+            "dtype": dtype_name, **numbers}
+
+
 def check_train_kernels(device, shapes, phase):
-    """Phases 5 and 9 (training kernels): each wrapper against its plain
+    """Phases 5 and 9 (training kernels): each wrapper, and on staged maps
+    the training op's staged forward and backward, against its plain
     version in f64, two launches giving the same bits, and its times.
     Returns the bf16 rows (and the reduction's f32 rows) for the kernels
-    line, and the bf16 rows of the backward apply's calls that ran as the
-    staged kernels."""
+    line, and the bf16 rows of the calls that ran as the staged kernels."""
     import torch
 
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
     rows, calls, reduced = [], [], set()
     for shape in shapes:
-        is_staged = staged("bwd_apply", shape)
+        is_staged = staged("stats", shape)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
             for name, kern, plain, args, out_names in train_cases(shape, dtype, device, SEED):
@@ -609,7 +689,7 @@ def check_train_kernels(device, shapes, phase):
                 errs = {o: rel_max(out, ref) for o, out, ref in zip(out_names, outs, refs)}
                 if not all(torch.isfinite(out.float()).all() for out in outs):
                     raise AssertionError(f"{name} {shape} {dname}: non-finite output")
-                call_staged = name == "fu_bwd_apply" and is_staged
+                call_staged = is_staged and name in STAGED_CALL
                 symbols = ([f"{k}_kernel" for k in STAGED_CALL[name]] if call_staged
                            else f"{name}_kernel")
                 bits = same_bits(lambda: kern(*args))
@@ -622,31 +702,34 @@ def check_train_kernels(device, shapes, phase):
                     f"{o} rel-max {r:.3e} (max-abs {a:.3e})" for o, (r, a) in errs.items())
                     + f" (tol {FU_REL_TOL[dname]:g}, against the plain version in f64), same "
                     f"bits on two launches {bits}; kernel {ms:.4f} ms/call with its reduction "
-                    f"(profiler device {dev_ms:.4f} ms{' per call, all stages' if call_staged else ''}"
+                    f"(profiler device {fmt_ms(dev_ms)} ms{' per call, all stages' if call_staged else ''}"
                     f"), plain {plain_ms:.4f} ms/call, bound "
                     f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {flops} FLOP)")
                 gaps = {o: rel_max(p, r)[0] for o, p, r in zip(out_names, plain(*args), refs)}
                 log(f"  info: plain version in {dname} vs f64, rel-max " + ", ".join(
                     f"{o} {g:.3e}" for o, g in gaps.items()))
                 if dtype == torch.bfloat16:
-                    (calls if call_staged else rows).append(kernel_row(
-                        name, shape, dname, phase=phase,
-                        max_abs_err=max(a for _, a in errs.values()),
-                        rel_max={o: r for o, (r, _) in errs.items()},
-                        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=None,
-                    ))
+                    numbers = dict(phase=phase, max_abs_err=max(a for _, a in errs.values()),
+                                   rel_max={o: r for o, (r, _) in errs.items()}, ms=ms,
+                                   device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by)
+                    if call_staged:
+                        calls.append(call_row(name, shape, dname, **numbers))
+                    else:
+                        rows.append(kernel_row(name, shape, dname, library_ms=None, **numbers))
                 bad = {o: r for o, (r, _) in errs.items() if not r <= FU_REL_TOL[dname]}
                 if bad or not bits:
                     raise AssertionError(f"{name} {shape} {dname}: rel-max {bad}, same bits {bits}")
         # The batch reduction at the partial-sum shapes of this map: (B, 4C)
-        # for the statistics (mean/variance epilogue) and the backward sums,
+        # for the per-item statistics (mean/variance epilogue) and backward
+        # sums, or (B * chunks, 4C) after the staged statistics stages;
         # (B, 4C^2) for gK, or (B * chunks, 4C^2) after the staged backward's
         # mix stage; once per shape.
         b, c, h, w = shape
         g = torch.Generator().manual_seed(SEED)
-        gk_rows = b * fu.staged_chunks(b, h, w) if is_staged else b
-        for n_rows, cols, count in ((b, 4 * c, b * h * (w // 2 + 1)), (gk_rows, 4 * c * c, 0)):
+        part_rows = b * fu.staged_chunks(b, h, w) if is_staged else b
+        for n_rows, cols, count in ((part_rows, 4 * c, b * h * (w // 2 + 1)),
+                                    (part_rows, 4 * c * c, 0)):
             if (n_rows, cols) in reduced:
                 continue
             reduced.add((n_rows, cols))
@@ -666,7 +749,7 @@ def check_train_kernels(device, shapes, phase):
             bound_ms, bound_by, nbytes, flops = bound("fu_reduce", (n_rows, cols), 4, "float32")
             log(f"fu_reduce ({n_rows}, {cols}) count {count}: rel-max {rel:.3e} (max-abs "
                 f"{err:.3e}, against an f64 sum; tol {FU_REL_TOL['float32']:g}); kernel "
-                f"{ms:.4f} ms/call (profiler device {dev_ms:.4f} ms), plain {plain_ms:.4f}"
+                f"{ms:.4f} ms/call (profiler device {fmt_ms(dev_ms)} ms), plain {plain_ms:.4f}"
                 f" ms/call, torch.sum {library_ms} ms/call (profiler device {library_dev_ms} "
                 f"ms), bound {bound_ms:.6f} ms ({bound_by})")
             if not rel <= FU_REL_TOL["float32"]:
@@ -771,7 +854,7 @@ def check_bn_act(device):
                         library_dev_ms = call_device_ms(library, iters=10)
                     bound_ms, bound_by, nbytes, flops = bound(name, shape, x.element_size(),
                                                               dname, noise)
-                    line += (f"; kernel {ms:.4f} ms/call (profiler device {dev_ms:.4f} ms), "
+                    line += (f"; kernel {ms:.4f} ms/call (profiler device {fmt_ms(dev_ms)} ms), "
                              f"plain {plain_ms:.4f} ms/call, torch.var_mean {library_ms} "
                              f"ms/call (profiler device {library_dev_ms} ms), bound "
                              f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {flops} FLOP)")
@@ -919,6 +1002,7 @@ def launch_wrappers():
     return {"fu_train_stats": fu.fu_train_stats, "fourier_unit_fwd": fu.fourier_unit_forward,
             "fu_bwd_stats": fu.fu_bwd_stats, "fu_bwd_apply": fu.fu_bwd_apply,
             "fu_spectrum": fu.fu_spectrum, "fu_mix_apply": fu.fu_mix_apply,
+            "fu_mix_stats": fu.fu_mix_stats, "fu_bwd_stats_mix": fu.fu_bwd_stats_mix,
             "fu_inverse": fu.fu_inverse, "fu_bwd_mix": fu.fu_bwd_mix,
             "fu_reduce": fu.fu_reduce, "bn_stats": ba.bn_stats,
             "bn_gelu_apply": ba.bn_gelu_apply, "bn_bwd_reduce": ba.bn_bwd_reduce,
@@ -939,18 +1023,15 @@ def expected_launches(resolution, n_steps):
     want = {k: collections.Counter() for k in launch_wrappers()}
     for shape in fu_shapes:
         b, c, h, w = shape
-        bwd_staged = staged("bwd_apply", shape)
-        for per_step in (STAT_STEP_LAUNCHES,
-                         FWD_STEP_LAUNCHES["staged" if staged("forward", shape) else "fused"],
-                         BWD_STEP_LAUNCHES["staged" if bwd_staged else "fused"]):
-            for k, per in per_step.items():
-                want[k][(c, h, w)] += per * n_steps
+        is_staged = staged("stats", shape)
+        for k, per in STEP_LAUNCHES["staged" if is_staged else "per_item"].items():
+            want[k][(c, h, w)] += per * n_steps
         # two statistics reductions and one backward-sums reduction on
-        # (B, 4C), one gK reduction on (B, 4C^2), or on (B * chunks, 4C^2)
-        # after the staged backward's mix stage
-        want["fu_reduce"][(b, 4 * c)] += 3 * n_steps
-        gk_rows = b * fu.staged_chunks(b, h, w) if bwd_staged else b
-        want["fu_reduce"][(gk_rows, 4 * c * c)] += n_steps
+        # (rows, 4C), one gK reduction on (rows, 4C^2): a row per item, or
+        # per run of tiles (B * chunks) after the staged mix stages
+        rows = b * fu.staged_chunks(b, h, w) if is_staged else b
+        want["fu_reduce"][(rows, 4 * c)] += 3 * n_steps
+        want["fu_reduce"][(rows, 4 * c * c)] += n_steps
     for b, c, h, w in bn_shapes:
         for k, per in BN_STEP_LAUNCHES.items():
             want[k][(c, h, w)] += per * n_steps
@@ -1067,7 +1148,9 @@ def train_vs_plain(device, resolution):
         stack.enter_context(mock.patch.multiple(
             fu, fu_train_stats=fu.fu_train_stats_plain,
             fourier_unit_forward=fu.fourier_unit_forward_plain,
-            fu_bwd_stats=fu.fu_bwd_stats_plain, fu_bwd_apply=fu.fu_bwd_apply_plain))
+            fu_bwd_stats=fu.fu_bwd_stats_plain, fu_bwd_apply=fu.fu_bwd_apply_plain,
+            _train_forward_staged=fu.fourier_unit_train_plain,
+            _train_backward_staged=lambda *a: fu.fourier_unit_backward_plain(*a)[:4]))
         stack.enter_context(mock.patch.multiple(
             ba, bn_stats=ba.bn_stats_plain, bn_gelu_apply=ba.bn_gelu_apply_plain,
             bn_bwd_reduce=ba.bn_bwd_reduce_plain, bn_bwd_dx=ba.bn_bwd_dx_plain))
@@ -1136,13 +1219,26 @@ def with_launches(rows, counts):
 
 
 def with_calls(calls, counts):
-    """The staged wrapper calls' rows with their calls per map in a
-    training run: one ``fu_mix_apply`` launch per forward call, one
-    ``fu_bwd_mix`` launch per backward apply call."""
+    """The staged calls' rows with their calls per map in a training run:
+    one ``fu_mix_stats`` launch per training forward, one
+    ``fu_bwd_stats_mix`` launch per training backward. The training step
+    calls none of the wrappers on a staged map (0)."""
+    first_stage = {"train_forward": "fu_mix_stats", "train_backward": "fu_bwd_stats_mix"}
     for row in calls:
-        stage = "fu_mix_apply" if row["name"] == "fourier_unit_fwd" else "fu_bwd_mix"
-        row["calls"] = counts[stage].get(tuple(row["shape"][1:]), 0)
+        stage = first_stage.get(row["name"])
+        row["calls"] = counts[stage].get(tuple(row["shape"][1:]), 0) if stage else 0
     return calls
+
+
+def check_main_path_launches(counts_by_run):
+    """Raises unless every kernel was launched at least once over the main
+    path's runs ({run: {kernel: {map or shape: launches}}})."""
+    totals = {k: sum(sum(run.get(k, {}).values()) for run in counts_by_run.values())
+              for k in KERNELS}
+    idle = sorted(k for k, n in totals.items() if n == 0)
+    log(f"main-path launches by kernel over {sorted(counts_by_run)}: {totals}")
+    if idle:
+        raise AssertionError(f"kernels never launched on the main path: {idle}")
 
 
 def main() -> int:
@@ -1187,13 +1283,14 @@ def main() -> int:
     train_rows, train_calls = check_train_kernels(device, FU_SHAPES, "training")
     calls += train_calls
     phase("6: training, 32px")
-    rows += with_launches(train_rows, train(device, card, 32))
+    counts_32 = train(device, card, 32)
+    rows += with_launches(train_rows, counts_32)
     phase("7: f32 step, 32px")
     train_vs_plain(device, 32)
     phase("8: fused BN + GELU kernels, 128px packed maps")
     # the kernels line lists the noise-fold variants, which the 128px step runs
     rows_128 = [r for r in check_bn_act(device) if r["noise"] or r["name"] == "bn_stats"]
-    phase("9: FourierUnit kernels, 128px maps (staged forward and backward apply)")
+    phase("9: FourierUnit kernels, 128px maps (staged forward, statistics and backward)")
     fwd_rows, calls_128 = check_fourier_unit(device, FU128_SHAPES, "training-128px")
     rows_128 += fwd_rows + check_stages(device, FU128_SHAPES, "training-128px")
     train_rows, train_calls = check_train_kernels(device, FU128_SHAPES, "training-128px")
@@ -1206,6 +1303,8 @@ def main() -> int:
     phase("11: f32 step, 128px")
     train_vs_plain(device, 128)
     phase("12: result")
+    check_main_path_launches({"serving-32px": {"fourier_unit_fwd": by_map},
+                              "training-32px": counts_32, "training-128px": counts})
     log(json.dumps({"wrapper_calls": calls}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -1,18 +1,30 @@
-// FourierUnit forward and backward apply for Hopper (sm_90a) on maps whose
-// per-item buffers exceed a block's shared memory, as stages that fill the
-// card: per (item, channel) plane for the transforms, per tile of spectral
-// positions for the channel mix.
+// FourierUnit forward, batch statistics and backward for Hopper (sm_90a) on
+// maps whose per-item buffers exceed a block's shared memory, as stages that
+// fill the card: per (item, channel) plane for the transforms, per tile of
+// spectral positions for the channel mix.
 //
 //   forward       : fu_spectrum (x -> z), fu_mix_apply (z -> r), fu_inverse (r -> y)
+//   statistics    : fu_mix_stats (z -> per-run [sum m | sum m^2] rows), then
+//                   fu_reduce (fourier_unit_train.cu) with count B*H*Wf
+//   backward sums : fu_bwd_stats_mix (z, G -> per-run [sum gpre*n | sum gpre]
+//                   rows), then fu_reduce
 //   backward apply: fu_spectrum (x -> z and gy -> G in one launch),
 //                   fu_bwd_mix (z, G -> gz in place of G, gK partials),
-//                   fu_inverse (gz -> gx), and fu_reduce (fourier_unit_train.cu)
-//                   over the gK partials in a fixed order.
+//                   fu_inverse (gz -> gx), and fu_reduce over the gK partials.
+// fu_reduce sums the rows of partial sums in a fixed order. The training op
+// computes each spectrum once per call and hands it to both mix stages that
+// read it (ops/fourier_unit.py, _train_forward_staged and
+// _train_backward_staged); fu_bwd_stats_mix has to run before fu_bwd_mix,
+// which writes gz over G.
 //
 // Replaces, on those maps, the Pallas kernels of
 // fastfourierconvolution_tpu/ops/pallas/fourier_unit.py:
 //   _pallas_forward_{sep,sep2,kron}  -> apply_kernel (pallas_call at lines 657,
 //                                       1124, 1405): the forward;
+//   _pallas_forward_{sep,sep2,kron}  -> stats_kernel (lines 622, 1088, 1363):
+//                                       fu_mix_stats, the batch statistics;
+//   _pallas_backward_{sep,sep2,kron} -> stats_kernel (lines 753, 1222, 1500):
+//                                       fu_bwd_stats_mix, the backward sums;
 //   _pallas_backward_{sep,sep2,kron} -> apply_kernel (lines 806, 1275, 1562),
 //                                       train mode: the backward apply.
 // The per-item kernels of fourier_unit_fwd.cu and fourier_unit_train.cu keep
@@ -29,6 +41,14 @@
 //   fu_inverse   : per plane, Re(eh . R . fw^T) (no weights), y in x's dtype.
 //                  The adjoint of fu_spectrum's transform, so it also takes
 //                  gz to gx.
+//   fu_mix_stats : per tile, m = z @ K; the block's sums over its tiles of m
+//                  and m^2 (no half-spectrum weights) into its own row of
+//                  B * chunks rows of [2C | 2C]; fu_reduce turns them into the
+//                  batch mean and the biased variance E[m^2] - E[m]^2.
+//   fu_bwd_stats_mix: per tile, n = (m - mean) * inv, gpre = c * G * [pre > 0]
+//                  (the arithmetic of fu_bwd_mix, so both take the same ReLU
+//                  mask); the block's sums of gpre * n and gpre into its own
+//                  row; fu_reduce gives gscale and gbias.
 //   fu_bwd_mix   : per tile, gpre = c * G * [pre > 0], gn = gpre * scale,
 //                  gm = inv * (gn - mean(gn) - n * mean(gn n)) with the batch
 //                  means from gscale and gbias (the coupled-BN cotangent of
@@ -52,7 +72,13 @@
 // in shared memory; a thread owns a (2C/16) x 4 block of outputs, and in
 // fu_bwd_mix a (2C/16) x (2C/16) block of the gK sum, in registers. Each
 // block of a mix stage walks a fixed run of tiles of one item (`chunks` runs
-// per item, from the host), so K is loaded once per run.
+// per item, from the host), so K is loaded once per run. The two statistics
+// stages write no map: a thread keeps its 2C/16 channels' two sums in
+// registers across the run, then the 16 threads that share those channels
+// add theirs with a fixed butterfly of shuffles (the same bits in every
+// lane), and one of them writes the channels' entries of the block's row.
+// Fixed runs, a fixed butterfly and fu_reduce's fixed row order give the
+// same bits on every launch, without atomics.
 //
 // What bounds them on an H100: bytes. Each stage reads its inputs once and
 // writes its outputs once. At (B, C, H, W) = (64, 32, 128, 128) in bf16 x
@@ -64,7 +90,11 @@
 // itself (chip_smoke.fu_work) moves only x, y (and gy, gx): the spectra are
 // what this design adds in exchange for filling the card; the radix-2 stages
 // are bound by shared-memory traffic (about 10 accesses per butterfly), the
-// mix stages by their shared-memory loads (0.5 per FMA).
+// mix stages by their shared-memory loads (0.5 per FMA). The statistics
+// stages at (64, 32, 128, 128): fu_mix_stats reads z (136 MB, 0.041 ms) and
+// does 2 (2C)^2 B H Wf = 4.4 GFLOP of f32 FMAs (0.065 ms at 67 TFLOP/s), so
+// operations bound it; fu_bwd_stats_mix reads z and G (0.081 ms) and does
+// the same FMAs, so bytes bound it.
 
 #include "fourier_unit_common.cuh"
 
@@ -485,10 +515,137 @@ fu_bwd_mix_kernel(const float* __restrict__ z, float* __restrict__ g,
     for (int bb = 0; bb < RD; ++bb) row[(ty + 16 * a) * C2 + tx + 16 * bb] = gk[a][bb];
 }
 
-size_t mix_smem_bytes(int C2, bool backward) {
-  const size_t tiles = backward ? 2 : 1;
-  return (static_cast<size_t>(C2) * (C2 + 1) + tiles * C2 * kTileP +
-          (backward ? 6 : 4) * C2) * sizeof(float);
+// v summed over the 16 threads of a half-warp (one ty, every tx) by a fixed
+// butterfly; every lane gets the same bits (a + b == b + a).
+__device__ __forceinline__ float tx_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// row[d] = the block's sum of a, row[2C + d] = of b, for the thread's
+// channels d = ty + 16 i; every thread of the block takes part.
+template <int RD>
+__device__ __forceinline__ void write_sums(float* row, const float (&a)[RD],
+                                           const float (&b)[RD]) {
+  constexpr int C2 = 16 * RD;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < RD; ++i) {
+    const float sa = tx_sum(a[i]), sb = tx_sum(b[i]);
+    if (tx == 0) {
+      row[ty + 16 * i] = sa;
+      row[C2 + ty + 16 * i] = sb;
+    }
+  }
+}
+
+// Row item * chunks + chunk of `partial` gets [sum m | sum m^2] over the
+// block's run of tiles, m = z @ K; grid (chunks, B). Positions past S sit in
+// the tile as zeros, so their m is 0 and adds nothing.
+template <typename T, int RD>
+__global__ void __launch_bounds__(kThreads)
+fu_mix_stats_kernel(const float* __restrict__ z, const T* __restrict__ kmix,
+                    float* __restrict__ partial, int H, int W, int chunks) {
+  constexpr int C2 = 16 * RD;
+  extern __shared__ float4 smem_f4[];
+  float* ks = reinterpret_cast<float*>(smem_f4);  // K, row stride C2 + 1
+  float* zt = ks + C2 * (C2 + 1);                 // the z tile
+  const int S = H * (W / 2 + 1);
+  const size_t item = blockIdx.y;
+  const float* zb = z + item * C2 * S;
+  int t0, t1;
+  tile_run(S, chunks, t0, t1);
+
+  load_k<C2>(ks, kmix);
+  float s1[RD], s2[RD];
+#pragma unroll
+  for (int i = 0; i < RD; ++i) s1[i] = s2[i] = 0.f;
+  for (int t = t0; t < t1; ++t) {
+    __syncthreads();  // the previous tile's reads are done
+    load_tile<C2>(zt, zb, S, t * kTile);
+    __syncthreads();
+    float acc[RD][4];
+    mix_tile<RD, false>(acc, zt, ks);
+#pragma unroll
+    for (int i = 0; i < RD; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        s1[i] += acc[i][k];
+        s2[i] = fmaf(acc[i][k], acc[i][k], s2[i]);
+      }
+  }
+  write_sums<RD>(partial + (item * chunks + blockIdx.x) * 2 * C2, s1, s2);
+}
+
+// Row item * chunks + chunk of `partial` gets [sum gpre * n | sum gpre] over
+// the block's run of tiles (see the file's note); grid (chunks, B).
+template <typename T, int RD>
+__global__ void __launch_bounds__(kThreads)
+fu_bwd_stats_mix_kernel(const float* __restrict__ z, const float* __restrict__ g,
+                        const T* __restrict__ kmix, const float* __restrict__ scale,
+                        const float* __restrict__ bias, const float* __restrict__ mean,
+                        const float* __restrict__ var, float* __restrict__ partial, int H,
+                        int W, int chunks) {
+  constexpr int C2 = 16 * RD;
+  extern __shared__ float4 smem_f4[];
+  float* ks = reinterpret_cast<float*>(smem_f4);
+  float* zt = ks + C2 * (C2 + 1);  // the z tile
+  float* gt = zt + C2 * kTileP;    // the G tile
+  float* v_mean = gt + C2 * kTileP;
+  float* v_inv = v_mean + C2;
+  float* v_scale = v_inv + C2;
+  float* v_bias = v_scale + C2;
+  const int wf = W / 2 + 1, S = H * wf;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const size_t item = blockIdx.y;
+  const float* zb = z + item * C2 * S;
+  const float* gb = g + item * C2 * S;
+  int t0, t1;
+  tile_run(S, chunks, t0, t1);
+
+  load_k<C2>(ks, kmix);
+  for (int d = threadIdx.x; d < C2; d += kThreads) {
+    v_mean[d] = mean[d];
+    v_inv[d] = rsqrtf(var[d] + kEps);
+    v_scale[d] = scale[d];
+    v_bias[d] = bias[d];
+  }
+  float s_gn[RD], s_g[RD];
+#pragma unroll
+  for (int i = 0; i < RD; ++i) s_gn[i] = s_g[i] = 0.f;
+  for (int t = t0; t < t1; ++t) {
+    const int s0 = t * kTile;
+    __syncthreads();  // the previous tile's reads are done
+    load_tile<C2>(zt, zb, S, s0);
+    load_tile<C2>(gt, gb, S, s0);
+    __syncthreads();
+    float acc[RD][4];
+    mix_tile<RD, false>(acc, zt, ks);
+#pragma unroll
+    for (int i = 0; i < RD; ++i) {
+      const int d = ty + 16 * i;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int sl = tx + 16 * k, s = s0 + sl;
+        if (s < S) {
+          const float n_hat = (acc[i][k] - v_mean[d]) * v_inv[d];
+          const float pre = n_hat * v_scale[d] + v_bias[d];
+          const float gpre = pre > 0.f ? weight_of(s, wf) * gt[d * kTileP + sl] : 0.f;
+          s_gn[i] = fmaf(gpre, n_hat, s_gn[i]);
+          s_g[i] += gpre;
+        }
+      }
+    }
+  }
+  write_sums<RD>(partial + (item * chunks + blockIdx.x) * 2 * C2, s_gn, s_g);
+}
+
+// Dynamic shared memory of a mix stage: K (row stride 2C + 1), `tiles`
+// tiles of 2C x kTileP and `vectors` (2C,) vectors.
+size_t mix_smem_bytes(int C2, int tiles, int vectors) {
+  return (static_cast<size_t>(C2) * (C2 + 1) + static_cast<size_t>(tiles) * C2 * kTileP +
+          static_cast<size_t>(vectors) * C2) * sizeof(float);
 }
 
 int log2_exact(int v) {
@@ -532,6 +689,9 @@ int ffc_allow_smem(int dtype, int bytes) {
         constexpr int RD = decltype(rd)::value;
         int err = cudaFuncSetAttribute(fu_mix_apply_kernel<T, RD>, attr, bytes);
         if (err == 0) err = cudaFuncSetAttribute(fu_bwd_mix_kernel<T, RD>, attr, bytes);
+        if (err == 0) err = cudaFuncSetAttribute(fu_mix_stats_kernel<T, RD>, attr, bytes);
+        if (err == 0)
+          err = cudaFuncSetAttribute(fu_bwd_stats_mix_kernel<T, RD>, attr, bytes);
         return err;
       });
     }
@@ -578,7 +738,7 @@ int ffc_fu_mix_apply(int dtype, const float* z, const void* k, const float* scal
     using T = typename decltype(tag)::type;
     return by_width(2 * C, [&](auto rd) {
       constexpr int RD = decltype(rd)::value;
-      fu_mix_apply_kernel<T, RD><<<dim3(chunks, B), kThreads, mix_smem_bytes(2 * C, false),
+      fu_mix_apply_kernel<T, RD><<<dim3(chunks, B), kThreads, mix_smem_bytes(2 * C, 1, 4),
                                    static_cast<cudaStream_t>(stream)>>>(
           z, static_cast<const T*>(k), scale, bias, mean, var, r, H, W, chunks);
       return static_cast<int>(cudaGetLastError());
@@ -598,10 +758,48 @@ int ffc_fu_bwd_mix(int dtype, const float* z, float* g, const void* k,
     using T = typename decltype(tag)::type;
     return by_width(2 * C, [&](auto rd) {
       constexpr int RD = decltype(rd)::value;
-      fu_bwd_mix_kernel<T, RD><<<dim3(chunks, B), kThreads, mix_smem_bytes(2 * C, true),
+      fu_bwd_mix_kernel<T, RD><<<dim3(chunks, B), kThreads, mix_smem_bytes(2 * C, 2, 6),
                                  static_cast<cudaStream_t>(stream)>>>(
           z, g, static_cast<const T*>(k), scale, bias, mean, var, gscale, gbias, partial,
           H, W, chunks);
+      return static_cast<int>(cudaGetLastError());
+    });
+  });
+}
+
+// dtype of K. z: (B, 2C, H, Wf) float32; partial: (B * chunks, 4C) float32,
+// rows of [sum m | sum m^2] for fu_reduce with count B * H * Wf.
+int ffc_fu_mix_stats(int dtype, const float* z, const void* k, float* partial, int B,
+                     int C, int H, int W, int chunks, void* stream) {
+  if (bad_plane(B, C, H, W) || chunks < 1) return cudaErrorInvalidValue;
+  return dispatch<1>(dtype, 0, [&](auto tag, auto) {
+    using T = typename decltype(tag)::type;
+    return by_width(2 * C, [&](auto rd) {
+      constexpr int RD = decltype(rd)::value;
+      fu_mix_stats_kernel<T, RD><<<dim3(chunks, B), kThreads, mix_smem_bytes(2 * C, 1, 0),
+                                   static_cast<cudaStream_t>(stream)>>>(
+          z, static_cast<const T*>(k), partial, H, W, chunks);
+      return static_cast<int>(cudaGetLastError());
+    });
+  });
+}
+
+// dtype of K. z, g: (B, 2C, H, Wf) float32, g = DFT(gy) (read only); mean,
+// var: the batch statistics; partial: (B * chunks, 4C) float32, rows of
+// [sum gpre * n | sum gpre] for fu_reduce (count 0): gscale and gbias.
+int ffc_fu_bwd_stats_mix(int dtype, const float* z, const float* g, const void* k,
+                         const float* scale, const float* bias, const float* mean,
+                         const float* var, float* partial, int B, int C, int H, int W,
+                         int chunks, void* stream) {
+  if (bad_plane(B, C, H, W) || chunks < 1) return cudaErrorInvalidValue;
+  return dispatch<1>(dtype, 0, [&](auto tag, auto) {
+    using T = typename decltype(tag)::type;
+    return by_width(2 * C, [&](auto rd) {
+      constexpr int RD = decltype(rd)::value;
+      fu_bwd_stats_mix_kernel<T, RD><<<dim3(chunks, B), kThreads,
+                                       mix_smem_bytes(2 * C, 2, 4),
+                                       static_cast<cudaStream_t>(stream)>>>(
+          z, g, static_cast<const T*>(k), scale, bias, mean, var, partial, H, W, chunks);
       return static_cast<int>(cudaGetLastError());
     });
   });

@@ -42,13 +42,12 @@
 // owned by one warp: its lanes stride over the spectral positions, then a
 // shuffle tree adds them, so the order is fixed. Shared memory per block:
 // 63 KB at (C, H, W) = (16, 16, 16), 118 KB at (8, 32, 32). Every map of the
-// 128px generator needs more than a block's 227 KB. There the statistics
-// kernels keep all the buffers in the item's slice of a device workspace
-// (fourier_unit_common.cuh; 0.29, 0.45, 1.69 and 6.61 MB per item at
-// (64,16,16), (32,32,32), (32,64,64) and (32,128,128)), a simple, slower
-// variant whose stages load from L1/L2; the backward apply runs there as the
-// staged kernels of fourier_unit_staged.cu, and takes the workspace layout
-// only on maps that those do not take (ops/fourier_unit.py, kernel_design).
+// 128px generator needs more than a block's 227 KB; there all three run as
+// the staged kernels of fourier_unit_staged.cu. On maps that those do not
+// take either (ops/fourier_unit.py, kernel_design: planes that are no power
+// of two or beyond a block's shared memory) the kernels keep all the buffers
+// in the item's slice of a device workspace (fourier_unit_common.cuh), a
+// simple, slower variant whose stages load from L1/L2.
 //
 // What bounds them on an H100: bytes. Each must read x (and gy) once and
 // write a few (2C,) vectors (fu_bwd_apply also gx and gK): 0.5-1.6 MB per

@@ -13,7 +13,8 @@ taken on the card:
 - ``fourier_unit_train_plain``: train forward, ``(y, bmean, bvar)``;
 - ``fu_bwd_stats_plain``, ``fu_bwd_apply_plain`` and their composition
   ``fourier_unit_backward_plain``: the rematerialising backward;
-- ``fu_spectrum_plain``, ``fu_mix_apply_plain``, ``fu_inverse_plain`` and
+- ``fu_spectrum_plain``, ``fu_mix_apply_plain``, ``fu_mix_stats_plain``,
+  ``fu_bwd_stats_mix_plain``, ``fu_inverse_plain`` and
   ``fu_bwd_mix_plain``: the stages of the staged design below, in f32
   (f64 for f64 operands) whatever x's dtype, as the kernels compute.
 
@@ -26,24 +27,31 @@ launches of its own kernel in ``launches`` and, by FourierUnit map
 - ``fourier_unit_forward``: the per-item kernel of
   ``csrc/fourier_unit_fwd.cu``;
 - ``fu_train_stats``, ``fu_bwd_stats``, ``fu_bwd_apply`` and ``fu_reduce``
-  (the fixed-order batch sum behind the first three, behind ``fu_bwd_mix``
-  and behind ``ops/bn_act.py``): ``csrc/fourier_unit_train.cu``;
-- ``fu_spectrum``, ``fu_mix_apply``, ``fu_inverse`` and ``fu_bwd_mix``:
+  (the fixed-order batch sum behind the first three, behind the staged
+  mix stages that write partial sums and behind ``ops/bn_act.py``):
+  ``csrc/fourier_unit_train.cu``;
+- ``fu_spectrum``, ``fu_mix_apply``, ``fu_mix_stats``,
+  ``fu_bwd_stats_mix``, ``fu_inverse`` and ``fu_bwd_mix``:
   ``csrc/fourier_unit_staged.cu``.
 
 Maps of any size. :func:`kernel_design` picks, by a fixed rule on the map
-and the card's shared memory per block, how ``fourier_unit_forward`` and
-``fu_bwd_apply`` run a map: their per-item kernel with the item in shared
-memory; else the staged kernels, which work per (item, channel) plane and
-per tile of spectral positions (the wrapper then launches those and not its
-own kernel); else their per-item kernel with the item in an f32 device
-workspace. The statistics kernels take the first or the last.
+and the card's shared memory per block, how ``fourier_unit_forward``,
+``fu_bwd_apply`` and the statistics (``fu_train_stats``, ``fu_bwd_stats``)
+run a map: their per-item kernel with the item in shared memory; else the
+staged kernels, which work per (item, channel) plane and per tile of
+spectral positions (the wrapper then launches those and not its own
+kernel); else their per-item kernel with the item in an f32 device
+workspace.
 
 ``fourier_unit_train`` is the training op the model calls: an autograd
-Function whose forward runs the stats kernel and then the forward kernel
-with the batch statistics in the mean/var slots, and whose backward runs
-the two backward kernels. It saves only (x, kernel, scale, bias, bmean,
-bvar) and returns bmean/bvar as non-differentiable outputs.
+Function. Where the statistics run per item, its forward runs the stats
+kernel and then the forward kernel with the batch statistics in the
+mean/var slots, and its backward runs the two backward kernels. Where they
+run staged, its forward and its backward each compute the spectra once and
+feed them to the statistics stage and then to the apply stage
+(``_train_forward_staged``, ``_train_backward_staged``). It saves only (x,
+kernel, scale, bias, bmean, bvar) and returns bmean/bvar as
+non-differentiable outputs.
 
 Layout: x, y, gy and gx are (B, C, H, W); kernel (2C, 2C) in x's dtype,
 [re; im] on both axes; scale, bias and the statistics are (2C,) f32.
@@ -182,11 +190,39 @@ def fu_spectrum_plain(*maps):
     return torch.stack([torch.cat(rfft2_ortho(_f32(m)), dim=1) for m in maps])
 
 
+def _stage_mix(z, kernel):
+    """m = z mixed by kernel, like z."""
+    return torch.einsum("bjuv,jd->bduv", z, kernel.to(z.dtype))
+
+
+def _stage_bn(z, kernel, scale, bias, mean, var):
+    """(n̂, inv, pre) of m = z mixed by kernel, BN with the given
+    statistics."""
+    inv = torch.rsqrt(var + EPS)
+    n_hat = (_stage_mix(z, kernel) - _col(mean)) * _col(inv)
+    return n_hat, inv, n_hat * _col(scale) + _col(bias)
+
+
 def fu_mix_apply_plain(z, kernel, scale, bias, mean, var):
     """r = c·ReLU(BN(z mixed by kernel)) with the given statistics, like z."""
-    m = torch.einsum("bjuv,jd->bduv", z, kernel.to(z.dtype))
-    pre = (m - _col(mean)) * torch.rsqrt(_col(var) + EPS) * _col(scale) + _col(bias)
-    return torch.relu(pre) * _half_weights(z)
+    return torch.relu(_stage_bn(z, kernel, scale, bias, mean, var)[2]) * _half_weights(z)
+
+
+def fu_mix_stats_plain(z, kernel):
+    """(bmean, bvar): mean and biased variance E[m²] − E[m]² of each of the
+    2C channels of m = z mixed by kernel over (B, H, Wf), no half-spectrum
+    weights (as ``fu_train_stats_plain``), like z."""
+    m = _stage_mix(z, kernel)
+    bmean = m.mean(dim=(0, 2, 3))
+    return bmean, (m * m).mean(dim=(0, 2, 3)) - bmean * bmean
+
+
+def fu_bwd_stats_mix_plain(z, g, kernel, scale, bias, bmean, bvar):
+    """(gscale, gbias) = (Σ gpre·n̂, Σ gpre) over (B, H, Wf) from z and G =
+    DFT(gy), gpre = c·G·[pre > 0] (as ``fu_bwd_stats_plain``), like z."""
+    n_hat, _, pre = _stage_bn(z, kernel, scale, bias, bmean, bvar)
+    gpre = g * _half_weights(z) * (pre > 0)
+    return (gpre * n_hat).sum(dim=(0, 2, 3)), gpre.sum(dim=(0, 2, 3))
 
 
 def fu_inverse_plain(spec, dtype, w):
@@ -199,14 +235,11 @@ def fu_inverse_plain(spec, dtype, w):
 def fu_bwd_mix_plain(z, g, kernel, scale, bias, bmean, bvar, gscale, gbias):
     """The backward apply's mix stage from z and G = DFT(gy): (gz, gK)
     with gm the coupled-BN cotangent of gpre = c·G·[pre > 0]."""
-    k = kernel.to(z.dtype)
-    m = torch.einsum("bjuv,jd->bduv", z, k)
-    inv = torch.rsqrt(bvar + EPS)
-    n_hat = (m - _col(bmean)) * _col(inv)
-    pre = n_hat * _col(scale) + _col(bias)
+    n_hat, inv, pre = _stage_bn(z, kernel, scale, bias, bmean, bvar)
     gn = g * _half_weights(z) * (pre > 0) * _col(scale)
     gm = _coupled_bn_cotangent(gn, n_hat, inv, scale, gscale, gbias)
-    return torch.einsum("bduv,jd->bjuv", gm, k), torch.einsum("bjuv,bduv->jd", z, gm)
+    gz = torch.einsum("bduv,jd->bjuv", gm, kernel.to(z.dtype))
+    return gz, torch.einsum("bjuv,bduv->jd", z, gm)
 
 
 def fu_reduce_plain(partial, count=0):
@@ -299,6 +332,9 @@ _ENTRY_POINTS = {
         "ffc_fu_mix_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "ffc_fu_bwd_mix": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _P],
+        "ffc_fu_mix_stats": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "ffc_fu_bwd_stats_mix": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _P],
     },
 }
 
@@ -343,7 +379,7 @@ def _launch(stem: str, entry: str, on: torch.Tensor, *args) -> None:
 
 SHARED, STAGED, WORKSPACE = "shared", "staged", "workspace"
 # The per-item library of each wrapper that kernel_design serves.
-_DESIGN_STEMS = {"forward": _FWD, "bwd_apply": _TRAIN}
+_DESIGN_STEMS = {"forward": _FWD, "bwd_apply": _TRAIN, "stats": _TRAIN}
 # Spectral positions per tile of a staged mix stage, and the blocks that
 # its grid aims at (about four per SM of an H100).
 _TILE, _MIX_BLOCKS = 64, 512
@@ -376,9 +412,10 @@ def _staged_smem(c: int, h: int, w: int) -> int:
 @functools.cache
 def kernel_design(wrapper: str, c: int, h: int, w: int, smem_limit: int) -> str:
     """How ``wrapper`` ("forward" for :func:`fourier_unit_forward`,
-    "bwd_apply" for :func:`fu_bwd_apply`) runs the map (C, H, W) on a card
-    whose blocks may take ``smem_limit`` bytes of shared memory; a fixed
-    rule, not a knob:
+    "bwd_apply" for :func:`fu_bwd_apply`, "stats" for :func:`fu_train_stats`,
+    :func:`fu_bwd_stats` and the training op) runs the map (C, H, W) on a
+    card whose blocks may take ``smem_limit`` bytes of shared memory; a
+    fixed rule, not a knob:
 
     - ``SHARED``: the wrapper's per-item kernel with the item's buffers in
       shared memory, wherever its plan (``_item_floats``) fits the limit;
@@ -388,9 +425,11 @@ def kernel_design(wrapper: str, c: int, h: int, w: int, smem_limit: int) -> str:
     - ``WORKSPACE``: else the per-item kernel with the item's buffers in a
       device workspace, which takes any map.
 
-    At 227 KB (an H100) the 32px generator's maps stay ``SHARED``, and so
-    does the forward at (64, 16, 16); the 128px generator's maps at 32x32 to
-    128x128, and the backward apply at (64, 16, 16), are ``STAGED``."""
+    The statistics share the backward apply's per-item plan, so the two
+    always take the same design. At 227 KB (an H100) the 32px generator's
+    maps stay ``SHARED``, and so does the forward at (64, 16, 16); the
+    128px generator's maps at 32x32 to 128x128, and the backward apply and
+    the statistics at (64, 16, 16), are ``STAGED``."""
     if _item_floats(_DESIGN_STEMS[wrapper], c, h, w) * 4 <= smem_limit:
         return SHARED
     pow2 = lambda v: v >= 4 and v & (v - 1) == 0
@@ -491,11 +530,15 @@ def fu_reduce(partial, count=0):
 
 @_counted
 def fu_train_stats(x, kernel):
-    """(bmean, bvar) of m over (B, H, Wf), f32; the stats kernel and
-    ``fu_reduce`` on CUDA, the plain version on the CPU."""
+    """(bmean, bvar) of m over (B, H, Wf), f32; on CUDA the per-item stats
+    kernel and ``fu_reduce``, or the staged kernels (``fu_spectrum``,
+    ``fu_mix_stats``), as :func:`kernel_design` picks; on the CPU the plain
+    version."""
     _check_args(x, kernel)
     if x.device.type == "cpu":
         return fu_train_stats_plain(x, kernel)
+    if _design("stats", x) == STAGED:
+        return fu_mix_stats(fu_spectrum(x)[0], kernel)
     layout, ws = _prepare_launch(_TRAIN, x, kernel)
     b, c, h, w = x.shape
     partial = torch.empty(b, 4 * c, device=x.device)
@@ -507,11 +550,16 @@ def fu_train_stats(x, kernel):
 
 @_counted
 def fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy):
-    """(gscale, gbias) = (Σ gpre·n̂, Σ gpre), f32; the backward stats kernel
-    and ``fu_reduce`` on CUDA, the plain version on the CPU."""
+    """(gscale, gbias) = (Σ gpre·n̂, Σ gpre), f32; on CUDA the per-item
+    backward stats kernel and ``fu_reduce``, or the staged kernels
+    (``fu_spectrum`` of x and gy, ``fu_bwd_stats_mix``), as
+    :func:`kernel_design` picks; on the CPU the plain version."""
     _check_args(x, kernel, scale=scale, bias=bias, bmean=bmean, bvar=bvar, gy=gy)
     if x.device.type == "cpu":
         return fu_bwd_stats_plain(x, kernel, scale, bias, bmean, bvar, gy)
+    if _design("stats", x) == STAGED:
+        z, g = fu_spectrum(x, gy)
+        return fu_bwd_stats_mix(z, g, kernel, scale, bias, bmean, bvar)
     layout, ws = _prepare_launch(_TRAIN, x, kernel, scale, bias, bmean, bvar, gy)
     b, c, h, w = x.shape
     partial = torch.empty(b, 4 * c, device=x.device)
@@ -629,6 +677,41 @@ def fu_mix_apply(z, kernel, scale, bias, mean, var):
 
 
 @_counted
+def fu_mix_stats(z, kernel):
+    """(bmean, bvar) of m = z mixed by kernel over (B, H, Wf), f32: the
+    staged statistics kernel, which writes B·chunks rows of partial sums,
+    and ``fu_reduce`` on CUDA; the plain version on the CPU."""
+    _check_stage([z], kernel)
+    if z.device.type == "cpu":
+        return fu_mix_stats_plain(z, kernel)
+    (c, h, w), b = _spectrum_map(z), z.shape[0]
+    chunks = staged_chunks(b, h, w)
+    partial = torch.empty(b * chunks, 4 * c, device=z.device)
+    _staged_launch("ffc_fu_mix_stats", z, kernel.dtype, z.data_ptr(), kernel.data_ptr(),
+                   partial.data_ptr(), b, c, h, w, chunks)
+    _count(fu_mix_stats, (c, h, w))
+    return fu_reduce(partial, b * h * (w // 2 + 1)).split(2 * c)
+
+
+@_counted
+def fu_bwd_stats_mix(z, g, kernel, scale, bias, bmean, bvar):
+    """(gscale, gbias) = (Σ gpre·n̂, Σ gpre) from z and G = DFT(gy), f32:
+    the staged backward-sums kernel, which reads G and leaves it as it
+    was, and ``fu_reduce`` on CUDA; the plain version on the CPU."""
+    _check_stage([z, g], kernel, scale=scale, bias=bias, bmean=bmean, bvar=bvar)
+    if z.device.type == "cpu":
+        return fu_bwd_stats_mix_plain(z, g, kernel, scale, bias, bmean, bvar)
+    (c, h, w), b = _spectrum_map(z), z.shape[0]
+    chunks = staged_chunks(b, h, w)
+    partial = torch.empty(b * chunks, 4 * c, device=z.device)
+    _staged_launch("ffc_fu_bwd_stats_mix", z, kernel.dtype, z.data_ptr(), g.data_ptr(),
+                   kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(), bmean.data_ptr(),
+                   bvar.data_ptr(), partial.data_ptr(), b, c, h, w, chunks)
+    _count(fu_bwd_stats_mix, (c, h, w))
+    return fu_reduce(partial).split(2 * c)
+
+
+@_counted
 def fu_inverse(spec, dtype, w):
     """Re(eh · R · fwᵀ) of each plane of the (B, 2C, H, Wf) f32 spectrum,
     without half-spectrum weights: (B, C, H, W) in ``dtype``; the staged
@@ -669,11 +752,37 @@ def fu_bwd_mix(z, g, kernel, scale, bias, bmean, bvar, gscale, gbias):
 # --- the training op ----------------------------------------------------------------
 
 
+def _train_forward_staged(x, kernel, scale, bias):
+    """The training forward on the staged kernels, ``(y, bmean, bvar)``: one
+    spectrum of x feeds the statistics stage and then the apply stage."""
+    z = fu_spectrum(x)[0]
+    bmean, bvar = fu_mix_stats(z, kernel)
+    r = fu_mix_apply(z, kernel, scale, bias, bmean, bvar)
+    return fu_inverse(r, x.dtype, x.shape[3]), bmean, bvar
+
+
+def _train_backward_staged(x, kernel, scale, bias, bmean, bvar, gy):
+    """The training backward on the staged kernels, ``(gx, gK in kernel's
+    dtype, gscale, gbias)``: one launch transforms x and gy, and the
+    backward sums read G before ``fu_bwd_mix`` writes gz over it."""
+    z, g = fu_spectrum(x, gy)
+    gscale, gbias = fu_bwd_stats_mix(z, g, kernel, scale, bias, bmean, bvar)
+    gz, gk = fu_bwd_mix(z, g, kernel, scale, bias, bmean, bvar, gscale, gbias)
+    return fu_inverse(gz, x.dtype, x.shape[3]), gk.to(kernel.dtype), gscale, gbias
+
+
+def _stats_staged(x) -> bool:
+    return x.device.type == "cuda" and _design("stats", x) == STAGED
+
+
 class _FourierUnitTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, kernel, scale, bias):
-        bmean, bvar = fu_train_stats(x, kernel)
-        y = fourier_unit_forward(x, kernel, scale, bias, bmean, bvar)
+        if _stats_staged(x):
+            y, bmean, bvar = _train_forward_staged(x, kernel, scale, bias)
+        else:
+            bmean, bvar = fu_train_stats(x, kernel)
+            y = fourier_unit_forward(x, kernel, scale, bias, bmean, bvar)
         ctx.save_for_backward(x, kernel, scale, bias, bmean, bvar)
         ctx.mark_non_differentiable(bmean, bvar)
         return y, bmean, bvar
@@ -682,6 +791,8 @@ class _FourierUnitTrain(torch.autograd.Function):
     def backward(ctx, gy, _gmean, _gvar):  # the statistics' cotangents are dropped
         x, kernel, scale, bias, bmean, bvar = ctx.saved_tensors
         gy = gy.contiguous()
+        if _stats_staged(x):
+            return _train_backward_staged(x, kernel, scale, bias, bmean, bvar, gy)
         gscale, gbias = fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy)
         gx, gk = fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias)
         return gx, gk.to(kernel.dtype), gscale, gbias

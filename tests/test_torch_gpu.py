@@ -156,38 +156,57 @@ def test_training_step_launches_each_kernel_a_fixed_number_of_times(cuda):
 
 
 # A FourierUnit map of the 128px generator (block3's), whose buffers exceed
-# a block's shared memory: the kernels keep them in a per-item workspace.
+# a block's shared memory.
 LARGE_SHAPE = (4, 32, 64, 64)
+# A map of the 96px generator's shape class that the staged kernels do not
+# take (96 is no power of two): the per-item kernels keep its buffers in a
+# per-item workspace.
+WORKSPACE_SHAPE = (2, 8, 96, 96)
 
 
-# The kernel whose launch each wrapper's call makes at LARGE_SHAPE: the
-# statistics kernels in the workspace layout, the forward and the backward
-# apply as the staged kernels (counted by their mix stage).
-LARGE_SHAPE_LAUNCHES = {"fourier_unit_fwd": "fu_mix_apply", "fu_train_stats": "fu_train_stats",
-                        "fu_bwd_stats": "fu_bwd_stats", "fu_bwd_apply": "fu_bwd_mix"}
+# The kernel whose launch each wrapper's call makes at LARGE_SHAPE: every
+# wrapper runs as the staged kernels there (counted by its mix stage).
+LARGE_SHAPE_LAUNCHES = {"fourier_unit_fwd": "fu_mix_apply", "fu_train_stats": "fu_mix_stats",
+                        "fu_bwd_stats": "fu_bwd_stats_mix", "fu_bwd_apply": "fu_bwd_mix"}
+
+
+def _check_large_map(cuda, name, shape, counted):
+    """``name``'s wrapper at ``shape`` in f32 (TF32 off): ``counted``
+    launches once, every output within 1e-4 rel-max of the plain version
+    in f64."""
+    if name == "fourier_unit_fwd":
+        args = _inputs(shape, torch.float32, cuda)
+        kernel, plain = fourier_unit_forward, fourier_unit_forward_plain
+    else:
+        kernel, plain, args = _train_case(name, shape, torch.float32, cuda)
+    before = counted.launches_by_map[shape[1:]]
+    outs = kernel(*args)
+    torch.cuda.synchronize()
+    assert counted.launches_by_map[shape[1:]] == before + 1
+    refs = plain(*(a.double() for a in args))
+    for out, ref in zip(*((outs, refs) if isinstance(outs, tuple) else ((outs,), (refs,)))):
+        rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= 1e-4, rel
 
 
 @pytest.mark.parametrize("name", ["fourier_unit_fwd", "fu_train_stats", "fu_bwd_stats",
                                   "fu_bwd_apply"])
 def test_large_map_kernels_match_plain(cuda, name):
     """f32 (TF32 off), every output within 1e-4 rel-max of the plain
-    version in f64; the statistics kernels in the workspace layout, the
-    forward and the backward apply as the staged kernels."""
+    version in f64; every wrapper as the staged kernels, where the per-item
+    plan of the training kernels would need the workspace."""
     assert fu._prepare_launch(fu._TRAIN, torch.empty(LARGE_SHAPE, device=cuda))[0] == fu._WORKSPACE
-    if name == "fourier_unit_fwd":
-        args = _inputs(LARGE_SHAPE, torch.float32, cuda)
-        kernel, plain = fourier_unit_forward, fourier_unit_forward_plain
-    else:
-        kernel, plain, args = _train_case(name, LARGE_SHAPE, torch.float32, cuda)
-    counted = getattr(fu, LARGE_SHAPE_LAUNCHES[name])
-    before = counted.launches_by_map[LARGE_SHAPE[1:]]
-    outs = kernel(*args)
-    torch.cuda.synchronize()
-    assert counted.launches_by_map[LARGE_SHAPE[1:]] == before + 1
-    refs = plain(*(a.double() for a in args))
-    for out, ref in zip(*((outs, refs) if isinstance(outs, tuple) else ((outs,), (refs,)))):
-        rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
-        assert rel <= 1e-4, rel
+    _check_large_map(cuda, name, LARGE_SHAPE, getattr(fu, LARGE_SHAPE_LAUNCHES[name]))
+
+
+@pytest.mark.parametrize("name", ["fu_train_stats", "fu_bwd_stats"])
+def test_workspace_statistics_kernels_match_plain(cuda, name):
+    """The statistics kernels in the per-item workspace layout, on a map
+    that the staged kernels do not take: their own kernel launches, every
+    output within 1e-4 rel-max of the plain version in f64."""
+    assert fu._prepare_launch(fu._TRAIN, torch.empty(WORKSPACE_SHAPE, device=cuda))[0] == fu._WORKSPACE
+    assert fu._design("stats", torch.empty(WORKSPACE_SHAPE, device=cuda)) == fu.WORKSPACE
+    _check_large_map(cuda, name, WORKSPACE_SHAPE, getattr(fu, name))
 
 
 # A packed map of the 128px generator's shape class (block1's widths, batch 8).
@@ -254,15 +273,18 @@ def test_packed_128px_training_step_runs_the_fused_and_large_map_kernels(cuda):
     real = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(4)) * 2 - 1
     wrappers = (ba.bn_stats, ba.bn_gelu_apply, ba.bn_bwd_reduce, ba.bn_bwd_dx,
                 fu.fu_train_stats, fu.fourier_unit_forward, fu.fu_bwd_stats, fu.fu_bwd_apply,
-                fu.fu_spectrum, fu.fu_mix_apply, fu.fu_inverse, fu.fu_bwd_mix)
+                fu.fu_spectrum, fu.fu_mix_stats, fu.fu_mix_apply, fu.fu_inverse,
+                fu.fu_bwd_stats_mix, fu.fu_bwd_mix)
     before = [w.launches for w in wrappers]
     losses = trainer.update_step(real)
     torch.cuda.synchronize()
     assert all(torch.isfinite(v) for v in losses.values())
     # five packed blocks, four FourierUnit maps; (G phase + D phase) forwards,
-    # one backward. The forward runs per item only at (64, 16, 16), staged at
-    # the three larger maps; the backward apply is staged at all four.
-    want = (10, 10, 5, 5, 8, 2, 4, 0, 3 * 2 + 4, 3 * 2, 3 * 2 + 4, 4)
+    # one backward. The statistics are staged at all four maps, so the
+    # training op runs the stages: per map and forward one spectrum, the
+    # statistics stage, the apply stage and the inverse; per map and
+    # backward one two-map spectrum, both backward stages and the inverse.
+    want = (10, 10, 5, 5, 0, 0, 0, 0, 4 * 3, 4 * 2, 4 * 2, 4 * 3, 4, 4)
     assert tuple(w.launches - b for w, b in zip(wrappers, before)) == want
 
 
@@ -308,10 +330,13 @@ def test_staged_kernels_match_plain(cuda, name, shape, dtype, tol):
 
 
 @pytest.mark.parametrize("shape", STAGE_SHAPES)
-@pytest.mark.parametrize("name", ["fu_spectrum", "fu_mix_apply", "fu_inverse", "fu_bwd_mix"])
+@pytest.mark.parametrize("name", ["fu_spectrum", "fu_mix_apply", "fu_inverse", "fu_bwd_mix",
+                                  "fu_mix_stats", "fu_bwd_stats_mix"])
 def test_staged_stages_match_plain(cuda, name, shape):
     """Each stage kernel against its plain version in f64 on the same f32
-    inputs, 1e-4 rel-max on every output."""
+    inputs, 1e-4 rel-max on every output; two launches give the same bits
+    (``fu_bwd_mix`` writes gz over its G, so each of its calls takes a
+    fresh copy)."""
     x, kernel, scale, bias, mean, var, gy = _train_case("fu_bwd_stats", shape, torch.float32,
                                                         cuda)[2]
     gscale, gbias = (t.float() for t in fu.fu_bwd_stats_plain(
@@ -323,15 +348,51 @@ def test_staged_stages_match_plain(cuda, name, shape):
         "fu_mix_apply": (fu.fu_mix_apply, fu.fu_mix_apply_plain, (z, kernel, scale, bias, mean, var)),
         "fu_inverse": (lambda s: fu.fu_inverse(s, torch.float32, w),
                        lambda s: fu.fu_inverse_plain(s, torch.float64, w), (g,)),
-        "fu_bwd_mix": (fu.fu_bwd_mix, fu.fu_bwd_mix_plain,
-                       (z, g.clone(), kernel, scale, bias, mean, var, gscale, gbias)),
+        "fu_bwd_mix": (lambda z_, g_, *rest: fu.fu_bwd_mix(z_, g_.clone(), *rest),
+                       fu.fu_bwd_mix_plain, (z, g, kernel, scale, bias, mean, var, gscale, gbias)),
+        "fu_mix_stats": (fu.fu_mix_stats, fu.fu_mix_stats_plain, (z, kernel)),
+        "fu_bwd_stats_mix": (fu.fu_bwd_stats_mix, fu.fu_bwd_stats_mix_plain,
+                             (z, g, kernel, scale, bias, mean, var)),
     }
     wrapper, plain, args = cases[name]
     refs = plain(*(a.double() for a in args))
     outs = wrapper(*args)
     torch.cuda.synchronize()
-    for out, ref in zip(*((outs, refs) if isinstance(outs, tuple) else ((outs,), (refs,)))):
+    outs, refs = (outs, refs) if isinstance(outs, tuple) else ((outs,), (refs,))
+    for out, ref in zip(outs, refs):
         rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= 1e-4, rel
+    again = wrapper(*args)
+    assert all(torch.equal(a, b) for a, b in zip(outs, again if isinstance(again, tuple) else (again,)))
+
+
+# The 128px generator's four FourierUnit maps at batch 2.
+FU128_MAPS = [(2, 64, 16, 16), (2, 32, 32, 32), (2, 32, 64, 64), (2, 32, 128, 128)]
+
+
+@pytest.mark.parametrize("shape", FU128_MAPS)
+def test_staged_training_op_matches_plain(cuda, shape):
+    """The training op on a map whose statistics run staged, f32 (TF32
+    off): y, bmean and bvar, and the gradients of x, kernel, scale and bias
+    (with ``relu_margin_bias``), within 1e-4 rel-max of the plain op in
+    f64. One spectrum per forward and one two-map spectrum per backward;
+    the per-item wrappers launch nothing."""
+    x, kernel, scale, bias, _, _, gy = _train_case("fu_bwd_stats", shape, torch.float32, cuda)[2]
+    want = {fu.fu_spectrum: 2, fu.fu_mix_stats: 1, fu.fu_mix_apply: 1, fu.fu_inverse: 2,
+            fu.fu_bwd_stats_mix: 1, fu.fu_bwd_mix: 1, fu.fu_train_stats: 0,
+            fu.fourier_unit_forward: 0, fu.fu_bwd_stats: 0, fu.fu_bwd_apply: 0}
+    before = {f: f.launches for f in want}
+    leaves = [t.clone().requires_grad_() for t in (x, kernel, scale, bias)]
+    y, bmean, bvar = fu.fourier_unit_train(*leaves)
+    grads = torch.autograd.grad(y, leaves, gy)
+    torch.cuda.synchronize()
+    assert {f: f.launches - before[f] for f in want} == want
+    x64, k64, s64, b64, gy64 = (t.double() for t in (x, kernel, scale, bias, gy))
+    refs = fu.fourier_unit_train_plain(x64, k64, s64, b64)
+    refs += fu.fourier_unit_backward_plain(x64, k64, s64, b64, *refs[1:], gy64)[:4]
+    for out, ref in zip((y, bmean, bvar, *grads), refs):
+        assert out.shape == ref.shape and torch.isfinite(out).all()
+        rel = ((out.double() - ref).abs().max() / ref.abs().max()).item()
         assert rel <= 1e-4, rel
 
 
