@@ -20,9 +20,12 @@ Phases, each of which raises on a failed check:
    img/s; one request is held against the same weights run through the
    plain op;
 5. the training kernels (batch statistics, backward statistics, backward
-   apply, and the batch reduction behind them) against their plain
-   versions at the same shapes, in f32 and bf16, every output, with
-   kernel, profiler-device and plain times and the bound;
+   apply) against their plain versions at the same shapes, in f32 and
+   bf16, every output, with kernel, profiler-device and plain times and
+   the bound; the batch reduction behind them (``fu_reduce``) at every
+   partial-sum shape of the 32px step and an odd column count, against
+   f64, the public wrapper and the callers' entry giving the same bits on
+   two launches, with its host µs per call beside ``torch.sum``'s;
 6. train the full-width 32px generator against the SN discriminator in
    bf16 at batch 64 (seeded weights and data): warm-up steps, each with
    exact kernel launches per FourierUnit map, then steps back to back for
@@ -35,6 +38,9 @@ Phases, each of which raises on a failed check:
    versions at the five packed maps of the 128px generator at batch 64,
    with and without the noise fold, in f32 and bf16, every output, with
    kernel, profiler-device, plain and library times and the bound;
+   ``bn_stats`` in one launch (no ``fu_reduce``) there and on a map whose
+   planes are no multiple of 16 bytes, with its host µs per call beside
+   ``torch.var_mean``'s;
 9. the FourierUnit kernels at the 128px generator's four maps, whose
    items exceed a block's shared memory, checked as in phases 3 and 5:
    the forward, the statistics, the backward sums and the backward apply
@@ -43,7 +49,8 @@ Phases, each of which raises on a failed check:
    held against its plain version and timed, and so are the training
    op's staged forward and backward, which share one spectrum between
    their statistics stage and their apply stage; every wrapper, stage and
-   composition gives the same bits on two launches;
+   composition gives the same bits on two launches; and ``fu_reduce`` at
+   every partial-sum shape of the 128px step, as in phase 5;
 10. train the full-width 128px generator, in packed-branch mode, against
     its SN discriminator in bf16 at batch 64: warm-up steps with exact
     launches per step by FourierUnit map and by packed BN map, then steps
@@ -341,6 +348,23 @@ def time_ms(fn):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters=100):
+    """Host µs per call of ``fn``: the time to enqueue ``iters`` calls back to
+    back, without waiting for the card (each call's launches queue behind the
+    others'), after five warm-up calls."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def device_events(fn, iters, attempts=3):
@@ -677,7 +701,7 @@ def check_train_kernels(device, shapes, phase):
 
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
-    rows, calls, reduced = [], [], set()
+    rows, calls = [], []
     for shape in shapes:
         is_staged = staged("stats", shape)
         for dtype in (torch.float32, torch.bfloat16):
@@ -720,46 +744,95 @@ def check_train_kernels(device, shapes, phase):
                 bad = {o: r for o, (r, _) in errs.items() if not r <= FU_REL_TOL[dname]}
                 if bad or not bits:
                     raise AssertionError(f"{name} {shape} {dname}: rel-max {bad}, same bits {bits}")
-        # The batch reduction at the partial-sum shapes of this map: (B, 4C)
-        # for the per-item statistics (mean/variance epilogue) and backward
-        # sums, or (B * chunks, 4C) after the staged statistics stages;
-        # (B, 4C^2) for gK, or (B * chunks, 4C^2) after the staged backward's
-        # mix stage; once per shape.
-        b, c, h, w = shape
-        g = torch.Generator().manual_seed(SEED)
-        part_rows = b * fu.staged_chunks(b, h, w) if is_staged else b
-        for n_rows, cols, count in ((part_rows, 4 * c, b * h * (w // 2 + 1)),
-                                    (part_rows, 4 * c * c, 0)):
-            if (n_rows, cols) in reduced:
-                continue
-            reduced.add((n_rows, cols))
-            partial = torch.randn(n_rows, cols, generator=g).to(device)
-            out = fu.fu_reduce(partial, count)
-            torch.cuda.synchronize()
-            ref = fu.fu_reduce_plain(partial.double(), count)
-            rel, err = rel_max(out, ref)
-            ms = time_ms(lambda: fu.fu_reduce(partial, count))
-            plain_ms = time_ms(lambda: fu.fu_reduce_plain(partial, count))
-            library_ms = library_dev_ms = None
-            if count == 0:
-                library_ms = time_ms(lambda: torch.sum(partial, 0))
-                library_dev_ms = call_device_ms(lambda: torch.sum(partial, 0), iters=10)
-            dev_ms = kernel_device_ms(lambda: fu.fu_reduce(partial, count), "fu_reduce_kernel",
-                                      iters=10)
-            bound_ms, bound_by, nbytes, flops = bound("fu_reduce", (n_rows, cols), 4, "float32")
-            log(f"fu_reduce ({n_rows}, {cols}) count {count}: rel-max {rel:.3e} (max-abs "
-                f"{err:.3e}, against an f64 sum; tol {FU_REL_TOL['float32']:g}); kernel "
-                f"{ms:.4f} ms/call (profiler device {fmt_ms(dev_ms)} ms), plain {plain_ms:.4f}"
-                f" ms/call, torch.sum {library_ms} ms/call (profiler device {library_dev_ms} "
-                f"ms), bound {bound_ms:.6f} ms ({bound_by})")
-            if not rel <= FU_REL_TOL["float32"]:
-                raise AssertionError(f"fu_reduce ({n_rows}, {cols}): rel-max {rel}")
-            rows.append(kernel_row(
-                "fu_reduce", (n_rows, cols), "float32", phase=phase, max_abs_err=err,
-                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, library_device_ms=library_dev_ms,
-            ))
     return rows, calls
+
+
+def reduce_cases(fu_shapes, bn_shapes):
+    """[(rows, cols, count)] of ``fu_reduce`` on a training step's main path:
+    per FourierUnit map the statistics' (rows, 4C) with the mean/variance
+    epilogue, the backward sums' (rows, 4C) and gK's (rows, 4C^2), a row
+    per item or per run of tiles (B * chunks) after the staged stages; per
+    packed BN map the backward's (chunks, 3C)."""
+    from fastfourierconvolution_tpu_torch.ops import bn_act as ba
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    cases = []
+    for shape in fu_shapes:
+        b, c, h, w = shape
+        n_rows = b * fu.staged_chunks(b, h, w) if staged("stats", shape) else b
+        cases += [(n_rows, 4 * c, b * h * (w // 2 + 1)), (n_rows, 4 * c, 0),
+                  (n_rows, 4 * c * c, 0)]
+    cases += [(ba._chunks(b * h * w), 3 * c, 0) for b, c, h, w in bn_shapes]
+    # one case per kernel work: the epilogue's count only scales its result
+    unique = {}
+    for n_rows, cols, count in cases:
+        unique.setdefault((n_rows, cols, count > 0), (n_rows, cols, count))
+    return list(unique.values())
+
+
+# A column count no main-path shape has: odd, so the scalar loads.
+REDUCE_ODD = (37, 1001, 0)
+
+
+def check_reduce(device, cases, phase):
+    """Phases 5 and 9 (the batch reduction): ``fu_reduce`` at every
+    (rows, cols, count) of ``cases`` against its plain version in f64, the
+    public wrapper and the callers' entry (``fourier_unit._reduce``) giving
+    the same bits on two launches each, with its times beside one
+    ``torch.sum`` call's (plain sums) and its host µs per call beside
+    ``torch.sum``'s. Returns the rows for the kernels line (not the odd
+    case's, which the main path never runs)."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    g = torch.Generator().manual_seed(SEED)
+    rows = []
+    for n_rows, cols, count in cases:
+        partial = torch.randn(n_rows, cols, generator=g).to(device)
+        before = fu.fu_reduce.launches
+        out, lean = fu.fu_reduce(partial, count), fu._reduce(partial, count)
+        torch.cuda.synchronize()
+        if fu.fu_reduce.launches != before + 2:
+            raise AssertionError(f"fu_reduce ({n_rows}, {cols}): not one launch per call")
+        ref = fu.fu_reduce_plain(partial.double(), count)
+        rel, err = rel_max(out, ref)
+        bits = (torch.equal(out, lean) and same_bits(lambda: fu.fu_reduce(partial, count))
+                and same_bits(lambda: fu._reduce(partial, count)))
+        entry = lambda: fu._reduce(partial, count)
+        ms, public_ms, plain_ms = (time_ms(entry), time_ms(lambda: fu.fu_reduce(partial, count)),
+                                   time_ms(lambda: fu.fu_reduce_plain(partial, count)))
+        host = host_us(entry)
+        dev_ms = kernel_device_ms(entry, "fu_reduce_kernel", iters=10)
+        library_ms = library_dev_ms = library_host = None
+        if count == 0:
+            library = lambda: torch.sum(partial, 0)
+            library_ms, library_host = time_ms(library), host_us(library)
+            library_dev_ms = call_device_ms(library, iters=10)
+        bound_ms, bound_by, nbytes, flops = bound("fu_reduce", (n_rows, cols), 4, "float32")
+        vec, cluster = fu.reduce_design(n_rows, cols, count > 0)
+        log(f"fu_reduce ({n_rows}, {cols}) count {count} (vec {vec}, cluster {cluster}): rel-max "
+            f"{rel:.3e} (max-abs {err:.3e}, against an f64 sum; tol {FU_REL_TOL['float32']:g}), "
+            f"same bits on two launches of each entry {bits}; callers' entry {ms:.4f} ms/call, "
+            f"{host:.1f} us host/call (profiler device {fmt_ms(dev_ms)} ms), public wrapper "
+            f"{public_ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, bound {bound_ms:.6f} ms "
+            f"({bound_by})")
+        if count == 0:
+            log(f"  torch.sum {library_ms:.4f} ms/call, {library_host:.1f} us host/call "
+                f"(profiler device {library_dev_ms:.4f} ms); fu_reduce per call <= torch.sum: "
+                f"{ms <= library_ms}, device <= torch.sum: "
+                f"{dev_ms is not None and dev_ms <= library_dev_ms}")
+        if not rel <= FU_REL_TOL["float32"] or not bits:
+            raise AssertionError(f"fu_reduce ({n_rows}, {cols}): rel-max {rel}, same bits {bits}")
+        if (n_rows, cols, count) != REDUCE_ODD:
+            rows.append(kernel_row(
+                "fu_reduce", (n_rows, cols), "float32", phase=phase, count=count, vec=vec,
+                cluster=cluster, max_abs_err=err, ms=ms, host_us=host, public_ms=public_ms,
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, library_host_us=library_host,
+                library_device_ms=library_dev_ms,
+            ))
+    return rows
 
 
 def bn_inputs(shape, dtype, device, seed):
@@ -818,18 +891,33 @@ def as_tuple(t):
     return t if isinstance(t, tuple) else (t,)
 
 
+# A map whose planes are no multiple of 16 bytes in bf16: bn_stats's
+# element-wise loads (checked, not in the kernels line).
+STATS_TAIL_SHAPE = (BATCH, 192, 10, 10)
+
+
 def check_bn_act(device):
     """Phase 8; returns the bf16 rows for the kernels line."""
     import torch
 
+    from fastfourierconvolution_tpu_torch.ops import bn_act as ba
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
     rows = []
-    for shape in PACKED_SHAPES:
+    for shape in PACKED_SHAPES + [STATS_TAIL_SHAPE]:
+        tail = shape == STATS_TAIL_SHAPE
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
             x, cases = bn_cases(shape, dtype, device)
             for case, (name, noise, kern, ref64, plain, sums) in cases.items():
+                if tail and name != "bn_stats":
+                    continue
+                before = (ba.bn_stats.launches, fu.fu_reduce.launches)
                 outs = as_tuple(kern())
                 torch.cuda.synchronize()
+                if name == "bn_stats" and (ba.bn_stats.launches, fu.fu_reduce.launches) != (
+                        before[0] + 1, before[1]):
+                    raise AssertionError(f"bn_stats {shape} {dname}: not one launch per call")
                 refs = as_tuple(ref64())
                 if not all(torch.isfinite(o.float()).all() for o in outs):
                     raise AssertionError(f"{case} {shape} {dname}: non-finite output")
@@ -843,30 +931,44 @@ def check_bn_act(device):
                               for o, r in zip(outs, refs))
                 line = f"{case} {shape} {dname}: {what} " + ", ".join(
                     f"{e:.3e}" for e in errs) + f" (tol {tol:g}), max-abs vs f64 {max_abs:.3e}"
+                bits = True
+                if name == "bn_stats":
+                    bits = same_bits(kern)
+                    vec, cluster = ba.stats_design(*shape[:2], shape[2] * shape[3],
+                                                   x.element_size())
+                    line += (f"; one launch, {'16-byte' if vec else 'element-wise'} loads, "
+                             f"clusters of {cluster}; same bits on two launches {bits}")
                 if dtype == torch.bfloat16:
                     ms = time_ms(kern)
                     plain_ms = time_ms(plain)
                     dev_ms = kernel_device_ms(kern, f"{name}_kernel", iters=10)
-                    library_ms = library_dev_ms = None
+                    library_ms = library_dev_ms = host = library_host = None
                     if name == "bn_stats":
                         library = lambda: torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
-                        library_ms = time_ms(library)
+                        library_ms, library_host = time_ms(library), host_us(library)
                         library_dev_ms = call_device_ms(library, iters=10)
+                        host = host_us(kern)
                     bound_ms, bound_by, nbytes, flops = bound(name, shape, x.element_size(),
                                                               dname, noise)
                     line += (f"; kernel {ms:.4f} ms/call (profiler device {fmt_ms(dev_ms)} ms), "
                              f"plain {plain_ms:.4f} ms/call, torch.var_mean {library_ms} "
                              f"ms/call (profiler device {library_dev_ms} ms), bound "
                              f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {flops} FLOP)")
-                    rows.append(kernel_row(
-                        name, shape, dname, phase="training-128px", noise=noise,
-                        max_abs_err=max_abs, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                        library_device_ms=library_dev_ms,
-                    ))
+                    if name == "bn_stats":
+                        line += (f"; host {host:.1f} us/call, torch.var_mean {library_host:.1f} "
+                                 f"us/call; per call <= torch.var_mean: {ms <= library_ms}")
+                    if not tail:
+                        rows.append(kernel_row(
+                            name, shape, dname, phase="training-128px", noise=noise,
+                            max_abs_err=max_abs, ms=ms, host_us=host, device_ms=dev_ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms, library_host_us=library_host,
+                            library_device_ms=library_dev_ms,
+                        ))
                 log(line)
-                if not all(e <= tol for e in errs):
-                    raise AssertionError(f"{case} {shape} {dname}: {what} {errs} > {tol}")
+                if not all(e <= tol for e in errs) or not bits:
+                    raise AssertionError(f"{case} {shape} {dname}: {what} {errs} > {tol} "
+                                         f"or two launches differ")
     return rows
 
 
@@ -1035,11 +1137,9 @@ def expected_launches(resolution, n_steps):
     for b, c, h, w in bn_shapes:
         for k, per in BN_STEP_LAUNCHES.items():
             want[k][(c, h, w)] += per * n_steps
-        # two statistics reductions on (chunks, 2C), the backward's S1-S3
-        # on (chunks, 3C)
-        chunks = ba._library().ffc_bn_chunks(b * h * w)
-        want["fu_reduce"][(chunks, 2 * c)] += 2 * n_steps
-        want["fu_reduce"][(chunks, 3 * c)] += n_steps
+        # the backward's S1-S3 on (chunks, 3C); the statistics reduce their
+        # own sums in their one launch
+        want["fu_reduce"][(ba._chunks(b * h * w), 3 * c)] += n_steps
     return {k: dict(v) for k, v in want.items()}
 
 
@@ -1281,6 +1381,7 @@ def main() -> int:
         row["launches"] = by_map[tuple(row["shape"][1:])]
     phase("5: FourierUnit training kernels, 32px maps")
     train_rows, train_calls = check_train_kernels(device, FU_SHAPES, "training")
+    train_rows += check_reduce(device, reduce_cases(FU_SHAPES, []) + [REDUCE_ODD], "training")
     calls += train_calls
     phase("6: training, 32px")
     counts_32 = train(device, card, 32)
@@ -1294,7 +1395,8 @@ def main() -> int:
     fwd_rows, calls_128 = check_fourier_unit(device, FU128_SHAPES, "training-128px")
     rows_128 += fwd_rows + check_stages(device, FU128_SHAPES, "training-128px")
     train_rows, train_calls = check_train_kernels(device, FU128_SHAPES, "training-128px")
-    rows_128 += train_rows
+    rows_128 += train_rows + check_reduce(device, reduce_cases(FU128_SHAPES, PACKED_SHAPES),
+                                          "training-128px")
     calls_128 += train_calls
     phase("10: packed training, 128px")
     counts = train(device, card, 128)

@@ -93,7 +93,10 @@ def _leaf_rules(module: nn.Module):
             ("u", "spectral", ("u",), same),
         ]
     if isinstance(module, Conv2d):
-        return [("weight", "params", ("kernel",), conv)]
+        rules = [("weight", "params", ("kernel",), conv)]
+        if module.bias is not None:
+            rules.append(("bias", "params", ("bias",), same))
+        return rules
     if isinstance(module, ConvTranspose2d):
         return [("weight", "params", ("kernel",), convt)]
     if isinstance(module, Dense):

@@ -24,20 +24,34 @@
 //   bn_bwd_reduce_kernel   <- _bwd_reduce          (241), _bwd_reduce_noise    (457)
 //   bn_bwd_dx_kernel       <- _bwd_dx              (274), _bwd_dx_noise        (506)
 // the noise variants by a compile-time flag. The TPU kernels carried their
-// channel sums in VMEM across a sequential grid; here the stats and reduce
-// kernels write one partial row per chunk of rows, and fu_reduce
-// (fourier_unit_train.cu) sums them in a fixed order, so every launch gives
-// the same bits (no float atomics).
+// channel sums in VMEM across a sequential grid. Here the stats kernel sums
+// each channel in one launch on a thread-block cluster (below); the reduce
+// kernel writes one partial row per chunk of rows, and fu_reduce
+// (fourier_unit_train.cu) sums them in a fixed order. Every launch gives the
+// same bits (no float atomics).
 //
 // Layout: x, g, out, dx are NCHW, contiguous, float32 or bfloat16; n_l, n_g,
 // dn_l, dn_g are (B, 1, H, W) in x's dtype; every per-channel vector is (C,)
-// float32 (mean and var as fu_reduce returns them; g_mean and g_var may be
-// null for zero).
+// float32 (g_mean and g_var may be null for zero).
 //
-// Design. Stats and reduce: one block per (chunk of kChunk rows, channel);
-// each thread strides over the chunk's rows (coalesced within a (b, c)
-// plane), then a warp-shuffle tree and a fixed-order sum over the warps give
-// the block's partial. Apply and dx: one thread per row, looping over the
+// Design of bn_stats (replaces _stats_sums, ops/pallas/bn_act.py:146-175).
+// What bounds it on an H100 is bytes: one read of x (4.2-268 MB at the 128px
+// generator's packed maps in bf16, 1.3-80 us at 3.35 TB/s) against 3
+// operations per element. So one launch goes from x to (mean, var): one
+// cluster of 1-8 blocks per channel (ops/bn_act.py, stats_design, a fixed
+// rule: enough blocks to fill the card, at least 8192 elements each). Each
+// block takes a contiguous range of the channel's (b, .) planes and reads
+// them with 16-byte loads along h*w, several planes in flight per thread,
+// with no division per element; where h*w*itemsize is no multiple of 16 or x
+// is not 16-byte aligned it reads element by element. Sums in f32: per
+// thread, then a warp-shuffle tree, the warps in order, and rank 0 adds the
+// ranks' block sums over distributed shared memory in rank order and writes
+// mean and var with fu_reduce's epilogue arithmetic.
+//
+// Reduce: one block per (chunk of kChunk rows, channel); each thread strides
+// over the chunk's rows (coalesced within a (b, c) plane), then a
+// warp-shuffle tree and a fixed-order sum over the warps give the block's
+// partial. Apply and dx: one thread per row, looping over the
 // channels of its half of the map (grid.y = 2: channels below `split`, and
 // from `split` on; split = cl in the noise variants), so that neighbouring
 // threads read neighbouring addresses of each plane, the row's noise value
@@ -47,8 +61,8 @@
 // intrinsics (no FMA contraction), in the plain version's order.
 //
 // What bounds them on an H100: bytes. At the 128px generator's packed maps
-// in bf16 (64 x 512 x 8 x 8 up to 64 x 128 x 128 x 128, 4.2-268 MB) stats
-// reads the map once, apply reads it and writes it, reduce reads x and g, dx
+// in bf16 (64 x 512 x 8 x 8 up to 64 x 128 x 128 x 128, 4.2-268 MB) apply
+// reads the map once and writes it, reduce reads x and g, dx
 // reads x and g and writes dx: 1.3-160 us per launch at 3.35 TB/s, against
 // about 20-40 operations per element (tanh included), far below 989 TFLOP/s.
 
@@ -108,26 +122,114 @@ __device__ __forceinline__ void block_sum(float (&v)[N]) {
 
 __host__ __device__ long long chunks(long long rows) { return (rows + kChunk - 1) / kChunk; }
 
-// partial: (chunks, 2C), rows [sum x (C) | sum x^2 (C)].
-template <typename T>
+// Planes of a channel in flight per thread of bn_stats_kernel.
+constexpr int kStatsUnroll = 4;
+
+// The sum and the sum of squares of one unit of bn_stats_kernel's reads: the
+// 16 bytes at p (kVec; 4 f32 or 8 bf16 values, summed pairwise) or the one
+// value at p.
+template <bool kVec>
+__device__ __forceinline__ void unit_sums(const float* p, float& s, float& q) {
+  if constexpr (kVec) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    s = (f.x + f.y) + (f.z + f.w);
+    q = fmaf(f.x, f.x, f.y * f.y) + fmaf(f.z, f.z, f.w * f.w);
+  } else {
+    s = *p;
+    q = s * s;
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void unit_sums(const __nv_bfloat16* p, float& s, float& q) {
+  if constexpr (kVec) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    float2 v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = __bfloat1622float2(h[i]);
+    s = ((v[0].x + v[0].y) + (v[1].x + v[1].y)) + ((v[2].x + v[2].y) + (v[3].x + v[3].y));
+    float sq[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sq[i] = fmaf(v[i].x, v[i].x, v[i].y * v[i].y);
+    q = (sq[0] + sq[1]) + (sq[2] + sq[3]);
+  } else {
+    s = __bfloat162float(*p);
+    q = s * s;
+  }
+}
+
+// out: (2, C) f32, [mean | var]. Block blockIdx.x is rank (blockIdx.x mod
+// cluster size) of channel blockIdx.x / cluster size. A thread reads unit
+// j0, j0 + span, ... of planes first, first + step, ...; span is the least
+// power of two that covers a plane's units (at most kThreads), so a warp
+// reads consecutive 16-byte units of one or more planes.
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-bn_stats_kernel(const T* __restrict__ x, float* __restrict__ partial, long long rows,
-                int C, int hw) {
-  const int c = blockIdx.y;
-  const long long r0 = static_cast<long long>(blockIdx.x) * kChunk;
-  const long long r1 = r0 + kChunk < rows ? r0 + kChunk : rows;
-  float v[2] = {0.f, 0.f};
-  for (long long r = r0 + threadIdx.x; r < r1; r += kThreads) {
-    const float xv = load_f32(x + at(r, c, C, hw));
-    v[0] += xv;
-    v[1] = fmaf(xv, xv, v[1]);
+bn_stats_kernel(const T* __restrict__ x, float* __restrict__ out, int B, int C, int hw) {
+  constexpr int kPer = kVec ? 16 / static_cast<int>(sizeof(T)) : 1;  // values per unit
+  __shared__ float warp_part[kWarps][2];
+  __shared__ float block_part[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int c = blockIdx.x / ranks;
+  const int units = hw / kPer;
+  int span = 1;
+  while (span < units && span < kThreads) span <<= 1;
+  const int step = kThreads / span;
+  const int first = threadIdx.x / span, j0 = threadIdx.x % span;
+  const int per_rank = (B + ranks - 1) / ranks;
+  const int b0 = rank * per_rank;
+  const int b1 = min(B, b0 + per_rank);
+  const size_t stride = static_cast<size_t>(C) * hw;  // from plane (b, c) to (b + 1, c)
+  const T* base = x + static_cast<size_t>(c) * hw;
+
+  float s1 = 0.f, s2 = 0.f;
+  for (int b = b0 + first; b < b1; b += step * kStatsUnroll) {
+    for (int j = j0; j < units; j += span) {
+      float s[kStatsUnroll], q[kStatsUnroll];
+#pragma unroll
+      for (int u = 0; u < kStatsUnroll; ++u) {
+        const int bu = b + u * step;
+        s[u] = q[u] = 0.f;
+        if (bu < b1) unit_sums<kVec>(base + bu * stride + static_cast<size_t>(j) * kPer, s[u], q[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kStatsUnroll; ++u) {
+        s1 += s[u];
+        s2 += q[u];
+      }
+    }
   }
-  block_sum(v);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  if (lane == 0) {
+    warp_part[warp][0] = s1;
+    warp_part[warp][1] = s2;
+  }
+  __syncthreads();
   if (threadIdx.x == 0) {
-    float* row = partial + static_cast<size_t>(blockIdx.x) * 2 * C;
-    row[c] = v[0];
-    row[C + c] = v[1];
+    float t1 = 0.f, t2 = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      t1 += warp_part[w][0];
+      t2 += warp_part[w][1];
+    }
+    block_part[0] = t1;
+    block_part[1] = t2;
   }
+  cluster.sync();  // every rank's block sums are in its shared memory
+  if (rank == 0 && threadIdx.x == 0) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int r = 0; r < ranks; ++r) {
+      const float* other = cluster.map_shared_rank(block_part, r);
+      t1 += other[0];
+      t2 += other[1];
+    }
+    moments(t1, t2, static_cast<float>(static_cast<long long>(B) * hw), out + c, out + C + c);
+  }
+  cluster.sync();  // no block leaves while rank 0 still reads its shared memory
 }
 
 template <typename T, bool kNoise>
@@ -243,20 +345,26 @@ dim3 row_grid(long long rows) { return dim3(static_cast<unsigned>((rows + kThrea
 
 extern "C" {
 
-// Rows of the partial sums that ffc_bn_stats and ffc_bn_bwd_reduce write.
+// Rows of the partial sums that ffc_bn_bwd_reduce writes.
 long long ffc_bn_chunks(long long rows) { return chunks(rows); }
 
-// dtype: 0 = float32, 1 = bfloat16. partial: (ffc_bn_chunks(rows), 2C)
-// float32. Each entry point returns a cudaError_t (0 on success).
-int ffc_bn_stats(int dtype, const void* x, float* partial, long long rows, int C, int hw,
-                 void* stream) {
-  if (bad_dims(rows, C, hw, 0)) return cudaErrorInvalidValue;
+// dtype: 0 = float32, 1 = bfloat16. x: (B, C, hw); out: (2, C) float32, [mean
+// | var]. vec: 1 for 16-byte loads (hw * itemsize a multiple of 16, x
+// 16-byte aligned), 0 for loads of one value; cluster: the blocks of a
+// channel's cluster, 1, 2, 4 or 8. Each entry point returns a cudaError_t (0
+// on success), a refused cluster launch included.
+int ffc_bn_stats(int dtype, const void* x, float* out, int B, int C, int hw, int vec,
+                 int cluster, void* stream) {
+  if (B <= 0 || C <= 0 || hw <= 0 || !cluster_size_ok(cluster)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch<1>(dtype, 0, [&](auto tag, auto) {
+  return dispatch<2>(dtype, vec, [&](auto tag, auto flag) {
     using T = typename decltype(tag)::type;
-    bn_stats_kernel<T><<<dim3(static_cast<unsigned>(chunks(rows)), C), kThreads, 0, s>>>(
-        static_cast<const T*>(x), partial, rows, C, hw);
-    return static_cast<int>(cudaGetLastError());
+    constexpr bool kVec = decltype(flag)::value == 1;
+    if (kVec && (static_cast<size_t>(hw) * sizeof(T) % 16 != 0 ||
+                 reinterpret_cast<size_t>(x) % 16 != 0))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_clustered(bn_stats_kernel<T, kVec>, static_cast<unsigned>(C) * cluster,
+                            cluster, s, static_cast<const T*>(x), out, B, C, hw);
   });
 }
 

@@ -1,10 +1,12 @@
 // Device and host helpers shared by every kernel library of the port: dtype
-// conversion, a fixed-order warp sum, and the dispatch from a runtime dtype
-// code (0 = float32, 1 = bfloat16) and a 0/1 variant code (a buffer layout, a
-// noise flag) to a kernel template's instantiation.
+// conversion, a fixed-order warp sum, the mean/variance epilogue of the batch
+// reductions, a launch on a thread-block cluster, and the dispatch from a
+// runtime dtype code (0 = float32, 1 = bfloat16) and a 0/1 variant code (a
+// buffer layout, a noise flag) to a kernel template's instantiation.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -12,6 +14,8 @@
 #include <type_traits>
 
 namespace ffc {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -39,6 +43,41 @@ __device__ __forceinline__ float round_to(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
+}
+
+// The batch statistics from a sum s1 and a sum of squares s2 over n values:
+// mean = s1 / n and the biased variance E[x^2] - mean^2 (no clamp at 0).
+__device__ __forceinline__ void moments(float s1, float s2, float n, float* mean, float* var) {
+  const float m = s1 / n;
+  *mean = m;
+  *var = s2 / n - m * m;
+}
+
+// Launches kernel<<<grid, kThreads, 0, stream>>>(args...) as clusters of
+// `cluster` blocks along x (grid a multiple of it); returns the launch's
+// cudaError_t, a refused cluster shape included, and clears it.
+template <typename... KernelArgs, typename... Args>
+int launch_clustered(void (*kernel)(KernelArgs...), unsigned grid, unsigned cluster,
+                     cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(grid);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = 0;
+  config.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  const cudaError_t launched = cudaLaunchKernelEx(&config, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(launched != cudaSuccess ? launched : last);
+}
+
+inline bool cluster_size_ok(int cluster) {
+  return cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8;
 }
 
 template <typename T>

@@ -27,7 +27,16 @@
 //                    apply_kernel (lines 806, 1275, 1562) in train mode.
 //   fu_reduce      : the fixed-order sum over the batch rows (the TPU kernels
 //                    carried these sums in VMEM scratch across their
-//                    sequential grid, e.g. lines 609-620, 740-747, 789-797).
+//                    sequential grid, e.g. lines 609-620, 740-747, 789-797),
+//                    for every partial-sum row of the port (the staged mix
+//                    stages' and the BN backward reduce's too). It is bound by
+//                    bytes, one read of the partial rows (0.26-12.6 MB on the
+//                    128px step, under 4 us at 3.35 TB/s), and on narrow
+//                    shapes by latency: column tiles of 128 floats read as
+//                    float4 row segments fill the card where the rows are
+//                    wide, and where they are not the rows of a tile are
+//                    split over the blocks of a thread-block cluster, which
+//                    add their partials over distributed shared memory.
 //
 // Layout: x, gy and gx are NCHW, contiguous, float32 or bfloat16; K is
 // (2C, 2C) in x's dtype; scale, bias, mean, var, gscale and gbias are (2C,)
@@ -261,30 +270,101 @@ fu_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   idft_w(sm.z, gx + item * d.n_map, sm.tab, d);
 }
 
-// out[c] = sum over rows of partial[row][c] (count == 0); or, with count > 0
-// and rows of [sums (n) | sums of squares (n)], out = [mean (n) | E[m^2] -
-// mean^2 (n)]. One thread per output column, rows in order.
-__global__ void fu_reduce_kernel(const float* __restrict__ partial, int rows,
-                                 int cols, long long count, float* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (count == 0) {
-    if (c >= cols) return;
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += partial[static_cast<size_t>(r) * cols + c];
-    out[c] = s;
-    return;
+// fu_reduce: out[c] = sum over rows of partial[row][c]; or, kMoments, with
+// rows of [sums (n) | sums of squares (n)], out = [mean (n) | E[m^2] -
+// mean^2 (n)] over `count` values.
+//
+// Each block owns a tile of 32 * kVec consecutive columns (of each half with
+// kMoments), so a warp reads whole row segments, float4 a lane where kVec is 4.
+// The rows go to the blocks of a cluster in contiguous ranges (rank order),
+// and within a block to its warps in a fixed pattern (warp w: rows w, w + 8,
+// ...), kReduceUnroll independent rows in flight per lane. The warp partials
+// are added in shared memory in warp order, then rank 0 adds the ranks'
+// block partials through distributed shared memory in rank order and writes
+// the tile. Which (kVec, cluster size) a shape takes is a fixed rule of the
+// host (ops/fourier_unit.py, reduce_design). No atomics, no global scratch:
+// every launch gives the same bits.
+constexpr int kReduceUnroll = 4;
+
+template <int kVec>
+__device__ __forceinline__ void load_cols(float (&v)[kVec], const float* p) {
+  if constexpr (kVec == 4) {
+    const float4 f = p ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  } else {
+    v[0] = p ? *p : 0.f;
   }
-  const int n = cols / 2;
-  if (c >= n) return;
-  float s1 = 0.f, s2 = 0.f;
-  for (int r = 0; r < rows; ++r) {
-    s1 += partial[static_cast<size_t>(r) * cols + c];
-    s2 += partial[static_cast<size_t>(r) * cols + n + c];
+}
+
+template <int kVec, bool kMoments>
+__global__ void __launch_bounds__(kThreads)
+fu_reduce_kernel(const float* __restrict__ partial, int rows, int cols, long long count,
+                 float* __restrict__ out) {
+  constexpr int kTile = 32 * kVec;         // columns of a tile: one warp-wide segment
+  constexpr int kSegs = kMoments ? 2 : 1;  // the halves a tile reads
+  __shared__ float warp_part[kWarps][kSegs * kTile];
+  __shared__ float block_part[kSegs * kTile];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tile = blockIdx.x / ranks;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int n = kMoments ? cols / 2 : cols;
+  const int col = tile * kTile + lane * kVec;
+  const int per_rank = (rows + ranks - 1) / ranks;
+  const int r0 = rank * per_rank;
+  const int r1 = min(rows, r0 + per_rank);
+
+  float acc[kSegs][kVec] = {};
+  for (int r = r0 + warp; r < r1; r += kWarps * kReduceUnroll) {
+    float v[kReduceUnroll][kSegs][kVec];
+#pragma unroll
+    for (int u = 0; u < kReduceUnroll; ++u) {
+      const int row = r + u * kWarps;
+      const float* p =
+          col < n && row < r1 ? partial + static_cast<size_t>(row) * cols + col : nullptr;
+#pragma unroll
+      for (int s = 0; s < kSegs; ++s) load_cols<kVec>(v[u][s], p ? p + s * n : nullptr);
+    }
+#pragma unroll
+    for (int u = 0; u < kReduceUnroll; ++u)
+#pragma unroll
+      for (int s = 0; s < kSegs; ++s)
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) acc[s][i] += v[u][s][i];
   }
-  const float n_f = static_cast<float>(count);
-  const float mean = s1 / n_f;
-  out[c] = mean;
-  out[n + c] = s2 / n_f - mean * mean;
+#pragma unroll
+  for (int s = 0; s < kSegs; ++s)
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) warp_part[warp][s * kTile + lane * kVec + i] = acc[s][i];
+  __syncthreads();
+  for (int j = threadIdx.x; j < kSegs * kTile; j += kThreads) {
+    float t = 0.f;
+    for (int w = 0; w < kWarps; ++w) t += warp_part[w][j];
+    block_part[j] = t;
+  }
+  cluster.sync();  // every rank's block partial is in its shared memory
+  if (rank == 0) {
+    for (int j = threadIdx.x; j < kTile; j += kThreads) {
+      const int c = tile * kTile + j;
+      if (c >= n) continue;
+      float s[kSegs] = {};
+      for (int q = 0; q < ranks; ++q) {
+        const float* other = cluster.map_shared_rank(block_part, q);
+#pragma unroll
+        for (int k = 0; k < kSegs; ++k) s[k] += other[k * kTile + j];
+      }
+      if constexpr (kMoments) {
+        moments(s[0], s[1], static_cast<float>(count), out + c, out + n + c);
+      } else {
+        out[c] = s[0];
+      }
+    }
+  }
+  cluster.sync();  // no block leaves while rank 0 still reads its shared memory
 }
 
 size_t smem_bytes(int C, int H, int W, int layout) {
@@ -373,16 +453,26 @@ int ffc_fu_bwd_apply(int dtype, int layout, const void* x, const void* gy,
 }
 
 // partial: (rows, cols) float32; out: (cols,) float32. count > 0 selects the
-// mean/variance epilogue (cols even), count == 0 plain sums.
-int ffc_fu_reduce(const float* partial, int rows, int cols, long long count,
-                  float* out, void* stream) {
-  if (rows <= 0 || cols <= 0 || count < 0 || (count > 0 && cols % 2 != 0))
+// mean/variance epilogue (cols even), count == 0 plain sums. vec: 4 (float4
+// loads: the reduced width, cols or cols / 2, a multiple of 4 and partial
+// 16-byte aligned) or 1; cluster: the blocks of a cluster that split the
+// rows, 1, 2, 4 or 8. The launch takes (reduced width / (32 * vec), rounded
+// up) x cluster blocks.
+int ffc_fu_reduce(const float* partial, int rows, int cols, long long count, int vec,
+                  int cluster, float* out, void* stream) {
+  const bool moments = count > 0;
+  const int n = moments ? cols / 2 : cols;
+  if (rows <= 0 || cols <= 0 || count < 0 || (moments && cols % 2 != 0) ||
+      (vec != 1 && vec != 4) || !cluster_size_ok(cluster) ||
+      (vec == 4 && (n % 4 != 0 || reinterpret_cast<size_t>(partial) % 16 != 0)))
     return cudaErrorInvalidValue;
-  const int threads = 128;
-  fu_reduce_kernel<<<(cols + threads - 1) / threads, threads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(partial, rows, cols,
-                                                          count, out);
-  return cudaGetLastError();
+  const unsigned grid = static_cast<unsigned>((n + 32 * vec - 1) / (32 * vec) * cluster);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto kernel) {
+    return launch_clustered(kernel, grid, cluster, s, partial, rows, cols, count, out);
+  };
+  if (vec == 4) return moments ? go(fu_reduce_kernel<4, true>) : go(fu_reduce_kernel<4, false>);
+  return moments ? go(fu_reduce_kernel<1, true>) : go(fu_reduce_kernel<1, false>);
 }
 
 const char* ffc_error_string(int code) {

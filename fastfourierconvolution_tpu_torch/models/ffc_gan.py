@@ -15,7 +15,8 @@ n_g, each (B, 1, H, W)), so a packed and a tuple generator given the same
 noise generator compute the same function.
 
 Discriminator: [SNConv2d(k, s, p1) -> LeakyReLU(0.1)] per ladder entry ->
-flatten in (H, W, C) order, as the JAX package flattens NHWC -> SNDense(1).
+flatten in (H, W, C) order, as the JAX package flattens NHWC -> SNDense(1);
+without spectral norm, Conv2d with a bias and Dense.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 
 from ..nn.ffc import FFC_BN_ACT, Packed, resize_output, split_channels
 from ..nn.layers import (
+    Conv2d,
     Dense,
     NoiseInjection,
     SNConv2d,
@@ -111,12 +113,25 @@ class FFCGenerator(nn.Module):
         return self.mg * 2 ** len(self.channel_mults)
 
     @staticmethod
-    def for_resolution(resolution: int, z_size: int = 128, **kw) -> "FFCGenerator":
-        if resolution not in PRESETS:
-            raise ValueError(
-                f"no generator preset for {resolution}px; have {sorted(PRESETS)}"
-            )
-        return FFCGenerator(z_size=z_size, **{**PRESETS[resolution], **kw})
+    def for_resolution(resolution: int, z_size: int = 128, out_channels: int = 3,
+                       **kw) -> "FFCGenerator":
+        """The preset of ``resolution`` (``PRESETS``), or, for any other
+        ``mg·2^n`` (``mg`` from ``kw``, 4 by default), ngf 64 and ratio 0.25
+        with the last n of the mults (4, 2, 1, 1, ...); ``kw`` overrides."""
+        if resolution in PRESETS:
+            cfg = dict(PRESETS[resolution])
+        else:
+            mg = kw.pop("mg", 4)
+            n = (resolution // mg).bit_length() - 1 if resolution >= mg > 0 else -1
+            if n < 0 or mg * 2 ** n != resolution:
+                raise ValueError(
+                    f"no generator preset for {resolution}px (have {sorted(PRESETS)}), "
+                    f"and it is no mg*2^n (mg={mg})"
+                )
+            mults = ((4, 2, 1) + (1,) * max(0, n - 3))[-n:] if n else (1,)
+            cfg = dict(ngf=64, ratio_g=0.25, mg=mg, channel_mults=mults)
+        cfg.update(kw)
+        return FFCGenerator(z_size=z_size, out_channels=out_channels, **cfg)
 
     def forward(
         self, z: torch.Tensor, compute_dtype=torch.float32,
@@ -170,37 +185,52 @@ D_LADDERS = {
 
 
 class SNConvDiscriminator(nn.Module):
-    """Spectral-normed conv ladder over RGB images with LeakyReLU(0.1)
-    between layers and an SN dense head on the flattened (H, W, C)
-    features; ``head_size`` is the side of the last map. Returns (B, 1)
-    logits."""
+    """Spectral-normed conv ladder over ``in_channels``-channel images with
+    LeakyReLU(0.1) between layers and an SN dense head on the flattened
+    (H, W, C) features; ``head_size`` is the side of the last map. With
+    ``use_sn=False`` (the reference's ``sn=False`` escape hatch) the convs
+    are plain ones with a bias and the head a plain dense layer. Returns
+    (B, 1) logits."""
 
     def __init__(
         self, ladder: Sequence[Tuple[int, int, int]] = D_LADDERS[32],
         head_size: int = 4, generator: Optional[torch.Generator] = None,
+        use_sn: bool = True, in_channels: int = 3,
     ):
         super().__init__()
         self.ladder = tuple(ladder)
-        cin = 3  # RGB
+        self.use_sn = use_sn
+        cin = in_channels
         for i, (feat, k, s) in enumerate(self.ladder):
-            self.add_module(f"conv{i}", SNConv2d(cin, feat, k, stride=s, padding=1))
+            conv = (SNConv2d(cin, feat, k, stride=s, padding=1) if use_sn
+                    else Conv2d(cin, feat, k, stride=s, padding=1, bias=True))
+            self.add_module(f"conv{i}", conv)
             cin = feat
-        self.fc = SNDense(head_size * head_size * cin, 1)
+        head = head_size * head_size * cin
+        self.fc = SNDense(head, 1) if use_sn else Dense(head, 1)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         reset_parameters(self, generator)
 
     @staticmethod
     def for_resolution(resolution: int, **kw) -> "SNConvDiscriminator":
-        if resolution not in D_LADDERS:
+        """The ladder of ``resolution``; 48 and 96 take the 32 and 64
+        ladders with a head of side 6 (``mg``, which ``kw`` may set)."""
+        mg = kw.pop("mg", 6 if resolution in (48, 96) else 4)
+        base = {48: 32, 96: 64}.get(resolution, resolution)
+        if base not in D_LADDERS:
             raise ValueError(
-                f"no discriminator ladder for {resolution}px; have {sorted(D_LADDERS)}"
+                f"no discriminator ladder for {resolution}px; have {sorted(D_LADDERS)} "
+                f"and 48, 96"
             )
-        return SNConvDiscriminator(ladder=D_LADDERS[resolution], **kw)
+        return SNConvDiscriminator(ladder=D_LADDERS[base], head_size=mg, **kw)
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
-        """(B, C, R, R) images -> (B, 1) logits in ``compute_dtype``."""
+        """(B, C, R, R) images -> (B, 1) logits in ``compute_dtype``; without
+        spectral norm the head computes in f32, as flax's Dense promotes
+        its input to its f32 parameters, and the logits are f32."""
         x = x.to(resolve_dtype(compute_dtype))
         for i in range(len(self.ladder)):
             x = F.leaky_relu(getattr(self, f"conv{i}")(x), negative_slope=0.1)
-        return self.fc(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return self.fc(x if self.use_sn else x.float())

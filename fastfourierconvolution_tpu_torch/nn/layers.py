@@ -96,7 +96,9 @@ class BatchNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """Linear layer computed in the input's dtype; weight (out, in)."""
+    """Linear layer computed in the input's dtype; weight (out, in). The
+    bias is added to the rounded product, as flax's Dense adds it (in
+    bf16 a fused add would round once where flax rounds twice)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__()
@@ -110,25 +112,31 @@ class Dense(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = self.bias.to(x.dtype) if self.bias is not None else None
-        return F.linear(x, self.weight.to(x.dtype), b)
+        y = F.linear(x, self.weight.to(x.dtype))
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 class Conv2d(nn.Module):
-    """Bias-free 2-D convolution; weight OIHW."""
+    """2-D convolution, bias-free unless ``bias`` (zero init); weight
+    OIHW."""
 
-    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
+                 bias: bool = False):
         super().__init__()
         k = kernel_size
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
         self.stride, self.padding = stride, padding
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             conv_init_(self.weight, generator)
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_ops.conv2d(x, self.weight, stride=self.stride, padding=self.padding)
+        y = conv_ops.conv2d(x, self.weight, stride=self.stride, padding=self.padding)
+        return y if self.bias is None else y + self.bias.to(y.dtype)[:, None, None]
 
 
 class ConvTranspose2d(nn.Module):
@@ -224,7 +232,8 @@ class SNConv2d(_SpectralNormed):
 
 
 class SNDense(_SpectralNormed):
-    """Spectral-normalised linear layer with bias; weight (out, in)."""
+    """Spectral-normalised linear layer with bias, added to the rounded
+    product as in the JAX package; weight (out, in)."""
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__((out_features, in_features))
@@ -235,7 +244,8 @@ class SNDense(_SpectralNormed):
         super().reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.normalized_weight().to(x.dtype), self.bias.to(x.dtype))
+        y = F.linear(x, self.normalized_weight().to(x.dtype))
+        return y + self.bias.to(y.dtype)
 
 
 class SELayer(nn.Module):

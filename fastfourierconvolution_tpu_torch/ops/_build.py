@@ -105,14 +105,14 @@ def library(stem: str) -> ctypes.CDLL:
     return _libraries()[stem]
 
 
-def launch(entry, device: torch.device, *args) -> int:
+def launch(entry, index: int, *args) -> int:
     """Calls the C entry point ``entry`` with ``args`` and, last, the raw
-    current stream of ``device``; returns its cudaError_t. Enters
-    ``torch.cuda.device`` only when ``device`` is not the current device,
-    since the kernel launches on the current one."""
-    current = torch.cuda.current_device()
-    index = current if device.index is None else device.index
-    if index == current:
+    current stream of CUDA device ``index`` (``tensor.get_device()`` of an
+    operand); returns its cudaError_t. Enters ``torch.cuda.device`` only
+    when ``index`` is not the current device, since the kernel launches on
+    the current one. An operand on the card means CUDA is initialised, so
+    the current device is read without ``torch.cuda``'s Python layer."""
+    if index == torch._C._cuda_getDevice():
         return entry(*args, torch._C._cuda_getCurrentRawStream(index))
     with torch.cuda.device(index):
         return entry(*args, torch._C._cuda_getCurrentRawStream(index))

@@ -23,8 +23,10 @@ Kernel wrappers, ``csrc/bn_act.cu``: ``bn_stats``, ``bn_gelu_apply``,
 ``bn_bwd_reduce`` and ``bn_bwd_dx``. For a CPU tensor each runs its plain
 version; for a CUDA tensor it launches its kernel or raises. Each counts
 its launches in ``launches`` and, by map (C, H, W), in
-``launches_by_map``; the stats and reduce passes leave per-chunk partial
-sums that ``fu_reduce`` adds in a fixed order.
+``launches_by_map``. ``bn_stats`` goes from x to (mean, var) in one
+launch, a thread-block cluster per channel as :func:`stats_design`
+picks; the backward reduce leaves per-chunk partial sums that
+``fu_reduce`` adds in a fixed order.
 
 ``packed_bn_gelu(x, scale, bias)`` and ``packed_bn_gelu_noise(x, scale,
 bias, w, n_l, n_g, cl)`` are the autograd ops the model calls: each
@@ -44,7 +46,7 @@ import functools
 import torch
 
 from . import _build
-from .fourier_unit import _counted, _count, _ptr, fu_reduce
+from .fourier_unit import _CLUSTER_MAX, _SMS, _counted, _count, _ptr, _reduce
 
 EPS = 1e-5
 C1 = 0.7978845608028654  # sqrt(2 / pi)
@@ -193,7 +195,7 @@ def _noise_maps(x, n_l, n_g):
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRY_POINTS = {
-    "ffc_bn_stats": [_I, _P, _P, _LL, _I, _I, _P],
+    "ffc_bn_stats": [_I, _P, _P, _I, _I, _I, _I, _I, _P],
     "ffc_bn_gelu_apply": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
     "ffc_bn_bwd_reduce": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _LL, _I, _I, _P],
     "ffc_bn_bwd_dx": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -216,7 +218,7 @@ def _library() -> ctypes.CDLL:
 
 def _launch(entry: str, on: torch.Tensor, *args) -> None:
     """Calls the entry point on the current stream of ``on``'s device."""
-    err = _build.launch(getattr(_library(), entry), on.device, *args)
+    err = _build.launch(getattr(_library(), entry), on.get_device(), *args)
     if err != 0:
         message = _library().ffc_error_string(err).decode()
         raise RuntimeError(f"BN+GELU kernel launch failed: {message}")
@@ -236,22 +238,46 @@ def _chunks(rows: int) -> int:
     return _library().ffc_bn_chunks(rows)
 
 
+# bn_stats's launch: eight 256-thread blocks on each SM at once, and the
+# least elements a block of a channel's cluster takes.
+_RESIDENT_BLOCKS, _STATS_MIN_ELEMENTS = _SMS * 8, 8192
+
+
+@functools.cache
+def stats_design(b: int, c: int, hw: int, itemsize: int, aligned: bool = True):
+    """``(vec, cluster)`` of :func:`bn_stats`'s kernel on a (B, C, H·W) map;
+    a fixed rule, not a knob. vec: 16-byte loads where a plane's bytes are
+    a multiple of 16 and x is ``aligned`` (16 bytes), else loads of one
+    value. Each channel runs on a cluster of blocks that split its B planes,
+    doubled from 1 up to 8 while the card still holds every block at once,
+    each block keeps at least 8192 elements and at least one plane."""
+    vec = aligned and hw * itemsize % 16 == 0
+    cluster = 1
+    while (cluster < _CLUSTER_MAX and c * cluster * 2 <= _RESIDENT_BLOCKS
+           and b >= 2 * cluster and b * hw >= 2 * cluster * _STATS_MIN_ELEMENTS):
+        cluster *= 2
+    return vec, cluster
+
+
 # --- kernel wrappers --------------------------------------------------------------
 
 
 @_counted
 def bn_stats(x):
-    """(mean, var) per channel, f32; the stats kernel and ``fu_reduce`` on
+    """(mean, var) per channel, f32; one launch of the stats kernel on
     CUDA, the plain version on the CPU."""
     _check(x)
     if x.device.type == "cpu":
         return bn_stats_plain(x)
-    rows, c, hw, n_chunks = _geometry(x)
-    partial = torch.empty(n_chunks, 2 * c, device=x.device)
-    _launch("ffc_bn_stats", x, _DTYPE_CODES[x.dtype], x.data_ptr(), partial.data_ptr(),
-            rows, c, hw)
-    _count(bn_stats, tuple(x.shape[1:]))
-    return fu_reduce(partial, rows).split(c)
+    b, c, h, w = x.shape
+    if b * h * w == 0:
+        raise ValueError("the BN+GELU kernels need at least one row")
+    vec, cluster = stats_design(b, c, h * w, x.element_size(), x.data_ptr() % 16 == 0)
+    out = x.new_empty((2, c), dtype=torch.float32)
+    _launch("ffc_bn_stats", x, _DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), b, c,
+            h * w, int(vec), cluster)
+    _count(bn_stats, (c, h, w))
+    return out.unbind()
 
 
 @_counted
@@ -290,7 +316,7 @@ def bn_bwd_reduce(x, g, mean, var, scale, bias, n_l=None, n_g=None, cl=None):
             bias.data_ptr(), _ptr(n_l), _ptr(n_g), cl if noise else c, partial.data_ptr(),
             rows, c, hw)
     _count(bn_bwd_reduce, tuple(x.shape[1:]))
-    return fu_reduce(partial).split(c)
+    return _reduce(partial).split(c)
 
 
 @_counted

@@ -28,7 +28,9 @@ launches of its own kernel in ``launches`` and, by FourierUnit map
   ``csrc/fourier_unit_fwd.cu``;
 - ``fu_train_stats``, ``fu_bwd_stats``, ``fu_bwd_apply`` and ``fu_reduce``
   (the fixed-order batch sum behind the first three, behind the staged
-  mix stages that write partial sums and behind ``ops/bn_act.py``):
+  mix stages that write partial sums and behind ``ops/bn_act.py``'s
+  backward reduce; those callers go through ``_reduce``, which skips the
+  public checks; :func:`reduce_design` picks its tiles and clusters):
   ``csrc/fourier_unit_train.cu``;
 - ``fu_spectrum``, ``fu_mix_apply``, ``fu_mix_stats``,
   ``fu_bwd_stats_mix``, ``fu_inverse`` and ``fu_bwd_mix``:
@@ -324,7 +326,7 @@ _ENTRY_POINTS = {
                              _I, _I, _I, _I, _P],
         "ffc_fu_bwd_apply": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _P],
-        "ffc_fu_reduce": [_P, _I, _I, _LL, _P, _P],
+        "ffc_fu_reduce": [_P, _I, _I, _LL, _I, _I, _P, _P],
     },
     _STAGED: {
         "ffc_fu_spectrum": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -371,7 +373,7 @@ def _smem_limit(stem: str, device_index: int, dtype_code: int) -> int:
 
 def _launch(stem: str, entry: str, on: torch.Tensor, *args) -> None:
     """Calls the entry point on the current stream of ``on``'s device."""
-    _raise_on(stem, _build.launch(getattr(_library(stem), entry), on.device, *args),
+    _raise_on(stem, _build.launch(getattr(_library(stem), entry), on.get_device(), *args),
               "launch")
 
 
@@ -444,6 +446,31 @@ def staged_chunks(b: int, h: int, w: int) -> int:
     backward's gK partial sums have B times this many rows."""
     tiles = -(-h * (w // 2 + 1) // _TILE)
     return min(tiles, max(1, -(-_MIX_BLOCKS // b)))
+
+
+# fu_reduce's launch: an H100's SMs; the rows a block of a cluster takes at
+# least (two per warp of its 256 threads); the largest portable cluster.
+_SMS, _REDUCE_MIN_ROWS, _CLUSTER_MAX = 132, 16, 8
+
+
+@functools.cache
+def reduce_design(rows: int, cols: int, moments: bool, aligned: bool = True):
+    """``(vec, cluster)`` of :func:`fu_reduce`'s kernel on (rows, cols)
+    partial sums (with the mean/variance epilogue when ``moments``); a
+    fixed rule, not a knob. A block sums a tile of 32·vec columns (of each
+    half with ``moments``): vec 4, float4 loads, where the reduced width is
+    a multiple of 4 and ``aligned`` (the data 16-byte aligned), else 1. The
+    rows of a tile are split over a cluster of blocks, doubled from 1 up to
+    8 while the tiles times twice the cluster still fit the SMs and each
+    block keeps at least 16 rows."""
+    n = cols // 2 if moments else cols
+    vec = 4 if aligned and n % 4 == 0 else 1
+    tiles = -(-n // (32 * vec))
+    cluster = 1
+    while (cluster < _CLUSTER_MAX and tiles * cluster * 2 <= _SMS
+           and rows >= 2 * cluster * _REDUCE_MIN_ROWS):
+        cluster *= 2
+    return vec, cluster
 
 
 def _design(wrapper: str, x: torch.Tensor) -> str:
@@ -520,11 +547,30 @@ def fu_reduce(partial, count=0):
         return fu_reduce_plain(partial, count)
     if not partial.is_contiguous():
         raise ValueError("the FourierUnit kernels take contiguous tensors")
+    return _reduce(partial, count, partial.data_ptr() % 16 == 0)
+
+
+@functools.cache
+def _reduce_entry():
+    return _library(_TRAIN).ffc_fu_reduce
+
+
+def _reduce(partial, count=0, aligned=True):
+    """:func:`fu_reduce` for the port's own callers, which pass a
+    ``partial`` they built themselves (a fresh contiguous (rows, cols) f32
+    tensor, so 16-byte aligned) and an even column count with ``count``:
+    nothing is checked again. The plain version on the CPU."""
+    if not partial.is_cuda:
+        return fu_reduce_plain(partial, count)
     rows, cols = partial.shape
-    out = torch.empty(cols, device=partial.device)
-    _launch(_TRAIN, "ffc_fu_reduce", partial, partial.data_ptr(), rows, cols, count,
-            out.data_ptr())
-    _count(fu_reduce, (rows, cols))
+    out = partial.new_empty(cols)
+    vec, cluster = reduce_design(rows, cols, count > 0, aligned)
+    err = _build.launch(_reduce_entry(), partial.get_device(), partial.data_ptr(), rows, cols,
+                        count, vec, cluster, out.data_ptr())
+    if err:
+        _raise_on(_TRAIN, err, "launch")
+    fu_reduce.launches += 1
+    fu_reduce.launches_by_map[(rows, cols)] += 1
     return out
 
 
@@ -545,7 +591,7 @@ def fu_train_stats(x, kernel):
     _launch(_TRAIN, "ffc_fu_train_stats", x, _DTYPE_CODES[x.dtype], layout, x.data_ptr(),
             kernel.data_ptr(), partial.data_ptr(), _ptr(ws), b, c, h, w)
     _count(fu_train_stats, (c, h, w))
-    return fu_reduce(partial, b * h * (w // 2 + 1)).split(2 * c)
+    return _reduce(partial, b * h * (w // 2 + 1)).split(2 * c)
 
 
 @_counted
@@ -567,7 +613,7 @@ def fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy):
             gy.data_ptr(), kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             bmean.data_ptr(), bvar.data_ptr(), partial.data_ptr(), _ptr(ws), b, c, h, w)
     _count(fu_bwd_stats, (c, h, w))
-    return fu_reduce(partial).split(2 * c)
+    return _reduce(partial).split(2 * c)
 
 
 @_counted
@@ -594,7 +640,7 @@ def fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias):
             bmean.data_ptr(), bvar.data_ptr(), gscale.data_ptr(), gbias.data_ptr(),
             gx.data_ptr(), partial.data_ptr(), _ptr(ws), b, c, h, w)
     _count(fu_bwd_apply, (c, h, w))
-    return gx, fu_reduce(partial).view(2 * c, 2 * c)
+    return gx, _reduce(partial).view(2 * c, 2 * c)
 
 
 # --- the staged kernels' wrappers -----------------------------------------------------
@@ -690,7 +736,7 @@ def fu_mix_stats(z, kernel):
     _staged_launch("ffc_fu_mix_stats", z, kernel.dtype, z.data_ptr(), kernel.data_ptr(),
                    partial.data_ptr(), b, c, h, w, chunks)
     _count(fu_mix_stats, (c, h, w))
-    return fu_reduce(partial, b * h * (w // 2 + 1)).split(2 * c)
+    return _reduce(partial, b * h * (w // 2 + 1)).split(2 * c)
 
 
 @_counted
@@ -708,7 +754,7 @@ def fu_bwd_stats_mix(z, g, kernel, scale, bias, bmean, bvar):
                    kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(), bmean.data_ptr(),
                    bvar.data_ptr(), partial.data_ptr(), b, c, h, w, chunks)
     _count(fu_bwd_stats_mix, (c, h, w))
-    return fu_reduce(partial).split(2 * c)
+    return _reduce(partial).split(2 * c)
 
 
 @_counted
@@ -746,7 +792,7 @@ def fu_bwd_mix(z, g, kernel, scale, bias, bmean, bvar, gscale, gbias):
                    bvar.data_ptr(), gscale.data_ptr(), gbias.data_ptr(), partial.data_ptr(),
                    b, c, h, w, chunks)
     _count(fu_bwd_mix, (c, h, w))
-    return g, fu_reduce(partial).view(2 * c, 2 * c)
+    return g, _reduce(partial).view(2 * c, 2 * c)
 
 
 # --- the training op ----------------------------------------------------------------

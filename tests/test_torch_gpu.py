@@ -401,3 +401,83 @@ def test_item_plans_match_the_libraries(cuda, cmap):
     """The per-item plans that ``kernel_design`` reads are the kernels'."""
     for stem in (fu._FWD, fu._TRAIN):
         assert fu._library(stem).ffc_item_floats(*cmap) == fu._item_floats(stem, *cmap)
+
+
+# fu_reduce's partial-sum shapes on the main path, (rows, cols, count): the
+# 32px statistics (count > 0), backward sums and gK rows at both maps; the
+# 128px staged ones, (B * chunks, 4C) and (B * chunks, 4C^2); the BN backward
+# reduce's (chunks, 3C) at the five packed maps; and an odd column count.
+REDUCE_CASES = [(64, 64, 64 * 16 * 9), (64, 64, 0), (64, 1024, 0), (64, 32, 64 * 32 * 17),
+                (64, 32, 0), (64, 256, 0), (192, 256, 64 * 16 * 9), (192, 256, 0),
+                (192, 16384, 0), (512, 128, 64 * 32 * 17), (512, 128, 0), (512, 4096, 0),
+                (1, 1536, 0), (4, 768, 0), (16, 384, 0), (64, 384, 0), (256, 384, 0),
+                (37, 1001, 0)]
+
+
+@pytest.mark.parametrize("rows,cols,count", REDUCE_CASES)
+def test_fu_reduce_matches_plain(cuda, rows, cols, count):
+    """Every output within 1e-4 rel-max of the plain version in f64; one
+    launch, counted by shape; the public wrapper and the callers' entry give
+    the same bits on every launch."""
+    partial = torch.randn(rows, cols, generator=torch.Generator().manual_seed(rows + cols))
+    partial = partial.to(cuda)
+    before = (fu.fu_reduce.launches, fu.fu_reduce.launches_by_map[(rows, cols)])
+    out = fu.fu_reduce(partial, count)
+    torch.cuda.synchronize()
+    assert (fu.fu_reduce.launches, fu.fu_reduce.launches_by_map[(rows, cols)]) == (
+        before[0] + 1, before[1] + 1)
+    ref = fu.fu_reduce_plain(partial.double(), count)
+    assert ((out.double() - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+    assert torch.equal(fu._reduce(partial, count), out)
+    assert torch.equal(fu.fu_reduce(partial, count), out)
+
+
+def test_fu_reduce_takes_unaligned_rows_and_raises_on_a_refused_launch(cuda, monkeypatch):
+    """A partial that starts off a 16-byte boundary takes the scalar loads;
+    a cluster shape the kernel refuses raises, with no fallback."""
+    base = torch.randn(64 * 128 + 1, generator=torch.Generator().manual_seed(5)).to(cuda)
+    partial = base[1:].view(64, 128)
+    out = fu.fu_reduce(partial)
+    ref = partial.double().sum(0)
+    assert ((out.double() - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+    monkeypatch.setattr(fu, "reduce_design", lambda *a: (4, 3))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fu.fu_reduce(partial.contiguous())
+
+
+# The 128px generator's five packed maps at batch 64, and a map whose planes
+# are no multiple of 16 bytes in bf16 (the element-wise loads).
+STATS_SHAPES = [(64, 512, 8, 8), (64, 256, 16, 16), (64, 128, 32, 32), (64, 128, 64, 64),
+                (64, 128, 128, 128), (64, 192, 10, 10)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", STATS_SHAPES)
+def test_bn_stats_one_launch_matches_plain(cuda, shape, dtype):
+    """bn_stats goes from x to (mean, var) in one launch and no fu_reduce:
+    both within 1e-5 rel-max of the plain version in f64, the same bits on
+    two launches."""
+    x = (torch.randn(shape, generator=torch.Generator().manual_seed(6)) * 1.5 + 0.3)
+    x = x.to(cuda, dtype)
+    before = (ba.bn_stats.launches, fu.fu_reduce.launches)
+    outs = ba.bn_stats(x)
+    torch.cuda.synchronize()
+    assert (ba.bn_stats.launches, fu.fu_reduce.launches) == (before[0] + 1, before[1])
+    for out, ref in zip(outs, ba.bn_stats_plain(x.double())):
+        assert out.shape == ref.shape and out.dtype == torch.float32
+        assert ((out.double() - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(outs, ba.bn_stats(x)))
+
+
+def test_bn_stats_takes_an_unaligned_map_and_raises_on_a_refused_launch(cuda, monkeypatch):
+    """A map that starts off a 16-byte boundary takes the element-wise
+    loads; a cluster shape the kernel refuses raises."""
+    shape = (8, 64, 16, 16)
+    flat = torch.randn(8 * 64 * 256 + 1, generator=torch.Generator().manual_seed(7))
+    x = flat.to(cuda, torch.bfloat16)[1:].view(shape)
+    assert x.data_ptr() % 16 != 0
+    for out, ref in zip(ba.bn_stats(x), ba.bn_stats_plain(x.double())):
+        assert ((out.double() - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+    monkeypatch.setattr(ba, "stats_design", lambda *a: (True, 5))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ba.bn_stats(x.contiguous())
