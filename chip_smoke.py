@@ -37,10 +37,12 @@ Phases, each of which raises on a failed check:
 8. the fused packed BN + tanh-GELU (+ noise) kernels against their plain
    versions at the five packed maps of the 128px generator at batch 64,
    with and without the noise fold, in f32 and bf16, every output, with
-   kernel, profiler-device, plain and library times and the bound;
-   ``bn_stats`` in one launch (no ``fu_reduce``) there and on a map whose
-   planes are no multiple of 16 bytes, with its host µs per call beside
-   ``torch.var_mean``'s;
+   kernel, profiler-device, plain and library times and the bound; every
+   kernel also on a map whose planes are no multiple of 16 bytes, two
+   launches giving the same bits; ``bn_stats`` and ``bn_bwd_reduce`` in one
+   launch each (no ``fu_reduce``), ``bn_stats`` with its host µs per call
+   beside ``torch.var_mean``'s; the apply's grid against the blocks the
+   card holds at once;
 9. the FourierUnit kernels at the 128px generator's four maps, whose
    items exceed a block's shared memory, checked as in phases 3 and 5:
    the forward, the statistics, the backward sums and the backward apply
@@ -747,13 +749,11 @@ def check_train_kernels(device, shapes, phase):
     return rows, calls
 
 
-def reduce_cases(fu_shapes, bn_shapes):
+def reduce_cases(fu_shapes):
     """[(rows, cols, count)] of ``fu_reduce`` on a training step's main path:
     per FourierUnit map the statistics' (rows, 4C) with the mean/variance
     epilogue, the backward sums' (rows, 4C) and gK's (rows, 4C^2), a row
-    per item or per run of tiles (B * chunks) after the staged stages; per
-    packed BN map the backward's (chunks, 3C)."""
-    from fastfourierconvolution_tpu_torch.ops import bn_act as ba
+    per item or per run of tiles (B * chunks) after the staged stages."""
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
     cases = []
@@ -762,7 +762,6 @@ def reduce_cases(fu_shapes, bn_shapes):
         n_rows = b * fu.staged_chunks(b, h, w) if staged("stats", shape) else b
         cases += [(n_rows, 4 * c, b * h * (w // 2 + 1)), (n_rows, 4 * c, 0),
                   (n_rows, 4 * c * c, 0)]
-    cases += [(ba._chunks(b * h * w), 3 * c, 0) for b, c, h, w in bn_shapes]
     # one case per kernel work: the epilogue's count only scales its result
     unique = {}
     for n_rows, cols, count in cases:
@@ -891,9 +890,35 @@ def as_tuple(t):
     return t if isinstance(t, tuple) else (t,)
 
 
-# A map whose planes are no multiple of 16 bytes in bf16: bn_stats's
-# element-wise loads (checked, not in the kernels line).
+# A map whose planes are no multiple of 16 bytes in bf16: the element-wise
+# loads of bn_stats, bn_gelu_apply and bn_bwd_reduce (checked, not in the
+# kernels line).
 STATS_TAIL_SHAPE = (BATCH, 192, 10, 10)
+
+
+def bn_design(name, noise, shape, x):
+    """(the launch that ``name``'s wrapper picks for ``x``, as text; False
+    where the apply's grid holds less than one full wave of the blocks the
+    card holds at once, by the occupancy calculator's count for the built
+    kernel)."""
+    from fastfourierconvolution_tpu_torch.ops import bn_act as ba
+
+    b, c, h, w = shape
+    if name == "bn_gelu_apply":
+        vec, tile, group = ba.apply_design(b, c, h * w, x.element_size())
+        grid = ba.apply_blocks(b, c, h * w, x.element_size(), vec, tile, group)
+        per_sm = ba.apply_blocks_per_sm(x.dtype, noise, vec, tile)
+        wave = 132 * per_sm
+        full = per_sm > 0 and grid[0] * grid[1] >= wave
+        return (f"{'16-byte' if vec else 'element-wise'} units, blocks of {tile}, groups of "
+                f"{group}: grid {grid[0]} x {grid[1]} = {grid[0] * grid[1]} blocks, the card "
+                f"holds {per_sm} per SM ({wave} on 132 SMs): full wave {full}"), full
+    if name in ("bn_stats", "bn_bwd_reduce"):
+        design = ba.stats_design if name == "bn_stats" else ba.bwd_reduce_design
+        vec, cluster = design(b, c, h * w, x.element_size())
+        return (f"one launch, {'16-byte' if vec else 'element-wise'} loads, clusters of "
+                f"{cluster}"), True
+    return "a row per thread, grid.y 2", True
 
 
 def check_bn_act(device):
@@ -910,14 +935,13 @@ def check_bn_act(device):
             dname = str(dtype).replace("torch.", "")
             x, cases = bn_cases(shape, dtype, device)
             for case, (name, noise, kern, ref64, plain, sums) in cases.items():
-                if tail and name != "bn_stats":
-                    continue
-                before = (ba.bn_stats.launches, fu.fu_reduce.launches)
+                wrapper = getattr(ba, name)
+                before = (wrapper.launches, fu.fu_reduce.launches)
                 outs = as_tuple(kern())
                 torch.cuda.synchronize()
-                if name == "bn_stats" and (ba.bn_stats.launches, fu.fu_reduce.launches) != (
-                        before[0] + 1, before[1]):
-                    raise AssertionError(f"bn_stats {shape} {dname}: not one launch per call")
+                if (wrapper.launches, fu.fu_reduce.launches) != (before[0] + 1, before[1]):
+                    raise AssertionError(f"{case} {shape} {dname}: not one launch per call, "
+                                         f"or a fu_reduce launch")
                 refs = as_tuple(ref64())
                 if not all(torch.isfinite(o.float()).all() for o in outs):
                     raise AssertionError(f"{case} {shape} {dname}: non-finite output")
@@ -931,14 +955,10 @@ def check_bn_act(device):
                               for o, r in zip(outs, refs))
                 line = f"{case} {shape} {dname}: {what} " + ", ".join(
                     f"{e:.3e}" for e in errs) + f" (tol {tol:g}), max-abs vs f64 {max_abs:.3e}"
-                bits = True
-                if name == "bn_stats":
-                    bits = same_bits(kern)
-                    vec, cluster = ba.stats_design(*shape[:2], shape[2] * shape[3],
-                                                   x.element_size())
-                    line += (f"; one launch, {'16-byte' if vec else 'element-wise'} loads, "
-                             f"clusters of {cluster}; same bits on two launches {bits}")
-                if dtype == torch.bfloat16:
+                bits = same_bits(kern)
+                design, full_wave = bn_design(name, noise, shape, x)
+                line += f"; {design}; same bits on two launches {bits}"
+                if dtype == torch.bfloat16 and not tail:
                     ms = time_ms(kern)
                     plain_ms = time_ms(plain)
                     dev_ms = kernel_device_ms(kern, f"{name}_kernel", iters=10)
@@ -957,18 +977,17 @@ def check_bn_act(device):
                     if name == "bn_stats":
                         line += (f"; host {host:.1f} us/call, torch.var_mean {library_host:.1f} "
                                  f"us/call; per call <= torch.var_mean: {ms <= library_ms}")
-                    if not tail:
-                        rows.append(kernel_row(
-                            name, shape, dname, phase="training-128px", noise=noise,
-                            max_abs_err=max_abs, ms=ms, host_us=host, device_ms=dev_ms,
-                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=library_ms, library_host_us=library_host,
-                            library_device_ms=library_dev_ms,
-                        ))
+                    rows.append(kernel_row(
+                        name, shape, dname, phase="training-128px", noise=noise,
+                        max_abs_err=max_abs, ms=ms, host_us=host, device_ms=dev_ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=library_ms, library_host_us=library_host,
+                        library_device_ms=library_dev_ms,
+                    ))
                 log(line)
-                if not all(e <= tol for e in errs) or not bits:
-                    raise AssertionError(f"{case} {shape} {dname}: {what} {errs} > {tol} "
-                                         f"or two launches differ")
+                if not all(e <= tol for e in errs) or not bits or not full_wave:
+                    raise AssertionError(f"{case} {shape} {dname}: {what} {errs} > {tol}, "
+                                         f"two launches differ or the grid misses a wave")
     return rows
 
 
@@ -1118,7 +1137,6 @@ STEP_SHAPES = {32: (FU_SHAPES, []), 128: (FU128_SHAPES, PACKED_SHAPES)}
 def expected_launches(resolution, n_steps):
     """{kernel: {map or partial shape: launches}} for ``n_steps`` training
     steps at ``resolution``."""
-    from fastfourierconvolution_tpu_torch.ops import bn_act as ba
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
     fu_shapes, bn_shapes = STEP_SHAPES[resolution]
@@ -1137,9 +1155,6 @@ def expected_launches(resolution, n_steps):
     for b, c, h, w in bn_shapes:
         for k, per in BN_STEP_LAUNCHES.items():
             want[k][(c, h, w)] += per * n_steps
-        # the backward's S1-S3 on (chunks, 3C); the statistics reduce their
-        # own sums in their one launch
-        want["fu_reduce"][(ba._chunks(b * h * w), 3 * c)] += n_steps
     return {k: dict(v) for k, v in want.items()}
 
 
@@ -1381,7 +1396,7 @@ def main() -> int:
         row["launches"] = by_map[tuple(row["shape"][1:])]
     phase("5: FourierUnit training kernels, 32px maps")
     train_rows, train_calls = check_train_kernels(device, FU_SHAPES, "training")
-    train_rows += check_reduce(device, reduce_cases(FU_SHAPES, []) + [REDUCE_ODD], "training")
+    train_rows += check_reduce(device, reduce_cases(FU_SHAPES) + [REDUCE_ODD], "training")
     calls += train_calls
     phase("6: training, 32px")
     counts_32 = train(device, card, 32)
@@ -1395,8 +1410,7 @@ def main() -> int:
     fwd_rows, calls_128 = check_fourier_unit(device, FU128_SHAPES, "training-128px")
     rows_128 += fwd_rows + check_stages(device, FU128_SHAPES, "training-128px")
     train_rows, train_calls = check_train_kernels(device, FU128_SHAPES, "training-128px")
-    rows_128 += train_rows + check_reduce(device, reduce_cases(FU128_SHAPES, PACKED_SHAPES),
-                                          "training-128px")
+    rows_128 += train_rows + check_reduce(device, reduce_cases(FU128_SHAPES), "training-128px")
     calls_128 += train_calls
     phase("10: packed training, 128px")
     counts = train(device, card, 128)

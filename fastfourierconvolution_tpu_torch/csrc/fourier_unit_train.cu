@@ -29,7 +29,7 @@
 //                    carried these sums in VMEM scratch across their
 //                    sequential grid, e.g. lines 609-620, 740-747, 789-797),
 //                    for every partial-sum row of the port (the staged mix
-//                    stages' and the BN backward reduce's too). It is bound by
+//                    stages' too). It is bound by
 //                    bytes, one read of the partial rows (0.26-12.6 MB on the
 //                    128px step, under 4 us at 3.35 TB/s), and on narrow
 //                    shapes by latency: column tiles of 128 floats read as

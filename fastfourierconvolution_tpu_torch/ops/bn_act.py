@@ -25,8 +25,10 @@ version; for a CUDA tensor it launches its kernel or raises. Each counts
 its launches in ``launches`` and, by map (C, H, W), in
 ``launches_by_map``. ``bn_stats`` goes from x to (mean, var) in one
 launch, a thread-block cluster per channel as :func:`stats_design`
-picks; the backward reduce leaves per-chunk partial sums that
-``fu_reduce`` adds in a fixed order.
+picks, and ``bn_bwd_reduce`` from (x, g[, n_l, n_g]) to its sums in one
+launch the same way (:func:`bwd_reduce_design`); ``bn_gelu_apply``
+launches a grid of position tiles and channel groups that
+:func:`apply_design` picks.
 
 ``packed_bn_gelu(x, scale, bias)`` and ``packed_bn_gelu_noise(x, scale,
 bias, w, n_l, n_g, cl)`` are the autograd ops the model calls: each
@@ -42,11 +44,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from . import _build
-from .fourier_unit import _CLUSTER_MAX, _SMS, _counted, _count, _ptr, _reduce
+from .fourier_unit import _CLUSTER_MAX, _SMS, _counted, _count, _ptr
 
 EPS = 1e-5
 C1 = 0.7978845608028654  # sqrt(2 / pi)
@@ -196,8 +199,10 @@ def _noise_maps(x, n_l, n_g):
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRY_POINTS = {
     "ffc_bn_stats": [_I, _P, _P, _I, _I, _I, _I, _I, _P],
-    "ffc_bn_gelu_apply": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
-    "ffc_bn_bwd_reduce": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _LL, _I, _I, _P],
+    "ffc_bn_gelu_apply": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
+    "ffc_bn_bwd_reduce": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                          _P],
     "ffc_bn_bwd_dx": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _LL, _I, _I, _I, _P],
 }
@@ -206,8 +211,8 @@ _ENTRY_POINTS = {
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.library("bn_act")
-    lib.ffc_bn_chunks.argtypes = [_LL]
-    lib.ffc_bn_chunks.restype = _LL
+    lib.ffc_bn_gelu_apply_blocks_per_sm.argtypes = [_I, _I, _I, _I]
+    lib.ffc_bn_gelu_apply_blocks_per_sm.restype = _I
     lib.ffc_error_string.argtypes = [_I]
     lib.ffc_error_string.restype = ctypes.c_char_p
     for name, argtypes in _ENTRY_POINTS.items():
@@ -225,22 +230,33 @@ def _launch(entry: str, on: torch.Tensor, *args) -> None:
 
 
 def _geometry(x):
-    """(rows, C, H*W, partial-sum rows) of a (B, C, H, W) map."""
+    """(B, C, H*W) of a (B, C, H, W) map with at least one row, whose rows
+    index with 32-bit integers."""
     b, c, h, w = x.shape
-    rows = b * h * w
-    if rows == 0:
+    if b * h * w == 0:
         raise ValueError("the BN+GELU kernels need at least one row")
-    return rows, c, h * w, _chunks(rows)
+    if b * h * w >= 2**31:
+        raise ValueError(f"the BN+GELU kernels take fewer than 2**31 rows, got {b * h * w}")
+    return b, c, h * w
 
 
-@functools.cache
-def _chunks(rows: int) -> int:
-    return _library().ffc_bn_chunks(rows)
+def _aligned(*maps) -> bool:
+    """Whether every given map starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 for t in maps if t is not None)
 
 
-# bn_stats's launch: eight 256-thread blocks on each SM at once, and the
-# least elements a block of a channel's cluster takes.
+# The clustered kernels' launch: eight 256-thread blocks on each SM at once,
+# and the least elements of one map a block of a channel's cluster takes.
 _RESIDENT_BLOCKS, _STATS_MIN_ELEMENTS = _SMS * 8, 8192
+
+
+def _cluster_design(b, c, hw, itemsize, aligned, min_elements):
+    vec = aligned and hw * itemsize % 16 == 0
+    cluster = 1
+    while (cluster < _CLUSTER_MAX and c * cluster * 2 <= _RESIDENT_BLOCKS
+           and b >= 2 * cluster and b * hw >= 2 * cluster * min_elements):
+        cluster *= 2
+    return vec, cluster
 
 
 @functools.cache
@@ -251,12 +267,62 @@ def stats_design(b: int, c: int, hw: int, itemsize: int, aligned: bool = True):
     value. Each channel runs on a cluster of blocks that split its B planes,
     doubled from 1 up to 8 while the card still holds every block at once,
     each block keeps at least 8192 elements and at least one plane."""
+    return _cluster_design(b, c, hw, itemsize, aligned, _STATS_MIN_ELEMENTS)
+
+
+@functools.cache
+def bwd_reduce_design(b: int, c: int, hw: int, itemsize: int, aligned: bool = True):
+    """``(vec, cluster)`` of :func:`bn_bwd_reduce`'s kernel: the rule of
+    :func:`stats_design` for a kernel that reads two maps (x and g; and the
+    noise maps, 16-byte aligned too when ``aligned``), so a block keeps at
+    least 4096 elements, the bytes of bn_stats's 8192."""
+    return _cluster_design(b, c, hw, itemsize, aligned, _STATS_MIN_ELEMENTS // 2)
+
+
+# bn_gelu_apply's launch: what one SM holds at most (32 blocks, 2048
+# threads), the largest and the smallest block the kernel takes, and the
+# most channels a thread walks.
+_SM_BLOCKS, _SM_THREADS = 32, 2048
+_APPLY_MAX_TILE, _APPLY_MIN_TILE, _APPLY_MAX_GROUP = 256, 32, 32
+
+
+def apply_wave(tile: int) -> int:
+    """Blocks of ``tile`` threads that 132 SMs hold at once, at most."""
+    return _SMS * min(_SM_BLOCKS, _SM_THREADS // tile)
+
+
+def apply_blocks(b: int, c: int, hw: int, itemsize: int, vec: bool, tile: int, group: int):
+    """The apply kernel's grid, (position tiles, channel groups): a thread a
+    unit of 16 bytes (``vec``) or of one value of one item's plane."""
+    units = b * (hw // (16 // itemsize if vec else 1))
+    return -(-units // tile), -(-c // group)
+
+
+@functools.cache
+def apply_design(b: int, c: int, hw: int, itemsize: int, aligned: bool = True):
+    """``(vec, tile, group)`` of :func:`bn_gelu_apply`'s kernel on a (B, C,
+    H·W) map; a fixed rule, not a knob. vec as in :func:`stats_design`
+    (over x, out and the noise maps). tile: threads per block, halved from
+    256 while a grid of one channel per thread would hold less than one
+    full wave of blocks (:func:`apply_wave`), down to 32; group: channels
+    per thread, doubled from 1 up to 32 while the grid keeps at least two
+    waves."""
     vec = aligned and hw * itemsize % 16 == 0
-    cluster = 1
-    while (cluster < _CLUSTER_MAX and c * cluster * 2 <= _RESIDENT_BLOCKS
-           and b >= 2 * cluster and b * hw >= 2 * cluster * _STATS_MIN_ELEMENTS):
-        cluster *= 2
-    return vec, cluster
+    blocks = lambda tile, group: math.prod(apply_blocks(b, c, hw, itemsize, vec, tile, group))
+    tile = _APPLY_MAX_TILE
+    while tile > _APPLY_MIN_TILE and blocks(tile, 1) < apply_wave(tile):
+        tile //= 2
+    group = 1
+    while group < _APPLY_MAX_GROUP and blocks(tile, 2 * group) >= 2 * apply_wave(tile):
+        group *= 2
+    return vec, tile, group
+
+
+def apply_blocks_per_sm(dtype: torch.dtype, noise: bool, vec: bool, tile: int) -> int:
+    """Blocks of the built apply kernel that one SM of the current card
+    holds at once (CUDA's occupancy calculator)."""
+    return _library().ffc_bn_gelu_apply_blocks_per_sm(_DTYPE_CODES[dtype], int(noise),
+                                                        int(vec), tile)
 
 
 # --- kernel wrappers --------------------------------------------------------------
@@ -272,7 +338,7 @@ def bn_stats(x):
     b, c, h, w = x.shape
     if b * h * w == 0:
         raise ValueError("the BN+GELU kernels need at least one row")
-    vec, cluster = stats_design(b, c, h * w, x.element_size(), x.data_ptr() % 16 == 0)
+    vec, cluster = stats_design(b, c, h * w, x.element_size(), _aligned(x))
     out = x.new_empty((2, c), dtype=torch.float32)
     _launch("ffc_bn_stats", x, _DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), b, c,
             h * w, int(vec), cluster)
@@ -290,11 +356,13 @@ def bn_gelu_apply(x, mean, var, scale, bias, w=None, n_l=None, n_g=None, cl=None
            cl if noise else None)
     if x.device.type == "cpu":
         return bn_gelu_apply_plain(x, mean, var, scale, bias, w, n_l, n_g, cl)
-    rows, c, hw, _ = _geometry(x)
+    b, c, hw = _geometry(x)
     out = torch.empty_like(x)
+    vec, tile, group = apply_design(b, c, hw, x.element_size(), _aligned(x, out, n_l, n_g))
     _launch("ffc_bn_gelu_apply", x, _DTYPE_CODES[x.dtype], int(noise), x.data_ptr(),
             mean.data_ptr(), var.data_ptr(), scale.data_ptr(), bias.data_ptr(), _ptr(w),
-            _ptr(n_l), _ptr(n_g), out.data_ptr(), rows, c, hw, cl if noise else c // 2)
+            _ptr(n_l), _ptr(n_g), out.data_ptr(), b, c, hw, cl if noise else c, int(vec),
+            tile, group)
     _count(bn_gelu_apply, tuple(x.shape[1:]))
     return out
 
@@ -302,21 +370,23 @@ def bn_gelu_apply(x, mean, var, scale, bias, w=None, n_l=None, n_g=None, cl=None
 @_counted
 def bn_bwd_reduce(x, g, mean, var, scale, bias, n_l=None, n_g=None, cl=None):
     """(S1, S2[, S3]) per channel, f32 (see :func:`bn_bwd_reduce_plain`);
-    the reduce kernel and ``fu_reduce`` on CUDA."""
+    one launch of the reduce kernel on CUDA, as :func:`bwd_reduce_design`
+    picks."""
     noise = n_l is not None
     _check(x, [("g", g, tuple(x.shape))] + (_noise_maps(x, n_l, n_g) if noise else []),
            [("mean", mean), ("var", var), ("scale", scale), ("bias", bias)],
            cl if noise else None)
     if x.device.type == "cpu":
         return bn_bwd_reduce_plain(x, g, mean, var, scale, bias, n_l, n_g, cl)
-    rows, c, hw, n_chunks = _geometry(x)
-    partial = torch.empty(n_chunks, (3 if noise else 2) * c, device=x.device)
+    b, c, hw = _geometry(x)
+    vec, cluster = bwd_reduce_design(b, c, hw, x.element_size(), _aligned(x, g, n_l, n_g))
+    out = x.new_empty((3 if noise else 2, c), dtype=torch.float32)
     _launch("ffc_bn_bwd_reduce", x, _DTYPE_CODES[x.dtype], int(noise), x.data_ptr(),
             g.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), _ptr(n_l), _ptr(n_g), cl if noise else c, partial.data_ptr(),
-            rows, c, hw)
+            bias.data_ptr(), _ptr(n_l), _ptr(n_g), cl if noise else c, out.data_ptr(), b, c,
+            hw, int(vec), cluster)
     _count(bn_bwd_reduce, tuple(x.shape[1:]))
-    return _reduce(partial).split(c)
+    return out.unbind()
 
 
 @_counted
@@ -331,17 +401,15 @@ def bn_bwd_dx(x, g, mean, var, scale, bias, s1, s2, g_mean=None, g_var=None, w=N
            cl if noise else None)
     if x.device.type == "cpu":
         return bn_bwd_dx_plain(x, g, mean, var, scale, bias, s1, s2, g_mean, g_var, w, cl)
-    rows, c, hw, _ = _geometry(x)
+    b, c, hw = _geometry(x)
     dx = torch.empty_like(x)
     dn_l = dn_g = None
     if noise:
-        b, _, h, wd = x.shape
-        dn_l, dn_g = (torch.empty(b, 1, h, wd, dtype=x.dtype, device=x.device)
-                      for _ in range(2))
+        dn_l, dn_g = (x.new_empty((b, 1) + tuple(x.shape[2:])) for _ in range(2))
     _launch("ffc_bn_bwd_dx", x, _DTYPE_CODES[x.dtype], int(noise), x.data_ptr(),
             g.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), s1.data_ptr(), s2.data_ptr(), _ptr(g_mean), _ptr(g_var),
-            _ptr(w), dx.data_ptr(), _ptr(dn_l), _ptr(dn_g), rows, c, hw,
+            _ptr(w), dx.data_ptr(), _ptr(dn_l), _ptr(dn_g), b * hw, c, hw,
             cl if noise else c // 2)
     _count(bn_bwd_dx, tuple(x.shape[1:]))
     return (dx, dn_l, dn_g) if noise else dx

@@ -27,10 +27,10 @@ launches of its own kernel in ``launches`` and, by FourierUnit map
 - ``fourier_unit_forward``: the per-item kernel of
   ``csrc/fourier_unit_fwd.cu``;
 - ``fu_train_stats``, ``fu_bwd_stats``, ``fu_bwd_apply`` and ``fu_reduce``
-  (the fixed-order batch sum behind the first three, behind the staged
-  mix stages that write partial sums and behind ``ops/bn_act.py``'s
-  backward reduce; those callers go through ``_reduce``, which skips the
-  public checks; :func:`reduce_design` picks its tiles and clusters):
+  (the fixed-order batch sum behind the first three and behind the
+  staged mix stages that write partial sums; those callers go through
+  ``_reduce``, which skips the public checks; :func:`reduce_design` picks
+  its tiles and clusters):
   ``csrc/fourier_unit_train.cu``;
 - ``fu_spectrum``, ``fu_mix_apply``, ``fu_mix_stats``,
   ``fu_bwd_stats_mix``, ``fu_inverse`` and ``fu_bwd_mix``:

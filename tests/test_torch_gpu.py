@@ -403,10 +403,11 @@ def test_item_plans_match_the_libraries(cuda, cmap):
         assert fu._library(stem).ffc_item_floats(*cmap) == fu._item_floats(stem, *cmap)
 
 
-# fu_reduce's partial-sum shapes on the main path, (rows, cols, count): the
-# 32px statistics (count > 0), backward sums and gK rows at both maps; the
-# 128px staged ones, (B * chunks, 4C) and (B * chunks, 4C^2); the BN backward
-# reduce's (chunks, 3C) at the five packed maps; and an odd column count.
+# fu_reduce's partial-sum shapes, (rows, cols, count): on the main path the
+# 32px statistics (count > 0), backward sums and gK rows at both maps and
+# the 128px staged ones, (B * chunks, 4C) and (B * chunks, 4C^2); narrow
+# (rows, 3C) sums, the shapes the BN backward reduce gave it before it
+# summed its own channels; and an odd column count.
 REDUCE_CASES = [(64, 64, 64 * 16 * 9), (64, 64, 0), (64, 1024, 0), (64, 32, 64 * 32 * 17),
                 (64, 32, 0), (64, 256, 0), (192, 256, 64 * 16 * 9), (192, 256, 0),
                 (192, 16384, 0), (512, 128, 64 * 32 * 17), (512, 128, 0), (512, 4096, 0),
@@ -481,3 +482,102 @@ def test_bn_stats_takes_an_unaligned_map_and_raises_on_a_refused_launch(cuda, mo
     monkeypatch.setattr(ba, "stats_design", lambda *a: (True, 5))
     with pytest.raises(RuntimeError, match="launch failed"):
         ba.bn_stats(x.contiguous())
+
+
+def _reduce_args(shape, dtype, device, noise, seed=8):
+    """(x, g, mean, var, scale, bias[, n_l, n_g, cl]) for the backward
+    reduce and the apply, drawn on the card; the statistics in f64,
+    rounded to f32."""
+    b, c, h, w = shape
+    gen = torch.Generator(device).manual_seed(seed)
+    randn = lambda *size: torch.randn(size, generator=gen, device=device)
+    x, gy = (randn(*shape) * 1.5 + 0.3).to(dtype), randn(*shape).to(dtype)
+    n_l, n_g = randn(b, 1, h, w).to(dtype), randn(b, 1, h, w).to(dtype)
+    scale, bias, wn = randn(c).abs() + 0.5, randn(c) * 0.2, randn(c) * 0.3
+    mean, var = (t.float() for t in ba.bn_stats_plain(x.double()))
+    return x, gy, mean, var, scale, bias, wn, ((n_l, n_g, c // 2) if noise else ())
+
+
+def _within_bf16_ulps(out, ref, ulps=2):
+    ulp = 2.0 ** (torch.floor(torch.log2(ref.float().abs().max())).item() - 7)
+    return (out.float() - ref.float()).abs().max().item() <= ulps * ulp
+
+
+@pytest.mark.parametrize("noise", [False, True], ids=["plain", "noise"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", STATS_SHAPES)
+def test_bn_bwd_reduce_one_launch_matches_f64(cuda, shape, dtype, noise):
+    """bn_bwd_reduce goes from (x, g[, n_l, n_g]) to its sums in one launch
+    and no fu_reduce: every sum within 1e-5 rel-max of the plain version's
+    sums in f64 (from the op's own u), the same bits on two launches."""
+    x, gy, mean, var, scale, bias, _, noise_args = _reduce_args(shape, dtype, cuda, noise)
+    args = (x, gy, mean, var, scale, bias) + noise_args
+    before = (ba.bn_bwd_reduce.launches, fu.fu_reduce.launches)
+    sums = ba.bn_bwd_reduce(*args)
+    torch.cuda.synchronize()
+    assert (ba.bn_bwd_reduce.launches, fu.fu_reduce.launches) == (before[0] + 1, before[1])
+    refs = ba.bn_bwd_reduce_plain(*args, sum_dtype=torch.float64)
+    assert len(sums) == len(refs) == (3 if noise else 2)
+    for out, ref in zip(sums, refs):
+        assert out.shape == ref.shape and out.dtype == torch.float32
+        assert ((out.double() - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(sums, ba.bn_bwd_reduce(*args)))
+
+
+@pytest.mark.parametrize("noise", [False, True], ids=["plain", "noise"])
+@pytest.mark.parametrize("shape", STATS_SHAPES)
+def test_bn_gelu_apply_matches_plain_at_the_packed_maps(cuda, shape, noise):
+    """bf16 out within 2 bf16 ulps of the plain version on the same inputs,
+    the same bits on two launches."""
+    x, _, mean, var, scale, bias, wn, noise_args = _reduce_args(shape, torch.bfloat16, cuda,
+                                                               noise)
+    args = (x, mean, var, scale, bias) + ((wn,) + noise_args if noise else ())
+    out = ba.bn_gelu_apply(*args)
+    ref = ba.bn_gelu_apply_plain(*args)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert _within_bf16_ulps(out, ref)
+    assert torch.equal(out, ba.bn_gelu_apply(*args))
+
+
+def test_bn_gelu_apply_groups_that_straddle_cl(cuda, monkeypatch):
+    """Groups of 3 channels and cl = 5: the group [3, 6) loads both noise
+    maps and takes n_l below cl, n_g from it."""
+    x, _, mean, var, scale, bias, wn, (n_l, n_g, _) = _reduce_args((4, 12, 16, 16), torch.float32,
+                                                                   cuda, True)
+    args = (x, mean, var, scale, bias, wn, n_l, n_g, 5)
+    monkeypatch.setattr(ba, "apply_design", lambda *a: (True, 64, 3))
+    out = ba.bn_gelu_apply(*args)
+    ref = ba.bn_gelu_apply_plain(*(a.double() if torch.is_tensor(a) else a for a in args))
+    assert ((out.double() - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.parametrize("noise", [False, True], ids=["plain", "noise"])
+@pytest.mark.parametrize("where", ["tail", "unaligned"])
+def test_apply_and_reduce_take_element_wise_loads(cuda, where, noise):
+    """Planes of 200 bytes in bf16, and a map that starts off a 16-byte
+    boundary: both kernels take units of one value and match the plain
+    version (the apply within 2 bf16 ulps, the sums within 1e-5 of f64)."""
+    shape = (64, 192, 10, 10) if where == "tail" else (8, 64, 16, 16)
+    x, gy, mean, var, scale, bias, wn, noise_args = _reduce_args(shape, torch.bfloat16, cuda,
+                                                                 noise)
+    if where == "unaligned":
+        x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(shape)
+        assert x.data_ptr() % 16 != 0
+    b, c, h, w = shape
+    assert not ba.apply_design(b, c, h * w, 2, x.data_ptr() % 16 == 0)[0]
+    assert not ba.bwd_reduce_design(b, c, h * w, 2, x.data_ptr() % 16 == 0)[0]
+    apply_args = (x, mean, var, scale, bias) + ((wn,) + noise_args if noise else ())
+    assert _within_bf16_ulps(ba.bn_gelu_apply(*apply_args), ba.bn_gelu_apply_plain(*apply_args))
+    reduce_args = (x, gy, mean, var, scale, bias) + noise_args
+    for out, ref in zip(ba.bn_bwd_reduce(*reduce_args),
+                        ba.bn_bwd_reduce_plain(*reduce_args, sum_dtype=torch.float64)):
+        assert ((out.double() - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
+
+def test_bn_bwd_reduce_raises_on_a_refused_launch(cuda, monkeypatch):
+    """A cluster shape the kernel refuses raises, with no fallback."""
+    x, gy, mean, var, scale, bias, _, _ = _reduce_args((8, 64, 16, 16), torch.bfloat16, cuda,
+                                                       False)
+    monkeypatch.setattr(ba, "bwd_reduce_design", lambda *a: (True, 5))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ba.bn_bwd_reduce(x, gy, mean, var, scale, bias)

@@ -18,8 +18,9 @@ from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
 # (rows, cols, moments) -> (vec, cluster). 32px: (B, 4C) statistics and
 # backward sums, (B, 4C^2) gK; 128px: (B * chunks, 4C) and (B * chunks,
-# 4C^2) after the staged stages; the BN backward's (chunks, 3C); an odd
-# column count.
+# 4C^2) after the staged stages; narrow (rows, 3C) sums, the shapes the BN
+# backward reduce gave it before it summed its own channels; an odd column
+# count.
 REDUCE_CASES = {
     (64, 64, True): (4, 4), (64, 64, False): (4, 4), (64, 1024, False): (4, 4),
     (64, 32, True): (4, 4), (64, 256, False): (4, 4),
