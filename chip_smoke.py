@@ -9,9 +9,11 @@ Phases, each of which raises on a failed check:
 2. build every CUDA source of the port (one nvcc per source, in parallel);
 3. the FourierUnit forward kernel against its plain PyTorch version at the
    shapes the 32px generator gives it at batch 64, in f32 (TF32 off) and
-   bf16, with kernel and plain times; the torch.fft-vs-factor-form gap is
-   printed as information (cuFFT's C2R makes no promise for the
-   non-Hermitian spectrum the FourierUnit inverts);
+   bf16, with kernel and plain times and the clustered per-item design
+   (ranks per item, blocks, shared memory per rank, registers and spills
+   from ptxas); the torch.fft-vs-factor-form gap is printed as information
+   (cuFFT's C2R makes no promise for the non-Hermitian spectrum the
+   FourierUnit inverts);
 4. serve the full-width 32px generator in bf16 (seeded weights, BN
    running statistics calibrated on a seeded batch): 8 requests of batch
    64, then batch 1 and batch 7, with the kernel's launch counts (in all
@@ -21,8 +23,9 @@ Phases, each of which raises on a failed check:
    plain op;
 5. the training kernels (batch statistics, backward statistics, backward
    apply) against their plain versions at the same shapes, in f32 and
-   bf16, every output, with kernel, profiler-device and plain times and
-   the bound; the batch reduction behind them (``fu_reduce``) at every
+   bf16, every output, with kernel, profiler-device and plain times, the
+   bound and the backward apply's clustered design as in phase 3; the
+   batch reduction behind them (``fu_reduce``) at every
    partial-sum shape of the 32px step and an odd column count, against
    f64, the public wrapper and the callers' entry giving the same bits on
    two launches, with its host µs per call beside ``torch.sum``'s;
@@ -454,6 +457,71 @@ def staged(wrapper, shape):
     return fu.kernel_design(wrapper, *shape[1:], limit) == fu.STAGED
 
 
+def ptxas_report():
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from the ``-Xptxas=-v`` logs of the built libraries."""
+    import re
+
+    from fastfourierconvolution_tpu_torch.ops import _build
+
+    report, name, spills = {}, None, (0, 0)
+    for log_path in sorted(_build.BUILD_DIR.glob("*.so.log")):
+        for line in log_path.read_text().splitlines():
+            if m := re.search(r"Compiling entry function '(\S+)'", line):
+                name, spills = m.group(1), (0, 0)
+            elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+                spills = (int(m.group(1)), int(m.group(2)))
+            elif (m := re.search(r"Used (\d+) registers", line)) and name:
+                report[name] = (int(m.group(1)),) + spills
+    return report
+
+
+# The wrappers whose per-item design runs a clustered kernel, and its symbol.
+ITEM_KERNELS = {"fourier_unit_fwd": ("forward", "fu_item_fwd_kernel"),
+                "fu_bwd_apply": ("bwd_apply", "fu_item_bwd_apply_kernel")}
+
+
+def item_kernel_line(name, shape, dtype_name):
+    """The clustered per-item kernel's launch by ``name``'s wrapper at
+    ``shape`` as text: its ranks per item (``fourier_unit.item_design``),
+    blocks, shared memory per rank, and registers and spills from ptxas.
+    Returns (text, ranks)."""
+    import re
+
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import _build
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    b, c, h, w = shape
+    wrapper, symbol = ITEM_KERNELS[name]
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    ranks = fu.item_design(b, c, h, w, limit)
+    smem = fu._item_rank_floats(wrapper, c, h, w, ranks) * 4
+    threads = re.search(r"kItemThreads = (\d+)",
+                        (_build.CSRC_DIR / "fourier_unit_item.cuh").read_text()).group(1)
+    tag = "IfE" if dtype_name == "float32" else "bfloat16"
+    regs = [v for k, v in ptxas_report().items() if symbol in k and tag in k]
+    ptxas = (f"{regs[0][0]} registers, {regs[0][1]}/{regs[0][2]} bytes spill stores/loads"
+             if regs else "ptxas report not found")
+    return (f"design: {ranks} ranks per item, {b * ranks} blocks of {threads} threads, "
+            f"{smem} B shared memory per rank; {symbol} {ptxas}"), ranks
+
+
+def item_symbol(name, shape):
+    """The clustered per-item kernel that ``name``'s wrapper launches at
+    ``shape``, or None where it launches another (workspace, staged)."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    if name not in ITEM_KERNELS:
+        return None
+    wrapper, symbol = ITEM_KERNELS[name]
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    return symbol if fu.kernel_design(wrapper, *shape[1:], limit) == fu.SHARED else None
+
+
 def same_bits(fn):
     """Whether two calls of ``fn`` give the same bits in every output."""
     import torch
@@ -479,8 +547,9 @@ def check_fourier_unit(device, shapes, phase):
     rows, calls = [], []
     for shape in shapes:
         is_staged = staged("forward", shape)
+        item = item_symbol("fourier_unit_fwd", shape)
         symbols = ([f"{k}_kernel" for k in STAGED_CALL["fourier_unit_fwd"]] if is_staged
-                   else "fourier_unit_fwd_kernel")
+                   else item or "fourier_unit_fwd_kernel")
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
             args = fu_inputs(shape, dtype, device, SEED)
@@ -498,12 +567,15 @@ def check_fourier_unit(device, shapes, phase):
             bound_ms, bound_by, nbytes, flops = bound(
                 "fourier_unit_fwd", shape, y.element_size(), name
             )
+            design, ranks = (item_kernel_line("fourier_unit_fwd", shape, name) if item
+                             else ("", None))
             log(
                 f"fourier_unit_fwd {shape} {name} ({'staged' if is_staged else 'per-item'}):"
                 f" rel-max {rel:.3e} against the plain version in f64 (tol "
                 f"{FU_REL_TOL[name]:g}), max-abs {abs_err:.3e}, same bits on two launches "
                 f"{bits}; {ms:.4f} ms/call (profiler device {fmt_ms(dev_ms)} ms per call), plain "
                 f"{plain_ms:.4f} ms/call, bound {bound_ms:.5f} ms ({nbytes} B, {flops} FLOP)"
+                + (f"; {design}" if design else "")
             )
             if not rel <= FU_REL_TOL[name]:
                 raise AssertionError(
@@ -526,6 +598,8 @@ def check_fourier_unit(device, shapes, phase):
             else:
                 numbers = dict(phase=phase, max_abs_err=abs_err, ms=ms, device_ms=dev_ms,
                                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                if ranks:
+                    numbers["ranks"] = ranks
                 if is_staged:
                     calls.append(call_row("fourier_unit_fwd", shape, name, **numbers))
                 else:
@@ -716,8 +790,9 @@ def check_train_kernels(device, shapes, phase):
                 if not all(torch.isfinite(out.float()).all() for out in outs):
                     raise AssertionError(f"{name} {shape} {dname}: non-finite output")
                 call_staged = is_staged and name in STAGED_CALL
+                item = item_symbol(name, shape)
                 symbols = ([f"{k}_kernel" for k in STAGED_CALL[name]] if call_staged
-                           else f"{name}_kernel")
+                           else item or f"{name}_kernel")
                 bits = same_bits(lambda: kern(*args))
                 ms = time_ms(lambda: kern(*args))
                 plain_ms = time_ms(lambda: plain(*args))
@@ -731,6 +806,9 @@ def check_train_kernels(device, shapes, phase):
                     f"(profiler device {fmt_ms(dev_ms)} ms{' per call, all stages' if call_staged else ''}"
                     f"), plain {plain_ms:.4f} ms/call, bound "
                     f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {flops} FLOP)")
+                design, ranks = item_kernel_line(name, shape, dname) if item else ("", None)
+                if design:
+                    log(f"  {design}")
                 gaps = {o: rel_max(p, r)[0] for o, p, r in zip(out_names, plain(*args), refs)}
                 log(f"  info: plain version in {dname} vs f64, rel-max " + ", ".join(
                     f"{o} {g:.3e}" for o, g in gaps.items()))
@@ -739,6 +817,8 @@ def check_train_kernels(device, shapes, phase):
                                    rel_max={o: r for o, (r, _) in errs.items()}, ms=ms,
                                    device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                    bound_by=bound_by)
+                    if ranks:
+                        numbers["ranks"] = ranks
                     if call_staged:
                         calls.append(call_row(name, shape, dname, **numbers))
                     else:

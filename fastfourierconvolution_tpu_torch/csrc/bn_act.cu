@@ -512,7 +512,7 @@ int ffc_bn_stats(int dtype, const void* x, float* out, int B, int C, int hw, int
     if (kVec && (static_cast<size_t>(hw) * sizeof(T) % 16 != 0 || !aligned16({x})))
       return static_cast<int>(cudaErrorInvalidValue);
     return launch_clustered(bn_stats_kernel<T, kVec>, static_cast<unsigned>(C) * cluster,
-                            cluster, s, static_cast<const T*>(x), out, B, C, hw);
+                            cluster, 0, s, static_cast<const T*>(x), out, B, C, hw);
   });
 }
 
@@ -580,7 +580,7 @@ int ffc_bn_bwd_reduce(int dtype, int noise, const void* x, const void* g,
                    (kNoise && !aligned16({n_l, n_g}))))
         return static_cast<int>(cudaErrorInvalidValue);
       return launch_clustered(bn_bwd_reduce_kernel<T, kVec, kNoise>,
-                              static_cast<unsigned>(C) * cluster, cluster, s,
+                              static_cast<unsigned>(C) * cluster, cluster, 0, s,
                               static_cast<const T*>(x), static_cast<const T*>(g), mean, var,
                               scale, bias, static_cast<const T*>(n_l),
                               static_cast<const T*>(n_g), cl, out, B, C, hw);

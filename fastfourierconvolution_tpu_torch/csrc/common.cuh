@@ -53,16 +53,16 @@ __device__ __forceinline__ void moments(float s1, float s2, float n, float* mean
   *var = s2 / n - m * m;
 }
 
-// Launches kernel<<<grid, kThreads, 0, stream>>>(args...) as clusters of
+// Launches kernel<<<grid, kBlock, smem, stream>>>(args...) as clusters of
 // `cluster` blocks along x (grid a multiple of it); returns the launch's
 // cudaError_t, a refused cluster shape included, and clears it.
-template <typename... KernelArgs, typename... Args>
+template <int kBlock = kThreads, typename... KernelArgs, typename... Args>
 int launch_clustered(void (*kernel)(KernelArgs...), unsigned grid, unsigned cluster,
-                     cudaStream_t stream, Args... args) {
+                     size_t smem, cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(grid);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = 0;
+  config.blockDim = dim3(kBlock);
+  config.dynamicSmemBytes = smem;
   config.stream = stream;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;

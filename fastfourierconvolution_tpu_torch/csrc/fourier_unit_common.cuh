@@ -1,6 +1,9 @@
 // Device code shared by the FourierUnit kernels (fourier_unit_fwd.cu,
-// fourier_unit_train.cu): the buffer layouts, the DFT factor tables and the
-// four transform stages of one (C, H, W) item.
+// fourier_unit_train.cu) that run one item per block, the statistics
+// kernels and the workspace forward and backward apply: the buffer layouts,
+// the DFT factor tables and the four transform stages of one (C, H, W)
+// item. The clustered forward and backward apply have their own stages
+// (fourier_unit_item.cuh).
 //
 // Spectra are stored as a pair of plane sets, [re | im], each [c][h][v] with
 // v < Wf = W/2 + 1, so channel d of the 2C-channel spectrum starts at

@@ -42,30 +42,56 @@
 // (2C, 2C) in x's dtype; scale, bias, mean, var, gscale and gbias are (2C,)
 // float32; the scratch rows and gK are float32.
 //
-// Design. As in fourier_unit_fwd.cu a block holds its item on chip and
-// computes in f32 FMAs on the CUDA cores, recomputing the spectrum from x
-// instead of reading any saved intermediate (the backward's residuals are x,
-// the parameters and the batch statistics). Three spectrum-pair buffers:
-// A (transform scratch), B (a map, then DFT(gy), then gm in place) and
-// Z (z), plus the tables, K and the per-channel vectors. A channel sum is
-// owned by one warp: its lanes stride over the spectral positions, then a
-// shuffle tree adds them, so the order is fixed. Shared memory per block:
-// 63 KB at (C, H, W) = (16, 16, 16), 118 KB at (8, 32, 32). Every map of the
-// 128px generator needs more than a block's 227 KB; there all three run as
-// the staged kernels of fourier_unit_staged.cu. On maps that those do not
-// take either (ops/fourier_unit.py, kernel_design: planes that are no power
-// of two or beyond a block's shared memory) the kernels keep all the buffers
-// in the item's slice of a device workspace (fourier_unit_common.cuh), a
-// simple, slower variant whose stages load from L1/L2.
+// Design of the statistics kernels (fu_train_stats, fu_bwd_stats) and of
+// the workspace backward apply. A block holds its item and computes in f32
+// FMAs on the CUDA cores, recomputing the spectrum from x instead of reading
+// any saved intermediate (the backward's residuals are x, the parameters and
+// the batch statistics). Three spectrum-pair buffers: A (transform scratch),
+// B (a map, then DFT(gy), then gm in place) and Z (z), plus the tables, K and
+// the per-channel vectors. A channel sum is owned by one warp: its lanes
+// stride over the spectral positions, then a shuffle tree adds them, so the
+// order is fixed. Shared memory per block: 63 KB at (C, H, W) = (16, 16,
+// 16), 118 KB at (8, 32, 32). Every map of the 128px generator needs more
+// than a block's 227 KB; there all three run as the staged kernels of
+// fourier_unit_staged.cu. On maps that those do not take either
+// (ops/fourier_unit.py, kernel_design: planes that are no power of two or
+// beyond a block's shared memory) the kernels keep all the buffers in the
+// item's slice of a device workspace (fourier_unit_common.cuh), a simple,
+// slower variant whose stages load from L1/L2.
+//
+// Design of the backward apply where its plan fits shared memory
+// (fu_item_bwd_apply_kernel; the 32px generator's (16,16,16) and (8,32,32),
+// the 48px one's (16,24,24)). An item runs on a thread-block cluster of R
+// ranks of 384 threads, as the forward's (fourier_unit_item.cuh; R from
+// ops/fourier_unit.py, item_design), each rank on C/R channels: it copies
+// the planes of x and gy and the tables in with cp.async and takes the W-
+// and H-stage DFTs of x and gy on its channels; after a cluster barrier it
+// gathers the item's z from the ranks over distributed shared memory,
+// computes its channels of m and turns DFT(gy) into gm in place; after a
+// second barrier it gathers the item's gm and computes its 2cr rows of this
+// item's gK = z^T gm as a register-tiled product over the positions (each
+// thread a tile of entries over positions s = p, p + P, ..., the P partials
+// then added in order) and its channels of gz = gm K^T; after a third
+// barrier, when no rank reads its gm any more, the adjoint transform
+// (inverse H- and W-stage) of its gz writes its planes of gx. Shared memory
+// per rank at batch 64 (R = 2): 53 KB at (16,16,16), 99 KB at (8,32,32).
 //
 // What bounds them on an H100: bytes. Each must read x (and gy) once and
 // write a few (2C,) vectors (fu_bwd_apply also gx and gK): 0.5-1.6 MB per
 // launch at the 32px generator's shapes in bf16, 0.16-0.47 us at 3.35 TB/s,
 // against under 0.1 GFLOP of FFT-sized work, well under 0.1 us at 989
-// TFLOP/s. Like the forward kernel these are simple and latency-class: 64
-// blocks on 132 SMs, dense DFT stages, time set by shared-memory loads.
+// TFLOP/s. The statistics kernels are simple and latency-class: 64 blocks on
+// 132 SMs, dense DFT stages, time set by shared-memory loads. The clustered
+// backward apply does dense DFT stages too, 1.1 M f32 FMAs per (16,16,16)
+// item and 2.9 M per (8,32,32) item (2.1 and 5.5 us at 67 TFLOP/s over a
+// batch of 64), one block per SM on 2x the blocks; its time is set by the
+// issue of each rank's FMAs and of the shared-memory loads that feed its
+// register tiles (0.4-1 per FMA), and by its three cluster barriers and
+// two gathers: 0.027 ms at (64,16,16,16) and 0.039-0.042 ms at
+// (64,8,32,32) on an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md),
+// far above the bytes, which it moves once.
 
-#include "fourier_unit_common.cuh"
+#include "fourier_unit_item.cuh"
 
 namespace {
 
@@ -205,7 +231,9 @@ fu_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   }
 }
 
-template <typename T, int L>
+// The workspace design; fu_item_bwd_apply_kernel below serves the maps whose
+// plan fits shared memory.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fu_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                     const T* __restrict__ kmix_g, const float* __restrict__ scale,
@@ -214,10 +242,9 @@ fu_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                     const float* __restrict__ gbias, T* __restrict__ gx,
                     float* __restrict__ partial_gk, float* __restrict__ ws,
                     int C, int H, int W) {
-  extern __shared__ float smem[];
   const Dims d(C, H, W);
   const Plan pl(C, H, W);
-  const Buffers sm(item_base<L>(smem, ws, pl.total), pl, d);
+  const Buffers sm(item_base<kWorkspace>(nullptr, ws, pl.total), pl, d);
   const int c2 = 2 * C, hwf = d.hwf, lane = threadIdx.x % 32;
   const size_t item = blockIdx.x;
   const float count = static_cast<float>(gridDim.x) * hwf;
@@ -268,6 +295,145 @@ fu_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   idft_h(sm.a, sm.z, sm.tab, d);
   __syncthreads();
   idft_w(sm.z, gx + item * d.n_map, sm.tab, d);
+}
+
+// Buffer plan in floats of one rank of fu_item_bwd_apply_kernel (16-byte
+// aligned regions); the host mirrors it (ops/fourier_unit.py,
+// _item_rank_floats).
+struct ItemPlan {
+  int a, g, z, full, tab, kc, kr, vec, cvec, total;
+  __host__ __device__ explicit ItemPlan(const ItemRank& k) {
+    a = 0;                      // maps, then DFT(gy) -> gm in place (read by every rank), then P
+    g = a + k.buf();            // W-stage scratch, then gK partials, then gz
+    z = g + k.buf();            // z (read by every rank)
+    full = z + k.buf();         // the item's z, then its gm, gathered (R > 1)
+    tab = full + k.full();      // cw, dw, ah, bh
+    kc = tab + round4(k.tables());  // K[j][d] for the rank's d, [j][dl]
+    kr = kc + k.kslice();       // K[j][e] for the rank's j, [e][jl]
+    vec = kr + k.kslice();      // mean, inv, scale, bias, mean_gn, mean_gnn (2cr each)
+    cvec = vec + round4(12 * k.cr);
+    total = cvec + k.wf;
+  }
+};
+
+// The backward apply of one item on a cluster of R ranks
+// (fourier_unit_item.cuh): each rank transforms x and gy on its channels;
+// after a barrier it gathers the item's z and computes its channels of gm;
+// after a second barrier it gathers the item's gm and computes its gK rows
+// and its channels of gz = gm K^T; after a third, when no rank reads its gm
+// any more, the adjoint transform of its gz writes its planes of gx.
+template <typename T>
+__global__ void __launch_bounds__(kItemThreads)
+fu_item_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
+                         const T* __restrict__ kmix_g, const float* __restrict__ tables,
+                         const float* __restrict__ scale, const float* __restrict__ bias,
+                         const float* __restrict__ mean, const float* __restrict__ var,
+                         const float* __restrict__ gscale, const float* __restrict__ gbias,
+                         T* __restrict__ gx, float* __restrict__ partial_gk, int C, int H,
+                         int W) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const ItemRank k(C, H, W, static_cast<int>(cluster.num_blocks()));
+  const ItemPlan pl(k);
+  float* a = smem + pl.a;
+  float* g = smem + pl.g;
+  float* z = smem + pl.z;
+  const ItemTables tab(smem + pl.tab, k);
+  float* kc = smem + pl.kc;
+  float* kr = smem + pl.kr;
+  const int c2r = 2 * k.cr;
+  float* bn_mean = smem + pl.vec;
+  float* bn_inv = bn_mean + c2r;
+  float* bn_scale = bn_inv + c2r;
+  float* bn_bias = bn_scale + c2r;
+  float* mgn = bn_bias + c2r;
+  float* mgnn = mgn + c2r;
+  float* cvec = smem + pl.cvec;
+  const size_t item = blockIdx.x / k.R;
+  const size_t planes = (item * C + rank * k.cr) * static_cast<size_t>(H) * W;
+  const float count = static_cast<float>(gridDim.x / k.R) * k.hwf;
+
+  // 1. x's planes (as they are into g, asynchronously, where they are whole
+  //    16-byte units) and gy's (likewise into the gather buffer, which is
+  //    free until the first gather, where there is one) and the tables,
+  //    while the two slices of K and the vectors load; then x's planes in
+  //    f32 into a.
+  const int map_bytes = k.cr * H * W * static_cast<int>(sizeof(T));
+  const bool units = in_units(x + planes, map_bytes) && in_units(gy + planes, map_bytes);
+  float* gy_raw = k.R > 1 && units ? smem + pl.full : nullptr;
+  if (units) copy_async(g, x + planes, map_bytes);
+  if (gy_raw) copy_async(gy_raw, gy + planes, map_bytes);
+  copy_tables(smem + pl.tab, tables, k.tables());
+  // The vectors of the thread's first channel load before the slices of K,
+  // so that their latencies overlap.
+  const int d0 = k.channel(min(static_cast<int>(threadIdx.x), c2r - 1), rank);
+  const float v0[6] = {mean[d0], var[d0], scale[d0], bias[d0], gscale[d0], gbias[d0]};
+  load_kslice<true>(kc, kmix_g, k, rank);
+  load_kslice<false>(kr, kmix_g, k, rank);
+  for (int dl = threadIdx.x; dl < c2r; dl += kItemThreads) {
+    const int d = k.channel(dl, rank);
+    const bool first = dl == static_cast<int>(threadIdx.x);
+    const float sc = first ? v0[2] : scale[d];
+    bn_mean[dl] = first ? v0[0] : mean[d];
+    bn_inv[dl] = rsqrtf((first ? v0[1] : var[d]) + kEps);
+    bn_scale[dl] = sc;
+    bn_bias[dl] = first ? v0[3] : bias[d];
+    mgn[dl] = sc * (first ? v0[5] : gbias[d]) / count;
+    mgnn[dl] = sc * (first ? v0[4] : gscale[d]) / count;
+  }
+  for (int v = threadIdx.x; v < k.wf; v += kItemThreads) cvec[v] = k.half_weight(v);
+  wait_async();
+  __syncthreads();
+  if (units) {
+    unpack_planes(a, reinterpret_cast<const T*>(g), k);
+  } else {
+    load_planes(a, x + planes, k);
+  }
+  __syncthreads();
+
+  // 2. z = DFT(x) into z, then DFT(gy) into a.
+  item_dft_w(a, g, tab, k);
+  __syncthreads();
+  item_dft_h<false>(g, z, tab, k);
+  __syncthreads();
+  if (gy_raw) {
+    unpack_planes(a, reinterpret_cast<const T*>(gy_raw), k);
+  } else {
+    load_planes(a, gy + planes, k);
+  }
+  __syncthreads();
+  item_dft_w(a, g, tab, k);
+  __syncthreads();
+  item_dft_h<false>(g, a, tab, k);
+  cluster.sync();  // every rank's z is in its shared memory
+
+  // 3. gm = inv * (gn - mean(gn) - n * mean(gn n)) of the rank's channels,
+  //    in place of DFT(gy) in a; m from the item's z, gathered.
+  const float* zs = cluster_gather(cluster, z, smem + pl.full, k);
+  item_mix(zs, kc, k, [=](int dl, int s, float m) {
+    const int o = dl * k.hwf + s;
+    const float n_hat = (m - bn_mean[dl]) * bn_inv[dl];
+    const float pre = n_hat * bn_scale[dl] + bn_bias[dl];
+    const float gpre = pre > 0.f ? cvec[s % k.wf] * a[o] : 0.f;
+    const float gn = gpre * bn_scale[dl];
+    a[o] = bn_inv[dl] * (gn - mgn[dl] - n_hat * mgnn[dl]);
+  });
+  cluster.sync();  // every rank's gm is in its shared memory
+
+  // 4. The item's gm, gathered; the item's gK rows of the rank (partials in
+  //    g), then the rank's channels of gz[j][s] = sum_e gm[e][s] K[j][e]
+  //    into g.
+  const float* gm = cluster_gather(cluster, a, smem + pl.full, k);
+  item_gk(z, gm, g, partial_gk + item * 4 * C * C, rank, k);
+  item_mix(gm, kr, k, [=](int dl, int s, float v) { g[dl * k.hwf + s] = v; });
+  cluster.sync();  // no rank reads a's gm any more
+
+  // 5. gx = adjoint of the forward DFT: inverse H-stage into a, inverse
+  //    W-stage out.
+  item_dft_h<true>(g, a, tab, k);
+  __syncthreads();
+  item_idft_w(a, gx + planes, tab, k);
 }
 
 // fu_reduce: out[c] = sum over rows of partial[row][c]; or, kMoments, with
@@ -392,7 +558,7 @@ int ffc_allow_smem(int dtype, int bytes) {
     const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
     int e = cudaFuncSetAttribute(fu_train_stats_kernel<T, kShared>, attr, bytes);
     if (e == 0) e = cudaFuncSetAttribute(fu_bwd_stats_kernel<T, kShared>, attr, bytes);
-    if (e == 0) e = cudaFuncSetAttribute(fu_bwd_apply_kernel<T, kShared>, attr, bytes);
+    if (e == 0) e = cudaFuncSetAttribute(fu_item_bwd_apply_kernel<T>, attr, bytes);
     return e;
   });
 }
@@ -432,23 +598,53 @@ int ffc_fu_bwd_stats(int dtype, int layout, const void* x, const void* gy,
   });
 }
 
-// gx: like x; partial_gk: (B, 2C, 2C) float32; gscale and gbias are the
-// reduced output of ffc_fu_bwd_stats.
-int ffc_fu_bwd_apply(int dtype, int layout, const void* x, const void* gy,
-                     const void* k, const float* scale, const float* bias,
-                     const float* mean, const float* var, const float* gscale,
-                     const float* gbias, void* gx, float* partial_gk, float* ws,
-                     int B, int C, int H, int W, void* stream) {
-  if (bad_args(B, C, H, W, layout, ws)) return cudaErrorInvalidValue;
+// The workspace backward apply. gx: like x; partial_gk: (B, 2C, 2C) float32;
+// gscale and gbias are the reduced output of ffc_fu_bwd_stats; ws: B *
+// ffc_item_floats(...) floats.
+int ffc_fu_bwd_apply(int dtype, const void* x, const void* gy, const void* k,
+                     const float* scale, const float* bias, const float* mean,
+                     const float* var, const float* gscale, const float* gbias, void* gx,
+                     float* partial_gk, float* ws, int B, int C, int H, int W, void* stream) {
+  if (bad_args(B, C, H, W, kWorkspace, ws)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(C, H, W, layout);
-  return dispatch<kLayouts>(dtype, layout, [&](auto tag, auto lay) {
+  return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
-    fu_bwd_apply_kernel<T, decltype(lay)::value><<<B, kThreads, smem, s>>>(
+    fu_bwd_apply_kernel<T><<<B, kThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<const T*>(gy), static_cast<const T*>(k),
         scale, bias, mean, var, gscale, gbias, static_cast<T*>(gx), partial_gk, ws,
         C, H, W);
     return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// Floats of shared memory one rank of fu_item_bwd_apply_kernel takes on a
+// cluster of R ranks (R dividing C).
+long long ffc_item_rank_floats(int C, int H, int W, int R) {
+  return ItemPlan(ItemRank(C, H, W, R)).total;
+}
+
+// The clustered backward apply: B clusters of `ranks` blocks (1, 2, 4 or 8,
+// dividing C), each rank ffc_item_rank_floats(...) * 4 bytes of shared
+// memory (checked by the caller against the limit set by ffc_allow_smem);
+// tables as for ffc_fu_item_fwd; outputs as for ffc_fu_bwd_apply. A refused
+// cluster launch returns its error.
+int ffc_fu_item_bwd_apply(int dtype, const void* x, const void* gy, const void* k,
+                          const float* tables, const float* scale, const float* bias,
+                          const float* mean, const float* var, const float* gscale,
+                          const float* gbias, void* gx, float* partial_gk, int B, int C,
+                          int H, int W, int ranks, void* stream) {
+  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || !cluster_size_ok(ranks) || C % ranks != 0 ||
+      reinterpret_cast<size_t>(tables) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(ffc_item_rank_floats(C, H, W, ranks)) * sizeof(float);
+  const unsigned grid = static_cast<unsigned>(B) * ranks;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch<1>(dtype, 0, [&](auto tag, auto) {
+    using T = typename decltype(tag)::type;
+    return launch_clustered<kItemThreads>(fu_item_bwd_apply_kernel<T>, grid, ranks, smem, s,
+                            static_cast<const T*>(x), static_cast<const T*>(gy),
+                            static_cast<const T*>(k), tables, scale, bias, mean, var, gscale,
+                            gbias, static_cast<T*>(gx), partial_gk, C, H, W);
   });
 }
 
@@ -469,7 +665,7 @@ int ffc_fu_reduce(const float* partial, int rows, int cols, long long count, int
   const unsigned grid = static_cast<unsigned>((n + 32 * vec - 1) / (32 * vec) * cluster);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto go = [&](auto kernel) {
-    return launch_clustered(kernel, grid, cluster, s, partial, rows, cols, count, out);
+    return launch_clustered(kernel, grid, cluster, 0, s, partial, rows, cols, count, out);
   };
   if (vec == 4) return moments ? go(fu_reduce_kernel<4, true>) : go(fu_reduce_kernel<4, false>);
   return moments ? go(fu_reduce_kernel<1, true>) : go(fu_reduce_kernel<1, false>);

@@ -24,7 +24,7 @@ launches of its own kernel in ``launches`` and, by FourierUnit map
 (C, H, W), in ``launches_by_map`` (``fu_reduce`` by partial-sum shape
 (rows, cols)):
 
-- ``fourier_unit_forward``: the per-item kernel of
+- ``fourier_unit_forward``: the per-item kernels of
   ``csrc/fourier_unit_fwd.cu``;
 - ``fu_train_stats``, ``fu_bwd_stats``, ``fu_bwd_apply`` and ``fu_reduce``
   (the fixed-order batch sum behind the first three and behind the
@@ -43,7 +43,11 @@ run a map: their per-item kernel with the item in shared memory; else the
 staged kernels, which work per (item, channel) plane and per tile of
 spectral positions (the wrapper then launches those and not its own
 kernel); else their per-item kernel with the item in an f32 device
-workspace.
+workspace. In shared memory the forward and the backward apply run their
+clustered kernel (``csrc/fourier_unit_item.cuh``): each item on a
+thread-block cluster of :func:`item_design` ranks, each rank on its share
+of the channels, with DFT tables built once per (H, W) and device
+(``_item_tables``).
 
 ``fourier_unit_train`` is the training op the model calls: an autograd
 Function. Where the statistics run per item, its forward runs the stats
@@ -65,10 +69,17 @@ import collections
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from . import _build
-from .fourier import irfft2_ortho, irfft2_ortho_adjoint, rfft2_ortho, rfft2_ortho_adjoint
+from .fourier import (
+    forward_factors,
+    irfft2_ortho,
+    irfft2_ortho_adjoint,
+    rfft2_ortho,
+    rfft2_ortho_adjoint,
+)
 
 EPS = 1e-5
 
@@ -310,22 +321,30 @@ def _check_args(x, kernel, **vectors):
 # Each library exports ffc_allow_smem(dtype, bytes) and ffc_error_string(code)
 # beside its entry points, which return a cudaError_t; the per-item
 # libraries also ffc_item_floats(C, H, W), the plan that _item_floats
-# mirrors. A per-item kernel keeps its item's buffers in shared memory
-# (layout 0) or in the item's slice of an f32 device workspace (layout 1,
-# csrc/fourier_unit_common.cuh).
+# mirrors, and ffc_item_rank_floats(C, H, W, R), the plan of one rank of
+# their clustered kernel that _item_rank_floats mirrors. A per-item
+# statistics kernel keeps its item's buffers in shared memory (layout 0) or
+# in the item's slice of an f32 device workspace (layout 1,
+# csrc/fourier_unit_common.cuh); the forward and the backward apply run
+# their clustered kernel (csrc/fourier_unit_item.cuh) where the map is
+# SHARED and their workspace kernel where it is WORKSPACE.
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD, _TRAIN, _STAGED = "fourier_unit_fwd", "fourier_unit_train", "fourier_unit_staged"
 _SHARED, _WORKSPACE = 0, 1
 _ENTRY_POINTS = {
-    _FWD: {"ffc_fourier_unit_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _P]},
+    _FWD: {
+        "ffc_fourier_unit_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ffc_fu_item_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
     _TRAIN: {
         "ffc_fu_train_stats": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "ffc_fu_bwd_stats": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _P],
-        "ffc_fu_bwd_apply": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        "ffc_fu_bwd_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _P],
+        "ffc_fu_item_bwd_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _P],
         "ffc_fu_reduce": [_P, _I, _I, _LL, _I, _I, _P, _P],
     },
     _STAGED: {
@@ -351,6 +370,10 @@ def _library(stem: str) -> ctypes.CDLL:
     for name, argtypes in _ENTRY_POINTS[stem].items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = _I
+    if stem in (_FWD, _TRAIN):
+        lib.ffc_item_floats.argtypes = [_I, _I, _I]
+        lib.ffc_item_rank_floats.argtypes = [_I, _I, _I, _I]
+        lib.ffc_item_floats.restype = lib.ffc_item_rank_floats.restype = _LL
     return lib
 
 
@@ -440,6 +463,68 @@ def kernel_design(wrapper: str, c: int, h: int, w: int, smem_limit: int) -> str:
     return WORKSPACE
 
 
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _item_rank_floats(wrapper: str, c: int, h: int, w: int, ranks: int) -> int:
+    """Floats of shared memory one rank of the clustered per-item kernel of
+    ``wrapper`` ("forward" or "bwd_apply") takes on a cluster of ``ranks``:
+    the ``ItemPlan`` of csrc/fourier_unit_fwd.cu or csrc/fourier_unit_train.cu
+    (16-byte aligned regions). Per rank: two (forward) or three spectrum-pair
+    buffers of its C/R channels, on more than one rank the item's whole
+    spectrum gathered from the ranks, the tables, one or two (2C, 2C/R)
+    slices of K, four or six (2C/R,) vectors and the half-spectrum
+    weights."""
+    wf = w // 2 + 1
+    cr = c // ranks
+    buf = _round4(2 * cr * h * wf)
+    full = _round4(2 * c * h * wf) if ranks > 1 else 0
+    tables = _round4(2 * w * wf + 2 * h * h)
+    kslice = _round4(4 * c * cr)
+    if wrapper == "forward":
+        return 2 * buf + full + tables + kslice + _round4(8 * cr) + wf
+    return 3 * buf + full + tables + 2 * kslice + _round4(12 * cr) + wf
+
+
+# The cluster sizes of the clustered per-item kernels.
+_ITEM_RANKS = (1, 2, 4, 8)
+
+
+@functools.cache
+def item_design(b: int, c: int, h: int, w: int, smem_limit: int) -> int:
+    """Ranks R of the thread-block cluster on which the clustered per-item
+    forward and backward apply run each item of a (B, C, H, W) map; a fixed
+    rule, not a knob. R is one of 1, 2, 4, 8 and divides C, and each rank's
+    plan (``_item_rank_floats``) of every kernel that :func:`kernel_design`
+    sends to ``SHARED`` at this map fits ``smem_limit``; of those, the most
+    ranks whose B·R blocks make one wave of one block per SM of an H100
+    (B·R <= 132), else the fewest. A rank's stages keep its SM's issue
+    slots busy, so two blocks on one SM take twice as long: a second wave
+    costs more than the ranks save (``tools/item_design_sweep.py``).
+    Raises where no R fits."""
+    kernels = [k for k in ("forward", "bwd_apply")
+               if kernel_design(k, c, h, w, smem_limit) == SHARED]
+    fits = [r for r in _ITEM_RANKS
+            if c % r == 0 and all(_item_rank_floats(k, c, h, w, r) * 4 <= smem_limit
+                                  for k in kernels)]
+    if not fits:
+        raise ValueError(f"no cluster of 1-8 ranks fits the map ({c}, {h}, {w}) in "
+                         f"{smem_limit} bytes of shared memory per rank")
+    return max((r for r in fits if b * r <= _SMS), default=fits[0])
+
+
+@functools.cache
+def _item_tables(h: int, w: int, device_index: int) -> torch.Tensor:
+    """The clustered per-item kernels' DFT factor tables on CUDA device
+    ``device_index``, built once per (H, W) and device: the plain version's
+    f32 factor matrices (``forward_factors``) as [cw | dw | ah | bh]
+    (csrc/fourier_unit_item.cuh)."""
+    ah, bh, cw, dw = forward_factors(h, w)
+    flat = np.concatenate([m.ravel() for m in (cw, dw, ah, bh)])
+    return torch.from_numpy(flat).to(torch.device("cuda", device_index))
+
+
 def staged_chunks(b: int, h: int, w: int) -> int:
     """Runs of tiles per item in a staged mix stage: enough blocks to fill
     the card (``_MIX_BLOCKS`` over the batch), at most one tile each. The
@@ -478,19 +563,33 @@ def _design(wrapper: str, x: torch.Tensor) -> str:
     return kernel_design(wrapper, *x.shape[1:], limit)
 
 
-def _prepare_launch(stem: str, *tensors):
-    """Checks contiguity and picks a per-item kernel's buffer layout for x's
-    map: returns (layout, workspace or None). The workspace, B items of the
-    plan's floats, comes from PyTorch's allocator, which raises if it
-    cannot be had."""
+def _contiguous(*tensors) -> None:
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the FourierUnit kernels take contiguous tensors")
-    x = tensors[0]
+
+
+def _item_launch(stem: str, x: torch.Tensor):
+    """(ranks, tables) of a clustered per-item kernel's launch on x's map."""
     b, c, h, w = x.shape
-    item_floats = _item_floats(stem, c, h, w)
-    if item_floats * 4 <= _smem_limit(stem, x.device.index, _DTYPE_CODES[x.dtype]):
+    limit = _smem_limit(stem, x.device.index, _DTYPE_CODES[x.dtype])
+    return item_design(b, c, h, w, limit), _item_tables(h, w, x.device.index)
+
+
+def _workspace(stem: str, x: torch.Tensor) -> torch.Tensor:
+    """A workspace kernel's f32 workspace, B items of the plan's floats, from
+    PyTorch's allocator, which raises if it cannot be had."""
+    return torch.empty(x.shape[0] * _item_floats(stem, *x.shape[1:]), device=x.device)
+
+
+def _prepare_launch(stem: str, *tensors):
+    """Checks contiguity and picks a per-item statistics kernel's buffer
+    layout for x's map: returns (layout, workspace or None)."""
+    _contiguous(*tensors)
+    x = tensors[0]
+    if _item_floats(stem, *x.shape[1:]) * 4 <= _smem_limit(stem, x.device.index,
+                                                           _DTYPE_CODES[x.dtype]):
         return _SHARED, None
-    return _WORKSPACE, torch.empty(b * item_floats, device=x.device)
+    return _WORKSPACE, _workspace(stem, x)
 
 
 def _ptr(t):
@@ -513,8 +612,9 @@ def _count(fn, key) -> None:
 
 @_counted
 def fourier_unit_forward(x, kernel, scale, bias, mean, var):
-    """FourierUnit forward with the given statistics; on CUDA the per-item
-    kernel or the staged kernels, as :func:`kernel_design` picks, on the
+    """FourierUnit forward with the given statistics; on CUDA the clustered
+    per-item kernel (:func:`item_design` ranks per item), the staged
+    kernels or the workspace kernel, as :func:`kernel_design` picks, on the
     CPU the plain version. Returns y with x's shape and dtype."""
     _check_args(x, kernel, scale=scale, bias=bias, mean=mean, var=var)
     if x.device.type == "cpu":
@@ -522,14 +622,21 @@ def fourier_unit_forward(x, kernel, scale, bias, mean, var):
     b, c, h, w = x.shape
     if b == 0:
         return torch.empty_like(x)
-    if _design("forward", x) == STAGED:
+    design = _design("forward", x)
+    if design == STAGED:
         z = fu_spectrum(x)[0]
         return fu_inverse(fu_mix_apply(z, kernel, scale, bias, mean, var), x.dtype, w)
-    layout, ws = _prepare_launch(_FWD, x, kernel, scale, bias, mean, var)
+    _contiguous(x, kernel, scale, bias, mean, var)
     y = torch.empty_like(x)
-    _launch(_FWD, "ffc_fourier_unit_fwd", x, _DTYPE_CODES[x.dtype], layout, x.data_ptr(),
-            kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
-            var.data_ptr(), y.data_ptr(), _ptr(ws), b, c, h, w)
+    vectors = (scale.data_ptr(), bias.data_ptr(), mean.data_ptr(), var.data_ptr())
+    if design == SHARED:
+        ranks, tables = _item_launch(_FWD, x)
+        _launch(_FWD, "ffc_fu_item_fwd", x, _DTYPE_CODES[x.dtype], x.data_ptr(),
+                kernel.data_ptr(), tables.data_ptr(), *vectors, y.data_ptr(), b, c, h, w, ranks)
+    else:
+        ws = _workspace(_FWD, x)
+        _launch(_FWD, "ffc_fourier_unit_fwd", x, _DTYPE_CODES[x.dtype], x.data_ptr(),
+                kernel.data_ptr(), *vectors, y.data_ptr(), ws.data_ptr(), b, c, h, w)
     _count(fourier_unit_forward, (c, h, w))
     return y
 
@@ -619,26 +726,34 @@ def fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy):
 @_counted
 def fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias):
     """(gx like x, gK (2C, 2C) f32) of the train-mode backward; on CUDA the
-    per-item backward apply kernel or the staged kernels, as
-    :func:`kernel_design` picks, with ``fu_reduce``; on the CPU the plain
-    version."""
+    clustered per-item kernel (:func:`item_design` ranks per item), the
+    staged kernels or the workspace kernel, as :func:`kernel_design` picks,
+    with ``fu_reduce``; on the CPU the plain version."""
     _check_args(x, kernel, scale=scale, bias=bias, bmean=bmean, bvar=bvar, gy=gy,
                 gscale=gscale, gbias=gbias)
     if x.device.type == "cpu":
         return fu_bwd_apply_plain(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias)
-    if _design("bwd_apply", x) == STAGED:
+    design = _design("bwd_apply", x)
+    if design == STAGED:
         z, g = fu_spectrum(x, gy)
         gz, gk = fu_bwd_mix(z, g, kernel, scale, bias, bmean, bvar, gscale, gbias)
         return fu_inverse(gz, x.dtype, x.shape[3]), gk
-    layout, ws = _prepare_launch(_TRAIN, x, kernel, scale, bias, bmean, bvar, gy,
-                                 gscale, gbias)
+    _contiguous(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias)
     b, c, h, w = x.shape
     gx = torch.empty_like(x)
     partial = torch.empty(b, 4 * c * c, device=x.device)
-    _launch(_TRAIN, "ffc_fu_bwd_apply", x, _DTYPE_CODES[x.dtype], layout, x.data_ptr(),
-            gy.data_ptr(), kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            bmean.data_ptr(), bvar.data_ptr(), gscale.data_ptr(), gbias.data_ptr(),
-            gx.data_ptr(), partial.data_ptr(), _ptr(ws), b, c, h, w)
+    operands = (x.data_ptr(), gy.data_ptr(), kernel.data_ptr())
+    vectors = (scale.data_ptr(), bias.data_ptr(), bmean.data_ptr(), bvar.data_ptr(),
+               gscale.data_ptr(), gbias.data_ptr())
+    if design == SHARED:
+        ranks, tables = _item_launch(_TRAIN, x)
+        _launch(_TRAIN, "ffc_fu_item_bwd_apply", x, _DTYPE_CODES[x.dtype], *operands,
+                tables.data_ptr(), *vectors, gx.data_ptr(), partial.data_ptr(), b, c, h, w,
+                ranks)
+    else:
+        ws = _workspace(_TRAIN, x)
+        _launch(_TRAIN, "ffc_fu_bwd_apply", x, _DTYPE_CODES[x.dtype], *operands, *vectors,
+                gx.data_ptr(), partial.data_ptr(), ws.data_ptr(), b, c, h, w)
     _count(fu_bwd_apply, (c, h, w))
     return gx, _reduce(partial).view(2 * c, 2 * c)
 

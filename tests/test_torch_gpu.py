@@ -398,9 +398,99 @@ def test_staged_training_op_matches_plain(cuda, shape):
 
 @pytest.mark.parametrize("cmap", [(16, 16, 16), (8, 32, 32), (64, 16, 16), (32, 128, 128)])
 def test_item_plans_match_the_libraries(cuda, cmap):
-    """The per-item plans that ``kernel_design`` reads are the kernels'."""
-    for stem in (fu._FWD, fu._TRAIN):
-        assert fu._library(stem).ffc_item_floats(*cmap) == fu._item_floats(stem, *cmap)
+    """The per-item plans that ``kernel_design`` reads, and the per-rank
+    plans of the clustered kernels that ``item_design`` reads, are the
+    kernels'."""
+    for stem, wrapper in ((fu._FWD, "forward"), (fu._TRAIN, "bwd_apply")):
+        lib = fu._library(stem)
+        assert lib.ffc_item_floats(*cmap) == fu._item_floats(stem, *cmap)
+        for ranks in (1, 2, 4, 8):
+            assert lib.ffc_item_rank_floats(*cmap, ranks) == fu._item_rank_floats(
+                wrapper, *cmap, ranks)
+
+
+# Every map that kernel_design sends to SHARED for each clustered per-item
+# kernel: the 32px generator's two, the 128px eval forward's (64, 16, 16)
+# and the 48px generator's (16, 24, 24) and (8, 48, 48) (forward only).
+ITEM_MAPS = {"fourier_unit_fwd": [(16, 16, 16), (8, 32, 32), (64, 16, 16), (16, 24, 24),
+                                  (8, 48, 48)],
+             "fu_bwd_apply": [(16, 16, 16), (8, 32, 32), (16, 24, 24)]}
+ITEM_CASES = [(name, cmap) for name, maps in ITEM_MAPS.items() for cmap in maps]
+
+
+def _item_case(name, shape, dtype, device):
+    """(wrapper, plain version, arguments) of a clustered per-item kernel."""
+    if name == "fourier_unit_fwd":
+        return fourier_unit_forward, fourier_unit_forward_plain, _inputs(shape, dtype, device)
+    return _train_case(name, shape, dtype, device)
+
+
+def _check_item(name, shape, dtype, device, tol):
+    """One launch of the wrapper's clustered kernel (and, for the backward,
+    one ``fu_reduce``), every output within ``tol`` rel-max of the plain
+    version in f64, the same bits on a second launch."""
+    wrapper, plain, args = _item_case(name, shape, dtype, device)
+    assert fu._design("forward" if name == "fourier_unit_fwd" else "bwd_apply",
+                      args[0]) == fu.SHARED
+    before = (wrapper.launches, fu.fu_reduce.launches)
+    outs = wrapper(*args)
+    torch.cuda.synchronize()
+    reduces = 0 if name == "fourier_unit_fwd" else 1
+    assert (wrapper.launches, fu.fu_reduce.launches) == (before[0] + 1, before[1] + reduces)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    refs = plain(*(a.double() for a in args))
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    for out, ref in zip(outs, refs):
+        assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+        rel = ((out.double() - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= tol, rel
+    again = wrapper(*args)
+    again = again if isinstance(again, tuple) else (again,)
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", [1, 7, 64])
+@pytest.mark.parametrize("name,cmap", ITEM_CASES)
+def test_item_kernels_match_plain(cuda, name, cmap, batch, dtype, tol):
+    """The clustered per-item forward and backward apply at every map that
+    kernel_design sends to SHARED, at batch 1, 7 and 64 (ranks from
+    item_design), against their plain versions in f64 (the backward with
+    ``relu_margin_bias``): rel-max 1e-4 in f32, 2e-2 in bf16; the same
+    bits on two launches."""
+    _check_item(name, (batch,) + cmap, dtype, cuda, tol)
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4, 8])
+@pytest.mark.parametrize("name,cmap", [("fourier_unit_fwd", (16, 16, 16)),
+                                       ("fu_bwd_apply", (8, 32, 32)),
+                                       ("fu_bwd_apply", (16, 24, 24))])
+def test_item_kernels_at_every_cluster_size(cuda, monkeypatch, name, cmap, ranks):
+    """Each cluster size the rule can pick, forced, in f32: within 1e-4
+    rel-max of the plain version in f64, the same bits on two launches."""
+    monkeypatch.setattr(fu, "item_design", lambda *a: ranks)
+    _check_item(name, (3,) + cmap, torch.float32, cuda, 1e-4)
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 10, 14), (3, 4, 12, 9), (2, 3, 5, 7)])
+@pytest.mark.parametrize("name", ["fourier_unit_fwd", "fu_bwd_apply"])
+def test_item_kernels_take_maps_of_odd_sizes(cuda, name, shape):
+    """Maps whose H is no multiple of 4, whose W is odd or whose C is odd
+    (the stages' unaligned loads and clamped tiles), in f32: within 1e-4
+    rel-max of the plain version in f64, the same bits on two launches."""
+    _check_item(name, shape, torch.float32, cuda, 1e-4)
+
+
+@pytest.mark.parametrize("ranks", [3, 16])
+@pytest.mark.parametrize("name", ["fourier_unit_fwd", "fu_bwd_apply"])
+def test_item_kernels_raise_on_a_refused_cluster(cuda, monkeypatch, name, ranks):
+    """A cluster shape the kernels refuse (3 ranks, or 16: beyond the
+    portable 8) raises, with no fallback."""
+    wrapper, _, args = _item_case(name, (2, 16, 16, 16), torch.float32, cuda)
+    monkeypatch.setattr(fu, "item_design", lambda *a: ranks)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        wrapper(*args)
 
 
 # fu_reduce's partial-sum shapes, (rows, cols, count): on the main path the
