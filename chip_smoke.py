@@ -24,7 +24,7 @@ Phases, each of which raises on a failed check:
 5. the training kernels (batch statistics, backward statistics, backward
    apply) against their plain versions at the same shapes, in f32 and
    bf16, every output, with kernel, profiler-device and plain times, the
-   bound and the backward apply's clustered design as in phase 3; the
+   bound and each kernel's clustered design as in phase 3; the
    batch reduction behind them (``fu_reduce``) at every
    partial-sum shape of the 32px step and an odd column count, against
    f64, the public wrapper and the callers' entry giving the same bits on
@@ -476,9 +476,12 @@ def ptxas_report():
     return report
 
 
-# The wrappers whose per-item design runs a clustered kernel, and its symbol.
-ITEM_KERNELS = {"fourier_unit_fwd": ("forward", "fu_item_fwd_kernel"),
-                "fu_bwd_apply": ("bwd_apply", "fu_item_bwd_apply_kernel")}
+# The wrappers whose per-item design runs a clustered kernel: the wrapper's
+# name in kernel_design, the kernel's plan in _item_rank_floats, its symbol.
+ITEM_KERNELS = {"fourier_unit_fwd": ("forward", "forward", "fu_item_fwd_kernel"),
+                "fu_train_stats": ("stats", "train_stats", "fu_item_train_stats_kernel"),
+                "fu_bwd_stats": ("stats", "bwd_stats", "fu_item_bwd_stats_kernel"),
+                "fu_bwd_apply": ("bwd_apply", "bwd_apply", "fu_item_bwd_apply_kernel")}
 
 
 def item_kernel_line(name, shape, dtype_name):
@@ -494,10 +497,10 @@ def item_kernel_line(name, shape, dtype_name):
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
     b, c, h, w = shape
-    wrapper, symbol = ITEM_KERNELS[name]
+    _, plan, symbol = ITEM_KERNELS[name]
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     ranks = fu.item_design(b, c, h, w, limit)
-    smem = fu._item_rank_floats(wrapper, c, h, w, ranks) * 4
+    smem = fu._item_rank_floats(plan, c, h, w, ranks) * 4
     threads = re.search(r"kItemThreads = (\d+)",
                         (_build.CSRC_DIR / "fourier_unit_item.cuh").read_text()).group(1)
     tag = "IfE" if dtype_name == "float32" else "bfloat16"
@@ -517,7 +520,7 @@ def item_symbol(name, shape):
 
     if name not in ITEM_KERNELS:
         return None
-    wrapper, symbol = ITEM_KERNELS[name]
+    wrapper, _, symbol = ITEM_KERNELS[name]
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     return symbol if fu.kernel_design(wrapper, *shape[1:], limit) == fu.SHARED else None
 

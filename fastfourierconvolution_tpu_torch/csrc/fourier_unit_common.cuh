@@ -1,9 +1,9 @@
 // Device code shared by the FourierUnit kernels (fourier_unit_fwd.cu,
-// fourier_unit_train.cu) that run one item per block, the statistics
-// kernels and the workspace forward and backward apply: the buffer layouts,
-// the DFT factor tables and the four transform stages of one (C, H, W)
-// item. The clustered forward and backward apply have their own stages
-// (fourier_unit_item.cuh).
+// fourier_unit_train.cu) that run one item per block with the item's buffers
+// in a device workspace (the workspace forward, statistics, backward sums and
+// backward apply): the buffer layouts, the DFT factor tables and the four
+// transform stages of one (C, H, W) item. The clustered per-item kernels
+// have their own stages (fourier_unit_item.cuh).
 //
 // Spectra are stored as a pair of plane sets, [re | im], each [c][h][v] with
 // v < Wf = W/2 + 1, so channel d of the 2C-channel spectrum starts at
@@ -18,14 +18,9 @@
 // inverse's input is dft_h(dft_w(gy)) and the cotangent of x is
 // idft_w(idft_h(gz)).
 //
-// Layouts. A block works on one item, and every buffer of the item lives in
-// one region: the block's dynamic shared memory where the item's plan fits it
-// (kShared), else the item's slice of an f32 device workspace that the wrapper
-// allocates (kWorkspace), whose loads the L1 and L2 caches serve. The stages
-// take plain pointers, so one code path serves both; the layout is a template
-// argument, and each instantiation derives all its pointers from the one base
-// that item_base picks at compile time, so the compiler knows the memory space
-// of every access.
+// Layout. A block works on one item, and every buffer of the item lives in
+// the item's slice of an f32 device workspace that the wrapper allocates
+// (item_slice), whose loads the L1 and L2 caches serve.
 
 #pragma once
 
@@ -35,18 +30,10 @@ namespace ffc {
 
 constexpr float kEps = 1e-5f;
 
-enum Layout : int { kShared = 0, kWorkspace = 1 };
-constexpr int kLayouts = 2;
-
-// The base of block blockIdx.x's buffers in layout L: the dynamic shared
-// memory, or the item's slice of `item_floats` floats of the workspace.
-template <int L>
-__device__ __forceinline__ float* item_base(float* smem, float* ws, int item_floats) {
-  if constexpr (L == kShared) {
-    return smem;
-  } else {
-    return ws + static_cast<size_t>(blockIdx.x) * item_floats;
-  }
+// Block blockIdx.x's item: its slice of `item_floats` floats of the
+// workspace.
+__device__ __forceinline__ float* item_slice(float* ws, int item_floats) {
+  return ws + static_cast<size_t>(blockIdx.x) * item_floats;
 }
 
 // Geometry of one item.

@@ -99,7 +99,7 @@ fourier_unit_fwd_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
   const Dims dm(C, H, W);
   const int c2 = 2 * C, hwf = dm.hwf;
   const size_t item = blockIdx.x;
-  float* base = item_base<kWorkspace>(nullptr, ws, pl.total);
+  float* base = item_slice(ws, pl.total);
   float* spec_a = base + pl.spec_a_off;  // [re|im][c][h][v]
   float* buf_b = base + pl.buf_b_off;    // x [c][h][q], then a spectrum
   const Tables tab(base + pl.tab_off, dm);

@@ -1,7 +1,8 @@
 // The per-item FourierUnit design on a thread-block cluster, for Hopper
-// (sm_90a): the stages of fourier_unit_fwd.cu's forward kernel and
-// fourier_unit_train.cu's backward apply kernel wherever the item's plan fits
-// shared memory (ops/fourier_unit.py, kernel_design "shared").
+// (sm_90a): the stages of fourier_unit_fwd.cu's forward kernel and of
+// fourier_unit_train.cu's statistics, backward sums and backward apply
+// kernels wherever the item's plan fits shared memory (ops/fourier_unit.py,
+// kernel_design "shared").
 //
 // Ranks. An item (C, H, W) runs on a cluster of R blocks, its ranks (R in
 // {1, 2, 4, 8}, R dividing C; ops/fourier_unit.py, item_design). Rank r owns
@@ -46,6 +47,8 @@
 //   item_mix         out[dl][s] = sum_j full[j][s] kslice[j][dl] over the
 //                    item's 2C channels j, for the rank's channels dl
 //   item_gk          gK[j][e] = sum_s z[jl][s] gm[e][s] for the rank's rows j
+//   item_channel_sums  per local channel, sums over the positions s (the
+//                    statistics kernels' epilogue)
 
 #pragma once
 
@@ -549,6 +552,22 @@ __device__ __forceinline__ void item_mix(const float* full, const float* kslice,
     item_mix_tiles<kRowsLarge, true>(full, kslice, k, epi);
   } else {
     item_mix_tiles<kRowsLarge, false>(full, kslice, k, epi);
+  }
+}
+
+// For each of the rank's 2cr local channels dl: out(dl, acc), acc the pair
+// of sums that add(acc, dl * H * Wf + s) builds over the positions s. One
+// warp per channel: its lanes stride over s, then warp_sum adds them, so
+// the order is fixed. The caller has synced since the terms were written.
+template <typename Add, typename Out>
+__device__ __forceinline__ void item_channel_sums(const ItemRank& k, Add add, Out out) {
+  const int lane = threadIdx.x % 32;
+  for (int dl = threadIdx.x / 32; dl < 2 * k.cr; dl += kItemThreads / 32) {
+    float2 acc = make_float2(0.f, 0.f);
+    for (int s = lane; s < k.hwf; s += 32) add(acc, dl * k.hwf + s);
+    acc.x = warp_sum(acc.x);
+    acc.y = warp_sum(acc.y);
+    if (lane == 0) out(dl, acc);
   }
 }
 

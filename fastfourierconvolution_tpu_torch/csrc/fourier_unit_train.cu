@@ -1,7 +1,7 @@
 // FourierUnit training kernels for Hopper (sm_90a): the batch statistics of
-// the forward and the two passes of the backward. Each per-item kernel runs
-// one thread block per batch item and writes its partial sums to an f32
-// scratch row that the wrapper allocates; fu_reduce_kernel then sums the rows
+// the forward and the two passes of the backward. Each per-item kernel
+// writes its item's partial sums to an f32 scratch row that the wrapper
+// allocates; fu_reduce_kernel then sums the rows
 // over the batch in a fixed order, so every launch gives the same bits (no
 // float atomics).
 //
@@ -42,54 +42,64 @@
 // (2C, 2C) in x's dtype; scale, bias, mean, var, gscale and gbias are (2C,)
 // float32; the scratch rows and gK are float32.
 //
-// Design of the statistics kernels (fu_train_stats, fu_bwd_stats) and of
-// the workspace backward apply. A block holds its item and computes in f32
-// FMAs on the CUDA cores, recomputing the spectrum from x instead of reading
-// any saved intermediate (the backward's residuals are x, the parameters and
-// the batch statistics). Three spectrum-pair buffers: A (transform scratch),
-// B (a map, then DFT(gy), then gm in place) and Z (z), plus the tables, K and
-// the per-channel vectors. A channel sum is owned by one warp: its lanes
-// stride over the spectral positions, then a shuffle tree adds them, so the
-// order is fixed. Shared memory per block: 63 KB at (C, H, W) = (16, 16,
-// 16), 118 KB at (8, 32, 32). Every map of the 128px generator needs more
-// than a block's 227 KB; there all three run as the staged kernels of
-// fourier_unit_staged.cu. On maps that those do not take either
-// (ops/fourier_unit.py, kernel_design: planes that are no power of two or
-// beyond a block's shared memory) the kernels keep all the buffers in the
-// item's slice of a device workspace (fourier_unit_common.cuh), a simple,
-// slower variant whose stages load from L1/L2.
+// Two designs per item; ops/fourier_unit.py (kernel_design) picks one for a
+// map, and the staged kernels of fourier_unit_staged.cu take the maps that
+// neither serves well (the 128px generator's).
 //
-// Design of the backward apply where its plan fits shared memory
-// (fu_item_bwd_apply_kernel; the 32px generator's (16,16,16) and (8,32,32),
-// the 48px one's (16,24,24)). An item runs on a thread-block cluster of R
+// Clustered, wherever the item's plan fits shared memory (the 32px
+// generator's (16,16,16) and (8,32,32), the 48px one's (16,24,24)): the
+// statistics (fu_item_train_stats_kernel), the backward sums
+// (fu_item_bwd_stats_kernel) and the backward apply
+// (fu_item_bwd_apply_kernel). An item runs on a thread-block cluster of R
 // ranks of 384 threads, as the forward's (fourier_unit_item.cuh; R from
-// ops/fourier_unit.py, item_design), each rank on C/R channels: it copies
-// the planes of x and gy and the tables in with cp.async and takes the W-
-// and H-stage DFTs of x and gy on its channels; after a cluster barrier it
-// gathers the item's z from the ranks over distributed shared memory,
-// computes its channels of m and turns DFT(gy) into gm in place; after a
-// second barrier it gathers the item's gm and computes its 2cr rows of this
-// item's gK = z^T gm as a register-tiled product over the positions (each
-// thread a tile of entries over positions s = p, p + P, ..., the P partials
-// then added in order) and its channels of gz = gm K^T; after a third
-// barrier, when no rank reads its gm any more, the adjoint transform
-// (inverse H- and W-stage) of its gz writes its planes of gx. Shared memory
-// per rank at batch 64 (R = 2): 53 KB at (16,16,16), 99 KB at (8,32,32).
+// ops/fourier_unit.py, item_design: 2 at batch 64, 8 at batch 1 and 7), each
+// rank on C/R channels: it copies the planes of x (and gy) and the tables
+// in with cp.async and takes the W- and H-stage DFTs on its channels; after
+// a cluster barrier it gathers the item's z from the ranks over distributed
+// shared memory and computes its 2cr channels of m as a register-tiled mix.
+// Then:
+//   - the statistics keep m in shared memory and sum m and m^2 per channel;
+//   - the backward sums turn DFT(gy) into gpre in place, keep n beside it
+//     and sum gpre * n and gpre per channel;
+//   - the backward apply turns DFT(gy) into gm in place; after a second
+//     barrier it gathers the item's gm and computes its 2cr rows of this
+//     item's gK = z^T gm as a register-tiled product over the positions
+//     (each thread a tile of entries over positions s = p, p + P, ..., the
+//     P partials then added in order) and its channels of gz = gm K^T;
+//     after a third barrier, when no rank reads its gm any more, the
+//     adjoint transform (inverse H- and W-stage) of its gz writes its
+//     planes of gx.
+// A channel sum is owned by one warp (item_channel_sums: lanes strided over
+// the positions, then a shuffle tree), and each rank owns distinct
+// channels, so no sum crosses ranks and the order is fixed. The statistics
+// kernels end on a cluster barrier: no rank leaves while another still
+// gathers from its shared memory. Shared memory per rank at batch 64 (R =
+// 2): the statistics 41 KB at (16,16,16) and 81 KB at (8,32,32), the
+// backward sums 50 KB and 98 KB, the backward apply 53 KB and 99 KB.
+//
+// Workspace, elsewhere (the 48px generator's (8,48,48), the 96px and 256px
+// ones' maps): one 256-thread block per item holds its buffers in the
+// item's slice of a device workspace (fourier_unit_common.cuh) and computes
+// in f32 FMAs on the CUDA cores, recomputing the spectrum from x instead of
+// reading any saved intermediate (the backward's residuals are x, the
+// parameters and the batch statistics). Three spectrum-pair buffers: A
+// (transform scratch), B (a map, then DFT(gy), then gm in place) and Z (z),
+// plus the tables, K and the per-channel vectors; a channel sum or gK entry
+// is owned by one warp. A simple, slower design whose stages load from
+// L1/L2.
 //
 // What bounds them on an H100: bytes. Each must read x (and gy) once and
 // write a few (2C,) vectors (fu_bwd_apply also gx and gK): 0.5-1.6 MB per
 // launch at the 32px generator's shapes in bf16, 0.16-0.47 us at 3.35 TB/s,
 // against under 0.1 GFLOP of FFT-sized work, well under 0.1 us at 989
-// TFLOP/s. The statistics kernels are simple and latency-class: 64 blocks on
-// 132 SMs, dense DFT stages, time set by shared-memory loads. The clustered
-// backward apply does dense DFT stages too, 1.1 M f32 FMAs per (16,16,16)
-// item and 2.9 M per (8,32,32) item (2.1 and 5.5 us at 67 TFLOP/s over a
-// batch of 64), one block per SM on 2x the blocks; its time is set by the
-// issue of each rank's FMAs and of the shared-memory loads that feed its
-// register tiles (0.4-1 per FMA), and by its three cluster barriers and
-// two gathers: 0.027 ms at (64,16,16,16) and 0.039-0.042 ms at
-// (64,8,32,32) on an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md),
-// far above the bytes, which it moves once.
+// TFLOP/s. The clustered kernels do dense DFT stages, several times the
+// FFT's operations as f32 FMAs (the backward apply 1.1 M per (16,16,16)
+// item and 2.9 M per (8,32,32) item, 2.1 and 5.5 us at 67 TFLOP/s over a
+// batch of 64), one block per SM; their time is set by the issue of each
+// rank's FMAs and of the shared-memory loads that feed its register tiles
+// (0.4-1 per FMA), and by the load phase, the cluster barriers and the
+// gathers, far above the bytes, which they move once (PERF.md, rows 4, 7
+// and 10, by chip_smoke.py).
 
 #include "fourier_unit_item.cuh"
 
@@ -97,8 +107,8 @@ namespace {
 
 using namespace ffc;
 
-// Buffer plan in floats, one for the three per-item kernels; the host sizes
-// the launch (shared memory or workspace) with the same plan.
+// Buffer plan in floats, one for the three workspace kernels; the host sizes
+// the workspace with the same plan, and kernel_design reads it.
 struct Plan {
   int a_off, b_off, z_off, tab_off, k_off, vec_off, cvec_off, total;
   __host__ __device__ Plan(int c, int h, int w) {
@@ -114,7 +124,7 @@ struct Plan {
   }
 };
 
-// The item's buffers, from the base that item_base gives for the layout.
+// The item's buffers in its slice of the workspace.
 struct Buffers {
   float *a, *b, *z, *kmix, *mean, *inv, *scale, *bias, *mgn, *mgnn, *cvec;
   Tables tab;
@@ -158,15 +168,16 @@ __device__ void spectrum(const Buffers& sm, const T* map, float* out, const Dims
   __syncthreads();
 }
 
-template <typename T, int L>
+// The workspace designs; the clustered kernels below serve the maps whose
+// plan fits shared memory.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fu_train_stats_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
                       float* __restrict__ partial, float* __restrict__ ws,
                       int C, int H, int W) {
-  extern __shared__ float smem[];
   const Dims d(C, H, W);
   const Plan pl(C, H, W);
-  const Buffers sm(item_base<L>(smem, ws, pl.total), pl, d);
+  const Buffers sm(item_slice(ws, pl.total), pl, d);
   const int c2 = 2 * C, lane = threadIdx.x % 32;
   const size_t item = blockIdx.x;
 
@@ -191,17 +202,16 @@ fu_train_stats_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
   }
 }
 
-template <typename T, int L>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fu_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                     const T* __restrict__ kmix_g, const float* __restrict__ scale,
                     const float* __restrict__ bias, const float* __restrict__ mean,
                     const float* __restrict__ var, float* __restrict__ partial,
                     float* __restrict__ ws, int C, int H, int W) {
-  extern __shared__ float smem[];
   const Dims d(C, H, W);
   const Plan pl(C, H, W);
-  const Buffers sm(item_base<L>(smem, ws, pl.total), pl, d);
+  const Buffers sm(item_slice(ws, pl.total), pl, d);
   const int c2 = 2 * C, lane = threadIdx.x % 32;
   const size_t item = blockIdx.x;
 
@@ -244,7 +254,7 @@ fu_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                     int C, int H, int W) {
   const Dims d(C, H, W);
   const Plan pl(C, H, W);
-  const Buffers sm(item_base<kWorkspace>(nullptr, ws, pl.total), pl, d);
+  const Buffers sm(item_slice(ws, pl.total), pl, d);
   const int c2 = 2 * C, hwf = d.hwf, lane = threadIdx.x % 32;
   const size_t item = blockIdx.x;
   const float count = static_cast<float>(gridDim.x) * hwf;
@@ -297,9 +307,212 @@ fu_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   idft_w(sm.z, gx + item * d.n_map, sm.tab, d);
 }
 
-// Buffer plan in floats of one rank of fu_item_bwd_apply_kernel (16-byte
-// aligned regions); the host mirrors it (ops/fourier_unit.py,
+// Buffer plans in floats of one rank of the clustered kernels (16-byte
+// aligned regions); the host mirrors them (ops/fourier_unit.py,
 // _item_rank_floats).
+struct TrainStatsPlan {
+  int a, b, full, tab, kc, total;
+  __host__ __device__ explicit TrainStatsPlan(const ItemRank& k) {
+    a = 0;                      // map, then z (read by every rank)
+    b = a + k.buf();            // W-stage scratch, then m
+    full = b + k.buf();         // the item's z, gathered (R > 1)
+    tab = full + k.full();      // cw, dw, ah, bh
+    kc = tab + round4(k.tables());  // K[j][d] for the rank's d, [j][dl]
+    total = kc + k.kslice();
+  }
+};
+
+struct BwdStatsPlan {
+  int a, g, z, full, tab, kc, vec, cvec, total;
+  __host__ __device__ explicit BwdStatsPlan(const ItemRank& k) {
+    a = 0;                      // maps, then DFT(gy) -> gpre in place
+    g = a + k.buf();            // W-stage scratch, then n
+    z = g + k.buf();            // z (read by every rank)
+    full = z + k.buf();         // the item's z, gathered (R > 1)
+    tab = full + k.full();      // cw, dw, ah, bh
+    kc = tab + round4(k.tables());  // K[j][d] for the rank's d, [j][dl]
+    vec = kc + k.kslice();      // mean, inv, scale, bias (2cr each)
+    cvec = vec + round4(8 * k.cr);
+    total = cvec + k.wf;
+  }
+};
+
+// The rank's channels of one item's partial row [sums of a (2C) | sums of b
+// (2C)], a and b the two sums of item_channel_sums.
+__device__ __forceinline__ void write_sums(float* row, const ItemRank& k, int rank, int dl,
+                                           float2 sums) {
+  const int d = k.channel(dl, rank);
+  row[d] = sums.x;
+  row[2 * k.C + d] = sums.y;
+}
+
+// The batch statistics' partial sums of one item on a cluster of R ranks
+// (fourier_unit_item.cuh): each rank transforms x on its channels; after a
+// barrier it gathers the item's z, computes its channels of m into b and
+// writes sum_s m and sum_s m^2 of each to the item's row [sum m (2C) | sum
+// m^2 (2C)].
+template <typename T>
+__global__ void __launch_bounds__(kItemThreads)
+fu_item_train_stats_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
+                           const float* __restrict__ tables, float* __restrict__ partial,
+                           int C, int H, int W) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const ItemRank k(C, H, W, static_cast<int>(cluster.num_blocks()));
+  const TrainStatsPlan pl(k);
+  float* a = smem + pl.a;
+  float* b = smem + pl.b;
+  const ItemTables tab(smem + pl.tab, k);
+  float* kc = smem + pl.kc;
+  const size_t item = blockIdx.x / k.R;
+  const size_t planes = (item * C + rank * k.cr) * static_cast<size_t>(H) * W;
+
+  // 1. The rank's planes (as they are into b, asynchronously, where they
+  //    are whole 16-byte units) and the tables, while its slice of K loads;
+  //    then the planes in f32 into a.
+  const int map_bytes = k.cr * H * W * static_cast<int>(sizeof(T));
+  const bool units = in_units(x + planes, map_bytes);
+  if (units) copy_async(b, x + planes, map_bytes);
+  copy_tables(smem + pl.tab, tables, k.tables());
+  load_kslice<true>(kc, kmix_g, k, rank);
+  wait_async();
+  __syncthreads();
+  if (units) {
+    unpack_planes(a, reinterpret_cast<const T*>(b), k);
+  } else {
+    load_planes(a, x + planes, k);
+  }
+  __syncthreads();
+
+  // 2. rDFT over W into b, DFT over H into a: the rank's z.
+  item_dft_w(a, b, tab, k);
+  __syncthreads();
+  item_dft_h<false>(b, a, tab, k);
+  cluster.sync();  // every rank's z is in its shared memory
+
+  // 3. The item's z from every rank, then the rank's channels of m = z K
+  //    into b, and their sums.
+  const float* z = cluster_gather(cluster, a, smem + pl.full, k);
+  item_mix(z, kc, k, [=](int dl, int s, float m) { b[dl * k.hwf + s] = m; });
+  __syncthreads();
+  float* row = partial + item * 4 * C;
+  item_channel_sums(
+      k,
+      [=](float2& acc, int o) {
+        const float m = b[o];
+        acc.x += m;
+        acc.y = fmaf(m, m, acc.y);
+      },
+      [=](int dl, float2 sums) { write_sums(row, k, rank, dl, sums); });
+  cluster.sync();  // no rank leaves while another still gathers from its a
+}
+
+// The backward sums' partials of one item on a cluster of R ranks: each
+// rank transforms x and gy on its channels; after a barrier it gathers the
+// item's z, computes its channels of m and, in place of DFT(gy) in a, gpre
+// = c * DFT(gy) where pre > 0 (else 0), with n in g beside it, and writes
+// sum_s gpre * n and sum_s gpre of each channel to the item's row [sum gpre
+// * n (2C) | sum gpre (2C)]: stages 1-3 of fu_item_bwd_apply_kernel.
+template <typename T>
+__global__ void __launch_bounds__(kItemThreads)
+fu_item_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ gy,
+                         const T* __restrict__ kmix_g, const float* __restrict__ tables,
+                         const float* __restrict__ scale, const float* __restrict__ bias,
+                         const float* __restrict__ mean, const float* __restrict__ var,
+                         float* __restrict__ partial, int C, int H, int W) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const ItemRank k(C, H, W, static_cast<int>(cluster.num_blocks()));
+  const BwdStatsPlan pl(k);
+  float* a = smem + pl.a;
+  float* g = smem + pl.g;
+  float* z = smem + pl.z;
+  const ItemTables tab(smem + pl.tab, k);
+  float* kc = smem + pl.kc;
+  const int c2r = 2 * k.cr;
+  float* bn_mean = smem + pl.vec;
+  float* bn_inv = bn_mean + c2r;
+  float* bn_scale = bn_inv + c2r;
+  float* bn_bias = bn_scale + c2r;
+  float* cvec = smem + pl.cvec;
+  const size_t item = blockIdx.x / k.R;
+  const size_t planes = (item * C + rank * k.cr) * static_cast<size_t>(H) * W;
+
+  // 1. x's planes (as they are into g, asynchronously, where they are whole
+  //    16-byte units) and gy's (likewise into the gather buffer, which is
+  //    free until the gather, where there is one) and the tables, while the
+  //    slice of K and the vectors load; then x's planes in f32 into a.
+  const int map_bytes = k.cr * H * W * static_cast<int>(sizeof(T));
+  const bool units = in_units(x + planes, map_bytes) && in_units(gy + planes, map_bytes);
+  float* gy_raw = k.R > 1 && units ? smem + pl.full : nullptr;
+  if (units) copy_async(g, x + planes, map_bytes);
+  if (gy_raw) copy_async(gy_raw, gy + planes, map_bytes);
+  copy_tables(smem + pl.tab, tables, k.tables());
+  // The vectors of the thread's first channel load before the slice of K,
+  // so that their latencies overlap.
+  const int d0 = k.channel(min(static_cast<int>(threadIdx.x), c2r - 1), rank);
+  const float v0[4] = {mean[d0], var[d0], scale[d0], bias[d0]};
+  load_kslice<true>(kc, kmix_g, k, rank);
+  for (int dl = threadIdx.x; dl < c2r; dl += kItemThreads) {
+    const int d = k.channel(dl, rank);
+    const bool first = dl == static_cast<int>(threadIdx.x);
+    bn_mean[dl] = first ? v0[0] : mean[d];
+    bn_inv[dl] = rsqrtf((first ? v0[1] : var[d]) + kEps);
+    bn_scale[dl] = first ? v0[2] : scale[d];
+    bn_bias[dl] = first ? v0[3] : bias[d];
+  }
+  for (int v = threadIdx.x; v < k.wf; v += kItemThreads) cvec[v] = k.half_weight(v);
+  wait_async();
+  __syncthreads();
+  if (units) {
+    unpack_planes(a, reinterpret_cast<const T*>(g), k);
+  } else {
+    load_planes(a, x + planes, k);
+  }
+  __syncthreads();
+
+  // 2. z = DFT(x) into z, then DFT(gy) into a.
+  item_dft_w(a, g, tab, k);
+  __syncthreads();
+  item_dft_h<false>(g, z, tab, k);
+  __syncthreads();
+  if (gy_raw) {
+    unpack_planes(a, reinterpret_cast<const T*>(gy_raw), k);
+  } else {
+    load_planes(a, gy + planes, k);
+  }
+  __syncthreads();
+  item_dft_w(a, g, tab, k);
+  __syncthreads();
+  item_dft_h<false>(g, a, tab, k);
+  cluster.sync();  // every rank's z is in its shared memory
+
+  // 3. gpre of the rank's channels in place of DFT(gy) in a, n in g; m from
+  //    the item's z, gathered. Then their sums.
+  const float* zs = cluster_gather(cluster, z, smem + pl.full, k);
+  item_mix(zs, kc, k, [=](int dl, int s, float m) {
+    const int o = dl * k.hwf + s;
+    const float n_hat = (m - bn_mean[dl]) * bn_inv[dl];
+    const float pre = n_hat * bn_scale[dl] + bn_bias[dl];
+    a[o] = pre > 0.f ? cvec[s % k.wf] * a[o] : 0.f;
+    g[o] = n_hat;
+  });
+  __syncthreads();
+  float* row = partial + item * 4 * C;
+  item_channel_sums(
+      k,
+      [=](float2& acc, int o) {
+        const float gpre = a[o];
+        acc.x = fmaf(gpre, g[o], acc.x);
+        acc.y += gpre;
+      },
+      [=](int dl, float2 sums) { write_sums(row, k, rank, dl, sums); });
+  cluster.sync();  // no rank leaves while another still gathers from its z
+}
+
+// Buffer plan in floats of one rank of fu_item_bwd_apply_kernel.
 struct ItemPlan {
   int a, g, z, full, tab, kc, kr, vec, cvec, total;
   __host__ __device__ explicit ItemPlan(const ItemRank& k) {
@@ -533,65 +746,67 @@ fu_reduce_kernel(const float* __restrict__ partial, int rows, int cols, long lon
   cluster.sync();  // no block leaves while rank 0 still reads its shared memory
 }
 
-size_t smem_bytes(int C, int H, int W, int layout) {
-  return layout == kShared ? static_cast<size_t>(Plan(C, H, W).total) * sizeof(float) : 0;
+bool bad_args(int B, int C, int H, int W, const float* ws) {
+  return B <= 0 || C <= 0 || H <= 0 || W <= 0 || ws == nullptr;
 }
 
-bool bad_args(int B, int C, int H, int W, int layout, const float* ws) {
-  return B <= 0 || C <= 0 || H <= 0 || W <= 0 || (layout == kWorkspace && ws == nullptr);
+// The clustered kernels' launch: B clusters of `ranks` blocks (1, 2, 4 or 8,
+// dividing C); the tables 16-byte aligned.
+bool bad_item_args(int B, int C, int H, int W, int ranks, const float* tables) {
+  return B <= 0 || C <= 0 || H <= 0 || W <= 0 || !cluster_size_ok(ranks) || C % ranks != 0 ||
+         reinterpret_cast<size_t>(tables) % 16 != 0;
+}
+
+template <typename Plan_>
+size_t rank_smem(int C, int H, int W, int ranks) {
+  return static_cast<size_t>(Plan_(ItemRank(C, H, W, ranks)).total) * sizeof(float);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of the buffers of one (C, H, W) item, for any of the three per-item
-// kernels: the bytes of dynamic shared memory a block needs in kShared (times
-// 4), the workspace floats per item in kWorkspace.
+// Floats of the buffers of one (C, H, W) item in the workspace kernels: the
+// workspace floats per item (and the plan kernel_design reads).
 long long ffc_item_floats(int C, int H, int W) { return Plan(C, H, W).total; }
 
-// Lets the dtype's kShared per-item kernels take up to `bytes` of dynamic
-// shared memory on the current device. Returns a cudaError_t (0 on success).
+// Lets the dtype's clustered kernels take up to `bytes` of dynamic shared
+// memory on the current device. Returns a cudaError_t (0 on success).
 int ffc_allow_smem(int dtype, int bytes) {
-  return dispatch<1>(dtype, kShared, [&](auto tag, auto) {
+  return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
     const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-    int e = cudaFuncSetAttribute(fu_train_stats_kernel<T, kShared>, attr, bytes);
-    if (e == 0) e = cudaFuncSetAttribute(fu_bwd_stats_kernel<T, kShared>, attr, bytes);
+    int e = cudaFuncSetAttribute(fu_item_train_stats_kernel<T>, attr, bytes);
+    if (e == 0) e = cudaFuncSetAttribute(fu_item_bwd_stats_kernel<T>, attr, bytes);
     if (e == 0) e = cudaFuncSetAttribute(fu_item_bwd_apply_kernel<T>, attr, bytes);
     return e;
   });
 }
 
-// dtype: 0 = float32, 1 = bfloat16; layout: kShared (ws null; the caller has
-// checked the plan against the limit set by ffc_allow_smem) or kWorkspace (ws:
-// B * ffc_item_floats(...) floats). partial: (B, 4C) float32. Each entry point
+// The workspace statistics. dtype: 0 = float32, 1 = bfloat16; ws: B *
+// ffc_item_floats(...) floats; partial: (B, 4C) float32. Each entry point
 // returns a cudaError_t (0 on success).
-int ffc_fu_train_stats(int dtype, int layout, const void* x, const void* k,
-                       float* partial, float* ws, int B, int C, int H, int W,
-                       void* stream) {
-  if (bad_args(B, C, H, W, layout, ws)) return cudaErrorInvalidValue;
+int ffc_fu_train_stats(int dtype, const void* x, const void* k, float* partial, float* ws,
+                       int B, int C, int H, int W, void* stream) {
+  if (bad_args(B, C, H, W, ws)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(C, H, W, layout);
-  return dispatch<kLayouts>(dtype, layout, [&](auto tag, auto lay) {
+  return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
-    fu_train_stats_kernel<T, decltype(lay)::value><<<B, kThreads, smem, s>>>(
+    fu_train_stats_kernel<T><<<B, kThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<const T*>(k), partial, ws, C, H, W);
     return static_cast<int>(cudaGetLastError());
   });
 }
 
-// partial: (B, 4C) float32.
-int ffc_fu_bwd_stats(int dtype, int layout, const void* x, const void* gy,
-                     const void* k, const float* scale, const float* bias,
-                     const float* mean, const float* var, float* partial, float* ws,
-                     int B, int C, int H, int W, void* stream) {
-  if (bad_args(B, C, H, W, layout, ws)) return cudaErrorInvalidValue;
+// The workspace backward sums; partial: (B, 4C) float32.
+int ffc_fu_bwd_stats(int dtype, const void* x, const void* gy, const void* k,
+                     const float* scale, const float* bias, const float* mean, const float* var,
+                     float* partial, float* ws, int B, int C, int H, int W, void* stream) {
+  if (bad_args(B, C, H, W, ws)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(C, H, W, layout);
-  return dispatch<kLayouts>(dtype, layout, [&](auto tag, auto lay) {
+  return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
-    fu_bwd_stats_kernel<T, decltype(lay)::value><<<B, kThreads, smem, s>>>(
+    fu_bwd_stats_kernel<T><<<B, kThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<const T*>(gy), static_cast<const T*>(k),
         scale, bias, mean, var, partial, ws, C, H, W);
     return static_cast<int>(cudaGetLastError());
@@ -599,13 +814,13 @@ int ffc_fu_bwd_stats(int dtype, int layout, const void* x, const void* gy,
 }
 
 // The workspace backward apply. gx: like x; partial_gk: (B, 2C, 2C) float32;
-// gscale and gbias are the reduced output of ffc_fu_bwd_stats; ws: B *
+// gscale and gbias are the reduced backward sums; ws: B *
 // ffc_item_floats(...) floats.
 int ffc_fu_bwd_apply(int dtype, const void* x, const void* gy, const void* k,
                      const float* scale, const float* bias, const float* mean,
                      const float* var, const float* gscale, const float* gbias, void* gx,
                      float* partial_gk, float* ws, int B, int C, int H, int W, void* stream) {
-  if (bad_args(B, C, H, W, kWorkspace, ws)) return cudaErrorInvalidValue;
+  if (bad_args(B, C, H, W, ws)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
@@ -617,34 +832,69 @@ int ffc_fu_bwd_apply(int dtype, const void* x, const void* gy, const void* k,
   });
 }
 
-// Floats of shared memory one rank of fu_item_bwd_apply_kernel takes on a
-// cluster of R ranks (R dividing C).
+// Floats of shared memory one rank of each clustered kernel takes on a
+// cluster of R ranks (R dividing C): the backward apply's, the statistics'
+// and the backward sums'.
 long long ffc_item_rank_floats(int C, int H, int W, int R) {
   return ItemPlan(ItemRank(C, H, W, R)).total;
 }
+long long ffc_item_train_stats_rank_floats(int C, int H, int W, int R) {
+  return TrainStatsPlan(ItemRank(C, H, W, R)).total;
+}
+long long ffc_item_bwd_stats_rank_floats(int C, int H, int W, int R) {
+  return BwdStatsPlan(ItemRank(C, H, W, R)).total;
+}
 
-// The clustered backward apply: B clusters of `ranks` blocks (1, 2, 4 or 8,
-// dividing C), each rank ffc_item_rank_floats(...) * 4 bytes of shared
-// memory (checked by the caller against the limit set by ffc_allow_smem);
-// tables as for ffc_fu_item_fwd; outputs as for ffc_fu_bwd_apply. A refused
-// cluster launch returns its error.
+// The clustered kernels: B clusters of `ranks` blocks (1, 2, 4 or 8,
+// dividing C), each rank its plan's floats * 4 bytes of shared memory
+// (checked by the caller against the limit set by ffc_allow_smem); tables
+// as for ffc_fu_item_fwd; outputs as for the workspace entry points. A
+// refused cluster launch returns its error.
+int ffc_fu_item_train_stats(int dtype, const void* x, const void* k, const float* tables,
+                            float* partial, int B, int C, int H, int W, int ranks,
+                            void* stream) {
+  if (bad_item_args(B, C, H, W, ranks, tables)) return cudaErrorInvalidValue;
+  const size_t smem = rank_smem<TrainStatsPlan>(C, H, W, ranks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch<1>(dtype, 0, [&](auto tag, auto) {
+    using T = typename decltype(tag)::type;
+    return launch_clustered<kItemThreads>(fu_item_train_stats_kernel<T>, B * ranks, ranks, smem,
+                                          s, static_cast<const T*>(x), static_cast<const T*>(k),
+                                          tables, partial, C, H, W);
+  });
+}
+
+int ffc_fu_item_bwd_stats(int dtype, const void* x, const void* gy, const void* k,
+                          const float* tables, const float* scale, const float* bias,
+                          const float* mean, const float* var, float* partial, int B, int C,
+                          int H, int W, int ranks, void* stream) {
+  if (bad_item_args(B, C, H, W, ranks, tables)) return cudaErrorInvalidValue;
+  const size_t smem = rank_smem<BwdStatsPlan>(C, H, W, ranks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch<1>(dtype, 0, [&](auto tag, auto) {
+    using T = typename decltype(tag)::type;
+    return launch_clustered<kItemThreads>(fu_item_bwd_stats_kernel<T>, B * ranks, ranks, smem,
+                                          s, static_cast<const T*>(x),
+                                          static_cast<const T*>(gy), static_cast<const T*>(k),
+                                          tables, scale, bias, mean, var, partial, C, H, W);
+  });
+}
+
 int ffc_fu_item_bwd_apply(int dtype, const void* x, const void* gy, const void* k,
                           const float* tables, const float* scale, const float* bias,
                           const float* mean, const float* var, const float* gscale,
                           const float* gbias, void* gx, float* partial_gk, int B, int C,
                           int H, int W, int ranks, void* stream) {
-  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || !cluster_size_ok(ranks) || C % ranks != 0 ||
-      reinterpret_cast<size_t>(tables) % 16 != 0)
-    return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(ffc_item_rank_floats(C, H, W, ranks)) * sizeof(float);
-  const unsigned grid = static_cast<unsigned>(B) * ranks;
+  if (bad_item_args(B, C, H, W, ranks, tables)) return cudaErrorInvalidValue;
+  const size_t smem = rank_smem<ItemPlan>(C, H, W, ranks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
-    return launch_clustered<kItemThreads>(fu_item_bwd_apply_kernel<T>, grid, ranks, smem, s,
-                            static_cast<const T*>(x), static_cast<const T*>(gy),
-                            static_cast<const T*>(k), tables, scale, bias, mean, var, gscale,
-                            gbias, static_cast<T*>(gx), partial_gk, C, H, W);
+    return launch_clustered<kItemThreads>(fu_item_bwd_apply_kernel<T>, B * ranks, ranks, smem,
+                                          s, static_cast<const T*>(x),
+                                          static_cast<const T*>(gy), static_cast<const T*>(k),
+                                          tables, scale, bias, mean, var, gscale, gbias,
+                                          static_cast<T*>(gx), partial_gk, C, H, W);
   });
 }
 

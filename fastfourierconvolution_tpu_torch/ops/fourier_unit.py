@@ -43,10 +43,11 @@ run a map: their per-item kernel with the item in shared memory; else the
 staged kernels, which work per (item, channel) plane and per tile of
 spectral positions (the wrapper then launches those and not its own
 kernel); else their per-item kernel with the item in an f32 device
-workspace. In shared memory the forward and the backward apply run their
-clustered kernel (``csrc/fourier_unit_item.cuh``): each item on a
-thread-block cluster of :func:`item_design` ranks, each rank on its share
-of the channels, with DFT tables built once per (H, W) and device
+workspace. In shared memory every per-item wrapper (the forward, the
+statistics, the backward sums and the backward apply) runs its clustered
+kernel (``csrc/fourier_unit_item.cuh``): each item on a thread-block
+cluster of :func:`item_design` ranks, each rank on its share of the
+channels, with DFT tables built once per (H, W) and device
 (``_item_tables``).
 
 ``fourier_unit_train`` is the training op the model calls: an autograd
@@ -320,27 +321,30 @@ def _check_args(x, kernel, **vectors):
 #
 # Each library exports ffc_allow_smem(dtype, bytes) and ffc_error_string(code)
 # beside its entry points, which return a cudaError_t; the per-item
-# libraries also ffc_item_floats(C, H, W), the plan that _item_floats
-# mirrors, and ffc_item_rank_floats(C, H, W, R), the plan of one rank of
-# their clustered kernel that _item_rank_floats mirrors. A per-item
-# statistics kernel keeps its item's buffers in shared memory (layout 0) or
-# in the item's slice of an f32 device workspace (layout 1,
-# csrc/fourier_unit_common.cuh); the forward and the backward apply run
-# their clustered kernel (csrc/fourier_unit_item.cuh) where the map is
-# SHARED and their workspace kernel where it is WORKSPACE.
+# libraries also ffc_item_floats(C, H, W), the workspace kernels' plan that
+# _item_floats mirrors, and ffc_item_rank_floats(C, H, W, R) (the training
+# library also ffc_item_train_stats_rank_floats and
+# ffc_item_bwd_stats_rank_floats), the plan of one rank of a clustered
+# kernel that _item_rank_floats mirrors. Each per-item wrapper runs its
+# clustered kernel (csrc/fourier_unit_item.cuh) where the map is SHARED and
+# its workspace kernel, which keeps the item's buffers in its slice of an
+# f32 device workspace (csrc/fourier_unit_common.cuh), where it is
+# WORKSPACE.
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD, _TRAIN, _STAGED = "fourier_unit_fwd", "fourier_unit_train", "fourier_unit_staged"
-_SHARED, _WORKSPACE = 0, 1
 _ENTRY_POINTS = {
     _FWD: {
         "ffc_fourier_unit_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "ffc_fu_item_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     _TRAIN: {
-        "ffc_fu_train_stats": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "ffc_fu_bwd_stats": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        "ffc_fu_train_stats": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ffc_fu_bwd_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _P],
+        "ffc_fu_item_train_stats": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "ffc_fu_item_bwd_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _P],
         "ffc_fu_bwd_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _P],
         "ffc_fu_item_bwd_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -358,6 +362,14 @@ _ENTRY_POINTS = {
                                  _I, _I, _I, _I, _I, _P],
     },
 }
+# The export of each clustered kernel's per-rank plan, by library and by
+# the kernel's name in _item_rank_floats.
+_RANK_FLOATS = {
+    _FWD: {"forward": "ffc_item_rank_floats"},
+    _TRAIN: {"bwd_apply": "ffc_item_rank_floats",
+             "train_stats": "ffc_item_train_stats_rank_floats",
+             "bwd_stats": "ffc_item_bwd_stats_rank_floats"},
+}
 
 
 @functools.cache
@@ -372,8 +384,10 @@ def _library(stem: str) -> ctypes.CDLL:
         getattr(lib, name).restype = _I
     if stem in (_FWD, _TRAIN):
         lib.ffc_item_floats.argtypes = [_I, _I, _I]
-        lib.ffc_item_rank_floats.argtypes = [_I, _I, _I, _I]
-        lib.ffc_item_floats.restype = lib.ffc_item_rank_floats.restype = _LL
+        lib.ffc_item_floats.restype = _LL
+        for name in _RANK_FLOATS[stem].values():
+            getattr(lib, name).argtypes = [_I, _I, _I, _I]
+            getattr(lib, name).restype = _LL
     return lib
 
 
@@ -411,8 +425,9 @@ _TILE, _MIX_BLOCKS = 64, 512
 
 
 def _item_floats(stem: str, c: int, h: int, w: int) -> int:
-    """Floats of one item's buffers in a per-item kernel of ``stem``: the
-    ``Plan`` of csrc/fourier_unit_fwd.cu or csrc/fourier_unit_train.cu."""
+    """Floats of one item's buffers in a workspace kernel of ``stem``: the
+    ``Plan`` of csrc/fourier_unit_fwd.cu or csrc/fourier_unit_train.cu,
+    which :func:`kernel_design` holds against a block's shared memory."""
     wf = w // 2 + 1
     n_spec, n_map, c2 = c * h * wf, c * h * w, 2 * c
     pair_or_map = max(n_map, 2 * n_spec)
@@ -442,13 +457,15 @@ def kernel_design(wrapper: str, c: int, h: int, w: int, smem_limit: int) -> str:
     card whose blocks may take ``smem_limit`` bytes of shared memory; a
     fixed rule, not a knob:
 
-    - ``SHARED``: the wrapper's per-item kernel with the item's buffers in
-      shared memory, wherever its plan (``_item_floats``) fits the limit;
+    - ``SHARED``: the wrapper's clustered per-item kernel, its item's
+      buffers in shared memory, wherever the workspace kernel's plan
+      (``_item_floats``) fits the limit (:func:`item_design` then picks
+      ranks whose plans fit);
     - ``STAGED``: else the staged kernels, wherever they take the map: H and
       W powers of two (at least 4), 2C one of 16, 32, 64, 128, and their
       shared memory (``_staged_smem``) within the limit;
-    - ``WORKSPACE``: else the per-item kernel with the item's buffers in a
-      device workspace, which takes any map.
+    - ``WORKSPACE``: else the per-item workspace kernel, the item's
+      buffers in a device workspace, which takes any map.
 
     The statistics share the backward apply's per-item plan, so the two
     always take the same design. At 227 KB (an H100) the 32px generator's
@@ -467,24 +484,29 @@ def _round4(n: int) -> int:
     return (n + 3) & ~3
 
 
-def _item_rank_floats(wrapper: str, c: int, h: int, w: int, ranks: int) -> int:
-    """Floats of shared memory one rank of the clustered per-item kernel of
-    ``wrapper`` ("forward" or "bwd_apply") takes on a cluster of ``ranks``:
-    the ``ItemPlan`` of csrc/fourier_unit_fwd.cu or csrc/fourier_unit_train.cu
-    (16-byte aligned regions). Per rank: two (forward) or three spectrum-pair
-    buffers of its C/R channels, on more than one rank the item's whole
-    spectrum gathered from the ranks, the tables, one or two (2C, 2C/R)
-    slices of K, four or six (2C/R,) vectors and the half-spectrum
-    weights."""
+def _item_rank_floats(kernel: str, c: int, h: int, w: int, ranks: int) -> int:
+    """Floats of shared memory one rank of a clustered per-item kernel takes
+    on a cluster of ``ranks``: ``kernel`` "forward" (``ItemPlan`` of
+    csrc/fourier_unit_fwd.cu), "bwd_apply", "train_stats" or "bwd_stats"
+    (``ItemPlan``, ``TrainStatsPlan``, ``BwdStatsPlan`` of
+    csrc/fourier_unit_train.cu; 16-byte aligned regions), or "stats", the
+    larger of the statistics' two. Per rank: two (forward, statistics) or
+    three spectrum-pair buffers of its C/R channels, on more than one rank
+    the item's whole spectrum gathered from the ranks, the tables, one or
+    two (2C, 2C/R) slices of K and, in all but the statistics, four
+    (forward, backward sums) or six (backward apply) (2C/R,) vectors and
+    the half-spectrum weights."""
+    if kernel == "stats":
+        return max(_item_rank_floats(k, c, h, w, ranks) for k in ("train_stats", "bwd_stats"))
     wf = w // 2 + 1
     cr = c // ranks
     buf = _round4(2 * cr * h * wf)
-    full = _round4(2 * c * h * wf) if ranks > 1 else 0
-    tables = _round4(2 * w * wf + 2 * h * h)
+    shared = (_round4(2 * c * h * wf) if ranks > 1 else 0) + _round4(2 * w * wf + 2 * h * h)
     kslice = _round4(4 * c * cr)
-    if wrapper == "forward":
-        return 2 * buf + full + tables + kslice + _round4(8 * cr) + wf
-    return 3 * buf + full + tables + 2 * kslice + _round4(12 * cr) + wf
+    buffers, kslices, vectors = {"forward": (2, 1, 4), "train_stats": (2, 1, 0),
+                                 "bwd_stats": (3, 1, 4), "bwd_apply": (3, 2, 6)}[kernel]
+    return (buffers * buf + shared + kslices * kslice
+            + (_round4(2 * vectors * cr) + wf if vectors else 0))
 
 
 # The cluster sizes of the clustered per-item kernels.
@@ -494,7 +516,7 @@ _ITEM_RANKS = (1, 2, 4, 8)
 @functools.cache
 def item_design(b: int, c: int, h: int, w: int, smem_limit: int) -> int:
     """Ranks R of the thread-block cluster on which the clustered per-item
-    forward and backward apply run each item of a (B, C, H, W) map; a fixed
+    kernels run each item of a (B, C, H, W) map; a fixed
     rule, not a knob. R is one of 1, 2, 4, 8 and divides C, and each rank's
     plan (``_item_rank_floats``) of every kernel that :func:`kernel_design`
     sends to ``SHARED`` at this map fits ``smem_limit``; of those, the most
@@ -503,7 +525,7 @@ def item_design(b: int, c: int, h: int, w: int, smem_limit: int) -> int:
     slots busy, so two blocks on one SM take twice as long: a second wave
     costs more than the ranks save (``tools/item_design_sweep.py``).
     Raises where no R fits."""
-    kernels = [k for k in ("forward", "bwd_apply")
+    kernels = [k for k in ("forward", "bwd_apply", "stats")
                if kernel_design(k, c, h, w, smem_limit) == SHARED]
     fits = [r for r in _ITEM_RANKS
             if c % r == 0 and all(_item_rank_floats(k, c, h, w, r) * 4 <= smem_limit
@@ -579,17 +601,6 @@ def _workspace(stem: str, x: torch.Tensor) -> torch.Tensor:
     """A workspace kernel's f32 workspace, B items of the plan's floats, from
     PyTorch's allocator, which raises if it cannot be had."""
     return torch.empty(x.shape[0] * _item_floats(stem, *x.shape[1:]), device=x.device)
-
-
-def _prepare_launch(stem: str, *tensors):
-    """Checks contiguity and picks a per-item statistics kernel's buffer
-    layout for x's map: returns (layout, workspace or None)."""
-    _contiguous(*tensors)
-    x = tensors[0]
-    if _item_floats(stem, *x.shape[1:]) * 4 <= _smem_limit(stem, x.device.index,
-                                                           _DTYPE_CODES[x.dtype]):
-        return _SHARED, None
-    return _WORKSPACE, _workspace(stem, x)
 
 
 def _ptr(t):
@@ -683,42 +694,60 @@ def _reduce(partial, count=0, aligned=True):
 
 @_counted
 def fu_train_stats(x, kernel):
-    """(bmean, bvar) of m over (B, H, Wf), f32; on CUDA the per-item stats
-    kernel and ``fu_reduce``, or the staged kernels (``fu_spectrum``,
+    """(bmean, bvar) of m over (B, H, Wf), f32; on CUDA the clustered
+    per-item kernel (:func:`item_design` ranks per item) or the workspace
+    kernel, each with ``fu_reduce``, or the staged kernels (``fu_spectrum``,
     ``fu_mix_stats``), as :func:`kernel_design` picks; on the CPU the plain
     version."""
     _check_args(x, kernel)
     if x.device.type == "cpu":
         return fu_train_stats_plain(x, kernel)
-    if _design("stats", x) == STAGED:
+    design = _design("stats", x)
+    if design == STAGED:
         return fu_mix_stats(fu_spectrum(x)[0], kernel)
-    layout, ws = _prepare_launch(_TRAIN, x, kernel)
+    _contiguous(x, kernel)
     b, c, h, w = x.shape
     partial = torch.empty(b, 4 * c, device=x.device)
-    _launch(_TRAIN, "ffc_fu_train_stats", x, _DTYPE_CODES[x.dtype], layout, x.data_ptr(),
-            kernel.data_ptr(), partial.data_ptr(), _ptr(ws), b, c, h, w)
+    operands = (_DTYPE_CODES[x.dtype], x.data_ptr(), kernel.data_ptr())
+    if design == SHARED:
+        ranks, tables = _item_launch(_TRAIN, x)
+        _launch(_TRAIN, "ffc_fu_item_train_stats", x, *operands, tables.data_ptr(),
+                partial.data_ptr(), b, c, h, w, ranks)
+    else:
+        ws = _workspace(_TRAIN, x)
+        _launch(_TRAIN, "ffc_fu_train_stats", x, *operands, partial.data_ptr(), ws.data_ptr(),
+                b, c, h, w)
     _count(fu_train_stats, (c, h, w))
     return _reduce(partial, b * h * (w // 2 + 1)).split(2 * c)
 
 
 @_counted
 def fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy):
-    """(gscale, gbias) = (Σ gpre·n̂, Σ gpre), f32; on CUDA the per-item
-    backward stats kernel and ``fu_reduce``, or the staged kernels
-    (``fu_spectrum`` of x and gy, ``fu_bwd_stats_mix``), as
-    :func:`kernel_design` picks; on the CPU the plain version."""
+    """(gscale, gbias) = (Σ gpre·n̂, Σ gpre), f32; on CUDA the clustered
+    per-item kernel (:func:`item_design` ranks per item) or the workspace
+    kernel, each with ``fu_reduce``, or the staged kernels (``fu_spectrum``
+    of x and gy, ``fu_bwd_stats_mix``), as :func:`kernel_design` picks; on
+    the CPU the plain version."""
     _check_args(x, kernel, scale=scale, bias=bias, bmean=bmean, bvar=bvar, gy=gy)
     if x.device.type == "cpu":
         return fu_bwd_stats_plain(x, kernel, scale, bias, bmean, bvar, gy)
-    if _design("stats", x) == STAGED:
+    design = _design("stats", x)
+    if design == STAGED:
         z, g = fu_spectrum(x, gy)
         return fu_bwd_stats_mix(z, g, kernel, scale, bias, bmean, bvar)
-    layout, ws = _prepare_launch(_TRAIN, x, kernel, scale, bias, bmean, bvar, gy)
+    _contiguous(x, kernel, scale, bias, bmean, bvar, gy)
     b, c, h, w = x.shape
     partial = torch.empty(b, 4 * c, device=x.device)
-    _launch(_TRAIN, "ffc_fu_bwd_stats", x, _DTYPE_CODES[x.dtype], layout, x.data_ptr(),
-            gy.data_ptr(), kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            bmean.data_ptr(), bvar.data_ptr(), partial.data_ptr(), _ptr(ws), b, c, h, w)
+    operands = (_DTYPE_CODES[x.dtype], x.data_ptr(), gy.data_ptr(), kernel.data_ptr())
+    vectors = (scale.data_ptr(), bias.data_ptr(), bmean.data_ptr(), bvar.data_ptr())
+    if design == SHARED:
+        ranks, tables = _item_launch(_TRAIN, x)
+        _launch(_TRAIN, "ffc_fu_item_bwd_stats", x, *operands, tables.data_ptr(), *vectors,
+                partial.data_ptr(), b, c, h, w, ranks)
+    else:
+        ws = _workspace(_TRAIN, x)
+        _launch(_TRAIN, "ffc_fu_bwd_stats", x, *operands, *vectors, partial.data_ptr(),
+                ws.data_ptr(), b, c, h, w)
     _count(fu_bwd_stats, (c, h, w))
     return _reduce(partial).split(2 * c)
 

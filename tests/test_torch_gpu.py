@@ -195,7 +195,8 @@ def test_large_map_kernels_match_plain(cuda, name):
     """f32 (TF32 off), every output within 1e-4 rel-max of the plain
     version in f64; every wrapper as the staged kernels, where the per-item
     plan of the training kernels would need the workspace."""
-    assert fu._prepare_launch(fu._TRAIN, torch.empty(LARGE_SHAPE, device=cuda))[0] == fu._WORKSPACE
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert fu._item_floats(fu._TRAIN, *LARGE_SHAPE[1:]) * 4 > limit
     _check_large_map(cuda, name, LARGE_SHAPE, getattr(fu, LARGE_SHAPE_LAUNCHES[name]))
 
 
@@ -204,7 +205,6 @@ def test_workspace_statistics_kernels_match_plain(cuda, name):
     """The statistics kernels in the per-item workspace layout, on a map
     that the staged kernels do not take: their own kernel launches, every
     output within 1e-4 rel-max of the plain version in f64."""
-    assert fu._prepare_launch(fu._TRAIN, torch.empty(WORKSPACE_SHAPE, device=cuda))[0] == fu._WORKSPACE
     assert fu._design("stats", torch.empty(WORKSPACE_SHAPE, device=cuda)) == fu.WORKSPACE
     _check_large_map(cuda, name, WORKSPACE_SHAPE, getattr(fu, name))
 
@@ -401,12 +401,13 @@ def test_item_plans_match_the_libraries(cuda, cmap):
     """The per-item plans that ``kernel_design`` reads, and the per-rank
     plans of the clustered kernels that ``item_design`` reads, are the
     kernels'."""
-    for stem, wrapper in ((fu._FWD, "forward"), (fu._TRAIN, "bwd_apply")):
+    for stem, exports in fu._RANK_FLOATS.items():
         lib = fu._library(stem)
         assert lib.ffc_item_floats(*cmap) == fu._item_floats(stem, *cmap)
-        for ranks in (1, 2, 4, 8):
-            assert lib.ffc_item_rank_floats(*cmap, ranks) == fu._item_rank_floats(
-                wrapper, *cmap, ranks)
+        for kernel, export in exports.items():
+            for ranks in (1, 2, 4, 8):
+                assert getattr(lib, export)(*cmap, ranks) == fu._item_rank_floats(
+                    kernel, *cmap, ranks)
 
 
 # Every map that kernel_design sends to SHARED for each clustered per-item
@@ -414,8 +415,13 @@ def test_item_plans_match_the_libraries(cuda, cmap):
 # and the 48px generator's (16, 24, 24) and (8, 48, 48) (forward only).
 ITEM_MAPS = {"fourier_unit_fwd": [(16, 16, 16), (8, 32, 32), (64, 16, 16), (16, 24, 24),
                                   (8, 48, 48)],
-             "fu_bwd_apply": [(16, 16, 16), (8, 32, 32), (16, 24, 24)]}
+             "fu_bwd_apply": [(16, 16, 16), (8, 32, 32), (16, 24, 24)],
+             "fu_train_stats": [(16, 16, 16), (8, 32, 32), (16, 24, 24)],
+             "fu_bwd_stats": [(16, 16, 16), (8, 32, 32), (16, 24, 24)]}
 ITEM_CASES = [(name, cmap) for name, maps in ITEM_MAPS.items() for cmap in maps]
+# The kernel_design wrapper of each clustered kernel's wrapper.
+ITEM_DESIGN = {"fourier_unit_fwd": "forward", "fu_bwd_apply": "bwd_apply",
+               "fu_train_stats": "stats", "fu_bwd_stats": "stats"}
 
 
 def _item_case(name, shape, dtype, device):
@@ -426,12 +432,11 @@ def _item_case(name, shape, dtype, device):
 
 
 def _check_item(name, shape, dtype, device, tol):
-    """One launch of the wrapper's clustered kernel (and, for the backward,
-    one ``fu_reduce``), every output within ``tol`` rel-max of the plain
-    version in f64, the same bits on a second launch."""
+    """One launch of the wrapper's clustered kernel (and, but for the
+    forward, one ``fu_reduce``), every output within ``tol`` rel-max of the
+    plain version in f64, the same bits on a second launch."""
     wrapper, plain, args = _item_case(name, shape, dtype, device)
-    assert fu._design("forward" if name == "fourier_unit_fwd" else "bwd_apply",
-                      args[0]) == fu.SHARED
+    assert fu._design(ITEM_DESIGN[name], args[0]) == fu.SHARED
     before = (wrapper.launches, fu.fu_reduce.launches)
     outs = wrapper(*args)
     torch.cuda.synchronize()
@@ -454,18 +459,22 @@ def _check_item(name, shape, dtype, device, tol):
 @pytest.mark.parametrize("batch", [1, 7, 64])
 @pytest.mark.parametrize("name,cmap", ITEM_CASES)
 def test_item_kernels_match_plain(cuda, name, cmap, batch, dtype, tol):
-    """The clustered per-item forward and backward apply at every map that
-    kernel_design sends to SHARED, at batch 1, 7 and 64 (ranks from
-    item_design), against their plain versions in f64 (the backward with
-    ``relu_margin_bias``): rel-max 1e-4 in f32, 2e-2 in bf16; the same
-    bits on two launches."""
+    """The clustered per-item forward, statistics, backward sums and
+    backward apply at every map that kernel_design sends to SHARED, at
+    batch 1, 7 and 64 (ranks from item_design), against their plain
+    versions in f64 (the backward with ``relu_margin_bias``): rel-max 1e-4
+    in f32, 2e-2 in bf16; the same bits on two launches."""
     _check_item(name, (batch,) + cmap, dtype, cuda, tol)
 
 
 @pytest.mark.parametrize("ranks", [1, 2, 4, 8])
 @pytest.mark.parametrize("name,cmap", [("fourier_unit_fwd", (16, 16, 16)),
                                        ("fu_bwd_apply", (8, 32, 32)),
-                                       ("fu_bwd_apply", (16, 24, 24))])
+                                       ("fu_bwd_apply", (16, 24, 24)),
+                                       ("fu_train_stats", (16, 16, 16)),
+                                       ("fu_train_stats", (8, 32, 32)),
+                                       ("fu_bwd_stats", (8, 32, 32)),
+                                       ("fu_bwd_stats", (16, 24, 24))])
 def test_item_kernels_at_every_cluster_size(cuda, monkeypatch, name, cmap, ranks):
     """Each cluster size the rule can pick, forced, in f32: within 1e-4
     rel-max of the plain version in f64, the same bits on two launches."""
@@ -474,7 +483,7 @@ def test_item_kernels_at_every_cluster_size(cuda, monkeypatch, name, cmap, ranks
 
 
 @pytest.mark.parametrize("shape", [(2, 6, 10, 14), (3, 4, 12, 9), (2, 3, 5, 7)])
-@pytest.mark.parametrize("name", ["fourier_unit_fwd", "fu_bwd_apply"])
+@pytest.mark.parametrize("name", list(ITEM_MAPS))
 def test_item_kernels_take_maps_of_odd_sizes(cuda, name, shape):
     """Maps whose H is no multiple of 4, whose W is odd or whose C is odd
     (the stages' unaligned loads and clamped tiles), in f32: within 1e-4
@@ -483,7 +492,7 @@ def test_item_kernels_take_maps_of_odd_sizes(cuda, name, shape):
 
 
 @pytest.mark.parametrize("ranks", [3, 16])
-@pytest.mark.parametrize("name", ["fourier_unit_fwd", "fu_bwd_apply"])
+@pytest.mark.parametrize("name", list(ITEM_MAPS))
 def test_item_kernels_raise_on_a_refused_cluster(cuda, monkeypatch, name, ranks):
     """A cluster shape the kernels refuse (3 ranks, or 16: beyond the
     portable 8) raises, with no fallback."""
@@ -491,6 +500,17 @@ def test_item_kernels_raise_on_a_refused_cluster(cuda, monkeypatch, name, ranks)
     monkeypatch.setattr(fu, "item_design", lambda *a: ranks)
     with pytest.raises(RuntimeError, match="launch failed"):
         wrapper(*args)
+
+
+@pytest.mark.parametrize("name", ["fu_train_stats", "fu_bwd_stats"])
+def test_item_statistics_give_the_same_bits_every_launch(cuda, name):
+    """The clustered statistics and backward sums at the 32px step's
+    (64, 8, 32, 32) in bf16, 2 ranks per item: four launches, one set of
+    bits (fixed-order sums per rank, then ``fu_reduce``)."""
+    wrapper, _, args = _item_case(name, (64, 8, 32, 32), torch.bfloat16, cuda)
+    first = wrapper(*args)
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(wrapper(*args), first))
 
 
 # fu_reduce's partial-sum shapes, (rows, cols, count): on the main path the

@@ -2,12 +2,14 @@
 arithmetic, on the CPU.
 
 ``fourier_unit.item_design`` picks the ranks per item of the clustered
-forward and backward apply (csrc/fourier_unit_item.cuh); it is a pure
-function, checked at every map that ``kernel_design`` sends to SHARED. The
+forward, statistics, backward sums and backward apply
+(csrc/fourier_unit_item.cuh); it is a pure function, checked at every map
+that ``kernel_design`` sends to SHARED. The
 kernels cannot run here, so their index arithmetic is emulated in numpy,
 task by task as the CUDA code walks it (tile sizes read from the header):
 every stage's tiles write every output once and read in range, the ranks
-own every channel once, and the emulated kernels, run in f64 through the
+own every channel once (and every column of a statistics kernel's partial
+row is written once per item), and the emulated kernels, run in f64 through the
 same buffers, stage order and tables, agree with ``np.fft`` and with the
 plain versions.
 """
@@ -59,7 +61,7 @@ def test_kernel_design_answers_do_not_move(cmap):
 
 
 def _shared_kernels(cmap):
-    return [k for k in ("forward", "bwd_apply")
+    return [k for k in ("forward", "bwd_apply", "stats")
             if fu.kernel_design(k, *cmap, H100_SMEM) == "shared"]
 
 
@@ -76,14 +78,24 @@ def test_item_design_at_the_shared_maps(shape):
 
 @pytest.mark.parametrize("cmap", SHARED_MAPS)
 def test_item_plans_shrink_with_the_ranks_and_fit_where_the_old_plan_fit(cmap):
-    """One rank's plan at R = 1 is no larger than the parent's per-item plan
-    that kernel_design reads (the forward's; the backward's up to its second
-    slice of K), and falls as R grows."""
+    """One rank's plan at R = 1 is no larger than the per-item plan that
+    kernel_design reads (the forward's; the backward's up to its second
+    slice of K; the statistics' and backward sums' within it), and falls as
+    R grows; the statistics' pair ("stats", what item_design checks) is
+    the larger of the two statistics plans, both within the backward
+    apply's."""
     c, h, w = cmap
     assert fu._item_rank_floats("forward", c, h, w, 1) <= fu._item_floats(fu._FWD, c, h, w)
     assert (fu._item_rank_floats("bwd_apply", c, h, w, 1)
             <= fu._item_floats(fu._TRAIN, c, h, w) + 4 * c * c)
-    for kernel in ("forward", "bwd_apply"):
+    for kernel in ("train_stats", "bwd_stats"):
+        assert fu._item_rank_floats(kernel, c, h, w, 1) <= fu._item_floats(fu._TRAIN, c, h, w)
+    for r in (1, 2, 4, 8):
+        if c % r == 0:
+            pair = [fu._item_rank_floats(k, c, h, w, r) for k in ("train_stats", "bwd_stats")]
+            assert fu._item_rank_floats("stats", c, h, w, r) == max(pair)
+            assert max(pair) <= fu._item_rank_floats("bwd_apply", c, h, w, r)
+    for kernel in ("forward", "bwd_apply", "train_stats", "bwd_stats", "stats"):
         sizes = [fu._item_rank_floats(kernel, c, h, w, r) for r in (1, 2, 4, 8) if c % r == 0]
         assert sizes == sorted(sizes, reverse=True)
 
@@ -295,6 +307,29 @@ def item_gk(k, z, gm, rank, gk, rec):
             part[: c2r * c2 * P].reshape(c2r * c2, P).sum(axis=1))
 
 
+WARPS = THREADS // 32
+
+
+def channel_sums(k, terms, rank, row, rec):
+    """``item_channel_sums`` with ``write_sums``: warp w takes the local
+    channels dl = w, w + WARPS, ...; its lanes sum the (n, 2) terms of the
+    flat indices dl * H * Wf + s over s = lane, lane + 32, ..., then the
+    shuffle tree (``warp_sum``: a lane whose source lies beyond the warp
+    adds its own value) leaves the pair in lane 0, which goes to
+    row[channel] and row[2C + channel]."""
+    for w in range(WARPS):
+        for dl in range(w, 2 * k.cr, WARPS):
+            lanes = np.zeros((32, 2))
+            for lane in range(32):
+                s = np.arange(lane, k.hwf, 32)
+                lanes[lane] = terms(dl * k.hwf + s).sum(axis=0) if s.size else 0.0
+            for off in (16, 8, 4, 2, 1):
+                src = np.arange(32) + off
+                lanes = lanes + lanes[np.where(src < 32, src, np.arange(32))]
+            d = k.channel(dl, rank)
+            rec(row, np.array([d, 2 * k.C + d]), lanes[0])
+
+
 def load_kslice(k, kmix, rank, columns):
     c2, c2r = 2 * k.C, 2 * k.cr
     i = np.arange(c2 * c2r)
@@ -383,6 +418,62 @@ def emulate_bwd_apply(x, gy, kmix, scale, bias, mean, var, gscale, gbias, ranks)
             idft_w(k, t, a[r], out, rec)
             gx[planes:planes + out.size] = out
     return gx.reshape(x.shape), gk_rows.sum(axis=0).reshape(2 * c, 2 * c)
+
+
+def emulate_train_stats(x, kmix, ranks, rec=None):
+    """fu_item_train_stats_kernel: the (B, 4C) partial rows [sum m | sum
+    m^2]."""
+    b_, c, h, w = x.shape
+    k, t = Rank(c, h, w, ranks), tables(h, w)
+    rec = rec or Writes()
+    rows = np.zeros((b_, 4 * c))
+    for item in range(b_):
+        a = [load_planes(k, x[item], r) for r in range(ranks)]
+        b = [np.zeros(k.buf) for _ in range(ranks)]
+        for r in range(ranks):
+            dft_w(k, t, a[r], b[r], rec)
+            dft_h(k, t, b[r], a[r], False, rec)
+        full = cluster_gather(k, a, rec)
+        for r in range(ranks):
+            item_mix(k, full, load_kslice(k, kmix, r, True),
+                     lambda dl, s, m, r=r: rec(b[r], dl * k.hwf + s, m))
+            channel_sums(k, lambda o, r=r: np.stack([b[r][o], b[r][o] ** 2], axis=-1), r,
+                         rows[item], rec)
+    return rows
+
+
+def emulate_bwd_stats(x, gy, kmix, scale, bias, mean, var, ranks):
+    """fu_item_bwd_stats_kernel: the (B, 4C) partial rows [sum gpre * n |
+    sum gpre]."""
+    b_, c, h, w = x.shape
+    k, t, rec = Rank(c, h, w, ranks), tables(h, w), Writes()
+    rows = np.zeros((b_, 4 * c))
+    for item in range(b_):
+        a = [load_planes(k, x[item], r) for r in range(ranks)]
+        g = [np.zeros(k.buf) for _ in range(ranks)]
+        z = [np.zeros(k.buf) for _ in range(ranks)]
+        for r in range(ranks):
+            dft_w(k, t, a[r], g[r], rec)
+            dft_h(k, t, g[r], z[r], False, rec)
+            a[r] = load_planes(k, gy[item], r)
+            dft_w(k, t, a[r], g[r], rec)
+            dft_h(k, t, g[r], a[r], False, rec)
+        full = cluster_gather(k, z, rec)
+        for r in range(ranks):
+            d = k.channel(np.arange(2 * k.cr), r)
+            inv = 1 / np.sqrt(var[d] + fu.EPS)
+
+            def epi(dl, s, m, r=r, d=d, inv=inv):
+                o = dl * k.hwf + s
+                n_hat = (m - mean[d][dl]) * inv[dl]
+                pre = n_hat * scale[d][dl] + bias[d][dl]
+                rec(a[r], o, np.where(pre > 0, k.half_weight(s % k.wf) * a[r][o], 0.0))
+                rec(g[r], o, n_hat)
+
+            item_mix(k, full, load_kslice(k, kmix, r, True), epi)
+            channel_sums(k, lambda o, r=r: np.stack([a[r][o] * g[r][o], a[r][o]], axis=-1),
+                         r, rows[item], rec)
+    return rows
 
 
 def _inputs(shape, seed=0):
@@ -495,3 +586,49 @@ def test_item_tables_are_the_plain_factor_matrices():
     assert flat.dtype == np.float32 and flat.size == 2 * 24 * 13 + 2 * 24 * 24
     assert np.array_equal(flat[: cw.size].reshape(cw.shape), cw)
     assert np.array_equal(flat[2 * cw.size: 2 * cw.size + ah.size].reshape(ah.shape), ah)
+
+
+@pytest.mark.parametrize("cmap,ranks", EMULATED)
+def test_item_statistics_write_every_partial_column_once(cmap, ranks):
+    """The statistics kernels' sums, walked warp by warp over every rank of
+    an item: each of the 4C columns of the item's partial row is written
+    exactly once (each rank its own channels, both halves)."""
+    c, h, w = cmap
+    k = Rank(c, h, w, ranks)
+    terms = np.random.default_rng(3).standard_normal((k.buf, 2))
+    rec, row = Writes(), np.zeros(4 * c)
+    for r in range(ranks):
+        channel_sums(k, lambda o: terms[o], r, row, rec)
+    assert rec.once(4 * c)
+
+
+STATS_MAPS = [m for m in SHARED_MAPS if fu.kernel_design("stats", *m, H100_SMEM) == "shared"]
+STATS_CASES = ([(m, r) for m in STATS_MAPS for r in (1, 2, 4, 8)]
+               + [(m, r) for m, r in EMULATED if m in ODD_MAPS])
+
+
+@pytest.mark.parametrize("cmap,ranks", STATS_CASES)
+def test_emulated_item_train_stats_match_the_plain_version(cmap, ranks):
+    """The emulated statistics kernel (every rank's transforms, the gather,
+    the mix and the warp sums), its rows reduced as fu_reduce reduces them,
+    against fu_train_stats_plain in f64, at batch 2."""
+    x, _, kmix, *_ = _inputs((2,) + cmap)
+    rows = emulate_train_stats(x, kmix, ranks)
+    count = 2 * cmap[1] * (cmap[2] // 2 + 1)
+    got = fu.fu_reduce_plain(torch.from_numpy(rows), count).split(2 * cmap[0])
+    for g, ref in zip(got, fu.fu_train_stats_plain(torch.from_numpy(x), torch.from_numpy(kmix))):
+        assert (g - ref).abs().max() <= 1e-6 * ref.abs().max()
+
+
+@pytest.mark.parametrize("cmap,ranks", STATS_CASES)
+def test_emulated_item_bwd_stats_match_the_plain_version(cmap, ranks):
+    """The emulated backward-sums kernel (x and gy transformed, gpre and n
+    from the mix's epilogue, the warp sums), its rows summed, against
+    fu_bwd_stats_plain in f64, at batch 2."""
+    x, gy, kmix, scale, bias, mean, var = _inputs((2,) + cmap)
+    rows = emulate_bwd_stats(x, gy, kmix, scale, bias, mean, var, ranks)
+    got = torch.from_numpy(rows.sum(axis=0)).split(2 * cmap[0])
+    refs = fu.fu_bwd_stats_plain(*(torch.from_numpy(v) for v in
+                                   (x, kmix, scale, bias, mean, var, gy)))
+    for g, ref in zip(got, refs):
+        assert (g - ref).abs().max() <= 1e-6 * ref.abs().max()

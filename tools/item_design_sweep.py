@@ -5,7 +5,8 @@
 
 Imports ``fastfourierconvolution_tpu_torch`` and ``chip_smoke`` from the
 working directory. For each map that ``kernel_design`` sends to SHARED for
-the forward (``fourier_unit_forward``) or the backward apply
+the forward (``fourier_unit_forward``), the statistics (``fu_train_stats``),
+the backward sums (``fu_bwd_stats``) or the backward apply
 (``fu_bwd_apply``), in bf16 at batch 1, 7 and 64, it forces each cluster
 size R (1, 2, 4 or 8, dividing C, each rank's plan within the card's shared
 memory) in place of ``item_design``'s pick and prints the profiler's device
@@ -24,10 +25,10 @@ import sys
 sys.path.insert(0, os.getcwd())
 
 BATCHES = (1, 7, 64)
+TRAIN_MAPS = [(16, 16, 16), (8, 32, 32), (16, 24, 24)]
 MAPS = {"fourier_unit_fwd": [(16, 16, 16), (8, 32, 32), (64, 16, 16), (16, 24, 24),
                              (8, 48, 48)],
-        "fu_bwd_apply": [(16, 16, 16), (8, 32, 32), (16, 24, 24)]}
-SYMBOL = {"fourier_unit_fwd": "fu_item_fwd_kernel", "fu_bwd_apply": "fu_item_bwd_apply_kernel"}
+        "fu_train_stats": TRAIN_MAPS, "fu_bwd_stats": TRAIN_MAPS, "fu_bwd_apply": TRAIN_MAPS}
 
 
 def main() -> int:
@@ -48,7 +49,7 @@ def main() -> int:
     lines = [json.dumps({"card": cs.card_line()})]
     best = {}
     for name, maps in MAPS.items():
-        wrapper = "forward" if name == "fourier_unit_fwd" else "bwd_apply"
+        _, plan, symbol = cs.ITEM_KERNELS[name]
         for cmap in maps:
             for b in BATCHES:
                 shape = (b,) + cmap
@@ -56,16 +57,17 @@ def main() -> int:
                     call, args = fu.fourier_unit_forward, cs.fu_inputs(shape, torch.bfloat16,
                                                                        device, cs.SEED)
                 else:
-                    call, args = fu.fu_bwd_apply, cs.bwd_inputs(shape, torch.bfloat16, device,
-                                                                cs.SEED)
+                    # the wrapper's own arguments, a prefix of the backward's
+                    call, _, args, _ = next(c[1:] for c in cs.train_cases(
+                        shape, torch.bfloat16, device, cs.SEED) if c[0] == name)
                 pick = rule(b, *cmap, limit)
                 for ranks in fu._ITEM_RANKS:
-                    if cmap[0] % ranks or fu._item_rank_floats(wrapper, *cmap, ranks) * 4 > limit:
+                    if cmap[0] % ranks or fu._item_rank_floats(plan, *cmap, ranks) * 4 > limit:
                         continue
                     fu.item_design = lambda *a, r=ranks: r
                     try:
                         ms = cs.time_ms(lambda: call(*args))
-                        dev = cs.kernel_device_ms(lambda: call(*args), SYMBOL[name], iters=20)
+                        dev = cs.kernel_device_ms(lambda: call(*args), symbol, iters=20)
                     finally:
                         fu.item_design = rule
                     row = {"name": name, "shape": list(shape), "dtype": "bfloat16",
