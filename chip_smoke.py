@@ -30,10 +30,17 @@ Phases, each of which raises on a failed check:
    f64, the public wrapper and the callers' entry giving the same bits on
    two launches, with its host µs per call beside ``torch.sum``'s;
 6. train the full-width 32px generator against the SN discriminator in
-   bf16 at batch 64 (seeded weights and data): warm-up steps, each with
-   exact kernel launches per FourierUnit map, then steps back to back for
-   a few seconds for the step time, with every count set to 0 before the
-   steps and read after them; losses finite at every step;
+   bf16 at batch 64 (seeded weights and data; bench.py's setting: fused D
+   pass, hinge, AdamW): warm-up steps, each with exact kernel launches per
+   FourierUnit map, then steps back to back for a few seconds for the step
+   time, with every count set to 0 before the steps and read after them;
+   then ``update_steps`` with bench.py's K (16 at 32px, 4 at 128px), the
+   step as a CUDA graph: its first call (one eager step and the capture,
+   which count their launches; replays count none) with exact launches,
+   then calls back to back for a few seconds; eager and graph each with
+   wall ms per step, profiler device ms per step and idle share, and the
+   profiler's device events per eager and per replayed step, which must
+   agree; losses finite at every step;
 7. one f32 step (TF32 off, deterministic algorithms) with the kernels
    against the same step with the plain ops patched in: every generator
    gradient, then the losses of 3 steps;
@@ -60,12 +67,28 @@ Phases, each of which raises on a failed check:
     its SN discriminator in bf16 at batch 64: warm-up steps with exact
     launches per step by FourierUnit map and by packed BN map, then steps
     back to back for a few seconds, with every count set to 0 before the
-    steps and read after them; losses finite at every step;
+    steps and read after them, then the step as a CUDA graph, as in phase
+    6; losses finite at every step;
 11. one f32 step of the 128px pair at batch 8 with the tanh-form GELU
     forced (so the fused BN op runs), kernels against plain ops, as in
     phase 7;
-12. a check that every kernel was launched on the main path (phases 4, 6
-    and 10), a ``{"wrapper_calls": [...]}`` JSON line (the staged wrapper
+12. f32 graph parity (TF32 off, deterministic algorithms): from one
+    state, 4 replayed steps (``update_steps``) against 4 eager
+    ``update_step`` calls of the 32px pair in bench.py's setting, in the
+    JAX ``sagan`` preset's train settings (wgan-gp, Adam 0/0.9, lr 1e-4, D
+    lr 4e-4, 5 D updates, D first, separate passes) and with the
+    aw-method: losses, parameters, BN statistics, ``u``, optimizer moments,
+    learning rates and generator states, the same bits or within phase 7's
+    bars with the largest gap printed;
+13. the ``sngan`` pair, the 32px generator against ``FFCDiscriminator``
+    (Adam, separate real and fake D passes): the FourierUnit kernels at
+    D's map that the generator has not, (64,32,8,8), checked as in phases
+    3 and 5; bf16 training at batch 64 as in phase 6, with exact launches
+    per FourierUnit map of G and D; one f32 step against the plain ops, G's
+    gradients (phase 7's bar) and D's (phase 11's, see ``D_GRAD_TOL``) and
+    the losses of 2 steps, as in phase 7;
+14. a check that every kernel was launched on the main path (phases 4, 6,
+    10 and 13), a ``{"wrapper_calls": [...]}`` JSON line (the staged wrapper
     and training-op calls, all their stages together), a
     ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
@@ -79,6 +102,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -98,6 +122,9 @@ PACKED_SHAPES = [(BATCH, 512, 8, 8), (BATCH, 256, 16, 16), (BATCH, 128, 32, 32),
                  (BATCH, 128, 64, 64), (BATCH, 128, 128, 128)]
 FU128_SHAPES = [(BATCH, 64, 16, 16), (BATCH, 32, 32, 32), (BATCH, 32, 64, 64),
                 (BATCH, 32, 128, 128)]
+# FFCDiscriminator at 32px, batch 64: the FourierUnits of block1 (the
+# generator's block1 map too) and block2.
+D_FU_SHAPES = [(BATCH, 16, 16, 16), (BATCH, 32, 8, 8)]
 # rel-max = max|kernel - reference| / max|reference|. Every FourierUnit
 # kernel's reference is its plain version evaluated in f64 on the same
 # inputs: they compute in f32, and a plain version run in the working dtype
@@ -133,7 +160,11 @@ PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 # Served requests and training steps timed back to back for the
 # throughput readings.
 TIMED_SECONDS = 3.0
-WARMUP_STEPS = {32: 3, 128: 2}
+# The training paths: bench.py's 32px and 128px pairs, and the sngan pair.
+RESOLUTION = {32: 32, 128: 128, "sngan": 32}
+WARMUP_STEPS = {32: 3, 128: 2, "sngan": 3}
+# Steps per update_steps call: bench.py's K (bench.py:180-250).
+STEPS_PER_CALL = {32: 16, 128: 4, "sngan": 16}
 # f32 training step, kernels vs plain ops, under deterministic algorithms
 # so that the kernels are the only difference: every generator gradient
 # (rel-max per tensor) and the losses of the steps (absolute). This
@@ -147,10 +178,15 @@ WARMUP_STEPS = {32: 3, 128: 2}
 # 8, same card): five blocks, and FourierUnit maps where many
 # pre-activations sit within rounding of the ReLU's kink, whose side moves
 # a backward sum discretely.
-STEP_GRAD_TOL = {32: 1e-2, 128: 5e-2}
+STEP_GRAD_TOL = {32: 1e-2, 128: 5e-2, "sngan": 1e-2}
+# The sngan pair's discriminator gradients (phase 13) take the 128px bar:
+# their floor, the kernel path against itself, was 1.21e-2 rel-max
+# (d.block2.ffc.convl2g.weight), and the kernels sat at the same gap from
+# the plain ops under deterministic algorithms (H100 80GB HBM3, 700 W).
+D_GRAD_TOL = 5e-2
 STEP_LOSS_TOL = 1e-3
-# (batch, steps) of the f32 comparison by resolution.
-PLAIN_RUNS = {32: (BATCH, 3), 128: (8, 1)}
+# (batch, steps) of the f32 comparison by path.
+PLAIN_RUNS = {32: (BATCH, 3), 128: (8, 1), "sngan": (BATCH, 1)}
 SOURCE = "fastfourierconvolution_tpu_torch/csrc/"
 TPU_FU = "fastfourierconvolution_tpu/ops/pallas/fourier_unit.py:"
 TPU_BN = "fastfourierconvolution_tpu/ops/pallas/bn_act.py:"
@@ -176,21 +212,19 @@ KERNELS = {
     "bn_bwd_reduce": ("bn_act.cu", TPU_BN + "241,457"),
     "bn_bwd_dx": ("bn_act.cu", TPU_BN + "274,506"),
 }
-# Launches per training step and FourierUnit map, by the design that
-# ``fourier_unit.kernel_design`` picks for the statistics ("stats"; the
-# backward apply always takes the same, and the forward is staged only where
-# they are). The training op's forward runs twice (the G phase and the D
-# phase's generator forward), its backward once. Per item: the statistics
-# kernel and the forward kernel in each forward, the backward statistics and
-# apply kernels in the backward. Staged: each forward one spectrum, the
-# statistics stage, the apply stage and the inverse; the backward one
-# two-map spectrum, the backward-sums stage, the backward mix and the
-# inverse. Per packed BN map the same for the fused op.
-STEP_LAUNCHES = {
-    "per_item": {"fu_train_stats": 2, "fourier_unit_fwd": 2, "fu_bwd_stats": 1,
-                 "fu_bwd_apply": 1},
-    "staged": {"fu_spectrum": 3, "fu_mix_stats": 2, "fu_mix_apply": 2, "fu_inverse": 3,
-               "fu_bwd_stats_mix": 1, "fu_bwd_mix": 1},
+# Launches per training forward and per backward of one FourierUnit map, by
+# the design that ``fourier_unit.kernel_design`` picks for the statistics
+# ("stats"; the backward apply always takes the same, and the forward is
+# staged only where they are). Per item: the statistics kernel and the
+# forward kernel in each forward, the backward statistics and apply kernels
+# in each backward. Staged: each forward one spectrum, the statistics
+# stage, the apply stage and the inverse; each backward one two-map
+# spectrum, the backward-sums stage, the backward mix and the inverse.
+PASS_LAUNCHES = {
+    "per_item": ({"fu_train_stats": 1, "fourier_unit_fwd": 1},
+                 {"fu_bwd_stats": 1, "fu_bwd_apply": 1}),
+    "staged": ({"fu_spectrum": 1, "fu_mix_stats": 1, "fu_mix_apply": 1, "fu_inverse": 1},
+               {"fu_spectrum": 1, "fu_bwd_stats_mix": 1, "fu_bwd_mix": 1, "fu_inverse": 1}),
 }
 # The stage kernels one call launches in the staged design: the wrappers,
 # and the training op's staged forward and backward (``train_forward``,
@@ -204,6 +238,7 @@ STAGED_CALL = {"fourier_unit_fwd": ("fu_spectrum", "fu_mix_apply", "fu_inverse")
                                  "fu_inverse"),
                "train_backward": ("fu_spectrum", "fu_bwd_stats_mix", "fu_reduce", "fu_bwd_mix",
                                   "fu_reduce", "fu_inverse")}
+# Per packed BN map and step: the fused op's two forwards and its backward.
 BN_STEP_LAUNCHES = {"bn_stats": 2, "bn_gelu_apply": 2, "bn_bwd_reduce": 1, "bn_bwd_dx": 1}
 
 
@@ -378,7 +413,6 @@ def device_events(fn, iters, attempts=3):
     profiler recorded no device event at all is profiled again, up to
     ``attempts`` windows."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(attempts):
@@ -386,20 +420,29 @@ def device_events(fn, iters, attempts=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = []
-        for evt in prof.key_averages():
-            # a GPU user annotation (the optimizer's step range) spans kernels
-            # that are counted on their own
-            if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
-                continue
-            t = getattr(evt, "self_device_time_total", None)
-            if t is None:
-                t = getattr(evt, "self_cuda_time_total", 0)
-            events.append((evt.key, t / 1000.0, evt.count))
+        events = profiled_device_events(prof)
         if events:
             return events
         log(f"  info: the profiler recorded no device event in a window of {iters} calls")
     return []
+
+
+def profiled_device_events(prof):
+    """[(name, total ms, launches)] of a finished profile's device-side
+    events."""
+    from torch.autograd import DeviceType
+
+    events = []
+    for evt in prof.key_averages():
+        # a GPU user annotation (the optimizer's step range) spans kernels
+        # that are counted on their own
+        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = getattr(evt, "self_cuda_time_total", 0)
+        events.append((evt.key, t / 1000.0, evt.count))
+    return events
 
 
 def device_breakdown(fn, iters=10, top=8):
@@ -1213,28 +1256,38 @@ def launch_wrappers():
             "bn_bwd_dx": ba.bn_bwd_dx}
 
 
-# resolution -> (FourierUnit maps, packed BN maps) of its training step
-STEP_SHAPES = {32: (FU_SHAPES, []), 128: (FU128_SHAPES, PACKED_SHAPES)}
+# path -> ([(FourierUnit map, training forwards, backwards) per step],
+# packed BN maps). A generator map: the G phase's forward and the D phase's,
+# one backward. A map of FFCDiscriminator (separate real and fake passes):
+# the G phase's pass on the fakes and the D update's two passes, each with
+# its backward (the G phase's gives G's gradient through D).
+STEP_MAPS = {32: ([(s, 2, 1) for s in FU_SHAPES], []),
+             128: ([(s, 2, 1) for s in FU128_SHAPES], PACKED_SHAPES),
+             "sngan": ([(s, 2, 1) for s in FU_SHAPES] + [(s, 3, 3) for s in D_FU_SHAPES], [])}
 
 
-def expected_launches(resolution, n_steps):
+def expected_launches(path, n_steps):
     """{kernel: {map or partial shape: launches}} for ``n_steps`` training
-    steps at ``resolution``."""
+    steps of ``path``; maps of G and D with the same (C, H, W) add up."""
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
-    fu_shapes, bn_shapes = STEP_SHAPES[resolution]
+    fu_maps, bn_shapes = STEP_MAPS[path]
     want = {k: collections.Counter() for k in launch_wrappers()}
-    for shape in fu_shapes:
+    for shape, forwards, backwards in fu_maps:
         b, c, h, w = shape
         is_staged = staged("stats", shape)
-        for k, per in STEP_LAUNCHES["staged" if is_staged else "per_item"].items():
-            want[k][(c, h, w)] += per * n_steps
-        # two statistics reductions and one backward-sums reduction on
-        # (rows, 4C), one gK reduction on (rows, 4C^2): a row per item, or
-        # per run of tiles (B * chunks) after the staged mix stages
+        per_forward, per_backward = PASS_LAUNCHES["staged" if is_staged else "per_item"]
+        for k, per in per_forward.items():
+            want[k][(c, h, w)] += per * forwards * n_steps
+        for k, per in per_backward.items():
+            want[k][(c, h, w)] += per * backwards * n_steps
+        # a statistics reduction per forward and a backward-sums reduction
+        # per backward on (rows, 4C), a gK reduction per backward on
+        # (rows, 4C^2): a row per item, or per run of tiles (B * chunks)
+        # after the staged mix stages
         rows = b * fu.staged_chunks(b, h, w) if is_staged else b
-        want["fu_reduce"][(rows, 4 * c)] += 3 * n_steps
-        want["fu_reduce"][(rows, 4 * c * c)] += n_steps
+        want["fu_reduce"][(rows, 4 * c)] += (forwards + backwards) * n_steps
+        want["fu_reduce"][(rows, 4 * c * c)] += backwards * n_steps
     for b, c, h, w in bn_shapes:
         for k, per in BN_STEP_LAUNCHES.items():
             want[k][(c, h, w)] += per * n_steps
@@ -1245,15 +1298,38 @@ def counts_by_map():
     return {k: dict(w.launches_by_map) for k, w in launch_wrappers().items()}
 
 
-def make_trainer(device, dtype, resolution):
+def zero_counts():
+    for w in launch_wrappers().values():
+        w.launches = 0
+        w.launches_by_map.clear()
+
+
+def make_trainer(device, dtype, path, **options):
+    """``path``'s pair with seeded weights: the preset generator of its
+    resolution against the SN discriminator in bench.py's setting (fused D
+    pass, hinge, AdamW), or, for "sngan", against ``FFCDiscriminator`` with
+    Adam and separate D passes (the JAX ``sngan`` preset); ``options``
+    override the trainer's keywords."""
     import torch
 
-    from fastfourierconvolution_tpu_torch import FFCGenerator, GANTrainer, SNConvDiscriminator
+    from fastfourierconvolution_tpu_torch import (
+        FFCDiscriminator,
+        FFCGenerator,
+        GANTrainer,
+        SNConvDiscriminator,
+    )
 
+    resolution = RESOLUTION[path]
     g = FFCGenerator.for_resolution(resolution, generator=torch.Generator().manual_seed(SEED))
-    d = SNConvDiscriminator.for_resolution(
-        resolution, generator=torch.Generator().manual_seed(SEED + 1))
-    return GANTrainer(g, d, seed=SEED, device=device, dtype=dtype)
+    d_seed = torch.Generator().manual_seed(SEED + 1)
+    if path == "sngan":
+        d = FFCDiscriminator(mg=resolution // 8, generator=d_seed)
+        setting = dict(optimizer="adam")
+    else:
+        d = SNConvDiscriminator.for_resolution(resolution, generator=d_seed)
+        setting = dict(fused_dis_batch=True)
+    setting.update(options)
+    return GANTrainer(g, d, seed=SEED, device=device, dtype=dtype, **setting)
 
 
 def real_batch(device, seed, resolution, batch=BATCH):
@@ -1264,19 +1340,68 @@ def real_batch(device, seed, resolution, batch=BATCH):
     return (torch.rand(batch, resolution, resolution, 3, generator=g) * 2 - 1).to(device)
 
 
-def train(device, card, resolution):
-    """Phases 6 and 10; returns the launches by map and kernel over the
-    steps."""
+# Device events a replayed step adds to the eager step's: the replay's
+# copies of the batch in and of the two losses out, and the seed and the
+# offset that each replay writes for each of the trainer's two generators.
+REPLAY_EXTRA_EVENTS = 3 + 2 * 2
+
+
+def step_events(fn, steps_per_call, iters):
+    """(device ms, device events by name) per step of ``fn``'s calls, from
+    the profiler over ``iters`` calls after one call that the trace runs
+    and drops (the profiler can lose the first launches of a window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=iters, repeat=1)) as prof:
+        for _ in range(iters + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = profiled_device_events(prof)
+    per = iters * steps_per_call
+    by_name = collections.Counter()
+    for key, _, n in events:
+        by_name[key] += n / per
+    return sum(t for _, t, _ in events) / per, by_name
+
+
+def launch_parity(trainer, real, reals, attempts=3):
+    """The profiler's device events per eager step and per replayed step,
+    which must differ by ``REPLAY_EXTRA_EVENTS``; a window whose counts
+    disagree (the profiler can lose events) is profiled again, up to
+    ``attempts`` times. Returns (eager ms, eager events, graph ms, graph
+    events, the names whose counts differ)."""
+    k = reals.shape[0]
+    for _ in range(attempts):
+        eager_ms, eager = step_events(lambda: trainer.update_step(real), 1, 3)
+        graph_ms, graph = step_events(lambda: trainer.update_steps(reals), k, 2)
+        n_eager, n_graph = sum(eager.values()), sum(graph.values())
+        differ = {key[:60]: (round(eager.get(key, 0), 2), round(graph.get(key, 0), 2))
+                  for key in set(eager) | set(graph)
+                  if abs(eager.get(key, 0) - graph.get(key, 0)) > 1e-9}
+        if abs(n_graph - REPLAY_EXTRA_EVENTS - n_eager) < 1e-9:
+            return eager_ms, n_eager, graph_ms, n_graph, differ
+        log(f"  info: eager step {n_eager:.2f} device events, replayed step {n_graph:.2f}: "
+            f"profiled again")
+    raise AssertionError(f"a replayed step's device events ({n_graph}) are not the eager "
+                         f"step's ({n_eager}) + {REPLAY_EXTRA_EVENTS}: {differ}")
+
+
+def train(device, card, path):
+    """Phases 6, 10 and 13: eager steps, then ``update_steps`` (see the
+    module docstring); returns the launches by map and kernel over the
+    eager steps."""
     import torch
 
-    trainer = make_trainer(device, "bf16", resolution)
+    resolution = RESOLUTION[path]
+    trainer = make_trainer(device, "bf16", path)
     real = real_batch(device, SEED + 2, resolution)
-    warmup = WARMUP_STEPS[resolution]
+    warmup = WARMUP_STEPS[path]
     sync_every = 10 if resolution == 32 else 2
     torch.cuda.reset_peak_memory_stats()
-    for w in launch_wrappers().values():
-        w.launches = 0
-        w.launches_by_map.clear()
+    zero_counts()
     losses = []
     for i in range(warmup):
         before = counts_by_map()
@@ -1284,7 +1409,7 @@ def train(device, card, resolution):
         torch.cuda.synchronize()
         step = {k: {m: n - before[k].get(m, 0) for m, n in v.items()}
                 for k, v in counts_by_map().items()}
-        if step != expected_launches(resolution, 1):
+        if step != expected_launches(path, 1):
             raise AssertionError(f"kernel launches in step {i}: {step}")
     n_timed = 0
     torch.cuda.synchronize()
@@ -1297,7 +1422,7 @@ def train(device, card, resolution):
     timed_s = time.perf_counter() - t0
     counts = counts_by_map()
     n_steps = warmup + n_timed
-    if counts != expected_launches(resolution, n_steps):
+    if counts != expected_launches(path, n_steps):
         raise AssertionError(f"kernel launches over {n_steps} steps: {counts}")
     launches = {k: w.launches for k, w in launch_wrappers().items()}
     values = torch.stack([torch.stack([l["loss_g"], l["loss_d"]]) for l in losses])
@@ -1307,7 +1432,7 @@ def train(device, card, resolution):
     step_ms = timed_s / n_timed * 1e3
     busy_ms, n_launch, top = device_breakdown(lambda: trainer.update_step(real),
                                               iters=5 if resolution == 32 else 2, top=12)
-    log(f"{resolution}px training step, batch {BATCH}, bf16: {step_ms:.3f} ms wall "
+    log(f"{path} training step, batch {BATCH}, bf16, eager: {step_ms:.3f} ms wall "
         f"(unprofiled, {n_timed} steps in {timed_s:.3f} s, host clock), "
         f"{BATCH / step_ms * 1e3:.1f} img/s; device busy {busy_ms:.3f} ms in {n_launch} "
         f"device launches (profiler), idle share {1 - busy_ms / step_ms:.3f}; peak "
@@ -1317,13 +1442,63 @@ def train(device, card, resolution):
     log(f"trained {n_steps} steps ({warmup} warm-up, each checked): losses "
         f"finite, last loss_g {values[-1, 0].item():.4f} loss_d {values[-1, 1].item():.4f}")
     log(f"trained: kernel launches {launches}; by map {counts}")
+
+    # The step as a CUDA graph: the first call runs one step eagerly and
+    # captures the step, whose launches the wrappers count; replays count
+    # none.
+    k = STEPS_PER_CALL[path]
+    reals = torch.stack([real_batch(device, SEED + 10 + i, resolution) for i in range(k)])
+    zero_counts()
+    t0 = time.perf_counter()
+    graph_losses = [trainer.update_steps(reals)]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    captured = counts_by_map()
+    if captured != expected_launches(path, 2):
+        raise AssertionError(f"kernel launches of the first update_steps call (one eager "
+                             f"step and the capture): {captured}")
+    n_calls = 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < TIMED_SECONDS:
+        graph_losses.append(trainer.update_steps(reals))
+        n_calls += 1
+        torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    if counts_by_map() != captured:
+        raise AssertionError("update_steps replays moved the kernels' launch counts")
+    values = torch.stack([torch.stack([l["loss_g"], l["loss_d"]]) for l in graph_losses])
+    if not torch.isfinite(values).all():
+        raise AssertionError("non-finite training loss in update_steps")
+    graph_ms = timed_s / (n_calls * k) * 1e3
+    eager_dev, n_eager, graph_dev, n_graph, differ = launch_parity(trainer, real, reals)
+    log(f"{path} training step as a CUDA graph (update_steps, K={k}), batch {BATCH}, bf16: "
+        f"{graph_ms:.3f} ms wall per step (unprofiled, {n_calls} calls of {k} steps in "
+        f"{timed_s:.3f} s, host clock; the first call, with its eager step and the capture, "
+        f"{first_s:.3f} s), {BATCH / graph_ms * 1e3:.1f} img/s; device busy {graph_dev:.3f} ms "
+        f"per step (profiler), idle share {1 - graph_dev / graph_ms:.3f}; eager step beside it: "
+        f"{step_ms:.3f} ms wall, {eager_dev:.3f} ms device, idle share "
+        f"{1 - eager_dev / step_ms:.3f}; {card}")
+    log(f"  device events per step (profiler): eager {n_eager:.2f}, replayed {n_graph:.2f} = "
+        f"eager + {REPLAY_EXTRA_EVENTS} (the replay's 3 copies and 2 writes per generator); "
+        f"by name where they differ (eager, replayed): {differ}")
+    log(f"  launches counted at the first update_steps call (one eager step, the capture): "
+        f"{captured}; unmoved by {n_calls * k} replayed steps")
     return counts
 
 
-def grad_gap(grads_a, grads_b, names):
-    """(worst rel-max, its tensor, worst rel-norm) over the tensors."""
+# FFCDiscriminator's convolution biases in blocks 1-3 feed BatchNorm, which
+# subtracts them again: their gradient is 0 up to rounding, so a relative
+# gap says nothing there; their largest gradient is printed instead.
+FREE_BIAS = re.compile(r"d\.block[1-3]\.ffc\.conv(l2l|l2g|g2l)\.bias")
+
+
+def grad_gap(grads_a, grads_b, names, side="g."):
+    """(worst rel-max, its tensor, worst rel-norm) over the tensors of one
+    model (names starting with ``side``) but ``FREE_BIAS``'s."""
     worst, where, worst_norm = 0.0, "", 0.0
     for name, a, b in zip(names, grads_a, grads_b):
+        if not name.startswith(side) or FREE_BIAS.fullmatch(name):
+            continue
         rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
         worst_norm = max(worst_norm, (a - b).norm().item() / max(b.norm().item(), 1e-30))
         if rel > worst:
@@ -1331,10 +1506,12 @@ def grad_gap(grads_a, grads_b, names):
     return worst, where, worst_norm
 
 
-def train_vs_plain(device, resolution):
-    """Phases 7 and 11: f32 steps with the kernels against the plain ops.
-    At 128px the tanh-form GELU is forced, so the generator's packed
-    blocks take the fused BN + GELU op (and its kernels) in f32 too."""
+def train_vs_plain(device, path):
+    """Phases 7, 11 and 13: f32 steps with the kernels against the plain
+    ops: the G phase's gradients (and for the sngan pair a D update's), then
+    the losses of a few steps. At 128px the tanh-form GELU is forced, so
+    the generator's packed blocks take the fused BN + GELU op (and its
+    kernels) in f32 too."""
     import torch
 
     from fastfourierconvolution_tpu_torch.nn import layers
@@ -1354,39 +1531,60 @@ def train_vs_plain(device, resolution):
             bn_bwd_reduce=ba.bn_bwd_reduce_plain, bn_bwd_dx=ba.bn_bwd_dx_plain))
         return stack
 
-    batch, steps = PLAIN_RUNS[resolution]
+    resolution = RESOLUTION[path]
+    batch, steps = PLAIN_RUNS[path]
     g = torch.Generator().manual_seed(SEED + 3)
     zs = torch.randn(steps, 2, batch, 128, generator=g).to(device)
     real = real_batch(device, SEED + 4, resolution, batch)
 
-    def g_grads(plain):
-        trainer = make_trainer(device, "f32", resolution)
-        names = [n for n, _ in trainer.g.named_parameters()]
+    def grads(plain):
+        trainer = make_trainer(device, "f32", path)
+        names = [f"g.{n}" for n, _ in trainer.g.named_parameters()]
         with plain_ops() if plain else contextlib.nullcontext():
-            return names, trainer.g_loss_and_grads(zs[0, 0])[1]
+            out = list(trainer.g_loss_and_grads(zs[0, 0])[1])
+            if path == "sngan":
+                names += [f"d.{n}" for n, _ in trainer.d.named_parameters()]
+                out += trainer.d_loss_and_grads(real.permute(0, 3, 1, 2).contiguous(),
+                                                zs[0, 1])[1]
+        return names, out
 
     layers.set_fast_gelu(True if resolution >= 128 else "policy")
     try:
-        names, floor_a = g_grads(plain=False)
-        floor = grad_gap(floor_a, g_grads(plain=False)[1], names)
+        names, floor_a = grads(plain=False)
+        floor_b = grads(plain=False)[1]
+        floor = grad_gap(floor_a, floor_b, names)
         torch.use_deterministic_algorithms(True)
-        _, grads_k = g_grads(plain=False)
+        _, grads_k = grads(plain=False)
         before = {k: w.launches for k, w in launch_wrappers().items()}
-        _, grads_p = g_grads(plain=True)
+        _, grads_p = grads(plain=True)
         if {k: w.launches for k, w in launch_wrappers().items()} != before:
             raise AssertionError("the plain-op step launched a kernel")
         worst, where, worst_norm = grad_gap(grads_k, grads_p, names)
-        log(f"{resolution}px f32 step at batch {batch}, kernels vs plain ops (deterministic "
-            f"algorithms): {len(names)} generator gradients, worst rel-max {worst:.3e} "
-            f"({where}), worst rel-norm {worst_norm:.3e} (tol {STEP_GRAD_TOL[resolution]:g} "
-            f"rel-max); "
+        log(f"{path} f32 step at batch {batch}, kernels vs plain ops (deterministic "
+            f"algorithms): {sum(n.startswith('g.') for n in names)} generator gradients, worst "
+            f"rel-max {worst:.3e} ({where}), worst rel-norm {worst_norm:.3e} (tol "
+            f"{STEP_GRAD_TOL[path]:g} rel-max); "
             f"floor: the kernel path against itself under cuDNN's default algorithms, worst "
             f"rel-max {floor[0]:.3e} ({floor[1]}), rel-norm {floor[2]:.3e}")
-        if not worst <= STEP_GRAD_TOL[resolution]:
+        if not worst <= STEP_GRAD_TOL[path]:
             raise AssertionError(f"f32 gradient of {where}: rel-max {worst} vs the plain ops")
+        if path == "sngan":
+            d_worst, d_where, d_norm = grad_gap(grads_k, grads_p, names, "d.")
+            d_floor = grad_gap(floor_a, floor_b, names, "d.")
+            largest = lambda pick: max(a.abs().max().item() for n, a in zip(names, grads_k)
+                                       if pick(n))
+            log(f"  {sum(n.startswith('d.') for n in names)} discriminator gradients: worst "
+                f"rel-max {d_worst:.3e} ({d_where}), worst rel-norm {d_norm:.3e} (tol "
+                f"{D_GRAD_TOL:g} rel-max); floor {d_floor[0]:.3e} ({d_floor[1]}), rel-norm "
+                f"{d_floor[2]:.3e}; D's BN-fed biases (gradient 0 up to rounding, left out): "
+                f"largest gradient {largest(FREE_BIAS.fullmatch):.2e}, D's largest "
+                f"{largest(lambda n: n.startswith('d.')):.2e}")
+            if not d_worst <= D_GRAD_TOL:
+                raise AssertionError(f"f32 gradient of {d_where}: rel-max {d_worst} vs the "
+                                     f"plain ops")
 
-        kern = make_trainer(device, "f32", resolution)
-        plain = make_trainer(device, "f32", resolution)
+        kern = make_trainer(device, "f32", path)
+        plain = make_trainer(device, "f32", path)
         for i in range(steps):
             lk = kern.update_step(real, zs=zs[i])
             with plain_ops():
@@ -1400,6 +1598,72 @@ def train_vs_plain(device, resolution):
     finally:
         torch.use_deterministic_algorithms(False)
         layers.set_fast_gelu("policy")
+
+
+# Phase 12: the 32px pair's trainer options whose replayed steps are held
+# against eager ones: bench.py's setting, the JAX sagan preset's train
+# settings (utils/config.py) and the aw-method.
+PARITY_OPTIONS = {
+    "bench": dict(),
+    "sagan": dict(loss="wgan-gp", optimizer="adam", b1=0.0, b2=0.9, lr=1e-4, d_lr=4e-4,
+                  num_dis_updates=5, update_order="d_first", fused_dis_batch=False),
+    "aw-method": dict(aw_method=True, fused_dis_batch=False),
+}
+PARITY_STEPS = 4
+
+
+def trainer_state(trainer):
+    """{name: tensor} of everything a step changes: parameters and buffers
+    (BN statistics, u), the optimizer moments and update counts, the
+    learning rates and their counts, the two generators' states."""
+    state = {f"g.{k}": v for k, v in trainer.g.state_dict().items()}
+    state.update({f"d.{k}": v for k, v in trainer.d.state_dict().items()})
+    for side, opt, model in (("g", trainer.g_opt, trainer.g), ("d", trainer.d_opt, trainer.d)):
+        for name, p in model.named_parameters():
+            state.update({f"{side}.{name}.{k}": v for k, v in opt.state[p].items()})
+    for side, schedule in (("g", trainer.g_lr), ("d", trainer.d_lr)):
+        state[f"{side}.lr"], state[f"{side}.count"] = schedule.lr, schedule.count
+    state["z_generator"] = trainer.z_generator.get_state()
+    state["noise_generator"] = trainer.noise_generator.get_state()
+    return state
+
+
+def graph_parity(device):
+    """Phase 12: for each of ``PARITY_OPTIONS``, two f32 trainers from the
+    same seeds (TF32 off, deterministic algorithms): ``update_steps`` over
+    ``PARITY_STEPS`` batches against as many ``update_step`` calls. The
+    same bits are expected; where they differ the largest gaps are printed
+    and must sit within phase 7's bars (losses 1e-3, rel-max 1e-2 per
+    tensor; the generators' states exactly)."""
+    import torch
+
+    reals = torch.stack([real_batch(device, SEED + 20 + i, 32) for i in range(PARITY_STEPS)])
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, options in PARITY_OPTIONS.items():
+            graph, eager = (make_trainer(device, "f32", 32, **options) for _ in range(2))
+            out = graph.update_steps(reals)
+            ref = [eager.update_step(r) for r in reals]
+            torch.cuda.synchronize()
+            loss_gap = max((out[k] - torch.stack([r[k] for r in ref])).abs().max().item()
+                           for k in out)
+            a, b = trainer_state(graph), trainer_state(eager)
+            differ = sorted(k for k in b if not torch.equal(a[k], b[k]))
+            gaps = {k: (a[k].double() - b[k].double()).abs().max().item()
+                    / max(b[k].double().abs().max().item(), 1e-30)
+                    for k in differ if not k.endswith("generator")}
+            worst = max(gaps.items(), key=lambda kv: kv[1], default=("", 0.0))
+            log(f"graph parity, {name} ({options or 'bench.py setting'}): {PARITY_STEPS} replayed "
+                f"steps against {PARITY_STEPS} eager steps, f32: losses max |diff| "
+                f"{loss_gap:.3e} (tol {STEP_LOSS_TOL:g}); {len(b)} state tensors, the same bits "
+                f"in {len(b) - len(differ)}; largest rel-max gap {worst[1]:.3e} {worst[0]} (tol "
+                f"{STEP_GRAD_TOL[32]:g}); steps taken {graph.step} and {eager.step}")
+            if (loss_gap > STEP_LOSS_TOL or worst[1] > STEP_GRAD_TOL[32]
+                    or any(k.endswith("generator") for k in differ)
+                    or graph.step != eager.step):
+                raise AssertionError(f"graph parity, {name}: replayed steps differ: {differ[:8]}")
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def with_launches(rows, counts):
@@ -1501,9 +1765,22 @@ def main() -> int:
     calls += with_calls(calls_128, counts)
     phase("11: f32 step, 128px")
     train_vs_plain(device, 128)
-    phase("12: result")
+    phase("12: f32 graph parity, 32px")
+    graph_parity(device)
+    phase("13: the sngan pair, 32px (FFCDiscriminator)")
+    new_maps = [s for s in D_FU_SHAPES if s not in FU_SHAPES]
+    rows_sngan, calls_sngan = check_fourier_unit(device, new_maps, "training-sngan")
+    train_rows, train_calls = check_train_kernels(device, new_maps, "training-sngan")
+    rows_sngan += train_rows + check_reduce(device, reduce_cases(new_maps), "training-sngan")
+    calls_sngan += train_calls
+    counts_sngan = train(device, card, "sngan")
+    rows += with_launches(rows_sngan, counts_sngan)
+    calls += with_calls(calls_sngan, counts_sngan)
+    train_vs_plain(device, "sngan")
+    phase("14: result")
     check_main_path_launches({"serving-32px": {"fourier_unit_fwd": by_map},
-                              "training-32px": counts_32, "training-128px": counts})
+                              "training-32px": counts_32, "training-128px": counts,
+                              "training-sngan": counts_sngan})
     log(json.dumps({"wrapper_calls": calls}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

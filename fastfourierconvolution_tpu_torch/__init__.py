@@ -3,8 +3,9 @@
 ``serving.Generator`` turns latents into uint8 NHWC images with the FFC
 generator in eval mode; ``train.gan.GANTrainer`` trains the generator
 (packed-branch mode from 128px) against the spectral-normed conv
-discriminator. The FourierUnit and the packed blocks' fused BN + GELU run
-as hand-written CUDA kernels on the card (``csrc/fourier_unit_fwd.cu``
+discriminator or the all-FFC one, step by step or K steps as one
+captured CUDA graph (``update_steps``). The FourierUnit and the packed
+blocks' fused BN + GELU run as hand-written CUDA kernels on the card (``csrc/fourier_unit_fwd.cu``
 for the forward, ``csrc/fourier_unit_train.cu`` for the batch statistics
 and the backward, ``csrc/bn_act.cu`` for the fused BN family) and as
 their plain PyTorch versions on the CPU.
@@ -12,8 +13,11 @@ their plain PyTorch versions on the CPU.
 package imports torch and numpy only.
 """
 
-from .models.ffc_gan import FFCGenerator, SNConvDiscriminator, to_uint8
+from .models.ffc_gan import FFCDiscriminator, FFCGenerator, SNConvDiscriminator, to_uint8
 from .serving import Generator
 from .train.gan import GANTrainer
 
-__all__ = ["FFCGenerator", "GANTrainer", "Generator", "SNConvDiscriminator", "to_uint8"]
+__all__ = [
+    "FFCDiscriminator", "FFCGenerator", "GANTrainer", "Generator", "SNConvDiscriminator",
+    "to_uint8",
+]

@@ -16,6 +16,10 @@ layouts:
 - BatchNorm scale/bias/mean/var, biases and spectral-norm ``u`` as they
   are (``u`` runs over output features in both packages).
 
+The generator and both discriminators go through the same rules:
+``FFCDiscriminator``'s biased FFC convolutions, its blocks' BatchNorms,
+its FourierUnits' BN and its head's ``u`` included.
+
 Every JAX leaf must be consumed exactly once and every port parameter and
 buffer filled; anything else raises.
 """

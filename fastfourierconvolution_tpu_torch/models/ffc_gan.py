@@ -14,9 +14,12 @@ their noise maps, drawn in the tuple path's order (per block n_l, then
 n_g, each (B, 1, H, W)), so a packed and a tuple generator given the same
 noise generator compute the same function.
 
-Discriminator: [SNConv2d(k, s, p1) -> LeakyReLU(0.1)] per ladder entry ->
+Discriminators: [SNConv2d(k, s, p1) -> LeakyReLU(0.1)] per ladder entry ->
 flatten in (H, W, C) order, as the JAX package flattens NHWC -> SNDense(1);
-without spectral norm, Conv2d with a bias and Dense.
+without spectral norm, Conv2d with a bias and Dense. The all-FFC
+discriminator of the ``sngan`` preset: four FFC_BN_ACT blocks with biased
+convolutions and LeakyReLU(0.1) -> concat branches -> flatten (H, W, C) ->
+SNDense(1).
 """
 
 from __future__ import annotations
@@ -234,3 +237,40 @@ class SNConvDiscriminator(nn.Module):
             x = F.leaky_relu(getattr(self, f"conv{i}")(x), negative_slope=0.1)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         return self.fc(x if self.use_sn else x.float())
+
+
+class FFCDiscriminator(nn.Module):
+    """The all-FFC discriminator (the JAX package's ``FFCDiscriminator``):
+    four tuple-path FFC_BN_ACT blocks (biased convolutions, LeakyReLU 0.1;
+    BN from the second block), the branches concatenated, flattened in (H,
+    W, C) order and an SN dense head over ``mg * mg * 512`` features (mg =
+    resolution / 8). The second and third blocks' g2g branches hold a
+    FourierUnit each: at 32px and ratio 0.25 on (B, 16, 16, 16) and
+    (B, 32, 8, 8) maps. Returns (B, 1) logits."""
+
+    def __init__(self, mg: int = 4, ratio_g: float = 0.25, in_channels: int = 3,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        # (out channels, kernel, stride, global ratio in and out, norm), padding 1
+        blocks = ((64, 3, 1, 0.0, ratio_g, "identity"), (128, 4, 2, ratio_g, ratio_g, "batch"),
+                  (256, 4, 2, ratio_g, ratio_g, "batch"), (512, 4, 2, ratio_g, 0.0, "batch"))
+        self.n_blocks = len(blocks)
+        cin = in_channels
+        for i, (cout, k, s, gin, gout, norm) in enumerate(blocks):
+            self.add_module(f"block{i}", FFC_BN_ACT(
+                cin, cout, k, gin, gout, stride=s, padding=1, norm=norm,
+                activation="leaky_relu", use_bias=True,
+            ))
+            cin = cout
+        self.fc = SNDense(mg * mg * cin, 1)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        reset_parameters(self, generator)
+
+    def forward(self, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+        """(B, C, R, R) images -> (B, 1) logits in ``compute_dtype``."""
+        feat = (x.to(resolve_dtype(compute_dtype)), None)
+        for i in range(self.n_blocks):
+            feat = getattr(self, f"block{i}")(feat)
+        m = resize_output(feat)
+        return self.fc(m.permute(0, 2, 3, 1).reshape(m.shape[0], -1))

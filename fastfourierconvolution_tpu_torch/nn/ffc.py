@@ -147,15 +147,21 @@ class FFC(nn.Module):
     """Local/global split with four cross branches: l2l, l2g and g2l are
     k x k convolutions (transposed ones when ``transpose``), g2g is a
     SpectralTransform. A branch with no channels on either side is absent.
+    With ``use_bias`` the l2l, l2g and g2l convolutions carry a bias (the
+    SpectralTransform's stay bias-free); the tuple path's plain
+    convolutions only.
     """
 
     def __init__(
         self, in_channels, out_channels, kernel_size, ratio_gin, ratio_gout,
         stride=1, padding=0, output_padding=0, transpose=False, packed=False,
+        use_bias=False,
     ):
         super().__init__()
         if stride not in (1, 2):
             raise ValueError(f"stride must be 1 or 2, got {stride}")
+        if use_bias and (transpose or packed):
+            raise ValueError("a conv bias is taken by the tuple path's plain convolutions only")
         in_cl, in_cg = split_channels(in_channels, ratio_gin)
         out_cl, out_cg = split_channels(out_channels, ratio_gout)
         self.ratio_gout = ratio_gout
@@ -172,7 +178,7 @@ class FFC(nn.Module):
                 return ConvTranspose2d(
                     cin, cout, kernel_size, stride, padding, output_padding
                 )
-            return Conv2d(cin, cout, kernel_size, stride, padding)
+            return Conv2d(cin, cout, kernel_size, stride, padding, bias=use_bias)
 
         self.convl2l = make_conv(in_cl, out_cl)
         self.convl2g = make_conv(in_cl, out_cg)
@@ -238,13 +244,14 @@ class FFC(nn.Module):
 
 
 class FFC_BN_ACT(nn.Module):
-    """FFC (transposed when ``upsampling``) -> per-branch BN -> activation;
-    with ``packed``, on a ``Packed`` signal (see the module docstring)."""
+    """FFC (transposed when ``upsampling``; ``use_bias`` as in :class:`FFC`)
+    -> per-branch BN -> activation; with ``packed``, on a ``Packed`` signal
+    (see the module docstring)."""
 
     def __init__(
         self, in_channels, out_channels, kernel_size, ratio_gin, ratio_gout,
         stride=1, padding=0, output_padding=0, norm="identity",
-        activation="identity", upsampling=False, packed=False,
+        activation="identity", upsampling=False, packed=False, use_bias=False,
     ):
         super().__init__()
         if norm not in ("batch", "identity"):
@@ -252,7 +259,7 @@ class FFC_BN_ACT(nn.Module):
         self.ffc = FFC(
             in_channels, out_channels, kernel_size, ratio_gin, ratio_gout,
             stride=stride, padding=padding, output_padding=output_padding,
-            transpose=upsampling, packed=packed,
+            transpose=upsampling, packed=packed, use_bias=use_bias,
         )
         out_cl, out_cg = split_channels(out_channels, ratio_gout)
         batch = norm == "batch"

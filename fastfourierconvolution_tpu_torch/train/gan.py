@@ -1,21 +1,38 @@
-"""GAN training step for an (FFCGenerator, SNConvDiscriminator) pair.
+"""GAN training: one global step, and K of them as one captured CUDA graph.
 
 ``GANTrainer.update_step`` is the JAX package's ``GANTrainer.update_step``
-with the G-first order, one D update on a fused ``[fake; real]`` batch
-and the hinge loss:
+for an unconditional pair, keyword for keyword with the same defaults:
 
-1. G phase: a generator forward in training mode (batch-statistic BN,
-   noise), a discriminator forward on the fakes (its spectral-norm ``u``
-   advances), the generator's gradients taken over its own parameters
-   only, an AdamW step.
-2. D phase: a generator forward in training mode without a graph (its
-   running statistics advance again), one discriminator forward on
-   ``cat([fake, real])``, the discriminator's gradients, an AdamW step.
+- the G phase: a generator forward in training mode (batch-statistic BN,
+  noise), a discriminator forward on the fakes (its spectral-norm ``u``
+  and any BN statistics advance), the generator's gradients over its own
+  parameters only, an optimizer step;
+- the D phase, ``num_dis_updates`` times: a generator forward in training
+  mode without a graph (its running statistics advance again), D on the
+  fakes and on the reals (one forward on ``cat([fake, real])`` with
+  ``fused_dis_batch``, else the fake pass and then the real pass, which
+  starts from the ``u`` and statistics the fake pass left), D's gradients
+  over its parameters, an optimizer step;
+- ``update_order`` "g_first" (the G phase, then the D phase) or
+  "d_first".
 
-AdamW (betas 0.5/0.999, eps 1e-8, weight decay 0.01 on every parameter)
-with lr(t) = lr * max(1 - t/total, 0) at update t: torch's AdamW and
-optax's adamw apply the same update, p -= lr * (m̂ / (sqrt(v̂) + eps) +
-wd * p) with bias-corrected moments, eps outside the square root.
+Losses: hinge, bce, wgan, and wgan-gp (wgan plus ``gp_lambda`` times the
+gradient penalty on interpolates, from D's state at the start of its
+update, storing nothing). The aw-method replaces D's gradient by the
+aw-weighted sum of the real and fake passes' gradients (each pass from
+D's state at the start of its update; the real pass's state updates are
+kept). AdamW (weight decay 0.01) or Adam, eps 1e-8 outside the square
+root as in optax, with lr(t) = lr * max(1 - t/total, 0) at update t; D's
+schedule runs over ``total_steps * num_dis_updates`` updates.
+
+``update_steps`` runs K steps. On the card the step is a CUDA graph: the
+first call for a real-batch shape runs one step eagerly (it creates the
+optimizer moments and every kernel's first-call state) and captures the
+step; every later step replays it. Everything the step changes is updated
+in place (parameters, moments, BN statistics, ``u``, the learning rates
+and their update counts, which live on the device), and both random
+generators are registered with the graph, so replayed and eager steps can
+be interleaved and continue the same random streams.
 
 Latents and noise come from two ``torch.Generator``s on the trainer's
 device, seeded at construction. Parameters, BN statistics and ``u`` stay
@@ -24,92 +41,299 @@ f32; activations run in the trainer's compute dtype.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 
+from ..nn.ffc import FourierUnit
 from ..utils.policy import default_dtype, resolve_device, resolve_dtype
-from .losses import hinge_loss_dis, hinge_loss_gen
+from . import losses as L
 
-
-BETAS = (0.5, 0.999)
 WEIGHT_DECAY = 0.01
+ADAM_EPS = 1e-8
+
+LOSS_PAIRS = {
+    "hinge": (L.hinge_loss_gen, L.hinge_loss_dis),
+    "bce": (L.bce_loss_gen, L.bce_loss_dis),
+    "wgan": (L.wgan_loss_gen, L.wgan_loss_dis),
+    "wgan-gp": (L.wgan_loss_gen, L.wgan_loss_dis),
+}
+# D's loss as a real term and a fake term, for the aw-method's two passes.
+LOSS_SPLIT = {
+    "hinge": (lambda real: torch.relu(1.0 - real.float()).mean(),
+              lambda fake: torch.relu(1.0 + fake.float()).mean()),
+    "bce": (lambda real: L.bce_loss(real, 1.0), lambda fake: L.bce_loss(fake, 0.0)),
+    "wgan": (lambda real: -real.float().mean(), lambda fake: fake.float().mean()),
+}
+UPDATE_ORDERS = ("g_first", "d_first")
 
 
-def _adamw(model: nn.Module, lr: float, total_steps: int):
-    opt = torch.optim.AdamW(
-        model.parameters(), lr=lr, betas=BETAS, eps=1e-8, weight_decay=WEIGHT_DECAY
-    )
-    sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, lambda t: max(1.0 - t / total_steps, 0.0)
-    )
-    return opt, sched
+class LinearDecay:
+    """lr(t) = base * max(1 - t/total, 0) in a 0-d f32 tensor that the
+    optimizer reads, with the update count t on the same device.
+    :meth:`advance` sets lr(t) for the coming update and counts it."""
+
+    def __init__(self, lr: torch.Tensor, base: float, total: int):
+        self.lr, self.base, self.total = lr, base, total
+        self.count = torch.zeros((), device=lr.device)
+
+    def advance(self) -> None:
+        with torch.no_grad():
+            self.lr.copy_(torch.clamp_min(1.0 - self.count / self.total, 0.0) * self.base)
+            self.count.add_(1.0)
+
+
+def make_optimizer(params, device: torch.device, lr: float = 2e-4,
+                   total_steps: int = 100_000, b1: float = 0.5, b2: float = 0.999,
+                   kind: str = "adamw"):
+    """(optimizer, its :class:`LinearDecay`): ``kind`` "adamw" (weight decay
+    0.01) or "adam", eps 1e-8, the learning rate a device tensor. On the
+    card the optimizer is capturable, so a CUDA graph can replay its
+    step."""
+    lr_t = torch.full((), lr, device=device)
+    common = dict(lr=lr_t, betas=(b1, b2), eps=ADAM_EPS, capturable=device.type == "cuda")
+    if kind == "adamw":
+        opt = torch.optim.AdamW(params, weight_decay=WEIGHT_DECAY, **common)
+    elif kind == "adam":
+        opt = torch.optim.Adam(params, **common)
+    else:
+        raise ValueError(f"unknown optimizer {kind!r}; want 'adamw' or 'adam'")
+    return opt, LinearDecay(opt.param_groups[0]["lr"], lr, total_steps)
+
+
+def _not_yet(name: str, waits_for: str):
+    return NotImplementedError(f"{name} is not ported yet: it waits for {waits_for}")
 
 
 class GANTrainer:
     """Trains ``g_model`` and ``d_model`` in place on ``device`` (``cuda``
     unless told otherwise); the compute dtype defaults to bf16 on the card
-    and f32 on the CPU."""
+    and f32 on the CPU. The keywords are the JAX ``GANTrainer``'s, with its
+    defaults; ``seed`` seeds the latent and noise generators."""
 
     def __init__(
         self, g_model: nn.Module, d_model: nn.Module, *, z_size: int = 128,
-        lr: float = 2e-4, total_steps: int = 100_000, seed: int = 0,
-        device="cuda", dtype=None,
+        lr: float = 2e-4, total_steps: int = 100_000, num_dis_updates: int = 1,
+        loss: str = "hinge", optimizer: str = "adamw", b1: float = 0.5, b2: float = 0.999,
+        conditional: bool = False, num_classes: int = 0, d_lr: Optional[float] = None,
+        fused_dis_batch: bool = False, gp_lambda: float = 10.0, aw_method: bool = False,
+        update_order: str = "g_first", aw_alpha1: float = 0.5, aw_alpha2: float = 0.75,
+        aw_delta: float = 0.05, aw_epsilon: float = 0.05, remat: Optional[str] = None,
+        d_progress_arg: bool = False, seed: int = 0, device="cuda", dtype=None,
     ):
+        if conditional or num_classes:
+            raise _not_yet("the conditional path", "models/conditional.py")
+        if d_progress_arg:
+            raise _not_yet("d_progress_arg", "models/conditional.py's CondDCGANDiscriminator")
+        if remat not in (None, "none"):
+            raise _not_yet("remat", "a design of its own: a re-run forward would advance BN "
+                           "statistics and u and draw the noise again")
+        if loss not in LOSS_PAIRS:
+            raise ValueError(f"unknown loss {loss!r}; want one of {sorted(LOSS_PAIRS)}")
+        if update_order not in UPDATE_ORDERS:
+            raise ValueError(f"unknown update order {update_order!r}; want one of {UPDATE_ORDERS}")
+        if num_dis_updates < 1:
+            raise ValueError(f"num_dis_updates must be at least 1, got {num_dis_updates}")
+        if aw_method and loss not in LOSS_SPLIT:
+            raise ValueError(f"the aw-method takes the losses {sorted(LOSS_SPLIT)}, not {loss!r}")
+        if aw_method and fused_dis_batch:
+            raise ValueError("the aw-method needs separate real and fake D passes")
+        if aw_method and not aw_alpha1 < aw_alpha2:
+            raise ValueError(f"aw_alpha1 ({aw_alpha1}) must be smaller than aw_alpha2 ({aw_alpha2})")
+        self.use_gp = loss == "wgan-gp"
+        if self.use_gp and any(isinstance(m, FourierUnit) for m in d_model.modules()):
+            raise NotImplementedError(
+                "wgan-gp needs D's double backward, and the FourierUnit op has none"
+            )
         self.device = resolve_device(device)
         self.dtype = default_dtype(self.device) if dtype is None else resolve_dtype(dtype)
         self.z_size = z_size
+        self.num_dis_updates = num_dis_updates
+        self.loss_name = loss
+        self.gen_loss, self.dis_loss = LOSS_PAIRS[loss]
+        self.fused_dis_batch = fused_dis_batch
+        self.gp_lambda = gp_lambda
+        self.aw_method = aw_method
+        self.aw_params = (aw_alpha1, aw_alpha2, aw_delta, aw_epsilon)
+        self.update_order = update_order
         self.g = g_model.to(self.device).train()
         self.d = d_model.to(self.device).train()
-        self.g_opt, self.g_sched = _adamw(self.g, lr, total_steps)
-        self.d_opt, self.d_sched = _adamw(self.d, lr, total_steps)
+        self.g_opt, self.g_lr = make_optimizer(
+            self.g.parameters(), self.device, lr, total_steps, b1, b2, optimizer)
+        self.d_opt, self.d_lr = make_optimizer(
+            self.d.parameters(), self.device, d_lr or lr, total_steps * num_dis_updates, b1, b2,
+            optimizer)
         self.z_generator = torch.Generator(self.device).manual_seed(seed)
         self.noise_generator = torch.Generator(self.device).manual_seed(seed + 1)
         self.step = 0
+        self._graphs: Dict[tuple, _StepGraph] = {}
 
     def _latents(self, b: int) -> torch.Tensor:
         return torch.randn(
             (b, self.z_size), generator=self.z_generator, device=self.device
         )
 
+    # -- the two phases ------------------------------------------------------------
+
     def g_loss_and_grads(self, z: torch.Tensor):
         """The G phase's loss and the generator's gradients (one tensor per
         parameter, in ``g_model.parameters()`` order). Advances G's running
-        statistics and D's ``u``, as the phase does."""
+        statistics and D's ``u`` and statistics, as the phase does."""
         params = list(self.g.parameters())
         fake = self.g(z, self.dtype, self.noise_generator)
-        loss = hinge_loss_gen(self.d(fake, self.dtype))
+        loss = self.gen_loss(self.d(fake, self.dtype))
         return loss.detach(), torch.autograd.grad(loss, params)
 
+    def d_loss_and_grads(self, real: torch.Tensor, z: torch.Tensor):
+        """One D update's loss and D's gradients (in ``d_model.parameters()``
+        order) on ``real`` (B, C, H, W) f32 and fakes from ``z``. Advances
+        G's running statistics and D's ``u`` and statistics, as the update
+        does."""
+        with torch.no_grad():
+            fake = self.g(z, self.dtype, self.noise_generator)
+        params = list(self.d.parameters())
+        real_dt = real.to(self.dtype)
+        # D's buffers at the start of the update, for the passes that start
+        # from there and store nothing
+        start = ({k: v.clone() for k, v in self.d.named_buffers()}
+                 if self.use_gp or self.aw_method else None)
+        if self.aw_method:
+            real_term, fake_term = LOSS_SPLIT[self.loss_name]
+            fake_logits = self._d_from(start, fake)
+            real_logits = self.d(real_dt, self.dtype)
+            loss_r, loss_f = real_term(real_logits), fake_term(fake_logits)
+            grads, _, _ = L.aw_combine(
+                torch.autograd.grad(loss_r, params), torch.autograd.grad(loss_f, params),
+                real_logits, fake_logits, *self.aw_params,
+            )
+            return (loss_r + loss_f).detach(), grads
+        if self.fused_dis_batch:
+            fake_logits, real_logits = self.d(torch.cat([fake, real_dt]), self.dtype).chunk(2)
+        else:
+            fake_logits = self.d(fake, self.dtype)
+            real_logits = self.d(real_dt, self.dtype)
+        loss = self.dis_loss(fake_logits, real_logits)
+        if self.use_gp:
+            loss = loss + self.gp_lambda * L.gradient_penalty(
+                lambda x: self._d_from(start, x), real, fake, self.noise_generator)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    def _d_from(self, buffers, x: torch.Tensor) -> torch.Tensor:
+        """A training forward of D with its buffers (``u``, BN statistics)
+        taken from ``buffers``, whose tensors receive the forward's updates
+        in place of D's own."""
+        return torch.func.functional_call(self.d, buffers, (x, self.dtype))
+
+    @staticmethod
+    def _apply(model: nn.Module, opt, schedule: LinearDecay, grads) -> None:
+        for p, grad in zip(model.parameters(), grads):
+            p.grad = grad
+        schedule.advance()
+        opt.step()
+
+    def _g_phase(self, b: int, z: Optional[torch.Tensor]) -> torch.Tensor:
+        loss, grads = self.g_loss_and_grads(self._latents(b) if z is None else z)
+        self._apply(self.g, self.g_opt, self.g_lr, grads)
+        return loss
+
+    def _d_phase(self, real: torch.Tensor, zs: Optional[torch.Tensor]) -> torch.Tensor:
+        for i in range(self.num_dis_updates):
+            z = self._latents(real.shape[0]) if zs is None else zs[i]
+            loss, grads = self.d_loss_and_grads(real, z)
+            self._apply(self.d, self.d_opt, self.d_lr, grads)
+        return loss
+
+    def _step(self, real: torch.Tensor, zs: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One global step on ``real`` (B, H, W, C) f32 on the device; moves
+        no host value, so a CUDA graph can capture it."""
+        b = real.shape[0]
+        real = real.permute(0, 3, 1, 2).contiguous()
+        z_g, z_d = (None, None) if zs is None else (zs[0], zs[1:])
+        if self.update_order == "d_first":
+            loss_d = self._d_phase(real, z_d)
+            loss_g = self._g_phase(b, z_g)
+        else:
+            loss_g = self._g_phase(b, z_g)
+            loss_d = self._d_phase(real, z_d)
+        return {"loss_g": loss_g, "loss_d": loss_d}
+
+    # -- entry points --------------------------------------------------------------
+
     def update_step(self, real, zs=None) -> Dict[str, torch.Tensor]:
-        """One G update, then one D update. ``real``: (B, H, W, C) images in
+        """One generator update and ``num_dis_updates`` discriminator
+        updates, in ``update_order``. ``real``: (B, H, W, C) images in
         [-1, 1] (NHWC, as the JAX package takes them); ``zs`` (optional,
-        (2, B, z_size)) replaces the latent draws of the two phases.
-        Returns the losses as f32 scalars on the device."""
+        (1 + num_dis_updates, B, z_size)) replaces the latent draws: zs[0]
+        feeds the G phase, zs[1:] the D updates. Returns the losses (the
+        last D update's) as f32 scalars on the device."""
         real = torch.as_tensor(real, dtype=torch.float32).to(self.device)
         if real.dim() != 4:
             raise ValueError(f"real must be (B, H, W, C), got {tuple(real.shape)}")
-        b = real.shape[0]
-        if zs is None:
-            z_g, z_d = self._latents(b), self._latents(b)
-        else:
-            z_g, z_d = torch.as_tensor(zs, dtype=torch.float32).to(self.device)
-
-        loss_g, grads = self.g_loss_and_grads(z_g)
-        for p, grad in zip(self.g.parameters(), grads):
-            p.grad = grad
-        self.g_opt.step()
-        self.g_sched.step()
-
-        with torch.no_grad():
-            fake = self.g(z_d, self.dtype, self.noise_generator)
-        both = torch.cat([fake, real.permute(0, 3, 1, 2).to(self.dtype)])
-        fake_logits, real_logits = self.d(both, self.dtype).chunk(2)
-        loss_d = hinge_loss_dis(fake_logits, real_logits)
-        self.d_opt.zero_grad(set_to_none=True)
-        loss_d.backward()
-        self.d_opt.step()
-        self.d_sched.step()
+        if zs is not None:
+            zs = torch.as_tensor(zs, dtype=torch.float32).to(self.device)
+            want = (1 + self.num_dis_updates, real.shape[0], self.z_size)
+            if tuple(zs.shape) != want:
+                raise ValueError(f"zs must be {want}, got {tuple(zs.shape)}")
+        out = self._step(real, zs)
         self.step += 1
-        return {"loss_g": loss_g, "loss_d": loss_d.detach()}
+        return out
+
+    def update_steps(self, reals) -> Dict[str, torch.Tensor]:
+        """K steps on ``reals`` (K, B, H, W, C), the latents drawn; returns
+        ``{"loss_g": (K,), "loss_d": (K,)}`` on the device without waiting
+        for it. On the CPU K calls of :meth:`update_step`; on the card the
+        step's CUDA graph replayed once per step: the first call for a
+        batch shape runs its first step eagerly (``step`` counts it) and
+        captures the step. A capture or launch that fails raises; nothing
+        reruns a step eagerly in its place."""
+        reals = torch.as_tensor(reals, dtype=torch.float32)
+        if reals.dim() != 5:
+            raise ValueError(f"reals must be (K, B, H, W, C), got {tuple(reals.shape)}")
+        if self.device.type != "cuda":
+            outs = [self.update_step(real) for real in reals]
+            return {k: torch.stack([o[k] for o in outs]) for k in ("loss_g", "loss_d")}
+        reals = reals.to(self.device)
+        out = {k: torch.empty(reals.shape[0], device=self.device) for k in ("loss_g", "loss_d")}
+        key = tuple(reals.shape[1:])
+        first = 0
+        if key not in self._graphs:
+            # The eager first step creates the optimizer moments, the
+            # kernels' builds, shared-memory limits and tables, and the
+            # cuBLAS/cuDNN state of the capture stream, outside the capture.
+            stream = torch.cuda.Stream(self.device)
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                for k, v in self._step(reals[0], None).items():
+                    out[k][0].copy_(v)
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            self.step += 1
+            self._graphs[key] = _StepGraph(self, reals[0], stream)
+            first = 1
+        graph = self._graphs[key]
+        for i in range(first, reals.shape[0]):
+            graph.replay(reals[i], out, i)
+            self.step += 1
+        return out
+
+
+class _StepGraph:
+    """One training step of a trainer captured as a CUDA graph on
+    ``stream``, for one real-batch shape: a static input buffer, the
+    captured step and its loss outputs. Capturing records the step and
+    runs nothing."""
+
+    def __init__(self, trainer: GANTrainer, real: torch.Tensor, stream: torch.cuda.Stream):
+        self.real = real.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(real.device):
+            self.graph.register_generator_state(trainer.z_generator)
+            self.graph.register_generator_state(trainer.noise_generator)
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.losses = trainer._step(self.real, None)
+
+    def replay(self, real: torch.Tensor, out: Dict[str, torch.Tensor], i: int) -> None:
+        self.real.copy_(real)
+        self.graph.replay()
+        for k, v in self.losses.items():
+            out[k][i].copy_(v)

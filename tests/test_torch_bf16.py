@@ -208,7 +208,7 @@ def test_bf16_training_step_matches_jax(jax_step, monkeypatch):
     g.load_state_dict(jax_to_state_dict(g, g_params, g_stats))
     d.load_state_dict(jax_to_state_dict(d, d_params, spectral=d_u))
     trainer = GANTrainer(g, d, z_size=NARROW["z_size"], total_steps=TOTAL_STEPS,
-                         device="cpu", dtype="bf16")
+                         fused_dis_batch=True, device="cpu", dtype="bf16")
     out = trainer.update_step(jax_step["reals"][0], zs=jax_step["zs"][0])
     np.testing.assert_allclose((out["loss_g"].item(), out["loss_d"].item()),
                                jax_step["losses"], atol=LOSS_TOL)

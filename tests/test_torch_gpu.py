@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the training
+step as a CUDA graph (``update_steps``) against eager steps, on the card.
 
 Marked ``gpu``; each test skips when CUDA is absent. The file imports no
 JAX, so it runs on a machine without it:
@@ -8,10 +9,13 @@ JAX, so it runs on a machine without it:
 
 from __future__ import annotations
 
+import os
+
 import pytest
 import torch
 
 from fastfourierconvolution_tpu_torch import (
+    FFCDiscriminator,
     FFCGenerator,
     GANTrainer,
     Generator,
@@ -23,8 +27,13 @@ from fastfourierconvolution_tpu_torch.ops.fourier_unit import (
     fourier_unit_forward,
     fourier_unit_forward_plain,
 )
+from fastfourierconvolution_tpu_torch.train.gan import LOSS_PAIRS
 
 pytestmark = pytest.mark.gpu
+
+# cuBLAS reads this when it first starts, before any test runs a product;
+# the graph-parity tests run under deterministic algorithms, which need it.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # The generator's FourierUnit maps at serving batch 64, (B, C, H, W).
 SLICE_SHAPES = [(64, 16, 16, 16), (64, 8, 32, 32)]
@@ -141,7 +150,7 @@ def test_training_step_launches_each_kernel_a_fixed_number_of_times(cuda):
     forwards), forward 2, backward stats 1, backward apply 1, and 4 batch
     reductions (two of the stats, one per backward kernel)."""
     trainer = GANTrainer(FFCGenerator.for_resolution(32), SNConvDiscriminator.for_resolution(32),
-                         device=cuda)
+                         fused_dis_batch=True, device=cuda)
     real = torch.rand(8, 32, 32, 3, generator=torch.Generator().manual_seed(2)) * 2 - 1
     wrappers = (fu.fu_train_stats, fu.fourier_unit_forward, fu.fu_bwd_stats, fu.fu_bwd_apply)
     maps = [(16, 16, 16), (8, 32, 32)]
@@ -269,7 +278,7 @@ def test_packed_128px_training_step_runs_the_fused_and_large_map_kernels(cuda):
     BN + GELU kernels with the noise fold, every FourierUnit map through
     the large-map kernels (staged or workspace layout); losses finite."""
     trainer = GANTrainer(FFCGenerator.for_resolution(128), SNConvDiscriminator.for_resolution(128),
-                         device=cuda)
+                         fused_dis_batch=True, device=cuda)
     real = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(4)) * 2 - 1
     wrappers = (ba.bn_stats, ba.bn_gelu_apply, ba.bn_bwd_reduce, ba.bn_bwd_dx,
                 fu.fu_train_stats, fu.fourier_unit_forward, fu.fu_bwd_stats, fu.fu_bwd_apply,
@@ -691,3 +700,161 @@ def test_bn_bwd_reduce_raises_on_a_refused_launch(cuda, monkeypatch):
     monkeypatch.setattr(ba, "bwd_reduce_design", lambda *a: (True, 5))
     with pytest.raises(RuntimeError, match="launch failed"):
         ba.bn_bwd_reduce(x, gy, mean, var, scale, bias)
+
+
+# --- the training step as a CUDA graph ----------------------------------------------
+
+# A narrow 32px pair (ngf 16, z 32) against a three-conv SN discriminator.
+NARROW_G = dict(z_size=32, ngf=16, ratio_g=0.25, mg=4, channel_mults=(4, 2, 1))
+NARROW_D = dict(ladder=((16, 3, 1), (32, 4, 2), (32, 4, 2)), head_size=8)
+
+
+@pytest.fixture
+def deterministic(cuda):
+    torch.use_deterministic_algorithms(True)
+    yield cuda
+    torch.use_deterministic_algorithms(False)
+
+
+def _narrow_trainer(device, **options):
+    g = FFCGenerator(**NARROW_G, generator=torch.Generator().manual_seed(0))
+    d = SNConvDiscriminator(**NARROW_D, generator=torch.Generator().manual_seed(1))
+    return GANTrainer(g, d, z_size=NARROW_G["z_size"], total_steps=50, seed=3, device=device,
+                      dtype="f32", **options)
+
+
+def _reals(n, batch=8, resolution=32, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand(n, batch, resolution, resolution, 3, generator=g) * 2 - 1
+
+
+def _trainer_state(trainer):
+    """Every tensor a step changes, by name: parameters and buffers, the
+    optimizer moments and update counts, the learning rates and their
+    counts, and the two generators' states."""
+    state = {f"g.{k}": v for k, v in trainer.g.state_dict().items()}
+    state.update({f"d.{k}": v for k, v in trainer.d.state_dict().items()})
+    for side, opt, model in (("g", trainer.g_opt, trainer.g), ("d", trainer.d_opt, trainer.d)):
+        for name, p in model.named_parameters():
+            state.update({f"{side}.{name}.{k}": v for k, v in opt.state[p].items()})
+    for side, schedule in (("g", trainer.g_lr), ("d", trainer.d_lr)):
+        state[f"{side}.lr"], state[f"{side}.count"] = schedule.lr, schedule.count
+    state["z_generator"] = trainer.z_generator.get_state()
+    state["noise_generator"] = trainer.noise_generator.get_state()
+    return state
+
+
+def _assert_same_bits(a, b):
+    assert a.keys() == b.keys()
+    differ = sorted(k for k in a if not torch.equal(a[k], b[k]))
+    assert not differ, differ
+
+
+@pytest.mark.parametrize("options", [
+    dict(),
+    dict(loss="wgan-gp", update_order="d_first", fused_dis_batch=False),
+], ids=["default", "wgan-gp-d-first"])
+def test_update_steps_replays_the_eager_step(deterministic, options):
+    """f32 under deterministic algorithms, from one state: update_steps
+    over 4 batches (an eager first step, the capture, 3 replays) against 4
+    update_step calls gives the same losses and the same bits in every
+    parameter, buffer, moment, learning rate and generator state."""
+    graph, eager = (_narrow_trainer(deterministic, **options) for _ in range(2))
+    reals = _reals(4)
+    out = graph.update_steps(reals)
+    ref = [eager.update_step(r.to(deterministic)) for r in reals]
+    torch.cuda.synchronize()
+    for key in ("loss_g", "loss_d"):
+        assert out[key].shape == (4,) and out[key].is_cuda
+        assert torch.equal(out[key], torch.stack([r[key] for r in ref])), key
+    assert graph.step == eager.step == 4
+    _assert_same_bits(_trainer_state(graph), _trainer_state(eager))
+
+
+def test_update_step_and_update_steps_interleave(deterministic):
+    """update_step, update_steps over 3 batches, update_step, then
+    update_steps over 2 batches (replays only) against 7 eager steps: the
+    graph continues the generators' streams and reads the state in place."""
+    graph, eager = (_narrow_trainer(deterministic) for _ in range(2))
+    reals = _reals(7).to(deterministic)
+    losses = [graph.update_step(reals[0])["loss_g"]]
+    losses += list(graph.update_steps(reals[1:4])["loss_g"])
+    losses += [graph.update_step(reals[4])["loss_g"]]
+    losses += list(graph.update_steps(reals[5:7])["loss_g"])
+    ref = [eager.update_step(r)["loss_g"] for r in reals]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.stack(losses), torch.stack(ref))
+    assert graph.step == eager.step == 7
+    _assert_same_bits(_trainer_state(graph), _trainer_state(eager))
+
+
+def test_sngan_pair_launches_each_kernel_as_counted(cuda):
+    """The 32px FFC generator against FFCDiscriminator (Adam, separate real
+    and fake D passes) at batch 8: per step, G's FourierUnit maps run 2
+    training forwards and 1 backward, D's 3 and 3 (the G phase's pass on the
+    fakes, the fake and the real pass), all per item; the first
+    update_steps call counts its eager step and the capture, replays count
+    nothing."""
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    maps = {(16, 16, 16): (5, 4), (8, 32, 32): (2, 1), (32, 8, 8): (3, 3)}
+    assert all(fu.kernel_design(w, *m, limit) == fu.SHARED for m in maps
+               for w in ("forward", "stats", "bwd_apply"))
+    trainer = GANTrainer(FFCGenerator.for_resolution(32), FFCDiscriminator(), optimizer="adam",
+                         device=cuda)
+    wrappers = {"fu_train_stats": 0, "fourier_unit_forward": 0, "fu_bwd_stats": 1,
+                "fu_bwd_apply": 1}  # 0: per forward, 1: per backward
+
+    def launches():
+        return {w: dict(getattr(fu, w).launches_by_map) for w in wrappers}
+
+    def check(before, steps):
+        after = launches()
+        for w, side in wrappers.items():
+            got = {m: after[w].get(m, 0) - before[w].get(m, 0) for m in maps}
+            assert got == {m: steps * n[side] for m, n in maps.items()}, w
+
+    reals = _reals(2, batch=8)
+    for _ in range(2):
+        before = launches()
+        out = trainer.update_step(reals[0])
+        torch.cuda.synchronize()
+        check(before, 1)
+        assert all(torch.isfinite(v) for v in out.values())
+    before = launches()
+    out = trainer.update_steps(reals)
+    torch.cuda.synchronize()
+    check(before, 2)
+    before = launches()
+    out = trainer.update_steps(reals)
+    torch.cuda.synchronize()
+    check(before, 0)
+    assert all(torch.isfinite(v).all() for v in out.values())
+
+
+def test_a_failed_capture_raises_and_runs_no_step_in_its_place(deterministic):
+    """A step that syncs with the host cannot be captured: update_steps
+    raises, and the trainer holds the eager first step's state, bit for bit
+    (f32, deterministic algorithms: Adam turns the rounding of a gradient
+    near 0 into a full step), so no step was rerun eagerly."""
+    cuda = deterministic
+    graph, eager = (_narrow_trainer(cuda) for _ in range(2))
+    hinge = LOSS_PAIRS["hinge"][0]
+
+    def syncing(logits):
+        loss = hinge(logits)
+        loss.item()
+        return loss
+
+    graph.gen_loss = syncing
+    reals = _reals(3)
+    with pytest.raises(RuntimeError):
+        graph.update_steps(reals)
+    torch.cuda.synchronize()
+    eager.update_step(reals[0].to(cuda))
+    torch.cuda.synchronize()
+    assert graph.step == eager.step == 1
+    # the generators' states are left out: the aborted capture had them
+    # registered
+    drop = ("z_generator", "noise_generator")
+    _assert_same_bits(*({k: v for k, v in _trainer_state(t).items() if k not in drop}
+                        for t in (graph, eager)))

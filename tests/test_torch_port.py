@@ -44,7 +44,7 @@ def test_default_device_entry_points_raise_without_cuda():
     g = FFCGenerator(z_size=8, ngf=4, mg=2, channel_mults=(2, 1))
     d = SNConvDiscriminator(ladder=((4, 4, 2),), head_size=4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        GANTrainer(g, d, z_size=8)
+        GANTrainer(g, d, z_size=8, fused_dis_batch=True)
 
 
 def test_library_key_covers_every_header(tmp_path, monkeypatch):

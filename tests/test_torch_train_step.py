@@ -207,7 +207,7 @@ def _port_trainer(run, monkeypatch):
     g.load_state_dict(jax_to_state_dict(g, g_params, g_stats))
     d.load_state_dict(jax_to_state_dict(d, d_params, spectral=d_u))
     return GANTrainer(g, d, z_size=PAIRS[run["pair"]][0]["z_size"],
-                      total_steps=TOTAL_STEPS, device="cpu", dtype="f32")
+                      total_steps=TOTAL_STEPS, fused_dis_batch=True, device="cpu", dtype="f32")
 
 
 def test_first_step_generator_gradients_match_jax(jax_run, monkeypatch):
