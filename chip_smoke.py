@@ -87,9 +87,31 @@ Phases, each of which raises on a failed check:
     per FourierUnit map of G and D; one f32 step against the plain ops, G's
     gradients (phase 7's bar) and D's (phase 11's, see ``D_GRAD_TOL``) and
     the losses of 2 steps, as in phase 7;
-14. a check that every kernel was launched on the main path (phases 4, 6,
-    10 and 13), a ``{"wrapper_calls": [...]}`` JSON line (the staged wrapper
-    and training-op calls, all their stages together), a
+14. the ``fgan_cond32`` pair, ``FFCCondGenerator.for_preset("cifar32")``
+    against ``CondSNDiscriminator(32)`` (fused D pass, hinge, AdamW, 10
+    classes, seeded labels): bf16 training at batch 64 as in phase 6, with
+    labels through ``update_steps`` (K = 16, a replay's events then one
+    more, the labels' copy in); serving with ``generate(z, labels,
+    uint8=True)``: exact launches per request, img/s, one request against
+    the plain op, the trainer's state unmoved; one f32 step against the
+    plain ops as in phase 7;
+15. the ``fgan_cond48`` generator's FourierUnit maps, (64,16,24,24) and
+    (64,8,48,48), checked as in phases 3 and 5 (at 48x48 the statistics and
+    the backward run the per-item workspace design); bf16 training of the
+    ``fgan_cond48`` pair (``stl48`` against ``CondSNDiscriminator(48)``) as
+    in phase 6;
+16. wgan-gp on the sngan pair, whose gradient penalty takes D's
+    FourierUnits' double backward: exact launches per f32 step (D's maps 4
+    training forwards and 5 kernel backwards: the penalty's first-order
+    backward and the backward through its forward), one f32 step against
+    the plain ops (G's gradients at phase 7's bar, D's at phase 13's, the
+    loss), and 4 replayed f32 steps against 4 eager ones, the same bits;
+17. the eval-mode FourierUnit's gradients (gx, gK, gscale, gbias) from the
+    backward kernels (the apply with zero sums) against the plain version
+    in f64 at (64,16,16,16) and (64,8,48,48), f32, one launch of each;
+18. a check that every kernel was launched on the main path (phases 4, 6,
+    10, 13, 14 and 15), a ``{"wrapper_calls": [...]}`` JSON line (the staged
+    wrapper and training-op calls, all their stages together), a
     ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, where CUDA is absent.
@@ -125,6 +147,13 @@ FU128_SHAPES = [(BATCH, 64, 16, 16), (BATCH, 32, 32, 32), (BATCH, 32, 64, 64),
 # FFCDiscriminator at 32px, batch 64: the FourierUnits of block1 (the
 # generator's block1 map too) and block2.
 D_FU_SHAPES = [(BATCH, 16, 16, 16), (BATCH, 32, 8, 8)]
+# The fgan_cond48 generator (stl48: dense stem, mg 6) at batch 64: block1's
+# g2g on 24x24 maps, block2's on 48x48, where the statistics and the
+# backward take the per-item workspace design.
+FU48_SHAPES = [(BATCH, 16, 24, 24), (BATCH, 8, 48, 48)]
+# The eval-mode gradient's maps (phase 17).
+EVAL_GRAD_SHAPES = [(BATCH, 16, 16, 16), (BATCH, 8, 48, 48)]
+NUM_CLASSES = 10
 # rel-max = max|kernel - reference| / max|reference|. Every FourierUnit
 # kernel's reference is its plain version evaluated in f64 on the same
 # inputs: they compute in f32, and a plain version run in the working dtype
@@ -159,12 +188,14 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 # Served requests and training steps timed back to back for the
 # throughput readings.
-TIMED_SECONDS = 3.0
-# The training paths: bench.py's 32px and 128px pairs, and the sngan pair.
-RESOLUTION = {32: 32, 128: 128, "sngan": 32}
-WARMUP_STEPS = {32: 3, 128: 2, "sngan": 3}
+TIMED_SECONDS = 2.0
+# The training paths: bench.py's 32px and 128px pairs, the sngan pair (with
+# wgan-gp: "sngan-gp"), and the fgan_cond32 and fgan_cond48 pairs.
+RESOLUTION = {32: 32, 128: 128, "sngan": 32, "sngan-gp": 32, "cond32": 32, "cond48": 48}
+CONDITIONAL = ("cond32", "cond48")
+WARMUP_STEPS = {32: 3, 128: 2, "sngan": 3, "cond32": 3, "cond48": 2}
 # Steps per update_steps call: bench.py's K (bench.py:180-250).
-STEPS_PER_CALL = {32: 16, 128: 4, "sngan": 16}
+STEPS_PER_CALL = {32: 16, 128: 4, "sngan": 16, "cond32": 16, "cond48": 16}
 # f32 training step, kernels vs plain ops, under deterministic algorithms
 # so that the kernels are the only difference: every generator gradient
 # (rel-max per tensor) and the losses of the steps (absolute). This
@@ -178,15 +209,24 @@ STEPS_PER_CALL = {32: 16, 128: 4, "sngan": 16}
 # 8, same card): five blocks, and FourierUnit maps where many
 # pre-activations sit within rounding of the ReLU's kink, whose side moves
 # a backward sum discretely.
-STEP_GRAD_TOL = {32: 1e-2, 128: 5e-2, "sngan": 1e-2}
+STEP_GRAD_TOL = {32: 1e-2, 128: 5e-2, "sngan": 1e-2, "sngan-gp": 1e-2, "cond32": 1e-2}
 # The sngan pair's discriminator gradients (phase 13) take the 128px bar:
 # their floor, the kernel path against itself, was 1.21e-2 rel-max
 # (d.block2.ffc.convl2g.weight), and the kernels sat at the same gap from
 # the plain ops under deterministic algorithms (H100 80GB HBM3, 700 W).
 D_GRAD_TOL = 5e-2
 STEP_LOSS_TOL = 1e-3
+# The wgan-gp D loss is mostly 10x the penalty (28.6 at init, batch 64),
+# which is computed from D's input gradients; those carry the f32 gradients'
+# amplified rounding (D's gradients 2.9e-3 rel-max, 2.5e-4 rel-norm from the
+# plain ops; its floor, the kernel path against itself, 2.4e-6 and 4.8e-3
+# rel-max in two runs; H100 80GB HBM3, 700 W), so that path's losses are
+# held to STEP_LOSS_TOL relative to their size: the gap was 1.29e-2 on 28.63
+# (4.5e-4) in both runs.
+RELATIVE_LOSS_PATHS = ("sngan-gp",)
 # (batch, steps) of the f32 comparison by path.
-PLAIN_RUNS = {32: (BATCH, 3), 128: (8, 1), "sngan": (BATCH, 1)}
+PLAIN_RUNS = {32: (BATCH, 3), 128: (8, 1), "sngan": (BATCH, 1), "sngan-gp": (BATCH, 1),
+              "cond32": (BATCH, 1)}
 SOURCE = "fastfourierconvolution_tpu_torch/csrc/"
 TPU_FU = "fastfourierconvolution_tpu/ops/pallas/fourier_unit.py:"
 TPU_BN = "fastfourierconvolution_tpu/ops/pallas/bn_act.py:"
@@ -1157,8 +1197,8 @@ def serve(device, card):
     requests."""
     import torch
 
-    import fastfourierconvolution_tpu_torch.nn.ffc as ffc_module
     from fastfourierconvolution_tpu_torch import Generator
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu_module
     from fastfourierconvolution_tpu_torch.ops.fourier_unit import (
         fourier_unit_forward,
         fourier_unit_forward_plain,
@@ -1229,7 +1269,7 @@ def serve(device, card):
     for dtype in ("bfloat16", "float32"):
         server.dtype = getattr(torch, dtype)
         kern = server.generate(requests[0]).int()
-        with mock.patch.object(ffc_module, "fourier_unit_forward", fourier_unit_forward_plain):
+        with mock.patch.object(fu_module, "fourier_unit_forward", fourier_unit_forward_plain):
             plain = server.generate(requests[0]).int()
         diff = (kern - plain).abs().float()
         log(f"request vs plain op, {dtype}: max {int(diff.max())} levels, "
@@ -1239,6 +1279,106 @@ def serve(device, card):
             raise AssertionError(f"served images differ from the plain op ({dtype})")
     server.dtype = torch.bfloat16
     return by_map
+
+
+def serve_generate(device, card, trainer):
+    """Phase 14 (serving): ``trainer.generate(z, labels, uint8=True)`` on
+    the trained fgan_cond32 generator in eval mode: 8 requests of batch 64
+    with exact launches (the eval forward kernel twice a request, no other
+    FourierUnit kernel), the trainer's state unmoved, img/s over
+    back-to-back requests, and one request against the plain op in bf16 and
+    f32. Returns the forward kernel's launches by map."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    g = torch.Generator().manual_seed(SEED + 30)
+    zs = [torch.randn(BATCH, 128, generator=g).to(device) for _ in range(N_REQUESTS)]
+    labels = label_batch(device, SEED + 30, "cond32", (N_REQUESTS, BATCH))
+    state = {k: v.clone() for k, v in trainer.g.state_dict().items()}
+    trainer.generate(zs[0], labels[0], uint8=True)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    images = [trainer.generate(z, y, uint8=True) for z, y in zip(zs, labels)]
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in counts_by_map().items() if v}
+    want = {"fourier_unit_fwd": {tuple(s[1:]): N_REQUESTS for s in FU_SHAPES}}
+    if counts != want:
+        raise AssertionError(f"generate's kernel launches {counts}, expected {want}")
+    for im in images:
+        if im.shape != (BATCH, 32, 32, 3) or im.dtype != torch.uint8:
+            raise AssertionError(f"generate gave {tuple(im.shape)} {im.dtype}")
+    spread = images[0].float().std().item()
+    if not spread > 5.0:
+        raise AssertionError(f"generated images are flat (std {spread:.2f} levels)")
+    moved = [k for k, v in trainer.g.state_dict().items() if not torch.equal(v, state[k])]
+    if moved or not trainer.g.training:
+        raise AssertionError(f"generate moved G's state {moved[:4]} or its training flag")
+    n_timed = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < TIMED_SECONDS:
+        for _ in range(20):
+            trainer.generate(zs[0], labels[0], uint8=True)
+        n_timed += 20
+        torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    busy_ms, n_launch, _ = device_breakdown(lambda: trainer.generate(zs[0], labels[0],
+                                                                     uint8=True))
+    wall_ms = timed_s / n_timed * 1e3
+    log(f"cond32 generate(z, labels, uint8=True), batch {BATCH}, bf16: {n_timed * BATCH / timed_s:.1f} "
+        f"img/s ({n_timed} requests in {timed_s:.3f} s, host clock), {wall_ms:.3f} ms wall a "
+        f"request, device busy {busy_ms:.3f} ms in {n_launch} device launches (profiler), "
+        f"idle share {1 - busy_ms / wall_ms:.3f}; image std {spread:.1f} levels; launches {counts}; "
+        f"{card}")
+    for dtype in ("bfloat16", "float32"):
+        trainer.dtype = getattr(torch, dtype)
+        kern = trainer.generate(zs[0], labels[0], uint8=True).int()
+        with mock.patch.object(fu, "fourier_unit_forward", fu.fourier_unit_forward_plain):
+            plain = trainer.generate(zs[0], labels[0], uint8=True).int()
+        diff = (kern - plain).abs().float()
+        log(f"cond32 request vs plain op, {dtype}: max {int(diff.max())} levels, mean "
+            f"{diff.mean().item():.4f} (bars {U8_MAX_LEVELS[dtype]}, {U8_MEAN_LEVELS[dtype]})")
+        if diff.max() > U8_MAX_LEVELS[dtype] or diff.mean() > U8_MEAN_LEVELS[dtype]:
+            raise AssertionError(f"generated images differ from the plain op ({dtype})")
+    trainer.dtype = torch.bfloat16
+    return want["fourier_unit_fwd"]
+
+
+def eval_gradients(device):
+    """Phase 17: the gradients of an eval-mode FourierUnit (the op
+    ``fourier_unit_eval``, running statistics) in x, K, scale and bias from
+    the backward kernels (``fu_bwd_stats``, then ``fu_bwd_apply`` with zero
+    sums) against ``fourier_unit_backward_plain(..., train=False)`` in f64,
+    f32, each within ``FU_REL_TOL``; one launch of each kernel per
+    backward."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    for shape in EVAL_GRAD_SHAPES:
+        x, kernel, scale, bias, mean, var = fu_inputs(shape, torch.float32, device, SEED + 5)
+        bias, margin = fu.relu_margin_bias(x, kernel, scale, bias, mean, var)
+        gy = torch.randn(shape, generator=torch.Generator().manual_seed(SEED + 6)).to(device)
+        leaves = [t.clone().requires_grad_() for t in (x, kernel, scale, bias)]
+        y = fu.fourier_unit_eval(*leaves, mean, var)
+        zero_counts()
+        outs = torch.autograd.grad(y, leaves, gy)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in counts_by_map().items() if v}
+        key = tuple(shape[1:])
+        if counts.get("fu_bwd_stats") != {key: 1} or counts.get("fu_bwd_apply") != {key: 1}:
+            raise AssertionError(f"eval backward {shape}: kernel launches {counts}")
+        refs = fu.fourier_unit_backward_plain(
+            *(t.double() for t in (x, kernel, scale, bias, mean, var, gy)), train=False)
+        errs = {n: rel_max(o, r) for n, o, r in zip(("gx", "gK", "gscale", "gbias"), outs, refs)}
+        log(f"eval-mode FourierUnit gradients {shape} f32 ({fu._design('bwd_apply', x)} "
+            f"backward apply; pre-activations at least {margin:.2e} from 0): " + ", ".join(
+                f"{n} rel-max {r:.3e} (max-abs {a:.3e})" for n, (r, a) in errs.items())
+            + f" (tol {FU_REL_TOL['float32']:g}, against the plain version in f64); launches "
+            f"{counts}")
+        if not all(r <= FU_REL_TOL["float32"] for r, _ in errs.values()):
+            raise AssertionError(f"eval-mode gradients {shape}: {errs}")
 
 
 def launch_wrappers():
@@ -1261,9 +1401,15 @@ def launch_wrappers():
 # one backward. A map of FFCDiscriminator (separate real and fake passes):
 # the G phase's pass on the fakes and the D update's two passes, each with
 # its backward (the G phase's gives G's gradient through D).
+# With wgan-gp, a map of D adds the penalty's pass on the interpolates: a
+# forward, its backward under create_graph and the backward through that
+# forward when the penalty is differentiated.
 STEP_MAPS = {32: ([(s, 2, 1) for s in FU_SHAPES], []),
              128: ([(s, 2, 1) for s in FU128_SHAPES], PACKED_SHAPES),
-             "sngan": ([(s, 2, 1) for s in FU_SHAPES] + [(s, 3, 3) for s in D_FU_SHAPES], [])}
+             "sngan": ([(s, 2, 1) for s in FU_SHAPES] + [(s, 3, 3) for s in D_FU_SHAPES], []),
+             "sngan-gp": ([(s, 2, 1) for s in FU_SHAPES] + [(s, 4, 5) for s in D_FU_SHAPES], []),
+             "cond32": ([(s, 2, 1) for s in FU_SHAPES], []),
+             "cond48": ([(s, 2, 1) for s in FU48_SHAPES], [])}
 
 
 def expected_launches(path, n_steps):
@@ -1308,11 +1454,16 @@ def make_trainer(device, dtype, path, **options):
     """``path``'s pair with seeded weights: the preset generator of its
     resolution against the SN discriminator in bench.py's setting (fused D
     pass, hinge, AdamW), or, for "sngan", against ``FFCDiscriminator`` with
-    Adam and separate D passes (the JAX ``sngan`` preset); ``options``
-    override the trainer's keywords."""
+    Adam and separate D passes (the JAX ``sngan`` preset; "sngan-gp" with
+    wgan-gp), or, for "cond32" and "cond48", the JAX ``fgan_cond32`` and
+    ``fgan_cond48`` pairs (``FFCCondGenerator`` presets cifar32 and stl48
+    against ``CondSNDiscriminator``, fused D pass, hinge, AdamW, 10
+    classes); ``options`` override the trainer's keywords."""
     import torch
 
     from fastfourierconvolution_tpu_torch import (
+        CondSNDiscriminator,
+        FFCCondGenerator,
         FFCDiscriminator,
         FFCGenerator,
         GANTrainer,
@@ -1320,11 +1471,20 @@ def make_trainer(device, dtype, path, **options):
     )
 
     resolution = RESOLUTION[path]
-    g = FFCGenerator.for_resolution(resolution, generator=torch.Generator().manual_seed(SEED))
+    g_seed = torch.Generator().manual_seed(SEED)
     d_seed = torch.Generator().manual_seed(SEED + 1)
-    if path == "sngan":
+    if path in CONDITIONAL:
+        g = FFCCondGenerator.for_preset({32: "cifar32", 48: "stl48"}[resolution],
+                                        num_classes=NUM_CLASSES, generator=g_seed)
+        d = CondSNDiscriminator(num_classes=NUM_CLASSES, resolution=resolution,
+                                generator=d_seed)
+        setting = dict(fused_dis_batch=True, conditional=True, num_classes=NUM_CLASSES)
+        setting.update(options)
+        return GANTrainer(g, d, seed=SEED, device=device, dtype=dtype, **setting)
+    g = FFCGenerator.for_resolution(resolution, generator=g_seed)
+    if path in ("sngan", "sngan-gp"):
         d = FFCDiscriminator(mg=resolution // 8, generator=d_seed)
-        setting = dict(optimizer="adam")
+        setting = dict(optimizer="adam", loss="wgan-gp" if path == "sngan-gp" else "hinge")
     else:
         d = SNConvDiscriminator.for_resolution(resolution, generator=d_seed)
         setting = dict(fused_dis_batch=True)
@@ -1340,10 +1500,25 @@ def real_batch(device, seed, resolution, batch=BATCH):
     return (torch.rand(batch, resolution, resolution, 3, generator=g) * 2 - 1).to(device)
 
 
+def label_batch(device, seed, path, shape=(BATCH,)):
+    """Seeded class labels of ``shape`` for a conditional path, else None."""
+    import torch
+
+    if path not in CONDITIONAL:
+        return None
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, NUM_CLASSES, shape, generator=g).to(device)
+
+
 # Device events a replayed step adds to the eager step's: the replay's
 # copies of the batch in and of the two losses out, and the seed and the
-# offset that each replay writes for each of the trainer's two generators.
+# offset that each replay writes for each of the trainer's two generators;
+# on a conditional path one more, the labels' copy in.
 REPLAY_EXTRA_EVENTS = 3 + 2 * 2
+
+
+def replay_extra_events(path):
+    return REPLAY_EXTRA_EVENTS + (path in CONDITIONAL)
 
 
 def step_events(fn, steps_per_call, iters):
@@ -1367,37 +1542,40 @@ def step_events(fn, steps_per_call, iters):
     return sum(t for _, t, _ in events) / per, by_name
 
 
-def launch_parity(trainer, real, reals, attempts=3):
+def launch_parity(trainer, real, reals, labels, labels_k, extra, attempts=6):
     """The profiler's device events per eager step and per replayed step,
-    which must differ by ``REPLAY_EXTRA_EVENTS``; a window whose counts
-    disagree (the profiler can lose events) is profiled again, up to
-    ``attempts`` times. Returns (eager ms, eager events, graph ms, graph
-    events, the names whose counts differ)."""
+    which must differ by ``extra``; a window whose counts disagree (the
+    profiler can lose events: it lost some in 3 windows in a row, at the
+    eager and at the replayed step, in 2 of 4 runs of one call on an H100
+    80GB HBM3, 700 W) is profiled again, up to ``attempts`` times. The
+    replayed window is one call of K steps. Returns (eager ms, eager
+    events, graph ms, graph events, the names whose counts differ)."""
     k = reals.shape[0]
     for _ in range(attempts):
-        eager_ms, eager = step_events(lambda: trainer.update_step(real), 1, 3)
-        graph_ms, graph = step_events(lambda: trainer.update_steps(reals), k, 2)
+        eager_ms, eager = step_events(lambda: trainer.update_step(real, labels), 1, 3)
+        graph_ms, graph = step_events(lambda: trainer.update_steps(reals, labels_k), k, 1)
         n_eager, n_graph = sum(eager.values()), sum(graph.values())
         differ = {key[:60]: (round(eager.get(key, 0), 2), round(graph.get(key, 0), 2))
                   for key in set(eager) | set(graph)
                   if abs(eager.get(key, 0) - graph.get(key, 0)) > 1e-9}
-        if abs(n_graph - REPLAY_EXTRA_EVENTS - n_eager) < 1e-9:
+        if abs(n_graph - extra - n_eager) < 1e-9:
             return eager_ms, n_eager, graph_ms, n_graph, differ
         log(f"  info: eager step {n_eager:.2f} device events, replayed step {n_graph:.2f}: "
             f"profiled again")
     raise AssertionError(f"a replayed step's device events ({n_graph}) are not the eager "
-                         f"step's ({n_eager}) + {REPLAY_EXTRA_EVENTS}: {differ}")
+                         f"step's ({n_eager}) + {extra}: {differ}")
 
 
 def train(device, card, path):
-    """Phases 6, 10 and 13: eager steps, then ``update_steps`` (see the
-    module docstring); returns the launches by map and kernel over the
-    eager steps."""
+    """Phases 6, 10, 13, 14 and 15: eager steps, then ``update_steps`` (see
+    the module docstring); returns the trainer and the launches by map and
+    kernel over the eager steps."""
     import torch
 
     resolution = RESOLUTION[path]
     trainer = make_trainer(device, "bf16", path)
     real = real_batch(device, SEED + 2, resolution)
+    labels = label_batch(device, SEED + 2, path)
     warmup = WARMUP_STEPS[path]
     sync_every = 10 if resolution == 32 else 2
     torch.cuda.reset_peak_memory_stats()
@@ -1405,7 +1583,7 @@ def train(device, card, path):
     losses = []
     for i in range(warmup):
         before = counts_by_map()
-        losses.append(trainer.update_step(real))
+        losses.append(trainer.update_step(real, labels))
         torch.cuda.synchronize()
         step = {k: {m: n - before[k].get(m, 0) for m, n in v.items()}
                 for k, v in counts_by_map().items()}
@@ -1416,7 +1594,7 @@ def train(device, card, path):
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < TIMED_SECONDS:
         for _ in range(sync_every):
-            losses.append(trainer.update_step(real))
+            losses.append(trainer.update_step(real, labels))
         n_timed += sync_every
         torch.cuda.synchronize()
     timed_s = time.perf_counter() - t0
@@ -1430,8 +1608,8 @@ def train(device, card, path):
         raise AssertionError("non-finite training loss")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = timed_s / n_timed * 1e3
-    busy_ms, n_launch, top = device_breakdown(lambda: trainer.update_step(real),
-                                              iters=5 if resolution == 32 else 2, top=12)
+    busy_ms, n_launch, top = device_breakdown(lambda: trainer.update_step(real, labels),
+                                              iters=5 if resolution <= 48 else 2, top=12)
     log(f"{path} training step, batch {BATCH}, bf16, eager: {step_ms:.3f} ms wall "
         f"(unprofiled, {n_timed} steps in {timed_s:.3f} s, host clock), "
         f"{BATCH / step_ms * 1e3:.1f} img/s; device busy {busy_ms:.3f} ms in {n_launch} "
@@ -1448,9 +1626,10 @@ def train(device, card, path):
     # none.
     k = STEPS_PER_CALL[path]
     reals = torch.stack([real_batch(device, SEED + 10 + i, resolution) for i in range(k)])
+    labels_k = label_batch(device, SEED + 10, path, (k, BATCH))
     zero_counts()
     t0 = time.perf_counter()
-    graph_losses = [trainer.update_steps(reals)]
+    graph_losses = [trainer.update_steps(reals, labels_k)]
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     captured = counts_by_map()
@@ -1460,7 +1639,7 @@ def train(device, card, path):
     n_calls = 0
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < TIMED_SECONDS:
-        graph_losses.append(trainer.update_steps(reals))
+        graph_losses.append(trainer.update_steps(reals, labels_k))
         n_calls += 1
         torch.cuda.synchronize()
     timed_s = time.perf_counter() - t0
@@ -1470,7 +1649,9 @@ def train(device, card, path):
     if not torch.isfinite(values).all():
         raise AssertionError("non-finite training loss in update_steps")
     graph_ms = timed_s / (n_calls * k) * 1e3
-    eager_dev, n_eager, graph_dev, n_graph, differ = launch_parity(trainer, real, reals)
+    extra = replay_extra_events(path)
+    eager_dev, n_eager, graph_dev, n_graph, differ = launch_parity(trainer, real, reals, labels,
+                                                                   labels_k, extra)
     log(f"{path} training step as a CUDA graph (update_steps, K={k}), batch {BATCH}, bf16: "
         f"{graph_ms:.3f} ms wall per step (unprofiled, {n_calls} calls of {k} steps in "
         f"{timed_s:.3f} s, host clock; the first call, with its eager step and the capture, "
@@ -1479,17 +1660,18 @@ def train(device, card, path):
         f"{step_ms:.3f} ms wall, {eager_dev:.3f} ms device, idle share "
         f"{1 - eager_dev / step_ms:.3f}; {card}")
     log(f"  device events per step (profiler): eager {n_eager:.2f}, replayed {n_graph:.2f} = "
-        f"eager + {REPLAY_EXTRA_EVENTS} (the replay's 3 copies and 2 writes per generator); "
+        f"eager + {extra} (the replay's {extra - 4} copies and 2 writes per generator); "
         f"by name where they differ (eager, replayed): {differ}")
     log(f"  launches counted at the first update_steps call (one eager step, the capture): "
         f"{captured}; unmoved by {n_calls * k} replayed steps")
-    return counts
+    return trainer, counts
 
 
-# FFCDiscriminator's convolution biases in blocks 1-3 feed BatchNorm, which
-# subtracts them again: their gradient is 0 up to rounding, so a relative
-# gap says nothing there; their largest gradient is printed instead.
-FREE_BIAS = re.compile(r"d\.block[1-3]\.ffc\.conv(l2l|l2g|g2l)\.bias")
+# FFCDiscriminator's convolution biases in blocks 1-3, and the conditional
+# generator's two ConvT stem biases, feed BatchNorm, which subtracts them
+# again: their gradient is 0 up to rounding, so a relative gap says nothing
+# there; their largest gradient is printed instead.
+FREE_BIAS = re.compile(r"d\.block[1-3]\.ffc\.conv(l2l|l2g|g2l)\.bias|g\.(label|input)_conv\.bias")
 
 
 def grad_gap(grads_a, grads_b, names, side="g."):
@@ -1507,11 +1689,12 @@ def grad_gap(grads_a, grads_b, names, side="g."):
 
 
 def train_vs_plain(device, path):
-    """Phases 7, 11 and 13: f32 steps with the kernels against the plain
-    ops: the G phase's gradients (and for the sngan pair a D update's), then
-    the losses of a few steps. At 128px the tanh-form GELU is forced, so
-    the generator's packed blocks take the fused BN + GELU op (and its
-    kernels) in f32 too."""
+    """Phases 7, 11, 13, 14 and 16: f32 steps with the kernels against the
+    plain ops: the G phase's gradients (and for the sngan pairs a D
+    update's), then the losses of a few steps. At 128px the tanh-form GELU
+    is forced, so the generator's packed blocks take the fused BN + GELU op
+    (and its kernels) in f32 too. With wgan-gp ("sngan-gp") the kernel
+    step's launches are counted against ``expected_launches``."""
     import torch
 
     from fastfourierconvolution_tpu_torch.nn import layers
@@ -1536,16 +1719,18 @@ def train_vs_plain(device, path):
     g = torch.Generator().manual_seed(SEED + 3)
     zs = torch.randn(steps, 2, batch, 128, generator=g).to(device)
     real = real_batch(device, SEED + 4, resolution, batch)
+    labels = label_batch(device, SEED + 4, path, (batch,))
+    with_d = path in ("sngan", "sngan-gp")
 
     def grads(plain):
         trainer = make_trainer(device, "f32", path)
         names = [f"g.{n}" for n, _ in trainer.g.named_parameters()]
         with plain_ops() if plain else contextlib.nullcontext():
-            out = list(trainer.g_loss_and_grads(zs[0, 0])[1])
-            if path == "sngan":
+            out = list(trainer.g_loss_and_grads(zs[0, 0], labels)[1])
+            if with_d:
                 names += [f"d.{n}" for n, _ in trainer.d.named_parameters()]
                 out += trainer.d_loss_and_grads(real.permute(0, 3, 1, 2).contiguous(),
-                                                zs[0, 1])[1]
+                                                zs[0, 1], labels)[1]
         return names, out
 
     layers.set_fast_gelu(True if resolution >= 128 else "policy")
@@ -1566,9 +1751,12 @@ def train_vs_plain(device, path):
             f"{STEP_GRAD_TOL[path]:g} rel-max); "
             f"floor: the kernel path against itself under cuDNN's default algorithms, worst "
             f"rel-max {floor[0]:.3e} ({floor[1]}), rel-norm {floor[2]:.3e}")
+        if path in CONDITIONAL:
+            log(f"  the stems' BN-fed ConvT biases (gradient 0 up to rounding, left out): largest "
+                f"gradient {max(a.abs().max().item() for n, a in zip(names, grads_k) if FREE_BIAS.fullmatch(n)):.2e}")
         if not worst <= STEP_GRAD_TOL[path]:
             raise AssertionError(f"f32 gradient of {where}: rel-max {worst} vs the plain ops")
-        if path == "sngan":
+        if with_d:
             d_worst, d_where, d_norm = grad_gap(grads_k, grads_p, names, "d.")
             d_floor = grad_gap(floor_a, floor_b, names, "d.")
             largest = lambda pick: max(a.abs().max().item() for n, a in zip(names, grads_k)
@@ -1586,14 +1774,25 @@ def train_vs_plain(device, path):
         kern = make_trainer(device, "f32", path)
         plain = make_trainer(device, "f32", path)
         for i in range(steps):
-            lk = kern.update_step(real, zs=zs[i])
+            zero_counts()
+            lk = kern.update_step(real, labels, zs=zs[i])
+            torch.cuda.synchronize()
+            if path == "sngan-gp":
+                counts = counts_by_map()
+                log(f"  f32 step {i} with the gradient penalty, kernel launches by map: {counts}")
+                if counts != expected_launches(path, 1):
+                    raise AssertionError(f"wgan-gp step launches {counts}, expected "
+                                         f"{expected_launches(path, 1)}")
             with plain_ops():
-                lp = plain.update_step(real, zs=zs[i])
+                lp = plain.update_step(real, labels, zs=zs[i])
             diffs = {k: abs(lk[k].item() - lp[k].item()) for k in lk}
+            tols = {k: STEP_LOSS_TOL * (max(1.0, abs(lp[k].item()))
+                                        if path in RELATIVE_LOSS_PATHS else 1.0) for k in lk}
             log(f"  f32 step {i}: kernels {({k: round(v.item(), 6) for k, v in lk.items()})}, "
                 f"plain ops {({k: round(v.item(), 6) for k, v in lp.items()})}, |diff| "
-                f"{({k: f'{d:.2e}' for k, d in diffs.items()})} (tol {STEP_LOSS_TOL:g})")
-            if not all(d <= STEP_LOSS_TOL for d in diffs.values()):
+                f"{({k: f'{d:.2e}' for k, d in diffs.items()})} (tol "
+                f"{({k: f'{t:.2e}' for k, t in tols.items()})})")
+            if not all(d <= tols[k] for k, d in diffs.items()):
                 raise AssertionError(f"f32 losses at step {i} differ from the plain ops: {diffs}")
     finally:
         torch.use_deterministic_algorithms(False)
@@ -1628,22 +1827,25 @@ def trainer_state(trainer):
     return state
 
 
-def graph_parity(device):
-    """Phase 12: for each of ``PARITY_OPTIONS``, two f32 trainers from the
-    same seeds (TF32 off, deterministic algorithms): ``update_steps`` over
-    ``PARITY_STEPS`` batches against as many ``update_step`` calls. The
-    same bits are expected; where they differ the largest gaps are printed
-    and must sit within phase 7's bars (losses 1e-3, rel-max 1e-2 per
-    tensor; the generators' states exactly)."""
+def graph_parity(device, path=32, options_by_name=PARITY_OPTIONS):
+    """Phases 12 and 16: for each of ``options_by_name``, two f32 trainers
+    of ``path`` from the same seeds (TF32 off, deterministic algorithms):
+    ``update_steps`` over ``PARITY_STEPS`` batches against as many
+    ``update_step`` calls. The same bits are expected; where they differ
+    the largest gaps are printed and must sit within phase 7's bars (losses
+    1e-3, rel-max 1e-2 per tensor; the generators' states exactly)."""
     import torch
 
-    reals = torch.stack([real_batch(device, SEED + 20 + i, 32) for i in range(PARITY_STEPS)])
+    reals = torch.stack([real_batch(device, SEED + 20 + i, RESOLUTION[path])
+                         for i in range(PARITY_STEPS)])
+    labels = label_batch(device, SEED + 20, path, (PARITY_STEPS, BATCH))
+    batch = lambda i: None if labels is None else labels[i]
     torch.use_deterministic_algorithms(True)
     try:
-        for name, options in PARITY_OPTIONS.items():
-            graph, eager = (make_trainer(device, "f32", 32, **options) for _ in range(2))
-            out = graph.update_steps(reals)
-            ref = [eager.update_step(r) for r in reals]
+        for name, options in options_by_name.items():
+            graph, eager = (make_trainer(device, "f32", path, **options) for _ in range(2))
+            out = graph.update_steps(reals, labels)
+            ref = [eager.update_step(r, batch(i)) for i, r in enumerate(reals)]
             torch.cuda.synchronize()
             loss_gap = max((out[k] - torch.stack([r[k] for r in ref])).abs().max().item()
                            for k in out)
@@ -1653,7 +1855,7 @@ def graph_parity(device):
                     / max(b[k].double().abs().max().item(), 1e-30)
                     for k in differ if not k.endswith("generator")}
             worst = max(gaps.items(), key=lambda kv: kv[1], default=("", 0.0))
-            log(f"graph parity, {name} ({options or 'bench.py setting'}): {PARITY_STEPS} replayed "
+            log(f"graph parity, {path} {name} ({options or 'the path setting'}): {PARITY_STEPS} replayed "
                 f"steps against {PARITY_STEPS} eager steps, f32: losses max |diff| "
                 f"{loss_gap:.3e} (tol {STEP_LOSS_TOL:g}); {len(b)} state tensors, the same bits "
                 f"in {len(b) - len(differ)}; largest rel-max gap {worst[1]:.3e} {worst[0]} (tol "
@@ -1746,7 +1948,7 @@ def main() -> int:
     train_rows += check_reduce(device, reduce_cases(FU_SHAPES) + [REDUCE_ODD], "training")
     calls += train_calls
     phase("6: training, 32px")
-    counts_32 = train(device, card, 32)
+    _, counts_32 = train(device, card, 32)
     rows += with_launches(train_rows, counts_32)
     phase("7: f32 step, 32px")
     train_vs_plain(device, 32)
@@ -1760,7 +1962,7 @@ def main() -> int:
     rows_128 += train_rows + check_reduce(device, reduce_cases(FU128_SHAPES), "training-128px")
     calls_128 += train_calls
     phase("10: packed training, 128px")
-    counts = train(device, card, 128)
+    _, counts = train(device, card, 128)
     rows += with_launches(rows_128, counts)
     calls += with_calls(calls_128, counts)
     phase("11: f32 step, 128px")
@@ -1773,14 +1975,34 @@ def main() -> int:
     train_rows, train_calls = check_train_kernels(device, new_maps, "training-sngan")
     rows_sngan += train_rows + check_reduce(device, reduce_cases(new_maps), "training-sngan")
     calls_sngan += train_calls
-    counts_sngan = train(device, card, "sngan")
+    _, counts_sngan = train(device, card, "sngan")
     rows += with_launches(rows_sngan, counts_sngan)
     calls += with_calls(calls_sngan, counts_sngan)
     train_vs_plain(device, "sngan")
-    phase("14: result")
+    phase("14: the fgan_cond32 pair (conditional), 32px: training, generate, f32 step")
+    trainer_c32, counts_c32 = train(device, card, "cond32")
+    by_map_c32 = serve_generate(device, card, trainer_c32)
+    del trainer_c32
+    train_vs_plain(device, "cond32")
+    phase("15: the fgan_cond48 pair: FourierUnit kernels at its maps, training")
+    rows_48, calls_48 = check_fourier_unit(device, FU48_SHAPES, "training-cond48")
+    train_rows, train_calls = check_train_kernels(device, FU48_SHAPES, "training-cond48")
+    rows_48 += train_rows + check_reduce(device, reduce_cases(FU48_SHAPES), "training-cond48")
+    calls_48 += train_calls
+    _, counts_c48 = train(device, card, "cond48")
+    rows += with_launches(rows_48, counts_c48)
+    calls += with_calls(calls_48, counts_c48)
+    phase("16: wgan-gp on the sngan pair (the FourierUnit's double backward)")
+    train_vs_plain(device, "sngan-gp")
+    graph_parity(device, "sngan-gp", {"wgan-gp": {}})
+    phase("17: eval-mode FourierUnit gradients")
+    eval_gradients(device)
+    phase("18: result")
     check_main_path_launches({"serving-32px": {"fourier_unit_fwd": by_map},
                               "training-32px": counts_32, "training-128px": counts,
-                              "training-sngan": counts_sngan})
+                              "training-sngan": counts_sngan, "training-cond32": counts_c32,
+                              "serving-cond32": {"fourier_unit_fwd": by_map_c32},
+                              "training-cond48": counts_c48})
     log(json.dumps({"wrapper_calls": calls}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@
 generator in eval mode; ``train.gan.GANTrainer`` trains the generator
 (packed-branch mode from 128px) against the spectral-normed conv
 discriminator or the all-FFC one, step by step or K steps as one
-captured CUDA graph (``update_steps``). The FourierUnit and the packed
+captured CUDA graph (``update_steps``), and samples it (``generate``);
+with ``conditional`` it trains the class-conditional models of
+``models/conditional.py`` on labels. The FourierUnit and the packed
 blocks' fused BN + GELU run as hand-written CUDA kernels on the card (``csrc/fourier_unit_fwd.cu``
 for the forward, ``csrc/fourier_unit_train.cu`` for the batch statistics
 and the backward, ``csrc/bn_act.cu`` for the fused BN family) and as
@@ -13,11 +15,21 @@ their plain PyTorch versions on the CPU.
 package imports torch and numpy only.
 """
 
+from .models.conditional import (
+    CondDCGANDiscriminator,
+    CondDCGANGenerator,
+    CondSNDiscriminator,
+    FFCCondDCGANDiscriminator,
+    FFCCondDiscriminator,
+    FFCCondGenerator,
+)
 from .models.ffc_gan import FFCDiscriminator, FFCGenerator, SNConvDiscriminator, to_uint8
 from .serving import Generator
 from .train.gan import GANTrainer
 
 __all__ = [
+    "CondDCGANDiscriminator", "CondDCGANGenerator", "CondSNDiscriminator",
+    "FFCCondDCGANDiscriminator", "FFCCondDiscriminator", "FFCCondGenerator",
     "FFCDiscriminator", "FFCGenerator", "GANTrainer", "Generator", "SNConvDiscriminator",
     "to_uint8",
 ]

@@ -18,7 +18,11 @@ layouts:
 
 The generator and both discriminators go through the same rules:
 ``FFCDiscriminator``'s biased FFC convolutions, its blocks' BatchNorms,
-its FourierUnits' BN and its head's ``u`` included.
+its FourierUnits' BN and its head's ``u`` included. So do the
+class-conditional models (``models/conditional.py``): label tables
+(``label_embed``) as they are, ConditionalBatchNorm's per-class gamma and
+beta tables and statistics (also in a class-conditional FourierUnit),
+transposed-convolution biases, bias-free spectral-normed convolutions.
 
 Every JAX leaf must be consumed exactly once and every port parameter and
 buffer filled; anything else raises.
@@ -35,9 +39,11 @@ import torch.nn as nn
 from .nn.ffc import FourierUnit, SpectralTransform
 from .nn.layers import (
     BatchNorm,
+    ConditionalBatchNorm,
     Conv2d,
     ConvTranspose2d,
     Dense,
+    LabelEmbedding,
     NoiseInjection,
     SELayer,
     SNConv2d,
@@ -55,6 +61,7 @@ _JAX_CHILD_NAMES = {
         "conv2": "Conv2d_1",
     },
     SELayer: {"fc1": "Dense_0", "fc2": "Dense_1"},
+    FourierUnit: {"bn": "ConditionalBatchNorm_0"},
 }
 
 
@@ -90,24 +97,19 @@ def _leaf_rules(module: nn.Module):
     convt = lambda w: w[::-1, ::-1].transpose(2, 3, 0, 1)
     dense = lambda w: w.T
     same = lambda w: w
+    bias = [("bias", "params", ("bias",), same)] if getattr(module, "bias", None) is not None else []
     if isinstance(module, (SNConv2d, SNDense)):
         return [
             ("weight", "params", ("kernel",), conv if isinstance(module, SNConv2d) else dense),
-            ("bias", "params", ("bias",), same),
+            *bias,
             ("u", "spectral", ("u",), same),
         ]
     if isinstance(module, Conv2d):
-        rules = [("weight", "params", ("kernel",), conv)]
-        if module.bias is not None:
-            rules.append(("bias", "params", ("bias",), same))
-        return rules
+        return [("weight", "params", ("kernel",), conv), *bias]
     if isinstance(module, ConvTranspose2d):
-        return [("weight", "params", ("kernel",), convt)]
+        return [("weight", "params", ("kernel",), convt), *bias]
     if isinstance(module, Dense):
-        rules = [("weight", "params", ("kernel",), dense)]
-        if module.bias is not None:
-            rules.append(("bias", "params", ("bias",), same))
-        return rules
+        return [("weight", "params", ("kernel",), dense), *bias]
     if isinstance(module, BatchNorm):
         return [
             ("weight", "params", ("BatchNorm_0", "scale"), same),
@@ -115,6 +117,17 @@ def _leaf_rules(module: nn.Module):
             ("running_mean", "batch_stats", ("BatchNorm_0", "mean"), same),
             ("running_var", "batch_stats", ("BatchNorm_0", "var"), same),
         ]
+    if isinstance(module, ConditionalBatchNorm):
+        return [
+            ("gamma", "params", ("gamma",), same),
+            ("beta", "params", ("beta",), same),
+            ("running_mean", "batch_stats", ("BatchNorm_0", "mean"), same),
+            ("running_var", "batch_stats", ("BatchNorm_0", "var"), same),
+        ]
+    if isinstance(module, LabelEmbedding):
+        return [("weight", "params", (), same)]
+    if isinstance(module, FourierUnit) and module.bn is not None:
+        return [("mix_kernel", "params", ("mix_kernel",), same)]
     if isinstance(module, FourierUnit):
         return [
             ("mix_kernel", "params", ("mix_kernel",), same),

@@ -73,6 +73,63 @@ def draw_noise_fold(model: nn.Module, i: int, probe: torch.Tensor,
     return torch.cat([w, glb.weight]), n_l, draw_noise(probe, generator)
 
 
+def add_ladder(model: nn.Module, in_ch: int, ngf: int, ratio_g: float,
+               channel_mults: Sequence[int], out_channels: int, packed: bool,
+               norm: str = "batch", num_classes: int = 0,
+               cond_spectral_bn: bool = False) -> None:
+    """Adds a generator's up-blocks to ``model``: per block ``block{i}``
+    (FFC_BN_ACT k4 s2 p1, ``norm``, GELU, upsampling; ``ngf * mults[i-1]``
+    channels in, ``in_ch`` for the first, all-local, ``ngf * mults[i]``
+    out), then ``lcl_noise{i}`` and, with global channels, ``glb_noise{i}``;
+    then ``to_rgb`` (k3 s1 p1 to ``out_channels``, tanh, no norm)."""
+    in_ratio = 0.0  # the stem output is all-local
+    for i, mult in enumerate(channel_mults):
+        out_ch = ngf * mult
+        model.add_module(f"block{i}", FFC_BN_ACT(
+            in_ch, out_ch, 4, in_ratio, ratio_g, stride=2, padding=1, norm=norm,
+            activation="gelu", upsampling=True, packed=packed, num_classes=num_classes,
+            cond_spectral_bn=cond_spectral_bn,
+        ))
+        out_cl, out_cg = split_channels(out_ch, ratio_g)
+        model.add_module(f"lcl_noise{i}", NoiseInjection(out_cl))
+        if out_cg > 0:
+            model.add_module(f"glb_noise{i}", NoiseInjection(out_cg))
+        in_ch, in_ratio = out_ch, ratio_g
+    model.to_rgb = FFC_BN_ACT(
+        in_ch, out_channels, 3, ratio_g, 0.0, stride=1, padding=1,
+        norm="identity", activation="tanh", packed=packed,
+    )
+
+
+def run_ladder(model: nn.Module, x: torch.Tensor, n_blocks: int,
+               generator: Optional[torch.Generator], y: Optional[torch.Tensor] = None):
+    """The ladder that :func:`add_ladder` built, from the stem map ``x``
+    (B, C, S, S) in the compute dtype: each block (given the labels ``y``
+    on the tuple path) and, in training, its noise injection with noise
+    from ``generator`` (folded into a packed block's norm-act pass), then
+    ``to_rgb``; returns the images (B, C, R, R)."""
+    b, s = x.shape[0], x.shape[2]
+    if model.packed:
+        feat = Packed(x, x.shape[1])
+        for i in range(n_blocks):
+            fold = None
+            if model.training:
+                hw = s * 2 ** (i + 1)
+                fold = draw_noise_fold(model, i, x.new_empty((b, 1, hw, hw)), generator)
+            feat = getattr(model, f"block{i}")(feat, noise_fold=fold)
+        return resize_output(model.to_rgb(feat))
+    feat = (x, None)
+    for i in range(n_blocks):
+        feat = getattr(model, f"block{i}")(feat, y)
+        if model.training:
+            feat = tuple(
+                None if v is None
+                else getattr(model, f"{kind}_noise{i}")(v, draw_noise(v, generator))
+                for kind, v in zip(("lcl", "glb"), feat)
+            )
+    return resize_output(model.to_rgb(feat))
+
+
 class FFCGenerator(nn.Module):
     """Parametric FFC DCGAN-style generator; output resolution is
     ``mg * 2 ** len(channel_mults)``. Block i maps ``ngf * mults[i-1]``
@@ -91,22 +148,7 @@ class FFCGenerator(nn.Module):
         self.channel_mults = tuple(channel_mults)
         self.packed = self.resolution >= PACKED_MIN_RES if packed is None else packed
         self.noise_to_feature = Dense(z_size, mg * mg * ngf * 8)
-        in_ch, in_ratio = ngf * 8, 0.0  # the stem output is all-local
-        for i, mult in enumerate(self.channel_mults):
-            out_ch = ngf * mult
-            self.add_module(f"block{i}", FFC_BN_ACT(
-                in_ch, out_ch, 4, in_ratio, ratio_g, stride=2, padding=1,
-                norm="batch", activation="gelu", upsampling=True, packed=self.packed,
-            ))
-            out_cl, out_cg = split_channels(out_ch, ratio_g)
-            self.add_module(f"lcl_noise{i}", NoiseInjection(out_cl))
-            if out_cg > 0:
-                self.add_module(f"glb_noise{i}", NoiseInjection(out_cg))
-            in_ch, in_ratio = out_ch, ratio_g
-        self.to_rgb = FFC_BN_ACT(
-            in_ch, out_channels, 3, ratio_g, 0.0, stride=1, padding=1,
-            norm="identity", activation="tanh", packed=self.packed,
-        )
+        add_ladder(self, ngf * 8, ngf, ratio_g, self.channel_mults, out_channels, self.packed)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         reset_parameters(self, generator)
@@ -153,25 +195,7 @@ class FFCGenerator(nn.Module):
         stem = self.noise_to_feature(z.to(dt))
         # the Dense output is laid out NHWC, as in the JAX package
         x = stem.view(b, self.mg, self.mg, -1).permute(0, 3, 1, 2).contiguous()
-        if self.packed:
-            feat = Packed(x, x.shape[1])
-            for i in range(len(self.channel_mults)):
-                fold = None
-                if self.training:
-                    hw = self.mg * 2 ** (i + 1)
-                    fold = draw_noise_fold(self, i, x.new_empty((b, 1, hw, hw)), generator)
-                feat = getattr(self, f"block{i}")(feat, noise_fold=fold)
-            return resize_output(self.to_rgb(feat))
-        feat = (x, None)
-        for i in range(len(self.channel_mults)):
-            feat = getattr(self, f"block{i}")(feat)
-            if self.training:
-                feat = tuple(
-                    None if v is None
-                    else getattr(self, f"{kind}_noise{i}")(v, draw_noise(v, generator))
-                    for kind, v in zip(("lcl", "glb"), feat)
-                )
-        return resize_output(self.to_rgb(feat))
+        return run_ladder(self, x, len(self.channel_mults), generator)
 
 
 # SN-conv discriminator ladders: (features, kernel, stride), padding 1.

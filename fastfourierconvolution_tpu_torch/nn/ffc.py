@@ -16,8 +16,15 @@ Channel splits follow the reference arithmetic ``c_g = int(c * ratio)``.
 The spectral re/im channels are concatenated [re | im], as in the JAX
 package.
 
-Left out so far: the local Fourier unit, class-conditional BN and spectral
-norm inside the FFC layers.
+Class-conditional BN: with ``num_classes`` > 1 an FFC_BN_ACT normalises
+each branch with a :class:`ConditionalBatchNorm` on the labels it is
+given; with ``cond_spectral_bn`` too, its FourierUnit takes the
+conditional path (plain rfft2 -> mix -> ConditionalBatchNorm -> ReLU ->
+irfft2, as the JAX package computes it outside any kernel). The tuple path
+only.
+
+Left out so far: the local Fourier unit and spectral norm inside the FFC
+layers.
 """
 
 from __future__ import annotations
@@ -29,11 +36,13 @@ import torch.nn as nn
 
 from ..ops import conv as conv_ops
 from ..ops.bn_act import packed_bn_gelu, packed_bn_gelu_noise
-from ..ops.fourier_unit import fourier_unit_forward, fourier_unit_train
+from ..ops.fourier import irfft2_ortho
+from ..ops.fourier_unit import _spectrum_plain, fourier_unit_eval, fourier_unit_train
 from .layers import (
     ACTIVATIONS,
     BN_EPS,
     BatchNorm,
+    ConditionalBatchNorm,
     Conv2d,
     ConvTranspose2d,
     SELayer,
@@ -73,12 +82,17 @@ class FourierUnit(nn.Module):
     hand-written kernels on CUDA, the plain versions on the CPU. Eval
     normalises with the running statistics; training with the f32 batch
     statistics, which then update the running ones (momentum 0.9, biased
-    variance)."""
+    variance). With ``num_classes`` > 1 the BN is a
+    :class:`ConditionalBatchNorm` (``bn``) on the labels, in plain ops."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, num_classes: int = 0):
         super().__init__()
         c2 = 2 * channels
         self.mix_kernel = nn.Parameter(torch.empty(c2, c2))
+        if num_classes > 1:
+            self.bn = ConditionalBatchNorm(c2, num_classes)
+            return
+        self.bn = None
         self.bn_scale = nn.Parameter(torch.empty(c2))
         self.bn_bias = nn.Parameter(torch.empty(c2))
         self.register_buffer("running_mean", torch.zeros(c2))
@@ -87,15 +101,24 @@ class FourierUnit(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             conv_init_(self.mix_kernel, generator)
+            if self.bn is not None:
+                return
             bn_scale_init_(self.bn_scale, generator)
             self.bn_bias.zero_()
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.bn is not None:
+            if y is None:
+                raise ValueError("a class-conditional FourierUnit needs labels")
+            c, h, w = x.shape[1:]
+            _, m = _spectrum_plain(x, self.mix_kernel.to(x.dtype))
+            r = torch.relu(self.bn(m, y))
+            return irfft2_ortho(r[:, :c], r[:, c:], (h, w))
         x, kernel = x.contiguous(), self.mix_kernel.to(x.dtype)
         if not self.training:
-            return fourier_unit_forward(
+            return fourier_unit_eval(
                 x, kernel, self.bn_scale, self.bn_bias, self.running_mean,
                 self.running_var,
             )
@@ -112,7 +135,7 @@ class SpectralTransform(nn.Module):
 
     def __init__(
         self, in_channels: int, out_channels: int, stride: int = 1,
-        upsample: bool = False,
+        upsample: bool = False, num_classes: int = 0,
     ):
         super().__init__()
         half = out_channels // 2
@@ -120,10 +143,10 @@ class SpectralTransform(nn.Module):
         self.se = SELayer(in_channels)
         self.conv1 = Conv2d(in_channels, half, 1)
         self.bn = BatchNorm(half)
-        self.fu = FourierUnit(half)
+        self.fu = FourierUnit(half, num_classes)
         self.conv2 = Conv2d(half, out_channels, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.stride == 2:
             x = (
                 conv_ops.upsample_nearest2x(x)
@@ -132,7 +155,7 @@ class SpectralTransform(nn.Module):
             )
         x = self.se(x)
         x = torch.relu(self.bn(self.conv1(x)))
-        return self.conv2(x + self.fu(x))
+        return self.conv2(x + self.fu(x, y))
 
 
 def _add_opt(a: Branch, b: Branch) -> Branch:
@@ -149,13 +172,14 @@ class FFC(nn.Module):
     SpectralTransform. A branch with no channels on either side is absent.
     With ``use_bias`` the l2l, l2g and g2l convolutions carry a bias (the
     SpectralTransform's stay bias-free); the tuple path's plain
-    convolutions only.
+    convolutions only. ``spectral_classes`` > 1 makes the g2g branch's
+    FourierUnit class-conditional.
     """
 
     def __init__(
         self, in_channels, out_channels, kernel_size, ratio_gin, ratio_gout,
         stride=1, padding=0, output_padding=0, transpose=False, packed=False,
-        use_bias=False,
+        use_bias=False, spectral_classes=0,
     ):
         super().__init__()
         if stride not in (1, 2):
@@ -186,7 +210,8 @@ class FFC(nn.Module):
         self.convg2g = None
         if in_cg > 0 and out_cg > 0:
             self.convg2g = SpectralTransform(
-                in_cg, out_cg, stride=stride, upsample=transpose
+                in_cg, out_cg, stride=stride, upsample=transpose,
+                num_classes=spectral_classes,
             )
 
     @staticmethod
@@ -229,7 +254,8 @@ class FFC(nn.Module):
             out = torch.cat([out[:, :out_cl], out[:, out_cl:] + s], dim=1) if out_cl else out + s
         return Packed(out, out_cl)
 
-    def forward(self, x):
+    def forward(self, x, y=None):
+        """``y``: the labels of a class-conditional FourierUnit."""
         if self.packed:
             if not isinstance(x, Packed):
                 raise TypeError("a packed FFC takes a Packed signal")
@@ -239,49 +265,67 @@ class FFC(nn.Module):
         if self.ratio_gout != 1:
             out_l = _add_opt(self._run(self.convl2l, x_l), self._run(self.convg2l, x_g))
         if self.ratio_gout != 0:
-            out_g = _add_opt(self._run(self.convl2g, x_l), self._run(self.convg2g, x_g))
+            g2g = None if self.convg2g is None or x_g is None else self.convg2g(x_g, y)
+            out_g = _add_opt(self._run(self.convl2g, x_l), g2g)
         return out_l, out_g
 
 
 class FFC_BN_ACT(nn.Module):
     """FFC (transposed when ``upsampling``; ``use_bias`` as in :class:`FFC`)
     -> per-branch BN -> activation; with ``packed``, on a ``Packed`` signal
-    (see the module docstring)."""
+    (see the module docstring). With ``num_classes`` > 1 the BNs are
+    class-conditional and, with ``cond_spectral_bn``, so is the
+    FourierUnit's; the forward then takes the labels."""
 
     def __init__(
         self, in_channels, out_channels, kernel_size, ratio_gin, ratio_gout,
         stride=1, padding=0, output_padding=0, norm="identity",
         activation="identity", upsampling=False, packed=False, use_bias=False,
+        num_classes=0, cond_spectral_bn=False,
     ):
         super().__init__()
         if norm not in ("batch", "identity"):
             raise ValueError(f"norm must be 'batch' or 'identity', got {norm!r}")
+        if packed and num_classes > 1:
+            raise ValueError("packed mode does not take class-conditional BN")
         self.ffc = FFC(
             in_channels, out_channels, kernel_size, ratio_gin, ratio_gout,
             stride=stride, padding=padding, output_padding=output_padding,
             transpose=upsampling, packed=packed, use_bias=use_bias,
+            spectral_classes=num_classes if cond_spectral_bn else 0,
         )
         out_cl, out_cg = split_channels(out_channels, ratio_gout)
-        batch = norm == "batch"
-        self.bn_l = BatchNorm(out_cl) if batch and out_cl > 0 else None
-        self.bn_g = BatchNorm(out_cg) if batch and out_cg > 0 else None
+        self.conditional = num_classes > 1
+        if norm == "identity":
+            make_bn = lambda c: None
+        elif self.conditional:
+            make_bn = lambda c: ConditionalBatchNorm(c, num_classes)
+        else:
+            make_bn = BatchNorm
+        self.bn_l = make_bn(out_cl) if out_cl > 0 else None
+        self.bn_g = make_bn(out_cg) if out_cg > 0 else None
         self.activation, self.packed = activation, packed
         self.act = ACTIVATIONS[activation]
 
-    def forward(self, x, noise_fold=None):
-        """``noise_fold``: optional ``(w, n_l, n_g)`` of a packed block, the
+    def forward(self, x, y=None, noise_fold=None):
+        """``y``: the labels (B,) of a class-conditional block.
+        ``noise_fold``: optional ``(w, n_l, n_g)`` of a packed block, the
         generator's noise injection applied in the norm-act pass (w (C,)
         f32, n_l and n_g (B, 1, H, W) in x's dtype)."""
         if self.packed:
             return self._packed_norm_act(self.ffc(x), noise_fold)
         if noise_fold is not None:
             raise ValueError("noise_fold needs packed mode")
-        x_l, x_g = self.ffc(x)
+        if self.conditional and y is None:
+            raise ValueError("a class-conditional block needs labels")
+        x_l, x_g = self.ffc(x, y)
 
         def norm_act(v, bn):
             if v is None:
                 return None
-            return self.act(bn(v) if bn is not None else v)
+            if bn is None:
+                return self.act(v)
+            return self.act(bn(v, y) if self.conditional else bn(v))
 
         return norm_act(x_l, self.bn_l), norm_act(x_g, self.bn_g)
 

@@ -1,5 +1,6 @@
-"""Building-block modules: inits, BatchNorm, convolutions, spectral-normed
-layers, noise injection, SE gate, GELU.
+"""Building-block modules: inits, BatchNorm and its class-conditional form,
+label embeddings, convolutions, spectral-normed layers, noise injection,
+input noise, SE gate, GELU.
 
 Parameters, BatchNorm state and spectral-norm ``u`` vectors are f32;
 every layer casts its parameters to the dtype of the activation it
@@ -18,7 +19,7 @@ forward.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -87,12 +88,69 @@ class BatchNorm(nn.Module):
                 self.bias, training=False, eps=BN_EPS,
             )
             return out.to(x.dtype)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
-        self.update_running_stats_(mean, var)
+        mean, var = batch_stats_(self, xf)
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         out = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return out.to(x.dtype)
+
+
+def batch_stats_(bn: nn.Module, xf: torch.Tensor):
+    """(mean, biased variance E[x²] − E[x]² clipped at 0) of the f32 map
+    ``xf`` over (B, H, W), folded into ``bn``'s running statistics."""
+    mean = xf.mean(dim=(0, 2, 3))
+    var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+    update_running_(bn.running_mean, mean)
+    update_running_(bn.running_var, var)
+    return mean, var
+
+
+class ConditionalBatchNorm(nn.Module):
+    """Class-conditional BatchNorm over dim 1: BatchNorm without affine
+    parameters (statistics as :class:`BatchNorm`'s, in f32), then
+    ``gamma[y] * out + beta[y]`` from per-class tables (gamma init
+    N(1, 0.02), beta 0), returned in the input's dtype."""
+
+    def __init__(self, channels: int, num_classes: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.empty(num_classes, channels))
+        self.beta = nn.Parameter(torch.empty(num_classes, channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            bn_scale_init_(self.gamma, generator)
+            self.beta.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """x (B, C, ...) and labels y (B,) integers."""
+        xf = x.float()
+        if self.training:
+            mean, var = batch_stats_(self, xf)
+        else:
+            mean, var = self.running_mean, self.running_var
+        tail = (None,) * (x.dim() - 2)
+        out = (xf - mean[(..., *tail)]) * torch.rsqrt(var + BN_EPS)[(..., *tail)]
+        gamma, beta = self.gamma[y][(..., *tail)], self.beta[y][(..., *tail)]
+        return (gamma * out + beta).to(x.dtype)
+
+
+class LabelEmbedding(nn.Module):
+    """A (num_classes, dim) table of label vectors, N(0, 1) init; returns
+    ``weight[y]``."""
+
+    def __init__(self, num_classes: int, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_classes, dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.normal_(0.0, 1.0, generator=generator)
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        return self.weight[y]
 
 
 class Dense(nn.Module):
@@ -140,27 +198,32 @@ class Conv2d(nn.Module):
 
 
 class ConvTranspose2d(nn.Module):
-    """Bias-free transposed 2-D convolution; weight IOHW."""
+    """Transposed 2-D convolution, bias-free unless ``bias`` (zero init,
+    added to the output in its dtype); weight IOHW."""
 
     def __init__(
         self, in_channels, out_channels, kernel_size, stride=1, padding=0,
-        output_padding=0,
+        output_padding=0, bias: bool = False,
     ):
         super().__init__()
         k = kernel_size
         self.weight = nn.Parameter(torch.empty(in_channels, out_channels, k, k))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
         self.stride, self.padding = stride, padding
         self.output_padding = output_padding
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             conv_init_(self.weight, generator)
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_ops.conv_transpose2d(
+        y = conv_ops.conv_transpose2d(
             x, self.weight, stride=self.stride, padding=self.padding,
             output_padding=self.output_padding,
         )
+        return y if self.bias is None else y + self.bias.to(y.dtype)[:, None, None]
 
 
 def draw_noise(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -187,19 +250,38 @@ class NoiseInjection(nn.Module):
         return x + self.weight.to(x.dtype)[None, :, None, None] * noise
 
 
-class _SpectralNormed(nn.Module):
-    """Holds ``weight`` (output features first), ``bias`` and the power
-    iteration's ``u`` buffer (unit norm at init)."""
+class GaussianNoise(nn.Module):
+    """Input-noise regulariser: ``x + stddev * N(0, 1)`` drawn in x's dtype
+    from ``generator``, in training only."""
 
-    def __init__(self, weight_shape):
+    def __init__(self, stddev: float = 0.05):
+        super().__init__()
+        self.stddev = stddev
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or self.stddev == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("a training forward with input noise needs a noise generator")
+        noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        return x + self.stddev * noise
+
+
+class _SpectralNormed(nn.Module):
+    """Holds ``weight`` (output features first), ``bias`` (unless ``bias``
+    is False) and the power iteration's ``u`` buffer (unit norm at
+    init)."""
+
+    def __init__(self, weight_shape, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(weight_shape))
-        self.bias = nn.Parameter(torch.empty(weight_shape[0]))
+        self.bias = nn.Parameter(torch.empty(weight_shape[0])) if bias else None
         self.register_buffer("u", torch.empty(weight_shape[0]))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
             self.u.copy_(l2_normalize(torch.randn(self.u.shape, generator=generator)))
 
     def normalized_weight(self) -> torch.Tensor:
@@ -213,11 +295,13 @@ class _SpectralNormed(nn.Module):
 
 
 class SNConv2d(_SpectralNormed):
-    """Spectral-normalised 2-D convolution with bias; weight OIHW."""
+    """Spectral-normalised 2-D convolution, with a bias unless ``bias`` is
+    False; weight OIHW."""
 
-    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
+                 bias: bool = True):
         k = kernel_size
-        super().__init__((out_channels, in_channels, k, k))
+        super().__init__((out_channels, in_channels, k, k), bias)
         self.stride, self.padding = stride, padding
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -228,7 +312,7 @@ class SNConv2d(_SpectralNormed):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = conv_ops.conv2d(x, self.normalized_weight(), stride=self.stride,
                             padding=self.padding)
-        return y + self.bias.to(y.dtype)[:, None, None]
+        return y if self.bias is None else y + self.bias.to(y.dtype)[:, None, None]
 
 
 class SNDense(_SpectralNormed):

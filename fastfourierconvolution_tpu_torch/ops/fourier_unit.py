@@ -58,7 +58,12 @@ run staged, its forward and its backward each compute the spectra once and
 feed them to the statistics stage and then to the apply stage
 (``_train_forward_staged``, ``_train_backward_staged``). It saves only (x,
 kernel, scale, bias, bmean, bvar) and returns bmean/bvar as
-non-differentiable outputs.
+non-differentiable outputs. ``fourier_unit_eval`` is the eval op, an
+autograd Function over ``fourier_unit_forward`` whose backward runs the
+same backward kernels with the running statistics. Both backwards are
+themselves an autograd Function (``_FourierUnitBackward``), so the op has
+a double backward: the VJP of the plain backward, as the JAX package
+differentiates its jnp backward (a gradient penalty takes it).
 
 Layout: x, y, gy and gx are (B, C, H, W); kernel (2C, 2C) in x's dtype,
 [re; im] on both axes; scale, bias and the statistics are (2C,) f32.
@@ -939,7 +944,7 @@ def fu_bwd_mix(z, g, kernel, scale, bias, bmean, bvar, gscale, gbias):
     return g, _reduce(partial).view(2 * c, 2 * c)
 
 
-# --- the training op ----------------------------------------------------------------
+# --- the autograd Functions -----------------------------------------------------
 
 
 def _train_forward_staged(x, kernel, scale, bias):
@@ -951,18 +956,63 @@ def _train_forward_staged(x, kernel, scale, bias):
     return fu_inverse(r, x.dtype, x.shape[3]), bmean, bvar
 
 
-def _train_backward_staged(x, kernel, scale, bias, bmean, bvar, gy):
-    """The training backward on the staged kernels, ``(gx, gK in kernel's
-    dtype, gscale, gbias)``: one launch transforms x and gy, and the
-    backward sums read G before ``fu_bwd_mix`` writes gz over it."""
+def _train_backward_staged(x, kernel, scale, bias, bmean, bvar, gy, train=True):
+    """The backward on the staged kernels, ``(gx, gK in kernel's dtype,
+    gscale, gbias)``: one launch transforms x and gy, and the backward sums
+    read G before ``fu_bwd_mix`` writes gz over it. In eval mode
+    (``train`` False) the mix stage takes zero sums, which leaves gm =
+    gn·inv."""
     z, g = fu_spectrum(x, gy)
     gscale, gbias = fu_bwd_stats_mix(z, g, kernel, scale, bias, bmean, bvar)
-    gz, gk = fu_bwd_mix(z, g, kernel, scale, bias, bmean, bvar, gscale, gbias)
+    sums = (gscale, gbias) if train else (torch.zeros_like(gscale),) * 2
+    gz, gk = fu_bwd_mix(z, g, kernel, scale, bias, bmean, bvar, *sums)
     return fu_inverse(gz, x.dtype, x.shape[3]), gk.to(kernel.dtype), gscale, gbias
 
 
 def _stats_staged(x) -> bool:
     return x.device.type == "cuda" and _design("stats", x) == STAGED
+
+
+def _backward_kernels(x, kernel, scale, bias, bmean, bvar, gy, train):
+    """``(gx, gK in kernel's dtype, gscale, gbias)`` from the kernels (the
+    plain versions on the CPU); in eval mode the apply takes zero sums, so
+    the coupled-BN cotangent collapses to gm = gn·inv."""
+    if _stats_staged(x):
+        return _train_backward_staged(x, kernel, scale, bias, bmean, bvar, gy, train)
+    gscale, gbias = fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy)
+    sums = (gscale, gbias) if train else (torch.zeros_like(gscale),) * 2
+    gx, gk = fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, *sums)
+    return gx, gk.to(kernel.dtype), gscale, gbias
+
+
+class _FourierUnitBackward(torch.autograd.Function):
+    """The op's first-order backward ``(gx, gK, gscale, gbias)`` as a
+    function of (x, kernel, scale, bias, gy): the kernels compute it, and
+    its own backward (the second-order term, which a gradient penalty
+    needs) is the VJP of the plain backward, as the JAX package
+    differentiates its jnp backward. In training the batch statistics are
+    recomputed from (x, kernel) there, so the term includes their
+    dependence on both; the running statistics of eval mode get none."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, scale, bias, bmean, bvar, gy, train):
+        ctx.save_for_backward(x, kernel, scale, bias, bmean, bvar, gy)
+        ctx.train = train
+        return _backward_kernels(x, kernel, scale, bias, bmean, bvar, gy, train)
+
+    @staticmethod
+    def backward(ctx, ggx, ggk, ggscale, ggbias):
+        x, kernel, scale, bias, bmean, bvar, gy = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_() for t in (x, kernel, scale, bias, gy)]
+        xd, kd, sd, bd, gyd = inputs
+        with torch.enable_grad():
+            if ctx.train:
+                bmean, bvar = fu_train_stats_plain(xd, kd)
+            outs = fourier_unit_backward_plain(xd, kd, sd, bd, bmean, bvar, gyd, ctx.train)[:4]
+            grads = torch.autograd.grad(outs, inputs, (ggx, ggk, ggscale, ggbias),
+                                        allow_unused=True)
+        gx, gk, gscale, gbias, ggy = grads
+        return gx, gk, gscale, gbias, None, None, ggy, None
 
 
 class _FourierUnitTrain(torch.autograd.Function):
@@ -980,17 +1030,35 @@ class _FourierUnitTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):  # the statistics' cotangents are dropped
         x, kernel, scale, bias, bmean, bvar = ctx.saved_tensors
-        gy = gy.contiguous()
-        if _stats_staged(x):
-            return _train_backward_staged(x, kernel, scale, bias, bmean, bvar, gy)
-        gscale, gbias = fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy)
-        gx, gk = fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias)
-        return gx, gk.to(kernel.dtype), gscale, gbias
+        return _FourierUnitBackward.apply(x, kernel, scale, bias, bmean, bvar,
+                                          gy.contiguous(), True)
+
+
+class _FourierUnitEval(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, kernel, scale, bias, mean, var):
+        ctx.save_for_backward(x, kernel, scale, bias, mean, var)
+        return fourier_unit_forward(x, kernel, scale, bias, mean, var)
+
+    @staticmethod
+    def backward(ctx, gy):  # the running statistics get no gradient
+        x, kernel, scale, bias, mean, var = ctx.saved_tensors
+        return (*_FourierUnitBackward.apply(x, kernel, scale, bias, mean, var,
+                                            gy.contiguous(), False), None, None)
 
 
 def fourier_unit_train(x, kernel, scale, bias):
-    """FourierUnit train forward, differentiable in x, kernel, scale and
-    bias: ``(y, bmean, bvar)`` with y normalised by the f32 batch
+    """FourierUnit train forward, differentiable (twice) in x, kernel, scale
+    and bias: ``(y, bmean, bvar)`` with y normalised by the f32 batch
     statistics of m. Kernels on CUDA, plain versions on the CPU."""
     _check_args(x, kernel, scale=scale, bias=bias)
     return _FourierUnitTrain.apply(x, kernel, scale, bias)
+
+
+def fourier_unit_eval(x, kernel, scale, bias, mean, var):
+    """FourierUnit eval forward with the running statistics ``mean`` and
+    ``var``, differentiable (twice) in x, kernel, scale and bias: the
+    forward and backward kernels on CUDA (the backward apply with zero
+    sums, gm = gn·inv), plain versions on the CPU."""
+    _check_args(x, kernel, scale=scale, bias=bias, mean=mean, var=var)
+    return _FourierUnitEval.apply(x, kernel, scale, bias, mean, var)

@@ -15,6 +15,10 @@ import pytest
 import torch
 
 from fastfourierconvolution_tpu_torch import (
+    CondDCGANDiscriminator,
+    CondDCGANGenerator,
+    CondSNDiscriminator,
+    FFCCondGenerator,
     FFCDiscriminator,
     FFCGenerator,
     GANTrainer,
@@ -858,3 +862,160 @@ def test_a_failed_capture_raises_and_runs_no_step_in_its_place(deterministic):
     drop = ("z_generator", "noise_generator")
     _assert_same_bits(*({k: v for k, v in _trainer_state(t).items() if k not in drop}
                         for t in (graph, eager)))
+
+
+# --- the FourierUnit op's eval-mode gradient and double backward -------------------
+
+# A map of each design: per item (clustered), staged, and per item in a
+# workspace (the statistics and the backward at 48x48).
+GRAD_MAPS = [(8, 16, 16, 16), (2, 32, 64, 64), (2, 8, 48, 48)]
+
+
+def _grad_inputs(shape, device, train):
+    """f32 (x, K, scale, bias, mean, var, gy) with biases that keep every
+    pre-activation clear of the ReLU's kink (``relu_margin_bias``) under the
+    statistics the op normalises with: the batch statistics in training."""
+    x, kernel, scale, bias, mean, var = _inputs(shape, torch.float32, device, seed=7)
+    if train:
+        mean, var = (t.float() for t in fu.fu_train_stats_plain(x.double(), kernel.double()))
+    bias, _ = fu.relu_margin_bias(x, kernel, scale, bias, mean, var)
+    gy = torch.randn(shape, generator=torch.Generator().manual_seed(8)).to(device)
+    return x, kernel, scale, bias, mean, var, gy
+
+
+def _backward_launches():
+    return [w.launches for w in (fu.fu_bwd_stats, fu.fu_bwd_apply, fu.fu_bwd_stats_mix,
+                                 fu.fu_bwd_mix)]
+
+
+@pytest.mark.parametrize("shape", GRAD_MAPS)
+def test_eval_op_gradients_come_from_the_kernels(cuda, shape):
+    """An eval-mode FourierUnit's gx, gK, gscale and gbias from the
+    backward kernels (the apply with zero sums) against the plain backward
+    in f64 within 1e-4 rel-max; one launch of the backward sums and of the
+    apply (their staged stages on the staged map)."""
+    x, kernel, scale, bias, mean, var, gy = _grad_inputs(shape, cuda, train=False)
+    leaves = [t.clone().requires_grad_() for t in (x, kernel, scale, bias)]
+    y = fu.fourier_unit_eval(*leaves, mean, var)
+    before = _backward_launches()
+    outs = torch.autograd.grad(y, leaves, gy)
+    torch.cuda.synchronize()
+    staged = fu._design("stats", x) == fu.STAGED
+    added = [a - b for a, b in zip(_backward_launches(), before)]
+    assert added == ([0, 0, 1, 1] if staged else [1, 1, 0, 0])
+    refs = fu.fourier_unit_backward_plain(
+        *(t.double() for t in (x, kernel, scale, bias, mean, var, gy)), train=False)
+    for name, out, ref in zip(("gx", "gK", "gscale", "gbias"), outs, refs):
+        err = (out.double() - ref).abs().max() / ref.abs().max()
+        assert err <= 1e-4, (name, err.item())
+
+
+def _penalty_grads(op, leaves, gy, w):
+    """The gradient in ``leaves`` of Σ w·(∂(Σ gy·y)/∂x)², y = op(*leaves)."""
+    y = op(*leaves)
+    (gx,) = torch.autograd.grad((gy * y).sum(), leaves[0], create_graph=True)
+    return torch.autograd.grad((w * gx * gx).sum(), leaves, materialize_grads=True)
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+@pytest.mark.parametrize("shape", GRAD_MAPS[:2])
+def test_double_backward_matches_plain(cuda, shape, train):
+    """The gradient of a gradient norm through the training op (the
+    backward's kernels, its second-order term from the plain backward with
+    the statistics recomputed) and through the eval op, against autograd
+    twice through the plain forward in f64, within 1e-4 rel-max per
+    tensor."""
+    x, kernel, scale, bias, mean, var, gy = _grad_inputs(shape, cuda, train)
+    w = torch.rand(shape, generator=torch.Generator().manual_seed(9)).to(cuda) + 0.5
+    if train:
+        op = lambda *a: fu.fourier_unit_train(*a)[0]
+        plain = lambda *a: fu.fourier_unit_train_plain(*a)[0]
+    else:
+        op = lambda *a: fu.fourier_unit_eval(*a, mean, var)
+        plain = lambda *a: fu.fourier_unit_forward_plain(*a, mean.double(), var.double())
+    ours = _penalty_grads(op, [t.clone().requires_grad_() for t in (x, kernel, scale, bias)],
+                          gy, w)
+    refs = _penalty_grads(plain, [t.double().requires_grad_() for t in (x, kernel, scale, bias)],
+                          gy.double(), w.double())
+    for name, out, ref in zip(("x", "K", "scale", "bias"), ours, refs):
+        err = (out.double() - ref).abs().max() / max(ref.abs().max(), 1e-30)
+        assert err <= 1e-4, (name, err.item())
+
+
+# --- the conditional path and wgan-gp as CUDA graphs -------------------------------
+
+COND_G = dict(z_size=32, ngf=16, num_classes=10)
+
+
+def _pair_trainer(device, pair, **options):
+    """A narrow trainer of ``pair``: "cond32" (the cifar32 preset at ngf 16
+    against CondSNDiscriminator, fused D pass), "train-cond" (the cDCGAN
+    pair on one channel at 16px: D's decaying input noise, bce, Adam, D
+    first, d_progress_arg) or "sngan-gp" (the narrow FFC generator against
+    FFCDiscriminator, wgan-gp, Adam)."""
+    seeds = torch.Generator().manual_seed(0), torch.Generator().manual_seed(1)
+    common = dict(z_size=32, total_steps=50, seed=3, device=device, dtype="f32")
+    if pair == "cond32":
+        g = FFCCondGenerator.for_preset("cifar32", **COND_G, generator=seeds[0])
+        d = CondSNDiscriminator(num_classes=10, resolution=32, generator=seeds[1])
+        common.update(conditional=True, num_classes=10, fused_dis_batch=True)
+    elif pair == "train-cond":
+        g = CondDCGANGenerator(nz=32, nc=1, ngf=16, generator=seeds[0])
+        d = CondDCGANDiscriminator(nc=1, ndf=16, use_noise=True, generator=seeds[1])
+        common.update(conditional=True, num_classes=10, loss="bce", optimizer="adam",
+                      update_order="d_first", d_progress_arg=True)
+    else:
+        g = FFCGenerator(**NARROW_G, generator=seeds[0])
+        d = FFCDiscriminator(generator=seeds[1])
+        common.update(loss="wgan-gp", optimizer="adam")
+    return GANTrainer(g, d, **common, **options)
+
+
+def _pair_batches(pair, n, device):
+    resolution, channels = (16, 1) if pair == "train-cond" else (32, 3)
+    g = torch.Generator().manual_seed(6)
+    reals = (torch.rand(n, 8, resolution, resolution, channels, generator=g) * 2 - 1).to(device)
+    labels = torch.randint(0, 10, (n, 8), generator=g).to(device)
+    return reals, None if pair == "sngan-gp" else labels
+
+
+@pytest.mark.parametrize("pair", ["cond32", "train-cond", "sngan-gp"])
+def test_update_steps_replays_the_eager_step_of_the_new_paths(deterministic, pair):
+    """f32 under deterministic algorithms, from one state: update_steps over
+    4 batches (labels (K, B) into the graph's static buffer beside the
+    reals; the progress read from the device step count) against 4
+    update_step calls: the same losses and the same bits in every
+    parameter, buffer, moment, learning rate and generator state."""
+    graph, eager = (_pair_trainer(deterministic, pair) for _ in range(2))
+    reals, labels = _pair_batches(pair, 4, deterministic)
+    out = graph.update_steps(reals, labels)
+    ref = [eager.update_step(r, None if labels is None else labels[i])
+           for i, r in enumerate(reals)]
+    torch.cuda.synchronize()
+    for key in ("loss_g", "loss_d"):
+        assert torch.equal(out[key], torch.stack([r[key] for r in ref])), key
+    assert graph.step == eager.step == 4
+    _assert_same_bits(_trainer_state(graph), _trainer_state(eager))
+    if pair == "train-cond":
+        assert torch.equal(graph.step_count, eager.step_count) and graph.step_count.item() == 4
+
+
+def test_generate_between_update_steps_leaves_the_replays_unchanged(deterministic):
+    """update_steps, generate(z, labels, uint8=True), update_steps against
+    the two update_steps calls alone: the same bits everywhere, and the
+    images uint8 NHWC."""
+    a, b = (_pair_trainer(deterministic, "cond32") for _ in range(2))
+    reals, labels = _pair_batches("cond32", 4, deterministic)
+    z = torch.randn(8, 32, generator=torch.Generator().manual_seed(2)).to(deterministic)
+    a.update_steps(reals[:2], labels[:2])
+    images = a.generate(z, labels[0], uint8=True)
+    floats = a.generate(z, labels[0])
+    a.update_steps(reals[2:], labels[2:])
+    b.update_steps(reals[:2], labels[:2])
+    b.update_steps(reals[2:], labels[2:])
+    torch.cuda.synchronize()
+    assert images.dtype == torch.uint8 and images.shape == (8, 32, 32, 3)
+    assert floats.dtype == torch.float32 and torch.isfinite(floats).all()
+    assert a.g.training
+    _assert_same_bits(_trainer_state(a), _trainer_state(b))
+

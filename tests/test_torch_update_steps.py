@@ -1,5 +1,7 @@
 """``GANTrainer.update_steps`` on the CPU, the learning-rate schedules and
-the trainer's refusals (CPU, f32; no JAX).
+the trainer's refusals (CPU, f32; no JAX). wgan-gp with a discriminator
+that holds a FourierUnit, which the trainer once refused, is held to the
+JAX trainer by ``tests/test_torch_fourier_unit_grad.py``.
 
 On the CPU ``update_steps`` is ``update_step`` K times: the same bits, the
 state advanced by K. The card's graph path is held against eager steps by
@@ -13,12 +15,7 @@ import copy
 import pytest
 import torch
 
-from fastfourierconvolution_tpu_torch import (
-    FFCDiscriminator,
-    FFCGenerator,
-    GANTrainer,
-    SNConvDiscriminator,
-)
+from fastfourierconvolution_tpu_torch import FFCGenerator, GANTrainer, SNConvDiscriminator
 
 Z, K = 8, 3
 
@@ -96,20 +93,12 @@ def test_trainer_rejects_invalid_options(options, match):
 
 
 @pytest.mark.parametrize("options,match", [
-    (dict(conditional=True), "models/conditional.py"),
-    (dict(num_classes=10), "models/conditional.py"),
-    (dict(d_progress_arg=True), "CondDCGANDiscriminator"),
     (dict(remat="dots"), "remat"),
+    (dict(remat="full"), "remat"),
 ])
 def test_trainer_refuses_what_is_not_ported(options, match):
     with pytest.raises(NotImplementedError, match=match):
         _trainer(**options)
-
-
-def test_wgan_gp_refuses_a_discriminator_with_a_fourier_unit():
-    g = FFCGenerator(z_size=Z, ngf=8, mg=2, channel_mults=(2, 1))
-    with pytest.raises(NotImplementedError, match="double backward"):
-        GANTrainer(g, FFCDiscriminator(mg=1), z_size=Z, loss="wgan-gp", device="cpu")
 
 
 def test_step_inputs_are_checked():
