@@ -96,10 +96,15 @@ Phases, each of which raises on a failed check:
     the plain op, the trainer's state unmoved; one f32 step against the
     plain ops as in phase 7;
 15. the ``fgan_cond48`` generator's FourierUnit maps, (64,16,24,24) and
-    (64,8,48,48), checked as in phases 3 and 5 (at 48x48 the statistics and
-    the backward run the per-item workspace design); bf16 training of the
-    ``fgan_cond48`` pair (``stl48`` against ``CondSNDiscriminator(48)``) as
-    in phase 6;
+    (64,8,48,48), checked as in phases 3 and 5, every kernel clustered per
+    item (at 48x48 the statistics, the backward sums and the backward apply
+    fit only on clusters of 2 ranks or more), with each 48x48 training
+    kernel's ranks, device ms, bound and times its bound printed beside the
+    workspace design's readings there; the four workspace kernels (forward,
+    statistics, backward sums, backward apply) at the 96px generator's map
+    at batch 8, (8,8,96,96), checked the same way (no main path runs
+    them); bf16 training of the ``fgan_cond48`` pair (``stl48`` against
+    ``CondSNDiscriminator(48)``) as in phase 6;
 16. wgan-gp on the sngan pair, whose gradient penalty takes D's
     FourierUnits' double backward: exact launches per f32 step (D's maps 4
     training forwards and 5 kernel backwards: the penalty's first-order
@@ -148,9 +153,19 @@ FU128_SHAPES = [(BATCH, 64, 16, 16), (BATCH, 32, 32, 32), (BATCH, 32, 64, 64),
 # generator's block1 map too) and block2.
 D_FU_SHAPES = [(BATCH, 16, 16, 16), (BATCH, 32, 8, 8)]
 # The fgan_cond48 generator (stl48: dense stem, mg 6) at batch 64: block1's
-# g2g on 24x24 maps, block2's on 48x48, where the statistics and the
-# backward take the per-item workspace design.
+# g2g on 24x24 maps, block2's on 48x48, where the one-block plan of the
+# statistics and the backward exceeds shared memory and the clustered
+# kernels run on 2 ranks per item (``fourier_unit.kernel_design``).
 FU48_SHAPES = [(BATCH, 16, 24, 24), (BATCH, 8, 48, 48)]
+# Device ms a launch of the workspace statistics, backward sums and
+# backward apply at (64,8,48,48) in bf16, the lowest and highest of three
+# runs of phase 15 while that map ran them (H100 80GB HBM3, 700 W): printed
+# beside the clustered kernels' readings there.
+WORKSPACE_48_MS = {"fu_train_stats": (0.1697, 0.1727), "fu_bwd_stats": (0.3217, 0.3229),
+                   "fu_bwd_apply": (0.5299, 0.5451)}
+# The 96px generator's 96x96 map at batch 8, which no cluster plan fits
+# and the staged kernels do not take: the per-item workspace kernels.
+WORKSPACE_SHAPES = [(8, 8, 96, 96)]
 # The eval-mode gradient's maps (phase 17).
 EVAL_GRAD_SHAPES = [(BATCH, 16, 16, 16), (BATCH, 8, 48, 48)]
 NUM_CLASSES = 10
@@ -1381,6 +1396,40 @@ def eval_gradients(device):
             raise AssertionError(f"eval-mode gradients {shape}: {errs}")
 
 
+def against_workspace(rows):
+    """Logs each clustered training kernel's bf16 reading at (64,8,48,48)
+    (``rows`` of ``check_train_kernels``) beside ``WORKSPACE_48_MS``."""
+    for row in rows:
+        if tuple(row["shape"]) != FU48_SHAPES[1] or row["name"] not in WORKSPACE_48_MS:
+            continue
+        lo, hi = WORKSPACE_48_MS[row["name"]]
+        dev, bound_ms = row["device_ms"], row["bound_ms"]
+        times = "not measured" if dev is None else f"{dev / bound_ms:.0f}x"
+        log(f"{row['name']} {FU48_SHAPES[1]} bf16, clustered: {row['ranks']} ranks per item, "
+            f"profiler device {fmt_ms(dev)} ms a launch, bound {bound_ms:.5f} ms, {times} its "
+            f"bound; the workspace design {lo:.4f}-{hi:.4f} ms ({lo / bound_ms:.0f}-"
+            f"{hi / bound_ms:.0f}x); faster: {dev is not None and dev < lo}")
+
+
+def check_workspace_kernels(device):
+    """The four per-item workspace kernels at ``WORKSPACE_SHAPES``, where
+    ``kernel_design`` picks them for every wrapper, checked as in phases 3
+    and 5. Returns their bf16 rows for the kernels line."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for shape in WORKSPACE_SHAPES:
+        designs = {w: fu.kernel_design(w, *shape[1:], limit) for w in ("forward", "stats",
+                                                                       "bwd_apply")}
+        if set(designs.values()) != {fu.WORKSPACE}:
+            raise AssertionError(f"{shape}: not the workspace design: {designs}")
+    rows, _ = check_fourier_unit(device, WORKSPACE_SHAPES, "workspace-96px")
+    train_rows, _ = check_train_kernels(device, WORKSPACE_SHAPES, "workspace-96px")
+    return rows + train_rows
+
+
 def launch_wrappers():
     """{kernel name: its wrapper}; each wrapper counts its launches."""
     from fastfourierconvolution_tpu_torch.ops import bn_act as ba
@@ -1984,10 +2033,13 @@ def main() -> int:
     by_map_c32 = serve_generate(device, card, trainer_c32)
     del trainer_c32
     train_vs_plain(device, "cond32")
-    phase("15: the fgan_cond48 pair: FourierUnit kernels at its maps, training")
+    phase("15: the fgan_cond48 pair: FourierUnit kernels at its maps, the workspace kernels "
+          "at 96x96, training")
     rows_48, calls_48 = check_fourier_unit(device, FU48_SHAPES, "training-cond48")
     train_rows, train_calls = check_train_kernels(device, FU48_SHAPES, "training-cond48")
+    against_workspace(train_rows)
     rows_48 += train_rows + check_reduce(device, reduce_cases(FU48_SHAPES), "training-cond48")
+    rows_48 += check_workspace_kernels(device)
     calls_48 += train_calls
     _, counts_c48 = train(device, card, "cond48")
     rows += with_launches(rows_48, counts_c48)

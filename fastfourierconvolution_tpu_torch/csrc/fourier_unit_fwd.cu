@@ -26,19 +26,19 @@
 // and the staged kernels of fourier_unit_staged.cu take the maps that neither
 // serves well (the 128px generator's 32x32 to 128x128 maps).
 //
-// fu_item_fwd_kernel, wherever the item's plan fits a block's shared memory
-// (the 32px generator's (16,16,16) and (8,32,32), the 48px one's (16,24,24)
-// and (8,48,48), the 128px eval forward's (64,16,16)). An item runs on a
-// thread-block cluster of R ranks of 384 threads (fourier_unit_item.cuh; R
-// from ops/fourier_unit.py, item_design: the most ranks whose blocks make
-// one wave, R = 2 at batch 64 and 8 at batch 1 and 7), each rank on cr =
-// C/R channels: it copies their planes and the DFT tables in with cp.async,
-// takes the W-stage rDFT and the H-stage DFT of its planes in its shared
-// memory, and after a cluster barrier gathers the item's whole spectrum
-// from the ranks over distributed shared memory and computes its 2cr
-// channels of m = z K over every position, with BN, ReLU and the c weights
-// applied as each value leaves the registers; after a second barrier it
-// takes the inverse H-stage and the inverse W-stage of its channels, which
+// fu_item_fwd_kernel, wherever the item's plan fits shared memory, on one
+// block or spread over a cluster's ranks (the 32px generator's (16,16,16) and
+// (8,32,32), the 48px one's (16,24,24) and (8,48,48), the 128px eval forward's
+// (64,16,16)). An item runs on a thread-block cluster of R ranks of 384
+// threads (fourier_unit_item.cuh; R from ops/fourier_unit.py, item_design: the
+// most ranks whose blocks make one wave, R = 2 at batch 64 and 8 at batch 1
+// and 7), each rank on cr = C/R channels: it copies their planes and the DFT
+// tables in with cp.async, takes the W-stage rDFT and the H-stage DFT of its
+// planes in its shared memory, and after a cluster barrier gathers the item's
+// whole spectrum from the ranks over distributed shared memory and computes
+// its 2cr channels of m = z K over every position, with BN, ReLU and the c
+// weights applied as each value leaves the registers; after a second barrier
+// it takes the inverse H-stage and the inverse W-stage of its channels, which
 // writes y. Every stage is a register-tiled small product; the DFT factor
 // tables are the plain version's own, built once per (H, W) on the host.
 // Shared memory per rank at batch 64 (R = 2): 41 KB at (16,16,16), 81 KB at

@@ -46,8 +46,9 @@
 // map, and the staged kernels of fourier_unit_staged.cu take the maps that
 // neither serves well (the 128px generator's).
 //
-// Clustered, wherever the item's plan fits shared memory (the 32px
-// generator's (16,16,16) and (8,32,32), the 48px one's (16,24,24)): the
+// Clustered, wherever the item's plan fits shared memory, on one block or
+// spread over a cluster's ranks (the 32px generator's (16,16,16) and
+// (8,32,32), the 48px one's (16,24,24) and (8,48,48)): the
 // statistics (fu_item_train_stats_kernel), the backward sums
 // (fu_item_bwd_stats_kernel) and the backward apply
 // (fu_item_bwd_apply_kernel). An item runs on a thread-block cluster of R
@@ -75,10 +76,12 @@
 // kernels end on a cluster barrier: no rank leaves while another still
 // gathers from its shared memory. Shared memory per rank at batch 64 (R =
 // 2): the statistics 41 KB at (16,16,16) and 81 KB at (8,32,32), the
-// backward sums 50 KB and 98 KB, the backward apply 53 KB and 99 KB.
+// backward sums 50 KB and 98 KB, the backward apply 53 KB and 99 KB; at
+// (8,48,48), where one block's plan exceeds 227 KB, 178 KB, 216 KB and
+// 216 KB.
 //
-// Workspace, elsewhere (the 48px generator's (8,48,48), the 96px and 256px
-// ones' maps): one 256-thread block per item holds its buffers in the
+// Workspace, elsewhere (the 96px generator's (8,96,96), the 256px one's
+// maps): one 256-thread block per item holds its buffers in the
 // item's slice of a device workspace (fourier_unit_common.cuh) and computes
 // in f32 FMAs on the CUDA cores, recomputing the spectrum from x instead of
 // reading any saved intermediate (the backward's residuals are x, the

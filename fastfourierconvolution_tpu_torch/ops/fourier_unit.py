@@ -42,13 +42,14 @@ and the card's shared memory per block, how ``fourier_unit_forward``,
 run a map: their per-item kernel with the item in shared memory; else the
 staged kernels, which work per (item, channel) plane and per tile of
 spectral positions (the wrapper then launches those and not its own
-kernel); else their per-item kernel with the item in an f32 device
-workspace. In shared memory every per-item wrapper (the forward, the
-statistics, the backward sums and the backward apply) runs its clustered
-kernel (``csrc/fourier_unit_item.cuh``): each item on a thread-block
-cluster of :func:`item_design` ranks, each rank on its share of the
-channels, with DFT tables built once per (H, W) and device
-(``_item_tables``).
+kernel); else their per-item kernel with the item in shared memory where
+it fits once spread over a cluster's ranks; else their per-item kernel
+with the item in an f32 device workspace. In shared memory every per-item
+wrapper (the forward, the statistics, the backward sums and the backward
+apply) runs its clustered kernel (``csrc/fourier_unit_item.cuh``): each
+item on a thread-block cluster of :func:`item_design` ranks, each rank on
+its share of the channels, with DFT tables built once per (H, W) and
+device (``_item_tables``).
 
 ``fourier_unit_train`` is the training op the model calls: an autograd
 Function. Where the statistics run per item, its forward runs the stats
@@ -331,10 +332,12 @@ def _check_args(x, kernel, **vectors):
 # library also ffc_item_train_stats_rank_floats and
 # ffc_item_bwd_stats_rank_floats), the plan of one rank of a clustered
 # kernel that _item_rank_floats mirrors. Each per-item wrapper runs its
-# clustered kernel (csrc/fourier_unit_item.cuh) where the map is SHARED and
-# its workspace kernel, which keeps the item's buffers in its slice of an
-# f32 device workspace (csrc/fourier_unit_common.cuh), where it is
-# WORKSPACE.
+# clustered kernel (csrc/fourier_unit_item.cuh) where the map is SHARED,
+# whether the one-block plan or only the per-rank plans fit, and its
+# workspace kernel, which keeps the item's buffers in its slice of an f32
+# device workspace (csrc/fourier_unit_common.cuh), where it is WORKSPACE:
+# the staged kernels do not take the map and no per-rank plan fits (the
+# 96px generator's (8, 96, 96), for one).
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD, _TRAIN, _STAGED = "fourier_unit_fwd", "fourier_unit_train", "fourier_unit_staged"
@@ -469,19 +472,31 @@ def kernel_design(wrapper: str, c: int, h: int, w: int, smem_limit: int) -> str:
     - ``STAGED``: else the staged kernels, wherever they take the map: H and
       W powers of two (at least 4), 2C one of 16, 32, 64, 128, and their
       shared memory (``_staged_smem``) within the limit;
+    - ``SHARED``: else the clustered kernel wherever one rank's plan
+      (``_item_rank_floats``) fits the limit on some cluster of
+      ``_ITEM_RANKS`` ranks that divides C, for every kernel the wrapper's
+      design covers: the forward's own plan, or the backward apply's and
+      the statistics' together;
     - ``WORKSPACE``: else the per-item workspace kernel, the item's
       buffers in a device workspace, which takes any map.
 
-    The statistics share the backward apply's per-item plan, so the two
-    always take the same design. At 227 KB (an H100) the 32px generator's
-    maps stay ``SHARED``, and so does the forward at (64, 16, 16); the
-    128px generator's maps at 32x32 to 128x128, and the backward apply and
-    the statistics at (64, 16, 16), are ``STAGED``."""
+    The statistics and the backward apply are decided on the same plans,
+    so the two always take the same design. At 227 KB (an H100) the 32px
+    generator's maps stay ``SHARED``, and so does the forward at (64, 16,
+    16); the 128px generator's maps at 32x32 to 128x128, and the backward
+    apply and the statistics at (64, 16, 16), are ``STAGED``; the 48px
+    generator's (8, 48, 48), whose one-block plan of the backward exceeds
+    the limit, is ``SHARED`` on clusters of 2 ranks or more; (8, 96, 96)
+    and (32, 256, 256) are ``WORKSPACE``."""
     if _item_floats(_DESIGN_STEMS[wrapper], c, h, w) * 4 <= smem_limit:
         return SHARED
     pow2 = lambda v: v >= 4 and v & (v - 1) == 0
     if pow2(h) and pow2(w) and 2 * c in (16, 32, 64, 128) and _staged_smem(c, h, w) <= smem_limit:
         return STAGED
+    plans = ("forward",) if wrapper == "forward" else ("bwd_apply", "stats")
+    if any(c % r == 0 and all(_item_rank_floats(k, c, h, w, r) * 4 <= smem_limit for k in plans)
+           for r in _ITEM_RANKS):
+        return SHARED
     return WORKSPACE
 
 
@@ -528,8 +543,11 @@ def item_design(b: int, c: int, h: int, w: int, smem_limit: int) -> int:
     ranks whose B·R blocks make one wave of one block per SM of an H100
     (B·R <= 132), else the fewest. A rank's stages keep its SM's issue
     slots busy, so two blocks on one SM take twice as long: a second wave
-    costs more than the ranks save (``tools/item_design_sweep.py``).
-    Raises where no R fits."""
+    costs more than the ranks save (``tools/item_design_sweep.py``). Where
+    :func:`kernel_design` sent a map to ``SHARED`` on the per-rank plans
+    alone, one rank does not fit, so R is at least 2: (64, 8, 48, 48)
+    takes 2 (128 blocks, 221,348 B a rank of the backward apply), batch 1
+    and 7 take 8. Raises where no R fits."""
     kernels = [k for k in ("forward", "bwd_apply", "stats")
                if kernel_design(k, c, h, w, smem_limit) == SHARED]
     fits = [r for r in _ITEM_RANKS

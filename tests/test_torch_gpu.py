@@ -222,6 +222,18 @@ def test_workspace_statistics_kernels_match_plain(cuda, name):
     _check_large_map(cuda, name, WORKSPACE_SHAPE, getattr(fu, name))
 
 
+@pytest.mark.parametrize("name,design", [("fourier_unit_fwd", "forward"),
+                                         ("fu_bwd_apply", "bwd_apply")])
+def test_workspace_forward_and_backward_apply_match_plain(cuda, name, design):
+    """The forward and the backward apply in the per-item workspace
+    layout, where no cluster's per-rank plan fits either: their own kernel
+    launches, every output within 1e-4 rel-max of the plain version in
+    f64."""
+    assert fu._design(design, torch.empty(WORKSPACE_SHAPE, device=cuda)) == fu.WORKSPACE
+    counted = fu.fourier_unit_forward if name == "fourier_unit_fwd" else fu.fu_bwd_apply
+    _check_large_map(cuda, name, WORKSPACE_SHAPE, counted)
+
+
 # A packed map of the 128px generator's shape class (block1's widths, batch 8).
 PACKED_SHAPE = (8, 256, 16, 16)
 
@@ -409,7 +421,8 @@ def test_staged_training_op_matches_plain(cuda, shape):
         assert rel <= 1e-4, rel
 
 
-@pytest.mark.parametrize("cmap", [(16, 16, 16), (8, 32, 32), (64, 16, 16), (32, 128, 128)])
+@pytest.mark.parametrize("cmap", [(16, 16, 16), (8, 32, 32), (64, 16, 16), (32, 128, 128),
+                                  (8, 48, 48)])
 def test_item_plans_match_the_libraries(cuda, cmap):
     """The per-item plans that ``kernel_design`` reads, and the per-rank
     plans of the clustered kernels that ``item_design`` reads, are the
@@ -423,14 +436,16 @@ def test_item_plans_match_the_libraries(cuda, cmap):
                     kernel, *cmap, ranks)
 
 
-# Every map that kernel_design sends to SHARED for each clustered per-item
-# kernel: the 32px generator's two, the 128px eval forward's (64, 16, 16)
-# and the 48px generator's (16, 24, 24) and (8, 48, 48) (forward only).
+# Every map of a generator or discriminator that kernel_design sends to
+# SHARED for each clustered per-item kernel: the 32px generator's two, the
+# 128px eval forward's (64, 16, 16) and the 48px generator's (16, 24, 24) and
+# (8, 48, 48), whose backward apply and statistics fit only on 2 ranks or
+# more; and (128, 16, 16), where the forward fits only on 8 ranks.
 ITEM_MAPS = {"fourier_unit_fwd": [(16, 16, 16), (8, 32, 32), (64, 16, 16), (16, 24, 24),
-                                  (8, 48, 48)],
-             "fu_bwd_apply": [(16, 16, 16), (8, 32, 32), (16, 24, 24)],
-             "fu_train_stats": [(16, 16, 16), (8, 32, 32), (16, 24, 24)],
-             "fu_bwd_stats": [(16, 16, 16), (8, 32, 32), (16, 24, 24)]}
+                                  (8, 48, 48), (128, 16, 16)],
+             "fu_bwd_apply": [(16, 16, 16), (8, 32, 32), (16, 24, 24), (8, 48, 48)],
+             "fu_train_stats": [(16, 16, 16), (8, 32, 32), (16, 24, 24), (8, 48, 48)],
+             "fu_bwd_stats": [(16, 16, 16), (8, 32, 32), (16, 24, 24), (8, 48, 48)]}
 ITEM_CASES = [(name, cmap) for name, maps in ITEM_MAPS.items() for cmap in maps]
 # The kernel_design wrapper of each clustered kernel's wrapper.
 ITEM_DESIGN = {"fourier_unit_fwd": "forward", "fu_bwd_apply": "bwd_apply",
@@ -866,9 +881,10 @@ def test_a_failed_capture_raises_and_runs_no_step_in_its_place(deterministic):
 
 # --- the FourierUnit op's eval-mode gradient and double backward -------------------
 
-# A map of each design: per item (clustered), staged, and per item in a
-# workspace (the statistics and the backward at 48x48).
-GRAD_MAPS = [(8, 16, 16, 16), (2, 32, 64, 64), (2, 8, 48, 48)]
+# A map of each design: per item (clustered, on one block's plan and, at
+# 48x48, on the per-rank plans alone), staged, and per item in a workspace
+# (96x96).
+GRAD_MAPS = [(8, 16, 16, 16), (2, 32, 64, 64), (2, 8, 48, 48), (2, 8, 96, 96)]
 
 
 def _grad_inputs(shape, device, train):

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import re
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -32,14 +33,17 @@ TILE = {k: int(v) for k, v in re.findall(r"\b(k[A-Z][A-Za-z]*) = (\d+)",
                                          (CSRC / "fourier_unit_item.cuh").read_text())}
 THREADS = TILE["kItemThreads"]
 
-# (wrapper, C, H, W) -> kernel_design at 227 KB: the answers of the parent
-# design rule at every FourierUnit map of the 32-256px generators, which this
-# rule must keep.
+# (C, H, W) -> kernel_design of the forward, the backward apply and the
+# statistics at 227 KB, at every FourierUnit map of the 32-256px generators.
+# (8, 48, 48)'s backward apply and statistics were "workspace" while the rule
+# read only the one-block plan (259,940 B); they fit on clusters of 2 ranks
+# (221,348 B a rank), so they are "shared". Every other answer is the one-block
+# rule's (``one_block_design``).
 DESIGNS = {
     (16, 16, 16): ("shared", "shared", "shared"),
     (8, 32, 32): ("shared", "shared", "shared"),
     (16, 24, 24): ("shared", "shared", "shared"),
-    (8, 48, 48): ("shared", "workspace", "workspace"),
+    (8, 48, 48): ("shared", "shared", "shared"),
     (8, 64, 64): ("staged", "staged", "staged"),
     (8, 96, 96): ("workspace", "workspace", "workspace"),
     (64, 16, 16): ("shared", "staged", "staged"),
@@ -58,6 +62,101 @@ ITEM_DESIGNS = {(b,) + m: (2 if b == 64 else 8) for m in SHARED_MAPS for b in (1
 def test_kernel_design_answers_do_not_move(cmap):
     got = tuple(fu.kernel_design(k, *cmap, H100_SMEM) for k in ("forward", "bwd_apply", "stats"))
     assert got == DESIGNS[cmap]
+
+
+def one_block_design(wrapper, c, h, w, smem_limit):
+    """The design rule before it read the per-rank plans: SHARED where the
+    one-block plan fits, else STAGED where the staged kernels take the map,
+    else WORKSPACE."""
+    if fu._item_floats(fu._DESIGN_STEMS[wrapper], c, h, w) * 4 <= smem_limit:
+        return "shared"
+    pow2 = lambda v: v >= 4 and v & (v - 1) == 0
+    if (pow2(h) and pow2(w) and 2 * c in (16, 32, 64, 128)
+            and fu._staged_smem(c, h, w) <= smem_limit):
+        return "staged"
+    return "workspace"
+
+
+# The answers that reading the per-rank plans moved.
+MOVED = {("bwd_apply", (8, 48, 48)), ("stats", (8, 48, 48))}
+
+
+@pytest.mark.parametrize("cmap", list(DESIGNS))
+def test_kernel_design_moves_only_the_48px_training_kernels(cmap):
+    """Every answer of DESIGNS but (8, 48, 48)'s backward apply and
+    statistics is the one-block rule's."""
+    for k in ("forward", "bwd_apply", "stats"):
+        old = one_block_design(k, *cmap, H100_SMEM)
+        if (k, cmap) in MOVED:
+            assert (old, fu.kernel_design(k, *cmap, H100_SMEM)) == ("workspace", "shared")
+        else:
+            assert fu.kernel_design(k, *cmap, H100_SMEM) == old
+
+
+def _fourier_unit_maps(model, *inputs, **kw):
+    """(C, H, W) of every FourierUnit in an eval-mode forward of ``model``
+    at batch 1, each FourierUnit replaced by the identity."""
+    from fastfourierconvolution_tpu_torch.nn import ffc
+
+    seen = set()
+
+    def identity(self, x, y=None):
+        seen.add(tuple(x.shape[1:]))
+        return x
+
+    with mock.patch.object(ffc.FourierUnit, "forward", identity), torch.no_grad():
+        model.eval()(*inputs, **kw)
+    return seen
+
+
+def _preset_maps(name):
+    from fastfourierconvolution_tpu_torch.models.conditional import FFCCondGenerator
+    from fastfourierconvolution_tpu_torch.models.ffc_gan import FFCDiscriminator
+
+    if name == "FFCDiscriminator":
+        return _fourier_unit_maps(FFCDiscriminator(), torch.zeros(1, 3, 32, 32))
+    return _fourier_unit_maps(FFCCondGenerator.for_preset(name), torch.zeros(1, 128),
+                              y=torch.zeros(1, dtype=torch.long))
+
+
+@pytest.mark.parametrize("name,maps", [
+    ("cifar32", {(16, 16, 16), (8, 32, 32)}),
+    ("stl48", {(16, 24, 24), (8, 48, 48)}),
+    ("tex128", {(16, 16, 16), (8, 32, 32), (8, 64, 64), (8, 128, 128)}),
+    ("library64", {(16, 16, 16), (8, 32, 32), (8, 64, 64)}),
+    ("FFCDiscriminator", {(16, 16, 16), (32, 8, 8)}),
+])
+def test_kernel_design_keeps_the_presets_maps(name, maps):
+    """At every FourierUnit map of the conditional presets and of
+    FFCDiscriminator the rule gives the one-block rule's answer, but for
+    stl48's (8, 48, 48), whose backward apply and statistics now run
+    clustered."""
+    assert _preset_maps(name) == maps
+    for cmap in maps:
+        for k in ("forward", "bwd_apply", "stats"):
+            want = "shared" if (k, cmap) in MOVED else one_block_design(k, *cmap, H100_SMEM)
+            assert fu.kernel_design(k, *cmap, H100_SMEM) == want
+
+
+def test_kernel_design_at_the_edges_of_the_48px_rank_plans():
+    """(64, 8, 48, 48): at 227 KB 2 ranks (the backward apply's 221,348 B a
+    rank); 1 B under that plan, 4 ranks (163,140 B); under every rank plan
+    of the backward apply (134,036 B at 8 ranks) the training kernels take
+    the workspace while the forward runs clustered on 8 ranks (124,292 B),
+    and under every plan of every kernel all three take the workspace."""
+    assert fu.item_design(64, 8, 48, 48, H100_SMEM) == 2
+    assert fu._item_rank_floats("bwd_apply", 8, 48, 48, 2) * 4 == 221348
+    limit = 221348 - 1
+    assert all(fu.kernel_design(k, 8, 48, 48, limit) == "shared"
+               for k in ("forward", "bwd_apply", "stats"))
+    assert fu.item_design(64, 8, 48, 48, limit) == 4
+    limit = fu._item_rank_floats("bwd_apply", 8, 48, 48, 8) * 4 - 1
+    assert [fu.kernel_design(k, 8, 48, 48, limit) for k in ("forward", "bwd_apply", "stats")] == [
+        "shared", "workspace", "workspace"]
+    assert fu.item_design(64, 8, 48, 48, limit) == 8
+    limit = fu._item_rank_floats("train_stats", 8, 48, 48, 8) * 4 - 1
+    assert all(fu.kernel_design(k, 8, 48, 48, limit) == "workspace"
+               for k in ("forward", "bwd_apply", "stats"))
 
 
 def _shared_kernels(cmap):

@@ -25,7 +25,7 @@ import sys
 sys.path.insert(0, os.getcwd())
 
 BATCHES = (1, 7, 64)
-TRAIN_MAPS = [(16, 16, 16), (8, 32, 32), (16, 24, 24)]
+TRAIN_MAPS = [(16, 16, 16), (8, 32, 32), (16, 24, 24), (8, 48, 48)]
 MAPS = {"fourier_unit_fwd": [(16, 16, 16), (8, 32, 32), (64, 16, 16), (16, 24, 24),
                              (8, 48, 48)],
         "fu_train_stats": TRAIN_MAPS, "fu_bwd_stats": TRAIN_MAPS, "fu_bwd_apply": TRAIN_MAPS}
