@@ -114,7 +114,25 @@ Phases, each of which raises on a failed check:
 17. the eval-mode FourierUnit's gradients (gx, gK, gscale, gbias) from the
     backward kernels (the apply with zero sums) against the plain version
     in f64 at (64,16,16,16) and (64,8,48,48), f32, one launch of each;
-18. a check that every kernel was launched on the main path (phases 4, 6,
+18. the ``sagan`` preset at full width, built by the port's
+    ``zoo.build_models(make_config("sagan"))`` (conv_dim 64, z 128, 32px)
+    and trained with the trainer keywords the JAX CLI derives from the
+    config (wgan-gp, Adam 0/0.9, lr 1e-4, D lr 4e-4, 5 D updates, D first,
+    separate D passes): bf16 at batch 64, eager steps and ``update_steps``
+    (K = 16) as in phase 6, with every FourierUnit and BN kernel's launch
+    count 0 (these models run none); one ``generate(z, uint8=True)`` request
+    through the wrapper; 4 replayed f32 steps against 4 eager ones as in
+    phase 12 (self-attention's double backward under the gradient penalty
+    inside a captured graph);
+19. the ``resnet32`` preset (SNGAN-ResNet, ngf 256, ndf 128; hinge, AdamW
+    0/0.9, separate D passes), the same readings and gates;
+20. the DCGAN family at its published widths (ngf = ndf 64), bce:
+    ``DCGANGenerator`` (z 100) against ``DCGANDiscriminator`` at 64px
+    (separate D passes), and ``AttnConvGenerator`` (z 128, mg 8) against
+    ``SNDCGANDiscriminator`` at 64px (fused D pass), the same readings and
+    gates (``SNDCGANDiscriminator`` takes 64px only: four stride-2 convs
+    and a 4x4 head; mg 8 puts the generator's attention on its 64x64 map);
+21. a check that every kernel was launched on the main path (phases 4, 6,
     10, 13, 14 and 15), a ``{"wrapper_calls": [...]}`` JSON line (the staged
     wrapper and training-op calls, all their stages together), a
     ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
@@ -205,12 +223,29 @@ PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 # throughput readings.
 TIMED_SECONDS = 2.0
 # The training paths: bench.py's 32px and 128px pairs, the sngan pair (with
-# wgan-gp: "sngan-gp"), and the fgan_cond32 and fgan_cond48 pairs.
-RESOLUTION = {32: 32, 128: 128, "sngan": 32, "sngan-gp": 32, "cond32": 32, "cond48": 48}
+# wgan-gp: "sngan-gp"), the fgan_cond32 and fgan_cond48 pairs, and the
+# comparator pairs built by the port's zoo (``ZOO_CONFIGS``).
+RESOLUTION = {32: 32, 128: 128, "sngan": 32, "sngan-gp": 32, "cond32": 32, "cond48": 48,
+              "sagan": 32, "resnet32": 32, "dcgan64": 64, "attn64": 64}
 CONDITIONAL = ("cond32", "cond48")
-WARMUP_STEPS = {32: 3, 128: 2, "sngan": 3, "cond32": 3, "cond48": 2}
+WARMUP_STEPS = {32: 3, 128: 2, "sngan": 3, "cond32": 3, "cond48": 2, "sagan": 3,
+                "resnet32": 3, "dcgan64": 3, "attn64": 3}
 # Steps per update_steps call: bench.py's K (bench.py:180-250).
-STEPS_PER_CALL = {32: 16, 128: 4, "sngan": 16, "cond32": 16, "cond48": 16}
+STEPS_PER_CALL = {32: 16, 128: 4, "sngan": 16, "cond32": 16, "cond48": 16, "sagan": 16,
+                  "resnet32": 16, "dcgan64": 16, "attn64": 16}
+# The comparator paths: (JAX preset, overrides) of a config that the port's
+# zoo.build_models turns into the pair. The DCGAN pairs have no preset: the
+# zoo's names at 64px (SNDCGANDiscriminator takes 64px only, so the
+# attention generator runs at mg 8), the published widths (ngf = ndf 64, the
+# DCGAN generator's z 100), bce for their sigmoid heads.
+ZOO_CONFIGS = {
+    "sagan": ("sagan", {}),
+    "resnet32": ("resnet32", {}),
+    "dcgan64": (None, {"model.generator": "dcgan", "model.discriminator": "dcgan",
+                       "data.image_size": 64, "model.z_size": 100, "train.loss": "bce"}),
+    "attn64": (None, {"model.generator": "attn_dcgan", "model.discriminator": "sn_dcgan",
+                      "data.image_size": 64, "model.mg": 8, "train.loss": "bce"}),
+}
 # f32 training step, kernels vs plain ops, under deterministic algorithms
 # so that the kernels are the only difference: every generator gradient
 # (rel-max per tensor) and the losses of the steps (absolute). This
@@ -1458,7 +1493,8 @@ STEP_MAPS = {32: ([(s, 2, 1) for s in FU_SHAPES], []),
              "sngan": ([(s, 2, 1) for s in FU_SHAPES] + [(s, 3, 3) for s in D_FU_SHAPES], []),
              "sngan-gp": ([(s, 2, 1) for s in FU_SHAPES] + [(s, 4, 5) for s in D_FU_SHAPES], []),
              "cond32": ([(s, 2, 1) for s in FU_SHAPES], []),
-             "cond48": ([(s, 2, 1) for s in FU48_SHAPES], [])}
+             "cond48": ([(s, 2, 1) for s in FU48_SHAPES], []),
+             **{path: ([], []) for path in ZOO_CONFIGS}}
 
 
 def expected_launches(path, n_steps):
@@ -1499,6 +1535,29 @@ def zero_counts():
         w.launches_by_map.clear()
 
 
+def zoo_config(path):
+    """The port's config of a comparator path (``ZOO_CONFIGS``)."""
+    from fastfourierconvolution_tpu_torch import make_config
+
+    preset, overrides = ZOO_CONFIGS[path]
+    return make_config(preset, **overrides)
+
+
+def trainer_keywords(cfg):
+    """The ``GANTrainer`` keywords the JAX CLI derives from a config
+    (``cli.py:137-165``): D's fused pass only for the BN-free SN
+    discriminators and without the aw-method, D's progress only for the
+    library cDCGAN discriminator."""
+    m, t = cfg.model, cfg.train
+    return dict(z_size=m.z_size, lr=t.lr, d_lr=t.d_lr, total_steps=t.num_total_steps,
+                num_dis_updates=t.num_dis_updates, loss=t.loss, optimizer=t.optimizer,
+                b1=t.beta1, b2=t.beta2, conditional=m.conditional, num_classes=m.num_classes,
+                fused_dis_batch=(m.discriminator in ("sn_conv", "cond_sn_conv", "sn_dcgan")
+                                 and not t.aw_method),
+                gp_lambda=t.gp_lambda, aw_method=t.aw_method, update_order=t.update_order,
+                remat=t.remat, d_progress_arg=m.discriminator == "cond_dcgan")
+
+
 def make_trainer(device, dtype, path, **options):
     """``path``'s pair with seeded weights: the preset generator of its
     resolution against the SN discriminator in bench.py's setting (fused D
@@ -1507,7 +1566,10 @@ def make_trainer(device, dtype, path, **options):
     wgan-gp), or, for "cond32" and "cond48", the JAX ``fgan_cond32`` and
     ``fgan_cond48`` pairs (``FFCCondGenerator`` presets cifar32 and stl48
     against ``CondSNDiscriminator``, fused D pass, hinge, AdamW, 10
-    classes); ``options`` override the trainer's keywords."""
+    classes), or, for a comparator path, the pair ``zoo.build_models``
+    builds from its config (the models' default seeds), with the keywords
+    the JAX CLI derives from it; ``options`` override the trainer's
+    keywords."""
     import torch
 
     from fastfourierconvolution_tpu_torch import (
@@ -1519,6 +1581,14 @@ def make_trainer(device, dtype, path, **options):
         SNConvDiscriminator,
     )
 
+    if path in ZOO_CONFIGS:
+        from fastfourierconvolution_tpu_torch import build_models
+
+        cfg = zoo_config(path)
+        g, d = build_models(cfg)
+        setting = trainer_keywords(cfg)
+        setting.update(options)
+        return GANTrainer(g, d, seed=SEED, device=device, dtype=dtype, **setting)
     resolution = RESOLUTION[path]
     g_seed = torch.Generator().manual_seed(SEED)
     d_seed = torch.Generator().manual_seed(SEED + 1)
@@ -1560,14 +1630,17 @@ def label_batch(device, seed, path, shape=(BATCH,)):
 
 
 # Device events a replayed step adds to the eager step's: the replay's
-# copies of the batch in and of the two losses out, and the seed and the
-# offset that each replay writes for each of the trainer's two generators;
-# on a conditional path one more, the labels' copy in.
-REPLAY_EXTRA_EVENTS = 3 + 2 * 2
+# copies of the batch in and of the two losses out (on a conditional path
+# one more, the labels' copy in), and the seed and the offset that each
+# replay writes for each of the trainer's generators that the step draws
+# from: the latents' always, the noise generator where G injects noise, D
+# takes input noise or the gradient penalty draws its weights (the resnet32
+# step, which draws no noise, added 2 writes, not 4; H100 80GB HBM3, 700 W).
+REPLAY_COPIES = 3
 
 
-def replay_extra_events(path):
-    return REPLAY_EXTRA_EVENTS + (path in CONDITIONAL)
+def replay_extra_events(path, draws_noise):
+    return REPLAY_COPIES + (path in CONDITIONAL) + 2 * (1 + draws_noise)
 
 
 def step_events(fn, steps_per_call, iters):
@@ -1616,9 +1689,10 @@ def launch_parity(trainer, real, reals, labels, labels_k, extra, attempts=6):
 
 
 def train(device, card, path):
-    """Phases 6, 10, 13, 14 and 15: eager steps, then ``update_steps`` (see
-    the module docstring); returns the trainer and the launches by map and
-    kernel over the eager steps."""
+    """Phases 6, 10, 13-15 and 18-20: eager steps, then ``update_steps``
+    (see the module docstring); returns the trainer, the launches by map
+    and kernel over the eager steps, and the replayed step's profiler
+    device ms."""
     import torch
 
     resolution = RESOLUTION[path]
@@ -1630,6 +1704,7 @@ def train(device, card, path):
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     losses = []
+    noise_state = trainer.noise_generator.get_state()
     for i in range(warmup):
         before = counts_by_map()
         losses.append(trainer.update_step(real, labels))
@@ -1657,8 +1732,10 @@ def train(device, card, path):
         raise AssertionError("non-finite training loss")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = timed_s / n_timed * 1e3
-    busy_ms, n_launch, top = device_breakdown(lambda: trainer.update_step(real, labels),
-                                              iters=5 if resolution <= 48 else 2, top=12)
+    # 2 profiled steps where a step is long or holds thousands of launches
+    busy_ms, n_launch, top = device_breakdown(
+        lambda: trainer.update_step(real, labels),
+        iters=2 if resolution > 48 or path in ZOO_CONFIGS else 5, top=12)
     log(f"{path} training step, batch {BATCH}, bf16, eager: {step_ms:.3f} ms wall "
         f"(unprofiled, {n_timed} steps in {timed_s:.3f} s, host clock), "
         f"{BATCH / step_ms * 1e3:.1f} img/s; device busy {busy_ms:.3f} ms in {n_launch} "
@@ -1698,7 +1775,8 @@ def train(device, card, path):
     if not torch.isfinite(values).all():
         raise AssertionError("non-finite training loss in update_steps")
     graph_ms = timed_s / (n_calls * k) * 1e3
-    extra = replay_extra_events(path)
+    draws_noise = not torch.equal(noise_state, trainer.noise_generator.get_state())
+    extra = replay_extra_events(path, draws_noise)
     eager_dev, n_eager, graph_dev, n_graph, differ = launch_parity(trainer, real, reals, labels,
                                                                    labels_k, extra)
     log(f"{path} training step as a CUDA graph (update_steps, K={k}), batch {BATCH}, bf16: "
@@ -1709,11 +1787,12 @@ def train(device, card, path):
         f"{step_ms:.3f} ms wall, {eager_dev:.3f} ms device, idle share "
         f"{1 - eager_dev / step_ms:.3f}; {card}")
     log(f"  device events per step (profiler): eager {n_eager:.2f}, replayed {n_graph:.2f} = "
-        f"eager + {extra} (the replay's {extra - 4} copies and 2 writes per generator); "
+        f"eager + {extra} (the replay's {extra - 2 * (1 + draws_noise)} copies and 2 writes "
+        f"for each of the {1 + draws_noise} generators the step draws from); "
         f"by name where they differ (eager, replayed): {differ}")
     log(f"  launches counted at the first update_steps call (one eager step, the capture): "
         f"{captured}; unmoved by {n_calls * k} replayed steps")
-    return trainer, counts
+    return trainer, counts, graph_dev
 
 
 # FFCDiscriminator's convolution biases in blocks 1-3, and the conditional
@@ -1877,7 +1956,7 @@ def trainer_state(trainer):
 
 
 def graph_parity(device, path=32, options_by_name=PARITY_OPTIONS):
-    """Phases 12 and 16: for each of ``options_by_name``, two f32 trainers
+    """Phases 12, 16 and 18-20: for each of ``options_by_name``, two f32 trainers
     of ``path`` from the same seeds (TF32 off, deterministic algorithms):
     ``update_steps`` over ``PARITY_STEPS`` batches against as many
     ``update_step`` calls. The same bits are expected; where they differ
@@ -1915,6 +1994,90 @@ def graph_parity(device, path=32, options_by_name=PARITY_OPTIONS):
                 raise AssertionError(f"graph parity, {name}: replayed steps differ: {differ[:8]}")
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+def step_flops(fn):
+    """The FLOPs of the matmuls and convolutions ``fn`` runs (forward,
+    backward and double backward alike), by ``torch.utils.flop_counter``'s
+    formulas, counted in a dispatch mode of its own: ``FlopCounterMode``
+    tracks modules with hooks that refuse ``autograd.grad`` on a leaf (the
+    gradient penalty's)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+
+    class Count(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            formula = flop_registry.get(func._overloadpacket)
+            if formula is not None:
+                Count.total += formula(*args, **kwargs, out_val=out)
+            return out
+
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    return Count.total
+
+
+def comparator(device, card, path):
+    """Phases 18-20: ``path``'s pair built by the port's zoo from its config
+    (``ZOO_CONFIGS``): bf16 training as in phase 6, every FourierUnit and BN
+    kernel's launches 0 in every step and at the capture; the step's
+    matmul and convolution FLOPs (``step_flops`` over one eager step) as a
+    share of the card's bf16 peak at the replayed step's
+    device time; one ``generate(z, uint8=True)`` request (and one of
+    floats) through the models' wrappers, G's state unmoved; then phase
+    12's f32 graph parity, 4 replayed steps against 4 eager ones."""
+    import torch
+
+    cfg = zoo_config(path)
+    trainer, counts, graph_dev = train(device, card, path)
+    launched = {k: v for k, v in counts.items() if v}
+    if launched:
+        raise AssertionError(f"{path}: hand-written kernels launched: {launched}")
+    sizes = {side: sum(p.numel() for p in m.parameters())
+             for side, m in (("G", trainer.g), ("D", trainer.d))}
+    real = real_batch(device, SEED + 2, RESOLUTION[path])
+    flop = step_flops(lambda: trainer.update_step(real))
+    share = flop / (graph_dev * 1e-3) / PEAK_FLOP_PER_S["bfloat16"]
+    log(f"{path}: {cfg.model.generator} G ({sizes['G']:,} parameters) against "
+        f"{cfg.model.discriminator} D ({sizes['D']:,}), {trainer.loss_name}, "
+        f"{trainer.num_dis_updates} D update(s), {trainer.update_order}, fused D pass "
+        f"{trainer.fused_dis_batch}; no FourierUnit or BN kernel launched; step "
+        f"{flop / 1e9:.2f} GFLOP in matmuls and convolutions (flop_counter, one eager step), "
+        f"{share:.4f} of {PEAK_FLOP_PER_S['bfloat16'] / 1e12:.0f} TFLOP/s at the replayed "
+        f"step's {graph_dev:.3f} device ms; {card}")
+
+    z = torch.randn(BATCH, trainer.z_size, generator=torch.Generator().manual_seed(SEED + 30))
+    z = z.to(device)
+    state = {k: v.clone() for k, v in trainer.g.state_dict().items()}
+    trainer.generate(z, uint8=True)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    images = trainer.generate(z, uint8=True)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    floats = trainer.generate(z)
+    torch.cuda.synchronize()
+    r = RESOLUTION[path]
+    if images.shape != (BATCH, r, r, 3) or images.dtype != torch.uint8:
+        raise AssertionError(f"generate gave {tuple(images.shape)} {images.dtype}")
+    if not torch.isfinite(floats).all():
+        raise AssertionError("generate gave non-finite images")
+    moved = [k for k, v in trainer.g.state_dict().items() if not torch.equal(v, state[k])]
+    if moved or not trainer.g.training or any(counts_by_map().values()):
+        raise AssertionError(f"generate moved G's state {moved[:4]}, its training flag or a "
+                             f"kernel count")
+    log(f"{path} generate(z, uint8=True), batch {BATCH}, bf16: one request {wall_ms:.3f} ms wall "
+        f"(host clock, after one warm-up); uint8 (B, {r}, {r}, 3), image std "
+        f"{images.float().std().item():.2f} levels; G's state unmoved; {card}")
+    del trainer
+    graph_parity(device, path, {ZOO_CONFIGS[path][0] or path: {}})
 
 
 def with_launches(rows, counts):
@@ -1997,7 +2160,7 @@ def main() -> int:
     train_rows += check_reduce(device, reduce_cases(FU_SHAPES) + [REDUCE_ODD], "training")
     calls += train_calls
     phase("6: training, 32px")
-    _, counts_32 = train(device, card, 32)
+    _, counts_32, _ = train(device, card, 32)
     rows += with_launches(train_rows, counts_32)
     phase("7: f32 step, 32px")
     train_vs_plain(device, 32)
@@ -2011,7 +2174,7 @@ def main() -> int:
     rows_128 += train_rows + check_reduce(device, reduce_cases(FU128_SHAPES), "training-128px")
     calls_128 += train_calls
     phase("10: packed training, 128px")
-    _, counts = train(device, card, 128)
+    _, counts, _ = train(device, card, 128)
     rows += with_launches(rows_128, counts)
     calls += with_calls(calls_128, counts)
     phase("11: f32 step, 128px")
@@ -2024,12 +2187,12 @@ def main() -> int:
     train_rows, train_calls = check_train_kernels(device, new_maps, "training-sngan")
     rows_sngan += train_rows + check_reduce(device, reduce_cases(new_maps), "training-sngan")
     calls_sngan += train_calls
-    _, counts_sngan = train(device, card, "sngan")
+    _, counts_sngan, _ = train(device, card, "sngan")
     rows += with_launches(rows_sngan, counts_sngan)
     calls += with_calls(calls_sngan, counts_sngan)
     train_vs_plain(device, "sngan")
     phase("14: the fgan_cond32 pair (conditional), 32px: training, generate, f32 step")
-    trainer_c32, counts_c32 = train(device, card, "cond32")
+    trainer_c32, counts_c32, _ = train(device, card, "cond32")
     by_map_c32 = serve_generate(device, card, trainer_c32)
     del trainer_c32
     train_vs_plain(device, "cond32")
@@ -2041,7 +2204,7 @@ def main() -> int:
     rows_48 += train_rows + check_reduce(device, reduce_cases(FU48_SHAPES), "training-cond48")
     rows_48 += check_workspace_kernels(device)
     calls_48 += train_calls
-    _, counts_c48 = train(device, card, "cond48")
+    _, counts_c48, _ = train(device, card, "cond48")
     rows += with_launches(rows_48, counts_c48)
     calls += with_calls(calls_48, counts_c48)
     phase("16: wgan-gp on the sngan pair (the FourierUnit's double backward)")
@@ -2049,7 +2212,14 @@ def main() -> int:
     graph_parity(device, "sngan-gp", {"wgan-gp": {}})
     phase("17: eval-mode FourierUnit gradients")
     eval_gradients(device)
-    phase("18: result")
+    phase("18: the sagan preset (SAGAN pair through the zoo), 32px")
+    comparator(device, card, "sagan")
+    phase("19: the resnet32 preset (SNGAN-ResNet pair through the zoo), 32px")
+    comparator(device, card, "resnet32")
+    phase("20: the DCGAN family at 64px (DCGAN pair; attention generator against SN-DCGAN D)")
+    comparator(device, card, "dcgan64")
+    comparator(device, card, "attn64")
+    phase("21: result")
     check_main_path_launches({"serving-32px": {"fourier_unit_fwd": by_map},
                               "training-32px": counts_32, "training-128px": counts,
                               "training-sngan": counts_sngan, "training-cond32": counts_c32,

@@ -14,7 +14,13 @@ layouts:
 - FourierUnit ``mix_kernel`` (2C, 2C) as it is: both packages order the
   spectral channels [re; im];
 - BatchNorm scale/bias/mean/var, biases and spectral-norm ``u`` as they
-  are (``u`` runs over output features in both packages).
+  are (``u`` runs over output features in both packages, and over input
+  channels for a spectral-normed transposed convolution in both);
+- a spectral-normed transposed convolution's kernel flipped as a
+  transposed convolution's: the flip permutes the columns of the matrix
+  spectral norm reads, so sigma and ``u`` carry over;
+- ``SelfAttention``: its q, k and v convolutions (flax's ``Conv2d_0``,
+  ``Conv2d_1``, ``Conv2d_2``) and the scalar ``gamma``.
 
 The generator and both discriminators go through the same rules:
 ``FFCDiscriminator``'s biased FFC convolutions, its blocks' BatchNorms,
@@ -22,7 +28,12 @@ its FourierUnits' BN and its head's ``u`` included. So do the
 class-conditional models (``models/conditional.py``): label tables
 (``label_embed``) as they are, ConditionalBatchNorm's per-class gamma and
 beta tables and statistics (also in a class-conditional FourierUnit),
-transposed-convolution biases, bias-free spectral-normed convolutions.
+transposed-convolution biases, bias-free spectral-normed convolutions; and
+the comparator models (``models/dcgan.py``, ``models/sngan_resnet.py``,
+``models/sagan.py``), whose port modules carry their flax twins' names.
+``zoo.TupleHeadWrapper`` is seen through: the JAX package does not nest
+the wrapped model's variables under it, so they load into
+``wrapper.module``.
 
 Every JAX leaf must be consumed exactly once and every port parameter and
 buffer filled; anything else raises.
@@ -46,12 +57,17 @@ from .nn.layers import (
     LabelEmbedding,
     NoiseInjection,
     SELayer,
+    SelfAttention,
     SNConv2d,
+    SNConvTranspose2d,
     SNDense,
 )
+from .zoo import TupleHeadWrapper
 
 # Port child name -> the name flax gives the same submodule, for the port
-# modules whose flax twins name their children automatically.
+# modules whose flax twins name their children automatically; None where
+# the flax twin has no module of its own (the child's variables sit in the
+# parent's scope).
 _JAX_CHILD_NAMES = {
     SpectralTransform: {
         "se": "SELayer_0",
@@ -62,6 +78,8 @@ _JAX_CHILD_NAMES = {
     },
     SELayer: {"fc1": "Dense_0", "fc2": "Dense_1"},
     FourierUnit: {"bn": "ConditionalBatchNorm_0"},
+    SelfAttention: {"query": "Conv2d_0", "key": "Conv2d_1", "value": "Conv2d_2"},
+    TupleHeadWrapper: {"module": None},
 }
 
 
@@ -84,7 +102,8 @@ def _jax_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
         table = _JAX_CHILD_NAMES.get(type(module), {})
         for child_name, child in module.named_children():
             full = f"{name}.{child_name}" if name else child_name
-            paths[full] = path + (table.get(child_name, child_name),)
+            jax_name = table.get(child_name, child_name)
+            paths[full] = path if jax_name is None else path + (jax_name,)
             walk(child, full, paths[full])
 
     walk(model, "", ())
@@ -98,6 +117,8 @@ def _leaf_rules(module: nn.Module):
     dense = lambda w: w.T
     same = lambda w: w
     bias = [("bias", "params", ("bias",), same)] if getattr(module, "bias", None) is not None else []
+    if isinstance(module, SNConvTranspose2d):
+        return [("weight", "params", ("kernel",), convt), *bias, ("u", "spectral", ("u",), same)]
     if isinstance(module, (SNConv2d, SNDense)):
         return [
             ("weight", "params", ("kernel",), conv if isinstance(module, SNConv2d) else dense),
@@ -136,6 +157,8 @@ def _leaf_rules(module: nn.Module):
             ("running_mean", "batch_stats", ("mean",), same),
             ("running_var", "batch_stats", ("var",), same),
         ]
+    if isinstance(module, SelfAttention):
+        return [("gamma", "params", ("gamma",), same)]
     if isinstance(module, NoiseInjection):
         return [("weight", "params", ("weight",), lambda w: w.reshape(-1))]
     return []
@@ -164,7 +187,7 @@ def jax_to_state_dict(
             if path in consumed[collection]:
                 raise KeyError(f"JAX leaf {collection}/{'/'.join(path)} used twice")
             consumed[collection].add(path)
-            value = np.ascontiguousarray(convert(leaves[collection][path]))
+            value = np.array(convert(leaves[collection][path]), order="C")
             if value.shape != tuple(expected[key].shape):
                 raise ValueError(
                     f"{key}: JAX leaf {'/'.join(path)} gives shape {value.shape}, "

@@ -1,6 +1,7 @@
 """Building-block modules: inits, BatchNorm and its class-conditional form,
-label embeddings, convolutions, spectral-normed layers, noise injection,
-input noise, SE gate, GELU.
+label embeddings, convolutions, spectral-normed layers (transposed
+convolution included), noise injection, input noise, SE gate, SAGAN
+self-attention, GELU.
 
 Parameters, BatchNorm state and spectral-norm ``u`` vectors are f32;
 every layer casts its parameters to the dtype of the activation it
@@ -46,6 +47,13 @@ def dense_init_(w: torch.Tensor, generator: torch.Generator) -> None:
 
 def bn_scale_init_(w: torch.Tensor, generator: torch.Generator) -> None:
     w.normal_(1.0, 0.02, generator=generator)
+
+
+def xavier_uniform_(w: torch.Tensor, generator: torch.Generator, gain: float = 1.0) -> None:
+    """U(+-gain * sqrt(6 / (fan_in + fan_out))): the JAX package's
+    ``variance_scaling(gain**2, "fan_avg", "uniform")`` (the SNGAN-ResNet
+    models' inits, gain sqrt(2) or 1)."""
+    nn.init.xavier_uniform_(w, gain=gain, generator=generator)
 
 
 def update_running_(running: torch.Tensor, batch: torch.Tensor) -> None:
@@ -158,14 +166,16 @@ class Dense(nn.Module):
     bias is added to the rounded product, as flax's Dense adds it (in
     bf16 a fused add would round once where flax rounds twice)."""
 
-    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 weight_init: Callable = dense_init_):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+        self.weight_init = weight_init
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
-            dense_init_(self.weight, generator)
+            self.weight_init(self.weight, generator)
             if self.bias is not None:
                 self.bias.zero_()
 
@@ -176,19 +186,20 @@ class Dense(nn.Module):
 
 class Conv2d(nn.Module):
     """2-D convolution, bias-free unless ``bias`` (zero init); weight
-    OIHW."""
+    OIHW, drawn by ``weight_init``."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
-                 bias: bool = False):
+                 bias: bool = False, weight_init: Callable = conv_init_):
         super().__init__()
         k = kernel_size
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
         self.stride, self.padding = stride, padding
+        self.weight_init = weight_init
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
-            conv_init_(self.weight, generator)
+            self.weight_init(self.weight, generator)
             if self.bias is not None:
                 self.bias.zero_()
 
@@ -268,18 +279,21 @@ class GaussianNoise(nn.Module):
 
 
 class _SpectralNormed(nn.Module):
-    """Holds ``weight`` (output features first), ``bias`` (unless ``bias``
-    is False) and the power iteration's ``u`` buffer (unit norm at
-    init)."""
+    """Holds ``weight``, drawn by ``weight_init``, ``bias`` of
+    ``out_features`` (unless ``bias`` is False) and the power iteration's
+    ``u`` buffer (unit norm at init) over the weight's first dimension,
+    the rows of ``matrix_view``."""
 
-    def __init__(self, weight_shape, bias: bool = True):
+    def __init__(self, weight_shape, out_features: int, bias: bool, weight_init: Callable):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(weight_shape))
-        self.bias = nn.Parameter(torch.empty(weight_shape[0])) if bias else None
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
         self.register_buffer("u", torch.empty(weight_shape[0]))
+        self.weight_init = weight_init
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
+            self.weight_init(self.weight, generator)
             if self.bias is not None:
                 self.bias.zero_()
             self.u.copy_(l2_normalize(torch.randn(self.u.shape, generator=generator)))
@@ -299,15 +313,10 @@ class SNConv2d(_SpectralNormed):
     False; weight OIHW."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
-                 bias: bool = True):
+                 bias: bool = True, weight_init: Callable = conv_init_):
         k = kernel_size
-        super().__init__((out_channels, in_channels, k, k), bias)
+        super().__init__((out_channels, in_channels, k, k), out_channels, bias, weight_init)
         self.stride, self.padding = stride, padding
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        with torch.no_grad():
-            conv_init_(self.weight, generator)
-        super().reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = conv_ops.conv2d(x, self.normalized_weight(), stride=self.stride,
@@ -319,17 +328,37 @@ class SNDense(_SpectralNormed):
     """Spectral-normalised linear layer with bias, added to the rounded
     product as in the JAX package; weight (out, in)."""
 
-    def __init__(self, in_features: int, out_features: int):
-        super().__init__((out_features, in_features))
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        with torch.no_grad():
-            dense_init_(self.weight, generator)
-        super().reset_parameters(generator)
+    def __init__(self, in_features: int, out_features: int,
+                 weight_init: Callable = dense_init_):
+        super().__init__((out_features, in_features), out_features, True, weight_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.linear(x, self.normalized_weight().to(x.dtype))
         return y + self.bias.to(y.dtype)
+
+
+class SNConvTranspose2d(_SpectralNormed):
+    """Spectral-normalised transposed 2-D convolution (the SAGAN
+    generator's), with a bias unless ``bias`` is False; weight IOHW. As in
+    the JAX package (and torch's ``spectral_norm`` on a transposed
+    convolution) the matrix has the INPUT channels as rows, so ``u`` has
+    ``in_channels`` entries: ``matrix_view`` takes the weight's first
+    dimension as rows, which is cin in this layout. The bridge's spatial
+    flip permutes columns only, so sigma and ``u`` carry over."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
+                 output_padding=0, bias: bool = True):
+        k = kernel_size
+        super().__init__((in_channels, out_channels, k, k), out_channels, bias, conv_init_)
+        self.stride, self.padding = stride, padding
+        self.output_padding = output_padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv_ops.conv_transpose2d(
+            x, self.normalized_weight(), stride=self.stride, padding=self.padding,
+            output_padding=self.output_padding,
+        )
+        return y if self.bias is None else y + self.bias.to(y.dtype)[:, None, None]
 
 
 class SELayer(nn.Module):
@@ -346,6 +375,37 @@ class SELayer(nn.Module):
         y = conv_ops.global_avg_pool(x)
         y = torch.sigmoid(self.fc2(torch.relu(self.fc1(y))))
         return x * y[:, :, None, None]
+
+
+class SelfAttention(nn.Module):
+    """SAGAN self-attention over (B, C, H, W): q and k are biased 1x1
+    convolutions to C // 8 channels, v one to C; ``energy = q kᵀ`` over
+    the N = H·W positions is accumulated and returned in f32 (the bf16
+    operands upcast, which is exact, as the JAX package asks for an f32
+    product), the softmax over keys in f32; ``attn`` is cast to x's dtype
+    for the product with v, accumulated in f32 and rounded once. Returns
+    ``(gamma * out + x, attn)``, with ``gamma`` a scalar that starts at 0
+    and ``attn`` (B, N, N) f32."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.query = Conv2d(channels, channels // 8, 1, bias=True)
+        self.key = Conv2d(channels, channels // 8, 1, bias=True)
+        self.value = Conv2d(channels, channels, 1, bias=True)
+        self.gamma = nn.Parameter(torch.zeros(()))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.gamma.zero_()
+
+    def forward(self, x: torch.Tensor):
+        b, c, h, w = x.shape
+        q = self.query(x).flatten(2).transpose(1, 2)  # (B, N, C/8)
+        k = self.key(x).flatten(2)  # (B, C/8, N)
+        v = self.value(x).flatten(2).transpose(1, 2)  # (B, N, C)
+        attn = torch.softmax(torch.bmm(q.float(), k.float()), dim=-1)
+        out = torch.bmm(attn.to(x.dtype), v).transpose(1, 2).reshape(b, c, h, w)
+        return self.gamma.to(x.dtype) * out + x, attn
 
 
 # GELU form: "policy" takes the tanh form for bf16 activations and exact erf

@@ -11,6 +11,9 @@ geometry is torch's:
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -38,6 +41,36 @@ def avg_pool2d(x: torch.Tensor) -> torch.Tensor:
 def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour x2 upsample of (B, C, H, W)."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+@functools.lru_cache(maxsize=None)
+def bilinear_up_matrix(n: int, scale: int, device: torch.device,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """(scale * n, n) weights of a bilinear upsample along one axis with
+    half-pixel centres (``align_corners=False``), on ``device`` in
+    ``dtype``. Cached: a captured CUDA graph reads the tensor the eager
+    step before the capture built, and nothing writes to it."""
+    out = scale * n
+    src = (np.arange(out, dtype=np.float64) + 0.5) / scale - 0.5
+    lo = np.clip(np.floor(src), 0, n - 1).astype(np.int64)
+    hi = np.minimum(lo + 1, n - 1)
+    frac = np.clip(src - lo, 0.0, 1.0)
+    w = np.zeros((out, n), dtype=np.float64)
+    w[np.arange(out), lo] += 1.0 - frac
+    w[np.arange(out), hi] += frac
+    return torch.from_numpy(w.astype(np.float32)).to(device=device, dtype=dtype)
+
+
+def upsample_bilinear_torch(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """Bilinear upsample of (B, C, H, W) by ``scale`` with
+    ``F.interpolate(mode="bilinear", align_corners=False)`` semantics, as
+    two separable products with the weights of :func:`bilinear_up_matrix`
+    (as the JAX package computes it). Unlike ``upsample_bilinear2d`` on
+    CUDA, its backward is deterministic."""
+    h, w = x.shape[-2:]
+    wh = bilinear_up_matrix(h, scale, x.device, x.dtype)
+    ww = bilinear_up_matrix(w, scale, x.device, x.dtype)
+    return torch.matmul(torch.matmul(wh, x), ww.T)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

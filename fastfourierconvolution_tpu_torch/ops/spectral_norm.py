@@ -1,8 +1,12 @@
 """Spectral normalisation as a function of the weight and the stored ``u``.
 
-The weight is viewed as a (rows, cols) matrix with rows = output features
-(``w.reshape(out, -1)``; the JAX package's HWIO view differs only by a
-column permutation, which changes neither the singular values nor ``u``).
+The weight is viewed as a (rows, cols) matrix with rows = its first
+dimension: output features for an OIHW convolution or an (out, in) dense
+weight, input channels for an IOHW transposed convolution, whose rows the
+JAX package (and torch's ``spectral_norm``) also takes to be its input
+channels. The JAX package's HWIO views differ only by a column permutation
+(and a transposed kernel's spatial flip), which changes neither the
+singular values nor ``u``.
 A training forward runs one power iteration from the stored ``u``,
 
     v = normalize(Wᵀ u);  u = normalize(W v);  sigma = u · (W v),
@@ -27,7 +31,8 @@ def l2_normalize(v: torch.Tensor) -> torch.Tensor:
 
 
 def matrix_view(w: torch.Tensor) -> torch.Tensor:
-    """(out, -1) view of an OIHW convolution or (out, in) dense weight."""
+    """(shape[0], -1) view: (out, -1) of an OIHW convolution or an (out,
+    in) dense weight, (in, -1) of an IOHW transposed convolution."""
     return w.reshape(w.shape[0], -1)
 
 

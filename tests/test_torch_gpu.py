@@ -1035,3 +1035,120 @@ def test_generate_between_update_steps_leaves_the_replays_unchanged(deterministi
     assert a.g.training
     _assert_same_bits(_trainer_state(a), _trainer_state(b))
 
+
+
+# --- the comparator models' layers and pairs -----------------------------------
+
+def _bf16_gap(out, ref):
+    """rel-max of a bf16 result against the f32 one."""
+    return ((out.float() - ref).abs().max() / ref.abs().max()).item()
+
+
+# bf16 against f32 on the same weights and on the f32 inputs rounded to bf16:
+# both compute from the same operands, the bf16 path rounds each product's
+# output (and, in the attention, q, k, v and attn) to bf16, 2^-9 of each
+# value, a few of which add up.
+BF16_LAYER_TOL = 2e-2
+
+
+def test_upsample_bilinear_bf16_matches_f32(cuda):
+    from fastfourierconvolution_tpu_torch.ops.conv import upsample_bilinear_torch
+
+    x = torch.randn(8, 64, 16, 24, generator=torch.Generator().manual_seed(0)).to(cuda)
+    x = x.bfloat16()
+    ref = upsample_bilinear_torch(x.float(), 2)
+    out = upsample_bilinear_torch(x, 2)
+    assert out.dtype == torch.bfloat16 and out.shape == (8, 64, 32, 48)
+    assert _bf16_gap(out, ref) <= BF16_LAYER_TOL
+    want = torch.nn.functional.interpolate(x.float(), scale_factor=2, mode="bilinear",
+                                           align_corners=False)
+    assert (ref - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("stride,padding,size", [(1, 0, 1), (2, 1, 8)], ids=["stem", "up"])
+def test_sn_conv_transpose_bf16_matches_f32(cuda, stride, padding, size):
+    from fastfourierconvolution_tpu_torch.nn.layers import SNConvTranspose2d, reset_parameters
+
+    layer = SNConvTranspose2d(96, 48, 4, stride=stride, padding=padding)
+    reset_parameters(torch.nn.Sequential(layer), torch.Generator().manual_seed(1))
+    layer.to(cuda).eval()
+    x = torch.randn(16, 96, size, size, generator=torch.Generator().manual_seed(2)).to(cuda)
+    x = x.bfloat16()
+    with torch.no_grad():
+        ref, out = layer(x.float()), layer(x)
+    assert out.dtype == torch.bfloat16
+    assert _bf16_gap(out, ref) <= BF16_LAYER_TOL
+
+
+def test_self_attention_bf16_matches_f32(cuda):
+    from fastfourierconvolution_tpu_torch.nn.layers import SelfAttention
+
+    attn = SelfAttention(64)
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for conv, scale in ((attn.query, 0.3), (attn.key, 0.3), (attn.value, 1.0)):
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) * scale / 8)
+            conv.bias.copy_(torch.randn(conv.bias.shape, generator=g) * 0.1)
+        attn.gamma.fill_(1.0)
+    attn.to(cuda)
+    x = torch.randn(16, 64, 16, 16, generator=g).to(cuda).bfloat16()
+    with torch.no_grad():
+        ref, ref_map = attn(x.float())
+        out, out_map = attn(x)
+    assert out.dtype == torch.bfloat16 and out_map.dtype == torch.float32
+    assert out_map.shape == (16, 256, 256)
+    assert _bf16_gap(out, ref) <= BF16_LAYER_TOL
+    assert _bf16_gap(out_map, ref_map) <= BF16_LAYER_TOL
+
+
+def _comparator_trainer(device, preset):
+    """A narrow pair of ``preset`` ("sagan": conv_dim 16, z 16; "resnet32":
+    ngf = ndf 32, z 16) with the preset's trainer settings."""
+    from fastfourierconvolution_tpu_torch import (
+        SAGANDiscriminator,
+        SAGANGenerator,
+        SNGANDiscriminator,
+        SNGANGenerator,
+        TupleHeadWrapper,
+    )
+
+    seeds = torch.Generator().manual_seed(0), torch.Generator().manual_seed(1)
+    common = dict(z_size=16, total_steps=50, seed=3, device=device, dtype="f32")
+    if preset == "sagan":
+        g = TupleHeadWrapper(SAGANGenerator(image_size=32, z_dim=16, conv_dim=16,
+                                            generator=seeds[0]))
+        d = TupleHeadWrapper(SAGANDiscriminator(image_size=32, conv_dim=16, generator=seeds[1]))
+        with torch.no_grad():
+            g.module.attn2.gamma.fill_(0.5)
+            d.module.attn1.gamma.fill_(0.5)
+        common.update(loss="wgan-gp", optimizer="adam", b1=0.0, b2=0.9, lr=1e-4, d_lr=4e-4,
+                      num_dis_updates=5, update_order="d_first")
+    else:
+        g = SNGANGenerator(nz=16, ngf=32, num_blocks=3, generator=seeds[0])
+        d = SNGANDiscriminator(ndf=32, num_blocks=3, generator=seeds[1])
+        common.update(b1=0.0, b2=0.9)
+    return GANTrainer(g, d, **common)
+
+
+@pytest.mark.parametrize("preset", ["sagan", "resnet32"])
+def test_update_steps_replays_the_eager_step_of_the_comparators(deterministic, preset):
+    """f32 under deterministic algorithms, from one state: update_steps over
+    4 batches against 4 update_step calls of a narrow ``preset`` pair (the
+    sagan pair's self-attention twice differentiated under the gradient
+    penalty in the captured graph): the same losses and the same bits in
+    every parameter, buffer, moment, learning rate and generator state."""
+    reals = _reals(4).to(deterministic)
+    # The first sagan step of a process (f32, deterministic algorithms)
+    # differed in its last bits from every later one, with no graph in play
+    # (a library's first use on the card); a throwaway trainer takes it, so
+    # that both trainers below run later steps whatever ran before.
+    _comparator_trainer(deterministic, preset).update_step(reals[0])
+    graph, eager = (_comparator_trainer(deterministic, preset) for _ in range(2))
+    out = graph.update_steps(reals)
+    ref = [eager.update_step(r) for r in reals]
+    torch.cuda.synchronize()
+    for key in ("loss_g", "loss_d"):
+        assert torch.isfinite(out[key]).all()
+        assert torch.equal(out[key], torch.stack([r[key] for r in ref])), key
+    assert graph.step == eager.step == 4
+    _assert_same_bits(_trainer_state(graph), _trainer_state(eager))
