@@ -132,10 +132,31 @@ Phases, each of which raises on a failed check:
     ``SNDCGANDiscriminator`` at 64px (fused D pass), the same readings and
     gates (``SNDCGANDiscriminator`` takes 64px only: four stride-2 convs
     and a 4x4 head; mg 8 puts the generator's attention on its 64x64 map);
-21. a check that every kernel was launched on the main path (phases 4, 6,
-    10, 13, 14 and 15), a ``{"wrapper_calls": [...]}`` JSON line (the staged
-    wrapper and training-op calls, all their stages together), a
-    ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
+21. the training CLI, ``python -m fastfourierconvolution_tpu_torch.cli``,
+    in child processes at full width, batch 64, bf16, on the shapes
+    dataset, in-loop metrics off, K = 16 steps per ``update_steps`` call
+    (``CLI_COMMON``), each child's kernel launches counted and held to the
+    eager step and capture of its first call plus its sample grids:
+    ``fgan32`` trained 96 steps with checkpoints (every file and logged
+    loss checked), trained again to 144 (it must resume from 96), sampled;
+    in process, a trainer restored from a checkpoint into a captured step
+    equals the saved one bit for bit with every tensor's address kept, and
+    in f32 under deterministic algorithms 16 replayed steps after a save
+    and again after a restore give the same bits; the CLI's wall ms per
+    step between epoch boundaries beside phase 6's replayed step, and the
+    data path's share of it (loader, stack, host-to-device copy,
+    normalisation, which must give the host's bits);
+22. ``fgan_cond32`` through the CLI, the class count inferred from the
+    data (3): 32 steps, then ``sample`` with class-stratified labels;
+23. ``fgan64``'s staged FourierUnit map (64,8,64,64): its kernels checked
+    as in phase 9, an eager step of the CLI's pair with exact launches per
+    map (the kernels line's launches for these rows, per step), eager and
+    replayed step times, then 32 steps through the CLI;
+24. a check that every kernel was launched on the main path (phases 4, 6,
+    10, 13, 14, 15 and the CLI runs), a ``{"wrapper_calls": [...]}`` JSON
+    line (the staged wrapper and training-op calls, all their stages
+    together), a ``{"kernels": [...]}`` JSON line, then the
+    ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, where CUDA is absent.
 """
@@ -150,6 +171,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -175,6 +197,9 @@ D_FU_SHAPES = [(BATCH, 16, 16, 16), (BATCH, 32, 8, 8)]
 # statistics and the backward exceeds shared memory and the clustered
 # kernels run on 2 ranks per item (``fourier_unit.kernel_design``).
 FU48_SHAPES = [(BATCH, 16, 24, 24), (BATCH, 8, 48, 48)]
+# The fgan64 generator's third FourierUnit map (block3's g2g), which the
+# staged kernels take (2C = 16); its first two are FU_SHAPES.
+FU64_SHAPES = [(BATCH, 8, 64, 64)]
 # Device ms a launch of the workspace statistics, backward sums and
 # backward apply at (64,8,48,48) in bf16, the lowest and highest of three
 # runs of phase 15 while that map ran them (H100 80GB HBM3, 700 W): printed
@@ -1494,6 +1519,7 @@ STEP_MAPS = {32: ([(s, 2, 1) for s in FU_SHAPES], []),
              "sngan-gp": ([(s, 2, 1) for s in FU_SHAPES] + [(s, 4, 5) for s in D_FU_SHAPES], []),
              "cond32": ([(s, 2, 1) for s in FU_SHAPES], []),
              "cond48": ([(s, 2, 1) for s in FU48_SHAPES], []),
+             "fgan64": ([(s, 2, 1) for s in FU_SHAPES + FU64_SHAPES], []),
              **{path: ([], []) for path in ZOO_CONFIGS}}
 
 
@@ -1543,21 +1569,6 @@ def zoo_config(path):
     return make_config(preset, **overrides)
 
 
-def trainer_keywords(cfg):
-    """The ``GANTrainer`` keywords the JAX CLI derives from a config
-    (``cli.py:137-165``): D's fused pass only for the BN-free SN
-    discriminators and without the aw-method, D's progress only for the
-    library cDCGAN discriminator."""
-    m, t = cfg.model, cfg.train
-    return dict(z_size=m.z_size, lr=t.lr, d_lr=t.d_lr, total_steps=t.num_total_steps,
-                num_dis_updates=t.num_dis_updates, loss=t.loss, optimizer=t.optimizer,
-                b1=t.beta1, b2=t.beta2, conditional=m.conditional, num_classes=m.num_classes,
-                fused_dis_batch=(m.discriminator in ("sn_conv", "cond_sn_conv", "sn_dcgan")
-                                 and not t.aw_method),
-                gp_lambda=t.gp_lambda, aw_method=t.aw_method, update_order=t.update_order,
-                remat=t.remat, d_progress_arg=m.discriminator == "cond_dcgan")
-
-
 def make_trainer(device, dtype, path, **options):
     """``path``'s pair with seeded weights: the preset generator of its
     resolution against the SN discriminator in bench.py's setting (fused D
@@ -1568,8 +1579,8 @@ def make_trainer(device, dtype, path, **options):
     against ``CondSNDiscriminator``, fused D pass, hinge, AdamW, 10
     classes), or, for a comparator path, the pair ``zoo.build_models``
     builds from its config (the models' default seeds), with the keywords
-    the JAX CLI derives from it; ``options`` override the trainer's
-    keywords."""
+    the CLI derives from it (``cli.trainer_keywords``, the JAX CLI's);
+    ``options`` override the trainer's keywords."""
     import torch
 
     from fastfourierconvolution_tpu_torch import (
@@ -1583,12 +1594,13 @@ def make_trainer(device, dtype, path, **options):
 
     if path in ZOO_CONFIGS:
         from fastfourierconvolution_tpu_torch import build_models
+        from fastfourierconvolution_tpu_torch.cli import trainer_keywords
 
         cfg = zoo_config(path)
         g, d = build_models(cfg)
         setting = trainer_keywords(cfg)
-        setting.update(options)
-        return GANTrainer(g, d, seed=SEED, device=device, dtype=dtype, **setting)
+        setting.update(options, seed=SEED, dtype=dtype)
+        return GANTrainer(g, d, device=device, **setting)
     resolution = RESOLUTION[path]
     g_seed = torch.Generator().manual_seed(SEED)
     d_seed = torch.Generator().manual_seed(SEED + 1)
@@ -1664,18 +1676,29 @@ def step_events(fn, steps_per_call, iters):
     return sum(t for _, t, _ in events) / per, by_name
 
 
+# Device events one profiled call of replayed steps may hold. Windows of
+# one call of 16 sagan steps (about 100,000 events) lost or gained events
+# in 5 and 6 windows in a row in two runs (H100 80GB HBM3, 700 W), where
+# eager windows of 3 steps (about 19,000) kept every event.
+PROFILED_EVENTS = 12_000
+
+
 def launch_parity(trainer, real, reals, labels, labels_k, extra, attempts=6):
     """The profiler's device events per eager step and per replayed step,
     which must differ by ``extra``; a window whose counts disagree (the
     profiler can lose events: it lost some in 3 windows in a row, at the
     eager and at the replayed step, in 2 of 4 runs of one call on an H100
     80GB HBM3, 700 W) is profiled again, up to ``attempts`` times. The
-    replayed window is one call of K steps. Returns (eager ms, eager
-    events, graph ms, graph events, the names whose counts differ)."""
-    k = reals.shape[0]
+    replayed window is one call of the first n of the K steps, n as many as
+    keep it within ``PROFILED_EVENTS`` at the eager step's count (K at
+    most, 1 at least). Returns (eager ms, eager events, graph ms, graph
+    events, the names whose counts differ)."""
     for _ in range(attempts):
         eager_ms, eager = step_events(lambda: trainer.update_step(real, labels), 1, 3)
-        graph_ms, graph = step_events(lambda: trainer.update_steps(reals, labels_k), k, 1)
+        n = max(1, min(reals.shape[0], int(PROFILED_EVENTS // max(sum(eager.values()), 1))))
+        graph_ms, graph = step_events(
+            lambda: trainer.update_steps(reals[:n], None if labels_k is None else labels_k[:n]),
+            n, 1)
         n_eager, n_graph = sum(eager.values()), sum(graph.values())
         differ = {key[:60]: (round(eager.get(key, 0), 2), round(graph.get(key, 0), 2))
                   for key in set(eager) | set(graph)
@@ -1692,7 +1715,7 @@ def train(device, card, path):
     """Phases 6, 10, 13-15 and 18-20: eager steps, then ``update_steps``
     (see the module docstring); returns the trainer, the launches by map
     and kernel over the eager steps, and the replayed step's profiler
-    device ms."""
+    device ms and wall ms."""
     import torch
 
     resolution = RESOLUTION[path]
@@ -1792,7 +1815,7 @@ def train(device, card, path):
         f"by name where they differ (eager, replayed): {differ}")
     log(f"  launches counted at the first update_steps call (one eager step, the capture): "
         f"{captured}; unmoved by {n_calls * k} replayed steps")
-    return trainer, counts, graph_dev
+    return trainer, counts, graph_dev, graph_ms
 
 
 # FFCDiscriminator's convolution biases in blocks 1-3, and the conditional
@@ -2035,7 +2058,7 @@ def comparator(device, card, path):
     import torch
 
     cfg = zoo_config(path)
-    trainer, counts, graph_dev = train(device, card, path)
+    trainer, counts, graph_dev, _ = train(device, card, path)
     launched = {k: v for k, v in counts.items() if v}
     if launched:
         raise AssertionError(f"{path}: hand-written kernels launched: {launched}")
@@ -2078,6 +2101,340 @@ def comparator(device, card, path):
         f"{images.float().std().item():.2f} levels; G's state unmoved; {card}")
     del trainer
     graph_parity(device, path, {ZOO_CONFIGS[path][0] or path: {}})
+
+
+# Phases 21-23: the training CLI through its entry point, at full width,
+# batch 64 (the presets'), bf16, on the shapes dataset (no download), with
+# the in-loop metrics off (not ported yet), K = 16 steps per update_steps
+# call and a loss read every chunk.
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_K = 16
+CLI_COMMON = ("--set", "train.precision=bf16", "--set", "data.dataset=shapes",
+              "--set", "eval.isc=false", "--set", "eval.fid=false",
+              "--set", f"train.steps_per_call={CLI_K}", "--set", f"log.log_every={CLI_K}")
+# A CLI command in a child process: the module run as ``python -m`` runs it
+# (runpy), then every kernel wrapper's launches over the run, by map, written
+# to the JSON file named by the first argument.
+CLI_CHILD = (
+    "import json, runpy, sys\n"
+    "counts_path = sys.argv.pop(1)\n"
+    "try:\n"
+    "    runpy.run_module('fastfourierconvolution_tpu_torch.cli', run_name='__main__',\n"
+    "                     alter_sys=True)\n"
+    "finally:\n"
+    "    import chip_smoke\n"
+    "    with open(counts_path, 'w') as f:\n"
+    "        json.dump({k: [[list(m), n] for m, n in v.items()]\n"
+    "                   for k, v in chip_smoke.counts_by_map().items()}, f)\n"
+)
+
+
+def cli_run(name, args, out_dir, timeout=300):
+    """One CLI command (``args`` and ``CLI_COMMON``, logs in ``out_dir``) in a
+    child process: (its stdout, its launches by kernel and map). A non-zero
+    exit fails the phase."""
+    counts_path = f"{out_dir}.{name}.launches.json"
+    cmd = [sys.executable, "-c", CLI_CHILD, counts_path, *args, *CLI_COMMON, "-o", out_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(f"cli {name}: stdout\n{proc.stdout[-3000:]}\nstderr\n{proc.stderr[-3000:]}")
+        raise AssertionError(f"cli {name} ({' '.join(args)}) exited {proc.returncode}")
+    with open(counts_path) as f:
+        counts = {k: {tuple(m): n for m, n in v} for k, v in json.load(f).items()}
+    lines = [l for l in proc.stdout.splitlines() if l.startswith(("INFO", "[config]", "step "))]
+    log(f"cli {name}: {' '.join(args)}: exit 0 in {wall:.1f} s (child process, host clock); "
+        f"{lines if len(lines) <= 4 else lines[:2] + lines[-2:]}")
+    return proc.stdout, counts
+
+
+def eval_launches(g_maps, requests, want=None):
+    """``want`` (or no launches) plus ``requests`` eval-mode generator
+    forwards' launches: per map the forward kernel, or its three stages
+    where the forward is staged."""
+    want = {k: dict(v) for k, v in (want or {k: {} for k in launch_wrappers()}).items()}
+    for shape in g_maps:
+        key = tuple(shape[1:])
+        kernels = STAGED_CALL["fourier_unit_fwd"] if staged("forward", shape) else (
+            "fourier_unit_fwd",)
+        for k in kernels:
+            want[k][key] = want[k].get(key, 0) + requests
+    return want
+
+
+def cli_train_launches(path, g_maps, grids):
+    """A CLI training run's launches: the first ``update_steps`` call's
+    eager step and capture (replays count none), and one eval forward per
+    sample grid."""
+    return eval_launches(g_maps, grids, expected_launches(path, 2))
+
+
+def png_size(path):
+    """(width, height) from a PNG file's header; raises if it is no PNG."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is no PNG file")
+    return int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+
+
+def check_run_files(out_dir, names):
+    """Raises unless every file of ``names`` exists under ``out_dir``; each
+    .png must be a PNG file; returns the logged losses (finite)."""
+    missing = [n for n in names if not os.path.exists(os.path.join(out_dir, n))]
+    if missing:
+        raise AssertionError(f"{out_dir}: missing {missing}; have {sorted(os.listdir(out_dir))}")
+    for n in names:
+        if n.endswith(".png"):
+            png_size(os.path.join(out_dir, n))
+    with open(os.path.join(out_dir, "gan_losses.csv")) as f:
+        rows = [line.split(",") for line in f.read().splitlines()[1:]]
+    losses = [float(v) for row in rows for v in row[1:3]]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{out_dir}: logged losses {losses}")
+    return losses
+
+
+def cli_wall_ms(out_dir, first, last):
+    """Wall ms per step between the loss logs after steps ``first`` and
+    ``last`` (``scalars.jsonl`` times: each log follows a loss read, which
+    waits for the chunk's steps; no epoch boundary lies between them)."""
+    with open(os.path.join(out_dir, "scalars.jsonl")) as f:
+        times = {r["step"]: r["time"] for r in map(json.loads, f) if "loss_g" in r}
+    return (times[last - 1] - times[first - 1]) / (last - first) * 1e3
+
+
+def cli_trainer(device, preset, dtype, seed=SEED, **overrides):
+    """``preset``'s pair, built and keyed as the CLI builds it, in ``dtype``."""
+    from fastfourierconvolution_tpu_torch import GANTrainer, build_models, make_config
+    from fastfourierconvolution_tpu_torch.cli import trainer_keywords
+
+    cfg = make_config(preset, **overrides)
+    setting = trainer_keywords(cfg)
+    setting.update(dtype=dtype, seed=seed)
+    return GANTrainer(*build_models(cfg), device=device, **setting)
+
+
+def restore_checks(device, card, tmp):
+    """Phase 21 in process, the fgan32 pair at full width: a trainer restored
+    from a checkpoint equals the saved one bit for bit (every parameter,
+    buffer, moment, learning rate, count and generator state), into a
+    trainer whose step graph is captured, every tensor keeping its address
+    and the optimizers their ``lr`` tensors; then in f32 under
+    deterministic algorithms, 16 replayed steps after a save, a restore and
+    16 replayed steps again give the same losses' bits."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.train.checkpoint import restore_latest, save_checkpoint
+
+    reals = torch.stack([real_batch(device, SEED + 40 + i, 32) for i in range(CLI_K)])
+    saved = cli_trainer(device, "fgan32", "bf16")
+    saved.update_steps(reals)
+    save_checkpoint(saved, os.path.join(tmp, "restore"), saved.step)
+    into = cli_trainer(device, "fgan32", "bf16", seed=SEED + 5)
+    into.update_steps(reals[:2])
+    before = {k: v.data_ptr() for k, v in trainer_state(into).items()
+              if not k.endswith("generator")}
+    lr_tensors = (into.g_opt.param_groups[0]["lr"], into.d_opt.param_groups[0]["lr"])
+    _, step = restore_latest(into, os.path.join(tmp, "restore"))
+    a, b = trainer_state(saved), trainer_state(into)
+    differ = sorted(k for k in a if not torch.equal(a[k], b[k]))
+    moved = sorted(k for k, ptr in before.items() if b[k].data_ptr() != ptr)
+    same_lr = (lr_tensors[0] is into.g_lr.lr and lr_tensors[1] is into.d_lr.lr
+               and into.g_opt.param_groups[0]["lr"] is into.g_lr.lr)
+    log(f"restore, fgan32 bf16 at full width, into a trainer with a captured step: {len(a)} "
+        f"state tensors, {len(a) - len(differ)} the same bits as the saved trainer's; "
+        f"{len(moved)} of {len(before)} moved; optimizers read the schedules' lr tensors: "
+        f"{same_lr}; step {step} (saved {saved.step})")
+    if differ or moved or not same_lr or step != saved.step or into.step != saved.step:
+        raise AssertionError(f"restore: differ {differ[:8]}, moved {moved[:8]}, lr {same_lr}")
+    del saved, into
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        trainer = cli_trainer(device, "fgan32", "f32")
+        trainer.update_steps(reals)  # the eager step and the capture
+        save_checkpoint(trainer, os.path.join(tmp, "replay"), trainer.step)
+        later = torch.stack([real_batch(device, SEED + 60 + i, 32) for i in range(CLI_K)])
+        first = {k: v.clone() for k, v in trainer.update_steps(later).items()}
+        end = {k: v.clone() for k, v in trainer_state(trainer).items()}
+        restore_latest(trainer, os.path.join(tmp, "replay"))
+        again = trainer.update_steps(later)
+        torch.cuda.synchronize()
+        after = trainer_state(trainer)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(first[k], again[k]) for k in first)
+    differ = sorted(k for k in end if not torch.equal(end[k], after[k]))
+    log(f"restore against a captured graph, fgan32 f32, deterministic algorithms: {CLI_K} "
+        f"replayed steps after the save and {CLI_K} after the restore, the same losses' bits "
+        f"{same}, the same final state in {len(end) - len(differ)} of {len(end)} tensors "
+        f"(generators included); {card}")
+    if not same or differ:
+        raise AssertionError(f"replays after a restore differ: losses {same}, state {differ[:8]}")
+
+
+def loader_share(device, card, cli_ms):
+    """Phase 21: the data path's share of a CLI step beside its wall ms:
+    the loader's host ms per batch (its prefetch thread, overlapped with
+    the steps), stacking a chunk, the chunk's host-to-device copy from
+    pinned memory on the card's copy engine (overlapped) and the
+    normalisation on the card, each per step. The CLI's feed, run on the
+    card over all 256 uint8 levels, must give ``cli.unit_levels``' bits
+    (the JAX CLI's)."""
+    import numpy as np
+    import torch
+
+    from fastfourierconvolution_tpu_torch.cli import _Feed, unit_levels
+    from fastfourierconvolution_tpu_torch.data import DataLoader, load_dataset
+
+    levels = np.arange(256, dtype=np.uint8).reshape(1, 4, 8, 8, 1)  # (K, B, H, W, C)
+    feed = _Feed(iter([(levels[0], np.zeros(4, np.int64))]), 1, device)
+    reals, _ = feed.take(feed.put())
+    if reals.cpu().numpy().tobytes() != unit_levels().tobytes():
+        raise AssertionError("the card's normalisation differs from the JAX CLI's values")
+    loader = DataLoader(load_dataset("shapes", "", 32), BATCH, raw_uint8=True)
+    batches = loader.epochs()
+    try:
+        next(batches)
+        n = 4 * CLI_K
+        t0 = time.perf_counter()
+        chunk = [next(batches) for _ in range(n)][:CLI_K]
+        loader_ms = (time.perf_counter() - t0) / n * 1e3
+    finally:
+        batches.close()
+    t0 = time.perf_counter()
+    x8 = np.stack([b[0] for b in chunk])
+    stack_ms = (time.perf_counter() - t0) * 1e3 / CLI_K
+    pinned = torch.from_numpy(x8).pin_memory()
+    on_dev = torch.empty(x8.shape, dtype=torch.uint8, device=device)
+    h2d_ms = time_ms(lambda: on_dev.copy_(pinned, non_blocking=True)) / CLI_K
+    norm_ms = time_ms(lambda: feed.levels[on_dev.long()]) / CLI_K
+    log(f"CLI data path per step, a chunk of {CLI_K} x {BATCH} x 32 x 32 x 3 uint8 "
+        f"({x8.nbytes} B): loader {loader_ms:.4f} ms (host, its own thread), stack "
+        f"{stack_ms:.4f} ms (host), host-to-device {h2d_ms:.4f} ms (CUDA events, copy engine, "
+        f"{x8.nbytes / CLI_K / h2d_ms / 1e6:.2f} GB/s), normalise {norm_ms:.4f} ms (CUDA "
+        f"events); shares of the CLI's {cli_ms:.3f} ms step: loader {loader_ms / cli_ms:.4f}, "
+        f"host-to-device {h2d_ms / cli_ms:.4f}; the levels 0-255 normalised to the JAX "
+        f"CLI's values on the card; {card}")
+
+
+def cli_fgan32(device, card, tmp, graph_ms_32):
+    """Phase 21: ``train`` 96 steps (epochs of 48, checkpoints), ``train``
+    again to 144 (the resume), ``sample``; the restore checks in process;
+    the CLI's wall ms per step beside phase 6's replayed step, and the data
+    path's share. Returns the CLI runs' launches by run."""
+    out = os.path.join(tmp, "fgan32")
+    args = ["--preset", "fgan32", "--set", "train.num_epoch_steps=48", "--checkpoint"]
+    _, counts_train = cli_run("fgan32-train", ["train", *args, "-e", "96"], out)
+    losses = check_run_files(out, ["gan_losses.csv", "scalars.jsonl", "000048.png", "000096.png",
+                                   "checkpoints/ckpt_96_steps.pt"])
+    cli_ms = cli_wall_ms(out, 64, 96)
+    want = cli_train_launches(32, FU_SHAPES, grids=2)
+    if counts_train != want:
+        raise AssertionError(f"cli fgan32 train launches {counts_train}, want {want}")
+    stdout, counts_resume = cli_run("fgan32-resume", ["train", *args, "-e", "144"], out)
+    if "INFO: resumed from step 96" not in stdout:
+        raise AssertionError("cli fgan32: the second train did not resume from step 96")
+    check_run_files(out, ["000144.png", "checkpoints/ckpt_144_steps.pt"])
+    if counts_resume != cli_train_launches(32, FU_SHAPES, grids=1):
+        raise AssertionError(f"cli fgan32 resumed launches {counts_resume}")
+    _, counts_sample = cli_run("fgan32-sample", ["sample", "--preset", "fgan32",
+                                                 "--num_samples", "64"], out)
+    size = png_size(os.path.join(out, "samples_000144.png"))
+    # the sample grid and the feature-map capture's request of one latent
+    if counts_sample != eval_launches(FU_SHAPES, 2):
+        raise AssertionError(f"cli fgan32 sample launches {counts_sample}")
+    log(f"cli fgan32: 96 steps, resumed to 144, sampled ({size[0]}x{size[1]} grid); "
+        f"{len(losses)} logged losses finite; launches as expected in every run (the first "
+        f"train: {({k: v for k, v in counts_train.items() if v})})")
+    log(f"CLI training step, fgan32, batch {BATCH}, bf16, K={CLI_K}: {cli_ms:.3f} ms wall per "
+        f"step between epoch boundaries (scalars.jsonl, steps 64-96); phase 6's replayed step "
+        f"{graph_ms_32:.3f} ms; the CLI adds {cli_ms / graph_ms_32 - 1:+.2%}; {card}")
+    restore_checks(device, card, tmp)
+    loader_share(device, card, cli_ms)
+    return {"cli-fgan32-train": counts_train, "cli-fgan32-resume": counts_resume,
+            "cli-fgan32-sample": counts_sample}
+
+
+def cli_cond32(device, card, tmp):
+    """Phase 22: ``fgan_cond32`` through the CLI, the class count inferred
+    from shapes: train 32 steps (labels through ``update_steps``), then
+    ``sample`` with class-stratified labels. Returns the runs' launches."""
+    out = os.path.join(tmp, "cond32")
+    args = ["--preset", "fgan_cond32", "--set", "model.num_classes=0", "--set", "eval.kid=false"]
+    stdout, counts_train = cli_run("cond32-train", [
+        "train", *args, "--set", "train.num_epoch_steps=16", "--checkpoint", "-e", "32"], out)
+    if "[config] model.num_classes=3" not in stdout:
+        raise AssertionError("cli cond32: the class count was not inferred as 3")
+    losses = check_run_files(out, ["000016.png", "000032.png", "checkpoints/ckpt_32_steps.pt"])
+    if counts_train != cli_train_launches("cond32", FU_SHAPES, grids=2):
+        raise AssertionError(f"cli cond32 train launches {counts_train}")
+    stdout, counts_sample = cli_run("cond32-sample", ["sample", *args, "--num_samples", "64"], out)
+    png_size(os.path.join(out, "samples_000032.png"))
+    if "[config] model.num_classes=3" not in stdout or counts_sample != eval_launches(
+            FU_SHAPES, 2):
+        raise AssertionError(f"cli cond32 sample: launches {counts_sample}")
+    log(f"cli fgan_cond32: 32 steps with 3 inferred classes, {len(losses)} logged losses "
+        f"finite, sampled with class-stratified labels; launches as expected; {card}")
+    return {"cli-cond32-train": counts_train, "cli-cond32-sample": counts_sample}
+
+
+def cli_fgan64(device, card, tmp):
+    """Phase 23: the kernels at fgan64's staged map (64,8,64,64) against
+    their plain versions (as phase 9 holds the 128px maps); the pair built
+    as the CLI builds it, an eager step's launches per map (exact) and its
+    device time, replayed steps' wall and device time; then ``fgan64``
+    through the CLI (the shapes dataset at 64px, no hflip), 32 steps.
+    Returns the kernels line's rows (launches per step), the staged calls'
+    rows and the CLI run's launches."""
+    import torch
+
+    rows, calls = check_fourier_unit(device, FU64_SHAPES, "cli-fgan64")
+    rows += check_stages(device, FU64_SHAPES, "cli-fgan64")
+    train_rows, train_calls = check_train_kernels(device, FU64_SHAPES, "cli-fgan64")
+    rows += train_rows + check_reduce(device, reduce_cases(FU64_SHAPES), "cli-fgan64")
+    calls += train_calls
+
+    trainer = cli_trainer(device, "fgan64", "bf16")
+    real = real_batch(device, SEED + 2, 64)
+    trainer.update_step(real)
+    torch.cuda.synchronize()
+    zero_counts()
+    trainer.update_step(real)
+    torch.cuda.synchronize()
+    per_step = counts_by_map()
+    if per_step != expected_launches("fgan64", 1):
+        raise AssertionError(f"fgan64 step launches {per_step}")
+    eager_dev, n_launch, top = device_breakdown(lambda: trainer.update_step(real), iters=2)
+    reals = torch.stack([real_batch(device, SEED + 10 + i, 64) for i in range(CLI_K)])
+    trainer.update_steps(reals)  # the eager step and the capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        trainer.update_steps(reals)
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) / (2 * CLI_K) * 1e3
+    graph_dev, _ = step_events(lambda: trainer.update_steps(reals), CLI_K, 1)
+    log(f"fgan64 training step (the CLI's pair), batch {BATCH}, bf16: eager {eager_dev:.3f} ms "
+        f"device in {n_launch} launches (profiler); replayed (K={CLI_K}) {graph_ms:.3f} ms wall "
+        f"per step (host clock), {graph_dev:.3f} ms device (profiler), idle share "
+        f"{1 - graph_dev / graph_ms:.3f}; launches per step {per_step}; {card}")
+    for name, ms, count in top:
+        log(f"  device {ms:.4f} ms in {count} launches: {name[:90]}")
+    del trainer
+
+    out = os.path.join(tmp, "fgan64")
+    _, counts = cli_run("fgan64-train", [
+        "train", "--preset", "fgan64", "--set", "data.hflip_augment=false",
+        "--set", "train.num_epoch_steps=32", "-e", "32"], out)
+    losses = check_run_files(out, ["000032.png"])
+    if counts != cli_train_launches("fgan64", FU_SHAPES + FU64_SHAPES, grids=1):
+        raise AssertionError(f"cli fgan64 launches {counts}")
+    log(f"cli fgan64: 32 steps, {len(losses)} logged losses finite; launches as expected, the "
+        f"staged map's {[(k, v[(8, 64, 64)]) for k, v in counts.items() if (8, 64, 64) in v]}")
+    return with_launches(rows, per_step), with_calls(calls, per_step), {"cli-fgan64": counts}
 
 
 def with_launches(rows, counts):
@@ -2160,7 +2517,7 @@ def main() -> int:
     train_rows += check_reduce(device, reduce_cases(FU_SHAPES) + [REDUCE_ODD], "training")
     calls += train_calls
     phase("6: training, 32px")
-    _, counts_32, _ = train(device, card, 32)
+    _, counts_32, _, graph_ms_32 = train(device, card, 32)
     rows += with_launches(train_rows, counts_32)
     phase("7: f32 step, 32px")
     train_vs_plain(device, 32)
@@ -2174,7 +2531,7 @@ def main() -> int:
     rows_128 += train_rows + check_reduce(device, reduce_cases(FU128_SHAPES), "training-128px")
     calls_128 += train_calls
     phase("10: packed training, 128px")
-    _, counts, _ = train(device, card, 128)
+    _, counts, _, _ = train(device, card, 128)
     rows += with_launches(rows_128, counts)
     calls += with_calls(calls_128, counts)
     phase("11: f32 step, 128px")
@@ -2187,12 +2544,12 @@ def main() -> int:
     train_rows, train_calls = check_train_kernels(device, new_maps, "training-sngan")
     rows_sngan += train_rows + check_reduce(device, reduce_cases(new_maps), "training-sngan")
     calls_sngan += train_calls
-    _, counts_sngan, _ = train(device, card, "sngan")
+    _, counts_sngan, _, _ = train(device, card, "sngan")
     rows += with_launches(rows_sngan, counts_sngan)
     calls += with_calls(calls_sngan, counts_sngan)
     train_vs_plain(device, "sngan")
     phase("14: the fgan_cond32 pair (conditional), 32px: training, generate, f32 step")
-    trainer_c32, counts_c32, _ = train(device, card, "cond32")
+    trainer_c32, counts_c32, _, _ = train(device, card, "cond32")
     by_map_c32 = serve_generate(device, card, trainer_c32)
     del trainer_c32
     train_vs_plain(device, "cond32")
@@ -2204,7 +2561,7 @@ def main() -> int:
     rows_48 += train_rows + check_reduce(device, reduce_cases(FU48_SHAPES), "training-cond48")
     rows_48 += check_workspace_kernels(device)
     calls_48 += train_calls
-    _, counts_c48, _ = train(device, card, "cond48")
+    _, counts_c48, _, _ = train(device, card, "cond48")
     rows += with_launches(rows_48, counts_c48)
     calls += with_calls(calls_48, counts_c48)
     phase("16: wgan-gp on the sngan pair (the FourierUnit's double backward)")
@@ -2219,12 +2576,22 @@ def main() -> int:
     phase("20: the DCGAN family at 64px (DCGAN pair; attention generator against SN-DCGAN D)")
     comparator(device, card, "dcgan64")
     comparator(device, card, "attn64")
-    phase("21: result")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        phase("21: fgan32 through the CLI: train, resume, sample; restores in process")
+        cli_counts = cli_fgan32(device, card, tmp, graph_ms_32)
+        phase("22: fgan_cond32 through the CLI: train, sample")
+        cli_counts.update(cli_cond32(device, card, tmp))
+        phase("23: fgan64 through the CLI: the kernels at its staged map, train")
+        rows_64, calls_64, counts_64 = cli_fgan64(device, card, tmp)
+        rows += rows_64
+        calls += calls_64
+        cli_counts.update(counts_64)
+    phase("24: result")
     check_main_path_launches({"serving-32px": {"fourier_unit_fwd": by_map},
                               "training-32px": counts_32, "training-128px": counts,
                               "training-sngan": counts_sngan, "training-cond32": counts_c32,
                               "serving-cond32": {"fourier_unit_fwd": by_map_c32},
-                              "training-cond48": counts_c48})
+                              "training-cond48": counts_c48, **cli_counts})
     log(json.dumps({"wrapper_calls": calls}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -17,7 +17,13 @@ for the forward, ``csrc/fourier_unit_train.cu`` for the batch statistics
 and the backward, ``csrc/bn_act.cu`` for the fused BN family) and as
 their plain PyTorch versions on the CPU.
 ``bridge.jax_to_state_dict`` loads the JAX package's variables. The
-package imports torch and numpy only.
+training CLI, ``python -m fastfourierconvolution_tpu_torch.cli
+train|sample`` (``cli.py``), runs a preset over ``data.load_dataset`` and
+``data.DataLoader``, saves and resumes through ``train.checkpoint``
+(``save_checkpoint``, ``restore_latest``) and parses its arguments with
+``utils.config.parse_cli``. The package imports torch and numpy only
+(Pillow, scipy, scikit-learn, matplotlib and tensorboardX where a dataset,
+a plot or a log asks for them).
 """
 
 from .models.conditional import (
@@ -43,18 +49,21 @@ from .models.sngan_resnet import (
     SNGANDiscriminator,
     SNGANGenerator,
 )
+from .data import DataLoader, load_dataset
 from .serving import Generator
+from .train.checkpoint import restore_latest, save_checkpoint
 from .train.gan import GANTrainer
-from .utils.config import PRESETS, Config, apply_overrides, make_config
+from .utils.config import PRESETS, Config, apply_overrides, make_config, parse_cli
 from .zoo import TupleHeadWrapper, build_discriminator, build_generator, build_models
 
 __all__ = [
     "AttnConvGenerator", "CondDCGANDiscriminator", "CondDCGANGenerator",
     "CondSNDiscriminator", "Config", "DBlock", "DBlockOptimized", "DCGANDiscriminator",
+    "DataLoader",
     "DCGANGenerator", "FFCCondDCGANDiscriminator", "FFCCondDiscriminator",
     "FFCCondGenerator", "FFCDiscriminator", "FFCGenerator", "GANTrainer", "GBlock",
     "Generator", "PRESETS", "SAGANDiscriminator", "SAGANGenerator", "SNConvDiscriminator",
     "SNDCGANDiscriminator", "SNGANDiscriminator", "SNGANGenerator", "TupleHeadWrapper",
     "apply_overrides", "build_discriminator", "build_generator", "build_models",
-    "make_config", "to_uint8",
+    "load_dataset", "make_config", "parse_cli", "restore_latest", "save_checkpoint", "to_uint8",
 ]

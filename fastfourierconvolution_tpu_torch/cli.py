@@ -1,0 +1,389 @@
+"""The training CLI, the JAX package's ``cli.py``: train and sample.
+
+    python -m fastfourierconvolution_tpu_torch.cli train --preset fgan32 \\
+        --set eval.isc=false --set eval.fid=false --checkpoint -o DIR
+    python -m fastfourierconvolution_tpu_torch.cli sample --preset fgan32 -o DIR
+
+``train`` loads the dataset, feeds uint8 batches to the device (the next
+chunk's copy overlapping the current one's steps) and normalises them
+there to the JAX CLI's f32 values (``unit_levels``), runs ``train.steps_per_call`` steps per ``GANTrainer.update_steps``
+call (on the card, replays of the step's captured CUDA graph), logs the
+losses every ``log.log_every`` steps, writes a fixed-latent sample grid
+and (past ``log.checkpoint_after_frac``) a checkpoint every
+``train.num_epoch_steps`` steps, and resumes from the newest checkpoint
+where the JAX CLI does, data order included. ``sample`` draws PNG
+grids from the newest checkpoint. Both run on ``cuda`` unless
+``--device cpu`` is given.
+
+Not ported yet, and refused at start: in-loop metrics
+(``eval.isc/fid/kid/prc/ppl``, ``log.best_metric_checkpoints``),
+``train.tp`` above 1 and multi-process runs, ``train.remat``, and the
+``export``, ``fidelity`` and ``download`` commands with ``sample``'s
+``--torch_checkpoint`` and ``--exported``. ``log.compilation_cache`` is
+the JAX package's XLA compile cache: accepted, and nothing in the port
+reads it.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import Optional
+
+import numpy as np
+import torch
+
+# environment variables of the JAX CLI's multi-process launch
+_DISTRIBUTED_ENV = ("FFC_TPU_COORDINATOR", "FFC_TPU_DISTRIBUTED")
+_METRICS = ("isc", "fid", "kid", "prc", "ppl")
+_NOT_PORTED = {
+    "export": "the export command is not ported yet (ROADMAP queue 1 item 9)",
+    "fidelity": "the fidelity command is not ported yet: it needs the metric pipeline "
+                "(ROADMAP queue 1 items 8 and 9)",
+    "download": "the download command is not ported yet (ROADMAP queue 1 item 7)",
+}
+
+
+def trainer_keywords(cfg) -> dict:
+    """The ``GANTrainer`` keywords of a config: those the JAX CLI passes
+    (D's fused pass only for the BN-free SN discriminators and without the
+    aw-method, D's progress only for the library cDCGAN discriminator),
+    plus the compute dtype (``train.precision``) and the seed of the
+    latent and noise generators (``train.seed``)."""
+    m, t = cfg.model, cfg.train
+    return dict(z_size=m.z_size, lr=t.lr, d_lr=t.d_lr, total_steps=t.num_total_steps,
+                num_dis_updates=t.num_dis_updates, loss=t.loss, optimizer=t.optimizer,
+                b1=t.beta1, b2=t.beta2, conditional=m.conditional, num_classes=m.num_classes,
+                fused_dis_batch=(m.discriminator in ("sn_conv", "cond_sn_conv", "sn_dcgan")
+                                 and not t.aw_method),
+                gp_lambda=t.gp_lambda, aw_method=t.aw_method, update_order=t.update_order,
+                remat=t.remat, d_progress_arg=m.discriminator == "cond_dcgan",
+                dtype=t.precision, seed=t.seed)
+
+
+def _refuse_unported(cfg) -> None:
+    """Raise NotImplementedError for the training options the port does
+    not have yet, before any work starts."""
+    on = [name for name in _METRICS if getattr(cfg.eval, name)]
+    if cfg.log.best_metric_checkpoints:
+        on.append("log.best_metric_checkpoints")
+    if on:
+        flags = " ".join(f"--set eval.{name}=false" for name in _METRICS
+                         if getattr(cfg.eval, name))
+        raise NotImplementedError(
+            f"in-loop metrics ({', '.join(on)}) are not ported yet (ROADMAP queue 1 item 8): "
+            f"train without them, e.g. {flags or '--set log.best_metric_checkpoints=false'}")
+    if int(cfg.train.tp) != 1:
+        raise NotImplementedError(f"train.tp={cfg.train.tp}: tensor parallelism is not ported "
+                                  f"yet (ROADMAP queue 1 item 10)")
+    launch = [k for k in _DISTRIBUTED_ENV if os.environ.get(k)]
+    if launch:
+        raise NotImplementedError(f"{', '.join(launch)} set: multi-process training is not "
+                                  f"ported yet (ROADMAP queue 1 item 10)")
+    if cfg.train.remat not in (None, "none"):
+        raise NotImplementedError(f"train.remat={cfg.train.remat!r} is not ported yet "
+                                  f"(ROADMAP queue 1 item 5)")
+
+
+def _maybe_infer_num_classes(cfg, dataset=None) -> None:
+    """Fill ``model.num_classes`` from the dataset's labels when a
+    conditional run leaves it unset (< 2). Used by train (with its loaded
+    dataset) and by sample (loading the dataset), so a checkpoint trained
+    with an inferred count reloads with the same flags. A dataset that
+    fails to load raises its own error."""
+    if not cfg.model.conditional or cfg.model.num_classes >= 2:
+        return
+    from .data.datasets import load_dataset, num_classes_of
+
+    if dataset is None:
+        dataset = load_dataset(cfg.data.dataset, cfg.data.data_dir, cfg.data.image_size,
+                               cfg.data.channels, download=cfg.data.download)
+    inferred = num_classes_of(dataset)
+    if inferred < 2:
+        raise SystemExit(
+            "model.conditional=true needs model.num_classes: the "
+            f"'{cfg.data.dataset}' dataset does not carry class labels "
+            "to infer it from — pass --set model.num_classes=N or use "
+            "an unconditional model"
+        )
+    print(f"[config] model.num_classes={inferred} (inferred from dataset '{cfg.data.dataset}')")
+    cfg.model.num_classes = inferred
+
+
+def unit_levels() -> np.ndarray:
+    """The f32 value in [-1, 1] of each uint8 level as the JAX CLI's
+    jitted ``x / 127.5 - 1`` gives it: XLA turns the division by the
+    constant into a product with its f32 reciprocal and fuses the product
+    with the add into one rounding, which differs from the division in
+    the last bit for 205 of the 256 levels (XLA on the CPU). Here the
+    product and the add are exact in f64 and rounded to f32 once."""
+    reciprocal = np.float64(np.float32(1 / 127.5))
+    return (np.arange(256, dtype=np.float64) * reciprocal - 1.0).astype(np.float32)
+
+
+class _Feed:
+    """Chunks of ``k`` batches from a ``DataLoader.epochs()`` stream on the
+    device. :meth:`put` gathers the next chunk and starts its copy;
+    :meth:`take` returns it as f32 images in [-1, 1] (``unit_levels``,
+    looked up on the device) and int64 labels, ordered after the copy on
+    the current stream.
+
+    On the card a chunk goes through one of two pinned host buffers and a
+    device buffer of the same slot, copied on a side stream, so the next
+    chunk's copy runs while the current chunk's steps do. A slot's pinned
+    buffer is refilled only after its last copy has finished, and its
+    device buffer only after the current stream has read it."""
+
+    def __init__(self, batches, k: int, device: torch.device):
+        self.batches, self.k, self.device = batches, k, device
+        self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self.levels = torch.from_numpy(unit_levels()).to(device)
+        self._slots = [None, None]
+        self._turn = 0
+
+    def put(self):
+        chunk = [next(self.batches) for _ in range(self.k)]
+        x8 = np.stack([b[0] for b in chunk])
+        y = np.stack([b[1] for b in chunk]).astype(np.int64)
+        if not self.cuda:
+            return torch.from_numpy(x8), torch.from_numpy(y)
+        slot = self._slots[self._turn]
+        if slot is None:
+            slot = self._slots[self._turn] = {
+                "host_x": torch.empty(x8.shape, dtype=torch.uint8, pin_memory=True),
+                "host_y": torch.empty(y.shape, dtype=torch.int64, pin_memory=True),
+                "x": torch.empty(x8.shape, dtype=torch.uint8, device=self.device),
+                "y": torch.empty(y.shape, dtype=torch.int64, device=self.device),
+                "copied": torch.cuda.Event(), "read": torch.cuda.Event(),
+            }
+        self._turn ^= 1
+        slot["copied"].synchronize()  # the pinned buffers' last copy is done
+        slot["host_x"].numpy()[...] = x8
+        slot["host_y"].numpy()[...] = y
+        with torch.cuda.stream(self.stream):
+            self.stream.wait_event(slot["read"])  # the device buffers' last reader
+            slot["x"].copy_(slot["host_x"], non_blocking=True)
+            slot["y"].copy_(slot["host_y"], non_blocking=True)
+            slot["copied"].record(self.stream)
+        return slot
+
+    def take(self, slot):
+        if not self.cuda:
+            x8, y = slot
+        else:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(slot["copied"])
+            x8, y = slot["x"], slot["y"]
+        reals, labels = self.levels[x8.long()], y.clone()
+        if self.cuda:
+            slot["read"].record(current)
+        return reals, labels
+
+
+def run_train(cfg, device="cuda") -> None:
+    """Train the config's pair (see the module docstring)."""
+    from .data import DataLoader, load_dataset
+    from .train.checkpoint import restore_latest, save_checkpoint
+    from .train.gan import GANTrainer
+    from .utils.logging import ScalarLogger, make_grid, save_image_grid, save_loss_plot
+    from .utils.policy import resolve_device
+    from .zoo import build_models
+
+    _refuse_unported(cfg)
+    device = resolve_device(device)
+    t = cfg.train
+    spc = max(1, int(t.steps_per_call))
+    if spc > 1 and (cfg.log.log_every % spc or t.num_epoch_steps % spc
+                    or t.num_total_steps % spc):
+        raise ValueError("train.steps_per_call must divide log.log_every, "
+                         "train.num_epoch_steps and train.num_total_steps")
+    dataset = load_dataset(
+        cfg.data.dataset, cfg.data.data_dir, cfg.data.image_size, cfg.data.channels,
+        hflip_augment=cfg.data.hflip_augment, aug_stack=cfg.data.aug_stack,
+        download=cfg.data.download,
+    )
+    _maybe_infer_num_classes(cfg, dataset)
+    g_model, d_model = build_models(cfg)
+    trainer = GANTrainer(g_model, d_model, **trainer_keywords(cfg), device=device)
+    # uint8 batches, normalised on the device: 4x less host->device traffic
+    loader = DataLoader(dataset, t.batch_size, seed=t.seed, raw_uint8=True)
+
+    ckpt_dir = os.path.join(cfg.log.dir_logs, "checkpoints")
+    ini_step = 0
+    if cfg.log.checkpoint:
+        _, ini_step = restore_latest(trainer, ckpt_dir)
+        if ini_step:
+            # replay the seeded epoch shuffles, so the batches continue
+            # where the interrupted run stopped
+            loader.skip_batches(ini_step)
+            print(f"INFO: resumed from step {ini_step}")
+
+    logger = ScalarLogger(cfg.log.dir_logs, tensorboard=cfg.log.tensorboard)
+    z_vis = torch.randn((cfg.log.samples_grid, cfg.model.z_size), device=device,
+                        generator=torch.Generator(device).manual_seed(1234))
+    y_vis = (torch.arange(cfg.log.samples_grid, device=device) % max(cfg.model.num_classes, 1)
+             if cfg.model.conditional else None)
+    lr_of = lambda s: t.lr * max(0.0, 1.0 - s / t.num_total_steps)
+    step = ini_step
+    profiler, profile_at = None, cfg.log.profile_at_step
+    profile_dir = os.path.join(cfg.log.dir_logs, "profile")
+
+    def stop_profiler():
+        profiler.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        print(f"INFO: profiler trace written to {profile_dir}")
+
+    batches = loader.epochs()
+    feed = _Feed(batches, spc, device)
+    try:
+        pending = None
+        while step < t.num_total_steps:
+            # a torch.profiler trace of ~3 steps on request
+            if profile_at is not None:
+                if profiler is None and step >= profile_at:
+                    activities = [torch.profiler.ProfilerActivity.CPU]
+                    if device.type == "cuda":
+                        activities.append(torch.profiler.ProfilerActivity.CUDA)
+                    profiler = torch.profiler.profile(activities=activities)
+                    profiler.start()
+                elif profiler is not None and step >= profile_at + 3:
+                    stop_profiler()
+                    profiler, profile_at = None, None
+            reals, labels = feed.take(pending if pending is not None else feed.put())
+            out = trainer.update_steps(reals, labels if cfg.model.conditional else None)
+            step += spc
+            # the next chunk's gather and copy overlap these steps
+            pending = feed.put() if step < t.num_total_steps else None
+
+            if step % cfg.log.log_every == 0:
+                scal = {"loss_g": out["loss_g"][-1].item(), "loss_d": out["loss_d"][-1].item(),
+                        "lr": lr_of(step - 1)}
+                logger.log(step - 1, scal)
+                print(f"step {step}/{t.num_total_steps}: loss_g {scal['loss_g']:.4f} "
+                      f"loss_d {scal['loss_d']:.4f} lr {scal['lr']:.3e}", flush=True)
+
+            if step % t.num_epoch_steps != 0:
+                continue
+            logger.flush()
+            grid = trainer.generate(z_vis, y_vis).float().cpu().numpy()
+            save_image_grid(grid, os.path.join(cfg.log.dir_logs, f"{step:06d}.png"))
+            logger.log_image_grid(step, make_grid(grid))
+            if cfg.log.checkpoint and step > t.num_total_steps * cfg.log.checkpoint_after_frac:
+                save_checkpoint(trainer, ckpt_dir, step)
+    finally:
+        batches.close()  # stops the prefetch thread
+        logger.close()
+        if profiler is not None:  # the requested window ran into the end
+            stop_profiler()
+    if cfg.log.checkpoint and step % t.num_epoch_steps != 0:
+        # the steps since the last epoch boundary would be lost on resume
+        save_checkpoint(trainer, ckpt_dir, step)
+    if cfg.log.loss_csv and os.path.exists(logger.csv_path):
+        try:
+            save_loss_plot(logger.csv_path)
+        except Exception as e:  # the plot is a diagnostic; matplotlib may be absent
+            print(f"WARNING: loss plot failed: {e}")
+    print("Training finished.")
+
+
+def _load_generator_state(cfg, torch_checkpoint: Optional[str], command: str, device):
+    """The trainer of the config with the newest checkpoint under
+    ``cfg.log.dir_logs`` restored; returns ``(trainer, step)``. Refuses to
+    run on random weights."""
+    from .train.checkpoint import restore_latest
+    from .train.gan import GANTrainer
+    from .zoo import build_models
+
+    if torch_checkpoint is not None:
+        raise NotImplementedError("--torch_checkpoint (reference-repo .pth files through "
+                                  "compat.py) is not ported yet (ROADMAP queue 1 item 9)")
+    _maybe_infer_num_classes(cfg)
+    g_model, d_model = build_models(cfg)
+    trainer = GANTrainer(g_model, d_model, **trainer_keywords(cfg), device=device)
+    ckpt_dir = os.path.join(cfg.log.dir_logs, "checkpoints")
+    _, step = restore_latest(trainer, ckpt_dir)
+    if step == 0:
+        raise SystemExit(
+            f"{command}: no checkpoint found under {ckpt_dir} — the output would come from "
+            f"random weights. Point -o at a run directory with checkpoints/."
+        )
+    print(f"INFO: {command} from step {step}")
+    return trainer, step
+
+
+def run_sample(cfg, num_samples: int = 64, per_sample: bool = False,
+               torch_checkpoint: Optional[str] = None, exported: Optional[str] = None,
+               device="cuda") -> None:
+    """Newest checkpoint -> ``samples_{step:06d}.png`` (class-stratified
+    labels when conditional; ``per_sample`` also saves each image), and
+    the feature-map figure ``feature_maps_{step:06d}.png``."""
+    from .utils.logging import save_image_grid, save_png
+    from .utils.policy import resolve_device
+
+    if num_samples < 1:
+        raise SystemExit("sample: --num_samples must be >= 1")
+    if exported is not None:
+        raise NotImplementedError("--exported (serving artifacts) is not ported yet "
+                                  "(ROADMAP queue 1 item 9)")
+    device = resolve_device(device)
+    trainer, step = _load_generator_state(cfg, torch_checkpoint, "sample", device)
+    z = torch.randn((num_samples, cfg.model.z_size), device=device,
+                    generator=torch.Generator(device).manual_seed(7))
+    labels = None
+    if cfg.model.conditional:
+        # class-stratified: num_samples // num_classes of each class
+        labels = torch.arange(num_samples, device=device) // max(
+            1, num_samples // cfg.model.num_classes)
+        labels = labels.clamp(0, cfg.model.num_classes - 1)
+    # chunked: one forward over a large --num_samples would hold the
+    # whole ladder's activations at once
+    chunk = 64
+    imgs = np.concatenate([
+        trainer.generate(z[i:i + chunk], None if labels is None else labels[i:i + chunk],
+                         uint8=True).cpu().numpy()
+        for i in range(0, num_samples, chunk)
+    ])
+    out = os.path.join(cfg.log.dir_logs, f"samples_{step:06d}.png")
+    save_image_grid(imgs, out)
+    print(f"saved {out}")
+    if per_sample:
+        sample_dir = os.path.join(cfg.log.dir_logs, f"samples_{step:06d}")
+        for i, im in enumerate(imgs):
+            if im.shape[-1] == 1:
+                im = np.repeat(im, 3, axis=-1)
+            save_png(im, os.path.join(sample_dir, f"sample_{i:05d}.png"))
+        print(f"saved {len(imgs)} PNGs to {sample_dir}")
+
+    try:
+        from .utils.visualize import capture_feature_maps, save_feature_map_figure
+
+        maps = capture_feature_maps(trainer, z[:1], None if labels is None else labels[:1])
+        fm_path = os.path.join(cfg.log.dir_logs, f"feature_maps_{step:06d}.png")
+        save_feature_map_figure(maps, fm_path)
+        print(f"saved {fm_path}")
+    except Exception as e:  # diagnostics must never block sampling
+        print(f"WARNING: feature-map figure failed: {e}")
+
+
+def main(argv: Optional[list] = None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in _NOT_PORTED:
+        raise NotImplementedError(_NOT_PORTED[argv[0]])
+    from .utils.config import parse_cli
+
+    command, cfg, extras = parse_cli(argv)
+    if command in _NOT_PORTED:
+        raise NotImplementedError(_NOT_PORTED[command])
+    print("Configuration:\n" + cfg.to_json())
+    if command == "train":
+        run_train(cfg, device=extras["device"])
+    else:
+        run_sample(cfg, num_samples=extras["num_samples"], per_sample=extras["per_sample"],
+                   torch_checkpoint=extras["torch_checkpoint"], exported=extras["exported"],
+                   device=extras["device"])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,858 @@
+"""Datasets: local-file readers, the JAX package's ``data/datasets.py``.
+
+The same readers, transforms and registry, item for item: MNIST /
+FashionMNIST idx files, CIFAR-10 pickle batches, SVHN ``.mat``, STL-10
+binaries, image folders and uncompressed tar archives on disk, and the
+procedural and bundled sets (``synthetic``, ``shapes``, ``digits``,
+``patches``). Nothing is fetched: ``load_dataset(download=True)`` raises
+where a fetch would be needed.
+
+All datasets are simple objects with ``__len__`` and
+``__getitem__ -> (HWC uint8 image, int label)``; batching and shuffling
+live in data/loader.py. The module needs numpy only; Pillow (image files,
+resizes and augmentations), scipy (SVHN), scikit-learn (``digits``,
+``patches``) and matplotlib (``patches``) are imported where a dataset
+needs them, and their absence raises an ImportError that names the
+package. In-memory data at the training size goes through no transform.
+"""
+
+from __future__ import annotations
+
+import gzip
+import importlib
+import os
+import pickle
+import struct
+import tarfile
+import threading
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+Item = Tuple[np.ndarray, int]
+
+IMG_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".webp", ".ppm")
+
+# module -> the package that provides it
+_PACKAGES = {"PIL": "Pillow", "sklearn": "scikit-learn", "scipy": "scipy",
+             "matplotlib": "matplotlib"}
+
+
+def _optional(module: str, purpose: str):
+    """Import ``module`` (a dotted name) for ``purpose``, or raise an
+    ImportError that names the package to install."""
+    try:
+        return importlib.import_module(module)
+    except ImportError as e:
+        package = _PACKAGES[module.split(".")[0]]
+        raise ImportError(f"{purpose} needs the '{package}' package, which is not "
+                          f"installed") from e
+
+
+def _pil(name: str = "Image"):
+    return _optional(f"PIL.{name}", "decoding, resizing or augmenting images")
+
+
+class ArrayDataset:
+    """In-memory (N, H, W, C) uint8 images + (N,) int labels."""
+
+    def __init__(self, images: np.ndarray, labels: Optional[np.ndarray] = None):
+        assert images.dtype == np.uint8 and images.ndim == 4
+        self.images = images
+        self.labels = (
+            labels
+            if labels is not None
+            else np.zeros((len(images),), np.int64)
+        )
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def __getitem__(self, i: int) -> Item:
+        return self.images[i], int(self.labels[i])
+
+
+class ShapesDataset(ArrayDataset):
+    """Procedural structured images: anti-aliased ellipses / rectangles /
+    crosses in random colors over smooth gradient backgrounds, label =
+    shape class. A zero-egress stand-in with real visual structure so
+    end-to-end GAN runs produce learnable content. Metric trends on it
+    are meaningful only through the weights-free shallow-tap extractor
+    mode (eval/inception.py docstring) — deep taps under random init
+    are degenerate and rank nothing."""
+
+    NUM_CLASSES = 3
+
+    def __init__(self, n: int = 8192, size: int = 32, channels: int = 3,
+                 seed: int = 2020):
+        rng = np.random.RandomState(seed)
+        yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / (size - 1)
+        images = np.empty((n, size, size, channels), np.uint8)
+        labels = rng.randint(0, self.NUM_CLASSES, (n,)).astype(np.int64)
+        for i in range(n):
+            c0 = rng.uniform(0, 0.45, channels)
+            c1 = rng.uniform(0.55, 1.0, channels)
+            ang = rng.uniform(0, 2 * np.pi)
+            t = (np.cos(ang) * xx + np.sin(ang) * yy + 1.0) / 2.0
+            img = c0[None, None] + (c1 - c0)[None, None] * t[..., None]
+            cx, cy = rng.uniform(0.25, 0.75, 2)
+            rx, ry = rng.uniform(0.12, 0.3, 2)
+            color = rng.uniform(0, 1, channels)
+            k = labels[i]
+            if k == 0:  # ellipse
+                d = ((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2
+                mask = np.clip((1.0 - d) * 6.0, 0.0, 1.0)
+            elif k == 1:  # rectangle
+                mask = (
+                    np.clip((rx - np.abs(xx - cx)) * size, 0, 1)
+                    * np.clip((ry - np.abs(yy - cy)) * size, 0, 1)
+                )
+            else:  # cross
+                bar = rng.uniform(0.04, 0.08)
+                h = np.clip((bar - np.abs(yy - cy)) * size, 0, 1) * (
+                    np.abs(xx - cx) < rx
+                )
+                v = np.clip((bar - np.abs(xx - cx)) * size, 0, 1) * (
+                    np.abs(yy - cy) < ry
+                )
+                mask = np.clip(h + v, 0, 1)
+            img = img * (1 - mask[..., None]) + color[None, None] * mask[..., None]
+            # diagonal gradients overshoot [0,1] (t up to (sqrt(2)+1)/2);
+            # clip so the uint8 cast saturates instead of wrapping
+            images[i] = (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+        super().__init__(images, labels)
+
+
+class SyntheticDataset(ArrayDataset):
+    """Seeded random uint8 images — the RandomlyGeneratedDataset test
+    fixture (reference torch_fidelity/datasets.py:64-78)."""
+
+    def __init__(self, n: int = 1024, size: int = 32, channels: int = 3, seed: int = 2020):
+        rng = np.random.RandomState(seed)
+        images = rng.randint(0, 256, (n, size, size, channels), dtype=np.uint8)
+        labels = rng.randint(0, 10, (n,)).astype(np.int64)
+        super().__init__(images, labels)
+
+
+class DigitsDataset(ArrayDataset):
+    """The UCI handwritten-digits set bundled inside scikit-learn:
+    1797 REAL 8x8 grayscale images (ink levels 0-16) with digit labels,
+    real image data that needs no download. Registered as the ``digits``
+    dataset name alongside the reference's torchvision named-dataset
+    branches (util/data_loader.py:477-526); labels are the ten digit
+    classes, so conditional presets work unchanged. Upscaling to the
+    requested image_size is done by TransformedDataset like any other
+    source."""
+
+    NUM_CLASSES = 10
+
+    def __init__(self, channels: int = 3, split: str = "train"):
+        sk = _optional("sklearn.datasets", "dataset 'digits' (the UCI digits data)")
+        d = sk.load_digits()
+        imgs = np.clip(
+            np.round(d.images / 16.0 * 255.0), 0, 255
+        ).astype(np.uint8)[..., None]
+        if channels != 1:
+            imgs = np.repeat(imgs, channels, axis=-1)
+        labels = d.target.astype(np.int64)
+        # deterministic 90/10 train/test carve (the set ships unsplit)
+        n_train = int(len(imgs) * 0.9)
+        sel = slice(0, n_train) if split == "train" else slice(n_train, None)
+        super().__init__(imgs[sel], labels[sel])
+
+
+class PhotoPatchesDataset(ArrayDataset):
+    """Native-resolution REAL photographic patches: seeded random crops
+    from the three RGB photographs bundled on a zero-egress host —
+    scikit-learn's ``load_sample_images`` (china.jpg, flower.jpg, both
+    427x640) plus matplotlib's sample portrait (grace_hopper.jpg,
+    600x512). Complements ``digits`` along the axis digits cannot
+    cover — digits is 8x8 grayscale UPSCALED to the training size,
+    while every patch here is a genuine photograph crop at the
+    requested size with no resampling (up to 256px; pool min dims
+    427x512). Labels = source photo index, so conditional presets work
+    (3 classes).
+
+    Honest caveat (kept in the run artifacts): three source scenes
+    make this a texture/patch-statistics benchmark, not an
+    object-category set — GAN metrics on it measure local-statistics
+    matching, and diversity is bounded by the source material.
+    Registered as the ``patches`` dataset name alongside the
+    reference's torchvision named-dataset branches
+    (util/data_loader.py:477-526)."""
+
+    NUM_CLASSES = 3
+
+    def __init__(self, size: int = 64, channels: int = 3, n: int = 8192,
+                 split: str = "train", seed: int = 2020):
+        sk = _optional("sklearn.datasets", "dataset 'patches' (two sample photographs)")
+        photos = [np.ascontiguousarray(p, dtype=np.uint8)
+                  for p in sk.load_sample_images().images]
+        # third scene (a portrait), bundled with matplotlib — loaded
+        # unconditionally: a per-host optional pool would let
+        # heterogeneous pod hosts silently train on DIFFERENT data (and
+        # infer different num_classes); deterministic-or-loud beats
+        # silent SPMD divergence (matplotlib is already a hard dep of
+        # the logging/plot stack)
+        matplotlib = _optional("matplotlib", "dataset 'patches' (its third photograph)")
+        Image = _pil()
+        hopper = os.path.join(
+            os.path.dirname(matplotlib.__file__),
+            "mpl-data", "sample_data", "grace_hopper.jpg",
+        )
+        with Image.open(hopper) as im:
+            photos.append(
+                np.ascontiguousarray(im.convert("RGB"), dtype=np.uint8)
+            )
+        assert len(photos) == self.NUM_CLASSES, len(photos)
+        h, w = min(p.shape[0] for p in photos), min(p.shape[1] for p in photos)
+        assert size <= min(h, w), (
+            f"patches size {size} exceeds the source photos ({h}x{w})"
+        )
+        # distinct seeded streams per split (test crops differ from
+        # train crops; spatial overlap with train regions is inherent
+        # to cropping from two photos and part of the stated caveat)
+        rng = np.random.RandomState(seed + (0 if split == "train" else 1))
+        if split != "train":
+            n = max(1, n // 10)
+        images = np.empty((n, size, size, channels), np.uint8)
+        labels = np.empty((n,), np.int64)
+        for i in range(n):
+            p = rng.randint(0, len(photos))
+            img = photos[p]
+            y0 = rng.randint(0, img.shape[0] - size + 1)
+            x0 = rng.randint(0, img.shape[1] - size + 1)
+            crop = img[y0:y0 + size, x0:x0 + size]
+            if rng.rand() < 0.5:  # hflip doubles effective coverage
+                crop = crop[:, ::-1]
+            if channels == 1:
+                crop = np.round(crop.mean(axis=-1, keepdims=True))
+            elif channels != crop.shape[-1]:
+                crop = np.repeat(crop[..., :1], channels, axis=-1)
+            images[i] = crop
+            labels[i] = p
+        super().__init__(images, labels)
+
+
+def _open_maybe_gz(path: str):
+    return gzip.open(path, "rb") if path.endswith(".gz") else open(path, "rb")
+
+
+def _find(data_dir: str, names: Sequence[str]) -> Optional[str]:
+    for name in names:
+        for cand in (
+            os.path.join(data_dir, name),
+            os.path.join(data_dir, name + ".gz"),
+        ):
+            if os.path.exists(cand):
+                return cand
+    return None
+
+
+def load_mnist(data_dir: str, split: str = "train") -> ArrayDataset:
+    """MNIST/FashionMNIST idx-format reader (28x28 grayscale)."""
+    img_name = (
+        "train-images-idx3-ubyte" if split == "train" else "t10k-images-idx3-ubyte"
+    )
+    lbl_name = (
+        "train-labels-idx1-ubyte" if split == "train" else "t10k-labels-idx1-ubyte"
+    )
+    # torchvision-style layouts for both datasets sharing this reader
+    subdirs = ("MNIST/raw", "FashionMNIST/raw")
+    img_path = _find(
+        data_dir, [img_name] + [os.path.join(s, img_name) for s in subdirs]
+    )
+    lbl_path = _find(
+        data_dir, [lbl_name] + [os.path.join(s, lbl_name) for s in subdirs]
+    )
+    if img_path is None or lbl_path is None:
+        raise FileNotFoundError(
+            f"MNIST/FashionMNIST idx files not found under {data_dir} "
+            f"(expected {img_name}[.gz] / {lbl_name}[.gz], optionally "
+            f"inside MNIST/raw or FashionMNIST/raw)"
+        )
+    with _open_maybe_gz(img_path) as f:
+        magic, n, rows, cols = struct.unpack(">IIII", f.read(16))
+        assert magic == 2051, f"bad idx magic {magic}"
+        images = np.frombuffer(f.read(n * rows * cols), np.uint8)
+        images = images.reshape(n, rows, cols, 1)
+    with _open_maybe_gz(lbl_path) as f:
+        magic, n = struct.unpack(">II", f.read(8))
+        assert magic == 2049
+        labels = np.frombuffer(f.read(n), np.uint8).astype(np.int64)
+    return ArrayDataset(np.ascontiguousarray(images), labels)
+
+
+def load_cifar10(data_dir: str, split: str = "train") -> ArrayDataset:
+    """CIFAR-10 python-pickle batch reader (32x32 RGB)."""
+    base = os.path.join(data_dir, "cifar-10-batches-py")
+    if not os.path.isdir(base):
+        base = data_dir
+    names = (
+        [f"data_batch_{i}" for i in range(1, 6)]
+        if split == "train"
+        else ["test_batch"]
+    )
+    images, labels = [], []
+    for name in names:
+        path = os.path.join(base, name)
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"CIFAR-10 batch {path} not found")
+        with open(path, "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        images.append(
+            d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        )
+        labels.append(np.asarray(d[b"labels"], np.int64))
+    return ArrayDataset(
+        np.ascontiguousarray(np.concatenate(images)), np.concatenate(labels)
+    )
+
+
+def load_svhn(data_dir: str, split: str = "train") -> ArrayDataset:
+    """SVHN .mat reader (32x32 RGB; the flagship fgan_complete dataset)."""
+    loadmat = _optional("scipy.io", "the SVHN reader").loadmat
+    path = os.path.join(data_dir, f"{split}_32x32.mat")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"SVHN {path} not found")
+    mat = loadmat(path)
+    images = np.transpose(mat["X"], (3, 0, 1, 2)).astype(np.uint8)
+    labels = mat["y"].reshape(-1).astype(np.int64) % 10  # 10 -> 0
+    return ArrayDataset(np.ascontiguousarray(images), labels)
+
+
+def load_stl10(data_dir: str, split: str = "train") -> ArrayDataset:
+    """STL-10 binary reader (96x96 RGB)."""
+    base = os.path.join(data_dir, "stl10_binary")
+    if not os.path.isdir(base):
+        base = data_dir
+    img_path = os.path.join(base, f"{split}_X.bin")
+    lbl_path = os.path.join(base, f"{split}_y.bin")
+    if not os.path.exists(img_path):
+        raise FileNotFoundError(f"STL-10 {img_path} not found")
+    images = np.fromfile(img_path, np.uint8).reshape(-1, 3, 96, 96)
+    images = np.ascontiguousarray(images.transpose(0, 3, 2, 1))  # CMN -> HWC
+    if os.path.exists(lbl_path):
+        labels = np.fromfile(lbl_path, np.uint8).astype(np.int64) - 1
+    else:
+        labels = np.zeros((len(images),), np.int64)
+    return ArrayDataset(images, labels)
+
+
+class ImageFolderDataset:
+    """Recursive image-folder reader with top-level-directory labels
+    (reference util/data_loader.py LOCAL_DATASET branch + the
+    TarImageFolder labeling rule, tar_loader.py:255-279). Decoding is
+    lazy (per item) via PIL."""
+
+    def __init__(self, root: str, size: Optional[int] = None, channels: int = 3):
+        self.root = root
+        self.size = size
+        self.channels = channels
+        self.samples: List[Tuple[str, int]] = []
+        classes = sorted(
+            d
+            for d in os.listdir(root)
+            if os.path.isdir(os.path.join(root, d))
+        )
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        if classes:
+            for c in classes:
+                for dirpath, _, files in os.walk(os.path.join(root, c)):
+                    for fn in sorted(files):
+                        if fn.lower().endswith(IMG_EXTENSIONS):
+                            self.samples.append(
+                                (os.path.join(dirpath, fn), self.class_to_idx[c])
+                            )
+        else:
+            for dirpath, _, files in os.walk(root):
+                for fn in sorted(files):
+                    if fn.lower().endswith(IMG_EXTENSIONS):
+                        self.samples.append((os.path.join(dirpath, fn), 0))
+        if not self.samples:
+            raise FileNotFoundError(f"no images under {root}")
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, i: int) -> Item:
+        Image = _pil()
+        path, label = self.samples[i]
+        img = Image.open(path)
+        img = _to_mode(img, self.channels)
+        if self.size:
+            img = _resize_center_crop(img, self.size)
+        return np.asarray(img, np.uint8).reshape(
+            img.size[1], img.size[0], self.channels
+        ), label
+
+
+class TarImageDataset:
+    """Stream images from an uncompressed .tar without extraction
+    (reference util/tar_loader.py:44-317): member index built once;
+    per-process file handles (re-opened after fork, the reference's
+    per-worker-handle pattern); top-level folder names as labels;
+    tolerant of truncated archives (the UnexpectedEOFTarFile behavior)."""
+
+    def __init__(self, tar_path: str, size: Optional[int] = None, channels: int = 3):
+        self.tar_path = tar_path
+        self.size = size
+        self.channels = channels
+        self._handles = {}  # (pid, thread) -> TarFile
+        members: List[tarfile.TarInfo] = []
+        try:
+            with tarfile.open(tar_path, "r:") as tf:
+                while True:
+                    m = tf.next()
+                    if m is None:
+                        break
+                    if m.isfile() and m.name.lower().endswith(IMG_EXTENSIONS):
+                        members.append(m)
+        except (tarfile.ReadError, EOFError):
+            # truncated archive: keep what we indexed so far
+            pass
+        if not members:
+            raise FileNotFoundError(f"no images in tar {tar_path}")
+        self.members = members
+        # labels come from top-level FOLDER names; a flat tar (files at
+        # the archive root, no '/') is single-class like the flat
+        # ImageFolderDataset case — without the check every root file
+        # would become its own class
+        tops = sorted({m.name.split("/")[0] for m in members if "/" in m.name})
+        multi = len(tops) > 1 and all("/" in m.name for m in members)
+        self.class_to_idx = {t: i for i, t in enumerate(tops)} if multi else {}
+        self.labels = [
+            self.class_to_idx.get(m.name.split("/")[0], 0) for m in members
+        ]
+
+    def _tar(self) -> tarfile.TarFile:
+        # one handle per (process, thread): TarFile seeks are stateful,
+        # so concurrent decode threads (DataLoader decode_threads) each
+        # need their own, mirroring the reference's per-worker handles
+        # (tar_loader.py:74-76, 187-194)
+        key = (os.getpid(), threading.get_ident())
+        if key not in self._handles:
+            self._handles[key] = tarfile.open(self.tar_path, "r:")
+        return self._handles[key]
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_handles"] = {}  # fork/pickle safety (reference :203-207)
+        return state
+
+    def __len__(self) -> int:
+        return len(self.members)
+
+    def __getitem__(self, i: int) -> Item:
+        Image = _pil()
+        f = self._tar().extractfile(self.members[i])
+        img = Image.open(f)
+        img.load()
+        img = _to_mode(img, self.channels)
+        if self.size:
+            img = _resize_center_crop(img, self.size)
+        return np.asarray(img, np.uint8).reshape(
+            img.size[1], img.size[0], self.channels
+        ), self.labels[i]
+
+
+# --- transforms --------------------------------------------------------------
+
+
+def _to_mode(img, channels: int):
+    if channels == 1:
+        return img.convert("L")
+    return img.convert("RGB")
+
+
+def _resize_center_crop(img, size: int):
+    Image = _pil()
+    w, h = img.size
+    scale = size / min(w, h)
+    img = img.resize(
+        (max(size, round(w * scale)), max(size, round(h * scale))),
+        Image.BILINEAR,
+    )
+    w, h = img.size
+    left, top = (w - size) // 2, (h - size) // 2
+    return img.crop((left, top, left + size, top + size))
+
+
+class TransformedDataset:
+    """Applies resize + channel conversion + the reference's forced /
+    random augmentations to an underlying dataset, emitting uint8 HWC.
+
+    Mirrors the torchvision transform stacks of the reference
+    (util/data_loader.py:83-221, 347-419):
+
+      * ``resize_mode='crop'``: short-side resize + center crop (the
+        reference load_data path, :448-470); ``'squash'``: plain
+        ``Resize((s, s))`` as in the aug loaders.
+      * ``hflip`` / ``vflip``: forced flips (``Random*Flip(1.0)``).
+      * ``random_crop_scale``: resize to scale*s then RandomCrop(s)
+        (load_flowers random_crop_transform, :146-151).
+      * ``random_crop_native``: RandomCrop(s) straight from the source
+        image (load_cars, :94-99).
+      * ``pre_crop``: RandomCrop(pre_crop) then resize to s
+        (load_cond_stl random_crop, :358-365).
+      * ``color_jitter``: ColorJitter(brightness=.5, hue=.1) +
+        RandomAdjustSharpness(2) + RandomAutocontrast + RandomEqualize
+        (load_cond_stl color_sharp_transform, :374-384).
+
+    Random transforms re-sample per access, like torch's; ``seed``
+    makes a dataset instance reproducible (stream keyed on seed+index
+    +access count).
+    """
+
+    def __init__(
+        self,
+        base,
+        size: int,
+        channels: int = 3,
+        hflip: bool = False,
+        vflip: bool = False,
+        random_crop_scale: Optional[float] = None,
+        random_crop_native: bool = False,
+        pre_crop: Optional[int] = None,
+        color_jitter: bool = False,
+        resize_mode: str = "crop",
+        seed: Optional[int] = None,
+    ):
+        self.base = base
+        self.size = size
+        self.channels = channels
+        self.hflip = hflip
+        self.vflip = vflip
+        self.random_crop_scale = random_crop_scale
+        self.random_crop_native = random_crop_native
+        self.pre_crop = pre_crop
+        self.color_jitter = color_jitter
+        self.resize_mode = resize_mode
+        self._rng = np.random.RandomState(seed) if seed is not None else np.random
+        # Expose the underlying contiguous store when this transform is a
+        # no-op: the loader then gathers whole batches from the array and
+        # no PIL call runs.
+        if (
+            not any((hflip, vflip, color_jitter, random_crop_native))
+            and random_crop_scale is None
+            and pre_crop is None
+            and isinstance(getattr(base, "images", None), np.ndarray)
+            and base.images.shape[1:] == (size, size, channels)
+        ):
+            self.images = base.images
+            self.labels = base.labels
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    def _rand_crop(self, pil, crop: int):
+        Image = _pil()
+        w, h = pil.size
+        if w < crop or h < crop:  # torch pads; upscale is close enough here
+            pil = pil.resize((max(w, crop), max(h, crop)), Image.BILINEAR)
+            w, h = pil.size
+        left = int(self._rng.randint(0, w - crop + 1))
+        top = int(self._rng.randint(0, h - crop + 1))
+        return pil.crop((left, top, left + crop, top + crop))
+
+    def _jitter(self, pil):
+        ImageEnhance, ImageOps = _pil("ImageEnhance"), _pil("ImageOps")
+
+        rng = self._rng
+        # ColorJitter(brightness=0.5): factor ~ U(0.5, 1.5)
+        pil = ImageEnhance.Brightness(pil).enhance(rng.uniform(0.5, 1.5))
+        # ColorJitter(hue=0.1): shift ~ U(-0.1, 0.1) in HSV space
+        shift = rng.uniform(-0.1, 0.1)
+        hsv = np.asarray(pil.convert("HSV"), np.int16)
+        hsv[..., 0] = (hsv[..., 0] + int(shift * 255)) % 256
+        Image = _pil()
+        pil = Image.fromarray(hsv.astype(np.uint8), "HSV").convert("RGB")
+        if rng.rand() < 0.5:  # RandomAdjustSharpness(2, p=0.5)
+            pil = ImageEnhance.Sharpness(pil).enhance(2.0)
+        if rng.rand() < 0.5:  # RandomAutocontrast(p=0.5)
+            pil = ImageOps.autocontrast(pil)
+        if rng.rand() < 0.5:  # RandomEqualize(p=0.5)
+            pil = ImageOps.equalize(pil)
+        return pil
+
+    def __getitem__(self, i: int) -> Item:
+        Image = _pil()
+        img, label = self.base[i]
+        if isinstance(img, np.ndarray):
+            pil = Image.fromarray(img.squeeze(-1) if img.shape[-1] == 1 else img)
+        else:
+            pil = img
+        pil = _to_mode(pil, self.channels)
+        if self.color_jitter and self.channels == 3:
+            pil = self._jitter(pil)
+        s = self.size
+        if self.random_crop_native:
+            pil = self._rand_crop(pil, s)
+        elif self.pre_crop is not None:
+            pil = self._rand_crop(pil, self.pre_crop)
+            pil = pil.resize((s, s), Image.BILINEAR)
+        elif self.random_crop_scale is not None:
+            big = int(s * self.random_crop_scale)
+            pil = pil.resize((big, big), Image.BILINEAR)
+            pil = self._rand_crop(pil, s)
+        elif pil.size != (s, s):
+            if self.resize_mode == "squash":
+                pil = pil.resize((s, s), Image.BILINEAR)
+            else:
+                pil = _resize_center_crop(pil, s)
+        if self.hflip:
+            pil = pil.transpose(Image.FLIP_LEFT_RIGHT)
+        if self.vflip:
+            pil = pil.transpose(Image.FLIP_TOP_BOTTOM)
+        arr = np.asarray(pil, np.uint8)
+        if arr.ndim == 2:
+            arr = arr[..., None]
+        return arr, label
+
+
+def num_classes_of(ds, depth: int = 8) -> int:
+    """Best-effort label-class count of a dataset (0 = unlabeled).
+
+    Checks, in order: an explicit ``NUM_CLASSES`` attribute, a folder/
+    tar ``class_to_idx`` map, and finally the observed label array (the
+    largest label + 1 of this split, so a split that lacks the top class
+    undercounts). Wrappers (``TransformedDataset.base``, decode caches)
+    are unwrapped; a ``ConcatDataset`` takes the largest count of its
+    members. Used by the training CLI to infer ``model.num_classes``
+    for conditional runs."""
+    for _ in range(depth):  # unwrap nested wrappers
+        if ds is None:
+            return 0
+        n = getattr(ds, "NUM_CLASSES", None)
+        if n:
+            return int(n)
+        c2i = getattr(ds, "class_to_idx", None)
+        if c2i:
+            return len(c2i)
+        inner = getattr(ds, "base", None)
+        if inner is None:
+            subs = getattr(ds, "datasets", None)
+            if subs:
+                return max(num_classes_of(sub, depth - 1) for sub in subs)
+            labels = getattr(ds, "labels", None)
+            if labels is not None and len(labels):
+                m = int(np.max(labels))
+                return m + 1 if m > 0 else 0
+        ds = inner
+    return 0
+
+
+class ConcatDataset:
+    """Concatenation of datasets — the reference's augmentation-by-
+    concatenation pattern (util/data_loader.py:134-221 load_flowers x15,
+    :298-344 load_celeba + hflip)."""
+
+    def __init__(self, datasets: Sequence):
+        self.datasets = list(datasets)
+        self.offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def __len__(self) -> int:
+        return int(self.offsets[-1])
+
+    def __getitem__(self, i: int) -> Item:
+        k = int(np.searchsorted(self.offsets, i, side="right")) - 1
+        return self.datasets[k][i - int(self.offsets[k])]
+
+
+# --- augmentation-by-concatenation stacks ------------------------------------
+#
+# The reference multiplies its datasets by concatenating transform
+# variants. Effective multipliers over the split union, matched here:
+#   flowers  x5 (identity, hflip, vflip, hflip+vflip, resize1.25+randcrop)
+#            (reference util/data_loader.py:134-221 — x15 = 3 splits x 5)
+#   cars     x3 (identity, hflip, native random crop)         (:83-132)
+#   textures x2 (identity, hflip)                             (:224-263)
+#   stl_cond x4 (randcrop60+resize, hflip, color-jitter stack, identity)
+#            (reference :347-419 — x8 = 2 splits x 4)
+#   hflip    x2 (identity, hflip) — the celeba stack          (:298-344)
+
+AUG_STACKS = {
+    "flowers": (
+        dict(resize_mode="squash"),
+        dict(hflip=True, resize_mode="squash"),
+        dict(vflip=True, resize_mode="squash"),
+        dict(hflip=True, vflip=True, resize_mode="squash"),
+        dict(random_crop_scale=1.25),
+    ),
+    "cars": (
+        dict(resize_mode="squash"),
+        dict(hflip=True, resize_mode="squash"),
+        dict(random_crop_native=True),
+    ),
+    "textures": (
+        dict(resize_mode="squash"),
+        dict(hflip=True, resize_mode="squash"),
+    ),
+    "stl_cond": (
+        dict(pre_crop=60),
+        dict(hflip=True, resize_mode="squash"),
+        dict(color_jitter=True, resize_mode="squash"),
+        dict(resize_mode="squash"),
+    ),
+    "hflip": (
+        dict(),
+        dict(hflip=True),
+    ),
+}
+
+
+def apply_aug_stack(
+    base, stack: str, size: int, channels: int = 3, seed: Optional[int] = 0
+):
+    """base dataset -> ConcatDataset of the named transform stack."""
+    specs = AUG_STACKS[stack]
+    return ConcatDataset(
+        [
+            TransformedDataset(
+                base, size, channels,
+                seed=None if seed is None else seed + i,
+                **spec,
+            )
+            for i, spec in enumerate(specs)
+        ]
+    )
+
+
+# --- registry (the Datasets enum equivalent, config/datasets.py:7-26) --------
+
+GRAYSCALE_DATASETS = {"mnist", "fmnist", "omniglot"}
+
+_LOADERS: dict[str, Callable] = {
+    "mnist": load_mnist,
+    "fmnist": load_mnist,  # same idx format, different directory
+    "cifar10": load_cifar10,
+    "svhn": load_svhn,
+    "stl10": load_stl10,
+}
+
+# Named folder-layout datasets: where their archives land relative to
+# data_dir once extracted (the JAX package's data/download.py fetches
+# them); ImageFolder layouts.
+_FOLDER_DATASETS: dict[str, str] = {
+    "flowers": "flowers-102",
+    "omniglot": "images_background",
+    "food101": os.path.join("food-101", "images"),
+}
+
+
+def is_grayscale(name: str) -> bool:
+    return name.lower() in GRAYSCALE_DATASETS
+
+
+def cache_decoded(ds, image_size: int, channels: int, threads: int = 8):
+    """Materialise a lazy (file/tar-backed) dataset into a contiguous
+    uint8 ArrayDataset with a one-time multithreaded decode pass.
+
+    Per-item decode of small images is bound by the interpreter, far
+    below a training step's rate; one decode pass up front turns every
+    later epoch into a gather from one contiguous array."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n = len(ds)
+    images = np.empty((n, image_size, image_size, channels), np.uint8)
+    labels = np.empty((n,), np.int64)
+
+    def fill(i):
+        img, lab = ds[i]
+        images[i] = img
+        labels[i] = lab
+
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        list(pool.map(fill, range(n)))
+    return ArrayDataset(images, labels)
+
+
+def load_dataset(
+    name: str,
+    data_dir: str,
+    image_size: int,
+    channels: int = 3,
+    split: str = "train",
+    hflip_augment: bool = False,
+    aug_stack: Optional[str] = None,
+    decode_cache: Optional[bool] = None,
+    download: bool = False,
+):
+    """Config-driven dataset factory (reference load_data,
+    util/data_loader.py:431-542): resolves the named dataset / folder /
+    tar / synthetic source and wraps it with resize + channel transforms;
+    ``aug_stack`` applies one of the reference's concat-augmentation
+    stacks (AUG_STACKS); ``hflip_augment`` is shorthand for the 'hflip'
+    stack (celeba, :298-344).
+
+    ``decode_cache``: materialise lazy file/tar readers into a
+    contiguous in-memory store (see cache_decoded). Default (None):
+    cache deterministic lazy datasets whose decoded size fits the
+    FFC_TPU_DECODE_CACHE_MB budget (2048 MB); random-augmented stacks
+    are never cached (they re-sample per access).
+
+    ``download``: the JAX package fetches a missing named dataset from
+    its canonical source; the port does not (ROADMAP queue 1 item 7), and
+    raises NotImplementedError where that fetch would run."""
+    lname = name.lower()
+
+    def _resolve():
+        if lname == "synthetic":
+            return SyntheticDataset(size=image_size, channels=channels)
+        if lname == "shapes":
+            return ShapesDataset(size=image_size, channels=channels)
+        if lname == "digits":
+            return DigitsDataset(channels=channels, split=split)
+        if lname == "patches":
+            # crops are cut at the training size directly (native
+            # resolution is the point) — the resize wrapper is a no-op
+            return PhotoPatchesDataset(
+                size=image_size, channels=channels, split=split,
+                n=8192 if image_size <= 64 else 2048,
+            )
+        if lname in _LOADERS:
+            return _LOADERS[lname](data_dir, split=split)
+        if lname in _FOLDER_DATASETS:
+            root = os.path.join(data_dir, _FOLDER_DATASETS[lname])
+            if not os.path.isdir(root):
+                raise FileNotFoundError(
+                    f"{lname} folder layout not found at {root}"
+                )
+            return ImageFolderDataset(root, channels=channels)
+        if lname == "tar" or lname.endswith(".tar"):
+            path = name if name.endswith(".tar") else data_dir
+            return TarImageDataset(path, channels=channels)
+        if lname in ("local", "folder", "local_dataset"):
+            return ImageFolderDataset(data_dir, channels=channels)
+        if os.path.isdir(data_dir or name):
+            return ImageFolderDataset(data_dir or name, channels=channels)
+        raise KeyError(f"unknown dataset '{name}'")
+
+    try:
+        base = _resolve()
+    except FileNotFoundError as e:
+        if not download:
+            raise
+        raise NotImplementedError(
+            f"download=True would fetch dataset '{name}' into {data_dir}; the port does not "
+            f"download datasets yet (ROADMAP queue 1 item 7): put the files there by hand"
+        ) from e
+
+    if aug_stack is None and hflip_augment:
+        aug_stack = "hflip"
+    if aug_stack is not None:
+        if aug_stack not in AUG_STACKS:
+            raise KeyError(
+                f"unknown aug stack '{aug_stack}'; have {list(AUG_STACKS)}"
+            )
+        return apply_aug_stack(base, aug_stack, image_size, channels)
+    out = TransformedDataset(base, image_size, channels)
+    if hasattr(out, "images"):
+        return out  # already contiguous in-memory — nothing to cache
+    if decode_cache is None:
+        budget_mb = int(os.environ.get("FFC_TPU_DECODE_CACHE_MB", "2048"))
+        decoded_mb = len(out) * image_size * image_size * channels // 2**20
+        decode_cache = decoded_mb <= budget_mb
+    if decode_cache:
+        return cache_decoded(out, image_size, channels)
+    return out

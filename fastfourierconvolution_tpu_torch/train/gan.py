@@ -45,6 +45,10 @@ activations run in the trainer's compute dtype.
 
 ``generate`` samples G in eval mode (running statistics, no noise), as
 the JAX trainer's ``generate`` does.
+
+``state_dict`` holds the whole trainer state (``train/checkpoint.py``
+saves it); ``load_state_dict`` copies a saved state into the live
+tensors, so a captured step replays on the restored state.
 """
 
 from __future__ import annotations
@@ -373,6 +377,52 @@ class GANTrainer:
             self.step += 1
         return out
 
+    # -- checkpoint state ----------------------------------------------------------
+
+    def state_dict(self) -> dict:
+        """Everything a step reads and changes: G's and D's parameters and
+        buffers (BN statistics, spectral-norm ``u``), both optimizers'
+        moments and ``step`` counts (per parameter, in ``parameters()``
+        order; empty before the first step), both learning-rate schedules'
+        ``lr`` and update count, D's progress count (``step_count``), the
+        host ``step``, and both random generators' states. The tensors are
+        the live ones, as ``nn.Module.state_dict`` gives them: save them or
+        clone them before the next step."""
+        return {
+            "g": self.g.state_dict(),
+            "d": self.d.state_dict(),
+            "g_opt": _optimizer_state(self.g_opt),
+            "d_opt": _optimizer_state(self.d_opt),
+            "g_lr": {"lr": self.g_lr.lr, "count": self.g_lr.count},
+            "d_lr": {"lr": self.d_lr.lr, "count": self.d_lr.count},
+            "step_count": self.step_count,
+            "step": self.step,
+            "z_generator": self.z_generator.get_state(),
+            "noise_generator": self.noise_generator.get_state(),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore a :meth:`state_dict` by copying it into the trainer's own
+        tensors: every parameter, buffer, moment, learning rate and count
+        keeps its storage, and the optimizers keep reading the schedules'
+        ``lr`` tensors, so a step captured as a CUDA graph replays on the
+        restored state. Where no step has run yet, the optimizer moments
+        are created first. The generators take the saved states in place,
+        so a replay continues the restored streams. Raises on a state
+        whose tensors do not match this trainer's models."""
+        with torch.no_grad():
+            self.g.load_state_dict(state["g"])
+            self.d.load_state_dict(state["d"])
+            _load_optimizer(self.g_opt, state["g_opt"])
+            _load_optimizer(self.d_opt, state["d_opt"])
+            for schedule, saved in ((self.g_lr, state["g_lr"]), (self.d_lr, state["d_lr"])):
+                schedule.lr.copy_(saved["lr"])
+                schedule.count.copy_(saved["count"])
+            self.step_count.copy_(state["step_count"])
+        self.z_generator.set_state(state["z_generator"])
+        self.noise_generator.set_state(state["noise_generator"])
+        self.step = int(state["step"])
+
     def generate(self, z, labels=None, uint8: bool = False) -> torch.Tensor:
         """Samples of G in eval mode (BN running statistics, no noise):
         (B, z_size) latents and, for a conditional trainer, (B,) labels ->
@@ -392,6 +442,38 @@ class GANTrainer:
         finally:
             self.g.train(was_training)
         return (to_uint8(out) if uint8 else out).contiguous()
+
+
+def _optimizer_state(opt: torch.optim.Optimizer) -> list:
+    """One dict of state tensors per parameter of the single group (empty
+    before the first step)."""
+    return [dict(opt.state.get(p, {})) for p in opt.param_groups[0]["params"]]
+
+
+def _load_optimizer(opt: torch.optim.Optimizer, saved) -> None:
+    """Copy per-parameter optimizer state (``saved``: one dict per
+    parameter of the single group) into ``opt``'s state tensors, creating
+    them (zeros where torch's own first step would) where none exist."""
+    group = opt.param_groups[0]
+    if len(saved) != len(group["params"]):
+        raise ValueError(f"optimizer state for {len(saved)} parameters, the optimizer has "
+                         f"{len(group['params'])}")
+    for p, entries in zip(group["params"], saved):
+        state = opt.state.get(p, {})
+        if entries and not state:
+            # a capturable optimizer keeps its step counts on the device
+            cpu_step = not group["capturable"]
+            state = {k: torch.zeros_like(v, device="cpu" if k == "step" and cpu_step
+                                         else p.device)
+                     for k, v in entries.items()}
+            opt.state[p] = state
+        if set(state) != set(entries):
+            raise ValueError(f"optimizer state keys {sorted(entries)}, want {sorted(state)}")
+        for k, v in entries.items():
+            if state[k].shape != v.shape:
+                raise ValueError(f"optimizer state {k}: shape {tuple(v.shape)}, want "
+                                 f"{tuple(state[k].shape)}")
+            state[k].copy_(v)
 
 
 class _StepGraph:

@@ -6,21 +6,23 @@ field for field; ``PRESETS`` holds the same ten presets, one per reference
 entry point; ``make_config`` and ``apply_overrides`` build and override a
 config the same way.
 
-``zoo.build_models`` reads ``model`` and ``data``. Four fields only the JAX
-runtime reads and the port never will, kept as data so that the trees
-agree: ``train.tp`` (the TPU mesh's tensor-parallel width),
-``train.steps_per_call`` (the JAX CLI's scan length; the port's
-counterpart is ``GANTrainer.update_steps``' K), ``log.compilation_cache``
-(XLA's compile cache) and ``log.profile_at_step`` (``jax.profiler``).
-``parse_cli`` waits for the CLI slice.
+``zoo.build_models`` reads ``model`` and ``data``; the CLI (``cli.py``)
+reads the rest: ``train.steps_per_call`` is the K of each
+``GANTrainer.update_steps`` call, ``log.profile_at_step`` starts a
+``torch.profiler`` trace. Two fields only the JAX runtime reads, kept as
+data so that the trees agree: ``train.tp`` (the TPU mesh's
+tensor-parallel width, which the port's CLI refuses above 1) and
+``log.compilation_cache`` (XLA's compile cache). ``parse_cli`` parses the
+CLI's arguments as the JAX package's does, plus ``--device``.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 
 @dataclass
@@ -60,7 +62,7 @@ class TrainConfig:
     d_lr: Optional[float] = None  # TTUR when set
     beta1: float = 0.5
     beta2: float = 0.999
-    steps_per_call: int = 1  # the JAX CLI's K steps per call; unread by the port
+    steps_per_call: int = 1  # K steps per update_steps call of the CLI
     loss: str = "hinge"  # hinge|bce|wgan|wgan-gp
     gp_lambda: float = 10.0  # wgan-gp penalty weight (sagan parameter.py:18)
     aw_method: bool = False  # aw-method D-gradient combination (aw_loss.py)
@@ -69,7 +71,7 @@ class TrainConfig:
     seed: int = 0
     precision: str = "f32"  # f32|bf16 (activation compute dtype)
     remat: Optional[str] = None  # none|dots|full activation rematerialisation
-    tp: int = 1  # the JAX mesh's tensor-parallel width; unread by the port
+    tp: int = 1  # the JAX mesh's tensor-parallel width; the port's CLI takes 1 only
 
 
 @dataclass
@@ -99,7 +101,7 @@ class LogConfig:
     compilation_cache: Optional[str] = (
         "~/.cache/ffc_tpu/jax_cache"  # the JAX compile cache; unread by the port
     )
-    profile_at_step: Optional[int] = None  # a jax.profiler trace; unread by the port
+    profile_at_step: Optional[int] = None  # a torch.profiler trace of 3 steps
     best_metric_checkpoints: bool = False  # keep best-leading-metric ckpt
 
 
@@ -246,3 +248,69 @@ def apply_overrides(cfg: Config, sets: Sequence[str]) -> Config:
         sub = getattr(cfg, section)
         setattr(sub, key, _coerce(getattr(sub, key), raw))
     return cfg
+
+
+def parse_cli(
+    argv: Optional[Sequence[str]] = None,
+) -> Tuple[str, Config, Dict]:
+    """``<command> [--preset NAME] [--set section.key=value ...]`` plus the
+    shortcuts of the JAX package's ``parse_cli`` (-b, -e, -l, -o,
+    --dataset, --data_path, --checkpoint, the sample and export flags),
+    with the same commands and the same resulting ``Config``. The port
+    adds ``--device`` (default ``cuda``), returned in ``extras`` with the
+    other flags that are no config field."""
+    p = argparse.ArgumentParser(prog="python -m fastfourierconvolution_tpu_torch.cli")
+    p.add_argument(
+        "command",
+        choices=["train", "sample", "export", "fidelity", "download"],
+    )
+    p.add_argument("--preset", default=None)
+    p.add_argument("--set", action="append", default=[], metavar="K=V")
+    p.add_argument("-b", "--batch_size", type=int)
+    p.add_argument("-e", "--num_total_steps", type=int)
+    p.add_argument("-l", "--lr", type=float)
+    p.add_argument("-o", "--dir_logs")
+    p.add_argument("--dataset")
+    p.add_argument("--data_path")
+    p.add_argument("--checkpoint", action="store_true")
+    p.add_argument("--num_samples", type=int, default=64,
+                   help="sample command: how many images")
+    p.add_argument("--per_sample", action="store_true",
+                   help="sample command: also save each image as a PNG")
+    p.add_argument("--torch_checkpoint", default=None,
+                   help="sample/export command: a reference-repo .pth (not ported yet)")
+    p.add_argument("--exported", default=None,
+                   help="sample command: a serving artifact (not ported yet)")
+    p.add_argument("--output", default=None,
+                   help="export command: artifact path")
+    p.add_argument("--platforms", default="cpu,tpu",
+                   help="export command: comma-separated lowering platforms")
+    p.add_argument("--debug", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="where to train or sample: cuda (the default) or cpu")
+    args = p.parse_args(argv)
+
+    cfg = make_config(args.preset)
+    if args.batch_size:
+        cfg.train.batch_size = args.batch_size
+    if args.num_total_steps:
+        cfg.train.num_total_steps = args.num_total_steps
+    if args.lr:
+        cfg.train.lr = args.lr
+    if args.dir_logs:
+        cfg.log.dir_logs = args.dir_logs
+    if args.dataset:
+        cfg.data.dataset = args.dataset
+    if args.data_path:
+        cfg.data.data_dir = args.data_path
+    if args.checkpoint:
+        cfg.log.checkpoint = True
+    apply_overrides(cfg, args.set)
+    extras = {"num_samples": args.num_samples,
+              "per_sample": args.per_sample,
+              "torch_checkpoint": args.torch_checkpoint,
+              "exported": args.exported,
+              "output": args.output,
+              "platforms": tuple(s for s in args.platforms.split(",") if s),
+              "device": args.device}
+    return args.command, cfg, extras

@@ -1,0 +1,339 @@
+"""The port's training CLI (``cli.py``), its config parser and its logs
+against the JAX package's, on the CPU.
+
+- ``ScalarLogger`` writes the JAX logger's CSV rows and JSONL records (all
+  but the wall time); ``make_grid`` gives the JAX grid, and the PNG the
+  port writes without PIL decodes to the pixels of the JAX PNG.
+- ``parse_cli`` gives the JAX config for a set of argv (and ``--device``).
+- The on-device normalisation of the CLI's feed equals JAX's ``_norm``
+  as the JAX CLI runs it (jitted) for all 256 uint8 values.
+- ``trainer_keywords`` equals, for each of the ten presets, the keywords
+  the JAX ``run_train`` passes to its ``GANTrainer`` (captured by a stub
+  that records and raises), with the precision and the seed beside them.
+- ``train`` writes the JAX CLI's set of files on the same flags (``.pt``
+  checkpoints for ``.ckpt``); a run stopped after step 6 and resumed to 9
+  logs the losses of an uninterrupted run bit for bit, K-step chunks log
+  the losses of single steps (with a profiler trace taken on the way);
+  ``sample`` writes its grid, the per-sample
+  PNGs and the feature-map figure; each option the port does not have
+  raises with its message; ``train`` on the shapes data imports nothing
+  beyond torch, numpy and the standard library.
+"""
+
+from __future__ import annotations
+
+import csv
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import fastfourierconvolution_tpu.cli as jcli
+import fastfourierconvolution_tpu.train as jtrain
+import fastfourierconvolution_tpu.utils.config as jconfig
+import fastfourierconvolution_tpu.utils.logging as jlogging
+from fastfourierconvolution_tpu_torch import cli
+from fastfourierconvolution_tpu_torch.utils import config
+from fastfourierconvolution_tpu_torch.utils import logging as tlogging
+
+# the JAX test suite's tiny CLI run (tests/test_cli.py), losses logged
+# every step
+TINY = ["--set", "data.dataset=synthetic", "--set", "data.image_size=16",
+        "--set", "model.generator=ffc", "--set", "model.discriminator=ffc",
+        "--set", "model.ngf=16", "--set", "model.z_size=32", "--set", "model.mg=2",
+        "--set", "train.batch_size=8", "--set", "train.num_epoch_steps=3",
+        "--set", "eval.isc=false", "--set", "eval.fid=false",
+        "--set", "log.checkpoint=true", "--set", "log.checkpoint_after_frac=0.3",
+        "--set", "log.log_every=1"]
+CPU = ["--device", "cpu"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these tests run many small ops, where torch's
+    thread pool only adds contention with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _rows_without_time(path):
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    for row in rows:
+        assert isinstance(row.pop("time"), float)
+    return rows
+
+
+def test_scalar_logger_writes_the_jax_rows(tmp_path):
+    ours = tlogging.ScalarLogger(str(tmp_path / "torch"))
+    theirs = jlogging.ScalarLogger(str(tmp_path / "jax"))
+    calls = [(0, {"loss_g": 1.25, "loss_d": -0.5, "lr": 2e-4}),
+             (3, {"loss_g": np.float32(0.1), "loss_d": 2.0, "lr": 1e-4}),
+             (5, {"metrics/fid": 12.5, "eval_seconds": 3.0}),
+             (9, {"loss_g": 7, "loss_d": 1e-30, "lr": 0.0})]
+    for logger in (ours, theirs):
+        for step, scalars in calls:
+            logger.log(step, {k: (float(v) if isinstance(v, np.floating) else v)
+                              for k, v in scalars.items()})
+        logger.log_image_grid(9, np.zeros((4, 6, 3), np.uint8))
+        logger.close()
+    for name in ("gan_losses.csv",):
+        assert (tmp_path / "torch" / name).read_text() == (tmp_path / "jax" / name).read_text()
+    assert _rows_without_time(ours.jsonl_path) == _rows_without_time(theirs.jsonl_path)
+    assert os.listdir(tmp_path / "torch" / "tb")  # tensorboardX is installed here
+    # appending to an existing log keeps one header, as JAX's does
+    again = tlogging.ScalarLogger(str(tmp_path / "torch"), tensorboard=False)
+    again.log(10, {"loss_g": 1.0, "loss_d": 1.0, "lr": 0.0})
+    again.close()
+    with open(ours.csv_path) as f:
+        assert [r[0] for r in csv.reader(f)] == ["step", "0", "3", "9", "10"]
+    assert os.path.exists(tlogging.save_loss_plot(ours.csv_path))
+
+
+@pytest.mark.parametrize("channels, n, nrow", [(3, 10, 4), (1, 5, 8), (3, 64, 8)])
+@pytest.mark.parametrize("kind", ["uint8", "float"])
+def test_grids_and_pngs_match_jax(channels, n, nrow, kind, tmp_path):
+    rng = np.random.RandomState(n)
+    images = (rng.randint(0, 256, (n, 7, 5, channels)).astype(np.uint8) if kind == "uint8"
+              else rng.uniform(-1.3, 1.3, (n, 7, 5, channels)).astype(np.float32))
+    grid = tlogging.make_grid(images, nrow)
+    assert np.array_equal(grid, jlogging.make_grid(images, nrow))
+    ours = tlogging.save_image_grid(images, str(tmp_path / "a" / "ours.png"), nrow)
+    theirs = jlogging.save_image_grid(images, str(tmp_path / "theirs.png"), nrow)
+    with Image.open(ours) as a, Image.open(theirs) as b:
+        assert a.mode == b.mode == "RGB"
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("shape", [(3, 4), (3, 4, 1), (5, 2, 3), (2, 6, 4)])
+def test_png_encoder_round_trips(shape, tmp_path):
+    image = np.random.RandomState(0).randint(0, 256, shape).astype(np.uint8)
+    path = tlogging.save_png(image, str(tmp_path / "x.png"))
+    with Image.open(path) as decoded:
+        assert np.array_equal(np.asarray(decoded), image.reshape(image.shape[:2] + (
+            () if image.ndim == 2 or image.shape[2] == 1 else image.shape[2:])))
+    with pytest.raises(ValueError):
+        tlogging.encode_png(image.astype(np.float32))
+
+
+ARGVS = [
+    ["train"],
+    ["train", "--preset", "fgan32", "-b", "32", "-e", "1000", "-l", "1e-3", "-o", "runs/a",
+     "--set", "model.ratio_g=0.5", "--set", "eval.fid=false", "--checkpoint"],
+    ["sample", "--preset", "fgan_cond48", "--dataset", "stl10", "--data_path", "/d",
+     "--num_samples", "100", "--per_sample"],
+    ["train", "--preset", "sagan", "--set", "train.steps_per_call=4",
+     "--set", "log.compilation_cache=None", "--set", "train.d_lr=5e-4"],
+    ["export", "--preset", "fgan128", "--output", "g.ffcx", "--platforms", "cpu"],
+]
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=lambda a: " ".join(a[:3]))
+def test_parse_cli_matches_jax(argv):
+    command, cfg, extras = config.parse_cli(argv + ["--device", "cpu"])
+    jcommand, jcfg, jextras = jconfig.parse_cli(argv)
+    assert command == jcommand
+    assert cfg.to_json() == jcfg.to_json()
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert extras.pop("device") == "cpu"
+    assert extras == jextras
+    assert config.parse_cli(argv)[2]["device"] == "cuda"
+
+
+def test_the_feed_normalises_as_jax_does():
+    levels = np.arange(256, dtype=np.uint8).reshape(2, 2, 4, 4, 4)  # (K, B, H, W, C)
+    norm = jax.jit(lambda x8: x8.astype(jnp.float32) / 127.5 - 1.0)  # cli.py's _norm
+    want = np.asarray(norm(jnp.asarray(levels)))
+    batches = iter([(levels[0], np.zeros(2, np.int64)), (levels[1], np.ones(2, np.int64))])
+    feed = cli._Feed(batches, 2, torch.device("cpu"))
+    reals, labels = feed.take(feed.put())
+    assert reals.dtype == torch.float32
+    assert reals.numpy().tobytes() == want.tobytes()
+    assert cli.unit_levels().tobytes() == want.reshape(-1).tobytes()
+    assert labels.tolist() == [[0, 0], [1, 1]]
+
+
+class _Captured(Exception):
+    pass
+
+
+@pytest.mark.parametrize("preset", sorted(jconfig.PRESETS))
+def test_trainer_keywords_are_the_jax_clis(preset, monkeypatch, tmp_path):
+    seen = {}
+
+    def stub(g_model, d_model, **kwargs):
+        seen.update(kwargs)
+        raise _Captured
+
+    monkeypatch.setattr(jtrain, "GANTrainer", stub)
+    jcfg = jconfig.make_config(preset)
+    jcfg.data.dataset = "synthetic"
+    jcfg.log.compilation_cache = None
+    jcfg.log.dir_logs = str(tmp_path)
+    with pytest.raises(_Captured):
+        jcli.run_train(jcfg)
+    ours = cli.trainer_keywords(config.make_config(preset))
+    assert (ours.pop("dtype"), ours.pop("seed")) == ("f32", 0)
+    assert ours == seen
+
+
+def _files(root):
+    """The relative paths under ``root``, TensorBoard event files by their
+    directory and checkpoints by their step."""
+    found = set()
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            rel = os.path.relpath(os.path.join(dirpath, name), root)
+            if rel.startswith("tb" + os.sep):
+                rel = os.path.join("tb", "events")
+            found.add(rel.replace(".ckpt", ".pt"))
+    return found
+
+
+def _run(argv):
+    cli.main(argv + CPU)
+
+
+# a pair the JAX CLI compiles quickly, for the run both CLIs make
+DCGAN = TINY + ["--set", "data.image_size=64", "--set", "model.generator=dcgan",
+                "--set", "model.discriminator=dcgan", "--set", "model.ngf=8",
+                "--set", "model.ndf=8", "--set", "model.z_size=16",
+                "--set", "train.loss=bce"]
+
+
+def test_train_writes_the_jax_clis_files(tmp_path):
+    ours, theirs = str(tmp_path / "torch"), str(tmp_path / "jax")
+    flags = ["-e", "6"] + DCGAN
+    _run(["train", *flags, "-o", ours])
+    jcli.main(["train", *flags, "--set", "log.compilation_cache=", "-o", theirs])
+    assert _files(ours) == _files(theirs)
+    assert {"000003.png", "000006.png", "gan_losses.csv", "gan_losses.png",
+            os.path.join("checkpoints", "ckpt_6_steps.pt")} <= _files(ours)
+    with open(os.path.join(ours, "gan_losses.csv")) as f:
+        rows = list(csv.DictReader(f))
+    assert [int(r["step"]) for r in rows] == list(range(6))
+    assert all(np.isfinite(float(r["loss_G"])) and np.isfinite(float(r["loss_D"]))
+               for r in rows)
+    with open(os.path.join(theirs, "gan_losses.csv")) as f:
+        assert [r["lr"] for r in csv.DictReader(f)] == [r["lr"] for r in rows]
+
+
+def _loss_rows(run):
+    with open(os.path.join(run, "gan_losses.csv")) as f:
+        return [tuple(r.values()) for r in csv.DictReader(f)]
+
+
+def test_resume_sample_and_chunks_continue_the_run(tmp_path, capsys):
+    run = str(tmp_path / "run")
+    _run(["train", "-e", "9", *TINY, "-o", run])
+    straight = _loss_rows(run)
+    assert [r[0] for r in straight] == [str(s) for s in range(9)]
+    # the process stopped after step 6's checkpoint
+    os.unlink(os.path.join(run, "checkpoints", "ckpt_9_steps.pt"))
+    capsys.readouterr()
+    _run(["train", "-e", "9", *TINY, "-o", run])
+    assert "INFO: resumed from step 6" in capsys.readouterr().out
+    resumed = _loss_rows(run)[9:]
+    assert resumed == straight[6:]
+
+    chunked = str(tmp_path / "chunked")
+    _run(["train", "-e", "9", *TINY, "--set", "train.steps_per_call=3",
+          "--set", "log.log_every=3", "--set", "log.profile_at_step=3", "-o", chunked])
+    assert _loss_rows(chunked) == [straight[2], straight[5], straight[8]]
+    assert os.path.getsize(os.path.join(chunked, "profile", "trace.json")) > 0
+
+    _run(["sample", *TINY, "--num_samples", "5", "--per_sample", "-o", run])
+    assert "INFO: sample from step 9" in capsys.readouterr().out
+    with Image.open(os.path.join(run, "samples_000009.png")) as grid:
+        assert grid.size == (8 * 18 + 2, 18 + 2)
+    assert sorted(os.listdir(os.path.join(run, "samples_000009"))) == [
+        f"sample_{i:05d}.png" for i in range(5)]
+    assert os.path.exists(os.path.join(run, "feature_maps_000009.png"))
+
+
+def test_conditional_runs_infer_the_class_count(tmp_path, capsys):
+    run = str(tmp_path / "cond")
+    flags = ["--preset", "fgan_cond32", "--set", "model.num_classes=0",
+             "--set", "data.dataset=shapes", "--set", "model.ngf=8", "--set", "model.z_size=8",
+             "--set", "train.batch_size=4", "--set", "eval.isc=false",
+             "--set", "eval.fid=false", "--set", "eval.kid=false", "--checkpoint"]
+    _run(["train", *flags, "-e", "2", "--set", "train.num_epoch_steps=2", "-o", run])
+    _run(["sample", *flags, "--num_samples", "6", "-o", run])
+    out = capsys.readouterr().out
+    assert out.count("[config] model.num_classes=3") == 2
+    assert os.path.exists(os.path.join(run, "samples_000002.png"))
+    # a dataset that fails to load raises its own error, not "no labels"
+    with pytest.raises(FileNotFoundError):
+        _run(["sample", *flags, "--set", "data.dataset=mnist", "--data_path",
+              str(tmp_path / "absent"), "-o", run])
+
+
+REFUSED = [
+    (["train", "--preset", "fgan32"], NotImplementedError,
+     "--set eval.isc=false --set eval.fid=false"),
+    (["train", *TINY, "--set", "eval.kid=true"], NotImplementedError, "queue 1 item 8"),
+    (["train", *TINY, "--set", "log.best_metric_checkpoints=true"], NotImplementedError,
+     "queue 1 item 8"),
+    (["train", *TINY, "--set", "train.tp=2"], NotImplementedError, "queue 1 item 10"),
+    (["train", *TINY, "--set", "train.remat=dots"], NotImplementedError, "queue 1 item 5"),
+    (["train", *TINY, "--set", "train.steps_per_call=4"], ValueError, "must divide"),
+    (["export", *TINY], NotImplementedError, "queue 1 item 9"),
+    (["fidelity", "a", "b"], NotImplementedError, "queue 1 items 8 and 9"),
+    (["download", "--dataset", "mnist"], NotImplementedError, "queue 1 item 7"),
+    (["sample", *TINY, "--torch_checkpoint", "g.pth"], NotImplementedError, "queue 1 item 9"),
+    (["sample", *TINY, "--exported", "g.ffcx"], NotImplementedError, "queue 1 item 9"),
+    (["sample", *TINY, "--num_samples", "0"], SystemExit, "num_samples"),
+    (["sample", *TINY], SystemExit, "no checkpoint found"),
+]
+
+
+@pytest.mark.parametrize("argv, error, message", REFUSED, ids=lambda v: str(v)[:40])
+def test_options_not_ported_are_refused(argv, error, message, tmp_path):
+    with pytest.raises(error, match=message.replace(".", r"\.")):
+        _run(argv + ["-o", str(tmp_path)])
+
+
+def test_refusals_at_start(tmp_path, monkeypatch):
+    monkeypatch.setenv("FFC_TPU_COORDINATOR", "localhost:1234")
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        _run(["train", *TINY, "-o", str(tmp_path)])
+    monkeypatch.delenv("FFC_TPU_COORDINATOR")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["train", *TINY, "-o", str(tmp_path)])
+    assert not os.listdir(tmp_path)  # nothing written before the refusals
+
+
+# A child process in which the optional packages are absent (a None entry
+# in sys.modules makes an import raise and find_spec report no module).
+WITHOUT_OPTIONAL_PACKAGES = """
+import sys
+for name in ('PIL', 'matplotlib', 'sklearn', 'scipy', 'tensorboardX', 'tqdm', 'jax', 'flax',
+             'fastfourierconvolution_tpu'):
+    sys.modules[name] = None
+from fastfourierconvolution_tpu_torch import cli
+cli.main(sys.argv[1:])
+"""
+
+
+def test_train_needs_only_torch_and_numpy(tmp_path):
+    run = str(tmp_path / "run")
+    child = subprocess.run(
+        [sys.executable, "-c", WITHOUT_OPTIONAL_PACKAGES, "train", "-e", "3", *TINY,
+         "--set", "data.dataset=shapes", *CPU, "-o", run],
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        capture_output=True, text=True, timeout=300)
+    assert child.returncode == 0, child.stderr[-3000:]
+    assert "WARNING: loss plot failed" in child.stdout
+    assert {"000003.png", "gan_losses.csv", "scalars.jsonl"} <= set(os.listdir(run))
+    assert "tb" not in os.listdir(run)

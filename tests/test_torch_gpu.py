@@ -1152,3 +1152,63 @@ def test_update_steps_replays_the_eager_step_of_the_comparators(deterministic, p
         assert torch.equal(out[key], torch.stack([r[key] for r in ref])), key
     assert graph.step == eager.step == 4
     _assert_same_bits(_trainer_state(graph), _trainer_state(eager))
+
+
+def test_a_restore_into_a_captured_step_replays_the_first_continuation(deterministic,
+                                                                        tmp_path):
+    """f32 under deterministic algorithms: K steps (the eager step and the
+    capture), a save, K replays; a restore into the same trainer, whose
+    step stays captured, and the same K replays give the same losses and
+    state bit for bit. The restore keeps every tensor's address and the
+    optimizers' lr tensors, and the replays continue the restored
+    generators' streams."""
+    from fastfourierconvolution_tpu_torch.train.checkpoint import restore_latest, save_checkpoint
+
+    trainer = _narrow_trainer(deterministic)
+    trainer.update_steps(_reals(3, seed=1))
+    save_checkpoint(trainer, str(tmp_path), trainer.step)
+    later = _reals(3, seed=2)
+    first = {k: v.clone() for k, v in trainer.update_steps(later).items()}
+    end = {k: v.clone() for k, v in _trainer_state(trainer).items()}
+    pointers = {k: v.data_ptr() for k, v in _trainer_state(trainer).items()
+                if not k.endswith("generator")}
+    lr = trainer.g_opt.param_groups[0]["lr"], trainer.d_opt.param_groups[0]["lr"]
+    _, step = restore_latest(trainer, str(tmp_path))
+    assert step == trainer.step == 3
+    assert {k: v.data_ptr() for k, v in _trainer_state(trainer).items()
+            if not k.endswith("generator")} == pointers
+    assert lr[0] is trainer.g_lr.lr and lr[1] is trainer.d_lr.lr
+    again = trainer.update_steps(later)
+    torch.cuda.synchronize()
+    for key in first:
+        assert torch.equal(first[key], again[key]), key
+    _assert_same_bits(_trainer_state(trainer), end)
+
+
+def test_the_cli_trains_and_samples_a_narrow_pair_on_the_card(cuda, tmp_path):
+    """``run_train`` of a narrow pair on the card with K-step chunks and
+    checkpoints writes its logs, grids and checkpoints, its losses finite;
+    a second run resumes; ``sample`` writes its grid."""
+    import csv
+    import math
+
+    from fastfourierconvolution_tpu_torch import cli
+
+    out = str(tmp_path / "run")
+    flags = ["--set", "data.dataset=shapes", "--set", "data.image_size=16",
+             "--set", "model.ngf=16", "--set", "model.z_size=16", "--set", "model.mg=2",
+             "--set", "model.discriminator=ffc", "--set", "train.batch_size=8",
+             "--set", "train.num_epoch_steps=4", "--set", "train.steps_per_call=2",
+             "--set", "log.log_every=2", "--set", "eval.isc=false", "--set", "eval.fid=false",
+             "--checkpoint", "-o", out]
+    cli.main(["train", "-e", "8", *flags])
+    cli.main(["train", "-e", "12", *flags])
+    cli.main(["sample", "--num_samples", "8", *flags])
+    names = set(os.listdir(out))
+    assert {"gan_losses.csv", "scalars.jsonl", "000004.png", "000008.png", "000012.png",
+            "samples_000012.png"} <= names
+    assert "ckpt_12_steps.pt" in os.listdir(os.path.join(out, "checkpoints"))
+    with open(os.path.join(out, "gan_losses.csv")) as f:
+        rows = list(csv.DictReader(f))
+    assert [int(r["step"]) for r in rows] == [1, 3, 5, 7, 9, 11]
+    assert all(math.isfinite(float(r[k])) for r in rows for k in ("loss_G", "loss_D"))
