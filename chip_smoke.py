@@ -152,9 +152,26 @@ Phases, each of which raises on a failed check:
     as in phase 9, an eager step of the CLI's pair with exact launches per
     map (the kernels line's launches for these rows, per step), eager and
     replayed step times, then 32 steps through the CLI;
-24. a check that every kernel was launched on the main path (phases 4, 6,
-    10, 13, 14, 15 and the CLI runs), a ``{"wrapper_calls": [...]}`` JSON
-    line (the staged wrapper and training-op calls, all their stages
+24. the FFC layer options: the FourierUnit kernels at the local Fourier
+    units' maps (half the size of the 32px and 128px FourierUnit maps,
+    the same channels; each map's ``kernel_design`` printed) and at the
+    spectral-normed cDCGAN discriminator's maps, checked as in phases 3,
+    5 and 9 where no earlier phase checks them; the 32px generator's two
+    SpectralTransform blocks (tuple path) and the 128px generator's five
+    packed blocks with biases, each with ``enable_lfu``, in bf16 at batch
+    64 (a training pass and an eval forward, exact launches per map, the
+    outputs against the plain ops', timed with both) and in f32 against
+    the plain ops (outputs and gradients), at phase 5's bars;
+    ``FFCCondDCGANDiscriminator(use_sn=True)`` at its JAX defaults trained
+    against the ``train_cond`` generator, eagerly and replayed;
+25. ``remat`` none, dots and full on fgan32 and fgan128 (bench.py's
+    setting): an eager step's launches (G's forward kernels a third time
+    per step under remat) and peak memory, the captured step's memory
+    pool, the replayed step's wall and device ms; 4 replayed f32 steps with
+    remat against 4 without, the same bits expected;
+26. a check that every kernel was launched on the main path (phases 4, 6,
+    10, 13, 14, 15, the CLI runs and phases 24-25), a
+    ``{"wrapper_calls": [...]}`` JSON line (the staged wrapper and training-op calls, all their stages
     together), a ``{"kernels": [...]}`` JSON line, then the
     ``{"ok": true, ...}`` line.
 
@@ -165,6 +182,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import math
 import os
@@ -1526,29 +1544,39 @@ STEP_MAPS = {32: ([(s, 2, 1) for s in FU_SHAPES], []),
 def expected_launches(path, n_steps):
     """{kernel: {map or partial shape: launches}} for ``n_steps`` training
     steps of ``path``; maps of G and D with the same (C, H, W) add up."""
+    fu_maps, bn_shapes = STEP_MAPS[path]
+    return launches_of(fu_maps, [(s, BN_STEP_LAUNCHES) for s in bn_shapes], n_steps)
+
+
+def launches_of(fu_maps, bn_maps, n_runs=1):
+    """{kernel: {map or partial shape: launches}} for ``n_runs`` runs of:
+    per FourierUnit map (shape, training forwards, backwards[, eval
+    forwards]) and per packed BN map (shape, {kernel: launches})."""
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
-    fu_maps, bn_shapes = STEP_MAPS[path]
     want = {k: collections.Counter() for k in launch_wrappers()}
-    for shape, forwards, backwards in fu_maps:
+    for shape, forwards, backwards, *evals in fu_maps:
         b, c, h, w = shape
         is_staged = staged("stats", shape)
         per_forward, per_backward = PASS_LAUNCHES["staged" if is_staged else "per_item"]
         for k, per in per_forward.items():
-            want[k][(c, h, w)] += per * forwards * n_steps
+            want[k][(c, h, w)] += per * forwards * n_runs
         for k, per in per_backward.items():
-            want[k][(c, h, w)] += per * backwards * n_steps
+            want[k][(c, h, w)] += per * backwards * n_runs
+        for k in (STAGED_CALL["fourier_unit_fwd"] if staged("forward", shape)
+                  else ("fourier_unit_fwd",)):
+            want[k][(c, h, w)] += sum(evals) * n_runs
         # a statistics reduction per forward and a backward-sums reduction
         # per backward on (rows, 4C), a gK reduction per backward on
         # (rows, 4C^2): a row per item, or per run of tiles (B * chunks)
         # after the staged mix stages
         rows = b * fu.staged_chunks(b, h, w) if is_staged else b
-        want["fu_reduce"][(rows, 4 * c)] += (forwards + backwards) * n_steps
-        want["fu_reduce"][(rows, 4 * c * c)] += backwards * n_steps
-    for b, c, h, w in bn_shapes:
-        for k, per in BN_STEP_LAUNCHES.items():
-            want[k][(c, h, w)] += per * n_steps
-    return {k: dict(v) for k, v in want.items()}
+        want["fu_reduce"][(rows, 4 * c)] += (forwards + backwards) * n_runs
+        want["fu_reduce"][(rows, 4 * c * c)] += backwards * n_runs
+    for (b, c, h, w), per_kernel in bn_maps:
+        for k, per in per_kernel.items():
+            want[k][(c, h, w)] += per * n_runs
+    return {k: {m: n for m, n in v.items() if n} for k, v in want.items()}
 
 
 def counts_by_map():
@@ -1849,21 +1877,6 @@ def train_vs_plain(device, path):
     import torch
 
     from fastfourierconvolution_tpu_torch.nn import layers
-    from fastfourierconvolution_tpu_torch.ops import bn_act as ba
-    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
-
-    def plain_ops():
-        stack = contextlib.ExitStack()
-        stack.enter_context(mock.patch.multiple(
-            fu, fu_train_stats=fu.fu_train_stats_plain,
-            fourier_unit_forward=fu.fourier_unit_forward_plain,
-            fu_bwd_stats=fu.fu_bwd_stats_plain, fu_bwd_apply=fu.fu_bwd_apply_plain,
-            _train_forward_staged=fu.fourier_unit_train_plain,
-            _train_backward_staged=lambda *a: fu.fourier_unit_backward_plain(*a)[:4]))
-        stack.enter_context(mock.patch.multiple(
-            ba, bn_stats=ba.bn_stats_plain, bn_gelu_apply=ba.bn_gelu_apply_plain,
-            bn_bwd_reduce=ba.bn_bwd_reduce_plain, bn_bwd_dx=ba.bn_bwd_dx_plain))
-        return stack
 
     resolution = RESOLUTION[path]
     batch, steps = PLAIN_RUNS[path]
@@ -2474,6 +2487,433 @@ def check_main_path_launches(counts_by_run):
         raise AssertionError(f"kernels never launched on the main path: {idle}")
 
 
+# --- phase 24: the FFC layer options ---------------------------------------------------
+
+
+def lfu_blocks(resolution):
+    """[(name, FFC_BN_ACT keywords, input size)] of the upsampling blocks of
+    ``FFCGenerator.for_resolution(resolution)`` at their widths, with the
+    local Fourier unit on: the blocks that hold a SpectralTransform on the
+    tuple path (32px: blocks 1 and 2), every block on the packed path
+    (128px), there with ``use_bias``."""
+    from fastfourierconvolution_tpu_torch.models.ffc_gan import PACKED_MIN_RES, PRESETS
+
+    preset = PRESETS[resolution]
+    packed = resolution >= PACKED_MIN_RES
+    in_ch, in_ratio, size, blocks = preset["ngf"] * 8, 0.0, preset["mg"], []
+    for i, mult in enumerate(preset["channel_mults"]):
+        out_ch = preset["ngf"] * mult
+        if packed or in_ratio > 0:
+            blocks.append((f"{resolution}px block{i}", dict(
+                in_channels=in_ch, out_channels=out_ch, kernel_size=4, ratio_gin=in_ratio,
+                ratio_gout=preset["ratio_g"], stride=2, padding=1, norm="batch",
+                activation="gelu", upsampling=True, packed=packed, use_bias=packed,
+                enable_lfu=True), size))
+        in_ch, in_ratio, size = out_ch, preset["ratio_g"], size * 2
+    return blocks
+
+
+def block_maps(kw, size, batch):
+    """(FourierUnit map, LFU map) of a block's SpectralTransform, or ()."""
+    in_cg = int(kw["in_channels"] * kw["ratio_gin"])
+    half = int(kw["out_channels"] * kw["ratio_gout"]) // 2
+    if in_cg == 0 or half == 0:
+        return ()
+    return (batch, half, 2 * size, 2 * size), (batch, half, size, size)
+
+
+def make_block(kw, device, dtype=None):
+    """The block with seeded weights (its conv biases N(0, 0.1), not zero,
+    so that they count)."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.nn.ffc import FFC_BN_ACT
+    from fastfourierconvolution_tpu_torch.nn.layers import reset_parameters
+
+    block = FFC_BN_ACT(**kw)
+    reset_parameters(block, torch.Generator().manual_seed(SEED))
+    g = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if name.endswith("bias") and name.startswith("ffc.conv"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    return block.to(device)
+
+
+def block_pass(block, kw, x, w=None):
+    """The block on x (B, C, S, S) split as its input wants; with a weight
+    map ``w``, a training pass: (output, gradients of sum(out * w) in x and
+    every parameter); without, an eval forward: (output, None)."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.nn.ffc import Packed, resize_output
+
+    cin = kw["in_channels"]
+    cl = cin - int(cin * kw["ratio_gin"])
+    run = lambda v: resize_output(block(Packed(v, cl) if kw["packed"] else
+                                        (v[:, :cl], v[:, cl:] if cl < cin else None)))
+    if w is None:
+        block.eval()
+        with torch.no_grad():
+            return run(x), None
+    block.train()
+    x = x.detach().requires_grad_(True)
+    out = run(x)
+    grads = torch.autograd.grad((out.float() * w).sum(), [x] + list(block.parameters()))
+    return out.detach(), grads
+
+
+def plain_ops():
+    """The FourierUnit and fused BN + GELU kernel wrappers replaced by their
+    plain versions (phases 7, 11, 13, 14, 16 and 24)."""
+    from fastfourierconvolution_tpu_torch.ops import bn_act as ba
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.multiple(
+        fu, fu_train_stats=fu.fu_train_stats_plain,
+        fourier_unit_forward=fu.fourier_unit_forward_plain,
+        fu_bwd_stats=fu.fu_bwd_stats_plain, fu_bwd_apply=fu.fu_bwd_apply_plain,
+        _train_forward_staged=fu.fourier_unit_train_plain,
+        _train_backward_staged=lambda *a: fu.fourier_unit_backward_plain(*a)[:4]))
+    stack.enter_context(mock.patch.multiple(
+        ba, bn_stats=ba.bn_stats_plain, bn_gelu_apply=ba.bn_gelu_apply_plain,
+        bn_bwd_reduce=ba.bn_bwd_reduce_plain, bn_bwd_dx=ba.bn_bwd_dx_plain))
+    return stack
+
+
+# Phase 24: the f32 comparison's batch by generator (the 128px blocks at
+# phase 11's batch).
+BLOCK_F32_BATCH = {32: BATCH, 128: 8}
+# The conv biases of a block whose BN normalises in training: their
+# gradient is 0 up to rounding (BN subtracts them again).
+BLOCK_FREE = re.compile(r"ffc\.conv(l2l|l2g|g2l)\.bias")
+
+
+def check_lfu_blocks(device, card):
+    """Phase 24, the blocks: each block of ``lfu_blocks`` (32 and 128 px) in
+    bf16 at batch 64, a training pass (forward and backward) and an eval
+    forward with exact launches per map, their outputs against the same
+    passes with the plain ops at phase 5's bf16 bar (the plain ops round
+    every stage to bf16 where the kernels keep f32), timed with the
+    kernels and with the plain ops; then in f32 (TF32 off, deterministic algorithms; the
+    128px blocks with the tanh GELU forced, so their fused BN + GELU op runs
+    there too) against the same block with the plain ops: the outputs of
+    both passes and every gradient at phase 5's bar (the f64 plain
+    versions' bar). Returns the bf16 runs' launches by map."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.nn import layers
+
+    counts = {k: collections.Counter() for k in launch_wrappers()}
+    for resolution in (32, 128):
+        for name, kw, size in lfu_blocks(resolution):
+            maps = block_maps(kw, size, BATCH)
+            for m in maps:
+                log(f"{name} map {m}: kernel_design " + ", ".join(
+                    f"{w} {fu_design(w, m)}" for w in ("forward", "stats", "bwd_apply")))
+            g = torch.Generator().manual_seed(SEED + 5)
+            block = make_block(kw, device)
+            x = torch.randn(BATCH, kw["in_channels"], size, size, generator=g).to(
+                device, torch.bfloat16)
+            out_shape = (BATCH, kw["out_channels"], 2 * size, 2 * size)
+            w = torch.randn(out_shape, generator=g).to(device)
+            start = {k: v.clone() for k, v in block.state_dict().items()}
+            zero_counts()
+            out_t, grads = block_pass(block, kw, x, w)
+            out_e, _ = block_pass(block, kw, x)
+            torch.cuda.synchronize()
+            got = counts_by_map()
+            bn = ([(out_shape, dict(bn_stats=1, bn_gelu_apply=1, bn_bwd_reduce=1, bn_bwd_dx=1))]
+                  if kw["packed"] else [])
+            want = launches_of([(m, 1, 1, 1) for m in maps], bn)
+            if got != want:
+                raise AssertionError(f"{name}: kernel launches {got}, expected {want}")
+            for k, v in got.items():
+                counts[k].update(v)
+            finite = all(torch.isfinite(t.float()).all() for t in (out_t, out_e, *grads))
+            if not finite:
+                raise AssertionError(f"{name}: non-finite output or gradient in bf16")
+            with plain_ops():
+                block.load_state_dict(start)
+                plain_t, _ = block_pass(block, kw, x, w)
+                plain_e, _ = block_pass(block, kw, x)
+            bf16_gap = rel_max(out_t, plain_t)[0], rel_max(out_e, plain_e)[0]
+            train_ms = time_ms(lambda: block_pass(block, kw, x, w))
+            eval_ms = time_ms(lambda: block_pass(block, kw, x))
+            with plain_ops():
+                plain_train_ms = time_ms(lambda: block_pass(block, kw, x, w))
+                plain_eval_ms = time_ms(lambda: block_pass(block, kw, x))
+            log(f"{name} {kw['in_channels']}->{kw['out_channels']} at {size}->{2 * size}, "
+                f"{'packed, use_bias' if kw['packed'] else 'tuple'}, enable_lfu, bf16 batch "
+                f"{BATCH}: training pass {train_ms:.4f} ms (plain ops {plain_train_ms:.4f}), "
+                f"eval forward {eval_ms:.4f} ms (plain ops {plain_eval_ms:.4f}); outputs finite; "
+                f"launches {got}; against the bf16 plain ops, rel-max training {bf16_gap[0]:.3e}, "
+                f"eval {bf16_gap[1]:.3e} (tol {FU_REL_TOL['bfloat16']:g}); {card}")
+            if not max(bf16_gap) <= FU_REL_TOL["bfloat16"]:
+                raise AssertionError(f"{name}: bf16 outputs against the plain ops {bf16_gap}")
+
+            # f32: the kernels against the plain ops on the same block
+            batch = BLOCK_F32_BATCH[resolution]
+            block32 = make_block(kw, device)
+            x32 = x[:batch].float()
+            w32 = w[:batch]
+            names = ["x"] + [n for n, _ in block32.named_parameters()]
+            layers.set_fast_gelu(True if kw["packed"] else "policy")
+            torch.use_deterministic_algorithms(True)
+            try:
+                runs = {}
+                for plain in (False, True):
+                    with plain_ops() if plain else contextlib.nullcontext():
+                        block32.load_state_dict(start)
+                        runs[plain] = (block_pass(block32, kw, x32, w32),
+                                       block_pass(block32, kw, x32)[0])
+            finally:
+                torch.use_deterministic_algorithms(False)
+                layers.set_fast_gelu("policy")
+            ((kt, kg), ke), ((pt, pg), pe) = runs[False], runs[True]
+            out_gap = max(rel_max(kt, pt)[0], rel_max(ke, pe)[0])
+            gaps = {n: rel_max(a, b)[0] for n, a, b in zip(names, kg, pg)
+                    if not BLOCK_FREE.fullmatch(n)}
+            worst = max(gaps.items(), key=lambda kv: kv[1])
+            free = [a.abs().max().item() for n, a in zip(names, kg) if BLOCK_FREE.fullmatch(n)]
+            log(f"  f32 batch {batch}, kernels against the plain ops: outputs (training, eval) "
+                f"rel-max {out_gap:.3e}; {len(gaps)} gradients, worst rel-max {worst[1]:.3e} "
+                f"({worst[0]}); tol {FU_REL_TOL['float32']:g}"
+                + (f"; the BN-fed conv biases' largest gradient {max(free):.2e} (0 up to "
+                   f"rounding, left out)" if free else ""))
+            if not max(out_gap, worst[1]) <= FU_REL_TOL["float32"]:
+                raise AssertionError(f"{name}: f32 kernels against the plain ops, outputs "
+                                     f"{out_gap}, gradient {worst}")
+            del block, block32
+    return {k: dict(v) for k, v in counts.items()}
+
+
+def fu_design(wrapper, shape):
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    return fu.kernel_design(wrapper, *shape[1:], limit)
+
+
+# Phase 24. The local Fourier units' maps at batch 64: each FourierUnit's
+# map at half its size with its channels (the bottleneck's first C/4
+# channels with their 2x2 quarters folded into C): the 32px generator's
+# two, then the 128px generator's four, of which the last two are 128px
+# FourierUnit maps too (FU128_SHAPES).
+LFU32_SHAPES = [(BATCH, 16, 8, 8), (BATCH, 8, 16, 16)]
+LFU128_SHAPES = [(BATCH, 64, 8, 8), (BATCH, 32, 16, 16), (BATCH, 32, 32, 32),
+                 (BATCH, 32, 64, 64)]
+# FFCCondDCGANDiscriminator at its JAX defaults (ndf 64, so 64px images, nc
+# 3, 10 classes) with spectral norm, batch 64: the FourierUnits of its
+# blocks 2 and 3.
+SND_FU_SHAPES = [(BATCH, 128, 8, 8), (BATCH, 256, 4, 4)]
+# The maps whose kernels earlier phases check.
+CHECKED_MAPS = FU_SHAPES + FU128_SHAPES + D_FU_SHAPES + FU48_SHAPES + FU64_SHAPES
+
+
+def check_maps(device, shapes, phase):
+    """Phases 24 (the kernels at new maps): phases 3, 5 and 9's checks at
+    each of ``shapes`` that no earlier phase checks, and ``fu_reduce`` at
+    their partial-sum shapes that none checks. Returns (rows, calls)."""
+    new = [s for s in shapes if s not in CHECKED_MAPS]
+    for shape in shapes:
+        log(f"{phase} map {shape}: kernel_design " + ", ".join(
+            f"{w} {fu_design(w, shape)}" for w in ("forward", "stats", "bwd_apply"))
+            + ("" if shape in new else " (checked in an earlier phase)"))
+    if not new:
+        return [], []
+    rows, calls = check_fourier_unit(device, new, phase)
+    train_rows, train_calls = check_train_kernels(device, new, phase)
+    seen = set(reduce_cases(CHECKED_MAPS))
+    rows += train_rows + check_reduce(device, [c for c in reduce_cases(new) if c not in seen],
+                                      phase)
+    return rows, calls + train_calls
+
+
+def cond_sn_d(device, card):
+    """Phase 24, the spectral-normed discriminator: ``FFCCondDCGANDiscriminator
+    (use_sn=True)`` at its JAX defaults against the ``train_cond`` preset's
+    generator (``CondDCGANGenerator``, z 100, ngf 64; nc 3 for D's images)
+    with its trainer settings (bce, Adam, D first, separate D passes), bf16
+    at batch 64: 2 eager steps with exact launches per map (D's two maps: 3
+    training forwards and 3 backwards a step), then ``update_steps`` (K = 4)
+    replayed; losses finite, every ``u`` advanced by the eager steps and
+    again by the replays. Returns the eager steps' launches by map."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch import (
+        CondDCGANGenerator,
+        FFCCondDCGANDiscriminator,
+        GANTrainer,
+    )
+
+    g = CondDCGANGenerator(nz=100, nc=3, ngf=64, num_classes=NUM_CLASSES,
+                           generator=torch.Generator().manual_seed(SEED))
+    d = FFCCondDCGANDiscriminator(nc=3, ndf=64, num_classes=NUM_CLASSES, use_sn=True,
+                                  generator=torch.Generator().manual_seed(SEED + 1))
+    trainer = GANTrainer(g, d, z_size=100, conditional=True, num_classes=NUM_CLASSES,
+                         loss="bce", optimizer="adam", update_order="d_first", seed=SEED,
+                         device=device, dtype="bf16")
+    gen = torch.Generator().manual_seed(SEED + 30)
+    labels = torch.randint(0, NUM_CLASSES, (4, BATCH), generator=gen).to(device)
+    reals = torch.stack([real_batch(device, SEED + 30 + i, 64) for i in range(4)])
+    u = lambda: {n: v.clone() for n, v in trainer.d.state_dict().items() if n.endswith(".u")}
+    u0 = u()
+    zero_counts()
+    losses = [trainer.update_step(reals[i], labels[i]) for i in range(2)]
+    torch.cuda.synchronize()
+    counts = counts_by_map()
+    want = launches_of([(s, 3, 3) for s in SND_FU_SHAPES], [], 2)
+    if counts != want:
+        raise AssertionError(f"SN cDCGAN D: kernel launches {counts}, expected {want}")
+    u1 = u()
+    losses.append(trainer.update_steps(reals, labels))  # an eager step and the capture
+    n_calls, t0 = 0, time.perf_counter()
+    while time.perf_counter() - t0 < 1.0:
+        losses.append(trainer.update_steps(reals, labels))
+        n_calls += 1
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) / (4 * n_calls) * 1e3
+    u2 = u()
+    values = torch.cat([torch.stack([l["loss_g"], l["loss_d"]]).flatten() for l in losses])
+    # a branch with one output channel has a one-element u, always +-1
+    wide = [n for n in u0 if u0[n].numel() > 1]
+    moved = [n for n in wide if not torch.equal(u0[n], u1[n]) and not torch.equal(u1[n], u2[n])]
+    log(f"SN cDCGAN D (FFCCondDCGANDiscriminator(ndf=64, use_sn=True), {len(u0)} u vectors) "
+        f"against CondDCGANGenerator(ngf=64), bf16 batch {BATCH}, bce/Adam/D first: 2 eager "
+        f"steps, launches {counts}; {n_calls} calls of 4 replayed steps, {replay_ms:.3f} ms wall "
+        f"a replayed step; losses finite {bool(torch.isfinite(values).all())}, last "
+        f"{values[-2].item():.4f} / {values[-1].item():.4f}; u advanced by the eager steps and "
+        f"by the replays: {len(moved)} of the {len(wide)} with more than one element; {card}")
+    if not torch.isfinite(values).all() or len(moved) != len(wide):
+        raise AssertionError("SN cDCGAN D: a non-finite loss, or a u that did not advance")
+    return counts
+
+
+# --- phase 25: remat -------------------------------------------------------------------
+
+REMAT_MODES = (None, "dots", "full")
+
+
+def remat_launches(path):
+    """Launches of one eager step of ``path`` with remat: G's differentiated
+    forward runs again in the G phase's backward, so each G map takes a
+    third training forward, and at 128px each packed block its fused BN +
+    GELU forward kernels a third time (D, the SN ladder, holds none)."""
+    fu_maps, bn_shapes = STEP_MAPS[path]
+    bn = dict(BN_STEP_LAUNCHES, bn_stats=3, bn_gelu_apply=3)
+    return launches_of([(s, f + 1, b) for s, f, b in fu_maps], [(s, bn) for s in bn_shapes])
+
+
+def graph_pool_bytes(trainer):
+    """Bytes of the segments in the captured step's private memory pool."""
+    import torch
+
+    pool = tuple(next(iter(trainer._graphs.values())).graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == pool)
+
+
+def remat_runs(device, card):
+    """Phase 25: fgan32 and fgan128 in bench.py's setting (batch 64, bf16,
+    fused D pass) under remat none, dots and full: one eager step after a
+    first, with exact launches (``remat_launches``) and its peak memory
+    (``max_memory_allocated``, and above the memory held before it), the
+    captured step's pool, and the replayed step's wall ms (host clock, 1 s
+    of calls) and device ms (profiler); then in f32 (TF32 off,
+    deterministic algorithms; 128px at batch 8 with the tanh GELU forced)
+    4 replayed steps with remat against 4 without: losses and every state
+    tensor, the same bits expected, within phase 12's bars. Returns the
+    eager steps' launches by run."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.nn import layers
+
+    counts_by_run, readings = {}, {}
+    for path in (32, 128):
+        resolution, k = RESOLUTION[path], STEPS_PER_CALL[path]
+        real = real_batch(device, SEED + 2, resolution)
+        reals = torch.stack([real_batch(device, SEED + 10 + i, resolution) for i in range(k)])
+        for mode in REMAT_MODES:
+            trainer = make_trainer(device, "bf16", path, remat=mode)
+            trainer.update_step(real)
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            trainer.update_step(real)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            counts = counts_by_map()
+            want = remat_launches(path) if mode else expected_launches(path, 1)
+            if counts != want:
+                raise AssertionError(f"{path}px remat {mode}: launches {counts}, expected {want}")
+            counts_by_run[f"remat-{path}px-{mode or 'none'}"] = counts
+            trainer.update_steps(reals)  # an eager step and the capture
+            pool = graph_pool_bytes(trainer)
+            n_calls, t0 = 0, time.perf_counter()
+            while time.perf_counter() - t0 < 1.0:
+                out = trainer.update_steps(reals)
+                n_calls += 1
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / (n_calls * k) * 1e3
+            if not all(torch.isfinite(v).all() for v in out.values()):
+                raise AssertionError(f"{path}px remat {mode}: non-finite loss")
+            dev_ms = step_events(lambda: trainer.update_steps(reals), k, 1)[0]
+            readings[(path, mode)] = (peak, pool, wall_ms, dev_ms)
+            base = readings[(path, None)]
+            log(f"remat {mode or 'none'}, fgan{path} (batch {BATCH}, bf16, fused D pass): eager "
+                f"step peak {peak / 1e9:.3f} GB ({(peak - resident) / 1e9:.3f} GB above the "
+                f"{resident / 1e9:.3f} GB held before it; {peak / base[0]:.3f}x no remat's), "
+                f"graph pool {pool / 1e9:.3f} GB ({pool / base[1]:.3f}x); replayed step "
+                f"{wall_ms:.3f} ms wall ({n_calls} calls of {k}), {dev_ms:.3f} ms device "
+                f"(profiler; {dev_ms / base[3]:.3f}x); launches per eager step {counts}; {card}")
+            del trainer
+            gc.collect()  # the captured graph and the trainer hold each other
+            torch.cuda.empty_cache()
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        for path, batch in ((32, BATCH), (128, 8)):
+            layers.set_fast_gelu(True if path >= 128 else "policy")
+            reals = torch.stack([real_batch(device, SEED + 40 + i, RESOLUTION[path], batch)
+                                 for i in range(PARITY_STEPS)])
+            ref = make_trainer(device, "f32", path)
+            ref_out = ref.update_steps(reals)
+            want = trainer_state(ref)
+            for mode in REMAT_MODES[1:]:
+                ours = make_trainer(device, "f32", path, remat=mode)
+                out = ours.update_steps(reals)
+                torch.cuda.synchronize()
+                got = trainer_state(ours)
+                loss_gap = max((out[k] - ref_out[k]).abs().max().item() for k in out)
+                differ = sorted(n for n in want if not torch.equal(got[n], want[n]))
+                gaps = {n: (got[n].double() - want[n].double()).abs().max().item()
+                        / max(want[n].double().abs().max().item(), 1e-30)
+                        for n in differ if not n.endswith("generator")}
+                worst = max(gaps.items(), key=lambda kv: kv[1], default=("", 0.0))
+                log(f"remat {mode}, fgan{path} f32 batch {batch}: {PARITY_STEPS} replayed steps "
+                    f"against {PARITY_STEPS} replayed steps without remat: losses max |diff| "
+                    f"{loss_gap:.3e} (tol {STEP_LOSS_TOL:g}); {len(want)} state tensors, the "
+                    f"same bits in {len(want) - len(differ)}; largest rel-max gap "
+                    f"{worst[1]:.3e} {worst[0]} (tol {STEP_GRAD_TOL[32]:g})")
+                if (loss_gap > STEP_LOSS_TOL or worst[1] > STEP_GRAD_TOL[32]
+                        or any(n.endswith("generator") for n in differ)):
+                    raise AssertionError(f"remat {mode}, fgan{path}: f32 replays differ from "
+                                         f"no remat's: {differ[:8]}")
+                del ours
+            del ref
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        layers.set_fast_gelu("policy")
+    return counts_by_run
+
+
+
 def main() -> int:
     import torch
 
@@ -2586,12 +3026,26 @@ def main() -> int:
         rows += rows_64
         calls += calls_64
         cli_counts.update(counts_64)
-    phase("24: result")
+    phase("24: the FFC layer options: the LFU maps' kernels, the LFU blocks (32px tuple, "
+          "128px packed with biases), the spectral-normed cDCGAN discriminator")
+    rows_lfu, calls_lfu = check_maps(device, LFU32_SHAPES + LFU128_SHAPES, "lfu-blocks")
+    counts_lfu = check_lfu_blocks(device, card)
+    rows += with_launches(rows_lfu, counts_lfu)
+    calls += with_calls(calls_lfu, counts_lfu)
+    rows_snd, calls_snd = check_maps(device, SND_FU_SHAPES, "training-cond-sn-d")
+    counts_snd = cond_sn_d(device, card)
+    rows += with_launches(rows_snd, counts_snd)
+    calls += with_calls(calls_snd, counts_snd)
+    phase("25: remat none / dots / full, fgan32 and fgan128")
+    remat_counts = remat_runs(device, card)
+    phase("26: result")
     check_main_path_launches({"serving-32px": {"fourier_unit_fwd": by_map},
                               "training-32px": counts_32, "training-128px": counts,
                               "training-sngan": counts_sngan, "training-cond32": counts_c32,
                               "serving-cond32": {"fourier_unit_fwd": by_map_c32},
-                              "training-cond48": counts_c48, **cli_counts})
+                              "training-cond48": counts_c48, **cli_counts,
+                              "lfu-blocks": counts_lfu, "training-cond-sn-d": counts_snd,
+                              **remat_counts})
     log(json.dumps({"wrapper_calls": calls}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

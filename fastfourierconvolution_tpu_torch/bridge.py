@@ -8,6 +8,11 @@ layouts:
 - convolution HWIO -> OIHW (spectral-normed ones too);
 - transposed convolution: the JAX kernel is HWIO and spatially flipped,
   torch's is IOHW, so ``w_t[i, o, a, b] = w_j[k-1-a, k-1-b, i, o]``;
+- grouped convolutions: the JAX kernel is HWIO with I = cin / groups, so
+  OIHW needs no more than the plain transpose; a grouped transposed one
+  (JAX I = cin / groups, O = cout; torch IOHW with O = cout / groups)
+  takes group g's output columns to the rows of g's input channels:
+  ``w_t[g*ci + i, o, a, b] = w_j[k-1-a, k-1-b, i, g*co + o]``;
 - Dense (in, out) -> (out, in), SN dense too: the port's discriminator
   flattens its features in the JAX package's (H, W, C) order, so the
   head's columns need no permutation;
@@ -20,7 +25,12 @@ layouts:
   transposed convolution's: the flip permutes the columns of the matrix
   spectral norm reads, so sigma and ``u`` carry over;
 - ``SelfAttention``: its q, k and v convolutions (flax's ``Conv2d_0``,
-  ``Conv2d_1``, ``Conv2d_2``) and the scalar ``gamma``.
+  ``Conv2d_1``, ``Conv2d_2``) and the scalar ``gamma``;
+- the FFC layer options: the local Fourier unit (``lfu``) of a
+  SpectralTransform, spectral-normed FFC branches (kernel, bias and
+  ``u``, transposed ones included), and the kernels and biases of packed
+  FFCs, whose JAX ``ConvKernelHolder``s carry the conv branches' names
+  and leaves.
 
 The generator and both discriminators go through the same rules:
 ``FFCDiscriminator``'s biased FFC convolutions, its blocks' BatchNorms,
@@ -74,6 +84,7 @@ _JAX_CHILD_NAMES = {
         "conv1": "Conv2d_0",
         "bn": "BatchNorm_0",
         "fu": "FourierUnit_0",
+        "lfu": "lfu",
         "conv2": "Conv2d_1",
     },
     SELayer: {"fc1": "Dense_0", "fc2": "Dense_1"},
@@ -113,7 +124,7 @@ def _jax_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
 def _leaf_rules(module: nn.Module):
     """(port attribute, collection, JAX leaf path suffix, converter)."""
     conv = lambda w: w.transpose(3, 2, 0, 1)
-    convt = lambda w: w[::-1, ::-1].transpose(2, 3, 0, 1)
+    convt = lambda w: _grouped_convt(w, getattr(module, "groups", 1))
     dense = lambda w: w.T
     same = lambda w: w
     bias = [("bias", "params", ("bias",), same)] if getattr(module, "bias", None) is not None else []
@@ -162,6 +173,14 @@ def _leaf_rules(module: nn.Module):
     if isinstance(module, NoiseInjection):
         return [("weight", "params", ("weight",), lambda w: w.reshape(-1))]
     return []
+
+
+def _grouped_convt(w: np.ndarray, groups: int) -> np.ndarray:
+    """JAX HWIO (k, k, cin / groups, cout), spatially flipped -> torch IOHW
+    (cin, cout / groups, k, k)."""
+    k1, k2, ci, co = w.shape
+    w = w[::-1, ::-1].reshape(k1, k2, ci, groups, co // groups)
+    return w.transpose(3, 2, 4, 0, 1).reshape(groups * ci, co // groups, k1, k2)
 
 
 def jax_to_state_dict(

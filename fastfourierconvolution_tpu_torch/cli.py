@@ -17,7 +17,7 @@ grids from the newest checkpoint. Both run on ``cuda`` unless
 
 Not ported yet, and refused at start: in-loop metrics
 (``eval.isc/fid/kid/prc/ppl``, ``log.best_metric_checkpoints``),
-``train.tp`` above 1 and multi-process runs, ``train.remat``, and the
+``train.tp`` above 1 and multi-process runs, and the
 ``export``, ``fidelity`` and ``download`` commands with ``sample``'s
 ``--torch_checkpoint`` and ``--exported``. ``log.compilation_cache`` is
 the JAX package's XLA compile cache: accepted, and nothing in the port
@@ -80,9 +80,6 @@ def _refuse_unported(cfg) -> None:
     if launch:
         raise NotImplementedError(f"{', '.join(launch)} set: multi-process training is not "
                                   f"ported yet (ROADMAP queue 1 item 10)")
-    if cfg.train.remat not in (None, "none"):
-        raise NotImplementedError(f"train.remat={cfg.train.remat!r} is not ported yet "
-                                  f"(ROADMAP queue 1 item 5)")
 
 
 def _maybe_infer_num_classes(cfg, dataset=None) -> None:

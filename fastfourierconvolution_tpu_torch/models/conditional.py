@@ -36,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..nn import remat
 from ..nn.ffc import FFC_BN_ACT, resize_output
 from ..nn.layers import (
     BatchNorm,
@@ -65,7 +66,7 @@ def _init(model: nn.Module, generator: Optional[torch.Generator]) -> None:
 def draw_input_noise(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """N(0, 1) noise of x's shape, f32, on x's device, from ``generator``:
     :class:`CondDCGANDiscriminator`'s input noise before its scale."""
-    return torch.randn(x.shape, generator=generator, device=x.device)
+    return remat.recorded(lambda: torch.randn(x.shape, generator=generator, device=x.device))
 
 
 def _flatten_hwc(x: torch.Tensor) -> torch.Tensor:
@@ -350,17 +351,14 @@ class FFCCondDCGANDiscriminator(nn.Module):
     exact GELU (the image after input noise N(0, 0.05²) in training with
     ``use_noise``), concatenated; ``log2(ndf) - 3`` FFC_BN_ACT blocks (k4
     s2, global ratio 0→0.5 then 0.5, no norm, GELU); an FFC_BN_ACT head (k4
-    s1 p0, 0.5→0, sigmoid). Returns (B, 1) probabilities. Labels are taken
-    modulo ``num_classes``."""
+    s1 p0, 0.5→0, sigmoid); with ``use_sn`` the blocks' and the head's
+    conv branches are spectral-normed, without bias. Returns (B, 1)
+    probabilities. Labels are taken modulo ``num_classes``."""
 
     def __init__(self, nc: int = 3, ndf: int = 64, num_classes: int = 10,
                  use_sn: bool = False, use_noise: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if use_sn:
-            raise NotImplementedError(
-                "use_sn is not ported yet: it waits for spectral norm inside the FFC "
-                "layers (ROADMAP.md, queue 1 item 4)")
         self.ndf, self.num_classes = ndf, num_classes
         self.number_convs = int(math.log2(ndf)) - 2
         self.noise = GaussianNoise(0.05) if use_noise else None
@@ -372,11 +370,11 @@ class FFCCondDCGANDiscriminator(nn.Module):
             cout = ndf * 2 ** itr * 2
             self.add_module(f"block{itr}", FFC_BN_ACT(
                 cin, cout, 4, 0.0 if itr == 1 else 0.5, 0.5, stride=2, padding=1,
-                norm="identity", activation="gelu",
+                norm="identity", activation="gelu", use_sn=use_sn,
             ))
             cin = cout
         self.head = FFC_BN_ACT(cin, 1, 4, 0.5, 0.0, stride=1, padding=0, norm="identity",
-                               activation="sigmoid")
+                               activation="sigmoid", use_sn=use_sn)
         _init(self, generator)
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32,

@@ -23,8 +23,14 @@ conditional path (plain rfft2 -> mix -> ConditionalBatchNorm -> ReLU ->
 irfft2, as the JAX package computes it outside any kernel). The tuple path
 only.
 
-Left out so far: the local Fourier unit and spectral norm inside the FFC
-layers.
+Layer options, as the JAX package's: ``dilation`` and ``groups`` on the
+convolutions (the g→g SpectralTransform's 1x1 convolutions take ``groups
+// 2``), ``enable_lfu`` (the local Fourier unit beside the SpectralTransform's
+FourierUnit), ``use_sn`` (spectral norm on the l2l, l2g and g2l
+convolutions, transposed ones included) and ``use_bias`` (on those three,
+also transposed and packed). Packed mode takes neither ``use_sn`` nor
+``groups``, and spectral norm takes neither ``dilation`` nor ``groups``:
+those raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ from .layers import (
     Conv2d,
     ConvTranspose2d,
     SELayer,
+    SNConv2d,
+    SNConvTranspose2d,
     bn_scale_init_,
     conv_init_,
     gelu_is_fast,
@@ -130,21 +138,34 @@ class FourierUnit(nn.Module):
 
 class SpectralTransform(nn.Module):
     """At stride 2 a x2 nearest upsample (``upsample``) or a 2x2 average
-    pool; then SE gate, 1x1 conv to C/2 + BN + ReLU, FourierUnit, and a 1x1
-    conv back to C on (x + fu(x))."""
+    pool; then SE gate (unless ``use_se`` is False), 1x1 conv to C/2 + BN +
+    ReLU, FourierUnit, and a 1x1 conv back to C on (x + fu(x)); both 1x1
+    convs take ``groups``.
+
+    With ``enable_lfu`` the local Fourier unit adds a third term: the first
+    C/8 channels of the bottleneck, their 2x2 spatial quarters folded into
+    channels (split along H, then along W, each time stacked on the channel
+    axis, as the JAX package orders them), through a FourierUnit of C/2
+    channels at half the size (``lfu``, never class-conditional), tiled
+    back 2x2. It needs C/2 divisible by 4 and an even H and W."""
 
     def __init__(
         self, in_channels: int, out_channels: int, stride: int = 1,
-        upsample: bool = False, num_classes: int = 0,
+        upsample: bool = False, num_classes: int = 0, groups: int = 1,
+        enable_lfu: bool = False, use_se: bool = True,
     ):
         super().__init__()
         half = out_channels // 2
+        if enable_lfu and half % 4:
+            raise ValueError(f"enable_lfu needs the bottleneck channel count ({half}) "
+                             f"divisible by 4")
         self.stride, self.upsample = stride, upsample
-        self.se = SELayer(in_channels)
-        self.conv1 = Conv2d(in_channels, half, 1)
+        self.se = SELayer(in_channels) if use_se else None
+        self.conv1 = Conv2d(in_channels, half, 1, groups=groups)
         self.bn = BatchNorm(half)
         self.fu = FourierUnit(half, num_classes)
-        self.conv2 = Conv2d(half, out_channels, 1)
+        self.lfu = FourierUnit(half) if enable_lfu else None
+        self.conv2 = Conv2d(half, out_channels, 1, groups=groups)
 
     def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.stride == 2:
@@ -153,9 +174,25 @@ class SpectralTransform(nn.Module):
                 if self.upsample
                 else conv_ops.avg_pool2d(x)
             )
-        x = self.se(x)
+        if self.se is not None:
+            x = self.se(x)
         x = torch.relu(self.bn(self.conv1(x)))
-        return self.conv2(x + self.fu(x, y))
+        out = x + self.fu(x, y)
+        if self.lfu is not None:
+            out = out + self.lfu(fold_quarters(x)).repeat(1, 1, 2, 2)
+        return self.conv2(out)
+
+
+def fold_quarters(x: torch.Tensor) -> torch.Tensor:
+    """The local Fourier unit's input: x's first C/4 channels with their
+    2x2 spatial quarters stacked on the channel axis, top half before
+    bottom, then left before right: (B, C, H, W) -> (B, C, H/2, W/2)."""
+    c, h, w = x.shape[1:]
+    if h % 2 or w % 2:
+        raise ValueError(f"enable_lfu needs even spatial dims, got {(h, w)}")
+    xs = x[:, : c // 4]
+    xs = torch.cat(xs.chunk(2, dim=2), dim=1)
+    return torch.cat(xs.chunk(2, dim=3), dim=1)
 
 
 def _add_opt(a: Branch, b: Branch) -> Branch:
@@ -168,41 +205,54 @@ def _add_opt(a: Branch, b: Branch) -> Branch:
 
 class FFC(nn.Module):
     """Local/global split with four cross branches: l2l, l2g and g2l are
-    k x k convolutions (transposed ones when ``transpose``), g2g is a
+    k x k convolutions (transposed ones when ``transpose``; spectral-normed
+    with ``use_sn``, whose ``u`` advances in training), g2g is a
     SpectralTransform. A branch with no channels on either side is absent.
     With ``use_bias`` the l2l, l2g and g2l convolutions carry a bias (the
-    SpectralTransform's stay bias-free); the tuple path's plain
-    convolutions only. ``spectral_classes`` > 1 makes the g2g branch's
-    FourierUnit class-conditional.
+    SpectralTransform's stay bias-free). ``dilation`` and ``groups`` reach
+    the three convolutions, ``groups // 2`` (1 for 1) the
+    SpectralTransform's, and ``enable_lfu`` its local Fourier unit.
+    ``spectral_classes`` > 1 makes the g2g branch's FourierUnit
+    class-conditional.
     """
 
     def __init__(
         self, in_channels, out_channels, kernel_size, ratio_gin, ratio_gout,
         stride=1, padding=0, output_padding=0, transpose=False, packed=False,
-        use_bias=False, spectral_classes=0,
+        use_bias=False, spectral_classes=0, dilation=1, groups=1, enable_lfu=False,
+        use_sn=False,
     ):
         super().__init__()
         if stride not in (1, 2):
             raise ValueError(f"stride must be 1 or 2, got {stride}")
-        if use_bias and (transpose or packed):
-            raise ValueError("a conv bias is taken by the tuple path's plain convolutions only")
+        if packed and (use_sn or groups != 1):
+            raise ValueError("packed mode takes groups=1 and use_sn=False only")
+        if use_sn and (dilation != 1 or groups != 1):
+            raise ValueError("use_sn takes dilation=1 and groups=1 only")
         in_cl, in_cg = split_channels(in_channels, ratio_gin)
         out_cl, out_cg = split_channels(out_channels, ratio_gout)
         self.ratio_gout = ratio_gout
         self.in_split, self.out_split = (in_cl, in_cg), (out_cl, out_cg)
         self.kernel_size, self.transpose, self.packed = kernel_size, transpose, packed
-        self.conv_args = dict(stride=stride, padding=padding)
+        self.use_bias = use_bias
+        self.conv_args = dict(stride=stride, padding=padding, dilation=dilation)
         if transpose:
             self.conv_args["output_padding"] = output_padding
 
         def make_conv(cin, cout):
             if cin == 0 or cout == 0:
                 return None
+            if transpose and use_sn:
+                return SNConvTranspose2d(cin, cout, kernel_size, stride, padding,
+                                         output_padding, bias=use_bias)
             if transpose:
-                return ConvTranspose2d(
-                    cin, cout, kernel_size, stride, padding, output_padding
-                )
-            return Conv2d(cin, cout, kernel_size, stride, padding, bias=use_bias)
+                return ConvTranspose2d(cin, cout, kernel_size, stride, padding,
+                                       output_padding, bias=use_bias, dilation=dilation,
+                                       groups=groups)
+            if use_sn:
+                return SNConv2d(cin, cout, kernel_size, stride, padding, bias=use_bias)
+            return Conv2d(cin, cout, kernel_size, stride, padding, bias=use_bias,
+                          dilation=dilation, groups=groups)
 
         self.convl2l = make_conv(in_cl, out_cl)
         self.convl2g = make_conv(in_cl, out_cg)
@@ -211,7 +261,8 @@ class FFC(nn.Module):
         if in_cg > 0 and out_cg > 0:
             self.convg2g = SpectralTransform(
                 in_cg, out_cg, stride=stride, upsample=transpose,
-                num_classes=spectral_classes,
+                num_classes=spectral_classes, groups=1 if groups == 1 else groups // 2,
+                enable_lfu=enable_lfu,
             )
 
     @staticmethod
@@ -239,6 +290,20 @@ class FFC(nn.Module):
         in_dim, out_dim = (0, 1) if self.transpose else (1, 0)
         return torch.cat([torch.cat(row, dim=out_dim) for row in blocks], dim=in_dim)
 
+    def block_bias(self) -> torch.Tensor:
+        """The three conv branches' biases over the packed output channels
+        (f32): l2l + g2l on the local ones and l2g on the global ones, as
+        two biased convolutions into one output would add them, zero where
+        no branch reaches."""
+        (out_cl, out_cg), local = self.out_split, (self.convl2l, self.convg2l)
+        zeros = next(c.bias for c in (*local, self.convl2g) if c is not None).new_zeros
+        parts = []
+        if out_cl > 0:
+            parts.append(sum((c.bias for c in local if c is not None), zeros(out_cl)))
+        if out_cg > 0:
+            parts.append(zeros(out_cg) if self.convl2g is None else self.convl2g.bias)
+        return torch.cat(parts)
+
     def _packed_forward(self, p: Packed) -> Packed:
         (in_cl, in_cg), (out_cl, out_cg) = self.in_split, self.out_split
         x = p.x
@@ -249,6 +314,8 @@ class FFC(nn.Module):
             )
         conv = conv_ops.conv_transpose2d if self.transpose else conv_ops.conv2d
         out = conv(x, self.block_kernel(), **self.conv_args)
+        if self.use_bias:
+            out = out + self.block_bias().to(out.dtype)[:, None, None]
         if self.convg2g is not None:
             s = self.convg2g(x[:, in_cl:])
             out = torch.cat([out[:, :out_cl], out[:, out_cl:] + s], dim=1) if out_cl else out + s
@@ -271,7 +338,8 @@ class FFC(nn.Module):
 
 
 class FFC_BN_ACT(nn.Module):
-    """FFC (transposed when ``upsampling``; ``use_bias`` as in :class:`FFC`)
+    """FFC (transposed when ``upsampling``; ``use_bias``, ``dilation``,
+    ``groups``, ``enable_lfu`` and ``use_sn`` as in :class:`FFC`)
     -> per-branch BN -> activation; with ``packed``, on a ``Packed`` signal
     (see the module docstring). With ``num_classes`` > 1 the BNs are
     class-conditional and, with ``cond_spectral_bn``, so is the
@@ -281,7 +349,8 @@ class FFC_BN_ACT(nn.Module):
         self, in_channels, out_channels, kernel_size, ratio_gin, ratio_gout,
         stride=1, padding=0, output_padding=0, norm="identity",
         activation="identity", upsampling=False, packed=False, use_bias=False,
-        num_classes=0, cond_spectral_bn=False,
+        num_classes=0, cond_spectral_bn=False, dilation=1, groups=1, enable_lfu=False,
+        use_sn=False,
     ):
         super().__init__()
         if norm not in ("batch", "identity"):
@@ -292,7 +361,8 @@ class FFC_BN_ACT(nn.Module):
             in_channels, out_channels, kernel_size, ratio_gin, ratio_gout,
             stride=stride, padding=padding, output_padding=output_padding,
             transpose=upsampling, packed=packed, use_bias=use_bias,
-            spectral_classes=num_classes if cond_spectral_bn else 0,
+            spectral_classes=num_classes if cond_spectral_bn else 0, dilation=dilation,
+            groups=groups, enable_lfu=enable_lfu, use_sn=use_sn,
         )
         out_cl, out_cg = split_channels(out_channels, ratio_gout)
         self.conditional = num_classes > 1

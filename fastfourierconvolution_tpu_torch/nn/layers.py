@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from ..ops import conv as conv_ops
 from ..ops.spectral_norm import l2_normalize, spectral_normalize
+from . import remat
 
 BN_EPS = 1e-5
 # Weight of the old running statistic: flax momentum 0.9 (torch 0.1).
@@ -57,7 +58,10 @@ def xavier_uniform_(w: torch.Tensor, generator: torch.Generator, gain: float = 1
 
 
 def update_running_(running: torch.Tensor, batch: torch.Tensor) -> None:
-    """running <- 0.9 * running + 0.1 * batch, in place, outside the graph."""
+    """running <- 0.9 * running + 0.1 * batch, in place, outside the graph;
+    nothing in the recompute of a rematerialised apply."""
+    if remat.recomputing():
+        return
     with torch.no_grad():
         running.mul_(BN_MOMENTUM).add_(batch, alpha=1.0 - BN_MOMENTUM)
 
@@ -186,15 +190,18 @@ class Dense(nn.Module):
 
 class Conv2d(nn.Module):
     """2-D convolution, bias-free unless ``bias`` (zero init); weight
-    OIHW, drawn by ``weight_init``."""
+    OIHW with I = in_channels / groups, drawn by ``weight_init``."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
-                 bias: bool = False, weight_init: Callable = conv_init_):
+                 bias: bool = False, weight_init: Callable = conv_init_, dilation=1,
+                 groups=1):
         super().__init__()
         k = kernel_size
-        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k))
+        _check_groups(in_channels, out_channels, groups)
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, k, k))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
         self.stride, self.padding = stride, padding
+        self.dilation, self.groups = dilation, groups
         self.weight_init = weight_init
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -204,24 +211,28 @@ class Conv2d(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv_ops.conv2d(x, self.weight, stride=self.stride, padding=self.padding)
+        y = conv_ops.conv2d(x, self.weight, stride=self.stride, padding=self.padding,
+                            dilation=self.dilation, groups=self.groups)
         return y if self.bias is None else y + self.bias.to(y.dtype)[:, None, None]
 
 
 class ConvTranspose2d(nn.Module):
     """Transposed 2-D convolution, bias-free unless ``bias`` (zero init,
-    added to the output in its dtype); weight IOHW."""
+    added to the output in its dtype); weight IOHW with O = out_channels /
+    groups."""
 
     def __init__(
         self, in_channels, out_channels, kernel_size, stride=1, padding=0,
-        output_padding=0, bias: bool = False,
+        output_padding=0, bias: bool = False, dilation=1, groups=1,
     ):
         super().__init__()
         k = kernel_size
-        self.weight = nn.Parameter(torch.empty(in_channels, out_channels, k, k))
+        _check_groups(in_channels, out_channels, groups)
+        self.weight = nn.Parameter(torch.empty(in_channels, out_channels // groups, k, k))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
         self.stride, self.padding = stride, padding
         self.output_padding = output_padding
+        self.dilation, self.groups = dilation, groups
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -232,16 +243,23 @@ class ConvTranspose2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = conv_ops.conv_transpose2d(
             x, self.weight, stride=self.stride, padding=self.padding,
-            output_padding=self.output_padding,
+            output_padding=self.output_padding, dilation=self.dilation, groups=self.groups,
         )
         return y if self.bias is None else y + self.bias.to(y.dtype)[:, None, None]
+
+
+def _check_groups(in_channels: int, out_channels: int, groups: int) -> None:
+    if groups < 1 or in_channels % groups or out_channels % groups:
+        raise ValueError(f"groups={groups} must divide in_channels ({in_channels}) and "
+                         f"out_channels ({out_channels})")
 
 
 def draw_noise(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """N(0, 1) single-channel noise (B, 1, H, W) for ``x`` (B, C, H, W), in
     x's dtype, on x's device, from ``generator``."""
     b, _, h, w = x.shape
-    return torch.randn((b, 1, h, w), generator=generator, device=x.device, dtype=x.dtype)
+    return remat.recorded(lambda: torch.randn((b, 1, h, w), generator=generator,
+                                              device=x.device, dtype=x.dtype))
 
 
 class NoiseInjection(nn.Module):
@@ -274,7 +292,8 @@ class GaussianNoise(nn.Module):
             return x
         if generator is None:
             raise ValueError("a training forward with input noise needs a noise generator")
-        noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        noise = remat.recorded(lambda: torch.randn(x.shape, generator=generator,
+                                                   device=x.device, dtype=x.dtype))
         return x + self.stddev * noise
 
 
@@ -300,9 +319,12 @@ class _SpectralNormed(nn.Module):
 
     def normalized_weight(self) -> torch.Tensor:
         """weight / sigma; in training the new u is copied into the buffer
-        (the graph keeps its own tensor)."""
-        w, u_new = spectral_normalize(self.weight, self.u, update=self.training)
-        if self.training:
+        (the graph keeps its own tensor), except in the recompute of a
+        rematerialised apply, which iterates from the u its first run
+        started from."""
+        u = remat.stash(self.u) if self.training else self.u
+        w, u_new = spectral_normalize(self.weight, u, update=self.training)
+        if self.training and not remat.recomputing():
             with torch.no_grad():
                 self.u.copy_(u_new)
         return w

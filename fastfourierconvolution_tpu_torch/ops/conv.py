@@ -18,18 +18,21 @@ import torch
 import torch.nn.functional as F
 
 
-def conv2d(x, weight, *, stride=1, padding=0) -> torch.Tensor:
-    """2-D convolution, (B, Ci, H, W) x OIHW -> (B, Co, H', W')."""
-    return F.conv2d(x, weight.to(x.dtype), stride=stride, padding=padding)
+def conv2d(x, weight, *, stride=1, padding=0, dilation=1, groups=1) -> torch.Tensor:
+    """2-D convolution, (B, Ci, H, W) x OIHW -> (B, Co, H', W'); with
+    ``groups`` the weight is (Co, Ci / groups, k, k)."""
+    return F.conv2d(x, weight.to(x.dtype), stride=stride, padding=padding,
+                    dilation=dilation, groups=groups)
 
 
 def conv_transpose2d(
-    x, weight, *, stride=1, padding=0, output_padding=0
+    x, weight, *, stride=1, padding=0, output_padding=0, dilation=1, groups=1
 ) -> torch.Tensor:
-    """2-D transposed convolution, (B, Ci, H, W) x IOHW -> (B, Co, H', W')."""
+    """2-D transposed convolution, (B, Ci, H, W) x IOHW -> (B, Co, H', W');
+    with ``groups`` the weight is (Ci, Co / groups, k, k)."""
     return F.conv_transpose2d(
         x, weight.to(x.dtype), stride=stride, padding=padding,
-        output_padding=output_padding,
+        output_padding=output_padding, groups=groups, dilation=dilation,
     )
 
 

@@ -43,6 +43,15 @@ device, seeded at construction; the noise generator also feeds D's input
 noise, where D has any. Parameters, BN statistics and ``u`` stay f32;
 activations run in the trainer's compute dtype.
 
+``remat`` ("dots" or "full"; None or "none" for neither) rematerialises
+the differentiated model applies, as the JAX trainer's ``_maybe_remat``
+does: G inside the G loss, D inside both loss closures (the gradient
+penalty's pass and the aw-method's separate passes included), not the D
+phase's gradient-free G forward. ``nn/remat.py`` says how (non-reentrant
+``torch.utils.checkpoint``, which "dots" makes selective) and how a
+recompute leaves the BN statistics, ``u`` and the noise generators as the
+step without remat leaves them.
+
 ``generate`` samples G in eval mode (running statistics, no noise), as
 the JAX trainer's ``generate`` does.
 
@@ -59,6 +68,7 @@ import torch
 import torch.nn as nn
 
 from ..models.ffc_gan import to_uint8
+from ..nn import remat as remat_mod
 from ..utils.policy import default_dtype, resolve_device, resolve_dtype
 from . import losses as L
 
@@ -114,10 +124,6 @@ def make_optimizer(params, device: torch.device, lr: float = 2e-4,
     return opt, LinearDecay(opt.param_groups[0]["lr"], lr, total_steps)
 
 
-def _not_yet(name: str, waits_for: str):
-    return NotImplementedError(f"{name} is not ported yet: it waits for {waits_for}")
-
-
 class GANTrainer:
     """Trains ``g_model`` and ``d_model`` in place on ``device`` (``cuda``
     unless told otherwise); the compute dtype defaults to bf16 on the card
@@ -134,9 +140,8 @@ class GANTrainer:
         aw_delta: float = 0.05, aw_epsilon: float = 0.05, remat: Optional[str] = None,
         d_progress_arg: bool = False, seed: int = 0, device="cuda", dtype=None,
     ):
-        if remat not in (None, "none"):
-            raise _not_yet("remat", "a design of its own: a re-run forward would advance BN "
-                           "statistics and u and draw the noise again")
+        if remat not in remat_mod.MODES:
+            raise ValueError(f"unknown remat {remat!r}; want one of {remat_mod.MODES}")
         if loss not in LOSS_PAIRS:
             raise ValueError(f"unknown loss {loss!r}; want one of {sorted(LOSS_PAIRS)}")
         if update_order not in UPDATE_ORDERS:
@@ -163,6 +168,7 @@ class GANTrainer:
         self.aw_method = aw_method
         self.aw_params = (aw_alpha1, aw_alpha2, aw_delta, aw_epsilon)
         self.update_order = update_order
+        self.remat = remat
         self.g = g_model.to(self.device).train()
         self.d = d_model.to(self.device).train()
         self.g_opt, self.g_lr = make_optimizer(
@@ -203,15 +209,17 @@ class GANTrainer:
         return args, kwargs
 
     def _d(self, x: torch.Tensor, labels: Optional[torch.Tensor]) -> torch.Tensor:
+        """A differentiated training forward of D, rematerialised per
+        ``remat``."""
         args, kwargs = self._d_args(x, labels)
-        return self.d(*args, **kwargs)
+        return remat_mod.checkpointed(self.remat, self.d, *args, **kwargs)
 
     def g_loss_and_grads(self, z: torch.Tensor, labels: Optional[torch.Tensor] = None):
         """The G phase's loss and the generator's gradients (one tensor per
         parameter, in ``g_model.parameters()`` order). Advances G's running
         statistics and D's ``u`` and statistics, as the phase does."""
         params = list(self.g.parameters())
-        fake = self.g(*self._g_args(z, labels))
+        fake = remat_mod.checkpointed(self.remat, self.g, *self._g_args(z, labels))
         loss = self.gen_loss(self._d(fake, labels))
         return loss.detach(), torch.autograd.grad(loss, params)
 
@@ -252,11 +260,13 @@ class GANTrainer:
         return loss.detach(), torch.autograd.grad(loss, params)
 
     def _d_from(self, buffers, x: torch.Tensor, labels: Optional[torch.Tensor]) -> torch.Tensor:
-        """A training forward of D with its buffers (``u``, BN statistics)
-        taken from ``buffers``, whose tensors receive the forward's updates
-        in place of D's own."""
+        """A differentiated training forward of D with its buffers (``u``,
+        BN statistics) taken from ``buffers``, whose tensors receive the
+        forward's updates in place of D's own; rematerialised per
+        ``remat``."""
         args, kwargs = self._d_args(x, labels)
-        return torch.func.functional_call(self.d, buffers, args, kwargs)
+        return remat_mod.checkpointed(self.remat, torch.func.functional_call, self.d, buffers,
+                                      args, kwargs)
 
     @staticmethod
     def _apply(model: nn.Module, opt, schedule: LinearDecay, grads) -> None:

@@ -233,6 +233,19 @@ def _loss_rows(run):
         return [tuple(r.values()) for r in csv.DictReader(f)]
 
 
+def test_train_with_remat_logs_the_losses_of_the_run_without(tmp_path):
+    """``--set train.remat=dots`` trains (the tiny FFC pair, 3 steps) and
+    logs the same losses as the run without remat: the recompute changes
+    nothing the step computes."""
+    runs = {}
+    for remat in ("none", "dots"):
+        runs[remat] = str(tmp_path / remat)
+        _run(["train", *TINY, "-e", "3", "--set", f"train.remat={remat}", "-o", runs[remat]])
+    rows = _loss_rows(runs["dots"])
+    assert len(rows) == 3 and rows == _loss_rows(runs["none"])
+    assert os.path.exists(os.path.join(runs["dots"], "checkpoints", "ckpt_3_steps.pt"))
+
+
 def test_resume_sample_and_chunks_continue_the_run(tmp_path, capsys):
     run = str(tmp_path / "run")
     _run(["train", "-e", "9", *TINY, "-o", run])
@@ -285,7 +298,6 @@ REFUSED = [
     (["train", *TINY, "--set", "log.best_metric_checkpoints=true"], NotImplementedError,
      "queue 1 item 8"),
     (["train", *TINY, "--set", "train.tp=2"], NotImplementedError, "queue 1 item 10"),
-    (["train", *TINY, "--set", "train.remat=dots"], NotImplementedError, "queue 1 item 5"),
     (["train", *TINY, "--set", "train.steps_per_call=4"], ValueError, "must divide"),
     (["export", *TINY], NotImplementedError, "queue 1 item 9"),
     (["fidelity", "a", "b"], NotImplementedError, "queue 1 items 8 and 9"),

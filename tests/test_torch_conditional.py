@@ -202,9 +202,16 @@ def test_cond_dcgan_generator_matches_jax(train):
     check_generator(jmodel, port, train)
 
 
-def test_ffc_cond_dcgan_discriminator_refuses_spectral_norm():
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tcond.FFCCondDCGANDiscriminator(ndf=32, use_sn=True)
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_ffc_cond_dcgan_discriminator_with_spectral_norm_matches_jax(train):
+    """``use_sn``: the FFC blocks' and the head's conv branches
+    spectral-normed without bias, ndf 32 (32px images): outputs, the input
+    gradient and every ``u`` after the forward (advanced in training)."""
+    jmodel = jcond.FFCCondDCGANDiscriminator(nc=1, ndf=32, num_classes=CLASSES, use_sn=True,
+                                             impl="dft")
+    port = tcond.FFCCondDCGANDiscriminator(nc=1, ndf=32, num_classes=CLASSES, use_sn=True)
+    assert sum(n.endswith(".u") for n in port.state_dict()) == 7  # 2 + 3 branches, head 2
+    check_discriminator(jmodel, port, 32, 1, train)
 
 
 def test_models_refuse_missing_labels_and_packed_conditional_bn():

@@ -1212,3 +1212,58 @@ def test_the_cli_trains_and_samples_a_narrow_pair_on_the_card(cuda, tmp_path):
         rows = list(csv.DictReader(f))
     assert [int(r["step"]) for r in rows] == [1, 3, 5, 7, 9, 11]
     assert all(math.isfinite(float(r[k])) for r in rows for k in ("loss_G", "loss_D"))
+
+
+# --- remat and the local Fourier unit's maps ----------------------------------------
+
+
+@pytest.mark.parametrize("remat", ["dots", "full"])
+@pytest.mark.parametrize("pair", ["narrow", "sngan-gp"])
+def test_remat_update_steps_replays_the_eager_step(deterministic, pair, remat):
+    """f32 under deterministic algorithms, from one state, both with
+    ``remat``: update_steps over 4 batches (the recompute inside the
+    captured backward; for wgan-gp, D's region recomputed twice by the
+    penalty's double backward through the FourierUnit kernels) against 4
+    eager update_step calls, after one warm-up step: the same losses and
+    the same bits in every tensor the step changes."""
+    make = ((lambda: _narrow_trainer(deterministic, remat=remat)) if pair == "narrow" else
+            (lambda: _pair_trainer(deterministic, pair, remat=remat)))
+    reals = _reals(4).to(deterministic)
+    # a process's first step of a configuration can differ from later ones
+    # in its last bits (PERF.md §7): one step of a third trainer first
+    make().update_step(reals[0])
+    graph, eager = make(), make()
+    out = graph.update_steps(reals)
+    ref = [eager.update_step(r) for r in reals]
+    torch.cuda.synchronize()
+    for key in ("loss_g", "loss_d"):
+        assert torch.equal(out[key], torch.stack([r[key] for r in ref])), key
+    _assert_same_bits(_trainer_state(graph), _trainer_state(eager))
+
+
+# The local Fourier units' maps at batch 8: the 32px generator's two, then
+# the 128px generator's four; each is its FourierUnit's map at half the
+# size with the same channels.
+LFU_MAPS = [(8, 16, 8, 8), (8, 8, 16, 16), (8, 64, 8, 8), (8, 32, 16, 16), (8, 32, 32, 32),
+            (8, 32, 64, 64)]
+
+
+@pytest.mark.parametrize("shape", LFU_MAPS)
+def test_lfu_map_kernels_match_plain(cuda, shape):
+    """The forward, the statistics, the backward sums and the backward apply
+    at each LFU map, through whichever design ``kernel_design`` picks there,
+    against their plain versions in f64 on the same f32 inputs: rel-max
+    1e-4 (the backward with ``relu_margin_bias``)."""
+    args = _inputs(shape, torch.float32, cuda)
+    cases = [(fourier_unit_forward, fourier_unit_forward_plain, args)]
+    cases += [_train_case(name, shape, torch.float32, cuda)[:3]
+              for name in ("fu_train_stats", "fu_bwd_stats", "fu_bwd_apply")]
+    for wrapper, plain, call_args in cases:
+        outs = wrapper(*call_args)
+        refs = plain(*(a.double() for a in call_args))
+        outs, refs = (outs, refs) if isinstance(outs, tuple) else ((outs,), (refs,))
+        torch.cuda.synchronize()
+        for out, ref in zip(outs, refs):
+            assert out.shape == ref.shape and torch.isfinite(out).all()
+            rel = ((out.double() - ref).abs().max() / ref.abs().max()).item()
+            assert rel <= 1e-4, (wrapper.__name__, rel)

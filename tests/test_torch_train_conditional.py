@@ -17,7 +17,11 @@ its pairs:
   ``CondDCGANDiscriminator`` with input noise at ngf = ndf 16 on one
   channel, bce, Adam, D first, ``d_progress_arg``: the noise's N(0, 1)
   draw is patched to one array on both sides, so the progress (step /
-  total_steps) sets the only difference between the steps' noise.
+  total_steps) sets the only difference between the steps' noise;
+- the same generator at ngf 32 (32px) against the all-FFC cDCGAN
+  discriminator with spectral norm (``FFCCondDCGANDiscriminator(ndf=32,
+  use_sn=True)``, a FourierUnit on (4, 64, 4, 4)), with the
+  ``train_cond`` settings.
 
 NoiseInjection is neutralised on both sides and FFCCondDiscriminator's
 input noise runs at stddev 0. Bars as in
@@ -102,6 +106,14 @@ def _pairs(name):
                 tcond.FFCCondGenerator(**G16),
                 tcond.FFCCondDiscriminator(num_classes=CLASSES, noise_stddev=0.0, resolution=16),
                 16, 3, dict(), r"g\.(label|input)_conv\.bias|d\.block[0-3]\.ffc\.conv(l2l|l2g|g2l)\.bias")
+    if name == "ffc-dcgan-sn":
+        dcgan = dict(nz=Z, nc=1, ngf=32, num_classes=CLASSES)
+        d_kw = dict(nc=1, ndf=32, num_classes=CLASSES, use_sn=True)
+        return (jcond.CondDCGANGenerator(**dcgan),
+                jcond.FFCCondDCGANDiscriminator(**d_kw, impl="dft"),
+                tcond.CondDCGANGenerator(**dcgan), tcond.FFCCondDCGANDiscriminator(**d_kw),
+                32, 1, dict(loss="bce", optimizer="adam", update_order="d_first"),
+                r"g\.(label|input)_conv\.bias")
     dcgan = dict(nz=Z, nc=1, ngf=16, num_classes=CLASSES)
     d_kw = dict(nc=1, ndf=16, num_classes=CLASSES, use_noise=True)
     return (jcond.CondDCGANGenerator(**dcgan), jcond.CondDCGANDiscriminator(**d_kw),
@@ -165,7 +177,7 @@ def _port_trainer(name, run, monkeypatch):
                       num_classes=CLASSES, device="cpu", dtype="f32", **options)
 
 
-@pytest.mark.parametrize("name", ["cond32", "ffc-d", "train-cond"])
+@pytest.mark.parametrize("name", ["cond32", "ffc-d", "train-cond", "ffc-dcgan-sn"])
 def test_conditional_pair_in_lockstep_with_jax(name, narrow_ladder, monkeypatch):
     """Two steps: the losses, then every parameter, running statistic and
     ``u`` of both models after each step."""

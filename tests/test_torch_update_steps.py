@@ -1,5 +1,5 @@
-"""``GANTrainer.update_steps`` on the CPU, the learning-rate schedules and
-the trainer's refusals (CPU, f32; no JAX). wgan-gp with a discriminator
+"""``GANTrainer.update_steps`` on the CPU (with ``remat`` too), the
+learning-rate schedules and the trainer's refusals (CPU, f32; no JAX). wgan-gp with a discriminator
 that holds a FourierUnit, which the trainer once refused, is held to the
 JAX trainer by ``tests/test_torch_fourier_unit_grad.py``.
 
@@ -86,19 +86,29 @@ def test_learning_rates_decay_linearly_and_d_runs_num_dis_updates_times_longer()
     (dict(aw_method=True, fused_dis_batch=True), "separate real and fake"),
     (dict(aw_method=True, loss="wgan-gp"), "aw-method takes"),
     (dict(aw_method=True, aw_alpha1=0.8), "aw_alpha1"),
+    (dict(remat="offload"), "unknown remat"),
 ])
 def test_trainer_rejects_invalid_options(options, match):
     with pytest.raises(ValueError, match=match):
         _trainer(**options)
 
 
-@pytest.mark.parametrize("options,match", [
-    (dict(remat="dots"), "remat"),
-    (dict(remat="full"), "remat"),
-])
-def test_trainer_refuses_what_is_not_ported(options, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _trainer(**options)
+@pytest.mark.parametrize("remat", ["dots", "full"])
+def test_update_steps_with_remat_is_the_step_without_it(remat):
+    """From copies of one trainer, ``update_steps`` with ``remat`` and
+    without it: the same losses and state, bit for bit (the side effects
+    are checked pair by pair in ``tests/test_torch_remat.py``)."""
+    trainer = _trainer()
+    trainer.update_step(_reals(1)[0])
+    twin = copy.deepcopy(trainer)
+    twin.remat = remat
+    reals = _reals()
+    out, ref = twin.update_steps(reals), trainer.update_steps(reals)
+    for key in ref:
+        assert torch.equal(out[key], ref[key]), key
+    assert all(torch.equal(a, b) for a, b in zip(_state(twin), _state(trainer)))
+    for gen in ("z_generator", "noise_generator"):
+        assert torch.equal(getattr(trainer, gen).get_state(), getattr(twin, gen).get_state())
 
 
 def test_step_inputs_are_checked():
