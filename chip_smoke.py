@@ -134,7 +134,8 @@ Phases, each of which raises on a failed check:
     and a 4x4 head; mg 8 puts the generator's attention on its 64x64 map);
 21. the training CLI, ``python -m fastfourierconvolution_tpu_torch.cli``,
     in child processes at full width, batch 64, bf16, on the shapes
-    dataset, in-loop metrics off, K = 16 steps per ``update_steps`` call
+    dataset, in-loop metrics off (phase 28 has them), K = 16 steps per
+    ``update_steps`` call
     (``CLI_COMMON``), each child's kernel launches counted and held to the
     eager step and capture of its first call plus its sample grids:
     ``fgan32`` trained 96 steps with checkpoints (every file and logged
@@ -169,8 +170,30 @@ Phases, each of which raises on a failed check:
     per step under remat) and peak memory, the captured step's memory
     pool, the replayed step's wall and device ms; 4 replayed f32 steps with
     remat against 4 without, the same bits expected;
-26. a check that every kernel was launched on the main path (phases 4, 6,
-    10, 13, 14, 15, the CLI runs and phases 24-25), a
+26. a process's first run of a configuration against its second, in
+    fresh child processes (``first_run_child``): sagan's replayed f32 step
+    and replayed wgan-gp on the sngan pair under remat "dots", each run a
+    new trainer from the same seeds under deterministic algorithms, every
+    aten op's output bits recorded by a ``TorchDispatchMode``; the first op
+    where the order of the ops or their bits part is printed with its call
+    site and autograd node; the port's runs must give the same bits, and
+    sagan with the backward on autograd's device thread (as the trainer
+    ran it before it moved to the calling thread) is printed beside them; eager bf16 steps of the 32px and sngan
+    pairs with the backward on the calling thread against autograd's
+    device thread, in alternating windows;
+27. the InceptionV3 extractor with a seeded torch-fidelity-layout state
+    dict on the card against the same module on the CPU (f32, TF32 off),
+    every tap on 64 images, its ms per image at batch 64 and 128; then
+    ``calculate_metrics`` ISC, FID and KID, weights-free and with the
+    seeded weights file, on the card against the CPU;
+28. ``fgan32`` through the CLI with its preset's metrics (ISC and FID, then
+    with KID), weights-free, on its 10,000 samples, two epochs of one
+    chunk, with best-metric checkpoints: the metrics logged, one checkpoint
+    in ``best/``, no failed eval, exact launches (the eval's 157 generate
+    requests an epoch); eval seconds, generate ms per request and
+    extraction ms per image, and the eval's share of a 5,000-step epoch;
+29. a check that every kernel was launched on the main path (phases 4, 6,
+    10, 13, 14, 15, the CLI runs, phases 24-25 and 28), a
     ``{"wrapper_calls": [...]}`` JSON line (the staged wrapper and training-op calls, all their stages
     together), a ``{"kernels": [...]}`` JSON line, then the
     ``{"ok": true, ...}`` line.
@@ -2055,8 +2078,20 @@ def step_flops(fn):
 
     with Count():
         fn()
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return Count.total
+
+
+def extractor_gflop(module, images):
+    """GFLOP an image of ``module`` (an InceptionV3) on uint8 ``images``: its
+    products and convolutions (``step_flops``), the TF1 resize's included."""
+    import torch
+
+    # under no_grad, not inference mode: there the composite convolution and
+    # product ops reach the dispatch mode undecomposed, outside flop_counter's table
+    with torch.no_grad():
+        return step_flops(lambda: module(images)) / len(images) / 1e9
 
 
 def comparator(device, card, path):
@@ -2116,15 +2151,15 @@ def comparator(device, card, path):
     graph_parity(device, path, {ZOO_CONFIGS[path][0] or path: {}})
 
 
-# Phases 21-23: the training CLI through its entry point, at full width,
-# batch 64 (the presets'), bf16, on the shapes dataset (no download), with
-# the in-loop metrics off (not ported yet), K = 16 steps per update_steps
-# call and a loss read every chunk.
+# Phases 21-23 and 28: the training CLI through its entry point, at full
+# width, batch 64 (the presets'), bf16, on the shapes dataset (no download),
+# K = 16 steps per update_steps call and a loss read every chunk; the
+# in-loop metrics off in phases 21-23 (``CLI_METRICS_OFF``), on in phase 28.
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CLI_K = 16
 CLI_COMMON = ("--set", "train.precision=bf16", "--set", "data.dataset=shapes",
-              "--set", "eval.isc=false", "--set", "eval.fid=false",
               "--set", f"train.steps_per_call={CLI_K}", "--set", f"log.log_every={CLI_K}")
+CLI_METRICS_OFF = ("--set", "eval.isc=false", "--set", "eval.fid=false")
 # A CLI command in a child process: the module run as ``python -m`` runs it
 # (runpy), then every kernel wrapper's launches over the run, by map, written
 # to the JSON file named by the first argument.
@@ -2142,14 +2177,17 @@ CLI_CHILD = (
 )
 
 
-def cli_run(name, args, out_dir, timeout=300):
-    """One CLI command (``args`` and ``CLI_COMMON``, logs in ``out_dir``) in a
-    child process: (its stdout, its launches by kernel and map). A non-zero
-    exit fails the phase."""
+def cli_run(name, args, out_dir, timeout=300, metrics=False, env=None):
+    """One CLI command (``args``, ``CLI_COMMON`` and, unless ``metrics``,
+    ``CLI_METRICS_OFF``; logs in ``out_dir``) in a child process with the
+    environment ``env`` (None: this one's): (its stdout, its launches by
+    kernel and map). A non-zero exit fails the phase."""
     counts_path = f"{out_dir}.{name}.launches.json"
-    cmd = [sys.executable, "-c", CLI_CHILD, counts_path, *args, *CLI_COMMON, "-o", out_dir]
+    cmd = [sys.executable, "-c", CLI_CHILD, counts_path, *args, *CLI_COMMON,
+           *(() if metrics else CLI_METRICS_OFF), "-o", out_dir]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+                          env=env)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         log(f"cli {name}: stdout\n{proc.stdout[-3000:]}\nstderr\n{proc.stderr[-3000:]}")
@@ -2913,6 +2951,462 @@ def remat_runs(device, card):
     return counts_by_run
 
 
+# --- phases 27-28: the metric pipeline and the CLI's in-loop eval -----------------------
+
+# The extractor and the pipeline on the card against the same module on the
+# CPU, both f32 with TF32 off (``eval.pipeline``): every tap within
+# EVAL_TAP_TOL of its largest value (rel-max), every metric within
+# EVAL_METRIC_TOL of the CPU's relative to it (a standard deviation over
+# splits or subsets relative to its mean), on EVAL_IMAGES images a set.
+EVAL_TAP_TOL = 1e-3
+EVAL_METRIC_TOL = 1e-3
+EVAL_IMAGES = 64
+# The fgan32 preset's eval (utils/config.py): 10,000 samples, batches of
+# min(64, 128), so this many generate requests an epoch; its 5,000-step
+# epochs, of which the eval epoch's share is printed.
+EVAL_SAMPLES = 10_000
+EVAL_REQUESTS = -(-EVAL_SAMPLES // BATCH)
+PRESET_EPOCH_STEPS = 5000
+EVAL_KEYS = {"isc": ("inception_score_mean", "inception_score_std"),
+             "fid": ("frechet_inception_distance",),
+             "kid": ("kernel_inception_distance_mean", "kernel_inception_distance_std")}
+
+
+def seeded_inception_state(seed=SEED):
+    """A torch-fidelity-layout InceptionV3 state dict: He-normal convolutions
+    (std sqrt(2 / fan_in), so that the deep taps keep images apart), BN
+    statistics and affine terms near identity, fc 1 / sqrt(2048)."""
+    import numpy as np
+    import torch
+
+    from fastfourierconvolution_tpu_torch.eval.inception import FEATURE_NAMES, InceptionV3
+
+    rng = np.random.default_rng(seed)
+    state = {}
+    for name, t in InceptionV3(FEATURE_NAMES).state_dict().items():
+        shape = tuple(t.shape)
+        if name.endswith("conv.weight"):
+            v = rng.normal(0, np.sqrt(2.0 / np.prod(shape[1:])), shape)
+        elif name.endswith(("bn.weight", "running_var")):
+            v = rng.uniform(0.8, 1.2, shape)
+        elif name.endswith(("bn.bias", "running_mean")):
+            v = rng.normal(0, 0.1, shape)
+        elif name == "fc.weight":
+            v = rng.normal(0, 1 / np.sqrt(2048), shape)
+        else:
+            v = rng.normal(0, 0.1, shape)
+        state[name] = torch.from_numpy(v.astype(np.float32))
+    return state
+
+
+def eval_sets(seed, n=EVAL_IMAGES):
+    """Two seeded uint8 (n, 32, 32, 3) sets: shapes images and noise."""
+    from fastfourierconvolution_tpu_torch.data.datasets import ShapesDataset, SyntheticDataset
+
+    return (ShapesDataset(n=n, size=32, seed=seed).images,
+            SyntheticDataset(n=n, size=32, seed=seed + 1).images)
+
+
+def check_extractor(device, card, tmp):
+    """Phase 27: the InceptionV3 with a seeded torch-fidelity-layout state
+    dict on the card against the same module on the CPU, every tap on 64
+    uint8 images; its ms per image at batch 64 and 128 (deep taps, the cost
+    of a user with real weights); then ``calculate_metrics`` ISC, FID and
+    KID, weights-free and with the seeded weights file, on the card against
+    the CPU on the same two sets."""
+    import numpy as np
+    import torch
+
+    from fastfourierconvolution_tpu_torch.eval import inception as ti
+    from fastfourierconvolution_tpu_torch.eval import pipeline as P
+
+    if ti.weights_available():
+        raise AssertionError(f"an InceptionV3 file is in reach ({ti.find_local_weights()}): "
+                             f"the weights-free readings would not be weights-free")
+    state = seeded_inception_state()
+    path = os.path.join(tmp, "inception_seeded.pth")
+    torch.save(state, path)
+    cpu = ti.load_torch_weights(ti.InceptionV3(ti.FEATURE_NAMES), state).eval()
+    card_net = ti.create_extractor(ti.FEATURE_NAMES, weights_path=path, device=device)
+    shapes, noise = eval_sets(SEED + 70)
+    x = torch.from_numpy(shapes)
+    with torch.inference_mode(), P._full_f32():
+        ref = cpu(x)
+        out = card_net(x.to(device))
+        torch.cuda.synchronize()
+        gaps = {k: rel_max(out[k].cpu(), ref[k])[0] for k in ti.FEATURE_NAMES}
+        f = ref["2048"]
+        apart = ((f[:, None] - f[None]).abs().amax(-1).sum() / (len(f) * (len(f) - 1))
+                 / f.abs().max()).item()
+        xs = torch.from_numpy(np.concatenate([shapes, noise])).to(device)
+        per_image = {b: time_ms(lambda b=b: card_net(xs[:b])) / b for b in (64, 128)}
+    by_tap = {k: f"{v:.2e}" for k, v in gaps.items()}
+    log(f"InceptionV3, seeded torch-fidelity weights, f32 (TF32 off), {EVAL_IMAGES} uint8 "
+        f"32x32 images: card against CPU rel-max by tap {by_tap} (tol {EVAL_TAP_TOL:g}); '2048' features of two images differ by {apart:.3f} of the "
+        f"largest on average; {card}")
+    gflop = extractor_gflop(card_net, xs[:8])
+    rate = {b: gflop / per_image[b] for b in per_image}  # GFLOP/ms is TFLOP/s
+    log(f"InceptionV3 extraction, all six taps (the full net, deep taps), f32 (TF32 off): "
+        f"{per_image[64]:.4f} ms per image at batch 64, {per_image[128]:.4f} at batch 128 "
+        f"(CUDA events); {gflop:.3f} GFLOP an image (flop_counter): {rate[64]:.1f} and "
+        f"{rate[128]:.1f} TFLOP/s, {rate[64] * 1e12 / PEAK_FLOP_PER_S['float32']:.3f} and "
+        f"{rate[128] * 1e12 / PEAK_FLOP_PER_S['float32']:.3f} of the f32 peak; {card}")
+    if max(gaps.values()) > EVAL_TAP_TOL or not apart > 100 * EVAL_TAP_TOL:
+        raise AssertionError(f"extractor on the card: taps {gaps}, images apart {apart}")
+
+    kw = dict(isc=True, fid=True, kid=True, isc_splits=4, kid_subsets=20, kid_subset_size=32,
+              batch_size=EVAL_IMAGES, cache=False)
+    for label, weights in (("weights-free", None), ("seeded weights", path)):
+        t0 = time.perf_counter()
+        on_card = P.calculate_metrics(shapes, noise, feature_extractor_weights_path=weights,
+                                      device=device, **kw)
+        card_s = time.perf_counter() - t0
+        on_cpu = P.calculate_metrics(shapes, noise, feature_extractor_weights_path=weights,
+                                     device="cpu", **kw)
+        # a spread over splits or subsets is held relative to its mean
+        scale = {k: abs(on_cpu[k.replace("_std", "_mean")]) for k in on_cpu}
+        gaps = {k: abs(on_card[k] - v) / max(scale[k], 1e-12) for k, v in on_cpu.items()}
+        log(f"calculate_metrics {label}, ISC FID KID on {EVAL_IMAGES} + {EVAL_IMAGES} images: "
+            f"card {({k: f'{v:.6g}' for k, v in on_card.items()})} ({card_s:.2f} s, extractor "
+            f"built in it), relative gaps to the CPU {({k: f'{v:.1e}' for k, v in gaps.items()})} "
+            f"(tol {EVAL_METRIC_TOL:g}); {card}")
+        if sorted(on_card) != sorted(on_cpu) or max(gaps.values()) > EVAL_METRIC_TOL:
+            raise AssertionError(f"calculate_metrics {label}: card {on_card}, CPU {on_cpu}")
+    del cpu, card_net
+    P._EXTRACTOR_CACHE.clear()
+    torch.cuda.empty_cache()
+
+
+def eval_component_ms(device):
+    """The eval epoch's two parts in process, as the CLI runs them for
+    fgan32: ms per ``generate(z, uint8=True)`` request at batch 64 in bf16,
+    and the weights-free extractor's ms per image at batch 64 (the '192' and
+    'logits_unbiased' taps) with its GFLOP an image."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.eval import pipeline as P
+
+    trainer = cli_trainer(device, "fgan32", "bf16")
+    z = torch.randn(BATCH, trainer.z_size, device=device,
+                    generator=torch.Generator(device).manual_seed(SEED + 80))
+    gen_ms = time_ms(lambda: trainer.generate(z, uint8=True))
+    images = trainer.generate(z, uint8=True)
+    extractor = P.get_feature_extractor("inception-v3-compat", ("192", "logits_unbiased"),
+                                        batch_size=BATCH, device=device)
+    with torch.inference_mode(), P._full_f32():
+        extract_ms = time_ms(lambda: extractor.module(images)) / BATCH
+    gflop = extractor_gflop(extractor.module, images[:8])
+    del trainer
+    P._EXTRACTOR_CACHE.clear()
+    return gen_ms, extract_ms, gflop
+
+
+def cli_metrics(device, card, tmp, graph_ms_32):
+    """Phase 28: ``fgan32`` through the CLI with its preset's metrics on (ISC
+    and FID, then with KID added), weights-free, the preset's 10,000 samples,
+    two epochs of one ``update_steps`` chunk, ``log.checkpoint`` and
+    ``log.best_metric_checkpoints``. Fails on ``WARNING: metrics failed``, a
+    missing ``metrics/*`` key or ``eval_seconds``, a ``best/`` without
+    exactly one checkpoint, or launches other than the steps', the grids'
+    and ``EVAL_REQUESTS`` eval-mode forwards per map an epoch. Prints the
+    eval epochs' seconds, generate ms per request and extraction ms per
+    image (in process) and the eval epoch's share of a 5,000-step epoch at
+    phase 6's replayed step. Returns the runs' launches."""
+    env = dict(os.environ, FFC_TPU_HOME=os.path.join(tmp, "ffc_home"))
+    env.pop("FFC_TPU_INCEPTION_WEIGHTS", None)
+    args = ["train", "--preset", "fgan32", "--set", f"train.num_epoch_steps={CLI_K}",
+            "--set", "log.checkpoint=true", "--set", "log.best_metric_checkpoints=true",
+            "-e", str(2 * CLI_K)]
+    counts_by_run, seconds = {}, {}
+    for name, extra in (("isc-fid", []), ("isc-fid-kid", ["--set", "eval.kid=true"])):
+        out = os.path.join(tmp, f"metrics-{name}")
+        stdout, counts = cli_run(f"fgan32-{name}", args + extra, out, timeout=900,
+                                 metrics=True, env=env)
+        if "WARNING: metrics failed" in stdout:
+            raise AssertionError(f"cli fgan32 {name}: {stdout[-3000:]}")
+        with open(os.path.join(out, "scalars.jsonl")) as f:
+            evals = [r for r in map(json.loads, f) if "eval_seconds" in r]
+        want = {f"metrics/{k}" for m in name.split("-") for k in EVAL_KEYS[m]}
+        missing = [sorted(want - set(r)) for r in evals]
+        best = os.listdir(os.path.join(out, "checkpoints", "best"))
+        launches = cli_train_launches(32, FU_SHAPES, grids=2 + 2 * EVAL_REQUESTS)
+        if [r["step"] for r in evals] != [CLI_K, 2 * CLI_K] or any(missing) or len(best) != 1:
+            raise AssertionError(f"cli fgan32 {name}: evals at {[r['step'] for r in evals]}, "
+                                 f"missing {missing}, best/ {best}")
+        if counts != launches:
+            raise AssertionError(f"cli fgan32 {name} launches {counts}, want {launches}")
+        seconds[name] = [r["eval_seconds"] for r in evals]
+        counts_by_run[f"eval-fgan32-{name}"] = counts
+        log(f"cli fgan32 {name}: 2 eval epochs of {EVAL_SAMPLES} samples, "
+            f"{({k: f'{v:.5g}' for k, v in evals[-1].items() if k.startswith('metrics/')})}, "
+            f"eval_seconds {[round(v, 3) for v in seconds[name]]}, best/ {best}; "
+            f"fourier_unit_fwd launches per 32px map {EVAL_REQUESTS} an eval epoch (2 grids "
+            f"and the eager step and capture's beside them): "
+            f"{({m: n for m, n in counts['fourier_unit_fwd'].items()})}; {card}")
+    gen_ms, extract_ms, gflop = eval_component_ms(device)
+    steady = seconds["isc-fid"][1]
+    epoch_s = PRESET_EPOCH_STEPS * graph_ms_32 / 1e3
+    log(f"fgan32 eval epoch (ISC and FID, weights-free, {EVAL_SAMPLES} samples): "
+        f"{seconds['isc-fid'][0]:.3f} s with the real set's {EVAL_SAMPLES} (shapes: 8192) "
+        f"extracted, {steady:.3f} s from its cache (with KID: {seconds['isc-fid-kid'][1]:.3f} s); "
+        f"generate {gen_ms:.3f} ms per request of {BATCH} (bf16, CUDA events, in process), "
+        f"extraction {extract_ms:.4f} ms per image (weights-free taps, batch {BATCH}; "
+        f"{gflop:.3f} GFLOP an image, {gflop / extract_ms:.1f} TFLOP/s, "
+        f"{gflop / extract_ms * 1e12 / PEAK_FLOP_PER_S['float32']:.3f} of the f32 peak); "
+        f"{EVAL_REQUESTS} requests and {EVAL_SAMPLES} images make "
+        f"{(EVAL_REQUESTS * gen_ms + EVAL_SAMPLES * extract_ms) / 1e3:.3f} s; share of a "
+        f"{PRESET_EPOCH_STEPS}-step epoch at phase 6's replayed {graph_ms_32:.3f} ms a step "
+        f"({epoch_s:.2f} s): {steady / (steady + epoch_s):.4f}; {card}")
+    return counts_by_run
+
+
+# --- phase 0: a process's first run of a configuration ---------------------------------
+
+# The configurations whose first run in a process differed in its last bits
+# from later runs: sagan's replayed step and replayed wgan-gp on the sngan
+# pair under remat "dots": (path, trainer keywords).
+FIRST_RUN_CONFIGS = {"sagan": ("sagan", {}), "sngan-gp-dots": ("sngan-gp", {"remat": "dots"})}
+FIRST_RUN_RUNS = 2
+# (configuration, variant): "port", the trainer as it runs; "multithreaded",
+# its backward on autograd's device thread, as the trainer ran it before
+# ``GANTrainer._step`` moved it to the calling thread: the fault, shown again
+# beside its repair.
+FIRST_RUN_CASES = (("sagan", "multithreaded"), ("sagan", "port"), ("sngan-gp-dots", "port"))
+FIRST_RUN_CHILD = ("import sys, chip_smoke\n"
+                   "sys.exit(chip_smoke.first_run_child(sys.argv[1], sys.argv[2]))\n")
+PORT_DIR = os.sep + "fastfourierconvolution_tpu_torch" + os.sep
+
+
+def bits_digest(t):
+    """Two int64 numbers from the bits of ``t`` on its device: the sums of
+    its words and of their squares (wrapping)."""
+    import torch
+
+    words = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+    w = t.detach().contiguous().view(-1).view(words).to(torch.int64)
+    return torch.stack([w.sum(), (w * w).sum()])
+
+
+def op_recorder():
+    """A TorchDispatchMode that records every aten op with a CUDA output (for
+    an in-place op that returns nothing, its first argument): its name, the
+    outputs' shapes and dtype, the innermost frame of the port on the
+    Python stack, the autograd node running it with the node's sequence
+    number, whether a CUDA graph was capturing, and the outputs'
+    ``bits_digest`` on the device. An op run during a capture runs at each
+    replay: its digest is then the last replay's."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    current_node = getattr(torch._C, "_current_autograd_node", lambda: None)
+
+    class Recorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops, self.digests = [], []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            cuda = lambda tree: [t for t in tree_leaves(tree)
+                                 if isinstance(t, torch.Tensor) and t.is_cuda]
+            tensors = cuda(out) or (cuda(args[0]) if out is None and args else [])
+            if not tensors:
+                return out
+            frame = sys._getframe(1)
+            while frame is not None and (PORT_DIR not in frame.f_code.co_filename
+                                         or frame.f_code.co_name == "__torch_dispatch__"):
+                frame = frame.f_back
+            site = "" if frame is None else (
+                f"{os.path.relpath(frame.f_code.co_filename, ROOT)}:{frame.f_lineno} "
+                f"{frame.f_code.co_name}")
+            node = current_node()
+            self.ops.append((str(func), [tuple(t.shape) for t in tensors][:3],
+                             str(tensors[0].dtype), "" if node is None else node.name(),
+                             site, -1 if node is None else node._sequence_nr(),
+                             torch.cuda.is_current_stream_capturing()))
+            self.digests.append(torch.stack([bits_digest(t) for t in tensors]).sum(0))
+            return out
+
+    return Recorder()
+
+
+def op_line(run, k, tag="op"):
+    name, shapes, dtype, node, site, seq, capturing = run["ops"][k]
+    return (f"  {tag} {k}: {name} {shapes} {dtype} at {site or '?'} node {node or '-'}"
+            f"{'' if seq < 0 else f' (sequence number {seq})'}"
+            f"{' (capturing)' if capturing else ''}")
+
+
+def align_runs(a, b, window=8, reach=64):
+    """Walks two runs' ops in step (name, shapes, dtype, node). Where they
+    part, skips up to ``reach`` ops of one run (ops that run only once in a
+    process, such as a table built at first use) if the next ``window``
+    then agree; otherwise the order of the ops differs there. Returns
+    (the (i, j) pairs of aligned ops whose digests differ, the skipped ops
+    as (run, index, count), the (i, j) where the order differs or None)."""
+    import torch
+
+    sig = lambda run, k: run["ops"][k][:4]
+    sigs = lambda run, k: [run["ops"][m][:4] for m in range(k, min(k + window,
+                                                                    len(run["ops"])))]
+    i = j = 0
+    differ, skipped = [], []
+    while i < len(a["ops"]) and j < len(b["ops"]):
+        if sig(a, i) == sig(b, j):
+            if not torch.equal(a["digests"][i], b["digests"][j]):
+                differ.append((i, j))
+            i, j = i + 1, j + 1
+            continue
+        for k in range(1, reach + 1):
+            if sigs(a, i + k) == sigs(b, j):
+                skipped.append(("a", i, k))
+                i += k
+                break
+            if sigs(b, j + k) == sigs(a, i):
+                skipped.append(("b", j, k))
+                j += k
+                break
+        else:
+            return differ, skipped, (i, j)
+    return differ, skipped, None
+
+
+def first_run_child(name, variant):
+    """Phase 0 in a fresh process: ``FIRST_RUN_RUNS`` runs of the
+    configuration ``name`` (``FIRST_RUN_CONFIGS``), each a new f32 trainer
+    from the same seeds (TF32 off, deterministic algorithms) taking
+    ``update_steps`` over ``PARITY_STEPS`` batches (an eager step, the
+    capture, replays) under ``op_recorder``; ``variant`` "multithreaded"
+    runs the backward on autograd's device thread. Prints, for each later
+    run against the first and against the one before it, the ops that
+    only one run has, the first op where the order of the ops differs, the
+    first op whose output bits differ (with the ops around them), and
+    whether the losses and the final state are the same bits. Returns 1
+    where the first run's losses or final state differ from the second's,
+    else 0."""
+    import torch
+
+    path, options = FIRST_RUN_CONFIGS[name]
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    reals = torch.stack([real_batch(device, SEED + 20 + i, RESOLUTION[path])
+                         for i in range(PARITY_STEPS)])
+    threads = (mock.patch.object(torch.autograd, "set_multithreading_enabled",
+                                 lambda mode: contextlib.nullcontext())
+               if variant == "multithreaded" else contextlib.nullcontext())
+    runs = []
+    with threads:
+        for _ in range(FIRST_RUN_RUNS):
+            trainer = make_trainer(device, "f32", path, **options)
+            recorder = op_recorder()
+            with recorder:
+                losses = trainer.update_steps(reals)
+            torch.cuda.synchronize()
+            runs.append({"ops": recorder.ops, "digests": torch.stack(recorder.digests).cpu(),
+                         "losses": {k: v.cpu() for k, v in losses.items()},
+                         "state": {k: v.detach().cpu().clone()
+                                   for k, v in trainer_state(trainer).items()}})
+            del trainer, recorder
+            gc.collect()
+            torch.cuda.empty_cache()
+    first_differs = False
+    pairs = [(0, k) for k in range(1, FIRST_RUN_RUNS)] + [
+        (k - 1, k) for k in range(2, FIRST_RUN_RUNS)]
+    for i, j in pairs:
+        a, b = runs[i], runs[j]
+        differ, skipped, order = align_runs(a, b)
+        same_losses = all(torch.equal(a["losses"][k], b["losses"][k]) for k in a["losses"])
+        state_differ = sorted(k for k in a["state"]
+                              if not torch.equal(a["state"][k], b["state"][k]))
+        head = f"first-run {name} ({variant}): run {i + 1} against run {j + 1}"
+        print(f"{head}: {len(a['ops'])} and {len(b['ops'])} recorded ops; "
+              f"{sum(k for _, _, k in skipped)} ops in one run only; the order of the ops "
+              f"{'is the same' if order is None else f'differs from op {order[0]} / {order[1]}'}"
+              f"; {len(differ)} aligned ops differ in their outputs' bits before that; "
+              f"losses the same bits {same_losses}; final state {len(a['state'])} tensors, "
+              f"{len(state_differ)} differ {state_differ[:4]}", flush=True)
+        for run, k, count in skipped[:4]:
+            r = a if run == "a" else b
+            print(f"  only in run {i + 1 if run == 'a' else j + 1}: {count} ops from "
+                  f"{op_line(r, k).strip()}", flush=True)
+        if order is not None:
+            for tag, run, k in (("run " + str(i + 1), a, order[0]),
+                                ("run " + str(j + 1), b, order[1])):
+                print(f"  order differs, {tag}:", flush=True)
+                for m in range(max(0, k - 3), min(len(run["ops"]), k + 3)):
+                    print(op_line(run, m, "HERE" if m == k else "op"), flush=True)
+        if differ:
+            k, m = differ[0]
+            print(f"  first aligned op whose bits differ: {op_line(a, k).strip()}; digests "
+                  f"{a['digests'][k].tolist()} / {b['digests'][m].tolist()}", flush=True)
+            for n in range(max(0, k - 2), k):
+                print(op_line(a, n), flush=True)
+        if (i, j) == (0, 1):
+            first_differs = not same_losses or bool(state_differ)
+    return int(first_differs)
+
+
+def backward_thread_cost(device, card, rounds=4, steps=16):
+    """Phase 26: what running the backward on the calling thread costs an
+    eager step: bf16 ``update_step`` wall ms per step (host clock, after a
+    synchronise) of the 32px pair and the sngan pair, as the port runs it
+    and with the backward on autograd's device thread (as the trainer ran
+    it before), in alternating windows of ``steps`` steps."""
+    import statistics
+
+    import torch
+
+    device_thread = lambda: mock.patch.object(torch.autograd, "set_multithreading_enabled",
+                                              lambda mode: contextlib.nullcontext())
+    for path in (32, "sngan"):
+        trainer = make_trainer(device, "bf16", path)
+        real = real_batch(device, SEED + 2, RESOLUTION[path])
+        for _ in range(3):
+            trainer.update_step(real)
+        ms = {"calling thread": [], "device thread": []}
+        for i in range(rounds):
+            for name in (("calling thread", "device thread") if i % 2 == 0
+                         else ("device thread", "calling thread")):
+                with device_thread() if name == "device thread" else contextlib.nullcontext():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(steps):
+                        trainer.update_step(real)
+                    torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) / steps * 1e3)
+        log(f"eager {path} step, bf16, batch {BATCH}, wall ms per step in {rounds} alternating "
+            f"windows of {steps} steps (host clock): backward on the calling thread "
+            f"{[round(v, 3) for v in ms['calling thread']]} (median "
+            f"{statistics.median(ms['calling thread']):.3f}), on autograd's device thread "
+            f"{[round(v, 3) for v in ms['device thread']]} (median "
+            f"{statistics.median(ms['device thread']):.3f}); {card}")
+        del trainer
+
+
+def first_run(card):
+    """Phase 26: ``first_run_child`` for each of ``FIRST_RUN_CASES`` in a
+    fresh child process, its lines printed. Raises where the port's first
+    run of a configuration differs from its second in the losses or the
+    final state; the "multithreaded" case is printed as information."""
+    for name, variant in FIRST_RUN_CASES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", FIRST_RUN_CHILD, name, variant],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            log(line)
+        if proc.returncode not in (0, 1):
+            log(proc.stderr[-3000:])
+            raise AssertionError(f"first-run {name} {variant}: the child exited "
+                                 f"{proc.returncode}")
+        differs = proc.returncode == 1
+        log(f"first-run {name} ({variant}): the process's first run differs from its second: "
+            f"{differs} ({time.perf_counter() - t0:.1f} s, a child process); {card}")
+        if differs and variant == "port":
+            raise AssertionError(f"first-run {name}: a process's first run differs from its "
+                                 f"second")
+
 
 def main() -> int:
     import torch
@@ -3038,14 +3532,22 @@ def main() -> int:
     calls += with_calls(calls_snd, counts_snd)
     phase("25: remat none / dots / full, fgan32 and fgan128")
     remat_counts = remat_runs(device, card)
-    phase("26: result")
+    phase("26: a process's first run of a configuration against its second (child processes)")
+    first_run(card)
+    backward_thread_cost(device, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        phase("27: the InceptionV3 extractor and calculate_metrics on the card against the CPU")
+        check_extractor(device, card, tmp)
+        phase("28: fgan32 through the CLI with its preset's metrics (ISC, FID; with KID)")
+        eval_counts = cli_metrics(device, card, tmp, graph_ms_32)
+    phase("29: result")
     check_main_path_launches({"serving-32px": {"fourier_unit_fwd": by_map},
                               "training-32px": counts_32, "training-128px": counts,
                               "training-sngan": counts_sngan, "training-cond32": counts_c32,
                               "serving-cond32": {"fourier_unit_fwd": by_map_c32},
                               "training-cond48": counts_c48, **cli_counts,
                               "lfu-blocks": counts_lfu, "training-cond-sn-d": counts_snd,
-                              **remat_counts})
+                              **remat_counts, **eval_counts})
     log(json.dumps({"wrapper_calls": calls}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -20,8 +20,10 @@ their plain PyTorch versions on the CPU.
 training CLI, ``python -m fastfourierconvolution_tpu_torch.cli
 train|sample`` (``cli.py``), runs a preset over ``data.load_dataset`` and
 ``data.DataLoader``, saves and resumes through ``train.checkpoint``
-(``save_checkpoint``, ``restore_latest``) and parses its arguments with
-``utils.config.parse_cli``. The package imports torch and numpy only
+(``save_checkpoint``, ``restore_latest``), parses its arguments with
+``utils.config.parse_cli`` and evaluates the presets' in-loop metrics
+with ``eval.calculate_metrics`` (ISC, FID, KID and PRC over the
+InceptionV3-compat extractor, torch-fidelity's surface). The package imports torch and numpy only
 (Pillow, scipy, scikit-learn, matplotlib and tensorboardX where a dataset,
 a plot or a log asks for them).
 """

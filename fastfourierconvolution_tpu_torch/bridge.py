@@ -47,6 +47,10 @@ the wrapped model's variables under it, so they load into
 
 Every JAX leaf must be consumed exactly once and every port parameter and
 buffer filled; anything else raises.
+
+``inception_variables_to_state_dict`` maps the JAX package's InceptionV3
+variables (``eval/inception.py``) to the port's ``eval.inception``
+names, torch-fidelity's.
 """
 
 from __future__ import annotations
@@ -220,4 +224,38 @@ def jax_to_state_dict(
     missing = sorted(set(expected) - set(state))
     if missing:
         raise KeyError(f"port entries the JAX variables do not fill: {missing}")
+    return state
+
+
+# The JAX InceptionV3's per-convolution leaves -> the port's (torch-fidelity's) names.
+_INCEPTION_LEAVES = {
+    "kernel": "conv.weight",
+    "bn_scale": "bn.weight",
+    "bn_bias": "bn.bias",
+    "bn_mean": "bn.running_mean",
+    "bn_var": "bn.running_var",
+}
+_INCEPTION_HEAD = {"fc_kernel": "fc.weight", "fc_bias": "fc.bias",
+                   "fc192_kernel": "fc192.weight", "fc192_bias": "fc192.bias"}
+
+
+def inception_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``eval.inception.InceptionV3`` entries for the JAX
+    package's InceptionV3 variables (``{"params": {...}}``, nested by module
+    name): HWIO kernels to OIHW, the fc and fc192 kernels transposed, the
+    frozen BN's scale, bias, mean and var to the BN's weight, bias,
+    running_mean and running_var. Only the modules the variables hold: a
+    JAX extractor initialised for shallow taps holds the stem alone."""
+    state: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(variables["params"]).items():
+        *modules, leaf = path
+        if not modules and leaf in _INCEPTION_HEAD:
+            name = _INCEPTION_HEAD[leaf]
+            value = value.T if leaf.endswith("kernel") else value
+        elif modules and leaf in _INCEPTION_LEAVES:
+            name = ".".join(modules) + "." + _INCEPTION_LEAVES[leaf]
+            value = value.transpose(3, 2, 0, 1) if leaf == "kernel" else value
+        else:
+            raise KeyError(f"JAX InceptionV3 leaf params/{'/'.join(path)} has no port entry")
+        state[name] = torch.from_numpy(np.array(value, order="C"))
     return state

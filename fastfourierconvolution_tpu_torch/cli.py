@@ -8,15 +8,22 @@
 chunk's copy overlapping the current one's steps) and normalises them
 there to the JAX CLI's f32 values (``unit_levels``), runs ``train.steps_per_call`` steps per ``GANTrainer.update_steps``
 call (on the card, replays of the step's captured CUDA graph), logs the
-losses every ``log.log_every`` steps, writes a fixed-latent sample grid
-and (past ``log.checkpoint_after_frac``) a checkpoint every
-``train.num_epoch_steps`` steps, and resumes from the newest checkpoint
-where the JAX CLI does, data order included. ``sample`` draws PNG
-grids from the newest checkpoint. Both run on ``cuda`` unless
-``--device cpu`` is given.
+losses every ``log.log_every`` steps, and every ``train.num_epoch_steps``
+steps evaluates the metrics the config switches on (``eval.isc``,
+``eval.fid``, ``eval.kid``: ``eval.calculate_metrics`` on
+``eval.num_samples_for_metrics`` samples of ``GANTrainer.generate``
+against the training set's registered real set, logged as
+``metrics/<key>`` with ``eval_seconds``; the best leading metric's
+checkpoint kept in ``checkpoints/best/`` with
+``log.best_metric_checkpoints``), writes a fixed-latent sample grid and
+(past ``log.checkpoint_after_frac``) a checkpoint, and resumes from the
+newest checkpoint where the JAX CLI does, data order included. A failed
+evaluation prints ``WARNING: metrics failed`` and training goes on.
+``sample`` draws PNG grids from the newest checkpoint. Both run on
+``cuda`` unless ``--device cpu`` is given.
 
-Not ported yet, and refused at start: in-loop metrics
-(``eval.isc/fid/kid/prc/ppl``, ``log.best_metric_checkpoints``),
+Not ported yet, and refused at start: ``eval.ppl`` and ``eval.prc``
+(PRC's default extractor is VGG16; ROADMAP queue 1 item 8b),
 ``train.tp`` above 1 and multi-process runs, and the
 ``export``, ``fidelity`` and ``download`` commands with ``sample``'s
 ``--torch_checkpoint`` and ``--exported``. ``log.compilation_cache`` is
@@ -26,8 +33,11 @@ reads it.
 
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
+import time
+import traceback
 from typing import Optional
 
 import numpy as np
@@ -35,11 +45,18 @@ import torch
 
 # environment variables of the JAX CLI's multi-process launch
 _DISTRIBUTED_ENV = ("FFC_TPU_COORDINATOR", "FFC_TPU_DISTRIBUTED")
-_METRICS = ("isc", "fid", "kid", "prc", "ppl")
+# The metrics whose extractors are not ported yet (ROADMAP queue 1 item 8b):
+# PPL's LPIPS over VGG16, and VGG16, PRC's default extractor.
+_ITEM_8B_METRICS = {"prc": "PRC's default feature extractor, VGG16,",
+                    "ppl": "PPL (LPIPS over VGG16)"}
+# The leading metric of best-metric checkpoints: its key and the sign that
+# makes larger better (ISC higher, FID/KID/PPL lower is better).
+_LEADING = {"ISC": ("inception_score_mean", +1), "FID": ("frechet_inception_distance", -1),
+            "KID": ("kernel_inception_distance_mean", -1),
+            "PPL": ("perceptual_path_length_mean", -1)}
 _NOT_PORTED = {
     "export": "the export command is not ported yet (ROADMAP queue 1 item 9)",
-    "fidelity": "the fidelity command is not ported yet: it needs the metric pipeline "
-                "(ROADMAP queue 1 items 8 and 9)",
+    "fidelity": "the fidelity command is not ported yet (ROADMAP queue 1 item 9)",
     "download": "the download command is not ported yet (ROADMAP queue 1 item 7)",
 }
 
@@ -64,15 +81,12 @@ def trainer_keywords(cfg) -> dict:
 def _refuse_unported(cfg) -> None:
     """Raise NotImplementedError for the training options the port does
     not have yet, before any work starts."""
-    on = [name for name in _METRICS if getattr(cfg.eval, name)]
-    if cfg.log.best_metric_checkpoints:
-        on.append("log.best_metric_checkpoints")
+    on = [name for name in _ITEM_8B_METRICS if getattr(cfg.eval, name)]
     if on:
-        flags = " ".join(f"--set eval.{name}=false" for name in _METRICS
-                         if getattr(cfg.eval, name))
         raise NotImplementedError(
-            f"in-loop metrics ({', '.join(on)}) are not ported yet (ROADMAP queue 1 item 8): "
-            f"train without them, e.g. {flags or '--set log.best_metric_checkpoints=false'}")
+            f"eval.{on[0]}: {_ITEM_8B_METRICS[on[0]]} is not ported yet (ROADMAP queue 1 "
+            f"item 8b): train without it, e.g. "
+            f"{' '.join(f'--set eval.{name}=false' for name in on)}")
     if int(cfg.train.tp) != 1:
         raise NotImplementedError(f"train.tp={cfg.train.tp}: tensor parallelism is not ported "
                                   f"yet (ROADMAP queue 1 item 10)")
@@ -178,6 +192,98 @@ class _Feed:
         return reals, labels
 
 
+def _register_real_set(cfg, dataset) -> str:
+    """Register the training data's eval-side real set for FID and KID and
+    return its name, ``{dataset}-{size}[-{tag}]-n{num_samples}``, which keys
+    the feature cache: a path-dependent dataset or an aug stack adds a
+    content tag (sha1 of the data directory and the stack). The set holds
+    ``eval.num_samples_for_metrics`` images in a seeded order (2020), so a
+    class-sorted folder gives all its classes; grayscale is repeated to
+    RGB."""
+    from .eval import register_dataset
+
+    tag = ""
+    path_kinds = ("folder", "local", "local_dataset", "tar")
+    if cfg.data.dataset.lower() in path_kinds or cfg.data.aug_stack:
+        key = f"{os.path.abspath(cfg.data.data_dir)}|{cfg.data.aug_stack}"
+        tag = "-" + hashlib.sha1(key.encode()).hexdigest()[:8]
+    n = cfg.eval.num_samples_for_metrics
+    name = f"{cfg.data.dataset}-{cfg.data.image_size}{tag}-n{n}"
+
+    def load_real():
+        order = np.random.RandomState(2020).permutation(len(dataset))
+        imgs = np.stack([dataset[int(i)][0] for i in order[:min(n, len(dataset))]])
+        return np.repeat(imgs, 3, axis=-1) if imgs.shape[-1] == 1 else imgs
+
+    register_dataset(name, load_real)
+    return name
+
+
+class _EpochEval:
+    """``train``'s evaluation at an epoch boundary: the config's ISC, FID and
+    KID of ``eval.num_samples_for_metrics`` samples of
+    ``GANTrainer.generate`` (eval mode, latents and labels from the
+    pipeline's own generators, so the trainer's state is not touched)
+    against the registered real set, logged as ``metrics/<key>`` with
+    ``eval_seconds``; a better leading metric is printed and, with
+    ``log.checkpoint`` and ``log.best_metric_checkpoints``, its checkpoint
+    kept alone in ``checkpoints/best/``. A failure is printed with its
+    traceback and training goes on."""
+
+    def __init__(self, cfg, trainer, dataset, device, ckpt_dir, logger):
+        from .eval.inception import weights_available
+
+        self.cfg, self.trainer, self.device, self.logger = cfg, trainer, device, logger
+        self.best_dir = os.path.join(ckpt_dir, "best")
+        e = cfg.eval
+        self.on = e.isc or e.fid or e.kid
+        if (e.fid or e.kid) and e.input2_dataset is None:
+            e.input2_dataset = _register_real_set(cfg, dataset)
+        self.lead_key, self.lead_sign = _LEADING.get(e.leading_metric.upper(), _LEADING["ISC"])
+        self.best = None
+        self.weights_free = self.on and not weights_available(e.feature_extractor_weights_path)
+        if self.weights_free:
+            print("WARNING: no InceptionV3 weights found — metrics run in weights-free "
+                  "shallow-tap mode (relative trends only; not comparable to published FID/ISC "
+                  "numbers, nor to the JAX package's weights-free numbers)")
+
+    def __call__(self, step: int) -> None:
+        from .eval import GenerativeModel, calculate_metrics
+        from .train.checkpoint import save_checkpoint
+
+        if not self.on:
+            return
+        cfg, e = self.cfg, self.cfg.eval
+        t0 = time.perf_counter()
+        try:
+            gm = GenerativeModel(
+                apply=lambda z, labels=None: self.trainer.generate(z, labels, uint8=True),
+                z_size=cfg.model.z_size,
+                num_classes=cfg.model.num_classes if cfg.model.conditional else 0,
+                device=self.device)
+            out = calculate_metrics(
+                gm, e.input2_dataset, isc=e.isc, fid=e.fid, kid=e.kid, prc_input1_generated=True,
+                input1_model_num_samples=e.num_samples_for_metrics,
+                batch_size=min(cfg.train.batch_size, 128),
+                feature_extractor_weights_path=e.feature_extractor_weights_path,
+                device=self.device)
+            seconds = time.perf_counter() - t0
+            print(f"step {step} metrics ({seconds:.1f}s): {out}", flush=True)
+            self.logger.log(step, {**{f"metrics/{k}": v for k, v in out.items()},
+                                   "eval_seconds": seconds})
+            if self.lead_key in out:
+                value = float(out[self.lead_key])
+                if self.best is None or self.lead_sign * value > self.lead_sign * self.best:
+                    self.best = value
+                    tag = " [weights-free mode]" if self.weights_free else ""
+                    print(f"INFO: best {e.leading_metric} so far: {value:.5g} (step {step}){tag}")
+                    if cfg.log.checkpoint and cfg.log.best_metric_checkpoints:
+                        save_checkpoint(self.trainer, self.best_dir, step, keep=1)
+        except Exception as err:  # a failed evaluation must not end the training run
+            traceback.print_exc()
+            print(f"WARNING: metrics failed: {err}", flush=True)
+
+
 def run_train(cfg, device="cuda") -> None:
     """Train the config's pair (see the module docstring)."""
     from .data import DataLoader, load_dataset
@@ -217,6 +323,7 @@ def run_train(cfg, device="cuda") -> None:
             print(f"INFO: resumed from step {ini_step}")
 
     logger = ScalarLogger(cfg.log.dir_logs, tensorboard=cfg.log.tensorboard)
+    evaluate = _EpochEval(cfg, trainer, dataset, device, ckpt_dir, logger)
     z_vis = torch.randn((cfg.log.samples_grid, cfg.model.z_size), device=device,
                         generator=torch.Generator(device).manual_seed(1234))
     y_vis = (torch.arange(cfg.log.samples_grid, device=device) % max(cfg.model.num_classes, 1)
@@ -264,6 +371,7 @@ def run_train(cfg, device="cuda") -> None:
             if step % t.num_epoch_steps != 0:
                 continue
             logger.flush()
+            evaluate(step)
             grid = trainer.generate(z_vis, y_vis).float().cpu().numpy()
             save_image_grid(grid, os.path.join(cfg.log.dir_logs, f"{step:06d}.png"))
             logger.log_image_grid(step, make_grid(grid))

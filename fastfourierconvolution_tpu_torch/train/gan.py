@@ -293,16 +293,26 @@ class GANTrainer:
               zs: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One global step on ``real`` (B, H, W, C) f32 and ``labels`` (B,)
         on the device; moves no host value, so a CUDA graph can capture
-        it."""
+        it.
+
+        The backward runs on the calling thread. Autograd numbers a graph's
+        nodes with a counter per thread and runs the ready node with the
+        highest number first; on the card it runs a backward on a thread of
+        its own, which numbers the nodes it creates (a gradient penalty's
+        graph of gradients, a remat recompute) from its own counter. The
+        two counters' gap depends on what the process ran before, so a
+        process's first step ran some nodes in another order than later
+        steps and summed a gradient's parts in another order."""
         b = real.shape[0]
         real = real.permute(0, 3, 1, 2).contiguous()
         z_g, z_d = (None, None) if zs is None else (zs[0], zs[1:])
-        if self.update_order == "d_first":
-            loss_d = self._d_phase(real, z_d, labels)
-            loss_g = self._g_phase(b, z_g, labels)
-        else:
-            loss_g = self._g_phase(b, z_g, labels)
-            loss_d = self._d_phase(real, z_d, labels)
+        with torch.autograd.set_multithreading_enabled(False):
+            if self.update_order == "d_first":
+                loss_d = self._d_phase(real, z_d, labels)
+                loss_g = self._g_phase(b, z_g, labels)
+            else:
+                loss_g = self._g_phase(b, z_g, labels)
+                loss_d = self._d_phase(real, z_d, labels)
         if self.d_progress_arg:
             with torch.no_grad():
                 self.step_count.add_(1.0)

@@ -22,8 +22,10 @@ against the JAX package's, on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -291,16 +293,125 @@ def test_conditional_runs_infer_the_class_count(tmp_path, capsys):
               str(tmp_path / "absent"), "-o", run])
 
 
+# The in-loop eval at TINY size: the metric combinations the presets switch
+# on (fgan32, sngan: ISC and FID; fgan_cond32, fgan_cond48, resnet32, sagan:
+# with KID), on few samples, weights-free (no InceptionV3 file in reach),
+# the feature cache in the run's own directory.
+METRIC_SETS = {"isc-fid": ("isc", "fid"), "isc-fid-kid": ("isc", "fid", "kid")}
+METRIC_KEYS = {"isc": ("inception_score_mean", "inception_score_std"),
+               "fid": ("frechet_inception_distance",),
+               "kid": ("kernel_inception_distance_mean", "kernel_inception_distance_std")}
+
+
+@contextlib.contextmanager
+def _weights_free_env(root):
+    """No InceptionV3 file in reach, the feature cache under ``root``."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("FFC_TPU_INCEPTION_WEIGHTS", raising=False)
+        mp.setenv("HOME", str(root / "home"))
+        mp.setenv("FFC_TPU_HOME", str(root / "ffc_home"))
+        yield root / "ffc_home"
+
+
+@pytest.fixture
+def weights_free_home(tmp_path):
+    with _weights_free_env(tmp_path) as home:
+        yield home
+
+
+def _metric_flags(metrics, best=True):
+    flags = ["--set", "eval.num_samples_for_metrics=16"]
+    for name in ("isc", "fid", "kid"):
+        flags += ["--set", f"eval.{name}={'true' if name in metrics else 'false'}"]
+    return flags + ["--set", f"log.best_metric_checkpoints={'true' if best else 'false'}"]
+
+
+def _metric_run(root, metrics):
+    """A 6-step TINY run with ``metrics`` and best-metric checkpoints:
+    (its directory, its stdout, the cache directory)."""
+    run, out = str(root / "run"), io.StringIO()
+    with _weights_free_env(root) as home, contextlib.redirect_stdout(out):
+        _run(["train", *TINY, "-e", "6", *_metric_flags(metrics), "-o", run])
+    return run, out.getvalue(), home
+
+
+@pytest.fixture(scope="module")
+def kid_run(tmp_path_factory):
+    return _metric_run(tmp_path_factory.mktemp("kid_run"), METRIC_SETS["isc-fid-kid"])
+
+
+@pytest.mark.parametrize("metrics", list(METRIC_SETS), ids=list(METRIC_SETS))
+def test_train_logs_the_metrics_and_keeps_the_best_checkpoint(metrics, tmp_path, request):
+    """Every epoch's ``metrics/<key>`` and ``eval_seconds`` in scalars.jsonl,
+    the real set's features cached under ``FFC_TPU_HOME``, one checkpoint
+    in ``checkpoints/best/``, the weights-free warning printed once."""
+    run, out, home = (request.getfixturevalue("kid_run") if metrics == "isc-fid-kid"
+                      else _metric_run(tmp_path, METRIC_SETS[metrics]))
+    with open(os.path.join(run, "scalars.jsonl")) as f:
+        evals = [r for r in map(json.loads, f) if "eval_seconds" in r]
+    want = {f"metrics/{k}" for m in METRIC_SETS[metrics] for k in METRIC_KEYS[m]}
+    assert [r["step"] for r in evals] == [3, 6]
+    for r in evals:
+        assert want <= set(r) and all(np.isfinite(r[k]) for k in want) and r["eval_seconds"] > 0
+    assert out.count("WARNING: no InceptionV3 weights found") == 1
+    assert "WARNING: metrics failed" not in out and "INFO: best ISC so far" in out
+    assert len(os.listdir(os.path.join(run, "checkpoints", "best"))) == 1
+    cached = os.listdir(home / "fidelity_cache_torch")
+    assert "synthetic-16-n16-inception-v3-compat-weights-free-features-192.npz" in cached
+
+
+def test_a_failed_eval_is_logged_and_training_goes_on(tmp_path, capsys, monkeypatch,
+                                                     weights_free_home):
+    from fastfourierconvolution_tpu_torch import eval as teval
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("extractor broke")
+
+    monkeypatch.setattr(teval, "calculate_metrics", broken)
+    run = str(tmp_path / "run")
+    _run(["train", *TINY, "-e", "3", *_metric_flags(("isc", "fid")), "-o", run])
+    captured = capsys.readouterr()
+    assert "WARNING: metrics failed: extractor broke" in captured.out
+    assert "RuntimeError: extractor broke" in captured.err  # the traceback
+    assert "Training finished." in captured.out
+    assert os.path.exists(os.path.join(run, "checkpoints", "ckpt_3_steps.pt"))
+
+
+def test_metrics_leave_the_training_run_unchanged(tmp_path, kid_run):
+    """The eval draws from its own generators and runs G in eval mode: the
+    f32 losses and the final checkpoint of a run with ISC, FID and KID are
+    the bits of the run without metrics."""
+    on, off = kid_run[0], str(tmp_path / "off")
+    _run(["train", *TINY, "-e", "6", *_metric_flags((), best=False), "-o", off])
+    assert _loss_rows(on) == _loss_rows(off)
+    saved = [torch.load(os.path.join(run, "checkpoints", "ckpt_6_steps.pt"), weights_only=True)
+             for run in (on, off)]
+    flat = [dict(_flatten_state(s)) for s in saved]
+    assert flat[0].keys() == flat[1].keys()
+    for key, value in flat[0].items():
+        other = flat[1][key]
+        assert (torch.equal(value, other) if isinstance(value, torch.Tensor)
+                else value == other), key
+
+
+def _flatten_state(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten_state(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten_state(v, f"{prefix}{i}.")
+    else:
+        yield prefix, tree
+
+
 REFUSED = [
-    (["train", "--preset", "fgan32"], NotImplementedError,
-     "--set eval.isc=false --set eval.fid=false"),
-    (["train", *TINY, "--set", "eval.kid=true"], NotImplementedError, "queue 1 item 8"),
-    (["train", *TINY, "--set", "log.best_metric_checkpoints=true"], NotImplementedError,
-     "queue 1 item 8"),
+    (["train", *TINY, "--set", "eval.prc=true"], NotImplementedError, "queue 1 item 8b"),
+    (["train", *TINY, "--set", "eval.ppl=true"], NotImplementedError, "queue 1 item 8b"),
     (["train", *TINY, "--set", "train.tp=2"], NotImplementedError, "queue 1 item 10"),
     (["train", *TINY, "--set", "train.steps_per_call=4"], ValueError, "must divide"),
     (["export", *TINY], NotImplementedError, "queue 1 item 9"),
-    (["fidelity", "a", "b"], NotImplementedError, "queue 1 items 8 and 9"),
+    (["fidelity", "a", "b"], NotImplementedError, "queue 1 item 9"),
     (["download", "--dataset", "mnist"], NotImplementedError, "queue 1 item 7"),
     (["sample", *TINY, "--torch_checkpoint", "g.pth"], NotImplementedError, "queue 1 item 9"),
     (["sample", *TINY, "--exported", "g.ffcx"], NotImplementedError, "queue 1 item 9"),

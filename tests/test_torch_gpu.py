@@ -1224,14 +1224,11 @@ def test_remat_update_steps_replays_the_eager_step(deterministic, pair, remat):
     ``remat``: update_steps over 4 batches (the recompute inside the
     captured backward; for wgan-gp, D's region recomputed twice by the
     penalty's double backward through the FourierUnit kernels) against 4
-    eager update_step calls, after one warm-up step: the same losses and
-    the same bits in every tensor the step changes."""
+    eager update_step calls: the same losses and the same bits in every
+    tensor the step changes."""
     make = ((lambda: _narrow_trainer(deterministic, remat=remat)) if pair == "narrow" else
             (lambda: _pair_trainer(deterministic, pair, remat=remat)))
     reals = _reals(4).to(deterministic)
-    # a process's first step of a configuration can differ from later ones
-    # in its last bits (PERF.md §7): one step of a third trainer first
-    make().update_step(reals[0])
     graph, eager = make(), make()
     out = graph.update_steps(reals)
     ref = [eager.update_step(r) for r in reals]
