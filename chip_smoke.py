@@ -192,8 +192,25 @@ Phases, each of which raises on a failed check:
     in ``best/``, no failed eval, exact launches (the eval's 157 generate
     requests an epoch); eval seconds, generate ms per request and
     extraction ms per image, and the eval's share of a 5,000-step epoch;
-29. a check that every kernel was launched on the main path (phases 4, 6,
-    10, 13, 14, 15, the CLI runs, phases 24-25 and 28), a
+29. the serving export: the 32px generator (bf16 and f32), fgan128's
+    packed generator and fgan_cond32's conditional one, seeded, their
+    running statistics calibrated as in phase 4, exported on the card
+    (``serving.export_generator``; no launch while tracing) and served in a
+    child process that imports torch, numpy and the port's ``serving``
+    and no JAX module, at batch 1, 64 and 157: the in-process
+    ``generate``'s images within phase 4's bars, the same bits on a second
+    call, exactly one forward kernel (its three stages on a staged map) per
+    FourierUnit map and request; ms per batch-64 request beside the
+    in-process ``generate``'s, and the host µs per ``fourier_unit_eval``
+    call through the registered op and as before it; then through the
+    CLI: ``export`` of phase 21's fgan32 run directory, ``sample
+    --exported``, ``fidelity`` ISC and FID of the artifact and of the run
+    directory against the shapes set (weights-free, the same latents,
+    within ``FIDELITY_TOL`` of each other), and ``export
+    --torch_checkpoint`` of a seeded reference-layout ``.pth`` against the
+    converted model's ``generate``;
+30. a check that every kernel was launched on the main path (phases 4, 6,
+    10, 13, 14, 15, the CLI runs, phases 24-25, 28 and 29), a
     ``{"wrapper_calls": [...]}`` JSON line (the staged wrapper and training-op calls, all their stages
     together), a ``{"kernels": [...]}`` JSON line, then the
     ``{"ok": true, ...}`` line.
@@ -1273,9 +1290,10 @@ def check_bn_act(device):
     return rows
 
 
-def calibrate_running_stats(model, z):
+def calibrate_running_stats(model, z, labels=None):
     """Set every BatchNorm's and FourierUnit's running statistics to the
-    f32 batch statistics of its input on ``z``, layer by layer."""
+    f32 batch statistics of its input on ``z`` (and ``labels`` for a
+    conditional generator), layer by layer."""
     import torch
 
     from fastfourierconvolution_tpu_torch.nn.ffc import FourierUnit
@@ -1302,7 +1320,7 @@ def calibrate_running_stats(model, z):
             hooks.append(m.register_forward_pre_hook(fu_hook))
     try:
         with torch.no_grad():
-            model(z, torch.float32)
+            model(z, torch.float32, *(() if labels is None else (None, labels)))
     finally:
         for h in hooks:
             h.remove()
@@ -2177,27 +2195,45 @@ CLI_CHILD = (
 )
 
 
-def cli_run(name, args, out_dir, timeout=300, metrics=False, env=None):
+def cli_run(name, args, out_dir, timeout=300, metrics=False, env=None, common=True):
     """One CLI command (``args``, ``CLI_COMMON`` and, unless ``metrics``,
-    ``CLI_METRICS_OFF``; logs in ``out_dir``) in a child process with the
-    environment ``env`` (None: this one's): (its stdout, its launches by
-    kernel and map). A non-zero exit fails the phase."""
+    ``CLI_METRICS_OFF``; logs in ``out_dir``; with ``common`` False
+    ``args`` alone, as ``fidelity`` takes them) in a child process with
+    the environment ``env`` (None: this one's): (its stdout, its launches
+    by kernel and map). A non-zero exit fails the phase."""
+    return cli_wait(cli_start(name, args, out_dir, timeout, metrics, env, common))
+
+
+def cli_start(name, args, out_dir, timeout=300, metrics=False, env=None, common=True):
+    """:func:`cli_run`'s child process, started; :func:`cli_wait` ends it.
+    Commands that do not read each other's files run side by side."""
     counts_path = f"{out_dir}.{name}.launches.json"
-    cmd = [sys.executable, "-c", CLI_CHILD, counts_path, *args, *CLI_COMMON,
-           *(() if metrics else CLI_METRICS_OFF), "-o", out_dir]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
-                          env=env)
+    cmd = [sys.executable, "-c", CLI_CHILD, counts_path, *args]
+    if common:
+        cmd += [*CLI_COMMON, *(() if metrics else CLI_METRICS_OFF), "-o", out_dir]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+    return name, args, counts_path, timeout, proc, time.perf_counter()
+
+
+def cli_wait(job):
+    name, args, counts_path, timeout, proc, t0 = job
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
-        log(f"cli {name}: stdout\n{proc.stdout[-3000:]}\nstderr\n{proc.stderr[-3000:]}")
+        log(f"cli {name}: stdout\n{stdout[-3000:]}\nstderr\n{stderr[-3000:]}")
         raise AssertionError(f"cli {name} ({' '.join(args)}) exited {proc.returncode}")
     with open(counts_path) as f:
         counts = {k: {tuple(m): n for m, n in v} for k, v in json.load(f).items()}
-    lines = [l for l in proc.stdout.splitlines() if l.startswith(("INFO", "[config]", "step "))]
+    lines = [l for l in stdout.splitlines() if l.startswith(("INFO", "[config]", "step "))]
     log(f"cli {name}: {' '.join(args)}: exit 0 in {wall:.1f} s (child process, host clock); "
         f"{lines if len(lines) <= 4 else lines[:2] + lines[-2:]}")
-    return proc.stdout, counts
+    return stdout, counts
 
 
 def eval_launches(g_maps, requests, want=None):
@@ -3160,6 +3196,397 @@ def cli_metrics(device, card, tmp, graph_ms_32):
     return counts_by_run
 
 
+# --- phase 29: the serving export -------------------------------------------------------
+
+# The batches the artifacts serve: the trace's example batch is 2.
+SERVE_BATCHES = (1, BATCH, 157)
+# Requests per timing window of the artifact and of the in-process generate.
+SERVE_TIMED = 50
+# Calls of the in-process f32 generate held against its first, under each
+# of cuDNN's algorithm settings (the witness for the f32 artifact's).
+SERVE_REPEATS = 8
+# fidelity on a generative input against the shapes set: samples per input
+# (batches of 64, so this many generate requests), and the bar on the
+# artifact's ISC and FID against the run directory's (the same generator,
+# kernels and latents).
+FIDELITY_SAMPLES = 1024
+FIDELITY_REQUESTS = -(-FIDELITY_SAMPLES // BATCH)
+FIDELITY_TOL = 1e-3
+FIDELITY_FLAGS = ("-i", "-f", "-j", "--silent", "--device", "cuda",
+                  "--input1-model-num-samples", str(FIDELITY_SAMPLES),
+                  "--input2-model-num-samples", str(FIDELITY_SAMPLES))
+# A child process that loads the serving artifacts with the port's
+# ``serving`` alone (JAX absent from sys.modules), TF32 off as in this
+# process and cuDNN's deterministic algorithms where the spec asks (the f32
+# artifact: under the default algorithms two of its calls at batch 64
+# parted in the last bits, H100 80GB HBM3, 700 W), and serves each spec'd
+# request twice: the first call's images and launches by FourierUnit wrapper
+# and map, whether the second gave the same bits, and the ms per request of
+# the batch-64 request over SERVE_TIMED back-to-back calls (host clock,
+# synchronised at the end), saved to the second argument's file.
+SERVE_CHILD = (
+    "import sys, time\n"
+    "import torch\n"
+    "from fastfourierconvolution_tpu_torch import serving\n"
+    "from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu\n"
+    "jax = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+    "             or m.split('.')[0] == 'fastfourierconvolution_tpu')\n"
+    "assert not jax, jax\n"
+    "torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False\n"
+    "spec = torch.load(sys.argv[1])\n"
+    "wrappers = {n: f for n, f in vars(fu).items() if hasattr(f, 'launches_by_map')}\n"
+    "results = {}\n"
+    "for name, path in spec['artifacts'].items():\n"
+    "    torch.backends.cudnn.deterministic = spec['deterministic'][name]\n"
+    "    t0 = time.perf_counter()\n"
+    "    call, meta = serving.load_exported(path, 'cuda')\n"
+    "    load_s = time.perf_counter() - t0\n"
+    "    runs = []\n"
+    "    for z, y in spec['inputs'][name]:\n"
+    "        z, y = z.cuda(), None if y is None else y.cuda()\n"
+    "        for f in wrappers.values():\n"
+    "            f.launches_by_map.clear()\n"
+    "        first = call(z, y)\n"
+    "        torch.cuda.synchronize()\n"
+    "        launches = {n: {tuple(m): k for m, k in f.launches_by_map.items()}\n"
+    "                    for n, f in wrappers.items() if f.launches_by_map}\n"
+    "        same = torch.equal(first, call(z, y))\n"
+    "        runs.append({'images': first.cpu(), 'same_bits': same, 'launches': launches})\n"
+    "    z, y = spec['inputs'][name][1]\n"
+    "    z, y = z.cuda(), None if y is None else y.cuda()\n"
+    "    for _ in range(3):\n"
+    "        call(z, y)\n"
+    "    torch.cuda.synchronize()\n"
+    "    t0 = time.perf_counter()\n"
+    "    for _ in range(spec['timed']):\n"
+    "        call(z, y)\n"
+    "    torch.cuda.synchronize()\n"
+    "    ms = (time.perf_counter() - t0) / spec['timed'] * 1e3\n"
+    "    results[name] = {'runs': runs, 'ms': ms, 'load_s': load_s, 'meta': meta}\n"
+    "torch.save(results, sys.argv[2])\n"
+)
+
+
+def request_ms(fn, n=SERVE_TIMED):
+    """Host-clock ms per call of ``fn`` over ``n`` back-to-back calls after 3
+    warm-up calls, synchronised at the end."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def serving_cases(device):
+    """{name: (server, FourierUnit maps at batch 64)}: the 32px generator in
+    bf16 and in f32, fgan128's packed generator and fgan_cond32's
+    conditional one in bf16, each seeded, its running statistics calibrated
+    on a seeded batch as in phase 4."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch import Generator, build_generator, make_config
+
+    g = torch.Generator().manual_seed(SEED + 40)
+    cases = {}
+    for name, preset, maps, classes in (("fgan32", "fgan32", FU_SHAPES, 0),
+                                        ("fgan128", "fgan128", FU128_SHAPES, 0),
+                                        ("cond32", "fgan_cond32", FU_SHAPES, NUM_CLASSES)):
+        torch.manual_seed(SEED + 41)
+        cfg = make_config(preset)
+        server = Generator(build_generator(cfg), device=device, dtype="bf16")
+        if server.num_classes != classes:
+            raise AssertionError(f"{name}: the server reads {server.num_classes} classes")
+        z = torch.randn(BATCH, cfg.model.z_size, generator=g).to(device)
+        labels = torch.arange(BATCH, device=device) % classes if classes else None
+        calibrate_running_stats(server.model, z, labels)
+        cases[f"{name}-bf16"] = (server, maps)
+    f32 = Generator(cases["fgan32-bf16"][0].model, device=device, dtype="f32")
+    cases["fgan32-f32"] = (f32, FU_SHAPES)
+    return cases
+
+
+def eval_fu_host_us(device, card):
+    """Host µs per ``fourier_unit_eval`` call under no_grad at the 32px maps
+    in bf16: through the registered op, and as before it (the autograd
+    Function calling the kernel wrapper, the op patched out), in alternating
+    windows; the wrapper alone beside them."""
+    import statistics
+
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    for shape in FU_SHAPES:
+        args = fu_inputs(shape, torch.bfloat16, device, SEED + 42)
+        us = {"op": [], "before": []}
+        with torch.no_grad():
+            for i in range(4):
+                for name in (("op", "before") if i % 2 == 0 else ("before", "op")):
+                    with (mock.patch.object(fu, "fourier_unit_op", fu.fourier_unit_forward)
+                          if name == "before" else contextlib.nullcontext()):
+                        us[name].append(host_us(lambda: fu.fourier_unit_eval(*args)))
+            wrapper = host_us(lambda: fu.fourier_unit_forward(*args))
+        log(f"fourier_unit_eval {shape} bf16, host µs per call (no_grad, {card}): through "
+            f"the registered op {[round(v, 2) for v in us['op']]} (median "
+            f"{statistics.median(us['op']):.2f}), before it (the autograd Function on the "
+            f"wrapper) {[round(v, 2) for v in us['before']]} (median "
+            f"{statistics.median(us['before']):.2f}); the wrapper alone {wrapper:.2f}")
+    zero_counts()
+
+
+def serve_artifacts(device, card, tmp):
+    """Phase 29: the four serving artifacts (``serving_cases``) exported on
+    the card (the traces launching no kernel), served in a JAX-free child
+    process at ``SERVE_BATCHES``: the in-process ``generate``'s images
+    within ``U8_MAX_LEVELS`` / ``U8_MEAN_LEVELS`` of the dtype, the same
+    bits on a second call, exactly one forward (its three stages where the
+    map is staged) per FourierUnit map and request; ms per batch-64
+    request, in the child and, beside the in-process ``generate``'s, in
+    this process. Returns the artifacts' launches by kernel and map."""
+    import statistics
+
+    import torch
+
+    from fastfourierconvolution_tpu_torch import serving
+
+    names = {w.__name__: k for k, w in launch_wrappers().items()}
+    cases = serving_cases(device)
+    g = torch.Generator().manual_seed(SEED + 43)
+    spec = {"artifacts": {}, "inputs": {}, "timed": SERVE_TIMED, "deterministic": {}}
+    expected, gen_ms = {}, {}
+    for name, (server, maps) in cases.items():
+        zero_counts()
+        t0 = time.perf_counter()
+        blob = serving.export_generator(server.sampler(), z_size=server.model.z_size,
+                                        num_classes=server.num_classes,
+                                        image_size=server.model.resolution)
+        export_s = time.perf_counter() - t0
+        traced = {k: v for k, v in counts_by_map().items() if v}
+        if traced:
+            raise AssertionError(f"{name}: the export launched kernels {traced}")
+        path = os.path.join(tmp, f"{name}.ffcx")
+        serving.save_exported(path, blob)
+        spec["artifacts"][name] = path
+        spec["deterministic"][name] = server.dtype == torch.float32
+        inputs = []
+        for b in SERVE_BATCHES:
+            z = torch.randn(b, server.model.z_size, generator=g)
+            y = (torch.randint(0, server.num_classes, (b,), generator=g)
+                 if server.num_classes else None)
+            inputs.append((z, y))
+        spec["inputs"][name] = inputs
+        expected[name] = [server.generate(z.to(device), y).cpu() for z, y in inputs]
+        if spec["deterministic"][name]:
+            z = inputs[1][0].to(device)
+            parted, setting = {}, torch.backends.cudnn.deterministic
+            for algorithms in ("default", "deterministic"):
+                torch.backends.cudnn.deterministic = algorithms == "deterministic"
+                first = server.generate(z)
+                parted[algorithms] = sum(not torch.equal(first, server.generate(z))
+                                         for _ in range(SERVE_REPEATS))
+            torch.backends.cudnn.deterministic = setting
+            log(f"{name}: the in-process generate at batch {BATCH}, {SERVE_REPEATS} calls "
+                f"against the first, other bits under cuDNN's default algorithms "
+                f"{parted['default']}, under its deterministic ones {parted['deterministic']}")
+        log(f"{name}: exported in {export_s:.2f} s on the card, {len(blob)} bytes, no launch "
+            f"while tracing")
+    # the artifact and the in-process generate in this process, in
+    # alternating windows: host-clock readings of two processes are far apart
+    for name, (server, _) in cases.items():
+        call, _ = serving.load_exported(spec["artifacts"][name], "cuda")
+        z, y = (t if t is None else t.to(device) for t in spec["inputs"][name][1])
+        gen_ms[name] = {"artifact": [], "generate": []}
+        for i in range(4):
+            for side in (("artifact", "generate") if i % 2 == 0 else ("generate", "artifact")):
+                fn = (lambda: call(z, y)) if side == "artifact" else (
+                    lambda: server.generate(z, y))
+                gen_ms[name][side].append(request_ms(fn))
+        del call
+    zero_counts()
+    spec_path, out_path = os.path.join(tmp, "serve_spec.pt"), os.path.join(tmp, "served.pt")
+    torch.save(spec, spec_path)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", SERVE_CHILD, spec_path, out_path], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:], proc.stderr[-3000:])
+        raise AssertionError(f"the serving child exited {proc.returncode}")
+    served = torch.load(out_path)
+    log(f"served {len(served)} artifacts in a child process (torch, numpy and the port's "
+        f"serving; no JAX module) in {time.perf_counter() - t0:.1f} s")
+    totals = collections.defaultdict(collections.Counter)
+    for name, (server, maps) in cases.items():
+        dtype = str(server.dtype).split(".")[-1]
+        result, res = served[name], server.model.resolution
+        for (z, _), want, run in zip(spec["inputs"][name], expected[name], result["runs"]):
+            b = z.shape[0]
+            images = run["images"]
+            if images.shape != (b, res, res, 3) or images.dtype != torch.uint8:
+                raise AssertionError(f"{name} batch {b}: {tuple(images.shape)} {images.dtype}")
+            diff = (images.int() - want.int()).abs().float()
+            launches = {names[w]: m for w, m in run["launches"].items()}
+            per_request = {k: v for k, v in eval_launches(maps, 1).items() if v}
+            log(f"{name} artifact, batch {b}: against the in-process generate max "
+                f"{int(diff.max())} levels, mean {diff.mean().item():.4f} (bars "
+                f"{U8_MAX_LEVELS[dtype]}, {U8_MEAN_LEVELS[dtype]}); second call the same bits "
+                f"{run['same_bits']} (cuDNN deterministic {spec['deterministic'][name]}); "
+                f"launches {launches}")
+            if diff.max() > U8_MAX_LEVELS[dtype] or diff.mean() > U8_MEAN_LEVELS[dtype]:
+                raise AssertionError(f"{name} batch {b}: the artifact's images differ from "
+                                     f"generate")
+            if not run["same_bits"]:
+                raise AssertionError(f"{name} batch {b}: two calls gave different bits")
+            if launches != per_request:
+                raise AssertionError(f"{name} batch {b}: launches {launches}, want "
+                                     f"{per_request} (one forward per map and request)")
+            for k, by_map in launches.items():
+                totals[k].update(by_map)
+        spread = result["runs"][1]["images"].float().std().item()
+        ms = {k: [round(v, 3) for v in vs] for k, vs in gen_ms[name].items()}
+        log(f"{name} artifact: batch-{BATCH} request {result['ms']:.3f} ms wall (host clock, "
+            f"{SERVE_TIMED} requests, the child process; loaded in {result['load_s']:.2f} s); "
+            f"in this process, alternating windows of {SERVE_TIMED}: the artifact {ms['artifact']}"
+            f" (median {statistics.median(gen_ms[name]['artifact']):.3f}), the in-process "
+            f"generate {ms['generate']} (median {statistics.median(gen_ms[name]['generate']):.3f})"
+            f"; image std {spread:.1f} levels; {card}")
+    eval_fu_host_us(device, card)
+    return {k: dict(v) for k, v in totals.items()}
+
+
+def reference_layout_state(model, seed=SEED + 44):
+    """A seeded state dict in the reference repo's ``FGenerator`` layout
+    (what ``compat.convert_fgan_generator`` reads) with the shapes of the
+    port's ``FFCGenerator`` ``model``: blocks i -> conv{i+2}, the to-RGB
+    tail -> conv{N+2}, the FourierUnit's mix kernel as a 1x1 convolution and
+    its BN as ``fu.bn``, SELayer as ``se_block.fc.{0,2}``."""
+    import numpy as np
+    import torch
+
+    n = len(model.channel_mults)
+    renames = [(r"^noise_to_feature\.", "noise_to_feature.0."),
+               (r"^to_rgb\.", f"conv{n + 2}."),
+               (r"^block(\d+)\.", lambda m: f"conv{int(m[1]) + 2}."),
+               (r"^(lcl|glb)_noise(\d+)\.", lambda m: f"{m[1]}_noise{int(m[2]) + 2}."),
+               (r"\.se\.fc1\.", ".se_block.fc.0."), (r"\.se\.fc2\.", ".se_block.fc.2."),
+               (r"\.convg2g\.bn\.", ".convg2g.bn1."),
+               (r"\.fu\.mix_kernel$", ".fu.conv_layer.weight"),
+               (r"\.fu\.bn_scale$", ".fu.bn.weight"), (r"\.fu\.bn_bias$", ".fu.bn.bias"),
+               (r"\.fu\.running_", ".fu.bn.running_")]
+    rng = np.random.default_rng(seed)
+    state = {}
+    for name, t in model.state_dict().items():
+        key = name
+        for pattern, repl in renames:
+            key = re.sub(pattern, repl, key)
+        shape = tuple(t.shape) + ((1, 1) if key.endswith("conv_layer.weight") else ())
+        if key.endswith("running_var"):
+            v = rng.uniform(0.5, 1.5, shape)
+        elif key.endswith(".weight") and len(shape) == 1 and "noise" not in key:
+            v = 1 + rng.normal(0, 0.1, shape)
+        elif len(shape) >= 2:
+            v = rng.normal(0, 1 / np.sqrt(np.prod(shape) / shape[0]), shape)
+        else:
+            v = rng.normal(0, 0.1, shape)
+        state[key] = torch.from_numpy(v.astype(np.float32))
+    return state
+
+
+def cli_serving(device, card, tmp):
+    """Phase 29 through the CLI: ``export`` from phase 21's fgan32 run
+    directory (no launch), ``sample --exported`` (one forward per map),
+    ``fidelity`` ISC and FID of the artifact and of the run directory
+    (``--preset fgan32``) against the shapes set on the same latents,
+    weights-free (within ``FIDELITY_TOL`` of each other, one forward per map
+    and request each), and ``export --torch_checkpoint`` of a seeded
+    reference-layout ``.pth``, whose artifact must give the converted
+    model's ``generate`` (within the bf16 bars, one forward per map).
+    Returns the runs' launches."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch import FFCGenerator, Generator, compat, serving
+
+    run = os.path.join(tmp, "fgan32")
+    artifact = os.path.join(run, "generator.ffcx")
+    none = {k: {} for k in launch_wrappers()}
+    env = dict(os.environ, FFC_TPU_HOME=os.path.join(tmp, "ffc_home_fidelity"))
+    env.pop("FFC_TPU_INCEPTION_WEIGHTS", None)
+    pth = os.path.join(tmp, "reference_fgan32.pth")
+    torch.save({"model_state_dict": reference_layout_state(FFCGenerator.for_resolution(32)),
+                "optimizer_state_dict": {}}, pth)
+    ref_artifact = os.path.join(tmp, "reference_fgan32.ffcx")
+
+    def fidelity(name, input1, *extra):
+        # the inputs first: argparse takes no positional after the flags
+        return cli_start(f"fidelity-{name}", ["fidelity", input1, "shapes-32", *extra,
+                                              *FIDELITY_FLAGS, "--datasets-root", tmp],
+                         tmp, env=env, common=False)
+
+    # side by side: the commands that read no other's files, then the two
+    # that read the exported artifact
+    jobs = [cli_start("fgan32-export", ["export", "--preset", "fgan32"], run),
+            cli_start("fgan32-export-reference",
+                      ["export", "--preset", "fgan32", "--torch_checkpoint", pth,
+                       "--output", ref_artifact], os.path.join(tmp, "reference")),
+            fidelity("run-dir", run, "--preset", "fgan32", "--set", "train.precision=bf16",
+                     "--set", "data.dataset=shapes")]
+    (_, counts), (_, counts_ref_export), (stdout_run_dir, counts_run_dir) = map(cli_wait, jobs)
+    meta, _ = serving.read_artifact(artifact)
+    if counts != none or counts_ref_export != none or meta["step"] != 144:
+        raise AssertionError(f"cli fgan32 export: launches {counts}, {counts_ref_export}, "
+                             f"step {meta['step']}")
+    out = os.path.join(tmp, "fgan32-served")
+    jobs = [cli_start("fgan32-sample-exported",
+                      ["sample", "--exported", artifact, "--num_samples", "64"], out),
+            fidelity("artifact", artifact)]
+    (_, counts_sample), (stdout_artifact, counts_artifact) = map(cli_wait, jobs)
+    size = png_size(os.path.join(out, "samples_000144.png"))
+    if counts_sample != eval_launches(FU_SHAPES, 1):
+        raise AssertionError(f"cli fgan32 sample --exported launches {counts_sample}")
+    log(f"cli fgan32: exported step 144 ({os.path.getsize(artifact)} bytes, no launch), "
+        f"sampled the artifact ({size[0]}x{size[1]} grid, one forward per map)")
+
+    scores, counts_fid = {}, {"artifact": counts_artifact, "run-dir": counts_run_dir}
+    for name, stdout in (("artifact", stdout_artifact), ("run-dir", stdout_run_dir)):
+        scores[name] = json.loads(stdout.strip().splitlines()[-1])
+        if counts_fid[name] != eval_launches(FU_SHAPES, FIDELITY_REQUESTS):
+            raise AssertionError(f"cli fidelity {name} launches {counts_fid[name]}")
+    gaps = {k: abs(scores["artifact"][k] - v) / abs(v) for k, v in scores["run-dir"].items()}
+    log(f"cli fidelity (weights-free, {FIDELITY_SAMPLES} samples against shapes-32): the "
+        f"artifact {scores['artifact']}, the run directory {scores['run-dir']}; relative gaps "
+        f"{({k: f'{v:.2e}' for k, v in gaps.items()})} (bar {FIDELITY_TOL}); "
+        f"{FIDELITY_REQUESTS} requests each, one forward per map and request; {card}")
+    if max(gaps[k] for k in ("inception_score_mean", "frechet_inception_distance")) > FIDELITY_TOL:
+        raise AssertionError("fidelity: the artifact's ISC or FID is not the run directory's")
+
+    model = FFCGenerator.for_resolution(32)
+    model.load_state_dict(compat.to_state_dict(model, compat.convert_fgan_generator(pth)))
+    server = Generator(model, device=device, dtype="bf16")
+    call, _ = serving.load_exported(ref_artifact, "cuda")
+    z = torch.randn(BATCH, model.z_size,
+                    generator=torch.Generator().manual_seed(SEED + 45)).to(device)
+    zero_counts()
+    served = call(z)
+    torch.cuda.synchronize()
+    counts_ref = counts_by_map()
+    diff = (served.int() - server.generate(z).int()).abs().float()
+    log(f"cli export --torch_checkpoint (a seeded reference-layout fgan32 .pth): the artifact "
+        f"against the converted model's generate, bf16, batch {BATCH}: max "
+        f"{int(diff.max())} levels, mean {diff.mean().item():.4f}; launches "
+        f"{({k: v for k, v in counts_ref.items() if v})}")
+    if diff.max() > U8_MAX_LEVELS["bfloat16"] or diff.mean() > U8_MEAN_LEVELS["bfloat16"]:
+        raise AssertionError("the reference checkpoint's artifact differs from its generate")
+    if counts_ref != eval_launches(FU_SHAPES, 1):
+        raise AssertionError(f"the reference checkpoint's artifact launched {counts_ref}")
+    return {"cli-fgan32-sample-exported": counts_sample,
+            **{f"fidelity-{k}": v for k, v in counts_fid.items()},
+            "serving-reference-artifact": counts_ref}
+
+
 # --- phase 0: a process's first run of a configuration ---------------------------------
 
 # The configurations whose first run in a process differed in its last bits
@@ -3510,16 +3937,18 @@ def main() -> int:
     phase("20: the DCGAN family at 64px (DCGAN pair; attention generator against SN-DCGAN D)")
     comparator(device, card, "dcgan64")
     comparator(device, card, "attn64")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        phase("21: fgan32 through the CLI: train, resume, sample; restores in process")
-        cli_counts = cli_fgan32(device, card, tmp, graph_ms_32)
-        phase("22: fgan_cond32 through the CLI: train, sample")
-        cli_counts.update(cli_cond32(device, card, tmp))
-        phase("23: fgan64 through the CLI: the kernels at its staged map, train")
-        rows_64, calls_64, counts_64 = cli_fgan64(device, card, tmp)
-        rows += rows_64
-        calls += calls_64
-        cli_counts.update(counts_64)
+    # phase 29 exports phase 21's run directory
+    cli_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+    tmp = cli_tmp.name
+    phase("21: fgan32 through the CLI: train, resume, sample; restores in process")
+    cli_counts = cli_fgan32(device, card, tmp, graph_ms_32)
+    phase("22: fgan_cond32 through the CLI: train, sample")
+    cli_counts.update(cli_cond32(device, card, tmp))
+    phase("23: fgan64 through the CLI: the kernels at its staged map, train")
+    rows_64, calls_64, counts_64 = cli_fgan64(device, card, tmp)
+    rows += rows_64
+    calls += calls_64
+    cli_counts.update(counts_64)
     phase("24: the FFC layer options: the LFU maps' kernels, the LFU blocks (32px tuple, "
           "128px packed with biases), the spectral-normed cDCGAN discriminator")
     rows_lfu, calls_lfu = check_maps(device, LFU32_SHAPES + LFU128_SHAPES, "lfu-blocks")
@@ -3540,14 +3969,25 @@ def main() -> int:
         check_extractor(device, card, tmp)
         phase("28: fgan32 through the CLI with its preset's metrics (ISC, FID; with KID)")
         eval_counts = cli_metrics(device, card, tmp, graph_ms_32)
-    phase("29: result")
+    phase("29: the serving export: artifacts on the card served in a JAX-free process; "
+          "export, sample --exported, fidelity and --torch_checkpoint through the CLI")
+    artifact_counts = serve_artifacts(device, card, cli_tmp.name)
+    serving_counts = cli_serving(device, card, cli_tmp.name)
+    cli_tmp.cleanup()
+    for row in rows:
+        if row["name"] in artifact_counts and row.get("maps", 1) == 1:
+            row["artifact_launches"] = artifact_counts[row["name"]].get(
+                tuple(row["shape"][1:]), 0)
+            row["launches"] = row.get("launches", 0) + row["artifact_launches"]
+    phase("30: result")
     check_main_path_launches({"serving-32px": {"fourier_unit_fwd": by_map},
                               "training-32px": counts_32, "training-128px": counts,
                               "training-sngan": counts_sngan, "training-cond32": counts_c32,
                               "serving-cond32": {"fourier_unit_fwd": by_map_c32},
                               "training-cond48": counts_c48, **cli_counts,
                               "lfu-blocks": counts_lfu, "training-cond-sn-d": counts_snd,
-                              **remat_counts, **eval_counts})
+                              **remat_counts, **eval_counts,
+                              "serving-artifacts": artifact_counts, **serving_counts})
     log(json.dumps({"wrapper_calls": calls}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

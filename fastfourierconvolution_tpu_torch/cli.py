@@ -1,8 +1,11 @@
-"""The training CLI, the JAX package's ``cli.py``: train and sample.
+"""The CLI, the JAX package's ``cli.py``: train, sample, export, fidelity.
 
     python -m fastfourierconvolution_tpu_torch.cli train --preset fgan32 \\
         --set eval.isc=false --set eval.fid=false --checkpoint -o DIR
     python -m fastfourierconvolution_tpu_torch.cli sample --preset fgan32 -o DIR
+    python -m fastfourierconvolution_tpu_torch.cli export --preset fgan32 -o DIR
+    python -m fastfourierconvolution_tpu_torch.cli sample --exported DIR/generator.ffcx -o DIR
+    python -m fastfourierconvolution_tpu_torch.cli fidelity DIR/generator.ffcx REAL -i -f
 
 ``train`` loads the dataset, feeds uint8 batches to the device (the next
 chunk's copy overlapping the current one's steps) and normalises them
@@ -19,22 +22,31 @@ checkpoint kept in ``checkpoints/best/`` with
 (past ``log.checkpoint_after_frac``) a checkpoint, and resumes from the
 newest checkpoint where the JAX CLI does, data order included. A failed
 evaluation prints ``WARNING: metrics failed`` and training goes on.
-``sample`` draws PNG grids from the newest checkpoint. Both run on
-``cuda`` unless ``--device cpu`` is given.
+``sample`` draws PNG grids from the newest checkpoint, from a reference
+repo's ``.pth`` (``--torch_checkpoint``, through ``compat.py``) or from a
+serving artifact (``--exported``). ``export`` writes the eval-mode
+generator of the newest checkpoint (or of a ``--torch_checkpoint``) as a
+serving artifact (``serving.export_generator``, default
+``<dir_logs>/generator.ffcx``; ``--platforms`` cpu and cuda). ``fidelity``,
+which must come first on the command line, computes ISC, FID and KID
+(``eval.calculate_metrics``) of two inputs with torch-fidelity's flags:
+registered datasets, ``.npz``/``.npy`` arrays, serving artifacts,
+TorchScript and ONNX models, run directories with checkpoints (through
+``--preset``), directories of images and ``<dataset>-<size>`` names. All
+run on ``cuda`` unless ``--device cpu`` is given.
 
-Not ported yet, and refused at start: ``eval.ppl`` and ``eval.prc``
-(PRC's default extractor is VGG16; ROADMAP queue 1 item 8b),
-``train.tp`` above 1 and multi-process runs, and the
-``export``, ``fidelity`` and ``download`` commands with ``sample``'s
-``--torch_checkpoint`` and ``--exported``. ``log.compilation_cache`` is
-the JAX package's XLA compile cache: accepted, and nothing in the port
-reads it.
+Not ported yet, and refused at start: ``eval.ppl`` and ``eval.prc`` and
+fidelity's ``--ppl`` and ``--prc`` (PRC's default extractor is VGG16;
+ROADMAP queue 1 item 8b), ``train.tp`` above 1 and multi-process runs,
+and the ``download`` command. ``log.compilation_cache`` is the JAX
+package's XLA compile cache: accepted, and nothing in the port reads it.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import sys
 import time
 import traceback
@@ -55,10 +67,10 @@ _LEADING = {"ISC": ("inception_score_mean", +1), "FID": ("frechet_inception_dist
             "KID": ("kernel_inception_distance_mean", -1),
             "PPL": ("perceptual_path_length_mean", -1)}
 _NOT_PORTED = {
-    "export": "the export command is not ported yet (ROADMAP queue 1 item 9)",
-    "fidelity": "the fidelity command is not ported yet (ROADMAP queue 1 item 9)",
     "download": "the download command is not ported yet (ROADMAP queue 1 item 7)",
 }
+# reference-checkpoint converters by generator (compat.py)
+_CONVERTERS = {"ffc": "convert_fgan_generator", "ffc_cond": "convert_fcond_generator"}
 
 
 def trainer_keywords(cfg) -> dict:
@@ -394,54 +406,99 @@ def run_train(cfg, device="cuda") -> None:
 
 
 def _load_generator_state(cfg, torch_checkpoint: Optional[str], command: str, device):
-    """The trainer of the config with the newest checkpoint under
-    ``cfg.log.dir_logs`` restored; returns ``(trainer, step)``. Refuses to
-    run on random weights."""
+    """The trainer of the config with its generator restored from the newest
+    checkpoint under ``cfg.log.dir_logs``, or converted from a reference
+    repo's ``.pth`` (``torch_checkpoint``: an FGenerator or FCondGenerator
+    state dict or the FFCModel container, through ``compat.py``); returns
+    ``(trainer, step)``. Refuses to run on random weights."""
     from .train.checkpoint import restore_latest
     from .train.gan import GANTrainer
     from .zoo import build_models
 
-    if torch_checkpoint is not None:
-        raise NotImplementedError("--torch_checkpoint (reference-repo .pth files through "
-                                  "compat.py) is not ported yet (ROADMAP queue 1 item 9)")
     _maybe_infer_num_classes(cfg)
     g_model, d_model = build_models(cfg)
     trainer = GANTrainer(g_model, d_model, **trainer_keywords(cfg), device=device)
+    if torch_checkpoint is not None:
+        from . import compat
+
+        if cfg.model.generator not in _CONVERTERS:
+            raise SystemExit(
+                f"{command}: --torch_checkpoint supports the 'ffc' generator (reference "
+                "FGenerator checkpoints) and the 'ffc_cond' generator (reference "
+                "FCondGenerator / FCondGeneratorSTL checkpoints)")
+        if not os.path.isfile(torch_checkpoint):
+            raise SystemExit(f"{command}: no such checkpoint file: {torch_checkpoint}")
+        variables = getattr(compat, _CONVERTERS[cfg.model.generator])(
+            torch_checkpoint, mg=cfg.model.mg)
+        trainer.g.load_state_dict(compat.to_state_dict(trainer.g, variables))
+        print(f"INFO: {command} from reference checkpoint {torch_checkpoint}")
+        return trainer, 0
     ckpt_dir = os.path.join(cfg.log.dir_logs, "checkpoints")
     _, step = restore_latest(trainer, ckpt_dir)
     if step == 0:
         raise SystemExit(
             f"{command}: no checkpoint found under {ckpt_dir} — the output would come from "
-            f"random weights. Point -o at a run directory with checkpoints/."
+            f"random weights. Point -o at a run directory with checkpoints/, or pass "
+            f"--torch_checkpoint."
         )
     print(f"INFO: {command} from step {step}")
     return trainer, step
 
 
+def _stratified_labels(num_samples: int, num_classes: int, device) -> torch.Tensor:
+    """num_samples // num_classes labels of each class in order, the last
+    class taking the rest (the reference's test_cond.py)."""
+    labels = torch.arange(num_samples, device=device) // max(1, num_samples // num_classes)
+    return labels.clamp(0, num_classes - 1)
+
+
+def _sample_exported(cfg, exported: str, num_samples: int, device) -> None:
+    """``sample --exported``: a grid of the artifact's images, latents of
+    seed 7 and class-stratified labels, to ``samples_{step:06d}.png``."""
+    from .serving import load_exported
+    from .utils.logging import save_image_grid
+
+    if not os.path.isfile(exported):
+        raise SystemExit(f"sample: no such serving artifact: {exported}")
+    call, meta = load_exported(exported, device)
+    z = torch.randn((num_samples, meta["z_size"]), device=device,
+                    generator=torch.Generator(device).manual_seed(7))
+    labels = (_stratified_labels(num_samples, meta["num_classes"], device)
+              if meta["num_classes"] > 0 else None)
+    chunk = 64
+    imgs = np.concatenate([
+        call(z[i:i + chunk], None if labels is None else labels[i:i + chunk]).cpu().numpy()
+        for i in range(0, num_samples, chunk)
+    ])
+    os.makedirs(cfg.log.dir_logs, exist_ok=True)
+    out = os.path.join(cfg.log.dir_logs, f"samples_{meta.get('step', 0):06d}.png")
+    save_image_grid(imgs, out)
+    print(f"INFO: sampled from serving artifact {exported}")
+    print(f"saved {out}")
+
+
 def run_sample(cfg, num_samples: int = 64, per_sample: bool = False,
                torch_checkpoint: Optional[str] = None, exported: Optional[str] = None,
                device="cuda") -> None:
-    """Newest checkpoint -> ``samples_{step:06d}.png`` (class-stratified
-    labels when conditional; ``per_sample`` also saves each image), and
-    the feature-map figure ``feature_maps_{step:06d}.png``."""
+    """Newest checkpoint (or a reference ``.pth`` with ``torch_checkpoint``)
+    -> ``samples_{step:06d}.png`` (class-stratified labels when
+    conditional; ``per_sample`` also saves each image), and the
+    feature-map figure ``feature_maps_{step:06d}.png``; with ``exported``,
+    the grid of a serving artifact instead."""
     from .utils.logging import save_image_grid, save_png
     from .utils.policy import resolve_device
 
     if num_samples < 1:
         raise SystemExit("sample: --num_samples must be >= 1")
-    if exported is not None:
-        raise NotImplementedError("--exported (serving artifacts) is not ported yet "
-                                  "(ROADMAP queue 1 item 9)")
     device = resolve_device(device)
+    if exported is not None:
+        _sample_exported(cfg, exported, num_samples, device)
+        return
     trainer, step = _load_generator_state(cfg, torch_checkpoint, "sample", device)
     z = torch.randn((num_samples, cfg.model.z_size), device=device,
                     generator=torch.Generator(device).manual_seed(7))
-    labels = None
-    if cfg.model.conditional:
-        # class-stratified: num_samples // num_classes of each class
-        labels = torch.arange(num_samples, device=device) // max(
-            1, num_samples // cfg.model.num_classes)
-        labels = labels.clamp(0, cfg.model.num_classes - 1)
+    labels = (_stratified_labels(num_samples, cfg.model.num_classes, device)
+              if cfg.model.conditional else None)
     # chunked: one forward over a large --num_samples would hold the
     # whole ladder's activations at once
     chunk = 64
@@ -472,18 +529,304 @@ def run_sample(cfg, num_samples: int = 64, per_sample: bool = False,
         print(f"WARNING: feature-map figure failed: {e}")
 
 
+def run_export(cfg, output: Optional[str] = None, platforms=("cpu", "cuda"),
+               torch_checkpoint: Optional[str] = None, device="cuda") -> None:
+    """The eval-mode generator of the newest checkpoint (or of a reference
+    ``.pth``) as a serving artifact (``serving.export_generator``), traced
+    on ``device`` in ``train.precision``; ``output`` defaults to
+    ``<dir_logs>/generator.ffcx``. The artifact samples with ``sample
+    --exported`` and feeds the metrics as a generative input
+    (``fidelity g.ffcx REAL -f``)."""
+    from .serving import Sampler, export_generator, save_exported
+    from .utils.policy import resolve_device
+
+    device = resolve_device(device)
+    trainer, step = _load_generator_state(cfg, torch_checkpoint, "export", device)
+    blob = export_generator(
+        Sampler(trainer.g, trainer.dtype, cfg.model.conditional),
+        z_size=cfg.model.z_size,
+        num_classes=cfg.model.num_classes if cfg.model.conditional else 0,
+        image_size=cfg.data.image_size,
+        channels=cfg.data.channels,
+        platforms=tuple(platforms),
+        step=step,
+    )
+    if output is None:
+        os.makedirs(cfg.log.dir_logs, exist_ok=True)
+        output = os.path.join(cfg.log.dir_logs, "generator.ffcx")
+    save_exported(output, blob)
+    print(f"exported {output} ({len(blob)} bytes, platforms={','.join(platforms)}, "
+          f"step={step})")
+
+
+# --- fidelity -----------------------------------------------------------------------
+
+
+def _resolve_fidelity_input(spec: str, args, idx: int = 1):
+    """A fidelity input, every kind the JAX CLI resolves: a registered
+    dataset's name, a ``.npz`` (its first array) or ``.npy`` uint8 array, a
+    serving artifact (``.ffcx``), a TorchScript (``.pt``/``.pth``) or ONNX
+    generative model (latent spec from ``--input{N}-model-*``), a run
+    directory with ``checkpoints/`` (through ``--preset`` and ``--set``), a
+    directory of images, or ``<dataset>-<size>`` (``--datasets-root``)."""
+    from .eval import pipeline
+
+    if spec in pipeline.registered_datasets():
+        return spec
+    if spec.endswith(".npz"):
+        data = np.load(spec)
+        return data[list(data.keys())[0]]
+    if spec.endswith(".npy"):
+        return np.load(spec)
+    if spec.endswith((".ffcx", ".pt", ".pth", ".onnx")):
+        if not os.path.isfile(spec):
+            raise SystemExit(f"fidelity: no such model file: {spec}")
+        if spec.endswith(".ffcx"):
+            from .serving import exported_generative_model
+
+            return exported_generative_model(spec, args.device)
+        latent = dict(z_size=getattr(args, f"input{idx}_model_z_size"),
+                      z_type=getattr(args, f"input{idx}_model_z_type"),
+                      num_classes=getattr(args, f"input{idx}_model_num_classes"))
+        if spec.endswith(".onnx"):
+            return pipeline.onnx_generative_model(spec, **latent)
+        return pipeline.torchscript_generative_model(spec, **latent, device=args.device)
+    if os.path.isdir(os.path.join(spec, "checkpoints")):
+        return _generative_model_from_run_dir(spec, args)
+    limit = max(args.input1_model_num_samples, args.input2_model_num_samples)
+    if os.path.isdir(spec):
+        return _load_images_dir(
+            spec, args.samples_find_ext, args.samples_find_deep,
+            resize_and_crop=args.samples_resize_and_crop,
+            shuffle_seed=None if args.no_samples_shuffle else args.rng_seed, limit=limit)
+    m = re.fullmatch(r"([a-z0-9_]+)-(\d+)", spec)
+    if m:
+        from .data import load_dataset
+
+        try:
+            ds = load_dataset(m.group(1), args.datasets_root, int(m.group(2)), 3)
+        except (KeyError, FileNotFoundError) as e:
+            raise SystemExit(f"fidelity: cannot resolve input '{spec}' (dataset lookup "
+                             f"failed: {e})")
+        order = np.random.RandomState(args.rng_seed).permutation(len(ds))
+        imgs = np.stack([ds[int(i)][0] for i in order[:min(len(ds), limit)]])
+        return np.repeat(imgs, 3, axis=-1) if imgs.shape[-1] == 1 else imgs
+    raise SystemExit(f"fidelity: cannot resolve input '{spec}'")
+
+
+def _load_images_dir(path: str, exts: str, deep: bool, resize_and_crop: int = 0,
+                     shuffle_seed=None, limit: Optional[int] = None) -> np.ndarray:
+    """A directory of samples (torch-fidelity's glob_samples_paths): the
+    files with one of ``exts``, sorted, shuffled with ``shuffle_seed`` and
+    cut to ``limit`` before decoding, as RGB uint8; ``resize_and_crop``
+    resizes the short side and centre-crops to NxN. Decoding needs
+    Pillow."""
+    from .data.datasets import _pil, _resize_center_crop
+
+    wanted = {e.strip().lower() for e in exts.split(",") if e.strip()}
+    files = []
+    for root, _dirs, names in os.walk(path):
+        if not deep and os.path.realpath(root) != os.path.realpath(path):
+            continue
+        files += [os.path.join(root, n) for n in names
+                  if os.path.splitext(n)[1].lstrip(".").lower() in wanted]
+    files.sort()
+    if not files:
+        raise SystemExit(f"fidelity: no samples with ext {exts} in {path}")
+    if shuffle_seed is not None:
+        np.random.RandomState(shuffle_seed).shuffle(files)
+    if limit is not None:
+        files = files[:limit]
+    image = _pil()
+
+    def load(f):
+        img = image.open(f).convert("RGB")
+        if resize_and_crop:
+            img = _resize_center_crop(img, resize_and_crop)
+        return np.asarray(img, np.uint8)
+
+    imgs = [load(f) for f in files]
+    shapes = {im.shape for im in imgs}
+    if len(shapes) > 1:
+        raise SystemExit(f"fidelity: samples in {path} have mixed shapes {sorted(shapes)}; "
+                         f"pass --samples-resize-and-crop N to normalise them")
+    return np.stack(imgs)
+
+
+def _generative_model_from_run_dir(run_dir: str, args):
+    """The generator of a run directory's newest checkpoint (the config of
+    ``--preset`` and ``--set``) as a GenerativeModel on ``--device``."""
+    from .eval import GenerativeModel
+    from .serving import to_rgb
+    from .train.checkpoint import restore_latest
+    from .train.gan import GANTrainer
+    from .utils.config import apply_overrides, make_config
+    from .utils.policy import resolve_device
+    from .zoo import build_models
+
+    device = resolve_device(args.device)
+    cfg = make_config(args.preset)
+    apply_overrides(cfg, args.set or [])
+    _maybe_infer_num_classes(cfg)
+    trainer = GANTrainer(*build_models(cfg), **trainer_keywords(cfg), device=device)
+    _, step = restore_latest(trainer, os.path.join(run_dir, "checkpoints"))
+    if step == 0:
+        raise SystemExit(f"fidelity: no checkpoint under {run_dir}/checkpoints — metrics of "
+                         f"random weights would be reported as the run's")
+    print(f"fidelity: loaded generator at step {step} from {run_dir}", file=sys.stderr)
+    return GenerativeModel(apply=lambda z, labels=None: to_rgb(
+                               trainer.generate(z, labels, uint8=True)),
+                           z_size=cfg.model.z_size,
+                           num_classes=cfg.model.num_classes if cfg.model.conditional else 0,
+                           device=device)
+
+
+def build_fidelity_parser():
+    """torch-fidelity's ``fidelity`` flags as the JAX CLI has them, plus
+    ``--device`` (``cuda`` unless ``cpu`` is given)."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="python -m fastfourierconvolution_tpu_torch.cli fidelity",
+                                description="Compute generative metrics")
+    p.add_argument("input1", help="registered dataset | samples dir | .npz/.npy | .ffcx "
+                   "serving artifact | .pt/.pth TorchScript model | .onnx | run dir with "
+                   "checkpoints/ | <dataset>-<size>")
+    p.add_argument("input2", nargs="?", default=None)
+    p.add_argument("-b", "--batch-size", type=int, default=64)
+    p.add_argument("-j", "--json", action="store_true", help="print scores in JSON")
+    p.add_argument("-i", "--isc", action="store_true")
+    p.add_argument("-f", "--fid", action="store_true")
+    p.add_argument("-k", "--kid", action="store_true")
+    p.add_argument("-r", "--prc", action="store_true")
+    p.add_argument("-p", "--ppl", action="store_true")
+    p.add_argument("--feature-extractor", default=None)
+    p.add_argument("--feature-layer-isc", default=None)
+    p.add_argument("--feature-layer-fid", default=None)
+    p.add_argument("--feature-layer-kid", default=None)
+    p.add_argument("--feature-layer-prc", default=None)
+    p.add_argument("--feature-extractor-weights-path", default=None)
+    p.add_argument("--feature-extractor-internal-dtype", default=None,
+                   choices=["float32", "float64"])
+    p.add_argument("--isc-splits", type=int, default=10)
+    p.add_argument("--kid-subsets", type=int, default=100)
+    p.add_argument("--kid-subset-size", type=int, default=1000)
+    p.add_argument("--kid-kernel", default="poly", choices=["poly", "rbf"])
+    p.add_argument("--kid-kernel-poly-degree", type=int, default=3)
+    p.add_argument("--kid-kernel-poly-gamma", type=float, default=None)
+    p.add_argument("--kid-kernel-poly-coef0", type=float, default=1.0)
+    p.add_argument("--kid-kernel-rbf-sigma", type=float, default=10.0)
+    p.add_argument("--ppl-epsilon", type=float, default=1e-4)
+    p.add_argument("--ppl-sample-similarity", default="lpips-vgg16")
+    p.add_argument("--ppl-reduction", default="mean", choices=["mean", "none"])
+    p.add_argument("--ppl-sample-similarity-resize", type=int, default=64)
+    p.add_argument("--ppl-z-interp-mode", default="lerp",
+                   choices=["lerp", "slerp_any", "slerp_unit"])
+    p.add_argument("--ppl-discard-percentile-lower", type=float, default=1.0)
+    p.add_argument("--ppl-discard-percentile-higher", type=float, default=99.0)
+    p.add_argument("--prc-neighborhood", type=int, default=3)
+    p.add_argument("--prc-batch-size", type=int, default=10000)
+    p.add_argument("--save-cpu-ram", action="store_true")
+    p.add_argument("--lpips-weights-path", default=None)
+    p.add_argument("--vgg-weights-path", default=None)
+    p.add_argument("--samples-find-deep", action="store_true")
+    p.add_argument("--samples-resize-and-crop", type=int, default=0)
+    p.add_argument("--no-samples-shuffle", action="store_true",
+                   help="keep sorted order (torch-fidelity shuffles)")
+    p.add_argument("--samples-find-ext", default="png,jpg,jpeg")
+    p.add_argument("--input1-model-num-samples", type=int, default=10000)
+    p.add_argument("--input2-model-num-samples", type=int, default=10000)
+    for i in (1, 2):
+        p.add_argument(f"--input{i}-model-z-size", type=int, default=128)
+    for i in (1, 2):
+        p.add_argument(f"--input{i}-model-z-type", default="normal",
+                       choices=["normal", "unit", "uniform_0_1"])
+    for i in (1, 2):
+        p.add_argument(f"--input{i}-model-num-classes", type=int, default=0)
+    p.add_argument("--input1-cache-name", default=None)
+    p.add_argument("--input2-cache-name", default=None)
+    p.add_argument("--no-cache", action="store_true")
+    p.add_argument("--cache-root", default=None,
+                   help="feature cache directory (default $FFC_TPU_HOME/fidelity_cache_torch)")
+    p.add_argument("--rng-seed", type=int, default=2020)
+    p.add_argument("--silent", action="store_true")
+    p.add_argument("--preset", default="fgan32", help="model preset for run-dir inputs")
+    p.add_argument("--set", action="append", default=[],
+                   help="config overrides for run-dir inputs")
+    p.add_argument("--datasets-root", default="./data",
+                   help="data dir for '<dataset>-<size>' inputs")
+    p.add_argument("--device", default="cuda",
+                   help="where the extractor and generative inputs run: cuda (the default) "
+                        "or cpu")
+    return p
+
+
+def run_fidelity(argv) -> dict:
+    """Standalone metric computation, torch-fidelity's ``fidelity``: prints
+    the scores (JSON with ``-j``) and returns them."""
+    import json
+
+    from .eval import calculate_metrics
+    from .eval.pipeline import ITEM_8B_EXTRACTORS
+
+    args = build_fidelity_parser().parse_args(argv)
+    if not (args.isc or args.fid or args.kid or args.prc or args.ppl):
+        raise SystemExit("fidelity: at least one of -i/-f/-k/-r/-p must be given")
+    if args.ppl or (args.prc and args.feature_extractor in (None, *ITEM_8B_EXTRACTORS)):
+        name = "ppl" if args.ppl else "prc"
+        raise NotImplementedError(
+            f"--{name}: {_ITEM_8B_METRICS[name]} is not ported yet (ROADMAP queue 1 item 8b)"
+            + (": pass --feature-extractor inception-v3-compat to compute PRC on "
+               "InceptionV3 features" if name == "prc" else ""))
+    input1 = _resolve_fidelity_input(args.input1, args, idx=1)
+    input2 = _resolve_fidelity_input(args.input2, args, idx=2) if args.input2 else None
+    out = calculate_metrics(
+        input1, input2, isc=args.isc, fid=args.fid, kid=args.kid, prc=args.prc,
+        feature_extractor=args.feature_extractor,
+        feature_layer_isc=args.feature_layer_isc, feature_layer_fid=args.feature_layer_fid,
+        feature_layer_kid=args.feature_layer_kid, feature_layer_prc=args.feature_layer_prc,
+        input1_model_num_samples=args.input1_model_num_samples,
+        input2_model_num_samples=args.input2_model_num_samples,
+        input1_cache_name=args.input1_cache_name, input2_cache_name=args.input2_cache_name,
+        batch_size=args.batch_size, rng_seed=args.rng_seed, isc_splits=args.isc_splits,
+        kid_subsets=args.kid_subsets, kid_subset_size=args.kid_subset_size,
+        kid_kernel=args.kid_kernel, kid_kernel_poly_degree=args.kid_kernel_poly_degree,
+        kid_kernel_poly_gamma=args.kid_kernel_poly_gamma,
+        kid_kernel_poly_coef0=args.kid_kernel_poly_coef0,
+        kid_kernel_rbf_sigma=args.kid_kernel_rbf_sigma,
+        prc_neighborhood=args.prc_neighborhood, prc_batch_size=args.prc_batch_size,
+        save_cpu_ram=args.save_cpu_ram,
+        feature_extractor_weights_path=args.feature_extractor_weights_path,
+        feature_extractor_internal_dtype=args.feature_extractor_internal_dtype,
+        cache=not args.no_cache, cache_dir=args.cache_root, verbose=not args.silent,
+        device=args.device)
+    printable = {k: float(v) for k, v in out.items() if np.ndim(v) == 0}
+    print(json.dumps(printable) if args.json else printable)
+    return out
+
+
 def main(argv: Optional[list] = None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "fidelity":
+        run_fidelity(argv[1:])
+        return
     if argv and argv[0] in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[argv[0]])
     from .utils.config import parse_cli
 
     command, cfg, extras = parse_cli(argv)
+    if command == "fidelity":
+        # the fidelity flags have their own parser, which needs the command first
+        raise SystemExit("fidelity: put the command first — python -m "
+                         "fastfourierconvolution_tpu_torch.cli fidelity <input1> [input2] "
+                         "[flags]")
     if command in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[command])
     print("Configuration:\n" + cfg.to_json())
     if command == "train":
         run_train(cfg, device=extras["device"])
+    elif command == "export":
+        run_export(cfg, output=extras["output"], platforms=extras["platforms"],
+                   torch_checkpoint=extras["torch_checkpoint"], device=extras["device"])
     else:
         run_sample(cfg, num_samples=extras["num_samples"], per_sample=extras["per_sample"],
                    torch_checkpoint=extras["torch_checkpoint"], exported=extras["exported"],

@@ -251,7 +251,7 @@ class CondDCGANGenerator(nn.Module):
     def __init__(self, nz: int = 100, nc: int = 3, ngf: int = 64, num_classes: int = 10,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.z_size = nz
+        self.z_size, self.num_classes = nz, num_classes
         self.number_convs = int(math.log2(ngf)) - 3
         mult = 2 ** (self.number_convs - 1)
         self.label_embed = LabelEmbedding(num_classes, num_classes)

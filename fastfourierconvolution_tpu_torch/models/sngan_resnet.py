@@ -146,6 +146,7 @@ class SNGANGenerator(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.z_size, self.bottom_width, self.num_blocks = nz, bottom_width, num_blocks
+        self.num_classes = num_classes
         self.l1 = Dense(nz, bottom_width ** 2 * ngf, weight_init=xavier1)
         cin = ngf
         for i in range(num_blocks):

@@ -11,11 +11,11 @@ geometry is torch's:
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .cache import tensor_cache
 
 
 def conv2d(x, weight, *, stride=1, padding=0, dilation=1, groups=1) -> torch.Tensor:
@@ -46,13 +46,14 @@ def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
-@functools.lru_cache(maxsize=None)
+@tensor_cache
 def bilinear_up_matrix(n: int, scale: int, device: torch.device,
                        dtype: torch.dtype) -> torch.Tensor:
     """(scale * n, n) weights of a bilinear upsample along one axis with
     half-pixel centres (``align_corners=False``), on ``device`` in
-    ``dtype``. Cached: a captured CUDA graph reads the tensor the eager
-    step before the capture built, and nothing writes to it."""
+    ``dtype``. Cached outside tracing (``cache.tensor_cache``): a captured
+    CUDA graph reads the tensor the eager step before the capture built,
+    and nothing writes to it."""
     out = scale * n
     src = (np.arange(out, dtype=np.float64) + 0.5) / scale - 0.5
     lo = np.clip(np.floor(src), 0, n - 1).astype(np.int64)

@@ -24,6 +24,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .cache import tensor_cache
+
 
 @functools.lru_cache(maxsize=64)
 def forward_factors(h: int, w: int) -> Tuple[np.ndarray, ...]:
@@ -75,7 +77,7 @@ def inverse_factors(h: int, w: int) -> Tuple[np.ndarray, ...]:
     return eh_r, eh_i, fw_r, fw_i
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache
 def _factor_tensors(h: int, w: int, dtype: torch.dtype, device: torch.device):
     mats = forward_factors(h, w) + inverse_factors(h, w)
     return tuple(torch.from_numpy(m).to(device=device, dtype=dtype) for m in mats)
@@ -83,7 +85,8 @@ def _factor_tensors(h: int, w: int, dtype: torch.dtype, device: torch.device):
 
 def factors(h: int, w: int, dtype: torch.dtype, device) -> Tuple[torch.Tensor, ...]:
     """(ah, bh, cw, dw, eh_r, eh_i, fw_r, fw_i) as tensors of ``dtype`` on
-    ``device``; cached, so treat them as read-only."""
+    ``device``; cached outside tracing (``cache.tensor_cache``), so treat
+    them as read-only."""
     return _factor_tensors(h, w, dtype, torch.device(device))
 
 

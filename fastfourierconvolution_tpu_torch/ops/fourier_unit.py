@@ -60,7 +60,9 @@ feed them to the statistics stage and then to the apply stage
 (``_train_forward_staged``, ``_train_backward_staged``). It saves only (x,
 kernel, scale, bias, bmean, bvar) and returns bmean/bvar as
 non-differentiable outputs. ``fourier_unit_eval`` is the eval op, an
-autograd Function over ``fourier_unit_forward`` whose backward runs the
+autograd Function over the registered op ``ffc_torch::fourier_unit_forward``
+(``fourier_unit_op``: ``fourier_unit_forward`` on CUDA, the plain version
+on the CPU, a fake for ``torch.export``'s trace) whose backward runs the
 same backward kernels with the running statistics. Both backwards are
 themselves an autograd Function (``_FourierUnitBackward``), so the op has
 a double backward: the VJP of the plain backward, as the JAX package
@@ -675,6 +677,34 @@ def fourier_unit_forward(x, kernel, scale, bias, mean, var):
     return y
 
 
+# The eval forward as a registered op, ``ffc_torch::fourier_unit_forward``,
+# which ``_FourierUnitEval`` calls: ``torch.export`` records it in a serving
+# artifact as it is (``serving.export_generator``), and each call of the
+# artifact runs the implementation of its tensors' device, the kernel wrapper
+# above on CUDA (which counts its launches) and the plain version on the CPU.
+# Tracing runs only the fake implementation: it reaches no data pointer and
+# counts no launch.
+
+
+@torch.library.custom_op("ffc_torch::fourier_unit_forward", mutates_args=(),
+                         device_types="cuda")
+def fourier_unit_op(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+    """:func:`fourier_unit_forward` on CUDA, :func:`fourier_unit_forward_plain`
+    on the CPU, as one op that ``torch.export`` can trace."""
+    return fourier_unit_forward(x, kernel, scale, bias, mean, var)
+
+
+@fourier_unit_op.register_kernel("cpu")
+def _fourier_unit_op_cpu(x, kernel, scale, bias, mean, var):
+    return fourier_unit_forward_plain(x, kernel, scale, bias, mean, var)
+
+
+@fourier_unit_op.register_fake
+def _fourier_unit_op_fake(x, kernel, scale, bias, mean, var):
+    return torch.empty_like(x)
+
+
 @_counted
 def fu_reduce(partial, count=0):
     """Fixed-order sum over the rows of ``partial`` (rows, cols) f32, with
@@ -1056,7 +1086,7 @@ class _FourierUnitEval(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, kernel, scale, bias, mean, var):
         ctx.save_for_backward(x, kernel, scale, bias, mean, var)
-        return fourier_unit_forward(x, kernel, scale, bias, mean, var)
+        return fourier_unit_op(x, kernel, scale, bias, mean, var)
 
     @staticmethod
     def backward(ctx, gy):  # the running statistics get no gradient

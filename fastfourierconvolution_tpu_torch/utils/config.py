@@ -258,7 +258,8 @@ def parse_cli(
     --dataset, --data_path, --checkpoint, the sample and export flags),
     with the same commands and the same resulting ``Config``. The port
     adds ``--device`` (default ``cuda``), returned in ``extras`` with the
-    other flags that are no config field."""
+    other flags that are no config field; ``--platforms`` defaults to
+    ``cpu,cuda`` and refuses ``tpu``."""
     p = argparse.ArgumentParser(prog="python -m fastfourierconvolution_tpu_torch.cli")
     p.add_argument(
         "command",
@@ -278,13 +279,14 @@ def parse_cli(
     p.add_argument("--per_sample", action="store_true",
                    help="sample command: also save each image as a PNG")
     p.add_argument("--torch_checkpoint", default=None,
-                   help="sample/export command: a reference-repo .pth (not ported yet)")
+                   help="sample/export command: a reference-repo .pth")
     p.add_argument("--exported", default=None,
-                   help="sample command: a serving artifact (not ported yet)")
+                   help="sample command: a serving artifact (.ffcx)")
     p.add_argument("--output", default=None,
                    help="export command: artifact path")
-    p.add_argument("--platforms", default="cpu,tpu",
-                   help="export command: comma-separated lowering platforms")
+    p.add_argument("--platforms", default="cpu,cuda",
+                   help="export command: comma-separated platforms the artifact may run "
+                        "on (cpu, cuda)")
     p.add_argument("--debug", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="where to train or sample: cuda (the default) or cpu")
@@ -306,11 +308,16 @@ def parse_cli(
     if args.checkpoint:
         cfg.log.checkpoint = True
     apply_overrides(cfg, args.set)
+    platforms = tuple(s for s in args.platforms.split(",") if s)
+    if "tpu" in platforms:
+        raise SystemExit("--platforms tpu: the port's serving artifact runs on the CPU and "
+                         "on CUDA cards (--platforms cpu,cuda); a TPU artifact is the JAX "
+                         "package's export")
     extras = {"num_samples": args.num_samples,
               "per_sample": args.per_sample,
               "torch_checkpoint": args.torch_checkpoint,
               "exported": args.exported,
               "output": args.output,
-              "platforms": tuple(s for s in args.platforms.split(",") if s),
+              "platforms": platforms,
               "device": args.device}
     return args.command, cfg, extras

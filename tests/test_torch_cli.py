@@ -148,6 +148,10 @@ def test_parse_cli_matches_jax(argv):
     assert cfg.to_json() == jcfg.to_json()
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     assert extras.pop("device") == "cpu"
+    # the port's artifact runs on cpu and cuda: its default platforms
+    jax_platforms = jextras.pop("platforms")
+    assert extras.pop("platforms") == (jax_platforms if "--platforms" in argv
+                                       else ("cpu", "cuda"))
     assert extras == jextras
     assert config.parse_cli(argv)[2]["device"] == "cuda"
 
@@ -410,13 +414,16 @@ REFUSED = [
     (["train", *TINY, "--set", "eval.ppl=true"], NotImplementedError, "queue 1 item 8b"),
     (["train", *TINY, "--set", "train.tp=2"], NotImplementedError, "queue 1 item 10"),
     (["train", *TINY, "--set", "train.steps_per_call=4"], ValueError, "must divide"),
-    (["export", *TINY], NotImplementedError, "queue 1 item 9"),
-    (["fidelity", "a", "b"], NotImplementedError, "queue 1 item 9"),
     (["download", "--dataset", "mnist"], NotImplementedError, "queue 1 item 7"),
-    (["sample", *TINY, "--torch_checkpoint", "g.pth"], NotImplementedError, "queue 1 item 9"),
-    (["sample", *TINY, "--exported", "g.ffcx"], NotImplementedError, "queue 1 item 9"),
     (["sample", *TINY, "--num_samples", "0"], SystemExit, "num_samples"),
     (["sample", *TINY], SystemExit, "no checkpoint found"),
+    (["export", *TINY], SystemExit, "no checkpoint found"),
+    (["export", *TINY, "--platforms", "cpu,tpu"], SystemExit, "--platforms tpu"),
+    (["sample", *TINY, "--set", "model.generator=sngan_resnet", "--torch_checkpoint", "g.pth"],
+     SystemExit, "supports the 'ffc' generator"),
+    (["sample", *TINY, "--torch_checkpoint", "g.pth"], SystemExit, "no such checkpoint file"),
+    (["sample", *TINY, "--exported", "g.ffcx"], SystemExit, "no such serving artifact"),
+    (["--preset", "fgan32", "fidelity"], SystemExit, "put the command first"),
 ]
 
 
@@ -424,6 +431,21 @@ REFUSED = [
 def test_options_not_ported_are_refused(argv, error, message, tmp_path):
     with pytest.raises(error, match=message.replace(".", r"\.")):
         _run(argv + ["-o", str(tmp_path)])
+
+
+FIDELITY_REFUSED = [
+    (["fidelity", "a", "b"], SystemExit, "at least one of"),
+    (["fidelity", "a", "b", "-r"], NotImplementedError, "queue 1 item 8b"),
+    (["fidelity", "a", "-i", "-p"], NotImplementedError, "queue 1 item 8b"),
+    (["fidelity", "a", "-i"], SystemExit, "cannot resolve input 'a'"),
+    (["fidelity", "absent.ffcx", "-i"], SystemExit, "no such model file"),
+]
+
+
+@pytest.mark.parametrize("argv, error, message", FIDELITY_REFUSED, ids=lambda v: str(v)[:40])
+def test_fidelity_refusals(argv, error, message):
+    with pytest.raises(error, match=message.replace(".", r"\.")):
+        _run(argv)
 
 
 def test_refusals_at_start(tmp_path, monkeypatch):
@@ -460,3 +482,107 @@ def test_train_needs_only_torch_and_numpy(tmp_path):
     assert "WARNING: loss plot failed" in child.stdout
     assert {"000003.png", "gan_losses.csv", "scalars.jsonl"} <= set(os.listdir(run))
     assert "tb" not in os.listdir(run)
+
+
+# --- export, sample --exported, --torch_checkpoint, fidelity --------------------------
+
+
+def test_export_then_sample_exported_draws_the_checkpoints_grid(kid_run, tmp_path, capsys):
+    """``export`` of the 6-step TINY run (default path ``<run>/generator.ffcx``)
+    writes the JAX package's metadata; ``sample --exported`` draws the PNG
+    grid ``sample`` draws from the checkpoint, byte for byte."""
+    from fastfourierconvolution_tpu_torch.serving import read_artifact
+
+    run = kid_run[0]
+    _run(["export", *TINY, "-o", run])
+    assert "exported " + os.path.join(run, "generator.ffcx") in capsys.readouterr().out
+    meta, _ = read_artifact(os.path.join(run, "generator.ffcx"))
+    assert meta == {"z_size": 32, "z_type": "normal", "num_classes": 0, "image_size": 16,
+                    "channels": 3, "platforms": ["cpu", "cuda"], "step": 6}
+    served = str(tmp_path / "served")
+    _run(["sample", *TINY, "--exported", os.path.join(run, "generator.ffcx"),
+          "--num_samples", "5", "-o", served])
+    _run(["sample", *TINY, "--num_samples", "5", "-o", run])
+    with open(os.path.join(served, "samples_000006.png"), "rb") as a, \
+            open(os.path.join(run, "samples_000006.png"), "rb") as b:
+        assert a.read() == b.read()
+
+
+def _tiny_reference_checkpoint(path):
+    """A seeded reference-repo ``.pth`` (the FFCModel container) for TINY's
+    generator, and the JAX model it converts to."""
+    from fastfourierconvolution_tpu.zoo import build_generator as jbuild_generator
+
+    from test_torch_compat import reference_dict
+
+    jcfg = jconfig.apply_overrides(jconfig.make_config(), TINY[1::2])
+    jmodel = jbuild_generator(jcfg)
+    rngs = {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)}
+    shapes = jax.eval_shape(lambda z: jmodel.init(rngs, z, True), jnp.zeros((2, 32)))
+    torch.save({"model_state_dict": reference_dict(shapes, seed=5)}, path)
+    return jmodel
+
+
+def test_torch_checkpoint_samples_and_exports(tmp_path, capsys):
+    """``sample --torch_checkpoint`` draws from a reference ``.pth``;
+    ``export --torch_checkpoint`` gives an artifact whose images are within
+    1 uint8 level of the JAX package's generator on the JAX converter's
+    variables (f32)."""
+    import fastfourierconvolution_tpu.compat as jcompat
+    from fastfourierconvolution_tpu.models.ffc_gan import to_uint8 as jto_uint8
+    from fastfourierconvolution_tpu_torch.serving import load_exported
+
+    pth, out = str(tmp_path / "ref.pth"), str(tmp_path / "out")
+    jmodel = _tiny_reference_checkpoint(pth)
+    _run(["sample", *TINY, "--torch_checkpoint", pth, "--num_samples", "4", "-o", out])
+    assert f"INFO: sample from reference checkpoint {pth}" in capsys.readouterr().out
+    assert os.path.exists(os.path.join(out, "samples_000000.png"))
+    _run(["export", *TINY, "--torch_checkpoint", pth, "-o", out])
+    call, meta = load_exported(os.path.join(out, "generator.ffcx"), "cpu")
+    assert meta["step"] == 0
+    z = np.random.default_rng(6).normal(size=(3, 32)).astype(np.float32)
+    ours = call(z).numpy().astype(int)
+    variables = jcompat.convert_fgan_generator(pth, mg=2)
+    ref = np.asarray(jto_uint8(jmodel.apply(variables, jnp.asarray(z), False))).astype(int)
+    assert ref.std() > 5  # real images
+    assert np.abs(ours - ref).max() <= 1
+
+
+def _metric_flags_fidelity(n):
+    return ["-i", "-f", "-k", "--kid-subsets", "10", "--kid-subset-size", "8", "--isc-splits",
+            "2", "-b", "8", "--input1-model-num-samples", str(n), "--silent", "-j"]
+
+
+def test_fidelity_gives_calculate_metrics(kid_run, tmp_path, capsys, weights_free_home):
+    """``fidelity`` on .npz against .npz, and on the TINY run's artifact and
+    on its run directory (``--preset`` and TINY's ``--set``s) against .npz,
+    prints ``calculate_metrics``' numbers on the same inputs: the artifact
+    and the run directory the same, the same generator on the same
+    latents."""
+    from fastfourierconvolution_tpu_torch.eval import calculate_metrics
+    from fastfourierconvolution_tpu_torch.serving import exported_generative_model
+
+    rng = np.random.default_rng(7)
+    a, b = (rng.integers(0, 256, (16, 16, 16, 3), dtype=np.uint8) for _ in range(2))
+    np.savez(tmp_path / "a.npz", images=a)
+    np.savez(tmp_path / "b.npz", images=b)
+    keywords = dict(isc=True, fid=True, kid=True, kid_subsets=10, kid_subset_size=8,
+                    isc_splits=2, batch_size=8, input1_model_num_samples=16, device="cpu")
+
+    def printed(argv):
+        capsys.readouterr()
+        _run(["fidelity", *argv, *_metric_flags_fidelity(16)])
+        return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+    arrays = printed([str(tmp_path / "a.npz"), str(tmp_path / "b.npz")])
+    assert arrays == {k: float(v) for k, v in calculate_metrics(a, b, **keywords).items()}
+
+    run = kid_run[0]
+    artifact = os.path.join(run, "generator.ffcx")
+    if not os.path.exists(artifact):
+        _run(["export", *TINY, "-o", run])
+    served = printed([artifact, str(tmp_path / "b.npz")])
+    want = calculate_metrics(exported_generative_model(artifact, "cpu"), b, **keywords)
+    assert served == {k: float(v) for k, v in want.items()}
+    assert printed([run, str(tmp_path / "b.npz"), "--preset", "fgan32",
+                    *[f"--set={kv}" for kv in TINY[1::2]]]) == served

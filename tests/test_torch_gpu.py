@@ -101,6 +101,56 @@ def test_served_request_launches_the_kernel_twice(cuda):
     assert fourier_unit_forward.launches == before + 2
 
 
+def test_serving_artifact_launches_the_kernel_per_map_and_request(cuda, tmp_path):
+    """The 32px generator exported on the card in bf16 (``serving``): the
+    trace launches nothing; the artifact, loaded again, serves batches 1, 5
+    and 64 (the trace's example batch is 2) with the bits of the in-process
+    ``generate`` and one forward-kernel launch per FourierUnit map and
+    request."""
+    from fastfourierconvolution_tpu_torch import serving
+
+    server = Generator.from_preset(32, generator=torch.Generator().manual_seed(2), device=cuda)
+    before = dict(fourier_unit_forward.launches_by_map)
+    blob = serving.export_generator(server.sampler(), z_size=128, image_size=32)
+    assert dict(fourier_unit_forward.launches_by_map) == before
+    path = str(tmp_path / "g.ffcx")
+    serving.save_exported(path, blob)
+    call, meta = serving.load_exported(path, "cuda")
+    maps = [(16, 16, 16), (8, 32, 32)]
+    g = torch.Generator().manual_seed(3)
+    for batch in (1, 5, 64):
+        z = torch.randn(batch, 128, generator=g).to(cuda)
+        counts = {m: fourier_unit_forward.launches_by_map[m] for m in maps}
+        images = call(z)
+        torch.cuda.synchronize()
+        assert {m: fourier_unit_forward.launches_by_map[m] - counts[m] for m in maps} == {
+            m: 1 for m in maps}
+        assert images.shape == (batch, 32, 32, 3) and images.device.type == "cuda"
+        assert torch.equal(images, server.generate(z))
+
+
+def test_an_export_on_the_card_leaves_the_eager_forward_real(cuda):
+    """A class-conditional FourierUnit's factor form traced on the card
+    with the DFT-factor cache empty: the eager forward after the export
+    returns real tensors, the bits of the one before it."""
+    from fastfourierconvolution_tpu_torch.ops import fourier
+    from fastfourierconvolution_tpu_torch.serving import Sampler
+
+    model = FFCCondGenerator(z_size=16, num_classes=3, ngf=16, ratio_g=0.5, mg=4,
+                             channel_mults=(2, 1), cond_spectral_bn=True,
+                             generator=torch.Generator().manual_seed(4)).to(cuda).eval()
+    sampler = Sampler(model, torch.float32, conditional=True)
+    z = torch.randn(3, 16, generator=torch.Generator().manual_seed(5)).to(cuda)
+    labels = torch.arange(3, device=cuda)
+    with torch.no_grad():
+        before = sampler(z, labels)
+        fourier._factor_tensors.cache_clear()
+        batch = torch.export.Dim("b", min=1, max=65535)
+        torch.export.export(sampler, (z, labels), dynamic_shapes=({0: batch}, {0: batch}))
+        after = sampler(z, labels)
+    assert type(after) is torch.Tensor and torch.equal(after, before)
+
+
 def _train_case(name, shape, dtype, device):
     """(kernel wrapper, plain version, arguments) for a training kernel at
     ``shape``; the backward's statistics come from the plain version in
