@@ -209,8 +209,24 @@ Phases, each of which raises on a failed check:
     within ``FIDELITY_TOL`` of each other), and ``export
     --torch_checkpoint`` of a seeded reference-layout ``.pth`` against the
     converted model's ``generate``;
-30. a check that every kernel was launched on the main path (phases 4, 6,
-    10, 13, 14, 15, the CLI runs, phases 24-25, 28 and 29), a
+30. the rest of the metric pipeline: the VGG16 (fc2, fc2_relu), LPIPS
+    (resize 64), ``clip-vit-b-32``, ``clip-rn50`` and ``dinov2-vit-s-14``
+    extractors at their official sizes with seeded weights, on the card
+    against the same module on the CPU (f32, TF32 off) within 1e-3, two
+    calls giving the same bits, with ms per image and the share of the f32
+    peak; PRC under the default extractors (the dual split: InceptionV3
+    for ISC and FID, VGG16 for PRC) of the fgan32 generator (bf16) on the
+    card, with exact eval-forward launches (one per map and request in
+    each half of the split); PPL of the fgan32 generator (bf16, batch 64,
+    2,048 samples) with exact launches (two per map and batch), the same
+    bits on a second call, LPIPS on the card against the CPU on one
+    batch's image pairs within 1e-4 relative each, and PPL's seconds per
+    10,000 samples; then through the CLI: fgan32 ``train`` with
+    ``eval.prc`` and ``eval.ppl``, ``export`` of its run directory, and
+    ``fidelity -r -p`` of the run directory and of the artifact against
+    the shapes set, every metric key present and finite, exact launches;
+31. a check that every kernel was launched on the main path (phases 4, 6,
+    10, 13, 14, 15, the CLI runs, phases 24-25 and 28-30), a
     ``{"wrapper_calls": [...]}`` JSON line (the staged wrapper and training-op calls, all their stages
     together), a ``{"kernels": [...]}`` JSON line, then the
     ``{"ok": true, ...}`` line.
@@ -3587,6 +3603,280 @@ def cli_serving(device, card, tmp):
             "serving-reference-artifact": counts_ref}
 
 
+# --- phase 30: VGG16 and LPIPS, PPL, the CLIP and DINOv2 extractors, PRC's split --------
+
+# Card against CPU, f32 with TF32 off: each extractor's features within
+# EXTRACTOR_TOL of their largest value (rel-max) on EXTRACTOR_CHECK images;
+# PPL's distances on the card within PPL_LPIPS_TOL of the CPU's, each
+# relative to itself, on PPL_LPIPS_PAIRS image pairs of one batch.
+EXTRACTOR_TOL = 1e-3
+EXTRACTOR_CHECK = 8
+PPL_LPIPS_TOL = 1e-4
+PPL_LPIPS_PAIRS = 16
+PPL_SAMPLES = 2048
+PPL_BATCHES = -(-PPL_SAMPLES // BATCH)
+PRC_SAMPLES = 512
+PRC_REQUESTS = -(-PRC_SAMPLES // BATCH)
+# phase 30's CLI run: one epoch of one chunk, its PRC and PPL on this many
+# samples, and ``fidelity -r -p`` on as many
+METRIC_CLI_SAMPLES = 1024
+METRIC_CLI_REQUESTS = -(-METRIC_CLI_SAMPLES // BATCH)
+PRC_KEYS = ("precision", "recall", "f_score")
+PPL_KEYS = ("perceptual_path_length_mean", "perceptual_path_length_std")
+
+
+def seeded_extractors():
+    """{name: (CPU module, the tap it returns)}: the official sizes, weights
+    from seeded draws (VGG16 and LPIPS from a seeded torch generator, CLIP
+    and DINOv2 from the numpy state dicts the JAX package draws)."""
+    import numpy as np
+    import torch
+
+    from fastfourierconvolution_tpu_torch.eval import clip, dinov2, lpips
+
+    g = lambda k: torch.Generator().manual_seed(SEED + k)
+    return {
+        "vgg16": (lpips.create_vgg16(("fc2", "fc2_relu"), generator=g(90), device="cpu"),
+                  ("fc2", "fc2_relu")),
+        "lpips-vgg16": (lpips.create_lpips(64, generator=g(91), device="cpu"), None),
+        "clip-vit-b-32": (clip.create_clip_extractor(name="clip-vit-b-32", device="cpu",
+                                                     rng=np.random.RandomState(SEED + 92)),
+                          ("clip",)),
+        "clip-rn50": (clip.create_clip_extractor(name="clip-rn50", device="cpu",
+                                                 rng=np.random.RandomState(SEED + 93)),
+                      ("clip",)),
+        "dinov2-vit-s-14": (dinov2.create_dinov2_extractor(
+            device="cpu", rng=np.random.RandomState(SEED + 94)), ("dinov2",)),
+    }
+
+
+def check_extractors(device, card):
+    """Phase 30's extractors: each on the card against the CPU on
+    EXTRACTOR_CHECK uint8 32x32 images (LPIPS on as many pairs), two card
+    calls the same bits, ms per image at batch 64 (CUDA events) and the
+    share of the f32 peak."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from fastfourierconvolution_tpu_torch.eval import pipeline as P
+
+    shapes, noise = eval_sets(SEED + 95)
+    x = torch.from_numpy(shapes[:EXTRACTOR_CHECK])
+    y = torch.from_numpy(noise[:EXTRACTOR_CHECK])
+    xs = torch.from_numpy(np.concatenate([shapes, noise])[:BATCH]).to(device)
+    ys = torch.from_numpy(noise[:BATCH]).to(device)
+    failures = []
+    for name, (cpu, taps) in seeded_extractors().items():
+        on_card = copy.deepcopy(cpu).to(device)
+        pair = taps is None  # LPIPS takes two batches
+        with torch.inference_mode(), P._full_f32():
+            run = (lambda m, a, b: {"lpips": m(a, b)}) if pair else (lambda m, a, b: m(a))
+            ref = run(cpu, x, y)
+            out = run(on_card, x.to(device), y.to(device))
+            again = run(on_card, x.to(device), y.to(device))
+            torch.cuda.synchronize()
+            gaps = {k: rel_max(out[k].cpu(), ref[k])[0] for k in ref}
+            same = all(torch.equal(out[k], again[k]) for k in out)
+            ms = time_ms(lambda: run(on_card, xs, ys)) / BATCH
+        with torch.no_grad(), P._full_f32():
+            gflop = (step_flops(lambda: on_card(xs[:8], ys[:8])) / 8 / 1e9 if pair
+                     else extractor_gflop(on_card, xs[:8]))
+        share = gflop / ms * 1e12 / PEAK_FLOP_PER_S["float32"]
+        log(f"{name}, seeded weights at the official size, f32 (TF32 off), "
+            f"{EXTRACTOR_CHECK} uint8 32x32 images{' (pairs)' if pair else ''}: card against "
+            f"CPU rel-max {({k: f'{v:.2e}' for k, v in gaps.items()})} (tol {EXTRACTOR_TOL:g}), "
+            f"two card calls the same bits: {same}; {ms:.4f} ms per image"
+            f"{' pair' if pair else ''} at batch {BATCH} (CUDA events), {gflop:.3f} GFLOP "
+            f"(flop_counter), {gflop / ms:.1f} TFLOP/s, {share:.3f} of the f32 peak; {card}")
+        if max(gaps.values()) > EXTRACTOR_TOL or not same:
+            failures.append(name)
+        del on_card
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"extractors on the card: {failures}")
+
+
+def fgan32_generative(device, trainer, record=None):
+    """fgan32's ``generate(z, uint8=True)`` as a GenerativeModel on the card;
+    ``record`` (a list) collects each request's images."""
+    from fastfourierconvolution_tpu_torch.eval import GenerativeModel
+
+    def apply(z, labels=None):
+        images = trainer.generate(z, labels, uint8=True)
+        if record is not None:
+            record.append(images)
+        return images
+
+    return GenerativeModel(apply=apply, z_size=trainer.z_size, device=device)
+
+
+def check_prc_split(device, card, trainer):
+    """Phase 30's PRC under the default extractors: ISC, FID and PRC of the
+    fgan32 generator against the shapes set, weights-free, on the card (the
+    dual split); exact launches. Returns them."""
+    import numpy as np
+
+    from fastfourierconvolution_tpu_torch.data.datasets import ShapesDataset
+    from fastfourierconvolution_tpu_torch.eval import calculate_metrics
+
+    real = ShapesDataset(n=PRC_SAMPLES, size=32, seed=SEED + 96).images
+    zero_counts()
+    t0 = time.perf_counter()
+    out = calculate_metrics(fgan32_generative(device, trainer), real, isc=True, fid=True,
+                            prc=True, input1_model_num_samples=PRC_SAMPLES, batch_size=BATCH,
+                            cache=False, device=device)
+    seconds = time.perf_counter() - t0
+    counts = counts_by_map()
+    want = eval_launches(FU_SHAPES, 2 * PRC_REQUESTS)
+    keys = ("inception_score_mean", "frechet_inception_distance") + PRC_KEYS
+    log(f"calculate_metrics(isc, fid, prc) of fgan32 (bf16, weights-free extractors: "
+        f"InceptionV3 for ISC and FID, VGG16 for PRC) on {PRC_SAMPLES} samples against "
+        f"shapes: {({k: f'{v:.5g}' for k, v in out.items()})} in {seconds:.2f} s (host clock, "
+        f"both extractors built in it); fourier_unit_fwd launches per 32px map "
+        f"{({m: n for m, n in counts['fourier_unit_fwd'].items()})} ({PRC_REQUESTS} requests "
+        f"in each half of the split); {card}")
+    if counts != want or not all(k in out and np.isfinite(out[k]) for k in keys):
+        raise AssertionError(f"PRC split: {out}, launches {counts}, want {want}")
+    return counts
+
+
+def check_ppl(device, card, trainer):
+    """Phase 30's PPL of the fgan32 generator (bf16, batch 64, PPL_SAMPLES
+    samples, weights-free LPIPS): exact launches, the same bits on a second
+    call, the first batch's pairs through LPIPS on the card and on the CPU,
+    and the seconds per 10,000 samples. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from fastfourierconvolution_tpu_torch.eval import lpips
+    from fastfourierconvolution_tpu_torch.eval import pipeline as P
+    from fastfourierconvolution_tpu_torch.eval.ppl import KEY_PPL_RAW, calculate_ppl
+
+    runs, seconds, images = [], [], []
+    for i in range(2):
+        record = [] if i == 0 else None
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(calculate_ppl(fgan32_generative(device, trainer, record),
+                                  num_samples=PPL_SAMPLES, batch_size=BATCH, reduction="none",
+                                  device=device))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if i == 0:
+            counts, images = counts_by_map(), record[:2]
+    want = eval_launches(FU_SHAPES, 2 * PPL_BATCHES)
+    same = all(np.array_equal(runs[0][k], runs[1][k]) for k in runs[0])
+    a, b = (t[:PPL_LPIPS_PAIRS] for t in images)
+    with torch.inference_mode(), P._full_f32():
+        on_card = lpips.create_lpips(64, device=device)(a, b).cpu().double()
+        on_cpu = lpips.create_lpips(64, device="cpu")(a.cpu(), b.cpu()).double()
+    gaps = (on_card - on_cpu).abs() / on_cpu.abs().clamp_min(1e-30)
+    gap = gaps[on_cpu != 0].max().item() if (on_cpu != 0).any() else 0.0
+    zeros_agree = torch.equal(on_card == 0, on_cpu == 0)
+    raw = runs[0][KEY_PPL_RAW]
+    log(f"PPL of fgan32 (bf16, batch {BATCH}, {PPL_SAMPLES} samples, epsilon 1e-4, lerp, "
+        f"weights-free LPIPS at 64): mean {runs[0]['perceptual_path_length_mean']:.6g}, std "
+        f"{runs[0]['perceptual_path_length_std']:.6g}, {len(raw)} distances after the 1-99 "
+        f"percentile filter; a second call the same bits: {same}; {seconds[0]:.3f} s and "
+        f"{seconds[1]:.3f} s (host clock, the LPIPS net built in each), "
+        f"{seconds[1] * 1e4 / PPL_SAMPLES:.3f} s per 10,000 samples; fourier_unit_fwd launches "
+        f"per 32px map {({m: n for m, n in counts['fourier_unit_fwd'].items()})} (two per map "
+        f"and batch, {PPL_BATCHES} batches); LPIPS on the card against the CPU on "
+        f"{PPL_LPIPS_PAIRS} of its image pairs: largest relative gap {gap:.2e} (tol "
+        f"{PPL_LPIPS_TOL:g}), {int((on_cpu == 0).sum())} pairs at 0 on both: {zeros_agree}; "
+        f"{card}")
+    if counts != want or not same or gap > PPL_LPIPS_TOL or not zeros_agree:
+        raise AssertionError(f"PPL: launches {counts} (want {want}), same bits {same}, "
+                             f"LPIPS gap {gap}, zeros agree {zeros_agree}")
+    if not all(np.isfinite(runs[0][k]).all() for k in runs[0]):
+        raise AssertionError(f"PPL: {runs[0]}")
+    return counts
+
+
+def cli_prc_ppl(device, card, tmp):
+    """Phase 30 through the CLI: fgan32 ``train`` one chunk with ``eval.prc``
+    and ``eval.ppl`` on METRIC_CLI_SAMPLES samples (weights-free),
+    ``export`` of its run directory, then ``fidelity -r -p`` of the run
+    directory and of the artifact against the shapes set, side by side:
+    every metric key present and finite, exact launches. Returns them."""
+    import numpy as np
+
+    run = os.path.join(tmp, "fgan32-prc-ppl")
+    env = dict(os.environ, FFC_TPU_HOME=os.path.join(tmp, "ffc_home_prc_ppl"))
+    for name in ("FFC_TPU_INCEPTION_WEIGHTS", "FFC_TPU_VGG16_WEIGHTS", "FFC_TPU_LPIPS_WEIGHTS"):
+        env.pop(name, None)
+    n = str(METRIC_CLI_SAMPLES)
+    stdout, counts_train = cli_run(
+        "fgan32-train-prc-ppl",
+        ["train", "--preset", "fgan32", "--set", f"train.num_epoch_steps={CLI_K}",
+         "--set", "eval.prc=true", "--set", "eval.ppl=true",
+         "--set", f"eval.num_samples_for_metrics={n}", "--checkpoint", "-e", str(CLI_K)],
+        run, timeout=600, env=env)
+    with open(os.path.join(run, "scalars.jsonl")) as f:
+        evals = [r for r in map(json.loads, f) if "eval_seconds" in r]
+    requests = METRIC_CLI_REQUESTS * 3  # PRC's one per batch, PPL's two
+    want = cli_train_launches(32, FU_SHAPES, grids=1 + requests)
+    logged = {k: evals[-1].get(f"metrics/{k}") for k in PRC_KEYS + PPL_KEYS} if evals else {}
+    if ("WARNING: metrics failed" in stdout or [r["step"] for r in evals] != [CLI_K]
+            or not all(v is not None and np.isfinite(v) for v in logged.values())
+            or counts_train != want):
+        raise AssertionError(f"cli fgan32 prc/ppl: evals {evals}, launches {counts_train}, "
+                             f"want {want}; {stdout[-2000:]}")
+    _, counts_export = cli_run("fgan32-export-prc-ppl", ["export", "--preset", "fgan32"], run,
+                               env=env)
+    flags = ["-r", "-p", "-j", "--silent", "--device", "cuda", "--input1-model-num-samples", n,
+             "--input2-model-num-samples", n, "--datasets-root", tmp]
+    jobs = [cli_start(f"fidelity-prc-ppl-{name}", ["fidelity", spec, "shapes-32", *flags, *extra],
+                      tmp, env=env, common=False)
+            for name, spec, extra in (
+                ("run-dir", run, ["--preset", "fgan32", "--set", "train.precision=bf16",
+                                  "--set", "data.dataset=shapes"]),
+                ("artifact", os.path.join(run, "generator.ffcx"), []))]
+    scores, counts = {}, {}
+    for (name, *_), job in zip((("run-dir",), ("artifact",)), jobs):
+        stdout, counts[name] = cli_wait(job)
+        scores[name] = json.loads(stdout.strip().splitlines()[-1])
+    want_fidelity = eval_launches(FU_SHAPES, requests)
+    log(f"cli fgan32 train with eval.prc and eval.ppl ({n} samples, weights-free VGG16 and "
+        f"LPIPS): logged {({k: f'{v:.5g}' for k, v in logged.items()})}, eval_seconds "
+        f"{evals[-1]['eval_seconds']:.3f}; fidelity -r -p ({n} samples against shapes-32) of "
+        f"the run directory {scores['run-dir']} and of its artifact {scores['artifact']}; "
+        f"fourier_unit_fwd launches per 32px map {METRIC_CLI_REQUESTS} for PRC and "
+        f"{2 * METRIC_CLI_REQUESTS} for PPL in each run; {card}")
+    for name, got in scores.items():
+        if (sorted(got) != sorted(PRC_KEYS + PPL_KEYS)
+                or not all(np.isfinite(v) for v in got.values())
+                or counts[name] != want_fidelity):
+            raise AssertionError(f"fidelity -r -p {name}: {got}, launches {counts[name]}, "
+                                 f"want {want_fidelity}")
+    if counts_export != {k: {} for k in launch_wrappers()}:
+        raise AssertionError(f"cli fgan32 export launched {counts_export}")
+    return {"cli-fgan32-prc-ppl": counts_train,
+            **{f"fidelity-prc-ppl-{k}": v for k, v in counts.items()}}
+
+
+def check_metric_extras(device, card):
+    """Phase 30: the extractors, PRC's split, PPL and the CLI (see the module
+    docstring). Returns the main-path launches by run."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.eval import pipeline as P
+
+    check_extractors(device, card)
+    trainer = cli_trainer(device, "fgan32", "bf16")
+    counts = {"eval-prc-split": check_prc_split(device, card, trainer),
+              "eval-ppl": check_ppl(device, card, trainer)}
+    del trainer
+    P._EXTRACTOR_CACHE.clear()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_metrics_") as tmp:
+        counts.update(cli_prc_ppl(device, card, tmp))
+    return counts
+
+
 # --- phase 0: a process's first run of a configuration ---------------------------------
 
 # The configurations whose first run in a process differed in its last bits
@@ -3974,12 +4264,18 @@ def main() -> int:
     artifact_counts = serve_artifacts(device, card, cli_tmp.name)
     serving_counts = cli_serving(device, card, cli_tmp.name)
     cli_tmp.cleanup()
+    phase("30: VGG16 and LPIPS, PPL, the CLIP and DINOv2 extractors, PRC's dual split, "
+          "and train / fidelity with PRC and PPL through the CLI")
+    metric_counts = check_metric_extras(device, card)
     for row in rows:
         if row["name"] in artifact_counts and row.get("maps", 1) == 1:
-            row["artifact_launches"] = artifact_counts[row["name"]].get(
-                tuple(row["shape"][1:]), 0)
-            row["launches"] = row.get("launches", 0) + row["artifact_launches"]
-    phase("30: result")
+            key = tuple(row["shape"][1:])
+            row["artifact_launches"] = artifact_counts[row["name"]].get(key, 0)
+            row["prc_ppl_launches"] = sum(c.get(row["name"], {}).get(key, 0)
+                                          for c in metric_counts.values())
+            row["launches"] = (row.get("launches", 0) + row["artifact_launches"]
+                               + row["prc_ppl_launches"])
+    phase("31: result")
     check_main_path_launches({"serving-32px": {"fourier_unit_fwd": by_map},
                               "training-32px": counts_32, "training-128px": counts,
                               "training-sngan": counts_sngan, "training-cond32": counts_c32,
@@ -3987,7 +4283,8 @@ def main() -> int:
                               "training-cond48": counts_c48, **cli_counts,
                               "lfu-blocks": counts_lfu, "training-cond-sn-d": counts_snd,
                               **remat_counts, **eval_counts,
-                              "serving-artifacts": artifact_counts, **serving_counts})
+                              "serving-artifacts": artifact_counts, **serving_counts,
+                              **metric_counts})
     log(json.dumps({"wrapper_calls": calls}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -50,7 +50,10 @@ buffer filled; anything else raises.
 
 ``inception_variables_to_state_dict`` maps the JAX package's InceptionV3
 variables (``eval/inception.py``) to the port's ``eval.inception``
-names, torch-fidelity's.
+names, torch-fidelity's; ``vgg16_variables_to_state_dict`` and
+``lpips_variables_to_state_dict`` map its VGG16 and LPIPS variables
+(``eval/lpips.py``) to the port's ``eval.lpips`` names, torchvision's and
+the toshas heads'.
 """
 
 from __future__ import annotations
@@ -258,4 +261,47 @@ def inception_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Ten
         else:
             raise KeyError(f"JAX InceptionV3 leaf params/{'/'.join(path)} has no port entry")
         state[name] = torch.from_numpy(np.array(value, order="C"))
+    return state
+
+
+def _vgg_features_state(features: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """JAX ``conv{li}_kernel`` (HWIO) and ``conv{li}_bias`` to torchvision's
+    ``features.{i}.weight`` (OIHW) and ``.bias``, under ``prefix``."""
+    from .eval.lpips import TORCH_CONV_IDX
+
+    state: Dict[str, torch.Tensor] = {}
+    for li, i in enumerate(TORCH_CONV_IDX):
+        state[f"{prefix}{i}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(features[f"conv{li}_kernel"]).transpose(3, 2, 0, 1)))
+        state[f"{prefix}{i}.bias"] = torch.from_numpy(np.array(features[f"conv{li}_bias"]))
+    return state
+
+
+def vgg16_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``eval.lpips.VGG16`` state dict for the JAX package's VGG16
+    variables: the convolutions HWIO to OIHW; ``fc0_kernel`` (25088, 4096),
+    whose rows run over the NHWC-flattened (7, 7, 512) pool, back to
+    torchvision's ``classifier.0.weight`` (4096, 25088) over the
+    NCHW-flattened pool; ``fc1_kernel`` transposed to ``classifier.3``."""
+    params = variables["params"]
+    state = _vgg_features_state(params["features"], "features.")
+    w0 = np.asarray(params["fc0_kernel"]).reshape(7, 7, 512, 4096).transpose(3, 2, 0, 1)
+    state["classifier.0.weight"] = torch.from_numpy(np.ascontiguousarray(w0.reshape(4096, -1)))
+    state["classifier.0.bias"] = torch.from_numpy(np.array(params["fc0_bias"]))
+    state["classifier.3.weight"] = torch.from_numpy(
+        np.ascontiguousarray(np.asarray(params["fc1_kernel"]).T))
+    state["classifier.3.bias"] = torch.from_numpy(np.array(params["fc1_bias"]))
+    return state
+
+
+def lpips_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``eval.lpips.LPIPS`` state dict for the JAX package's LPIPS
+    variables: the backbone (``net``) as in ``vgg16_variables_to_state_dict``,
+    each head ``lin{i}_kernel`` (C, 1) to ``lin{i}.model.1.weight``
+    (1, C, 1, 1)."""
+    params = variables["params"]
+    state = _vgg_features_state(params["net"], "net.")
+    for i in range(5):
+        k = np.asarray(params[f"lin{i}_kernel"])
+        state[f"lin{i}.model.1.weight"] = torch.from_numpy(np.array(k.T.reshape(1, -1, 1, 1)))
     return state

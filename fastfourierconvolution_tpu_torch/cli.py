@@ -13,9 +13,10 @@ there to the JAX CLI's f32 values (``unit_levels``), runs ``train.steps_per_call
 call (on the card, replays of the step's captured CUDA graph), logs the
 losses every ``log.log_every`` steps, and every ``train.num_epoch_steps``
 steps evaluates the metrics the config switches on (``eval.isc``,
-``eval.fid``, ``eval.kid``: ``eval.calculate_metrics`` on
-``eval.num_samples_for_metrics`` samples of ``GANTrainer.generate``
-against the training set's registered real set, logged as
+``eval.fid``, ``eval.kid``, ``eval.prc``, ``eval.ppl``:
+``eval.calculate_metrics`` on ``eval.num_samples_for_metrics`` samples of
+``GANTrainer.generate`` against the training set's registered real set,
+logged as
 ``metrics/<key>`` with ``eval_seconds``; the best leading metric's
 checkpoint kept in ``checkpoints/best/`` with
 ``log.best_metric_checkpoints``), writes a fixed-latent sample grid and
@@ -28,17 +29,15 @@ serving artifact (``--exported``). ``export`` writes the eval-mode
 generator of the newest checkpoint (or of a ``--torch_checkpoint``) as a
 serving artifact (``serving.export_generator``, default
 ``<dir_logs>/generator.ffcx``; ``--platforms`` cpu and cuda). ``fidelity``,
-which must come first on the command line, computes ISC, FID and KID
-(``eval.calculate_metrics``) of two inputs with torch-fidelity's flags:
+which must come first on the command line, computes ISC, FID, KID, PRC and
+PPL (``eval.calculate_metrics``) of two inputs with torch-fidelity's flags:
 registered datasets, ``.npz``/``.npy`` arrays, serving artifacts,
 TorchScript and ONNX models, run directories with checkpoints (through
 ``--preset``), directories of images and ``<dataset>-<size>`` names. All
 run on ``cuda`` unless ``--device cpu`` is given.
 
-Not ported yet, and refused at start: ``eval.ppl`` and ``eval.prc`` and
-fidelity's ``--ppl`` and ``--prc`` (PRC's default extractor is VGG16;
-ROADMAP queue 1 item 8b), ``train.tp`` above 1 and multi-process runs,
-and the ``download`` command. ``log.compilation_cache`` is the JAX
+Not ported yet, and refused at start: ``train.tp`` above 1 and
+multi-process runs, and the ``download`` command. ``log.compilation_cache`` is the JAX
 package's XLA compile cache: accepted, and nothing in the port reads it.
 """
 
@@ -57,10 +56,6 @@ import torch
 
 # environment variables of the JAX CLI's multi-process launch
 _DISTRIBUTED_ENV = ("FFC_TPU_COORDINATOR", "FFC_TPU_DISTRIBUTED")
-# The metrics whose extractors are not ported yet (ROADMAP queue 1 item 8b):
-# PPL's LPIPS over VGG16, and VGG16, PRC's default extractor.
-_ITEM_8B_METRICS = {"prc": "PRC's default feature extractor, VGG16,",
-                    "ppl": "PPL (LPIPS over VGG16)"}
 # The leading metric of best-metric checkpoints: its key and the sign that
 # makes larger better (ISC higher, FID/KID/PPL lower is better).
 _LEADING = {"ISC": ("inception_score_mean", +1), "FID": ("frechet_inception_distance", -1),
@@ -93,12 +88,6 @@ def trainer_keywords(cfg) -> dict:
 def _refuse_unported(cfg) -> None:
     """Raise NotImplementedError for the training options the port does
     not have yet, before any work starts."""
-    on = [name for name in _ITEM_8B_METRICS if getattr(cfg.eval, name)]
-    if on:
-        raise NotImplementedError(
-            f"eval.{on[0]}: {_ITEM_8B_METRICS[on[0]]} is not ported yet (ROADMAP queue 1 "
-            f"item 8b): train without it, e.g. "
-            f"{' '.join(f'--set eval.{name}=false' for name in on)}")
     if int(cfg.train.tp) != 1:
         raise NotImplementedError(f"train.tp={cfg.train.tp}: tensor parallelism is not ported "
                                   f"yet (ROADMAP queue 1 item 10)")
@@ -205,7 +194,7 @@ class _Feed:
 
 
 def _register_real_set(cfg, dataset) -> str:
-    """Register the training data's eval-side real set for FID and KID and
+    """Register the training data's eval-side real set for FID, KID and PRC and
     return its name, ``{dataset}-{size}[-{tag}]-n{num_samples}``, which keys
     the feature cache: a path-dependent dataset or an aug stack adds a
     content tag (sha1 of the data directory and the stack). The set holds
@@ -232,8 +221,8 @@ def _register_real_set(cfg, dataset) -> str:
 
 
 class _EpochEval:
-    """``train``'s evaluation at an epoch boundary: the config's ISC, FID and
-    KID of ``eval.num_samples_for_metrics`` samples of
+    """``train``'s evaluation at an epoch boundary: the config's ISC, FID,
+    KID, PRC and PPL of ``eval.num_samples_for_metrics`` samples of
     ``GANTrainer.generate`` (eval mode, latents and labels from the
     pipeline's own generators, so the trainer's state is not touched)
     against the registered real set, logged as ``metrics/<key>`` with
@@ -244,20 +233,29 @@ class _EpochEval:
 
     def __init__(self, cfg, trainer, dataset, device, ckpt_dir, logger):
         from .eval.inception import weights_available
+        from .eval.lpips import LPIPS_WEIGHTS_ENV_VAR, vgg16_weights_path
 
         self.cfg, self.trainer, self.device, self.logger = cfg, trainer, device, logger
         self.best_dir = os.path.join(ckpt_dir, "best")
         e = cfg.eval
-        self.on = e.isc or e.fid or e.kid
-        if (e.fid or e.kid) and e.input2_dataset is None:
+        self.on = e.isc or e.fid or e.kid or e.prc or e.ppl
+        if (e.fid or e.kid or e.prc) and e.input2_dataset is None:
             e.input2_dataset = _register_real_set(cfg, dataset)
         self.lead_key, self.lead_sign = _LEADING.get(e.leading_metric.upper(), _LEADING["ISC"])
         self.best = None
-        self.weights_free = self.on and not weights_available(e.feature_extractor_weights_path)
+        self.weights_free = ((e.isc or e.fid or e.kid)
+                             and not weights_available(e.feature_extractor_weights_path))
         if self.weights_free:
             print("WARNING: no InceptionV3 weights found — metrics run in weights-free "
                   "shallow-tap mode (relative trends only; not comparable to published FID/ISC "
                   "numbers, nor to the JAX package's weights-free numbers)")
+        free = [what for what, on, path in (
+            ("VGG16 (PRC)", e.prc, vgg16_weights_path(e.vgg_weights_path)),
+            ("LPIPS (PPL)", e.ppl, e.lpips_weights_path or os.environ.get(LPIPS_WEIGHTS_ENV_VAR)))
+            if on and not path]
+        if free:
+            print(f"WARNING: no {' or '.join(free)} weights found — weights-free nets (relative "
+                  f"trends only)")
 
     def __call__(self, step: int) -> None:
         from .eval import GenerativeModel, calculate_metrics
@@ -273,11 +271,14 @@ class _EpochEval:
                 z_size=cfg.model.z_size,
                 num_classes=cfg.model.num_classes if cfg.model.conditional else 0,
                 device=self.device)
+            with_real = e.input2_dataset is not None
             out = calculate_metrics(
-                gm, e.input2_dataset, isc=e.isc, fid=e.fid, kid=e.kid, prc_input1_generated=True,
-                input1_model_num_samples=e.num_samples_for_metrics,
+                gm, e.input2_dataset, isc=e.isc, fid=e.fid and with_real,
+                kid=e.kid and with_real, prc=e.prc and with_real, ppl=e.ppl,
+                prc_input1_generated=True, input1_model_num_samples=e.num_samples_for_metrics,
                 batch_size=min(cfg.train.batch_size, 128),
                 feature_extractor_weights_path=e.feature_extractor_weights_path,
+                lpips_weights_path=e.lpips_weights_path, vgg_weights_path=e.vgg_weights_path,
                 device=self.device)
             seconds = time.perf_counter() - t0
             print(f"step {step} metrics ({seconds:.1f}s): {out}", flush=True)
@@ -765,22 +766,18 @@ def run_fidelity(argv) -> dict:
     the scores (JSON with ``-j``) and returns them."""
     import json
 
-    from .eval import calculate_metrics
-    from .eval.pipeline import ITEM_8B_EXTRACTORS
+    from .eval import GenerativeModel, calculate_metrics
 
     args = build_fidelity_parser().parse_args(argv)
     if not (args.isc or args.fid or args.kid or args.prc or args.ppl):
         raise SystemExit("fidelity: at least one of -i/-f/-k/-r/-p must be given")
-    if args.ppl or (args.prc and args.feature_extractor in (None, *ITEM_8B_EXTRACTORS)):
-        name = "ppl" if args.ppl else "prc"
-        raise NotImplementedError(
-            f"--{name}: {_ITEM_8B_METRICS[name]} is not ported yet (ROADMAP queue 1 item 8b)"
-            + (": pass --feature-extractor inception-v3-compat to compute PRC on "
-               "InceptionV3 features" if name == "prc" else ""))
     input1 = _resolve_fidelity_input(args.input1, args, idx=1)
     input2 = _resolve_fidelity_input(args.input2, args, idx=2) if args.input2 else None
+    if args.ppl and not isinstance(input1, GenerativeModel):
+        raise SystemExit("fidelity: --ppl needs a generative input1 (a run directory with "
+                         "checkpoints/, loaded via --preset)")
     out = calculate_metrics(
-        input1, input2, isc=args.isc, fid=args.fid, kid=args.kid, prc=args.prc,
+        input1, input2, isc=args.isc, fid=args.fid, kid=args.kid, prc=args.prc, ppl=args.ppl,
         feature_extractor=args.feature_extractor,
         feature_layer_isc=args.feature_layer_isc, feature_layer_fid=args.feature_layer_fid,
         feature_layer_kid=args.feature_layer_kid, feature_layer_prc=args.feature_layer_prc,
@@ -794,7 +791,13 @@ def run_fidelity(argv) -> dict:
         kid_kernel_poly_coef0=args.kid_kernel_poly_coef0,
         kid_kernel_rbf_sigma=args.kid_kernel_rbf_sigma,
         prc_neighborhood=args.prc_neighborhood, prc_batch_size=args.prc_batch_size,
-        save_cpu_ram=args.save_cpu_ram,
+        save_cpu_ram=args.save_cpu_ram, ppl_epsilon=args.ppl_epsilon,
+        ppl_sample_similarity=args.ppl_sample_similarity,
+        ppl_z_interp_mode=args.ppl_z_interp_mode, ppl_reduction=args.ppl_reduction,
+        ppl_sample_similarity_resize=args.ppl_sample_similarity_resize,
+        ppl_discard_percentile_lower=args.ppl_discard_percentile_lower,
+        ppl_discard_percentile_higher=args.ppl_discard_percentile_higher,
+        lpips_weights_path=args.lpips_weights_path, vgg_weights_path=args.vgg_weights_path,
         feature_extractor_weights_path=args.feature_extractor_weights_path,
         feature_extractor_internal_dtype=args.feature_extractor_internal_dtype,
         cache=not args.no_cache, cache_dir=args.cache_root, verbose=not args.silent,

@@ -64,11 +64,12 @@ def internal_dtype_of(name: Optional[str]) -> torch.dtype:
 
 
 class FrozenBatchNorm(nn.Module):
-    """Inference-only BatchNorm, eps 1e-3: torch-fidelity's BatchNorm2d
+    """Inference-only BatchNorm (eps 1e-3, TF's, unless given): BatchNorm2d's
     parameters and running statistics, without ``num_batches_tracked``."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, eps: float = 1e-3):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -76,7 +77,7 @@ class FrozenBatchNorm(nn.Module):
 
     def forward(self, x):
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            training=False, eps=1e-3)
+                            training=False, eps=self.eps)
 
 
 class BasicConv2d(nn.Module):

@@ -25,12 +25,14 @@
     features cached by one would silently give the other a wrong FID. A
     weights-free extractor's files carry ``-weights-free`` in the
     extractor part of the name for the same reason.
-
-Not ported yet, and refused before any extraction (ROADMAP queue 1 item
-8b): PPL, and every metric whose extractor would be VGG16, LPIPS, CLIP or
-DINOv2, which includes PRC under the default extractors (torch-fidelity
-routes PRC to VGG16); PRC through ``feature_extractor="inception-v3-compat"``
-works.
+  * With the default extractors, PRC beside ISC, FID or KID is the
+    dual-extractor split: one call without PRC (InceptionV3) and one with
+    PRC alone (VGG16, torch-fidelity's default for it). VGG16 reads
+    ``vgg_weights_path``, every other extractor
+    ``feature_extractor_weights_path``.
+  * ``ppl=True`` runs ``eval.ppl.calculate_ppl`` on a
+    :class:`GenerativeModel` ``input1``, whose latents come from
+    ``np.random.RandomState(rng_seed)`` as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,14 +56,6 @@ CACHE_SUBDIR = "fidelity_cache_torch"
 # torch-fidelity's per-metric default extractors (utils.py): PRC's is VGG16.
 DEFAULT_FEATURE_EXTRACTOR = {"isc": "inception-v3-compat", "fid": "inception-v3-compat",
                              "kid": "inception-v3-compat", "prc": "vgg16"}
-# The JAX package's other extractors and sample similarity, which the port
-# does not have yet.
-ITEM_8B_EXTRACTORS = frozenset(
-    ["vgg16", "lpips-vgg16"]
-    + [f"clip-{m}" for m in ("rn50", "rn101", "rn50x4", "rn50x16", "rn50x64", "vit-b-32",
-                             "vit-b-16", "vit-l-14")]
-    + [f"dinov2-vit-{m}-14" for m in ("s", "b", "l", "g")])
-ITEM_8B = "is not ported yet (ROADMAP queue 1 item 8b)"
 
 
 def default_cache_dir() -> str:
@@ -305,24 +299,6 @@ def _resolve_extractor_name(feature_extractor, isc, fid, kid, prc) -> str:
     return names.pop()
 
 
-def _refuse_item_8b(feature_extractor, isc, fid, kid, prc, ppl) -> None:
-    """NotImplementedError for what needs the JAX package's other
-    extractors or PPL (ROADMAP queue 1 item 8b), before any work starts."""
-    if ppl:
-        raise NotImplementedError(f"ppl (PPL with LPIPS over VGG16) {ITEM_8B}")
-    if feature_extractor is not None:
-        wanted = {feature_extractor} if isc or fid or kid or prc else set()
-    else:
-        wanted = {DEFAULT_FEATURE_EXTRACTOR[m] for m, on in
-                  (("isc", isc), ("fid", fid), ("kid", kid), ("prc", prc)) if on}
-    missing = sorted(n for n in wanted
-                     if n in ITEM_8B_EXTRACTORS and n not in registry.FEATURE_EXTRACTORS)
-    if missing:
-        hint = (" (PRC's default extractor; pass feature_extractor='inception-v3-compat' to "
-                "compute PRC on InceptionV3 features)" if feature_extractor is None else "")
-        raise NotImplementedError(f"the {', '.join(missing)} feature extractor{hint} {ITEM_8B}")
-
-
 def _cache_path(cache_dir: str, input_name: str, extractor_tag: str, layer: str) -> str:
     return os.path.join(cache_dir, f"{input_name}-{extractor_tag}-features-{layer}.npz")
 
@@ -391,31 +367,76 @@ def calculate_metrics(
     device="cuda",
 ) -> Dict[str, float]:
     """The requested metrics, with torch-fidelity's keywords and defaults:
-    per-metric default extractors and taps, ``feature_extractor`` and
+    per-metric default extractors and taps with the dual-extractor split
+    (see the module docstring), ``feature_extractor`` and
     ``feature_layer_*`` overrides, KID's poly and rbf kernels, FID from
-    cached statistics alone where only FID is asked, and the on-disk cache
-    (``cache_dir`` None: :func:`default_cache_dir`). Features are extracted
+    cached statistics alone where only FID is asked, the on-disk cache
+    (``cache_dir`` None: :func:`default_cache_dir`) and PPL
+    (``eval.ppl.calculate_ppl`` with the ``ppl_*``, ``lpips_weights_path``
+    and ``vgg_weights_path`` keywords). Features and distances are computed
     on ``device``.
 
     PRC reads ``features_1`` as the real set (torch-fidelity's convention);
     ``prc_input1_generated`` swaps the two feature sets at the PRC call,
     and None swaps exactly where ``input1`` is a :class:`GenerativeModel`
-    and ``input2`` is not (the in-training layout). The ``ppl_*``,
-    ``lpips_weights_path`` and ``vgg_weights_path`` keywords belong to
-    what item 8b ports (see the module docstring)."""
+    and ``input2`` is not (the in-training layout)."""
+    keywords = dict(locals())
     if not (isc or fid or kid or prc or ppl):
         raise ValueError("at least one metric must be requested")
     internal_dtype_of(feature_extractor_internal_dtype)
-    _refuse_item_8b(feature_extractor, isc, fid, kid, prc, ppl)
     if (fid or kid or prc) and input2 is None:
         raise ValueError("fid, kid and prc need input2")
-    cache_dir = default_cache_dir() if cache_dir is None else cache_dir
+    if ppl and not isinstance(input1, GenerativeModel):
+        raise ValueError("ppl needs a GenerativeModel input1")
+    if feature_extractor is None and prc and (isc or fid or kid):
+        # torch-fidelity's split: InceptionV3 for ISC/FID/KID (and PPL), VGG16
+        # for PRC
+        for name in ("isc", "fid", "kid", "prc", "ppl"):
+            keywords.pop(name)
+        out = calculate_metrics(isc=isc, fid=fid, kid=kid, ppl=ppl, **keywords)
+        out.update(calculate_metrics(prc=True, **keywords))
+        return out
+    if cache_dir is None:
+        keywords["cache_dir"] = default_cache_dir()
     out: Dict[str, float] = {}
+    if isc or fid or kid or prc:
+        out.update(_feature_metrics(**keywords))
+    if ppl:
+        from .ppl import calculate_ppl
 
+        out.update(calculate_ppl(
+            input1, num_samples=input1_model_num_samples, epsilon=ppl_epsilon,
+            interp=ppl_z_interp_mode, batch_size=batch_size,
+            similarity_resize=ppl_sample_similarity_resize,
+            discard_percentile_lower=ppl_discard_percentile_lower,
+            discard_percentile_higher=ppl_discard_percentile_higher, rng_seed=rng_seed,
+            lpips_weights=lpips_weights_path, vgg_weights=vgg_weights_path,
+            reduction=ppl_reduction, similarity_name=ppl_sample_similarity, device=device))
+    if verbose:
+        for k, v in out.items():
+            if np.ndim(v) == 0:
+                print(f"{k}: {v:.7g}")
+    return out
+
+
+def _feature_metrics(input1, input2, *, isc, fid, kid, prc, feature_extractor,
+                     feature_layer_isc, feature_layer_fid, feature_layer_kid, feature_layer_prc,
+                     input1_model_num_samples, input2_model_num_samples, input1_cache_name,
+                     input2_cache_name, batch_size, rng_seed, isc_splits, kid_subsets,
+                     kid_subset_size, kid_kernel, kid_kernel_poly_degree, kid_kernel_poly_gamma,
+                     kid_kernel_poly_coef0, kid_kernel_rbf_sigma, prc_neighborhood,
+                     prc_batch_size, prc_input1_generated, save_cpu_ram,
+                     feature_extractor_weights_path, feature_extractor_internal_dtype,
+                     vgg_weights_path, cache, cache_dir, device, **_) -> Dict[str, float]:
+    """ISC, FID, KID and PRC of ``calculate_metrics`` on one extractor."""
+    out: Dict[str, float] = {}
     fe_name = _resolve_extractor_name(feature_extractor, isc, fid, kid, prc)
-    weights = feature_extractor_weights_path
+    if fe_name not in registry.FEATURE_EXTRACTORS:
+        raise KeyError(f"feature extractor '{fe_name}' not registered; known: "
+                       f"{sorted(registry.FEATURE_EXTRACTORS)}")
+    weights = vgg_weights_path if fe_name == "vgg16" else feature_extractor_weights_path
     tag = fe_name
-    if fe_name == "inception-v3-compat" and not weights_available(weights):
+    if not registry.FEATURE_EXTRACTORS[fe_name]["has_weights"](weights):
         tag += "-weights-free"
     layer_of = {
         "isc": feature_layer_isc or _default_layer(fe_name, "isc", weights),
@@ -496,7 +517,4 @@ def calculate_metrics(
         out.update(M.prc_features_to_metric(
             f_real[layer_of["prc"]], f_gen[layer_of["prc"]], neighborhood=prc_neighborhood,
             batch_size=prc_batch_size, save_cpu_ram=save_cpu_ram))
-    if verbose:
-        for k, v in out.items():
-            print(f"{k}: {v:.7g}")
     return out

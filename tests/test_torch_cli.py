@@ -18,6 +18,9 @@ against the JAX package's, on the CPU.
   PNGs and the feature-map figure; each option the port does not have
   raises with its message; ``train`` on the shapes data imports nothing
   beyond torch, numpy and the standard library.
+- ``train`` with ``eval.prc`` and ``eval.ppl`` logs both (weights-free);
+  ``fidelity -r`` prints ``calculate_metrics``' PRC, and ``fidelity -p``
+  of the run directory the PPL the run logged.
 """
 
 from __future__ import annotations
@@ -309,9 +312,12 @@ METRIC_KEYS = {"isc": ("inception_score_mean", "inception_score_std"),
 
 @contextlib.contextmanager
 def _weights_free_env(root):
-    """No InceptionV3 file in reach, the feature cache under ``root``."""
+    """No InceptionV3, VGG16 or LPIPS file in reach, the feature cache under
+    ``root``."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.delenv("FFC_TPU_INCEPTION_WEIGHTS", raising=False)
+        for name in ("FFC_TPU_INCEPTION_WEIGHTS", "FFC_TPU_VGG16_WEIGHTS",
+                     "FFC_TPU_LPIPS_WEIGHTS"):
+            mp.delenv(name, raising=False)
         mp.setenv("HOME", str(root / "home"))
         mp.setenv("FFC_TPU_HOME", str(root / "ffc_home"))
         yield root / "ffc_home"
@@ -409,9 +415,48 @@ def _flatten_state(tree, prefix=""):
         yield prefix, tree
 
 
+PRC_KEYS = ("precision", "recall", "f_score")
+PPL_KEYS = ("perceptual_path_length_mean", "perceptual_path_length_std")
+
+
+@pytest.fixture(scope="module")
+def prc_ppl_run(tmp_path_factory):
+    """A 3-step TINY run with ``eval.prc`` and ``eval.ppl`` on 8 samples,
+    weights-free: (its directory, its stdout, the cache directory)."""
+    root = tmp_path_factory.mktemp("prc_ppl_run")
+    run, out = str(root / "run"), io.StringIO()
+    with _weights_free_env(root) as home, contextlib.redirect_stdout(out):
+        _run(["train", *TINY, "-e", "3", "--set", "eval.num_samples_for_metrics=8",
+              "--set", "eval.prc=true", "--set", "eval.ppl=true", "-o", run])
+    return run, out.getvalue(), home
+
+
+def _logged_metrics(run):
+    with open(os.path.join(run, "scalars.jsonl")) as f:
+        return [r for r in map(json.loads, f) if "eval_seconds" in r]
+
+
+@pytest.mark.parametrize("metric", ["prc", "ppl"])
+def test_train_evaluates_prc_and_ppl(metric, prc_ppl_run):
+    """``eval.prc`` (VGG16 features of the generated samples against the
+    registered real set, cached under its name) and ``eval.ppl`` (LPIPS on
+    the generator's latent pairs) logged at the epoch boundary, finite, with
+    the weights-free warning."""
+    run, out, home = prc_ppl_run
+    evals = _logged_metrics(run)
+    assert [r["step"] for r in evals] == [3]
+    keys = PRC_KEYS if metric == "prc" else PPL_KEYS
+    assert all(np.isfinite(evals[0][f"metrics/{k}"]) for k in keys), evals
+    assert "WARNING: metrics failed" not in out
+    assert "WARNING: no VGG16 (PRC) or LPIPS (PPL) weights found" in out
+    if metric == "prc":
+        cached = os.listdir(home / "fidelity_cache_torch")
+        assert cached == ["synthetic-16-n8-vgg16-weights-free-features-fc2_relu.npz"]
+    else:
+        assert evals[0]["metrics/perceptual_path_length_mean"] > 0
+
+
 REFUSED = [
-    (["train", *TINY, "--set", "eval.prc=true"], NotImplementedError, "queue 1 item 8b"),
-    (["train", *TINY, "--set", "eval.ppl=true"], NotImplementedError, "queue 1 item 8b"),
     (["train", *TINY, "--set", "train.tp=2"], NotImplementedError, "queue 1 item 10"),
     (["train", *TINY, "--set", "train.steps_per_call=4"], ValueError, "must divide"),
     (["download", "--dataset", "mnist"], NotImplementedError, "queue 1 item 7"),
@@ -435,8 +480,6 @@ def test_options_not_ported_are_refused(argv, error, message, tmp_path):
 
 FIDELITY_REFUSED = [
     (["fidelity", "a", "b"], SystemExit, "at least one of"),
-    (["fidelity", "a", "b", "-r"], NotImplementedError, "queue 1 item 8b"),
-    (["fidelity", "a", "-i", "-p"], NotImplementedError, "queue 1 item 8b"),
     (["fidelity", "a", "-i"], SystemExit, "cannot resolve input 'a'"),
     (["fidelity", "absent.ffcx", "-i"], SystemExit, "no such model file"),
 ]
@@ -586,3 +629,34 @@ def test_fidelity_gives_calculate_metrics(kid_run, tmp_path, capsys, weights_fre
     assert served == {k: float(v) for k, v in want.items()}
     assert printed([run, str(tmp_path / "b.npz"), "--preset", "fgan32",
                     *[f"--set={kv}" for kv in TINY[1::2]]]) == served
+
+
+def test_fidelity_prc_gives_calculate_metrics(tmp_path, capsys, weights_free_home):
+    """``fidelity -r`` on .npz against .npz prints ``calculate_metrics``'
+    PRC (the weights-free VGG16, PRC's default extractor)."""
+    from fastfourierconvolution_tpu_torch.eval import calculate_metrics
+
+    rng = np.random.default_rng(9)
+    a, b = (rng.integers(0, 256, (5, 16, 16, 3), dtype=np.uint8) for _ in range(2))
+    np.savez(tmp_path / "a.npz", images=a)
+    np.savez(tmp_path / "b.npz", images=b)
+    _run(["fidelity", str(tmp_path / "a.npz"), str(tmp_path / "b.npz"), "-r", "-b", "5",
+          "--silent", "-j"])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    want = calculate_metrics(a, b, prc=True, batch_size=5, device="cpu")
+    assert printed == {k: float(v) for k, v in want.items()} and sorted(want) == sorted(PRC_KEYS)
+
+
+def test_fidelity_ppl_of_the_run_directory_is_the_runs(prc_ppl_run, tmp_path, capsys):
+    """``fidelity -p`` on the run directory (its step-3 checkpoint, 8 samples,
+    batch 8) prints the PPL the run logged at step 3; ``-p`` on images exits
+    with the JAX CLI's message."""
+    run, _, home = prc_ppl_run
+    with _weights_free_env(tmp_path):
+        _run(["fidelity", run, "-p", "--preset", "fgan32", *[f"--set={kv}" for kv in TINY[1::2]],
+              "-b", "8", "--input1-model-num-samples", "8", "--silent", "-j"])
+        printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert printed == {k: _logged_metrics(run)[0][f"metrics/{k}"] for k in PPL_KEYS}
+        np.savez(tmp_path / "a.npz", images=np.zeros((4, 16, 16, 3), np.uint8))
+        with pytest.raises(SystemExit, match="--ppl needs a generative input1"):
+            _run(["fidelity", str(tmp_path / "a.npz"), "-p"])

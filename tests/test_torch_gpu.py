@@ -1314,3 +1314,99 @@ def test_lfu_map_kernels_match_plain(cuda, shape):
             assert out.shape == ref.shape and torch.isfinite(out).all()
             rel = ((out.double() - ref).abs().max() / ref.abs().max()).item()
             assert rel <= 1e-4, (wrapper.__name__, rel)
+
+
+# --- the VGG16, LPIPS, CLIP and DINOv2 extractors, PPL and PRC on the card ---------
+
+NEW_EXTRACTORS = ["vgg16", "clip-vit-b-32", "clip-rn50", "dinov2-vit-s-14"]
+
+
+def _uint8_images(n, size, seed):
+    return torch.randint(0, 256, (n, size, size, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("name", NEW_EXTRACTORS)
+def test_extractor_on_the_card_matches_the_cpu(cuda, name):
+    """The weights-free extractor at its official size, f32 with TF32 off:
+    every tap it provides on 4 uint8 32x32 images within 1e-3 of the CPU's
+    largest value (rel-max), two card calls the same bits."""
+    import copy
+
+    from fastfourierconvolution_tpu_torch.eval import registry
+
+    entry = registry.FEATURE_EXTRACTORS[name]
+    cpu = entry["factory"](entry["provided"], None, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    x = _uint8_images(4, 32, 0)
+    with torch.inference_mode():
+        ref, out, again = cpu(x), card(x.to(cuda)), card(x.to(cuda))
+    torch.cuda.synchronize()
+    assert sorted(out) == sorted(entry["provided"])
+    for k, r in ref.items():
+        rel = ((out[k].cpu().double() - r.double()).abs().max() / r.abs().max()).item()
+        assert rel <= 1e-3 and torch.equal(out[k], again[k]), (k, rel)
+
+
+@pytest.mark.parametrize("size", [32, 96], ids=["bilinear-32", "area-96"])
+def test_lpips_on_the_card_matches_the_cpu(cuda, size):
+    """Weights-free LPIPS at resize 64 on 4 pairs: each distance within 1e-4
+    of the CPU's, relative to it; a pair of equal images at 0."""
+    from fastfourierconvolution_tpu_torch.eval.lpips import create_lpips
+
+    a, b = _uint8_images(4, size, 1), _uint8_images(4, size, 2)
+    with torch.inference_mode():
+        ref = create_lpips(64, device="cpu")(a, b).double()
+        model = create_lpips(64, device=cuda)
+        out = model(a.to(cuda), b.to(cuda)).cpu().double()
+        same = model(a.to(cuda), a.to(cuda))
+    assert ((out - ref).abs() / ref).max().item() <= 1e-4, (out, ref)
+    assert (same == 0).all()
+
+
+def test_ppl_launches_the_forward_kernel_twice_per_map_and_batch(cuda):
+    """PPL of the 32px generator served on the card (f32): two forward
+    launches per FourierUnit map and batch (e0's and e1's), finite
+    distances, the same bits on a second call."""
+    import numpy as np
+
+    from fastfourierconvolution_tpu_torch.eval import GenerativeModel
+    from fastfourierconvolution_tpu_torch.eval.ppl import KEY_PPL_RAW, calculate_ppl
+
+    server = Generator.from_preset(32, generator=torch.Generator().manual_seed(4), device=cuda,
+                                   dtype="f32")
+    gm = GenerativeModel(apply=server.generate, z_size=128, device=cuda)
+    maps = [(16, 16, 16), (8, 32, 32)]
+    runs = []
+    for _ in range(2):
+        before = {m: fourier_unit_forward.launches_by_map[m] for m in maps}
+        runs.append(calculate_ppl(gm, num_samples=20, batch_size=8, reduction="none",
+                                  device=cuda))
+        torch.cuda.synchronize()
+        assert {m: fourier_unit_forward.launches_by_map[m] - before[m] for m in maps} == {
+            m: 2 * 3 for m in maps}
+    raw = runs[0][KEY_PPL_RAW]
+    assert len(raw) == 20 and torch.isfinite(torch.as_tensor(raw)).all()
+    assert all(np.array_equal(runs[0][k], runs[1][k]) for k in runs[0])
+
+
+def test_prc_under_the_default_extractors_runs_the_split_on_the_card(cuda):
+    """ISC and PRC of the served 32px generator against noise, weights-free:
+    InceptionV3 for ISC, VGG16 for PRC, the generator's forward launched
+    once per map and request in each half of the split."""
+    import math
+
+    from fastfourierconvolution_tpu_torch.eval import GenerativeModel, calculate_metrics
+
+    server = Generator.from_preset(32, generator=torch.Generator().manual_seed(5), device=cuda)
+    gm = GenerativeModel(apply=server.generate, z_size=128, device=cuda)
+    maps = [(16, 16, 16), (8, 32, 32)]
+    before = {m: fourier_unit_forward.launches_by_map[m] for m in maps}
+    out = calculate_metrics(gm, _uint8_images(16, 32, 6).numpy(), isc=True, prc=True,
+                            input1_model_num_samples=16, batch_size=8, isc_splits=2,
+                            cache=False, device=cuda)
+    torch.cuda.synchronize()
+    assert {m: fourier_unit_forward.launches_by_map[m] - before[m] for m in maps} == {
+        m: 2 * 2 for m in maps}
+    assert {"inception_score_mean", "precision", "recall", "f_score"} <= set(out)
+    assert all(math.isfinite(v) for v in out.values())

@@ -3,14 +3,17 @@
 - Against the JAX package: ``calculate_metrics`` with ISC, FID and KID on
   the same uint8 arrays and the same seeded torch-fidelity-layout weights
   file, within 1e-3 relative (the features agree to about 1e-6; FID reads
-  the '768' tap, whose 768x768 eigenproblem costs a tenth of the 2048 one).
+  the '768' tap, whose 768x768 eigenproblem costs a tenth of the 2048 one);
+  and the requests of VGG16, LPIPS, CLIP and DINOv2: PRC under the default
+  extractors alone and beside ISC (the dual split), PPL, FID on VGG16, ISC
+  on a CLIP ViT and KID on a DINOv2 ViT, on seeded weights files in the
+  upstream schemas, within 1e-3 relative.
 - The port alone, weights-free (no InceptionV3 file in reach): the FID-only
   statistics shortcut and the on-disk cache (atomic files, reused, under
   the port's own cache directory); every input kind; a generative input's
   batch i the same whatever came before it; features independent of N (the
-  last batch padded); the PRC swap; the refusals of what item 8b ports; the
-  weights-free contract of the JAX package's
-  ``tests/test_weights_free_metrics.py`` at N <= 64.
+  last batch padded); the PRC swap; the weights-free contract of the JAX
+  package's ``tests/test_weights_free_metrics.py`` at N <= 64.
 """
 
 from __future__ import annotations
@@ -21,12 +24,18 @@ import numpy as np
 import pytest
 import torch
 
+from fastfourierconvolution_tpu.eval import lpips as jlpips
 from fastfourierconvolution_tpu.eval import pipeline as JP
+from fastfourierconvolution_tpu.eval import registry as jregistry
 from fastfourierconvolution_tpu_torch.data.datasets import ShapesDataset, SyntheticDataset
+from fastfourierconvolution_tpu_torch.eval import clip as tc
+from fastfourierconvolution_tpu_torch.eval import dinov2 as td
 from fastfourierconvolution_tpu_torch.eval import metrics as M
 from fastfourierconvolution_tpu_torch.eval import pipeline as P
 from fastfourierconvolution_tpu_torch.eval import registry
 from test_torch_inception import seeded_fidelity_state_dict
+from test_torch_lpips import seeded_lpips_heads, seeded_vgg16_state_dict
+from test_torch_ppl import stand_in
 
 PARITY_RTOL = 1e-3
 CPU = dict(device="cpu")
@@ -196,18 +205,73 @@ def test_prc_swaps_the_sets_for_a_generative_input1():
     assert straight == M.prc_features_to_metric(feats["pipeline-gm"], feats["pipeline-real"])
 
 
+@pytest.fixture(scope="module")
+def weights_files(tmp_path_factory):
+    """Seeded weights files in the upstream schemas: InceptionV3
+    (torch-fidelity), vgg16 (torchvision), the LPIPS heads (toshas), a tiny
+    CLIP ViT (OpenAI: width 64, 2 layers, 64px) and a 1-block
+    ``dinov2-vit-s-14`` (facebookresearch)."""
+    root = tmp_path_factory.mktemp("weights")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(tc.VIT_META, "tiny", (16, 64, 2, 32, 64))
+        clip_sd = tc.random_clip_state_dict("tiny", np.random.RandomState(0))
+    dino_sd = td.random_dinov2_state_dict("dinov2-vit-s-14", np.random.RandomState(1),
+                                          depth_override=1)
+    states = {"inception": seeded_fidelity_state_dict(), "vgg16": seeded_vgg16_state_dict(),
+              "lpips": seeded_lpips_heads(),
+              "clip": {k: torch.from_numpy(v) for k, v in clip_sd.items()},
+              "dinov2": {k: torch.from_numpy(v) for k, v in dino_sd.items()}}
+    paths = {name: str(root / f"{name}.pth") for name in states}
+    for name, state in states.items():
+        torch.save(state, paths[name])
+    return paths
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(prc=True), dict(isc=True, prc=True), dict(ppl=True),
     dict(fid=True, feature_extractor="vgg16"), dict(isc=True, feature_extractor="clip-vit-b-32"),
     dict(kid=True, feature_extractor="dinov2-vit-s-14"),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
-def test_what_item_8b_ports_is_refused_before_any_work(kwargs, monkeypatch):
-    def no_work(*args, **kw):
-        raise AssertionError("extraction started")
+def test_vgg16_lpips_clip_and_dinov2_requests_match_jax(kwargs, weights_files, monkeypatch):
+    """PRC under the default extractors (VGG16; beside ISC the dual split,
+    InceptionV3 for ISC), PPL (LPIPS over VGG16, on ``test_torch_ppl``'s
+    stand-in model, the JAX similarity through its converter), and VGG16,
+    CLIP and DINOv2 named as the extractor, on the same seeded weights files
+    and 5 + 5 images as the JAX pipeline: every key within 1e-3 relative."""
+    w = weights_files
+    fe = kwargs.get("feature_extractor", "")
+    if kwargs.get("fid"):
+        # FID's eigenproblem on 4096-wide VGG16 features takes 17-40 s a call
+        # on an 8-core CPU; both packages take the distance's other terms
+        # instead (mean gap and the two traces: the statistics in full), and
+        # the whole formula is held to JAX's in test_torch_eval_metrics
+        def trace_terms(s1, s2):
+            d = s1["mu"] - s2["mu"]
+            return float(d.dot(d) + np.trace(s1["sigma"]) + np.trace(s2["sigma"]))
 
-    monkeypatch.setattr(P, "_resolve_input", no_work)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8b"):
-        P.calculate_metrics(shapes(8, n=8), shapes(9, n=8), **kwargs, **CPU)
+        monkeypatch.setattr(JP.M, "fid_statistics_to_metric", trace_terms)
+        monkeypatch.setattr(P.M, "fid_statistics_to_metric", trace_terms)
+    kw = dict(batch_size=5, cache=False, isc_splits=2, kid_subsets=4, kid_subset_size=4,
+              vgg_weights_path=w["vgg16"], lpips_weights_path=w["lpips"],
+              feature_extractor_weights_path=w["clip"] if fe.startswith("clip") else
+              w["dinov2"] if fe.startswith("dinov2") else w["inception"], **kwargs)
+    if kwargs.get("ppl"):
+        monkeypatch.setitem(jregistry.SAMPLE_SIMILARITIES, "lpips-vgg16",
+                            lambda resize, lpips_weights, vgg_weights: (
+                                jlpips.LPIPS(resize=resize),
+                                jlpips.load_lpips_torch_weights(lpips_weights, vgg_weights)))
+        kw.update(input1_model_num_samples=12, ppl_sample_similarity_resize=None)
+        ref = JP.calculate_metrics(JP.GenerativeModel(apply=stand_in, z_size=16), **kw)
+        ours = P.calculate_metrics(P.GenerativeModel(apply=stand_in, z_size=16), **kw, **CPU)
+    else:
+        a, b = shapes(20, n=5), noise(21, n=5)
+        ref = JP.calculate_metrics(a, b, **kw)
+        ours = P.calculate_metrics(a, b, **kw, **CPU)
+    assert sorted(ours) == sorted(ref) and ref
+    for key, value in ref.items():
+        assert np.isfinite(ours[key]), key
+        assert abs(ours[key] - value) <= PARITY_RTOL * max(abs(value), 1e-12), (key, ours[key],
+                                                                               value)
 
 
 def test_bad_arguments_raise():
