@@ -148,7 +148,8 @@ Phases, each of which raises on a failed check:
     data path's share of it (loader, stack, host-to-device copy,
     normalisation, which must give the host's bits);
 22. ``fgan_cond32`` through the CLI, the class count inferred from the
-    data (3): 32 steps, then ``sample`` with class-stratified labels;
+    data (3): 32 steps, then ``sample`` with class-stratified labels (run
+    beside phase 26's child processes, after phase 25);
 23. ``fgan64``'s staged FourierUnit map (64,8,64,64): its kernels checked
     as in phase 9, an eager step of the CLI's pair with exact launches per
     map (the kernels line's launches for these rows, per step), eager and
@@ -171,7 +172,9 @@ Phases, each of which raises on a failed check:
     pool, the replayed step's wall and device ms; 4 replayed f32 steps with
     remat against 4 without, the same bits expected;
 26. a process's first run of a configuration against its second, in
-    fresh child processes (``first_run_child``): sagan's replayed f32 step
+    fresh child processes side by side (``first_run_child``; phase 22's
+    and phase 31e's CLI runs beside them: child processes that time
+    nothing): sagan's replayed f32 step
     and replayed wgan-gp on the sngan pair under remat "dots", each run a
     new trainer from the same seeds under deterministic algorithms, every
     aten op's output bits recorded by a ``TorchDispatchMode``; the first op
@@ -225,13 +228,41 @@ Phases, each of which raises on a failed check:
     ``eval.prc`` and ``eval.ppl``, ``export`` of its run directory, and
     ``fidelity -r -p`` of the run directory and of the artifact against
     the shapes set, every metric key present and finite, exact launches;
-31. a check that every kernel was launched on the main path (phases 4, 6,
-    10, 13, 14, 15, the CLI runs, phases 24-25 and 28-30), a
+31. data parallelism (``parallel``), every process a child process of
+    this one with the CUDA libraries built here: (a) fgan32 and (b)
+    fgan128 (bf16, global batch 64) as two processes of one gloo group on
+    the card, 32 rows each, against one process at 64: the statistics
+    wrappers' outputs at every map gathered from the processes (within
+    ``DP_FU_TOL`` and ``DP_BN_TOL``; which of them have one process's
+    bits is printed), the first step's averaged G and D gradients, each
+    parameter's within ``DP_GRAD_TOL`` of one process's in f32 (and
+    fgan32's with ``parallel.param_share`` taken out, a control that must
+    fail the bar; the bf16 gaps printed), 3 (2) eager bf16 steps with the
+    processes' states the same bits after every step, the losses within
+    ``DP_LOSS_TOL`` of one process's, exact launches and collectives per
+    step, step ms per process, the host ms in
+    ``torch.distributed`` calls, the bytes per step and the ms per
+    all-gather of each partial-sum shape; (c) a group of one process over
+    NCCL: fgan32's f32 ``update_steps`` with the collectives captured in
+    the step's graph, the bits of the same calls without a group, and two
+    replays of one call the same bits; (d) fgan32 over NCCL across two
+    cards where the machine has them (else printed as not run), as (a),
+    then phase 12's graph parity in the group (f32 ``update_steps`` with
+    the NCCL collectives in the graph against as many eager steps); (e)
+    the CLI's fgan32 ``train`` as two processes (gloo on the card), 4
+    steps and a resume to 6, rank 0 alone printing and writing, exact
+    launches (run beside phase 26);
+32. a check that every kernel was launched on the main path (phases 4, 6,
+    10, 13, 14, 15, the CLI runs, phases 24-25, 28-31), a
     ``{"wrapper_calls": [...]}`` JSON line (the staged wrapper and training-op calls, all their stages
     together), a ``{"kernels": [...]}`` JSON line, then the
     ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, where CUDA is absent.
+
+``python3 chip_smoke.py 31`` runs phase 31 alone (after the build), and
+``python3 chip_smoke.py 31d`` its part (d) alone with the one-process run
+it is held against (it needs two cards).
 """
 
 from __future__ import annotations
@@ -246,7 +277,9 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 SEED = 0
@@ -431,8 +464,15 @@ STAGED_CALL = {"fourier_unit_fwd": ("fu_spectrum", "fu_mix_apply", "fu_inverse")
 BN_STEP_LAUNCHES = {"bn_stats": 2, "bn_gelu_apply": 2, "bn_bwd_reduce": 1, "bn_bwd_dx": 1}
 
 
+# Phase 26 runs child processes side by side from threads; a line is
+# written whole.
+_LOG_LOCK = threading.Lock()
+
+
 def log(*parts):
-    print(*parts, flush=True)
+    with _LOG_LOCK:
+        sys.stdout.write(" ".join(str(p) for p in parts) + "\n")
+        sys.stdout.flush()
 
 
 def card_line() -> str:
@@ -4104,25 +4144,693 @@ def backward_thread_cost(device, card, rounds=4, steps=16):
 
 def first_run(card):
     """Phase 26: ``first_run_child`` for each of ``FIRST_RUN_CASES`` in a
-    fresh child process, its lines printed. Raises where the port's first
-    run of a configuration differs from its second in the losses or the
-    final state; the "multithreaded" case is printed as information."""
-    for name, variant in FIRST_RUN_CASES:
+    fresh child process, the children side by side (each compares its own
+    two runs), their lines printed. Raises where the port's first run of a
+    configuration differs from its second in the losses or the final
+    state; the "multithreaded" case is printed as information."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", FIRST_RUN_CHILD, name, variant], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, variant in FIRST_RUN_CASES]
+    try:
+        for (name, variant), child in zip(FIRST_RUN_CASES, procs):
+            stdout, stderr = child.communicate(timeout=600)
+            for line in stdout.splitlines():
+                log(line)
+            if child.returncode not in (0, 1):
+                log(stderr[-3000:])
+                raise AssertionError(f"first-run {name} {variant}: the child exited "
+                                     f"{child.returncode}")
+            differs = child.returncode == 1
+            log(f"first-run {name} ({variant}): the process's first run differs from its "
+                f"second: {differs} ({time.perf_counter() - t0:.1f} s since the children "
+                f"started side by side); {card}")
+            if differs and variant == "port":
+                raise AssertionError(f"first-run {name}: a process's first run differs from "
+                                     f"its second")
+    finally:
+        for child in procs:
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
+
+
+# --- phase 31: data parallelism ---------------------------------------------------
+
+DP_WORLD = 2
+# Eager bf16 steps of each path at global batch 64, 32 rows a process.
+DP_STEPS = {32: 3, 128: 2}
+# Two processes against one at the global batch, bf16: the losses within
+# this (a hinge mean over the batch; D's convolutions at batch 32 may take
+# other cuDNN algorithms than at 64, so its logits differ by bf16 ulps).
+DP_LOSS_TOL = 1e-2
+# The first step's averaged gradients against one process's, per
+# parameter ||g2 - g1|| / ||g1||, in f32 (TF32 off), within this. The
+# convolutions at batch 32 take other cuDNN algorithms than at 64, and a
+# few tensors (BN and noise weights, SE gates) sum many terms that cancel:
+# two processes against one read 4.6e-3 and 9.4e-3 (fgan32, two runs) and
+# 3.5e-3 (fgan128), one process against itself on cuDNN's benchmarked
+# algorithms up to 1.7e-3 and 4.4e-3 on the same tensors; the control
+# (parameters without ``parallel.param_share``) 1.001 (H100 80GB HBM3,
+# 700 W). A gradient of the wrong scale (a sum where an average belongs, a
+# share not taken or taken twice) is off by 0.5 or more. In bf16 the gaps
+# reach 0.36, as one process's own bf16 gradients do against its f32 ones
+# on the same tensors, so there they are printed, not held. After the
+# first step the states differ by Adam's steps on elements whose gradient
+# lies within bf16 noise of 0 (each moves by about lr whatever its
+# gradient), so the parameters after each step are printed, not held.
+DP_GRAD_TOL = 5e-2
+# The packed BN statistics and sums: each process's sums, gathered and
+# added, against one launch's sums over the global batch, f32 in another
+# order: each within BN_REL_TOL of the f64 sums (phase 8's bar), so twice
+# it apart (1.34e-5 at (64,512,8,8)'s backward sums, H100 80GB HBM3, 700 W).
+DP_BN_TOL = 2 * BN_REL_TOL
+# The FourierUnit statistics and backward sums: every launch takes the
+# design of this process's 32 rows, not of the 64; a per-item row does not
+# depend on the ranks per item, but the staged kernels sum runs of tiles
+# of another length, so the same f32 values are added in another order.
+# Each is within the f32 kernels' bar of the f64 sums (phases 5 and 9), so
+# twice it apart, rel-max to the largest value; a statistic of the local
+# rows alone is off by about 1/sqrt(32 H Wf), 1.5% at (16, 16, 16).
+DP_FU_TOL = 2 * FU_REL_TOL["float32"]
+DP_CHILD = "import sys, chip_smoke\nsys.exit(chip_smoke.dp_child(sys.argv[1]))\n"
+DP_TIMEOUT = 300
+# cli train as two processes (phase 31e): steps, epoch, and the resume.
+DP_CLI_STEPS, DP_CLI_EPOCH, DP_CLI_RESUME = 4, 2, 6
+
+
+def dp_expected_launches(path, n_steps, world):
+    """One process's launches over ``n_steps`` steps of a group of
+    ``world`` at global batch ``BATCH``: one process's at the global batch
+    (the FourierUnit maps' keys are the same), but ``fu_reduce`` runs on
+    the partial rows of this process's design (a row per item, or per run
+    of tiles of its ``staged_chunks``): the statistics and backward sums
+    on every process's rows gathered, gK on this process's (gK is a
+    parameter's gradient, averaged with the others); plus, per packed BN
+    map, the ``fu_reduce`` of the gathered sums: (world, 2C) after each
+    ``bn_stats``, (world, 3C) after each ``bn_bwd_reduce`` (S1, S2, S3
+    with the noise fold)."""
+    want = {k: dict(v) for k, v in expected_launches(path, n_steps).items()}
+    red = want.setdefault("fu_reduce", {})
+    for (b, c, h, w), forwards, backwards in STEP_MAPS[path][0]:
+        rows = partial_rows((b, c, h, w))
+        local = partial_rows((b // world, c, h, w))
+        for key, n in (((rows, 4 * c), -(forwards + backwards)),
+                       ((rows, 4 * c * c), -backwards),
+                       ((world * local, 4 * c), forwards + backwards),
+                       ((local, 4 * c * c), backwards)):
+            red[key] = red.get(key, 0) + n * n_steps
+    for _, c, _, _ in STEP_MAPS[path][1]:
+        for rows, per in (((world, 2 * c), BN_STEP_LAUNCHES["bn_stats"]),
+                          ((world, 3 * c), BN_STEP_LAUNCHES["bn_bwd_reduce"])):
+            red[rows] = red.get(rows, 0) + per * n_steps
+    want["fu_reduce"] = {k: n for k, n in red.items() if n}
+    return want
+
+
+def partial_rows(shape):
+    """The FourierUnit statistics kernels' partial rows on a (B, C, H, W)
+    map: a row per item, or per run of tiles after the staged mix."""
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    b, _, h, w = shape
+    return b * fu.staged_chunks(b, h, w) if staged("stats", shape) else b
+
+
+def dp_expected_collectives(path, bn_calls):
+    """A step's collectives by kind: a gather of partial rows per
+    FourierUnit map and pass (statistics per forward, backward sums per
+    backward) and 3 per packed BN map (the statistics of both forwards, the
+    backward sums); a sum per plain BatchNorm call and per backward of one
+    (``bn_calls``, counted by forward hooks); 2 averages (the G phase's and
+    the D phase's loss and gradients)."""
+    fu_maps, bn_maps = STEP_MAPS[path]
+    want = {"gather": sum(f + b for _, f, b in fu_maps) + 3 * len(bn_maps),
+            "sum": bn_calls, "average": 2}
+    return {k: v for k, v in want.items() if v}
+
+
+def dp_ops(device, path):
+    """This process's rows of seeded global inputs through the statistics
+    wrappers at ``path``'s maps (bf16): the FourierUnit's statistics and
+    backward sums (per item or staged, as the design picks) and the packed
+    BN's; and through the training ops (f32, the FourierUnit's ReLU kept
+    clear of its kink by ``relu_margin_bias``): the outputs and the rows'
+    gradients ("rows ...", each process its rows) and the parameters'
+    ("sum ...", each process its share); {name: f32 tensor on the host}."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch import parallel
+    from fastfourierconvolution_tpu_torch.ops import bn_act as ba
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    rows = parallel.shard_full_batch
+    out = {}
+    fu_maps, bn_maps = STEP_MAPS[path]
+    for shape, _, _ in fu_maps:
+        x, kernel, scale, bias, mean, var = fu_inputs(shape, torch.bfloat16, device, SEED + 40)
+        gy = torch.randn(shape, generator=torch.Generator().manual_seed(SEED + 41)).to(
+            device, torch.bfloat16)
+        x, gy = rows(x).contiguous(), rows(gy).contiguous()
+        out[f"fu_stats {shape}"] = torch.stack(fu.fu_train_stats(x, kernel))
+        out[f"fu_bwd_sums {shape}"] = torch.stack(
+            fu.fu_bwd_stats(x, kernel, scale, bias, mean, var, gy))
+        x, kernel, scale, bias, _, _ = fu_inputs(shape, torch.float32, device, SEED + 43)
+        _, m = fu._spectrum_plain(x.double(), kernel.double())
+        mean = m.mean(dim=(0, 2, 3))
+        bias, _ = fu.relu_margin_bias(x, kernel, scale, bias, mean,
+                                      (m * m).mean(dim=(0, 2, 3)) - mean * mean)
+        del m
+        gy = torch.randn(shape, generator=torch.Generator().manual_seed(SEED + 44)).to(device)
+        xr = rows(x).contiguous().requires_grad_()
+        params = [t.clone().requires_grad_() for t in (kernel, scale, bias)]
+        y, _, _ = fu.fourier_unit_train(xr, *params)
+        grads = torch.autograd.grad((y * rows(gy)).sum(), [xr, *params])
+        out[f"rows fu_train y {shape}"], out[f"rows fu_train gx {shape}"] = y.detach(), grads[0]
+        for name, grad in zip(("gK", "gscale", "gbias"), grads[1:]):
+            out[f"sum fu_train {name} {shape}"] = grad
+    for shape in bn_maps:
+        (x, n_l, n_g, g), (scale, bias, _, _, _) = bn_inputs(shape, torch.bfloat16, device,
+                                                             SEED + 42)
+        # the backward's statistics from the whole map in f64, the same in
+        # every process
+        xf = x.double()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).float()
+        mean = mean.float()
+        x, n_l, n_g, g = (rows(t).contiguous() for t in (x, n_l, n_g, g))
+        out[f"bn_stats {shape}"] = torch.stack(ba.bn_stats(x))
+        out[f"bn_bwd_reduce {shape}"] = torch.stack(
+            ba.bn_bwd_reduce(x, g, mean, var, scale, bias, n_l, n_g, shape[1] // 2))
+        (x, n_l, n_g, g), vecs = bn_inputs(shape, torch.float32, device, SEED + 45)
+        x, n_l, n_g, g = (rows(t).contiguous() for t in (x, n_l, n_g, g))
+        inputs = [x, n_l, n_g, *(t.clone() for t in vecs[:3])]
+        for t in inputs:
+            t.requires_grad_()
+        o, _, _ = ba.packed_bn_gelu_noise(inputs[0], *inputs[3:], n_l=inputs[1],
+                                          n_g=inputs[2], cl=shape[1] // 2)
+        grads = torch.autograd.grad((o * g).sum(), inputs)
+        out[f"rows packed out {shape}"] = o.detach()
+        for name, grad in zip(("dx", "dn_l", "dn_g"), grads[:3]):
+            out[f"rows packed {name} {shape}"] = grad
+        for name, grad in zip(("gscale", "gbias", "gw"), grads[3:]):
+            out[f"sum packed {name} {shape}"] = grad
+    torch.cuda.synchronize()
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+def dp_gather_ms(device, path, iters=20):
+    """Host ms (synchronised) per all-gather of each partial-sum shape of
+    ``path``'s step in this process's group: a FourierUnit map's partial
+    rows (a row per item, or per run of tiles where it is staged; 4C
+    columns) and a packed BN map's sums (one row of 2C and of 3C). Every
+    process of the group calls it."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch import parallel
+
+    b = BATCH // parallel.process_count()
+    fu_maps, bn_maps = STEP_MAPS[path]
+    shapes = [(partial_rows((b, c, h, w)), 4 * c) for (_, c, h, w), _, _ in fu_maps]
+    for _, c, _, _ in bn_maps:
+        shapes += [(1, 2 * c), (1, 3 * c)]
+    out = {}
+    for shape in dict.fromkeys(shapes):
+        t = torch.ones(shape, device=device)
+        parallel.all_gather_rows(t)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", FIRST_RUN_CHILD, name, variant],
-                              cwd=ROOT, capture_output=True, text=True, timeout=600)
-        for line in proc.stdout.splitlines():
-            log(line)
-        if proc.returncode not in (0, 1):
-            log(proc.stderr[-3000:])
-            raise AssertionError(f"first-run {name} {variant}: the child exited "
-                                 f"{proc.returncode}")
-        differs = proc.returncode == 1
-        log(f"first-run {name} ({variant}): the process's first run differs from its second: "
-            f"{differs} ({time.perf_counter() - t0:.1f} s, a child process); {card}")
-        if differs and variant == "port":
-            raise AssertionError(f"first-run {name}: a process's first run differs from its "
-                                 f"second")
+        for _ in range(iters):
+            parallel.all_gather_rows(t)
+        torch.cuda.synchronize()
+        out[str(shape)] = (time.perf_counter() - t0) / iters * 1e3
+    return out
+
+
+def dp_first_grads(device, path, real, dtype):
+    """The first step's G and D gradients of ``path``'s pair in ``dtype``
+    (from a trainer of their own, so Adam's step does not hide their
+    scale) on this process's rows ``real`` (B, H, W, C) of the first
+    global batch: the G phase's, then the D update's, averaged over the
+    processes in a group; {"g.<name>" or "d.<name>": f32 on the host}."""
+    trainer = make_trainer(device, dtype, path)
+    z = trainer._latents(real.shape[0])
+    grads = {"g": trainer.g_loss_and_grads(z)[1],
+             "d": trainer.d_loss_and_grads(real.permute(0, 3, 1, 2).contiguous(), z)[1]}
+    return {f"{side}.{n}": grad.float().cpu()
+            for side, model in (("g", trainer.g), ("d", trainer.d))
+            for (n, _), grad in zip(model.named_parameters(), grads[side])}
+
+
+def dp_grad_gaps(grads, ref):
+    """{parameter: ||g - g_ref|| / ||g_ref||} of two gradient sets."""
+    return {n: ((grads[n].double() - r.double()).norm() / r.double().norm().clamp_min(1e-30)).item()
+            for n, r in ref.items()}
+
+
+def dp_steps(device, path, n_steps, keep_states):
+    """``n_steps`` eager bf16 ``update_step`` calls of ``path``'s pair
+    (``make_trainer``) on this process's rows of seeded global batches of
+    ``BATCH``: the first step's gradients (``dp_first_grads``, before the
+    steps), the losses, per step the host ms (synchronised), the
+    collectives by kind and their bytes, the plain BatchNorm calls (forward,
+    and backward where the forward kept a graph), the host ms spent in
+    ``torch.distributed`` calls, a digest of G's and D's state; the
+    launches over the steps; with ``keep_states`` the states on the host."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from fastfourierconvolution_tpu_torch import parallel
+    from fastfourierconvolution_tpu_torch.nn.layers import BatchNorm, ConditionalBatchNorm
+
+    mesh = parallel.mesh
+    reals = [parallel.shard_full_batch(real_batch(device, SEED + 30 + i, RESOLUTION[path]))
+             for i in range(n_steps)]
+    grads = {dtype: dp_first_grads(device, path, reals[0], dtype) for dtype in ("bf16", "f32")}
+    if not parallel.active():  # the same gradients on cuDNN's benchmarked algorithms
+        with torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False,
+                                        allow_tf32=False):
+            grads["f32 benchmark"] = dp_first_grads(device, path, reals[0], "f32")
+    trainer = make_trainer(device, "bf16", path)
+    bn_calls, dist_s = [0], [0.0]
+
+    def hook(module, inputs, output):
+        bn_calls[0] += 1 + torch.is_grad_enabled()
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dist_s[0] += time.perf_counter() - t0
+        return call
+
+    hooks = [m.register_forward_hook(hook) for model in (trainer.g, trainer.d)
+             for m in model.modules() if isinstance(m, (BatchNorm, ConditionalBatchNorm))]
+    out = {k: [] for k in ("losses", "ms", "collectives", "bytes", "bn_calls", "dist_ms",
+                           "digests", "states")}
+    out["grads"] = grads
+    zero_counts()
+    with contextlib.ExitStack() as stack:
+        for name in ("all_reduce", "all_gather_into_tensor", "all_gather"):
+            stack.enter_context(mock.patch.object(dist, name, timed(getattr(dist, name))))
+        for i in range(n_steps):
+            mesh.collectives.clear()
+            mesh.collective_bytes.clear()
+            bn_calls[0], dist_s[0] = 0, 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = trainer.update_step(reals[i])
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["losses"].append([losses["loss_g"].item(), losses["loss_d"].item()])
+            out["collectives"].append(dict(mesh.collectives))
+            out["bytes"].append(dict(mesh.collective_bytes))
+            out["bn_calls"].append(bn_calls[0])
+            out["dist_ms"].append(dist_s[0] * 1e3)
+            state = {f"{side}.{k}": v.detach().cpu().clone() for side, model in
+                     (("g", trainer.g), ("d", trainer.d)) for k, v in model.state_dict().items()}
+            digest = hashlib.sha256()
+            for k in sorted(state):
+                raw = state[k].contiguous().view(torch.uint8).numpy().tobytes()
+                digest.update(k.encode() + raw)
+            out["digests"].append(digest.hexdigest())
+            if keep_states:
+                out["states"].append(state)
+    for h in hooks:
+        h.remove()
+    out["launches"] = counts_by_map()
+    out["params"] = {f"{side}.{n}" for side, model in (("g", trainer.g), ("d", trainer.d))
+                     for n, _ in model.named_parameters()}
+    return out
+
+
+def dp_child(spec_path):
+    """Phase 31's child: one process of a group (``spec``: its rank, the
+    process count, the group's ``init_method``, the paths and where to
+    write), which checks nothing itself. It writes the statistics of
+    ``dp_ops`` and, from rank 0, the states after each step to the files
+    the spec names, and prints one line ``DP_RESULT {json}``."""
+    import torch
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from fastfourierconvolution_tpu_torch import parallel
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = parallel.initialize("cuda", spec["init"], spec["world"], spec["rank"])
+    try:
+        result = {"rank": parallel.process_index(), "device": str(device),
+                  "backend": parallel.backend(), "runs": {}}
+        for path in spec["paths"]:
+            ops = dp_ops(device, path)
+            run = dp_steps(device, path, DP_STEPS[path], keep_states=spec["rank"] == 0)
+            run["gather_ms"] = dp_gather_ms(device, path)
+            saved = {"ops": ops, "states": run.pop("states"), "grads": run.pop("grads")}
+            if path == 32:  # the control: parameters take the global sums, not their share
+                real = parallel.shard_full_batch(real_batch(device, SEED + 30, RESOLUTION[path]))
+                with mock.patch.object(parallel, "param_share", lambda t: t):
+                    saved["control"] = dp_first_grads(device, path, real, "f32")
+            torch.save(saved, f"{spec['out']}-{path}-{spec['rank']}.pt")
+            run.pop("params")
+            if spec["parity"]:  # raises where the replayed steps differ
+                graph_parity(device, path, {"hinge": {}})
+            run["launches"] = {k: [[list(m), n] for m, n in v.items()]
+                               for k, v in run["launches"].items()}
+            result["runs"][str(path)] = run
+        print("DP_RESULT " + json.dumps(result), flush=True)
+    finally:
+        parallel.shutdown()
+    return 0
+
+
+def dp_children(tmp, tag, world, paths, parity=False):
+    """``world`` children of one group (``dp_child``; with ``parity`` each
+    then runs phase 12's graph parity in the group), started together;
+    their ``DP_RESULT`` by rank, rank 0's graph parity line printed. A
+    child that fails fails the phase."""
+    procs = []
+    for rank in range(world):
+        spec = os.path.join(tmp, f"{tag}-{rank}.json")
+        with open(spec, "w") as f:
+            json.dump({"rank": rank, "world": world, "init": f"file://{tmp}/{tag}-store",
+                       "paths": paths, "out": os.path.join(tmp, tag), "parity": parity}, f)
+        procs.append(subprocess.Popen([sys.executable, "-c", DP_CHILD, spec], cwd=ROOT,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    results = []
+    try:
+        for rank, proc in enumerate(procs):
+            stdout, stderr = proc.communicate(timeout=DP_TIMEOUT)
+            if proc.returncode != 0:
+                log(f"dp child {tag} rank {rank}: stdout\n{stdout[-3000:]}\nstderr\n"
+                    f"{stderr[-3000:]}")
+                raise AssertionError(f"dp child {tag} rank {rank} exited {proc.returncode}")
+            line = [l for l in stdout.splitlines() if l.startswith("DP_RESULT ")]
+            results.append(json.loads(line[-1][len("DP_RESULT "):]))
+            if rank == 0:
+                for l in stdout.splitlines():
+                    if l.startswith("graph parity"):
+                        log(f"dp {tag} group of {world}: {l}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return results
+
+
+def dp_compare(card, label, tag, path, ref, ref_ops, results, tmp):
+    """Phase 31a/b/d's checks of one path: the statistics wrappers' outputs
+    gathered from the processes against one process's (``DP_FU_TOL``,
+    ``DP_BN_TOL``), the first step's averaged gradients against one
+    process's (``DP_GRAD_TOL``; the control, where there is one, beyond
+    it), the processes' states the same bits after every step, rank 0's
+    losses against one process's at the global batch, exact launches and
+    collectives; prints the step's numbers and the parameters' distance
+    from one process's after each step. Returns rank 0's launches."""
+    import torch
+
+    world = len(results)
+    saved = [torch.load(f"{os.path.join(tmp, tag)}-{path}-{r}.pt", weights_only=False)
+             for r in range(world)]
+    same_bits, op_gaps = [], {"fu": 0.0, "bn": 0.0}
+    for name, want in ref_ops.items():
+        got = [s["ops"][name] for s in saved]
+        if name.startswith("rows "):  # each process's rows of the output
+            got = [torch.cat(got)]
+        elif name.startswith("sum "):  # each process's share of a parameter's gradient
+            got = [torch.stack(got).sum(dim=0)]
+        gap = max(rel_max(g, want)[0] for g in got)
+        kind = "fu" if "fu_" in name else "bn"
+        op_gaps[kind] = max(op_gaps[kind], gap)
+        if gap > (DP_FU_TOL if kind == "fu" else DP_BN_TOL):
+            raise AssertionError(f"dp {label} {path}: {name} rel-max {gap:.3e}")
+        if all(torch.equal(g, want) for g in got):
+            same_bits.append(name)
+    grad_gaps = [dp_grad_gaps(s["grads"]["f32"], ref["grads"]["f32"]) for s in saved]
+    worst_grads = sorted(grad_gaps[0].items(), key=lambda kv: -kv[1])[:3]
+    # one process's f32 gradients on other convolution algorithms
+    algos = dp_grad_gaps(ref["grads"]["f32 benchmark"], ref["grads"]["f32"])
+    grad_gap = max(max(g.values()) for g in grad_gaps)
+    bf16_gaps = dp_grad_gaps(saved[0]["grads"]["bf16"], ref["grads"]["bf16"])
+    # one process's own bf16 gradients against its f32 ones: the noise floor
+    floor = dp_grad_gaps(ref["grads"]["bf16"], ref["grads"]["f32"])
+    worst_bf16 = sorted(bf16_gaps.items(), key=lambda kv: -kv[1])[:4]
+    controls = [dp_grad_gaps(s["control"], ref["grads"]["f32"]) for s in saved
+                if "control" in s]
+    control = ""
+    if controls:
+        beyond = sorted(n for n, v in controls[0].items() if v > DP_GRAD_TOL)
+        control = (f"; the control (parameters take the global sums, not their share): "
+                   f"{len(beyond)} of {len(controls[0])} parameters beyond the bar, worst "
+                   f"{max(controls[0].values()):.3e}")
+    runs = [r["runs"][str(path)] for r in results]
+    n_steps = DP_STEPS[path]
+    for i in range(n_steps):
+        if len({run["digests"][i] for run in runs}) != 1:
+            raise AssertionError(f"dp {label} {path}: the processes' states differ after step {i}")
+    worst = {"loss": 0.0, "param": [], "buffer": 0.0}
+    shares = []
+    for i, (ours, theirs) in enumerate(zip(saved[0]["states"], ref["states"])):
+        loss_gap = max(abs(a - b) for a, b in zip(runs[0]["losses"][i], ref["losses"][i]))
+        worst["loss"] = max(worst["loss"], loss_gap)
+        flipped = elements = 0
+        param = 0.0
+        for name, want in theirs.items():
+            if not want.is_floating_point():
+                continue
+            diff = (ours[name].double() - want.double()).abs()
+            if name in ref["params"]:
+                param = max(param, diff.max().item())
+                flipped += (diff > 1e-5).sum().item()
+                elements += diff.numel()
+            else:
+                worst["buffer"] = max(worst["buffer"], diff.max().item()
+                                      / max(want.double().abs().max().item(), 1e-30))
+        worst["param"].append(param)
+        shares.append(flipped / elements)
+    launches = {k: {tuple(m): n for m, n in v} for k, v in runs[0]["launches"].items()}
+    want = dp_expected_launches(path, n_steps, world)
+    if {k: v for k, v in launches.items() if v} != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"dp {label} {path} launches {launches}, want {want}")
+    for run in runs:
+        for i in range(n_steps):
+            expected = dp_expected_collectives(path, run["bn_calls"][i])
+            if run["collectives"][i] != expected:
+                raise AssertionError(f"dp {label} {path} step {i}: collectives "
+                                     f"{run['collectives'][i]}, want {expected}")
+    timed = slice(1, None)  # the first step builds plans and state
+    step_ms = [sum(run["ms"][timed]) / len(run["ms"][timed]) for run in runs]
+    dist_ms = [sum(run["dist_ms"][timed]) / len(run["dist_ms"][timed]) for run in runs]
+    ref_ms = sum(ref["ms"][timed]) / len(ref["ms"][timed])
+    log(f"dp {label} {path}: {world} processes on {[r['device'] for r in results]} over "
+        f"{results[0]['backend']}, global batch {BATCH} ({BATCH // world} rows a process), "
+        f"bf16, {n_steps} eager steps: statistics wrappers (bf16) and training ops (f32) "
+        f"against one process's: FourierUnit rel-max {op_gaps['fu']:.3e} (tol "
+        f"{DP_FU_TOL:g}), packed BN {op_gaps['bn']:.3e} (tol {DP_BN_TOL:g}); the same bits: "
+        f"{same_bits} of {sorted(ref_ops)}; first step's "
+        f"averaged gradients against one process's, f32: worst ||g2-g1||/||g1|| "
+        f"{grad_gap:.3e} (tol {DP_GRAD_TOL:g}; rank 0's worst, beside one process's gap "
+        f"on cuDNN's benchmarked algorithms "
+        f"{[(n, f'{v:.3e}', f'{algos[n]:.3e}') for n, v in worst_grads]}, worst of those "
+        f"{max(algos.values()):.3e}){control}; bf16 (printed): rank 0's "
+        f"worst {[(n, f'{v:.3e}', f'{floor[n]:.3e}') for n, v in worst_bf16]} (the last: "
+        f"one process's own bf16 against f32 gap), median "
+        f"{sorted(bf16_gaps.values())[len(bf16_gaps) // 2]:.3e}; the processes' states the "
+        f"same bits after every step; against one "
+        f"process at batch {BATCH}: losses max |diff| {worst['loss']:.3e} (tol "
+        f"{DP_LOSS_TOL:g}), parameters max |diff| by step "
+        f"{[f'{x:.3e}' for x in worst['param']]} and share of their elements beyond 1e-5 "
+        f"{[f'{x:.3e}' for x in shares]} (printed), buffers rel-max {worst['buffer']:.3e}; "
+        f"launches exact; collectives per step exact {runs[0]['collectives'][-1]}")
+    log(f"  step ms (host clock, synchronised, steps 2-{n_steps}) by process {step_ms} "
+        f"against one process's {ref_ms:.3f} ms at batch {BATCH}; host ms in "
+        f"torch.distributed calls {dist_ms} (share {[d / s for d, s in zip(dist_ms, step_ms)]}); "
+        f"bytes a process puts into collectives per step {runs[0]['bytes'][-1]}; {card}")
+    log(f"  host ms per all-gather of each partial-sum shape (rows a process, columns; "
+        f"synchronised, 20 calls) by process: {[run['gather_ms'] for run in runs]}; {card}")
+    if worst["loss"] > DP_LOSS_TOL or grad_gap > DP_GRAD_TOL:
+        raise AssertionError(f"dp {label} {path}: against one process: losses "
+                             f"{worst['loss']:.3e}, gradients {grad_gap:.3e}")
+    if controls and max(controls[0].values()) <= DP_GRAD_TOL:
+        raise AssertionError(f"dp {label} {path}: the control passed the gradients' bar")
+    return launches
+
+
+def dp_graph_nccl(device, card, tmp):
+    """Phase 31c: a group of one process over NCCL. f32, TF32 off,
+    deterministic algorithms: two ``update_steps`` calls of the fgan32 pair
+    (an eager step, the capture with its collectives in the step's CUDA
+    graph, replays) against the same calls of a trainer without a group,
+    the same bits (every collective of one process gives back what it was
+    given); then the second call again from the state before it, the same
+    bits."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch import parallel
+
+    k = 4
+    reals = [torch.stack([real_batch(device, SEED + 50 + 10 * j + i, 32) for i in range(k)])
+             for j in range(2)]
+    snapshot = lambda trainer: {n: t.clone() for n, t in trainer_state(trainer).items()}
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain = make_trainer(device, "f32", 32)
+        for r in reals:
+            plain.update_steps(r)
+        want = snapshot(plain)
+        del plain
+        parallel.initialize("cuda", f"file://{tmp}/nccl-store", 1, 0)
+        try:
+            if parallel.backend() != "nccl":
+                raise AssertionError(f"one process on the card took {parallel.backend()}")
+            grouped = make_trainer(device, "f32", 32)
+            parallel.mesh.collectives.clear()
+            grouped.update_steps(reals[0])
+            first = dict(parallel.mesh.collectives)
+            before = _clone_state(grouped.state_dict())
+            grouped.update_steps(reals[1])
+            got = snapshot(grouped)
+            grouped.load_state_dict(before)
+            grouped.update_steps(reals[1])
+            again = snapshot(grouped)
+            torch.cuda.synchronize()
+            replayed = dict(parallel.mesh.collectives)
+        finally:
+            parallel.shutdown()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    differ = sorted(name for name in want if not torch.equal(want[name], got[name]))
+    unequal = sorted(name for name in got if not torch.equal(got[name], again[name]))
+    log(f"dp 31c nccl, one process: fgan32 f32 update_steps (K={k}, 2 calls: an eager step, "
+        f"the capture, {2 * k - 1} replays) with the collectives in the step's graph against "
+        f"the same calls without a group: {len(want)} state tensors, {len(want) - len(differ)} "
+        f"the same bits; the second call again from its starting state: "
+        f"{len(got) - len(unequal)} of {len(got)} the same bits; collectives counted at the "
+        f"first call (eager step and capture) {first}, none added by {3 * k - 1} replays: "
+        f"{replayed == first}; {card}")
+    if differ or unequal or replayed != first:
+        raise AssertionError(f"dp 31c: differs from the trainer without a group {differ[:8]} "
+                             f"or between replays {unequal[:8]}")
+
+
+def _clone_state(state):
+    """A copy of a nested trainer state (dicts, lists, tensors)."""
+    if isinstance(state, dict):
+        return {k: _clone_state(v) for k, v in state.items()}
+    if isinstance(state, list):
+        return [_clone_state(v) for v in state]
+    return state.clone() if hasattr(state, "clone") else state
+
+
+def dp_cli(card, tmp):
+    """Phase 31e: fgan32 ``train`` through the CLI as two processes joined
+    by the JAX CLI's environment (gloo on the one card: one eager step a
+    call), 4 steps in epochs of 2, checkpoints; then a resume to 6 as two
+    processes. Rank 0 alone prints, writes the grids and checkpoints; each
+    process's launches are exact. Returns the runs' launches by rank."""
+    import socket
+
+    out = os.path.join(tmp, "dp-cli")
+    args = ["--preset", "fgan32", "--set", "train.precision=bf16", "--set", "data.dataset=shapes",
+            "--set", "train.steps_per_call=1", "--set", "log.log_every=1", *CLI_METRICS_OFF,
+            "--set", f"train.num_epoch_steps={DP_CLI_EPOCH}", "--checkpoint", "-o", out]
+    counts = {}
+    for name, steps, grids in (("train", DP_CLI_STEPS, 2), ("resume", DP_CLI_RESUME, 1)):
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        jobs = [cli_start(f"dp-{name}-{rank}", ["train", *args, "-e", str(steps)], out,
+                          env={**os.environ, "FFC_TPU_COORDINATOR": f"localhost:{port}",
+                               "FFC_TPU_NUM_PROCESSES": str(DP_WORLD),
+                               "FFC_TPU_PROCESS_ID": str(rank)}, common=False)
+                for rank in range(DP_WORLD)]
+        try:
+            runs = [cli_wait(job) for job in jobs]
+        finally:  # a process whose peer failed waits for it in a collective
+            for job in jobs:
+                if job[4].poll() is None:
+                    job[4].kill()
+                    job[4].communicate()
+        (out0, counts0), (out1, counts1) = runs
+        if f"step {steps}/{steps}" not in out0 or "step " in out1 or "INFO" in out1:
+            raise AssertionError(f"dp cli {name}: rank 0 alone must print")
+        if name == "resume" and f"INFO: resumed from step {DP_CLI_STEPS}" not in out0:
+            raise AssertionError("dp cli: the two processes did not resume")
+        n_steps = steps - (0 if name == "train" else DP_CLI_STEPS)
+        want = dp_expected_launches(32, n_steps, DP_WORLD)
+        for rank, got in enumerate((counts0, counts1)):
+            expect = eval_launches(FU_SHAPES, grids, want) if rank == 0 else want
+            if {k: v for k, v in got.items() if v} != {k: v for k, v in expect.items() if v}:
+                raise AssertionError(f"dp cli {name} rank {rank} launches {got}, want {expect}")
+            counts[f"dp-cli-{name}-{rank}"] = got
+    losses = check_run_files(out, ["gan_losses.csv", "000002.png", "000004.png", "000006.png",
+                                   "checkpoints/ckpt_4_steps.pt", "checkpoints/ckpt_6_steps.pt"])
+    log(f"dp 31e cli: fgan32 train as {DP_WORLD} processes (gloo, one card), {DP_CLI_STEPS} "
+        f"steps of global batch {BATCH}, resumed to {DP_CLI_RESUME} as {DP_WORLD} processes: "
+        f"rank 0 alone printed and wrote grids and checkpoints, {len(losses)} logged losses "
+        f"finite, launches exact in each process; {card}")
+    return counts
+
+
+def data_parallel(device, card, cli_counts, parts="abcd"):
+    """Phase 31 (see the module docstring) but 31e, which ran beside phase
+    26 (``dp_cli``, its launches ``cli_counts``), or the ``parts`` of it
+    named; returns the launches of its runs by run."""
+    import torch
+
+    counts = dict(cli_counts)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        paths = [path for path, part in ((32, "a"), (128, "b")) if part in parts]
+        refs, ref_ops = {}, {}
+        for path in sorted(set(paths) | ({32} if "d" in parts else set())):
+            ref_ops[path] = dp_ops(device, path)
+            refs[path] = dp_steps(device, path, DP_STEPS[path], keep_states=True)
+        if paths:
+            results = dp_children(tmp, "gloo", DP_WORLD, paths)
+            for path in paths:
+                tag = "31a" if path == 32 else "31b"
+                counts[f"dp-gloo-{path}"] = dp_compare(card, tag, "gloo", path, refs[path],
+                                                       ref_ops[path], results, tmp)
+        if "c" in parts:
+            dp_graph_nccl(device, card, tmp)
+        if "d" not in parts:
+            return counts
+        if torch.cuda.device_count() >= 2:
+            results = dp_children(tmp, "nccl", 2, [32], parity=True)
+            if results[0]["backend"] != "nccl":
+                raise AssertionError(f"two cards took {results[0]['backend']}")
+            counts["dp-nccl-32"] = dp_compare(card, "31d", "nccl", 32, refs[32], ref_ops[32],
+                                              results, tmp)
+        else:
+            log(f"dp 31d: not run (NCCL across two cards): this machine has "
+                f"{torch.cuda.device_count()} card")
+    return counts
+
+
+def data_parallel_alone(device, card, which):
+    """``python3 chip_smoke.py 31`` (phase 31, 31e after the rest) or
+    ``31d``: the launches of the runs checked as in phase 32."""
+    import torch
+
+    parts = {"31": "abcd", "31d": "d"}.get(which)
+    if parts is None:
+        raise ValueError(f"unknown argument {which!r}: 31 or 31d")
+    if which == "31d" and torch.cuda.device_count() < 2:
+        raise AssertionError("31d needs two cards")
+    counts = data_parallel(device, card, {}, parts)
+    if which == "31":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_cli_") as dp_tmp:
+            counts.update(dp_cli(card, dp_tmp))
+    for run, by_kernel in counts.items():
+        if not any(by_kernel.values()):
+            raise AssertionError(f"{run}: no kernel launched")
+    return counts
 
 
 def main() -> int:
@@ -4156,6 +4864,15 @@ def main() -> int:
 
     def phase(name):
         log(f"--- {name} ({time.perf_counter() - t0:.1f} s)")
+
+    if len(sys.argv) > 1:
+        phase(f"{sys.argv[1]} alone")
+        data_parallel_alone(device, card, sys.argv[1])
+        phase("result")
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     phase("3: FourierUnit forward kernel, 32px maps")
     rows, calls = check_fourier_unit(device, FU_SHAPES, "serving")
@@ -4232,8 +4949,7 @@ def main() -> int:
     tmp = cli_tmp.name
     phase("21: fgan32 through the CLI: train, resume, sample; restores in process")
     cli_counts = cli_fgan32(device, card, tmp, graph_ms_32)
-    phase("22: fgan_cond32 through the CLI: train, sample")
-    cli_counts.update(cli_cond32(device, card, tmp))
+    # phase 22 (fgan_cond32 through the CLI) runs beside phase 26
     phase("23: fgan64 through the CLI: the kernels at its staged map, train")
     rows_64, calls_64, counts_64 = cli_fgan64(device, card, tmp)
     rows += rows_64
@@ -4251,8 +4967,16 @@ def main() -> int:
     calls += with_calls(calls_snd, counts_snd)
     phase("25: remat none / dots / full, fgan32 and fgan128")
     remat_counts = remat_runs(device, card)
-    phase("26: a process's first run of a configuration against its second (child processes)")
-    first_run(card)
+    phase("26: a process's first run of a configuration against its second, beside phase 22 "
+          "(fgan_cond32 through the CLI: train, sample) and phase 31e (cli train and a resume "
+          "as two processes), all in child processes side by side")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_cli_") as dp_tmp, \
+            ThreadPoolExecutor(2) as pool:
+        cond32 = pool.submit(cli_cond32, device, card, tmp)
+        dp_cli_run = pool.submit(dp_cli, card, dp_tmp)
+        first_run(card)
+        cli_counts.update(cond32.result())
+        dp_cli_counts = dp_cli_run.result()
     backward_thread_cost(device, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
         phase("27: the InceptionV3 extractor and calculate_metrics on the card against the CPU")
@@ -4275,7 +4999,11 @@ def main() -> int:
                                           for c in metric_counts.values())
             row["launches"] = (row.get("launches", 0) + row["artifact_launches"]
                                + row["prc_ppl_launches"])
-    phase("31: result")
+    phase("31: data parallelism: fgan32 and fgan128 as two processes on one card (gloo) "
+          "against one, one process's captured collectives (NCCL), two cards (NCCL), "
+          "train and resume through the CLI as two processes")
+    dp_counts = data_parallel(device, card, dp_cli_counts)
+    phase("32: result")
     check_main_path_launches({"serving-32px": {"fourier_unit_fwd": by_map},
                               "training-32px": counts_32, "training-128px": counts,
                               "training-sngan": counts_sngan, "training-cond32": counts_c32,
@@ -4284,7 +5012,7 @@ def main() -> int:
                               "lfu-blocks": counts_lfu, "training-cond-sn-d": counts_snd,
                               **remat_counts, **eval_counts,
                               "serving-artifacts": artifact_counts, **serving_counts,
-                              **metric_counts})
+                              **metric_counts, **dp_counts})
     log(json.dumps({"wrapper_calls": calls}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

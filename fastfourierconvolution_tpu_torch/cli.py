@@ -36,9 +36,24 @@ TorchScript and ONNX models, run directories with checkpoints (through
 ``--preset``), directories of images and ``<dataset>-<size>`` names. All
 run on ``cuda`` unless ``--device cpu`` is given.
 
-Not ported yet, and refused at start: ``train.tp`` above 1 and
-multi-process runs, and the ``download`` command. ``log.compilation_cache`` is the JAX
-package's XLA compile cache: accepted, and nothing in the port reads it.
+``train`` runs data-parallel as N processes, one card each, where the
+JAX CLI's launch environment asks for it (``parallel.initialize``:
+``FFC_TPU_COORDINATOR``, ``FFC_TPU_NUM_PROCESSES`` and
+``FFC_TPU_PROCESS_ID``, or ``FFC_TPU_DISTRIBUTED=auto`` under torchrun).
+Every process joins the group before it touches a device, loads its
+``train.batch_size / N`` slice of each global batch, steps in lockstep
+with the others (the step is the global batch's, ``train/gan.py``),
+restores the same checkpoint, and takes its share of each evaluation
+(``calculate_metrics`` in the group); rank 0 alone prints, logs and
+writes grids and checkpoints. Where processes share a card (gloo), whose
+collectives run on the host and cannot be captured, each call is one
+eager ``update_step`` and K = ``train.steps_per_call`` above 1 is refused
+at start.
+
+Not ported yet, and refused at start: ``train.tp`` above 1 (ROADMAP
+queue 1 item 10b) and the ``download`` command. ``log.compilation_cache``
+is the JAX package's XLA compile cache: accepted, and nothing in the port
+reads it.
 """
 
 from __future__ import annotations
@@ -54,8 +69,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-# environment variables of the JAX CLI's multi-process launch
-_DISTRIBUTED_ENV = ("FFC_TPU_COORDINATOR", "FFC_TPU_DISTRIBUTED")
 # The leading metric of best-metric checkpoints: its key and the sign that
 # makes larger better (ISC higher, FID/KID/PPL lower is better).
 _LEADING = {"ISC": ("inception_score_mean", +1), "FID": ("frechet_inception_distance", -1),
@@ -90,11 +103,16 @@ def _refuse_unported(cfg) -> None:
     not have yet, before any work starts."""
     if int(cfg.train.tp) != 1:
         raise NotImplementedError(f"train.tp={cfg.train.tp}: tensor parallelism is not ported "
-                                  f"yet (ROADMAP queue 1 item 10)")
-    launch = [k for k in _DISTRIBUTED_ENV if os.environ.get(k)]
-    if launch:
-        raise NotImplementedError(f"{', '.join(launch)} set: multi-process training is not "
-                                  f"ported yet (ROADMAP queue 1 item 10)")
+                                  f"yet (ROADMAP queue 1 item 10b)")
+
+
+def _say(*args, **kwargs) -> None:
+    """print, on rank 0 of a process group (every process runs the same
+    loop; one of them speaks)."""
+    from . import parallel
+
+    if parallel.process_index() == 0:
+        print(*args, **kwargs)
 
 
 def _maybe_infer_num_classes(cfg, dataset=None) -> None:
@@ -118,7 +136,7 @@ def _maybe_infer_num_classes(cfg, dataset=None) -> None:
             "to infer it from — pass --set model.num_classes=N or use "
             "an unconditional model"
         )
-    print(f"[config] model.num_classes={inferred} (inferred from dataset '{cfg.data.dataset}')")
+    _say(f"[config] model.num_classes={inferred} (inferred from dataset '{cfg.data.dataset}')")
     cfg.model.num_classes = inferred
 
 
@@ -246,7 +264,7 @@ class _EpochEval:
         self.weights_free = ((e.isc or e.fid or e.kid)
                              and not weights_available(e.feature_extractor_weights_path))
         if self.weights_free:
-            print("WARNING: no InceptionV3 weights found — metrics run in weights-free "
+            _say("WARNING: no InceptionV3 weights found — metrics run in weights-free "
                   "shallow-tap mode (relative trends only; not comparable to published FID/ISC "
                   "numbers, nor to the JAX package's weights-free numbers)")
         free = [what for what, on, path in (
@@ -254,10 +272,11 @@ class _EpochEval:
             ("LPIPS (PPL)", e.ppl, e.lpips_weights_path or os.environ.get(LPIPS_WEIGHTS_ENV_VAR)))
             if on and not path]
         if free:
-            print(f"WARNING: no {' or '.join(free)} weights found — weights-free nets (relative "
+            _say(f"WARNING: no {' or '.join(free)} weights found — weights-free nets (relative "
                   f"trends only)")
 
     def __call__(self, step: int) -> None:
+        from . import parallel
         from .eval import GenerativeModel, calculate_metrics
         from .train.checkpoint import save_checkpoint
 
@@ -281,7 +300,7 @@ class _EpochEval:
                 lpips_weights_path=e.lpips_weights_path, vgg_weights_path=e.vgg_weights_path,
                 device=self.device)
             seconds = time.perf_counter() - t0
-            print(f"step {step} metrics ({seconds:.1f}s): {out}", flush=True)
+            _say(f"step {step} metrics ({seconds:.1f}s): {out}", flush=True)
             self.logger.log(step, {**{f"metrics/{k}": v for k, v in out.items()},
                                    "eval_seconds": seconds})
             if self.lead_key in out:
@@ -289,8 +308,9 @@ class _EpochEval:
                 if self.best is None or self.lead_sign * value > self.lead_sign * self.best:
                     self.best = value
                     tag = " [weights-free mode]" if self.weights_free else ""
-                    print(f"INFO: best {e.leading_metric} so far: {value:.5g} (step {step}){tag}")
-                    if cfg.log.checkpoint and cfg.log.best_metric_checkpoints:
+                    _say(f"INFO: best {e.leading_metric} so far: {value:.5g} (step {step}){tag}")
+                    if (cfg.log.checkpoint and cfg.log.best_metric_checkpoints
+                            and parallel.process_index() == 0):
                         save_checkpoint(self.trainer, self.best_dir, step, keep=1)
         except Exception as err:  # a failed evaluation must not end the training run
             traceback.print_exc()
@@ -298,7 +318,22 @@ class _EpochEval:
 
 
 def run_train(cfg, device="cuda") -> None:
-    """Train the config's pair (see the module docstring)."""
+    """Train the config's pair (see the module docstring), as one process
+    of a group where the environment launches one."""
+    from . import parallel
+
+    _refuse_unported(cfg)
+    # the process group first, before any device use
+    device = parallel.initialize(device)
+    try:
+        _train(cfg, device)
+        parallel.barrier()  # rank 0's last writes are done before any process leaves
+    finally:
+        parallel.shutdown()
+
+
+def _train(cfg, device) -> None:
+    from . import parallel
     from .data import DataLoader, load_dataset
     from .train.checkpoint import restore_latest, save_checkpoint
     from .train.gan import GANTrainer
@@ -306,7 +341,6 @@ def run_train(cfg, device="cuda") -> None:
     from .utils.policy import resolve_device
     from .zoo import build_models
 
-    _refuse_unported(cfg)
     device = resolve_device(device)
     t = cfg.train
     spc = max(1, int(t.steps_per_call))
@@ -314,6 +348,14 @@ def run_train(cfg, device="cuda") -> None:
                     or t.num_total_steps % spc):
         raise ValueError("train.steps_per_call must divide log.log_every, "
                          "train.num_epoch_steps and train.num_total_steps")
+    if spc > 1 and device.type == "cuda" and parallel.backend() == "gloo":
+        raise ValueError(f"train.steps_per_call={spc}: the step runs as a CUDA graph, which "
+                         f"cannot hold the gloo backend's collectives (processes that share a "
+                         f"card); take train.steps_per_call=1, or one card per process (NCCL)")
+    rank0 = parallel.process_index() == 0
+    # gloo's collectives run on the host, outside any CUDA graph: one eager
+    # step a call
+    eager = device.type == "cuda" and parallel.backend() == "gloo"
     dataset = load_dataset(
         cfg.data.dataset, cfg.data.data_dir, cfg.data.image_size, cfg.data.channels,
         hflip_augment=cfg.data.hflip_augment, aug_stack=cfg.data.aug_stack,
@@ -322,20 +364,28 @@ def run_train(cfg, device="cuda") -> None:
     _maybe_infer_num_classes(cfg, dataset)
     g_model, d_model = build_models(cfg)
     trainer = GANTrainer(g_model, d_model, **trainer_keywords(cfg), device=device)
-    # uint8 batches, normalised on the device: 4x less host->device traffic
-    loader = DataLoader(dataset, t.batch_size, seed=t.seed, raw_uint8=True)
+    # uint8 batches, normalised on the device: 4x less host->device traffic;
+    # each process its slice of every global batch
+    loader = DataLoader(dataset, t.batch_size, seed=t.seed, raw_uint8=True,
+                        process_index=parallel.process_index(),
+                        process_count=parallel.process_count())
 
     ckpt_dir = os.path.join(cfg.log.dir_logs, "checkpoints")
     ini_step = 0
     if cfg.log.checkpoint:
         _, ini_step = restore_latest(trainer, ckpt_dir)
+        if not parallel.all_equal(ini_step):
+            raise SystemExit(f"the processes found different checkpoints to resume from (this "
+                             f"one step {ini_step}): every process must see the same "
+                             f"{ckpt_dir}")
         if ini_step:
             # replay the seeded epoch shuffles, so the batches continue
             # where the interrupted run stopped
             loader.skip_batches(ini_step)
-            print(f"INFO: resumed from step {ini_step}")
+            _say(f"INFO: resumed from step {ini_step}")
 
-    logger = ScalarLogger(cfg.log.dir_logs, tensorboard=cfg.log.tensorboard)
+    logger = (ScalarLogger(cfg.log.dir_logs, tensorboard=cfg.log.tensorboard) if rank0
+              else _NoLogger())
     evaluate = _EpochEval(cfg, trainer, dataset, device, ckpt_dir, logger)
     z_vis = torch.randn((cfg.log.samples_grid, cfg.model.z_size), device=device,
                         generator=torch.Generator(device).manual_seed(1234))
@@ -357,8 +407,8 @@ def run_train(cfg, device="cuda") -> None:
     try:
         pending = None
         while step < t.num_total_steps:
-            # a torch.profiler trace of ~3 steps on request
-            if profile_at is not None:
+            # a torch.profiler trace of ~3 steps on request (rank 0)
+            if profile_at is not None and rank0:
                 if profiler is None and step >= profile_at:
                     activities = [torch.profiler.ProfilerActivity.CPU]
                     if device.type == "cuda":
@@ -369,12 +419,17 @@ def run_train(cfg, device="cuda") -> None:
                     stop_profiler()
                     profiler, profile_at = None, None
             reals, labels = feed.take(pending if pending is not None else feed.put())
-            out = trainer.update_steps(reals, labels if cfg.model.conditional else None)
+            labels = labels if cfg.model.conditional else None
+            if eager:
+                out = {k: v[None] for k, v in trainer.update_step(
+                    reals[0], None if labels is None else labels[0]).items()}
+            else:
+                out = trainer.update_steps(reals, labels)
             step += spc
             # the next chunk's gather and copy overlap these steps
             pending = feed.put() if step < t.num_total_steps else None
 
-            if step % cfg.log.log_every == 0:
+            if step % cfg.log.log_every == 0 and rank0:
                 scal = {"loss_g": out["loss_g"][-1].item(), "loss_d": out["loss_d"][-1].item(),
                         "lr": lr_of(step - 1)}
                 logger.log(step - 1, scal)
@@ -385,6 +440,8 @@ def run_train(cfg, device="cuda") -> None:
                 continue
             logger.flush()
             evaluate(step)
+            if not rank0:
+                continue
             grid = trainer.generate(z_vis, y_vis).float().cpu().numpy()
             save_image_grid(grid, os.path.join(cfg.log.dir_logs, f"{step:06d}.png"))
             logger.log_image_grid(step, make_grid(grid))
@@ -395,6 +452,8 @@ def run_train(cfg, device="cuda") -> None:
         logger.close()
         if profiler is not None:  # the requested window ran into the end
             stop_profiler()
+    if not rank0:
+        return
     if cfg.log.checkpoint and step % t.num_epoch_steps != 0:
         # the steps since the last epoch boundary would be lost on resume
         save_checkpoint(trainer, ckpt_dir, step)
@@ -404,6 +463,22 @@ def run_train(cfg, device="cuda") -> None:
         except Exception as e:  # the plot is a diagnostic; matplotlib may be absent
             print(f"WARNING: loss plot failed: {e}")
     print("Training finished.")
+
+
+class _NoLogger:
+    """The logger of a process other than rank 0: writes nothing."""
+
+    def log(self, step, scalars) -> None:
+        pass
+
+    def log_image_grid(self, step, grid) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def _load_generator_state(cfg, torch_checkpoint: Optional[str], command: str, device):
@@ -824,7 +899,10 @@ def main(argv: Optional[list] = None) -> None:
                          "[flags]")
     if command in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[command])
-    print("Configuration:\n" + cfg.to_json())
+    # the process of a multi-process launch that will be rank 0 (its group
+    # is joined later, in run_train)
+    if os.environ.get("FFC_TPU_PROCESS_ID", os.environ.get("RANK", "0")) == "0":
+        print("Configuration:\n" + cfg.to_json())
     if command == "train":
         run_train(cfg, device=extras["device"])
     elif command == "export":

@@ -15,7 +15,10 @@
 //   S1 = sum du, S2 = sum du * xhat, S3 = sum g * n   (dbias, dscale, dw);
 //   dx = T(isc * du + p + q * (x - mean)), p = (-isc * S1 + g_mean) / R,
 //        q = (-isc * inv * S2 + 2 g_var) / R          (g_mean, g_var: the
-//                                                  statistics' cotangents);
+//                                                  statistics' cotangents;
+//                                                  R, S1, S2 those of the
+//                                                  global batch under data
+//                                                  parallelism);
 //   dn_l = T(sum_{c < cl} g * w), dn_g = T(sum_{c >= cl} g * w) per row.
 //
 // Replaces the Pallas kernels of fastfourierconvolution_tpu/ops/pallas/bn_act.py:
@@ -264,12 +267,15 @@ __device__ __forceinline__ void unit_sums(const __nv_bfloat16* p, float& s, floa
   }
 }
 
-// out: (2, C) f32, [mean | var]. Block blockIdx.x is rank (blockIdx.x mod
+// out: (2, C) f32, [mean | var], or with `sums` the raw [sum x | sum x^2]
+// (which a process group gathers before fu_reduce's epilogue turns them into
+// the global batch's mean and var). Block blockIdx.x is rank (blockIdx.x mod
 // cluster size) of channel blockIdx.x / cluster size; its threads walk the
 // channel's planes as PlaneWalk says.
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-bn_stats_kernel(const T* __restrict__ x, float* __restrict__ out, int B, int C, int hw) {
+bn_stats_kernel(const T* __restrict__ x, float* __restrict__ out, int B, int C, int hw,
+                bool sums) {
   constexpr int kPer = Unit<T, kVec>::kN;
   cg::cluster_group cluster = cg::this_cluster();
   const int ranks = static_cast<int>(cluster.num_blocks());
@@ -296,8 +302,13 @@ bn_stats_kernel(const T* __restrict__ x, float* __restrict__ out, int B, int C, 
       }
     }
   }
-  if (cluster_sum(cluster, v))
+  if (!cluster_sum(cluster, v)) return;
+  if (sums) {
+    out[c] = v[0];
+    out[C + c] = v[1];
+  } else {
     moments(v[0], v[1], static_cast<float>(static_cast<long long>(B) * hw), out + c, out + C + c);
+  }
 }
 
 // Channels a thread of bn_gelu_apply_kernel walks, at most, and the channels
@@ -433,11 +444,11 @@ bn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
                  const float* __restrict__ s1, const float* __restrict__ s2,
                  const float* __restrict__ g_mean, const float* __restrict__ g_var,
                  const float* __restrict__ w, T* __restrict__ dx, T* __restrict__ dn_l,
-                 T* __restrict__ dn_g, long long rows, int C, int hw, int split) {
+                 T* __restrict__ dn_g, long long rows, float count, int C, int hw,
+                 int split) {
   extern __shared__ float vec[];  // mean, isc, bias, p, q, w: 6C
   float *s_mean = vec, *s_isc = vec + C, *s_bias = vec + 2 * C, *s_p = vec + 3 * C,
         *s_q = vec + 4 * C, *s_w = vec + 5 * C;
-  const float count = static_cast<float>(rows);
   for (int c = threadIdx.x; c < C; c += kThreads) {
     const float inv = rsqrtf(__fadd_rn(var[c], kEps)), isc = __fmul_rn(inv, scale[c]);
     s_mean[c] = mean[c];
@@ -498,12 +509,12 @@ dim3 row_grid(long long rows) { return dim3(static_cast<unsigned>((rows + kThrea
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. x: (B, C, hw); out: (2, C) float32, [mean
-// | var]. vec: 1 for 16-byte loads (hw * itemsize a multiple of 16, x
+// | var], or with sums != 0 [sum x | sum x^2]. vec: 1 for 16-byte loads (hw * itemsize a multiple of 16, x
 // 16-byte aligned), 0 for loads of one value; cluster: the blocks of a
 // channel's cluster, 1, 2, 4 or 8. Each entry point returns a cudaError_t (0
 // on success), a refused cluster launch included.
 int ffc_bn_stats(int dtype, const void* x, float* out, int B, int C, int hw, int vec,
-                 int cluster, void* stream) {
+                 int cluster, int sums, void* stream) {
   if (B <= 0 || C <= 0 || hw <= 0 || !cluster_size_ok(cluster)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<2>(dtype, vec, [&](auto tag, auto flag) {
@@ -512,7 +523,8 @@ int ffc_bn_stats(int dtype, const void* x, float* out, int B, int C, int hw, int
     if (kVec && (static_cast<size_t>(hw) * sizeof(T) % 16 != 0 || !aligned16({x})))
       return static_cast<int>(cudaErrorInvalidValue);
     return launch_clustered(bn_stats_kernel<T, kVec>, static_cast<unsigned>(C) * cluster,
-                            cluster, 0, s, static_cast<const T*>(x), out, B, C, hw);
+                            cluster, 0, s, static_cast<const T*>(x), out, B, C, hw,
+                            sums != 0);
   });
 }
 
@@ -588,14 +600,17 @@ int ffc_bn_bwd_reduce(int dtype, int noise, const void* x, const void* g,
   });
 }
 
-// s1, s2: the sums of ffc_bn_bwd_reduce; g_mean, g_var: (C,) or null for
-// zero; with noise, w is given, split = cl and dn_l, dn_g are written.
+// s1, s2: the sums of ffc_bn_bwd_reduce over `count` rows (rows, or the
+// rows of every process of a data-parallel group); g_mean, g_var: (C,) or
+// null for zero; with noise, w is given, split = cl and dn_l, dn_g are
+// written.
 int ffc_bn_bwd_dx(int dtype, int noise, const void* x, const void* g, const float* mean,
                   const float* var, const float* scale, const float* bias,
                   const float* s1, const float* s2, const float* g_mean,
                   const float* g_var, const float* w, void* dx, void* dn_l, void* dn_g,
-                  long long rows, int C, int hw, int split, void* stream) {
-  if (bad_dims(rows, C, hw, split)) return cudaErrorInvalidValue;
+                  long long rows, long long count, int C, int hw, int split,
+                  void* stream) {
+  if (bad_dims(rows, C, hw, split) || count <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = 6 * static_cast<size_t>(C) * sizeof(float);
   return dispatch<2>(dtype, noise, [&](auto tag, auto flag) {
@@ -603,7 +618,7 @@ int ffc_bn_bwd_dx(int dtype, int noise, const void* x, const void* g, const floa
     bn_bwd_dx_kernel<T, decltype(flag)::value == 1><<<row_grid(rows), kThreads, smem, s>>>(
         static_cast<const T*>(x), static_cast<const T*>(g), mean, var, scale, bias, s1, s2,
         g_mean, g_var, w, static_cast<T*>(dx), static_cast<T*>(dn_l),
-        static_cast<T*>(dn_g), rows, C, hw, split);
+        static_cast<T*>(dn_g), rows, static_cast<float>(count), C, hw, split);
     return static_cast<int>(cudaGetLastError());
   });
 }

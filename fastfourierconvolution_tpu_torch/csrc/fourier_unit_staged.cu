@@ -420,7 +420,7 @@ fu_bwd_mix_kernel(const float* __restrict__ z, float* __restrict__ g,
                   const float* __restrict__ bias, const float* __restrict__ mean,
                   const float* __restrict__ var, const float* __restrict__ gscale,
                   const float* __restrict__ gbias, float* __restrict__ partial, int H,
-                  int W, int chunks) {
+                  int W, int chunks, float count) {
   constexpr int C2 = 16 * RD;
   extern __shared__ float4 smem_f4[];
   float* ks = reinterpret_cast<float*>(smem_f4);
@@ -437,7 +437,6 @@ fu_bwd_mix_kernel(const float* __restrict__ z, float* __restrict__ g,
   const size_t item = blockIdx.y;
   const float* zb = z + item * C2 * S;
   float* gb = g + item * C2 * S;
-  const float count = static_cast<float>(gridDim.y) * S;
   int t0, t1;
   tile_run(S, chunks, t0, t1);
 
@@ -748,12 +747,14 @@ int ffc_fu_mix_apply(int dtype, const float* z, const void* k, const float* scal
 
 // dtype of K. z, g: (B, 2C, H, Wf) float32, g = DFT(gy) on entry and gz on
 // exit; partial: (B * chunks, 4C^2) float32; gscale, gbias: the reduced
-// backward sums.
+// backward sums over `count` positions (B * H * Wf, or the global batch's
+// under data parallelism).
 int ffc_fu_bwd_mix(int dtype, const float* z, float* g, const void* k,
                    const float* scale, const float* bias, const float* mean,
                    const float* var, const float* gscale, const float* gbias,
-                   float* partial, int B, int C, int H, int W, int chunks, void* stream) {
-  if (bad_plane(B, C, H, W) || chunks < 1) return cudaErrorInvalidValue;
+                   float* partial, int B, int C, int H, int W, int chunks, long long count,
+                   void* stream) {
+  if (bad_plane(B, C, H, W) || chunks < 1 || count <= 0) return cudaErrorInvalidValue;
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
     return by_width(2 * C, [&](auto rd) {
@@ -761,7 +762,7 @@ int ffc_fu_bwd_mix(int dtype, const float* z, float* g, const void* k,
       fu_bwd_mix_kernel<T, RD><<<dim3(chunks, B), kThreads, mix_smem_bytes(2 * C, 2, 6),
                                  static_cast<cudaStream_t>(stream)>>>(
           z, g, static_cast<const T*>(k), scale, bias, mean, var, gscale, gbias, partial,
-          H, W, chunks);
+          H, W, chunks, static_cast<float>(count));
       return static_cast<int>(cudaGetLastError());
     });
   });

@@ -254,13 +254,12 @@ fu_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                     const float* __restrict__ var, const float* __restrict__ gscale,
                     const float* __restrict__ gbias, T* __restrict__ gx,
                     float* __restrict__ partial_gk, float* __restrict__ ws,
-                    int C, int H, int W) {
+                    int C, int H, int W, float count) {
   const Dims d(C, H, W);
   const Plan pl(C, H, W);
   const Buffers sm(item_slice(ws, pl.total), pl, d);
   const int c2 = 2 * C, hwf = d.hwf, lane = threadIdx.x % 32;
   const size_t item = blockIdx.x;
-  const float count = static_cast<float>(gridDim.x) * hwf;
 
   load_constants(sm, kmix_g, d);
   load_bn(sm, scale, bias, mean, var, c2);
@@ -546,7 +545,7 @@ fu_item_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                          const float* __restrict__ mean, const float* __restrict__ var,
                          const float* __restrict__ gscale, const float* __restrict__ gbias,
                          T* __restrict__ gx, float* __restrict__ partial_gk, int C, int H,
-                         int W) {
+                         int W, float count) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -568,7 +567,6 @@ fu_item_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   float* cvec = smem + pl.cvec;
   const size_t item = blockIdx.x / k.R;
   const size_t planes = (item * C + rank * k.cr) * static_cast<size_t>(H) * W;
-  const float count = static_cast<float>(gridDim.x / k.R) * k.hwf;
 
   // 1. x's planes (as they are into g, asynchronously, where they are whole
   //    16-byte units) and gy's (likewise into the gather buffer, which is
@@ -817,20 +815,22 @@ int ffc_fu_bwd_stats(int dtype, const void* x, const void* gy, const void* k,
 }
 
 // The workspace backward apply. gx: like x; partial_gk: (B, 2C, 2C) float32;
-// gscale and gbias are the reduced backward sums; ws: B *
-// ffc_item_floats(...) floats.
+// gscale and gbias are the reduced backward sums over `count` spectral
+// positions (B * H * Wf, or the global batch's under data parallelism); ws:
+// B * ffc_item_floats(...) floats.
 int ffc_fu_bwd_apply(int dtype, const void* x, const void* gy, const void* k,
                      const float* scale, const float* bias, const float* mean,
                      const float* var, const float* gscale, const float* gbias, void* gx,
-                     float* partial_gk, float* ws, int B, int C, int H, int W, void* stream) {
-  if (bad_args(B, C, H, W, ws)) return cudaErrorInvalidValue;
+                     float* partial_gk, float* ws, int B, int C, int H, int W,
+                     long long count, void* stream) {
+  if (bad_args(B, C, H, W, ws) || count <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
     fu_bwd_apply_kernel<T><<<B, kThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<const T*>(gy), static_cast<const T*>(k),
         scale, bias, mean, var, gscale, gbias, static_cast<T*>(gx), partial_gk, ws,
-        C, H, W);
+        C, H, W, static_cast<float>(count));
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -887,8 +887,8 @@ int ffc_fu_item_bwd_apply(int dtype, const void* x, const void* gy, const void* 
                           const float* tables, const float* scale, const float* bias,
                           const float* mean, const float* var, const float* gscale,
                           const float* gbias, void* gx, float* partial_gk, int B, int C,
-                          int H, int W, int ranks, void* stream) {
-  if (bad_item_args(B, C, H, W, ranks, tables)) return cudaErrorInvalidValue;
+                          int H, int W, int ranks, long long count, void* stream) {
+  if (bad_item_args(B, C, H, W, ranks, tables) || count <= 0) return cudaErrorInvalidValue;
   const size_t smem = rank_smem<ItemPlan>(C, H, W, ranks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
@@ -897,7 +897,8 @@ int ffc_fu_item_bwd_apply(int dtype, const void* x, const void* gy, const void* 
                                           s, static_cast<const T*>(x),
                                           static_cast<const T*>(gy), static_cast<const T*>(k),
                                           tables, scale, bias, mean, var, gscale, gbias,
-                                          static_cast<T*>(gx), partial_gk, C, H, W);
+                                          static_cast<T*>(gx), partial_gk, C, H, W,
+                                          static_cast<float>(count));
   });
 }
 

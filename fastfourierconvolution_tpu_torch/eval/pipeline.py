@@ -33,6 +33,14 @@
   * ``ppl=True`` runs ``eval.ppl.calculate_ppl`` on a
     :class:`GenerativeModel` ``input1``, whose latents come from
     ``np.random.RandomState(rng_seed)`` as in the JAX package.
+  * In a process group (``parallel``; the JAX package's ``mesh=``) every
+    process resolves the same inputs; of each batch it generates (a
+    generative input) or takes (an array, a dataset, a sampler, whose
+    content must be the same everywhere) its rows and extracts their
+    features, which are gathered in rank order, so every process holds the
+    whole feature set and computes the same metrics. A cache hit counts
+    only where every process has the files (``parallel.mp_and``). PPL runs
+    whole in every process.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import parallel
 from ..utils.policy import resolve_device
 from . import metrics as M
 from . import registry
@@ -167,9 +176,28 @@ def _uint8_images(data, what: str):
     return data
 
 
+def _rows_of(sampler, total: int, batch_size: int):
+    """A sampler of (this process's rows of the batch at ``start``, cut at
+    ``total`` and padded with zeros to ``batch_size``, the batch's length
+    before the padding): the whole padded batch without a process group."""
+    def rows(i):
+        batch = torch.as_tensor(sampler(i))
+        take = min(len(batch), total - i)
+        batch = batch[:take]
+        if 0 < take < batch_size:
+            batch = torch.cat([batch, batch.new_zeros((batch_size - take,) + batch.shape[1:])])
+        return parallel.shard_full_batch(batch), take
+
+    return rows
+
+
 def _resolve_input(spec, num_samples: int, rng_seed: int, batch_size: int, device):
-    """``(sampler, total)``: ``sampler(start)`` gives the batch of uint8
-    images starting at sample ``start``, for any input kind."""
+    """``(sampler, total)``: ``sampler(start)`` gives (this process's rows
+    of the batch of uint8 images starting at sample ``start``, the batch's
+    length), for any input kind: the batch cut at ``total`` and padded with
+    zeros to ``batch_size``, and without a process group the whole of it
+    (``parallel.shard_full_batch``); a generative input generates only this
+    process's rows of its ``batch_size`` latents."""
     if isinstance(spec, str):
         if spec not in registry._DATASETS:
             raise KeyError(f"dataset '{spec}' not registered; known: {registered_datasets()}")
@@ -177,7 +205,7 @@ def _resolve_input(spec, num_samples: int, rng_seed: int, batch_size: int, devic
     if isinstance(spec, (np.ndarray, torch.Tensor)):
         data = _uint8_images(torch.as_tensor(spec), "image inputs")
         n = min(num_samples, len(data)) if num_samples else len(data)
-        return (lambda i: data[i:i + batch_size]), n
+        return _rows_of(lambda i: data[i:i + batch_size], n, batch_size), n
     if isinstance(spec, GenerativeModel):
         if not num_samples:
             raise ValueError("a generative input needs input*_model_num_samples")
@@ -185,6 +213,7 @@ def _resolve_input(spec, num_samples: int, rng_seed: int, batch_size: int, devic
             raise ValueError(f"unknown z_type {spec.z_type!r}; known: "
                              f"{sorted(registry.NOISE_SOURCES)}")
         at = resolve_device(spec.device if spec.device is not None else device)
+        rows = parallel.shard_full_batch
 
         def from_model(i):
             g = _batch_generator(rng_seed, i, at)
@@ -192,12 +221,14 @@ def _resolve_input(spec, num_samples: int, rng_seed: int, batch_size: int, devic
             if spec.num_classes > 0:
                 labels = torch.randint(0, spec.num_classes, (batch_size,), generator=g,
                                        device=at)
-                return _normalize_model_images(spec.apply(z, labels))
-            return _normalize_model_images(spec.apply(z))
+                images = spec.apply(rows(z), rows(labels))
+            else:
+                images = spec.apply(rows(z))
+            return _normalize_model_images(images), min(batch_size, num_samples - i)
 
         return from_model, num_samples
     if callable(spec):
-        return (lambda i: spec(batch_size)), num_samples
+        return _rows_of(lambda i: spec(batch_size), num_samples, batch_size), num_samples
     raise TypeError(f"cannot resolve metric input: {type(spec)}")
 
 
@@ -233,26 +264,27 @@ class FeatureExtractor:
                               device=self.device)
 
     def extract(self, sampler, total: int) -> Dict[str, np.ndarray]:
-        """{tap: float32 (total, D)} over the batches ``sampler`` gives. Every
-        batch is ``batch_size`` images on the device (the last one padded
-        with zeros, the padding dropped), so the card runs one set of
-        convolution plans and an image's features do not depend on N."""
+        """{tap: float32 (total, D)} over the batches ``sampler`` gives
+        (``_resolve_input``). Every batch is ``batch_size`` images (the last
+        one padded with zeros, the padding dropped), so the card runs one
+        set of convolution plans and an image's features do not depend on
+        N. In a process group each process extracts its rows of each batch
+        and the features are gathered in rank order, so every process holds
+        them all."""
         chunks: Dict[str, list] = {f: [] for f in self.features_list}
         i = 0
         while i < total:
             # a generative sampler runs as its model runs, outside the
             # extractor's inference mode and TF32 setting
-            batch = torch.as_tensor(sampler(i))
-            if len(batch) == 0:
+            rows, take = sampler(i)
+            if take <= 0:
                 break
-            take = min(len(batch), total - i)
-            x = _uint8_images(batch[:take], "a batch").to(self.device)
-            if take < self.batch_size:
-                x = torch.cat([x, x.new_zeros((self.batch_size - take,) + x.shape[1:])])
+            x = _uint8_images(torch.as_tensor(rows), "a batch").to(self.device)
             with torch.inference_mode(), _full_f32():
                 feats = self.module(x)
             for k in self.features_list:
-                chunks[k].append(feats[k][:take].float().cpu().numpy())
+                whole = parallel.all_gather_rows(feats[k].float().clone())
+                chunks[k].append(whole[:take].cpu().numpy())
             i += take
         return {k: np.concatenate(v, axis=0) for k, v in chunks.items()}
 
@@ -379,7 +411,9 @@ def calculate_metrics(
     PRC reads ``features_1`` as the real set (torch-fidelity's convention);
     ``prc_input1_generated`` swaps the two feature sets at the PRC call,
     and None swaps exactly where ``input1`` is a :class:`GenerativeModel`
-    and ``input2`` is not (the in-training layout)."""
+    and ``input2`` is not (the in-training layout). In a process group
+    the feature extraction is split over the processes (module
+    docstring)."""
     keywords = dict(locals())
     if not (isc or fid or kid or prc or ppl):
         raise ValueError("at least one metric must be requested")
@@ -448,9 +482,14 @@ def _feature_metrics(input1, input2, *, isc, fid, kid, prc, feature_extractor,
                                   (("isc", isc), ("fid", fid), ("kid", kid), ("prc", prc))
                                   if on}))
 
+    def hit(found) -> bool:
+        """A cache hit: the files found here and, in a process group, in
+        every process."""
+        return parallel.mp_and(bool(cache and found))
+
     def features_for(spec, num_samples, cache_name):
         paths = {l: _cache_path(cache_dir, cache_name, tag, l) for l in wanted_layers}
-        if cache and cache_name and all(os.path.exists(p) for p in paths.values()):
+        if hit(cache_name and all(os.path.exists(p) for p in paths.values())):
             return {l: np.load(p)["features"] for l, p in paths.items()}
         sampler, total = _resolve_input(spec, num_samples, rng_seed, batch_size, device)
         # built only here: a call that finds everything cached needs no
@@ -469,7 +508,7 @@ def _feature_metrics(input1, input2, *, isc, fid, kid, prc, feature_extractor,
         layer = layer_of["fid"]
         path = (os.path.join(cache_dir, f"{cache_name}-{tag}-stat-fid-{layer}.npz")
                 if cache_name else None)
-        if cache and path and os.path.exists(path):
+        if hit(path and os.path.exists(path)):
             data = np.load(path)
             return {"mu": data["mu"], "sigma": data["sigma"]}
         if feats is None:

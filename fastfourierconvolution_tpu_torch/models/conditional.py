@@ -4,7 +4,10 @@ Generators take ``(z, compute_dtype, generator, y)``, discriminators
 ``(x, compute_dtype, y, generator)`` (and ``progress`` for
 :class:`CondDCGANDiscriminator`), with labels ``y`` (B,) integers and
 images NCHW; noise (NoiseInjection, input noise) is drawn from
-``generator`` in training only.
+``generator`` in training only. A discriminator's ``segments`` says that
+x's batch is that many equal parts of the global batch (the trainer's
+fused pass on ``cat([fake, real])``), for its input noise's draw in a
+process group (``nn.layers.randn_rows``).
 
 - :class:`FFCCondGenerator`: a label embedding and z enter through two
   biased ConvT stems (1x1 -> 4x4, BN, exact GELU; ``stem="convt"``) or one
@@ -36,7 +39,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..nn import remat
 from ..nn.ffc import FFC_BN_ACT, resize_output
 from ..nn.layers import (
     BatchNorm,
@@ -47,6 +49,7 @@ from ..nn.layers import (
     LabelEmbedding,
     SNConv2d,
     SNDense,
+    randn_rows,
     reset_parameters,
 )
 from ..utils.policy import resolve_dtype
@@ -63,10 +66,12 @@ def _init(model: nn.Module, generator: Optional[torch.Generator]) -> None:
     reset_parameters(model, torch.Generator().manual_seed(0) if generator is None else generator)
 
 
-def draw_input_noise(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def draw_input_noise(x: torch.Tensor, generator: torch.Generator,
+                     segments: int = 1) -> torch.Tensor:
     """N(0, 1) noise of x's shape, f32, on x's device, from ``generator``:
-    :class:`CondDCGANDiscriminator`'s input noise before its scale."""
-    return remat.recorded(lambda: torch.randn(x.shape, generator=generator, device=x.device))
+    :class:`CondDCGANDiscriminator`'s input noise before its scale
+    (``segments``: see ``randn_rows``)."""
+    return randn_rows(x.shape, generator, x.device, segments=segments)
 
 
 def _flatten_hwc(x: torch.Tensor) -> torch.Tensor:
@@ -184,12 +189,12 @@ class CondSNDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32,
                 y: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, segments: int = 1) -> torch.Tensor:
         dt = resolve_dtype(compute_dtype)
         b, _, h, w = x.shape
         x = x.to(dt)
         if self.noise is not None:
-            x = self.noise(x, generator)
+            x = self.noise(x, generator, segments)
         plane = self.label_embed(_labels(y)).view(b, 1, h, w).to(dt)
         x = torch.cat([x, plane], dim=1)
         for i in range(len(self.ladder)):
@@ -230,10 +235,10 @@ class FFCCondDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32,
                 y: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, segments: int = 1) -> torch.Tensor:
         dt = resolve_dtype(compute_dtype)
         b, _, h, w = x.shape
-        x = self.noise(x.to(dt), generator)
+        x = self.noise(x.to(dt), generator, segments)
         y = _labels(y) % self.num_classes
         plane = self.label_embed(y).view(b, 1, h, w).to(dt)
         feat = (torch.cat([x, plane], dim=1), None)
@@ -323,7 +328,7 @@ class CondDCGANDiscriminator(nn.Module):
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32,
                 y: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                progress=0.0) -> torch.Tensor:
+                progress=0.0, segments: int = 1) -> torch.Tensor:
         dt = resolve_dtype(compute_dtype)
         b = x.shape[0]
         plane = F.leaky_relu(_label_stem(self, _labels(y), b, dt), 0.2)
@@ -334,7 +339,7 @@ class CondDCGANDiscriminator(nn.Module):
             # step reads the count it advanced
             scale = 0.1 * (torch.pow(0.01, progress) if torch.is_tensor(progress)
                            else 0.01 ** progress)
-            x = x.float() + scale * draw_input_noise(x, generator)
+            x = x.float() + scale * draw_input_noise(x, generator, segments)
         x = F.leaky_relu(self.input_conv(x.to(dt)), 0.2)
         x = torch.cat([x, plane], dim=1)
         for itr in range(1, self.number_convs):
@@ -379,13 +384,13 @@ class FFCCondDCGANDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32,
                 y: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, segments: int = 1) -> torch.Tensor:
         dt = resolve_dtype(compute_dtype)
         b = x.shape[0]
         plane = F.gelu(_label_stem(self, _labels(y) % self.num_classes, b, dt))
         x = x.to(dt)
         if self.noise is not None:
-            x = self.noise(x, generator)
+            x = self.noise(x, generator, segments)
         feat = (torch.cat([F.gelu(self.input_conv(x)), plane], dim=1), None)
         for itr in range(1, self.number_convs):
             feat = getattr(self, f"block{itr}")(feat)

@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from .. import parallel
 from ..ops import conv as conv_ops
 from ..ops.bn_act import packed_bn_gelu, packed_bn_gelu_noise
 from ..ops.fourier import irfft2_ortho
@@ -423,9 +424,7 @@ class FFC_BN_ACT(nn.Module):
             self._update_running(bns, mean, var)
             return Packed(out, cl)
         if self.training:
-            xf = arr.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+            mean, var = parallel.batch_moments(arr.float())
             self._update_running(bns, mean, var)
         else:
             mean = torch.cat([bn.running_mean for bn in bns])

@@ -26,6 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import parallel
 from ..ops import conv as conv_ops
 from ..ops.spectral_norm import l2_normalize, spectral_normalize
 from . import remat
@@ -108,9 +109,11 @@ class BatchNorm(nn.Module):
 
 def batch_stats_(bn: nn.Module, xf: torch.Tensor):
     """(mean, biased variance E[x²] − E[x]² clipped at 0) of the f32 map
-    ``xf`` over (B, H, W), folded into ``bn``'s running statistics."""
-    mean = xf.mean(dim=(0, 2, 3))
-    var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+    ``xf`` over (B, H, W), the global batch's under a process group
+    (``parallel.batch_moments``), folded into ``bn``'s running
+    statistics."""
+    mean, var = parallel.batch_moments(xf)
+    var = var.clamp_min(0.0)
     update_running_(bn.running_mean, mean)
     update_running_(bn.running_var, var)
     return mean, var
@@ -254,12 +257,22 @@ def _check_groups(in_channels: int, out_channels: int, groups: int) -> None:
                          f"out_channels ({out_channels})")
 
 
+def randn_rows(shape, generator: torch.Generator, device, dtype=torch.float32,
+               segments: int = 1):
+    """N(0, 1) values of ``shape`` (B, ...) from ``generator``, recorded for
+    a rematerialised apply; under a process group this process's rows of
+    the global batch's draw, the batch being ``segments`` equal parts
+    (``parallel.global_draw``)."""
+    return remat.recorded(lambda: parallel.global_draw(
+        lambda s: torch.randn(s, generator=generator, device=device, dtype=dtype), shape,
+        segments))
+
+
 def draw_noise(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """N(0, 1) single-channel noise (B, 1, H, W) for ``x`` (B, C, H, W), in
     x's dtype, on x's device, from ``generator``."""
     b, _, h, w = x.shape
-    return remat.recorded(lambda: torch.randn((b, 1, h, w), generator=generator,
-                                              device=x.device, dtype=x.dtype))
+    return randn_rows((b, 1, h, w), generator, x.device, x.dtype)
 
 
 class NoiseInjection(nn.Module):
@@ -281,20 +294,20 @@ class NoiseInjection(nn.Module):
 
 class GaussianNoise(nn.Module):
     """Input-noise regulariser: ``x + stddev * N(0, 1)`` drawn in x's dtype
-    from ``generator``, in training only."""
+    from ``generator``, in training only; ``segments``: x's batch as that
+    many equal parts of the global batch (:func:`randn_rows`)."""
 
     def __init__(self, stddev: float = 0.05):
         super().__init__()
         self.stddev = stddev
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator],
+                segments: int = 1) -> torch.Tensor:
         if not self.training or self.stddev == 0.0:
             return x
         if generator is None:
             raise ValueError("a training forward with input noise needs a noise generator")
-        noise = remat.recorded(lambda: torch.randn(x.shape, generator=generator,
-                                                   device=x.device, dtype=x.dtype))
-        return x + self.stddev * noise
+        return x + self.stddev * randn_rows(x.shape, generator, x.device, x.dtype, segments)
 
 
 class _SpectralNormed(nn.Module):

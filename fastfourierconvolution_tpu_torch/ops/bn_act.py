@@ -36,6 +36,14 @@ returns ``(out, bmean, bvar)`` and is differentiable in every tensor
 input, the statistics' cotangents included (the JAX package's ``_bwd`` and
 ``_bwd_noise``).
 
+In a process group (``parallel``) the statistics and the backward sums are
+the global batch's: ``bn_stats``'s kernel writes its sums instead of the
+moments, ``bn_bwd_reduce``'s its S1-S3, and both are gathered from the
+processes in rank order and reduced by ``fu_reduce`` (with the global
+count for the moments); ``bn_bwd_dx`` takes the global count. The training
+op returns the parameters' gradients as this process's share of the
+global sums, and the statistics' cotangents summed over the processes.
+
 Layout: x and out (B, C, H, W); scale, bias, w and the statistics (C,) f32;
 n_l, n_g (B, 1, H, W) in x's dtype, n_l for the channels below ``cl``.
 """
@@ -48,8 +56,9 @@ import math
 
 import torch
 
+from .. import parallel
 from . import _build
-from .fourier_unit import _CLUSTER_MAX, _SMS, _counted, _count, _ptr
+from .fourier_unit import _CLUSTER_MAX, _SMS, _counted, _count, _ptr, _reduce
 
 EPS = 1e-5
 C1 = 0.7978845608028654  # sqrt(2 / pi)
@@ -100,10 +109,9 @@ def _affine(x, mean, var, scale, bias):
 
 def bn_stats_plain(x):
     """(mean, var): f32 per-channel mean and biased variance E[x²] − E[x]²
-    over (B, H, W)."""
-    xf = _f32(x)
-    mean = xf.mean(dim=(0, 2, 3))
-    return mean, (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+    over (B, H, W) (the global batch's under a process group,
+    ``parallel.batch_moments``)."""
+    return parallel.batch_moments(_f32(x))
 
 
 def bn_gelu_apply_plain(x, mean, var, scale, bias, w=None, n_l=None, n_g=None, cl=None):
@@ -118,25 +126,27 @@ def bn_gelu_apply_plain(x, mean, var, scale, bias, w=None, n_l=None, n_g=None, c
 def bn_bwd_reduce_plain(x, g, mean, var, scale, bias, n_l=None, n_g=None, cl=None,
                         sum_dtype=None):
     """(S1, S2) = (Σdu, Σdu·x̂) per channel, du = g·gelu'(u), f32; with
-    the noise maps also S3 = Σg·n. With ``sum_dtype`` (float64) du, x̂ and
+    the noise maps also S3 = Σg·n; over the global batch under a process
+    group. With ``sum_dtype`` (float64) du, x̂ and
     the sums are taken in that dtype from the op's own u: a reference for
     the kernel's f32 sums that keeps the op's rounding of u."""
     xm, inv, _, u = _affine(x, mean, var, scale, bias)
     cast = _f32 if sum_dtype is None else (lambda t: t.to(sum_dtype))
     gf = cast(g)
     du = gf * gelu_tanh_grad(cast(u))
-    sums = (du.sum(dim=(0, 2, 3)), (du * (cast(xm) * _col(cast(inv)))).sum(dim=(0, 2, 3)))
-    if n_l is None:
-        return sums
-    return sums + ((gf * cast(_noise_map(n_l, n_g, cl, x.shape[1]))).sum(dim=(0, 2, 3)),)
+    sums = [du.sum(dim=(0, 2, 3)), (du * (cast(xm) * _col(cast(inv)))).sum(dim=(0, 2, 3))]
+    if n_l is not None:
+        sums.append((gf * cast(_noise_map(n_l, n_g, cl, x.shape[1]))).sum(dim=(0, 2, 3)))
+    return tuple(parallel.sum_over_processes(torch.stack(sums)))
 
 
 def bn_bwd_dx_plain(x, g, mean, var, scale, bias, s1, s2, g_mean=None, g_var=None,
                     w=None, cl=None):
     """dx like x (the coupled BN backward with the statistics' cotangents
-    g_mean, g_var, None for zero); with ``w`` also (dn_l, dn_g), the
+    g_mean, g_var, None for zero; under a process group s1, s2 and the
+    count are the global batch's); with ``w`` also (dn_l, dn_g), the
     per-row sums of g·w below and from cl, (B, 1, H, W) like x."""
-    n = x.numel() // x.shape[1]
+    n = parallel.global_count(x.numel() // x.shape[1])
     xm, inv, isc, u = _affine(x, mean, var, scale, bias)
     p, q = -isc * s1, -isc * inv * s2
     if g_mean is not None:
@@ -198,13 +208,13 @@ def _noise_maps(x, n_l, n_g):
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRY_POINTS = {
-    "ffc_bn_stats": [_I, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ffc_bn_stats": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ffc_bn_gelu_apply": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _P],
     "ffc_bn_bwd_reduce": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                           _P],
     "ffc_bn_bwd_dx": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _LL, _I, _I, _I, _P],
+                      _LL, _LL, _I, _I, _I, _P],
 }
 
 
@@ -331,7 +341,9 @@ def apply_blocks_per_sm(dtype: torch.dtype, noise: bool, vec: bool, tile: int) -
 @_counted
 def bn_stats(x):
     """(mean, var) per channel, f32; one launch of the stats kernel on
-    CUDA, the plain version on the CPU."""
+    CUDA, the plain version on the CPU. Under a process group the kernel
+    writes its sums, which are gathered from the processes in rank order
+    and turned into the global batch's statistics by ``fu_reduce``."""
     _check(x)
     if x.device.type == "cpu":
         return bn_stats_plain(x)
@@ -340,9 +352,13 @@ def bn_stats(x):
         raise ValueError("the BN+GELU kernels need at least one row")
     vec, cluster = stats_design(b, c, h * w, x.element_size(), _aligned(x))
     out = x.new_empty((2, c), dtype=torch.float32)
+    sums = parallel.active()
     _launch("ffc_bn_stats", x, _DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), b, c,
-            h * w, int(vec), cluster)
+            h * w, int(vec), cluster, int(sums))
     _count(bn_stats, (c, h, w))
+    if sums:
+        rows = parallel.all_gather_rows(out.view(1, 2 * c))
+        out = _reduce(rows, parallel.global_count(b * h * w)).view(2, c)
     return out.unbind()
 
 
@@ -371,7 +387,8 @@ def bn_gelu_apply(x, mean, var, scale, bias, w=None, n_l=None, n_g=None, cl=None
 def bn_bwd_reduce(x, g, mean, var, scale, bias, n_l=None, n_g=None, cl=None):
     """(S1, S2[, S3]) per channel, f32 (see :func:`bn_bwd_reduce_plain`);
     one launch of the reduce kernel on CUDA, as :func:`bwd_reduce_design`
-    picks."""
+    picks. Under a process group the sums are gathered from the processes
+    in rank order and summed by ``fu_reduce``."""
     noise = n_l is not None
     _check(x, [("g", g, tuple(x.shape))] + (_noise_maps(x, n_l, n_g) if noise else []),
            [("mean", mean), ("var", var), ("scale", scale), ("bias", bias)],
@@ -386,6 +403,9 @@ def bn_bwd_reduce(x, g, mean, var, scale, bias, n_l=None, n_g=None, cl=None):
             bias.data_ptr(), _ptr(n_l), _ptr(n_g), cl if noise else c, out.data_ptr(), b, c,
             hw, int(vec), cluster)
     _count(bn_bwd_reduce, tuple(x.shape[1:]))
+    if parallel.active():
+        n = out.shape[0]
+        out = _reduce(parallel.all_gather_rows(out.view(1, n * c))).view(n, c)
     return out.unbind()
 
 
@@ -393,7 +413,8 @@ def bn_bwd_reduce(x, g, mean, var, scale, bias, n_l=None, n_g=None, cl=None):
 def bn_bwd_dx(x, g, mean, var, scale, bias, s1, s2, g_mean=None, g_var=None, w=None,
               cl=None):
     """dx, or (dx, dn_l, dn_g) with ``w`` (see :func:`bn_bwd_dx_plain`);
-    the dx kernel on CUDA."""
+    the dx kernel on CUDA. Under a process group s1 and s2 are the global
+    batch's sums and the kernel takes the global count."""
     noise = w is not None
     _check(x, [("g", g, tuple(x.shape))],
            [("mean", mean), ("var", var), ("scale", scale), ("bias", bias), ("s1", s1),
@@ -409,8 +430,8 @@ def bn_bwd_dx(x, g, mean, var, scale, bias, s1, s2, g_mean=None, g_var=None, w=N
     _launch("ffc_bn_bwd_dx", x, _DTYPE_CODES[x.dtype], int(noise), x.data_ptr(),
             g.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), s1.data_ptr(), s2.data_ptr(), _ptr(g_mean), _ptr(g_var),
-            _ptr(w), dx.data_ptr(), _ptr(dn_l), _ptr(dn_g), b * hw, c, hw,
-            cl if noise else c // 2)
+            _ptr(w), dx.data_ptr(), _ptr(dn_l), _ptr(dn_g), b * hw,
+            parallel.global_count(b * hw), c, hw, cl if noise else c // 2)
     _count(bn_bwd_dx, tuple(x.shape[1:]))
     return (dx, dn_l, dn_g) if noise else dx
 
@@ -432,13 +453,18 @@ class _PackedBnGelu(torch.autograd.Function):
     def backward(ctx, g_out, g_mean, g_var):
         x, scale, bias, w, n_l, n_g, mean, var = ctx.saved_tensors
         g = torch.zeros_like(x) if g_out is None else g_out.contiguous()
+        # every process's statistics are the global ones: their cotangents add up
+        g_mean, g_var = (None if t is None else parallel.sum_over_processes(t)
+                         for t in (g_mean, g_var))
         sums = bn_bwd_reduce(x, g, mean, var, scale, bias, n_l, n_g, ctx.cl)
         grads = bn_bwd_dx(x, g, mean, var, scale, bias, sums[0], sums[1], g_mean, g_var,
                           w, ctx.cl)
+        # the sums are the global batch's: the parameters take this process's share
+        share = [parallel.param_share(t) for t in sums]
         if w is None:
-            return grads, sums[1], sums[0], None, None, None, None
+            return grads, share[1], share[0], None, None, None, None
         dx, dn_l, dn_g = grads
-        return dx, sums[1], sums[0], sums[2], dn_l, dn_g, None
+        return dx, share[1], share[0], share[2], dn_l, dn_g, None
 
 
 def packed_bn_gelu(x, scale, bias):

@@ -68,6 +68,21 @@ themselves an autograd Function (``_FourierUnitBackward``), so the op has
 a double backward: the VJP of the plain backward, as the JAX package
 differentiates its jnp backward (a gradient penalty takes it).
 
+Data parallelism (``parallel``). In a process group the statistics and
+the backward sums are those of the global batch: the per-item (or, staged,
+per-run) partial rows are gathered from the processes in rank order and
+reduced by ``fu_reduce`` with the global count. Every launch keeps the
+design of this process's batch (ranks per item, runs per item), so each
+card is as full as it is without a group; a per-item row does not depend
+on the ranks (every sum runs over its index in order in one thread), so a
+per-item statistic has the bits that one process computes on the global
+batch, and a staged one sums the same values in runs of another length.
+The backward applies take the global sums and the global count; the
+training op returns gscale and gbias as this process's share of the global
+sums (``parallel.param_share``). The plain versions sum over the processes
+in PyTorch (``parallel.batch_moments``), differentiably, so the double
+backward's recomputed statistics are global too.
+
 Layout: x, y, gy and gx are (B, C, H, W); kernel (2C, 2C) in x's dtype,
 [re; im] on both axes; scale, bias and the statistics are (2C,) f32.
 """
@@ -81,6 +96,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import parallel
 from . import _build
 from .fourier import (
     forward_factors,
@@ -128,11 +144,10 @@ def fourier_unit_forward_plain(x, kernel, scale, bias, mean, var):
 
 def fu_train_stats_plain(x, kernel):
     """(bmean, bvar): f32 mean and biased variance E[m²] − E[m]² of each
-    of the 2C channels of m over (B, H, Wf)."""
+    of the 2C channels of m over (B, H, Wf) (the global batch's under a
+    process group, ``parallel.batch_moments``)."""
     _, m = _spectrum_plain(x, kernel)
-    mf = _f32(m)
-    bmean = mf.mean(dim=(0, 2, 3))
-    return bmean, (mf * mf).mean(dim=(0, 2, 3)) - bmean * bmean
+    return parallel.batch_moments(_f32(m))
 
 
 def fourier_unit_train_plain(x, kernel, scale, bias):
@@ -154,15 +169,18 @@ def _bwd_recompute_plain(x, kernel, scale, bias, bmean, bvar, gy):
 
 
 def fu_bwd_stats_plain(x, kernel, scale, bias, bmean, bvar, gy):
-    """(gscale, gbias) = (Σ gpre·n̂, Σ gpre) over (B, H, Wf), f32."""
+    """(gscale, gbias) = (Σ gpre·n̂, Σ gpre) over (B, H, Wf), f32 (over the
+    global batch under a process group)."""
     _, n_hat, _, gpre = _bwd_recompute_plain(x, kernel, scale, bias, bmean, bvar, gy)
-    return (gpre * n_hat).sum(dim=(0, 2, 3)), gpre.sum(dim=(0, 2, 3))
+    return tuple(parallel.sum_over_processes(
+        torch.stack([(gpre * n_hat).sum(dim=(0, 2, 3)), gpre.sum(dim=(0, 2, 3))])))
 
 
 def _coupled_bn_cotangent(gn, n_hat, inv, scale, gscale, gbias):
     """gm = inv·(gn − mean(gn) − n̂·mean(gn·n̂)) over (B, H, Wf), with
-    Σgn = scale·gbias and Σgn·n̂ = scale·gscale."""
-    n = gn.shape[0] * gn.shape[2] * gn.shape[3]
+    Σgn = scale·gbias and Σgn·n̂ = scale·gscale (the global batch's sums
+    and count under a process group)."""
+    n = parallel.global_count(gn.shape[0]) * gn.shape[2] * gn.shape[3]
     return _col(inv) * (gn - _col(scale * gbias / n) - n_hat * _col(scale * gscale / n))
 
 
@@ -185,13 +203,15 @@ def fu_bwd_apply_plain(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias, t
 def fourier_unit_backward_plain(x, kernel, scale, bias, bmean, bvar, gy, train=True):
     """The backward of the JAX package's ``_jnp_backward``: (gx, gK in
     kernel's dtype, gscale, gbias, zeros, zeros); the statistics get zero
-    gradients."""
+    gradients. Under a process group gscale and gbias are this process's
+    share of the global sums (``parallel.param_share``)."""
     gscale, gbias = fu_bwd_stats_plain(x, kernel, scale, bias, bmean, bvar, gy)
     gx, gk = fu_bwd_apply_plain(
         x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias, train
     )
     zeros = torch.zeros_like(bmean)
-    return gx, gk.to(kernel.dtype), gscale, gbias, zeros, zeros
+    return (gx, gk.to(kernel.dtype), parallel.param_share(gscale), parallel.param_share(gbias),
+            zeros, zeros)
 
 
 # The stages of the staged design. Spectra are (B, 2C, H, Wf) [re; im] with
@@ -233,10 +253,9 @@ def fu_mix_apply_plain(z, kernel, scale, bias, mean, var):
 def fu_mix_stats_plain(z, kernel):
     """(bmean, bvar): mean and biased variance E[m²] − E[m]² of each of the
     2C channels of m = z mixed by kernel over (B, H, Wf), no half-spectrum
-    weights (as ``fu_train_stats_plain``), like z."""
-    m = _stage_mix(z, kernel)
-    bmean = m.mean(dim=(0, 2, 3))
-    return bmean, (m * m).mean(dim=(0, 2, 3)) - bmean * bmean
+    weights (as ``fu_train_stats_plain``, the global batch's under a
+    process group), like z."""
+    return parallel.batch_moments(_stage_mix(z, kernel))
 
 
 def fu_bwd_stats_mix_plain(z, g, kernel, scale, bias, bmean, bvar):
@@ -244,7 +263,8 @@ def fu_bwd_stats_mix_plain(z, g, kernel, scale, bias, bmean, bvar):
     DFT(gy), gpre = c·G·[pre > 0] (as ``fu_bwd_stats_plain``), like z."""
     n_hat, _, pre = _stage_bn(z, kernel, scale, bias, bmean, bvar)
     gpre = g * _half_weights(z) * (pre > 0)
-    return (gpre * n_hat).sum(dim=(0, 2, 3)), gpre.sum(dim=(0, 2, 3))
+    return tuple(parallel.sum_over_processes(
+        torch.stack([(gpre * n_hat).sum(dim=(0, 2, 3)), gpre.sum(dim=(0, 2, 3))])))
 
 
 def fu_inverse_plain(spec, dtype, w):
@@ -356,9 +376,9 @@ _ENTRY_POINTS = {
         "ffc_fu_item_bwd_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _P],
         "ffc_fu_bwd_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _LL, _P],
         "ffc_fu_item_bwd_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _P],
+                                  _I, _I, _I, _I, _I, _LL, _P],
         "ffc_fu_reduce": [_P, _I, _I, _LL, _I, _I, _P, _P],
     },
     _STAGED: {
@@ -366,7 +386,7 @@ _ENTRY_POINTS = {
         "ffc_fu_inverse": [_I, _P, _P, _I, _I, _I, _I, _P],
         "ffc_fu_mix_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "ffc_fu_bwd_mix": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _LL, _P],
         "ffc_fu_mix_stats": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "ffc_fu_bwd_stats_mix": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _P],
@@ -622,6 +642,12 @@ def _item_launch(stem: str, x: torch.Tensor):
     return item_design(b, c, h, w, limit), _item_tables(h, w, x.device.index)
 
 
+def _global_count(b: int, h: int, w: int) -> int:
+    """The spectrum positions of the global batch that a statistic runs
+    over: B·H·Wf of this process's batch times the processes."""
+    return parallel.global_count(b) * h * (w // 2 + 1)
+
+
 def _workspace(stem: str, x: torch.Tensor) -> torch.Tensor:
     """A workspace kernel's f32 workspace, B items of the plan's floats, from
     PyTorch's allocator, which raises if it cannot be had."""
@@ -771,7 +797,7 @@ def fu_train_stats(x, kernel):
         _launch(_TRAIN, "ffc_fu_train_stats", x, *operands, partial.data_ptr(), ws.data_ptr(),
                 b, c, h, w)
     _count(fu_train_stats, (c, h, w))
-    return _reduce(partial, b * h * (w // 2 + 1)).split(2 * c)
+    return _reduce(parallel.all_gather_rows(partial), _global_count(b, h, w)).split(2 * c)
 
 
 @_counted
@@ -802,7 +828,7 @@ def fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy):
         _launch(_TRAIN, "ffc_fu_bwd_stats", x, *operands, *vectors, partial.data_ptr(),
                 ws.data_ptr(), b, c, h, w)
     _count(fu_bwd_stats, (c, h, w))
-    return _reduce(partial).split(2 * c)
+    return _reduce(parallel.all_gather_rows(partial)).split(2 * c)
 
 
 @_counted
@@ -822,6 +848,7 @@ def fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias):
         return fu_inverse(gz, x.dtype, x.shape[3]), gk
     _contiguous(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias)
     b, c, h, w = x.shape
+    count = _global_count(b, h, w)
     gx = torch.empty_like(x)
     partial = torch.empty(b, 4 * c * c, device=x.device)
     operands = (x.data_ptr(), gy.data_ptr(), kernel.data_ptr())
@@ -831,11 +858,11 @@ def fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias):
         ranks, tables = _item_launch(_TRAIN, x)
         _launch(_TRAIN, "ffc_fu_item_bwd_apply", x, _DTYPE_CODES[x.dtype], *operands,
                 tables.data_ptr(), *vectors, gx.data_ptr(), partial.data_ptr(), b, c, h, w,
-                ranks)
+                ranks, count)
     else:
         ws = _workspace(_TRAIN, x)
         _launch(_TRAIN, "ffc_fu_bwd_apply", x, _DTYPE_CODES[x.dtype], *operands, *vectors,
-                gx.data_ptr(), partial.data_ptr(), ws.data_ptr(), b, c, h, w)
+                gx.data_ptr(), partial.data_ptr(), ws.data_ptr(), b, c, h, w, count)
     _count(fu_bwd_apply, (c, h, w))
     return gx, _reduce(partial).view(2 * c, 2 * c)
 
@@ -933,7 +960,7 @@ def fu_mix_stats(z, kernel):
     _staged_launch("ffc_fu_mix_stats", z, kernel.dtype, z.data_ptr(), kernel.data_ptr(),
                    partial.data_ptr(), b, c, h, w, chunks)
     _count(fu_mix_stats, (c, h, w))
-    return _reduce(partial, b * h * (w // 2 + 1)).split(2 * c)
+    return _reduce(parallel.all_gather_rows(partial), _global_count(b, h, w)).split(2 * c)
 
 
 @_counted
@@ -951,7 +978,7 @@ def fu_bwd_stats_mix(z, g, kernel, scale, bias, bmean, bvar):
                    kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(), bmean.data_ptr(),
                    bvar.data_ptr(), partial.data_ptr(), b, c, h, w, chunks)
     _count(fu_bwd_stats_mix, (c, h, w))
-    return _reduce(partial).split(2 * c)
+    return _reduce(parallel.all_gather_rows(partial)).split(2 * c)
 
 
 @_counted
@@ -987,7 +1014,7 @@ def fu_bwd_mix(z, g, kernel, scale, bias, bmean, bvar, gscale, gbias):
     _staged_launch("ffc_fu_bwd_mix", z, kernel.dtype, z.data_ptr(), g.data_ptr(),
                    kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(), bmean.data_ptr(),
                    bvar.data_ptr(), gscale.data_ptr(), gbias.data_ptr(), partial.data_ptr(),
-                   b, c, h, w, chunks)
+                   b, c, h, w, chunks, _global_count(b, h, w))
     _count(fu_bwd_mix, (c, h, w))
     return g, _reduce(partial).view(2 * c, 2 * c)
 
@@ -1014,7 +1041,8 @@ def _train_backward_staged(x, kernel, scale, bias, bmean, bvar, gy, train=True):
     gscale, gbias = fu_bwd_stats_mix(z, g, kernel, scale, bias, bmean, bvar)
     sums = (gscale, gbias) if train else (torch.zeros_like(gscale),) * 2
     gz, gk = fu_bwd_mix(z, g, kernel, scale, bias, bmean, bvar, *sums)
-    return fu_inverse(gz, x.dtype, x.shape[3]), gk.to(kernel.dtype), gscale, gbias
+    return (fu_inverse(gz, x.dtype, x.shape[3]), gk.to(kernel.dtype),
+            parallel.param_share(gscale), parallel.param_share(gbias))
 
 
 def _stats_staged(x) -> bool:
@@ -1024,13 +1052,15 @@ def _stats_staged(x) -> bool:
 def _backward_kernels(x, kernel, scale, bias, bmean, bvar, gy, train):
     """``(gx, gK in kernel's dtype, gscale, gbias)`` from the kernels (the
     plain versions on the CPU); in eval mode the apply takes zero sums, so
-    the coupled-BN cotangent collapses to gm = gn·inv."""
+    the coupled-BN cotangent collapses to gm = gn·inv. Under a process
+    group the apply takes the global batch's sums, and gscale and gbias are
+    this process's share of them (``parallel.param_share``)."""
     if _stats_staged(x):
         return _train_backward_staged(x, kernel, scale, bias, bmean, bvar, gy, train)
     gscale, gbias = fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy)
     sums = (gscale, gbias) if train else (torch.zeros_like(gscale),) * 2
     gx, gk = fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, *sums)
-    return gx, gk.to(kernel.dtype), gscale, gbias
+    return gx, gk.to(kernel.dtype), parallel.param_share(gscale), parallel.param_share(gbias)
 
 
 class _FourierUnitBackward(torch.autograd.Function):

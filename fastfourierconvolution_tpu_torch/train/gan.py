@@ -55,6 +55,21 @@ step without remat leaves them.
 ``generate`` samples G in eval mode (running statistics, no noise), as
 the JAX trainer's ``generate`` does.
 
+Data parallelism (``parallel``): in a process group every process steps
+on its slice of the global batch and the step is the global batch's, as
+under the JAX trainer's sharded jit. The trainer copies rank 0's G and D
+into every process when it is made; the statistics of every BN and
+FourierUnit are the global batch's; the latents, the noise maps and the
+gradient penalty's weights are drawn for the global batch (every process
+from the same generator state) and each process keeps its rows, D's fused
+pass per half (its ``segments=2``); each phase's loss and gradients are
+averaged over the processes in one bucketed all-reduce before the
+optimizer step (with the aw-method, both passes' gradients, and the
+logits gathered). Parameters, optimizer moments, ``u`` and running
+statistics then stay equal in every process. ``update_steps`` captures
+the collectives in its CUDA graph under NCCL; under gloo, whose
+collectives run on the host, it raises.
+
 ``state_dict`` holds the whole trainer state (``train/checkpoint.py``
 saves it); ``load_state_dict`` copies a saved state into the live
 tensors, so a captured step replays on the restored state.
@@ -67,6 +82,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
+from .. import parallel
 from ..models.ffc_gan import to_uint8
 from ..nn import remat as remat_mod
 from ..utils.policy import default_dtype, resolve_device, resolve_dtype
@@ -171,6 +187,8 @@ class GANTrainer:
         self.remat = remat
         self.g = g_model.to(self.device).train()
         self.d = d_model.to(self.device).train()
+        parallel.broadcast_module_(self.g)
+        parallel.broadcast_module_(self.d)
         self.g_opt, self.g_lr = make_optimizer(
             self.g.parameters(), self.device, lr, total_steps, b1, b2, optimizer)
         self.d_opt, self.d_lr = make_optimizer(
@@ -185,9 +203,9 @@ class GANTrainer:
         self._graphs: Dict[tuple, _StepGraph] = {}
 
     def _latents(self, b: int) -> torch.Tensor:
-        return torch.randn(
-            (b, self.z_size), generator=self.z_generator, device=self.device
-        )
+        return parallel.global_draw(
+            lambda shape: torch.randn(shape, generator=self.z_generator, device=self.device),
+            (b, self.z_size))
 
     # -- the two phases ------------------------------------------------------------
 
@@ -197,36 +215,44 @@ class GANTrainer:
         args = (z, self.dtype, self.noise_generator)
         return args + (labels,) if self.conditional else args
 
-    def _d_args(self, x: torch.Tensor, labels: Optional[torch.Tensor]):
+    def _d_args(self, x: torch.Tensor, labels: Optional[torch.Tensor], segments: int = 1):
         """D's positional and keyword arguments on ``x``: a conditional D
-        takes the labels and the noise generator, and with
-        ``d_progress_arg`` the progress, step / total_steps on the device."""
+        takes the labels and the noise generator, and ``segments`` where x
+        is the fused pass's ``cat([fake, real])`` (its input noise is drawn
+        per half in a process group); with ``d_progress_arg`` the progress,
+        step / total_steps on the device."""
         args, kwargs = (x, self.dtype), {}
         if self.conditional:
             args += (labels, self.noise_generator)
+            if segments != 1:
+                kwargs["segments"] = segments
         if self.d_progress_arg:
             kwargs["progress"] = self.step_count / self.total_steps
         return args, kwargs
 
-    def _d(self, x: torch.Tensor, labels: Optional[torch.Tensor]) -> torch.Tensor:
+    def _d(self, x: torch.Tensor, labels: Optional[torch.Tensor],
+           segments: int = 1) -> torch.Tensor:
         """A differentiated training forward of D, rematerialised per
         ``remat``."""
-        args, kwargs = self._d_args(x, labels)
+        args, kwargs = self._d_args(x, labels, segments)
         return remat_mod.checkpointed(self.remat, self.d, *args, **kwargs)
 
     def g_loss_and_grads(self, z: torch.Tensor, labels: Optional[torch.Tensor] = None):
         """The G phase's loss and the generator's gradients (one tensor per
-        parameter, in ``g_model.parameters()`` order). Advances G's running
-        statistics and D's ``u`` and statistics, as the phase does."""
+        parameter, in ``g_model.parameters()`` order; under a process group
+        the global batch's, averaged over the processes). Advances G's
+        running statistics and D's ``u`` and statistics, as the phase
+        does."""
         params = list(self.g.parameters())
         fake = remat_mod.checkpointed(self.remat, self.g, *self._g_args(z, labels))
         loss = self.gen_loss(self._d(fake, labels))
-        return loss.detach(), torch.autograd.grad(loss, params)
+        return _averaged(loss.detach(), torch.autograd.grad(loss, params))
 
     def d_loss_and_grads(self, real: torch.Tensor, z: torch.Tensor,
                          labels: Optional[torch.Tensor] = None):
         """One D update's loss and D's gradients (in ``d_model.parameters()``
-        order) on ``real`` (B, C, H, W) f32 and fakes from ``z`` (and
+        order; under a process group the global batch's, averaged over the
+        processes) on ``real`` (B, C, H, W) f32 and fakes from ``z`` (and
         ``labels``, which the reals share). Advances G's running statistics
         and D's ``u`` and statistics, as the update does."""
         with torch.no_grad():
@@ -242,14 +268,19 @@ class GANTrainer:
             fake_logits = self._d_from(start, fake, labels)
             real_logits = self._d(real_dt, labels)
             loss_r, loss_f = real_term(real_logits), fake_term(fake_logits)
+            # the weighting reads the global batch's gradients and logits
+            n = len(params)
+            loss, grads = _averaged(
+                (loss_r + loss_f).detach(),
+                [*torch.autograd.grad(loss_r, params), *torch.autograd.grad(loss_f, params)])
             grads, _, _ = L.aw_combine(
-                torch.autograd.grad(loss_r, params), torch.autograd.grad(loss_f, params),
-                real_logits, fake_logits, *self.aw_params,
+                grads[:n], grads[n:], parallel.all_gather_rows(real_logits.detach()),
+                parallel.all_gather_rows(fake_logits.detach()), *self.aw_params,
             )
-            return (loss_r + loss_f).detach(), grads
+            return loss, grads
         if self.fused_dis_batch:
             both = None if labels is None else torch.cat([labels, labels])
-            fake_logits, real_logits = self._d(torch.cat([fake, real_dt]), both).chunk(2)
+            fake_logits, real_logits = self._d(torch.cat([fake, real_dt]), both, 2).chunk(2)
         else:
             fake_logits = self._d(fake, labels)
             real_logits = self._d(real_dt, labels)
@@ -257,7 +288,7 @@ class GANTrainer:
         if self.use_gp:
             loss = loss + self.gp_lambda * L.gradient_penalty(
                 lambda x: self._d_from(start, x, labels), real, fake, self.noise_generator)
-        return loss.detach(), torch.autograd.grad(loss, params)
+        return _averaged(loss.detach(), torch.autograd.grad(loss, params))
 
     def _d_from(self, buffers, x: torch.Tensor, labels: Optional[torch.Tensor]) -> torch.Tensor:
         """A differentiated training forward of D with its buffers (``u``,
@@ -369,6 +400,10 @@ class GANTrainer:
         if reals.dim() != 5:
             raise ValueError(f"reals must be (K, B, H, W, C), got {tuple(reals.shape)}")
         labels = self._labels(labels, reals.shape[:2])
+        if self.device.type == "cuda" and parallel.backend() == "gloo":
+            raise ValueError("update_steps captures the step with its collectives as a CUDA "
+                             "graph, and the gloo backend runs its collectives on the host: "
+                             "under gloo take update_step, one step a call")
         if self.device.type != "cuda":
             outs = [self.update_step(real, None if labels is None else labels[i])
                     for i, real in enumerate(reals)]
@@ -462,6 +497,13 @@ class GANTrainer:
         finally:
             self.g.train(was_training)
         return (to_uint8(out) if uint8 else out).contiguous()
+
+
+def _averaged(loss: torch.Tensor, grads):
+    """``(loss, grads)`` averaged over the processes of a group, in one
+    all-reduce (``parallel.average_``); as they are without one."""
+    loss, *grads = parallel.average_([loss.reshape(1), *grads])
+    return loss.reshape(()), tuple(grads)
 
 
 def _optimizer_state(opt: torch.optim.Optimizer) -> list:

@@ -14,6 +14,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from .. import parallel
+
 BCE_CLIP = 1e-7
 GP_NORM_EPS = 1e-12
 
@@ -75,8 +77,11 @@ def wgan_loss_gen(fake_logits: torch.Tensor) -> torch.Tensor:
 
 
 def interpolation_weights(real: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """eps ~ U(0, 1) of shape (B, 1, 1, 1), f32, from ``generator``."""
-    return torch.rand((real.shape[0], 1, 1, 1), generator=generator, device=real.device)
+    """eps ~ U(0, 1) of shape (B, 1, 1, 1), f32, from ``generator``; under a
+    process group this process's rows of the global batch's draw."""
+    return parallel.global_draw(
+        lambda shape: torch.rand(shape, generator=generator, device=real.device),
+        (real.shape[0], 1, 1, 1))
 
 
 def gradient_penalty(d_of_x, real: torch.Tensor, fake: torch.Tensor,

@@ -492,8 +492,9 @@ def test_fidelity_refusals(argv, error, message):
 
 
 def test_refusals_at_start(tmp_path, monkeypatch):
+    # a partial multi-process launch (tests/test_torch_parallel.py runs whole ones)
     monkeypatch.setenv("FFC_TPU_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(ValueError, match="a multi-process launch needs all of"):
         _run(["train", *TINY, "-o", str(tmp_path)])
     monkeypatch.delenv("FFC_TPU_COORDINATOR")
     if not torch.cuda.is_available():

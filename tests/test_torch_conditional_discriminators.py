@@ -78,7 +78,7 @@ def test_cond_dcgan_discriminator_noise_decays_with_progress(monkeypatch):
     normal = jax.random.normal
     monkeypatch.setattr(jax.random, "normal", lambda key, shape, *a, **k: (
         jnp.asarray(noise) if tuple(shape) == noise.shape else normal(key, shape, *a, **k)))
-    monkeypatch.setattr(tcond, "draw_input_noise", lambda x, g: nchw(noise))
+    monkeypatch.setattr(tcond, "draw_input_noise", lambda x, g, segments=1: nchw(noise))
     out, _ = jmodel.apply(variables, jnp.asarray(x), True, y, 0.5, rngs=rngs,
                           mutable=["batch_stats"])
     _bridge(port, variables).train()

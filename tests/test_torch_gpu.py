@@ -1410,3 +1410,114 @@ def test_prc_under_the_default_extractors_runs_the_split_on_the_card(cuda):
         m: 2 * 2 for m in maps}
     assert {"inception_score_mean", "precision", "recall", "f_score"} <= set(out)
     assert all(math.isfinite(v) for v in out.values())
+
+
+# --- data parallelism: a group of one process over NCCL -------------------------------
+
+# A map of the 128px generator (its staged design) at batch 8, beside the
+# 32px generator's per-item SLICE_SHAPES[0]; a packed BN map.
+STAGED_MAP = (8, 32, 64, 64)
+PACKED_MAP = (8, 64, 16, 16)
+
+
+@pytest.fixture
+def group_of_one(tmp_path):
+    """Runs its test's ``run(grouped)`` without a group and in a group of
+    one process over NCCL, joined for the call only."""
+    from fastfourierconvolution_tpu_torch import parallel
+
+    def both(run):
+        alone = run(False)
+        parallel.initialize("cuda", f"file://{tmp_path}/store", 1, 0)
+        try:
+            assert parallel.backend() == "nccl"
+            return alone, run(True)
+        finally:
+            parallel.shutdown()
+
+    return both
+
+
+def _sync_outputs(shape, device):
+    """The statistics wrappers' outputs at ``shape`` (f32) and the packed
+    BN's at ``PACKED_MAP`` (bf16), with the plain versions' in f64."""
+    x, kernel, scale, bias, mean, var = _inputs(shape, torch.float32, device)
+    gy = torch.randn(shape, generator=torch.Generator().manual_seed(9)).to(device)
+    gscale, gbias = (t.float() for t in fu.fu_bwd_stats_plain(
+        *(a.double() for a in (x, kernel, scale, bias, mean, var, gy))))
+    bwd = (x, kernel, scale, bias, mean, var, gy)
+    xb, gb, nl, ng = (torch.randn(s, generator=torch.Generator().manual_seed(10 + i)).to(
+        device, torch.bfloat16) for i, s in enumerate(
+        (PACKED_MAP, PACKED_MAP, (8, 1, 16, 16), (8, 1, 16, 16))))
+    sc, bi = scale.new_ones(64) * 1.1, scale.new_zeros(64) + 0.05
+    bmean, bvar = ba.bn_stats(xb)
+    s1, s2, _ = ba.bn_bwd_reduce(xb, gb, bmean, bvar, sc, bi, nl, ng, 32)
+    outs = {"fu_train_stats": fu.fu_train_stats(x, kernel), "fu_bwd_stats": fu.fu_bwd_stats(*bwd),
+            "fu_bwd_apply": fu.fu_bwd_apply(*bwd, gscale, gbias),
+            "bn_stats": (bmean, bvar), "bn_bwd_reduce": (s1, s2),
+            "bn_bwd_dx": (ba.bn_bwd_dx(xb, gb, bmean, bvar, sc, bi, s1, s2),)}
+    f64 = lambda args: [a.double() for a in args]
+    plain = {"fu_train_stats": fu.fu_train_stats_plain(*f64((x, kernel))),
+             "fu_bwd_stats": fu.fu_bwd_stats_plain(*f64(bwd)),
+             "bn_stats": ba.bn_stats_plain(xb.double())}
+    torch.cuda.synchronize()
+    return {k: [t.float().cpu() for t in v] for k, v in outs.items()}, {
+        k: [t.cpu() for t in v] for k, v in plain.items()}
+
+
+@pytest.mark.parametrize("shape", [SLICE_SHAPES[0], STAGED_MAP], ids=["per-item", "staged"])
+def test_sync_statistics_wrappers_in_a_group_of_one(cuda, group_of_one, shape):
+    """In a group of one process over NCCL, the statistics wrappers gather
+    their partial rows (the packed BN its sums) and reduce them with the
+    global count, and the backward applies take that count: the same bits
+    as without a group; the statistics' plain versions, whose sums go
+    through the group, within 1e-4 (FourierUnit, f32 kernels against f64)
+    and 1e-5 (packed BN) of their outputs."""
+    (alone, _), (grouped, plain) = group_of_one(lambda _: _sync_outputs(shape, cuda))
+    for name, outs in alone.items():
+        assert all(torch.equal(a, b) for a, b in zip(outs, grouped[name])), name
+    for name, refs in plain.items():
+        tol = 1e-5 if name == "bn_stats" else 1e-4
+        for out, ref in zip(grouped[name], refs):
+            assert ((out.double() - ref).abs().max() / ref.abs().max()).item() <= tol, name
+
+
+def test_update_steps_captures_the_collectives_under_nccl(deterministic, group_of_one):
+    """f32 under deterministic algorithms: update_steps over 4 batches (an
+    eager first step, the capture with the collectives in the graph, 3
+    replays) in a group of one process over NCCL gives the bits of the same
+    calls without a group, and the collectives are counted at the capture
+    only."""
+    from fastfourierconvolution_tpu_torch import parallel
+
+    reals = _reals(4)
+
+    def run(grouped):
+        trainer = _narrow_trainer(deterministic)
+        parallel.mesh.collectives.clear()
+        trainer.update_steps(reals[:2])
+        counted = dict(parallel.mesh.collectives)
+        trainer.update_steps(reals[2:])
+        torch.cuda.synchronize()
+        assert dict(parallel.mesh.collectives) == counted
+        return {k: v.clone() for k, v in _trainer_state(trainer).items()}, counted
+
+    (alone, none), (grouped, counted) = group_of_one(run)
+    assert not none and counted["average"] == 4 and counted["gather"] > 0
+    _assert_same_bits(alone, grouped)
+
+
+def test_update_steps_refuses_gloo_on_the_card(cuda, tmp_path, monkeypatch):
+    """Processes that share a card take gloo, whose collectives run on the
+    host: update_steps raises, naming the backend."""
+    from fastfourierconvolution_tpu_torch import parallel
+
+    parallel.initialize("cuda", f"file://{tmp_path}/store", 1, 0)
+    try:
+        # one process on the card takes NCCL; the refusal reads the backend
+        monkeypatch.setattr(parallel.mesh._GROUP, "backend", "gloo")
+        trainer = _narrow_trainer(cuda)
+        with pytest.raises(ValueError, match="gloo"):
+            trainer.update_steps(_reals(2))
+    finally:
+        parallel.shutdown()

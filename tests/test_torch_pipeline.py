@@ -132,10 +132,17 @@ def test_input_kinds_resolve_to_the_same_images(tmp_path):
     for spec in (data, torch.from_numpy(data), "pipeline-kinds"):
         sampler, total = P._resolve_input(spec, 0, 2020, 4, "cpu")
         assert total == 10
-        assert np.array_equal(torch.cat([torch.as_tensor(sampler(i)) for i in (0, 4, 8)]).numpy(),
-                              data)
+        batches = [sampler(i) for i in (0, 4, 8)]
+        assert [take for _, take in batches] == [4, 4, 2]
+        assert all(len(rows) == 4 for rows, _ in batches)  # the last one padded
+        assert not batches[-1][0][2:].any()
+        assert np.array_equal(
+            torch.cat([torch.as_tensor(rows)[:take] for rows, take in batches]).numpy(), data)
     sampler, total = P._resolve_input(lambda n: data[:n], 7, 2020, 4, "cpu")
-    assert total == 7 and np.array_equal(np.asarray(sampler(0)), data[:4])
+    rows, take = sampler(0)
+    assert total == 7 and take == 4 and np.array_equal(np.asarray(rows), data[:4])
+    rows, take = sampler(4)  # cut at the total
+    assert take == 3 and np.array_equal(np.asarray(rows[:3]), data[:3]) and not rows[3:].any()
 
     for classes in (0, 5):
         gm = P.GenerativeModel(apply=_images_of, z_size=200, num_classes=classes, device="cpu")
@@ -143,7 +150,8 @@ def test_input_kinds_resolve_to_the_same_images(tmp_path):
         g = P._batch_generator(7, 4, "cpu")
         z = torch.randn((4, 200), generator=g)
         labels = torch.randint(0, classes, (4,), generator=g) if classes else None
-        assert total == 12 and torch.equal(sampler(4), _images_of(z, labels))
+        assert total == 12 and torch.equal(sampler(4)[0], _images_of(z, labels))
+        assert sampler(4)[1] == 4
 
     class Scripted(torch.nn.Module):
         def forward(self, z):
@@ -155,7 +163,7 @@ def test_input_kinds_resolve_to_the_same_images(tmp_path):
     sampler, _ = P._resolve_input(gm, 4, 3, 4, "cpu")
     z = torch.randn((4, 64), generator=P._batch_generator(3, 0, "cpu"))
     want = (255.0 * (torch.tanh(z).reshape(-1, 8, 8, 1).clamp(-1, 1) * 0.5 + 0.5)).to(torch.uint8)
-    assert torch.equal(sampler(0), want.expand(-1, -1, -1, 3))
+    assert torch.equal(sampler(0)[0], want.expand(-1, -1, -1, 3))
     with pytest.raises(RuntimeError, match="onnxruntime"):
         open(tmp_path / "g.onnx", "wb").close()
         P.onnx_generative_model(str(tmp_path / "g.onnx"), z_size=64)
@@ -168,12 +176,12 @@ def test_generative_batches_do_not_depend_on_the_order():
     another start gives others."""
     gm = P.GenerativeModel(apply=_images_of, z_size=200, num_classes=3)
     sampler, _ = P._resolve_input(gm, 16, 2020, 4, "cpu")
-    late = sampler(8)
-    assert torch.equal(P._resolve_input(gm, 16, 2020, 4, "cpu")[0](8), late)
+    late = sampler(8)[0]
+    assert torch.equal(P._resolve_input(gm, 16, 2020, 4, "cpu")[0](8)[0], late)
     sampler(0), sampler(4)
-    assert torch.equal(sampler(8), late)
-    assert not torch.equal(sampler(4), late)
-    assert not torch.equal(P._resolve_input(gm, 16, 2021, 4, "cpu")[0](8), late)
+    assert torch.equal(sampler(8)[0], late)
+    assert not torch.equal(sampler(4)[0], late)
+    assert not torch.equal(P._resolve_input(gm, 16, 2021, 4, "cpu")[0](8)[0], late)
 
 
 def test_features_do_not_depend_on_n():

@@ -169,7 +169,8 @@ def _jax_run(name):
 def _port_trainer(name, run, monkeypatch):
     _, _, g, d, _, _, options, _ = _pairs(name)
     monkeypatch.setattr(tffc_gan, "draw_noise", _no_noise)
-    monkeypatch.setattr(tcond, "draw_input_noise", lambda x, gen: nchw(run["noise"]))
+    monkeypatch.setattr(tcond, "draw_input_noise",
+                        lambda x, gen, segments=1: nchw(run["noise"]))
     g_init, d_init = run["init"]
     g.load_state_dict(jax_to_state_dict(g, g_init.params, g_init.batch_stats))
     d.load_state_dict(jax_to_state_dict(d, d_init.params, d_init.batch_stats, d_init.spectral))
