@@ -252,17 +252,38 @@ Phases, each of which raises on a failed check:
     the CLI's fgan32 ``train`` as two processes (gloo on the card), 4
     steps and a resume to 6, rank 0 alone printing and writing, exact
     launches (run beside phase 26);
-32. a check that every kernel was launched on the main path (phases 4, 6,
-    10, 13, 14, 15, the CLI runs, phases 24-25, 28-31), a
+32. tensor parallelism (``train.tp``): (a) in one process with no
+    group, the FourierUnit kernels on out-channel slices: the four
+    wrappers (and on staged maps the four mix stages on the spectra of x
+    and of gy's slice) at ``TP_SHAPES`` (per item, staged and workspace
+    designs as ``kernel_design`` decides on the slice's plans) for T of 2
+    and 4 and every slice t, f32 and bf16, each against its sliced plain
+    version in f64 (``FU_REL_TOL``) with the same bits on two launches,
+    T = 1 giving the whole kernel's bits, and slice 0's bf16 times beside
+    the whole kernel's, the plain version's and the bound on the slice's
+    work; (b) fgan32 as dp 1 x tp 2 child processes on the one card
+    (gloo) against one process: the first step's f32 gradients (gathered
+    whole) within ``DP_GRAD_TOL`` per parameter (a control that does not
+    sum x's gradient over the tp group must fail it), 2 eager bf16 steps
+    with the losses within ``DP_LOSS_TOL``, the processes' whole states
+    (``GANTrainer.state_dict``) the same bits, exact launches on the
+    slices' maps and exact collectives per step, the tp gathers and sums
+    included, and the step ms;
+33. a check that every kernel was launched on the main path (phases 4, 6,
+    10, 13, 14, 15, the CLI runs, phases 24-25, 28-32), a
     ``{"wrapper_calls": [...]}`` JSON line (the staged wrapper and training-op calls, all their stages
     together), a ``{"kernels": [...]}`` JSON line, then the
     ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, where CUDA is absent.
 
-``python3 chip_smoke.py 31`` runs phase 31 alone (after the build), and
+``python3 chip_smoke.py 31`` runs phase 31 alone (after the build),
 ``python3 chip_smoke.py 31d`` its part (d) alone with the one-process run
-it is held against (it needs two cards).
+it is held against (it needs two cards), and ``python3 chip_smoke.py 32``
+phase 32 alone, and ``python3 chip_smoke.py 32d`` (four cards) fgan32 as
+dp 2 x tp 2 processes over NCCL against one process, then the graph
+parity of ``update_steps`` with the tp collectives captured, in the
+group.
 """
 
 from __future__ import annotations
@@ -500,37 +521,42 @@ def fu_inputs(shape, dtype, device, seed):
             *(t.to(device) for t in (scale, bias, mean, var)))
 
 
-def fu_work(kernel, shape, itemsize, maps=1):
+def fu_work(kernel, shape, itemsize, maps=1, co=None):
     """(bytes, FLOPs) a FourierUnit kernel's function needs at ``shape``:
     each input read once and each output written once (maps in the model
     dtype, the (2C,) vectors and gK in f32, K in the model dtype, the
     staged kernels' spectra in f32); FFT-sized transforms (5 N log2 N per
     complex length-N transform, half that for a real one), each (2C, 2C)
     product over the spectrum, and the elementwise BN work. ``maps``: the
-    maps one ``fu_spectrum`` launch transforms. For ``fu_reduce``
-    ``shape`` is the (rows, cols) of its f32 partial sums."""
+    maps one ``fu_spectrum`` launch transforms. ``co``: on an out-channel
+    slice (phase 32) the mix's Co out-channels: K (2C, 2Co), the (2Co,)
+    vectors, y, gy and the spectra of the output side Co channels. For
+    ``fu_reduce`` ``shape`` is the (rows, cols) of its f32 partial sums."""
     if kernel == "fu_reduce":
         rows, cols = shape
         return (rows + 1) * cols * 4, rows * cols
     b, c, h, w = shape
-    c2, s = 2 * c, h * (w // 2 + 1)
-    n_map = b * c * h * w * itemsize
-    k_bytes, vec = c2 * c2 * itemsize, c2 * 4
-    dft = 2.5 * w * math.log2(w) * c * h + 5 * h * math.log2(h) * c * (w // 2 + 1)
-    mix = 2 * c2 * c2 * s
-    spec = b * c2 * s * 4
+    co = c if co is None else co
+    c2, co2, s = 2 * c, 2 * co, h * (w // 2 + 1)
+    n_map, n_out = b * c * h * w * itemsize, b * co * h * w * itemsize
+    k_bytes, vec = c2 * co2 * itemsize, co2 * 4
+    dft_of = lambda n: 2.5 * w * math.log2(w) * n * h + 5 * h * math.log2(h) * n * (w // 2 + 1)
+    dft, dft_out = dft_of(c), dft_of(co)
+    mix = 2 * c2 * co2 * s
+    spec, spec_out = b * c2 * s * 4, b * co2 * s * 4
     nbytes, per_item = {
         "fu_spectrum": (maps * (n_map + spec), maps * dft),
-        "fu_mix_apply": (2 * spec + k_bytes + 4 * vec, mix + 6 * c2 * s),
-        "fu_mix_stats": (spec + k_bytes + 2 * vec, mix + 3 * c2 * s),
-        "fu_bwd_stats_mix": (2 * spec + k_bytes + 6 * vec, mix + 8 * c2 * s),
+        "fu_mix_apply": (spec + spec_out + k_bytes + 4 * vec, mix + 6 * co2 * s),
+        "fu_mix_stats": (spec + k_bytes + 2 * vec, mix + 3 * co2 * s),
+        "fu_bwd_stats_mix": (spec + spec_out + k_bytes + 6 * vec, mix + 8 * co2 * s),
         "fu_inverse": (spec + n_map, dft),
-        "fu_bwd_mix": (3 * spec + k_bytes + 6 * vec + c2 * c2 * 4, 3 * mix + 12 * c2 * s),
-        "fourier_unit_fwd": (2 * n_map + k_bytes + 4 * vec, 2 * dft + mix + 6 * c2 * s),
-        "fu_train_stats": (n_map + k_bytes + 2 * vec, dft + mix + 3 * c2 * s),
-        "fu_bwd_stats": (2 * n_map + k_bytes + 6 * vec, 2 * dft + mix + 8 * c2 * s),
-        "fu_bwd_apply": (3 * n_map + k_bytes + 6 * vec + c2 * c2 * 4,
-                         3 * dft + 3 * mix + 12 * c2 * s),
+        "fu_bwd_mix": (2 * spec + spec_out + k_bytes + 6 * vec + c2 * co2 * 4,
+                       3 * mix + 12 * co2 * s),
+        "fourier_unit_fwd": (n_map + n_out + k_bytes + 4 * vec, dft + dft_out + mix + 6 * co2 * s),
+        "fu_train_stats": (n_map + k_bytes + 2 * vec, dft + mix + 3 * co2 * s),
+        "fu_bwd_stats": (n_map + n_out + k_bytes + 6 * vec, dft + dft_out + mix + 8 * co2 * s),
+        "fu_bwd_apply": (2 * n_map + n_out + k_bytes + 6 * vec + c2 * co2 * 4,
+                         2 * dft + dft_out + 3 * mix + 12 * co2 * s),
         # the training op: forward x -> (y, bmean, bvar), m computed once;
         # backward (x, gy) -> (gx, gK, gscale, gbias)
         "train_forward": (2 * n_map + k_bytes + 4 * vec, 2 * dft + mix + 9 * c2 * s),
@@ -559,7 +585,7 @@ def bn_work(kernel, shape, itemsize, noise):
     return int(nbytes), (ops + (2 if noise and kernel != "bn_stats" else 0)) * n
 
 
-def bound(kernel, shape, itemsize, dtype_name, noise=False, maps=1):
+def bound(kernel, shape, itemsize, dtype_name, noise=False, maps=1, co=None):
     """(bound ms, "bytes" or "operations", bytes, FLOPs). The BN kernels
     compute in f32 whatever the map's dtype."""
     if kernel.startswith("bn_"):
@@ -567,10 +593,10 @@ def bound(kernel, shape, itemsize, dtype_name, noise=False, maps=1):
         dtype_name = "float32"
     elif kernel in ("fu_mix_apply", "fu_mix_stats", "fu_bwd_stats_mix", "fu_inverse",
                     "fu_bwd_mix"):  # f32 spectra in
-        nbytes, flops = fu_work(kernel, shape, itemsize)
+        nbytes, flops = fu_work(kernel, shape, itemsize, co=co)
         dtype_name = "float32"
     else:
-        nbytes, flops = fu_work(kernel, shape, itemsize, maps)
+        nbytes, flops = fu_work(kernel, shape, itemsize, maps, co)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOP_PER_S[dtype_name] * 1e3
     by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -4377,7 +4403,8 @@ def dp_first_grads(device, path, real, dtype):
     z = trainer._latents(real.shape[0])
     grads = {"g": trainer.g_loss_and_grads(z)[1],
              "d": trainer.d_loss_and_grads(real.permute(0, 3, 1, 2).contiguous(), z)[1]}
-    return {f"{side}.{n}": grad.float().cpu()
+    # under tensor parallelism a sliced mix's gradient is gathered whole
+    return {f"{side}.{n}": trainer.whole(side, n, grad).float().cpu()
             for side, model in (("g", trainer.g), ("d", trainer.d))
             for (n, _), grad in zip(model.named_parameters(), grads[side])}
 
@@ -4451,8 +4478,9 @@ def dp_steps(device, path, n_steps, keep_states):
             out["bytes"].append(dict(mesh.collective_bytes))
             out["bn_calls"].append(bn_calls[0])
             out["dist_ms"].append(dist_s[0] * 1e3)
-            state = {f"{side}.{k}": v.detach().cpu().clone() for side, model in
-                     (("g", trainer.g), ("d", trainer.d)) for k, v in model.state_dict().items()}
+            whole = trainer.state_dict()  # sliced mixes gathered whole under tp
+            state = {f"{side}.{k}": v.detach().cpu().clone() for side in ("g", "d")
+                     for k, v in whole[side].items()}
             digest = hashlib.sha256()
             for k in sorted(state):
                 raw = state[k].contiguous().view(torch.uint8).numpy().tobytes()
@@ -4833,6 +4861,376 @@ def data_parallel_alone(device, card, which):
     return counts
 
 
+# --- phase 32: tensor parallelism ------------------------------------------------
+
+# The sliced kernels' maps (each wrapper's design decided on the slice's
+# plans, ``fourier_unit.kernel_design``): the 32px generator's two (per
+# item), a 128px map and the fgan64 one (staged; (64,8,64,64) at T = 4 has
+# 2Co = 4 out-columns), the 96px map (workspace at every T) and the SN
+# cDCGAN discriminator's (64,256,4,4) (workspace whole, clustered on its
+# slices, whose plans fit).
+TP_SHAPES = [(BATCH, 16, 16, 16), (BATCH, 8, 32, 32), (BATCH, 32, 32, 32), (BATCH, 8, 64, 64),
+             *WORKSPACE_SHAPES, (BATCH, 256, 4, 4)]
+TP_SLICES = (2, 4)
+TP_WORLD, TP_STEPS = 2, 2
+TP_CHILD = "import sys, chip_smoke\nsys.exit(chip_smoke.tp_child(sys.argv[1]))\n"
+
+
+def tp_slice(args, t, tp):
+    """Out-channel slice ``t`` of ``tp`` of ``bwd_inputs``' arguments (x,
+    kernel, scale, bias, mean, var, gy, gscale, gbias): K's columns and the
+    vectors' entries ``fourier_unit.out_columns`` names, gy's channels."""
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    x, kernel, scale, bias, mean, var, gy, gscale, gbias = args
+    c = x.shape[1]
+    co = c // tp
+    cols = fu.out_columns(c, t, tp).to(x.device)
+    v = lambda t_: t_[cols].contiguous()
+    return (x, kernel[:, cols].contiguous(), v(scale), v(bias), v(mean), v(var),
+            gy[:, t * co:(t + 1) * co].contiguous(), v(gscale), v(gbias))
+
+
+def tp_cases(a, staged_map):
+    """[(kernel name, wrapper, plain version, arguments)] on the (sliced)
+    arguments ``a``: the four wrappers, and on a staged map the four mix
+    stages on the spectra of x and of gy's slice."""
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    x, k, sc, bi, mean, var, gy, gsc, gbi = a
+    cases = [("fourier_unit_fwd", fu.fourier_unit_forward, fu.fourier_unit_forward_plain, a[:6]),
+             ("fu_train_stats", fu.fu_train_stats, fu.fu_train_stats_plain, a[:2]),
+             ("fu_bwd_stats", fu.fu_bwd_stats, fu.fu_bwd_stats_plain, a[:7]),
+             ("fu_bwd_apply", fu.fu_bwd_apply, fu.fu_bwd_apply_plain, a)]
+    if staged_map:
+        z, g = fu.fu_spectrum(x)[0], fu.fu_spectrum(gy)[0]
+        cases += [("fu_mix_stats", fu.fu_mix_stats, fu.fu_mix_stats_plain, (z, k)),
+                  ("fu_mix_apply", fu.fu_mix_apply, fu.fu_mix_apply_plain,
+                   (z, k, sc, bi, mean, var)),
+                  ("fu_bwd_stats_mix", fu.fu_bwd_stats_mix, fu.fu_bwd_stats_mix_plain,
+                   (z, g, k, sc, bi, mean, var)),
+                  ("fu_bwd_mix", fu.fu_bwd_mix, fu.fu_bwd_mix_plain,
+                   (z, g, k, sc, bi, mean, var, gsc, gbi))]
+    return cases
+
+
+def tp_ms(fn, n=20):
+    """Mean ms per call over ``n`` back-to-back calls (CUDA events) after two
+    warm-up calls: phase 32 times many calls, each briefly."""
+    import torch
+
+    fn()
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+# The kernel each case of ``tp_cases`` launches (besides ``fu_reduce``), by
+# design: the profiler's symbol for its device ms a launch. A staged
+# wrapper launches several stages, whose own cases carry their times.
+TP_SYMBOLS = {
+    "shared": {"fourier_unit_fwd": "fu_item_fwd_kernel",
+               "fu_train_stats": "fu_item_train_stats_kernel",
+               "fu_bwd_stats": "fu_item_bwd_stats_kernel",
+               "fu_bwd_apply": "fu_item_bwd_apply_kernel"},
+    "workspace": {"fourier_unit_fwd": "fourier_unit_fwd_kernel",
+                  "fu_train_stats": "fu_train_stats_kernel",
+                  "fu_bwd_stats": "fu_bwd_stats_kernel",
+                  "fu_bwd_apply": "fu_bwd_apply_kernel"},
+    "staged": {name: f"{name}_kernel" for name in ("fu_mix_stats", "fu_mix_apply",
+                                                   "fu_bwd_stats_mix", "fu_bwd_mix")},
+}
+
+
+def tp_device_ms(cases, symbols):
+    """{case name: profiler device ms a launch of its kernel, or None} over
+    one window that runs every case of ``cases`` ([(name, call, args)]) ten
+    times (the profiler can miss a window's first launches)."""
+    events = device_events(lambda: [kern(*a) for _, kern, a in cases], 10)
+    out = {}
+    for name, symbol in symbols.items():
+        hits = [(t, n) for key, t, n in events if symbol in key]
+        launches = sum(n for _, n in hits)
+        out[name] = sum(t for t, _ in hits) / launches if launches else None
+    return out
+
+
+def tp_kernels(device):
+    """Phase 32a: every sliced kernel, in one process with no group, at
+    ``TP_SHAPES`` for T in ``TP_SLICES`` and every slice t, f32 and bf16,
+    against its sliced plain version in f64 (``FU_REL_TOL``) with the same
+    bits on two launches; at T = 1 the slice (every column) gives the
+    whole kernel's bits. Returns the bf16 rows for the kernels line (slice
+    t = 0 of each T: kernel, whole-kernel and plain ms, the bound on the
+    slice's work)."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    f64 = lambda a: [t.double() if isinstance(t, torch.Tensor) else t for t in a]
+    rows = []
+    for shape in TP_SHAPES:
+        c = shape[1]
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            args = bwd_inputs(shape, dtype, device, SEED + 60)
+            staged_map = staged("stats", shape)
+            # (the whole map's fu_bwd_mix writes gz over its G, which only
+            # the timing of the whole kernels reads after it)
+            whole = {name: (kern, a) for name, kern, _, a in tp_cases(args, staged_map)}
+            every = {name: a for name, _, _, a in tp_cases(tp_slice(args, 0, 1), staged_map)}
+            for name, (kern, a) in whole.items():
+                if not all(torch.equal(p, q) for p, q in
+                           zip(as_tuple(kern(*a)), as_tuple(kern(*every[name])))):
+                    raise AssertionError(f"tp {name} {shape} {dname}: T = 1 is not the whole "
+                                         f"kernel's bits")
+            for tp in TP_SLICES:
+                co = c // tp
+                designs = {w: fu.kernel_design(w, *shape[1:], limit, co)
+                           for w in ("forward", "stats", "bwd_apply")}
+                worst = {}
+                for t in range(tp):
+                    cases = tp_cases(tp_slice(args, t, tp), staged_map)
+                    if t == 0 and dtype == torch.bfloat16:
+                        dev = tp_device_ms([(n, k_, a) for n, k_, _, a in cases],
+                                           TP_SYMBOLS[designs["stats"]])
+                    for name, kern, plain, a in cases:
+                        outs = as_tuple(kern(*a))
+                        refs = as_tuple(plain(*f64(a)))
+                        if not all(torch.isfinite(o.float()).all() for o in outs):
+                            raise AssertionError(f"tp {name} {shape} T={tp} t={t}: non-finite")
+                        errs = [rel_max(o, r) for o, r in zip(outs, refs)]
+                        bits = same_bits(lambda: kern(*a))
+                        rel = max(e[0] for e in errs)
+                        if rel > FU_REL_TOL[dname] or not bits:
+                            raise AssertionError(f"tp {name} {shape} {dname} T={tp} t={t}: "
+                                                 f"rel-max {rel:.3e}, same bits {bits}")
+                        prev = worst.get(name, (0.0, 0.0))
+                        worst[name] = (max(prev[0], rel), max(prev[1], max(e[1] for e in errs)))
+                        if t or dtype != torch.bfloat16:
+                            continue
+                        ms = tp_ms(lambda: kern(*a))
+                        whole_ms = tp_ms(lambda: whole[name][0](*whole[name][1]))
+                        plain_ms = tp_ms(lambda: plain(*a))
+                        bound_ms, bound_by, _, _ = bound(name, shape, a[0].element_size(),
+                                                         dname, co=co)
+                        rows.append(kernel_row(
+                            name, shape, dname, phase="tensor-parallel", tp=tp, co=co,
+                            ms=ms, device_ms=dev.get(name), whole_ms=whole_ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=None,
+                            design=designs["forward" if name == "fourier_unit_fwd" else
+                                           "bwd_apply" if name == "fu_bwd_apply" else "stats"]))
+                for row in rows:
+                    if (row["shape"] == list(shape) and row["tp"] == tp and dname == "bfloat16"
+                            and row["name"] in worst):
+                        row["max_abs_err"] = worst[row["name"]][1]
+                log(f"tp {shape} {dname} T={tp} (Co {co}; design {designs}): every slice t "
+                    f"against its sliced plain version in f64, worst rel-max " + ", ".join(
+                        f"{n} {r:.3e}" for n, (r, _) in worst.items())
+                    + f" (tol {FU_REL_TOL[dname]:g}), the same bits on two launches; T=1 the "
+                    f"whole kernel's bits")
+    for row in rows:
+        log(f"  tp {row['name']} {tuple(row['shape'])} bf16 T={row['tp']} ({row['design']}): "
+            f"{row['ms']:.4f} ms/call sliced (device {fmt_ms(row['device_ms'])} ms a launch), "
+            f"whole {fmt_ms(row['whole_ms'])}, plain "
+            f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.5f} ({row['bound_by']})")
+    return rows
+
+
+def tp_expected(path, n_steps, tp, dp=1):
+    """(launches, tp collectives per step) of ``n_steps`` steps of
+    ``path``'s pair as one process of a dp x tp grid: every FourierUnit
+    map whose channels T divides runs on its slice, keyed (C, H, W, Co), and
+    its reductions on (rows, 4Co) (the dp group's rows gathered) and
+    (local rows, 4C·Co); per step a tp gather of the statistics and of y per
+    training forward, of gscale and gbias per backward, and a tp sum of gx
+    per backward. The per-item design only (fgan32's maps take it on their
+    slices)."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    want = {k: collections.Counter() for k in launch_wrappers()}
+    coll = collections.Counter()
+    for (b, c, h, w), forwards, backwards in STEP_MAPS[path][0]:
+        co = c // tp if c % tp == 0 else c
+        if fu.kernel_design("stats", c, h, w, limit, co) != fu.SHARED:
+            raise AssertionError(f"tp_expected covers the per-item design, not {(c, h, w)}")
+        key = (c, h, w) if co == c else (c, h, w, co)
+        for k, per in PASS_LAUNCHES["per_item"][0].items():
+            want[k][key] += per * forwards * n_steps
+        for k, per in PASS_LAUNCHES["per_item"][1].items():
+            want[k][key] += per * backwards * n_steps
+        want["fu_reduce"][(b, 4 * co)] += (forwards + backwards) * n_steps
+        want["fu_reduce"][(b // dp, 4 * c * co)] += backwards * n_steps
+        if co != c:
+            coll["tp_gather"] += 2 * forwards + 2 * backwards
+            coll["tp_sum"] += backwards
+    return {k: dict(v) for k, v in want.items() if v}, dict(coll)
+
+
+def tp_child(spec_path):
+    """Phase 32b's (32d's) child: one process of a dp x tp group on the
+    card (``spec`` as ``dp_child``'s, with ``tp``), which checks nothing
+    itself: the fgan32 pair's ``dp_steps`` (whole states, gathered), the
+    control's first f32 gradients (the sliced input's gradient not summed
+    over the tp group), written to the file the spec names; with
+    ``parity`` then phase 12's graph parity in the group; prints
+    ``TP_RESULT {json}``."""
+    import torch
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from fastfourierconvolution_tpu_torch import parallel
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = parallel.initialize("cuda", spec["init"], spec["world"], spec["rank"],
+                                 tp=spec["tp"])
+    try:
+        run = dp_steps(device, 32, TP_STEPS, keep_states=spec["rank"] == 0)
+        real = parallel.shard_full_batch(real_batch(device, SEED + 30, RESOLUTION[32]))
+        with mock.patch.object(parallel.mesh._TpCopy, "backward",
+                               staticmethod(lambda ctx, g: g)):
+            control = dp_first_grads(device, 32, real, "f32")
+        torch.save({"states": run.pop("states"), "grads": run.pop("grads"),
+                    "control": control}, f"{spec['out']}-{spec['rank']}.pt")
+        run.pop("params")
+        run["launches"] = {k: [[list(m), n] for m, n in v.items()]
+                           for k, v in run["launches"].items()}
+        if spec["parity"]:  # raises where the replayed steps differ
+            graph_parity(device, 32, {"hinge": {}})
+        print("TP_RESULT " + json.dumps({"rank": parallel.process_index(),
+                                          "backend": parallel.backend(), "run": run}),
+              flush=True)
+    finally:
+        parallel.shutdown()
+    return 0
+
+
+def tp_steps(device, card, tmp, world=TP_WORLD, label="32b"):
+    """Phase 32b: fgan32 as dp 1 x tp 2 processes on the one card (gloo)
+    against one process: the first step's f32 gradients (whole) within
+    ``DP_GRAD_TOL`` per tensor (the control beyond it), the losses within
+    ``DP_LOSS_TOL``, the processes' whole states the same bits after every
+    step, exact launches and collectives (the tp ones included). Phase
+    32d (``world`` 4, one card each): dp 2 x tp 2 over NCCL, the same
+    checks, then phase 12's graph parity in the group (``update_steps``
+    with the tp collectives captured against eager steps). Returns rank
+    0's launches."""
+    import torch
+
+    tp, parity = 2, world > TP_WORLD
+    ref = dp_steps(device, 32, TP_STEPS, keep_states=True)
+    procs = []
+    for rank in range(world):
+        spec = os.path.join(tmp, f"tp-{rank}.json")
+        with open(spec, "w") as f:
+            json.dump({"rank": rank, "world": world, "tp": tp, "parity": parity,
+                       "init": f"file://{tmp}/tp-store", "out": os.path.join(tmp, "tp")}, f)
+        procs.append(subprocess.Popen([sys.executable, "-c", TP_CHILD, spec], cwd=ROOT,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    results = []
+    try:
+        for rank, proc in enumerate(procs):
+            stdout, stderr = proc.communicate(timeout=DP_TIMEOUT)
+            if proc.returncode != 0:
+                log(f"tp child rank {rank}: stdout\n{stdout[-3000:]}\nstderr\n{stderr[-3000:]}")
+                raise AssertionError(f"tp child rank {rank} exited {proc.returncode}")
+            line = [l for l in stdout.splitlines() if l.startswith("TP_RESULT ")]
+            results.append(json.loads(line[-1][len("TP_RESULT "):]))
+            if rank == 0:
+                for l in stdout.splitlines():
+                    if l.startswith("graph parity"):
+                        log(f"tp {label} grid of {world}: {l}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    runs = [r["run"] for r in results]
+    saved = [torch.load(os.path.join(tmp, f"tp-{r}.pt"), weights_only=False)
+             for r in range(world)]
+    if parity and results[0]["backend"] != "nccl":
+        raise AssertionError(f"tp {label}: {world} cards took {results[0]['backend']}")
+    for i in range(TP_STEPS):
+        if len({run["digests"][i] for run in runs}) != 1:
+            raise AssertionError(f"tp: the processes' states differ after step {i}")
+    gaps = [dp_grad_gaps(s["grads"]["f32"], ref["grads"]["f32"]) for s in saved]
+    grad_gap = max(max(g.values()) for g in gaps)
+    control = dp_grad_gaps(saved[0]["control"], ref["grads"]["f32"])
+    loss_gap = max(abs(a - b) for i in range(TP_STEPS)
+                   for a, b in zip(runs[0]["losses"][i], ref["losses"][i]))
+    param_gap = [max((ours[n].double() - want.double()).abs().max().item()
+                     for n, want in theirs.items() if n in ref["params"])
+                 for ours, theirs in zip(saved[0]["states"], ref["states"])]
+    launches = {k: {tuple(m): n for m, n in v} for k, v in runs[0]["launches"].items()}
+    want_launches, tp_coll = tp_expected(32, TP_STEPS, tp, world // tp)
+    if {k: v for k, v in launches.items() if v} != want_launches:
+        raise AssertionError(f"tp launches {launches}, want {want_launches}")
+    for run in runs:
+        for i in range(TP_STEPS):
+            expected = {**dp_expected_collectives(32, run["bn_calls"][i]), **tp_coll}
+            if run["collectives"][i] != expected:
+                raise AssertionError(f"tp step {i}: collectives {run['collectives'][i]}, "
+                                     f"want {expected}")
+    step_ms = [sum(run["ms"][1:]) / len(run["ms"][1:]) for run in runs]
+    ref_ms = sum(ref["ms"][1:]) / len(ref["ms"][1:])
+    log(f"tp {label}: fgan32 as dp {world // tp} x tp {tp} processes "
+        f"({results[0]['backend']}),"
+        f" batch {BATCH}, bf16, {TP_STEPS} eager steps, against one process: first step's f32 "
+        f"gradients (whole) worst ||g2-g1||/||g1|| {grad_gap:.3e} (tol {DP_GRAD_TOL:g}), worst "
+        f"three {sorted(gaps[0].items(), key=lambda kv: -kv[1])[:3]}; the control (x's "
+        f"gradient not summed over the tp group) {sum(v > DP_GRAD_TOL for v in control.values())}"
+        f" of {len(control)} parameters beyond the bar, worst {max(control.values()):.3e}; "
+        f"losses max |diff| {loss_gap:.3e} (tol {DP_LOSS_TOL:g}); parameters max |diff| by step "
+        f"{[f'{x:.3e}' for x in param_gap]} (printed); the processes' whole states the same "
+        f"bits after every step; launches exact; collectives per step exact "
+        f"{runs[0]['collectives'][-1]}; bytes a process puts into them per step "
+        f"{runs[0]['bytes'][-1]}")
+    log(f"  tp step ms (host clock, synchronised, step 2) by process {step_ms} against one "
+        f"process's {ref_ms:.3f} ms; host ms in torch.distributed calls "
+        f"{[sum(r['dist_ms'][1:]) / len(r['dist_ms'][1:]) for r in runs]}; {card}")
+    if grad_gap > DP_GRAD_TOL or loss_gap > DP_LOSS_TOL:
+        raise AssertionError(f"tp: gradients {grad_gap:.3e}, losses {loss_gap:.3e}")
+    if max(control.values()) <= DP_GRAD_TOL:
+        raise AssertionError("tp: the control passed the gradients' bar")
+    return launches
+
+
+def tensor_parallel_4(device, card):
+    """``python3 chip_smoke.py 32d`` (four cards): phase 32d alone."""
+    import torch
+
+    if torch.cuda.device_count() < 4:
+        raise AssertionError("32d needs four cards")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp4_") as tmp:
+        return tp_steps(device, card, tmp, world=4, label="32d")
+
+
+def tensor_parallel(device, card):
+    """Phase 32 (see the module docstring): the sliced kernels (32a), then
+    fgan32 as dp 1 x tp 2 processes (32b). Returns (the kernels line's
+    rows with their launches in 32b, 32b's launches)."""
+    rows = tp_kernels(device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        counts = tp_steps(device, card, tmp)
+    for row in rows:
+        c, h, w = row["shape"][1:]
+        row["launches"] = counts.get(row["name"], {}).get((c, h, w, row["co"]), 0)
+    return rows, counts
+
+
 def main() -> int:
     import torch
 
@@ -4867,7 +5265,13 @@ def main() -> int:
 
     if len(sys.argv) > 1:
         phase(f"{sys.argv[1]} alone")
-        data_parallel_alone(device, card, sys.argv[1])
+        if sys.argv[1] == "32":
+            tp_rows, _ = tensor_parallel(device, card)
+            log(json.dumps({"kernels": tp_rows}))
+        elif sys.argv[1] == "32d":
+            tensor_parallel_4(device, card)
+        else:
+            data_parallel_alone(device, card, sys.argv[1])
         phase("result")
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5003,7 +5407,12 @@ def main() -> int:
           "against one, one process's captured collectives (NCCL), two cards (NCCL), "
           "train and resume through the CLI as two processes")
     dp_counts = data_parallel(device, card, dp_cli_counts)
-    phase("32: result")
+    phase("32: tensor parallelism: the sliced kernels (per item, staged, workspace) against "
+          "their sliced plain versions; fgan32 as dp 1 x tp 2 processes on one card (gloo) "
+          "against one")
+    tp_rows, tp_counts = tensor_parallel(device, card)
+    rows += tp_rows
+    phase("33: result")
     check_main_path_launches({"serving-32px": {"fourier_unit_fwd": by_map},
                               "training-32px": counts_32, "training-128px": counts,
                               "training-sngan": counts_sngan, "training-cond32": counts_c32,
@@ -5012,7 +5421,7 @@ def main() -> int:
                               "lfu-blocks": counts_lfu, "training-cond-sn-d": counts_snd,
                               **remat_counts, **eval_counts,
                               "serving-artifacts": artifact_counts, **serving_counts,
-                              **metric_counts, **dp_counts})
+                              **metric_counts, **dp_counts, "tp-32": tp_counts})
     log(json.dumps({"wrapper_calls": calls}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -50,8 +50,16 @@ collectives run on the host and cannot be captured, each call is one
 eager ``update_step`` and K = ``train.steps_per_call`` above 1 is refused
 at start.
 
-Not ported yet, and refused at start: ``train.tp`` above 1 (ROADMAP
-queue 1 item 10b) and the ``download`` command. ``log.compilation_cache``
+With ``train.tp`` = T above 1 the N processes form a dp x tp grid, as the
+JAX CLI's mesh: rank d·T + t is slice t of its tp group (ranks d·T to
+d·T + T - 1, which must sit on one host) and takes dp slice d of each
+global batch; every FourierUnit whose channels T divides runs on its
+out-channel slice (``train/gan.py``). T must divide N (ValueError, a
+single process with T > 1 included). The epoch's sample grid and every
+checkpoint gather over the tp group, so every process takes part and rank
+0 alone writes; checkpoints hold whole tensors, so a run resumes at any T.
+
+Not ported yet, and refused at start: the ``download`` command. ``log.compilation_cache``
 is the JAX package's XLA compile cache: accepted, and nothing in the port
 reads it.
 """
@@ -96,14 +104,6 @@ def trainer_keywords(cfg) -> dict:
                 gp_lambda=t.gp_lambda, aw_method=t.aw_method, update_order=t.update_order,
                 remat=t.remat, d_progress_arg=m.discriminator == "cond_dcgan",
                 dtype=t.precision, seed=t.seed)
-
-
-def _refuse_unported(cfg) -> None:
-    """Raise NotImplementedError for the training options the port does
-    not have yet, before any work starts."""
-    if int(cfg.train.tp) != 1:
-        raise NotImplementedError(f"train.tp={cfg.train.tp}: tensor parallelism is not ported "
-                                  f"yet (ROADMAP queue 1 item 10b)")
 
 
 def _say(*args, **kwargs) -> None:
@@ -278,7 +278,6 @@ class _EpochEval:
     def __call__(self, step: int) -> None:
         from . import parallel
         from .eval import GenerativeModel, calculate_metrics
-        from .train.checkpoint import save_checkpoint
 
         if not self.on:
             return
@@ -309,9 +308,8 @@ class _EpochEval:
                     self.best = value
                     tag = " [weights-free mode]" if self.weights_free else ""
                     _say(f"INFO: best {e.leading_metric} so far: {value:.5g} (step {step}){tag}")
-                    if (cfg.log.checkpoint and cfg.log.best_metric_checkpoints
-                            and parallel.process_index() == 0):
-                        save_checkpoint(self.trainer, self.best_dir, step, keep=1)
+                    if cfg.log.checkpoint and cfg.log.best_metric_checkpoints:
+                        _save(self.trainer, self.best_dir, step, keep=1)
         except Exception as err:  # a failed evaluation must not end the training run
             traceback.print_exc()
             print(f"WARNING: metrics failed: {err}", flush=True)
@@ -322,9 +320,8 @@ def run_train(cfg, device="cuda") -> None:
     of a group where the environment launches one."""
     from . import parallel
 
-    _refuse_unported(cfg)
     # the process group first, before any device use
-    device = parallel.initialize(device)
+    device = parallel.initialize(device, tp=int(cfg.train.tp))
     try:
         _train(cfg, device)
         parallel.barrier()  # rank 0's last writes are done before any process leaves
@@ -335,7 +332,7 @@ def run_train(cfg, device="cuda") -> None:
 def _train(cfg, device) -> None:
     from . import parallel
     from .data import DataLoader, load_dataset
-    from .train.checkpoint import restore_latest, save_checkpoint
+    from .train.checkpoint import restore_latest
     from .train.gan import GANTrainer
     from .utils.logging import ScalarLogger, make_grid, save_image_grid, save_loss_plot
     from .utils.policy import resolve_device
@@ -353,6 +350,9 @@ def _train(cfg, device) -> None:
                          f"cannot hold the gloo backend's collectives (processes that share a "
                          f"card); take train.steps_per_call=1, or one card per process (NCCL)")
     rank0 = parallel.process_index() == 0
+    # under tp the sample grid and the checkpoints' states gather over the
+    # tp group: every process makes those calls
+    gathers = parallel.tp_count() > 1
     # gloo's collectives run on the host, outside any CUDA graph: one eager
     # step a call
     eager = device.type == "cuda" and parallel.backend() == "gloo"
@@ -367,8 +367,8 @@ def _train(cfg, device) -> None:
     # uint8 batches, normalised on the device: 4x less host->device traffic;
     # each process its slice of every global batch
     loader = DataLoader(dataset, t.batch_size, seed=t.seed, raw_uint8=True,
-                        process_index=parallel.process_index(),
-                        process_count=parallel.process_count())
+                        process_index=parallel.dp_index(),
+                        process_count=parallel.dp_count())
 
     ckpt_dir = os.path.join(cfg.log.dir_logs, "checkpoints")
     ini_step = 0
@@ -440,29 +440,42 @@ def _train(cfg, device) -> None:
                 continue
             logger.flush()
             evaluate(step)
-            if not rank0:
+            if not (rank0 or gathers):
                 continue
             grid = trainer.generate(z_vis, y_vis).float().cpu().numpy()
-            save_image_grid(grid, os.path.join(cfg.log.dir_logs, f"{step:06d}.png"))
-            logger.log_image_grid(step, make_grid(grid))
+            if rank0:
+                save_image_grid(grid, os.path.join(cfg.log.dir_logs, f"{step:06d}.png"))
+                logger.log_image_grid(step, make_grid(grid))
             if cfg.log.checkpoint and step > t.num_total_steps * cfg.log.checkpoint_after_frac:
-                save_checkpoint(trainer, ckpt_dir, step)
+                _save(trainer, ckpt_dir, step)
     finally:
         batches.close()  # stops the prefetch thread
         logger.close()
         if profiler is not None:  # the requested window ran into the end
             stop_profiler()
+    if cfg.log.checkpoint and step % t.num_epoch_steps != 0 and (rank0 or gathers):
+        # the steps since the last epoch boundary would be lost on resume
+        _save(trainer, ckpt_dir, step)
     if not rank0:
         return
-    if cfg.log.checkpoint and step % t.num_epoch_steps != 0:
-        # the steps since the last epoch boundary would be lost on resume
-        save_checkpoint(trainer, ckpt_dir, step)
     if cfg.log.loss_csv and os.path.exists(logger.csv_path):
         try:
             save_loss_plot(logger.csv_path)
         except Exception as e:  # the plot is a diagnostic; matplotlib may be absent
             print(f"WARNING: loss plot failed: {e}")
     print("Training finished.")
+
+
+def _save(trainer, directory: str, step: int, keep: int = 3) -> None:
+    """``save_checkpoint`` on rank 0; under tp the other processes take part
+    in its gather of the state (``GANTrainer.state_dict``)."""
+    from . import parallel
+    from .train.checkpoint import save_checkpoint
+
+    if parallel.process_index() == 0:
+        save_checkpoint(trainer, directory, step, keep=keep)
+    elif parallel.tp_count() > 1:
+        trainer.state_dict()
 
 
 class _NoLogger:

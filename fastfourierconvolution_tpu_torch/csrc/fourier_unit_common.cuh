@@ -161,11 +161,12 @@ __device__ __forceinline__ void idft_w(const float* in, T* out,
   }
 }
 
-// Channel mix at one spectral position: sum_j z[j][s] K[j][d].
+// Channel mix at one spectral position: sum_j z[j][s] K[j][d] over the c2
+// channels j, K's rows c2o long.
 __device__ __forceinline__ float mix_at(const float* z, const float* kmix,
-                                        int d, int s, int c2, int hwf) {
+                                        int d, int s, int c2, int c2o, int hwf) {
   float m = 0.f;
-  for (int j = 0; j < c2; ++j) m = fmaf(z[j * hwf + s], kmix[j * c2 + d], m);
+  for (int j = 0; j < c2; ++j) m = fmaf(z[j * hwf + s], kmix[j * c2o + d], m);
   return m;
 }
 

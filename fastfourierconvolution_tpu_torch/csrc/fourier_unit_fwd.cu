@@ -21,6 +21,9 @@
 //
 // Layout: x and y are NCHW, contiguous, float32 or bfloat16; K is (2C, 2C) in
 // x's dtype, [re; im] on both axes; scale/bias/mean/var are (2C,) float32.
+// On an out-channel slice (tensor parallelism, fourier_unit_item.cuh) K is
+// (2C, 2Co), the vectors (2Co,) and y (B, Co, H, W): both kernels take Co
+// beside C, and with Co = C they are the whole FourierUnit's.
 //
 // Two kernels; ops/fourier_unit.py (kernel_design) picks the one for a map,
 // and the staged kernels of fourier_unit_staged.cu take the maps that neither
@@ -75,14 +78,14 @@ using namespace ffc;
 // workspace with the same plan.
 struct Plan {
   int spec_a_off, buf_b_off, tab_off, k_off, bn_off, cvec_off, total;
-  __host__ __device__ Plan(int c, int h, int w) {
+  __host__ __device__ Plan(int c, int co, int h, int w) {
     const Dims d(c, h, w);
     spec_a_off = 0;
     buf_b_off = spec_a_off + 2 * d.n_spec;
     tab_off = buf_b_off + d.pair_or_map();
     k_off = tab_off + d.tables();
-    bn_off = k_off + 4 * c * c;
-    cvec_off = bn_off + 4 * 2 * c;  // mean, inv, scale, bias
+    bn_off = k_off + 4 * c * co;
+    cvec_off = bn_off + 4 * 2 * co;  // mean, inv, scale, bias
     total = cvec_off + d.wf;
   }
 };
@@ -94,10 +97,10 @@ fourier_unit_fwd_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
                         const float* __restrict__ bias,
                         const float* __restrict__ mean,
                         const float* __restrict__ var, T* __restrict__ y,
-                        float* __restrict__ ws, int C, int H, int W) {
-  const Plan pl(C, H, W);
-  const Dims dm(C, H, W);
-  const int c2 = 2 * C, hwf = dm.hwf;
+                        float* __restrict__ ws, int C, int Co, int H, int W) {
+  const Plan pl(C, Co, H, W);
+  const Dims dm(C, H, W), dout(Co, H, W);
+  const int c2 = 2 * C, c2o = 2 * Co, hwf = dm.hwf;
   const size_t item = blockIdx.x;
   float* base = item_slice(ws, pl.total);
   float* spec_a = base + pl.spec_a_off;  // [re|im][c][h][v]
@@ -105,9 +108,9 @@ fourier_unit_fwd_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
   const Tables tab(base + pl.tab_off, dm);
   float* kmix = base + pl.k_off;         // K [j][d]
   float* bn_mean = base + pl.bn_off;
-  float* bn_inv = bn_mean + c2;
-  float* bn_scale = bn_inv + c2;
-  float* bn_bias = bn_scale + c2;
+  float* bn_inv = bn_mean + c2o;
+  float* bn_scale = bn_inv + c2o;
+  float* bn_bias = bn_scale + c2o;
   float* cvec = base + pl.cvec_off;
 
   const int tid = threadIdx.x;
@@ -115,8 +118,8 @@ fourier_unit_fwd_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
   // 1. Load the item and the constants.
   load_map(buf_b, x + item * static_cast<size_t>(dm.n_map), dm.n_map);
   fill_tables(tab, dm);
-  for (int i = tid; i < c2 * c2; i += kThreads) kmix[i] = load_f32(kmix_g + i);
-  for (int d = tid; d < c2; d += kThreads) {
+  for (int i = tid; i < c2 * c2o; i += kThreads) kmix[i] = load_f32(kmix_g + i);
+  for (int d = tid; d < c2o; d += kThreads) {
     bn_mean[d] = mean[d];
     bn_inv[d] = rsqrtf(var[d] + kEps);
     bn_scale[d] = scale[d];
@@ -133,32 +136,32 @@ fourier_unit_fwd_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
 
   // 4. Channel mix, BN, ReLU, half-spectrum weights:
   //    spec_a[d][s] = c[v] * relu(bn_d(sum_j buf_b[j][s] K[j][d])).
-  for (int o = tid; o < 2 * dm.n_spec; o += kThreads) {
+  for (int o = tid; o < 2 * dout.n_spec; o += kThreads) {
     const int s = o % hwf, d = o / hwf;
-    const float m = mix_at(buf_b, kmix, d, s, c2, hwf);
+    const float m = mix_at(buf_b, kmix, d, s, c2, c2o, hwf);
     const float pre = (m - bn_mean[d]) * bn_inv[d] * bn_scale[d] + bn_bias[d];
     spec_a[o] = fmaxf(pre, 0.f) * cvec[s % dm.wf];
   }
   __syncthreads();
 
   // 5-6. Inverse DFT over H, then the inverse rDFT over W, which writes y.
-  idft_h(spec_a, buf_b, tab, dm);
+  idft_h(spec_a, buf_b, tab, dout);
   __syncthreads();
-  idft_w(buf_b, y + item * static_cast<size_t>(dm.n_map), tab, dm);
+  idft_w(buf_b, y + item * static_cast<size_t>(dout.n_map), tab, dout);
 }
 
 // Buffer plan in floats of one rank of fu_item_fwd_kernel (16-byte aligned
 // regions); the host mirrors it (ops/fourier_unit.py, _item_rank_floats).
 struct ItemPlan {
   int a, b, full, tab, kc, vec, cvec, total;
-  __host__ __device__ explicit ItemPlan(const ItemRank& k) {
+  __host__ __device__ ItemPlan(const ItemRank& k, const ItemRank& ko) {
     a = 0;                      // map, then z (read by every rank), then P
     b = a + k.buf();            // W-stage scratch, then r = c * ReLU(BN(m))
     full = b + k.buf();         // the item's z, gathered (R > 1)
     tab = full + k.full();      // cw, dw, ah, bh
     kc = tab + round4(k.tables());  // K[j][d] for the rank's d, [j][dl]
-    vec = kc + k.kslice();      // mean, inv, scale, bias (2cr each)
-    cvec = vec + round4(8 * k.cr);
+    vec = kc + kcolumns(k, ko);  // mean, inv, scale, bias (2Co/R each)
+    cvec = vec + round4(8 * ko.cr);
     total = cvec + k.wf;
   }
 };
@@ -168,22 +171,25 @@ __global__ void __launch_bounds__(kItemThreads)
 fu_item_fwd_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
                    const float* __restrict__ tables, const float* __restrict__ scale,
                    const float* __restrict__ bias, const float* __restrict__ mean,
-                   const float* __restrict__ var, T* __restrict__ y, int C, int H, int W) {
+                   const float* __restrict__ var, T* __restrict__ y, int C, int Co, int H,
+                   int W) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const ItemRank k(C, H, W, static_cast<int>(cluster.num_blocks()));
-  const ItemPlan pl(k);
+  const int R = static_cast<int>(cluster.num_blocks());
+  const ItemRank k(C, H, W, R), ko(Co, H, W, R);
+  const ItemPlan pl(k, ko);
   float* a = smem + pl.a;
   float* b = smem + pl.b;
   const ItemTables tab(smem + pl.tab, k);
   float* kc = smem + pl.kc;
   float* bn_mean = smem + pl.vec;
-  float* bn_inv = bn_mean + 2 * k.cr;
-  float* bn_scale = bn_inv + 2 * k.cr;
-  float* bn_bias = bn_scale + 2 * k.cr;
+  float* bn_inv = bn_mean + 2 * ko.cr;
+  float* bn_scale = bn_inv + 2 * ko.cr;
+  float* bn_bias = bn_scale + 2 * ko.cr;
   float* cvec = smem + pl.cvec;
   const size_t planes = (blockIdx.x / k.R * static_cast<size_t>(C) + rank * k.cr) * H * W;
+  const size_t out_planes = (blockIdx.x / k.R * static_cast<size_t>(Co) + rank * ko.cr) * H * W;
 
   // 1. The rank's planes (as they are into b, asynchronously, where they
   //    are whole 16-byte units) and the tables, while its slice of K and
@@ -194,11 +200,11 @@ fu_item_fwd_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
   copy_tables(smem + pl.tab, tables, k.tables());
   // The BN vectors of the thread's first channel load before the slice of
   // K, so that their latencies overlap.
-  const int d0 = k.channel(min(static_cast<int>(threadIdx.x), 2 * k.cr - 1), rank);
+  const int d0 = ko.channel(min(static_cast<int>(threadIdx.x), 2 * ko.cr - 1), rank);
   const float v0[4] = {mean[d0], var[d0], scale[d0], bias[d0]};
-  load_kslice<true>(kc, kmix_g, k, rank);
-  for (int dl = threadIdx.x; dl < 2 * k.cr; dl += kItemThreads) {
-    const int d = k.channel(dl, rank);
+  load_kslice<true>(kc, kmix_g, k, ko, rank);
+  for (int dl = threadIdx.x; dl < 2 * ko.cr; dl += kItemThreads) {
+    const int d = ko.channel(dl, rank);
     const bool first = dl == static_cast<int>(threadIdx.x);
     bn_mean[dl] = first ? v0[0] : mean[d];
     bn_inv[dl] = rsqrtf((first ? v0[1] : var[d]) + kEps);
@@ -225,29 +231,35 @@ fu_item_fwd_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
   //    over every position, BN, ReLU and the half-spectrum weights:
   //    b[dl][s] = c[v] * relu(bn_dl(m)).
   const float* z = cluster_gather(cluster, a, smem + pl.full, k);
-  item_mix(z, kc, k, [=](int dl, int s, float m) {
+  item_mix(z, kc, 2 * C, ko, [=](int dl, int s, float m) {
     const float pre = (m - bn_mean[dl]) * bn_inv[dl] * bn_scale[dl] + bn_bias[dl];
     b[dl * k.hwf + s] = fmaxf(pre, 0.f) * cvec[s % k.wf];
   });
   cluster.sync();  // no rank reads a's z any more
 
-  // 5-6. Inverse DFT over H into a, then the inverse rDFT over W writes y.
-  item_dft_h<true>(b, a, tab, k);
+  // 5-6. Inverse DFT over H into a, then the inverse rDFT over W writes y
+  //      (the rank's out-channels).
+  item_dft_h<true>(b, a, tab, ko);
   __syncthreads();
-  item_idft_w(a, y + planes, tab, k);
+  item_idft_w(a, y + out_planes, tab, ko);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of one (C, H, W) item's workspace (the workspace kernel's plan).
-long long ffc_item_floats(int C, int H, int W) { return Plan(C, H, W).total; }
+// Floats of one (C, H, W) item's workspace (the workspace kernel's plan);
+// _co: mixed into Co out-channels.
+long long ffc_item_floats_co(int C, int Co, int H, int W) { return Plan(C, Co, H, W).total; }
+long long ffc_item_floats(int C, int H, int W) { return ffc_item_floats_co(C, C, H, W); }
 
 // Floats of shared memory one rank of fu_item_fwd_kernel takes on a cluster
-// of R ranks (R dividing C).
+// of R ranks (R dividing C and Co).
+long long ffc_item_rank_floats_co(int C, int Co, int H, int W, int R) {
+  return ItemPlan(ItemRank(C, H, W, R), ItemRank(Co, H, W, R)).total;
+}
 long long ffc_item_rank_floats(int C, int H, int W, int R) {
-  return ItemPlan(ItemRank(C, H, W, R)).total;
+  return ffc_item_rank_floats_co(C, C, H, W, R);
 }
 
 // Lets the dtype's clustered per-item kernel take up to `bytes` of dynamic
@@ -265,37 +277,40 @@ int ffc_allow_smem(int dtype, int bytes) {
 // ffc_item_floats(...) floats. Returns a cudaError_t (0 on success).
 int ffc_fourier_unit_fwd(int dtype, const void* x, const void* k, const float* scale,
                          const float* bias, const float* mean, const float* var, void* y,
-                         float* ws, int B, int C, int H, int W, void* stream) {
-  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || ws == nullptr) return cudaErrorInvalidValue;
+                         float* ws, int B, int C, int Co, int H, int W, void* stream) {
+  if (B <= 0 || C <= 0 || Co <= 0 || C % Co != 0 || H <= 0 || W <= 0 || ws == nullptr)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
     fourier_unit_fwd_kernel<T><<<B, kThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<const T*>(k), scale, bias, mean, var,
-        static_cast<T*>(y), ws, C, H, W);
+        static_cast<T*>(y), ws, C, Co, H, W);
     return static_cast<int>(cudaGetLastError());
   });
 }
 
 // The clustered per-item kernel: B clusters of `ranks` blocks (1, 2, 4 or 8,
-// dividing C), each rank ffc_item_rank_floats(...) * 4 bytes of shared
+// dividing C and Co), each rank ffc_item_rank_floats_co(...) * 4 bytes of shared
 // memory (the caller has checked them against the limit set by
 // ffc_allow_smem); tables: the item's DFT factor tables (16-byte aligned,
 // fourier_unit_item.cuh). A refused cluster launch returns its error.
 int ffc_fu_item_fwd(int dtype, const void* x, const void* k, const float* tables,
                     const float* scale, const float* bias, const float* mean, const float* var,
-                    void* y, int B, int C, int H, int W, int ranks, void* stream) {
-  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || !cluster_size_ok(ranks) || C % ranks != 0 ||
+                    void* y, int B, int C, int Co, int H, int W, int ranks, void* stream) {
+  if (B <= 0 || C <= 0 || Co <= 0 || C % Co != 0 || H <= 0 || W <= 0 ||
+      !cluster_size_ok(ranks) || C % ranks != 0 || Co % ranks != 0 ||
       reinterpret_cast<size_t>(tables) % 16 != 0)
     return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(ffc_item_rank_floats(C, H, W, ranks)) * sizeof(float);
+  const size_t smem =
+      static_cast<size_t>(ffc_item_rank_floats_co(C, Co, H, W, ranks)) * sizeof(float);
   const unsigned grid = static_cast<unsigned>(B) * ranks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
     return launch_clustered<kItemThreads>(fu_item_fwd_kernel<T>, grid, ranks, smem, s,
                             static_cast<const T*>(x), static_cast<const T*>(k), tables, scale,
-                            bias, mean, var, static_cast<T*>(y), C, H, W);
+                            bias, mean, var, static_cast<T*>(y), C, Co, H, W);
   });
 }
 

@@ -18,6 +18,17 @@
 // latency of the remote reads is paid about once), and then computes its
 // channels from shared memory.
 //
+// Out-channel slices (tensor parallelism). The mix may write fewer
+// channels than it reads: K (2C x 2Co), Co dividing C, the out-channels
+// of one slice of the FourierUnit (ops/fourier_unit.py, out_columns). A
+// rank transforms its C/R input channels as above (geometry k), and mixes,
+// normalises and inverts its Co/R out-channels (geometry ko, an ItemRank of
+// Co channels): its local out-channel dl is the slice's channel
+// ko.channel(dl, rank). The backward's gz = gm K^T sums over the slice's
+// 2Co channels only, which gives the slice's part of gx. Every buffer keeps
+// the C/R input channels' room. With Co = C, k and ko are one geometry and
+// every stage is the whole FourierUnit's.
+//
 // Stages. Each is a small real product done as register tiles: a thread owns
 // a tile of outputs (rows x columns), loads each operand value once per tile
 // and step of the sum, and so feeds every loaded value into several FMAs (the
@@ -45,8 +56,10 @@
 //   cluster_gather   the item's 2C planes from every rank, over distributed
 //                    shared memory, into the rank's own shared memory
 //   item_mix         out[dl][s] = sum_j full[j][s] kslice[j][dl] over the
-//                    item's 2C channels j, for the rank's channels dl
+//                    item's 2C (or, gz, 2Co) channels j, for the rank's
+//                    channels dl
 //   item_gk          gK[j][e] = sum_s z[jl][s] gm[e][s] for the rank's rows j
+//                    and the 2Co columns e
 //   item_channel_sums  per local channel, sums over the positions s (the
 //                    statistics kernels' epilogue)
 
@@ -95,8 +108,6 @@ struct ItemRank {
   // planes at row stride wp (wp <= 2 Wf).
   __host__ __device__ int buf() const { return round4(2 * ns); }
   __host__ __device__ int tables() const { return 2 * W * wf + 2 * H * H; }
-  // Floats of a (2C x 2cr) slice of K.
-  __host__ __device__ int kslice() const { return round4(4 * C * cr); }
   // Floats of the item's whole 2C-plane spectrum, gathered from the ranks
   // (none on one rank, whose own buffer is the whole spectrum).
   __host__ __device__ int full() const { return R > 1 ? round4(2 * C * hwf) : 0; }
@@ -109,16 +120,27 @@ struct ItemRank {
   __host__ __device__ float half_weight(int v) const {
     return (v == 0 || (W % 2 == 0 && v == wf - 1)) ? 1.f : 2.f;
   }
-  // item_gk's position chunks P: as many as fill the block's threads with
-  // tiles, while P partial sums of the rank's 2cr x 2C entries fit one buffer
-  // (P <= hwf / 2C); 1 (no partials) where they do not.
-  __host__ __device__ int gk_chunks() const {
-    const int tiles = ceil_div(2 * cr, kGJ) * ceil_div(2 * C, kGE);
-    const int by_room = hwf / (2 * C), by_threads = kItemThreads / tiles;
-    const int p = by_room < by_threads ? by_room : by_threads;
-    return p > 1 ? p : 1;
-  }
 };
+
+// Floats of K's (2C x 2Co/R) columns of the rank's out-channels, and of its
+// (2C/R x 2Co) rows of the rank's input channels (k: the input side, ko:
+// the out side).
+__host__ __device__ inline int kcolumns(const ItemRank& k, const ItemRank& ko) {
+  return round4(4 * k.C * ko.cr);
+}
+__host__ __device__ inline int krows(const ItemRank& k, const ItemRank& ko) {
+  return round4(4 * k.cr * ko.C);
+}
+
+// item_gk's position chunks P: as many as fill the block's threads with
+// tiles, while P partial sums of the rank's 2cr x 2Co entries fit one buffer
+// (P <= hwf / 2Co); 1 (no partials) where they do not.
+__host__ __device__ inline int gk_chunks(const ItemRank& k, const ItemRank& ko) {
+  const int tiles = ceil_div(2 * k.cr, kGJ) * ceil_div(2 * ko.C, kGE);
+  const int by_room = k.hwf / (2 * ko.C), by_threads = kItemThreads / tiles;
+  const int p = by_room < by_threads ? by_room : by_threads;
+  return p > 1 ? p : 1;
+}
 
 // i / d for 0 <= i < 2^21 and d > 0 without an integer division: the float
 // quotient of i + 1/2 lies at least 1/(2d) from an integer, farther than its
@@ -227,20 +249,21 @@ __device__ __forceinline__ void load_planes(float* dst, const T* src, const Item
       });
 }
 
-// Slice of K (2C x 2C, [j][d]) into shared memory, no sync: kColumns, K[j][d]
-// for every j and the rank's channels d, as [j][dl]; else K[j][e] for the
-// rank's rows j and every e, as [e][jl]. Either way the rank's 2cr values of
-// one step of the sum are consecutive.
+// Slice of K (2C x 2Co, [j][d]) into shared memory, no sync: kColumns, K[j][d]
+// for every j and the rank's out-channels d, as [j][dl]; else K[j][e] for the
+// rank's input rows j and every e, as [e][jl]. Either way the rank's values
+// of one step of the sum are consecutive.
 template <bool kColumns, typename T>
 __device__ __forceinline__ void load_kslice(float* dst, const T* kmix, const ItemRank& k,
-                                            int rank) {
-  const int c2 = 2 * k.C, c2r = 2 * k.cr;
+                                            const ItemRank& ko, int rank) {
+  const ItemRank kl = kColumns ? ko : k;  // the side of the rank's own channels
+  const int c2o = 2 * ko.C, c2r = 2 * kl.cr, outer_n = kColumns ? 2 * k.C : c2o;
   const Divider by_c2r(c2r);
   copy_in_flight<float>(
-      c2 * c2r,
+      outer_n * c2r,
       [=](int i) {
-        const int outer = by_c2r.quo(i), local = k.channel(i - outer * c2r, rank);
-        return load_f32(kmix + (kColumns ? outer * c2 + local : local * c2 + outer));
+        const int outer = by_c2r.quo(i), local = kl.channel(i - outer * c2r, rank);
+        return load_f32(kmix + (kColumns ? outer * c2o + local : local * c2o + outer));
       },
       [=](int i, float v) { dst[i] = v; });
 }
@@ -499,12 +522,13 @@ __device__ __forceinline__ void item_idft_w(const float* spec, T* dst, const Ite
   }
 }
 
-// For the rank's 2cr local channels dl and every position s:
+// For the rank's 2cr local channels dl of geometry k (the side it writes)
+// and every position s:
 //   epi(dl, s, sum_j full[j * H * Wf + s] * kslice[j * 2cr + dl]),
-// j = 0 .. 2C-1 in order, over the item's whole spectrum `full` (from
-// cluster_gather).
+// j = 0 .. J-1 in order, over the item's whole spectrum `full` of J
+// channels (from cluster_gather).
 template <int kR, bool kVec, typename Epi>
-__device__ __forceinline__ void item_mix_tiles(const float* full, const float* kslice,
+__device__ __forceinline__ void item_mix_tiles(const float* full, const float* kslice, int J,
                                                const ItemRank& k, Epi epi) {
   const int c2r = 2 * k.cr, nst = ceil_div(k.hwf, kMS), tasks = nst * ceil_div(c2r, kR);
   for (int task = threadIdx.x; task < tasks; task += kItemThreads) {
@@ -518,7 +542,7 @@ __device__ __forceinline__ void item_mix_tiles(const float* full, const float* k
     const float* zj = full;
     const float* kj = kslice;
 #pragma unroll 4
-    for (int j = 0; j < 2 * k.C; ++j, zj += k.hwf, kj += c2r) {
+    for (int j = 0; j < J; ++j, zj += k.hwf, kj += c2r) {
       float zv[kMS], kv[kR];
 #pragma unroll
       for (int b = 0; b < kMS; ++b) zv[b] = zj[s[b]];
@@ -542,16 +566,16 @@ __device__ __forceinline__ void item_mix_tiles(const float* full, const float* k
 }
 
 template <typename Epi>
-__device__ __forceinline__ void item_mix(const float* full, const float* kslice,
+__device__ __forceinline__ void item_mix(const float* full, const float* kslice, int J,
                                          const ItemRank& k, Epi epi) {
   // wide loads of K where the rank's channels are whole tiles, so that
   // every row of the slice starts on a boundary of the load (2cr is even)
   if (small_rows(ceil_div(k.hwf, kMS) * k.cr)) {
-    item_mix_tiles<kRowsSmall, true>(full, kslice, k, epi);
+    item_mix_tiles<kRowsSmall, true>(full, kslice, J, k, epi);
   } else if (2 * k.cr % kRowsLarge == 0) {
-    item_mix_tiles<kRowsLarge, true>(full, kslice, k, epi);
+    item_mix_tiles<kRowsLarge, true>(full, kslice, J, k, epi);
   } else {
-    item_mix_tiles<kRowsLarge, false>(full, kslice, k, epi);
+    item_mix_tiles<kRowsLarge, false>(full, kslice, J, k, epi);
   }
 }
 
@@ -572,14 +596,14 @@ __device__ __forceinline__ void item_channel_sums(const ItemRank& k, Add add, Ou
 }
 
 // This item's gK rows of the rank, gK[j][e] = sum_s z[jl][s] gm[e][s] (j the
-// item's channel of local jl, e over the 2C planes of the whole gm from
-// cluster_gather), into gk (the item's 2C x 2C row-major f32 scratch row). A
+// item's channel of local jl, e over the 2Co planes of the whole gm from
+// cluster_gather), into gk (the item's 2C x 2Co row-major f32 scratch row). A
 // task sums one tile of entries over positions s = p, p + P, ...; with P > 1
-// the P partials go to `part` (P * 2cr * 2C floats) and are then added in
+// the P partials go to `part` (P * 2cr * 2Co floats) and are then added in
 // order p = 0 .. P-1. Ends on a block barrier.
 __device__ __forceinline__ void item_gk(const float* z, const float* gm, float* part, float* gk,
-                                        int rank, const ItemRank& k) {
-  const int c2 = 2 * k.C, c2r = 2 * k.cr, ne = ceil_div(c2, kGE), P = k.gk_chunks();
+                                        int rank, const ItemRank& k, const ItemRank& ko) {
+  const int c2 = 2 * ko.C, c2r = 2 * k.cr, ne = ceil_div(c2, kGE), P = gk_chunks(k, ko);
   const int tasks = P * ne * ceil_div(c2r, kGJ);
   for (int task = threadIdx.x; task < tasks; task += kItemThreads) {
     const int p = task % P, rest = task / P, e0 = rest % ne * kGE, j0 = rest / ne * kGJ;

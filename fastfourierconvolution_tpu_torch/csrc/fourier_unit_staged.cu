@@ -300,49 +300,63 @@ fu_inverse_kernel(const float* __restrict__ spec, T* __restrict__ y, int C, int 
   }
 }
 
-// The (2C, kTile) slice [s0, s0 + kTile) of a (2C, S) spectrum into a tile of
-// row stride kTileP, zeros past S (no sync).
-template <int C2>
+// The (ROWS, kTile) slice [s0, s0 + kTile) of a (ROWS, S) spectrum into a tile
+// of row stride kTileP, zeros past S (no sync).
+template <int ROWS>
 __device__ __forceinline__ void load_tile(float* tile, const float* src, int S, int s0) {
-  for (int i = threadIdx.x; i < C2 * kTile; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * kTile; i += kThreads) {
     const int j = i / kTile, s = i % kTile;
     tile[j * kTileP + s] = s0 + s < S ? src[static_cast<size_t>(j) * S + s0 + s] : 0.f;
   }
 }
 
-// acc[i][k] = sum_j K(j, d) t[j][s] over the 2C rows of the tile t, for the
-// thread's outputs d = ty + 16 i, s = tx + 16 k. kTransposed: K(j, d) =
-// ks[d][j] (gz = gm @ K^T); else ks[j][d] (m = z @ K). ks has row stride
-// 2C + 1.
-template <int RD, bool kTransposed>
-__device__ __forceinline__ void mix_tile(float (&acc)[RD][4], const float* t,
-                                         const float* ks) {
-  constexpr int C2 = 16 * RD, KP = C2 + 1;
+// Output o = ty + 16 i of a thread's tile row i, among `n` outputs: where n
+// is a multiple of 16 every one is real; else (an out-width of 4 or 8 on an
+// out-channel slice) the rows past n repeat the last, which the callers
+// neither write nor sum.
+template <int N>
+__device__ __forceinline__ int out_row(int ty, int i) {
+  if constexpr (N % 16 == 0) {
+    return ty + 16 * i;
+  } else {
+    return min(ty + 16 * i, N - 1);
+  }
+}
+
+// acc[i][k] = sum_j K(j, o) t[j][s] over the NSUM rows j of the tile t, for
+// the thread's outputs o = out_row<NOUT>(ty, i) (i < R) and s = tx + 16 k.
+// ks holds K (C2 x CO2, row stride CO2 + 1). kTransposed: K(j, o) = ks[o][j]
+// (gz = gm @ K^T: NSUM = CO2, NOUT = C2); else ks[j][o] (m = z @ K: NSUM =
+// C2, NOUT = CO2).
+template <int R, int NSUM, int NOUT, int KP, bool kTransposed>
+__device__ __forceinline__ void mix_tile(float (&acc)[R][4], const float* t, const float* ks) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  int o[R];
 #pragma unroll
-  for (int i = 0; i < RD; ++i)
+  for (int i = 0; i < R; ++i) {
+    o[i] = out_row<NOUT>(ty, i);
 #pragma unroll
     for (int k = 0; k < 4; ++k) acc[i][k] = 0.f;
+  }
 #pragma unroll 4
-  for (int j = 0; j < C2; ++j) {
-    float tv[4], kv[RD];
+  for (int j = 0; j < NSUM; ++j) {
+    float tv[4], kv[R];
 #pragma unroll
     for (int k = 0; k < 4; ++k) tv[k] = t[j * kTileP + tx + 16 * k];
 #pragma unroll
-    for (int i = 0; i < RD; ++i)
-      kv[i] = kTransposed ? ks[(ty + 16 * i) * KP + j] : ks[j * KP + ty + 16 * i];
+    for (int i = 0; i < R; ++i) kv[i] = kTransposed ? ks[o[i] * KP + j] : ks[j * KP + o[i]];
 #pragma unroll
-    for (int i = 0; i < RD; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc[i][k] = fmaf(tv[k], kv[i], acc[i][k]);
   }
 }
 
-// K (2C, 2C) into ks with row stride 2C + 1 (no sync).
-template <int C2, typename T>
+// K (C2, CO2) into ks with row stride CO2 + 1 (no sync).
+template <int C2, int CO2, typename T>
 __device__ __forceinline__ void load_k(float* ks, const T* kmix) {
-  for (int i = threadIdx.x; i < C2 * C2; i += kThreads)
-    ks[(i / C2) * (C2 + 1) + i % C2] = load_f32(kmix + i);
+  for (int i = threadIdx.x; i < C2 * CO2; i += kThreads)
+    ks[(i / CO2) * (CO2 + 1) + i % CO2] = load_f32(kmix + i);
 }
 
 // The tiles [t0, t1) of block (chunk, item): `chunks` runs of equal length.
@@ -358,31 +372,41 @@ __device__ __forceinline__ float weight_of(int s, int wf) {
   return (v == 0 || v == wf - 1) ? 1.f : 2.f;
 }
 
-// r = c * ReLU((z @ K - mean) * inv * scale + bias); grid (chunks, B).
-template <typename T, int RD>
+// The mix stages take z of C2 = 2C channels and K (C2, CO2): CO2 = 2Co is
+// C2, or C2 / 2 or C2 / 4 on an out-channel slice (fourier_unit_item.cuh);
+// a thread owns RO = ceil(CO2 / 16) rows of the CO2 outputs (RD = C2 / 16
+// of the C2 rows of gz and of gK).
+template <int C2, int CO2>
+struct MixDims {
+  static constexpr int RD = C2 / 16, RO = (CO2 + 15) / 16;
+};
+
+// r = c * ReLU((z @ K - mean) * inv * scale + bias), (B, CO2, H, Wf); grid
+// (chunks, B).
+template <typename T, int C2, int CO2>
 __global__ void __launch_bounds__(kThreads)
 fu_mix_apply_kernel(const float* __restrict__ z, const T* __restrict__ kmix,
                     const float* __restrict__ scale, const float* __restrict__ bias,
                     const float* __restrict__ mean, const float* __restrict__ var,
                     float* __restrict__ r, int H, int W, int chunks) {
-  constexpr int C2 = 16 * RD;
+  constexpr int RO = MixDims<C2, CO2>::RO;
   extern __shared__ float4 smem_f4[];
-  float* ks = reinterpret_cast<float*>(smem_f4);  // K, row stride C2 + 1
-  float* zt = ks + C2 * (C2 + 1);                 // the z tile
+  float* ks = reinterpret_cast<float*>(smem_f4);  // K, row stride CO2 + 1
+  float* zt = ks + C2 * (CO2 + 1);                // the z tile
   float* v_mean = zt + C2 * kTileP;
-  float* v_inv = v_mean + C2;
-  float* v_scale = v_inv + C2;
-  float* v_bias = v_scale + C2;
+  float* v_inv = v_mean + CO2;
+  float* v_scale = v_inv + CO2;
+  float* v_bias = v_scale + CO2;
   const int wf = W / 2 + 1, S = H * wf;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t item = blockIdx.y;
   const float* zb = z + item * C2 * S;
-  float* rb = r + item * C2 * S;
+  float* rb = r + item * CO2 * S;
   int t0, t1;
   tile_run(S, chunks, t0, t1);
 
-  load_k<C2>(ks, kmix);
-  for (int d = threadIdx.x; d < C2; d += kThreads) {
+  load_k<C2, CO2>(ks, kmix);
+  for (int d = threadIdx.x; d < CO2; d += kThreads) {
     v_mean[d] = mean[d];
     v_inv[d] = rsqrtf(var[d] + kEps);
     v_scale[d] = scale[d];
@@ -393,15 +417,15 @@ fu_mix_apply_kernel(const float* __restrict__ z, const T* __restrict__ kmix,
     __syncthreads();  // the previous tile's reads are done
     load_tile<C2>(zt, zb, S, s0);
     __syncthreads();
-    float acc[RD][4];
-    mix_tile<RD, false>(acc, zt, ks);
+    float acc[RO][4];
+    mix_tile<RO, C2, CO2, CO2 + 1, false>(acc, zt, ks);
 #pragma unroll
-    for (int i = 0; i < RD; ++i) {
+    for (int i = 0; i < RO; ++i) {
       const int d = ty + 16 * i;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int s = s0 + tx + 16 * k;
-        if (s < S) {
+        if (s < S && d < CO2) {
           const float pre = (acc[i][k] - v_mean[d]) * v_inv[d] * v_scale[d] + v_bias[d];
           rb[static_cast<size_t>(d) * S + s] = fmaxf(pre, 0.f) * weight_of(s, wf);
         }
@@ -410,38 +434,40 @@ fu_mix_apply_kernel(const float* __restrict__ z, const T* __restrict__ kmix,
   }
 }
 
-// The backward apply's mix stage (see the file's note); g holds G on entry
-// and gz on exit; partial row item * chunks + chunk gets the block's gK sum.
+// The backward apply's mix stage (see the file's note): g holds G (CO2
+// channels), gz (C2 channels) gets gm @ K^T, over g itself where CO2 = C2;
+// partial row item * chunks + chunk gets the block's gK sum (C2 x CO2).
 // Grid (chunks, B).
-template <typename T, int RD>
+template <typename T, int C2, int CO2>
 __global__ void __launch_bounds__(kThreads)
-fu_bwd_mix_kernel(const float* __restrict__ z, float* __restrict__ g,
+fu_bwd_mix_kernel(const float* __restrict__ z, const float* g, float* gz,
                   const T* __restrict__ kmix, const float* __restrict__ scale,
                   const float* __restrict__ bias, const float* __restrict__ mean,
                   const float* __restrict__ var, const float* __restrict__ gscale,
                   const float* __restrict__ gbias, float* __restrict__ partial, int H,
                   int W, int chunks, float count) {
-  constexpr int C2 = 16 * RD;
+  constexpr int RD = MixDims<C2, CO2>::RD, RO = MixDims<C2, CO2>::RO;
   extern __shared__ float4 smem_f4[];
   float* ks = reinterpret_cast<float*>(smem_f4);
-  float* zt = ks + C2 * (C2 + 1);  // the z tile
-  float* gt = zt + C2 * kTileP;    // the G tile, then gm
-  float* v_mean = gt + C2 * kTileP;
-  float* v_inv = v_mean + C2;
-  float* v_scale = v_inv + C2;
-  float* v_bias = v_scale + C2;
-  float* v_mgn = v_bias + C2;
-  float* v_mgnn = v_mgn + C2;
+  float* zt = ks + C2 * (CO2 + 1);  // the z tile
+  float* gt = zt + C2 * kTileP;     // the G tile, then gm
+  float* v_mean = gt + CO2 * kTileP;
+  float* v_inv = v_mean + CO2;
+  float* v_scale = v_inv + CO2;
+  float* v_bias = v_scale + CO2;
+  float* v_mgn = v_bias + CO2;
+  float* v_mgnn = v_mgn + CO2;
   const int wf = W / 2 + 1, S = H * wf;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t item = blockIdx.y;
   const float* zb = z + item * C2 * S;
-  float* gb = g + item * C2 * S;
+  const float* gb = g + item * CO2 * S;
+  float* gzb = gz + item * C2 * S;
   int t0, t1;
   tile_run(S, chunks, t0, t1);
 
-  load_k<C2>(ks, kmix);
-  for (int d = threadIdx.x; d < C2; d += kThreads) {
+  load_k<C2, CO2>(ks, kmix);
+  for (int d = threadIdx.x; d < CO2; d += kThreads) {
     v_mean[d] = mean[d];
     v_inv[d] = rsqrtf(var[d] + kEps);
     v_scale[d] = scale[d];
@@ -449,24 +475,25 @@ fu_bwd_mix_kernel(const float* __restrict__ z, float* __restrict__ g,
     v_mgn[d] = scale[d] * gbias[d] / count;
     v_mgnn[d] = scale[d] * gscale[d] / count;
   }
-  float gk[RD][RD];  // gK[ty + 16 a][tx + 16 b] over the run's positions
+  float gk[RD][RO];  // gK[ty + 16 a][tx + 16 b] over the run's positions
 #pragma unroll
   for (int a = 0; a < RD; ++a)
 #pragma unroll
-    for (int bb = 0; bb < RD; ++bb) gk[a][bb] = 0.f;
+    for (int bb = 0; bb < RO; ++bb) gk[a][bb] = 0.f;
 
   for (int t = t0; t < t1; ++t) {
     const int s0 = t * kTile;
     __syncthreads();  // the previous tile's reads are done
     load_tile<C2>(zt, zb, S, s0);
-    load_tile<C2>(gt, gb, S, s0);
+    load_tile<CO2>(gt, gb, S, s0);
     __syncthreads();
     // gm in place of G: each thread reads and writes only its own entries.
-    float acc[RD][4];
-    mix_tile<RD, false>(acc, zt, ks);
+    float acc[RO][4];
+    mix_tile<RO, C2, CO2, CO2 + 1, false>(acc, zt, ks);
 #pragma unroll
-    for (int i = 0; i < RD; ++i) {
+    for (int i = 0; i < RO; ++i) {
       const int d = ty + 16 * i;
+      if (d >= CO2) continue;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int sl = tx + 16 * k, s = s0 + sl;
@@ -483,35 +510,42 @@ fu_bwd_mix_kernel(const float* __restrict__ z, float* __restrict__ g,
     }
     __syncthreads();
     // gK[j][e] += sum_s z[j][s] gm[e][s]
+    int e[RO];
+#pragma unroll
+    for (int bb = 0; bb < RO; ++bb) e[bb] = out_row<CO2>(tx, bb);
 #pragma unroll 4
     for (int sl = 0; sl < kTile; ++sl) {
-      float zv[RD], gv[RD];
+      float zv[RD], gv[RO];
 #pragma unroll
       for (int a = 0; a < RD; ++a) zv[a] = zt[(ty + 16 * a) * kTileP + sl];
 #pragma unroll
-      for (int bb = 0; bb < RD; ++bb) gv[bb] = gt[(tx + 16 * bb) * kTileP + sl];
+      for (int bb = 0; bb < RO; ++bb) gv[bb] = gt[e[bb] * kTileP + sl];
 #pragma unroll
       for (int a = 0; a < RD; ++a)
 #pragma unroll
-        for (int bb = 0; bb < RD; ++bb) gk[a][bb] = fmaf(zv[a], gv[bb], gk[a][bb]);
+        for (int bb = 0; bb < RO; ++bb) gk[a][bb] = fmaf(zv[a], gv[bb], gk[a][bb]);
     }
-    // gz[j][s] = sum_e K[j][e] gm[e][s], into G's storage.
-    mix_tile<RD, true>(acc, gt, ks);
+    // gz[j][s] = sum_e K[j][e] gm[e][s] over the CO2 channels e. Where gz
+    // is g's storage, every block has read its G tile and writes only its
+    // own positions.
+    float acz[RD][4];
+    mix_tile<RD, CO2, C2, CO2 + 1, true>(acz, gt, ks);
 #pragma unroll
     for (int i = 0; i < RD; ++i) {
       const int j = ty + 16 * i;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int s = s0 + tx + 16 * k;
-        if (s < S) gb[static_cast<size_t>(j) * S + s] = acc[i][k];
+        if (s < S) gzb[static_cast<size_t>(j) * S + s] = acz[i][k];
       }
     }
   }
-  float* row = partial + (item * chunks + blockIdx.x) * C2 * C2;
+  float* row = partial + (item * chunks + blockIdx.x) * C2 * CO2;
 #pragma unroll
   for (int a = 0; a < RD; ++a)
 #pragma unroll
-    for (int bb = 0; bb < RD; ++bb) row[(ty + 16 * a) * C2 + tx + 16 * bb] = gk[a][bb];
+    for (int bb = 0; bb < RO; ++bb)
+      if (tx + 16 * bb < CO2) row[(ty + 16 * a) * CO2 + tx + 16 * bb] = gk[a][bb];
 }
 
 // v summed over the 16 threads of a half-warp (one ty, every tx) by a fixed
@@ -522,108 +556,107 @@ __device__ __forceinline__ float tx_sum(float v) {
   return v;
 }
 
-// row[d] = the block's sum of a, row[2C + d] = of b, for the thread's
-// channels d = ty + 16 i; every thread of the block takes part.
-template <int RD>
-__device__ __forceinline__ void write_sums(float* row, const float (&a)[RD],
-                                           const float (&b)[RD]) {
-  constexpr int C2 = 16 * RD;
+// row[d] = the block's sum of a, row[CO2 + d] = of b, for the thread's
+// channels d = ty + 16 i < CO2; every thread of the block takes part.
+template <int RO, int CO2>
+__device__ __forceinline__ void write_sums(float* row, const float (&a)[RO],
+                                           const float (&b)[RO]) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
-  for (int i = 0; i < RD; ++i) {
+  for (int i = 0; i < RO; ++i) {
     const float sa = tx_sum(a[i]), sb = tx_sum(b[i]);
-    if (tx == 0) {
+    if (tx == 0 && ty + 16 * i < CO2) {
       row[ty + 16 * i] = sa;
-      row[C2 + ty + 16 * i] = sb;
+      row[CO2 + ty + 16 * i] = sb;
     }
   }
 }
 
-// Row item * chunks + chunk of `partial` gets [sum m | sum m^2] over the
-// block's run of tiles, m = z @ K; grid (chunks, B). Positions past S sit in
-// the tile as zeros, so their m is 0 and adds nothing.
-template <typename T, int RD>
+// Row item * chunks + chunk of `partial` gets [sum m | sum m^2] (CO2 each)
+// over the block's run of tiles, m = z @ K; grid (chunks, B). Positions past
+// S sit in the tile as zeros, so their m is 0 and adds nothing.
+template <typename T, int C2, int CO2>
 __global__ void __launch_bounds__(kThreads)
 fu_mix_stats_kernel(const float* __restrict__ z, const T* __restrict__ kmix,
                     float* __restrict__ partial, int H, int W, int chunks) {
-  constexpr int C2 = 16 * RD;
+  constexpr int RO = MixDims<C2, CO2>::RO;
   extern __shared__ float4 smem_f4[];
-  float* ks = reinterpret_cast<float*>(smem_f4);  // K, row stride C2 + 1
-  float* zt = ks + C2 * (C2 + 1);                 // the z tile
+  float* ks = reinterpret_cast<float*>(smem_f4);  // K, row stride CO2 + 1
+  float* zt = ks + C2 * (CO2 + 1);                // the z tile
   const int S = H * (W / 2 + 1);
   const size_t item = blockIdx.y;
   const float* zb = z + item * C2 * S;
   int t0, t1;
   tile_run(S, chunks, t0, t1);
 
-  load_k<C2>(ks, kmix);
-  float s1[RD], s2[RD];
+  load_k<C2, CO2>(ks, kmix);
+  float s1[RO], s2[RO];
 #pragma unroll
-  for (int i = 0; i < RD; ++i) s1[i] = s2[i] = 0.f;
+  for (int i = 0; i < RO; ++i) s1[i] = s2[i] = 0.f;
   for (int t = t0; t < t1; ++t) {
     __syncthreads();  // the previous tile's reads are done
     load_tile<C2>(zt, zb, S, t * kTile);
     __syncthreads();
-    float acc[RD][4];
-    mix_tile<RD, false>(acc, zt, ks);
+    float acc[RO][4];
+    mix_tile<RO, C2, CO2, CO2 + 1, false>(acc, zt, ks);
 #pragma unroll
-    for (int i = 0; i < RD; ++i)
+    for (int i = 0; i < RO; ++i)
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         s1[i] += acc[i][k];
         s2[i] = fmaf(acc[i][k], acc[i][k], s2[i]);
       }
   }
-  write_sums<RD>(partial + (item * chunks + blockIdx.x) * 2 * C2, s1, s2);
+  write_sums<RO, CO2>(partial + (item * chunks + blockIdx.x) * 2 * CO2, s1, s2);
 }
 
-// Row item * chunks + chunk of `partial` gets [sum gpre * n | sum gpre] over
-// the block's run of tiles (see the file's note); grid (chunks, B).
-template <typename T, int RD>
+// Row item * chunks + chunk of `partial` gets [sum gpre * n | sum gpre] (CO2
+// each) over the block's run of tiles (see the file's note); grid (chunks, B).
+template <typename T, int C2, int CO2>
 __global__ void __launch_bounds__(kThreads)
 fu_bwd_stats_mix_kernel(const float* __restrict__ z, const float* __restrict__ g,
                         const T* __restrict__ kmix, const float* __restrict__ scale,
                         const float* __restrict__ bias, const float* __restrict__ mean,
                         const float* __restrict__ var, float* __restrict__ partial, int H,
                         int W, int chunks) {
-  constexpr int C2 = 16 * RD;
+  constexpr int RO = MixDims<C2, CO2>::RO;
   extern __shared__ float4 smem_f4[];
   float* ks = reinterpret_cast<float*>(smem_f4);
-  float* zt = ks + C2 * (C2 + 1);  // the z tile
-  float* gt = zt + C2 * kTileP;    // the G tile
-  float* v_mean = gt + C2 * kTileP;
-  float* v_inv = v_mean + C2;
-  float* v_scale = v_inv + C2;
-  float* v_bias = v_scale + C2;
+  float* zt = ks + C2 * (CO2 + 1);  // the z tile
+  float* gt = zt + C2 * kTileP;     // the G tile
+  float* v_mean = gt + CO2 * kTileP;
+  float* v_inv = v_mean + CO2;
+  float* v_scale = v_inv + CO2;
+  float* v_bias = v_scale + CO2;
   const int wf = W / 2 + 1, S = H * wf;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t item = blockIdx.y;
   const float* zb = z + item * C2 * S;
-  const float* gb = g + item * C2 * S;
+  const float* gb = g + item * CO2 * S;
   int t0, t1;
   tile_run(S, chunks, t0, t1);
 
-  load_k<C2>(ks, kmix);
-  for (int d = threadIdx.x; d < C2; d += kThreads) {
+  load_k<C2, CO2>(ks, kmix);
+  for (int d = threadIdx.x; d < CO2; d += kThreads) {
     v_mean[d] = mean[d];
     v_inv[d] = rsqrtf(var[d] + kEps);
     v_scale[d] = scale[d];
     v_bias[d] = bias[d];
   }
-  float s_gn[RD], s_g[RD];
+  float s_gn[RO], s_g[RO];
 #pragma unroll
-  for (int i = 0; i < RD; ++i) s_gn[i] = s_g[i] = 0.f;
+  for (int i = 0; i < RO; ++i) s_gn[i] = s_g[i] = 0.f;
   for (int t = t0; t < t1; ++t) {
     const int s0 = t * kTile;
     __syncthreads();  // the previous tile's reads are done
     load_tile<C2>(zt, zb, S, s0);
-    load_tile<C2>(gt, gb, S, s0);
+    load_tile<CO2>(gt, gb, S, s0);
     __syncthreads();
-    float acc[RD][4];
-    mix_tile<RD, false>(acc, zt, ks);
+    float acc[RO][4];
+    mix_tile<RO, C2, CO2, CO2 + 1, false>(acc, zt, ks);
 #pragma unroll
-    for (int i = 0; i < RD; ++i) {
-      const int d = ty + 16 * i;
+    for (int i = 0; i < RO; ++i) {
+      const int d = out_row<CO2>(ty, i);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int sl = tx + 16 * k, s = s0 + sl;
@@ -637,14 +670,14 @@ fu_bwd_stats_mix_kernel(const float* __restrict__ z, const float* __restrict__ g
       }
     }
   }
-  write_sums<RD>(partial + (item * chunks + blockIdx.x) * 2 * C2, s_gn, s_g);
+  write_sums<RO, CO2>(partial + (item * chunks + blockIdx.x) * 2 * CO2, s_gn, s_g);
 }
 
-// Dynamic shared memory of a mix stage: K (row stride 2C + 1), `tiles`
-// tiles of 2C x kTileP and `vectors` (2C,) vectors.
-size_t mix_smem_bytes(int C2, int tiles, int vectors) {
-  return (static_cast<size_t>(C2) * (C2 + 1) + static_cast<size_t>(tiles) * C2 * kTileP +
-          static_cast<size_t>(vectors) * C2) * sizeof(float);
+// Dynamic shared memory of a mix stage: K (C2 rows of stride CO2 + 1), tiles
+// of `tile_rows` rows of kTileP and `vectors` (CO2,) vectors.
+size_t mix_smem_bytes(int C2, int CO2, int tile_rows, int vectors) {
+  return (static_cast<size_t>(C2) * (CO2 + 1) + static_cast<size_t>(tile_rows) * kTileP +
+          static_cast<size_t>(vectors) * CO2) * sizeof(float);
 }
 
 int log2_exact(int v) {
@@ -654,15 +687,26 @@ int log2_exact(int v) {
   return l;
 }
 
-// Calls f(std::integral_constant<int, RD>()) for 2C = 16 * RD, RD in
-// {1, 2, 4, 8}; cudaErrorInvalidValue for another width.
+// Calls f(std::integral_constant<int, C2>(), std::integral_constant<int,
+// CO2>()) for C2 = 2C in {16, 32, 64, 128} and CO2 = 2Co = C2 / T, T in {1,
+// 2, 4}; cudaErrorInvalidValue for other widths.
+template <int C2, typename F>
+int by_slice(int CO2, F f) {
+  if (CO2 == C2) return f(std::integral_constant<int, C2>(), std::integral_constant<int, C2>());
+  if (CO2 == C2 / 2)
+    return f(std::integral_constant<int, C2>(), std::integral_constant<int, C2 / 2>());
+  if (CO2 == C2 / 4)
+    return f(std::integral_constant<int, C2>(), std::integral_constant<int, C2 / 4>());
+  return cudaErrorInvalidValue;
+}
+
 template <typename F>
-int by_width(int C2, F f) {
+int by_width(int C2, int CO2, F f) {
   switch (C2) {
-    case 16: return f(std::integral_constant<int, 1>());
-    case 32: return f(std::integral_constant<int, 2>());
-    case 64: return f(std::integral_constant<int, 4>());
-    case 128: return f(std::integral_constant<int, 8>());
+    case 16: return by_slice<16>(CO2, f);
+    case 32: return by_slice<32>(CO2, f);
+    case 64: return by_slice<64>(CO2, f);
+    case 128: return by_slice<128>(CO2, f);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -684,15 +728,17 @@ int ffc_allow_smem(int dtype, int bytes) {
     int e = cudaFuncSetAttribute(fu_spectrum_kernel<T>, attr, bytes);
     if (e == 0) e = cudaFuncSetAttribute(fu_inverse_kernel<T>, attr, bytes);
     for (int c2 = 16; c2 <= 128 && e == 0; c2 *= 2) {
-      e = by_width(c2, [&](auto rd) {
-        constexpr int RD = decltype(rd)::value;
-        int err = cudaFuncSetAttribute(fu_mix_apply_kernel<T, RD>, attr, bytes);
-        if (err == 0) err = cudaFuncSetAttribute(fu_bwd_mix_kernel<T, RD>, attr, bytes);
-        if (err == 0) err = cudaFuncSetAttribute(fu_mix_stats_kernel<T, RD>, attr, bytes);
-        if (err == 0)
-          err = cudaFuncSetAttribute(fu_bwd_stats_mix_kernel<T, RD>, attr, bytes);
-        return err;
-      });
+      for (int t = 1; t <= 4 && e == 0; t *= 2) {
+        e = by_width(c2, c2 / t, [&](auto ci, auto co) {
+          constexpr int C2 = decltype(ci)::value, CO2 = decltype(co)::value;
+          int err = cudaFuncSetAttribute(fu_mix_apply_kernel<T, C2, CO2>, attr, bytes);
+          if (err == 0) err = cudaFuncSetAttribute(fu_bwd_mix_kernel<T, C2, CO2>, attr, bytes);
+          if (err == 0) err = cudaFuncSetAttribute(fu_mix_stats_kernel<T, C2, CO2>, attr, bytes);
+          if (err == 0)
+            err = cudaFuncSetAttribute(fu_bwd_stats_mix_kernel<T, C2, CO2>, attr, bytes);
+          return err;
+        });
+      }
     }
     return e;
   });
@@ -728,78 +774,85 @@ int ffc_fu_inverse(int dtype, const float* spec, void* y, int B, int C, int H, i
   });
 }
 
-// dtype of K. z, r: (B, 2C, H, Wf) float32; chunks >= 1 runs of tiles per item.
+// dtype of K. z: (B, 2C, H, Wf) float32; K: (2C, 2Co); r: (B, 2Co, H, Wf)
+// float32 (Co = C, or C/2 or C/4 on an out-channel slice); chunks >= 1 runs
+// of tiles per item.
 int ffc_fu_mix_apply(int dtype, const float* z, const void* k, const float* scale,
                      const float* bias, const float* mean, const float* var, float* r,
-                     int B, int C, int H, int W, int chunks, void* stream) {
-  if (bad_plane(B, C, H, W) || chunks < 1) return cudaErrorInvalidValue;
+                     int B, int C, int Co, int H, int W, int chunks, void* stream) {
+  if (bad_plane(B, C, H, W) || Co <= 0 || chunks < 1) return cudaErrorInvalidValue;
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
-    return by_width(2 * C, [&](auto rd) {
-      constexpr int RD = decltype(rd)::value;
-      fu_mix_apply_kernel<T, RD><<<dim3(chunks, B), kThreads, mix_smem_bytes(2 * C, 1, 4),
-                                   static_cast<cudaStream_t>(stream)>>>(
+    return by_width(2 * C, 2 * Co, [&](auto ci, auto co) {
+      constexpr int C2 = decltype(ci)::value, CO2 = decltype(co)::value;
+      fu_mix_apply_kernel<T, C2, CO2><<<dim3(chunks, B), kThreads,
+                                        mix_smem_bytes(C2, CO2, C2, 4),
+                                        static_cast<cudaStream_t>(stream)>>>(
           z, static_cast<const T*>(k), scale, bias, mean, var, r, H, W, chunks);
       return static_cast<int>(cudaGetLastError());
     });
   });
 }
 
-// dtype of K. z, g: (B, 2C, H, Wf) float32, g = DFT(gy) on entry and gz on
-// exit; partial: (B * chunks, 4C^2) float32; gscale, gbias: the reduced
-// backward sums over `count` positions (B * H * Wf, or the global batch's
-// under data parallelism).
-int ffc_fu_bwd_mix(int dtype, const float* z, float* g, const void* k,
+// dtype of K. z: (B, 2C, H, Wf) float32; g = DFT(gy): (B, 2Co, H, Wf) float32;
+// gz: (B, 2C, H, Wf) float32, g itself where Co = C; partial: (B * chunks,
+// 4C Co) float32; gscale, gbias: the reduced backward sums over `count`
+// positions (B * H * Wf, or the global batch's under data parallelism).
+int ffc_fu_bwd_mix(int dtype, const float* z, const float* g, float* gz, const void* k,
                    const float* scale, const float* bias, const float* mean,
                    const float* var, const float* gscale, const float* gbias,
-                   float* partial, int B, int C, int H, int W, int chunks, long long count,
-                   void* stream) {
-  if (bad_plane(B, C, H, W) || chunks < 1 || count <= 0) return cudaErrorInvalidValue;
+                   float* partial, int B, int C, int Co, int H, int W, int chunks,
+                   long long count, void* stream) {
+  if (bad_plane(B, C, H, W) || Co <= 0 || chunks < 1 || count <= 0 || (Co != C && g == gz))
+    return cudaErrorInvalidValue;
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
-    return by_width(2 * C, [&](auto rd) {
-      constexpr int RD = decltype(rd)::value;
-      fu_bwd_mix_kernel<T, RD><<<dim3(chunks, B), kThreads, mix_smem_bytes(2 * C, 2, 6),
-                                 static_cast<cudaStream_t>(stream)>>>(
-          z, g, static_cast<const T*>(k), scale, bias, mean, var, gscale, gbias, partial,
-          H, W, chunks, static_cast<float>(count));
+    return by_width(2 * C, 2 * Co, [&](auto ci, auto co) {
+      constexpr int C2 = decltype(ci)::value, CO2 = decltype(co)::value;
+      fu_bwd_mix_kernel<T, C2, CO2><<<dim3(chunks, B), kThreads,
+                                      mix_smem_bytes(C2, CO2, C2 + CO2, 6),
+                                      static_cast<cudaStream_t>(stream)>>>(
+          z, g, gz, static_cast<const T*>(k), scale, bias, mean, var, gscale, gbias,
+          partial, H, W, chunks, static_cast<float>(count));
       return static_cast<int>(cudaGetLastError());
     });
   });
 }
 
-// dtype of K. z: (B, 2C, H, Wf) float32; partial: (B * chunks, 4C) float32,
+// dtype of K. z: (B, 2C, H, Wf) float32; partial: (B * chunks, 4Co) float32,
 // rows of [sum m | sum m^2] for fu_reduce with count B * H * Wf.
 int ffc_fu_mix_stats(int dtype, const float* z, const void* k, float* partial, int B,
-                     int C, int H, int W, int chunks, void* stream) {
-  if (bad_plane(B, C, H, W) || chunks < 1) return cudaErrorInvalidValue;
+                     int C, int Co, int H, int W, int chunks, void* stream) {
+  if (bad_plane(B, C, H, W) || Co <= 0 || chunks < 1) return cudaErrorInvalidValue;
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
-    return by_width(2 * C, [&](auto rd) {
-      constexpr int RD = decltype(rd)::value;
-      fu_mix_stats_kernel<T, RD><<<dim3(chunks, B), kThreads, mix_smem_bytes(2 * C, 1, 0),
-                                   static_cast<cudaStream_t>(stream)>>>(
+    return by_width(2 * C, 2 * Co, [&](auto ci, auto co) {
+      constexpr int C2 = decltype(ci)::value, CO2 = decltype(co)::value;
+      fu_mix_stats_kernel<T, C2, CO2><<<dim3(chunks, B), kThreads,
+                                        mix_smem_bytes(C2, CO2, C2, 0),
+                                        static_cast<cudaStream_t>(stream)>>>(
           z, static_cast<const T*>(k), partial, H, W, chunks);
       return static_cast<int>(cudaGetLastError());
     });
   });
 }
 
-// dtype of K. z, g: (B, 2C, H, Wf) float32, g = DFT(gy) (read only); mean,
-// var: the batch statistics; partial: (B * chunks, 4C) float32, rows of
-// [sum gpre * n | sum gpre] for fu_reduce (count 0): gscale and gbias.
+// dtype of K. z: (B, 2C, H, Wf), g = DFT(gy): (B, 2Co, H, Wf) float32 (read
+// only); mean, var: the batch statistics; partial: (B * chunks, 4Co)
+// float32, rows of [sum gpre * n | sum gpre] for fu_reduce (count 0): gscale
+// and gbias.
 int ffc_fu_bwd_stats_mix(int dtype, const float* z, const float* g, const void* k,
                          const float* scale, const float* bias, const float* mean,
-                         const float* var, float* partial, int B, int C, int H, int W,
+                         const float* var, float* partial, int B, int C, int Co, int H, int W,
                          int chunks, void* stream) {
-  if (bad_plane(B, C, H, W) || chunks < 1) return cudaErrorInvalidValue;
+  if (bad_plane(B, C, H, W) || Co <= 0 || chunks < 1) return cudaErrorInvalidValue;
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
-    return by_width(2 * C, [&](auto rd) {
-      constexpr int RD = decltype(rd)::value;
-      fu_bwd_stats_mix_kernel<T, RD><<<dim3(chunks, B), kThreads,
-                                       mix_smem_bytes(2 * C, 2, 4),
-                                       static_cast<cudaStream_t>(stream)>>>(
+    return by_width(2 * C, 2 * Co, [&](auto ci, auto co) {
+      constexpr int C2 = decltype(ci)::value, CO2 = decltype(co)::value;
+      fu_bwd_stats_mix_kernel<T, C2, CO2><<<dim3(chunks, B), kThreads,
+                                            mix_smem_bytes(C2, CO2, C2 + CO2, 4),
+                                            static_cast<cudaStream_t>(stream)>>>(
           z, g, static_cast<const T*>(k), scale, bias, mean, var, partial, H, W, chunks);
       return static_cast<int>(cudaGetLastError());
     });

@@ -40,7 +40,12 @@
 //
 // Layout: x, gy and gx are NCHW, contiguous, float32 or bfloat16; K is
 // (2C, 2C) in x's dtype; scale, bias, mean, var, gscale and gbias are (2C,)
-// float32; the scratch rows and gK are float32.
+// float32; the scratch rows and gK are float32. On an out-channel slice
+// (tensor parallelism, fourier_unit_item.cuh) K is (2C, 2Co), the vectors
+// (2Co,), gy (B, Co, H, W), the rows [2Co | 2Co] and gK (2C, 2Co), and gx is
+// the slice's part of the gradient (gz sums over the slice's 2Co channels):
+// every kernel takes Co beside C, and with Co = C it is the whole
+// FourierUnit's.
 //
 // Two designs per item; ops/fourier_unit.py (kernel_design) picks one for a
 // map, and the staged kernels of fourier_unit_staged.cu take the maps that
@@ -114,36 +119,37 @@ using namespace ffc;
 // the workspace with the same plan, and kernel_design reads it.
 struct Plan {
   int a_off, b_off, z_off, tab_off, k_off, vec_off, cvec_off, total;
-  __host__ __device__ Plan(int c, int h, int w) {
+  __host__ __device__ Plan(int c, int co, int h, int w) {
     const Dims d(c, h, w);
     a_off = 0;
     b_off = a_off + 2 * d.n_spec;
     z_off = b_off + d.pair_or_map();
     tab_off = z_off + 2 * d.n_spec;
     k_off = tab_off + d.tables();
-    vec_off = k_off + 4 * c * c;
-    cvec_off = vec_off + 6 * 2 * c;  // mean, inv, scale, bias, mean_gn, mean_gnn
+    vec_off = k_off + 4 * c * co;
+    cvec_off = vec_off + 6 * 2 * co;  // mean, inv, scale, bias, mean_gn, mean_gnn
     total = cvec_off + d.wf;
   }
 };
 
-// The item's buffers in its slice of the workspace.
+// The item's buffers in its slice of the workspace (do: the out-channels'
+// geometry, whose (2Co,) vectors these are).
 struct Buffers {
   float *a, *b, *z, *kmix, *mean, *inv, *scale, *bias, *mgn, *mgnn, *cvec;
   Tables tab;
-  __device__ Buffers(float* base, const Plan& pl, const Dims& d)
+  __device__ Buffers(float* base, const Plan& pl, const Dims& d, const Dims& dout)
       : a(base + pl.a_off), b(base + pl.b_off), z(base + pl.z_off),
-        kmix(base + pl.k_off), mean(base + pl.vec_off), inv(mean + 2 * d.C),
-        scale(inv + 2 * d.C), bias(scale + 2 * d.C), mgn(bias + 2 * d.C),
-        mgnn(mgn + 2 * d.C), cvec(base + pl.cvec_off),
+        kmix(base + pl.k_off), mean(base + pl.vec_off), inv(mean + 2 * dout.C),
+        scale(inv + 2 * dout.C), bias(scale + 2 * dout.C), mgn(bias + 2 * dout.C),
+        mgnn(mgn + 2 * dout.C), cvec(base + pl.cvec_off),
         tab(base + pl.tab_off, d) {}
 };
 
-// Loads K, the tables and the half-spectrum weights (no sync).
+// Loads K (2C x 2Co), the tables and the half-spectrum weights (no sync).
 template <typename T>
-__device__ void load_constants(const Buffers& sm, const T* kmix_g, const Dims& d) {
+__device__ void load_constants(const Buffers& sm, const T* kmix_g, const Dims& d, int c2o) {
   const int c2 = 2 * d.C;
-  for (int i = threadIdx.x; i < c2 * c2; i += kThreads) sm.kmix[i] = load_f32(kmix_g + i);
+  for (int i = threadIdx.x; i < c2 * c2o; i += kThreads) sm.kmix[i] = load_f32(kmix_g + i);
   fill_tables(sm.tab, d);
   for (int v = threadIdx.x; v < d.wf; v += kThreads) sm.cvec[v] = half_weight(v, d);
 }
@@ -177,22 +183,22 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fu_train_stats_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
                       float* __restrict__ partial, float* __restrict__ ws,
-                      int C, int H, int W) {
-  const Dims d(C, H, W);
-  const Plan pl(C, H, W);
-  const Buffers sm(item_slice(ws, pl.total), pl, d);
-  const int c2 = 2 * C, lane = threadIdx.x % 32;
+                      int C, int Co, int H, int W) {
+  const Dims d(C, H, W), dout(Co, H, W);
+  const Plan pl(C, Co, H, W);
+  const Buffers sm(item_slice(ws, pl.total), pl, d, dout);
+  const int c2 = 2 * C, c2o = 2 * Co, lane = threadIdx.x % 32;
   const size_t item = blockIdx.x;
 
-  load_constants(sm, kmix_g, d);
+  load_constants(sm, kmix_g, d, c2o);
   spectrum(sm, x + item * d.n_map, sm.z, d);
 
-  // Row layout: [sum m (2C) | sum m^2 (2C)].
-  float* row = partial + item * 2 * c2;
-  for (int ch = threadIdx.x / 32; ch < c2; ch += kWarps) {
+  // Row layout: [sum m (2Co) | sum m^2 (2Co)].
+  float* row = partial + item * 2 * c2o;
+  for (int ch = threadIdx.x / 32; ch < c2o; ch += kWarps) {
     float s1 = 0.f, s2 = 0.f;
     for (int s = lane; s < d.hwf; s += 32) {
-      const float m = mix_at(sm.z, sm.kmix, ch, s, c2, d.hwf);
+      const float m = mix_at(sm.z, sm.kmix, ch, s, c2, c2o, d.hwf);
       s1 += m;
       s2 = fmaf(m, m, s2);
     }
@@ -200,7 +206,7 @@ fu_train_stats_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
     s2 = warp_sum(s2);
     if (lane == 0) {
       row[ch] = s1;
-      row[c2 + ch] = s2;
+      row[c2o + ch] = s2;
     }
   }
 }
@@ -211,24 +217,25 @@ fu_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                     const T* __restrict__ kmix_g, const float* __restrict__ scale,
                     const float* __restrict__ bias, const float* __restrict__ mean,
                     const float* __restrict__ var, float* __restrict__ partial,
-                    float* __restrict__ ws, int C, int H, int W) {
-  const Dims d(C, H, W);
-  const Plan pl(C, H, W);
-  const Buffers sm(item_slice(ws, pl.total), pl, d);
-  const int c2 = 2 * C, lane = threadIdx.x % 32;
+                    float* __restrict__ ws, int C, int Co, int H, int W) {
+  const Dims d(C, H, W), dout(Co, H, W);
+  const Plan pl(C, Co, H, W);
+  const Buffers sm(item_slice(ws, pl.total), pl, d, dout);
+  const int c2 = 2 * C, c2o = 2 * Co, lane = threadIdx.x % 32;
   const size_t item = blockIdx.x;
 
-  load_constants(sm, kmix_g, d);
-  load_bn(sm, scale, bias, mean, var, c2);
+  load_constants(sm, kmix_g, d, c2o);
+  load_bn(sm, scale, bias, mean, var, c2o);
   spectrum(sm, x + item * d.n_map, sm.z, d);
-  spectrum(sm, gy + item * d.n_map, sm.b, d);  // B = DFT(gy); B holds the map first
+  // B = DFT(gy) of the Co out-channels; B holds the map first
+  spectrum(sm, gy + item * dout.n_map, sm.b, dout);
 
-  // Row layout: [sum gpre * n (2C) | sum gpre (2C)].
-  float* row = partial + item * 2 * c2;
-  for (int ch = threadIdx.x / 32; ch < c2; ch += kWarps) {
+  // Row layout: [sum gpre * n (2Co) | sum gpre (2Co)].
+  float* row = partial + item * 2 * c2o;
+  for (int ch = threadIdx.x / 32; ch < c2o; ch += kWarps) {
     float s_gn = 0.f, s_g = 0.f;
     for (int s = lane; s < d.hwf; s += 32) {
-      const float m = mix_at(sm.z, sm.kmix, ch, s, c2, d.hwf);
+      const float m = mix_at(sm.z, sm.kmix, ch, s, c2, c2o, d.hwf);
       const float n_hat = (m - sm.mean[ch]) * sm.inv[ch];
       const float pre = n_hat * sm.scale[ch] + sm.bias[ch];
       const float gpre = pre > 0.f ? sm.cvec[s % d.wf] * sm.b[ch * d.hwf + s] : 0.f;
@@ -239,7 +246,7 @@ fu_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ gy,
     s_g = warp_sum(s_g);
     if (lane == 0) {
       row[ch] = s_gn;
-      row[c2 + ch] = s_g;
+      row[c2o + ch] = s_g;
     }
   }
 }
@@ -254,26 +261,26 @@ fu_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                     const float* __restrict__ var, const float* __restrict__ gscale,
                     const float* __restrict__ gbias, T* __restrict__ gx,
                     float* __restrict__ partial_gk, float* __restrict__ ws,
-                    int C, int H, int W, float count) {
-  const Dims d(C, H, W);
-  const Plan pl(C, H, W);
-  const Buffers sm(item_slice(ws, pl.total), pl, d);
-  const int c2 = 2 * C, hwf = d.hwf, lane = threadIdx.x % 32;
+                    int C, int Co, int H, int W, float count) {
+  const Dims d(C, H, W), dout(Co, H, W);
+  const Plan pl(C, Co, H, W);
+  const Buffers sm(item_slice(ws, pl.total), pl, d, dout);
+  const int c2 = 2 * C, c2o = 2 * Co, hwf = d.hwf, lane = threadIdx.x % 32;
   const size_t item = blockIdx.x;
 
-  load_constants(sm, kmix_g, d);
-  load_bn(sm, scale, bias, mean, var, c2);
-  for (int i = threadIdx.x; i < c2; i += kThreads) {
+  load_constants(sm, kmix_g, d, c2o);
+  load_bn(sm, scale, bias, mean, var, c2o);
+  for (int i = threadIdx.x; i < c2o; i += kThreads) {
     sm.mgn[i] = scale[i] * gbias[i] / count;
     sm.mgnn[i] = scale[i] * gscale[i] / count;
   }
   spectrum(sm, x + item * d.n_map, sm.z, d);
-  spectrum(sm, gy + item * d.n_map, sm.b, d);
+  spectrum(sm, gy + item * dout.n_map, sm.b, dout);
 
   // gm, in place of DFT(gy) in B.
-  for (int o = threadIdx.x; o < 2 * d.n_spec; o += kThreads) {
+  for (int o = threadIdx.x; o < 2 * dout.n_spec; o += kThreads) {
     const int s = o % hwf, ch = o / hwf;
-    const float m = mix_at(sm.z, sm.kmix, ch, s, c2, hwf);
+    const float m = mix_at(sm.z, sm.kmix, ch, s, c2, c2o, hwf);
     const float n_hat = (m - sm.mean[ch]) * sm.inv[ch];
     const float pre = n_hat * sm.scale[ch] + sm.bias[ch];
     const float gpre = pre > 0.f ? sm.cvec[s % d.wf] * sm.b[o] : 0.f;
@@ -283,22 +290,22 @@ fu_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   __syncthreads();
 
   // This item's gK[j][e] = sum_s z[j][s] gm[e][s], one warp per entry.
-  float* gk_row = partial_gk + item * c2 * c2;
-  for (int p = threadIdx.x / 32; p < c2 * c2; p += kWarps) {
-    const float* zj = sm.z + (p / c2) * hwf;
-    const float* ge = sm.b + (p % c2) * hwf;
+  float* gk_row = partial_gk + item * c2 * c2o;
+  for (int p = threadIdx.x / 32; p < c2 * c2o; p += kWarps) {
+    const float* zj = sm.z + (p / c2o) * hwf;
+    const float* ge = sm.b + (p % c2o) * hwf;
     float acc = 0.f;
     for (int s = lane; s < hwf; s += 32) acc = fmaf(zj[s], ge[s], acc);
     acc = warp_sum(acc);
     if (lane == 0) gk_row[p] = acc;
   }
 
-  // gz[j][s] = sum_e gm[e][s] K[j][e], into A.
+  // gz[j][s] = sum_e gm[e][s] K[j][e] over the 2Co channels e, into A.
   for (int o = threadIdx.x; o < 2 * d.n_spec; o += kThreads) {
     const int s = o % hwf, j = o / hwf;
-    const float* kj = sm.kmix + j * c2;
+    const float* kj = sm.kmix + j * c2o;
     float acc = 0.f;
-    for (int e = 0; e < c2; ++e) acc = fmaf(sm.b[e * hwf + s], kj[e], acc);
+    for (int e = 0; e < c2o; ++e) acc = fmaf(sm.b[e * hwf + s], kj[e], acc);
     sm.a[o] = acc;
   }
   __syncthreads();
@@ -314,38 +321,39 @@ fu_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
 // _item_rank_floats).
 struct TrainStatsPlan {
   int a, b, full, tab, kc, total;
-  __host__ __device__ explicit TrainStatsPlan(const ItemRank& k) {
+  __host__ __device__ TrainStatsPlan(const ItemRank& k, const ItemRank& ko) {
     a = 0;                      // map, then z (read by every rank)
     b = a + k.buf();            // W-stage scratch, then m
     full = b + k.buf();         // the item's z, gathered (R > 1)
     tab = full + k.full();      // cw, dw, ah, bh
     kc = tab + round4(k.tables());  // K[j][d] for the rank's d, [j][dl]
-    total = kc + k.kslice();
+    total = kc + kcolumns(k, ko);
   }
 };
 
 struct BwdStatsPlan {
   int a, g, z, full, tab, kc, vec, cvec, total;
-  __host__ __device__ explicit BwdStatsPlan(const ItemRank& k) {
+  __host__ __device__ BwdStatsPlan(const ItemRank& k, const ItemRank& ko) {
     a = 0;                      // maps, then DFT(gy) -> gpre in place
     g = a + k.buf();            // W-stage scratch, then n
     z = g + k.buf();            // z (read by every rank)
     full = z + k.buf();         // the item's z, gathered (R > 1)
     tab = full + k.full();      // cw, dw, ah, bh
     kc = tab + round4(k.tables());  // K[j][d] for the rank's d, [j][dl]
-    vec = kc + k.kslice();      // mean, inv, scale, bias (2cr each)
-    cvec = vec + round4(8 * k.cr);
+    vec = kc + kcolumns(k, ko);  // mean, inv, scale, bias (2Co/R each)
+    cvec = vec + round4(8 * ko.cr);
     total = cvec + k.wf;
   }
 };
 
-// The rank's channels of one item's partial row [sums of a (2C) | sums of b
-// (2C)], a and b the two sums of item_channel_sums.
-__device__ __forceinline__ void write_sums(float* row, const ItemRank& k, int rank, int dl,
+// The rank's out-channels of one item's partial row [sums of a (2Co) | sums
+// of b (2Co)], a and b the two sums of item_channel_sums (ko: the
+// out-channels' geometry).
+__device__ __forceinline__ void write_sums(float* row, const ItemRank& ko, int rank, int dl,
                                            float2 sums) {
-  const int d = k.channel(dl, rank);
+  const int d = ko.channel(dl, rank);
   row[d] = sums.x;
-  row[2 * k.C + d] = sums.y;
+  row[2 * ko.C + d] = sums.y;
 }
 
 // The batch statistics' partial sums of one item on a cluster of R ranks
@@ -357,12 +365,13 @@ template <typename T>
 __global__ void __launch_bounds__(kItemThreads)
 fu_item_train_stats_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g,
                            const float* __restrict__ tables, float* __restrict__ partial,
-                           int C, int H, int W) {
+                           int C, int Co, int H, int W) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const ItemRank k(C, H, W, static_cast<int>(cluster.num_blocks()));
-  const TrainStatsPlan pl(k);
+  const int R = static_cast<int>(cluster.num_blocks());
+  const ItemRank k(C, H, W, R), ko(Co, H, W, R);
+  const TrainStatsPlan pl(k, ko);
   float* a = smem + pl.a;
   float* b = smem + pl.b;
   const ItemTables tab(smem + pl.tab, k);
@@ -377,7 +386,7 @@ fu_item_train_stats_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g
   const bool units = in_units(x + planes, map_bytes);
   if (units) copy_async(b, x + planes, map_bytes);
   copy_tables(smem + pl.tab, tables, k.tables());
-  load_kslice<true>(kc, kmix_g, k, rank);
+  load_kslice<true>(kc, kmix_g, k, ko, rank);
   wait_async();
   __syncthreads();
   if (units) {
@@ -396,17 +405,17 @@ fu_item_train_stats_kernel(const T* __restrict__ x, const T* __restrict__ kmix_g
   // 3. The item's z from every rank, then the rank's channels of m = z K
   //    into b, and their sums.
   const float* z = cluster_gather(cluster, a, smem + pl.full, k);
-  item_mix(z, kc, k, [=](int dl, int s, float m) { b[dl * k.hwf + s] = m; });
+  item_mix(z, kc, 2 * C, ko, [=](int dl, int s, float m) { b[dl * k.hwf + s] = m; });
   __syncthreads();
-  float* row = partial + item * 4 * C;
+  float* row = partial + item * 4 * Co;
   item_channel_sums(
-      k,
+      ko,
       [=](float2& acc, int o) {
         const float m = b[o];
         acc.x += m;
         acc.y = fmaf(m, m, acc.y);
       },
-      [=](int dl, float2 sums) { write_sums(row, k, rank, dl, sums); });
+      [=](int dl, float2 sums) { write_sums(row, ko, rank, dl, sums); });
   cluster.sync();  // no rank leaves while another still gathers from its a
 }
 
@@ -422,18 +431,19 @@ fu_item_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                          const T* __restrict__ kmix_g, const float* __restrict__ tables,
                          const float* __restrict__ scale, const float* __restrict__ bias,
                          const float* __restrict__ mean, const float* __restrict__ var,
-                         float* __restrict__ partial, int C, int H, int W) {
+                         float* __restrict__ partial, int C, int Co, int H, int W) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const ItemRank k(C, H, W, static_cast<int>(cluster.num_blocks()));
-  const BwdStatsPlan pl(k);
+  const int R = static_cast<int>(cluster.num_blocks());
+  const ItemRank k(C, H, W, R), ko(Co, H, W, R);
+  const BwdStatsPlan pl(k, ko);
   float* a = smem + pl.a;
   float* g = smem + pl.g;
   float* z = smem + pl.z;
   const ItemTables tab(smem + pl.tab, k);
   float* kc = smem + pl.kc;
-  const int c2r = 2 * k.cr;
+  const int c2r = 2 * ko.cr;
   float* bn_mean = smem + pl.vec;
   float* bn_inv = bn_mean + c2r;
   float* bn_scale = bn_inv + c2r;
@@ -446,19 +456,21 @@ fu_item_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   //    16-byte units) and gy's (likewise into the gather buffer, which is
   //    free until the gather, where there is one) and the tables, while the
   //    slice of K and the vectors load; then x's planes in f32 into a.
+  const size_t gplanes = (item * Co + rank * ko.cr) * static_cast<size_t>(H) * W;
   const int map_bytes = k.cr * H * W * static_cast<int>(sizeof(T));
-  const bool units = in_units(x + planes, map_bytes) && in_units(gy + planes, map_bytes);
+  const int gy_bytes = ko.cr * H * W * static_cast<int>(sizeof(T));
+  const bool units = in_units(x + planes, map_bytes) && in_units(gy + gplanes, gy_bytes);
   float* gy_raw = k.R > 1 && units ? smem + pl.full : nullptr;
   if (units) copy_async(g, x + planes, map_bytes);
-  if (gy_raw) copy_async(gy_raw, gy + planes, map_bytes);
+  if (gy_raw) copy_async(gy_raw, gy + gplanes, gy_bytes);
   copy_tables(smem + pl.tab, tables, k.tables());
   // The vectors of the thread's first channel load before the slice of K,
   // so that their latencies overlap.
-  const int d0 = k.channel(min(static_cast<int>(threadIdx.x), c2r - 1), rank);
+  const int d0 = ko.channel(min(static_cast<int>(threadIdx.x), c2r - 1), rank);
   const float v0[4] = {mean[d0], var[d0], scale[d0], bias[d0]};
-  load_kslice<true>(kc, kmix_g, k, rank);
+  load_kslice<true>(kc, kmix_g, k, ko, rank);
   for (int dl = threadIdx.x; dl < c2r; dl += kItemThreads) {
-    const int d = k.channel(dl, rank);
+    const int d = ko.channel(dl, rank);
     const bool first = dl == static_cast<int>(threadIdx.x);
     bn_mean[dl] = first ? v0[0] : mean[d];
     bn_inv[dl] = rsqrtf((first ? v0[1] : var[d]) + kEps);
@@ -481,20 +493,20 @@ fu_item_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   item_dft_h<false>(g, z, tab, k);
   __syncthreads();
   if (gy_raw) {
-    unpack_planes(a, reinterpret_cast<const T*>(gy_raw), k);
+    unpack_planes(a, reinterpret_cast<const T*>(gy_raw), ko);
   } else {
-    load_planes(a, gy + planes, k);
+    load_planes(a, gy + gplanes, ko);
   }
   __syncthreads();
-  item_dft_w(a, g, tab, k);
+  item_dft_w(a, g, tab, ko);
   __syncthreads();
-  item_dft_h<false>(g, a, tab, k);
+  item_dft_h<false>(g, a, tab, ko);
   cluster.sync();  // every rank's z is in its shared memory
 
   // 3. gpre of the rank's channels in place of DFT(gy) in a, n in g; m from
   //    the item's z, gathered. Then their sums.
   const float* zs = cluster_gather(cluster, z, smem + pl.full, k);
-  item_mix(zs, kc, k, [=](int dl, int s, float m) {
+  item_mix(zs, kc, 2 * C, ko, [=](int dl, int s, float m) {
     const int o = dl * k.hwf + s;
     const float n_hat = (m - bn_mean[dl]) * bn_inv[dl];
     const float pre = n_hat * bn_scale[dl] + bn_bias[dl];
@@ -502,31 +514,31 @@ fu_item_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ gy,
     g[o] = n_hat;
   });
   __syncthreads();
-  float* row = partial + item * 4 * C;
+  float* row = partial + item * 4 * Co;
   item_channel_sums(
-      k,
+      ko,
       [=](float2& acc, int o) {
         const float gpre = a[o];
         acc.x = fmaf(gpre, g[o], acc.x);
         acc.y += gpre;
       },
-      [=](int dl, float2 sums) { write_sums(row, k, rank, dl, sums); });
+      [=](int dl, float2 sums) { write_sums(row, ko, rank, dl, sums); });
   cluster.sync();  // no rank leaves while another still gathers from its z
 }
 
 // Buffer plan in floats of one rank of fu_item_bwd_apply_kernel.
 struct ItemPlan {
   int a, g, z, full, tab, kc, kr, vec, cvec, total;
-  __host__ __device__ explicit ItemPlan(const ItemRank& k) {
+  __host__ __device__ ItemPlan(const ItemRank& k, const ItemRank& ko) {
     a = 0;                      // maps, then DFT(gy) -> gm in place (read by every rank), then P
     g = a + k.buf();            // W-stage scratch, then gK partials, then gz
     z = g + k.buf();            // z (read by every rank)
     full = z + k.buf();         // the item's z, then its gm, gathered (R > 1)
     tab = full + k.full();      // cw, dw, ah, bh
     kc = tab + round4(k.tables());  // K[j][d] for the rank's d, [j][dl]
-    kr = kc + k.kslice();       // K[j][e] for the rank's j, [e][jl]
-    vec = kr + k.kslice();      // mean, inv, scale, bias, mean_gn, mean_gnn (2cr each)
-    cvec = vec + round4(12 * k.cr);
+    kr = kc + kcolumns(k, ko);  // K[j][e] for the rank's j, [e][jl]
+    vec = kr + krows(k, ko);    // mean, inv, scale, bias, mean_gn, mean_gnn (2Co/R each)
+    cvec = vec + round4(12 * ko.cr);
     total = cvec + k.wf;
   }
 };
@@ -544,20 +556,21 @@ fu_item_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                          const float* __restrict__ scale, const float* __restrict__ bias,
                          const float* __restrict__ mean, const float* __restrict__ var,
                          const float* __restrict__ gscale, const float* __restrict__ gbias,
-                         T* __restrict__ gx, float* __restrict__ partial_gk, int C, int H,
-                         int W, float count) {
+                         T* __restrict__ gx, float* __restrict__ partial_gk, int C, int Co,
+                         int H, int W, float count) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const ItemRank k(C, H, W, static_cast<int>(cluster.num_blocks()));
-  const ItemPlan pl(k);
+  const int R = static_cast<int>(cluster.num_blocks());
+  const ItemRank k(C, H, W, R), ko(Co, H, W, R);
+  const ItemPlan pl(k, ko);
   float* a = smem + pl.a;
   float* g = smem + pl.g;
   float* z = smem + pl.z;
   const ItemTables tab(smem + pl.tab, k);
   float* kc = smem + pl.kc;
   float* kr = smem + pl.kr;
-  const int c2r = 2 * k.cr;
+  const int c2r = 2 * ko.cr;
   float* bn_mean = smem + pl.vec;
   float* bn_inv = bn_mean + c2r;
   float* bn_scale = bn_inv + c2r;
@@ -573,20 +586,22 @@ fu_item_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   //    free until the first gather, where there is one) and the tables,
   //    while the two slices of K and the vectors load; then x's planes in
   //    f32 into a.
+  const size_t gplanes = (item * Co + rank * ko.cr) * static_cast<size_t>(H) * W;
   const int map_bytes = k.cr * H * W * static_cast<int>(sizeof(T));
-  const bool units = in_units(x + planes, map_bytes) && in_units(gy + planes, map_bytes);
+  const int gy_bytes = ko.cr * H * W * static_cast<int>(sizeof(T));
+  const bool units = in_units(x + planes, map_bytes) && in_units(gy + gplanes, gy_bytes);
   float* gy_raw = k.R > 1 && units ? smem + pl.full : nullptr;
   if (units) copy_async(g, x + planes, map_bytes);
-  if (gy_raw) copy_async(gy_raw, gy + planes, map_bytes);
+  if (gy_raw) copy_async(gy_raw, gy + gplanes, gy_bytes);
   copy_tables(smem + pl.tab, tables, k.tables());
   // The vectors of the thread's first channel load before the slices of K,
   // so that their latencies overlap.
-  const int d0 = k.channel(min(static_cast<int>(threadIdx.x), c2r - 1), rank);
+  const int d0 = ko.channel(min(static_cast<int>(threadIdx.x), c2r - 1), rank);
   const float v0[6] = {mean[d0], var[d0], scale[d0], bias[d0], gscale[d0], gbias[d0]};
-  load_kslice<true>(kc, kmix_g, k, rank);
-  load_kslice<false>(kr, kmix_g, k, rank);
+  load_kslice<true>(kc, kmix_g, k, ko, rank);
+  load_kslice<false>(kr, kmix_g, k, ko, rank);
   for (int dl = threadIdx.x; dl < c2r; dl += kItemThreads) {
-    const int d = k.channel(dl, rank);
+    const int d = ko.channel(dl, rank);
     const bool first = dl == static_cast<int>(threadIdx.x);
     const float sc = first ? v0[2] : scale[d];
     bn_mean[dl] = first ? v0[0] : mean[d];
@@ -612,20 +627,20 @@ fu_item_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   item_dft_h<false>(g, z, tab, k);
   __syncthreads();
   if (gy_raw) {
-    unpack_planes(a, reinterpret_cast<const T*>(gy_raw), k);
+    unpack_planes(a, reinterpret_cast<const T*>(gy_raw), ko);
   } else {
-    load_planes(a, gy + planes, k);
+    load_planes(a, gy + gplanes, ko);
   }
   __syncthreads();
-  item_dft_w(a, g, tab, k);
+  item_dft_w(a, g, tab, ko);
   __syncthreads();
-  item_dft_h<false>(g, a, tab, k);
+  item_dft_h<false>(g, a, tab, ko);
   cluster.sync();  // every rank's z is in its shared memory
 
   // 3. gm = inv * (gn - mean(gn) - n * mean(gn n)) of the rank's channels,
   //    in place of DFT(gy) in a; m from the item's z, gathered.
   const float* zs = cluster_gather(cluster, z, smem + pl.full, k);
-  item_mix(zs, kc, k, [=](int dl, int s, float m) {
+  item_mix(zs, kc, 2 * C, ko, [=](int dl, int s, float m) {
     const int o = dl * k.hwf + s;
     const float n_hat = (m - bn_mean[dl]) * bn_inv[dl];
     const float pre = n_hat * bn_scale[dl] + bn_bias[dl];
@@ -637,10 +652,10 @@ fu_item_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
 
   // 4. The item's gm, gathered; the item's gK rows of the rank (partials in
   //    g), then the rank's channels of gz[j][s] = sum_e gm[e][s] K[j][e]
-  //    into g.
-  const float* gm = cluster_gather(cluster, a, smem + pl.full, k);
-  item_gk(z, gm, g, partial_gk + item * 4 * C * C, rank, k);
-  item_mix(gm, kr, k, [=](int dl, int s, float v) { g[dl * k.hwf + s] = v; });
+  //    (e over the 2Co out-channels) into g.
+  const float* gm = cluster_gather(cluster, a, smem + pl.full, ko);
+  item_gk(z, gm, g, partial_gk + item * 4 * C * Co, rank, k, ko);
+  item_mix(gm, kr, 2 * Co, k, [=](int dl, int s, float v) { g[dl * k.hwf + s] = v; });
   cluster.sync();  // no rank reads a's gm any more
 
   // 5. gx = adjoint of the forward DFT: inverse H-stage into a, inverse
@@ -747,20 +762,26 @@ fu_reduce_kernel(const float* __restrict__ partial, int rows, int cols, long lon
   cluster.sync();  // no block leaves while rank 0 still reads its shared memory
 }
 
-bool bad_args(int B, int C, int H, int W, const float* ws) {
-  return B <= 0 || C <= 0 || H <= 0 || W <= 0 || ws == nullptr;
+bool bad_args(int B, int C, int Co, int H, int W, const float* ws) {
+  return B <= 0 || C <= 0 || Co <= 0 || C % Co != 0 || H <= 0 || W <= 0 || ws == nullptr;
 }
 
 // The clustered kernels' launch: B clusters of `ranks` blocks (1, 2, 4 or 8,
-// dividing C); the tables 16-byte aligned.
-bool bad_item_args(int B, int C, int H, int W, int ranks, const float* tables) {
-  return B <= 0 || C <= 0 || H <= 0 || W <= 0 || !cluster_size_ok(ranks) || C % ranks != 0 ||
+// dividing C and Co); the tables 16-byte aligned.
+bool bad_item_args(int B, int C, int Co, int H, int W, int ranks, const float* tables) {
+  return B <= 0 || C <= 0 || Co <= 0 || C % Co != 0 || H <= 0 || W <= 0 ||
+         !cluster_size_ok(ranks) || C % ranks != 0 || Co % ranks != 0 ||
          reinterpret_cast<size_t>(tables) % 16 != 0;
 }
 
 template <typename Plan_>
-size_t rank_smem(int C, int H, int W, int ranks) {
-  return static_cast<size_t>(Plan_(ItemRank(C, H, W, ranks)).total) * sizeof(float);
+long long rank_floats(int C, int Co, int H, int W, int ranks) {
+  return Plan_(ItemRank(C, H, W, ranks), ItemRank(Co, H, W, ranks)).total;
+}
+
+template <typename Plan_>
+size_t rank_smem(int C, int Co, int H, int W, int ranks) {
+  return static_cast<size_t>(rank_floats<Plan_>(C, Co, H, W, ranks)) * sizeof(float);
 }
 
 }  // namespace
@@ -768,8 +789,10 @@ size_t rank_smem(int C, int H, int W, int ranks) {
 extern "C" {
 
 // Floats of the buffers of one (C, H, W) item in the workspace kernels: the
-// workspace floats per item (and the plan kernel_design reads).
-long long ffc_item_floats(int C, int H, int W) { return Plan(C, H, W).total; }
+// workspace floats per item (and the plan kernel_design reads); _co: mixed
+// into Co out-channels.
+long long ffc_item_floats_co(int C, int Co, int H, int W) { return Plan(C, Co, H, W).total; }
+long long ffc_item_floats(int C, int H, int W) { return ffc_item_floats_co(C, C, H, W); }
 
 // Lets the dtype's clustered kernels take up to `bytes` of dynamic shared
 // memory on the current device. Returns a cudaError_t (0 on success).
@@ -788,64 +811,74 @@ int ffc_allow_smem(int dtype, int bytes) {
 // ffc_item_floats(...) floats; partial: (B, 4C) float32. Each entry point
 // returns a cudaError_t (0 on success).
 int ffc_fu_train_stats(int dtype, const void* x, const void* k, float* partial, float* ws,
-                       int B, int C, int H, int W, void* stream) {
-  if (bad_args(B, C, H, W, ws)) return cudaErrorInvalidValue;
+                       int B, int C, int Co, int H, int W, void* stream) {
+  if (bad_args(B, C, Co, H, W, ws)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
     fu_train_stats_kernel<T><<<B, kThreads, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(k), partial, ws, C, H, W);
+        static_cast<const T*>(x), static_cast<const T*>(k), partial, ws, C, Co, H, W);
     return static_cast<int>(cudaGetLastError());
   });
 }
 
-// The workspace backward sums; partial: (B, 4C) float32.
+// The workspace backward sums; partial: (B, 4Co) float32.
 int ffc_fu_bwd_stats(int dtype, const void* x, const void* gy, const void* k,
                      const float* scale, const float* bias, const float* mean, const float* var,
-                     float* partial, float* ws, int B, int C, int H, int W, void* stream) {
-  if (bad_args(B, C, H, W, ws)) return cudaErrorInvalidValue;
+                     float* partial, float* ws, int B, int C, int Co, int H, int W,
+                     void* stream) {
+  if (bad_args(B, C, Co, H, W, ws)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
     fu_bwd_stats_kernel<T><<<B, kThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<const T*>(gy), static_cast<const T*>(k),
-        scale, bias, mean, var, partial, ws, C, H, W);
+        scale, bias, mean, var, partial, ws, C, Co, H, W);
     return static_cast<int>(cudaGetLastError());
   });
 }
 
-// The workspace backward apply. gx: like x; partial_gk: (B, 2C, 2C) float32;
+// The workspace backward apply. gx: like x; partial_gk: (B, 2C, 2Co) float32;
 // gscale and gbias are the reduced backward sums over `count` spectral
 // positions (B * H * Wf, or the global batch's under data parallelism); ws:
 // B * ffc_item_floats(...) floats.
 int ffc_fu_bwd_apply(int dtype, const void* x, const void* gy, const void* k,
                      const float* scale, const float* bias, const float* mean,
                      const float* var, const float* gscale, const float* gbias, void* gx,
-                     float* partial_gk, float* ws, int B, int C, int H, int W,
+                     float* partial_gk, float* ws, int B, int C, int Co, int H, int W,
                      long long count, void* stream) {
-  if (bad_args(B, C, H, W, ws) || count <= 0) return cudaErrorInvalidValue;
+  if (bad_args(B, C, Co, H, W, ws) || count <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
     fu_bwd_apply_kernel<T><<<B, kThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<const T*>(gy), static_cast<const T*>(k),
         scale, bias, mean, var, gscale, gbias, static_cast<T*>(gx), partial_gk, ws,
-        C, H, W, static_cast<float>(count));
+        C, Co, H, W, static_cast<float>(count));
     return static_cast<int>(cudaGetLastError());
   });
 }
 
 // Floats of shared memory one rank of each clustered kernel takes on a
 // cluster of R ranks (R dividing C): the backward apply's, the statistics'
-// and the backward sums'.
+// and the backward sums'; _co: mixed into Co out-channels (R dividing Co).
+long long ffc_item_rank_floats_co(int C, int Co, int H, int W, int R) {
+  return rank_floats<ItemPlan>(C, Co, H, W, R);
+}
+long long ffc_item_train_stats_rank_floats_co(int C, int Co, int H, int W, int R) {
+  return rank_floats<TrainStatsPlan>(C, Co, H, W, R);
+}
+long long ffc_item_bwd_stats_rank_floats_co(int C, int Co, int H, int W, int R) {
+  return rank_floats<BwdStatsPlan>(C, Co, H, W, R);
+}
 long long ffc_item_rank_floats(int C, int H, int W, int R) {
-  return ItemPlan(ItemRank(C, H, W, R)).total;
+  return ffc_item_rank_floats_co(C, C, H, W, R);
 }
 long long ffc_item_train_stats_rank_floats(int C, int H, int W, int R) {
-  return TrainStatsPlan(ItemRank(C, H, W, R)).total;
+  return ffc_item_train_stats_rank_floats_co(C, C, H, W, R);
 }
 long long ffc_item_bwd_stats_rank_floats(int C, int H, int W, int R) {
-  return BwdStatsPlan(ItemRank(C, H, W, R)).total;
+  return ffc_item_bwd_stats_rank_floats_co(C, C, H, W, R);
 }
 
 // The clustered kernels: B clusters of `ranks` blocks (1, 2, 4 or 8,
@@ -854,32 +887,33 @@ long long ffc_item_bwd_stats_rank_floats(int C, int H, int W, int R) {
 // as for ffc_fu_item_fwd; outputs as for the workspace entry points. A
 // refused cluster launch returns its error.
 int ffc_fu_item_train_stats(int dtype, const void* x, const void* k, const float* tables,
-                            float* partial, int B, int C, int H, int W, int ranks,
+                            float* partial, int B, int C, int Co, int H, int W, int ranks,
                             void* stream) {
-  if (bad_item_args(B, C, H, W, ranks, tables)) return cudaErrorInvalidValue;
-  const size_t smem = rank_smem<TrainStatsPlan>(C, H, W, ranks);
+  if (bad_item_args(B, C, Co, H, W, ranks, tables)) return cudaErrorInvalidValue;
+  const size_t smem = rank_smem<TrainStatsPlan>(C, Co, H, W, ranks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
     return launch_clustered<kItemThreads>(fu_item_train_stats_kernel<T>, B * ranks, ranks, smem,
                                           s, static_cast<const T*>(x), static_cast<const T*>(k),
-                                          tables, partial, C, H, W);
+                                          tables, partial, C, Co, H, W);
   });
 }
 
 int ffc_fu_item_bwd_stats(int dtype, const void* x, const void* gy, const void* k,
                           const float* tables, const float* scale, const float* bias,
                           const float* mean, const float* var, float* partial, int B, int C,
-                          int H, int W, int ranks, void* stream) {
-  if (bad_item_args(B, C, H, W, ranks, tables)) return cudaErrorInvalidValue;
-  const size_t smem = rank_smem<BwdStatsPlan>(C, H, W, ranks);
+                          int Co, int H, int W, int ranks, void* stream) {
+  if (bad_item_args(B, C, Co, H, W, ranks, tables)) return cudaErrorInvalidValue;
+  const size_t smem = rank_smem<BwdStatsPlan>(C, Co, H, W, ranks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
     return launch_clustered<kItemThreads>(fu_item_bwd_stats_kernel<T>, B * ranks, ranks, smem,
                                           s, static_cast<const T*>(x),
                                           static_cast<const T*>(gy), static_cast<const T*>(k),
-                                          tables, scale, bias, mean, var, partial, C, H, W);
+                                          tables, scale, bias, mean, var, partial, C, Co, H,
+                                          W);
   });
 }
 
@@ -887,9 +921,9 @@ int ffc_fu_item_bwd_apply(int dtype, const void* x, const void* gy, const void* 
                           const float* tables, const float* scale, const float* bias,
                           const float* mean, const float* var, const float* gscale,
                           const float* gbias, void* gx, float* partial_gk, int B, int C,
-                          int H, int W, int ranks, long long count, void* stream) {
-  if (bad_item_args(B, C, H, W, ranks, tables) || count <= 0) return cudaErrorInvalidValue;
-  const size_t smem = rank_smem<ItemPlan>(C, H, W, ranks);
+                          int Co, int H, int W, int ranks, long long count, void* stream) {
+  if (bad_item_args(B, C, Co, H, W, ranks, tables) || count <= 0) return cudaErrorInvalidValue;
+  const size_t smem = rank_smem<ItemPlan>(C, Co, H, W, ranks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
@@ -897,7 +931,7 @@ int ffc_fu_item_bwd_apply(int dtype, const void* x, const void* gy, const void* 
                                           s, static_cast<const T*>(x),
                                           static_cast<const T*>(gy), static_cast<const T*>(k),
                                           tables, scale, bias, mean, var, gscale, gbias,
-                                          static_cast<T*>(gx), partial_gk, C, H, W,
+                                          static_cast<T*>(gx), partial_gk, C, Co, H, W,
                                           static_cast<float>(count));
   });
 }

@@ -35,6 +35,7 @@ those raise ``ValueError``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -44,7 +45,7 @@ from .. import parallel
 from ..ops import conv as conv_ops
 from ..ops.bn_act import packed_bn_gelu, packed_bn_gelu_noise
 from ..ops.fourier import irfft2_ortho
-from ..ops.fourier_unit import _spectrum_plain, fourier_unit_eval, fourier_unit_train
+from ..ops.fourier_unit import _spectrum_plain, fourier_unit_eval, fourier_unit_train, out_columns
 from .layers import (
     ACTIVATIONS,
     BN_EPS,
@@ -92,11 +93,22 @@ class FourierUnit(nn.Module):
     normalises with the running statistics; training with the f32 batch
     statistics, which then update the running ones (momentum 0.9, biased
     variance). With ``num_classes`` > 1 the BN is a
-    :class:`ConditionalBatchNorm` (``bn``) on the labels, in plain ops."""
+    :class:`ConditionalBatchNorm` (``bn``) on the labels, in plain ops.
+
+    Tensor parallelism (:func:`shard_fourier_units_`): with ``tp`` = T > 1
+    the unit holds only its out-channel slice t of ``mix_kernel``, (2C,
+    2C/T) (``ops.fourier_unit.out_columns``), and runs the op on it: the
+    input's gradient is summed over the tp group, the slice's BN vectors
+    are the whole ones' entries, the statistics are gathered whole for the
+    running ones and y's channel slices are gathered in rank order
+    (``parallel.tp_*``). The class-conditional unit gathers the whole mix
+    from the slices and computes as without T; its gradient is the slice's.
+    """
 
     def __init__(self, channels: int, num_classes: int = 0):
         super().__init__()
         c2 = 2 * channels
+        self.channels, self.tp = channels, 1
         self.mix_kernel = nn.Parameter(torch.empty(c2, c2))
         if num_classes > 1:
             self.bn = ConditionalBatchNorm(c2, num_classes)
@@ -117,14 +129,25 @@ class FourierUnit(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
+    def shard_(self, t: int, tp: int) -> None:
+        """Keep only out-channel slice ``t`` of ``tp`` of the mix (the
+        parameter object stays; its data becomes the slice)."""
+        with torch.no_grad():
+            self.mix_kernel.data = self.mix_kernel.data[:, out_columns(self.channels, t, tp)]
+        self.tp = tp
+
     def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.bn is not None:
             if y is None:
                 raise ValueError("a class-conditional FourierUnit needs labels")
             c, h, w = x.shape[1:]
-            _, m = _spectrum_plain(x, self.mix_kernel.to(x.dtype))
+            kernel = parallel.tp_gather_channels(self.mix_kernel) if self.tp > 1 else \
+                self.mix_kernel
+            _, m = _spectrum_plain(x, kernel.to(x.dtype))
             r = torch.relu(self.bn(m, y))
             return irfft2_ortho(r[:, :c], r[:, c:], (h, w))
+        if self.tp > 1:
+            return self._forward_slice(x)
         x, kernel = x.contiguous(), self.mix_kernel.to(x.dtype)
         if not self.training:
             return fourier_unit_eval(
@@ -135,6 +158,52 @@ class FourierUnit(nn.Module):
         update_running_(self.running_mean, bmean)
         update_running_(self.running_var, bvar)
         return y
+
+    def _forward_slice(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward on this tp peer's out-channel slice: y's slice from the
+        op, gathered over the tp group."""
+        x, kernel = parallel.tp_copy(x.contiguous()), self.mix_kernel.to(x.dtype)
+        scale, bias = (parallel.tp_split_channels(v) for v in (self.bn_scale, self.bn_bias))
+        if not self.training:
+            mean, var = (parallel.tp_split_channels(v) for v in (self.running_mean,
+                                                                 self.running_var))
+            return parallel.tp_gather(fourier_unit_eval(x, kernel, scale, bias, mean, var), 1)
+        y, bmean, bvar = fourier_unit_train(x, kernel, scale, bias)
+        bmean, bvar = parallel.tp_gather_channels(torch.stack([bmean, bvar]))
+        update_running_(self.running_mean, bmean)
+        update_running_(self.running_var, bvar)
+        return parallel.tp_gather(y, 1)
+
+
+def shard_fourier_units_(model: nn.Module, t: int, tp: int) -> list:
+    """Slice every FourierUnit of ``model`` whose channels T divides to its
+    out-channel slice ``t`` of ``tp`` (the others stay whole, as the JAX
+    package shards a mix only where T divides it); returns the sliced units'
+    names. A no-op at T = 1."""
+    names = []
+    for name, m in model.named_modules():
+        if tp > 1 and isinstance(m, FourierUnit) and m.channels % tp == 0:
+            m.shard_(t, tp)
+            names.append(name)
+    return names
+
+
+@contextlib.contextmanager
+def whole_fourier_units(model: nn.Module):
+    """Within the block every sliced FourierUnit of ``model`` holds its whole
+    mix, gathered over the tp group, and runs as without T (no gradient):
+    eval forwards (``GANTrainer.generate``) compute the unsharded
+    function. The slices come back at the end."""
+    units = [m for m in model.modules() if isinstance(m, FourierUnit) and m.tp > 1]
+    slices = [(m.mix_kernel.data, m.tp) for m in units]
+    try:
+        with torch.no_grad():
+            for m in units:
+                m.mix_kernel.data, m.tp = parallel.tp_gather_channels(m.mix_kernel.data), 1
+        yield model
+    finally:
+        for m, (piece, tp) in zip(units, slices):
+            m.mix_kernel.data, m.tp = piece, tp
 
 
 class SpectralTransform(nn.Module):

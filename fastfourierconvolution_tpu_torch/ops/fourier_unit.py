@@ -83,6 +83,18 @@ sums (``parallel.param_share``). The plain versions sum over the processes
 in PyTorch (``parallel.batch_moments``), differentiably, so the double
 backward's recomputed statistics are global too.
 
+Tensor parallelism: out-channel slices. Every plain version, wrapper and
+kernel also takes a mix of fewer out-channels than in: kernel (2C, 2Co),
+Co dividing C (the slice :func:`out_columns` of T = C/Co), (2Co,) vectors
+and statistics, y and gy (B, Co, H, W); gx is then the slice's part of
+the gradient (the mix's transpose sums over the slice's channels), which
+the T slices add up to. With Co = C each is the whole FourierUnit's, bit
+for bit and launch for launch. :func:`kernel_design` and
+:func:`item_design` decide on the slice's plans, and a sliced launch is
+counted under (C, H, W, Co). The staged mix stages take Co of C, C/2 or
+C/4, the clustered kernels clusters whose ranks divide C and Co, the
+workspace kernels any slice; on CUDA a slice never runs a plain version.
+
 Layout: x, y, gy and gx are (B, C, H, W); kernel (2C, 2C) in x's dtype,
 [re; im] on both axes; scale, bias and the statistics are (2C,) f32.
 """
@@ -133,13 +145,13 @@ def _spectrum_plain(x, kernel):
 
 def fourier_unit_forward_plain(x, kernel, scale, bias, mean, var):
     """Plain PyTorch FourierUnit forward with the given statistics; returns
-    y like x."""
-    c = x.shape[1]
+    y (B, Co, H, W) in x's dtype, Co the kernel's out-channels."""
+    co = kernel.shape[1] // 2
     h, w = x.shape[2], x.shape[3]
     _, m = _spectrum_plain(x, kernel)
     pre = (_f32(m) - _col(mean)) * torch.rsqrt(_col(var) + EPS) * _col(scale) + _col(bias)
     r = torch.relu(pre).to(x.dtype)
-    return irfft2_ortho(r[:, :c], r[:, c:], (h, w))
+    return irfft2_ortho(r[:, :co], r[:, co:], (h, w))
 
 
 def fu_train_stats_plain(x, kernel):
@@ -185,7 +197,8 @@ def _coupled_bn_cotangent(gn, n_hat, inv, scale, gscale, gbias):
 
 
 def fu_bwd_apply_plain(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias, train=True):
-    """(gx like x, gK (2C, 2C) f32). In train mode gm is the coupled-BN
+    """(gx like x, gK (2C, 2Co) f32); on an out-channel slice gx is the
+    slice's part, summed over the slices to the whole. In train mode gm is the coupled-BN
     cotangent (``_coupled_bn_cotangent``); in eval gm = gn·inv."""
     c, h, w = x.shape[1:]
     z, n_hat, inv, gpre = _bwd_recompute_plain(x, kernel, scale, bias, bmean, bvar, gy)
@@ -295,6 +308,19 @@ def fu_reduce_plain(partial, count=0):
     return torch.cat([mean, s2 / count - mean * mean])
 
 
+def out_columns(c: int, t: int, tp: int) -> torch.Tensor:
+    """The 2Co columns of a (2C, 2C) mix (and entries of a (2C,) vector)
+    that out-channel slice ``t`` of ``tp`` owns, Co = C/tp: the real parts
+    of the channels [t·Co, (t+1)·Co), then their imaginary parts, so the
+    slice is itself [re; im] and the inverse transform has both. With tp =
+    1 every column in order."""
+    if tp < 1 or c % tp or not 0 <= t < tp:
+        raise ValueError(f"no slice {t} of {tp} of {c} channels")
+    co = c // tp
+    lo = torch.arange(t * co, (t + 1) * co)
+    return torch.cat([lo, lo + c])
+
+
 def relu_margin_bias(x, kernel, scale, bias, mean, var):
     """``bias`` moved so that no pre-activation of the ReLU lies near 0 on
     these inputs: per channel, the values of pre within 0.05 of 0 are
@@ -307,7 +333,7 @@ def relu_margin_bias(x, kernel, scale, bias, mean, var):
     _, m = _spectrum_plain(x.double(), kernel.double())
     isc = torch.rsqrt(var.double() + EPS) * scale.double()
     pre = (m - _col(mean.double())) * _col(isc) + _col(bias.double())
-    pre = pre.transpose(0, 1).reshape(2 * x.shape[1], -1).sort(dim=1).values
+    pre = pre.transpose(0, 1).reshape(kernel.shape[1], -1).sort(dim=1).values
     mids = (pre[:, 1:] + pre[:, :-1]) / 2
     gaps = torch.where(mids.abs() < 0.05, pre[:, 1:] - pre[:, :-1], 0.0)
     best = gaps.argmax(dim=1, keepdim=True)
@@ -319,25 +345,31 @@ def relu_margin_bias(x, kernel, scale, bias, mean, var):
 
 
 def _check_args(x, kernel, **vectors):
+    """x (B, C, H, W); kernel (2C, 2Co) in x's dtype, Co dividing C (Co < C:
+    an out-channel slice, :func:`out_columns`); gy (B, Co, H, W) like x;
+    the vectors (2Co,) f32."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, C, H, W), got shape {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    c2 = 2 * x.shape[1]
-    if kernel.shape != (c2, c2) or kernel.dtype != x.dtype:
+    c = x.shape[1]
+    c2, co2 = 2 * c, kernel.shape[-1]
+    if (kernel.dim() != 2 or kernel.shape[0] != c2 or co2 % 2 or co2 == 0 or c % (co2 // 2)
+            or kernel.dtype != x.dtype):
         raise ValueError(
-            f"kernel must be ({c2}, {c2}) {x.dtype}, got "
+            f"kernel must be ({c2}, 2Co) {x.dtype} with Co dividing {c}, got "
             f"{tuple(kernel.shape)} {kernel.dtype}"
         )
     for name, t in vectors.items():
         if name == "gy":
-            if t.shape != x.shape or t.dtype != x.dtype:
+            want = (x.shape[0], co2 // 2, *x.shape[2:])
+            if t.shape != want or t.dtype != x.dtype:
                 raise ValueError(
-                    f"gy must be {tuple(x.shape)} {x.dtype}, got {tuple(t.shape)} {t.dtype}"
+                    f"gy must be {want} {x.dtype}, got {tuple(t.shape)} {t.dtype}"
                 )
-        elif t.shape != (c2,) or t.dtype != torch.float32:
+        elif t.shape != (co2,) or t.dtype != torch.float32:
             raise ValueError(
-                f"{name} must be ({c2},) float32, got {tuple(t.shape)} {t.dtype}"
+                f"{name} must be ({co2},) float32, got {tuple(t.shape)} {t.dtype}"
             )
     if any(t.device != x.device for t in (kernel, *vectors.values())):
         raise ValueError("all FourierUnit operands must be on one device")
@@ -363,33 +395,35 @@ def _check_args(x, kernel, **vectors):
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD, _TRAIN, _STAGED = "fourier_unit_fwd", "fourier_unit_train", "fourier_unit_staged"
+# Every FourierUnit entry point takes (B, C, Co, H, W): Co the out-channels of
+# the mix, C at a whole FourierUnit, C/tp on an out-channel slice.
 _ENTRY_POINTS = {
     _FWD: {
-        "ffc_fourier_unit_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "ffc_fu_item_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "ffc_fourier_unit_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "ffc_fu_item_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     _TRAIN: {
-        "ffc_fu_train_stats": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ffc_fu_train_stats": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "ffc_fu_bwd_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _P],
-        "ffc_fu_item_train_stats": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _P],
+        "ffc_fu_item_train_stats": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "ffc_fu_item_bwd_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _P],
+                                  _I, _I, _I, _I, _I, _I, _P],
         "ffc_fu_bwd_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _LL, _P],
+                             _I, _I, _I, _I, _I, _LL, _P],
         "ffc_fu_item_bwd_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _LL, _P],
+                                  _I, _I, _I, _I, _I, _I, _LL, _P],
         "ffc_fu_reduce": [_P, _I, _I, _LL, _I, _I, _P, _P],
     },
     _STAGED: {
         "ffc_fu_spectrum": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "ffc_fu_inverse": [_I, _P, _P, _I, _I, _I, _I, _P],
-        "ffc_fu_mix_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "ffc_fu_bwd_mix": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _LL, _P],
-        "ffc_fu_mix_stats": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "ffc_fu_mix_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "ffc_fu_bwd_mix": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _LL, _P],
+        "ffc_fu_mix_stats": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "ffc_fu_bwd_stats_mix": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _P],
+                                 _I, _I, _I, _I, _I, _I, _P],
     },
 }
 # The export of each clustered kernel's per-rank plan, by library and by
@@ -413,11 +447,13 @@ def _library(stem: str) -> ctypes.CDLL:
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = _I
     if stem in (_FWD, _TRAIN):
-        lib.ffc_item_floats.argtypes = [_I, _I, _I]
-        lib.ffc_item_floats.restype = _LL
-        for name in _RANK_FLOATS[stem].values():
-            getattr(lib, name).argtypes = [_I, _I, _I, _I]
-            getattr(lib, name).restype = _LL
+        # the plans of a whole FourierUnit (C, H, W[, R]), and their "_co"
+        # forms of an out-channel slice (C, Co, H, W[, R])
+        for name in ("ffc_item_floats", *_RANK_FLOATS[stem].values()):
+            getattr(lib, name).argtypes = [_I] * (3 if name == "ffc_item_floats" else 4)
+            getattr(lib, name + "_co").argtypes = [_I] * (4 if name == "ffc_item_floats" else 5)
+            for f in (name, name + "_co"):
+                getattr(lib, f).restype = _LL
     return lib
 
 
@@ -454,49 +490,56 @@ _DESIGN_STEMS = {"forward": _FWD, "bwd_apply": _TRAIN, "stats": _TRAIN}
 _TILE, _MIX_BLOCKS = 64, 512
 
 
-def _item_floats(stem: str, c: int, h: int, w: int) -> int:
+def _item_floats(stem: str, c: int, h: int, w: int, co: int = 0) -> int:
     """Floats of one item's buffers in a workspace kernel of ``stem``: the
     ``Plan`` of csrc/fourier_unit_fwd.cu or csrc/fourier_unit_train.cu,
-    which :func:`kernel_design` holds against a block's shared memory."""
+    which :func:`kernel_design` holds against a block's shared memory. ``co``:
+    the mix's out-channels (0: C); the buffers keep C channels' room, K is
+    (2C, 2Co) and the vectors (2Co,)."""
     wf = w // 2 + 1
-    n_spec, n_map, c2 = c * h * wf, c * h * w, 2 * c
+    n_spec, n_map, c2, co2 = c * h * wf, c * h * w, 2 * c, 2 * (co or c)
     pair_or_map = max(n_map, 2 * n_spec)
     tables = 2 * w * wf + 2 * h * h
     if stem == _FWD:  # two buffers, tables, K, mean/inv/scale/bias, c
-        return 2 * n_spec + pair_or_map + tables + c2 * c2 + 4 * c2 + wf
-    # three buffers, tables, K, six (2C,) vectors, c
-    return 4 * n_spec + pair_or_map + tables + c2 * c2 + 6 * c2 + wf
+        return 2 * n_spec + pair_or_map + tables + c2 * co2 + 4 * co2 + wf
+    # three buffers, tables, K, six (2Co,) vectors, c
+    return 4 * n_spec + pair_or_map + tables + c2 * co2 + 6 * co2 + wf
 
 
-def _staged_smem(c: int, h: int, w: int) -> int:
+# The staged mix stages' out-widths: 2C / T for T of 1, 2 and 4.
+_STAGED_SLICES = (1, 2, 4)
+
+
+def _staged_smem(c: int, h: int, w: int, co: int = 0) -> int:
     """Bytes of shared memory the largest staged kernel of the map takes:
     one plane's H x Wf complex values with its twiddles, or the backward
-    mix stage's K, two tiles and six (2C,) vectors
-    (csrc/fourier_unit_staged.cu)."""
-    c2 = 2 * c
+    mix stage's K (2C rows of 2Co + 1), its z and G tiles (2C and 2Co rows)
+    and six (2Co,) vectors (csrc/fourier_unit_staged.cu)."""
+    c2, co2 = 2 * c, 2 * (co or c)
     plane = (h * (w // 2 + 1) + w // 2 + h // 2) * 8
-    mix = (c2 * (c2 + 1) + 2 * c2 * (_TILE + 1) + 6 * c2) * 4
+    mix = (c2 * (co2 + 1) + (c2 + co2) * (_TILE + 1) + 6 * co2) * 4
     return max(plane, mix)
 
 
 @functools.cache
-def kernel_design(wrapper: str, c: int, h: int, w: int, smem_limit: int) -> str:
+def kernel_design(wrapper: str, c: int, h: int, w: int, smem_limit: int, co: int = 0) -> str:
     """How ``wrapper`` ("forward" for :func:`fourier_unit_forward`,
     "bwd_apply" for :func:`fu_bwd_apply`, "stats" for :func:`fu_train_stats`,
-    :func:`fu_bwd_stats` and the training op) runs the map (C, H, W) on a
-    card whose blocks may take ``smem_limit`` bytes of shared memory; a
-    fixed rule, not a knob:
+    :func:`fu_bwd_stats` and the training op) runs the map (C, H, W), mixed
+    into ``co`` out-channels (0: C; fewer on an out-channel slice, decided
+    on the slice's plans), on a card whose blocks may take ``smem_limit``
+    bytes of shared memory; a fixed rule, not a knob:
 
     - ``SHARED``: the wrapper's clustered per-item kernel, its item's
       buffers in shared memory, wherever the workspace kernel's plan
       (``_item_floats``) fits the limit (:func:`item_design` then picks
       ranks whose plans fit);
     - ``STAGED``: else the staged kernels, wherever they take the map: H and
-      W powers of two (at least 4), 2C one of 16, 32, 64, 128, and their
-      shared memory (``_staged_smem``) within the limit;
+      W powers of two (at least 4), 2C one of 16, 32, 64, 128, C/Co one of
+      1, 2, 4, and their shared memory (``_staged_smem``) within the limit;
     - ``SHARED``: else the clustered kernel wherever one rank's plan
       (``_item_rank_floats``) fits the limit on some cluster of
-      ``_ITEM_RANKS`` ranks that divides C, for every kernel the wrapper's
+      ``_ITEM_RANKS`` ranks that divides C and Co, for every kernel the wrapper's
       design covers: the forward's own plan, or the backward apply's and
       the statistics' together;
     - ``WORKSPACE``: else the per-item workspace kernel, the item's
@@ -510,13 +553,16 @@ def kernel_design(wrapper: str, c: int, h: int, w: int, smem_limit: int) -> str:
     generator's (8, 48, 48), whose one-block plan of the backward exceeds
     the limit, is ``SHARED`` on clusters of 2 ranks or more; (8, 96, 96)
     and (32, 256, 256) are ``WORKSPACE``."""
-    if _item_floats(_DESIGN_STEMS[wrapper], c, h, w) * 4 <= smem_limit:
+    co = co or c
+    if _item_floats(_DESIGN_STEMS[wrapper], c, h, w, co) * 4 <= smem_limit:
         return SHARED
     pow2 = lambda v: v >= 4 and v & (v - 1) == 0
-    if pow2(h) and pow2(w) and 2 * c in (16, 32, 64, 128) and _staged_smem(c, h, w) <= smem_limit:
+    if (pow2(h) and pow2(w) and 2 * c in (16, 32, 64, 128) and c // co in _STAGED_SLICES
+            and _staged_smem(c, h, w, co) <= smem_limit):
         return STAGED
     plans = ("forward",) if wrapper == "forward" else ("bwd_apply", "stats")
-    if any(c % r == 0 and all(_item_rank_floats(k, c, h, w, r) * 4 <= smem_limit for k in plans)
+    if any(c % r == 0 and co % r == 0
+           and all(_item_rank_floats(k, c, h, w, r, co) * 4 <= smem_limit for k in plans)
            for r in _ITEM_RANKS):
         return SHARED
     return WORKSPACE
@@ -526,29 +572,33 @@ def _round4(n: int) -> int:
     return (n + 3) & ~3
 
 
-def _item_rank_floats(kernel: str, c: int, h: int, w: int, ranks: int) -> int:
+def _item_rank_floats(kernel: str, c: int, h: int, w: int, ranks: int, co: int = 0) -> int:
     """Floats of shared memory one rank of a clustered per-item kernel takes
-    on a cluster of ``ranks``: ``kernel`` "forward" (``ItemPlan`` of
+    on a cluster of ``ranks``, mixing into ``co`` out-channels (0: C):
+    ``kernel`` "forward" (``ItemPlan`` of
     csrc/fourier_unit_fwd.cu), "bwd_apply", "train_stats" or "bwd_stats"
     (``ItemPlan``, ``TrainStatsPlan``, ``BwdStatsPlan`` of
     csrc/fourier_unit_train.cu; 16-byte aligned regions), or "stats", the
     larger of the statistics' two. Per rank: two (forward, statistics) or
     three spectrum-pair buffers of its C/R channels, on more than one rank
-    the item's whole spectrum gathered from the ranks, the tables, one or
-    two (2C, 2C/R) slices of K and, in all but the statistics, four
-    (forward, backward sums) or six (backward apply) (2C/R,) vectors and
-    the half-spectrum weights."""
+    the item's whole spectrum gathered from the ranks, the tables, the
+    (2C, 2Co/R) columns of K (the backward apply also its (2C/R, 2Co)
+    rows) and, in all but the statistics, four (forward, backward sums) or
+    six (backward apply) (2Co/R,) vectors and the half-spectrum weights.
+    The buffers keep the C/R input channels' room whatever Co."""
     if kernel == "stats":
-        return max(_item_rank_floats(k, c, h, w, ranks) for k in ("train_stats", "bwd_stats"))
+        return max(_item_rank_floats(k, c, h, w, ranks, co)
+                   for k in ("train_stats", "bwd_stats"))
+    co = co or c
     wf = w // 2 + 1
-    cr = c // ranks
+    cr, cor = c // ranks, co // ranks
     buf = _round4(2 * cr * h * wf)
     shared = (_round4(2 * c * h * wf) if ranks > 1 else 0) + _round4(2 * w * wf + 2 * h * h)
-    kslice = _round4(4 * c * cr)
-    buffers, kslices, vectors = {"forward": (2, 1, 4), "train_stats": (2, 1, 0),
-                                 "bwd_stats": (3, 1, 4), "bwd_apply": (3, 2, 6)}[kernel]
-    return (buffers * buf + shared + kslices * kslice
-            + (_round4(2 * vectors * cr) + wf if vectors else 0))
+    buffers, vectors = {"forward": (2, 4), "train_stats": (2, 0),
+                        "bwd_stats": (3, 4), "bwd_apply": (3, 6)}[kernel]
+    kslices = _round4(4 * c * cor) + (_round4(4 * cr * co) if kernel == "bwd_apply" else 0)
+    return (buffers * buf + shared + kslices
+            + (_round4(2 * vectors * cor) + wf if vectors else 0))
 
 
 # The cluster sizes of the clustered per-item kernels.
@@ -556,10 +606,11 @@ _ITEM_RANKS = (1, 2, 4, 8)
 
 
 @functools.cache
-def item_design(b: int, c: int, h: int, w: int, smem_limit: int) -> int:
+def item_design(b: int, c: int, h: int, w: int, smem_limit: int, co: int = 0) -> int:
     """Ranks R of the thread-block cluster on which the clustered per-item
-    kernels run each item of a (B, C, H, W) map; a fixed
-    rule, not a knob. R is one of 1, 2, 4, 8 and divides C, and each rank's
+    kernels run each item of a (B, C, H, W) map mixed into ``co``
+    out-channels (0: C); a fixed
+    rule, not a knob. R is one of 1, 2, 4, 8 and divides C and Co, and each rank's
     plan (``_item_rank_floats``) of every kernel that :func:`kernel_design`
     sends to ``SHARED`` at this map fits ``smem_limit``; of those, the most
     ranks whose B·R blocks make one wave of one block per SM of an H100
@@ -570,14 +621,15 @@ def item_design(b: int, c: int, h: int, w: int, smem_limit: int) -> int:
     alone, one rank does not fit, so R is at least 2: (64, 8, 48, 48)
     takes 2 (128 blocks, 221,348 B a rank of the backward apply), batch 1
     and 7 take 8. Raises where no R fits."""
+    co = co or c
     kernels = [k for k in ("forward", "bwd_apply", "stats")
-               if kernel_design(k, c, h, w, smem_limit) == SHARED]
+               if kernel_design(k, c, h, w, smem_limit, co) == SHARED]
     fits = [r for r in _ITEM_RANKS
-            if c % r == 0 and all(_item_rank_floats(k, c, h, w, r) * 4 <= smem_limit
-                                  for k in kernels)]
+            if c % r == 0 and co % r == 0
+            and all(_item_rank_floats(k, c, h, w, r, co) * 4 <= smem_limit for k in kernels)]
     if not fits:
-        raise ValueError(f"no cluster of 1-8 ranks fits the map ({c}, {h}, {w}) in "
-                         f"{smem_limit} bytes of shared memory per rank")
+        raise ValueError(f"no cluster of 1-8 ranks fits the map ({c}, {h}, {w}) mixed into "
+                         f"{co} channels in {smem_limit} bytes of shared memory per rank")
     return max((r for r in fits if b * r <= _SMS), default=fits[0])
 
 
@@ -625,9 +677,22 @@ def reduce_design(rows: int, cols: int, moments: bool, aligned: bool = True):
     return vec, cluster
 
 
-def _design(wrapper: str, x: torch.Tensor) -> str:
+def _out_channels(kernel: torch.Tensor) -> int:
+    return kernel.shape[1] // 2
+
+
+def _map_key(c: int, h: int, w: int, co: int):
+    """A wrapper's key in ``launches_by_map``: (C, H, W), and (C, H, W, Co)
+    on an out-channel slice."""
+    return (c, h, w) if co == c else (c, h, w, co)
+
+
+def _design(wrapper: str, x: torch.Tensor, kernel: torch.Tensor = None) -> str:
+    """:func:`kernel_design` of x's map on its device, mixed by ``kernel``
+    (a whole FourierUnit's without one)."""
     limit = _smem_limit(_DESIGN_STEMS[wrapper], x.device.index, _DTYPE_CODES[x.dtype])
-    return kernel_design(wrapper, *x.shape[1:], limit)
+    return kernel_design(wrapper, *x.shape[1:], limit,
+                         x.shape[1] if kernel is None else _out_channels(kernel))
 
 
 def _contiguous(*tensors) -> None:
@@ -635,11 +700,12 @@ def _contiguous(*tensors) -> None:
         raise ValueError("the FourierUnit kernels take contiguous tensors")
 
 
-def _item_launch(stem: str, x: torch.Tensor):
-    """(ranks, tables) of a clustered per-item kernel's launch on x's map."""
+def _item_launch(stem: str, x: torch.Tensor, co: int):
+    """(ranks, tables) of a clustered per-item kernel's launch on x's map
+    mixed into ``co`` out-channels."""
     b, c, h, w = x.shape
     limit = _smem_limit(stem, x.device.index, _DTYPE_CODES[x.dtype])
-    return item_design(b, c, h, w, limit), _item_tables(h, w, x.device.index)
+    return item_design(b, c, h, w, limit, co), _item_tables(h, w, x.device.index)
 
 
 def _global_count(b: int, h: int, w: int) -> int:
@@ -648,10 +714,10 @@ def _global_count(b: int, h: int, w: int) -> int:
     return parallel.global_count(b) * h * (w // 2 + 1)
 
 
-def _workspace(stem: str, x: torch.Tensor) -> torch.Tensor:
+def _workspace(stem: str, x: torch.Tensor, co: int) -> torch.Tensor:
     """A workspace kernel's f32 workspace, B items of the plan's floats, from
     PyTorch's allocator, which raises if it cannot be had."""
-    return torch.empty(x.shape[0] * _item_floats(stem, *x.shape[1:]), device=x.device)
+    return torch.empty(x.shape[0] * _item_floats(stem, *x.shape[1:], co), device=x.device)
 
 
 def _ptr(t):
@@ -682,24 +748,26 @@ def fourier_unit_forward(x, kernel, scale, bias, mean, var):
     if x.device.type == "cpu":
         return fourier_unit_forward_plain(x, kernel, scale, bias, mean, var)
     b, c, h, w = x.shape
+    co = _out_channels(kernel)
+    y = x.new_empty(b, co, h, w)
     if b == 0:
-        return torch.empty_like(x)
-    design = _design("forward", x)
+        return y
+    design = _design("forward", x, kernel)
     if design == STAGED:
         z = fu_spectrum(x)[0]
         return fu_inverse(fu_mix_apply(z, kernel, scale, bias, mean, var), x.dtype, w)
     _contiguous(x, kernel, scale, bias, mean, var)
-    y = torch.empty_like(x)
     vectors = (scale.data_ptr(), bias.data_ptr(), mean.data_ptr(), var.data_ptr())
     if design == SHARED:
-        ranks, tables = _item_launch(_FWD, x)
+        ranks, tables = _item_launch(_FWD, x, co)
         _launch(_FWD, "ffc_fu_item_fwd", x, _DTYPE_CODES[x.dtype], x.data_ptr(),
-                kernel.data_ptr(), tables.data_ptr(), *vectors, y.data_ptr(), b, c, h, w, ranks)
+                kernel.data_ptr(), tables.data_ptr(), *vectors, y.data_ptr(), b, c, co, h, w,
+                ranks)
     else:
-        ws = _workspace(_FWD, x)
+        ws = _workspace(_FWD, x, co)
         _launch(_FWD, "ffc_fourier_unit_fwd", x, _DTYPE_CODES[x.dtype], x.data_ptr(),
-                kernel.data_ptr(), *vectors, y.data_ptr(), ws.data_ptr(), b, c, h, w)
-    _count(fourier_unit_forward, (c, h, w))
+                kernel.data_ptr(), *vectors, y.data_ptr(), ws.data_ptr(), b, c, co, h, w)
+    _count(fourier_unit_forward, _map_key(c, h, w, co))
     return y
 
 
@@ -728,7 +796,7 @@ def _fourier_unit_op_cpu(x, kernel, scale, bias, mean, var):
 
 @fourier_unit_op.register_fake
 def _fourier_unit_op_fake(x, kernel, scale, bias, mean, var):
-    return torch.empty_like(x)
+    return x.new_empty(x.shape[0], _out_channels(kernel), *x.shape[2:])
 
 
 @_counted
@@ -781,23 +849,24 @@ def fu_train_stats(x, kernel):
     _check_args(x, kernel)
     if x.device.type == "cpu":
         return fu_train_stats_plain(x, kernel)
-    design = _design("stats", x)
+    design = _design("stats", x, kernel)
     if design == STAGED:
         return fu_mix_stats(fu_spectrum(x)[0], kernel)
     _contiguous(x, kernel)
     b, c, h, w = x.shape
-    partial = torch.empty(b, 4 * c, device=x.device)
+    co = _out_channels(kernel)
+    partial = torch.empty(b, 4 * co, device=x.device)
     operands = (_DTYPE_CODES[x.dtype], x.data_ptr(), kernel.data_ptr())
     if design == SHARED:
-        ranks, tables = _item_launch(_TRAIN, x)
+        ranks, tables = _item_launch(_TRAIN, x, co)
         _launch(_TRAIN, "ffc_fu_item_train_stats", x, *operands, tables.data_ptr(),
-                partial.data_ptr(), b, c, h, w, ranks)
+                partial.data_ptr(), b, c, co, h, w, ranks)
     else:
-        ws = _workspace(_TRAIN, x)
+        ws = _workspace(_TRAIN, x, co)
         _launch(_TRAIN, "ffc_fu_train_stats", x, *operands, partial.data_ptr(), ws.data_ptr(),
-                b, c, h, w)
-    _count(fu_train_stats, (c, h, w))
-    return _reduce(parallel.all_gather_rows(partial), _global_count(b, h, w)).split(2 * c)
+                b, c, co, h, w)
+    _count(fu_train_stats, _map_key(c, h, w, co))
+    return _reduce(parallel.all_gather_rows(partial), _global_count(b, h, w)).split(2 * co)
 
 
 @_counted
@@ -810,30 +879,33 @@ def fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy):
     _check_args(x, kernel, scale=scale, bias=bias, bmean=bmean, bvar=bvar, gy=gy)
     if x.device.type == "cpu":
         return fu_bwd_stats_plain(x, kernel, scale, bias, bmean, bvar, gy)
-    design = _design("stats", x)
+    design = _design("stats", x, kernel)
     if design == STAGED:
-        z, g = fu_spectrum(x, gy)
+        z, g = _spectra(x, gy)
         return fu_bwd_stats_mix(z, g, kernel, scale, bias, bmean, bvar)
     _contiguous(x, kernel, scale, bias, bmean, bvar, gy)
     b, c, h, w = x.shape
-    partial = torch.empty(b, 4 * c, device=x.device)
+    co = _out_channels(kernel)
+    partial = torch.empty(b, 4 * co, device=x.device)
     operands = (_DTYPE_CODES[x.dtype], x.data_ptr(), gy.data_ptr(), kernel.data_ptr())
     vectors = (scale.data_ptr(), bias.data_ptr(), bmean.data_ptr(), bvar.data_ptr())
     if design == SHARED:
-        ranks, tables = _item_launch(_TRAIN, x)
+        ranks, tables = _item_launch(_TRAIN, x, co)
         _launch(_TRAIN, "ffc_fu_item_bwd_stats", x, *operands, tables.data_ptr(), *vectors,
-                partial.data_ptr(), b, c, h, w, ranks)
+                partial.data_ptr(), b, c, co, h, w, ranks)
     else:
-        ws = _workspace(_TRAIN, x)
+        ws = _workspace(_TRAIN, x, co)
         _launch(_TRAIN, "ffc_fu_bwd_stats", x, *operands, *vectors, partial.data_ptr(),
-                ws.data_ptr(), b, c, h, w)
-    _count(fu_bwd_stats, (c, h, w))
-    return _reduce(parallel.all_gather_rows(partial)).split(2 * c)
+                ws.data_ptr(), b, c, co, h, w)
+    _count(fu_bwd_stats, _map_key(c, h, w, co))
+    return _reduce(parallel.all_gather_rows(partial)).split(2 * co)
 
 
 @_counted
 def fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias):
-    """(gx like x, gK (2C, 2C) f32) of the train-mode backward; on CUDA the
+    """(gx like x, gK (2C, 2Co) f32) of the train-mode backward (on an
+    out-channel slice gx is the slice's part, see
+    :func:`fu_bwd_apply_plain`); on CUDA the
     clustered per-item kernel (:func:`item_design` ranks per item), the
     staged kernels or the workspace kernel, as :func:`kernel_design` picks,
     with ``fu_reduce``; on the CPU the plain version."""
@@ -841,52 +913,57 @@ def fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias):
                 gscale=gscale, gbias=gbias)
     if x.device.type == "cpu":
         return fu_bwd_apply_plain(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias)
-    design = _design("bwd_apply", x)
+    design = _design("bwd_apply", x, kernel)
     if design == STAGED:
-        z, g = fu_spectrum(x, gy)
+        z, g = _spectra(x, gy)
         gz, gk = fu_bwd_mix(z, g, kernel, scale, bias, bmean, bvar, gscale, gbias)
         return fu_inverse(gz, x.dtype, x.shape[3]), gk
     _contiguous(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias)
     b, c, h, w = x.shape
+    co = _out_channels(kernel)
     count = _global_count(b, h, w)
     gx = torch.empty_like(x)
-    partial = torch.empty(b, 4 * c * c, device=x.device)
+    partial = torch.empty(b, 4 * c * co, device=x.device)
     operands = (x.data_ptr(), gy.data_ptr(), kernel.data_ptr())
     vectors = (scale.data_ptr(), bias.data_ptr(), bmean.data_ptr(), bvar.data_ptr(),
                gscale.data_ptr(), gbias.data_ptr())
     if design == SHARED:
-        ranks, tables = _item_launch(_TRAIN, x)
+        ranks, tables = _item_launch(_TRAIN, x, co)
         _launch(_TRAIN, "ffc_fu_item_bwd_apply", x, _DTYPE_CODES[x.dtype], *operands,
-                tables.data_ptr(), *vectors, gx.data_ptr(), partial.data_ptr(), b, c, h, w,
+                tables.data_ptr(), *vectors, gx.data_ptr(), partial.data_ptr(), b, c, co, h, w,
                 ranks, count)
     else:
-        ws = _workspace(_TRAIN, x)
+        ws = _workspace(_TRAIN, x, co)
         _launch(_TRAIN, "ffc_fu_bwd_apply", x, _DTYPE_CODES[x.dtype], *operands, *vectors,
-                gx.data_ptr(), partial.data_ptr(), ws.data_ptr(), b, c, h, w, count)
-    _count(fu_bwd_apply, (c, h, w))
-    return gx, _reduce(partial).view(2 * c, 2 * c)
+                gx.data_ptr(), partial.data_ptr(), ws.data_ptr(), b, c, co, h, w, count)
+    _count(fu_bwd_apply, _map_key(c, h, w, co))
+    return gx, _reduce(partial).view(2 * c, 2 * co)
 
 
 # --- the staged kernels' wrappers -----------------------------------------------------
 
 
 def _check_stage(specs, kernel=None, **vectors):
-    """Checks a staged kernel's operands: (B, 2C, H, Wf) f32 spectra of one
-    shape, K (2C, 2C) f32 or bf16, (2C,) f32 vectors, all on one device and,
-    on CUDA, contiguous."""
+    """Checks a staged kernel's operands: (B, 2C, H, Wf) f32 spectra z (and
+    G (B, 2Co, H, Wf), the spectrum of the mix's output side), K (2C, 2Co)
+    f32 or bf16 (Co = C, or C/2 or C/4 on an out-channel slice), (2Co,) f32
+    vectors, all on one device and, on CUDA, contiguous."""
     z = specs[0]
     if z.dim() != 4 or z.shape[1] % 2 or z.dtype != torch.float32:
         raise ValueError(f"a spectrum must be (B, 2C, H, Wf) float32, got "
                          f"{tuple(z.shape)} {z.dtype}")
-    if any(s.shape != z.shape or s.dtype != z.dtype for s in specs):
-        raise ValueError("the spectra must share one shape and dtype")
     c2 = z.shape[1]
-    if kernel is not None and (kernel.shape != (c2, c2) or kernel.dtype not in _DTYPE_CODES):
-        raise ValueError(f"kernel must be ({c2}, {c2}) float32 or bfloat16, got "
-                         f"{tuple(kernel.shape)} {kernel.dtype}")
+    co2 = c2 if kernel is None else kernel.shape[-1]
+    if kernel is not None and (kernel.dim() != 2 or kernel.shape[0] != c2 or co2 % 2
+                               or co2 == 0 or c2 % co2 or kernel.dtype not in _DTYPE_CODES):
+        raise ValueError(f"kernel must be ({c2}, 2Co) float32 or bfloat16 with Co dividing "
+                         f"{c2 // 2}, got {tuple(kernel.shape)} {kernel.dtype}")
+    if any(s.shape != (z.shape[0], co2, *z.shape[2:]) or s.dtype != z.dtype for s in specs[1:]):
+        raise ValueError("the spectra must share one shape and dtype (G with the kernel's 2Co "
+                         "channels)")
     for name, t in vectors.items():
-        if t.shape != (c2,) or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be ({c2},) float32, got {tuple(t.shape)} {t.dtype}")
+        if t.shape != (co2,) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be ({co2},) float32, got {tuple(t.shape)} {t.dtype}")
     tensors = [*specs, *([] if kernel is None else [kernel]), *vectors.values()]
     if any(t.device != z.device for t in tensors):
         raise ValueError("all FourierUnit operands must be on one device")
@@ -897,6 +974,13 @@ def _check_stage(specs, kernel=None, **vectors):
 def _spectrum_map(spec):
     """(C, H, W) of a (B, 2C, H, Wf) spectrum of an even W."""
     return spec.shape[1] // 2, spec.shape[2], 2 * (spec.shape[3] - 1)
+
+
+def _staged_map(z, kernel):
+    """(C, Co, H, W) of a staged mix stage's z (B, 2C, H, Wf) and K (2C,
+    2Co)."""
+    (c, h, w), co = _spectrum_map(z), _out_channels(kernel)
+    return c, co, h, w
 
 
 def _staged_launch(entry: str, on: torch.Tensor, dtype: torch.dtype, *args) -> None:
@@ -937,12 +1021,12 @@ def fu_mix_apply(z, kernel, scale, bias, mean, var):
     _check_stage([z], kernel, scale=scale, bias=bias, mean=mean, var=var)
     if z.device.type == "cpu":
         return fu_mix_apply_plain(z, kernel, scale, bias, mean, var)
-    (c, h, w), b = _spectrum_map(z), z.shape[0]
-    r = torch.empty_like(z)
+    (c, co, h, w), b = _staged_map(z, kernel), z.shape[0]
+    r = z.new_empty(b, 2 * co, *z.shape[2:])
     _staged_launch("ffc_fu_mix_apply", z, kernel.dtype, z.data_ptr(), kernel.data_ptr(),
                    scale.data_ptr(), bias.data_ptr(), mean.data_ptr(), var.data_ptr(),
-                   r.data_ptr(), b, c, h, w, staged_chunks(b, h, w))
-    _count(fu_mix_apply, (c, h, w))
+                   r.data_ptr(), b, c, co, h, w, staged_chunks(b, h, w))
+    _count(fu_mix_apply, _map_key(c, h, w, co))
     return r
 
 
@@ -954,13 +1038,13 @@ def fu_mix_stats(z, kernel):
     _check_stage([z], kernel)
     if z.device.type == "cpu":
         return fu_mix_stats_plain(z, kernel)
-    (c, h, w), b = _spectrum_map(z), z.shape[0]
+    (c, co, h, w), b = _staged_map(z, kernel), z.shape[0]
     chunks = staged_chunks(b, h, w)
-    partial = torch.empty(b * chunks, 4 * c, device=z.device)
+    partial = torch.empty(b * chunks, 4 * co, device=z.device)
     _staged_launch("ffc_fu_mix_stats", z, kernel.dtype, z.data_ptr(), kernel.data_ptr(),
-                   partial.data_ptr(), b, c, h, w, chunks)
-    _count(fu_mix_stats, (c, h, w))
-    return _reduce(parallel.all_gather_rows(partial), _global_count(b, h, w)).split(2 * c)
+                   partial.data_ptr(), b, c, co, h, w, chunks)
+    _count(fu_mix_stats, _map_key(c, h, w, co))
+    return _reduce(parallel.all_gather_rows(partial), _global_count(b, h, w)).split(2 * co)
 
 
 @_counted
@@ -971,14 +1055,14 @@ def fu_bwd_stats_mix(z, g, kernel, scale, bias, bmean, bvar):
     _check_stage([z, g], kernel, scale=scale, bias=bias, bmean=bmean, bvar=bvar)
     if z.device.type == "cpu":
         return fu_bwd_stats_mix_plain(z, g, kernel, scale, bias, bmean, bvar)
-    (c, h, w), b = _spectrum_map(z), z.shape[0]
+    (c, co, h, w), b = _staged_map(z, kernel), z.shape[0]
     chunks = staged_chunks(b, h, w)
-    partial = torch.empty(b * chunks, 4 * c, device=z.device)
+    partial = torch.empty(b * chunks, 4 * co, device=z.device)
     _staged_launch("ffc_fu_bwd_stats_mix", z, kernel.dtype, z.data_ptr(), g.data_ptr(),
                    kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(), bmean.data_ptr(),
-                   bvar.data_ptr(), partial.data_ptr(), b, c, h, w, chunks)
-    _count(fu_bwd_stats_mix, (c, h, w))
-    return _reduce(parallel.all_gather_rows(partial)).split(2 * c)
+                   bvar.data_ptr(), partial.data_ptr(), b, c, co, h, w, chunks)
+    _count(fu_bwd_stats_mix, _map_key(c, h, w, co))
+    return _reduce(parallel.all_gather_rows(partial)).split(2 * co)
 
 
 @_counted
@@ -1001,25 +1085,37 @@ def fu_inverse(spec, dtype, w):
 
 @_counted
 def fu_bwd_mix(z, g, kernel, scale, bias, bmean, bvar, gscale, gbias):
-    """(gz f32, gK (2C, 2C) f32) of the backward apply from z and G =
-    DFT(gy): the staged mix kernel, which writes gz over g, and
-    ``fu_reduce`` on CUDA; the plain version on the CPU."""
+    """(gz (B, 2C, H, Wf) f32, gK (2C, 2Co) f32) of the backward apply from
+    z and G = DFT(gy) (B, 2Co, H, Wf): the staged mix kernel, which writes
+    gz over g where the two have one shape (Co = C) and into a tensor of its
+    own on an out-channel slice, and ``fu_reduce`` on CUDA; the plain
+    version on the CPU."""
     _check_stage([z, g], kernel, scale=scale, bias=bias, bmean=bmean, bvar=bvar,
                  gscale=gscale, gbias=gbias)
     if z.device.type == "cpu":
         return fu_bwd_mix_plain(z, g, kernel, scale, bias, bmean, bvar, gscale, gbias)
-    (c, h, w), b = _spectrum_map(z), z.shape[0]
+    (c, co, h, w), b = _staged_map(z, kernel), z.shape[0]
     chunks = staged_chunks(b, h, w)
-    partial = torch.empty(b * chunks, 4 * c * c, device=z.device)
-    _staged_launch("ffc_fu_bwd_mix", z, kernel.dtype, z.data_ptr(), g.data_ptr(),
+    gz = g if co == c else torch.empty_like(z)
+    partial = torch.empty(b * chunks, 4 * c * co, device=z.device)
+    _staged_launch("ffc_fu_bwd_mix", z, kernel.dtype, z.data_ptr(), g.data_ptr(), gz.data_ptr(),
                    kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(), bmean.data_ptr(),
                    bvar.data_ptr(), gscale.data_ptr(), gbias.data_ptr(), partial.data_ptr(),
-                   b, c, h, w, chunks, _global_count(b, h, w))
-    _count(fu_bwd_mix, (c, h, w))
-    return g, _reduce(partial).view(2 * c, 2 * c)
+                   b, c, co, h, w, chunks, _global_count(b, h, w))
+    _count(fu_bwd_mix, _map_key(c, h, w, co))
+    return gz, _reduce(partial).view(2 * c, 2 * co)
 
 
 # --- the autograd Functions -----------------------------------------------------
+
+
+def _spectra(x, gy):
+    """(z, G): the spectra of x and gy, from one ``fu_spectrum`` launch where
+    the two maps have one shape, else (an out-channel slice's gy) from one
+    each."""
+    if gy.shape == x.shape:
+        return fu_spectrum(x, gy)
+    return fu_spectrum(x)[0], fu_spectrum(gy)[0]
 
 
 def _train_forward_staged(x, kernel, scale, bias):
@@ -1033,11 +1129,12 @@ def _train_forward_staged(x, kernel, scale, bias):
 
 def _train_backward_staged(x, kernel, scale, bias, bmean, bvar, gy, train=True):
     """The backward on the staged kernels, ``(gx, gK in kernel's dtype,
-    gscale, gbias)``: one launch transforms x and gy, and the backward sums
+    gscale, gbias)``: one launch transforms x and gy (two on an out-channel
+    slice), and the backward sums
     read G before ``fu_bwd_mix`` writes gz over it. In eval mode
     (``train`` False) the mix stage takes zero sums, which leaves gm =
     gn·inv."""
-    z, g = fu_spectrum(x, gy)
+    z, g = _spectra(x, gy)
     gscale, gbias = fu_bwd_stats_mix(z, g, kernel, scale, bias, bmean, bvar)
     sums = (gscale, gbias) if train else (torch.zeros_like(gscale),) * 2
     gz, gk = fu_bwd_mix(z, g, kernel, scale, bias, bmean, bvar, *sums)
@@ -1045,8 +1142,8 @@ def _train_backward_staged(x, kernel, scale, bias, bmean, bvar, gy, train=True):
             parallel.param_share(gscale), parallel.param_share(gbias))
 
 
-def _stats_staged(x) -> bool:
-    return x.device.type == "cuda" and _design("stats", x) == STAGED
+def _stats_staged(x, kernel) -> bool:
+    return x.device.type == "cuda" and _design("stats", x, kernel) == STAGED
 
 
 def _backward_kernels(x, kernel, scale, bias, bmean, bvar, gy, train):
@@ -1055,7 +1152,7 @@ def _backward_kernels(x, kernel, scale, bias, bmean, bvar, gy, train):
     the coupled-BN cotangent collapses to gm = gn·inv. Under a process
     group the apply takes the global batch's sums, and gscale and gbias are
     this process's share of them (``parallel.param_share``)."""
-    if _stats_staged(x):
+    if _stats_staged(x, kernel):
         return _train_backward_staged(x, kernel, scale, bias, bmean, bvar, gy, train)
     gscale, gbias = fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy)
     sums = (gscale, gbias) if train else (torch.zeros_like(gscale),) * 2
@@ -1096,7 +1193,7 @@ class _FourierUnitBackward(torch.autograd.Function):
 class _FourierUnitTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, kernel, scale, bias):
-        if _stats_staged(x):
+        if _stats_staged(x, kernel):
             y, bmean, bvar = _train_forward_staged(x, kernel, scale, bias)
         else:
             bmean, bvar = fu_train_stats(x, kernel)

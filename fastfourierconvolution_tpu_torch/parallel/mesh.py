@@ -1,5 +1,6 @@
-"""Data parallelism over ``torch.distributed``, the JAX package's
-``parallel/mesh.py`` and the multi-process launch of its ``cli.py``.
+"""Data and tensor parallelism over ``torch.distributed``, the JAX
+package's ``parallel/mesh.py`` and the multi-process launch of its
+``cli.py``.
 
 The JAX trainer runs data-parallel on a ("dp", "tp") device mesh: the
 batch is sharded over "dp", the parameters are replicated, XLA inserts the
@@ -38,17 +39,39 @@ processes computes what one process computes on the global batch.
   ``shard_full_batch``), :func:`broadcast_module_`.
 - ``collectives`` and ``collective_bytes`` count the tensor collectives
   and the bytes each process puts in, by kind ("gather", "sum" forward
-  and backward alike, "average"), as the kernel wrappers count their
-  launches.
+  and backward alike, "average"; under tp "tp_gather" and "tp_sum"), as
+  the kernel wrappers count their launches.
+
+Tensor parallelism (``initialize(..., tp=T)``, the JAX mesh's "tp" axis):
+N = D·T processes form a dp x tp grid laid out as JAX lays out its
+devices, rank d·T + t, so a tp group is T consecutive ranks (which must
+sit on one host) and a dp group the ranks with one t. Everything above
+(statistics, sums, counts, draws, averages, the batch's slices) runs over
+the dp group: tp peers hold the same rows. Each tp peer owns out-channel
+slice t of every FourierUnit mix whose channels T divides (JAX shards a
+mix's out-features only where T divides them; its slice is contiguous,
+this one takes the real and imaginary columns of the same channels, since
+the inverse transform needs both: ``ops.fourier_unit.out_columns``; the
+difference never leaves a process). The unit transforms all C input
+channels, mixes, normalises and inverts its Co = C/T, and the tp
+Functions below join the slices: y's channel slices gathered in rank
+order, x's partial gradients summed in rank order, the BN vectors'
+slices and gradients split and gathered. ``GANTrainer.state_dict``
+gathers the sliced mixes and their moments whole and ``load_state_dict``
+slices them again (JAX's ``replicate_tree`` and ``put_global_tree``), so
+a checkpoint is the same file at every T. The eval forward of
+``GANTrainer.generate`` (the in-loop eval, the sample grid) runs on the
+whole mixes, gathered over the tp group at the call by every process of
+the group, so the serving artifacts and ``sample``, ``export`` and
+``fidelity``, which read checkpoints, stay tp = 1 programs; it computes
+the function of JAX's sharded ``generate``.
 
 No counterpart: ``make_mesh``, ``batch_sharding``, ``replicated``,
-``put_global_batch``, ``put_global_tree``, ``replicate_tree``,
-``params_shardings`` and ``state_shardings``. Every process holds whole
-parameters (made from one seed, or broadcast from rank 0), and its batch
-is its slice already (``data.DataLoader`` shards at the source), so there
-is nothing to place or to gather back. The "tp" axis, which JAX uses to
-shard the FourierUnit mix kernels' out-features, needs a rectangular-mix
-FourierUnit kernel: ROADMAP queue 1 item 10b.
+``put_global_batch``, ``params_shardings`` and ``state_shardings``. Every
+process holds whole parameters but its mix slices (made from one seed, or
+broadcast from rank 0, before the slicing), and its batch is its slice
+already (``data.DataLoader`` shards at the source by dp index), so there
+is nothing to place.
 """
 
 from __future__ import annotations
@@ -69,12 +92,25 @@ ENV_DISTRIBUTED = "FFC_TPU_DISTRIBUTED"
 
 
 @dataclasses.dataclass
+class _Sub:
+    """A dp or tp group: this process's index in it, its size, its gloo
+    group for host tensors (None: the default group) and the group of the
+    tensors on the card (its NCCL group; under gloo the host group)."""
+    rank: int
+    size: int
+    host: Optional[object] = None
+    device: Optional[object] = None
+
+
+@dataclasses.dataclass
 class _Group:
     rank: int
     size: int
     device: torch.device
     backend: str  # of the tensors on the card: "nccl" or "gloo"
     device_group: Optional[object]  # the NCCL group, None for the default (gloo)
+    dp: _Sub
+    tp: _Sub
 
 
 _GROUP: Optional[_Group] = None
@@ -108,41 +144,79 @@ def launch_env() -> Optional[dict]:
     return None
 
 
+def _check_tp(tp: int, size: int) -> None:
+    if tp < 1 or size % tp:
+        raise ValueError(f"train.tp={tp} must divide the process count {size}: the processes "
+                         f"form a dp x tp grid")
+
+
 def initialize(device="cuda", init_method: Optional[str] = None,
-               world_size: Optional[int] = None, rank: Optional[int] = None) -> torch.device:
+               world_size: Optional[int] = None, rank: Optional[int] = None,
+               tp: int = 1) -> torch.device:
     """Join the process group (``init_method`` and the rest, else the
     environment's, :func:`launch_env`) and return this process's device:
     ``cpu``, or ``cuda:<local rank % device count>``, made current. Without
-    a group to join, ``device`` as it is. Prints the device plan."""
+    a group to join, ``device`` as it is. ``tp``: the tensor-parallel width
+    T, which must divide the process count (ValueError, also for a single
+    process with T > 1); its groups must each sit on one host. Prints the
+    device plan."""
     global _GROUP
     if init_method is None:
         launch = launch_env()
         if launch is None:
+            _check_tp(tp, 1)
             return torch.device(device)
         init_method = launch["init_method"]
         world_size, rank = launch.get("world_size"), launch.get("rank")
     if _GROUP is not None:
         raise RuntimeError("this process has joined a process group already")
+    if world_size is not None:
+        _check_tp(tp, world_size)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
     kwargs = {} if world_size is None else {"world_size": world_size, "rank": rank}
     dist.init_process_group("gloo", init_method=init_method, **kwargs)
     rank, size = dist.get_rank(), dist.get_world_size()
+    try:
+        _check_tp(tp, size)
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        index = local % torch.cuda.device_count() if device.type == "cuda" else -1
+        plan: List[tuple] = [None] * size
+        dist.all_gather_object(plan, (socket.gethostname(), index))
+        for d in range(size // tp):
+            hosts = {host for host, _ in plan[d * tp:(d + 1) * tp]}
+            if len(hosts) > 1:
+                raise ValueError(f"tp group {d} (processes {d * tp}-{(d + 1) * tp - 1}) spans "
+                                 f"the hosts {sorted(hosts)}: a tp group must sit on one host")
+    except ValueError:
+        dist.destroy_process_group()
+        raise
     backend, device_group, why = "gloo", None, "the CPU"
     if device.type == "cuda":
-        local = int(os.environ.get("LOCAL_RANK", rank))
-        device = torch.device("cuda", local % torch.cuda.device_count())
+        device = torch.device("cuda", index)
         torch.cuda.set_device(device)
-        plan: List[tuple] = [None] * size
-        dist.all_gather_object(plan, (socket.gethostname(), device.index))
         if len(set(plan)) == size:
             backend, why = "nccl", "a card per process"
             device_group = dist.new_group(backend="nccl")
         else:
             why = "processes share a card"
-    _GROUP = _Group(rank, size, device, backend, device_group)
-    print(f"[parallel] process {rank} of {size} on {device}: {backend} ({why})", flush=True)
+    dp = _Sub(rank // tp, size // tp, None, device_group)
+    tpg = _Sub(rank % tp, tp)
+    if tp > 1:
+        # every process makes every group, in one order: the tp groups of
+        # consecutive ranks, then the dp groups of the ranks with one t
+        for members, sub in [*[(list(range(d * tp, (d + 1) * tp)), tpg)
+                               for d in range(size // tp)],
+                             *[(list(range(t, size, tp)), dp) for t in range(tp)]]:
+            host = dist.new_group(members, backend="gloo")
+            card = dist.new_group(members, backend="nccl") if backend == "nccl" else host
+            if rank in members:
+                sub.host, sub.device = host, card
+    _GROUP = _Group(rank, size, device, backend, device_group, dp, tpg)
+    grid = f", dp {dp.rank} of {dp.size} x tp {tpg.rank} of {tp}" if tp > 1 else ""
+    print(f"[parallel] process {rank} of {size} on {device}: {backend} ({why}){grid}",
+          flush=True)
     return device
 
 
@@ -168,18 +242,41 @@ def process_count() -> int:
     return 1 if _GROUP is None else _GROUP.size
 
 
+def dp_index() -> int:
+    """This process's index d in its dp group (rank = d·T + t): the slice of
+    every global batch it takes."""
+    return 0 if _GROUP is None else _GROUP.dp.rank
+
+
+def dp_count() -> int:
+    """The processes over which the batch is split: N / T."""
+    return 1 if _GROUP is None else _GROUP.dp.size
+
+
+def tp_index() -> int:
+    """This process's index t in its tp group: its out-channel slice."""
+    return 0 if _GROUP is None else _GROUP.tp.rank
+
+
+def tp_count() -> int:
+    """The tensor-parallel width T (1 without a group)."""
+    return 1 if _GROUP is None else _GROUP.tp.size
+
+
 def backend() -> Optional[str]:
     """The backend of the tensors on the card, or None without a group."""
     return None if _GROUP is None else _GROUP.backend
 
 
 def global_count(local: int) -> int:
-    """The global batch's count of a per-process count (equal slices)."""
-    return local * process_count()
+    """The global batch's count of a per-process count (equal slices over
+    the dp group)."""
+    return local * dp_count()
 
 
-def _group_of(t: torch.Tensor):
-    return _GROUP.device_group if t.is_cuda else None
+def _group_of(t: torch.Tensor, sub: Optional[_Sub] = None):
+    sub = _GROUP.dp if sub is None else sub
+    return sub.device if t.is_cuda else sub.host
 
 
 def _count(kind: str, t: torch.Tensor) -> None:
@@ -187,30 +284,35 @@ def _count(kind: str, t: torch.Tensor) -> None:
     collective_bytes[kind] += t.numel() * t.element_size()
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every process's ``t`` (rows, ...) stacked along dim 0 in rank order,
-    (N·rows, ...); ``t`` itself without a group. Every process must pass
-    the same shape. NCCL gathers into one tensor; gloo gathers host
+def _gather(t: torch.Tensor, sub: _Sub) -> torch.Tensor:
+    """Every member's ``t`` of the group ``sub`` stacked along a new dim 0 in
+    rank order, (size, ...). NCCL gathers into one tensor; gloo gathers host
     tensors, and a card's tensor as a sum of zero-filled buffers in which
-    each process wrote its rows (gloo sums tensors on the card but does not
-    gather them), which adds only zeros, so the rows keep their bits."""
-    if _GROUP is None:
-        return t
+    each process wrote its part (gloo sums tensors on the card but does not
+    gather them), which adds only zeros, so the parts keep their bits."""
     t = t.contiguous()
-    n, rows = _GROUP.size, t.shape[0]
-    _count("gather", t)
     if t.is_cuda and _GROUP.backend == "nccl":
-        out = t.new_empty((n * rows,) + tuple(t.shape[1:]))
-        dist.all_gather_into_tensor(out, t, group=_GROUP.device_group)
+        out = t.new_empty((sub.size,) + tuple(t.shape))
+        dist.all_gather_into_tensor(out, t, group=sub.device)
         return out
     if t.is_cuda:
-        out = t.new_zeros((n * rows,) + tuple(t.shape[1:]))
-        out[_GROUP.rank * rows:(_GROUP.rank + 1) * rows] = t
-        dist.all_reduce(out)
+        out = t.new_zeros((sub.size,) + tuple(t.shape))
+        out[sub.rank] = t
+        dist.all_reduce(out, group=sub.device)
         return out
-    parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t)
-    return torch.cat(parts)
+    parts = [torch.empty_like(t) for _ in range(sub.size)]
+    dist.all_gather(parts, t, group=sub.host)
+    return torch.stack(parts)
+
+
+def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every dp peer's ``t`` (rows, ...) stacked along dim 0 in rank order,
+    (N/T·rows, ...); ``t`` itself without a group. Every process must pass
+    the same shape."""
+    if _GROUP is None:
+        return t
+    _count("gather", t)
+    return _gather(t, _GROUP.dp).flatten(0, 1)
 
 
 class _SumOverProcesses(torch.autograd.Function):
@@ -227,7 +329,7 @@ class _SumOverProcesses(torch.autograd.Function):
 
 
 def sum_over_processes(t: torch.Tensor) -> torch.Tensor:
-    """The sum of every process's ``t``, differentiable (twice: a gradient
+    """The sum of every dp peer's ``t``, differentiable (twice: a gradient
     penalty differentiates it again); ``t`` itself without a group."""
     return t if _GROUP is None else _SumOverProcesses.apply(t.contiguous())
 
@@ -248,14 +350,14 @@ def batch_moments(xf: torch.Tensor):
 
 def param_share(t: torch.Tensor) -> torch.Tensor:
     """A parameter's gradient from a sum over the global batch: the sum
-    over N, this process's share of it (the trainer's average over the
-    processes then gives the global batch's gradient); ``t`` without a
-    group."""
-    return t if _GROUP is None else t / _GROUP.size
+    over the N/T dp peers, this process's share of it (the trainer's
+    average over the dp group then gives the global batch's gradient); ``t``
+    without a group."""
+    return t if _GROUP is None else t / _GROUP.dp.size
 
 
 def average_(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Every process's tensors averaged over the processes, in one
+    """Every process's tensors averaged over its dp group, in one
     all-reduce of one flat f32 bucket (the tensors are f32); the tensors
     themselves without a group."""
     tensors = list(tensors)
@@ -264,7 +366,7 @@ def average_(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     flat = torch.cat([t.reshape(-1) for t in tensors])
     _count("average", flat)
     dist.all_reduce(flat, group=_group_of(flat))
-    flat.div_(_GROUP.size)
+    flat.div_(_GROUP.dp.size)
     return [p.view_as(t) for p, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
@@ -278,21 +380,23 @@ def global_draw(draw, shape, segments: int = 1) -> torch.Tensor:
     shape = tuple(shape)
     if _GROUP is None:
         return draw(shape)
-    n, k = _GROUP.size, segments
+    n, k = _GROUP.dp.size, segments
     full = draw((shape[0] * n,) + shape[1:])
-    return full.view((k, n, shape[0] // k) + shape[1:])[:, _GROUP.rank].reshape(shape)
+    return full.view((k, n, shape[0] // k) + shape[1:])[:, _GROUP.dp.rank].reshape(shape)
 
 
 def shard_full_batch(batch):
     """This process's rows of a batch every process holds whole (seeded
-    samplers, full local datasets): rows [rank·B/N, (rank+1)·B/N); the
-    batch itself without a group. B must divide over the processes."""
+    samplers, full local datasets): rows [d·B/D, (d+1)·B/D) of its dp index
+    d of D (tp peers take the same rows); the batch itself without a group.
+    B must divide over the dp group."""
     if _GROUP is None:
         return batch
-    per, rem = divmod(len(batch), _GROUP.size)
+    d, n = _GROUP.dp.rank, _GROUP.dp.size
+    per, rem = divmod(len(batch), n)
     if rem:
-        raise ValueError(f"a batch of {len(batch)} does not divide over {_GROUP.size} processes")
-    return batch[_GROUP.rank * per:(_GROUP.rank + 1) * per]
+        raise ValueError(f"a batch of {len(batch)} does not divide over {n} processes")
+    return batch[d * per:(d + 1) * per]
 
 
 def mp_and(flag: bool) -> bool:
@@ -322,10 +426,123 @@ def broadcast_module_(module: torch.nn.Module, src: int = 0) -> None:
         return
     with torch.no_grad():
         for t in [*module.parameters(), *module.buffers()]:
-            dist.broadcast(t.data, src, group=_group_of(t))
+            dist.broadcast(t.data, src, group=_GROUP.device_group if t.is_cuda else None)
 
 
 def barrier() -> None:
     """Wait for every process (over the host group); nothing without one."""
     if _GROUP is not None:
         dist.barrier()
+
+
+# --- tensor parallelism: the tp group's collectives ------------------------------
+#
+# Every tp peer holds the same rows and computes the same loss; each owns one
+# out-channel slice of a FourierUnit's mix. The four Functions are the
+# conjugate pairs of that layout (each one's backward is the other), so a
+# gradient of a gradient (the penalty of wgan-gp) goes through them too:
+# copy (identity; its backward sums the peers' partial cotangents) against
+# sum, and gather (the slices concatenated; its backward takes the peer's
+# own slice of the cotangent, which every peer holds whole) against split.
+# A sum is the gather followed by an addition in rank order, so every peer
+# holds the same bits. Without a group, or at T = 1, each is the identity
+# or the tensor itself.
+
+
+def _tp_parts(t: torch.Tensor, kind: str) -> torch.Tensor:
+    _count(kind, t)
+    return _gather(t, _GROUP.tp)
+
+
+def _tp_sum(t: torch.Tensor) -> torch.Tensor:
+    parts = _tp_parts(t, "tp_sum")
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def _tp_gather(t: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.cat(list(_tp_parts(t, "tp_gather").unbind(0)), dim=dim)
+
+
+def _tp_split(t: torch.Tensor, dim: int) -> torch.Tensor:
+    return t.chunk(_GROUP.tp.size, dim=dim)[_GROUP.tp.rank].contiguous()
+
+
+class _TpCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _TpSum.apply(g)
+
+
+class _TpSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        return _tp_sum(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _TpCopy.apply(g)
+
+
+class _TpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim):
+        ctx.dim = dim
+        return _tp_gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _TpSplit.apply(g, ctx.dim), None
+
+
+class _TpSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim):
+        ctx.dim = dim
+        return _tp_split(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _TpGather.apply(g.contiguous(), ctx.dim), None
+
+
+def _tp_on() -> bool:
+    return _GROUP is not None and _GROUP.tp.size > 1
+
+
+def tp_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t``, whose gradient is the sum over the tp group of the peers'
+    partial gradients (the input of an out-channel slice)."""
+    return _TpCopy.apply(t) if _tp_on() else t
+
+
+def tp_gather(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The tp peers' ``t`` concatenated along ``dim`` in rank order; its
+    gradient is this peer's slice of the cotangent."""
+    return _TpGather.apply(t.contiguous(), dim) if _tp_on() else t
+
+
+def tp_split_channels(v: torch.Tensor) -> torch.Tensor:
+    """This peer's out-channel slice of a [re; im] vector or stack of them
+    (..., 2C) -> (..., 2C/T): the entries ``ops.fourier_unit.out_columns``
+    names, differentiably."""
+    if not _tp_on():
+        return v
+    lead = v.shape[:-1]
+    return _TpSplit.apply(v.reshape(*lead, 2, v.shape[-1] // 2), -1).reshape(*lead, -1)
+
+
+def tp_gather_channels(v: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`tp_split_channels`: the peers' (..., 2C/T)
+    slices -> (..., 2C), differentiably; a (2C, 2C/T) mix slice gives the
+    whole (2C, 2C) mix."""
+    if not _tp_on():
+        return v
+    lead = v.shape[:-1]
+    return tp_gather(v.reshape(*lead, 2, v.shape[-1] // 2), -1).reshape(*lead, -1)

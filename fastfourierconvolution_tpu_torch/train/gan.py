@@ -70,6 +70,20 @@ statistics then stay equal in every process. ``update_steps`` captures
 the collectives in its CUDA graph under NCCL; under gloo, whose
 collectives run on the host, it raises.
 
+Tensor parallelism (``parallel``, a dp x tp grid of N = D·T processes):
+the trainer slices every FourierUnit of G and D whose channels T divides to
+the process's out-channel slice (``nn.ffc.shard_fourier_units_``) after the
+copy from rank 0; the batch, its statistics, sums and draws are split over
+the dp group only (tp peers hold the same rows), and the phases' gradients
+are averaged over the dp group: a sliced mix's over the peers with the
+same slice, everything else (which every tp peer computes whole, with the
+same bits) likewise. ``state_dict`` gathers the sliced mixes and their
+optimizer moments over the tp group, so a checkpoint holds whole tensors
+and is the same file at any T; ``load_state_dict`` takes the process's
+slice of each. ``generate`` runs G on the whole mixes, gathered at the
+call (``nn.ffc.whole_fourier_units``): every process of a tp group makes
+the call.
+
 ``state_dict`` holds the whole trainer state (``train/checkpoint.py``
 saves it); ``load_state_dict`` copies a saved state into the live
 tensors, so a captured step replays on the restored state.
@@ -85,6 +99,8 @@ import torch.nn as nn
 from .. import parallel
 from ..models.ffc_gan import to_uint8
 from ..nn import remat as remat_mod
+from ..nn.ffc import shard_fourier_units_, whole_fourier_units
+from ..ops.fourier_unit import out_columns
 from ..utils.policy import default_dtype, resolve_device, resolve_dtype
 from . import losses as L
 
@@ -189,6 +205,12 @@ class GANTrainer:
         self.d = d_model.to(self.device).train()
         parallel.broadcast_module_(self.g)
         parallel.broadcast_module_(self.d)
+        # the parameter names of the FourierUnit mixes sliced over the tp
+        # group, by model
+        self._mix_keys = {
+            side: {f"{name}.mix_kernel"
+                   for name in shard_fourier_units_(m, parallel.tp_index(), parallel.tp_count())}
+            for side, m in (("g", self.g), ("d", self.d))}
         self.g_opt, self.g_lr = make_optimizer(
             self.g.parameters(), self.device, lr, total_steps, b1, b2, optimizer)
         self.d_opt, self.d_lr = make_optimizer(
@@ -442,8 +464,10 @@ class GANTrainer:
         ``lr`` and update count, D's progress count (``step_count``), the
         host ``step``, and both random generators' states. The tensors are
         the live ones, as ``nn.Module.state_dict`` gives them: save them or
-        clone them before the next step."""
-        return {
+        clone them before the next step. Under tensor parallelism the
+        sliced mixes and their moments are gathered whole (a collective of
+        the tp group: every peer calls it)."""
+        return self._map_slices({
             "g": self.g.state_dict(),
             "d": self.d.state_dict(),
             "g_opt": _optimizer_state(self.g_opt),
@@ -454,7 +478,7 @@ class GANTrainer:
             "step": self.step,
             "z_generator": self.z_generator.get_state(),
             "noise_generator": self.noise_generator.get_state(),
-        }
+        }, parallel.tp_gather_channels)
 
     def load_state_dict(self, state: dict) -> None:
         """Restore a :meth:`state_dict` by copying it into the trainer's own
@@ -464,7 +488,10 @@ class GANTrainer:
         restored state. Where no step has run yet, the optimizer moments
         are created first. The generators take the saved states in place,
         so a replay continues the restored streams. Raises on a state
-        whose tensors do not match this trainer's models."""
+        whose tensors do not match this trainer's models. Under tensor
+        parallelism each sliced mix and its moments take the process's
+        slice of the whole tensors saved."""
+        state = self._map_slices(dict(state), _slice)
         with torch.no_grad():
             self.g.load_state_dict(state["g"])
             self.d.load_state_dict(state["d"])
@@ -492,11 +519,40 @@ class GANTrainer:
         was_training = self.g.training
         self.g.eval()
         try:
-            with torch.no_grad():
+            with torch.no_grad(), whole_fourier_units(self.g):
                 out = self.g(*self._g_args(z, labels)).permute(0, 2, 3, 1)
         finally:
             self.g.train(was_training)
         return (to_uint8(out) if uint8 else out).contiguous()
+
+    # -- tensor parallelism: whole tensors in a state, slices in the trainer ---------
+
+    def whole(self, side: str, name: str, t: torch.Tensor) -> torch.Tensor:
+        """``t``, shaped like parameter ``name`` of ``side`` ("g" or "d"):
+        its value, gradient or a moment, gathered whole over the tp group
+        where that parameter is a sliced mix (a collective of the group);
+        ``t`` itself elsewhere."""
+        return parallel.tp_gather_channels(t) if name in self._mix_keys[side] else t
+
+    def _map_slices(self, state: dict, fn) -> dict:
+        """``state`` (:meth:`state_dict`'s layout) with ``fn`` applied to
+        every sliced mix and to its optimizer moments."""
+        for side, model in (("g", self.g), ("d", self.d)):
+            keys = self._mix_keys[side]
+            if not keys:
+                continue
+            state[side] = {k: fn(v) if k in keys else v for k, v in state[side].items()}
+            state[f"{side}_opt"] = [
+                {k: fn(v) if name in keys and v.dim() == 2 else v for k, v in entries.items()}
+                for (name, _), entries in zip(model.named_parameters(), state[f"{side}_opt"],
+                                              strict=True)]
+        return state
+
+
+def _slice(whole: torch.Tensor) -> torch.Tensor:
+    """This process's out-channel slice of a whole (2C, 2C) mix (or of its
+    moments)."""
+    return whole[:, out_columns(whole.shape[0] // 2, parallel.tp_index(), parallel.tp_count())]
 
 
 def _averaged(loss: torch.Tensor, grads):

@@ -9,10 +9,10 @@ config the same way.
 ``zoo.build_models`` reads ``model`` and ``data``; the CLI (``cli.py``)
 reads the rest: ``train.steps_per_call`` is the K of each
 ``GANTrainer.update_steps`` call, ``log.profile_at_step`` starts a
-``torch.profiler`` trace. Two fields only the JAX runtime reads, kept as
-data so that the trees agree: ``train.tp`` (the TPU mesh's
-tensor-parallel width, which the port's CLI refuses above 1) and
-``log.compilation_cache`` (XLA's compile cache). ``parse_cli`` parses the
+``torch.profiler`` trace, ``train.tp`` the tensor-parallel width of the
+process grid (``parallel.initialize``). One field only the JAX runtime
+reads, kept as data so that the trees agree: ``log.compilation_cache``
+(XLA's compile cache). ``parse_cli`` parses the
 CLI's arguments as the JAX package's does, plus ``--device``.
 """
 
@@ -71,7 +71,7 @@ class TrainConfig:
     seed: int = 0
     precision: str = "f32"  # f32|bf16 (activation compute dtype)
     remat: Optional[str] = None  # none|dots|full activation rematerialisation
-    tp: int = 1  # the JAX mesh's tensor-parallel width; the port's CLI takes 1 only
+    tp: int = 1  # tensor-parallel width T: the dp x tp process grid, T dividing the processes
 
 
 @dataclass

@@ -457,7 +457,7 @@ def test_train_evaluates_prc_and_ppl(metric, prc_ppl_run):
 
 
 REFUSED = [
-    (["train", *TINY, "--set", "train.tp=2"], NotImplementedError, "queue 1 item 10"),
+    (["train", *TINY, "--set", "train.tp=2"], ValueError, "must divide the process count 1"),
     (["train", *TINY, "--set", "train.steps_per_call=4"], ValueError, "must divide"),
     (["download", "--dataset", "mnist"], NotImplementedError, "queue 1 item 7"),
     (["sample", *TINY, "--num_samples", "0"], SystemExit, "num_samples"),

@@ -42,7 +42,8 @@ group. Each process takes its rows of every global batch.
 - ``cli train`` as two processes joined by the JAX CLI's environment: rank
   0 alone prints, logs and writes the checkpoint, the losses equal a
   one-process run's, and a two-process resume continues the run.
-- The refusals: ``train.tp=2`` (ROADMAP item 10b), ``update_steps`` and
+- The refusals: ``train.tp=2`` in a single process (T must divide the
+  process count), ``update_steps`` and
   ``train.steps_per_call`` above 1 under gloo on the card, a partial
   launch environment.
 """
@@ -247,7 +248,7 @@ CLI_FLAGS = ["--set", "data.dataset=synthetic", "--set", "data.image_size=32",
              "--set", "log.tensorboard=false", "--device", "cpu"]
 
 
-def _cli_group(run_dir, steps, world=2):
+def _cli_group(run_dir, steps, world=2, tp=1):
     port = _free_port()
     procs = []
     for rank in range(world):
@@ -255,7 +256,7 @@ def _cli_group(run_dir, steps, world=2):
                "FFC_TPU_NUM_PROCESSES": str(world), "FFC_TPU_PROCESS_ID": str(rank)}
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "fastfourierconvolution_tpu_torch.cli", "train", *CLI_FLAGS,
-             "-e", str(steps), "-o", str(run_dir)],
+             "--set", f"train.tp={tp}", "-e", str(steps), "-o", str(run_dir)],
             cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     outs = []
     for proc in procs:
@@ -294,7 +295,7 @@ def test_cli_trains_as_two_processes_and_resumes(tmp_path):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="queue 1 item 10b"):
+    with pytest.raises(ValueError, match="train.tp=2 must divide the process count 1"):
         cli.main(["train", *CLI_FLAGS, "--set", "train.tp=2", "-o", str(tmp_path)])
     monkeypatch.setenv("FFC_TPU_COORDINATOR", "localhost:1234")
     with pytest.raises(ValueError, match="FFC_TPU_NUM_PROCESSES, FFC_TPU_PROCESS_ID"):

@@ -4,13 +4,15 @@ process of a gloo group on the CPU:
 
     python tests/torch_parallel_worker.py SPEC.json
 
-SPEC holds the case, the rank, the process count, the group's
-``init_method`` and the paths of its inputs and of its output (a
-``torch.save`` of the case's result). Each process takes its rows of the
-global batch (``parallel.shard_full_batch``) and returns what the test
-compares: statistics and sums, gradients summed over the processes, or
-the losses and the state after each training step. This module imports
-no JAX, so the worker processes start quickly.
+SPEC holds the case, the rank, the process count, the tensor-parallel
+width (``tp``, 1 unless given), the group's ``init_method`` and the paths
+of its inputs and of its output (a ``torch.save`` of the case's result).
+Each process takes its dp rows of the global batch
+(``parallel.shard_full_batch``) and returns what the test compares:
+statistics and sums, gradients summed over the processes, or the losses
+and the state after each training step (whole tensors under tp:
+``GANTrainer.state_dict`` gathers the sliced mixes). This module imports no
+JAX, so the worker processes start quickly.
 """
 
 from __future__ import annotations
@@ -202,26 +204,56 @@ def step_case(spec):
         # first batch (Adam's step hides a gradient's scale)
         twin = GANTrainer(*[copy.deepcopy(m) for m in (g, d)], total_steps=100, device="cpu",
                           dtype="f32", **kw)
-        z = twin._latents(reals.shape[1] // parallel.process_count())
+        z = twin._latents(reals.shape[1] // parallel.dp_count())
         real = torch.from_numpy(_rows(reals[0])).permute(0, 3, 1, 2).contiguous()
         grads = {"g": twin.g_loss_and_grads(z)[1], "d": twin.d_loss_and_grads(real, z)[1]}
         trainer = GANTrainer(g, d, total_steps=100, device="cpu", dtype="f32", **kw)
+        names = {side: [n for n, _ in m.named_parameters()] for side, m in (("g", g), ("d", d))}
         out = {"losses": [], "states": [],
-               "params": [f"{side}.{n}" for side, m in (("g", g), ("d", d))
-                          for n, _ in m.named_parameters()],
-               "grads": {f"{side}.{n}": grad for side, m in (("g", g), ("d", d))
-                         for (n, _), grad in zip(m.named_parameters(), grads[side])}}
+               "params": [f"{side}.{n}" for side in names for n in names[side]],
+               "grads": {f"{side}.{n}": twin.whole(side, n, grad)
+                         for side in names for n, grad in zip(names[side], grads[side])}}
         for k in range(len(reals)):
             z = None if zs is None else [_rows(zz) for zz in zs[k]]
             losses = trainer.update_step(_rows(reals[k]), zs=None if z is None else np.stack(z))
             out["losses"].append([losses["loss_g"].item(), losses["loss_d"].item()])
-            out["states"].append({**{f"g.{n}": t.clone() for n, t in g.state_dict().items()},
-                                  **{f"d.{n}": t.clone() for n, t in d.state_dict().items()}})
+            out["states"].append(_states(trainer))
             if k == 0:
+                state = trainer.state_dict()
                 out["first_moments"] = {
-                    f"{side}.{n}": opt.state[p]["exp_avg"] / (1 - opt.param_groups[0]["betas"][0])
-                    for side, m, opt in (("g", g, trainer.g_opt), ("d", d, trainer.d_opt))
-                    for n, p in m.named_parameters()}
+                    f"{side}.{n}": e["exp_avg"] / (1 - opt.param_groups[0]["betas"][0])
+                    for side, opt in (("g", trainer.g_opt), ("d", trainer.d_opt))
+                    for n, e in zip(names[side], state[f"{side}_opt"])}
+    return out
+
+
+def _states(trainer):
+    """G's and D's whole state dicts (``GANTrainer.state_dict``), cloned."""
+    state = trainer.state_dict()
+    return {f"{side}.{n}": t.clone() for side in ("g", "d") for n, t in state[side].items()}
+
+
+def ckpt_case(spec):
+    """From ``spec["restore"]`` (a checkpoint) or from the pair's init: a
+    trainer takes the data's steps ``spec["steps"]`` (a range), returns the
+    losses and states after each, and saves its state at the end to
+    ``spec["save"]`` (rank 0 writes, every process gathers)."""
+    g, d, kw, _ = _pair(spec)
+    data = np.load(spec["data"])
+    with _patched(ffc_gan, "draw_noise", _no_noise):
+        trainer = GANTrainer(g, d, total_steps=100, device="cpu", dtype="f32", **kw)
+        if spec.get("restore"):
+            trainer.load_state_dict(torch.load(spec["restore"], weights_only=True))
+        out = {"losses": [], "states": []}
+        for k in range(*spec["steps"]):
+            z = np.stack([_rows(zz) for zz in data["zs"][k]])
+            losses = trainer.update_step(_rows(data["reals"][k]), zs=z)
+            out["losses"].append([losses["loss_g"].item(), losses["loss_d"].item()])
+            out["states"].append(_states(trainer))
+        if spec.get("save"):
+            state = trainer.state_dict()
+            if parallel.process_index() == 0:
+                torch.save(state, spec["save"])
     return out
 
 
@@ -263,14 +295,52 @@ def metrics_case(spec):
             "again": calculate_metrics(gm, "dp-real", **kw)}
 
 
-CASES = {"ops": ops_case, "step": step_case, "metrics": metrics_case}
+def fu_module_case(spec):
+    """A FourierUnit module of 8 channels sliced over the tp group (none
+    without a group) on this process's rows of one seeded batch, in
+    training mode, in eval mode (seeded running statistics) and
+    class-conditional (3 classes, training): y, x's gradient, the
+    parameters' gradients (a sliced mix's gathered whole) and the running
+    statistics after the pass."""
+    from fastfourierconvolution_tpu_torch.nn.ffc import FourierUnit, shard_fourier_units_
+
+    rng = np.random.default_rng(5)
+    b, c = GLOBAL_BATCH, 8
+    x = rng.normal(size=(b, c, 8, 8)).astype(np.float32)
+    gy = rng.normal(size=(b, c, 8, 8)).astype(np.float32)
+    labels = torch.from_numpy(_rows(rng.integers(0, 3, size=b)))
+    out = {}
+    for name, classes, training in (("train", 0, True), ("eval", 0, False), ("cond", 3, True)):
+        unit = FourierUnit(c, classes)
+        unit.reset_parameters(torch.Generator().manual_seed(6))
+        stats = unit.bn if classes else unit
+        if classes:
+            unit.bn.reset_parameters(torch.Generator().manual_seed(9))
+        with torch.no_grad():
+            stats.running_mean.uniform_(-0.1, 0.1, generator=torch.Generator().manual_seed(7))
+            stats.running_var.uniform_(0.5, 1.5, generator=torch.Generator().manual_seed(8))
+        unit.train(training)
+        sliced = shard_fourier_units_(unit, parallel.tp_index(), parallel.tp_count())
+        xr = _tensor(_rows(x), True)
+        y = unit(xr, labels) if classes else unit(xr)
+        params = [p for _, p in unit.named_parameters()]
+        grads = torch.autograd.grad((y * _tensor(_rows(gy))).sum(), [xr, *params])
+        whole = {n: parallel.tp_gather_channels(g) if sliced and n == "mix_kernel" else g
+                 for (n, _), g in zip(unit.named_parameters(), grads[1:])}
+        out[name] = {"y": y.detach(), "gx": grads[0], **{f"grad {n}": g for n, g in whole.items()},
+                     "running": torch.stack([stats.running_mean, stats.running_var])}
+    return out
+
+
+CASES = {"ops": ops_case, "step": step_case, "metrics": metrics_case, "ckpt": ckpt_case,
+         "fu_module": fu_module_case}
 
 
 def main(path: str) -> None:
     with open(path) as f:
         spec = json.load(f)
     torch.set_num_threads(1)
-    parallel.initialize("cpu", spec["init"], spec["world"], spec["rank"])
+    parallel.initialize("cpu", spec["init"], spec["world"], spec["rank"], tp=spec.get("tp", 1))
     try:
         torch.save(CASES[spec["case"]](spec), spec["out"])
     finally:
