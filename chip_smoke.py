@@ -18,7 +18,7 @@ Phases, each of which raises on a failed check:
    running statistics calibrated on a seeded batch): 8 requests of batch
    64, then batch 1 and batch 7, with the kernel's launch counts (in all
    and by FourierUnit map) set to 0 before them and read after them;
-   then batch-64 requests back to back for a few seconds for the served
+   then batch-64 requests back to back for a second for the served
    img/s; one request is held against the same weights run through the
    plain op;
 5. the training kernels (batch statistics, backward statistics, backward
@@ -32,12 +32,12 @@ Phases, each of which raises on a failed check:
 6. train the full-width 32px generator against the SN discriminator in
    bf16 at batch 64 (seeded weights and data; bench.py's setting: fused D
    pass, hinge, AdamW): warm-up steps, each with exact kernel launches per
-   FourierUnit map, then steps back to back for a few seconds for the step
+   FourierUnit map, then steps back to back for a second for the step
    time, with every count set to 0 before the steps and read after them;
    then ``update_steps`` with bench.py's K (16 at 32px, 4 at 128px), the
    step as a CUDA graph: its first call (one eager step and the capture,
    which count their launches; replays count none) with exact launches,
-   then calls back to back for a few seconds; eager and graph each with
+   then calls back to back for a second; eager and graph each with
    wall ms per step, profiler device ms per step and idle share, and the
    profiler's device events per eager and per replayed step, which must
    agree; losses finite at every step;
@@ -66,7 +66,7 @@ Phases, each of which raises on a failed check:
 10. train the full-width 128px generator, in packed-branch mode, against
     its SN discriminator in bf16 at batch 64: warm-up steps with exact
     launches per step by FourierUnit map and by packed BN map, then steps
-    back to back for a few seconds, with every count set to 0 before the
+    back to back for a second, with every count set to 0 before the
     steps and read after them, then the step as a CUDA graph, as in phase
     6; losses finite at every step;
 11. one f32 step of the 128px pair at batch 8 with the tanh-form GELU
@@ -269,8 +269,25 @@ Phases, each of which raises on a failed check:
     (``GANTrainer.state_dict``) the same bits, exact launches on the
     slices' maps and exact collectives per step, the tp gathers and sums
     included, and the step ms;
-33. a check that every kernel was launched on the main path (phases 4, 6,
-    10, 13, 14, 15, the CLI runs, phases 24-25, 28-32), a
+33. a JAX run directory: a full-width fgan32 ``ckpt_32_steps.ckpt`` in the
+    JAX package's flax-msgpack layout, packed here (``flax_pack``, with
+    seeded values) from the committed manifest of its tree
+    (``tools/fgan32_jax_ckpt_manifest.json``, written with JAX by
+    ``tools/jax_ckpt_manifest.py``): the decoder's MB/s, the restore's
+    wall time into a bf16 trainer, every restored tensor the same bits as
+    its bridged value, the optimizer state on the card and capturable, the
+    restored step's exact launches as phase 6's (``jax-ckpt``); in f32 from
+    the same restore the generator gradients and a step's losses against
+    the plain ops (phase 7's bars) and 4 replayed steps against eager ones
+    (phase 12's rule); ``cli train`` resuming the directory at step 32 in a
+    child process (``.pt`` files written beside the ``.ckpt``, which stays)
+    and ``sample`` drawing from it, with exact launches; the native batcher
+    built into ``_build/`` with g++, its gather + normalise (plain and
+    flipped) the same bits as numpy's ``x * float32(1/127.5) - 1`` on a
+    64-image batch, its ms per batch beside numpy's, its shuffle a
+    permutation;
+34. a check that every kernel was launched on the main path (phases 4, 6,
+    10, 13, 14, 15, the CLI runs, phases 24-25, 28-33), a
     ``{"wrapper_calls": [...]}`` JSON line (the staged wrapper and training-op calls, all their stages
     together), a ``{"kernels": [...]}`` JSON line, then the
     ``{"ok": true, ...}`` line.
@@ -283,7 +300,7 @@ it is held against (it needs two cards), and ``python3 chip_smoke.py 32``
 phase 32 alone, and ``python3 chip_smoke.py 32d`` (four cards) fgan32 as
 dp 2 x tp 2 processes over NCCL against one process, then the graph
 parity of ``update_steps`` with the tp collectives captured, in the
-group.
+group; ``python3 chip_smoke.py 33`` runs phase 33 alone.
 """
 
 from __future__ import annotations
@@ -295,6 +312,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -374,7 +392,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 # Served requests and training steps timed back to back for the
 # throughput readings.
-TIMED_SECONDS = 2.0
+TIMED_SECONDS = 1.0
 # The training paths: bench.py's 32px and 128px pairs, the sngan pair (with
 # wgan-gp: "sngan-gp"), the fgan_cond32 and fgan_cond48 pairs, and the
 # comparator pairs built by the port's zoo (``ZOO_CONFIGS``).
@@ -2491,7 +2509,8 @@ def loader_share(device, card, cli_ms):
 
 def cli_fgan32(device, card, tmp, graph_ms_32):
     """Phase 21: ``train`` 96 steps (epochs of 48, checkpoints), ``train``
-    again to 144 (the resume), ``sample``; the restore checks in process;
+    again to 144 (the resume), ``sample`` beside the restore checks in
+    process;
     the CLI's wall ms per step beside phase 6's replayed step, and the data
     path's share. Returns the CLI runs' launches by run."""
     out = os.path.join(tmp, "fgan32")
@@ -2509,8 +2528,12 @@ def cli_fgan32(device, card, tmp, graph_ms_32):
     check_run_files(out, ["000144.png", "checkpoints/ckpt_144_steps.pt"])
     if counts_resume != cli_train_launches(32, FU_SHAPES, grids=1):
         raise AssertionError(f"cli fgan32 resumed launches {counts_resume}")
-    _, counts_sample = cli_run("fgan32-sample", ["sample", "--preset", "fgan32",
-                                                 "--num_samples", "64"], out)
+    # the sample child runs beside the in-process restore checks
+    sample_job = cli_start("fgan32-sample", ["sample", "--preset", "fgan32",
+                                             "--num_samples", "64"], out)
+    restore_checks(device, card, tmp)
+    _, counts_sample = cli_wait(sample_job)
+    loader_share(device, card, cli_ms)
     size = png_size(os.path.join(out, "samples_000144.png"))
     # the sample grid and the feature-map capture's request of one latent
     if counts_sample != eval_launches(FU_SHAPES, 2):
@@ -2521,8 +2544,6 @@ def cli_fgan32(device, card, tmp, graph_ms_32):
     log(f"CLI training step, fgan32, batch {BATCH}, bf16, K={CLI_K}: {cli_ms:.3f} ms wall per "
         f"step between epoch boundaries (scalars.jsonl, steps 64-96); phase 6's replayed step "
         f"{graph_ms_32:.3f} ms; the CLI adds {cli_ms / graph_ms_32 - 1:+.2%}; {card}")
-    restore_checks(device, card, tmp)
-    loader_share(device, card, cli_ms)
     return {"cli-fgan32-train": counts_train, "cli-fgan32-resume": counts_resume,
             "cli-fgan32-sample": counts_sample}
 
@@ -4131,7 +4152,7 @@ def first_run_child(name, variant):
     return int(first_differs)
 
 
-def backward_thread_cost(device, card, rounds=4, steps=16):
+def backward_thread_cost(device, card, rounds=2, steps=16):
     """Phase 26: what running the backward on the calling thread costs an
     eager step: bf16 ``update_step`` wall ms per step (host clock, after a
     synchronise) of the 32px pair and the sngan pair, as the port runs it
@@ -5231,7 +5252,380 @@ def tensor_parallel(device, card):
     return rows, counts
 
 
+# --- phase 33: a JAX run directory --------------------------------------------------------
+
+# The fgan32 GANState's layout, written by tools/jax_ckpt_manifest.py with JAX.
+JAX_MANIFEST = os.path.join(ROOT, "tools", "fgan32_jax_ckpt_manifest.json")
+# the step of the packed .ckpt file, and the CLI run that resumes it
+JAX_CKPT_STEP = 32
+JAX_CLI_EPOCH = 16
+JAX_PARITY_STEPS = 4
+BATCHER_STORE = 2048
+BATCHER_TIMED = 50
+
+
+def _msgpack_header(out, n, fix, fix_limit, codes):
+    """A msgpack length header: the fix form below ``fix_limit``, else the
+    8-, 16- or 32-bit form of ``codes`` (None where a form does not exist)."""
+    if fix is not None and n < fix_limit:
+        out.append(fix | n)
+        return
+    for code, size in zip(codes, (1, 2, 4)):
+        if code is not None and n < 1 << (8 * size):
+            out.append(code)
+            out += n.to_bytes(size, "big")
+            return
+    raise ValueError(f"msgpack length {n}")
+
+
+def flax_pack(obj, out=None) -> bytearray:
+    """The subset of msgpack that ``flax.serialization.msgpack_serialize``
+    writes, as far as this script's seeded checkpoint needs it: maps, str,
+    bytes, ints, None, lists, and ndarrays as ext type 1 (a packed ``(shape, dtype
+    name, C-order bytes)``)."""
+    import struct
+
+    import numpy as np
+
+    out = bytearray() if out is None else out
+    if obj is None:
+        out.append(0xC0)
+    elif isinstance(obj, int):
+        if 0 <= obj < 128:
+            out.append(obj)
+        else:
+            out.append(0xD3)
+            out += struct.pack(">q", obj)
+    elif isinstance(obj, str):
+        data = obj.encode()
+        _msgpack_header(out, len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(obj, bytes):
+        _msgpack_header(out, len(obj), None, 0, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, list):
+        _msgpack_header(out, len(obj), 0x90, 16, (None, 0xDC, 0xDD))
+        for v in obj:
+            flax_pack(v, out)
+    elif isinstance(obj, dict):
+        _msgpack_header(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            flax_pack(k, out)
+            flax_pack(v, out)
+    elif isinstance(obj, np.ndarray):
+        payload = flax_pack([list(obj.shape), obj.dtype.name, obj.tobytes("C")])
+        _msgpack_header(out, len(payload), None, 0, (0xC7, 0xC8, 0xC9))
+        out.append(1)
+        out += payload
+    else:
+        raise TypeError(f"flax_pack: {type(obj).__name__}")
+    return out
+
+
+def seeded_jax_tree(step, num_dis_updates=1, seed=SEED + 70):
+    """The fgan32 GANState tree of ``JAX_MANIFEST`` with seeded values at
+    ``step``: kernels N(0, 1/fan_in), BN scales 1 + N(0, 0.1), other
+    parameters, means and ``u`` N(0, 0.1), variances U(0.5, 1.5), Adam's
+    ``mu`` N(0, 1e-3) and ``nu`` U(0, 1e-6), every count ``step`` (D's
+    schedule ``step * num_dis_updates``), a random ``rng`` key."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    with open(JAX_MANIFEST) as f:
+        entries = json.load(f)["entries"]
+    tree = {}
+    for path, spec in entries:
+        *parents, name = path.split("/")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        if spec is None or spec == {}:
+            node[name] = spec
+            continue
+        shape, dtype = tuple(spec["shape"]), np.dtype(spec["dtype"])
+        if name == "count":  # D's Adam and schedule count every D update
+            value = np.full(shape, step * (num_dis_updates if parents[0] == "d" else 1))
+        elif path == "step":
+            value = np.full(shape, step)
+        elif path == "rng":
+            value = rng.integers(0, 2 ** 32, shape)
+        elif "mu" in parents:
+            value = rng.normal(0, 1e-3, shape)
+        elif "nu" in parents:
+            value = rng.uniform(0, 1e-6, shape)
+        elif name == "var":
+            value = rng.uniform(0.5, 1.5, shape)
+        elif name in ("kernel", "mix_kernel"):
+            value = rng.normal(0, 1 / np.sqrt(np.prod(shape[:-1])), shape)
+        elif name in ("scale", "bn_scale"):
+            value = 1 + rng.normal(0, 0.1, shape)
+        else:
+            value = rng.normal(0, 0.1, shape)
+        node[name] = np.asarray(value, dtype)
+    return tree
+
+
+def bridged_jax_state(trainer, tree):
+    """{``trainer_state`` name: CPU tensor} of ``tree`` (the GANState as this
+    script packed it) through the bridge, optax's entries by their index in
+    the chain (AdamW: Adam first, the schedule last), the learning rates as
+    the port's schedule sets them after the counts' updates."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.bridge import jax_params_to_state_dict, jax_to_state_dict
+    from fastfourierconvolution_tpu_torch.train.gan import LinearDecay
+
+    out = {}
+    for side, model, schedule in (("g", trainer.g, trainer.g_lr), ("d", trainer.d, trainer.d_lr)):
+        net = tree[side]
+        out.update({f"{side}.{k}": v for k, v in jax_to_state_dict(
+            model, net["params"], net["batch_stats"], net["spectral"]).items()})
+        chain = net["opt_state"]
+        adam, count = chain["0"], int(chain[str(len(chain) - 1)]["count"])
+        for key, moments in (("exp_avg", adam["mu"]), ("exp_avg_sq", adam["nu"])):
+            out.update({f"{side}.{n}.{key}": v
+                        for n, v in jax_params_to_state_dict(model, moments).items()})
+        out.update({f"{side}.{n}.step": torch.tensor(float(adam["count"]))
+                    for n, _ in model.named_parameters()})
+        decay = LinearDecay(torch.zeros(()), schedule.base, schedule.total)
+        for _ in range(count):
+            decay.advance()
+        out[f"{side}.lr"], out[f"{side}.count"] = decay.lr, decay.count
+    return out
+
+
+def batcher_checks(card):
+    """Phase 33: the native batcher built from ``native/ffc_batcher.cpp`` into
+    ``_build/`` (g++) and loaded, its gather + normalise (plain and flipped)
+    against numpy's ``x * float32(1/127.5) - 1`` bit for bit on a 64-image
+    batch of a seeded 32px store, its ms per batch (threads as JAX's loader
+    and the port's ask, and 1, 2, 4; 32px and 128px) beside numpy's and the
+    loader's fallback, and its shuffle a permutation."""
+    import numpy as np
+
+    from fastfourierconvolution_tpu_torch.data import native
+    from fastfourierconvolution_tpu_torch.data.loader import normalize_to_unit
+
+    t0 = time.perf_counter()
+    built = native._build()
+    build_s = time.perf_counter() - t0
+    if not native.available():
+        raise AssertionError("the native batcher did not load")
+    rng = np.random.default_rng(SEED + 80)
+    perm = native.shuffle_indices(50_000, SEED + 81)
+    is_perm = bool(np.array_equal(np.sort(perm), np.arange(50_000)))
+
+    def ms(fn):
+        fn()
+        t = time.perf_counter()
+        for _ in range(BATCHER_TIMED):
+            fn()
+        return (time.perf_counter() - t) / BATCHER_TIMED * 1e3
+
+    out = {}
+    for size, n_store in ((32, BATCHER_STORE), (128, 256)):
+        store = rng.integers(0, 256, (n_store, size, size, 3), dtype=np.uint8)
+        idx = rng.permutation(n_store)[:BATCH]
+        want = store[idx].astype(np.float32) * np.float32(1 / 127.5) - np.float32(1)
+        same = native.gather_normalize(store, idx).tobytes() == want.tobytes()
+        same_flip = (native.gather_normalize(store, idx, hflip=True).tobytes()
+                     == np.ascontiguousarray(want[:, :, ::-1]).tobytes())
+        same_one = native.gather_normalize(store, idx, n_threads=1).tobytes() == want.tobytes()
+        if not (same and same_flip and same_one):
+            raise AssertionError(f"the native batcher's {size}px batch differs from numpy's")
+        chosen = native.loader_threads(want.nbytes)
+        times = {t: ms(lambda t=t: native.gather_normalize(store, idx, n_threads=t))
+                 for t in sorted({0, 1, 2, 4, chosen})}
+        numpy_ms = ms(lambda: store[idx].astype(np.float32) * np.float32(1 / 127.5)
+                      - np.float32(1))
+        fallback_ms = ms(lambda: normalize_to_unit(store[idx]))
+        out[size] = dict(native_ms=times, loader_threads=chosen, numpy_ms=numpy_ms,
+                         fallback_ms=fallback_ms)
+        log(f"native batcher, a {BATCH}-image {size}x{size}x3 batch of a {n_store}-image "
+            f"store: the same bits as numpy's x * float32(1/127.5) - 1 (plain, flipped, one "
+            f"thread); ms per batch (host clock, {os.cpu_count()} cores, "
+            f"{len(os.sched_getaffinity(0))} ours) by n_threads (0: the hardware's, JAX's "
+            f"loader's; {chosen}: the port's loader's) "
+            f"{({t: round(v, 4) for t, v in times.items()})} against numpy's "
+            f"{numpy_ms:.4f} and the loader's fallback x/127.5 - 1 {fallback_ms:.4f}; {card}")
+    log(f"native batcher: built {built} with g++ in {build_s:.2f} s (wall, host clock), "
+        f"loaded {native.library_path()}; shuffle_indices(50000) a permutation {is_perm}")
+    if not is_perm or built.parent != native.BUILD_DIR:
+        raise AssertionError("the native batcher's build or shuffle is wrong")
+    return out
+
+
+def jax_checkpoint(device, card):
+    """Phase 33 (see the module docstring); returns the restored step's
+    launches by kernel and map (``check_main_path_launches`` key
+    ``jax-ckpt``)."""
+    import numpy as np
+    import torch
+
+    from fastfourierconvolution_tpu_torch.train import checkpoint as ckpt
+    from fastfourierconvolution_tpu_torch.train import flax_msgpack
+
+    n = JAX_CKPT_STEP
+    tree = seeded_jax_tree(n)
+    data = bytes(flax_pack(tree))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_jax_run_") as tmp:
+        run = os.path.join(tmp, "run")
+        os.makedirs(os.path.join(run, "checkpoints"))
+        path = os.path.join(run, "checkpoints", f"ckpt_{n}_steps.ckpt")
+        with open(path, "wb") as f:
+            f.write(data)
+        t0 = time.perf_counter()
+        decoded = flax_msgpack.restore(data)
+        decode_s = time.perf_counter() - t0
+        if int(decoded["step"]) != n or decoded["d"]["batch_stats"] is not None:
+            raise AssertionError("the decoder's tree differs from the packed one")
+        del decoded
+
+        # bf16, as the CLI trains: the restore's wall time, its bits, the step's launches
+        trainer = cli_trainer(device, "fgan32", "bf16")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, step = ckpt.restore_latest(trainer, os.path.join(run, "checkpoints"))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        want = bridged_jax_state(trainer, tree)
+        got = {k: v for k, v in trainer_state(trainer).items() if not k.endswith("generator")}
+        differ = sorted(k for k in want if not torch.equal(got[k].cpu(), want[k]))
+        opt_states = [v for opt in (trainer.g_opt, trainer.d_opt) for s in opt.state.values()
+                      for v in s.values()]
+        on_card = all(v.device.type == "cuda" for v in opt_states)
+        capturable = trainer.g_opt.param_groups[0]["capturable"] and \
+            trainer.d_opt.param_groups[0]["capturable"]
+        log(f"jax .ckpt, fgan32 at full width, step {n}: {len(data)} B packed from "
+            f"{os.path.relpath(JAX_MANIFEST, ROOT)}; decoded in {decode_s * 1e3:.1f} ms "
+            f"({len(data) / decode_s / 1e6:.1f} MB/s, host clock); restore_latest into a bf16 "
+            f"trainer {restore_s * 1e3:.1f} ms wall (read, decode, bridge, copy to the card); "
+            f"{len(want) - len(differ)} of {len(want)} tensors the same bits as the bridged "
+            f"values, keys {'match' if set(want) == set(got) else 'differ'}; optimizer state "
+            f"on the card {on_card} ({len(opt_states)} tensors), capturable {capturable}; step "
+            f"{step}; {card}")
+        if differ or set(want) != set(got) or not on_card or not capturable or step != n:
+            raise AssertionError(f"jax .ckpt restore: differ {differ[:8]}")
+        real = real_batch(device, SEED + 71, 32)
+        zero_counts()
+        trainer.update_step(real)
+        torch.cuda.synchronize()
+        counts = counts_by_map()
+        if counts != expected_launches(32, 1):
+            raise AssertionError(f"jax .ckpt: the restored step's launches {counts}, want "
+                                 f"{expected_launches(32, 1)}")
+        log(f"  the restored bf16 step's launches as phase 6's step: "
+            f"{({k: v for k, v in counts.items() if v})}")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # in child processes beside the f32 checks: the CLI resumes the run
+        # directory, and samples a copy of it
+        cli_args = ["--preset", "fgan32", "--set", f"train.num_epoch_steps={JAX_CLI_EPOCH}",
+                    "--checkpoint"]
+        end = n + JAX_CLI_EPOCH
+        copy = os.path.join(tmp, "copy")
+        os.makedirs(os.path.join(copy, "checkpoints"))
+        shutil.copy(path, os.path.join(copy, "checkpoints"))
+        train_job = cli_start("jax-ckpt-train", ["train", *cli_args, "-e", str(end)], run)
+        sample_job = cli_start("jax-ckpt-sample", ["sample", "--preset", "fgan32",
+                                                   "--num_samples", "64"], copy)
+
+        # f32 from the same restore: kernels against the plain ops, replays against eager steps
+        parsed = flax_msgpack.read(path)
+
+        def restored():
+            t = cli_trainer(device, "fgan32", "f32")
+            t.load_state_dict(ckpt.jax_trainer_state(t, parsed))
+            return t
+
+        g = torch.Generator().manual_seed(SEED + 72)
+        zs = torch.randn(2, BATCH, 128, generator=g).to(device)
+        torch.use_deterministic_algorithms(True)
+        try:
+            kern = restored()
+            names = [f"g.{k}" for k, _ in kern.g.named_parameters()]
+            grads_k = kern.g_loss_and_grads(zs[0])[1]
+            del kern
+            with plain_ops():
+                grads_p = restored().g_loss_and_grads(zs[0])[1]
+            worst, where, worst_norm = grad_gap(grads_k, grads_p, names)
+            lk = restored().update_step(real, zs=zs)
+            with plain_ops():
+                lp = restored().update_step(real, zs=zs)
+            loss_gap = max(abs(lk[k].item() - lp[k].item()) for k in lk)
+            reals = torch.stack([real_batch(device, SEED + 73 + i, 32)
+                                 for i in range(JAX_PARITY_STEPS)])
+            graph, eager = restored(), restored()
+            out = graph.update_steps(reals)
+            ref = [eager.update_step(r) for r in reals]
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        # phase 12's rule: the same bits expected, any gap printed and held to
+        # phase 7's bars, the generators' states exactly
+        replay_gap = max((out[k] - torch.stack([r[k] for r in ref])).abs().max().item()
+                         for k in out)
+        a, b = trainer_state(graph), trainer_state(eager)
+        differ = sorted(k for k in b if not torch.equal(a[k], b[k]))
+        gaps = {k: (a[k].double() - b[k].double()).abs().max().item()
+                / max(b[k].double().abs().max().item(), 1e-30)
+                for k in differ if not k.endswith("generator")}
+        largest = max(gaps.items(), key=lambda kv: kv[1], default=("", 0.0))
+        log(f"  f32 from the restore (deterministic algorithms): generator gradients, kernels "
+            f"vs plain ops, worst rel-max {worst:.3e} ({where}), rel-norm {worst_norm:.3e} "
+            f"(tol {STEP_GRAD_TOL[32]:g}); a step's losses |diff| {loss_gap:.3e} (tol "
+            f"{STEP_LOSS_TOL:g}); {JAX_PARITY_STEPS} replayed steps against eager ones: losses "
+            f"max |diff| {replay_gap:.3e}, {len(b) - len(differ)} of {len(b)} state tensors "
+            f"the same bits, largest rel-max gap {largest[1]:.3e} {largest[0]}; steps "
+            f"{graph.step} and {eager.step}; {card}")
+        if worst > STEP_GRAD_TOL[32] or loss_gap > STEP_LOSS_TOL:
+            raise AssertionError(f"jax .ckpt f32: gradients {worst:.3e}, losses {loss_gap:.3e}")
+        if (replay_gap > STEP_LOSS_TOL or largest[1] > STEP_GRAD_TOL[32]
+                or any(k.endswith("generator") for k in differ)
+                or graph.step != eager.step or graph.step != n + JAX_PARITY_STEPS):
+            raise AssertionError(f"jax .ckpt: replayed steps differ from eager ones: "
+                                 f"{differ[:8]}")
+        del graph, eager, parsed
+
+        batcher = batcher_checks(card)
+        stdout, counts_train = cli_wait(train_job)
+        if f"INFO: resumed from step {n}" not in stdout:
+            raise AssertionError(f"cli: train did not resume the JAX run directory at {n}")
+        listing = sorted(os.listdir(os.path.join(run, "checkpoints")))
+        if listing != sorted([f"ckpt_{end}_steps.pt", f"ckpt_{n}_steps.ckpt"]):
+            raise AssertionError(f"cli: the run directory's checkpoints {listing}")
+        if counts_train != cli_train_launches(32, FU_SHAPES, grids=1):
+            raise AssertionError(f"cli jax-ckpt train launches {counts_train}")
+        stdout, counts_sample = cli_wait(sample_job)
+        if f"INFO: sample from step {n}" not in stdout:
+            raise AssertionError(f"cli: sample did not draw from the JAX checkpoint at {n}")
+        size = png_size(os.path.join(copy, f"samples_{n:06d}.png"))
+        if counts_sample != eval_launches(FU_SHAPES, 2):
+            raise AssertionError(f"cli jax-ckpt sample launches {counts_sample}")
+        log(f"  cli: train resumed the JAX run directory at step {n} and wrote {listing}; "
+            f"sample drew a {size[0]}x{size[1]} grid from the .ckpt; launches as expected; "
+            f"{card}")
+    return {"jax-ckpt": counts, "cli-jax-ckpt-train": counts_train,
+            "cli-jax-ckpt-sample": counts_sample}, dict(restore_s=restore_s, decode_s=decode_s,
+                                                        batcher=batcher)
+
+
 def main() -> int:
+    # Python compiles a module from source wherever it finds no bytecode it
+    # may read or write; where the installed packages are read-only, every
+    # child process compiled torch anew, about 6 s of a 20-30 s CLI child
+    # (cProfile, H100 80GB HBM3 machine). A bytecode cache of this run's own,
+    # which the child processes inherit.
+    pycache = tempfile.TemporaryDirectory(prefix="chip_smoke_pycache_")
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix = pycache.name
+    try:
+        return run()
+    finally:
+        pycache.cleanup()
+
+
+def run() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -5270,6 +5664,8 @@ def main() -> int:
             log(json.dumps({"kernels": tp_rows}))
         elif sys.argv[1] == "32d":
             tensor_parallel_4(device, card)
+        elif sys.argv[1] == "33":
+            jax_checkpoint(device, card)
         else:
             data_parallel_alone(device, card, sys.argv[1])
         phase("result")
@@ -5412,7 +5808,18 @@ def main() -> int:
           "against one")
     tp_rows, tp_counts = tensor_parallel(device, card)
     rows += tp_rows
-    phase("33: result")
+    phase("33: a JAX run directory: a full-width fgan32 .ckpt restored, stepped against the "
+          "plain ops and as replays, resumed and sampled through the CLI; the native batcher")
+    jax_counts, _ = jax_checkpoint(device, card)
+    for row in rows:  # the 32px maps' rows of phases 3 and 5
+        if row.get("phase") not in ("serving", "training") or "co" in row:
+            continue
+        key = tuple(row["shape"]) if row["name"] == "fu_reduce" else tuple(row["shape"][1:])
+        extra = jax_counts["jax-ckpt"].get(row["name"], {}).get(key, 0)
+        if extra and row.get("maps", 1) == 1:
+            row["jax_ckpt_launches"] = extra
+            row["launches"] = row.get("launches", 0) + extra
+    phase("34: result")
     check_main_path_launches({"serving-32px": {"fourier_unit_fwd": by_map},
                               "training-32px": counts_32, "training-128px": counts,
                               "training-sngan": counts_sngan, "training-cond32": counts_c32,
@@ -5421,7 +5828,8 @@ def main() -> int:
                               "lfu-blocks": counts_lfu, "training-cond-sn-d": counts_snd,
                               **remat_counts, **eval_counts,
                               "serving-artifacts": artifact_counts, **serving_counts,
-                              **metric_counts, **dp_counts, "tp-32": tp_counts})
+                              **metric_counts, **dp_counts, "tp-32": tp_counts,
+                              **jax_counts})
     log(json.dumps({"wrapper_calls": calls}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

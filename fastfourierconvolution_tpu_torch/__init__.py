@@ -20,7 +20,8 @@ their plain PyTorch versions on the CPU.
 training CLI, ``python -m fastfourierconvolution_tpu_torch.cli
 train|sample`` (``cli.py``), runs a preset over ``data.load_dataset`` and
 ``data.DataLoader``, saves and resumes through ``train.checkpoint``
-(``save_checkpoint``, ``restore_latest``), parses its arguments with
+(``save_checkpoint``, ``restore_latest``; the JAX package's ``.ckpt`` files
+are read too, through ``train.flax_msgpack``), parses its arguments with
 ``utils.config.parse_cli`` and evaluates the presets' in-loop metrics
 with ``eval.calculate_metrics`` (ISC, FID, KID and PRC over the
 InceptionV3-compat extractor, torch-fidelity's surface). The package imports torch and numpy only

@@ -46,7 +46,10 @@ the wrapped model's variables under it, so they load into
 ``wrapper.module``.
 
 Every JAX leaf must be consumed exactly once and every port parameter and
-buffer filled; anything else raises.
+buffer filled; anything else raises. ``jax_params_to_state_dict`` takes a
+tree in the ``params`` collection's layout alone (the parameters, or an
+optax Adam state's moments, which take the same converters) to the
+model's parameters.
 
 ``inception_variables_to_state_dict`` maps the JAX package's InceptionV3
 variables (``eval/inception.py``) to the port's ``eval.inception``
@@ -195,17 +198,33 @@ def jax_to_state_dict(
     spectral: Optional[Mapping] = None,
 ) -> Dict[str, torch.Tensor]:
     """State dict for ``model`` from the JAX variables of the same model."""
-    leaves = {
-        "params": _flatten(params),
-        "batch_stats": _flatten(batch_stats or {}),
-        "spectral": _flatten(spectral or {}),
-    }
+    return _convert(model, {"params": params, "batch_stats": batch_stats or {},
+                            "spectral": spectral or {}}, model.state_dict())
+
+
+def jax_params_to_state_dict(model: nn.Module, params: Mapping) -> Dict[str, torch.Tensor]:
+    """``model``'s parameters alone, in ``named_parameters()`` order, from a
+    tree in the layout of the JAX ``params`` collection: the parameters
+    themselves, or a tree of the same layout such as an optax Adam state's
+    ``mu`` and ``nu``, which take the parameters' converters."""
+    names = [name for name, _ in model.named_parameters()]
+    state = _convert(model, {"params": params}, names)
+    return {name: state[name] for name in names}
+
+
+def _convert(model: nn.Module, trees: Mapping[str, Mapping], wanted) -> Dict[str, torch.Tensor]:
+    """The port entries of ``model`` that the collections in ``trees`` fill;
+    raises unless every leaf is taken once and every name of ``wanted``
+    filled."""
+    leaves = {collection: _flatten(tree) for collection, tree in trees.items()}
     consumed = {name: set() for name in leaves}
     state: Dict[str, torch.Tensor] = {}
     expected = model.state_dict()
     jax_paths = _jax_paths(model)
     for name, module in model.named_modules():
         for attr, collection, suffix, convert in _leaf_rules(module):
+            if collection not in leaves:
+                continue
             key = f"{name}.{attr}" if name else attr
             path = jax_paths[name] + suffix
             if path not in leaves[collection]:
@@ -224,7 +243,7 @@ def jax_to_state_dict(
         unused = sorted("/".join(p) for p in set(table) - consumed[collection])
         if unused:
             raise KeyError(f"JAX {collection} leaves the port does not take: {unused}")
-    missing = sorted(set(expected) - set(state))
+    missing = sorted(set(wanted) - set(state))
     if missing:
         raise KeyError(f"port entries the JAX variables do not fill: {missing}")
     return state

@@ -59,9 +59,13 @@ single process with T > 1 included). The epoch's sample grid and every
 checkpoint gather over the tp group, so every process takes part and rank
 0 alone writes; checkpoints hold whole tensors, so a run resumes at any T.
 
-Not ported yet, and refused at start: the ``download`` command. ``log.compilation_cache``
-is the JAX package's XLA compile cache: accepted, and nothing in the port
-reads it.
+``download`` fetches ``data.dataset`` into ``data.data_dir`` from its
+canonical source (``data/download.py``). ``train``, ``sample``, ``export``
+and ``fidelity`` read the JAX package's ``.ckpt`` checkpoints too
+(``train/checkpoint.py``): a run directory the JAX CLI wrote resumes (the
+port then writes ``.pt`` files beside the ``.ckpt`` ones), samples and
+scores with the config that run used. ``log.compilation_cache`` is the JAX
+package's XLA compile cache: accepted, and nothing in the port reads it.
 """
 
 from __future__ import annotations
@@ -82,9 +86,6 @@ import torch
 _LEADING = {"ISC": ("inception_score_mean", +1), "FID": ("frechet_inception_distance", -1),
             "KID": ("kernel_inception_distance_mean", -1),
             "PPL": ("perceptual_path_length_mean", -1)}
-_NOT_PORTED = {
-    "download": "the download command is not ported yet (ROADMAP queue 1 item 7)",
-}
 # reference-checkpoint converters by generator (compat.py)
 _CONVERTERS = {"ffc": "convert_fgan_generator", "ffc_cond": "convert_fcond_generator"}
 
@@ -900,8 +901,6 @@ def main(argv: Optional[list] = None) -> None:
     if argv and argv[0] == "fidelity":
         run_fidelity(argv[1:])
         return
-    if argv and argv[0] in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[argv[0]])
     from .utils.config import parse_cli
 
     command, cfg, extras = parse_cli(argv)
@@ -910,8 +909,12 @@ def main(argv: Optional[list] = None) -> None:
         raise SystemExit("fidelity: put the command first — python -m "
                          "fastfourierconvolution_tpu_torch.cli fidelity <input1> [input2] "
                          "[flags]")
-    if command in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[command])
+    if command == "download":
+        from .data.download import fetch
+
+        paths = fetch(cfg.data.dataset, cfg.data.data_dir)
+        print(f"downloaded {len(paths)} file(s) to {cfg.data.data_dir}")
+        return
     # the process of a multi-process launch that will be rank 0 (its group
     # is joined later, in run_train)
     if os.environ.get("FFC_TPU_PROCESS_ID", os.environ.get("RANK", "0")) == "0":

@@ -4,8 +4,8 @@ The same readers, transforms and registry, item for item: MNIST /
 FashionMNIST idx files, CIFAR-10 pickle batches, SVHN ``.mat``, STL-10
 binaries, image folders and uncompressed tar archives on disk, and the
 procedural and bundled sets (``synthetic``, ``shapes``, ``digits``,
-``patches``). Nothing is fetched: ``load_dataset(download=True)`` raises
-where a fetch would be needed.
+``patches``). ``load_dataset(download=True)`` fetches a missing named
+dataset from its canonical source (``data/download.py``) and reads it.
 
 All datasets are simple objects with ``__len__`` and
 ``__getitem__ -> (HWC uint8 image, int label)``; batching and shuffling
@@ -731,8 +731,8 @@ _LOADERS: dict[str, Callable] = {
 }
 
 # Named folder-layout datasets: where their archives land relative to
-# data_dir once extracted (the JAX package's data/download.py fetches
-# them); ImageFolder layouts.
+# data_dir once extracted (data/download.py fetches them); ImageFolder
+# layouts.
 _FOLDER_DATASETS: dict[str, str] = {
     "flowers": "flowers-102",
     "omniglot": "images_background",
@@ -791,9 +791,9 @@ def load_dataset(
     FFC_TPU_DECODE_CACHE_MB budget (2048 MB); random-augmented stacks
     are never cached (they re-sample per access).
 
-    ``download``: the JAX package fetches a missing named dataset from
-    its canonical source; the port does not (ROADMAP queue 1 item 7), and
-    raises NotImplementedError where that fetch would run."""
+    ``download``: fetch a missing named dataset from its canonical source
+    (``data/download.py``, as the JAX package does) and resolve it again;
+    a name without a manifest raises as without ``download``."""
     lname = name.lower()
 
     def _resolve():
@@ -830,13 +830,13 @@ def load_dataset(
 
     try:
         base = _resolve()
-    except FileNotFoundError as e:
-        if not download:
+    except FileNotFoundError:
+        from .download import DOWNLOADS, fetch
+
+        if not (download and lname in DOWNLOADS):
             raise
-        raise NotImplementedError(
-            f"download=True would fetch dataset '{name}' into {data_dir}; the port does not "
-            f"download datasets yet (ROADMAP queue 1 item 7): put the files there by hand"
-        ) from e
+        fetch(lname, data_dir)
+        base = _resolve()
 
     if aug_stack is None and hflip_augment:
         aug_stack = "hflip"

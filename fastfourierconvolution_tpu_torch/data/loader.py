@@ -5,8 +5,11 @@ normalisation to [-1, 1], background prefetch.
     loader's, so the same seed yields the same batches and resuming with
     ``skip_batches`` continues a run's data order exactly;
   * whole batches gathered as one ndarray: uint8 with ``raw_uint8`` (the
-    training CLI normalises on the device), else normalised on the
-    host with numpy, ``x/127.5 - 1`` in f32;
+    training CLI normalises on the device), else normalised on the host:
+    an in-memory store through the native batcher (``native.py``,
+    ``x * float32(1/127.5) - 1`` on C++ threads, one per 4 MiB of the
+    batch: ``native.loader_threads``) where it loads, as the JAX loader
+    does, and otherwise with numpy, ``x/127.5 - 1`` in f32;
   * a background thread keeps ``prefetch`` batches in flight;
   * infinite iteration over epochs (``epochs``).
 """
@@ -18,6 +21,8 @@ import threading
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
+
+from . import native
 
 
 def normalize_to_unit(x: np.ndarray) -> np.ndarray:
@@ -101,7 +106,14 @@ class DataLoader:
         # raw mode: ship uint8 and let the device normalise, 4x less
         # host->device traffic (x/127.5 - 1 is the same f32 op either side)
         ds = self.dataset
-        if hasattr(ds, "images") and hasattr(ds, "labels"):
+        in_memory = hasattr(ds, "images") and hasattr(ds, "labels")
+        if in_memory and not self.raw_uint8:
+            batch_bytes = len(idx) * int(np.prod(ds.images.shape[1:])) * 4
+            out = native.gather_normalize(ds.images, idx,
+                                          n_threads=native.loader_threads(batch_bytes))
+            if out is not None:
+                return out, np.asarray(ds.labels)[idx]
+        if in_memory:
             imgs, labels = np.ascontiguousarray(ds.images[idx]), np.asarray(ds.labels)[idx]
         else:
             items, labels = zip(*self._items(idx))

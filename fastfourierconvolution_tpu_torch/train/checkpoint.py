@@ -3,11 +3,17 @@
 Step-tagged files ``{prefix}_{step}_steps.pt`` in one directory, each the
 ``torch.save`` of a :meth:`GANTrainer.state_dict` (models, optimizer
 moments, learning-rate schedules and counts, random generators, step);
-``get_latest_checkpoint`` finds the newest of one prefix family by its
-step; writes are atomic (tempfile + ``os.replace``) with the mode the
-umask gives; ``save_checkpoint`` prunes the family to its newest ``keep``
-files. The JAX package writes flax msgpack ``.ckpt`` files, so neither
-package picks up the other's.
+writes are atomic (tempfile + ``os.replace``) with the mode the umask
+gives; ``save_checkpoint`` prunes the family's ``.pt`` files to its newest
+``keep``.
+
+The port also reads the JAX package's ``{prefix}_{step}_steps.ckpt``
+files, the flax msgpack of its ``GANState`` (``train/flax_msgpack.py``
+decodes them, with no JAX and no msgpack package): ``get_latest_checkpoint``
+takes the newest file of the family across both suffixes, the ``.pt`` one
+where a step has both, and ``restore_checkpoint`` picks the reader by the
+suffix. The port writes, and prunes, ``.pt`` files alone: a ``.ckpt`` file
+is never deleted.
 """
 
 from __future__ import annotations
@@ -15,17 +21,24 @@ from __future__ import annotations
 import os
 import re
 import tempfile
-from typing import Optional
+from typing import Mapping, Optional
 
+import numpy as np
 import torch
 
+from . import flax_msgpack
+
 SUFFIX = ".pt"
+JAX_SUFFIX = ".ckpt"
+# the suffixes the port reads, the preferred one first where a step has both
+_READ = (SUFFIX, JAX_SUFFIX)
 
 
-def _family_pattern(prefix: str) -> re.Pattern:
-    """Match only ``{prefix}_{N}_steps.pt``: discovery and pruning never
-    cross prefix families that share a directory."""
-    return re.compile(rf"^{re.escape(prefix)}_(\d+)_steps{re.escape(SUFFIX)}$")
+def _family_pattern(prefix: str, suffixes=(SUFFIX,)) -> re.Pattern:
+    """Match only ``{prefix}_{N}_steps`` with one of ``suffixes``: discovery
+    and pruning never cross prefix families that share a directory."""
+    alternatives = "|".join(re.escape(s) for s in suffixes)
+    return re.compile(rf"^{re.escape(prefix)}_(\d+)_steps({alternatives})$")
 
 
 def checkpoint_path(directory: str, step: int, prefix: str = "ckpt") -> str:
@@ -33,25 +46,26 @@ def checkpoint_path(directory: str, step: int, prefix: str = "ckpt") -> str:
 
 
 def get_latest_checkpoint(directory: str, prefix: str = "ckpt") -> Optional[str]:
-    """Newest checkpoint file of the ``prefix`` family by step number, or
-    None."""
+    """Newest checkpoint file of the ``prefix`` family by step number, ``.pt``
+    or ``.ckpt`` (``.pt`` at an equal step), or None."""
     if not os.path.isdir(directory):
         return None
-    pat = _family_pattern(prefix)
-    best_step, best_path = -1, None
+    pat = _family_pattern(prefix, _READ)
+    best, best_path = None, None
     for name in os.listdir(directory):
         m = pat.match(name)
-        if m and int(m.group(1)) > best_step:
-            best_step = int(m.group(1))
-            best_path = os.path.join(directory, name)
+        if m:
+            rank = (int(m.group(1)), -_READ.index(m.group(2)))
+            if best is None or rank > best:
+                best, best_path = rank, os.path.join(directory, name)
     return best_path
 
 
 def save_checkpoint(trainer, directory: str, step: int, prefix: str = "ckpt",
                     keep: int = 3) -> str:
     """Save ``trainer.state_dict()`` to ``{directory}/{prefix}_{step}_steps.pt``
-    atomically; prune the family to the newest ``keep`` files by step
-    (the file just written too, if ``keep`` newer ones exist)."""
+    atomically; prune the family's ``.pt`` files to the newest ``keep`` by
+    step (the file just written too, if ``keep`` newer ones exist)."""
     os.makedirs(directory, exist_ok=True)
     path = checkpoint_path(directory, step, prefix)
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
@@ -79,14 +93,17 @@ def save_checkpoint(trainer, directory: str, step: int, prefix: str = "ckpt",
 
 def restore_checkpoint(trainer, path: str):
     """Load ``path`` into ``trainer`` (``GANTrainer.load_state_dict``, which
-    copies into the live tensors); returns (trainer, step). A JAX ``.ckpt``
-    file raises."""
-    if not path.endswith(SUFFIX):
-        raise ValueError(f"{path} is no {SUFFIX} checkpoint of the port; reading the JAX "
-                         f"package's .ckpt files is not ported yet (ROADMAP queue 1 item 6)")
-    # on the host: the generator states must stay CPU byte tensors, and
-    # load_state_dict copies everything else onto the trainer's device
-    state = torch.load(path, map_location="cpu", weights_only=True)
+    copies into the live tensors): a port ``.pt`` file, or a JAX ``.ckpt``
+    file through :func:`jax_trainer_state`. Returns (trainer, step)."""
+    if path.endswith(JAX_SUFFIX):
+        state = jax_trainer_state(trainer, flax_msgpack.read(path))
+    elif path.endswith(SUFFIX):
+        # on the host: the generator states must stay CPU byte tensors, and
+        # load_state_dict copies everything else onto the trainer's device
+        state = torch.load(path, map_location="cpu", weights_only=True)
+    else:
+        raise ValueError(f"{path}: a checkpoint ends in {SUFFIX} (the port's) or "
+                         f"{JAX_SUFFIX} (the JAX package's)")
     trainer.load_state_dict(state)
     return trainer, trainer.step
 
@@ -98,3 +115,106 @@ def restore_latest(trainer, directory: str, prefix: str = "ckpt"):
     if path is None:
         return trainer, 0
     return restore_checkpoint(trainer, path)
+
+
+# -- the JAX package's GANState --------------------------------------------------------
+
+_NET_KEYS = {"params", "batch_stats", "spectral", "opt_state"}
+_ADAM_KEYS = {"count", "mu", "nu"}
+
+
+def jax_trainer_state(trainer, tree: Mapping) -> dict:
+    """:meth:`GANTrainer.state_dict`'s layout for the state dict of a JAX
+    ``GANState`` (``{"step", "g", "d", "rng"}``, each net ``{"params",
+    "batch_stats", "spectral", "opt_state"}``), with whole tensors as
+    ``load_state_dict`` takes them:
+
+    - each model's variables through ``bridge.jax_to_state_dict``;
+    - the optax Adam entry of each ``opt_state`` chain (the one with
+      ``count``, ``mu`` and ``nu``) to torch's per-parameter ``step``,
+      ``exp_avg`` and ``exp_avg_sq``, the moments through the parameters'
+      converters (``bridge.jax_params_to_state_dict``); AdamW's chain holds
+      one more entry, the decayed weights', which is empty;
+    - the schedule entry's ``count`` (``{"count"}`` alone) to the
+      :class:`LinearDecay` count, and ``lr`` to what ``advance`` set for the
+      last update (D's count runs ``num_dis_updates`` times per step, as
+      the JAX trainer's does);
+    - ``step`` to the host step and, where D takes the training progress
+      (``d_progress_arg``), to its step count.
+
+    ``rng`` has no counterpart: the trainer keeps its own generators'
+    states (those its ``seed`` gave, or the ones it has advanced to), so a
+    resumed run draws other latents and noise than a JAX resume would.
+    A tree that does not match the trainer's models or optimizers raises
+    KeyError or ValueError naming the leaf or the entry."""
+    from ..bridge import jax_params_to_state_dict, jax_to_state_dict
+    from ..nn.ffc import whole_fourier_units
+
+    _want_keys(tree, {"step", "g", "d", "rng"}, "the checkpoint")
+    step = int(np.asarray(tree["step"]))
+    # D's progress counts the steps where D reads it (the JAX trainer reads
+    # state.step), as the port's own step does
+    progress = float(step) if trainer.d_progress_arg else 0.0
+    state = {"step": step, "step_count": torch.tensor(progress),
+             "z_generator": trainer.z_generator.get_state(),
+             "noise_generator": trainer.noise_generator.get_state()}
+    # under tensor parallelism the models' shapes are the whole mixes'
+    with whole_fourier_units(trainer.g), whole_fourier_units(trainer.d):
+        for side, model, opt, schedule in (("g", trainer.g, trainer.g_opt, trainer.g_lr),
+                                           ("d", trainer.d, trainer.d_opt, trainer.d_lr)):
+            net = tree[side]
+            _want_keys(net, _NET_KEYS, side)
+            state[side] = jax_to_state_dict(model, net["params"], net["batch_stats"],
+                                            net["spectral"])
+            adam, count = _optax_entries(net["opt_state"], side,
+                                         decayed=isinstance(opt, torch.optim.AdamW))
+            mu = jax_params_to_state_dict(model, adam["mu"])
+            nu = jax_params_to_state_dict(model, adam["nu"])
+            updates = torch.tensor(float(np.asarray(adam["count"])))
+            state[f"{side}_opt"] = [{"step": updates, "exp_avg": mu[name],
+                                     "exp_avg_sq": nu[name]} for name in mu]
+            state[f"{side}_lr"] = _schedule_state(schedule, int(np.asarray(count)))
+    return state
+
+
+def _want_keys(tree, keys, where: str) -> None:
+    if not isinstance(tree, Mapping) or set(tree) != keys:
+        got = sorted(tree) if isinstance(tree, Mapping) else type(tree).__name__
+        raise KeyError(f"{where}: want the entries {sorted(keys)}, the file has {got}")
+
+
+def _optax_entries(opt_state, side: str, decayed: bool):
+    """(the Adam entry, the schedule's count) of an optax ``chain`` state:
+    Adam's ``{count, mu, nu}``, the schedule's ``{count}`` and, with
+    ``decayed`` (AdamW), the decayed weights' empty entry, in any order."""
+    where = f"{side}/opt_state"
+    if not isinstance(opt_state, Mapping):
+        raise ValueError(f"{where}: want an optax chain's entries, the file has "
+                         f"{type(opt_state).__name__}")
+    kinds = {"adam": [], "schedule": [], "empty": []}
+    for key, entry in opt_state.items():
+        keys = set(entry) if isinstance(entry, Mapping) else None
+        kind = ("adam" if keys == _ADAM_KEYS else "schedule" if keys == {"count"}
+                else "empty" if keys == set() or entry is None else None)
+        if kind is None:
+            raise ValueError(f"{where}/{key}: an optimizer entry the port does not take "
+                             f"({sorted(keys) if keys is not None else type(entry).__name__})")
+        kinds[kind].append(entry)
+    want = {"adam": 1, "schedule": 1, "empty": 1 if decayed else 0}
+    got = {k: len(v) for k, v in kinds.items()}
+    if got != want:
+        raise ValueError(f"{where}: the trainer's {'AdamW' if decayed else 'Adam'} wants "
+                         f"entries {want}, the file has {got}")
+    return kinds["adam"][0], kinds["schedule"][0]["count"]
+
+
+def _schedule_state(schedule, count: int) -> dict:
+    """A :class:`LinearDecay`'s ``lr`` and count after ``count`` updates:
+    ``lr`` as ``advance`` set it for the last one (the base rate before
+    any)."""
+    done = torch.tensor(float(count))
+    if count == 0:
+        lr = torch.full((), schedule.base)
+    else:
+        lr = torch.clamp_min(1.0 - (done - 1.0) / schedule.total, 0.0) * schedule.base
+    return {"lr": lr, "count": done}

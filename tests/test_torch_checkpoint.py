@@ -11,8 +11,10 @@
   stepped gets its moments created; a state of other models raises.
 - The file rules are the JAX module's: ``{prefix}_{N}_steps`` discovery
   within one family, pruning to the newest ``keep``, atomic writes with the
-  umask's mode, ``(trainer, 0)`` where no checkpoint exists; the port's
-  ``.pt`` files and the JAX ``.ckpt`` files never pick up each other.
+  umask's mode, ``(trainer, 0)`` where no checkpoint exists; the JAX
+  package's discovery never picks up the port's ``.pt`` files, and the
+  port's picks up the JAX ``.ckpt`` files as the JAX package's does
+  (``tests/test_torch_jax_checkpoint.py`` reads them).
 """
 
 from __future__ import annotations
@@ -174,8 +176,11 @@ def test_a_state_of_other_models_raises(tmp_path):
     other = _trainer("cond_dcgan")
     with pytest.raises(RuntimeError):
         ckpt.restore_latest(other, str(tmp_path))
-    with pytest.raises(ValueError, match="JAX package's .ckpt"):
-        ckpt.restore_checkpoint(other, str(tmp_path / "ckpt_1_steps.ckpt"))
+    # a JAX package's .ckpt file whose tree is no GANState of these models
+    jckpt.save_checkpoint({"step": np.int32(1), "g": {}, "d": {}, "rng": np.zeros(2, np.uint32)},
+                          str(tmp_path / "jax"), 1)
+    with pytest.raises(KeyError, match="want the entries"):
+        ckpt.restore_checkpoint(other, str(tmp_path / "jax" / "ckpt_1_steps.ckpt"))
 
 
 class _Stub:
@@ -202,8 +207,9 @@ def test_families_and_pruning_follow_the_jax_rules(tmp_path):
         got = ckpt.get_latest_checkpoint(str(ours), prefix)
         want = jckpt.get_latest_checkpoint(str(theirs), prefix)
         assert os.path.basename(got)[:-3] == os.path.basename(want)[:-5]
-    # neither package's discovery sees the other's files
-    assert ckpt.get_latest_checkpoint(str(theirs)) is None
+    # the JAX package's discovery does not see the port's files; the port's
+    # sees the JAX package's and picks the same one
+    assert ckpt.get_latest_checkpoint(str(theirs)) == jckpt.get_latest_checkpoint(str(theirs))
     assert jckpt.get_latest_checkpoint(str(ours)) is None
     assert ckpt.get_latest_checkpoint(str(tmp_path / "absent")) is None
     # a step that shares a prefix's digits is no member of another family

@@ -16,8 +16,13 @@ against the JAX package's, on the CPU.
   the losses of single steps (with a profiler trace taken on the way);
   ``sample`` writes its grid, the per-sample
   PNGs and the feature-map figure; each option the port does not have
-  raises with its message; ``train`` on the shapes data imports nothing
-  beyond torch, numpy and the standard library.
+  raises with its message; ``download`` fetches through the transport.
+- A run directory whose one checkpoint the JAX package wrote (a ``.ckpt``
+  after one jitted step of TINY's models): ``sample`` draws from it,
+  ``train`` resumes it at its step and writes ``.pt`` files beside it; in
+  a child process that cannot import jax, flax, optax, msgpack or the JAX
+  package, on the shapes data, too (``train`` there imports nothing beyond
+  torch, numpy and the standard library).
 - ``train`` with ``eval.prc`` and ``eval.ppl`` logs both (weights-free);
   ``fidelity -r`` prints ``calculate_metrics``' PRC, and ``fidelity -p``
   of the run directory the PPL the run logged.
@@ -459,7 +464,6 @@ def test_train_evaluates_prc_and_ppl(metric, prc_ppl_run):
 REFUSED = [
     (["train", *TINY, "--set", "train.tp=2"], ValueError, "must divide the process count 1"),
     (["train", *TINY, "--set", "train.steps_per_call=4"], ValueError, "must divide"),
-    (["download", "--dataset", "mnist"], NotImplementedError, "queue 1 item 7"),
     (["sample", *TINY, "--num_samples", "0"], SystemExit, "num_samples"),
     (["sample", *TINY], SystemExit, "no checkpoint found"),
     (["export", *TINY], SystemExit, "no checkpoint found"),
@@ -503,29 +507,104 @@ def test_refusals_at_start(tmp_path, monkeypatch):
     assert not os.listdir(tmp_path)  # nothing written before the refusals
 
 
+def test_download_fetches_the_dataset(tmp_path, monkeypatch, capsys):
+    """``download`` runs ``data/download.py``'s ``fetch`` of ``--dataset``
+    into ``--data_path``, every file through the transport."""
+    from fastfourierconvolution_tpu_torch.data import download
+
+    opened = []
+
+    def transport(url):
+        opened.append(url)
+        return io.BytesIO(b"svhn bytes")
+
+    monkeypatch.setattr(download, "_default_transport", transport)
+    monkeypatch.setenv("FFC_TPU_DOWNLOAD_NO_VERIFY", "1")
+    _run(["download", "--dataset", "svhn", "--data_path", str(tmp_path)])
+    assert f"downloaded 2 file(s) to {tmp_path}" in capsys.readouterr().out
+    assert opened == [f.url for f in download.DOWNLOADS["svhn"]]
+    assert sorted(os.listdir(tmp_path)) == ["test_32x32.mat", "train_32x32.mat"]
+
+
+@pytest.fixture(scope="module")
+def jax_run_dir(tmp_path_factory):
+    """A run directory whose one checkpoint the JAX package wrote: TINY's
+    config (the same ``make_config`` and overrides) built by the JAX zoo,
+    its trainer keyed as the JAX CLI keys it, seeded variables, one jitted
+    step, ``save_checkpoint`` at step 1."""
+    from fastfourierconvolution_tpu.train.checkpoint import save_checkpoint
+    from fastfourierconvolution_tpu.zoo import build_models as jbuild_models
+
+    from test_torch_jax_checkpoint import _seeded_state
+
+    jcfg = jconfig.apply_overrides(jconfig.make_config(), TINY[1::2])
+    m, t = jcfg.model, jcfg.train
+    trainer = jtrain.GANTrainer(*jbuild_models(jcfg), z_size=m.z_size, lr=t.lr,
+                                total_steps=t.num_total_steps, optimizer=t.optimizer,
+                                b1=t.beta1, b2=t.beta2)
+    size = jcfg.data.image_size
+    state = _seeded_state(trainer, m.z_size, size)
+    real = np.random.default_rng(3).uniform(-1, 1, (t.batch_size, size, size, 3))
+    state, _ = jax.jit(trainer.update_step)(state, jnp.asarray(real, jnp.float32))
+    run = str(tmp_path_factory.mktemp("jax_run"))
+    save_checkpoint(state, os.path.join(run, "checkpoints"), 1)
+    return run
+
+
+def _copy_run(run, tmp_path):
+    import shutil
+
+    return shutil.copytree(run, str(tmp_path / "run"))
+
+
+def test_train_resumes_and_sample_reads_a_jax_run_directory(jax_run_dir, tmp_path, capsys):
+    run = _copy_run(jax_run_dir, tmp_path)
+    _run(["sample", *TINY, "--num_samples", "4", "-o", run])
+    assert "INFO: sample from step 1" in capsys.readouterr().out
+    assert os.path.exists(os.path.join(run, "samples_000001.png"))
+    _run(["train", "-e", "3", *TINY, "-o", run])
+    assert "INFO: resumed from step 1" in capsys.readouterr().out
+    assert [r[0] for r in _loss_rows(run)] == ["1", "2"]
+    assert sorted(os.listdir(os.path.join(run, "checkpoints"))) == [
+        "ckpt_1_steps.ckpt", "ckpt_3_steps.pt"]
+    _run(["sample", *TINY, "--num_samples", "4", "-o", run])
+    assert "INFO: sample from step 3" in capsys.readouterr().out
+
+
 # A child process in which the optional packages are absent (a None entry
 # in sys.modules makes an import raise and find_spec report no module).
 WITHOUT_OPTIONAL_PACKAGES = """
 import sys
 for name in ('PIL', 'matplotlib', 'sklearn', 'scipy', 'tensorboardX', 'tqdm', 'jax', 'flax',
-             'fastfourierconvolution_tpu'):
+             'optax', 'msgpack', 'fastfourierconvolution_tpu'):
     sys.modules[name] = None
 from fastfourierconvolution_tpu_torch import cli
 cli.main(sys.argv[1:])
 """
 
 
-def test_train_needs_only_torch_and_numpy(tmp_path):
-    run = str(tmp_path / "run")
-    child = subprocess.run(
-        [sys.executable, "-c", WITHOUT_OPTIONAL_PACKAGES, "train", "-e", "3", *TINY,
-         "--set", "data.dataset=shapes", *CPU, "-o", run],
-        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        capture_output=True, text=True, timeout=300)
-    assert child.returncode == 0, child.stderr[-3000:]
-    assert "WARNING: loss plot failed" in child.stdout
+def test_train_needs_only_torch_and_numpy(jax_run_dir, tmp_path):
+    """On a copy of the JAX run directory: ``train`` resumes its ``.ckpt``
+    and ``sample`` draws from the ``.pt`` that train wrote."""
+    run = _copy_run(jax_run_dir, tmp_path)
+
+    def child(*argv):
+        out = subprocess.run(
+            [sys.executable, "-c", WITHOUT_OPTIONAL_PACKAGES, *argv, *TINY,
+             "--set", "data.dataset=shapes", *CPU, "-o", run],
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        return out.stdout
+
+    stdout = child("train", "-e", "3")
+    assert "INFO: resumed from step 1" in stdout
+    assert "WARNING: loss plot failed" in stdout
     assert {"000003.png", "gan_losses.csv", "scalars.jsonl"} <= set(os.listdir(run))
     assert "tb" not in os.listdir(run)
+    assert sorted(os.listdir(os.path.join(run, "checkpoints"))) == [
+        "ckpt_1_steps.ckpt", "ckpt_3_steps.pt"]
+    assert "INFO: sample from step 3" in child("sample", "--num_samples", "4")
 
 
 # --- export, sample --exported, --torch_checkpoint, fidelity --------------------------

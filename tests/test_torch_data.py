@@ -10,9 +10,17 @@
   class is only in its second member the port counts it, where the JAX
   function reads the first member only.
 - ``DataLoader`` yields the JAX loader's batches over two epochs for the
-  same seed, uint8 or normalised, and after ``skip_batches``; ``epochs()``
-  stops its thread when closed and raises a dataset's failure.
-- ``load_dataset(download=True)`` refuses to fetch.
+  same seed, uint8 or normalised (both loaders' in-memory batches through
+  the native batcher), and after ``skip_batches``; ``epochs()`` stops its
+  thread when closed and raises a dataset's failure.
+- ``data/native.py``: where ``native/libffc_batcher.so`` is absent the port
+  builds ``native/ffc_batcher.cpp`` into its ``_build/`` and leaves
+  ``native/`` as it found it; the batcher gives numpy's
+  ``x * float32(1/127.5) - 1`` bit for bit (with the flip too), and the
+  JAX package's shuffle; bad arguments raise ValueError; a failed build
+  prints the compiler's message once and leaves the numpy path.
+- ``load_dataset(download=True)`` fetches a missing dataset through the
+  transport (``tests/test_torch_download.py`` runs the rest offline).
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import fastfourierconvolution_tpu.data.datasets as jds
 import fastfourierconvolution_tpu.data.loader as jloader
 import fastfourierconvolution_tpu.data.native as jnative
 from fastfourierconvolution_tpu_torch.data import datasets as ds
-from fastfourierconvolution_tpu_torch.data import loader
+from fastfourierconvolution_tpu_torch.data import download, loader, native
 
 
 def assert_same_items(ours, theirs):
@@ -176,11 +184,34 @@ def test_num_classes_of_takes_every_concat_member():
     assert ds.num_classes_of(None) == 0
 
 
-def test_download_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        ds.load_dataset("mnist", str(tmp_path), 28, 1, download=True)
+def _idx_bytes(arr):
+    """An idx file's bytes: (N, 28, 28) images or (N,) labels, uint8."""
+    if arr.ndim == 3:
+        return struct.pack(">IIII", 2051, *arr.shape) + arr.tobytes()
+    return struct.pack(">II", 2049, arr.shape[0]) + arr.tobytes()
+
+
+def test_load_dataset_download_fetches_through_the_transport(tmp_path, monkeypatch):
+    """A missing MNIST is fetched (every file through the transport, no URL
+    opened) and read; without ``download`` it raises as before."""
+    data = _images(np.random.RandomState(4), 3, 28, 28, 1)[..., 0]
+    files = {"train-images-idx3-ubyte.gz": gzip.compress(_idx_bytes(data)),
+             "train-labels-idx1-ubyte.gz": gzip.compress(_idx_bytes(np.arange(3, dtype=np.uint8))),
+             "t10k-images-idx3-ubyte.gz": b"", "t10k-labels-idx1-ubyte.gz": b""}
+    opened = []
+
+    def transport(url):
+        opened.append(url)
+        return io.BytesIO(files[url.rsplit("/", 1)[1]])
+
+    monkeypatch.setattr(download, "_default_transport", transport)
+    monkeypatch.setenv("FFC_TPU_DOWNLOAD_NO_VERIFY", "1")
     with pytest.raises(FileNotFoundError):
         ds.load_dataset("mnist", str(tmp_path), 28, 1)
+    got = ds.load_dataset("mnist", str(tmp_path), 28, 1, download=True)
+    assert sorted(u.rsplit("/", 1)[1] for u in opened) == sorted(files)
+    assert len(got) == 3 and got[2][1] == 2
+    assert got[1][0][..., 0].tobytes() == data[1].tobytes()
 
 
 def test_a_missing_package_is_named(monkeypatch):
@@ -204,11 +235,11 @@ def _batches(stream, n):
 
 @pytest.mark.parametrize("raw", [True, False])
 @pytest.mark.parametrize("lazy", [False, True])
-def test_loader_matches_jax_over_two_epochs(raw, lazy, monkeypatch, tmp_path):
-    # the JAX loader's normalised in-memory path goes through its native
-    # engine when built, which multiplies by 1/127.5 (a different rounding
-    # for 111 of the 256 values); its numpy fallback is the reference
-    monkeypatch.setattr(jnative, "gather_normalize", lambda *a, **k: None)
+def test_loader_matches_jax_over_two_epochs(raw, lazy, tmp_path):
+    # both loaders' normalised in-memory batches go through the native
+    # batcher, which multiplies by 1/127.5 (111 of the 256 levels round
+    # otherwise than numpy's division)
+    assert native.available() and jnative.available()
     if lazy:
         write_folder(str(tmp_path), np.random.RandomState(1))
         data = ds.ImageFolderDataset(str(tmp_path), size=8)
@@ -286,3 +317,73 @@ def test_loader_rejects_an_uneven_process_split():
     whole = list(loader.DataLoader(data, 8, seed=2))
     for (x0, _), (x1, _), (x, _) in zip(*parts, whole):
         assert np.array_equal(np.concatenate([x0, x1]), x)
+
+
+# --- the native batcher -----------------------------------------------------------------
+
+
+def _fresh_native(monkeypatch):
+    """``native`` as a process that has not loaded the library yet."""
+    for name, value in (("_tried", False), ("_lib", None), ("_path", None)):
+        monkeypatch.setattr(native, name, value)
+
+
+def test_the_batcher_is_built_under_build_and_native_is_left_as_found(monkeypatch, tmp_path):
+    before = sorted(os.listdir(native.NATIVE_DIR))
+    _fresh_native(monkeypatch)
+    monkeypatch.setattr(native, "PREBUILT", tmp_path / "absent.so")
+    assert native.available()
+    assert native.library_path() == native.built_path()
+    assert native.library_path().parent == native.BUILD_DIR
+    assert native.BUILD_DIR.parent.name == "fastfourierconvolution_tpu_torch"
+    assert sorted(os.listdir(native.NATIVE_DIR)) == before
+    images = _images(np.random.RandomState(5), 6, 5, 7, 3)
+    idx = np.array([4, 0, 4, 2])
+    scale = np.float32(1 / 127.5)
+    want = images[idx].astype(np.float32) * scale - np.float32(1)
+    for threads in (0, 1, 3):
+        assert native.gather_normalize(images, idx, n_threads=threads).tobytes() == want.tobytes()
+    assert (native.gather_normalize(images, idx, hflip=True).tobytes()
+            == np.ascontiguousarray(want[:, :, ::-1]).tobytes())
+    perm = native.shuffle_indices(1000, 17)
+    assert perm.dtype == np.int64 and sorted(perm) == list(range(1000))
+    assert np.array_equal(perm, jnative.shuffle_indices(1000, 17))
+    assert not np.array_equal(perm, native.shuffle_indices(1000, 18))
+
+
+def test_the_loader_asks_one_thread_per_4_mib(monkeypatch):
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(6)))
+    assert [native.loader_threads(n << 20) for n in (0, 1, 4, 12, 13, 100)] == [1, 1, 1, 3, 3, 6]
+
+
+@pytest.mark.parametrize("call, message", [
+    (lambda im: native.gather_normalize(im.astype(np.float32), [0]), "uint8"),
+    (lambda im: native.gather_normalize(im[0], [0]), r"\(N, H, W, C\)"),
+    (lambda im: native.gather_normalize(im[:, :, ::2], [0]), "C-contiguous"),
+    (lambda im: native.gather_normalize(im, [[0]]), "1-d integer"),
+    (lambda im: native.gather_normalize(im, [0.5]), "1-d integer"),
+    (lambda im: native.gather_normalize(im, [0, 4]), r"in \[0, 4\)"),
+    (lambda im: native.gather_normalize(im, [-1]), r"in \[0, 4\)"),
+    (lambda im: native.gather_normalize(im, [0], n_threads=-2), "n_threads"),
+    (lambda im: native.shuffle_indices(-1, 0), "n must be"),
+    (lambda im: native.shuffle_indices(3, -1), "unsigned 64-bit"),
+])
+def test_bad_batcher_arguments_raise(call, message):
+    images = np.zeros((4, 2, 6, 3), np.uint8)
+    with pytest.raises(ValueError, match=message):
+        call(images)
+
+
+def test_a_failed_build_prints_once_and_leaves_numpy(monkeypatch, tmp_path, capsys):
+    _fresh_native(monkeypatch)
+    monkeypatch.setattr(native, "PREBUILT", tmp_path / "absent.so")
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("CXX", "false")
+    images = _images(np.random.RandomState(6), 4, 3, 3, 3)
+    assert native.gather_normalize(images, [1, 2]) is None
+    assert native.shuffle_indices(5, 1) is None
+    err = capsys.readouterr().err
+    assert err.count("WARNING: the native batcher is unavailable") == 1 and "exited 1" in err
+    data = ds.ArrayDataset(images, np.arange(4))
+    x, _ = next(iter(loader.DataLoader(data, 2, seed=0)))
+    assert x.dtype == np.float32 and x.shape == (2, 3, 3, 3)

@@ -170,6 +170,7 @@ def _jax_tiny(tmp_path):
     import jax.numpy as jnp
 
     import fastfourierconvolution_tpu.models.ffc_gan as jffc_gan
+    import fastfourierconvolution_tpu.train.checkpoint as jckpt
     from fastfourierconvolution_tpu.train import GANTrainer as JGANTrainer
     from fastfourierconvolution_tpu.utils import policy as jpolicy
     from fastfourierconvolution_tpu_torch import FFCGenerator, SNConvDiscriminator
@@ -203,12 +204,15 @@ def _jax_tiny(tmp_path):
             losses.append((float(metrics["loss_g"]), float(metrics["loss_d"])))
             states.append(port(*jax.device_get(((state.g.params, state.d.params),
                                                 state.g.batch_stats, state.d.spectral))))
+            if k == 0:  # the JAX package's checkpoint after step 1
+                jckpt.save_checkpoint(state, str(tmp_path / "jax"), 1)
     split = lambda side: {k[2:]: v for k, v in init.items() if k.startswith(side + ".")}
     torch.save({"g_cfg": TINY_G, "packed": False, "d_kind": "sn", "d_cfg": TINY_D,
                 "options": dict(z_size=TINY_G["z_size"]), "g": split("g"), "d": split("d")},
                tmp_path / "init-tiny.pt")
     np.savez(tmp_path / "data-tiny.npz", reals=reals, zs=zs)
-    return {"losses": losses, "states": states}, {
+    return {"losses": losses, "states": states,
+            "ckpt": str(tmp_path / "jax" / "ckpt_1_steps.ckpt")}, {
         "inputs": str(tmp_path / "init-tiny.pt"), "data": str(tmp_path / "data-tiny.npz")}
 
 
@@ -296,6 +300,23 @@ def test_checkpoints_move_between_grids(tiny_runs, tmp_path):
             elif want.is_floating_point():
                 np.testing.assert_allclose(got.numpy(), want.numpy(), atol=STATE_TOL,
                                            err_msg=name)
+
+
+def test_a_jax_checkpoint_restores_under_tp(tiny_runs, tmp_path):
+    """The JAX trainer's ``.ckpt`` after step 1 restored into a dp 1 x tp 2
+    group, each process taking its slices of the whole mixes, and continued
+    to step 2 in lockstep with the JAX trainer's second step."""
+    jax_run, ref, _, spec = tiny_runs
+    outs = run_group(tmp_path, {**spec, "case": "ckpt", "tp": 2, "steps": (1, 2),
+                                "restore": jax_run["ckpt"]})
+    assert all(torch.equal(outs[0]["states"][0][n], outs[1]["states"][0][n])
+               for n in outs[0]["states"][0])
+    np.testing.assert_allclose(outs[0]["losses"][0], jax_run["losses"][1], rtol=JAX_LOSS_RTOL,
+                               atol=JAX_LOSS_ATOL)
+    for name in ref["params"]:
+        np.testing.assert_allclose(outs[0]["states"][0][name].numpy(),
+                                   jax_run["states"][1][name].numpy(), atol=JAX_PARAM_ATOL,
+                                   err_msg=name)
 
 
 def test_cli_trains_under_tp_and_resumes(tmp_path):

@@ -42,6 +42,7 @@ from fastfourierconvolution_tpu_torch.nn import layers  # noqa: E402
 from fastfourierconvolution_tpu_torch.ops import bn_act as ba  # noqa: E402
 from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu  # noqa: E402
 from fastfourierconvolution_tpu_torch.train import losses as tlosses  # noqa: E402
+from fastfourierconvolution_tpu_torch.train.checkpoint import restore_checkpoint  # noqa: E402
 
 # The JAX multi-process test's pair (tests/test_multihost.py), 8px.
 MULTIHOST_G = dict(z_size=32, ngf=16, ratio_g=0.25, mg=2, channel_mults=(4, 2))
@@ -234,7 +235,9 @@ def _states(trainer):
 
 
 def ckpt_case(spec):
-    """From ``spec["restore"]`` (a checkpoint) or from the pair's init: a
+    """From ``spec["restore"]`` (a checkpoint of the port, ``.pt``, or of the
+    JAX package, ``.ckpt``: ``train.checkpoint.restore_checkpoint``) or from
+    the pair's init: a
     trainer takes the data's steps ``spec["steps"]`` (a range), returns the
     losses and states after each, and saves its state at the end to
     ``spec["save"]`` (rank 0 writes, every process gathers)."""
@@ -243,7 +246,7 @@ def ckpt_case(spec):
     with _patched(ffc_gan, "draw_noise", _no_noise):
         trainer = GANTrainer(g, d, total_steps=100, device="cpu", dtype="f32", **kw)
         if spec.get("restore"):
-            trainer.load_state_dict(torch.load(spec["restore"], weights_only=True))
+            restore_checkpoint(trainer, spec["restore"])
         out = {"losses": [], "states": []}
         for k in range(*spec["steps"]):
             z = np.stack([_rows(zz) for zz in data["zs"][k]])
