@@ -100,11 +100,21 @@ Phases, each of which raises on a failed check:
     item (at 48x48 the statistics, the backward sums and the backward apply
     fit only on clusters of 2 ranks or more), with each 48x48 training
     kernel's ranks, device ms, bound and times its bound printed beside the
-    workspace design's readings there; the four workspace kernels (forward,
-    statistics, backward sums, backward apply) at the 96px generator's map
-    at batch 8, (8,8,96,96), checked the same way (no main path runs
-    them); bf16 training of the ``fgan_cond48`` pair (``stl48`` against
-    ``CondSNDiscriminator(48)``) as in phase 6;
+    workspace design's readings there; bf16 training of the
+    ``fgan_cond48`` pair (``stl48`` against ``CondSNDiscriminator(48)``) as
+    in phase 6; the 96px generator's 96x96 map at batch 8 and 64,
+    (8,8,96,96) and (64,8,96,96), where every wrapper runs the staged
+    kernels with dense DFT transforms, checked as in phase 9 (the dense
+    ``fu_spectrum`` and ``fu_inverse``, every stage and the training op's
+    staged forward and backward), each wrapper's device ms a call at batch
+    8 beside the workspace design's there; the
+    four workspace kernels at a map only they take, (8,12,64,64), checked
+    as in phases 3 and 5 (no main path runs them); the 96px pair,
+    ``FFCGenerator.for_resolution(96)`` against
+    ``SNConvDiscriminator.for_resolution(96)``, trained in bf16 at batch 64
+    as in phase 6 (2 checked eager steps, ``update_steps`` with K = 4), 4
+    replayed f32 steps against 4 eager ones as in phase 12, and an f32 step
+    against the plain ops as in phase 7 (each part's seconds printed);
 16. wgan-gp on the sngan pair, whose gradient penalty takes D's
     FourierUnits' double backward: exact launches per f32 step (D's maps 4
     training forwards and 5 kernel backwards: the penalty's first-order
@@ -153,7 +163,7 @@ Phases, each of which raises on a failed check:
 23. ``fgan64``'s staged FourierUnit map (64,8,64,64): its kernels checked
     as in phase 9, an eager step of the CLI's pair with exact launches per
     map (the kernels line's launches for these rows, per step), eager and
-    replayed step times, then 32 steps through the CLI;
+    replayed step times; 32 steps through the CLI (beside phase 26);
 24. the FFC layer options: the FourierUnit kernels at the local Fourier
     units' maps (half the size of the 32px and 128px FourierUnit maps,
     the same channels; each map's ``kernel_design`` printed) and at the
@@ -163,18 +173,23 @@ Phases, each of which raises on a failed check:
     packed blocks with biases, each with ``enable_lfu``, in bf16 at batch
     64 (a training pass and an eval forward, exact launches per map, the
     outputs against the plain ops', timed with both) and in f32 against
-    the plain ops (outputs and gradients), at phase 5's bars;
+    the plain ops (outputs and gradients), at phase 5's bars; at
+    (64,256,4,4) and (64,128,16,16) the sliced statistics, backward sums
+    and backward apply timed against the workspace kernels at the same map;
     ``FFCCondDCGANDiscriminator(use_sn=True)`` at its JAX defaults trained
-    against the ``train_cond`` generator, eagerly and replayed;
+    against the ``train_cond`` generator, eagerly (exact launches: at
+    (256,4,4) the statistics and both backward kernels once per
+    out-channel slice) and replayed (wall and device ms a replayed step,
+    beside the workspace design's wall ms);
 25. ``remat`` none, dots and full on fgan32 and fgan128 (bench.py's
     setting): an eager step's launches (G's forward kernels a third time
     per step under remat) and peak memory, the captured step's memory
     pool, the replayed step's wall and device ms; 4 replayed f32 steps with
     remat against 4 without, the same bits expected;
 26. a process's first run of a configuration against its second, in
-    fresh child processes side by side (``first_run_child``; phase 22's
-    and phase 31e's CLI runs beside them: child processes that time
-    nothing): sagan's replayed f32 step
+    fresh child processes side by side (``first_run_child``; the CLI runs
+    of phases 22, 23, 29, 30 and 31e beside them: child processes that
+    time nothing): sagan's replayed f32 step
     and replayed wgan-gp on the sngan pair under remat "dots", each run a
     new trainer from the same seeds under deterministic algorithms, every
     aten op's output bits recorded by a ``TorchDispatchMode``; the first op
@@ -189,8 +204,8 @@ Phases, each of which raises on a failed check:
     every tap on 64 images, its ms per image at batch 64 and 128; then
     ``calculate_metrics`` ISC, FID and KID, weights-free and with the
     seeded weights file, on the card against the CPU;
-28. ``fgan32`` through the CLI with its preset's metrics (ISC and FID, then
-    with KID), weights-free, on its 10,000 samples, two epochs of one
+28. ``fgan32`` through the CLI with its preset's metrics (ISC and FID, and
+    beside it with KID), weights-free, on its 10,000 samples, two epochs of one
     chunk, with best-metric checkpoints: the metrics logged, one checkpoint
     in ``best/``, no failed eval, exact launches (the eval's 157 generate
     requests an epoch); eval seconds, generate ms per request and
@@ -205,13 +220,13 @@ Phases, each of which raises on a failed check:
     call, exactly one forward kernel (its three stages on a staged map) per
     FourierUnit map and request; ms per batch-64 request beside the
     in-process ``generate``'s, and the host µs per ``fourier_unit_eval``
-    call through the registered op and as before it; then through the
-    CLI: ``export`` of phase 21's fgan32 run directory, ``sample
-    --exported``, ``fidelity`` ISC and FID of the artifact and of the run
-    directory against the shapes set (weights-free, the same latents,
-    within ``FIDELITY_TOL`` of each other), and ``export
-    --torch_checkpoint`` of a seeded reference-layout ``.pth`` against the
-    converted model's ``generate``;
+    call through the registered op and as before it; through the CLI
+    (beside phase 26): ``export`` of phase 21's fgan32 run directory,
+    ``sample --exported``, ``fidelity`` ISC and FID of the artifact and of
+    the run directory against the shapes set (weights-free, the same
+    latents, within ``FIDELITY_TOL`` of each other), and ``export
+    --torch_checkpoint`` of a seeded reference-layout ``.pth``, whose
+    artifact is held here against the converted model's ``generate``;
 30. the rest of the metric pipeline: the VGG16 (fc2, fc2_relu), LPIPS
     (resize 64), ``clip-vit-b-32``, ``clip-rn50`` and ``dinov2-vit-s-14``
     extractors at their official sizes with seeded weights, on the card
@@ -224,10 +239,10 @@ Phases, each of which raises on a failed check:
     2,048 samples) with exact launches (two per map and batch), the same
     bits on a second call, LPIPS on the card against the CPU on one
     batch's image pairs within 1e-4 relative each, and PPL's seconds per
-    10,000 samples; then through the CLI: fgan32 ``train`` with
-    ``eval.prc`` and ``eval.ppl``, ``export`` of its run directory, and
-    ``fidelity -r -p`` of the run directory and of the artifact against
-    the shapes set, every metric key present and finite, exact launches;
+    10,000 samples; through the CLI (beside phase 26): fgan32 ``train`` with
+    ``eval.prc`` and ``eval.ppl``, and ``fidelity -r -p`` of its run
+    directory and of phase 29's fgan32 artifact against the shapes set,
+    every metric key present and finite, exact launches;
 31. data parallelism (``parallel``), every process a child process of
     this one with the CUDA libraries built here: (a) fgan32 and (b)
     fgan128 (bf16, global batch 64) as two processes of one gloo group on
@@ -294,7 +309,9 @@ Phases, each of which raises on a failed check:
 
 Exits non-zero, printing no result, where CUDA is absent.
 
-``python3 chip_smoke.py 31`` runs phase 31 alone (after the build),
+``python3 chip_smoke.py 96`` runs phase 15's 96px part alone (after the
+build: the staged kernels at 96x96, the workspace kernels, the 96px pair
+trained); ``python3 chip_smoke.py 31`` runs phase 31 alone (after the build),
 ``python3 chip_smoke.py 31d`` its part (d) alone with the one-process run
 it is held against (it needs two cards), and ``python3 chip_smoke.py 32``
 phase 32 alone, and ``python3 chip_smoke.py 32d`` (four cards) fgan32 as
@@ -352,9 +369,24 @@ FU64_SHAPES = [(BATCH, 8, 64, 64)]
 # beside the clustered kernels' readings there.
 WORKSPACE_48_MS = {"fu_train_stats": (0.1697, 0.1727), "fu_bwd_stats": (0.3217, 0.3229),
                    "fu_bwd_apply": (0.5299, 0.5451)}
-# The 96px generator's 96x96 map at batch 8, which no cluster plan fits
-# and the staged kernels do not take: the per-item workspace kernels.
-WORKSPACE_SHAPES = [(8, 8, 96, 96)]
+# The 96px generator (``FFCGenerator.for_resolution(96)``: blocks 1-3 on
+# 24x24, 48x48 and 96x96) at batch 64: its maps, and its 96x96 map, which no
+# cluster plan fits and the staged kernels take with dense DFT transforms (96
+# is no power of two), at batch 8 and at the trained batch (the batch sets
+# how ``staged_chunks`` splits the mix stages' tiles).
+FU96_SHAPES = [(BATCH, 16, 24, 24), (BATCH, 8, 48, 48), (BATCH, 8, 96, 96)]
+DENSE_SHAPES = [(8, 8, 96, 96), (BATCH, 8, 96, 96)]
+# Device ms a launch of the workspace forward, statistics, backward sums and
+# backward apply at WORKSPACE_96_SHAPE in bf16 while that map ran them, the
+# lowest and highest of two runs (H100 80GB HBM3, 700 W): printed beside the
+# staged design's readings there.
+WORKSPACE_96_SHAPE = (8, 8, 96, 96)
+WORKSPACE_96_MS = {"fourier_unit_fwd": (3.0224, 3.0381), "fu_train_stats": (1.3145, 1.3223),
+                   "fu_bwd_stats": (2.5507, 2.5567), "fu_bwd_apply": (4.9072, 4.9541)}
+# A map that no design but the per-item workspace takes (2C = 24 is no width
+# of the staged mix stages; no cluster's plan holds its 64x64 item or a
+# slice of it): the workspace kernels.
+WORKSPACE_SHAPES = [(8, 12, 64, 64)]
 # The eval-mode gradient's maps (phase 17).
 EVAL_GRAD_SHAPES = [(BATCH, 16, 16, 16), (BATCH, 8, 48, 48)]
 NUM_CLASSES = 10
@@ -396,13 +428,13 @@ TIMED_SECONDS = 1.0
 # The training paths: bench.py's 32px and 128px pairs, the sngan pair (with
 # wgan-gp: "sngan-gp"), the fgan_cond32 and fgan_cond48 pairs, and the
 # comparator pairs built by the port's zoo (``ZOO_CONFIGS``).
-RESOLUTION = {32: 32, 128: 128, "sngan": 32, "sngan-gp": 32, "cond32": 32, "cond48": 48,
+RESOLUTION = {32: 32, 128: 128, 96: 96, "sngan": 32, "sngan-gp": 32, "cond32": 32, "cond48": 48,
               "sagan": 32, "resnet32": 32, "dcgan64": 64, "attn64": 64}
 CONDITIONAL = ("cond32", "cond48")
-WARMUP_STEPS = {32: 3, 128: 2, "sngan": 3, "cond32": 3, "cond48": 2, "sagan": 3,
+WARMUP_STEPS = {32: 3, 128: 2, 96: 2, "sngan": 3, "cond32": 3, "cond48": 2, "sagan": 3,
                 "resnet32": 3, "dcgan64": 3, "attn64": 3}
 # Steps per update_steps call: bench.py's K (bench.py:180-250).
-STEPS_PER_CALL = {32: 16, 128: 4, "sngan": 16, "cond32": 16, "cond48": 16, "sagan": 16,
+STEPS_PER_CALL = {32: 16, 128: 4, 96: 4, "sngan": 16, "cond32": 16, "cond48": 16, "sagan": 16,
                   "resnet32": 16, "dcgan64": 16, "attn64": 16}
 # The comparator paths: (JAX preset, overrides) of a config that the port's
 # zoo.build_models turns into the pair. The DCGAN pairs have no preset: the
@@ -430,7 +462,8 @@ ZOO_CONFIGS = {
 # 8, same card): five blocks, and FourierUnit maps where many
 # pre-activations sit within rounding of the ReLU's kink, whose side moves
 # a backward sum discretely.
-STEP_GRAD_TOL = {32: 1e-2, 128: 5e-2, "sngan": 1e-2, "sngan-gp": 1e-2, "cond32": 1e-2}
+STEP_GRAD_TOL = {32: 1e-2, 128: 5e-2, 96: 1e-2, "sngan": 1e-2, "sngan-gp": 1e-2,
+                 "cond32": 1e-2}
 # The sngan pair's discriminator gradients (phase 13) take the 128px bar:
 # their floor, the kernel path against itself, was 1.21e-2 rel-max
 # (d.block2.ffc.convl2g.weight), and the kernels sat at the same gap from
@@ -446,7 +479,7 @@ STEP_LOSS_TOL = 1e-3
 # (4.5e-4) in both runs.
 RELATIVE_LOSS_PATHS = ("sngan-gp",)
 # (batch, steps) of the f32 comparison by path.
-PLAIN_RUNS = {32: (BATCH, 3), 128: (8, 1), "sngan": (BATCH, 1), "sngan-gp": (BATCH, 1),
+PLAIN_RUNS = {32: (BATCH, 3), 128: (8, 1), 96: (8, 1), "sngan": (BATCH, 1), "sngan-gp": (BATCH, 1),
               "cond32": (BATCH, 1)}
 SOURCE = "fastfourierconvolution_tpu_torch/csrc/"
 TPU_FU = "fastfourierconvolution_tpu/ops/pallas/fourier_unit.py:"
@@ -478,15 +511,19 @@ KERNELS = {
 # ("stats"; the backward apply always takes the same, and the forward is
 # staged only where they are). Per item: the statistics kernel and the
 # forward kernel in each forward, the backward statistics and apply kernels
-# in each backward. Staged: each forward one spectrum, the statistics
-# stage, the apply stage and the inverse; each backward one two-map
-# spectrum, the backward-sums stage, the backward mix and the inverse.
+# in each backward; sliced, the same, but each of the statistics, backward
+# statistics and apply kernels T times, once per out-channel slice
+# (``SLICED_KERNELS``, counted under the slice's map). Staged: each forward
+# one spectrum, the statistics stage, the apply stage and the inverse; each
+# backward one two-map spectrum, the backward-sums stage, the backward mix
+# and the inverse.
 PASS_LAUNCHES = {
     "per_item": ({"fu_train_stats": 1, "fourier_unit_fwd": 1},
                  {"fu_bwd_stats": 1, "fu_bwd_apply": 1}),
     "staged": ({"fu_spectrum": 1, "fu_mix_stats": 1, "fu_mix_apply": 1, "fu_inverse": 1},
                {"fu_spectrum": 1, "fu_bwd_stats_mix": 1, "fu_bwd_mix": 1, "fu_inverse": 1}),
 }
+SLICED_KERNELS = ("fu_train_stats", "fu_bwd_stats", "fu_bwd_apply")
 # The stage kernels one call launches in the staged design: the wrappers,
 # and the training op's staged forward and backward (``train_forward``,
 # ``train_backward``: ``fourier_unit._train_forward_staged`` and
@@ -757,6 +794,18 @@ def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
+def bf16_times(dtype, kern, plain, symbols):
+    """(ms a call, plain ms a call, profiler device ms a call) of a
+    FourierUnit check in bf16, the kernels line's dtype; (None, None, None)
+    in f32, whose run checks the numbers only."""
+    import torch
+
+    if dtype != torch.bfloat16:
+        return None, None, None
+    ms = time_ms(kern)
+    return ms, time_ms(plain), kernel_device_ms(kern, symbols, iters=10 if ms < 1 else 3)
+
+
 def call_device_ms(fn, iters):
     """Profiler device ms per call of ``fn``, every device event counted."""
     return sum(t for _, t, _ in device_events(fn, iters)) / iters
@@ -771,6 +820,30 @@ def staged(wrapper, shape):
 
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     return fu.kernel_design(wrapper, *shape[1:], limit) == fu.STAGED
+
+
+def stage_symbol(name, shape):
+    """The profiler's symbol of stage kernel ``name`` (or ``fu_reduce``) at
+    ``shape``: the transforms' dense form on planes that are no power of
+    two (``csrc/fourier_unit_staged.cu``)."""
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    dense = name in ("fu_spectrum", "fu_inverse") and not fu.radix2_plane(*shape[2:])
+    return f"{name}_dense_kernel" if dense else f"{name}_kernel"
+
+
+def slices(shape):
+    """T, the out-channel slices on which the statistics and the backward
+    apply run ``shape``'s map on this card (``fourier_unit.kernel_design``
+    "sliced"; the clustered kernels on each slice in turn), else 1."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    if fu.kernel_design("stats", *shape[1:], limit) != fu.SLICED:
+        return 1
+    return fu.slice_count(*shape[1:], limit)
 
 
 def ptxas_report():
@@ -815,21 +888,24 @@ def item_kernel_line(name, shape, dtype_name):
     b, c, h, w = shape
     _, plan, symbol = ITEM_KERNELS[name]
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    ranks = fu.item_design(b, c, h, w, limit)
-    smem = fu._item_rank_floats(plan, c, h, w, ranks) * 4
+    t = 1 if name == "fourier_unit_fwd" else slices(shape)
+    ranks = fu.item_design(b, c, h, w, limit, c // t)
+    smem = fu._item_rank_floats(plan, c, h, w, ranks, c // t) * 4
     threads = re.search(r"kItemThreads = (\d+)",
                         (_build.CSRC_DIR / "fourier_unit_item.cuh").read_text()).group(1)
     tag = "IfE" if dtype_name == "float32" else "bfloat16"
     regs = [v for k, v in ptxas_report().items() if symbol in k and tag in k]
     ptxas = (f"{regs[0][0]} registers, {regs[0][1]}/{regs[0][2]} bytes spill stores/loads"
              if regs else "ptxas report not found")
-    return (f"design: {ranks} ranks per item, {b * ranks} blocks of {threads} threads, "
+    sliced = f"{t} out-channel slices of {c // t} in series, each " if t > 1 else ""
+    return (f"design: {sliced}{ranks} ranks per item, {b * ranks} blocks of {threads} threads, "
             f"{smem} B shared memory per rank; {symbol} {ptxas}"), ranks
 
 
 def item_symbol(name, shape):
     """The clustered per-item kernel that ``name``'s wrapper launches at
-    ``shape``, or None where it launches another (workspace, staged)."""
+    ``shape`` (on its own map or on each of its out-channel slices), or None
+    where it launches another (workspace, staged)."""
     import torch
 
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
@@ -838,7 +914,8 @@ def item_symbol(name, shape):
         return None
     wrapper, _, symbol = ITEM_KERNELS[name]
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    return symbol if fu.kernel_design(wrapper, *shape[1:], limit) == fu.SHARED else None
+    design = fu.kernel_design(wrapper, *shape[1:], limit)
+    return symbol if design in (fu.SHARED, fu.SLICED) else None
 
 
 def same_bits(fn):
@@ -867,8 +944,8 @@ def check_fourier_unit(device, shapes, phase):
     for shape in shapes:
         is_staged = staged("forward", shape)
         item = item_symbol("fourier_unit_fwd", shape)
-        symbols = ([f"{k}_kernel" for k in STAGED_CALL["fourier_unit_fwd"]] if is_staged
-                   else item or "fourier_unit_fwd_kernel")
+        symbols = ([stage_symbol(k, shape) for k in STAGED_CALL["fourier_unit_fwd"]]
+                   if is_staged else item or "fourier_unit_fwd_kernel")
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
             args = fu_inputs(shape, dtype, device, SEED)
@@ -879,10 +956,8 @@ def check_fourier_unit(device, shapes, phase):
                 raise AssertionError(f"kernel {shape} {name}: non-finite output")
             rel, abs_err = rel_max(y, ref)
             bits = same_bits(lambda: fourier_unit_forward(*args))
-            ms = time_ms(lambda: fourier_unit_forward(*args))
-            plain_ms = time_ms(lambda: fourier_unit_forward_plain(*args))
-            dev_ms = kernel_device_ms(lambda: fourier_unit_forward(*args), symbols,
-                                      iters=10 if ms < 1 else 3)
+            ms, plain_ms, dev_ms = bf16_times(dtype, lambda: fourier_unit_forward(*args),
+                                              lambda: fourier_unit_forward_plain(*args), symbols)
             bound_ms, bound_by, nbytes, flops = bound(
                 "fourier_unit_fwd", shape, y.element_size(), name
             )
@@ -892,8 +967,9 @@ def check_fourier_unit(device, shapes, phase):
                 f"fourier_unit_fwd {shape} {name} ({'staged' if is_staged else 'per-item'}):"
                 f" rel-max {rel:.3e} against the plain version in f64 (tol "
                 f"{FU_REL_TOL[name]:g}), max-abs {abs_err:.3e}, same bits on two launches "
-                f"{bits}; {ms:.4f} ms/call (profiler device {fmt_ms(dev_ms)} ms per call), plain "
-                f"{plain_ms:.4f} ms/call, bound {bound_ms:.5f} ms ({nbytes} B, {flops} FLOP)"
+                f"{bits}; {fmt_ms(ms)} ms/call (profiler device {fmt_ms(dev_ms)} ms per call), "
+                f"plain {fmt_ms(plain_ms)} ms/call, bound {bound_ms:.5f} ms ({nbytes} B, {flops} "
+                f"FLOP)"
                 + (f"; {design}" if design else "")
             )
             if not rel <= FU_REL_TOL[name]:
@@ -1050,19 +1126,17 @@ def check_stages(device, shapes, phase):
                     raise AssertionError(f"{name} {shape} {dname}: non-finite output")
                 errs = {o: rel_max(out, ref) for o, out, ref in zip(out_names, outs, refs)}
                 bits = same_bits(call)
-                ms = time_ms(timed)
-                plain_ms = time_ms(plain)
-                dev_ms = kernel_device_ms(timed, f"{name}_kernel", iters=10 if ms < 1 else 3)
+                ms, plain_ms, dev_ms = bf16_times(dtype, timed, plain, stage_symbol(name, shape))
                 library_ms = library_dev_ms = None
-                if library is not None:
+                if library is not None and dtype == torch.bfloat16:
                     library_ms = time_ms(library)
                     library_dev_ms = call_device_ms(library, iters=10)
                 bound_ms, bound_by, nbytes, flops = bound(name, shape, itemsize, dname, maps=maps)
                 log(f"{name} {shape} {dname}, {maps} map(s): " + ", ".join(
                     f"{o} rel-max {r:.3e} (max-abs {a:.3e})" for o, (r, a) in errs.items())
                     + f" (tol {FU_REL_TOL[dname]:g}, against the plain version in f64), same "
-                    f"bits on two launches {bits}; kernel {ms:.4f} ms/call (profiler device "
-                    f"{fmt_ms(dev_ms)} ms), plain {plain_ms:.4f} ms/call, library {library_ms} "
+                    f"bits on two launches {bits}; kernel {fmt_ms(ms)} ms/call (profiler device "
+                    f"{fmt_ms(dev_ms)} ms), plain {fmt_ms(plain_ms)} ms/call, library {library_ms} "
                     f"ms/call (profiler device {library_dev_ms}), bound {bound_ms:.5f} ms "
                     f"({bound_by}; {nbytes} B, {flops} FLOP)")
                 bad = {o: r for o, (r, _) in errs.items() if not r <= FU_REL_TOL[dname]}
@@ -1110,20 +1184,20 @@ def check_train_kernels(device, shapes, phase):
                     raise AssertionError(f"{name} {shape} {dname}: non-finite output")
                 call_staged = is_staged and name in STAGED_CALL
                 item = item_symbol(name, shape)
-                symbols = ([f"{k}_kernel" for k in STAGED_CALL[name]] if call_staged
-                           else item or f"{name}_kernel")
+                symbols = ([stage_symbol(k, shape) for k in STAGED_CALL[name]] if call_staged
+                           else [item] * slices(shape) if item else f"{name}_kernel")
                 bits = same_bits(lambda: kern(*args))
-                ms = time_ms(lambda: kern(*args))
-                plain_ms = time_ms(lambda: plain(*args))
-                dev_ms = kernel_device_ms(lambda: kern(*args), symbols,
-                                          iters=10 if ms < 1 else 3)
+                ms, plain_ms, dev_ms = bf16_times(dtype, lambda: kern(*args),
+                                                  lambda: plain(*args), symbols)
                 bound_ms, bound_by, nbytes, flops = bound(name, shape, args[0].element_size(), dname)
                 log(f"{name} {shape} {dname}{' (staged)' if call_staged else ''}: " + ", ".join(
                     f"{o} rel-max {r:.3e} (max-abs {a:.3e})" for o, (r, a) in errs.items())
                     + f" (tol {FU_REL_TOL[dname]:g}, against the plain version in f64), same "
-                    f"bits on two launches {bits}; kernel {ms:.4f} ms/call with its reduction "
-                    f"(profiler device {fmt_ms(dev_ms)} ms{' per call, all stages' if call_staged else ''}"
-                    f"), plain {plain_ms:.4f} ms/call, bound "
+                    f"bits on two launches {bits}; kernel {fmt_ms(ms)} ms/call with its reduction "
+                    f"(profiler device {fmt_ms(dev_ms)} ms"
+                    f"{' per call, all stages' if call_staged else ''}"
+                    f"{f' per call, {slices(shape)} launches' if slices(shape) > 1 else ''}"
+                    f"), plain {fmt_ms(plain_ms)} ms/call, bound "
                     f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {flops} FLOP)")
                 design, ranks = item_kernel_line(name, shape, dname) if item else ("", None)
                 if design:
@@ -1138,6 +1212,8 @@ def check_train_kernels(device, shapes, phase):
                                    bound_by=bound_by)
                     if ranks:
                         numbers["ranks"] = ranks
+                    if slices(shape) > 1 and item:
+                        numbers["slices"] = slices(shape)
                     if call_staged:
                         calls.append(call_row(name, shape, dname, **numbers))
                     else:
@@ -1151,8 +1227,9 @@ def check_train_kernels(device, shapes, phase):
 def reduce_cases(fu_shapes):
     """[(rows, cols, count)] of ``fu_reduce`` on a training step's main path:
     per FourierUnit map the statistics' (rows, 4C) with the mean/variance
-    epilogue, the backward sums' (rows, 4C) and gK's (rows, 4C^2), a row
-    per item or per run of tiles (B * chunks) after the staged stages."""
+    epilogue, the backward sums' (rows, 4C) and gK's (rows, 4C^2; sliced,
+    each slice's (rows, 4C Co/T)), a row per item or per run of tiles (B *
+    chunks) after the staged stages."""
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
     cases = []
@@ -1160,7 +1237,7 @@ def reduce_cases(fu_shapes):
         b, c, h, w = shape
         n_rows = b * fu.staged_chunks(b, h, w) if staged("stats", shape) else b
         cases += [(n_rows, 4 * c, b * h * (w // 2 + 1)), (n_rows, 4 * c, 0),
-                  (n_rows, 4 * c * c, 0)]
+                  (n_rows, 4 * c * (c // slices(shape)), 0)]
     # one case per kernel work: the epilogue's count only scales its result
     unique = {}
     for n_rows, cols, count in cases:
@@ -1630,23 +1707,65 @@ def against_workspace(rows):
             f"{hi / bound_ms:.0f}x); faster: {dev is not None and dev < lo}")
 
 
-def check_workspace_kernels(device):
-    """The four per-item workspace kernels at ``WORKSPACE_SHAPES``, where
+def check_96px_kernels(device):
+    """The forward, the statistics, the backward sums and the backward
+    apply at ``DENSE_SHAPES``, where ``kernel_design`` picks the staged
+    kernels with dense DFT transforms for every wrapper, checked as in
+    phase 9 (each stage also on its own: ``fu_spectrum`` and ``fu_inverse``
+    on dense planes), each wrapper's bf16 device ms a call at
+    ``WORKSPACE_96_SHAPE`` printed beside the workspace design's there
+    (``WORKSPACE_96_MS``); then the four
+    per-item workspace kernels at ``WORKSPACE_SHAPES``, where
     ``kernel_design`` picks them for every wrapper, checked as in phases 3
-    and 5. Returns their bf16 rows for the kernels line."""
+    and 5. Returns the bf16 (rows, calls) for the kernels and wrapper_calls
+    lines."""
     import torch
 
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    for shape in WORKSPACE_SHAPES:
-        designs = {w: fu.kernel_design(w, *shape[1:], limit) for w in ("forward", "stats",
-                                                                       "bwd_apply")}
-        if set(designs.values()) != {fu.WORKSPACE}:
-            raise AssertionError(f"{shape}: not the workspace design: {designs}")
-    rows, _ = check_fourier_unit(device, WORKSPACE_SHAPES, "workspace-96px")
-    train_rows, _ = check_train_kernels(device, WORKSPACE_SHAPES, "workspace-96px")
-    return rows + train_rows
+    for shapes, want in ((DENSE_SHAPES, fu.STAGED), (WORKSPACE_SHAPES, fu.WORKSPACE)):
+        for shape in shapes:
+            designs = {w: fu.kernel_design(w, *shape[1:], limit)
+                       for w in ("forward", "stats", "bwd_apply")}
+            if set(designs.values()) != {want}:
+                raise AssertionError(f"{shape}: not the {want} design: {designs}")
+    rows, calls = check_fourier_unit(device, DENSE_SHAPES, "staged-96px")
+    rows += check_stages(device, DENSE_SHAPES, "staged-96px")
+    train_rows, train_calls = check_train_kernels(device, DENSE_SHAPES, "staged-96px")
+    rows += train_rows
+    calls += train_calls
+    for row in calls:
+        if row["name"] not in WORKSPACE_96_MS or tuple(row["shape"]) != WORKSPACE_96_SHAPE:
+            continue
+        lo, hi = WORKSPACE_96_MS[row["name"]]
+        dev, bound_ms = row["device_ms"], row["bound_ms"]
+        log(f"{row['name']} {tuple(row['shape'])} bf16, staged on dense planes: profiler device "
+            f"{fmt_ms(dev)} ms a call (all stages), {row['ms']:.4f} ms a call, bound "
+            f"{bound_ms:.5f} ms" + ("" if dev is None else f" ({dev / bound_ms:.0f}x)")
+            + f", plain {row['plain_ms']:.4f} ms; the workspace design {lo:.4f}-{hi:.4f} ms "
+            f"a launch; faster: {dev is not None and dev < lo}")
+    ws_rows, _ = check_fourier_unit(device, WORKSPACE_SHAPES, "workspace")
+    ws_train_rows, _ = check_train_kernels(device, WORKSPACE_SHAPES, "workspace")
+    return rows + ws_rows + ws_train_rows, calls
+
+
+def pair_96(device, card):
+    """Phase 15's 96px part: ``check_96px_kernels``, then the 96px pair
+    trained in bf16 as in phase 6, 4 replayed f32 steps against 4 eager ones
+    (phase 12) and an f32 step against the plain ops (phase 7). Returns the
+    (rows, calls) with the training run's launches, and those launches."""
+    t0 = time.perf_counter()
+    rows, calls = check_96px_kernels(device)
+    t1 = time.perf_counter()
+    _, counts, _, _ = train(device, card, 96)
+    t2 = time.perf_counter()
+    graph_parity(device, 96, {"bench": {}})
+    t3 = time.perf_counter()
+    train_vs_plain(device, 96)
+    log(f"96px part, s (host clock): kernel checks {t1 - t0:.1f}, bf16 training {t2 - t1:.1f}, "
+        f"graph parity {t3 - t2:.1f}, f32 against the plain ops {time.perf_counter() - t3:.1f}")
+    return with_launches(rows, counts), with_calls(calls, counts), counts
 
 
 def launch_wrappers():
@@ -1678,6 +1797,7 @@ STEP_MAPS = {32: ([(s, 2, 1) for s in FU_SHAPES], []),
              "sngan-gp": ([(s, 2, 1) for s in FU_SHAPES] + [(s, 4, 5) for s in D_FU_SHAPES], []),
              "cond32": ([(s, 2, 1) for s in FU_SHAPES], []),
              "cond48": ([(s, 2, 1) for s in FU48_SHAPES], []),
+             96: ([(s, 2, 1) for s in FU96_SHAPES], []),
              "fgan64": ([(s, 2, 1) for s in FU_SHAPES + FU64_SHAPES], []),
              **{path: ([], []) for path in ZOO_CONFIGS}}
 
@@ -1699,21 +1819,24 @@ def launches_of(fu_maps, bn_maps, n_runs=1):
     for shape, forwards, backwards, *evals in fu_maps:
         b, c, h, w = shape
         is_staged = staged("stats", shape)
+        t = slices(shape)
         per_forward, per_backward = PASS_LAUNCHES["staged" if is_staged else "per_item"]
-        for k, per in per_forward.items():
-            want[k][(c, h, w)] += per * forwards * n_runs
-        for k, per in per_backward.items():
-            want[k][(c, h, w)] += per * backwards * n_runs
+        for k, per in [(k, per * forwards) for k, per in per_forward.items()] + [
+                (k, per * backwards) for k, per in per_backward.items()]:
+            if k in SLICED_KERNELS and t > 1:  # once per slice, under the slice's map
+                want[k][(c, h, w, c // t)] += t * per * n_runs
+            else:
+                want[k][(c, h, w)] += per * n_runs
         for k in (STAGED_CALL["fourier_unit_fwd"] if staged("forward", shape)
                   else ("fourier_unit_fwd",)):
             want[k][(c, h, w)] += sum(evals) * n_runs
         # a statistics reduction per forward and a backward-sums reduction
         # per backward on (rows, 4C), a gK reduction per backward on
-        # (rows, 4C^2): a row per item, or per run of tiles (B * chunks)
-        # after the staged mix stages
+        # (rows, 4C^2) (sliced: one per slice on (rows, 4C Co/T)): a row per
+        # item, or per run of tiles (B * chunks) after the staged mix stages
         rows = b * fu.staged_chunks(b, h, w) if is_staged else b
         want["fu_reduce"][(rows, 4 * c)] += (forwards + backwards) * n_runs
-        want["fu_reduce"][(rows, 4 * c * c)] += backwards * n_runs
+        want["fu_reduce"][(rows, 4 * c * (c // t))] += t * backwards * n_runs
     for (b, c, h, w), per_kernel in bn_maps:
         for k, per in per_kernel.items():
             want[k][(c, h, w)] += per * n_runs
@@ -2571,14 +2694,13 @@ def cli_cond32(device, card, tmp):
     return {"cli-cond32-train": counts_train, "cli-cond32-sample": counts_sample}
 
 
-def cli_fgan64(device, card, tmp):
+def cli_fgan64(device, card):
     """Phase 23: the kernels at fgan64's staged map (64,8,64,64) against
     their plain versions (as phase 9 holds the 128px maps); the pair built
     as the CLI builds it, an eager step's launches per map (exact) and its
-    device time, replayed steps' wall and device time; then ``fgan64``
-    through the CLI (the shapes dataset at 64px, no hflip), 32 steps.
-    Returns the kernels line's rows (launches per step), the staged calls'
-    rows and the CLI run's launches."""
+    device time, replayed steps' wall and device time (its CLI run,
+    ``cli_fgan64_train``, runs beside phase 26). Returns the kernels line's
+    rows (launches per step) and the staged calls' rows."""
     import torch
 
     rows, calls = check_fourier_unit(device, FU64_SHAPES, "cli-fgan64")
@@ -2614,7 +2736,13 @@ def cli_fgan64(device, card, tmp):
     for name, ms, count in top:
         log(f"  device {ms:.4f} ms in {count} launches: {name[:90]}")
     del trainer
+    return with_launches(rows, per_step), with_calls(calls, per_step)
 
+
+def cli_fgan64_train(card, tmp):
+    """Phase 23 through the CLI, in a child process (run beside phase 26's):
+    ``fgan64`` (the shapes dataset at 64px, no hflip), 32 steps, exact
+    launches. Returns the run's launches."""
     out = os.path.join(tmp, "fgan64")
     _, counts = cli_run("fgan64-train", [
         "train", "--preset", "fgan64", "--set", "data.hflip_augment=false",
@@ -2623,8 +2751,9 @@ def cli_fgan64(device, card, tmp):
     if counts != cli_train_launches("fgan64", FU_SHAPES + FU64_SHAPES, grids=1):
         raise AssertionError(f"cli fgan64 launches {counts}")
     log(f"cli fgan64: 32 steps, {len(losses)} logged losses finite; launches as expected, the "
-        f"staged map's {[(k, v[(8, 64, 64)]) for k, v in counts.items() if (8, 64, 64) in v]}")
-    return with_launches(rows, per_step), with_calls(calls, per_step), {"cli-fgan64": counts}
+        f"staged map's {[(k, v[(8, 64, 64)]) for k, v in counts.items() if (8, 64, 64) in v]}; "
+        f"{card}")
+    return {"cli-fgan64": counts}
 
 
 def with_launches(rows, counts):
@@ -2634,6 +2763,8 @@ def with_launches(rows, counts):
     ``fu_bwd_mix`` launch, the rest are the forward's."""
     for row in rows:
         key = tuple(row["shape"]) if row["name"] == "fu_reduce" else tuple(row["shape"][1:])
+        if row.get("slices"):  # counted under the slice's map
+            key += (key[0] // row["slices"],)
         row["launches"] = counts[row["name"]].get(key, 0)
         if row["name"] == "fu_spectrum":
             two_map = counts["fu_bwd_mix"].get(key, 0)
@@ -2887,6 +3018,15 @@ LFU128_SHAPES = [(BATCH, 64, 8, 8), (BATCH, 32, 16, 16), (BATCH, 32, 32, 32),
 # 3, 10 classes) with spectral norm, batch 64: the FourierUnits of its
 # blocks 2 and 3.
 SND_FU_SHAPES = [(BATCH, 128, 8, 8), (BATCH, 256, 4, 4)]
+# Wall ms a replayed step of that pair while (256,4,4)'s statistics and
+# backward apply ran the per-item workspace kernels (H100 80GB HBM3, 700 W):
+# printed beside the sliced design's reading.
+SND_WORKSPACE_REPLAY_MS = 82.953
+# The maps where the statistics and the backward apply run sliced, timed
+# against the workspace kernels they replaced there: the SN cDCGAN
+# discriminator's (256,4,4) (T = 2) and (128,16,16) (T = 4), on no
+# preset's path.
+SLICED_VS_WORKSPACE_SHAPES = [(BATCH, 256, 4, 4), (BATCH, 128, 16, 16)]
 # The maps whose kernels earlier phases check.
 CHECKED_MAPS = FU_SHAPES + FU128_SHAPES + D_FU_SHAPES + FU48_SHAPES + FU64_SHAPES
 
@@ -2908,6 +3048,47 @@ def check_maps(device, shapes, phase):
     rows += train_rows + check_reduce(device, [c for c in reduce_cases(new) if c not in seen],
                                       phase)
     return rows, calls + train_calls
+
+
+def sliced_against_workspace(device, card):
+    """Phase 24: at ``SLICED_VS_WORKSPACE_SHAPES`` in bf16, each wrapper
+    that ``kernel_design`` sends to ``SLICED`` (the statistics, the
+    backward sums, the backward apply) against the per-item workspace
+    kernel at the same map, which the map took before: ms a call of each
+    (CUDA events, with ``fu_reduce``) and the workspace's outputs against
+    the sliced ones (``FU_REL_TOL``)."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for shape in SLICED_VS_WORKSPACE_SHAPES:
+        b, c, h, w = shape
+        if fu.kernel_design("stats", c, h, w, limit) != fu.SLICED:
+            raise AssertionError(f"{shape}: not the sliced design")
+        x, k, scale, bias, mean, var, gy, gscale, gbias = bwd_inputs(
+            shape, torch.bfloat16, device, SEED + 70)
+        vectors = (scale, bias, mean, var)
+        count = b * h * (w // 2 + 1)
+        cases = [
+            ("fu_train_stats", lambda: fu.fu_train_stats(x, k),
+             lambda: fu._reduce(fu._stats_rows(x, k, fu.WORKSPACE), count).split(2 * c)),
+            ("fu_bwd_stats", lambda: fu.fu_bwd_stats(x, k, *vectors, gy),
+             lambda: fu._reduce(fu._bwd_stats_rows(x, k, vectors, gy, fu.WORKSPACE)).split(2 * c)),
+            ("fu_bwd_apply", lambda: fu.fu_bwd_apply(x, k, *vectors, gy, gscale, gbias),
+             lambda: fu._bwd_apply_item(x, k, (*vectors, gscale, gbias), gy, fu.WORKSPACE)),
+        ]
+        for name, sliced, workspace in cases:
+            errs = [rel_max(a, r)[0] for a, r in zip(as_tuple(workspace()), as_tuple(sliced()))]
+            if max(errs) > FU_REL_TOL["bfloat16"]:
+                raise AssertionError(f"{name} {shape}: the workspace kernel against the sliced "
+                                     f"design, rel-max {errs}")
+            sliced_ms, workspace_ms = tp_ms(sliced, n=5), tp_ms(workspace, n=5)
+            log(f"{name} {shape} bf16: sliced on T={slices(shape)} {sliced_ms:.4f} ms a call, "
+                f"the workspace kernel {workspace_ms:.4f} ms a call (CUDA events, each with "
+                f"fu_reduce), {workspace_ms / sliced_ms:.1f}x; outputs within rel-max "
+                f"{max(errs):.3e} of each other; sliced faster: {sliced_ms < workspace_ms}; "
+                f"{card}")
 
 
 def cond_sn_d(device, card):
@@ -2954,6 +3135,8 @@ def cond_sn_d(device, card):
         n_calls += 1
     torch.cuda.synchronize()
     replay_ms = (time.perf_counter() - t0) / (4 * n_calls) * 1e3
+    busy_ms, n_launch, top = device_breakdown(lambda: trainer.update_steps(reals, labels),
+                                              iters=1, top=6)
     u2 = u()
     values = torch.cat([torch.stack([l["loss_g"], l["loss_d"]]).flatten() for l in losses])
     # a branch with one output channel has a one-element u, always +-1
@@ -2962,9 +3145,14 @@ def cond_sn_d(device, card):
     log(f"SN cDCGAN D (FFCCondDCGANDiscriminator(ndf=64, use_sn=True), {len(u0)} u vectors) "
         f"against CondDCGANGenerator(ngf=64), bf16 batch {BATCH}, bce/Adam/D first: 2 eager "
         f"steps, launches {counts}; {n_calls} calls of 4 replayed steps, {replay_ms:.3f} ms wall "
-        f"a replayed step; losses finite {bool(torch.isfinite(values).all())}, last "
+        f"a replayed step (the workspace design's (256,4,4) {SND_WORKSPACE_REPLAY_MS} ms), "
+        f"profiler device {busy_ms / 4:.3f} ms a replayed step in {n_launch / 4:.0f} device "
+        f"launches, idle share {1 - busy_ms / 4 / replay_ms:.3f}; losses finite "
+        f"{bool(torch.isfinite(values).all())}, last "
         f"{values[-2].item():.4f} / {values[-1].item():.4f}; u advanced by the eager steps and "
         f"by the replays: {len(moved)} of the {len(wide)} with more than one element; {card}")
+    for name, ms, count in top:
+        log(f"  device {ms / 4:.4f} ms a replayed step in {count / 4:.0f} launches: {name[:90]}")
     if not torch.isfinite(values).all() or len(moved) != len(wide):
         raise AssertionError("SN cDCGAN D: a non-finite loss, or a u that did not advance")
     return counts
@@ -3242,7 +3430,7 @@ def eval_component_ms(device):
 
 def cli_metrics(device, card, tmp, graph_ms_32):
     """Phase 28: ``fgan32`` through the CLI with its preset's metrics on (ISC
-    and FID, then with KID added), weights-free, the preset's 10,000 samples,
+    and FID, and beside it with KID added), weights-free, the preset's 10,000 samples,
     two epochs of one ``update_steps`` chunk, ``log.checkpoint`` and
     ``log.best_metric_checkpoints``. Fails on ``WARNING: metrics failed``, a
     missing ``metrics/*`` key or ``eval_seconds``, a ``best/`` without
@@ -3251,16 +3439,21 @@ def cli_metrics(device, card, tmp, graph_ms_32):
     eval epochs' seconds, generate ms per request and extraction ms per
     image (in process) and the eval epoch's share of a 5,000-step epoch at
     phase 6's replayed step. Returns the runs' launches."""
-    env = dict(os.environ, FFC_TPU_HOME=os.path.join(tmp, "ffc_home"))
-    env.pop("FFC_TPU_INCEPTION_WEIGHTS", None)
     args = ["train", "--preset", "fgan32", "--set", f"train.num_epoch_steps={CLI_K}",
             "--set", "log.checkpoint=true", "--set", "log.best_metric_checkpoints=true",
             "-e", str(2 * CLI_K)]
+    runs = (("isc-fid", []), ("isc-fid-kid", ["--set", "eval.kid=true"]))
+    jobs = []
+    # side by side, each with a feature cache of its own
+    for name, extra in runs:
+        env = dict(os.environ, FFC_TPU_HOME=os.path.join(tmp, f"ffc_home_{name}"))
+        env.pop("FFC_TPU_INCEPTION_WEIGHTS", None)
+        jobs.append(cli_start(f"fgan32-{name}", args + extra, os.path.join(tmp, f"metrics-{name}"),
+                              timeout=900, metrics=True, env=env))
     counts_by_run, seconds = {}, {}
-    for name, extra in (("isc-fid", []), ("isc-fid-kid", ["--set", "eval.kid=true"])):
+    for (name, _), job in zip(runs, jobs):
         out = os.path.join(tmp, f"metrics-{name}")
-        stdout, counts = cli_run(f"fgan32-{name}", args + extra, out, timeout=900,
-                                 metrics=True, env=env)
+        stdout, counts = cli_wait(job)
         if "WARNING: metrics failed" in stdout:
             raise AssertionError(f"cli fgan32 {name}: {stdout[-3000:]}")
         with open(os.path.join(out, "scalars.jsonl")) as f:
@@ -3599,29 +3792,34 @@ def reference_layout_state(model, seed=SEED + 44):
     return state
 
 
-def cli_serving(device, card, tmp):
-    """Phase 29 through the CLI: ``export`` from phase 21's fgan32 run
-    directory (no launch), ``sample --exported`` (one forward per map),
-    ``fidelity`` ISC and FID of the artifact and of the run directory
-    (``--preset fgan32``) against the shapes set on the same latents,
-    weights-free (within ``FIDELITY_TOL`` of each other, one forward per map
-    and request each), and ``export --torch_checkpoint`` of a seeded
-    reference-layout ``.pth``, whose artifact must give the converted
-    model's ``generate`` (within the bf16 bars, one forward per map).
-    Returns the runs' launches."""
+def reference_paths(tmp):
+    """(the seeded reference-layout fgan32 ``.pth``, its artifact) in ``tmp``."""
+    return os.path.join(tmp, "reference_fgan32.pth"), os.path.join(tmp, "reference_fgan32.ffcx")
+
+
+def cli_serving(card, tmp, exported):
+    """Phase 29 through the CLI, in child processes only (run beside phase
+    26's): ``export`` from phase 21's fgan32 run directory (no launch; the
+    event ``exported`` set once it is checked or failed),
+    ``sample --exported`` (one forward per map), ``fidelity`` ISC and FID
+    of the artifact and of the run directory (``--preset fgan32``) against
+    the shapes set on the same latents, weights-free (within
+    ``FIDELITY_TOL`` of each other, one forward per map and request each),
+    and ``export --torch_checkpoint`` of a seeded reference-layout ``.pth``
+    (its artifact checked by ``serving_reference``). Returns the runs'
+    launches."""
     import torch
 
-    from fastfourierconvolution_tpu_torch import FFCGenerator, Generator, compat, serving
+    from fastfourierconvolution_tpu_torch import FFCGenerator, serving
 
     run = os.path.join(tmp, "fgan32")
     artifact = os.path.join(run, "generator.ffcx")
     none = {k: {} for k in launch_wrappers()}
     env = dict(os.environ, FFC_TPU_HOME=os.path.join(tmp, "ffc_home_fidelity"))
     env.pop("FFC_TPU_INCEPTION_WEIGHTS", None)
-    pth = os.path.join(tmp, "reference_fgan32.pth")
+    pth, ref_artifact = reference_paths(tmp)
     torch.save({"model_state_dict": reference_layout_state(FFCGenerator.for_resolution(32)),
                 "optimizer_state_dict": {}}, pth)
-    ref_artifact = os.path.join(tmp, "reference_fgan32.ffcx")
 
     def fidelity(name, input1, *extra):
         # the inputs first: argparse takes no positional after the flags
@@ -3631,17 +3829,21 @@ def cli_serving(device, card, tmp):
 
     # side by side: the commands that read no other's files, then the two
     # that read the exported artifact
-    jobs = [cli_start("fgan32-export", ["export", "--preset", "fgan32"], run),
-            cli_start("fgan32-export-reference",
-                      ["export", "--preset", "fgan32", "--torch_checkpoint", pth,
-                       "--output", ref_artifact], os.path.join(tmp, "reference")),
-            fidelity("run-dir", run, "--preset", "fgan32", "--set", "train.precision=bf16",
-                     "--set", "data.dataset=shapes")]
-    (_, counts), (_, counts_ref_export), (stdout_run_dir, counts_run_dir) = map(cli_wait, jobs)
-    meta, _ = serving.read_artifact(artifact)
-    if counts != none or counts_ref_export != none or meta["step"] != 144:
-        raise AssertionError(f"cli fgan32 export: launches {counts}, {counts_ref_export}, "
-                             f"step {meta['step']}")
+    try:
+        jobs = [cli_start("fgan32-export", ["export", "--preset", "fgan32"], run),
+                cli_start("fgan32-export-reference",
+                          ["export", "--preset", "fgan32", "--torch_checkpoint", pth,
+                           "--output", ref_artifact], os.path.join(tmp, "reference")),
+                fidelity("run-dir", run, "--preset", "fgan32", "--set", "train.precision=bf16",
+                         "--set", "data.dataset=shapes")]
+        (_, counts), (_, counts_ref_export), (stdout_run_dir, counts_run_dir) = map(cli_wait,
+                                                                                  jobs)
+        meta, _ = serving.read_artifact(artifact)
+        if counts != none or counts_ref_export != none or meta["step"] != 144:
+            raise AssertionError(f"cli fgan32 export: launches {counts}, {counts_ref_export}, "
+                                 f"step {meta['step']}")
+    finally:
+        exported.set()
     out = os.path.join(tmp, "fgan32-served")
     jobs = [cli_start("fgan32-sample-exported",
                       ["sample", "--exported", artifact, "--num_samples", "64"], out),
@@ -3665,7 +3867,19 @@ def cli_serving(device, card, tmp):
         f"{FIDELITY_REQUESTS} requests each, one forward per map and request; {card}")
     if max(gaps[k] for k in ("inception_score_mean", "frechet_inception_distance")) > FIDELITY_TOL:
         raise AssertionError("fidelity: the artifact's ISC or FID is not the run directory's")
+    return {"cli-fgan32-sample-exported": counts_sample,
+            **{f"fidelity-{k}": v for k, v in counts_fid.items()}}
 
+
+def serving_reference(device, tmp):
+    """Phase 29: the artifact that ``cli_serving``'s ``export
+    --torch_checkpoint`` wrote must give the converted model's ``generate``
+    (within the bf16 bars, one forward per map). Returns its launches."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch import FFCGenerator, Generator, compat, serving
+
+    pth, ref_artifact = reference_paths(tmp)
     model = FFCGenerator.for_resolution(32)
     model.load_state_dict(compat.to_state_dict(model, compat.convert_fgan_generator(pth)))
     server = Generator(model, device=device, dtype="bf16")
@@ -3685,9 +3899,7 @@ def cli_serving(device, card, tmp):
         raise AssertionError("the reference checkpoint's artifact differs from its generate")
     if counts_ref != eval_launches(FU_SHAPES, 1):
         raise AssertionError(f"the reference checkpoint's artifact launched {counts_ref}")
-    return {"cli-fgan32-sample-exported": counts_sample,
-            **{f"fidelity-{k}": v for k, v in counts_fid.items()},
-            "serving-reference-artifact": counts_ref}
+    return {"serving-reference-artifact": counts_ref}
 
 
 # --- phase 30: VGG16 and LPIPS, PPL, the CLIP and DINOv2 extractors, PRC's split --------
@@ -3883,12 +4095,14 @@ def check_ppl(device, card, trainer):
     return counts
 
 
-def cli_prc_ppl(device, card, tmp):
-    """Phase 30 through the CLI: fgan32 ``train`` one chunk with ``eval.prc``
-    and ``eval.ppl`` on METRIC_CLI_SAMPLES samples (weights-free),
-    ``export`` of its run directory, then ``fidelity -r -p`` of the run
-    directory and of the artifact against the shapes set, side by side:
-    every metric key present and finite, exact launches. Returns them."""
+def cli_prc_ppl(card, tmp, artifact, exported):
+    """Phase 30 through the CLI, in child processes only (run beside phase
+    26's): fgan32 ``train`` one chunk with ``eval.prc``
+    and ``eval.ppl`` on METRIC_CLI_SAMPLES samples (weights-free), then
+    ``fidelity -r -p`` against the shapes set of its run directory and,
+    once the event ``exported`` is set, of ``cli_serving``'s fgan32
+    ``artifact``, side by side: every metric key present and finite,
+    exact launches. Returns them."""
     import numpy as np
 
     run = os.path.join(tmp, "fgan32-prc-ppl")
@@ -3912,16 +4126,18 @@ def cli_prc_ppl(device, card, tmp):
             or counts_train != want):
         raise AssertionError(f"cli fgan32 prc/ppl: evals {evals}, launches {counts_train}, "
                              f"want {want}; {stdout[-2000:]}")
-    _, counts_export = cli_run("fgan32-export-prc-ppl", ["export", "--preset", "fgan32"], run,
-                               env=env)
     flags = ["-r", "-p", "-j", "--silent", "--device", "cuda", "--input1-model-num-samples", n,
              "--input2-model-num-samples", n, "--datasets-root", tmp]
-    jobs = [cli_start(f"fidelity-prc-ppl-{name}", ["fidelity", spec, "shapes-32", *flags, *extra],
-                      tmp, env=env, common=False)
-            for name, spec, extra in (
-                ("run-dir", run, ["--preset", "fgan32", "--set", "train.precision=bf16",
-                                  "--set", "data.dataset=shapes"]),
-                ("artifact", os.path.join(run, "generator.ffcx"), []))]
+
+    def fidelity(name, spec, *extra):
+        return cli_start(f"fidelity-prc-ppl-{name}", ["fidelity", spec, "shapes-32", *flags,
+                                                      *extra], tmp, env=env, common=False)
+
+    jobs = [fidelity("run-dir", run, "--preset", "fgan32", "--set", "train.precision=bf16",
+                     "--set", "data.dataset=shapes")]
+    if not exported.wait(timeout=900):
+        raise AssertionError("cli fgan32 prc/ppl: the fgan32 artifact was not exported")
+    jobs.append(fidelity("artifact", artifact))
     scores, counts = {}, {}
     for (name, *_), job in zip((("run-dir",), ("artifact",)), jobs):
         stdout, counts[name] = cli_wait(job)
@@ -3930,7 +4146,8 @@ def cli_prc_ppl(device, card, tmp):
     log(f"cli fgan32 train with eval.prc and eval.ppl ({n} samples, weights-free VGG16 and "
         f"LPIPS): logged {({k: f'{v:.5g}' for k, v in logged.items()})}, eval_seconds "
         f"{evals[-1]['eval_seconds']:.3f}; fidelity -r -p ({n} samples against shapes-32) of "
-        f"the run directory {scores['run-dir']} and of its artifact {scores['artifact']}; "
+        f"the run directory {scores['run-dir']} and of phase 29's artifact "
+        f"{scores['artifact']}; "
         f"fourier_unit_fwd launches per 32px map {METRIC_CLI_REQUESTS} for PRC and "
         f"{2 * METRIC_CLI_REQUESTS} for PPL in each run; {card}")
     for name, got in scores.items():
@@ -3939,15 +4156,14 @@ def cli_prc_ppl(device, card, tmp):
                 or counts[name] != want_fidelity):
             raise AssertionError(f"fidelity -r -p {name}: {got}, launches {counts[name]}, "
                                  f"want {want_fidelity}")
-    if counts_export != {k: {} for k in launch_wrappers()}:
-        raise AssertionError(f"cli fgan32 export launched {counts_export}")
     return {"cli-fgan32-prc-ppl": counts_train,
             **{f"fidelity-prc-ppl-{k}": v for k, v in counts.items()}}
 
 
 def check_metric_extras(device, card):
-    """Phase 30: the extractors, PRC's split, PPL and the CLI (see the module
-    docstring). Returns the main-path launches by run."""
+    """Phase 30 in this process: the extractors, PRC's split and PPL (see the
+    module docstring; its CLI runs, ``cli_prc_ppl``, run beside phase 26).
+    Returns the main-path launches by run."""
     import torch
 
     from fastfourierconvolution_tpu_torch.eval import pipeline as P
@@ -3959,8 +4175,6 @@ def check_metric_extras(device, card):
     del trainer
     P._EXTRACTOR_CACHE.clear()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_metrics_") as tmp:
-        counts.update(cli_prc_ppl(device, card, tmp))
     return counts
 
 
@@ -4887,9 +5101,10 @@ def data_parallel_alone(device, card, which):
 # The sliced kernels' maps (each wrapper's design decided on the slice's
 # plans, ``fourier_unit.kernel_design``): the 32px generator's two (per
 # item), a 128px map and the fgan64 one (staged; (64,8,64,64) at T = 4 has
-# 2Co = 4 out-columns), the 96px map (workspace at every T) and the SN
-# cDCGAN discriminator's (64,256,4,4) (workspace whole, clustered on its
-# slices, whose plans fit).
+# 2Co = 4 out-columns), a workspace map (workspace at every T) and the SN
+# cDCGAN discriminator's (64,256,4,4) (whole: the forward per item, the
+# statistics and the backward apply sliced; clustered on its tp slices,
+# whose plans fit).
 TP_SHAPES = [(BATCH, 16, 16, 16), (BATCH, 8, 32, 32), (BATCH, 32, 32, 32), (BATCH, 8, 64, 64),
              *WORKSPACE_SHAPES, (BATCH, 256, 4, 4)]
 TP_SLICES = (2, 4)
@@ -4958,6 +5173,9 @@ def tp_ms(fn, n=20):
 TP_SYMBOLS = {
     "shared": {"fourier_unit_fwd": "fu_item_fwd_kernel",
                "fu_train_stats": "fu_item_train_stats_kernel",
+               "fu_bwd_stats": "fu_item_bwd_stats_kernel",
+               "fu_bwd_apply": "fu_item_bwd_apply_kernel"},
+    "sliced": {"fu_train_stats": "fu_item_train_stats_kernel",
                "fu_bwd_stats": "fu_item_bwd_stats_kernel",
                "fu_bwd_apply": "fu_item_bwd_apply_kernel"},
     "workspace": {"fourier_unit_fwd": "fourier_unit_fwd_kernel",
@@ -5666,6 +5884,8 @@ def run() -> int:
             tensor_parallel_4(device, card)
         elif sys.argv[1] == "33":
             jax_checkpoint(device, card)
+        elif sys.argv[1] == "96":
+            log(json.dumps({"kernels": pair_96(device, card)[0]}))
         else:
             data_parallel_alone(device, card, sys.argv[1])
         phase("result")
@@ -5721,17 +5941,19 @@ def run() -> int:
     by_map_c32 = serve_generate(device, card, trainer_c32)
     del trainer_c32
     train_vs_plain(device, "cond32")
-    phase("15: the fgan_cond48 pair: FourierUnit kernels at its maps, the workspace kernels "
-          "at 96x96, training")
+    phase("15: the fgan_cond48 pair: FourierUnit kernels at its maps, training; the staged "
+          "kernels at 96x96, the workspace kernels, the 96px pair trained")
     rows_48, calls_48 = check_fourier_unit(device, FU48_SHAPES, "training-cond48")
     train_rows, train_calls = check_train_kernels(device, FU48_SHAPES, "training-cond48")
     against_workspace(train_rows)
     rows_48 += train_rows + check_reduce(device, reduce_cases(FU48_SHAPES), "training-cond48")
-    rows_48 += check_workspace_kernels(device)
     calls_48 += train_calls
     _, counts_c48, _, _ = train(device, card, "cond48")
     rows += with_launches(rows_48, counts_c48)
     calls += with_calls(calls_48, counts_c48)
+    rows_96, calls_96, counts_96 = pair_96(device, card)
+    rows += rows_96
+    calls += calls_96
     phase("16: wgan-gp on the sngan pair (the FourierUnit's double backward)")
     train_vs_plain(device, "sngan-gp")
     graph_parity(device, "sngan-gp", {"wgan-gp": {}})
@@ -5750,11 +5972,10 @@ def run() -> int:
     phase("21: fgan32 through the CLI: train, resume, sample; restores in process")
     cli_counts = cli_fgan32(device, card, tmp, graph_ms_32)
     # phase 22 (fgan_cond32 through the CLI) runs beside phase 26
-    phase("23: fgan64 through the CLI: the kernels at its staged map, train")
-    rows_64, calls_64, counts_64 = cli_fgan64(device, card, tmp)
+    phase("23: fgan64: the kernels at its staged map, the CLI's pair stepped")
+    rows_64, calls_64 = cli_fgan64(device, card)
     rows += rows_64
     calls += calls_64
-    cli_counts.update(counts_64)
     phase("24: the FFC layer options: the LFU maps' kernels, the LFU blocks (32px tuple, "
           "128px packed with biases), the spectral-normed cDCGAN discriminator")
     rows_lfu, calls_lfu = check_maps(device, LFU32_SHAPES + LFU128_SHAPES, "lfu-blocks")
@@ -5762,21 +5983,34 @@ def run() -> int:
     rows += with_launches(rows_lfu, counts_lfu)
     calls += with_calls(calls_lfu, counts_lfu)
     rows_snd, calls_snd = check_maps(device, SND_FU_SHAPES, "training-cond-sn-d")
+    sliced_against_workspace(device, card)
     counts_snd = cond_sn_d(device, card)
     rows += with_launches(rows_snd, counts_snd)
     calls += with_calls(calls_snd, counts_snd)
     phase("25: remat none / dots / full, fgan32 and fgan128")
     remat_counts = remat_runs(device, card)
     phase("26: a process's first run of a configuration against its second, beside phase 22 "
-          "(fgan_cond32 through the CLI: train, sample) and phase 31e (cli train and a resume "
-          "as two processes), all in child processes side by side")
+          "(fgan_cond32 through the CLI: train, sample), phase 31e (cli train and a resume "
+          "as two processes) and the CLI runs of phases 23 (fgan64 train), 29 (export, sample "
+          "--exported, fidelity, --torch_checkpoint) and 30 (train / fidelity with PRC and "
+          "PPL), all in child processes side by side")
+    prc_ppl_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_metrics_")
+    exported = threading.Event()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_cli_") as dp_tmp, \
-            ThreadPoolExecutor(2) as pool:
+            ThreadPoolExecutor(5) as pool:
+        prc_ppl_cli = pool.submit(cli_prc_ppl, card, prc_ppl_tmp.name,
+                                  os.path.join(tmp, "fgan32", "generator.ffcx"), exported)
+        serving_cli = pool.submit(cli_serving, card, tmp, exported)
         cond32 = pool.submit(cli_cond32, device, card, tmp)
         dp_cli_run = pool.submit(dp_cli, card, dp_tmp)
+        fgan64_cli = pool.submit(cli_fgan64_train, card, tmp)
         first_run(card)
         cli_counts.update(cond32.result())
+        cli_counts.update(fgan64_cli.result())
         dp_cli_counts = dp_cli_run.result()
+        serving_counts = serving_cli.result()
+        prc_ppl_counts = prc_ppl_cli.result()
+    prc_ppl_tmp.cleanup()
     backward_thread_cost(device, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
         phase("27: the InceptionV3 extractor and calculate_metrics on the card against the CPU")
@@ -5784,13 +6018,12 @@ def run() -> int:
         phase("28: fgan32 through the CLI with its preset's metrics (ISC, FID; with KID)")
         eval_counts = cli_metrics(device, card, tmp, graph_ms_32)
     phase("29: the serving export: artifacts on the card served in a JAX-free process; "
-          "export, sample --exported, fidelity and --torch_checkpoint through the CLI")
+          "the --torch_checkpoint artifact of phase 26's CLI runs against its model")
     artifact_counts = serve_artifacts(device, card, cli_tmp.name)
-    serving_counts = cli_serving(device, card, cli_tmp.name)
+    serving_counts.update(serving_reference(device, cli_tmp.name))
     cli_tmp.cleanup()
-    phase("30: VGG16 and LPIPS, PPL, the CLIP and DINOv2 extractors, PRC's dual split, "
-          "and train / fidelity with PRC and PPL through the CLI")
-    metric_counts = check_metric_extras(device, card)
+    phase("30: VGG16 and LPIPS, PPL, the CLIP and DINOv2 extractors, PRC's dual split")
+    metric_counts = {**check_metric_extras(device, card), **prc_ppl_counts}
     for row in rows:
         if row["name"] in artifact_counts and row.get("maps", 1) == 1:
             key = tuple(row["shape"][1:])
@@ -5824,7 +6057,8 @@ def run() -> int:
                               "training-32px": counts_32, "training-128px": counts,
                               "training-sngan": counts_sngan, "training-cond32": counts_c32,
                               "serving-cond32": {"fourier_unit_fwd": by_map_c32},
-                              "training-cond48": counts_c48, **cli_counts,
+                              "training-cond48": counts_c48, "training-96px": counts_96,
+                              **cli_counts,
                               "lfu-blocks": counts_lfu, "training-cond-sn-d": counts_snd,
                               **remat_counts, **eval_counts,
                               "serving-artifacts": artifact_counts, **serving_counts,

@@ -47,8 +47,8 @@
 // Shared memory per rank at batch 64 (R = 2): 41 KB at (16,16,16), 81 KB at
 // (8,32,32), 180 KB at (64,16,16).
 //
-// fourier_unit_fwd_kernel, elsewhere (maps that are no power of two and
-// exceed shared memory, e.g. the 96px generator's 96x96): one block per item
+// fourier_unit_fwd_kernel, elsewhere (maps that no other design takes, e.g.
+// the 256px generator's 256x256, whose plane fits no block): one block per item
 // with every buffer in the item's slice of a device workspace
 // (fourier_unit_common.cuh), a simple, slower design whose stages load from
 // the L1/L2-cached workspace.

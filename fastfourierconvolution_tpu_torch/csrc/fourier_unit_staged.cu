@@ -60,7 +60,8 @@
 // Design. Spectra stay f32 in device memory, as in the per-item kernels,
 // and all arithmetic is f32 FMA on the CUDA cores (the f32 path must meet
 // 1e-4 of the f64 plain version, which TF32 tensor cores do not). The
-// transforms are radix-2 FFTs in shared memory on power-of-two planes: the
+// transforms take two kinds of plane. Power-of-two planes (the 64px and
+// 128px generators' maps) run radix-2 FFTs in shared memory: the
 // W-stage rDFT packs a row's even and odd samples as one complex sequence of
 // length W/2 (decimation in time, rows stored bit-reversed as they are
 // loaded) and untangles it in place into the Wf = W/2 + 1 half-spectrum
@@ -68,7 +69,16 @@
 // decimation in frequency (natural input, bit-reversed output, undone as y
 // is written), so each plane needs one buffer of H x Wf complex values
 // (66.5 KB at 128 x 128) and its twiddles (double precision, rounded to
-// f32). The mix stages keep K (row stride 2C + 1) and the tile (stride 65)
+// f32). Other planes of an even W (the 96px generator's 96 x 96) run dense
+// DFT stages: fu_spectrum_dense_kernel and fu_inverse_dense_kernel, one
+// block of kItemThreads per plane, bring the plane and the plain version's
+// factor tables (ops/fourier_unit.py, _item_tables: cw, dw, ah, bh) into
+// shared memory with cp.async and run the clustered kernels' register-tiled
+// stages of fourier_unit_item.cuh on a geometry of one channel on one rank
+// (item_dft_w then item_dft_h<false>; the inverse item_dft_h<true> then
+// item_idft_w, the tables' transposes). A plane takes two spectrum-pair
+// buffers and the tables (DensePlan): 186,624 B at 96 x 96, one block per
+// SM. The mix stages keep K (row stride 2C + 1) and the tile (stride 65)
 // in shared memory; a thread owns a (2C/16) x 4 block of outputs, and in
 // fu_bwd_mix a (2C/16) x (2C/16) block of the gK sum, in registers. Each
 // block of a mix stage walks a fixed run of tiles of one item (`chunks` runs
@@ -90,13 +100,15 @@
 // itself (chip_smoke.fu_work) moves only x, y (and gy, gx): the spectra are
 // what this design adds in exchange for filling the card; the radix-2 stages
 // are bound by shared-memory traffic (about 10 accesses per butterfly), the
-// mix stages by their shared-memory loads (0.5 per FMA). The statistics
+// dense stages by their FMAs and the shared-memory loads that feed them (2.7
+// M FMAs a 96 x 96 plane, 0.4-0.75 loads per FMA in the tiles), the mix
+// stages by their shared-memory loads (0.5 per FMA). The statistics
 // stages at (64, 32, 128, 128): fu_mix_stats reads z (136 MB, 0.041 ms) and
 // does 2 (2C)^2 B H Wf = 4.4 GFLOP of f32 FMAs (0.065 ms at 67 TFLOP/s), so
 // operations bound it; fu_bwd_stats_mix reads z and G (0.081 ms) and does
 // the same FMAs, so bytes bound it.
 
-#include "fourier_unit_common.cuh"
+#include "fourier_unit_item.cuh"
 
 namespace {
 
@@ -298,6 +310,109 @@ fu_inverse_kernel(const float* __restrict__ spec, T* __restrict__ y, int C, int 
     store_f32(out + 2 * i, v.x * ortho);
     store_f32(out + 2 * i + 1, v.y * ortho);
   }
+}
+
+// The dense plane path's shared memory, in floats (16-byte aligned
+// regions) of the geometry k of one channel on one rank: the host mirrors
+// it (ops/fourier_unit.py, _dense_plane_floats).
+struct DensePlan {
+  int a, b, tab, total;
+  __host__ __device__ explicit DensePlan(const ItemRank& k) {
+    a = 0;                             // the plane in f32 (row stride wp), then z
+    b = a + k.buf();                   // the plane as loaded, then the W-stage's output
+    tab = b + k.buf();                 // cw, dw, ah, bh
+    total = tab + round4(k.tables());  // 46,656 floats at 96 x 96
+  }
+};
+
+// out[map] = [re | im] orthonormal rDFT of each plane of x_map, as
+// fu_spectrum_kernel, by dense stages; grid n_maps * planes.
+template <typename T>
+__global__ void __launch_bounds__(kItemThreads)
+fu_spectrum_dense_kernel(const T* __restrict__ x0, const T* __restrict__ x1,
+                         const float* __restrict__ tables, float* __restrict__ out,
+                         int planes, int C, int H, int W) {
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  const ItemRank k(1, H, W, 1);
+  const DensePlan pl(k);
+  float* a = smem + pl.a;
+  float* b = smem + pl.b;
+  const ItemTables tab(smem + pl.tab, k);
+  const int map = blockIdx.x / planes, plane = blockIdx.x - map * planes;
+  const T* src = (map == 0 ? x0 : x1) + static_cast<size_t>(plane) * H * W;
+
+  // The plane (as it is into b, asynchronously, where it is whole 16-byte
+  // units) and the tables; then the plane in f32 into a.
+  const int map_bytes = H * W * static_cast<int>(sizeof(T));
+  const bool units = in_units(src, map_bytes);
+  if (units) copy_async(b, src, map_bytes);
+  copy_tables(smem + pl.tab, tables, k.tables());
+  wait_async();
+  __syncthreads();
+  if (units) {
+    unpack_planes(a, reinterpret_cast<const T*>(b), k);
+  } else {
+    load_planes(a, src, k);
+  }
+  __syncthreads();
+  // rDFT over W into b, DFT over H into a: the plane's [re | im] spectrum.
+  item_dft_w(a, b, tab, k);
+  __syncthreads();
+  item_dft_h<false>(b, a, tab, k);
+  __syncthreads();
+
+  const int bi = plane / C, c = plane - bi * C;
+  const size_t S = k.hwf;
+  float* o_re = out + (static_cast<size_t>(map) * planes * 2 +
+                       static_cast<size_t>(bi) * 2 * C + c) * S;
+  float* o_im = o_re + C * S;
+  for (int i = threadIdx.x; i < k.hwf; i += kItemThreads) {
+    o_re[i] = a[i];
+    o_im[i] = a[k.ns + i];
+  }
+}
+
+// y = Re(eh . R . fw^T) per plane of spec, as fu_inverse_kernel, by dense
+// stages; grid B * C.
+template <typename T>
+__global__ void __launch_bounds__(kItemThreads)
+fu_inverse_dense_kernel(const float* __restrict__ spec, const float* __restrict__ tables,
+                        T* __restrict__ y, int C, int H, int W) {
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  const ItemRank k(1, H, W, 1);
+  const DensePlan pl(k);
+  float* a = smem + pl.a;
+  float* b = smem + pl.b;
+  const ItemTables tab(smem + pl.tab, k);
+  const int plane = blockIdx.x, bi = plane / C, d = plane - bi * C;
+  const size_t S = k.hwf;
+  const float* s_re = spec + (static_cast<size_t>(bi) * 2 * C + d) * S;
+  const float* s_im = s_re + C * S;
+
+  // The plane's [re | im] spectrum into a, and the tables.
+  const int plane_bytes = k.hwf * static_cast<int>(sizeof(float));
+  if (in_units(s_re, plane_bytes) && in_units(s_im, plane_bytes)) {
+    copy_async(a, s_re, plane_bytes);
+    copy_async(a + k.ns, s_im, plane_bytes);
+  } else {
+    for (int i = threadIdx.x; i < k.hwf; i += kItemThreads) {
+      a[i] = s_re[i];
+      a[k.ns + i] = s_im[i];
+    }
+  }
+  copy_tables(smem + pl.tab, tables, k.tables());
+  wait_async();
+  __syncthreads();
+  // Inverse DFT over H into b, then the inverse rDFT over W writes y.
+  item_dft_h<true>(a, b, tab, k);
+  __syncthreads();
+  item_idft_w(b, y + static_cast<size_t>(plane) * H * W, tab, k);
+}
+
+size_t dense_smem_bytes(int H, int W) {
+  return static_cast<size_t>(DensePlan(ItemRank(1, H, W, 1)).total) * sizeof(float);
 }
 
 // The (ROWS, kTile) slice [s0, s0 + kTile) of a (ROWS, S) spectrum into a tile
@@ -711,8 +826,20 @@ int by_width(int C2, int CO2, F f) {
   }
 }
 
-bool bad_plane(int B, int C, int H, int W) {
-  return B <= 0 || C <= 0 || log2_exact(H) < 0 || log2_exact(W) < 0;
+// Whether the radix-2 transforms take the plane: H and W powers of two.
+bool radix2_plane(int H, int W) { return log2_exact(H) >= 0 && log2_exact(W) >= 0; }
+
+// Maps no stage takes: every stage needs an even W (the half spectrum's
+// Nyquist column), the mix stages nothing more.
+bool bad_map(int B, int C, int H, int W) {
+  return B <= 0 || C <= 0 || H <= 0 || W < 2 || W % 2 != 0;
+}
+
+// Planes neither transform takes: the dense stages need the factor tables,
+// 16-byte aligned.
+bool bad_plane(int B, int C, int H, int W, const float* tables) {
+  return bad_map(B, C, H, W) ||
+         (!radix2_plane(H, W) && (tables == nullptr || reinterpret_cast<size_t>(tables) % 16));
 }
 
 }  // namespace
@@ -727,6 +854,8 @@ int ffc_allow_smem(int dtype, int bytes) {
     const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
     int e = cudaFuncSetAttribute(fu_spectrum_kernel<T>, attr, bytes);
     if (e == 0) e = cudaFuncSetAttribute(fu_inverse_kernel<T>, attr, bytes);
+    if (e == 0) e = cudaFuncSetAttribute(fu_spectrum_dense_kernel<T>, attr, bytes);
+    if (e == 0) e = cudaFuncSetAttribute(fu_inverse_dense_kernel<T>, attr, bytes);
     for (int c2 = 16; c2 <= 128 && e == 0; c2 *= 2) {
       for (int t = 1; t <= 4 && e == 0; t *= 2) {
         e = by_width(c2, c2 / t, [&](auto ci, auto co) {
@@ -744,32 +873,51 @@ int ffc_allow_smem(int dtype, int bytes) {
   });
 }
 
+// Floats of shared memory of the dense plane path at (H, W).
+long long ffc_dense_plane_floats(int H, int W) {
+  return DensePlan(ItemRank(1, H, W, 1)).total;
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (of x0, x1). out: (n_maps, B, 2C, H, Wf)
-// float32, n_maps 1 (x1 unused) or 2. H and W powers of two, at least 4.
+// float32, n_maps 1 (x1 unused) or 2. H and W powers of two (at least 4):
+// the radix-2 kernel, tables unused; else W even and tables the plane's
+// factor tables (16-byte aligned; ops/fourier_unit.py, _item_tables): the
+// dense kernel, ffc_dense_plane_floats(H, W) * 4 bytes of shared memory.
 // Every entry point returns a cudaError_t (0 on success).
-int ffc_fu_spectrum(int dtype, const void* x0, const void* x1, float* out, int n_maps,
-                    int B, int C, int H, int W, void* stream) {
-  if (bad_plane(B, C, H, W) || n_maps < 1 || n_maps > 2 || (n_maps == 2 && !x1))
+int ffc_fu_spectrum(int dtype, const void* x0, const void* x1, const float* tables, float* out,
+                    int n_maps, int B, int C, int H, int W, void* stream) {
+  if (bad_plane(B, C, H, W, tables) || n_maps < 1 || n_maps > 2 || (n_maps == 2 && !x1))
     return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
-    fu_spectrum_kernel<T><<<n_maps * B * C, kThreads, plane_smem_bytes(H, W),
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x0), static_cast<const T*>(x1), out, B * C, C, H, W,
-        log2_exact(H), log2_exact(W));
+    if (radix2_plane(H, W)) {
+      fu_spectrum_kernel<T><<<n_maps * B * C, kThreads, plane_smem_bytes(H, W), s>>>(
+          static_cast<const T*>(x0), static_cast<const T*>(x1), out, B * C, C, H, W,
+          log2_exact(H), log2_exact(W));
+    } else {
+      fu_spectrum_dense_kernel<T><<<n_maps * B * C, kItemThreads, dense_smem_bytes(H, W), s>>>(
+          static_cast<const T*>(x0), static_cast<const T*>(x1), tables, out, B * C, C, H, W);
+    }
     return static_cast<int>(cudaGetLastError());
   });
 }
 
-// spec: (B, 2C, H, Wf) float32; y: (B, C, H, W) in dtype.
-int ffc_fu_inverse(int dtype, const float* spec, void* y, int B, int C, int H, int W,
-                   void* stream) {
-  if (bad_plane(B, C, H, W)) return cudaErrorInvalidValue;
+// spec: (B, 2C, H, Wf) float32; y: (B, C, H, W) in dtype; planes and tables
+// as for ffc_fu_spectrum.
+int ffc_fu_inverse(int dtype, const float* spec, const float* tables, void* y, int B, int C,
+                   int H, int W, void* stream) {
+  if (bad_plane(B, C, H, W, tables)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
-    fu_inverse_kernel<T><<<B * C, kThreads, plane_smem_bytes(H, W),
-                           static_cast<cudaStream_t>(stream)>>>(
-        spec, static_cast<T*>(y), C, H, W, log2_exact(H), log2_exact(W));
+    if (radix2_plane(H, W)) {
+      fu_inverse_kernel<T><<<B * C, kThreads, plane_smem_bytes(H, W), s>>>(
+          spec, static_cast<T*>(y), C, H, W, log2_exact(H), log2_exact(W));
+    } else {
+      fu_inverse_dense_kernel<T><<<B * C, kItemThreads, dense_smem_bytes(H, W), s>>>(
+          spec, tables, static_cast<T*>(y), C, H, W);
+    }
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -780,7 +928,7 @@ int ffc_fu_inverse(int dtype, const float* spec, void* y, int B, int C, int H, i
 int ffc_fu_mix_apply(int dtype, const float* z, const void* k, const float* scale,
                      const float* bias, const float* mean, const float* var, float* r,
                      int B, int C, int Co, int H, int W, int chunks, void* stream) {
-  if (bad_plane(B, C, H, W) || Co <= 0 || chunks < 1) return cudaErrorInvalidValue;
+  if (bad_map(B, C, H, W) || Co <= 0 || chunks < 1) return cudaErrorInvalidValue;
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
     return by_width(2 * C, 2 * Co, [&](auto ci, auto co) {
@@ -803,7 +951,7 @@ int ffc_fu_bwd_mix(int dtype, const float* z, const float* g, float* gz, const v
                    const float* var, const float* gscale, const float* gbias,
                    float* partial, int B, int C, int Co, int H, int W, int chunks,
                    long long count, void* stream) {
-  if (bad_plane(B, C, H, W) || Co <= 0 || chunks < 1 || count <= 0 || (Co != C && g == gz))
+  if (bad_map(B, C, H, W) || Co <= 0 || chunks < 1 || count <= 0 || (Co != C && g == gz))
     return cudaErrorInvalidValue;
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
@@ -823,7 +971,7 @@ int ffc_fu_bwd_mix(int dtype, const float* z, const float* g, float* gz, const v
 // rows of [sum m | sum m^2] for fu_reduce with count B * H * Wf.
 int ffc_fu_mix_stats(int dtype, const float* z, const void* k, float* partial, int B,
                      int C, int Co, int H, int W, int chunks, void* stream) {
-  if (bad_plane(B, C, H, W) || Co <= 0 || chunks < 1) return cudaErrorInvalidValue;
+  if (bad_map(B, C, H, W) || Co <= 0 || chunks < 1) return cudaErrorInvalidValue;
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
     return by_width(2 * C, 2 * Co, [&](auto ci, auto co) {
@@ -845,7 +993,7 @@ int ffc_fu_bwd_stats_mix(int dtype, const float* z, const float* g, const void* 
                          const float* scale, const float* bias, const float* mean,
                          const float* var, float* partial, int B, int C, int Co, int H, int W,
                          int chunks, void* stream) {
-  if (bad_plane(B, C, H, W) || Co <= 0 || chunks < 1) return cudaErrorInvalidValue;
+  if (bad_map(B, C, H, W) || Co <= 0 || chunks < 1) return cudaErrorInvalidValue;
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
     return by_width(2 * C, 2 * Co, [&](auto ci, auto co) {

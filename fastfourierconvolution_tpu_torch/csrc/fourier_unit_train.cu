@@ -85,11 +85,12 @@
 // (8,48,48), where one block's plan exceeds 227 KB, 178 KB, 216 KB and
 // 216 KB.
 //
-// Workspace, elsewhere (the 96px generator's (8,96,96), the 256px one's
-// maps): one 256-thread block per item holds its buffers in the
-// item's slice of a device workspace (fourier_unit_common.cuh) and computes
-// in f32 FMAs on the CUDA cores, recomputing the spectrum from x instead of
-// reading any saved intermediate (the backward's residuals are x, the
+// Workspace, elsewhere (maps that no other design takes, e.g. the 256px
+// generator's (32,256,256)): one 256-thread block per item holds its
+// buffers in the item's slice of a device workspace
+// (fourier_unit_common.cuh) and computes in f32 FMAs on the CUDA cores,
+// recomputing the spectrum from x instead of reading any saved
+// intermediate (the backward's residuals are x, the
 // parameters and the batch statistics). Three spectrum-pair buffers: A
 // (transform scratch), B (a map, then DFT(gy), then gm in place) and Z (z),
 // plus the tables, K and the per-channel vectors; a channel sum or gK entry

@@ -39,14 +39,18 @@ launches of its own kernel in ``launches`` and, by FourierUnit map
 Maps of any size. :func:`kernel_design` picks, by a fixed rule on the map
 and the card's shared memory per block, how ``fourier_unit_forward``,
 ``fu_bwd_apply`` and the statistics (``fu_train_stats``, ``fu_bwd_stats``)
-run a map: their per-item kernel with the item in shared memory; else the
-staged kernels, which work per (item, channel) plane and per tile of
-spectral positions (the wrapper then launches those and not its own
-kernel); else their per-item kernel with the item in shared memory where
-it fits once spread over a cluster's ranks; else their per-item kernel
-with the item in an f32 device workspace. In shared memory every per-item
-wrapper (the forward, the statistics, the backward sums and the backward
-apply) runs its clustered kernel (``csrc/fourier_unit_item.cuh``): each
+run a map: their per-item kernel with the item in shared memory; else, on
+power-of-two planes, the staged kernels, which work per (item, channel)
+plane (radix-2 transforms) and per tile of spectral positions (the wrapper
+then launches those and not its own kernel); else their per-item kernel
+with the item in shared memory where it fits once spread over a cluster's
+ranks; else the staged kernels with dense DFT transforms on planes of an
+even W; else (the statistics and the backward apply) their clustered
+kernel on out-channel slices, one after the other, where a slice fits
+(``SLICED``: each slice's launch counted under (C, H, W, Co/T)); else
+their per-item kernel with the item in an f32 device workspace. In shared
+memory every per-item wrapper (the forward, the statistics, the backward
+sums and the backward apply) runs its clustered kernel (``csrc/fourier_unit_item.cuh``): each
 item on a thread-block cluster of :func:`item_design` ranks, each rank on
 its share of the channels, with DFT tables built once per (H, W) and
 device (``_item_tables``).
@@ -390,8 +394,9 @@ def _check_args(x, kernel, **vectors):
 # whether the one-block plan or only the per-rank plans fit, and its
 # workspace kernel, which keeps the item's buffers in its slice of an f32
 # device workspace (csrc/fourier_unit_common.cuh), where it is WORKSPACE:
-# the staged kernels do not take the map and no per-rank plan fits (the
-# 96px generator's (8, 96, 96), for one).
+# no other design takes the map (the 256px generator's (32, 256, 256), for
+# one). The staged library also exports ffc_dense_plane_floats(H, W), the
+# dense plane path's plan that _dense_plane_floats mirrors.
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD, _TRAIN, _STAGED = "fourier_unit_fwd", "fourier_unit_train", "fourier_unit_staged"
@@ -416,8 +421,8 @@ _ENTRY_POINTS = {
         "ffc_fu_reduce": [_P, _I, _I, _LL, _I, _I, _P, _P],
     },
     _STAGED: {
-        "ffc_fu_spectrum": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "ffc_fu_inverse": [_I, _P, _P, _I, _I, _I, _I, _P],
+        "ffc_fu_spectrum": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "ffc_fu_inverse": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
         "ffc_fu_mix_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "ffc_fu_bwd_mix": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _LL, _P],
@@ -446,6 +451,9 @@ def _library(stem: str) -> ctypes.CDLL:
     for name, argtypes in _ENTRY_POINTS[stem].items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = _I
+    if stem == _STAGED:
+        lib.ffc_dense_plane_floats.argtypes = [_I, _I]
+        lib.ffc_dense_plane_floats.restype = _LL
     if stem in (_FWD, _TRAIN):
         # the plans of a whole FourierUnit (C, H, W[, R]), and their "_co"
         # forms of an out-channel slice (C, Co, H, W[, R])
@@ -482,7 +490,7 @@ def _launch(stem: str, entry: str, on: torch.Tensor, *args) -> None:
 
 # --- which design runs a map ------------------------------------------------------
 
-SHARED, STAGED, WORKSPACE = "shared", "staged", "workspace"
+SHARED, STAGED, SLICED, WORKSPACE = "shared", "staged", "sliced", "workspace"
 # The per-item library of each wrapper that kernel_design serves.
 _DESIGN_STEMS = {"forward": _FWD, "bwd_apply": _TRAIN, "stats": _TRAIN}
 # Spectral positions per tile of a staged mix stage, and the blocks that
@@ -510,15 +518,66 @@ def _item_floats(stem: str, c: int, h: int, w: int, co: int = 0) -> int:
 _STAGED_SLICES = (1, 2, 4)
 
 
+def _pow2(v: int) -> bool:
+    return v >= 4 and v & (v - 1) == 0
+
+
+def radix2_plane(h: int, w: int) -> bool:
+    """Whether ``fu_spectrum`` and ``fu_inverse`` take an H x W plane on
+    their radix-2 path (``radix2_plane`` of csrc/fourier_unit_staged.cu),
+    not on the dense one."""
+    return _pow2(h) and _pow2(w)
+
+
+def _dense_plane_floats(h: int, w: int) -> int:
+    """Floats of shared memory of the dense plane path of ``fu_spectrum`` and
+    ``fu_inverse`` (``DensePlan`` of csrc/fourier_unit_staged.cu, 16-byte
+    aligned regions): two spectrum-pair buffers of one channel and the
+    factor tables."""
+    return 2 * _round4(2 * h * (w // 2 + 1)) + _round4(2 * w * (w // 2 + 1) + 2 * h * h)
+
+
 def _staged_smem(c: int, h: int, w: int, co: int = 0) -> int:
     """Bytes of shared memory the largest staged kernel of the map takes:
-    one plane's H x Wf complex values with its twiddles, or the backward
-    mix stage's K (2C rows of 2Co + 1), its z and G tiles (2C and 2Co rows)
-    and six (2Co,) vectors (csrc/fourier_unit_staged.cu)."""
+    one plane's transform (on a power-of-two plane its H x Wf complex
+    values with its twiddles, else the dense plan, ``_dense_plane_floats``),
+    or the backward mix stage's K (2C rows of 2Co + 1), its z and G tiles
+    (2C and 2Co rows) and six (2Co,) vectors (csrc/fourier_unit_staged.cu)."""
     c2, co2 = 2 * c, 2 * (co or c)
-    plane = (h * (w // 2 + 1) + w // 2 + h // 2) * 8
+    if radix2_plane(h, w):
+        plane = (h * (w // 2 + 1) + w // 2 + h // 2) * 8
+    else:
+        plane = _dense_plane_floats(h, w) * 4
     mix = (c2 * (co2 + 1) + (c2 + co2) * (_TILE + 1) + 6 * co2) * 4
     return max(plane, mix)
+
+
+def _staged_takes(c: int, h: int, w: int, co: int, smem_limit: int) -> bool:
+    """Whether the staged kernels take the map: W even, 2C one of 16, 32,
+    64, 128, C/Co one of 1, 2, 4, and their shared memory within the
+    limit."""
+    return (w >= 2 and w % 2 == 0 and 2 * c in (16, 32, 64, 128) and c // co in _STAGED_SLICES
+            and _staged_smem(c, h, w, co) <= smem_limit)
+
+
+# The out-channel slice counts of the sliced design, fewest first.
+_SLICE_COUNTS = (2, 4, 8)
+
+
+@functools.cache
+def slice_count(c: int, h: int, w: int, smem_limit: int, co: int = 0) -> int:
+    """T of the ``SLICED`` design at the map (C, H, W) mixed into ``co``
+    out-channels (0: C), which :func:`kernel_design` reads where no earlier
+    clause takes the map: the fewest of 2, 4, 8 that divides Co and whose
+    slices of Co/T out-channels the clustered statistics and backward apply
+    take (:func:`kernel_design` ``SHARED`` on the slice); 0 where none
+    does. At 227 KB (an H100) (256, 4, 4) takes 2, (128, 16, 16) 4."""
+    co = co or c
+    for t in _SLICE_COUNTS:
+        if co % t == 0 and all(kernel_design(k, c, h, w, smem_limit, co // t) == SHARED
+                               for k in ("bwd_apply", "stats")):
+            return t
+    return 0
 
 
 @functools.cache
@@ -528,43 +587,57 @@ def kernel_design(wrapper: str, c: int, h: int, w: int, smem_limit: int, co: int
     :func:`fu_bwd_stats` and the training op) runs the map (C, H, W), mixed
     into ``co`` out-channels (0: C; fewer on an out-channel slice, decided
     on the slice's plans), on a card whose blocks may take ``smem_limit``
-    bytes of shared memory; a fixed rule, not a knob:
+    bytes of shared memory; a fixed rule, not a knob, whose first clause
+    that takes the map answers:
 
-    - ``SHARED``: the wrapper's clustered per-item kernel, its item's
-      buffers in shared memory, wherever the workspace kernel's plan
-      (``_item_floats``) fits the limit (:func:`item_design` then picks
-      ranks whose plans fit);
-    - ``STAGED``: else the staged kernels, wherever they take the map: H and
-      W powers of two (at least 4), 2C one of 16, 32, 64, 128, C/Co one of
-      1, 2, 4, and their shared memory (``_staged_smem``) within the limit;
-    - ``SHARED``: else the clustered kernel wherever one rank's plan
-      (``_item_rank_floats``) fits the limit on some cluster of
-      ``_ITEM_RANKS`` ranks that divides C and Co, for every kernel the wrapper's
-      design covers: the forward's own plan, or the backward apply's and
-      the statistics' together;
-    - ``WORKSPACE``: else the per-item workspace kernel, the item's
-      buffers in a device workspace, which takes any map.
+    1. ``SHARED``: the wrapper's clustered per-item kernel, its item's
+       buffers in shared memory, wherever the workspace kernel's plan
+       (``_item_floats``) fits the limit (:func:`item_design` then picks
+       ranks whose plans fit);
+    2. ``STAGED`` on power-of-two planes: the staged kernels with the
+       radix-2 transforms, wherever H and W are powers of two (at least 4)
+       and the staged kernels take the map (``_staged_takes``: 2C one of
+       16, 32, 64, 128, C/Co one of 1, 2, 4, their shared memory,
+       ``_staged_smem``, within the limit);
+    3. ``SHARED``: the clustered kernel wherever one rank's plan
+       (``_item_rank_floats``) fits the limit on some cluster of
+       ``_ITEM_RANKS`` ranks that divides C and Co, for every kernel the
+       wrapper's design covers: the forward's own plan, or the backward
+       apply's and the statistics' together;
+    4. ``STAGED`` on dense planes: the staged kernels with the dense DFT
+       transforms, wherever the staged kernels take the map (an even W);
+    5. ``SLICED`` (the statistics and the backward apply only): the
+       clustered kernels on the T out-channel slices of :func:`slice_count`
+       in series, each slice a ``SHARED`` map;
+    6. ``WORKSPACE``: else the per-item workspace kernel, the item's
+       buffers in a device workspace, which takes any map.
 
     The statistics and the backward apply are decided on the same plans,
     so the two always take the same design. At 227 KB (an H100) the 32px
     generator's maps stay ``SHARED``, and so does the forward at (64, 16,
     16); the 128px generator's maps at 32x32 to 128x128, and the backward
-    apply and the statistics at (64, 16, 16), are ``STAGED``; the 48px
-    generator's (8, 48, 48), whose one-block plan of the backward exceeds
-    the limit, is ``SHARED`` on clusters of 2 ranks or more; (8, 96, 96)
-    and (32, 256, 256) are ``WORKSPACE``."""
+    apply and the statistics at (64, 16, 16), are ``STAGED`` (clause 2);
+    the 48px generator's (8, 48, 48), whose one-block plan of the backward
+    exceeds the limit, is ``SHARED`` on clusters of 2 ranks or more; the
+    96px generator's (8, 96, 96) is ``STAGED`` on dense planes; the SN
+    cDCGAN discriminator's (256, 4, 4) runs the forward ``SHARED`` and the
+    statistics and the backward apply ``SLICED`` on 2 slices; (32, 256,
+    256), whose plane fits no block, is ``WORKSPACE``."""
     co = co or c
     if _item_floats(_DESIGN_STEMS[wrapper], c, h, w, co) * 4 <= smem_limit:
         return SHARED
-    pow2 = lambda v: v >= 4 and v & (v - 1) == 0
-    if (pow2(h) and pow2(w) and 2 * c in (16, 32, 64, 128) and c // co in _STAGED_SLICES
-            and _staged_smem(c, h, w, co) <= smem_limit):
+    staged = _staged_takes(c, h, w, co, smem_limit)
+    if staged and radix2_plane(h, w):
         return STAGED
     plans = ("forward",) if wrapper == "forward" else ("bwd_apply", "stats")
     if any(c % r == 0 and co % r == 0
            and all(_item_rank_floats(k, c, h, w, r, co) * 4 <= smem_limit for k in plans)
            for r in _ITEM_RANKS):
         return SHARED
+    if staged:
+        return STAGED
+    if wrapper != "forward" and slice_count(c, h, w, smem_limit, co):
+        return SLICED
     return WORKSPACE
 
 
@@ -635,10 +708,10 @@ def item_design(b: int, c: int, h: int, w: int, smem_limit: int, co: int = 0) ->
 
 @functools.cache
 def _item_tables(h: int, w: int, device_index: int) -> torch.Tensor:
-    """The clustered per-item kernels' DFT factor tables on CUDA device
-    ``device_index``, built once per (H, W) and device: the plain version's
-    f32 factor matrices (``forward_factors``) as [cw | dw | ah | bh]
-    (csrc/fourier_unit_item.cuh)."""
+    """The clustered per-item kernels' and the dense transforms' DFT factor
+    tables on CUDA device ``device_index``, built once per (H, W) and
+    device: the plain version's f32 factor matrices (``forward_factors``)
+    as [cw | dw | ah | bh] (csrc/fourier_unit_item.cuh)."""
     ah, bh, cw, dw = forward_factors(h, w)
     flat = np.concatenate([m.ravel() for m in (cw, dw, ah, bh)])
     return torch.from_numpy(flat).to(torch.device("cuda", device_index))
@@ -839,20 +912,69 @@ def _reduce(partial, count=0, aligned=True):
     return out
 
 
-@_counted
-def fu_train_stats(x, kernel):
-    """(bmean, bvar) of m over (B, H, Wf), f32; on CUDA the clustered
-    per-item kernel (:func:`item_design` ranks per item) or the workspace
-    kernel, each with ``fu_reduce``, or the staged kernels (``fu_spectrum``,
-    ``fu_mix_stats``), as :func:`kernel_design` picks; on the CPU the plain
-    version."""
-    _check_args(x, kernel)
-    if x.device.type == "cpu":
-        return fu_train_stats_plain(x, kernel)
-    design = _design("stats", x, kernel)
-    if design == STAGED:
-        return fu_mix_stats(fu_spectrum(x)[0], kernel)
-    _contiguous(x, kernel)
+# The sliced design (``SLICED``). Where no per-item plan holds K (2C x 2Co)
+# but one holds a slice of its out-channels, the statistics, the backward
+# sums and the backward apply run their clustered kernels on the T slices of
+# :func:`slice_count` one after the other on one stream; slice i mixes into
+# the Co/T channels :func:`out_columns` (Co, i, T) names, as a tensor-parallel
+# peer does. The statistics' and the backward sums' partial rows of a slice
+# are its own channels' entries, placed in the [re | im] layout before the
+# one reduction; gK is the slices' (2C, 2Co/T) columns placed the same way;
+# gx the slices' partial gx added in slice order, as ``parallel``'s tp sum
+# adds the peers' (in x's dtype), so every launch gives the same bits.
+
+
+def slice_operands(t: int, kernel, vectors=(), gy=None):
+    """Per out-channel slice i of ``t``: (K's (2C, 2Co/T) columns, the (2Co/T,)
+    entries of each of ``vectors``, gy's (B, Co/T, H, W) channels or None),
+    the slice that :func:`out_columns` names, each contiguous."""
+    c2, co2 = kernel.shape
+    cot = co2 // (2 * t)
+    ks = kernel.view(c2, 2, t, cot).permute(2, 0, 1, 3).reshape(t, c2, 2 * cot)
+    n = len(vectors)
+    vs = (torch.stack(vectors).view(n, 2, t, cot).permute(2, 0, 1, 3).reshape(t, n, 2 * cot)
+          if n else None)
+    gys = None if gy is None else gy.unflatten(1, (t, cot)).transpose(0, 1).contiguous()
+    return [(ks[i], tuple(vs[i]) if n else (), None if gy is None else gys[i])
+            for i in range(t)]
+
+
+def place_columns(parts):
+    """The inverse of the slicing on the last axis: (T, ..., 2Co/T) slices in
+    slice order -> (..., 2Co), [re | im]."""
+    t, *lead, w = parts.shape
+    return parts.view(t, *lead, 2, w // 2).movedim(0, -2).reshape(*lead, t * w)
+
+
+def sliced_rows(slice_rows, t: int, kernel, vectors=(), gy=None):
+    """The (B, 4Co) partial rows [a (2Co) | b (2Co)] of the statistics or the
+    backward sums from ``t`` out-channel slices: ``slice_rows(kslice,
+    vectors, gy)`` gives each slice's (B, 4Co/T) rows."""
+    rows = torch.stack([slice_rows(*ops) for ops in slice_operands(t, kernel, vectors, gy)])
+    b = rows.shape[1]
+    return place_columns(rows.view(t, b, 2, -1)).reshape(b, -1)
+
+
+def sliced_apply(slice_apply, t: int, kernel, vectors, gy):
+    """(gx, gK (2C, 2Co)) of the backward apply from ``t`` out-channel
+    slices: ``slice_apply(kslice, vectors, gy)`` gives each slice's (partial
+    gx, (2C, 2Co/T) gK columns)."""
+    gx, gks = None, []
+    for ops in slice_operands(t, kernel, vectors, gy):
+        part, gk = slice_apply(*ops)
+        gx = part if gx is None else gx + part
+        gks.append(gk)
+    return gx, place_columns(torch.stack(gks))
+
+
+def _slices(x, kernel) -> int:
+    limit = _smem_limit(_TRAIN, x.device.index, _DTYPE_CODES[x.dtype])
+    return slice_count(*x.shape[1:], limit, _out_channels(kernel))
+
+
+def _stats_rows(x, kernel, design):
+    """The per-item partial rows (B, 4Co) [Σm | Σm²] of the clustered
+    (``SHARED``) or workspace statistics kernel, counted."""
     b, c, h, w = x.shape
     co = _out_channels(kernel)
     partial = torch.empty(b, 4 * co, device=x.device)
@@ -866,16 +988,63 @@ def fu_train_stats(x, kernel):
         _launch(_TRAIN, "ffc_fu_train_stats", x, *operands, partial.data_ptr(), ws.data_ptr(),
                 b, c, co, h, w)
     _count(fu_train_stats, _map_key(c, h, w, co))
+    return partial
+
+
+@_counted
+def fu_train_stats(x, kernel):
+    """(bmean, bvar) of m over (B, H, Wf), f32; on CUDA the clustered
+    per-item kernel (:func:`item_design` ranks per item; ``SLICED``: on each
+    out-channel slice in turn) or the workspace kernel, each with
+    ``fu_reduce``, or the staged kernels (``fu_spectrum``,
+    ``fu_mix_stats``), as :func:`kernel_design` picks; on the CPU the plain
+    version."""
+    _check_args(x, kernel)
+    if x.device.type == "cpu":
+        return fu_train_stats_plain(x, kernel)
+    design = _design("stats", x, kernel)
+    if design == STAGED:
+        return fu_mix_stats(fu_spectrum(x)[0], kernel)
+    _contiguous(x, kernel)
+    b, c, h, w = x.shape
+    if design == SLICED:
+        partial = sliced_rows(lambda k, _v, _g: _stats_rows(x, k, SHARED), _slices(x, kernel),
+                              kernel)
+    else:
+        partial = _stats_rows(x, kernel, design)
+    co = _out_channels(kernel)
     return _reduce(parallel.all_gather_rows(partial), _global_count(b, h, w)).split(2 * co)
+
+
+def _bwd_stats_rows(x, kernel, vectors, gy, design):
+    """The per-item partial rows (B, 4Co) [Σgpre·n̂ | Σgpre] of the clustered
+    or workspace backward-sums kernel, counted; ``vectors`` (scale, bias,
+    bmean, bvar)."""
+    b, c, h, w = x.shape
+    co = _out_channels(kernel)
+    partial = torch.empty(b, 4 * co, device=x.device)
+    operands = (_DTYPE_CODES[x.dtype], x.data_ptr(), gy.data_ptr(), kernel.data_ptr())
+    pointers = [v.data_ptr() for v in vectors]
+    if design == SHARED:
+        ranks, tables = _item_launch(_TRAIN, x, co)
+        _launch(_TRAIN, "ffc_fu_item_bwd_stats", x, *operands, tables.data_ptr(), *pointers,
+                partial.data_ptr(), b, c, co, h, w, ranks)
+    else:
+        ws = _workspace(_TRAIN, x, co)
+        _launch(_TRAIN, "ffc_fu_bwd_stats", x, *operands, *pointers, partial.data_ptr(),
+                ws.data_ptr(), b, c, co, h, w)
+    _count(fu_bwd_stats, _map_key(c, h, w, co))
+    return partial
 
 
 @_counted
 def fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy):
     """(gscale, gbias) = (Σ gpre·n̂, Σ gpre), f32; on CUDA the clustered
-    per-item kernel (:func:`item_design` ranks per item) or the workspace
-    kernel, each with ``fu_reduce``, or the staged kernels (``fu_spectrum``
-    of x and gy, ``fu_bwd_stats_mix``), as :func:`kernel_design` picks; on
-    the CPU the plain version."""
+    per-item kernel (:func:`item_design` ranks per item; ``SLICED``: on each
+    out-channel slice in turn) or the workspace kernel, each with
+    ``fu_reduce``, or the staged kernels (``fu_spectrum`` of x and gy,
+    ``fu_bwd_stats_mix``), as :func:`kernel_design` picks; on the CPU the
+    plain version."""
     _check_args(x, kernel, scale=scale, bias=bias, bmean=bmean, bvar=bvar, gy=gy)
     if x.device.type == "cpu":
         return fu_bwd_stats_plain(x, kernel, scale, bias, bmean, bvar, gy)
@@ -884,21 +1053,37 @@ def fu_bwd_stats(x, kernel, scale, bias, bmean, bvar, gy):
         z, g = _spectra(x, gy)
         return fu_bwd_stats_mix(z, g, kernel, scale, bias, bmean, bvar)
     _contiguous(x, kernel, scale, bias, bmean, bvar, gy)
+    vectors = (scale, bias, bmean, bvar)
+    if design == SLICED:
+        partial = sliced_rows(lambda k, v, g: _bwd_stats_rows(x, k, v, g, SHARED),
+                              _slices(x, kernel), kernel, vectors, gy)
+    else:
+        partial = _bwd_stats_rows(x, kernel, vectors, gy, design)
+    return _reduce(parallel.all_gather_rows(partial)).split(2 * _out_channels(kernel))
+
+
+def _bwd_apply_item(x, kernel, vectors, gy, design):
+    """(gx or the slice's part of it, gK (2C, 2Co) f32) of the clustered or
+    workspace backward-apply kernel and ``fu_reduce``, counted; ``vectors``
+    (scale, bias, bmean, bvar, gscale, gbias)."""
     b, c, h, w = x.shape
     co = _out_channels(kernel)
-    partial = torch.empty(b, 4 * co, device=x.device)
-    operands = (_DTYPE_CODES[x.dtype], x.data_ptr(), gy.data_ptr(), kernel.data_ptr())
-    vectors = (scale.data_ptr(), bias.data_ptr(), bmean.data_ptr(), bvar.data_ptr())
+    count = _global_count(b, h, w)
+    gx = torch.empty_like(x)
+    partial = torch.empty(b, 4 * c * co, device=x.device)
+    operands = (x.data_ptr(), gy.data_ptr(), kernel.data_ptr())
+    pointers = [v.data_ptr() for v in vectors]
     if design == SHARED:
         ranks, tables = _item_launch(_TRAIN, x, co)
-        _launch(_TRAIN, "ffc_fu_item_bwd_stats", x, *operands, tables.data_ptr(), *vectors,
-                partial.data_ptr(), b, c, co, h, w, ranks)
+        _launch(_TRAIN, "ffc_fu_item_bwd_apply", x, _DTYPE_CODES[x.dtype], *operands,
+                tables.data_ptr(), *pointers, gx.data_ptr(), partial.data_ptr(), b, c, co, h, w,
+                ranks, count)
     else:
         ws = _workspace(_TRAIN, x, co)
-        _launch(_TRAIN, "ffc_fu_bwd_stats", x, *operands, *vectors, partial.data_ptr(),
-                ws.data_ptr(), b, c, co, h, w)
-    _count(fu_bwd_stats, _map_key(c, h, w, co))
-    return _reduce(parallel.all_gather_rows(partial)).split(2 * co)
+        _launch(_TRAIN, "ffc_fu_bwd_apply", x, _DTYPE_CODES[x.dtype], *operands, *pointers,
+                gx.data_ptr(), partial.data_ptr(), ws.data_ptr(), b, c, co, h, w, count)
+    _count(fu_bwd_apply, _map_key(c, h, w, co))
+    return gx, _reduce(partial).view(2 * c, 2 * co)
 
 
 @_counted
@@ -906,7 +1091,8 @@ def fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias):
     """(gx like x, gK (2C, 2Co) f32) of the train-mode backward (on an
     out-channel slice gx is the slice's part, see
     :func:`fu_bwd_apply_plain`); on CUDA the
-    clustered per-item kernel (:func:`item_design` ranks per item), the
+    clustered per-item kernel (:func:`item_design` ranks per item;
+    ``SLICED``: on each out-channel slice in turn, gx summed over them), the
     staged kernels or the workspace kernel, as :func:`kernel_design` picks,
     with ``fu_reduce``; on the CPU the plain version."""
     _check_args(x, kernel, scale=scale, bias=bias, bmean=bmean, bvar=bvar, gy=gy,
@@ -919,25 +1105,11 @@ def fu_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias):
         gz, gk = fu_bwd_mix(z, g, kernel, scale, bias, bmean, bvar, gscale, gbias)
         return fu_inverse(gz, x.dtype, x.shape[3]), gk
     _contiguous(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias)
-    b, c, h, w = x.shape
-    co = _out_channels(kernel)
-    count = _global_count(b, h, w)
-    gx = torch.empty_like(x)
-    partial = torch.empty(b, 4 * c * co, device=x.device)
-    operands = (x.data_ptr(), gy.data_ptr(), kernel.data_ptr())
-    vectors = (scale.data_ptr(), bias.data_ptr(), bmean.data_ptr(), bvar.data_ptr(),
-               gscale.data_ptr(), gbias.data_ptr())
-    if design == SHARED:
-        ranks, tables = _item_launch(_TRAIN, x, co)
-        _launch(_TRAIN, "ffc_fu_item_bwd_apply", x, _DTYPE_CODES[x.dtype], *operands,
-                tables.data_ptr(), *vectors, gx.data_ptr(), partial.data_ptr(), b, c, co, h, w,
-                ranks, count)
-    else:
-        ws = _workspace(_TRAIN, x, co)
-        _launch(_TRAIN, "ffc_fu_bwd_apply", x, _DTYPE_CODES[x.dtype], *operands, *vectors,
-                gx.data_ptr(), partial.data_ptr(), ws.data_ptr(), b, c, co, h, w, count)
-    _count(fu_bwd_apply, _map_key(c, h, w, co))
-    return gx, _reduce(partial).view(2 * c, 2 * co)
+    vectors = (scale, bias, bmean, bvar, gscale, gbias)
+    if design == SLICED:
+        return sliced_apply(lambda k, v, g: _bwd_apply_item(x, k, v, g, SHARED),
+                            _slices(x, kernel), kernel, vectors, gy)
+    return _bwd_apply_item(x, kernel, vectors, gy, design)
 
 
 # --- the staged kernels' wrappers -----------------------------------------------------
@@ -989,11 +1161,19 @@ def _staged_launch(entry: str, on: torch.Tensor, dtype: torch.dtype, *args) -> N
     _launch(_STAGED, entry, on, code, *args)
 
 
+def _plane_tables(h: int, w: int, on: torch.Tensor):
+    """The factor tables the transforms' dense plane path reads (those of
+    ``_item_tables``), or None on a power-of-two plane, whose radix-2 path
+    reads none."""
+    return None if radix2_plane(h, w) else _item_tables(h, w, on.device.index).data_ptr()
+
+
 @_counted
 def fu_spectrum(*maps):
     """[re; im] rfft2 of each (B, C, H, W) map (one or two, of one shape and
     dtype), stacked: (len(maps), B, 2C, H, Wf) f32; one launch of the
-    staged spectrum kernel on CUDA, the plain version on the CPU."""
+    staged spectrum kernel on CUDA (radix-2 on a power-of-two plane, else
+    dense DFT stages, W even), the plain version on the CPU."""
     x = maps[0]
     if not 1 <= len(maps) <= 2 or any(m.shape != x.shape or m.dtype != x.dtype for m in maps):
         raise ValueError("fu_spectrum takes one or two maps of one shape and dtype")
@@ -1009,7 +1189,7 @@ def fu_spectrum(*maps):
     b, c, h, w = x.shape
     out = torch.empty(len(maps), b, 2 * c, h, w // 2 + 1, device=x.device)
     _staged_launch("ffc_fu_spectrum", x, x.dtype, x.data_ptr(), maps[-1].data_ptr(),
-                   out.data_ptr(), len(maps), b, c, h, w)
+                   _plane_tables(h, w, x), out.data_ptr(), len(maps), b, c, h, w)
     _count(fu_spectrum, (c, h, w))
     return out
 
@@ -1069,7 +1249,8 @@ def fu_bwd_stats_mix(z, g, kernel, scale, bias, bmean, bvar):
 def fu_inverse(spec, dtype, w):
     """Re(eh · R · fwᵀ) of each plane of the (B, 2C, H, Wf) f32 spectrum,
     without half-spectrum weights: (B, C, H, W) in ``dtype``; the staged
-    inverse kernel on CUDA, the plain version on the CPU."""
+    inverse kernel on CUDA (radix-2 or dense, as ``fu_spectrum``), the plain
+    version on the CPU."""
     _check_stage([spec])
     if w // 2 + 1 != spec.shape[3] or dtype not in _DTYPE_CODES:
         raise ValueError(f"no float32 or bfloat16 map of width {w} has this spectrum")
@@ -1077,8 +1258,8 @@ def fu_inverse(spec, dtype, w):
         return fu_inverse_plain(spec, dtype, w)
     b, c2, h, _ = spec.shape
     y = torch.empty(b, c2 // 2, h, w, dtype=dtype, device=spec.device)
-    _staged_launch("ffc_fu_inverse", spec, dtype, spec.data_ptr(), y.data_ptr(), b, c2 // 2,
-                   h, w)
+    _staged_launch("ffc_fu_inverse", spec, dtype, spec.data_ptr(), _plane_tables(h, w, spec),
+                   y.data_ptr(), b, c2 // 2, h, w)
     _count(fu_inverse, (c2 // 2, h, w))
     return y
 

@@ -27,6 +27,9 @@ from test_torch_fourier_unit_train import _nhwc, _port, _rel_max, _train_inputs
 
 H100_SMEM = 232448  # shared memory a block may take on an H100, bytes
 SHAPES = [(4, 8, 8, 8), (2, 16, 16, 8), (2, 8, 32, 8)]  # (B, H, W, C), H and W powers of two
+# Planes that are no power of two, which the kernels take with dense DFT
+# stages (the 96px generator's 96 x 96 at a CPU test's size).
+DENSE_SHAPES = [(2, 6, 12, 8), (2, 12, 24, 8)]
 STAGE_WRAPPERS = (tfu.fu_spectrum, tfu.fu_mix_apply, tfu.fu_inverse, tfu.fu_bwd_mix,
                   tfu.fu_mix_stats, tfu.fu_bwd_stats_mix)
 
@@ -49,11 +52,17 @@ STAGE_WRAPPERS = (tfu.fu_spectrum, tfu.fu_mix_apply, tfu.fu_inverse, tfu.fu_bwd_
     # a smaller limit moves a 32px map to the staged kernels
     ("forward", (8, 32, 32), 48 * 1024, tfu.STAGED),
     ("forward", (16, 16, 16), 48 * 1024, tfu.SHARED),
-    # maps the staged kernels do not take: the per-item kernel's workspace
-    ("forward", (8, 96, 96), H100_SMEM, tfu.WORKSPACE),  # not a power of two
+    # planes that are no power of two: dense DFT stages (the workspace
+    # before the staged kernels took them)
+    ("forward", (8, 96, 96), H100_SMEM, tfu.STAGED),
+    # 2C above 128: the statistics and the backward apply on 4 out-channel
+    # slices (the workspace before the sliced design)
+    ("bwd_apply", (128, 16, 16), H100_SMEM, tfu.SLICED),
+    # maps no other design takes: the per-item kernel's workspace
     ("bwd_apply", (32, 256, 256), H100_SMEM, tfu.WORKSPACE),  # a plane beyond the limit
-    ("bwd_apply", (128, 16, 16), H100_SMEM, tfu.WORKSPACE),  # 2C above 128
     ("bwd_apply", (12, 32, 32), H100_SMEM // 4, tfu.WORKSPACE),  # 2C not a multiple of 16
+    ("forward", (12, 96, 96), H100_SMEM, tfu.WORKSPACE),  # 2C not a multiple of 16
+    ("forward", (8, 108, 108), H100_SMEM, tfu.WORKSPACE),  # a dense plane beyond the limit
     # the statistics follow the backward apply's plan: per item at 32px,
     # staged at all four 128px maps, the workspace where the stages do not go
     ("stats", (16, 16, 16), H100_SMEM, tfu.SHARED),
@@ -62,7 +71,7 @@ STAGE_WRAPPERS = (tfu.fu_spectrum, tfu.fu_mix_apply, tfu.fu_inverse, tfu.fu_bwd_
     ("stats", (32, 32, 32), H100_SMEM, tfu.STAGED),
     ("stats", (32, 64, 64), H100_SMEM, tfu.STAGED),
     ("stats", (32, 128, 128), H100_SMEM, tfu.STAGED),
-    ("stats", (8, 96, 96), H100_SMEM, tfu.WORKSPACE),
+    ("stats", (8, 96, 96), H100_SMEM, tfu.STAGED),
     ("stats", (32, 256, 256), H100_SMEM, tfu.WORKSPACE),
 ])
 def test_kernel_design_by_map(wrapper, cmap, limit, design):
@@ -80,6 +89,9 @@ def test_item_plans_are_the_documented_sizes():
 @pytest.mark.parametrize("b,h,w,chunks", [
     (64, 128, 128, 8), (64, 64, 64, 8), (64, 32, 32, 8), (64, 16, 16, 3),
     (2, 128, 128, 130), (8, 64, 64, 33), (1024, 128, 128, 1),
+    # 96 x 96: 74 tiles (the last half full); at batch 8, 64 runs of 2 tiles,
+    # of which 37 hold tiles (the others write zero partial rows)
+    (8, 96, 96, 64), (64, 96, 96, 8),
 ])
 def test_staged_chunks_fill_the_card_with_whole_tiles(b, h, w, chunks):
     """Runs of 64-position tiles per item: 512 blocks over the batch, at
@@ -99,7 +111,7 @@ def _stage_bwd_apply(x, kernel, scale, bias, bmean, bvar, gy, gscale, gbias):
     return tfu.fu_inverse_plain(gz, x.dtype, x.shape[3]), gk
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + DENSE_SHAPES)
 def test_stage_plains_compose_to_the_plain_forward_and_backward(shape):
     """In f64 the stages, composed as the wrappers compose the kernels,
     give the per-item plain versions to 1e-12 rel-max."""
@@ -113,7 +125,7 @@ def test_stage_plains_compose_to_the_plain_forward_and_backward(shape):
         assert _rel_max(a, b) <= 1e-12
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + DENSE_SHAPES)
 def test_spectrum_plain_matches_jax_rfft2(shape):
     """fu_spectrum_plain of two maps against the JAX package's rfft2_ortho
     of each (factor form), f32: 1e-5 absolute on O(1) values."""
@@ -128,7 +140,24 @@ def test_spectrum_plain_matches_jax_rfft2(shape):
         np.testing.assert_allclose(_nhwc(spec[i, :, c:]), np.asarray(f_i), atol=1e-5)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+def test_inverse_plain_matches_jax_forward_adjoint(shape):
+    """fu_inverse_plain (no half-spectrum weights, what the dense inverse
+    computes) of a seeded spectrum against the JAX FourierUnit's
+    ``_dft_forward_adjoint`` on the same factor tables, f32: 1e-5
+    absolute."""
+    b, h, w, c = shape
+    rng = np.random.default_rng(17)
+    g_r, g_i = (rng.normal(size=(b, h, w // 2 + 1, c)).astype(np.float32) for _ in range(2))
+    ah, bh, cw, dw = jfu._factors(h, w, jnp.float32)[:4]
+    want = jfu._dft_forward_adjoint(jnp.asarray(g_r), jnp.asarray(g_i), ah, bh, cw, dw,
+                                    jax.lax.Precision.HIGHEST)
+    spec = torch.from_numpy(np.concatenate([g_r, g_i], axis=3)).permute(0, 3, 1, 2).contiguous()
+    np.testing.assert_allclose(_nhwc(tfu.fu_inverse_plain(spec, torch.float32, w)),
+                               np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES + DENSE_SHAPES)
 def test_stage_plains_match_jax_spec_forward(shape):
     """The staged forward with the batch statistics against the JAX
     FourierUnit's ``_spec_forward`` in train mode, f32: 1e-5 absolute."""
@@ -142,7 +171,7 @@ def test_stage_plains_match_jax_spec_forward(shape):
     np.testing.assert_allclose(_nhwc(y_t), np.asarray(y_j), atol=1e-5)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + DENSE_SHAPES)
 def test_stage_plains_match_jax_custom_vjp(shape):
     """The staged backward apply (with the backward sums of the plain
     version) against jax.vjp of the JAX FourierUnit in train mode, f32:
@@ -160,7 +189,7 @@ def test_stage_plains_match_jax_custom_vjp(shape):
     assert _rel_max(gk.numpy(), gk_j) <= 1e-4
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + DENSE_SHAPES)
 def test_statistics_stage_plains_compose_to_the_plain_statistics(shape):
     """In f64 the statistics stages, composed as ``fu_train_stats`` and
     ``fu_bwd_stats`` compose the kernels on a staged map (one spectrum,
@@ -177,7 +206,7 @@ def test_statistics_stage_plains_compose_to_the_plain_statistics(shape):
         assert _rel_max(a, b) <= 1e-12
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + DENSE_SHAPES)
 def test_staged_training_forward_matches_jax_spec_forward(shape):
     """``_train_forward_staged`` on CPU tensors (the stage wrappers' plain
     versions, one spectrum) against the JAX FourierUnit's ``_spec_forward``
@@ -193,7 +222,7 @@ def test_staged_training_forward_matches_jax_spec_forward(shape):
     np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j), atol=1e-5)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + DENSE_SHAPES)
 def test_staged_training_backward_matches_jax_custom_vjp(shape):
     """``_train_backward_staged`` on CPU tensors (one two-map spectrum, the
     backward sums, then the backward apply's mix and inverse) with the

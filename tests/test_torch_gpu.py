@@ -221,10 +221,12 @@ def test_training_step_launches_each_kernel_a_fixed_number_of_times(cuda):
 # A FourierUnit map of the 128px generator (block3's), whose buffers exceed
 # a block's shared memory.
 LARGE_SHAPE = (4, 32, 64, 64)
-# A map of the 96px generator's shape class that the staged kernels do not
-# take (96 is no power of two): the per-item kernels keep its buffers in a
-# per-item workspace.
-WORKSPACE_SHAPE = (2, 8, 96, 96)
+# A map that no design but the workspace takes (2C = 24 is no width of the
+# staged mix stages, and no cluster's plan holds a 64 x 64 item of 12
+# channels or a slice of it): the per-item kernels keep its buffers in a
+# per-item workspace. (The 96px generator's (8, 96, 96) took the workspace
+# until the staged kernels took planes that are no power of two.)
+WORKSPACE_SHAPE = (2, 12, 64, 64)
 
 
 # The kernel whose launch each wrapper's call makes at LARGE_SHAPE: every
@@ -364,9 +366,11 @@ def test_packed_128px_training_step_runs_the_fused_and_large_map_kernels(cuda):
 
 
 # Maps that the staged kernels take, at batch 2: the 128px generator's
-# two largest and the 64px generator's largest (2C = 16).
-STAGED_SHAPES = [(2, 32, 128, 128), (2, 32, 64, 64), (2, 8, 64, 64)]
-# Each stage at every width it is built for: 2C = 64, 16, 32 and 128.
+# two largest, the 64px generator's largest (2C = 16) and the 96px
+# generator's 96 x 96 (dense DFT stages).
+STAGED_SHAPES = [(2, 32, 128, 128), (2, 32, 64, 64), (2, 8, 64, 64), (2, 8, 96, 96)]
+# Each stage at every width it is built for: 2C = 64, 16, 32 and 128; and
+# at 96 x 96, 74 tiles of the mix stages (the last half full).
 STAGE_SHAPES = STAGED_SHAPES[1:] + [(2, 16, 32, 32), (2, 64, 16, 16)]
 
 
@@ -445,7 +449,7 @@ def test_staged_stages_match_plain(cuda, name, shape):
 FU128_MAPS = [(2, 64, 16, 16), (2, 32, 32, 32), (2, 32, 64, 64), (2, 32, 128, 128)]
 
 
-@pytest.mark.parametrize("shape", FU128_MAPS)
+@pytest.mark.parametrize("shape", FU128_MAPS + [(2, 8, 96, 96)])
 def test_staged_training_op_matches_plain(cuda, shape):
     """The training op on a map whose statistics run staged, f32 (TF32
     off): y, bmean and bvar, and the gradients of x, kernel, scale and bias
@@ -467,6 +471,109 @@ def test_staged_training_op_matches_plain(cuda, shape):
     refs += fu.fourier_unit_backward_plain(x64, k64, s64, b64, *refs[1:], gy64)[:4]
     for out, ref in zip((y, bmean, bvar, *grads), refs):
         assert out.shape == ref.shape and torch.isfinite(out).all()
+        rel = ((out.double() - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= 1e-4, rel
+
+
+# Planes that are no power of two, which fu_spectrum and fu_inverse take
+# with dense DFT stages: the 96px generator's, and an odd H by an even W
+# whose planes are no whole 16-byte units.
+DENSE_SHAPES = [(2, 8, 96, 96), (2, 8, 45, 62)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+def test_dense_transforms_match_plain(cuda, shape, dtype, tol):
+    """``fu_spectrum`` of one and of two maps and ``fu_inverse`` on dense
+    planes against their plain versions in f64 on the same inputs: the
+    spectra within 1e-4 rel-max (the kernel computes in f32 from the
+    map's values), y within ``tol`` (f32; bf16, which y is rounded to); one
+    launch each, counted by map; two launches give the same bits."""
+    b, c, h, w = shape
+    gen = torch.Generator().manual_seed(21)
+    x, gy = (torch.randn(shape, generator=gen).to(cuda, dtype) for _ in range(2))
+    spec = torch.randn(b, 2 * c, h, w // 2 + 1, generator=gen).to(cuda)
+    cases = [(fu.fu_spectrum, fu.fu_spectrum_plain, (x,), 1e-4),
+             (fu.fu_spectrum, fu.fu_spectrum_plain, (x, gy), 1e-4),
+             (lambda s: fu.fu_inverse(s, dtype, w),
+              lambda s: fu.fu_inverse_plain(s, torch.float64, w), (spec,), tol)]
+    for wrapper, plain, args, bar in cases:
+        counted = fu.fu_spectrum if wrapper is fu.fu_spectrum else fu.fu_inverse
+        before = counted.launches_by_map[(c, h, w)]
+        out = wrapper(*args)
+        torch.cuda.synchronize()
+        assert counted.launches_by_map[(c, h, w)] == before + 1
+        ref = plain(*(a.double() for a in args))
+        assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+        rel = ((out.double() - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= bar, rel
+        assert torch.equal(wrapper(*args), out)
+
+
+def test_dense_plane_plan_matches_the_library(cuda):
+    """The dense plane path's shared memory that ``kernel_design`` reads
+    (``_staged_smem``) is the kernels': 186,624 B at 96 x 96."""
+    lib = fu._library(fu._STAGED)
+    for h, w in ((96, 96), (45, 62), (24, 40), (106, 106)):
+        assert lib.ffc_dense_plane_floats(h, w) == fu._dense_plane_floats(h, w)
+    assert lib.ffc_dense_plane_floats(96, 96) * 4 == 186624
+
+
+# The SN cDCGAN discriminator's (256, 4, 4) at batch 4: its statistics and
+# backward apply run sliced (T = 2 out-channel slices on an H100).
+SLICED_SHAPE = (4, 256, 4, 4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["fu_train_stats", "fu_bwd_stats", "fu_bwd_apply"])
+def test_sliced_wrappers_match_plain(cuda, name, dtype, tol):
+    """The sliced design: T launches of the wrapper's clustered kernel, each
+    counted under the slice's (C, H, W, Co/T), and one reduction (the
+    backward apply's gK: one per slice); every output within 1e-4 (f32) /
+    2e-2 (bf16) rel-max of the plain version in f64 (the backward with
+    ``relu_margin_bias``); two calls give the same bits."""
+    wrapper, plain, args = _train_case(name, SLICED_SHAPE, dtype, cuda)
+    x, kernel = args[:2]
+    assert fu._design("stats", x, kernel) == fu._design("bwd_apply", x, kernel) == fu.SLICED
+    t = fu._slices(x, kernel)
+    b, c, h, w = SLICED_SHAPE
+    key = (c, h, w, c // t)
+    before = (wrapper.launches_by_map[key], wrapper.launches, fu.fu_reduce.launches)
+    outs = wrapper(*args)
+    torch.cuda.synchronize()
+    reduces = t if name == "fu_bwd_apply" else 1
+    assert (wrapper.launches_by_map[key], wrapper.launches, fu.fu_reduce.launches) == (
+        before[0] + t, before[1] + t, before[2] + reduces)
+    refs = plain(*(a.double() for a in args))
+    for out, ref in zip(outs, refs):
+        assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+        rel = ((out.double() - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= tol, rel
+    assert all(torch.equal(a, b_) for a, b_ in zip(wrapper(*args), outs))
+
+
+def test_sliced_training_op_matches_plain(cuda):
+    """The training op at the sliced map, f32: y, the statistics and the
+    gradients of x, kernel, scale and bias within 1e-4 rel-max of the plain
+    op in f64 (with ``relu_margin_bias``); the forward per item, the
+    statistics and both backward kernels on the T slices."""
+    x, kernel, scale, bias, _, _, gy = _train_case("fu_bwd_stats", SLICED_SHAPE, torch.float32,
+                                                   cuda)[2]
+    t = fu._slices(x, kernel)
+    want = {fu.fu_train_stats: t, fu.fourier_unit_forward: 1, fu.fu_bwd_stats: t,
+            fu.fu_bwd_apply: t, fu.fu_spectrum: 0}
+    before = {f: f.launches for f in want}
+    leaves = [v.clone().requires_grad_() for v in (x, kernel, scale, bias)]
+    y, bmean, bvar = fu.fourier_unit_train(*leaves)
+    grads = torch.autograd.grad(y, leaves, gy)
+    torch.cuda.synchronize()
+    assert {f: f.launches - before[f] for f in want} == want
+    x64, k64, s64, b64, gy64 = (v.double() for v in (x, kernel, scale, bias, gy))
+    refs = fu.fourier_unit_train_plain(x64, k64, s64, b64)
+    refs += fu.fourier_unit_backward_plain(x64, k64, s64, b64, *refs[1:], gy64)[:4]
+    for out, ref in zip((y, bmean, bvar, *grads), refs):
         rel = ((out.double() - ref).abs().max() / ref.abs().max()).item()
         assert rel <= 1e-4, rel
 
@@ -932,9 +1039,10 @@ def test_a_failed_capture_raises_and_runs_no_step_in_its_place(deterministic):
 # --- the FourierUnit op's eval-mode gradient and double backward -------------------
 
 # A map of each design: per item (clustered, on one block's plan and, at
-# 48x48, on the per-rank plans alone), staged, and per item in a workspace
-# (96x96).
-GRAD_MAPS = [(8, 16, 16, 16), (2, 32, 64, 64), (2, 8, 48, 48), (2, 8, 96, 96)]
+# 48x48, on the per-rank plans alone), staged (radix-2 at 64x64, dense at
+# 96x96), per item in a workspace and sliced.
+GRAD_MAPS = [(8, 16, 16, 16), (2, 32, 64, 64), (2, 8, 48, 48), (2, 8, 96, 96), WORKSPACE_SHAPE,
+             SLICED_SHAPE]
 
 
 def _grad_inputs(shape, device, train):
@@ -959,16 +1067,18 @@ def test_eval_op_gradients_come_from_the_kernels(cuda, shape):
     """An eval-mode FourierUnit's gx, gK, gscale and gbias from the
     backward kernels (the apply with zero sums) against the plain backward
     in f64 within 1e-4 rel-max; one launch of the backward sums and of the
-    apply (their staged stages on the staged map)."""
+    apply (their staged stages on a staged map, T of each on a sliced
+    one)."""
     x, kernel, scale, bias, mean, var, gy = _grad_inputs(shape, cuda, train=False)
     leaves = [t.clone().requires_grad_() for t in (x, kernel, scale, bias)]
     y = fu.fourier_unit_eval(*leaves, mean, var)
     before = _backward_launches()
     outs = torch.autograd.grad(y, leaves, gy)
     torch.cuda.synchronize()
-    staged = fu._design("stats", x) == fu.STAGED
+    design = fu._design("stats", x)
+    t = fu._slices(x, kernel) if design == fu.SLICED else 1
     added = [a - b for a, b in zip(_backward_launches(), before)]
-    assert added == ([0, 0, 1, 1] if staged else [1, 1, 0, 0])
+    assert added == ([0, 0, 1, 1] if design == fu.STAGED else [t, t, 0, 0])
     refs = fu.fourier_unit_backward_plain(
         *(t.double() for t in (x, kernel, scale, bias, mean, var, gy)), train=False)
     for name, out, ref in zip(("gx", "gK", "gscale", "gbias"), outs, refs):

@@ -34,28 +34,43 @@ TILE = {k: int(v) for k, v in re.findall(r"\b(k[A-Z][A-Za-z]*) = (\d+)",
 THREADS = TILE["kItemThreads"]
 
 # (C, H, W) -> kernel_design of the forward, the backward apply and the
-# statistics at 227 KB, at every FourierUnit map of the 32-256px generators.
-# (8, 48, 48)'s backward apply and statistics were "workspace" while the rule
-# read only the one-block plan (259,940 B); they fit on clusters of 2 ranks
-# (221,348 B a rank), so they are "shared". Every other answer is the one-block
-# rule's (``one_block_design``).
+# statistics at 227 KB, at every FourierUnit map of the 32-256px generators
+# and of the SN cDCGAN discriminator. (8, 48, 48)'s backward apply and
+# statistics were "workspace" while the rule read only the one-block plan
+# (259,940 B); they fit on clusters of 2 ranks (221,348 B a rank), so they
+# are "shared". (8, 96, 96) was "workspace" until the staged kernels took
+# planes that are no power of two (dense DFT stages, 186,624 B a plane), and
+# (256, 4, 4)'s backward apply and statistics until the sliced design ran
+# them on 2 out-channel slices (the clustered kernels on 8 ranks, 165,868 B a
+# rank of the backward apply). Every other answer is the one-block rule's
+# (``one_block_design``).
 DESIGNS = {
     (16, 16, 16): ("shared", "shared", "shared"),
     (8, 32, 32): ("shared", "shared", "shared"),
     (16, 24, 24): ("shared", "shared", "shared"),
     (8, 48, 48): ("shared", "shared", "shared"),
     (8, 64, 64): ("staged", "staged", "staged"),
-    (8, 96, 96): ("workspace", "workspace", "workspace"),
+    (32, 12, 12): ("shared", "shared", "shared"),
+    (8, 96, 96): ("staged", "staged", "staged"),
     (64, 16, 16): ("shared", "staged", "staged"),
     (32, 32, 32): ("staged", "staged", "staged"),
     (32, 64, 64): ("staged", "staged", "staged"),
     (32, 128, 128): ("staged", "staged", "staged"),
     (32, 256, 256): ("workspace", "workspace", "workspace"),
+    (128, 8, 8): ("shared", "shared", "shared"),
+    (256, 4, 4): ("shared", "sliced", "sliced"),
 }
-SHARED_MAPS = [m for m, d in DESIGNS.items() if "shared" in d[:2]]
+# The SN cDCGAN discriminator's maps (2C = 256 and 512), whose clustered
+# kernels the emulation below leaves to the card.
+D_MAPS = [(128, 8, 8), (256, 4, 4)]
+SHARED_MAPS = [m for m, d in DESIGNS.items() if "shared" in d[:2] and m not in D_MAPS]
 # (B, C, H, W) -> ranks per item: batch 64 takes 2 (128 blocks make one wave
-# on the H100's 132 SMs, 4 ranks' 256 two), batches 1 and 7 the most, 8.
-ITEM_DESIGNS = {(b,) + m: (2 if b == 64 else 8) for m in SHARED_MAPS for b in (1, 7, 64)}
+# on the H100's 132 SMs, 4 ranks' 256 two), batches 1 and 7 the most, 8; the
+# discriminator's maps fit no fewer than 4 ranks (128, 8, 8) and 8 (256, 4,
+# 4), and of those they take the fewest at batch 64.
+ITEM_DESIGNS = {**{(b,) + m: (2 if b == 64 else 8) for m in SHARED_MAPS for b in (1, 7, 64)},
+                **{(b,) + m: (r if b == 64 else 8) for m, r in zip(D_MAPS, (4, 8))
+                   for b in (1, 7, 64)}}
 
 
 @pytest.mark.parametrize("cmap", list(DESIGNS))
@@ -77,18 +92,28 @@ def one_block_design(wrapper, c, h, w, smem_limit):
     return "workspace"
 
 
-# The answers that reading the per-rank plans moved.
-MOVED = {("bwd_apply", (8, 48, 48)), ("stats", (8, 48, 48))}
+# The answers that the clauses after the one-block rule's moved, from
+# "workspace": reading the per-rank plans, the dense staged planes and the
+# sliced design.
+MOVED = {("bwd_apply", (8, 48, 48)): "shared", ("stats", (8, 48, 48)): "shared",
+         **{(k, (128, 8, 8)): "shared" for k in ("forward", "bwd_apply", "stats")},
+         ("forward", (256, 4, 4)): "shared",
+         ("forward", (8, 96, 96)): "staged", ("bwd_apply", (8, 96, 96)): "staged",
+         ("stats", (8, 96, 96)): "staged",
+         ("bwd_apply", (256, 4, 4)): "sliced", ("stats", (256, 4, 4)): "sliced"}
 
 
 @pytest.mark.parametrize("cmap", list(DESIGNS))
 def test_kernel_design_moves_only_the_48px_training_kernels(cmap):
-    """Every answer of DESIGNS but (8, 48, 48)'s backward apply and
-    statistics is the one-block rule's."""
+    """Every answer of DESIGNS is the one-block rule's but those of MOVED:
+    on the per-rank plans (8, 48, 48)'s backward apply and statistics,
+    (128, 8, 8)'s three and (256, 4, 4)'s forward, on dense staged planes
+    (8, 96, 96)'s three, sliced (256, 4, 4)'s backward apply and
+    statistics; each of which the one-block rule sent to the workspace."""
     for k in ("forward", "bwd_apply", "stats"):
         old = one_block_design(k, *cmap, H100_SMEM)
         if (k, cmap) in MOVED:
-            assert (old, fu.kernel_design(k, *cmap, H100_SMEM)) == ("workspace", "shared")
+            assert (old, fu.kernel_design(k, *cmap, H100_SMEM)) == ("workspace", MOVED[k, cmap])
         else:
             assert fu.kernel_design(k, *cmap, H100_SMEM) == old
 
@@ -110,11 +135,20 @@ def _fourier_unit_maps(model, *inputs, **kw):
 
 
 def _preset_maps(name):
-    from fastfourierconvolution_tpu_torch.models.conditional import FFCCondGenerator
-    from fastfourierconvolution_tpu_torch.models.ffc_gan import FFCDiscriminator
+    from fastfourierconvolution_tpu_torch.models.conditional import (
+        FFCCondDCGANDiscriminator,
+        FFCCondGenerator,
+    )
+    from fastfourierconvolution_tpu_torch.models.ffc_gan import FFCDiscriminator, FFCGenerator
 
     if name == "FFCDiscriminator":
         return _fourier_unit_maps(FFCDiscriminator(), torch.zeros(1, 3, 32, 32))
+    if name == "FFCGenerator96":
+        return _fourier_unit_maps(FFCGenerator.for_resolution(96), torch.zeros(1, 128))
+    if name == "ffc_cond_dcgan":  # the zoo's D at its JAX defaults (ndf 64, 64px)
+        d = FFCCondDCGANDiscriminator(nc=3, ndf=64, num_classes=10, use_sn=True)
+        return _fourier_unit_maps(d, torch.zeros(1, 3, 64, 64),
+                                  y=torch.zeros(1, dtype=torch.long))
     return _fourier_unit_maps(FFCCondGenerator.for_preset(name), torch.zeros(1, 128),
                               y=torch.zeros(1, dtype=torch.long))
 
@@ -125,16 +159,21 @@ def _preset_maps(name):
     ("tex128", {(16, 16, 16), (8, 32, 32), (8, 64, 64), (8, 128, 128)}),
     ("library64", {(16, 16, 16), (8, 32, 32), (8, 64, 64)}),
     ("FFCDiscriminator", {(16, 16, 16), (32, 8, 8)}),
+    ("FFCGenerator96", {(16, 24, 24), (8, 48, 48), (8, 96, 96)}),
+    ("ffc_cond_dcgan", {(128, 8, 8), (256, 4, 4)}),
 ])
 def test_kernel_design_keeps_the_presets_maps(name, maps):
-    """At every FourierUnit map of the conditional presets and of
-    FFCDiscriminator the rule gives the one-block rule's answer, but for
-    stl48's (8, 48, 48), whose backward apply and statistics now run
-    clustered."""
+    """At every FourierUnit map of the conditional presets, of
+    FFCDiscriminator, of the 96px generator and of the SN cDCGAN
+    discriminator the rule gives the one-block rule's answer, but for the
+    answers MOVED names: stl48's and the 96px generator's (8, 48, 48)
+    (clustered), the 96px generator's (8, 96, 96) (staged on dense planes)
+    and the discriminator's maps (clustered on the per-rank plans; (256, 4,
+    4)'s training kernels sliced)."""
     assert _preset_maps(name) == maps
     for cmap in maps:
         for k in ("forward", "bwd_apply", "stats"):
-            want = "shared" if (k, cmap) in MOVED else one_block_design(k, *cmap, H100_SMEM)
+            want = MOVED.get((k, cmap)) or one_block_design(k, *cmap, H100_SMEM)
             assert fu.kernel_design(k, *cmap, H100_SMEM) == want
 
 
@@ -142,8 +181,9 @@ def test_kernel_design_at_the_edges_of_the_48px_rank_plans():
     """(64, 8, 48, 48): at 227 KB 2 ranks (the backward apply's 221,348 B a
     rank); 1 B under that plan, 4 ranks (163,140 B); under every rank plan
     of the backward apply (134,036 B at 8 ranks) the training kernels take
-    the workspace while the forward runs clustered on 8 ranks (124,292 B),
-    and under every plan of every kernel all three take the workspace."""
+    the staged kernels on dense planes (47 KB a 48 x 48 plane; the workspace
+    before those) while the forward runs clustered on 8 ranks (124,292 B),
+    and under every plan of every kernel all three run staged."""
     assert fu.item_design(64, 8, 48, 48, H100_SMEM) == 2
     assert fu._item_rank_floats("bwd_apply", 8, 48, 48, 2) * 4 == 221348
     limit = 221348 - 1
@@ -152,11 +192,63 @@ def test_kernel_design_at_the_edges_of_the_48px_rank_plans():
     assert fu.item_design(64, 8, 48, 48, limit) == 4
     limit = fu._item_rank_floats("bwd_apply", 8, 48, 48, 8) * 4 - 1
     assert [fu.kernel_design(k, 8, 48, 48, limit) for k in ("forward", "bwd_apply", "stats")] == [
-        "shared", "workspace", "workspace"]
+        "shared", "staged", "staged"]
     assert fu.item_design(64, 8, 48, 48, limit) == 8
     limit = fu._item_rank_floats("train_stats", 8, 48, 48, 8) * 4 - 1
-    assert all(fu.kernel_design(k, 8, 48, 48, limit) == "workspace"
+    assert all(fu.kernel_design(k, 8, 48, 48, limit) == "staged"
                for k in ("forward", "bwd_apply", "stats"))
+
+
+def test_kernel_design_at_the_edges_of_the_dense_planes():
+    """The dense staged clause takes a plane whose plan (two spectrum-pair
+    buffers of one channel and the factor tables) fits the limit: (8, 96,
+    96)'s 186,624 B at that limit and not 1 B under it; at the H100's
+    232,448 B, 106 x 106 (227,264 B) and not 108 x 108 (235,872 B), and no
+    plane of an odd W."""
+    designs = lambda cmap, limit: [fu.kernel_design(k, *cmap, limit)
+                                   for k in ("forward", "bwd_apply", "stats")]
+    plan = fu._dense_plane_floats(96, 96) * 4
+    assert plan == fu._staged_smem(8, 96, 96) == 186624
+    assert designs((8, 96, 96), plan) == ["staged"] * 3
+    assert designs((8, 96, 96), plan - 1) == ["workspace"] * 3
+    assert fu._dense_plane_floats(106, 106) * 4 == 227264 <= H100_SMEM
+    assert fu._dense_plane_floats(108, 108) * 4 == 235872 > H100_SMEM
+    assert designs((8, 106, 106), H100_SMEM) == ["staged"] * 3
+    assert designs((8, 108, 108), H100_SMEM) == ["workspace"] * 3
+    assert designs((8, 95, 96), H100_SMEM) == ["staged"] * 3
+    assert designs((8, 96, 95), H100_SMEM) == ["workspace"] * 3
+
+
+def test_kernel_design_at_the_edges_of_the_sliced_design():
+    """(256, 4, 4): the forward runs clustered on 8 ranks (163,052 B a
+    rank), the statistics and the backward apply sliced: T = 2 wherever a
+    slice's backward apply fits 8 ranks (165,868 B), T = 4 1 B under that
+    (99,948 B), T = 8 under that (66,988 B), and the workspace 1 B under
+    every slice's plan; at the H100's 232,448 B T = 2, each slice on 8 ranks
+    at batch 64. A map no slice helps, (32, 256, 256), stays on the
+    workspace."""
+    designs = lambda limit: [fu.kernel_design(k, 256, 4, 4, limit)
+                             for k in ("forward", "bwd_apply", "stats")]
+    assert designs(H100_SMEM) == ["shared", "sliced", "sliced"]
+    assert fu.slice_count(256, 4, 4, H100_SMEM) == 2
+    assert fu.item_design(64, 256, 4, 4, H100_SMEM) == 8
+    assert fu.item_design(64, 256, 4, 4, H100_SMEM, 128) == 8
+    for t, plan in ((2, 165868), (4, 99948), (8, 66988)):
+        assert fu._item_rank_floats("bwd_apply", 256, 4, 4, 8, 256 // t) * 4 == plan
+        assert fu.slice_count(256, 4, 4, plan) == t
+        assert designs(plan)[1:] == ["sliced", "sliced"]
+        assert fu.slice_count(256, 4, 4, plan - 1) != t
+    assert designs(163052) == ["shared", "sliced", "sliced"]
+    assert designs(163051)[0] == "workspace"
+    assert designs(66988 - 1) == ["workspace"] * 3
+    assert fu.slice_count(256, 4, 4, 66988 - 1) == 0
+    # under tp the rule reads the process's own Co: a slice of 128 is shared
+    assert [fu.kernel_design(k, 256, 4, 4, H100_SMEM, 128)
+            for k in ("forward", "bwd_apply", "stats")] == ["shared"] * 3
+    assert fu.kernel_design("bwd_apply", 128, 16, 16, H100_SMEM) == "sliced"
+    assert fu.slice_count(128, 16, 16, H100_SMEM) == 4
+    assert fu.kernel_design("stats", 32, 256, 256, H100_SMEM) == "workspace"
+    assert fu.slice_count(32, 256, 256, H100_SMEM) == 0
 
 
 def _shared_kernels(cmap):
