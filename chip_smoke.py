@@ -18,7 +18,7 @@ Phases, each of which raises on a failed check:
    running statistics calibrated on a seeded batch): 8 requests of batch
    64, then batch 1 and batch 7, with the kernel's launch counts (in all
    and by FourierUnit map) set to 0 before them and read after them;
-   then batch-64 requests back to back for a second for the served
+   then batch-64 requests back to back for half a second for the served
    img/s; one request is held against the same weights run through the
    plain op;
 5. the training kernels (batch statistics, backward statistics, backward
@@ -32,12 +32,12 @@ Phases, each of which raises on a failed check:
 6. train the full-width 32px generator against the SN discriminator in
    bf16 at batch 64 (seeded weights and data; bench.py's setting: fused D
    pass, hinge, AdamW): warm-up steps, each with exact kernel launches per
-   FourierUnit map, then steps back to back for a second for the step
+   FourierUnit map, then steps back to back for half a second for the step
    time, with every count set to 0 before the steps and read after them;
    then ``update_steps`` with bench.py's K (16 at 32px, 4 at 128px), the
    step as a CUDA graph: its first call (one eager step and the capture,
    which count their launches; replays count none) with exact launches,
-   then calls back to back for a second; eager and graph each with
+   then calls back to back for half a second; eager and graph each with
    wall ms per step, profiler device ms per step and idle share, and the
    profiler's device events per eager and per replayed step, which must
    agree; losses finite at every step;
@@ -66,7 +66,7 @@ Phases, each of which raises on a failed check:
 10. train the full-width 128px generator, in packed-branch mode, against
     its SN discriminator in bf16 at batch 64: warm-up steps with exact
     launches per step by FourierUnit map and by packed BN map, then steps
-    back to back for a second, with every count set to 0 before the
+    back to back for half a second, with every count set to 0 before the
     steps and read after them, then the step as a CUDA graph, as in phase
     6; losses finite at every step;
 11. one f32 step of the 128px pair at batch 8 with the tanh-form GELU
@@ -114,7 +114,21 @@ Phases, each of which raises on a failed check:
     ``SNConvDiscriminator.for_resolution(96)``, trained in bf16 at batch 64
     as in phase 6 (2 checked eager steps, ``update_steps`` with K = 4), 4
     replayed f32 steps against 4 eager ones as in phase 12, and an f32 step
-    against the plain ops as in phase 7 (each part's seconds printed);
+    against the plain ops as in phase 7 (each part's seconds printed); the
+    256px generator's 256x256 map at batch 8 and 64, (8,32,256,256) and
+    (64,32,256,256), where every wrapper runs the staged kernels with each
+    plane split over a cluster of two blocks, checked as in phase 9 (the
+    split ``fu_spectrum`` and ``fu_inverse`` beside ``torch.fft.rfft2`` /
+    ``irfft2``, every stage, the training op's staged forward and
+    backward; timed at batch 64 only), each wrapper's device ms a call
+    there beside the workspace design's; the fused BN kernels at its new packed map
+    (64,128,256,256) as in phase 8; the 256px pair,
+    ``FFCGenerator.for_resolution(256)`` (packed) against
+    ``SNConvDiscriminator.for_resolution(256)``, trained in bf16 at batch 64
+    as in phase 6 (``update_steps`` with K = 4, no workspace launch), a
+    batch-64 uint8 request served through ``generate`` with exact launches,
+    4 replayed f32 steps against 4 eager ones (batch 16) and an f32 step
+    against the plain ops (batch 8);
 16. wgan-gp on the sngan pair, whose gradient penalty takes D's
     FourierUnits' double backward: exact launches per f32 step (D's maps 4
     training forwards and 5 kernel backwards: the penalty's first-order
@@ -311,7 +325,8 @@ Exits non-zero, printing no result, where CUDA is absent.
 
 ``python3 chip_smoke.py 96`` runs phase 15's 96px part alone (after the
 build: the staged kernels at 96x96, the workspace kernels, the 96px pair
-trained); ``python3 chip_smoke.py 31`` runs phase 31 alone (after the build),
+trained), ``python3 chip_smoke.py 256`` its 256px part (the split planes,
+the 256px pair trained and served); ``python3 chip_smoke.py 31`` runs phase 31 alone (after the build),
 ``python3 chip_smoke.py 31d`` its part (d) alone with the one-process run
 it is held against (it needs two cards), and ``python3 chip_smoke.py 32``
 phase 32 alone, and ``python3 chip_smoke.py 32d`` (four cards) fgan32 as
@@ -387,6 +402,24 @@ WORKSPACE_96_MS = {"fourier_unit_fwd": (3.0224, 3.0381), "fu_train_stats": (1.31
 # of the staged mix stages; no cluster's plan holds its 64x64 item or a
 # slice of it): the workspace kernels.
 WORKSPACE_SHAPES = [(8, 12, 64, 64)]
+# The 256px generator (``FFCGenerator.for_resolution(256)``: ngf 128, ratio
+# 0.5, mg 4, mults 4, 2, 1, 1, 1, 1) at batch 64: the 128px generator's four
+# FourierUnit maps and its sixth block's (64,32,256,256), whose 266,240 B
+# plane one block cannot hold, so ``fu_spectrum`` and ``fu_inverse`` split
+# each plane over a cluster of two blocks (``fourier_unit.plane_ranks``);
+# its packed maps, the 128px generator's five and (64,128,256,256). The
+# split planes are checked at batch 8 and at the trained batch (the batch
+# sets how ``staged_chunks`` splits the mix stages' tiles).
+FU256_SHAPES = FU128_SHAPES + [(BATCH, 32, 256, 256)]
+PACKED256_SHAPES = PACKED_SHAPES + [(BATCH, 128, 256, 256)]
+SPLIT_SHAPES = [(8, 32, 256, 256), (BATCH, 32, 256, 256)]
+# Device ms a call of the workspace forward, statistics, backward sums and
+# backward apply at (64,32,256,256) in bf16, one launch each after one to
+# warm up, read by ``tools/fu_map_ms.py`` on the commit before the split
+# planes took the map (H100 80GB HBM3, 700.00 W): printed beside the split
+# design's readings there.
+WORKSPACE_256_MS = {"fourier_unit_fwd": 405.5918, "fu_train_stats": 284.0355,
+                    "fu_bwd_stats": 485.7159, "fu_bwd_apply": 599.4917}
 # The eval-mode gradient's maps (phase 17).
 EVAL_GRAD_SHAPES = [(BATCH, 16, 16, 16), (BATCH, 8, 48, 48)]
 NUM_CLASSES = 10
@@ -423,18 +456,19 @@ U8_MEAN_LEVELS = {"float32": 0.01, "bfloat16": 1.0}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 # Served requests and training steps timed back to back for the
-# throughput readings.
-TIMED_SECONDS = 1.0
+# throughput readings (1.0 s until the 256px part joined phase 15: halved
+# to keep the script within its limit on the slowest machines).
+TIMED_SECONDS = 0.5
 # The training paths: bench.py's 32px and 128px pairs, the sngan pair (with
 # wgan-gp: "sngan-gp"), the fgan_cond32 and fgan_cond48 pairs, and the
 # comparator pairs built by the port's zoo (``ZOO_CONFIGS``).
-RESOLUTION = {32: 32, 128: 128, 96: 96, "sngan": 32, "sngan-gp": 32, "cond32": 32, "cond48": 48,
+RESOLUTION = {32: 32, 128: 128, 96: 96, 256: 256, "sngan": 32, "sngan-gp": 32, "cond32": 32, "cond48": 48,
               "sagan": 32, "resnet32": 32, "dcgan64": 64, "attn64": 64}
 CONDITIONAL = ("cond32", "cond48")
-WARMUP_STEPS = {32: 3, 128: 2, 96: 2, "sngan": 3, "cond32": 3, "cond48": 2, "sagan": 3,
+WARMUP_STEPS = {32: 3, 128: 2, 96: 2, 256: 2, "sngan": 3, "cond32": 3, "cond48": 2, "sagan": 3,
                 "resnet32": 3, "dcgan64": 3, "attn64": 3}
 # Steps per update_steps call: bench.py's K (bench.py:180-250).
-STEPS_PER_CALL = {32: 16, 128: 4, 96: 4, "sngan": 16, "cond32": 16, "cond48": 16, "sagan": 16,
+STEPS_PER_CALL = {32: 16, 128: 4, 96: 4, 256: 4, "sngan": 16, "cond32": 16, "cond48": 16, "sagan": 16,
                   "resnet32": 16, "dcgan64": 16, "attn64": 16}
 # The comparator paths: (JAX preset, overrides) of a config that the port's
 # zoo.build_models turns into the pair. The DCGAN pairs have no preset: the
@@ -462,7 +496,7 @@ ZOO_CONFIGS = {
 # 8, same card): five blocks, and FourierUnit maps where many
 # pre-activations sit within rounding of the ReLU's kink, whose side moves
 # a backward sum discretely.
-STEP_GRAD_TOL = {32: 1e-2, 128: 5e-2, 96: 1e-2, "sngan": 1e-2, "sngan-gp": 1e-2,
+STEP_GRAD_TOL = {32: 1e-2, 128: 5e-2, 96: 1e-2, 256: 1e-2, "sngan": 1e-2, "sngan-gp": 1e-2,
                  "cond32": 1e-2}
 # The sngan pair's discriminator gradients (phase 13) take the 128px bar:
 # their floor, the kernel path against itself, was 1.21e-2 rel-max
@@ -479,8 +513,12 @@ STEP_LOSS_TOL = 1e-3
 # (4.5e-4) in both runs.
 RELATIVE_LOSS_PATHS = ("sngan-gp",)
 # (batch, steps) of the f32 comparison by path.
-PLAIN_RUNS = {32: (BATCH, 3), 128: (8, 1), 96: (8, 1), "sngan": (BATCH, 1), "sngan-gp": (BATCH, 1),
-              "cond32": (BATCH, 1)}
+PLAIN_RUNS = {32: (BATCH, 3), 128: (8, 1), 96: (8, 1), 256: (8, 1), "sngan": (BATCH, 1),
+              "sngan-gp": (BATCH, 1), "cond32": (BATCH, 1)}
+# The batch of phase 12's replayed-against-eager f32 steps where it is not
+# BATCH: two f32 trainers of the 256px pair, one with its captured graph,
+# at a batch that leaves the card room.
+PARITY_BATCH = {256: 16}
 SOURCE = "fastfourierconvolution_tpu_torch/csrc/"
 TPU_FU = "fastfourierconvolution_tpu/ops/pallas/fourier_unit.py:"
 TPU_BN = "fastfourierconvolution_tpu/ops/pallas/bn_act.py:"
@@ -825,11 +863,20 @@ def staged(wrapper, shape):
 def stage_symbol(name, shape):
     """The profiler's symbol of stage kernel ``name`` (or ``fu_reduce``) at
     ``shape``: the transforms' dense form on planes that are no power of
-    two (``csrc/fourier_unit_staged.cu``)."""
+    two, their split form on planes that ``fourier_unit.plane_ranks``
+    spreads over two blocks (``csrc/fourier_unit_staged.cu``)."""
+    import torch
+
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
-    dense = name in ("fu_spectrum", "fu_inverse") and not fu.radix2_plane(*shape[2:])
-    return f"{name}_dense_kernel" if dense else f"{name}_kernel"
+    if name in ("fu_spectrum", "fu_inverse"):
+        h, w = shape[2:]
+        if not fu.radix2_plane(h, w):
+            return f"{name}_dense_kernel"
+        limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+        if fu.plane_ranks(h, w, limit) == 2:
+            return f"{name}_split_kernel"
+    return f"{name}_kernel"
 
 
 def slices(shape):
@@ -926,11 +973,12 @@ def same_bits(fn):
     return all(torch.equal(a, b) for a, b in zip(first, again))
 
 
-def check_fourier_unit(device, shapes, phase):
+def check_fourier_unit(device, shapes, phase, timed=True):
     """Phases 3 and 9 (forward): the wrapper against its plain version in
     f64, two launches giving the same bits, and its times. Returns the bf16
     rows of the per-item kernel for the kernels line and the bf16 rows of
-    the wrapper calls that ran as the staged kernels."""
+    the wrapper calls that ran as the staged kernels (none and no times
+    where not ``timed``: a map checked only)."""
     import torch
 
     from fastfourierconvolution_tpu_torch.ops import fourier as F
@@ -957,7 +1005,8 @@ def check_fourier_unit(device, shapes, phase):
             rel, abs_err = rel_max(y, ref)
             bits = same_bits(lambda: fourier_unit_forward(*args))
             ms, plain_ms, dev_ms = bf16_times(dtype, lambda: fourier_unit_forward(*args),
-                                              lambda: fourier_unit_forward_plain(*args), symbols)
+                                              lambda: fourier_unit_forward_plain(*args),
+                                              symbols) if timed else (None, None, None)
             bound_ms, bound_by, nbytes, flops = bound(
                 "fourier_unit_fwd", shape, y.element_size(), name
             )
@@ -990,7 +1039,7 @@ def check_fourier_unit(device, shapes, phase):
                 gap = (y_fft - ref.float()).abs().max().item()
                 log(f"  info: torch.fft (cuFFT) vs factor form, max-abs {gap:.3e}"
                     f" (rel {gap / ref.abs().max().item():.3e})")
-            else:
+            elif timed:
                 numbers = dict(phase=phase, max_abs_err=abs_err, ms=ms, device_ms=dev_ms,
                                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
                 if ranks:
@@ -1100,16 +1149,22 @@ def stage_cases(shape, dtype, device):
             inverse_of = fu.fu_bwd_mix(z, g.clone(), *rest)[0]
     if inverse_of is not None:
         inverse = lambda: fu.fu_inverse(inverse_of, dtype, w)
+        # the library's yardstick: irfft2 of the same complex spectrum (with
+        # the half-spectrum weights, which fu_inverse leaves out)
+        c = inverse_of.shape[1] // 2
+        as_complex = torch.complex(inverse_of[:, :c], inverse_of[:, c:])
         cases.append(
             ("fu_inverse", 1, inverse, inverse, lambda: fu.fu_inverse_plain(inverse_of, dtype, w),
-             lambda: fu.fu_inverse_plain(inverse_of.double(), torch.float64, w), ("y",), None))
+             lambda: fu.fu_inverse_plain(inverse_of.double(), torch.float64, w), ("y",),
+             lambda: torch.fft.irfft2(as_complex, s=shape[2:], norm="ortho")))
     return cases
 
 
-def check_stages(device, shapes, phase):
+def check_stages(device, shapes, phase, timed=True):
     """Phase 9: each staged kernel against its plain version in f64 on the
     same inputs, two launches giving the same bits, its times and its
-    bound; returns the bf16 rows for the kernels line."""
+    bound; returns the bf16 rows for the kernels line (none and no times
+    where not ``timed``)."""
     import torch
 
     rows = []
@@ -1117,7 +1172,7 @@ def check_stages(device, shapes, phase):
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
             itemsize = torch.empty((), dtype=dtype).element_size()
-            for name, maps, call, timed, plain, ref64, out_names, library in stage_cases(
+            for name, maps, call, call_timed, plain, ref64, out_names, library in stage_cases(
                     shape, dtype, device):
                 outs = as_tuple(call())
                 torch.cuda.synchronize()
@@ -1126,9 +1181,10 @@ def check_stages(device, shapes, phase):
                     raise AssertionError(f"{name} {shape} {dname}: non-finite output")
                 errs = {o: rel_max(out, ref) for o, out, ref in zip(out_names, outs, refs)}
                 bits = same_bits(call)
-                ms, plain_ms, dev_ms = bf16_times(dtype, timed, plain, stage_symbol(name, shape))
+                ms, plain_ms, dev_ms = bf16_times(dtype, call_timed, plain, stage_symbol(
+                    name, shape)) if timed else (None, None, None)
                 library_ms = library_dev_ms = None
-                if library is not None and dtype == torch.bfloat16:
+                if library is not None and dtype == torch.bfloat16 and timed:
                     library_ms = time_ms(library)
                     library_dev_ms = call_device_ms(library, iters=10)
                 bound_ms, bound_by, nbytes, flops = bound(name, shape, itemsize, dname, maps=maps)
@@ -1142,7 +1198,7 @@ def check_stages(device, shapes, phase):
                 bad = {o: r for o, (r, _) in errs.items() if not r <= FU_REL_TOL[dname]}
                 if bad or not bits:
                     raise AssertionError(f"{name} {shape} {dname}: rel-max {bad}, same bits {bits}")
-                if dtype == torch.bfloat16:
+                if dtype == torch.bfloat16 and timed:
                     rows.append(kernel_row(
                         name, shape, dname, phase=phase, maps=maps,
                         max_abs_err=max(a for _, a in errs.values()),
@@ -1160,12 +1216,13 @@ def call_row(name, shape, dtype_name, **numbers):
             "dtype": dtype_name, **numbers}
 
 
-def check_train_kernels(device, shapes, phase):
+def check_train_kernels(device, shapes, phase, timed=True):
     """Phases 5 and 9 (training kernels): each wrapper, and on staged maps
     the training op's staged forward and backward, against its plain
     version in f64, two launches giving the same bits, and its times.
     Returns the bf16 rows (and the reduction's f32 rows) for the kernels
-    line, and the bf16 rows of the calls that ran as the staged kernels."""
+    line, and the bf16 rows of the calls that ran as the staged kernels
+    (none and no times where not ``timed``)."""
     import torch
 
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
@@ -1188,7 +1245,8 @@ def check_train_kernels(device, shapes, phase):
                            else [item] * slices(shape) if item else f"{name}_kernel")
                 bits = same_bits(lambda: kern(*args))
                 ms, plain_ms, dev_ms = bf16_times(dtype, lambda: kern(*args),
-                                                  lambda: plain(*args), symbols)
+                                                  lambda: plain(*args),
+                                                  symbols) if timed else (None, None, None)
                 bound_ms, bound_by, nbytes, flops = bound(name, shape, args[0].element_size(), dname)
                 log(f"{name} {shape} {dname}{' (staged)' if call_staged else ''}: " + ", ".join(
                     f"{o} rel-max {r:.3e} (max-abs {a:.3e})" for o, (r, a) in errs.items())
@@ -1205,7 +1263,7 @@ def check_train_kernels(device, shapes, phase):
                 gaps = {o: rel_max(p, r)[0] for o, p, r in zip(out_names, plain(*args), refs)}
                 log(f"  info: plain version in {dname} vs f64, rel-max " + ", ".join(
                     f"{o} {g:.3e}" for o, g in gaps.items()))
-                if dtype == torch.bfloat16:
+                if dtype == torch.bfloat16 and timed:
                     numbers = dict(phase=phase, max_abs_err=max(a for _, a in errs.values()),
                                    rel_max={o: r for o, (r, _) in errs.items()}, ms=ms,
                                    device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1397,15 +1455,16 @@ def bn_design(name, noise, shape, x):
     return "a row per thread, grid.y 2", True
 
 
-def check_bn_act(device):
-    """Phase 8; returns the bf16 rows for the kernels line."""
+def check_bn_act(device, shapes=PACKED_SHAPES + [STATS_TAIL_SHAPE], phase="training-128px"):
+    """Phase 8 (and the 256px part's packed map); returns the bf16 rows for
+    the kernels line."""
     import torch
 
     from fastfourierconvolution_tpu_torch.ops import bn_act as ba
     from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
 
     rows = []
-    for shape in PACKED_SHAPES + [STATS_TAIL_SHAPE]:
+    for shape in shapes:
         tail = shape == STATS_TAIL_SHAPE
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
@@ -1454,7 +1513,7 @@ def check_bn_act(device):
                         line += (f"; host {host:.1f} us/call, torch.var_mean {library_host:.1f} "
                                  f"us/call; per call <= torch.var_mean: {ms <= library_ms}")
                     rows.append(kernel_row(
-                        name, shape, dname, phase="training-128px", noise=noise,
+                        name, shape, dname, phase=phase, noise=noise,
                         max_abs_err=max_abs, ms=ms, host_us=host, device_ms=dev_ms,
                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                         library_ms=library_ms, library_host_us=library_host,
@@ -1768,6 +1827,119 @@ def pair_96(device, card):
     return with_launches(rows, counts), with_calls(calls, counts), counts
 
 
+def check_256px_kernels(device):
+    """The 256px generator's map (32,256,256), where ``kernel_design`` picks
+    the staged kernels with each plane split over two blocks for every
+    wrapper, at ``SPLIT_SHAPES``, checked as in phase 9 (the split
+    ``fu_spectrum`` and ``fu_inverse`` and every stage on their own, beside
+    ``torch.fft.rfft2`` / ``irfft2`` on the same spectrum, and the training
+    op's staged forward and backward; timed at batch 64 only), each
+    wrapper's bf16 device ms a call at (64,32,256,256) printed beside the workspace design's there
+    (``WORKSPACE_256_MS``); (8,12,64,64) stays on the workspace; the fused BN
+    kernels at the new packed map (64,128,256,256) checked as in phase 8.
+    Returns the bf16 (rows, calls) for the kernels and wrapper_calls lines."""
+    import torch
+
+    from fastfourierconvolution_tpu_torch.ops import fourier_unit as fu
+
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for shape, want in ((SPLIT_SHAPES[1], fu.STAGED), (WORKSPACE_SHAPES[0], fu.WORKSPACE)):
+        designs = {w: fu.kernel_design(w, *shape[1:], limit)
+                   for w in ("forward", "stats", "bwd_apply")}
+        if set(designs.values()) != {want}:
+            raise AssertionError(f"{shape}: not the {want} design: {designs}")
+    if fu.plane_ranks(*SPLIT_SHAPES[1][2:], limit) != 2:
+        raise AssertionError("the 256 x 256 plane is not split over two blocks")
+    # batch 8 checked only, its times dropped to keep the script within its
+    # limit: the trained batch gives the readings
+    rows, calls = [], []
+    for shape, timed in ((SPLIT_SHAPES[0], False), (SPLIT_SHAPES[1], True)):
+        fwd_rows, fwd_calls = check_fourier_unit(device, [shape], "staged-256px", timed)
+        train_rows, train_calls = check_train_kernels(device, [shape], "staged-256px", timed)
+        rows += fwd_rows + check_stages(device, [shape], "staged-256px", timed) + train_rows
+        calls += fwd_calls + train_calls
+    for row in calls:
+        if row["name"] not in WORKSPACE_256_MS or tuple(row["shape"]) != SPLIT_SHAPES[1]:
+            continue
+        ws, dev, bound_ms = WORKSPACE_256_MS[row["name"]], row["device_ms"], row["bound_ms"]
+        log(f"{row['name']} {SPLIT_SHAPES[1]} bf16, staged on split planes: profiler device "
+            f"{fmt_ms(dev)} ms a call (all stages), {row['ms']:.4f} ms a call, bound "
+            f"{bound_ms:.5f} ms" + ("" if dev is None else f" ({dev / bound_ms:.0f}x)")
+            + f", plain {row['plain_ms']:.4f} ms; the workspace design {ws:.4f} ms a call"
+            + ("" if dev is None else f" ({ws / dev:.1f}x the split design's)"))
+    rows += check_bn_act(device, PACKED256_SHAPES[-1:], "training-256px")
+    return rows, calls
+
+
+def serve_256(device, card, trainer):
+    """The 256px part's serving: ``trainer.generate(z, uint8=True)`` on the
+    trained generator in eval mode, batch 64, bf16: ``N_REQUESTS // 2``
+    requests with exact launches (the eval forward once a map and request:
+    per item at (64,16,16), its three stages at the staged maps), uint8
+    images of the expected shape and spread, then requests back to back for
+    the ms a request. Returns the launches by map."""
+    import torch
+
+    requests = N_REQUESTS // 2
+    g = torch.Generator().manual_seed(SEED + 31)
+    zs = [torch.randn(BATCH, 128, generator=g).to(device) for _ in range(requests)]
+    trainer.generate(zs[0], uint8=True)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    images = [trainer.generate(z, uint8=True) for z in zs]
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in counts_by_map().items() if v}
+    want = {k: v for k, v in launches_of([(s, 0, 0, 1) for s in FU256_SHAPES], [],
+                                         requests).items() if v}
+    if counts != want:
+        raise AssertionError(f"generate's kernel launches {counts}, expected {want}")
+    spread = images[0].float().std().item()
+    if (any(im.shape != (BATCH, 256, 256, 3) or im.dtype != torch.uint8 for im in images)
+            or not spread > 5.0):
+        raise AssertionError(f"generate gave {tuple(images[0].shape)} {images[0].dtype}, "
+                             f"std {spread:.2f} levels")
+    n_timed = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < TIMED_SECONDS:
+        trainer.generate(zs[0], uint8=True)
+        n_timed += 1
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n_timed * 1e3
+    busy_ms, n_launch, _ = device_breakdown(lambda: trainer.generate(zs[0], uint8=True), iters=3)
+    log(f"256px generate(z, uint8=True), batch {BATCH}, bf16: {wall_ms:.3f} ms wall a request "
+        f"({n_timed} requests, host clock), {BATCH / wall_ms * 1e3:.1f} img/s, device busy "
+        f"{busy_ms:.3f} ms in {n_launch} device launches (profiler), idle share "
+        f"{1 - busy_ms / wall_ms:.3f}; image std {spread:.1f} levels; launches {counts}; {card}")
+    return counts
+
+
+def pair_256(device, card):
+    """Phase 15's 256px part: ``check_256px_kernels``, then the 256px pair
+    (``FFCGenerator.for_resolution(256)``, packed, against
+    ``SNConvDiscriminator.for_resolution(256)``) trained in bf16 as in phase
+    6 (2 checked eager steps, ``update_steps`` with K = 4), a batch-64
+    request served (``serve_256``), 4 replayed f32 steps against 4 eager
+    ones (phase 12, batch ``PARITY_BATCH[256]``) and an f32 step against the
+    plain ops (phase 7). Returns the (rows, calls) with the training run's
+    launches, and the training and serving launches."""
+    t0 = time.perf_counter()
+    rows, calls = check_256px_kernels(device)
+    t1 = time.perf_counter()
+    trainer, counts, _, _ = train(device, card, 256)
+    t2 = time.perf_counter()
+    served = serve_256(device, card, trainer)
+    del trainer
+    t3 = time.perf_counter()
+    graph_parity(device, 256, {"bench": {}})
+    t4 = time.perf_counter()
+    train_vs_plain(device, 256)
+    log(f"256px part, s (host clock): kernel checks {t1 - t0:.1f}, bf16 training {t2 - t1:.1f}, "
+        f"serving {t3 - t2:.1f}, graph parity {t4 - t3:.1f}, f32 against the plain ops "
+        f"{time.perf_counter() - t4:.1f}")
+    return with_launches(rows, counts), with_calls(calls, counts), counts, served
+
+
 def launch_wrappers():
     """{kernel name: its wrapper}; each wrapper counts its launches."""
     from fastfourierconvolution_tpu_torch.ops import bn_act as ba
@@ -1798,6 +1970,7 @@ STEP_MAPS = {32: ([(s, 2, 1) for s in FU_SHAPES], []),
              "cond32": ([(s, 2, 1) for s in FU_SHAPES], []),
              "cond48": ([(s, 2, 1) for s in FU48_SHAPES], []),
              96: ([(s, 2, 1) for s in FU96_SHAPES], []),
+             256: ([(s, 2, 1) for s in FU256_SHAPES], PACKED256_SHAPES),
              "fgan64": ([(s, 2, 1) for s in FU_SHAPES + FU64_SHAPES], []),
              **{path: ([], []) for path in ZOO_CONFIGS}}
 
@@ -2258,15 +2431,17 @@ def trainer_state(trainer):
 def graph_parity(device, path=32, options_by_name=PARITY_OPTIONS):
     """Phases 12, 16 and 18-20: for each of ``options_by_name``, two f32 trainers
     of ``path`` from the same seeds (TF32 off, deterministic algorithms):
-    ``update_steps`` over ``PARITY_STEPS`` batches against as many
-    ``update_step`` calls. The same bits are expected; where they differ
+    ``update_steps`` over ``PARITY_STEPS`` batches (of ``PARITY_BATCH``'s
+    size where the path has one) against as many ``update_step`` calls. The
+    same bits are expected; where they differ
     the largest gaps are printed and must sit within phase 7's bars (losses
     1e-3, rel-max 1e-2 per tensor; the generators' states exactly)."""
     import torch
 
-    reals = torch.stack([real_batch(device, SEED + 20 + i, RESOLUTION[path])
+    batch_size = PARITY_BATCH.get(path, BATCH)
+    reals = torch.stack([real_batch(device, SEED + 20 + i, RESOLUTION[path], batch_size)
                          for i in range(PARITY_STEPS)])
-    labels = label_batch(device, SEED + 20, path, (PARITY_STEPS, BATCH))
+    labels = label_batch(device, SEED + 20, path, (PARITY_STEPS, batch_size))
     batch = lambda i: None if labels is None else labels[i]
     torch.use_deterministic_algorithms(True)
     try:
@@ -2284,7 +2459,7 @@ def graph_parity(device, path=32, options_by_name=PARITY_OPTIONS):
                     for k in differ if not k.endswith("generator")}
             worst = max(gaps.items(), key=lambda kv: kv[1], default=("", 0.0))
             log(f"graph parity, {path} {name} ({options or 'the path setting'}): {PARITY_STEPS} replayed "
-                f"steps against {PARITY_STEPS} eager steps, f32: losses max |diff| "
+                f"steps against {PARITY_STEPS} eager steps, f32, batch {batch_size}: losses max |diff| "
                 f"{loss_gap:.3e} (tol {STEP_LOSS_TOL:g}); {len(b)} state tensors, the same bits "
                 f"in {len(b) - len(differ)}; largest rel-max gap {worst[1]:.3e} {worst[0]} (tol "
                 f"{STEP_GRAD_TOL[32]:g}); steps taken {graph.step} and {eager.step}")
@@ -5886,6 +6061,8 @@ def run() -> int:
             jax_checkpoint(device, card)
         elif sys.argv[1] == "96":
             log(json.dumps({"kernels": pair_96(device, card)[0]}))
+        elif sys.argv[1] == "256":
+            log(json.dumps({"kernels": pair_256(device, card)[0]}))
         else:
             data_parallel_alone(device, card, sys.argv[1])
         phase("result")
@@ -5942,7 +6119,8 @@ def run() -> int:
     del trainer_c32
     train_vs_plain(device, "cond32")
     phase("15: the fgan_cond48 pair: FourierUnit kernels at its maps, training; the staged "
-          "kernels at 96x96, the workspace kernels, the 96px pair trained")
+          "kernels at 96x96, the workspace kernels, the 96px pair trained; the staged kernels "
+          "on split 256x256 planes, the 256px pair trained and served")
     rows_48, calls_48 = check_fourier_unit(device, FU48_SHAPES, "training-cond48")
     train_rows, train_calls = check_train_kernels(device, FU48_SHAPES, "training-cond48")
     against_workspace(train_rows)
@@ -5954,6 +6132,9 @@ def run() -> int:
     rows_96, calls_96, counts_96 = pair_96(device, card)
     rows += rows_96
     calls += calls_96
+    rows_256, calls_256, counts_256, served_256 = pair_256(device, card)
+    rows += rows_256
+    calls += calls_256
     phase("16: wgan-gp on the sngan pair (the FourierUnit's double backward)")
     train_vs_plain(device, "sngan-gp")
     graph_parity(device, "sngan-gp", {"wgan-gp": {}})
@@ -6058,6 +6239,7 @@ def run() -> int:
                               "training-sngan": counts_sngan, "training-cond32": counts_c32,
                               "serving-cond32": {"fourier_unit_fwd": by_map_c32},
                               "training-cond48": counts_c48, "training-96px": counts_96,
+                              "training-256px": counts_256, "serving-256px": served_256,
                               **cli_counts,
                               "lfu-blocks": counts_lfu, "training-cond-sn-d": counts_snd,
                               **remat_counts, **eval_counts,

@@ -48,7 +48,7 @@
 // (8,32,32), 180 KB at (64,16,16).
 //
 // fourier_unit_fwd_kernel, elsewhere (maps that no other design takes, e.g.
-// the 256px generator's 256x256, whose plane fits no block): one block per item
+// (12,64,64), whose 2C is no staged width): one block per item
 // with every buffer in the item's slice of a device workspace
 // (fourier_unit_common.cuh), a simple, slower design whose stages load from
 // the L1/L2-cached workspace.

@@ -159,19 +159,19 @@ struct ItemTables {
         bh(base + 2 * k.W * k.wf + k.H * k.H) {}
 };
 
-// For i = threadIdx.x, threadIdx.x + kItemThreads, ... < n: put(i, get(i)),
-// with kInFlight gets issued before their puts, so that their latencies
-// overlap. No sync.
-template <typename V, typename Get, typename Put>
+// For i = threadIdx.x, threadIdx.x + kBlock, ... < n: put(i, get(i)), with
+// kInFlight gets issued before their puts, so that their latencies overlap
+// (kBlock the block's threads). No sync.
+template <typename V, int kBlock = kItemThreads, typename Get, typename Put>
 __device__ __forceinline__ void copy_in_flight(int n, Get get, Put put) {
-  for (int i0 = threadIdx.x; i0 < n; i0 += kItemThreads * kInFlight) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += kBlock * kInFlight) {
     V v[kInFlight];
 #pragma unroll
     for (int u = 0; u < kInFlight; ++u)
-      if (i0 + u * kItemThreads < n) v[u] = get(i0 + u * kItemThreads);
+      if (i0 + u * kBlock < n) v[u] = get(i0 + u * kBlock);
 #pragma unroll
     for (int u = 0; u < kInFlight; ++u)
-      if (i0 + u * kItemThreads < n) put(i0 + u * kItemThreads, v[u]);
+      if (i0 + u * kBlock < n) put(i0 + u * kBlock, v[u]);
   }
 }
 

@@ -69,9 +69,15 @@
 // decimation in frequency (natural input, bit-reversed output, undone as y
 // is written), so each plane needs one buffer of H x Wf complex values
 // (66.5 KB at 128 x 128) and its twiddles (double precision, rounded to
-// f32). Other planes of an even W (the 96px generator's 96 x 96) run dense
-// DFT stages: fu_spectrum_dense_kernel and fu_inverse_dense_kernel, one
-// block of kItemThreads per plane, bring the plane and the plain version's
+// f32). A power-of-two plane whose buffer exceeds a block's shared memory
+// (the 256px generator's 256 x 256, 266,240 B) is split over H on a
+// cluster of two blocks (fu_spectrum_split_kernel, fu_inverse_split_kernel,
+// see "Split planes" below): each holds half the rows, 134,144 B at 256 x
+// 256, and runs the same passes at half the column length; a plane whose
+// half still exceeds it (512 x 512) no staged kernel takes. Other planes
+// of an even W (the 96px generator's 96 x 96) run dense DFT stages:
+// fu_spectrum_dense_kernel and fu_inverse_dense_kernel, one block of
+// kItemThreads per plane, bring the plane and the plain version's
 // factor tables (ops/fourier_unit.py, _item_tables: cw, dw, ah, bh) into
 // shared memory with cp.async and run the clustered kernels' register-tiled
 // stages of fourier_unit_item.cuh on a geometry of one channel on one rank
@@ -99,10 +105,12 @@
 // ms, and the backward apply at (64, 64, 16, 16) 0.010 ms. The function
 // itself (chip_smoke.fu_work) moves only x, y (and gy, gx): the spectra are
 // what this design adds in exchange for filling the card; the radix-2 stages
-// are bound by shared-memory traffic (about 10 accesses per butterfly), the
-// dense stages by their FMAs and the shared-memory loads that feed them (2.7
-// M FMAs a 96 x 96 plane, 0.4-0.75 loads per FMA in the tiles), the mix
-// stages by their shared-memory loads (0.5 per FMA). The statistics
+// are bound by shared-memory traffic (about 10 accesses per butterfly; a
+// split plane adds one exchange of half its values a rank over distributed
+// shared memory, and still reads and writes each value of device memory
+// once), the dense stages by their FMAs and the shared-memory loads that
+// feed them (2.7 M FMAs a 96 x 96 plane, 0.4-0.75 loads per FMA in the
+// tiles), the mix stages by their shared-memory loads (0.5 per FMA). The statistics
 // stages at (64, 32, 128, 128): fu_mix_stats reads z (136 MB, 0.041 ms) and
 // does 2 (2C)^2 B H Wf = 4.4 GFLOP of f32 FMAs (0.065 ms at 67 TFLOP/s), so
 // operations bound it; fu_bwd_stats_mix reads z and G (0.081 ms) and does
@@ -136,9 +144,11 @@ __device__ __forceinline__ int bit_reverse(int v, int bits) {
   return static_cast<int>(__brev(static_cast<unsigned>(v)) >> (32 - bits));
 }
 
-// tw[k] = exp(-2 pi i k / n) for k < n / 2, in double rounded to f32 (no sync).
+// tw[k] = exp(-2 pi i k / n) for k < n / 2, in double rounded to f32 (no
+// sync). The radix-2 helpers below take kBlock, the block's threads.
+template <int kBlock = kThreads>
 __device__ __forceinline__ void fill_twiddles(float2* tw, int n) {
-  for (int k = threadIdx.x; k < n / 2; k += kThreads) {
+  for (int k = threadIdx.x; k < n / 2; k += kBlock) {
     double s, c;
     sincospi(-2.0 * k / n, &s, &c);
     tw[k] = make_float2(static_cast<float>(c), static_cast<float>(s));
@@ -152,7 +162,7 @@ __device__ __forceinline__ void fill_twiddles(float2* tw, int n) {
 // twiddle exp(-2 pi i j / n) is tw[j * tw_step], conjugated when kInverse.
 // kRows: the threads walk one sequence's butterflies fastest (rows of buf);
 // else the sequences (columns of buf). Every stage ends on a barrier.
-template <bool kDit, bool kInverse, bool kRows>
+template <bool kDit, bool kInverse, bool kRows, int kBlock = kThreads>
 __device__ void fft_pass(float2* buf, int count, int seq_stride, int elem_stride,
                          int log2n, const float2* tw, int tw_step) {
   const int half_n = 1 << (log2n - 1);
@@ -161,7 +171,7 @@ __device__ void fft_pass(float2* buf, int count, int seq_stride, int elem_stride
     const int lh = kDit ? st : log2n - 1 - st;  // butterfly span 2^lh
     const int span = 1 << lh;
     const int tw_mul = (half_n >> lh) * tw_step;
-    for (int idx = threadIdx.x; idx < total; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < total; idx += kBlock) {
       int t, b;
       if constexpr (kRows) {
         t = idx >> (log2n - 1);
@@ -190,16 +200,138 @@ __device__ void fft_pass(float2* buf, int count, int seq_stride, int elem_stride
   }
 }
 
-// One plane's buffers: H x Wf complex values (row stride Wf), then the W and
-// H twiddles.
+// The shared memory of a radix-2 plane on `ranks` blocks (1, or 2 on a
+// split plane), per block: its H/ranks x Wf complex values (row stride Wf),
+// then the W and the H twiddles. The host mirrors it (ops/fourier_unit.py,
+// _radix2_plane_floats).
 struct PlaneBufs {
   float2 *buf, *tw_w, *tw_h;
-  __device__ PlaneBufs(float2* base, int H, int W)
-      : buf(base), tw_w(base + H * (W / 2 + 1)), tw_h(base + H * (W / 2 + 1) + W / 2) {}
+  __device__ PlaneBufs(float2* base, int rows, int W)
+      : buf(base), tw_w(base + rows * (W / 2 + 1)), tw_h(base + rows * (W / 2 + 1) + W / 2) {}
 };
 
-__host__ __device__ inline size_t plane_smem_bytes(int H, int W) {
-  return (static_cast<size_t>(H) * (W / 2 + 1) + W / 2 + H / 2) * sizeof(float2);
+__host__ __device__ inline size_t plane_smem_bytes(int H, int W, int ranks = 1) {
+  return (static_cast<size_t>(H / ranks) * (W / 2 + 1) + W / 2 + H / 2) * sizeof(float2);
+}
+
+// Rows [0, rows) of a real map (row length W = 2n, row stride W) into buf:
+// row h's samples (2k, 2k+1) as complex k, at row bitrev(h), column
+// bitrev(k), the input order of both decimation-in-time passes (no sync).
+template <int kBlock = kThreads, typename T>
+__device__ __forceinline__ void load_rows(float2* buf, const T* src, int rows, int log2rows,
+                                          int wf, int log2n) {
+  const int n = 1 << log2n;
+  for (int i = threadIdx.x; i < rows * n; i += kBlock) {
+    const int h = i >> log2n, k = i & (n - 1);
+    buf[bit_reverse(h, log2rows) * wf + bit_reverse(k, log2n)] =
+        make_float2(load_f32(src + 2 * i), load_f32(src + 2 * i + 1));
+  }
+}
+
+// The W-stage of the forward over the rows of buf that load_rows filled:
+// each row's half-length transform Z, untangled in place into the rDFT X
+// over W: with E = (Z[k] + conj Z[n-k]) / 2 and O = (Z[k] - conj Z[n-k]) /
+// 2i, X[k] = E + w^k O and X[n-k] = conj(E - w^k O), w = exp(-2 pi i / W).
+// kTwist: row r, which holds map row h = bitrev(r), also times tw_h[h] (the
+// odd rank of a split plane). Ends on a barrier.
+template <bool kTwist, int kBlock = kThreads>
+__device__ __forceinline__ void rdft_rows(float2* buf, int rows, int log2rows, int wf,
+                                          int log2n, const float2* tw_w, const float2* tw_h) {
+  const int n = 1 << log2n;
+  fft_pass<true, false, true, kBlock>(buf, rows, wf, 1, log2n, tw_w, 2);
+  const int pairs = n / 2 + 1;
+  for (int i = threadIdx.x; i < rows * pairs; i += kBlock) {
+    const int r = i / pairs, k = i - r * pairs;
+    float2* row = buf + r * wf;
+    const float2 zk = row[k], znk = row[(n - k) & (n - 1)];
+    const float2 e = make_float2(0.5f * (zk.x + znk.x), 0.5f * (zk.y - znk.y));
+    const float2 o = make_float2(0.5f * (zk.y + znk.y), -0.5f * (zk.x - znk.x));
+    const float2 wo = cmul(tw_w[k], o);
+    float2 lo = cadd(e, wo), hi = cconj(csub(e, wo));
+    if constexpr (kTwist) {
+      const float2 t = tw_h[bit_reverse(r, log2rows)];
+      lo = cmul(lo, t);
+      hi = cmul(hi, t);
+    }
+    row[k] = lo;
+    row[n - k] = hi;
+  }
+  __syncthreads();
+}
+
+// The W-stage of the inverse over the rows of buf: each row T[0..n] to the
+// half-length sequence whose inverse transform gives the real row: with
+// X[0] = Re T[0], X[n] = Re T[n], X[v] = T[v] / 2 between (the Hermitian
+// spectrum whose real inverse is the sum of Re(T[v] exp(+2 pi i q v / W))
+// over v <= n), A = X[k] + conj X[n-k], B = X[k] - conj X[n-k], u = exp(+2
+// pi i k / W): Z[k] = A + i u B and Z[n-k] = conj(A - i u B); then the
+// inverse transform, row q's sample (2k, 2k+1) landing at column bitrev(k).
+// Ends on a barrier.
+template <int kBlock = kThreads>
+__device__ __forceinline__ void irdft_rows(float2* buf, int rows, int wf, int log2n,
+                                           const float2* tw_w) {
+  const int n = 1 << log2n, pairs = n / 2 + 1;
+  for (int i = threadIdx.x; i < rows * pairs; i += kBlock) {
+    const int r = i / pairs, k = i - r * pairs;
+    float2* row = buf + r * wf;
+    const float2 tk = row[k], tnk = row[n - k];
+    const float2 xk = k == 0 ? make_float2(tk.x, 0.f) : cscale(tk, 0.5f);
+    const float2 xnk = k == 0 ? make_float2(tnk.x, 0.f) : cscale(tnk, 0.5f);
+    const float2 a = make_float2(xk.x + xnk.x, xk.y - xnk.y);
+    const float2 bb = make_float2(xk.x - xnk.x, xk.y + xnk.y);
+    const float2 ub = cmul(cconj(tw_w[k]), bb);
+    const float2 iub = make_float2(-ub.y, ub.x);
+    row[k] = cadd(a, iub);
+    if (k != 0) row[n - k] = cconj(csub(a, iub));
+  }
+  __syncthreads();
+  fft_pass<false, true, true, kBlock>(buf, rows, wf, 1, log2n, tw_w, 2);
+}
+
+// The rows of buf, scaled by `ortho`, as rows row0, row0 + kStep, ... of
+// the [re | im] planes o_re and o_im (row stride wf; no sync). With kStep 1
+// the rows are contiguous, and no element's row is worked out.
+template <int kStep, int kBlock = kThreads>
+__device__ __forceinline__ void store_spectrum(float* o_re, float* o_im, const float2* buf,
+                                               int rows, int wf, int row0, float ortho) {
+  for (int i = threadIdx.x; i < rows * wf; i += kBlock) {
+    size_t at = static_cast<size_t>(row0) * wf + i;
+    if constexpr (kStep != 1) {
+      const int q = i / wf;
+      at = static_cast<size_t>(row0 + kStep * q) * wf + (i - q * wf);
+    }
+    const float2 x = buf[i];
+    o_re[at] = x.x * ortho;
+    o_im[at] = x.y * ortho;
+  }
+}
+
+// Row q of the result held at buf row bitrev(q), its sample pair k at
+// column bitrev(k), scaled by `ortho`, as row row0 + kStep * q of the real
+// map y (row length 2n; no sync).
+template <int kStep, int kBlock = kThreads, typename T>
+__device__ __forceinline__ void store_rows(T* y, const float2* buf, int rows, int log2rows,
+                                           int wf, int log2n, int row0, float ortho) {
+  const int n = 1 << log2n;
+  for (int i = threadIdx.x; i < rows * n; i += kBlock) {
+    const int q = i >> log2n, k = i & (n - 1);
+    const float2 v = buf[bit_reverse(q, log2rows) * wf + bit_reverse(k, log2n)];
+    T* out = y + static_cast<size_t>(row0) * 2 * n + 2 * i;
+    if constexpr (kStep != 1) out = y + static_cast<size_t>(row0 + kStep * q) * 2 * n + 2 * k;
+    store_f32(out, v.x * ortho);
+    store_f32(out + 1, v.y * ortho);
+  }
+}
+
+// The [re | im] planes of (map, plane) in the (n_maps, B, 2C, H, Wf) spectra.
+__device__ __forceinline__ float* spectrum_planes(float* out, int map, int planes, int plane,
+                                                  int C, size_t S) {
+  const int b = plane / C, c = plane - b * C;
+  return out + (static_cast<size_t>(map) * planes * 2 + static_cast<size_t>(b) * 2 * C + c) * S;
+}
+
+__device__ __forceinline__ float ortho_scale(int H, int W) {
+  return static_cast<float>(1.0 / sqrt(static_cast<double>(H) * W));
 }
 
 // out[map] = [re | im] orthonormal rDFT of each plane of x_map, for the
@@ -211,50 +343,20 @@ fu_spectrum_kernel(const T* __restrict__ x0, const T* __restrict__ x1,
                    int log2h, int log2w) {
   extern __shared__ float4 smem_f4[];
   const PlaneBufs pb(reinterpret_cast<float2*>(smem_f4), H, W);
-  const int n = W / 2, wf = n + 1, log2n = log2w - 1;
+  const int wf = W / 2 + 1, log2n = log2w - 1;
   const int map = blockIdx.x / planes, plane = blockIdx.x - map * planes;
   const T* src = (map == 0 ? x0 : x1) + static_cast<size_t>(plane) * H * W;
 
   fill_twiddles(pb.tw_w, W);
   fill_twiddles(pb.tw_h, H);
-  // Row h's samples (2k, 2k+1) as complex k, at row bitrev(h), column
-  // bitrev(k): the input order of both decimation-in-time passes.
-  for (int i = threadIdx.x; i < H * n; i += kThreads) {
-    const int h = i >> log2n, k = i & (n - 1);
-    pb.buf[bit_reverse(h, log2h) * wf + bit_reverse(k, log2n)] =
-        make_float2(load_f32(src + 2 * i), load_f32(src + 2 * i + 1));
-  }
+  load_rows(pb.buf, src, H, log2h, wf, log2n);
   __syncthreads();
-  fft_pass<true, false, true>(pb.buf, H, wf, 1, log2n, pb.tw_w, 2);
-
-  // Untangle each row's half-length transform Z into the rDFT X over W:
-  // with E = (Z[k] + conj Z[n-k]) / 2 and O = (Z[k] - conj Z[n-k]) / 2i,
-  // X[k] = E + w^k O and X[n-k] = conj(E - w^k O), w = exp(-2 pi i / W).
-  const int pairs = n / 2 + 1;
-  for (int i = threadIdx.x; i < H * pairs; i += kThreads) {
-    const int r = i / pairs, k = i - r * pairs;
-    float2* row = pb.buf + r * wf;
-    const float2 zk = row[k], znk = row[(n - k) & (n - 1)];
-    const float2 e = make_float2(0.5f * (zk.x + znk.x), 0.5f * (zk.y - znk.y));
-    const float2 o = make_float2(0.5f * (zk.y + znk.y), -0.5f * (zk.x - znk.x));
-    const float2 wo = cmul(pb.tw_w[k], o);
-    row[k] = cadd(e, wo);
-    row[n - k] = cconj(csub(e, wo));
-  }
-  __syncthreads();
+  rdft_rows<false>(pb.buf, H, log2h, wf, log2n, pb.tw_w, nullptr);
   fft_pass<true, false, false>(pb.buf, wf, 1, wf, log2h, pb.tw_h, 1);
 
-  const int b = plane / C, c = plane - b * C;
   const size_t S = static_cast<size_t>(H) * wf;
-  float* o_re = out + (static_cast<size_t>(map) * planes * 2 +
-                       static_cast<size_t>(b) * 2 * C + c) * S;
-  float* o_im = o_re + C * S;
-  const float ortho = static_cast<float>(1.0 / sqrt(static_cast<double>(H) * W));
-  for (int i = threadIdx.x; i < H * wf; i += kThreads) {
-    const float2 v = pb.buf[i];
-    o_re[i] = v.x * ortho;
-    o_im[i] = v.y * ortho;
-  }
+  float* o_re = spectrum_planes(out, map, planes, plane, C, S);
+  store_spectrum<1>(o_re, o_re + C * S, pb.buf, H, wf, 0, ortho_scale(H, W));
 }
 
 // y = Re(eh . R . fw^T) / sqrt(HW) per plane of the (B, 2C, H, Wf) spectrum
@@ -265,7 +367,7 @@ fu_inverse_kernel(const float* __restrict__ spec, T* __restrict__ y, int C, int 
                   int W, int log2h, int log2w) {
   extern __shared__ float4 smem_f4[];
   const PlaneBufs pb(reinterpret_cast<float2*>(smem_f4), H, W);
-  const int n = W / 2, wf = n + 1, log2n = log2w - 1;
+  const int wf = W / 2 + 1, log2n = log2w - 1;
   const int plane = blockIdx.x, b = plane / C, d = plane - b * C;
   const size_t S = static_cast<size_t>(H) * wf;
   const float* s_re = spec + (static_cast<size_t>(b) * 2 * C + d) * S;
@@ -278,38 +380,128 @@ fu_inverse_kernel(const float* __restrict__ spec, T* __restrict__ y, int C, int 
   __syncthreads();
   // Inverse over H: row p of the result lands in row bitrev(p).
   fft_pass<false, true, false>(pb.buf, wf, 1, wf, log2h, pb.tw_h, 1);
+  irdft_rows(pb.buf, H, wf, log2n, pb.tw_w);
+  store_rows<1>(y + static_cast<size_t>(plane) * H * W, pb.buf, H, log2h, wf, log2n, 0,
+                ortho_scale(H, W));
+}
 
-  // Each row T[0..n] to the half-length sequence whose inverse transform
-  // gives the real row: with X[0] = Re T[0], X[n] = Re T[n], X[v] = T[v] / 2
-  // between (the Hermitian spectrum whose real inverse is the sum of
-  // Re(T[v] exp(+2 pi i q v / W)) over v <= n), A = X[k] + conj X[n-k],
-  // B = X[k] - conj X[n-k], u = exp(+2 pi i k / W):
-  // Z[k] = A + i u B and Z[n-k] = conj(A - i u B).
-  const int pairs = n / 2 + 1;
-  for (int i = threadIdx.x; i < H * pairs; i += kThreads) {
-    const int r = i / pairs, k = i - r * pairs;
-    float2* row = pb.buf + r * wf;
-    const float2 tk = row[k], tnk = row[n - k];
-    const float2 xk = k == 0 ? make_float2(tk.x, 0.f) : cscale(tk, 0.5f);
-    const float2 xnk = k == 0 ? make_float2(tnk.x, 0.f) : cscale(tnk, 0.5f);
-    const float2 a = make_float2(xk.x + xnk.x, xk.y - xnk.y);
-    const float2 bb = make_float2(xk.x - xnk.x, xk.y + xnk.y);
-    const float2 ub = cmul(cconj(pb.tw_w[k]), bb);
-    const float2 iub = make_float2(-ub.y, ub.x);
-    row[k] = cadd(a, iub);
-    if (k != 0) row[n - k] = cconj(csub(a, iub));
-  }
-  __syncthreads();
-  fft_pass<false, true, true>(pb.buf, H, wf, 1, log2n, pb.tw_w, 2);
+// Split planes. Where one block cannot hold an H x Wf plane, the plane runs
+// on a cluster of two blocks, each holding half of it: the first radix-2
+// stage over H, taken out of the column transform. Forward (decimation in
+// frequency over H), rows h < H/2: rank 0 transforms a[h] = x[h] + x[h+H/2]
+// and gets the even output rows X[2q], rank 1 d[h] = x[h] - x[h+H/2], times
+// exp(-2 pi i h / H) after its W-stage, and gets X[2q+1], each by the row
+// rDFT and length-H/2 column transforms. Inverse: A[k] = X[k] + X[k+H/2] on
+// rank 0 gives y rows 2q, B[k] = (X[k] - X[k+H/2]) exp(+2 pi i k / H) on
+// rank 1 rows 2q+1, by length-H/2 inverse column transforms and the row
+// pass. Each rank loads only its own half of the plane from device memory
+// (rows [rank H/2, (rank+1) H/2)), with plain loads, since they scatter to
+// bit-reversed or interleaved positions; after a cluster barrier each rank
+// takes half of the positions and, for each, reads the value of both ranks
+// (its partner's over distributed shared memory) and writes the two
+// combinations back, one to each rank. Every position is read and written
+// by one thread of the cluster, so no barrier separates the reads from the
+// writes; a second cluster barrier ends the exchange, after which each rank
+// works in its own shared memory, and no rank exits while its partner may
+// still reach its buffer. A split block holds 134 KB at 256 x 256, so one
+// runs per SM: it takes kSplitThreads threads, 32 warps, to cover the
+// latencies of its shared-memory passes and barriers, which the one-block
+// path's smaller planes cover with several blocks of kThreads per SM.
+constexpr int kSplitThreads = 1024;
 
-  T* out = y + static_cast<size_t>(plane) * H * W;
-  const float ortho = static_cast<float>(1.0 / sqrt(static_cast<double>(H) * W));
-  for (int i = threadIdx.x; i < H * n; i += kThreads) {
-    const int p = i >> log2n, k = i & (n - 1);
-    const float2 v = pb.buf[bit_reverse(p, log2h) * wf + bit_reverse(k, log2n)];
-    store_f32(out + 2 * i, v.x * ortho);
-    store_f32(out + 2 * i + 1, v.y * ortho);
+// Over positions i = rows * n or rows * wf of the two ranks' buffers b0 and
+// b1 (the rank's half of them): (v0, v1) -> (v0 + v1, twist(i, v0 - v1)).
+template <int kBlock, typename Pos, typename Twist>
+__device__ __forceinline__ void exchange_halves(cg::cluster_group& cluster, float2* buf,
+                                                int positions, Pos pos, Twist twist) {
+  const int rank = static_cast<int>(cluster.block_rank());
+  float2* peer = cluster.map_shared_rank(buf, rank ^ 1);
+  float2* b0 = rank == 0 ? buf : peer;
+  float2* b1 = rank == 0 ? peer : buf;
+  const int half = positions / 2, first = rank * half;
+  copy_in_flight<float4, kBlock>(
+      rank == 0 ? half : positions - half,
+      [=](int i) {
+        const int p = pos(first + i);
+        const float2 v0 = b0[p], v1 = b1[p];
+        return make_float4(v0.x, v0.y, v1.x, v1.y);
+      },
+      [=](int i, float4 v) {
+        const int j = first + i, p = pos(j);
+        const float2 v0 = make_float2(v.x, v.y), v1 = make_float2(v.z, v.w);
+        b0[p] = cadd(v0, v1);
+        b1[p] = twist(j, csub(v0, v1));
+      });
+  cluster.sync();
+}
+
+// fu_spectrum_kernel on split planes: grid 2 * n_maps * planes, clusters of
+// 2 along x, each cluster one plane.
+template <typename T>
+__global__ void __launch_bounds__(kSplitThreads)
+fu_spectrum_split_kernel(const T* __restrict__ x0, const T* __restrict__ x1,
+                         float* __restrict__ out, int planes, int C, int H, int W,
+                         int log2h, int log2w) {
+  extern __shared__ float4 smem_f4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int rows = H / 2, log2rows = log2h - 1;
+  const PlaneBufs pb(reinterpret_cast<float2*>(smem_f4), rows, W);
+  const int wf = W / 2 + 1, log2n = log2w - 1, n = W / 2;
+  const int id = blockIdx.x / 2, map = id / planes, plane = id - map * planes;
+  const T* src = (map == 0 ? x0 : x1) + static_cast<size_t>(plane) * H * W;
+
+  fill_twiddles<kSplitThreads>(pb.tw_w, W);
+  fill_twiddles<kSplitThreads>(pb.tw_h, H);
+  load_rows<kSplitThreads>(pb.buf, src + static_cast<size_t>(rank) * rows * W, rows, log2rows,
+                           wf, log2n);
+  cluster.sync();
+  // a on rank 0, d on rank 1, at the positions load_rows filled
+  exchange_halves<kSplitThreads>(
+      cluster, pb.buf, rows * n, [=](int i) { return (i >> log2n) * wf + (i & (n - 1)); },
+      [](int, float2 v) { return v; });
+  if (rank == 0) {
+    rdft_rows<false, kSplitThreads>(pb.buf, rows, log2rows, wf, log2n, pb.tw_w, pb.tw_h);
+  } else {
+    rdft_rows<true, kSplitThreads>(pb.buf, rows, log2rows, wf, log2n, pb.tw_w, pb.tw_h);
   }
+  fft_pass<true, false, false, kSplitThreads>(pb.buf, wf, 1, wf, log2rows, pb.tw_h, 2);
+
+  const size_t S = static_cast<size_t>(H) * wf;
+  float* o_re = spectrum_planes(out, map, planes, plane, C, S);
+  store_spectrum<2, kSplitThreads>(o_re, o_re + C * S, pb.buf, rows, wf, rank,
+                                   ortho_scale(H, W));
+}
+
+// fu_inverse_kernel on split planes: grid 2 * B * C, clusters of 2 along x.
+template <typename T>
+__global__ void __launch_bounds__(kSplitThreads)
+fu_inverse_split_kernel(const float* __restrict__ spec, T* __restrict__ y, int C, int H,
+                        int W, int log2h, int log2w) {
+  extern __shared__ float4 smem_f4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int rows = H / 2, log2rows = log2h - 1;
+  const PlaneBufs pb(reinterpret_cast<float2*>(smem_f4), rows, W);
+  const int wf = W / 2 + 1, log2n = log2w - 1;
+  const int plane = blockIdx.x / 2, b = plane / C, d = plane - b * C;
+  const size_t S = static_cast<size_t>(H) * wf;
+  const float* s_re = spec + (static_cast<size_t>(b) * 2 * C + d) * S + rank * rows * wf;
+  const float* s_im = s_re + C * S;
+
+  fill_twiddles<kSplitThreads>(pb.tw_w, W);
+  fill_twiddles<kSplitThreads>(pb.tw_h, H);
+  for (int i = threadIdx.x; i < rows * wf; i += kSplitThreads)
+    pb.buf[i] = make_float2(s_re[i], s_im[i]);
+  cluster.sync();
+  // A on rank 0, B on rank 1 (row k times exp(+2 pi i k / H))
+  const float2* tw_h = pb.tw_h;
+  exchange_halves<kSplitThreads>(cluster, pb.buf, rows * wf, [](int i) { return i; },
+                                 [=](int i, float2 v) { return cmul(cconj(tw_h[i / wf]), v); });
+  fft_pass<false, true, false, kSplitThreads>(pb.buf, wf, 1, wf, log2rows, pb.tw_h, 2);
+  irdft_rows<kSplitThreads>(pb.buf, rows, wf, log2n, pb.tw_w);
+  store_rows<2, kSplitThreads>(y + static_cast<size_t>(plane) * H * W, pb.buf, rows, log2rows,
+                               wf, log2n, rank, ortho_scale(H, W));
 }
 
 // The dense plane path's shared memory, in floats (16-byte aligned
@@ -836,9 +1028,10 @@ bool bad_map(int B, int C, int H, int W) {
 }
 
 // Planes neither transform takes: the dense stages need the factor tables,
-// 16-byte aligned.
-bool bad_plane(int B, int C, int H, int W, const float* tables) {
-  return bad_map(B, C, H, W) ||
+// 16-byte aligned; a split plane (ranks 2) is a power-of-two plane of H >= 8.
+bool bad_plane(int B, int C, int H, int W, const float* tables, int ranks) {
+  return bad_map(B, C, H, W) || (ranks != 1 && ranks != 2) ||
+         (ranks == 2 && (!radix2_plane(H, W) || H < 8)) ||
          (!radix2_plane(H, W) && (tables == nullptr || reinterpret_cast<size_t>(tables) % 16));
 }
 
@@ -854,6 +1047,8 @@ int ffc_allow_smem(int dtype, int bytes) {
     const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
     int e = cudaFuncSetAttribute(fu_spectrum_kernel<T>, attr, bytes);
     if (e == 0) e = cudaFuncSetAttribute(fu_inverse_kernel<T>, attr, bytes);
+    if (e == 0) e = cudaFuncSetAttribute(fu_spectrum_split_kernel<T>, attr, bytes);
+    if (e == 0) e = cudaFuncSetAttribute(fu_inverse_split_kernel<T>, attr, bytes);
     if (e == 0) e = cudaFuncSetAttribute(fu_spectrum_dense_kernel<T>, attr, bytes);
     if (e == 0) e = cudaFuncSetAttribute(fu_inverse_dense_kernel<T>, attr, bytes);
     for (int c2 = 16; c2 <= 128 && e == 0; c2 *= 2) {
@@ -878,19 +1073,34 @@ long long ffc_dense_plane_floats(int H, int W) {
   return DensePlan(ItemRank(1, H, W, 1)).total;
 }
 
+// Floats of shared memory a block of the radix-2 plane path takes at (H, W)
+// on `ranks` blocks a plane (1, or 2 on a split plane).
+long long ffc_radix2_plane_floats(int H, int W, int ranks) {
+  return static_cast<long long>(plane_smem_bytes(H, W, ranks) / sizeof(float));
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (of x0, x1). out: (n_maps, B, 2C, H, Wf)
 // float32, n_maps 1 (x1 unused) or 2. H and W powers of two (at least 4):
-// the radix-2 kernel, tables unused; else W even and tables the plane's
-// factor tables (16-byte aligned; ops/fourier_unit.py, _item_tables): the
-// dense kernel, ffc_dense_plane_floats(H, W) * 4 bytes of shared memory.
-// Every entry point returns a cudaError_t (0 on success).
+// the radix-2 kernel, tables unused, each plane on one block (ranks 1) or,
+// split over H, on a cluster of two (ranks 2, H at least 8),
+// ffc_radix2_plane_floats(H, W, ranks) * 4 bytes of shared memory a block;
+// else W even, ranks 1 and tables the plane's factor tables (16-byte
+// aligned; ops/fourier_unit.py, _item_tables): the dense kernel,
+// ffc_dense_plane_floats(H, W) * 4 bytes. Every entry point returns a
+// cudaError_t (0 on success).
 int ffc_fu_spectrum(int dtype, const void* x0, const void* x1, const float* tables, float* out,
-                    int n_maps, int B, int C, int H, int W, void* stream) {
-  if (bad_plane(B, C, H, W, tables) || n_maps < 1 || n_maps > 2 || (n_maps == 2 && !x1))
+                    int n_maps, int B, int C, int H, int W, int ranks, void* stream) {
+  if (bad_plane(B, C, H, W, tables, ranks) || n_maps < 1 || n_maps > 2 || (n_maps == 2 && !x1))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
+    if (ranks == 2) {
+      return launch_clustered<kSplitThreads>(fu_spectrum_split_kernel<T>, 2 * n_maps * B * C, 2,
+                              plane_smem_bytes(H, W, 2), s, static_cast<const T*>(x0),
+                              static_cast<const T*>(x1), out, B * C, C, H, W, log2_exact(H),
+                              log2_exact(W));
+    }
     if (radix2_plane(H, W)) {
       fu_spectrum_kernel<T><<<n_maps * B * C, kThreads, plane_smem_bytes(H, W), s>>>(
           static_cast<const T*>(x0), static_cast<const T*>(x1), out, B * C, C, H, W,
@@ -903,14 +1113,19 @@ int ffc_fu_spectrum(int dtype, const void* x0, const void* x1, const float* tabl
   });
 }
 
-// spec: (B, 2C, H, Wf) float32; y: (B, C, H, W) in dtype; planes and tables
-// as for ffc_fu_spectrum.
+// spec: (B, 2C, H, Wf) float32; y: (B, C, H, W) in dtype; planes, ranks and
+// tables as for ffc_fu_spectrum.
 int ffc_fu_inverse(int dtype, const float* spec, const float* tables, void* y, int B, int C,
-                   int H, int W, void* stream) {
-  if (bad_plane(B, C, H, W, tables)) return cudaErrorInvalidValue;
+                   int H, int W, int ranks, void* stream) {
+  if (bad_plane(B, C, H, W, tables, ranks)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<1>(dtype, 0, [&](auto tag, auto) {
     using T = typename decltype(tag)::type;
+    if (ranks == 2) {
+      return launch_clustered<kSplitThreads>(fu_inverse_split_kernel<T>, 2 * B * C, 2,
+                              plane_smem_bytes(H, W, 2), s, spec, static_cast<T*>(y), C, H, W,
+                              log2_exact(H), log2_exact(W));
+    }
     if (radix2_plane(H, W)) {
       fu_inverse_kernel<T><<<B * C, kThreads, plane_smem_bytes(H, W), s>>>(
           spec, static_cast<T*>(y), C, H, W, log2_exact(H), log2_exact(W));

@@ -85,8 +85,8 @@
 // (8,48,48), where one block's plan exceeds 227 KB, 178 KB, 216 KB and
 // 216 KB.
 //
-// Workspace, elsewhere (maps that no other design takes, e.g. the 256px
-// generator's (32,256,256)): one 256-thread block per item holds its
+// Workspace, elsewhere (maps that no other design takes, e.g. (12,64,64),
+// whose 2C is no staged width, or (32,512,512)): one 256-thread block per item holds its
 // buffers in the item's slice of a device workspace
 // (fourier_unit_common.cuh) and computes in f32 FMAs on the CUDA cores,
 // recomputing the spectrum from x instead of reading any saved

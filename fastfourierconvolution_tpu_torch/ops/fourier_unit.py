@@ -41,8 +41,10 @@ and the card's shared memory per block, how ``fourier_unit_forward``,
 ``fu_bwd_apply`` and the statistics (``fu_train_stats``, ``fu_bwd_stats``)
 run a map: their per-item kernel with the item in shared memory; else, on
 power-of-two planes, the staged kernels, which work per (item, channel)
-plane (radix-2 transforms) and per tile of spectral positions (the wrapper
-then launches those and not its own kernel); else their per-item kernel
+plane (radix-2 transforms, a plane on one block or, where it exceeds a
+block, split over two blocks of a cluster: :func:`plane_ranks`) and per
+tile of spectral positions (the wrapper then launches those and not its
+own kernel); else their per-item kernel
 with the item in shared memory where it fits once spread over a cluster's
 ranks; else the staged kernels with dense DFT transforms on planes of an
 even W; else (the statistics and the backward apply) their clustered
@@ -394,9 +396,11 @@ def _check_args(x, kernel, **vectors):
 # whether the one-block plan or only the per-rank plans fit, and its
 # workspace kernel, which keeps the item's buffers in its slice of an f32
 # device workspace (csrc/fourier_unit_common.cuh), where it is WORKSPACE:
-# no other design takes the map (the 256px generator's (32, 256, 256), for
-# one). The staged library also exports ffc_dense_plane_floats(H, W), the
-# dense plane path's plan that _dense_plane_floats mirrors.
+# no other design takes the map ((12, 64, 64), whose 2C is no staged width
+# and whose slices fit no cluster, for one). The staged library also exports
+# ffc_dense_plane_floats(H, W) and ffc_radix2_plane_floats(H, W, ranks), the
+# dense and the radix-2 plane paths' plans that _dense_plane_floats and
+# _radix2_plane_floats mirror.
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD, _TRAIN, _STAGED = "fourier_unit_fwd", "fourier_unit_train", "fourier_unit_staged"
@@ -421,8 +425,8 @@ _ENTRY_POINTS = {
         "ffc_fu_reduce": [_P, _I, _I, _LL, _I, _I, _P, _P],
     },
     _STAGED: {
-        "ffc_fu_spectrum": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "ffc_fu_inverse": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ffc_fu_spectrum": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "ffc_fu_inverse": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "ffc_fu_mix_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "ffc_fu_bwd_mix": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _LL, _P],
@@ -454,6 +458,8 @@ def _library(stem: str) -> ctypes.CDLL:
     if stem == _STAGED:
         lib.ffc_dense_plane_floats.argtypes = [_I, _I]
         lib.ffc_dense_plane_floats.restype = _LL
+        lib.ffc_radix2_plane_floats.argtypes = [_I, _I, _I]
+        lib.ffc_radix2_plane_floats.restype = _LL
     if stem in (_FWD, _TRAIN):
         # the plans of a whole FourierUnit (C, H, W[, R]), and their "_co"
         # forms of an out-channel slice (C, Co, H, W[, R])
@@ -537,15 +543,38 @@ def _dense_plane_floats(h: int, w: int) -> int:
     return 2 * _round4(2 * h * (w // 2 + 1)) + _round4(2 * w * (w // 2 + 1) + 2 * h * h)
 
 
-def _staged_smem(c: int, h: int, w: int, co: int = 0) -> int:
-    """Bytes of shared memory the largest staged kernel of the map takes:
-    one plane's transform (on a power-of-two plane its H x Wf complex
-    values with its twiddles, else the dense plan, ``_dense_plane_floats``),
-    or the backward mix stage's K (2C rows of 2Co + 1), its z and G tiles
-    (2C and 2Co rows) and six (2Co,) vectors (csrc/fourier_unit_staged.cu)."""
+def _radix2_plane_floats(h: int, w: int, ranks: int = 1) -> int:
+    """Floats of shared memory a block of the radix-2 plane path of
+    ``fu_spectrum`` and ``fu_inverse`` takes with the plane on ``ranks``
+    blocks (``PlaneBufs`` of csrc/fourier_unit_staged.cu): its H/ranks x Wf
+    complex values and the W/2 + H/2 twiddles; 266,240 B at 256 x 256 on
+    one block, 134,144 B on two."""
+    return 2 * ((h // ranks) * (w // 2 + 1) + w // 2 + h // 2)
+
+
+def plane_ranks(h: int, w: int, smem_limit: int) -> int:
+    """Blocks on which ``fu_spectrum`` and ``fu_inverse`` run an H x W
+    plane, a fixed rule: 2, a thread-block cluster on which the plane is
+    split over H (csrc/fourier_unit_staged.cu, "Split planes"), on a
+    power-of-two plane of H >= 8 whose one-block buffers
+    (``_radix2_plane_floats``) exceed ``smem_limit`` (at 227 KB, an H100:
+    256 x 256); else 1. A plane whose half still exceeds the limit (512 x
+    512) no staged kernel takes (``_staged_smem``)."""
+    split = radix2_plane(h, w) and h >= 8 and _radix2_plane_floats(h, w) * 4 > smem_limit
+    return 2 if split else 1
+
+
+def _staged_smem(c: int, h: int, w: int, smem_limit: int, co: int = 0) -> int:
+    """Bytes of shared memory the largest staged kernel of the map takes on
+    a card whose blocks may take ``smem_limit``: one plane's transform (on a
+    power-of-two plane a block's share of its complex values with the
+    twiddles, ``_radix2_plane_floats`` on :func:`plane_ranks` blocks, else
+    the dense plan, ``_dense_plane_floats``), or the backward mix stage's K
+    (2C rows of 2Co + 1), its z and G tiles (2C and 2Co rows) and six (2Co,)
+    vectors (csrc/fourier_unit_staged.cu)."""
     c2, co2 = 2 * c, 2 * (co or c)
     if radix2_plane(h, w):
-        plane = (h * (w // 2 + 1) + w // 2 + h // 2) * 8
+        plane = _radix2_plane_floats(h, w, plane_ranks(h, w, smem_limit)) * 4
     else:
         plane = _dense_plane_floats(h, w) * 4
     mix = (c2 * (co2 + 1) + (c2 + co2) * (_TILE + 1) + 6 * co2) * 4
@@ -557,7 +586,7 @@ def _staged_takes(c: int, h: int, w: int, co: int, smem_limit: int) -> bool:
     64, 128, C/Co one of 1, 2, 4, and their shared memory within the
     limit."""
     return (w >= 2 and w % 2 == 0 and 2 * c in (16, 32, 64, 128) and c // co in _STAGED_SLICES
-            and _staged_smem(c, h, w, co) <= smem_limit)
+            and _staged_smem(c, h, w, smem_limit, co) <= smem_limit)
 
 
 # The out-channel slice counts of the sliced design, fewest first.
@@ -598,7 +627,9 @@ def kernel_design(wrapper: str, c: int, h: int, w: int, smem_limit: int, co: int
        radix-2 transforms, wherever H and W are powers of two (at least 4)
        and the staged kernels take the map (``_staged_takes``: 2C one of
        16, 32, 64, 128, C/Co one of 1, 2, 4, their shared memory,
-       ``_staged_smem``, within the limit);
+       ``_staged_smem``, within the limit; a plane beyond one block's
+       shared memory split over two blocks, :func:`plane_ranks`, and one
+       whose half still exceeds it left to the clauses below);
     3. ``SHARED``: the clustered kernel wherever one rank's plan
        (``_item_rank_floats``) fits the limit on some cluster of
        ``_ITEM_RANKS`` ranks that divides C and Co, for every kernel the
@@ -621,8 +652,10 @@ def kernel_design(wrapper: str, c: int, h: int, w: int, smem_limit: int, co: int
     exceeds the limit, is ``SHARED`` on clusters of 2 ranks or more; the
     96px generator's (8, 96, 96) is ``STAGED`` on dense planes; the SN
     cDCGAN discriminator's (256, 4, 4) runs the forward ``SHARED`` and the
-    statistics and the backward apply ``SLICED`` on 2 slices; (32, 256,
-    256), whose plane fits no block, is ``WORKSPACE``."""
+    statistics and the backward apply ``SLICED`` on 2 slices; the 256px
+    generator's (32, 256, 256), whose plane fits no block, is ``STAGED``
+    on planes split over two blocks; (32, 512, 512), whose half-plane fits
+    no block either, and (12, 64, 64) (2C = 24), are ``WORKSPACE``."""
     co = co or c
     if _item_floats(_DESIGN_STEMS[wrapper], c, h, w, co) * 4 <= smem_limit:
         return SHARED
@@ -1161,19 +1194,23 @@ def _staged_launch(entry: str, on: torch.Tensor, dtype: torch.dtype, *args) -> N
     _launch(_STAGED, entry, on, code, *args)
 
 
-def _plane_tables(h: int, w: int, on: torch.Tensor):
-    """The factor tables the transforms' dense plane path reads (those of
+@functools.cache
+def _plane_launch(h: int, w: int, device_index: int, dtype_code: int):
+    """(tables, ranks) of a ``fu_spectrum`` or ``fu_inverse`` launch on H x W
+    planes: the factor tables the dense plane path reads (those of
     ``_item_tables``), or None on a power-of-two plane, whose radix-2 path
-    reads none."""
-    return None if radix2_plane(h, w) else _item_tables(h, w, on.device.index).data_ptr()
+    reads none; and :func:`plane_ranks` on the card's limit."""
+    tables = None if radix2_plane(h, w) else _item_tables(h, w, device_index).data_ptr()
+    return tables, plane_ranks(h, w, _smem_limit(_STAGED, device_index, dtype_code))
 
 
 @_counted
 def fu_spectrum(*maps):
     """[re; im] rfft2 of each (B, C, H, W) map (one or two, of one shape and
     dtype), stacked: (len(maps), B, 2C, H, Wf) f32; one launch of the
-    staged spectrum kernel on CUDA (radix-2 on a power-of-two plane, else
-    dense DFT stages, W even), the plain version on the CPU."""
+    staged spectrum kernel on CUDA (radix-2 on a power-of-two plane, each
+    plane on :func:`plane_ranks` blocks, else dense DFT stages, W even),
+    the plain version on the CPU."""
     x = maps[0]
     if not 1 <= len(maps) <= 2 or any(m.shape != x.shape or m.dtype != x.dtype for m in maps):
         raise ValueError("fu_spectrum takes one or two maps of one shape and dtype")
@@ -1188,8 +1225,9 @@ def fu_spectrum(*maps):
         raise ValueError("the FourierUnit kernels take contiguous tensors")
     b, c, h, w = x.shape
     out = torch.empty(len(maps), b, 2 * c, h, w // 2 + 1, device=x.device)
-    _staged_launch("ffc_fu_spectrum", x, x.dtype, x.data_ptr(), maps[-1].data_ptr(),
-                   _plane_tables(h, w, x), out.data_ptr(), len(maps), b, c, h, w)
+    tables, ranks = _plane_launch(h, w, x.device.index, _DTYPE_CODES[x.dtype])
+    _staged_launch("ffc_fu_spectrum", x, x.dtype, x.data_ptr(), maps[-1].data_ptr(), tables,
+                   out.data_ptr(), len(maps), b, c, h, w, ranks)
     _count(fu_spectrum, (c, h, w))
     return out
 
@@ -1258,8 +1296,9 @@ def fu_inverse(spec, dtype, w):
         return fu_inverse_plain(spec, dtype, w)
     b, c2, h, _ = spec.shape
     y = torch.empty(b, c2 // 2, h, w, dtype=dtype, device=spec.device)
-    _staged_launch("ffc_fu_inverse", spec, dtype, spec.data_ptr(), _plane_tables(h, w, spec),
-                   y.data_ptr(), b, c2 // 2, h, w)
+    tables, ranks = _plane_launch(h, w, spec.device.index, _DTYPE_CODES[dtype])
+    _staged_launch("ffc_fu_inverse", spec, dtype, spec.data_ptr(), tables, y.data_ptr(), b,
+                   c2 // 2, h, w, ranks)
     _count(fu_inverse, (c2 // 2, h, w))
     return y
 

@@ -58,13 +58,18 @@ STAGE_WRAPPERS = (tfu.fu_spectrum, tfu.fu_mix_apply, tfu.fu_inverse, tfu.fu_bwd_
     # 2C above 128: the statistics and the backward apply on 4 out-channel
     # slices (the workspace before the sliced design)
     ("bwd_apply", (128, 16, 16), H100_SMEM, tfu.SLICED),
+    # the 256px generator's 256 x 256, a plane beyond one block: staged on
+    # planes split over two blocks (the workspace before the split)
+    ("bwd_apply", (32, 256, 256), H100_SMEM, tfu.STAGED),
+    ("forward", (32, 256, 256), H100_SMEM, tfu.STAGED),
     # maps no other design takes: the per-item kernel's workspace
-    ("bwd_apply", (32, 256, 256), H100_SMEM, tfu.WORKSPACE),  # a plane beyond the limit
+    ("bwd_apply", (32, 512, 512), H100_SMEM, tfu.WORKSPACE),  # a half-plane beyond the limit
     ("bwd_apply", (12, 32, 32), H100_SMEM // 4, tfu.WORKSPACE),  # 2C not a multiple of 16
     ("forward", (12, 96, 96), H100_SMEM, tfu.WORKSPACE),  # 2C not a multiple of 16
     ("forward", (8, 108, 108), H100_SMEM, tfu.WORKSPACE),  # a dense plane beyond the limit
     # the statistics follow the backward apply's plan: per item at 32px,
-    # staged at all four 128px maps, the workspace where the stages do not go
+    # staged at all four 128px maps and at 256 x 256, the workspace where
+    # the stages do not go
     ("stats", (16, 16, 16), H100_SMEM, tfu.SHARED),
     ("stats", (8, 32, 32), H100_SMEM, tfu.SHARED),
     ("stats", (64, 16, 16), H100_SMEM, tfu.STAGED),
@@ -72,7 +77,8 @@ STAGE_WRAPPERS = (tfu.fu_spectrum, tfu.fu_mix_apply, tfu.fu_inverse, tfu.fu_bwd_
     ("stats", (32, 64, 64), H100_SMEM, tfu.STAGED),
     ("stats", (32, 128, 128), H100_SMEM, tfu.STAGED),
     ("stats", (8, 96, 96), H100_SMEM, tfu.STAGED),
-    ("stats", (32, 256, 256), H100_SMEM, tfu.WORKSPACE),
+    ("stats", (32, 256, 256), H100_SMEM, tfu.STAGED),
+    ("stats", (32, 512, 512), H100_SMEM, tfu.WORKSPACE),
 ])
 def test_kernel_design_by_map(wrapper, cmap, limit, design):
     assert tfu.kernel_design(wrapper, *cmap, limit) == design
@@ -86,12 +92,138 @@ def test_item_plans_are_the_documented_sizes():
     assert tfu._item_floats(tfu._TRAIN, 8, 32, 32) * 4 < H100_SMEM
 
 
+def test_split_plane_plan_is_the_documented_size():
+    """The radix-2 plane path's shared memory a block takes
+    (``_radix2_plane_floats``, csrc/fourier_unit_staged.cu's
+    ``PlaneBufs``): a 256 x 256 plane's 266,240 B on one block exceeds the
+    H100's 232,448 B, its half on each of two blocks takes 134,144 B, which
+    ``_staged_smem`` reads there (the mix stages at 2C = 64 take 51,456 B);
+    a 128 x 128 plane stays on one block (67,584 B)."""
+    assert tfu._radix2_plane_floats(256, 256) * 4 == 266240 > H100_SMEM
+    assert tfu._radix2_plane_floats(256, 256, 2) * 4 == 134144
+    assert tfu._radix2_plane_floats(128, 128) * 4 == 67584
+    assert tfu.plane_ranks(256, 256, H100_SMEM) == 2
+    assert tfu.plane_ranks(128, 128, H100_SMEM) == 1
+    assert tfu._staged_smem(32, 256, 256, H100_SMEM) == 134144
+    assert tfu._staged_smem(32, 128, 128, H100_SMEM) == 67584
+    assert tfu._staged_smem(32, 16, 16, H100_SMEM) == 51456
+
+
+def test_kernel_design_at_the_edges_of_the_split_planes():
+    """The split takes a power-of-two plane whose one-block buffers exceed
+    the limit and whose half fits it: (32, 256, 256) staged at 134,144 B and
+    not 1 B under it, on one block from 266,240 B; at the H100's limit 256
+    x 256 is the largest plane it takes, and neither 256 x 512, 512 x 256
+    nor 512 x 512 (266,240 B, 267,264 B and 530,432 B a half) fits, so those
+    stay on the workspace. Dense planes and planes of H < 8 are never
+    split; a tensor-parallel slice of (32, 256, 256) is split as the
+    whole."""
+    designs = lambda cmap, limit: [tfu.kernel_design(k, *cmap, limit)
+                                   for k in ("forward", "bwd_apply", "stats")]
+    assert designs((32, 256, 256), 134144) == ["staged"] * 3
+    assert designs((32, 256, 256), 134144 - 1) == ["workspace"] * 3
+    assert tfu.plane_ranks(256, 256, 266240 - 1) == 2
+    assert tfu.plane_ranks(256, 256, 266240) == 1
+    assert designs((32, 256, 256), 266240) == ["staged"] * 3
+    for h, w, half in ((256, 512, 266240), (512, 256, 267264), (512, 512, 530432)):
+        assert tfu._radix2_plane_floats(h, w, 2) * 4 == half > H100_SMEM
+        assert designs((32, h, w), H100_SMEM) == ["workspace"] * 3
+    assert tfu.plane_ranks(96, 96, 1) == 1
+    assert tfu.plane_ranks(4, 64, 1) == 1 and tfu.plane_ranks(8, 64, 1) == 2
+    # an out-channel slice (tensor parallelism) keeps the split planes
+    for co in (16, 8):
+        assert [tfu.kernel_design(k, 32, 256, 256, H100_SMEM, co)
+                for k in ("forward", "bwd_apply", "stats")] == ["staged"] * 3
+
+
+def _split_rfft2(x):
+    """The forward of a split plane in f64, as the two ranks of
+    csrc/fourier_unit_staged.cu compute it: each rank's half of the rows
+    loaded, the a/d combine over the positions of the two halves (each
+    rank taking half of the positions), the row rDFT, rank 1's rows times
+    exp(-2 pi i h / H), the length-H/2 column transforms, and rank r's row q
+    written as output row 2q + r; orthonormal, complex (B, C, H, Wf)."""
+    b, c, h, w = x.shape
+    rows = h // 2
+    buf = [x[:, :, r * rows:(r + 1) * rows].clone() for r in (0, 1)]
+    positions = rows * w  # the kernel's complex pairs are two of these
+    flat = [t.reshape(b, c, positions) for t in buf]
+    for rank in (0, 1):
+        lo, hi = rank * (positions // 2), (rank + 1) * (positions // 2)
+        v0, v1 = flat[0][..., lo:hi].clone(), flat[1][..., lo:hi].clone()
+        flat[0][..., lo:hi], flat[1][..., lo:hi] = v0 + v1, v0 - v1
+    twist = torch.exp(-2j * np.pi * torch.arange(rows, dtype=torch.float64) / h)[:, None]
+    out = torch.empty(b, c, h, w // 2 + 1, dtype=torch.complex128)
+    for rank in (0, 1):
+        rdft = torch.fft.rfft(flat[rank].reshape(b, c, rows, w), dim=-1)
+        out[:, :, rank::2] = torch.fft.fft(rdft * twist if rank else rdft, dim=-2)
+    return out / np.sqrt(h * w)
+
+
+def _split_irfft2(spec, w):
+    """The inverse's split over H in f64 on a complex (B, C, H, Wf) spectrum:
+    A = X[k] + X[k+H/2] on rank 0, B = (X[k] - X[k+H/2]) exp(+2 pi i k / H)
+    on rank 1 (each rank taking half of the positions), length-H/2 inverse
+    column transforms, rank r's row q as map row 2q + r; the row pass is
+    ``torch.fft.irfft``'s, orthonormal."""
+    b, c, h, wf = spec.shape
+    rows = h // 2
+    flat = [spec[:, :, r * rows:(r + 1) * rows].reshape(b, c, rows * wf).clone() for r in (0, 1)]
+    row_of = torch.arange(rows * wf) // wf
+    twist = torch.exp(2j * np.pi * row_of.double() / h)
+    for rank in (0, 1):
+        lo, hi = rank * (rows * wf // 2), (rank + 1) * (rows * wf // 2)
+        v0, v1 = flat[0][..., lo:hi].clone(), flat[1][..., lo:hi].clone()
+        flat[0][..., lo:hi], flat[1][..., lo:hi] = v0 + v1, (v0 - v1) * twist[lo:hi]
+    y = torch.empty(b, c, h, w, dtype=torch.float64)
+    for rank in (0, 1):
+        cols = torch.fft.ifft(flat[rank].reshape(b, c, rows, wf), dim=-2, norm="forward")
+        y[:, :, rank::2] = torch.fft.irfft(cols, n=w, dim=-1, norm="forward")
+    return y / np.sqrt(h * w)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 16, 16), (2, 3, 32, 64), (1, 2, 8, 4)])
+def test_split_plane_arithmetic_matches_torch_fft(shape):
+    """The split's combines, half-length transforms and row interleave,
+    emulated in f64, give ``torch.fft.rfft2`` and ``irfft2`` (orthonormal)
+    within 1e-12 rel-max; the exchange covers each position once (the two
+    ranks' halves)."""
+    x = torch.from_numpy(np.random.default_rng(50).normal(size=shape))
+    want = torch.fft.rfft2(x, norm="ortho")
+    got = _split_rfft2(x)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-12
+    y = _split_irfft2(want, shape[3])
+    assert ((y - x).abs().max() / x.abs().max()).item() <= 1e-12
+    assert (_split_irfft2(got, shape[3]) - torch.fft.irfft2(got, s=shape[2:], norm="ortho")
+            ).abs().max().item() <= 1e-12 * x.abs().max().item()
+
+
+def test_split_plane_size_plains_match_torch_fft():
+    """At the split plane's size, (1, 2, 256, 256), ``fu_spectrum_plain`` is
+    ``torch.fft.rfft2`` and ``fu_inverse_plain`` of the spectrum times the
+    half-spectrum weights (1 at DC and Nyquist, 2 between: the inverse
+    carries none) is ``irfft2``, orthonormal, in f64 within 1e-6 rel-max:
+    the plain versions multiply by the JAX package's f32 factor matrices
+    (``fourier.forward_factors``), whose rounding leaves about 3e-8 here,
+    and nothing else."""
+    x = torch.from_numpy(np.random.default_rng(51).normal(size=(1, 2, 256, 256)))
+    spec = tfu.fu_spectrum_plain(x)[0]
+    want = torch.fft.rfft2(x, norm="ortho")
+    got = torch.complex(spec[:, :2], spec[:, 2:])
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-6
+    y = tfu.fu_inverse_plain(torch.cat([want.real, want.imag], 1) * tfu._half_weights(spec),
+                             torch.float64, 256)
+    assert ((y - x).abs().max() / x.abs().max()).item() <= 1e-6
+
+
 @pytest.mark.parametrize("b,h,w,chunks", [
     (64, 128, 128, 8), (64, 64, 64, 8), (64, 32, 32, 8), (64, 16, 16, 3),
     (2, 128, 128, 130), (8, 64, 64, 33), (1024, 128, 128, 1),
     # 96 x 96: 74 tiles (the last half full); at batch 8, 64 runs of 2 tiles,
     # of which 37 hold tiles (the others write zero partial rows)
     (8, 96, 96, 64), (64, 96, 96, 8),
+    # 256 x 256: 516 tiles, 8 runs of 65 at batch 64 (the last of 61)
+    (64, 256, 256, 8), (8, 256, 256, 64),
 ])
 def test_staged_chunks_fill_the_card_with_whole_tiles(b, h, w, chunks):
     """Runs of 64-position tiles per item: 512 blocks over the batch, at

@@ -366,12 +366,14 @@ def test_packed_128px_training_step_runs_the_fused_and_large_map_kernels(cuda):
 
 
 # Maps that the staged kernels take, at batch 2: the 128px generator's
-# two largest, the 64px generator's largest (2C = 16) and the 96px
-# generator's 96 x 96 (dense DFT stages).
-STAGED_SHAPES = [(2, 32, 128, 128), (2, 32, 64, 64), (2, 8, 64, 64), (2, 8, 96, 96)]
+# two largest, the 64px generator's largest (2C = 16), the 96px
+# generator's 96 x 96 (dense DFT stages) and the 256px generator's 256 x
+# 256 (radix-2 planes split over two blocks).
+STAGED_SHAPES = [(2, 32, 128, 128), (2, 32, 64, 64), (2, 8, 64, 64), (2, 8, 96, 96),
+                 (2, 32, 256, 256)]
 # Each stage at every width it is built for: 2C = 64, 16, 32 and 128; and
 # at 96 x 96, 74 tiles of the mix stages (the last half full).
-STAGE_SHAPES = STAGED_SHAPES[1:] + [(2, 16, 32, 32), (2, 64, 16, 16)]
+STAGE_SHAPES = STAGED_SHAPES[1:4] + [(2, 16, 32, 32), (2, 64, 16, 16)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
@@ -449,7 +451,7 @@ def test_staged_stages_match_plain(cuda, name, shape):
 FU128_MAPS = [(2, 64, 16, 16), (2, 32, 32, 32), (2, 32, 64, 64), (2, 32, 128, 128)]
 
 
-@pytest.mark.parametrize("shape", FU128_MAPS + [(2, 8, 96, 96)])
+@pytest.mark.parametrize("shape", FU128_MAPS + [(2, 8, 96, 96), (2, 32, 256, 256)])
 def test_staged_training_op_matches_plain(cuda, shape):
     """The training op on a map whose statistics run staged, f32 (TF32
     off): y, bmean and bvar, and the gradients of x, kernel, scale and bias
@@ -490,6 +492,75 @@ def test_dense_transforms_match_plain(cuda, shape, dtype, tol):
     spectra within 1e-4 rel-max (the kernel computes in f32 from the
     map's values), y within ``tol`` (f32; bf16, which y is rounded to); one
     launch each, counted by map; two launches give the same bits."""
+    _check_transforms(cuda, shape, dtype, tol)
+
+
+# The 256px generator's 256 x 256 planes, which one block cannot hold: each
+# on a cluster of two blocks, split over H (``fourier_unit.plane_ranks``).
+SPLIT_SHAPES = [(2, 32, 256, 256)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_split_transforms_match_plain(cuda, shape, dtype, tol):
+    """``fu_spectrum`` of one and of two maps and ``fu_inverse`` on planes
+    split over two blocks, as the dense ones: within 1e-4 (the spectra; y
+    in f32) and ``tol`` (y in bf16) of the plain versions in f64, one launch
+    each, two launches the same bits."""
+    limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    assert fu.plane_ranks(*shape[2:], limit) == 2
+    _check_transforms(cuda, shape, dtype, tol)
+
+
+@pytest.mark.parametrize("t", [0, 1])
+def test_split_plane_slices_match_plain(cuda, t):
+    """Out-channel slice ``t`` of two (tensor parallelism, ``out_columns``)
+    at the 256 x 256 map, whose planes split over two blocks: the staged
+    design on the slice's plans, the four wrappers against their sliced
+    plain versions in f64 (gx the slice's part), f32, within 1e-4 rel-max,
+    the mix stage's launch counted under (C, H, W, Co)."""
+    shape, tp = (2, 32, 256, 256), 2
+    c, co = shape[1], shape[1] // tp
+    x, kernel, scale, bias, mean, var, gy, gscale, gbias = _train_case(
+        "fu_bwd_apply", shape, torch.float32, cuda)[2]
+    cols = fu.out_columns(c, t, tp).to(cuda)
+    v = lambda u: u[cols].contiguous()
+    args = (x, kernel[:, cols].contiguous(), v(scale), v(bias), v(mean), v(var),
+            gy[:, t * co:(t + 1) * co].contiguous(), v(gscale), v(gbias))
+    limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    assert all(fu.kernel_design(k, *shape[1:], limit, co) == fu.STAGED
+               for k in ("forward", "stats", "bwd_apply"))
+    key = (c, *shape[2:], co)
+    before = fu.fu_mix_apply.launches_by_map[key]
+    for wrapper, plain, a in ((fu.fourier_unit_forward, fu.fourier_unit_forward_plain, args[:6]),
+                              (fu.fu_train_stats, fu.fu_train_stats_plain, args[:2]),
+                              (fu.fu_bwd_stats, fu.fu_bwd_stats_plain, args[:7]),
+                              (fu.fu_bwd_apply, fu.fu_bwd_apply_plain, args)):
+        outs = wrapper(*a)
+        torch.cuda.synchronize()
+        refs = plain(*(u.double() for u in a))
+        outs, refs = (outs, refs) if isinstance(outs, tuple) else ((outs,), (refs,))
+        for out, ref in zip(outs, refs):
+            assert out.shape == ref.shape and torch.isfinite(out).all()
+            rel = ((out.double() - ref).abs().max() / ref.abs().max()).item()
+            assert rel <= 1e-4, (wrapper.__name__, rel)
+    assert fu.fu_mix_apply.launches_by_map[key] == before + 1
+
+
+def test_radix2_plane_plan_matches_the_library(cuda):
+    """The radix-2 plane path's shared memory that ``kernel_design`` reads
+    (``_radix2_plane_floats`` on ``plane_ranks`` blocks) is the kernels':
+    266,240 B a 256 x 256 plane on one block, 134,144 B on two."""
+    lib = fu._library(fu._STAGED)
+    for h, w in ((128, 128), (256, 256), (512, 512), (8, 64)):
+        for ranks in (1, 2):
+            assert lib.ffc_radix2_plane_floats(h, w, ranks) == fu._radix2_plane_floats(h, w, ranks)
+    assert lib.ffc_radix2_plane_floats(256, 256, 1) * 4 == 266240
+    assert lib.ffc_radix2_plane_floats(256, 256, 2) * 4 == 134144
+
+
+def _check_transforms(cuda, shape, dtype, tol):
     b, c, h, w = shape
     gen = torch.Generator().manual_seed(21)
     x, gy = (torch.randn(shape, generator=gen).to(cuda, dtype) for _ in range(2))

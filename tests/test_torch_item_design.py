@@ -42,7 +42,9 @@ THREADS = TILE["kItemThreads"]
 # planes that are no power of two (dense DFT stages, 186,624 B a plane), and
 # (256, 4, 4)'s backward apply and statistics until the sliced design ran
 # them on 2 out-channel slices (the clustered kernels on 8 ranks, 165,868 B a
-# rank of the backward apply). Every other answer is the one-block rule's
+# rank of the backward apply), and (32, 256, 256), whose 266,240 B plane fits
+# no block, until the staged kernels split such planes over two blocks
+# (134,144 B a block). Every other answer is the one-block rule's
 # (``one_block_design``).
 DESIGNS = {
     (16, 16, 16): ("shared", "shared", "shared"),
@@ -56,7 +58,7 @@ DESIGNS = {
     (32, 32, 32): ("staged", "staged", "staged"),
     (32, 64, 64): ("staged", "staged", "staged"),
     (32, 128, 128): ("staged", "staged", "staged"),
-    (32, 256, 256): ("workspace", "workspace", "workspace"),
+    (32, 256, 256): ("staged", "staged", "staged"),
     (128, 8, 8): ("shared", "shared", "shared"),
     (256, 4, 4): ("shared", "sliced", "sliced"),
 }
@@ -81,26 +83,28 @@ def test_kernel_design_answers_do_not_move(cmap):
 
 def one_block_design(wrapper, c, h, w, smem_limit):
     """The design rule before it read the per-rank plans: SHARED where the
-    one-block plan fits, else STAGED where the staged kernels take the map,
-    else WORKSPACE."""
+    one-block plan fits, else STAGED where the staged kernels take the map
+    with every plane on one block, else WORKSPACE."""
     if fu._item_floats(fu._DESIGN_STEMS[wrapper], c, h, w) * 4 <= smem_limit:
         return "shared"
     pow2 = lambda v: v >= 4 and v & (v - 1) == 0
-    if (pow2(h) and pow2(w) and 2 * c in (16, 32, 64, 128)
-            and fu._staged_smem(c, h, w) <= smem_limit):
+    # a limit no plane exceeds: the staged kernels' bytes with one block a plane
+    one_block = fu._staged_smem(c, h, w, 1 << 40)
+    if pow2(h) and pow2(w) and 2 * c in (16, 32, 64, 128) and one_block <= smem_limit:
         return "staged"
     return "workspace"
 
 
 # The answers that the clauses after the one-block rule's moved, from
-# "workspace": reading the per-rank plans, the dense staged planes and the
-# sliced design.
+# "workspace": reading the per-rank plans, the dense staged planes, the
+# sliced design and the split planes.
 MOVED = {("bwd_apply", (8, 48, 48)): "shared", ("stats", (8, 48, 48)): "shared",
          **{(k, (128, 8, 8)): "shared" for k in ("forward", "bwd_apply", "stats")},
          ("forward", (256, 4, 4)): "shared",
          ("forward", (8, 96, 96)): "staged", ("bwd_apply", (8, 96, 96)): "staged",
          ("stats", (8, 96, 96)): "staged",
-         ("bwd_apply", (256, 4, 4)): "sliced", ("stats", (256, 4, 4)): "sliced"}
+         ("bwd_apply", (256, 4, 4)): "sliced", ("stats", (256, 4, 4)): "sliced",
+         **{(k, (32, 256, 256)): "staged" for k in ("forward", "bwd_apply", "stats")}}
 
 
 @pytest.mark.parametrize("cmap", list(DESIGNS))
@@ -109,7 +113,8 @@ def test_kernel_design_moves_only_the_48px_training_kernels(cmap):
     on the per-rank plans (8, 48, 48)'s backward apply and statistics,
     (128, 8, 8)'s three and (256, 4, 4)'s forward, on dense staged planes
     (8, 96, 96)'s three, sliced (256, 4, 4)'s backward apply and
-    statistics; each of which the one-block rule sent to the workspace."""
+    statistics, on split staged planes (32, 256, 256)'s three; each of which
+    the one-block rule sent to the workspace."""
     for k in ("forward", "bwd_apply", "stats"):
         old = one_block_design(k, *cmap, H100_SMEM)
         if (k, cmap) in MOVED:
@@ -208,7 +213,7 @@ def test_kernel_design_at_the_edges_of_the_dense_planes():
     designs = lambda cmap, limit: [fu.kernel_design(k, *cmap, limit)
                                    for k in ("forward", "bwd_apply", "stats")]
     plan = fu._dense_plane_floats(96, 96) * 4
-    assert plan == fu._staged_smem(8, 96, 96) == 186624
+    assert plan == fu._staged_smem(8, 96, 96, H100_SMEM) == 186624
     assert designs((8, 96, 96), plan) == ["staged"] * 3
     assert designs((8, 96, 96), plan - 1) == ["workspace"] * 3
     assert fu._dense_plane_floats(106, 106) * 4 == 227264 <= H100_SMEM
@@ -225,8 +230,8 @@ def test_kernel_design_at_the_edges_of_the_sliced_design():
     slice's backward apply fits 8 ranks (165,868 B), T = 4 1 B under that
     (99,948 B), T = 8 under that (66,988 B), and the workspace 1 B under
     every slice's plan; at the H100's 232,448 B T = 2, each slice on 8 ranks
-    at batch 64. A map no slice helps, (32, 256, 256), stays on the
-    workspace."""
+    at batch 64. A map no slice helps and no staged plane takes, (32, 512,
+    512), stays on the workspace."""
     designs = lambda limit: [fu.kernel_design(k, 256, 4, 4, limit)
                              for k in ("forward", "bwd_apply", "stats")]
     assert designs(H100_SMEM) == ["shared", "sliced", "sliced"]
@@ -247,8 +252,8 @@ def test_kernel_design_at_the_edges_of_the_sliced_design():
             for k in ("forward", "bwd_apply", "stats")] == ["shared"] * 3
     assert fu.kernel_design("bwd_apply", 128, 16, 16, H100_SMEM) == "sliced"
     assert fu.slice_count(128, 16, 16, H100_SMEM) == 4
-    assert fu.kernel_design("stats", 32, 256, 256, H100_SMEM) == "workspace"
-    assert fu.slice_count(32, 256, 256, H100_SMEM) == 0
+    assert fu.kernel_design("stats", 32, 512, 512, H100_SMEM) == "workspace"
+    assert fu.slice_count(32, 512, 512, H100_SMEM) == 0
 
 
 def _shared_kernels(cmap):

@@ -1,7 +1,8 @@
 """The port's model presets against the JAX package's (CPU, f32).
 
 The 48 and 96px discriminators (the 32 and 64px ladders with a head of
-side 6), the discriminator without spectral norm over one-channel images,
+side 6), the 256px pair (six generator blocks, a ten-layer discriminator
+ladder), the discriminator without spectral norm over one-channel images,
 and the generator's generic ``mg·2^n`` ladder. Variables come from the JAX
 models' shapes with seeded values (test_torch_ffc's ``seeded_variables``)
 and reach the port through the bridge; inputs are numpy arrays from a seed.
@@ -81,11 +82,16 @@ def test_narrow_48px_pair_matches_jax():
         assert _rel_max(logits, ref) <= LOGIT_TOL
 
 
-@pytest.mark.parametrize("resolution", [48, 96])
+# The discriminator head's side at each preset resolution: mg x mg x 512.
+HEAD_SIDE = {48: 6, 96: 6, 256: 4}
+
+
+@pytest.mark.parametrize("resolution", [48, 96, 256])
 def test_48_and_96px_presets_build_with_jax_shapes(resolution):
-    """The full-width generator and discriminator presets: the bridge takes
-    every JAX leaf once, each in the shape the port wants, and fills every
-    port entry (it raises otherwise)."""
+    """The full-width generator and discriminator presets (and the 256px
+    pair, ``for_resolution(256)``): the bridge takes every JAX leaf once,
+    each in the shape the port wants, and fills every port entry (it raises
+    otherwise)."""
     z, images = np.zeros((2, 128), np.float32), np.zeros((2, resolution, resolution, 3), np.float32)
     for jmodel, model, x in (
         (jffc_gan.FFCGenerator.for_resolution(resolution), FFCGenerator.for_resolution(resolution), z),
@@ -98,7 +104,26 @@ def test_48_and_96px_presets_build_with_jax_shapes(resolution):
         assert set(state) == set(model.state_dict())
         assert sum(t.numel() for t in state.values()) == sum(
             np.size(a) for a in jax.tree_util.tree_leaves(variables))
-    assert model.fc.weight.shape == (1, 6 * 6 * 512)
+    side = HEAD_SIDE[resolution]
+    assert model.fc.weight.shape == (1, side * side * 512)
+
+
+def test_narrow_256px_generator_matches_jax():
+    """``for_resolution(256, z_size=32, ngf=16)`` (the 256px ladder, six
+    blocks, ratio 0.5; packed as the JAX default from 128px) from bridged
+    JAX weights, eval mode at batch 1: its five FourierUnit maps up to 256 x
+    256 take the plain versions here, and the images are within 1e-4
+    rel-max of JAX's."""
+    cfg = dict(z_size=32, ngf=16)
+    jg = jffc_gan.FFCGenerator.for_resolution(256, **cfg)
+    z = np.random.default_rng(33).normal(size=(1, 32)).astype(np.float32)
+    g_vars = _variables(jg, z, seed=34)
+    images = np.asarray(jax.jit(lambda v, z: jg.apply(v, z, False))(g_vars, z))
+    port_g = FFCGenerator.for_resolution(256, **cfg)
+    state = jax_to_state_dict(port_g, g_vars["params"], g_vars["batch_stats"])
+    ours = Generator(port_g, state, device="cpu", dtype="f32").generate(z, uint8=False).numpy()
+    assert ours.shape == images.shape == (1, 256, 256, 3) and images.std() > 0.05
+    assert _rel_max(ours, images) <= IMAGE_TOL
 
 
 def test_discriminator_without_sn_over_one_channel_matches_jax():
