@@ -51,8 +51,8 @@ Phases, each of which raises on a failed check:
    kernel also on a map whose planes are no multiple of 16 bytes, two
    launches giving the same bits; ``bn_stats`` and ``bn_bwd_reduce`` in one
    launch each (no ``fu_reduce``), ``bn_stats`` with its host µs per call
-   beside ``torch.var_mean``'s; the apply's grid against the blocks the
-   card holds at once;
+   beside ``torch.var_mean``'s; the apply's and the dx kernel's grids
+   against the blocks the card holds at once;
 9. the FourierUnit kernels at the 128px generator's four maps, whose
    items exceed a block's shared memory, checked as in phases 3 and 5:
    the forward, the statistics, the backward sums and the backward apply
@@ -332,7 +332,9 @@ it is held against (it needs two cards), and ``python3 chip_smoke.py 32``
 phase 32 alone, and ``python3 chip_smoke.py 32d`` (four cards) fgan32 as
 dp 2 x tp 2 processes over NCCL against one process, then the graph
 parity of ``update_steps`` with the tp collectives captured, in the
-group; ``python3 chip_smoke.py 33`` runs phase 33 alone.
+group; ``python3 chip_smoke.py 33`` runs phase 33 alone, ``python3
+chip_smoke.py 8`` phase 8 alone (the fused BN + GELU kernels at the 128px
+packed maps).
 """
 
 from __future__ import annotations
@@ -1432,27 +1434,35 @@ STATS_TAIL_SHAPE = (BATCH, 192, 10, 10)
 
 def bn_design(name, noise, shape, x):
     """(the launch that ``name``'s wrapper picks for ``x``, as text; False
-    where the apply's grid holds less than one full wave of the blocks the
-    card holds at once, by the occupancy calculator's count for the built
-    kernel)."""
+    where the apply's or the dx kernel's grid holds less than one full wave
+    of the blocks the card holds at once, by the occupancy calculator's
+    count for the built kernel)."""
     from fastfourierconvolution_tpu_torch.ops import bn_act as ba
 
     b, c, h, w = shape
-    if name == "bn_gelu_apply":
-        vec, tile, group = ba.apply_design(b, c, h * w, x.element_size())
-        grid = ba.apply_blocks(b, c, h * w, x.element_size(), vec, tile, group)
-        per_sm = ba.apply_blocks_per_sm(x.dtype, noise, vec, tile)
+    if name in ("bn_gelu_apply", "bn_bwd_dx"):
+        if name == "bn_gelu_apply":
+            vec, tile, group = ba.apply_design(b, c, h * w, x.element_size())
+            grid = ba.apply_blocks(b, c, h * w, x.element_size(), vec, tile, group)
+            per_sm = ba.apply_blocks_per_sm(x.dtype, noise, vec, tile)
+            launch = f"groups of {group}"
+        else:
+            vec, lanes, group, cluster = ba.dx_design(b, c, h * w, x.element_size(),
+                                                      noise=noise)
+            tile = 256
+            grid = ba.dx_blocks(b, c, h * w, x.element_size(), vec, lanes, group, cluster)
+            per_sm = ba.dx_blocks_per_sm(x.dtype, noise, vec, lanes, group)
+            launch = (f"{lanes} threads a unit, groups of {group}"
+                      + (f" as the ranks of clusters of {cluster}" if noise else ""))
         wave = 132 * per_sm
         full = per_sm > 0 and grid[0] * grid[1] >= wave
-        return (f"{'16-byte' if vec else 'element-wise'} units, blocks of {tile}, groups of "
-                f"{group}: grid {grid[0]} x {grid[1]} = {grid[0] * grid[1]} blocks, the card "
-                f"holds {per_sm} per SM ({wave} on 132 SMs): full wave {full}"), full
-    if name in ("bn_stats", "bn_bwd_reduce"):
-        design = ba.stats_design if name == "bn_stats" else ba.bwd_reduce_design
-        vec, cluster = design(b, c, h * w, x.element_size())
-        return (f"one launch, {'16-byte' if vec else 'element-wise'} loads, clusters of "
-                f"{cluster}"), True
-    return "a row per thread, grid.y 2", True
+        return (f"{'16-byte' if vec else 'element-wise'} units, blocks of {tile}, {launch}: "
+                f"grid {grid[0]} x {grid[1]} = {grid[0] * grid[1]} blocks, the card holds "
+                f"{per_sm} per SM ({wave} on 132 SMs): full wave {full}"), full
+    design = ba.stats_design if name == "bn_stats" else ba.bwd_reduce_design
+    vec, cluster = design(b, c, h * w, x.element_size())
+    return (f"one launch, {'16-byte' if vec else 'element-wise'} loads, clusters of "
+            f"{cluster}"), True
 
 
 def check_bn_act(device, shapes=PACKED_SHAPES + [STATS_TAIL_SHAPE], phase="training-128px"):
@@ -6059,6 +6069,8 @@ def run() -> int:
             tensor_parallel_4(device, card)
         elif sys.argv[1] == "33":
             jax_checkpoint(device, card)
+        elif sys.argv[1] == "8":
+            log(json.dumps({"kernels": check_bn_act(device)}))
         elif sys.argv[1] == "96":
             log(json.dumps({"kernels": pair_96(device, card)[0]}))
         elif sys.argv[1] == "256":

@@ -81,18 +81,40 @@
 // widens the groups while at least two waves remain. Planes that are no
 // multiple of 16 bytes, or unaligned maps, take units of one value.
 //
-// dx: one thread per row, looping over the channels of its half of the map
-// (grid.y = 2: channels below `split`, and from `split` on; split = cl in the
-// noise variant), so that neighbouring threads read neighbouring addresses
-// of each plane, the row's dn_l / dn_g stay in a register. The per-channel
-// vectors (mean, isc, bias, p, q, w) sit in shared memory. Bytes bound it:
-// it reads x and g and writes dx, 12.6-805 MB, 3.8-240 us.
+// Design of bn_bwd_dx (replaces _bwd_dx and _bwd_dx_noise,
+// ops/pallas/bn_act.py:252-281, 470-519). Bytes bound it: one read of x and
+// of g and one write of dx, 12.6-805 MB at the 128px generator's packed maps
+// in bf16 (3.2 GB at the 256px generator's (64,128,256,256)), 3.8-240 us at
+// 3.35 TB/s, against about 45 instructions per element with tanhf's. The
+// grid is the apply's, over (tile of positions, group of channels): a
+// thread owns one 16-byte unit of one item's positions and walks channels
+// of its block's group, each a 16-byte load of x and of g and a 16-byte
+// store of dx, four channels' loads in flight (two for bf16 with the noise
+// fold); the block's per-channel mean, isc, bias, p, q and w sit in shared
+// memory. With the noise fold, dn_l and dn_g sum every channel of a
+// position: `lanes` threads share each unit, each with its share of the
+// channels (at most 16 a thread, up to a warp of lanes), and where the
+// grid still holds less than a wave the channels are split over the ranks
+// of a thread-block cluster (up to 8) that covers all C of them. The sums
+// are taken in one order on every launch, with no float atomics, no
+// scratch map and no second launch: per thread in channel order (the
+// channels below cl, then those from cl on), the lanes of a warp by a
+// shuffle tree, the warps in order in shared memory, then the ranks in
+// rank order over distributed shared memory, each rank adding and writing
+// its share of the tile's positions. A fixed rule (dx_design) picks the
+// launch: 256-thread blocks, at least one full wave of them (3 a SM, the
+// kernel's registers), the lanes and ranks as above; without noise a
+// thread a unit and the channels of a block doubled while two waves
+// remain. Planes that are no multiple of 16 bytes, or unaligned maps, take
+// units of one value.
 //
 // The GELU and the apply's affine map are computed operation by operation
 // with round-to-nearest intrinsics (no FMA contraction), in the plain
 // version's order.
 
+#include <algorithm>
 #include <initializer_list>
+#include <tuple>
 
 #include "common.cuh"
 
@@ -122,12 +144,6 @@ __device__ __forceinline__ float gelu_tanh_grad(float u) {
 template <typename T>
 __device__ __forceinline__ float affine(float xv, float mean, float isc, float bias) {
   return round_to<T>(__fadd_rn(__fmul_rn(__fsub_rn(xv, mean), isc), bias));
-}
-
-// Offset of row r (= b * hw + p) of channel c.
-__device__ __forceinline__ size_t at(long long r, int c, int C, int hw) {
-  const long long b = r / hw;
-  return static_cast<size_t>((b * C + c) * hw + (r - b * hw));
 }
 
 __device__ __forceinline__ unsigned word(const uint4& r, int i) {
@@ -436,54 +452,181 @@ bn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ g,
     for (int k = 0; k < N; ++k) out[k * C + c] = v[k];
 }
 
+// Channels whose loads of x and g a thread of bn_bwd_dx_kernel keeps in
+// flight: four, and two for bf16 with the noise fold, whose eight sums a
+// unit take registers too; and the kernel's blocks an SM holds at least
+// (its registers kept at 80 a thread or fewer: 70-76 as built, so 3).
 template <typename T, bool kNoise>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kDxUnroll = kNoise && sizeof(T) == 2 ? 2 : 4;
+constexpr int kDxMinBlocks = 3;
+
+// bn_bwd_dx_kernel's shared memory, in floats: the group's six per-channel
+// vectors; with the noise fold the block's sums, [side][value][unit] (side
+// 0 the channels below cl), and where lanes share a unit the rows of the
+// lanes' sums, [row][side][value][unit] (a row a warp, or a lane where a
+// lane is whole warps).
+template <int kN>
+size_t dx_smem_floats(bool noise, int lanes, int group) {
+  const int units = kThreads / lanes;
+  const int rows = lanes > 1 ? kThreads / std::max(units, 32) : 0;
+  return 6 * static_cast<size_t>(group) +
+         (noise ? static_cast<size_t>(2 + 2 * rows) * units * kN : 0);
+}
+
+// dx for channels [ka, kb) of the block's group at one unit (`at`: the
+// offset of its first value in channel ka's plane, per channel `hw` more),
+// kDxUnroll channels' loads in flight; with the noise fold adds g * w to
+// acc, channel by channel.
+template <typename T, bool kVec, bool kNoise>
+__device__ __forceinline__ void dx_channels(const T* __restrict__ x, const T* __restrict__ g,
+                                            T* __restrict__ dx, size_t at, int hw, int ka,
+                                            int kb, const float* __restrict__ vec, int group,
+                                            float (&acc)[Unit<T, kVec>::kN]) {
+  using U = Unit<T, kVec>;
+  constexpr int kN = U::kN, kUnroll = kDxUnroll<T, kNoise>;
+  const float *s_mean = vec, *s_isc = vec + group, *s_bias = vec + 2 * group,
+              *s_p = vec + 3 * group, *s_q = vec + 4 * group, *s_w = vec + 5 * group;
+  for (int k = ka; k < kb; k += kUnroll) {
+    U xu[kUnroll], gu[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (k + u < kb) {
+        xu[u].load(x + at + static_cast<size_t>(k - ka + u) * hw);
+        gu[u].load(g + at + static_cast<size_t>(k - ka + u) * hw);
+      }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int s = k + u;
+      if (s >= kb) break;
+      float d[kN];
+#pragma unroll
+      for (int i = 0; i < kN; ++i) {
+        const float xv = xu[u].get(i), gv = gu[u].get(i);
+        const float xm = __fsub_rn(xv, s_mean[s]);
+        const float du = gv * gelu_tanh_grad(affine<T>(xv, s_mean[s], s_isc[s], s_bias[s]));
+        d[i] = s_isc[s] * du + s_p[s] + s_q[s] * xm;
+        if constexpr (kNoise) acc[i] = fmaf(gv, s_w[s], acc[i]);
+      }
+      U o;
+      o.pack(d);
+      o.store(dx + at + static_cast<size_t>(k - ka + u) * hw);
+    }
+  }
+}
+
+// A 1-D grid of (position tile, channel group) blocks, the group fastest:
+// block = tile index * groups + group. A block of kThreads threads takes
+// U = kThreads / lanes units of 16 bytes (or of one value) of the items'
+// planes, unit q = tile index * U + (thread % U) (q = b * units + j), and
+// `lanes` threads share each unit: lane thread / U walks its share of the
+// group's channels. With the noise fold the grid's groups are the ranks of
+// a cluster along x, which covers every channel: each thread walks its
+// channels below cl and then those from cl on, summing g * w over each run
+// per value of its unit, in channel order; the lanes of a warp add theirs
+// by a shuffle tree, the rows (warps) are added in order in shared memory,
+// and each rank then adds the ranks' block sums, in rank order over
+// distributed shared memory, for its share of the tile's dn_l and dn_g.
+template <typename T, bool kVec, bool kNoise>
+__global__ void __launch_bounds__(kThreads, kDxMinBlocks)
 bn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
                  const float* __restrict__ mean, const float* __restrict__ var,
                  const float* __restrict__ scale, const float* __restrict__ bias,
                  const float* __restrict__ s1, const float* __restrict__ s2,
                  const float* __restrict__ g_mean, const float* __restrict__ g_var,
                  const float* __restrict__ w, T* __restrict__ dx, T* __restrict__ dn_l,
-                 T* __restrict__ dn_g, long long rows, float count, int C, int hw,
-                 int split) {
-  extern __shared__ float vec[];  // mean, isc, bias, p, q, w: 6C
-  float *s_mean = vec, *s_isc = vec + C, *s_bias = vec + 2 * C, *s_p = vec + 3 * C,
-        *s_q = vec + 4 * C, *s_w = vec + 5 * C;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
+                 T* __restrict__ dn_g, int B, int C, int hw, int cl, float count, int group,
+                 int groups, int lanes) {
+  constexpr int kN = Unit<T, kVec>::kN;
+  extern __shared__ float smem[];  // the vectors: mean, isc, bias, p, q, w
+  const unsigned tile_index = blockIdx.x / groups;
+  const int c0 = static_cast<int>(blockIdx.x % groups) * group;
+  const int n_ch = max(0, min(C, c0 + group) - c0);  // a trailing rank may hold none
+  for (int k = threadIdx.x; k < n_ch; k += blockDim.x) {
+    const int c = c0 + k;
     const float inv = rsqrtf(__fadd_rn(var[c], kEps)), isc = __fmul_rn(inv, scale[c]);
-    s_mean[c] = mean[c];
-    s_isc[c] = isc;
-    s_bias[c] = bias[c];
-    s_p[c] = (-isc * s1[c] + (g_mean ? g_mean[c] : 0.f)) / count;
-    s_q[c] = (-isc * inv * s2[c] + 2.f * (g_var ? g_var[c] : 0.f)) / count;
-    if (kNoise) s_w[c] = w[c];
+    smem[k] = mean[c];
+    smem[group + k] = isc;
+    smem[2 * group + k] = bias[c];
+    smem[3 * group + k] = (-isc * s1[c] + (g_mean ? g_mean[c] : 0.f)) / count;
+    smem[4 * group + k] = (-isc * inv * s2[c] + 2.f * (g_var ? g_var[c] : 0.f)) / count;
+    if (kNoise) smem[5 * group + k] = w[c];
   }
   __syncthreads();
-  const long long r = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (r >= rows) return;
-  const bool upper = blockIdx.y == 1;
-  const int c0 = upper ? split : 0, c1 = upper ? C : split;
-  const size_t base = at(r, 0, C, hw);
-  float dn = 0.f;
-  for (int c = c0; c < c1; ++c) {
-    const size_t i = base + static_cast<size_t>(c) * hw;
-    const float xv = load_f32(x + i), gv = load_f32(g + i);
-    const float xm = __fsub_rn(xv, s_mean[c]);
-    const float du = gv * gelu_tanh_grad(affine<T>(xv, s_mean[c], s_isc[c], s_bias[c]));
-    store_f32(dx + i, s_isc[c] * du + s_p[c] + s_q[c] * xm);
-    if (kNoise) dn = fmaf(gv, s_w[c], dn);
+  const int per_block = blockDim.x / lanes;
+  const int j = threadIdx.x % per_block, lane = threadIdx.x / per_block;
+  const unsigned units = static_cast<unsigned>(hw / kN);
+  const unsigned q = tile_index * per_block + j;
+  const bool valid = q < static_cast<unsigned>(B) * units;
+  const int per = (group + lanes - 1) / lanes;
+  const int k0 = min(n_ch, lane * per), k1 = min(n_ch, k0 + per);
+  size_t first = 0;  // channel c0's value 0 of unit q
+  if (valid) {
+    const unsigned b = q / units;
+    first = (static_cast<size_t>(b) * C + c0) * hw + (q - b * units) * kN;
   }
-  if (kNoise) store_f32((upper ? dn_g : dn_l) + r, dn);
-}
-
-bool bad_dims(long long rows, int C, int hw, int split) {
-  return rows <= 0 || C <= 0 || hw <= 0 || split < 0 || split > C;
+  float acc[kN];
+  if constexpr (!kNoise) {
+    if (valid) dx_channels<T, kVec, false>(x, g, dx, first + static_cast<size_t>(k0) * hw, hw,
+                                           k0, k1, smem, group, acc);
+  } else {
+    // part[(side * kN + i) * U + j]: this block's sums of value i of unit j
+    float* part = smem + 6 * group;
+    float* rows = part + 2 * kN * per_block;
+    const int row_threads = max(per_block, 32);
+    const int kc = min(max(cl - c0, k0), k1);  // the first of the thread's channels from cl on
+#pragma unroll 1
+    for (int side = 0; side < 2; ++side) {
+      const int ka = side ? kc : k0, kb = side ? k1 : kc;
+#pragma unroll
+      for (int i = 0; i < kN; ++i) acc[i] = 0.f;
+      if (valid)
+        dx_channels<T, kVec, true>(x, g, dx, first + static_cast<size_t>(ka) * hw, hw, ka, kb,
+                                   smem, group, acc);
+      if (lanes == 1) {
+#pragma unroll
+        for (int i = 0; i < kN; ++i) part[(side * kN + i) * per_block + j] = acc[i];
+        continue;
+      }
+      // the lanes of a warp (32 / U of them where U < 32) by a shuffle tree
+      for (int off = 16; off >= per_block; off >>= 1)
+#pragma unroll
+        for (int i = 0; i < kN; ++i) acc[i] += __shfl_down_sync(0xffffffffu, acc[i], off);
+      if (threadIdx.x % 32 < per_block) {
+        const int row = threadIdx.x / row_threads;
+#pragma unroll
+        for (int i = 0; i < kN; ++i) rows[((row * 2 + side) * kN + i) * per_block + j] = acc[i];
+      }
+    }
+    if (lanes > 1) {  // then the rows (warps, or lanes of whole warps) in row order
+      __syncthreads();
+      const int n_rows = blockDim.x / row_threads, n = 2 * kN * per_block;
+      for (int p = threadIdx.x; p < n; p += blockDim.x) {
+        float s = 0.f;
+        for (int r = 0; r < n_rows; ++r) s += rows[r * n + p];
+        part[p] = s;
+      }
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every rank's block sums are in its shared memory
+    const int ranks = static_cast<int>(cluster.num_blocks());
+    const int n = 2 * kN * per_block, share = (n + ranks - 1) / ranks;
+    const int p0 = static_cast<int>(cluster.block_rank()) * share, p1 = min(n, p0 + share);
+    const size_t total = static_cast<size_t>(B) * units * kN;
+    for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
+      float s = 0.f;
+      for (int r = 0; r < ranks; ++r) s += cluster.map_shared_rank(part, r)[p];
+      const int v = p / per_block, ju = p % per_block;  // v = side * kN + i
+      const size_t pos = (static_cast<size_t>(tile_index) * per_block + ju) * kN + v % kN;
+      if (pos < total) store_f32((v < kN ? dn_l : dn_g) + pos, s);
+    }
+    cluster.sync();  // no block leaves while another rank reads its shared memory
+  }
 }
 
 // A (B, C, hw) map whose B * hw positions index with 32-bit integers.
 bool bad_map(int B, int C, int hw, int cl) {
-  return B <= 0 || hw <= 0 || static_cast<long long>(B) * hw > 0x7fffffffLL ||
-         bad_dims(1, C, hw, cl);
+  return B <= 0 || C <= 0 || hw <= 0 || static_cast<long long>(B) * hw > 0x7fffffffLL ||
+         cl < 0 || cl > C;
 }
 
 // Whether every non-null map pointer is 16-byte aligned.
@@ -502,7 +645,23 @@ int with_vec(int vec, F f) {
   return cudaErrorInvalidValue;
 }
 
-dim3 row_grid(long long rows) { return dim3(static_cast<unsigned>((rows + kThreads - 1) / kThreads), 2); }
+bool pow2_in(int v, int lo, int hi) { return v >= lo && v <= hi && (v & (v - 1)) == 0; }
+
+// bn_bwd_dx_kernel<T, kVec, kNoise>, its dynamic shared memory for the
+// launch (lanes, group) in bytes, allowed above 48 KB. Calls f(kernel,
+// bytes) and returns what f returns, or the attribute's error.
+template <typename T, bool kVec, bool kNoise, typename F>
+int with_dx_kernel(int lanes, int group, F f) {
+  auto kernel = bn_bwd_dx_kernel<T, kVec, kNoise>;
+  const size_t bytes =
+      dx_smem_floats<Unit<T, kVec>::kN>(kNoise, lanes, group) * sizeof(float);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return f(kernel, bytes);
+}
 
 }  // namespace
 
@@ -600,27 +759,75 @@ int ffc_bn_bwd_reduce(int dtype, int noise, const void* x, const void* g,
   });
 }
 
-// s1, s2: the sums of ffc_bn_bwd_reduce over `count` rows (rows, or the
+// s1, s2: the sums of ffc_bn_bwd_reduce over `count` rows (B * hw, or the
 // rows of every process of a data-parallel group); g_mean, g_var: (C,) or
-// null for zero; with noise, w is given, split = cl and dn_l, dn_g are
-// written.
+// null for zero; with noise, w is given and dn_l (channels below cl), dn_g
+// are written. vec: as for the apply, over x, g and dx. Blocks of kThreads
+// threads; lanes: threads that share a unit, a power of two up to
+// kThreads; group: channels per block. Without noise the grid holds
+// ceil(C / group) groups and cluster is 1; with noise the groups are the
+// `cluster` ranks (1, 2, 4 or 8) of one cluster, cluster * group >= C.
 int ffc_bn_bwd_dx(int dtype, int noise, const void* x, const void* g, const float* mean,
                   const float* var, const float* scale, const float* bias,
                   const float* s1, const float* s2, const float* g_mean,
                   const float* g_var, const float* w, void* dx, void* dn_l, void* dn_g,
-                  long long rows, long long count, int C, int hw, int split,
-                  void* stream) {
-  if (bad_dims(rows, C, hw, split) || count <= 0) return cudaErrorInvalidValue;
+                  int B, int C, int hw, int cl, long long count, int vec, int lanes,
+                  int group, int cluster, void* stream) {
+  if (bad_map(B, C, hw, cl) || count <= 0 || !pow2_in(lanes, 1, kThreads) || group < 1 ||
+      !cluster_size_ok(cluster) ||
+      (noise ? static_cast<long long>(cluster) * group < C : cluster != 1))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = 6 * static_cast<size_t>(C) * sizeof(float);
   return dispatch<2>(dtype, noise, [&](auto tag, auto flag) {
     using T = typename decltype(tag)::type;
-    bn_bwd_dx_kernel<T, decltype(flag)::value == 1><<<row_grid(rows), kThreads, smem, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), mean, var, scale, bias, s1, s2,
-        g_mean, g_var, w, static_cast<T*>(dx), static_cast<T*>(dn_l),
-        static_cast<T*>(dn_g), rows, static_cast<float>(count), C, hw, split);
-    return static_cast<int>(cudaGetLastError());
+    constexpr bool kNoise = decltype(flag)::value == 1;
+    return with_vec(vec, [&](auto vflag) {
+      constexpr bool kVec = decltype(vflag)::value;
+      if (kVec && (static_cast<size_t>(hw) * sizeof(T) % 16 != 0 || !aligned16({x, g, dx})))
+        return static_cast<int>(cudaErrorInvalidValue);
+      const long long units = static_cast<long long>(B) * (hw / Unit<T, kVec>::kN);
+      const int per_block = kThreads / lanes;
+      const int groups = kNoise ? cluster : (C + group - 1) / group;
+      const long long blocks = (units + per_block - 1) / per_block * groups;
+      if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+      return with_dx_kernel<T, kVec, kNoise>(lanes, group, [&](auto kernel, size_t bytes) {
+        const auto args = std::make_tuple(
+            static_cast<const T*>(x), static_cast<const T*>(g), mean, var, scale, bias, s1, s2,
+            g_mean, g_var, w, static_cast<T*>(dx), static_cast<T*>(dn_l),
+            static_cast<T*>(dn_g), B, C, hw, cl, static_cast<float>(count), group, groups,
+            lanes);
+        if (kNoise)  // the groups are a cluster's ranks
+          return std::apply([&](auto... a) {
+            return launch_clustered(kernel, static_cast<unsigned>(blocks), cluster, bytes, s,
+                                    a...);
+          }, args);
+        std::apply([&](auto... a) {
+          kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, s>>>(a...);
+        }, args);
+        return static_cast<int>(cudaGetLastError());
+      });
+    });
   });
+}
+
+// Blocks of the dx kernel's launch (lanes, group) that one SM holds at once
+// (the occupancy calculator's answer for this build, with the launch's
+// shared memory), or -1 on an error.
+int ffc_bn_bwd_dx_blocks_per_sm(int dtype, int noise, int vec, int lanes, int group) {
+  if (!pow2_in(lanes, 1, kThreads) || group < 1) return -1;
+  int blocks = -1;
+  const int err = dispatch<2>(dtype, noise, [&](auto tag, auto flag) {
+    using T = typename decltype(tag)::type;
+    constexpr bool kNoise = decltype(flag)::value == 1;
+    return with_vec(vec, [&](auto vflag) {
+      constexpr bool kVec = decltype(vflag)::value;
+      return with_dx_kernel<T, kVec, kNoise>(lanes, group, [&](auto kernel, size_t bytes) {
+        return static_cast<int>(
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, bytes));
+      });
+    });
+  });
+  return err == 0 ? blocks : -1;
 }
 
 const char* ffc_error_string(int code) {

@@ -28,7 +28,9 @@ launch, a thread-block cluster per channel as :func:`stats_design`
 picks, and ``bn_bwd_reduce`` from (x, g[, n_l, n_g]) to its sums in one
 launch the same way (:func:`bwd_reduce_design`); ``bn_gelu_apply``
 launches a grid of position tiles and channel groups that
-:func:`apply_design` picks.
+:func:`apply_design` picks, and ``bn_bwd_dx`` one of the same kind that
+:func:`dx_design` picks, whose groups, with the noise fold, are the ranks of
+a cluster that sums dn_l and dn_g over every channel.
 
 ``packed_bn_gelu(x, scale, bias)`` and ``packed_bn_gelu_noise(x, scale,
 bias, w, n_l, n_g, cl)`` are the autograd ops the model calls: each
@@ -214,7 +216,7 @@ _ENTRY_POINTS = {
     "ffc_bn_bwd_reduce": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                           _P],
     "ffc_bn_bwd_dx": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _LL, _LL, _I, _I, _I, _P],
+                      _I, _I, _I, _I, _LL, _I, _I, _I, _I, _P],
 }
 
 
@@ -223,6 +225,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.library("bn_act")
     lib.ffc_bn_gelu_apply_blocks_per_sm.argtypes = [_I, _I, _I, _I]
     lib.ffc_bn_gelu_apply_blocks_per_sm.restype = _I
+    lib.ffc_bn_bwd_dx_blocks_per_sm.argtypes = [_I, _I, _I, _I, _I]
+    lib.ffc_bn_bwd_dx_blocks_per_sm.restype = _I
     lib.ffc_error_string.argtypes = [_I]
     lib.ffc_error_string.restype = ctypes.c_char_p
     for name, argtypes in _ENTRY_POINTS.items():
@@ -335,6 +339,85 @@ def apply_blocks_per_sm(dtype: torch.dtype, noise: bool, vec: bool, tile: int) -
                                                         int(vec), tile)
 
 
+# bn_bwd_dx's launch: 256 threads a block (csrc's kThreads); the blocks one
+# SM holds of the kernel as built, by the occupancy calculator (H100, sm_90a): 3 with
+# 16-byte units (70-80 registers a thread; its __launch_bounds__ keeps 3 at
+# least), and for units of one value (40-56 registers, 5-6 blocks) the 8
+# that the SM's 2048 threads allow, a count that errs toward more blocks.
+# With the noise fold a unit's channels are split over up to a warp of
+# threads while one thread would walk more than 16 of them.
+_DX_TILE = 256
+_DX_BLOCKS_PER_SM = {True: 3, False: 8}
+_DX_WARP, _DX_MAX_CHANNELS = 32, 16
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def dx_wave(vec: bool) -> int:
+    """Blocks of the dx kernel that 132 SMs hold at once."""
+    return _SMS * _DX_BLOCKS_PER_SM[vec]
+
+
+def dx_blocks(b: int, c: int, hw: int, itemsize: int, vec: bool, lanes: int, group: int,
+              cluster: int):
+    """The dx kernel's grid, (position tiles, channel groups): 256 //
+    ``lanes`` units a block (16 bytes with ``vec``, else one value, of one
+    item's plane), ``lanes`` threads a unit; ceil(C / group) groups, or with
+    the noise fold (``cluster`` > 1) the cluster's ranks, the last ones
+    empty where ``cluster * group`` exceeds C."""
+    units = b * (hw // (16 // itemsize if vec else 1))
+    return -(-units // (_DX_TILE // lanes)), cluster if cluster > 1 else -(-c // group)
+
+
+@functools.cache
+def dx_design(b: int, c: int, hw: int, itemsize: int, aligned: bool = True,
+              noise: bool = False):
+    """``(vec, lanes, group, cluster)`` of :func:`bn_bwd_dx`'s kernel on a
+    (B, C, H·W) map; a fixed rule, not a knob. vec as in
+    :func:`stats_design` (over x, g and dx); 256-thread blocks, whose wave
+    is :func:`dx_wave`. Without the noise fold a thread a unit, no cluster,
+    and ``group`` channels a block, doubled from 1 while the grid keeps at
+    least two waves. With it dn_l and dn_g sum every channel of a unit:
+    ``lanes`` threads share the unit, doubled from 1 up to a warp while the
+    grid holds less than one wave or a thread walks more than 16 channels;
+    then, while the grid still holds less than a wave, the channels are
+    split over the ranks of a cluster, doubled from 1 up to 8 (``group`` =
+    ceil(C / ranks) channels a rank, at least a channel a lane); then the
+    lanes double on, up to one channel a thread."""
+    vec = aligned and hw * itemsize % 16 == 0
+    wave = dx_wave(vec)
+    blocks = lambda lanes, group, cluster: math.prod(
+        dx_blocks(b, c, hw, itemsize, vec, lanes, group, cluster))
+    short = lambda lanes, group, cluster: blocks(lanes, group, cluster) < wave
+    if not noise:
+        group = 1
+        while group < c and blocks(1, 2 * group, 1) >= 2 * wave:
+            group *= 2
+        return vec, 1, group, 1
+    lanes = cluster = 1
+    while lanes < min(_DX_WARP, _pow2_ceil(c)) and (short(lanes, c, 1)
+                                                    or -(-c // lanes) > _DX_MAX_CHANNELS):
+        lanes *= 2
+    while (cluster < min(_CLUSTER_MAX, _pow2_ceil(c)) and -(-c // (2 * cluster)) >= lanes
+           and short(lanes, -(-c // cluster), cluster)):
+        cluster *= 2
+    group = -(-c // cluster)
+    while lanes < min(_DX_TILE, _pow2_ceil(group)) and short(lanes, group, cluster):
+        lanes *= 2
+    return vec, lanes, group, cluster
+
+
+def dx_blocks_per_sm(dtype: torch.dtype, noise: bool, vec: bool, lanes: int,
+                     group: int) -> int:
+    """Blocks of the built dx kernel, at the launch (lanes, group) and its
+    shared memory, that one SM of the current card holds at once (CUDA's
+    occupancy calculator)."""
+    return _library().ffc_bn_bwd_dx_blocks_per_sm(_DTYPE_CODES[dtype], int(noise), int(vec),
+                                                    lanes, group)
+
+
 # --- kernel wrappers --------------------------------------------------------------
 
 
@@ -413,8 +496,9 @@ def bn_bwd_reduce(x, g, mean, var, scale, bias, n_l=None, n_g=None, cl=None):
 def bn_bwd_dx(x, g, mean, var, scale, bias, s1, s2, g_mean=None, g_var=None, w=None,
               cl=None):
     """dx, or (dx, dn_l, dn_g) with ``w`` (see :func:`bn_bwd_dx_plain`);
-    the dx kernel on CUDA. Under a process group s1 and s2 are the global
-    batch's sums and the kernel takes the global count."""
+    one launch of the dx kernel on CUDA, as :func:`dx_design` picks. Under
+    a process group s1 and s2 are the global batch's sums and the kernel
+    takes the global count."""
     noise = w is not None
     _check(x, [("g", g, tuple(x.shape))],
            [("mean", mean), ("var", var), ("scale", scale), ("bias", bias), ("s1", s1),
@@ -427,11 +511,13 @@ def bn_bwd_dx(x, g, mean, var, scale, bias, s1, s2, g_mean=None, g_var=None, w=N
     dn_l = dn_g = None
     if noise:
         dn_l, dn_g = (x.new_empty((b, 1) + tuple(x.shape[2:])) for _ in range(2))
+    vec, lanes, group, cluster = dx_design(b, c, hw, x.element_size(), _aligned(x, g, dx),
+                                           noise)
     _launch("ffc_bn_bwd_dx", x, _DTYPE_CODES[x.dtype], int(noise), x.data_ptr(),
             g.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), s1.data_ptr(), s2.data_ptr(), _ptr(g_mean), _ptr(g_var),
-            _ptr(w), dx.data_ptr(), _ptr(dn_l), _ptr(dn_g), b * hw,
-            parallel.global_count(b * hw), c, hw, cl if noise else c // 2)
+            _ptr(w), dx.data_ptr(), _ptr(dn_l), _ptr(dn_g), b, c, hw, cl if noise else c,
+            parallel.global_count(b * hw), int(vec), lanes, group, cluster)
     _count(bn_bwd_dx, tuple(x.shape[1:]))
     return (dx, dn_l, dn_g) if noise else dx
 

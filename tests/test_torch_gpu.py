@@ -917,6 +917,46 @@ def test_bn_gelu_apply_groups_that_straddle_cl(cuda, monkeypatch):
     assert ((out.double() - ref).abs().max() / ref.abs().max()).item() <= 1e-5
 
 
+# (shape, dtype, launch (lanes, group, cluster) or the rule's), cl = 5
+# inside a rank: ranks of 2, 3 and 6 channels, two empty ranks, lanes
+# inside a warp and lanes of whole warps; an odd map, (3, 11, 10, 10) in
+# bf16 (planes of 200 bytes: units of one value).
+DX_STRADDLE_CASES = [((4, 12, 16, 16), torch.float32, (16, 3, 4)),
+                     ((4, 12, 16, 16), torch.float32, (2, 6, 2)),
+                     ((4, 12, 16, 16), torch.float32, (32, 2, 8)),
+                     ((4, 12, 16, 16), torch.float32, (4, 3, 4)),
+                     ((3, 11, 10, 10), torch.bfloat16, "rule"),
+                     ((3, 11, 10, 10), torch.bfloat16, (8, 2, 8))]
+
+
+@pytest.mark.parametrize("shape,dtype,launch", DX_STRADDLE_CASES, ids=str)
+def test_bn_bwd_dx_groups_that_straddle_cl(cuda, monkeypatch, shape, dtype, launch):
+    """The noise fold's dn_l and dn_g summed across a cluster's ranks whose
+    channel groups straddle cl: dx, dn_l and dn_g within 1e-5 rel-max of
+    the f64 plain version (f32) or 2 bf16 ulps of the plain version on the
+    same inputs (bf16), the same bits on two launches, one launch a call."""
+    x, gy, mean, var, scale, bias, wn, _ = _reduce_args(shape, dtype, cuda, False)
+    s1, s2 = (t.float() for t in ba.bn_bwd_reduce_plain(x, gy, mean, var, scale, bias,
+                                                         sum_dtype=torch.float64)[:2])
+    g_mean, g_var = torch.randn(2, shape[1], generator=torch.Generator().manual_seed(9)).to(cuda)
+    args = (x, gy, mean, var, scale, bias, s1, s2, g_mean, g_var, wn, 5)
+    vec = ba.dx_design(shape[0], shape[1], shape[2] * shape[3], x.element_size(), True,
+                       True)[0]
+    if launch != "rule":
+        monkeypatch.setattr(ba, "dx_design", lambda *a: (vec,) + launch)
+    before = ba.bn_bwd_dx.launches
+    outs = ba.bn_bwd_dx(*args)
+    torch.cuda.synchronize()
+    assert ba.bn_bwd_dx.launches == before + 1
+    if dtype == torch.float32:
+        refs = ba.bn_bwd_dx_plain(*(a.double() if torch.is_tensor(a) else a for a in args))
+        for out, ref in zip(outs, refs):
+            assert ((out.double() - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+    else:
+        assert all(_within_bf16_ulps(o, r) for o, r in zip(outs, ba.bn_bwd_dx_plain(*args)))
+    assert all(torch.equal(a, b) for a, b in zip(outs, ba.bn_bwd_dx(*args)))
+
+
 @pytest.mark.parametrize("noise", [False, True], ids=["plain", "noise"])
 @pytest.mark.parametrize("where", ["tail", "unaligned"])
 def test_apply_and_reduce_take_element_wise_loads(cuda, where, noise):
